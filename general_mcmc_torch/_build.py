@@ -1,0 +1,113 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) under ``general_mcmc_torch/_build/``.  The file name carries a
+hash of the sources, so an edited source is rebuilt and a stale library is
+never loaded.  Nothing is built when the package is imported: the CPU tests
+import every module, and this machine may have no ``nvcc``.  A failed build
+raises with the compiler's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["load", "build", "check", "BuildError", "compile_log", "OUT_DIR"]
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+OUT_DIR = _PKG / "_build"
+_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    # no contraction of a*b + c into one rounding: the kernels' elementwise
+    # arithmetic then rounds as the plain PyTorch versions' separate ops do
+    "-fmad=false",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# name -> the compiler's output of the build done in this process (ptxas
+# register and spill report); empty for a library found already built.
+compile_log: dict[str, str] = {}
+
+
+class BuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise BuildError("nvcc not found: the CUDA kernels build only on a machine "
+                     "with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = _CSRC / f"{name}.cu"
+    if not src.exists():
+        raise BuildError(f"no CUDA source {src}")
+    h = hashlib.sha256()
+    for f in [src] + sorted(_CSRC.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(_FLAGS).encode())
+    return OUT_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build(names) -> dict[str, Path]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that is not yet built,
+    one ``nvcc`` process per source, all started together.  Returns the
+    library paths."""
+    targets = {n: _target(n) for n in names}
+    todo = {n: p for n, p in targets.items() if not p.exists()}
+    if not todo:
+        return targets
+    nvcc = _nvcc()
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for n, p in todo.items():
+        tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    errors = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        compile_log[n] = out
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on csrc/{n}.cu (rc {proc.returncode}):\n{out}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, todo[n])
+    if errors:
+        raise BuildError("\n".join(errors))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            lib.gmt_error_string.argtypes = [ctypes.c_int]
+            lib.gmt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = lib.gmt_error_string(code).decode(errors="replace")
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,153 @@
+"""Built-in targets of this slice: ``GaussianND`` and ``DiffableGaussian2D``.
+
+Port of ``general_mcmc_tpu/models/distributions.py``.  The JAX targets are
+per-state functions ``logp(x: [dim]) -> scalar`` that the samplers vmap and
+differentiate.  The port's targets take a batch instead:
+``unnorm_logp(x: [n, dim]) -> [n]`` and, where a target has one,
+``unnorm_logp_grad(x: [n, dim]) -> [n, dim]``.  A bare callable target must
+follow the same batch convention; its gradient comes from autograd.
+
+Each target keeps its parameters as tensors and computes in the dtype and
+on the device of the states it is given (``to`` moves it once, so that a
+sampler does not convert the parameters at every call).  Row sums are
+accumulated in float64 and rounded once (:func:`rowsum`), as the fused CUDA
+kernel accumulates them, so that a float32 run and the kernel make the same
+accept decisions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["GaussianND", "DiffableGaussian2D", "as_logp_fn", "as_grad_fn",
+           "as_value_and_grad", "rowsum"]
+
+
+def rowsum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, accumulated in float64 and returned in
+    ``v``'s dtype: the result is the correctly rounded sum whatever the
+    order of the additions, so the plain version and the kernel agree."""
+    return torch.sum(v, dim=-1, dtype=torch.float64).to(v.dtype)
+
+
+def as_logp_fn(target):
+    """Coerce a target (batch callable or object with ``unnorm_logp``) to a
+    batch log-density function."""
+    if callable(target) and not hasattr(target, "unnorm_logp"):
+        return target
+    return target.unnorm_logp
+
+
+def as_grad_fn(target):
+    """The target's analytic batch gradient ``unnorm_logp_grad`` if it has
+    one, else ``None``: with it, leapfrog interiors skip the log-density
+    reduce.  It must agree with the autograd gradient of ``unnorm_logp``."""
+    fn = getattr(target, "unnorm_logp_grad", None)
+    return fn if callable(fn) else None
+
+
+def as_value_and_grad(target):
+    """``x [n, dim] -> (logp [n], grad [n, dim])``: the analytic gradient
+    where the target has one, else autograd of the summed log density (the
+    counterpart of ``jax.vmap(jax.value_and_grad(logp))``)."""
+    logp = as_logp_fn(target)
+    grad = as_grad_fn(target)
+    if grad is not None:
+        return lambda x: (logp(x), grad(x))
+
+    def value_and_grad(x):
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            lp = logp(xr)
+            (g,) = torch.autograd.grad(lp.sum(), xr)
+        return lp.detach(), g
+
+    return value_and_grad
+
+
+def _tensor(x, dtype=None, device=None):
+    t = torch.as_tensor(x, device=device)
+    if dtype is not None:
+        t = t.to(dtype)
+    elif not t.dtype.is_floating_point:
+        t = t.to(torch.float32)
+    return t
+
+
+class GaussianND:
+    """N-dimensional Gaussian, the benchmark target.  ``cov`` is either a
+    1-D vector of standard deviations (diagonal form) or a full covariance
+    matrix (Cholesky form: ``diffᵀΣ⁻¹diff = ‖L⁻¹diff‖²``, no explicit
+    inverse)."""
+
+    def __init__(self, mean, cov, dtype=None, device=None):
+        self.mean = _tensor(mean, dtype, device)
+        self.cov = _tensor(cov, dtype, device)
+        if self.cov.ndim == 1:
+            self.diag_prec = 1.0 / self.cov**2  # cov given as std-dev scales
+            self.chol = None
+        else:
+            self.diag_prec = None
+            self.chol = torch.linalg.cholesky(self.cov)
+
+    @property
+    def is_diagonal(self) -> bool:
+        return self.diag_prec is not None
+
+    def to(self, device=None, dtype=None) -> "GaussianND":
+        """This target with its parameters on ``device`` in ``dtype``."""
+        out = object.__new__(GaussianND)
+        for name in ("mean", "cov", "diag_prec", "chol"):
+            v = getattr(self, name)
+            setattr(out, name, None if v is None else v.to(device=device, dtype=dtype))
+        return out
+
+    def unnorm_logp(self, x):
+        diff = x - self.mean
+        if self.diag_prec is not None:
+            return -0.5 * rowsum(diff * diff * self.diag_prec)
+        y = torch.linalg.solve_triangular(self.chol, diff.unsqueeze(-1), upper=False)
+        return -0.5 * rowsum(y.squeeze(-1) ** 2)
+
+    def unnorm_logp_grad(self, x):
+        """Analytic ∇logp = −Σ⁻¹(x − μ) per row."""
+        diff = x - self.mean
+        if self.diag_prec is not None:
+            return -diff * self.diag_prec
+        y = torch.linalg.solve_triangular(self.chol, diff.unsqueeze(-1), upper=False)
+        return -torch.linalg.solve_triangular(self.chol.mT, y, upper=True).squeeze(-1)
+
+    __call__ = unnorm_logp
+
+
+class DiffableGaussian2D:
+    """2-D Gaussian with precomputed inverse covariance and normalizing
+    constant; returns the *normalized* log density, as the JAX target does.
+    It has no analytic gradient: samplers use autograd."""
+
+    def __init__(self, mean, cov, dtype=None, device=None):
+        self.mean = _tensor(mean, dtype, device)
+        self.cov = _tensor(cov, dtype, device)
+        c = self.cov
+        det = c[0, 0] * c[1, 1] - c[0, 1] * c[1, 0]
+        self.inv_cov = torch.stack(
+            [torch.stack([c[1, 1], -c[0, 1]]), torch.stack([-c[1, 0], c[0, 0]])]
+        ) / det
+        self.norm_const = -(2.0 * math.log(2.0 * math.pi) + torch.log(det)) / 2.0
+
+    def to(self, device=None, dtype=None) -> "DiffableGaussian2D":
+        out = object.__new__(DiffableGaussian2D)
+        for name in ("mean", "cov", "inv_cov", "norm_const"):
+            setattr(out, name, getattr(self, name).to(device=device, dtype=dtype))
+        return out
+
+    def unnorm_logp(self, x):
+        diff = x - self.mean
+        d0, d1 = diff[..., 0], diff[..., 1]
+        ic = self.inv_cov
+        quad = ic[0, 0] * d0 * d0 + (ic[0, 1] + ic[1, 0]) * d0 * d1 + ic[1, 1] * d1 * d1
+        return self.norm_const - 0.5 * quad
+
+    __call__ = unnorm_logp

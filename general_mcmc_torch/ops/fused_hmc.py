@@ -1,0 +1,117 @@
+"""Whole-run batched HMC in one kernel launch.
+
+Port of ``general_mcmc_tpu/ops/pallas_hmc.py`` ``fused_hmc_run`` (the
+Pallas kernel ``_hmc_kernel``).  :func:`fused_hmc_run` launches the
+hand-written CUDA kernel ``csrc/fused_hmc.cu`` for tensors on the card and
+computes its plain version, :func:`fused_hmc_run_reference`, for tensors on
+the CPU.  The plain version is the ``"torch"`` backend's step loop of
+:class:`..samplers.hmc.HMC`; both read the same counter-generator draws
+(:mod:`.counter_rng`), so they follow the same trajectory up to float
+rounding.
+
+The Pallas kernel inlines any traced target.  A CUDA kernel cannot inline
+a Python callable, so this one takes the target of the main path,
+``GaussianND`` with a diagonal covariance (its mean and precision ride as
+``[d]`` rows), and a diagonal ``mass_inv``; anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.distributions import GaussianND
+from ..rng import stream_key
+
+__all__ = ["fused_hmc_run", "fused_hmc_run_reference", "launches", "MAX_DIM"]
+
+# Launches of the fused kernel in this process.
+launches = 0
+
+MAX_DIM = 512  # widest state the kernel is built for (csrc/fused_hmc.cu)
+
+
+def _check_args(target, initial_positions, n_leapfrog, n_collect, n_discard, thin,
+                mass_inv):
+    if not isinstance(target, GaussianND) or not target.is_diagonal:
+        raise ValueError(
+            "the fused HMC kernel takes a GaussianND target with a diagonal "
+            f"covariance, not {type(target).__name__}"
+            + ("" if not isinstance(target, GaussianND) else " with a dense covariance")
+        )
+    if initial_positions.ndim != 2:
+        raise ValueError("initial_positions must be [n_chains, dim]")
+    d = initial_positions.shape[1]
+    if tuple(target.mean.shape) != (d,):
+        raise ValueError(f"target mean must be [{d}]")
+    if mass_inv is not None and tuple(mass_inv.shape) != (d,):
+        raise ValueError(f"the fused HMC kernel takes a diagonal mass_inv [{d}]")
+    if n_leapfrog < 1 or thin < 1 or n_collect < 0 or n_discard < 0:
+        raise ValueError("need n_leapfrog >= 1, thin >= 1, n_collect, n_discard >= 0")
+
+
+def fused_hmc_run_reference(target, initial_positions, step_size, n_leapfrog,
+                            n_collect, n_discard=0, seed=0, thin=1, mass_inv=None):
+    """Plain PyTorch version of :func:`fused_hmc_run`: the ``"torch"``
+    backend's step loop on the positions' device."""
+    from ..samplers.hmc import HMC
+
+    x0 = initial_positions
+    sampler = HMC(target, x0, step_size, n_leapfrog, seed=seed, backend="torch",
+                  mass_inv=mass_inv, device=x0.device)
+    return sampler.run(n_collect, n_discard, thin=thin)
+
+
+def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
+                  n_discard=0, seed=0, thin=1, mass_inv=None):
+    """Run batched HMC for ``n_discard + n_collect·thin`` steps and return
+    every ``thin``-th post-burn-in state as ``[n_chains, n_collect, dim]``
+    float32, a view of the steps-major ``[n_collect, n_chains, dim]``
+    store.  ``seed`` is the 31-bit key of the draws; ``mass_inv`` an
+    optional ``[dim]`` diagonal of M⁻¹.
+
+    For ``initial_positions`` on the card this is one launch of
+    ``csrc/fused_hmc.cu``; on the CPU it is the plain version."""
+    x0 = initial_positions
+    if mass_inv is not None:
+        mass_inv = torch.as_tensor(mass_inv, device=x0.device)
+    _check_args(target, x0, n_leapfrog, n_collect, n_discard, thin, mass_inv)
+    if x0.device.type == "cpu":
+        return fused_hmc_run_reference(target, x0, step_size, n_leapfrog, n_collect,
+                                       n_discard, seed, thin, mass_inv)
+    if x0.device.type != "cuda":
+        raise ValueError(f"fused_hmc_run runs on cuda or cpu, not {x0.device}")
+    if x0.dtype != torch.float32 or not x0.is_contiguous():
+        raise ValueError("initial_positions must be contiguous float32")
+    n, d = x0.shape
+    if d > MAX_DIM:
+        raise ValueError(f"the fused HMC kernel takes dim <= {MAX_DIM}, got {d}")
+    if (n_discard + n_collect * thin) >= 2**31:
+        raise ValueError("too many steps for one launch")
+    dev = x0.device
+    f32 = dict(device=dev, dtype=torch.float32)
+    mean = target.mean.to(**f32).contiguous()
+    prec = target.diag_prec.to(**f32).contiguous()
+    use_mass = mass_inv is not None and bool(torch.any(mass_inv != 1.0))
+    inv_row = mass_inv.to(**f32).contiguous() if use_mass else torch.ones(d, **f32)
+    scale_row = 1.0 / torch.sqrt(inv_row)
+    out = torch.empty((n_collect, n, d), **f32)
+    if n_collect == 0 or n == 0:
+        return out.transpose(0, 1)
+
+    from .._build import check, load
+
+    global launches
+    lib = load("fused_hmc")
+    fn = lib.fused_hmc_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(x0.data_ptr(), mean.data_ptr(), prec.data_ptr(), inv_row.data_ptr(),
+              scale_row.data_ptr(), out.data_ptr(), n, d, n_collect, n_discard, thin,
+              int(n_leapfrog), float(step_size), stream_key(seed), int(use_mass),
+              torch.cuda.current_stream(dev).cuda_stream)
+    check(lib, code, "fused_hmc_launch")
+    launches += 1
+    return out.transpose(0, 1)

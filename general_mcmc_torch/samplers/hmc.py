@@ -1,0 +1,169 @@
+"""Batched Hamiltonian Monte Carlo: the ``[n_chains, dim]`` batch moves
+through phase space as one tensor.
+
+Port of ``general_mcmc_tpu/samplers/hmc.py``.  Two backends:
+
+- ``"torch"`` (the JAX package's ``"xla"``): one step per Python iteration
+  on batched tensors, with momenta and accept draws from the counter
+  generator (:mod:`..ops.counter_rng`) at (seed, chain, step);
+- ``"cuda"`` (the JAX package's ``"pallas"``): the whole run in one launch
+  of the fused kernel (:func:`..ops.fused_hmc.fused_hmc_run`), which reads
+  the same draws, so both backends follow the same trajectory up to float
+  rounding for the same seed.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.distributions import as_grad_fn, as_value_and_grad, rowsum
+from ..ops import counter_rng
+from .base import BatchSampler
+
+__all__ = ["HMC", "leapfrog"]
+
+
+def leapfrog(value_and_grad_fn, position, momentum, grad, step_size, n_leapfrog,
+             inv_mul=None, grad_fn=None):
+    """``n_leapfrog`` fused-kick leapfrog steps on a ``[n_chains, dim]``
+    batch: one opening half-kick, full kicks in the loop, and the surplus
+    half-kick subtracted after.  ``grad`` is the gradient at ``position``;
+    ``inv_mul`` an optional map ``p -> M⁻¹p``; ``grad_fn`` an optional
+    analytic batch gradient, with which the ``n − 1`` interior steps skip
+    the log density and only the last position gets value and gradient.
+    Returns ``(position', momentum', logp', grad')``."""
+    half = 0.5 * step_size
+    if inv_mul is None:
+        inv_mul = lambda p: p
+    momentum = momentum + grad * half
+
+    if grad_fn is None:
+        logp = None
+        for _ in range(n_leapfrog):
+            position = position + inv_mul(momentum) * step_size
+            logp, grad = value_and_grad_fn(position)
+            momentum = momentum + grad * step_size
+        return position, momentum - grad * half, logp, grad
+
+    for _ in range(n_leapfrog - 1):
+        position = position + inv_mul(momentum) * step_size
+        grad = grad_fn(position).to(position.dtype)
+        momentum = momentum + grad * step_size
+    position = position + inv_mul(momentum) * step_size
+    logp, grad = value_and_grad_fn(position)
+    return position, momentum + grad * half, logp, grad
+
+
+class HMC(BatchSampler):
+    """Batched-chain HMC sampler.
+
+    Parameters
+    ----------
+    target : batch callable ``[n, dim] -> [n]`` or object with
+        ``unnorm_logp`` (see :mod:`..models.distributions`)
+    initial_positions : ``[n_chains, dim]`` array or tensor
+    step_size : leapfrog step size ε
+    n_leapfrog : leapfrog steps per proposal L
+    seed : integer seed; draws are addressed by its 31-bit key
+    backend : ``"torch"`` or ``"cuda"`` (the fused kernel; diagonal
+        ``GaussianND`` targets and diagonal ``mass_inv`` only)
+    mass_inv : optional ``[dim]`` diagonal or ``[dim, dim]`` dense M⁻¹:
+        momenta ~ N(0, M), drifts M⁻¹p, kinetic energy ½pᵀM⁻¹p
+    device : where to run; ``None`` means the card, and raises if there is
+        none (pass ``device="cpu"`` to run on the CPU)
+    """
+
+    def __init__(self, target, initial_positions, step_size, n_leapfrog, seed=0,
+                 backend: str = "torch", mass_inv=None, device=None):
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown backend {backend!r}")
+        super().__init__(n_chains=len(initial_positions), seed=seed, device=device)
+        x0 = torch.as_tensor(initial_positions, device=self.device)
+        if not x0.dtype.is_floating_point:
+            x0 = x0.to(torch.float32)
+        self.initial_positions = x0
+        dtype, dim = x0.dtype, x0.shape[1]
+        self.target = target.to(device=self.device, dtype=dtype) if hasattr(target, "to") \
+            else target
+        self._vgrad = as_value_and_grad(self.target)
+        self._ggrad = as_grad_fn(self.target)
+        self.step_size = step_size
+        self.n_leapfrog = int(n_leapfrog)
+        if mass_inv is None:
+            self.mass_inv = torch.ones(dim, dtype=dtype, device=self.device)
+        else:
+            self.mass_inv = torch.as_tensor(mass_inv, device=self.device).to(dtype)
+        self.dense_mass = self.mass_inv.ndim == 2
+        if self.dense_mass:
+            if backend == "cuda":
+                raise ValueError("dense mass_inv needs backend='torch'")
+            # p = S·z with S Sᵀ = M: factor M⁻¹ = L Lᵀ and take S = L⁻ᵀ
+            chol, info = torch.linalg.cholesky_ex(self.mass_inv)
+            if int(info) != 0:
+                raise ValueError("dense mass_inv must be symmetric positive definite")
+            eye = torch.eye(dim, dtype=dtype, device=self.device)
+            self.mass_scale = torch.linalg.solve_triangular(chol, eye, upper=False).mT
+        else:
+            self.mass_inv = self.mass_inv.reshape(dim)
+            self.mass_scale = 1.0 / torch.sqrt(self.mass_inv)
+        self.backend = backend
+
+    def run(self, n_collect: int, n_discard: int = 0, thin: int = 1):
+        if self.backend == "cuda":
+            from ..ops.fused_hmc import fused_hmc_run
+
+            return fused_hmc_run(
+                self.target,
+                self.initial_positions.to(torch.float32),
+                self.step_size,
+                self.n_leapfrog,
+                n_collect,
+                n_discard,
+                seed=self._key,
+                thin=thin,
+                mass_inv=self.mass_inv,  # all ones (none given): the identity-mass path
+            )
+        return super().run(n_collect, n_discard, thin=thin)
+
+    def _init_carry(self):
+        x0 = self.initial_positions
+        lp0, grad0 = self._vgrad(x0)
+        return (x0, lp0, grad0)
+
+    def _inv_mul(self, p):
+        if self.dense_mass:
+            return p @ self.mass_inv.mT
+        return self.mass_inv * p
+
+    def _step(self, carry, m, z=None, u=None):
+        """One batched HMC step at absolute step index ``m``.  ``z``
+        (``[n, dim]`` standard normals) and ``u`` (``[n]`` uniforms) replace
+        the counter generator's draws when given, so that a test can feed
+        both this port and the JAX package the same numbers."""
+        x, lp, grad = carry
+        dtype = x.dtype
+        if z is None:
+            z = counter_rng.normals(self._key, self._chain_ids, m, x.shape[1])
+        if u is None:
+            u = counter_rng.uniforms(self._key, self._chain_ids, m)
+        z = torch.as_tensor(z, device=x.device).to(dtype)
+        u = torch.as_tensor(u, device=x.device).to(dtype)
+        if self.dense_mass:
+            momentum = z @ self.mass_scale.mT
+        else:
+            momentum = self.mass_scale * z
+        ke_current = 0.5 * rowsum(momentum * self._inv_mul(momentum))
+        pos_new, mom_new, lp_new, grad_new = leapfrog(
+            self._vgrad, x, momentum, grad, self.step_size, self.n_leapfrog,
+            inv_mul=self._inv_mul, grad_fn=self._ggrad,
+        )
+        ke_proposed = 0.5 * rowsum(mom_new * self._inv_mul(mom_new))
+        log_accept = (lp_new - lp) + (ke_current - ke_proposed)
+        accept = torch.log(u) < log_accept
+        x = torch.where(accept[:, None], pos_new, x)
+        lp = torch.where(accept, lp_new, lp)
+        grad = torch.where(accept[:, None], grad_new, grad)
+        return (x, lp, grad)
+
+    def _positions(self, carry):
+        return carry[0]
