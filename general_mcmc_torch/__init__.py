@@ -1,8 +1,9 @@
 """general_mcmc_torch: the PyTorch and CUDA (Hopper) port of general_mcmc_tpu.
 
-Batched HMC with a fused whole-run CUDA kernel (``HMC(..., backend="cuda")``),
-its plain PyTorch backend, the Gaussian targets, and split-R-hat/ESS
-diagnostics.  Entry points run on the card unless given ``device="cpu"``.
+Batched HMC and Metropolis–Hastings, each with a fused whole-run CUDA kernel
+(``backend="cuda"``) and a plain PyTorch backend, the Gaussian, Rosenbrock,
+discrete and hierarchical-logistic targets, the fused logistic gradient
+chain (``ops.fused_logistic``), and split-R-hat/ESS diagnostics.  Entry points run on the card unless given ``device="cpu"``.
 The package imports torch and numpy only; its CUDA sources are compiled
 with ``nvcc`` at first use.
 """
@@ -13,14 +14,45 @@ from .diagnostics.stats import (
     combine_suffstats_host,
     split_rhat_mean_ess,
 )
-from .models.distributions import DiffableGaussian2D, GaussianND
+from .models.distributions import (
+    Binomial,
+    DiffableGaussian2D,
+    Gaussian2D,
+    GaussianND,
+    IsotropicGaussian,
+    Poisson,
+    Rosenbrock2D,
+)
+from .models.regression import (
+    HierarchicalLogistic,
+    HierarchicalLogisticNC,
+    make_logistic_data,
+)
 from .samplers.hmc import HMC, leapfrog
+from .samplers.metropolis_hastings import (
+    DiscreteWalkProposal,
+    MetropolisHastings,
+    PCNProposal,
+    RandomWalkProposal,
+)
 
 __all__ = [
     "HMC",
     "leapfrog",
+    "MetropolisHastings",
+    "RandomWalkProposal",
+    "PCNProposal",
+    "DiscreteWalkProposal",
     "GaussianND",
     "DiffableGaussian2D",
+    "Gaussian2D",
+    "IsotropicGaussian",
+    "Rosenbrock2D",
+    "Poisson",
+    "Binomial",
+    "HierarchicalLogistic",
+    "HierarchicalLogisticNC",
+    "make_logistic_data",
     "init",
     "init_det",
     "init_with_seed",

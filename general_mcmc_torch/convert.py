@@ -1,8 +1,9 @@
 """Carry state across from the JAX package.
 
 The port imports nothing of the JAX package, so state crosses as numpy
-arrays: a target's ``mean`` and ``cov``, initial positions, ``mass_inv``.
-Take them from the JAX side with ``np.asarray`` and hand them here.
+arrays or plain numbers: a target's ``mean`` and ``cov``, the logistic
+targets' ``X`` and ``y``, initial positions, ``mass_inv``, a proposal's
+width.  Take them from the JAX side with ``np.asarray`` and hand them here.
 """
 
 from __future__ import annotations
@@ -10,11 +11,43 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.distributions import DiffableGaussian2D, GaussianND
+from .models.distributions import (
+    Binomial,
+    DiffableGaussian2D,
+    Gaussian2D,
+    GaussianND,
+    IsotropicGaussian,
+    Poisson,
+    Rosenbrock2D,
+)
+from .models.regression import HierarchicalLogistic, HierarchicalLogisticNC
+from .samplers.metropolis_hastings import (
+    DiscreteWalkProposal,
+    PCNProposal,
+    RandomWalkProposal,
+)
 
-__all__ = ["to_tensor", "to_target"]
+__all__ = ["to_tensor", "to_target", "to_proposal"]
 
-_TARGETS = {"GaussianND": GaussianND, "DiffableGaussian2D": DiffableGaussian2D}
+# kind -> (class, names of its array parameters, names of its plain numbers)
+_TARGETS = {
+    "GaussianND": (GaussianND, ("mean", "cov"), ()),
+    "DiffableGaussian2D": (DiffableGaussian2D, ("mean", "cov"), ()),
+    "Gaussian2D": (Gaussian2D, ("mean", "cov"), ()),
+    "HierarchicalLogistic": (HierarchicalLogistic, ("X", "y"), ()),
+    "HierarchicalLogisticNC": (HierarchicalLogisticNC, ("X", "y"), ()),
+    "IsotropicGaussian": (IsotropicGaussian, (), ("std",)),
+    "Rosenbrock2D": (Rosenbrock2D, (), ("a", "b")),
+    "Poisson": (Poisson, (), ("lam",)),
+    "Binomial": (Binomial, (), ("n", "p")),
+}
+
+_PROPOSALS = {
+    "RandomWalkProposal": RandomWalkProposal,
+    "PCNProposal": PCNProposal,
+    "DiscreteWalkProposal": DiscreteWalkProposal,
+    "IsotropicGaussian": IsotropicGaussian,
+}
 
 
 def to_tensor(array, device="cpu", dtype=None) -> torch.Tensor:
@@ -25,12 +58,29 @@ def to_tensor(array, device="cpu", dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device)
 
 
-def to_target(kind: str, mean, cov, device="cpu", dtype=None):
-    """The port's target ``kind`` (``"GaussianND"`` or
-    ``"DiffableGaussian2D"``) from the JAX target's ``mean`` and ``cov``
-    arrays."""
+def to_target(kind: str, *params, device="cpu", dtype=None):
+    """The port's target ``kind`` from the JAX target's parameters, in the
+    JAX constructor's order: ``mean, cov`` arrays for the Gaussians, ``X, y``
+    arrays for the two logistic targets, plain numbers for
+    ``IsotropicGaussian(std)``, ``Rosenbrock2D(a, b)``, ``Poisson(lam)`` and
+    ``Binomial(n, p)``.  Arrays become tensors on ``device`` in ``dtype``."""
     try:
-        cls = _TARGETS[kind]
+        cls, arrays, numbers = _TARGETS[kind]
     except KeyError:
         raise ValueError(f"no port target {kind!r}; have {sorted(_TARGETS)}") from None
-    return cls(to_tensor(mean, device, dtype), to_tensor(cov, device, dtype))
+    if len(params) != len(arrays) + len(numbers):
+        raise ValueError(f"{kind} takes {', '.join(arrays + numbers)}")
+    if arrays:
+        return cls(*(to_tensor(a, device, dtype) for a in params))
+    return cls(*(np.asarray(v).item() for v in params))
+
+
+def to_proposal(kind: str, **params):
+    """The port's proposal ``kind`` (``"RandomWalkProposal"``,
+    ``"PCNProposal"``, ``"DiscreteWalkProposal"`` or ``"IsotropicGaussian"``)
+    from the JAX proposal's fields (``scale``, ``beta``, ``step``, ``std``)."""
+    try:
+        cls = _PROPOSALS[kind]
+    except KeyError:
+        raise ValueError(f"no port proposal {kind!r}; have {sorted(_PROPOSALS)}") from None
+    return cls(**{k: np.asarray(v).item() for k, v in params.items()})

@@ -2,9 +2,9 @@
 // cross-check against the CUDA toolkit's own Philox4x32-10.
 //
 // Neither runs on the sampling path: the generator runs there inside
-// fused_hmc.cu.  The fill kernel writes the device function's draws to a
-// tensor so that they can be compared, bit for bit, with the plain version
-// in ops/counter_rng.py.  Bound: the bytes written (one word per draw).
+// fused_hmc.cu and fused_mh.cu.  The fill kernel writes the device
+// function's draws to a tensor so that they can be compared, bit for bit,
+// with the plain version in ops/counter_rng.py.  Bound: the bytes written (one word per draw).
 //
 // C interface, loaded with ctypes (general_mcmc_torch/_build.py).  Each
 // entry point returns cudaGetLastError() after its launch.

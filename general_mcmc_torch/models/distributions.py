@@ -1,4 +1,5 @@
-"""Built-in targets of this slice: ``GaussianND`` and ``DiffableGaussian2D``.
+"""Built-in targets and proposals: the Gaussians, ``Rosenbrock2D`` and the
+discrete ``Poisson`` and ``Binomial``.
 
 Port of ``general_mcmc_tpu/models/distributions.py``.  The JAX targets are
 per-state functions ``logp(x: [dim]) -> scalar`` that the samplers vmap and
@@ -12,7 +13,12 @@ on the device of the states it is given (``to`` moves it once, so that a
 sampler does not convert the parameters at every call).  Row sums are
 accumulated in float64 and rounded once (:func:`rowsum`), as the fused CUDA
 kernel accumulates them, so that a float32 run and the kernel make the same
-accept decisions.
+accept decisions.  For the same reason a formula is written out as the
+products and sums the kernels compute, in their order, and a division by a
+Python number is written as a product with its reciprocal: PyTorch divides
+on the CPU and multiplies by the reciprocal on the card.
+
+Not ported yet: ``Categorical``, ``RosenbrockND``, ``NealsFunnel``.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import math
 
 import torch
 
-__all__ = ["GaussianND", "DiffableGaussian2D", "as_logp_fn", "as_grad_fn",
+__all__ = ["GaussianND", "DiffableGaussian2D", "Gaussian2D", "IsotropicGaussian",
+           "Rosenbrock2D", "Poisson", "Binomial", "as_logp_fn", "as_grad_fn",
            "as_value_and_grad", "rowsum"]
 
 
@@ -149,5 +156,129 @@ class DiffableGaussian2D:
         ic = self.inv_cov
         quad = ic[0, 0] * d0 * d0 + (ic[0, 1] + ic[1, 0]) * d0 * d1 + ic[1, 1] * d1 * d1
         return self.norm_const - 0.5 * quad
+
+    __call__ = unnorm_logp
+
+
+class Gaussian2D:
+    """2-D Gaussian with a full covariance ``[[a, b], [c, d]]``, by the
+    explicit quadratic form ``(d·d0² − (b + c)·d0·d1 + a·d1²) / det``.
+    ``unnorm_logp`` leaves the normalizing constant out (target role);
+    ``logp`` includes it."""
+
+    def __init__(self, mean, cov, dtype=None, device=None):
+        self.mean = _tensor(mean, dtype, device)
+        self.cov = _tensor(cov, dtype, device)
+        c = self.cov
+        # [a, b + c, d, det]: the constants of the quadratic form, which the
+        # fused MH kernel takes as they are
+        self.form = torch.stack([c[0, 0], c[0, 1] + c[1, 0], c[1, 1],
+                                 c[0, 0] * c[1, 1] - c[0, 1] * c[1, 0]])
+
+    def to(self, device=None, dtype=None) -> "Gaussian2D":
+        out = object.__new__(Gaussian2D)
+        for name in ("mean", "cov", "form"):
+            setattr(out, name, getattr(self, name).to(device=device, dtype=dtype))
+        return out
+
+    def _quad(self, x):
+        a, bc, d, det = self.form
+        d0, d1 = x[..., 0] - self.mean[0], x[..., 1] - self.mean[1]
+        return (d * d0 * d0 - bc * d0 * d1 + a * d1 * d1) / det
+
+    def unnorm_logp(self, x):
+        return -0.5 * self._quad(x)
+
+    def logp(self, x):
+        det = self.form[3]
+        return (-math.log(2.0 * math.pi) - 0.5 * torch.log(torch.abs(det))
+                - 0.5 * self._quad(x))
+
+    __call__ = unnorm_logp
+
+
+class IsotropicGaussian:
+    """Isotropic Gaussian of any dimension, as proposal or as target.
+
+    Proposal role: ``propose(x, z) = x + z·std`` for standard-normal ``z``
+    (a symmetric random walk), and ``logp(from, to)`` the normalized
+    transition density with the constant ``d/2·ln(2πσ²)``.  Target role:
+    ``unnorm_logp(x) = −½‖x‖²/σ²``."""
+
+    symmetric = True
+
+    def __init__(self, std: float):
+        self.std = float(std)
+
+    def propose(self, current, z):
+        return current + z * self.std
+
+    def logp(self, from_, to):
+        diff = to - from_
+        var = self.std * self.std
+        return (-0.5 * rowsum(diff * diff) * (1.0 / var)
+                - 0.5 * diff.shape[-1] * math.log(2.0 * math.pi * var))
+
+    def unnorm_logp(self, x):
+        return -0.5 * rowsum(x * x) * (1.0 / (self.std * self.std))
+
+    __call__ = unnorm_logp
+
+
+class Rosenbrock2D:
+    """2-D Rosenbrock density ``−((a − x)² + b·(y − x²)²)``."""
+
+    def __init__(self, a: float, b: float):
+        self.a = float(a)
+        self.b = float(b)
+
+    def unnorm_logp(self, pos):
+        x, y = pos[..., 0], pos[..., 1]
+        u = self.a - x
+        v = y - x * x
+        return -(u * u + self.b * (v * v))
+
+    __call__ = unnorm_logp
+
+
+def _count(state):
+    """The count held by a batch of length-1 integer states, as float32
+    (the JAX package computes the discrete log pmfs in float32)."""
+    return state[..., 0].to(torch.float32)
+
+
+class Poisson:
+    """Poisson(λ) pmf as a discrete MH target over length-1 integer states
+    ``[n, 1]``; negative states get ``−inf``."""
+
+    def __init__(self, lam: float):
+        self.lam = float(lam)
+
+    def unnorm_logp(self, state):
+        k = _count(state)
+        safe_k = torch.clamp(k, min=0.0)
+        lp = safe_k * math.log(self.lam) - self.lam - torch.lgamma(safe_k + 1.0)
+        return torch.where(k >= 0, lp, torch.full_like(lp, -math.inf))
+
+    __call__ = unnorm_logp
+
+
+class Binomial:
+    """Binomial(n, p) pmf as a discrete MH target over length-1 integer
+    states ``[n_chains, 1]``; states outside ``0..n`` get ``−inf``."""
+
+    def __init__(self, n: int, p: float):
+        self.n = int(n)
+        self.p = float(p)
+
+    def unnorm_logp(self, state):
+        k = _count(state)
+        n = float(self.n)
+        safe_k = torch.clamp(k, 0.0, n)
+        log_choose = (math.lgamma(n + 1.0) - torch.lgamma(safe_k + 1.0)
+                      - torch.lgamma(n - safe_k + 1.0))
+        lp = (log_choose + safe_k * math.log(self.p)
+              + (n - safe_k) * math.log(1.0 - self.p))
+        return torch.where((k >= 0) & (k <= n), lp, torch.full_like(lp, -math.inf))
 
     __call__ = unnorm_logp

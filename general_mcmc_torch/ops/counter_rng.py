@@ -17,10 +17,24 @@ The plain version holds uint32 words in int64 tensors.  A 32×32-bit product
 can reach 2⁶⁴ and overflow int64, so the multiplier is split into 16-bit
 halves and each partial product stays below 2⁴⁸.
 
+Which words each sampler reads at (seed; chain, step):
+
+- HMC: momentum normal ``j`` is Box–Muller of words ``(2e, 2e + 1)``,
+  ``e = j % 2``, of the counter (chain, step, group ``j // 2``,
+  ``TAG_MOMENTUM``); the accept uniform is word 0 of (chain, step, group 0,
+  ``TAG_ACCEPT``).
+- MH: proposal normal ``j`` has the momentum layout under ``TAG_PROPOSAL``
+  (:func:`normals`); the discrete walk's sign for coordinate ``j`` is the
+  top bit of word ``j % 4`` of (chain, step, group ``j // 4``, ``TAG_SIGN``)
+  (:func:`signs`); the accept uniform is the same word as HMC's, under
+  ``TAG_ACCEPT``.
+
+The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``.
+
 ``counter_rng_fill`` launches the fill kernel of ``csrc/counter_rng.cu``,
 which writes the device function's draws to a tensor; it exists to hold
 the device function against the plain version and is not on the sampling
-path (the generator runs inside the fused HMC kernel there).
+path (the generator runs inside the fused HMC and MH kernels there).
 """
 
 from __future__ import annotations
@@ -32,12 +46,15 @@ import torch
 __all__ = [
     "TAG_MOMENTUM",
     "TAG_ACCEPT",
+    "TAG_PROPOSAL",
+    "TAG_SIGN",
     "philox4x32_10",
     "counter_bits",
     "bits_to_uniform",
     "box_muller",
     "normals",
     "uniforms",
+    "signs",
     "counter_rng_fill",
     "counter_rng_fill_reference",
     "curand_check",
@@ -51,6 +68,8 @@ _TWO_PI = 6.283185307179586
 
 TAG_MOMENTUM = 0
 TAG_ACCEPT = 1
+TAG_PROPOSAL = 2
+TAG_SIGN = 3
 
 # Launches of the fill kernel (counter_rng_fill) in this process.
 launches = 0
@@ -128,6 +147,15 @@ def uniforms(seed: int, chains: torch.Tensor, step: int,
     """``[n_chains]`` float32 uniforms: word 0 of group 0."""
     w = counter_bits(seed, chains, step, 0, tag)
     return bits_to_uniform(w[..., 0])
+
+
+def signs(seed: int, chains: torch.Tensor, step: int, dim: int,
+          tag: int = TAG_SIGN) -> torch.Tensor:
+    """``[n_chains, dim]`` fair coin flips (bool): flip ``j`` is the top bit
+    of word ``j % 4`` of group ``j // 4``."""
+    groups = torch.arange((dim + 3) // 4, dtype=torch.int64, device=chains.device)
+    w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
+    return (w.reshape(chains.shape[0], -1)[:, :dim] >> 31) == 1
 
 
 def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,

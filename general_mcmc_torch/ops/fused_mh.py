@@ -1,0 +1,151 @@
+"""Whole-run batched Metropolis–Hastings in one kernel launch.
+
+Port of ``general_mcmc_tpu/ops/pallas_mh.py`` ``fused_mh_run`` (the Pallas
+kernel ``_mh_kernel``).  :func:`fused_mh_run` launches the hand-written CUDA
+kernel ``csrc/fused_mh.cu`` for tensors on the card and computes its plain
+version, :func:`fused_mh_run_reference`, for tensors on the CPU.  The plain
+version is the ``"torch"`` backend's step loop of
+:class:`..samplers.metropolis_hastings.MetropolisHastings`; both read the
+same counter-generator draws (:mod:`.counter_rng`) and round alike, so they
+follow the same trajectory.
+
+The Pallas kernel inlines any traced target, ``propose`` and ``logp``.  A
+CUDA kernel cannot inline a Python callable, so this one holds device
+functions for the targets ``Gaussian2D``, ``Rosenbrock2D`` and ``GaussianND``
+with a diagonal covariance, and for the proposals Gaussian random walk
+(``RandomWalkProposal`` or ``IsotropicGaussian``) and pCN (``PCNProposal``);
+anything else raises.  The TPU kernel's transposed ``[dim, chains]`` state
+is a tiling decision of that machine and is not carried over: the store is
+steps-major ``[n_collect, n_chains, dim]``, as the fused HMC run's is.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.distributions import Gaussian2D, GaussianND, IsotropicGaussian, Rosenbrock2D
+from ..rng import stream_key
+from ..samplers.metropolis_hastings import PCNProposal, RandomWalkProposal
+
+__all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "MAX_DIM"]
+
+# Launches of the fused kernel in this process.
+launches = 0
+
+MAX_DIM = 512  # widest state the kernel is built for (csrc/fused_mh.cu)
+
+# The enums of csrc/fused_mh.cu.
+_TARGET_GAUSSIAN_ND, _TARGET_GAUSSIAN_2D, _TARGET_ROSENBROCK_2D = 0, 1, 2
+_PROPOSAL_RANDOM_WALK, _PROPOSAL_PCN = 0, 1
+
+_TAKES = ("the fused MH kernel takes the targets Gaussian2D, Rosenbrock2D and GaussianND "
+          "with a diagonal covariance, and the proposals RandomWalkProposal, "
+          "IsotropicGaussian and PCNProposal")
+
+
+def _target_code(target, d: int) -> int:
+    """Which device function evaluates ``target``; raises for any other."""
+    if isinstance(target, GaussianND):
+        if not target.is_diagonal:
+            raise ValueError(f"{_TAKES}, not a GaussianND with a dense covariance")
+        if tuple(target.mean.shape) != (d,):
+            raise ValueError(f"target mean must be [{d}]")
+        return _TARGET_GAUSSIAN_ND
+    if isinstance(target, (Gaussian2D, Rosenbrock2D)):
+        if d != 2:
+            raise ValueError(f"{type(target).__name__} takes states of width 2, got {d}")
+        return _TARGET_GAUSSIAN_2D if isinstance(target, Gaussian2D) else _TARGET_ROSENBROCK_2D
+    name = getattr(target, "__name__", type(target).__name__)
+    raise ValueError(f"{_TAKES}, not the target {name}")
+
+
+def _proposal_code(proposal):
+    """``(code, (p0, p1, p2))``: the device proposal and its constants, each
+    the float the plain version multiplies by."""
+    if isinstance(proposal, RandomWalkProposal):
+        return _PROPOSAL_RANDOM_WALK, (float(proposal.scale), 0.0, 0.0)
+    if isinstance(proposal, IsotropicGaussian):
+        return _PROPOSAL_RANDOM_WALK, (proposal.std, 0.0, 0.0)
+    if isinstance(proposal, PCNProposal):
+        return _PROPOSAL_PCN, (proposal.rho, float(proposal.beta), 1.0 / proposal.beta)
+    raise ValueError(f"{_TAKES}, not the proposal {type(proposal).__name__}")
+
+
+def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin):
+    if initial_positions.ndim != 2:
+        raise ValueError("initial_positions must be [n_chains, dim]")
+    if not initial_positions.dtype.is_floating_point:
+        raise ValueError("the fused MH kernel takes float states")
+    code = _target_code(target, initial_positions.shape[1])
+    p_code, consts = _proposal_code(proposal)
+    if thin < 1 or n_collect < 0 or n_discard < 0:
+        raise ValueError("need thin >= 1, n_collect, n_discard >= 0")
+    return code, p_code, consts
+
+
+def _target_params(target, code: int, **f32) -> torch.Tensor:
+    """The target's constants as one float32 row, in the order the kernel
+    reads them."""
+    if code == _TARGET_GAUSSIAN_ND:
+        return torch.cat([target.mean.to(**f32), target.diag_prec.to(**f32)]).contiguous()
+    if code == _TARGET_GAUSSIAN_2D:
+        return torch.cat([target.mean.to(**f32), target.form.to(**f32)]).contiguous()
+    return torch.tensor([target.a, target.b], **f32)
+
+
+def fused_mh_run_reference(target, initial_positions, proposal, n_collect, n_discard=0,
+                           seed=0, thin=1):
+    """Plain PyTorch version of :func:`fused_mh_run`: the ``"torch"``
+    backend's step loop on the positions' device."""
+    from ..samplers.metropolis_hastings import MetropolisHastings
+
+    x0 = initial_positions
+    sampler = MetropolisHastings(target, proposal, x0, seed=seed, backend="torch",
+                                 device=x0.device)
+    return sampler.run(n_collect, n_discard, thin=thin)
+
+
+def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, seed=0,
+                 thin=1):
+    """Run batched MH for ``n_discard + n_collect·thin`` steps and return
+    every ``thin``-th post-burn-in state as ``[n_chains, n_collect, dim]``,
+    a view of the steps-major ``[n_collect, n_chains, dim]`` store.
+    ``seed`` is the 31-bit key of the draws.
+
+    For ``initial_positions`` on the card this is one launch of
+    ``csrc/fused_mh.cu`` (float32); on the CPU it is the plain version."""
+    x0 = initial_positions
+    code, p_code, consts = _check_args(target, x0, proposal, n_collect, n_discard, thin)
+    if x0.device.type == "cpu":
+        return fused_mh_run_reference(target, x0, proposal, n_collect, n_discard, seed, thin)
+    if x0.device.type != "cuda":
+        raise ValueError(f"fused_mh_run runs on cuda or cpu, not {x0.device}")
+    if x0.dtype != torch.float32 or not x0.is_contiguous():
+        raise ValueError("initial_positions must be contiguous float32")
+    n, d = x0.shape
+    if d > MAX_DIM:
+        raise ValueError(f"the fused MH kernel takes dim <= {MAX_DIM}, got {d}")
+    if (n_discard + n_collect * thin) >= 2**31:
+        raise ValueError("too many steps for one launch")
+    f32 = dict(device=x0.device, dtype=torch.float32)
+    params = _target_params(target, code, **f32)
+    out = torch.empty((n_collect, n, d), **f32)
+    if n_collect == 0 or n == 0:
+        return out.transpose(0, 1)
+
+    from .._build import check, load
+
+    global launches
+    lib = load("fused_mh")
+    fn = lib.fused_mh_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
+        ctypes.c_uint, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x0.data_ptr(), params.data_ptr(), out.data_ptr(), n, d, n_collect, n_discard,
+            thin, code, p_code, *consts, stream_key(seed),
+            torch.cuda.current_stream(x0.device).cuda_stream)
+    check(lib, rc, "fused_mh_launch")
+    launches += 1
+    return out.transpose(0, 1)

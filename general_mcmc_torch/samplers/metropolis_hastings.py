@@ -1,0 +1,193 @@
+"""Batched Metropolis–Hastings over float or integer states.
+
+Port of ``general_mcmc_tpu/samplers/metropolis_hastings.py``.  The JAX
+sampler vmaps a one-chain update whose proposal draws from a per-step key;
+the port has no keys, so a proposal is the reparameterized pair
+``propose(x [n, dim], draws [n, dim]) -> y`` and ``logp(from, to) -> [n]``,
+and the sampler hands it the counter generator's draws at (seed, chain,
+step) (:mod:`..ops.counter_rng`): standard normals, or fair coin flips for
+a proposal whose ``draws`` attribute is ``"sign"``.  Two backends:
+
+- ``"torch"`` (the JAX package's ``"xla"``): one step per Python iteration
+  on batched tensors, float or integer states, any target and proposal;
+- ``"cuda"`` (the JAX package's ``"pallas"``): the whole run in one launch
+  of the fused kernel (:func:`..ops.fused_mh.fused_mh_run`), which reads
+  the same draws and rounds the same way, so both backends follow the same
+  trajectory for the same seed.
+
+The accept rule is the log-space Hastings rule
+``log u < (lp' + q(y→x)) − (lp + q(x→y))``; a proposal that declares itself
+``symmetric`` skips the two ``q`` terms, which cancel.  Whenever the
+comparison is false the proposal is rejected, NaN and ``−inf`` included.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..models.distributions import as_logp_fn, rowsum
+from ..ops import counter_rng
+from .base import BatchSampler
+
+__all__ = [
+    "MetropolisHastings",
+    "RandomWalkProposal",
+    "DiscreteWalkProposal",
+    "PCNProposal",
+]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RandomWalkProposal:
+    """Gaussian random-walk proposal with per-coordinate std ``scale``."""
+
+    scale: float = 1.0
+    symmetric = True
+    draws = "normal"
+
+    def propose(self, current, z):
+        return current + self.scale * z
+
+    def logp(self, from_, to):
+        diff = (to - from_) * (1.0 / self.scale)
+        return -0.5 * rowsum(diff * diff)  # symmetric: constant omitted
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PCNProposal:
+    """Preconditioned Crank–Nicolson proposal ``y = √(1−β²)·x + β·z``
+    (Cotter, Roberts, Stuart & White 2013).  It is asymmetric, so it takes
+    the full Hastings ratio; the Gaussian constant is the same in both
+    directions and left out."""
+
+    beta: float = 0.5
+    symmetric = False
+    draws = "normal"
+
+    @property
+    def rho(self) -> float:
+        return math.sqrt(1.0 - self.beta * self.beta)
+
+    def propose(self, current, z):
+        return self.rho * current + self.beta * z
+
+    def logp(self, from_, to):
+        diff = (to - self.rho * from_) * (1.0 / self.beta)
+        return -0.5 * rowsum(diff * diff)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DiscreteWalkProposal:
+    """±``step`` random walk on integer states: ``propose(x, up)`` moves
+    each coordinate up where the coin flip ``up`` is true and down where it
+    is false.  Symmetric, so ``logp`` is constant."""
+
+    step: int = 1
+    symmetric = True
+    draws = "sign"
+
+    def propose(self, current, up):
+        up = torch.as_tensor(up, device=current.device).to(torch.bool)
+        return torch.where(up, current + self.step, current - self.step)
+
+    def logp(self, from_, to):
+        return torch.zeros(from_.shape[:-1], dtype=torch.float32, device=from_.device)
+
+
+class MetropolisHastings(BatchSampler):
+    """Batched-chain Metropolis–Hastings.
+
+    Parameters
+    ----------
+    target : batch callable ``[n, dim] -> [n]`` or object with
+        ``unnorm_logp`` (see :mod:`..models.distributions`)
+    proposal : object with ``propose(x, draws)`` and ``logp(from, to)``
+    initial_states : ``[n_chains, dim]`` array or tensor, float or integer
+    seed : integer seed; draws are addressed by its 31-bit key
+    backend : ``"torch"`` or ``"cuda"`` (the fused kernel: float states,
+        the targets and proposals listed in :mod:`..ops.fused_mh`)
+    device : where to run; ``None`` means the card, and raises if there is
+        none (pass ``device="cpu"`` to run on the CPU)
+    """
+
+    def __init__(self, target, proposal, initial_states, seed=0, backend: str = "torch",
+                 device=None):
+        if backend not in ("torch", "cuda"):
+            raise ValueError(f"unknown backend {backend!r}")
+        if backend == "cuda" and (
+            getattr(proposal, "draws", "normal") != "normal"
+            or not any(hasattr(proposal, a) for a in ("propose", "scale", "std"))
+        ):
+            raise ValueError(
+                "cuda backend needs a continuous proposal: a Gaussian random "
+                "walk (.scale/.std) or a reparameterized propose(x, z) + "
+                "logp(from, to) pair that the fused kernel knows; discrete "
+                "proposals use backend='torch'"
+            )
+        super().__init__(n_chains=len(initial_states), seed=seed, device=device)
+        x0 = torch.as_tensor(initial_states, device=self.device)
+        if backend == "cuda" and not x0.dtype.is_floating_point:
+            raise ValueError("cuda backend needs float states; integer states use "
+                             "backend='torch'")
+        self.initial_states = x0
+        dtype = x0.dtype if x0.dtype.is_floating_point else None
+        self.target = target.to(device=self.device, dtype=dtype) if hasattr(target, "to") \
+            else target
+        self._logp = as_logp_fn(self.target)
+        self.proposal = proposal
+        self.backend = backend
+
+    def run(self, n_collect: int, n_discard: int = 0, thin: int = 1):
+        if self.backend == "cuda":
+            from ..ops.fused_mh import fused_mh_run
+
+            return fused_mh_run(
+                self.target,
+                self.initial_states.to(torch.float32),
+                self.proposal,
+                n_collect,
+                n_discard,
+                seed=self._key,
+                thin=thin,
+            )
+        return super().run(n_collect, n_discard, thin=thin)
+
+    def _init_carry(self):
+        x0 = self.initial_states
+        return (x0, self._logp(x0))
+
+    def _step(self, carry, m, z=None, u=None):
+        """One batched MH step at absolute step index ``m``.  ``z`` (the
+        proposal's ``[n, dim]`` draws: standard normals, or coin flips for a
+        ``"sign"`` proposal) and ``u`` (``[n]`` uniforms) replace the
+        counter generator's draws when given, so that a test can feed both
+        this port and the JAX package the same numbers."""
+        x, lp = carry
+        proposal = self.proposal
+        signs = getattr(proposal, "draws", "normal") == "sign"
+        if z is None:
+            draw = counter_rng.signs if signs else counter_rng.normals
+            tag = counter_rng.TAG_SIGN if signs else counter_rng.TAG_PROPOSAL
+            z = draw(self._key, self._chain_ids, m, x.shape[1], tag)
+        if u is None:
+            u = counter_rng.uniforms(self._key, self._chain_ids, m)
+        z = torch.as_tensor(z, device=x.device)
+        if not signs:
+            z = z.to(x.dtype)
+        proposed = proposal.propose(x, z)
+        lp_new = self._logp(proposed)
+        if getattr(proposal, "symmetric", False):
+            log_accept = lp_new - lp
+        else:
+            log_accept = (lp_new + proposal.logp(proposed, x)) - (lp + proposal.logp(x, proposed))
+        u = torch.as_tensor(u, device=x.device).to(log_accept.dtype)
+        accept = torch.log(u) < log_accept  # false for NaN: a reject
+        x = torch.where(accept[:, None], proposed, x)
+        lp = torch.where(accept, lp_new, lp)
+        return (x, lp)
+
+    def _positions(self, carry):
+        return carry[0]

@@ -111,3 +111,37 @@ def test_fill_reference_layouts():
     torch.testing.assert_close(nrm[:, 0], z0, rtol=0, atol=0)
     with pytest.raises(ValueError):
         cr.counter_rng_fill(5, 10, 9, 2, 0, "gamma", device="cpu")
+
+
+def test_tags_are_distinct_and_equal_the_header():
+    """The Python tags and the kTag* constants of csrc/counter_rng.cuh are
+    the same numbers (the header is read as text: nothing compiles here)."""
+    import os
+    import re
+
+    tags = {"Momentum": cr.TAG_MOMENTUM, "Accept": cr.TAG_ACCEPT,
+            "Proposal": cr.TAG_PROPOSAL, "Sign": cr.TAG_SIGN}
+    assert len(set(tags.values())) == len(tags)
+    header = os.path.join(os.path.dirname(cr.__file__), "..", "csrc", "counter_rng.cuh")
+    with open(header) as f:
+        found = dict(re.findall(r"constexpr uint32_t kTag(\w+) = (\d+)u;", f.read()))
+    assert {k: int(v) for k, v in found.items()} == tags
+
+
+def test_mh_draws_layout_and_batch_invariance():
+    """MH's proposal normals have the momentum layout under their own tag;
+    the discrete walk's signs are the top bits of the sign-tag words; neither
+    depends on the batch a chain is drawn in."""
+    chains = torch.arange(32)
+    z = cr.normals(11, chains, 5, 7, cr.TAG_PROPOSAL)
+    assert not torch.equal(z, cr.normals(11, chains, 5, 7, cr.TAG_MOMENTUM))
+    torch.testing.assert_close(cr.normals(11, chains[20:], 5, 7, cr.TAG_PROPOSAL), z[20:],
+                               rtol=0, atol=0)
+    s = cr.signs(11, chains, 5, 6)
+    assert s.dtype == torch.bool and tuple(s.shape) == (32, 6)
+    w = cr.counter_bits(11, chains[:, None], 5, torch.arange(2)[None, :], cr.TAG_SIGN)
+    assert torch.equal(s, (w.reshape(32, 8)[:, :6] >> 31) == 1)
+    assert torch.equal(cr.signs(11, torch.tensor([9]), 5, 6), s[9:10])
+    assert not torch.equal(s, cr.signs(11, chains, 6, 6))
+    flips = cr.signs(3, torch.arange(5_000), 0, 4).float().mean()
+    assert abs(float(flips) - 0.5) < 0.02

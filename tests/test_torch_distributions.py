@@ -59,4 +59,62 @@ def test_target_to_moves_parameters():
     assert t.mean.dtype == torch.float32 and t.diag_prec.dtype == torch.float32
     assert t.is_diagonal and t.unnorm_logp(torch.zeros(3, 5)).dtype == torch.float32
     with pytest.raises(ValueError, match="no port target"):
-        to_target("Rosenbrock2D", mean, cov)
+        to_target("NealsFunnel", mean, cov)
+    with pytest.raises(ValueError, match="Rosenbrock2D takes a, b"):
+        to_target("Rosenbrock2D", mean, cov, 1.0)
+
+
+_COV2 = np.array([[4.0, 2.0], [1.5, 3.0]])  # b != c: the form uses b + c
+
+
+def _mh_targets():
+    """name -> (JAX target, port target, width)."""
+    mean = np.array([0.0, 1.0])
+    return {
+        "gaussian2d": (gmt.Gaussian2D(mean=jnp.asarray(mean), cov=jnp.asarray(_COV2)),
+                       to_target("Gaussian2D", mean, _COV2), 2),
+        "isotropic": (gmt.IsotropicGaussian(1.7), to_target("IsotropicGaussian", 1.7), 3),
+        "rosenbrock2d": (gmt.Rosenbrock2D(1.0, 100.0), to_target("Rosenbrock2D", 1.0, 100.0), 2),
+    }
+
+
+@pytest.mark.parametrize("name", ["gaussian2d", "isotropic", "rosenbrock2d"])
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, RTOL), (np.float32, 1e-5)])
+def test_mh_target_logp_matches_jax(name, dtype, rtol):
+    jt, pt, d = _mh_targets()[name]
+    x = (np.random.default_rng(2).normal(size=(9, d)) * 1.5).astype(dtype)
+    if hasattr(pt, "to"):
+        pt = pt.to(dtype=to_tensor(x).dtype)
+    want = jax.vmap(jt.unnorm_logp)(jnp.asarray(x))
+    got = pt.unnorm_logp(to_tensor(x))
+    assert got.dtype == to_tensor(x).dtype and tuple(got.shape) == (9,)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol)
+    np.testing.assert_allclose(pt(to_tensor(x)).numpy(), np.asarray(want), rtol=rtol)
+    if name == "gaussian2d":  # the normalized density
+        np.testing.assert_allclose(pt.logp(to_tensor(x)).numpy(),
+                                   np.asarray(jax.vmap(jt.logp)(jnp.asarray(x))), rtol=rtol)
+    if name == "isotropic":  # the proposal role: transition density with its constant
+        y = (x + np.random.default_rng(3).normal(size=x.shape)).astype(dtype)
+        q_j = jax.vmap(jt.logp)(jnp.asarray(x), jnp.asarray(y))
+        np.testing.assert_allclose(pt.logp(to_tensor(x), to_tensor(y)).numpy(),
+                                   np.asarray(q_j), rtol=rtol)
+        z = np.random.default_rng(4).normal(size=x.shape).astype(dtype)
+        np.testing.assert_allclose(pt.propose(to_tensor(x), to_tensor(z)).numpy(),
+                                   x + z * dtype(1.7), rtol=rtol)
+
+
+@pytest.mark.parametrize("name", ["poisson", "binomial"])
+@pytest.mark.parametrize("int_dtype", [np.int32, np.int64])
+def test_discrete_target_logp_matches_jax(name, int_dtype):
+    """Length-1 integer states; the JAX targets compute in float32, and so
+    does the port: rounding of two lgammas."""
+    jt, pt = {"poisson": (gmt.Poisson(4.0), to_target("Poisson", 4.0)),
+              "binomial": (gmt.Binomial(10, 0.3), to_target("Binomial", 10, 0.3))}[name]
+    k = np.arange(-3, 15, dtype=int_dtype)[:, None]
+    want = np.asarray(jax.vmap(jt.unnorm_logp)(jnp.asarray(k)))
+    got = pt.unnorm_logp(to_tensor(k))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (18,)
+    support = np.isfinite(want)
+    assert support.sum() == (15 if name == "poisson" else 11)
+    np.testing.assert_array_equal(np.isneginf(got.numpy()), ~support)  # -inf outside
+    np.testing.assert_allclose(got.numpy()[support], want[support], rtol=1e-5, atol=1e-6)

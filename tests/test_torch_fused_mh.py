@@ -1,0 +1,136 @@
+"""The fused MH run (general_mcmc_torch/ops/fused_mh.py), plain version on
+the CPU: equal to the ``"torch"`` backend for the same seed, the layout,
+thinning and pCN identities of tests/test_pallas.py, every refusal of the
+wrapper, and moments against the JAX package's fused_mh_run in interpret
+mode.  The kernel itself is held against this plain version on the card by
+chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import general_mcmc_tpu as gmt
+from general_mcmc_tpu.ops.pallas_mh import fused_mh_run as jax_fused_mh_run
+from general_mcmc_torch import (
+    DiscreteWalkProposal,
+    IsotropicGaussian,
+    MetropolisHastings,
+    PCNProposal,
+    RandomWalkProposal,
+    init_det,
+)
+from general_mcmc_torch.convert import to_target, to_tensor
+from general_mcmc_torch.ops import fused_mh
+
+_MEAN = np.array([0.0, 1.0])
+_COV = np.array([[4.0, 2.0], [2.0, 3.0]])
+
+
+def _cases():
+    f32 = dict(dtype=torch.float32)
+    return {
+        "walk_gaussian2d": (to_target("Gaussian2D", _MEAN, _COV, **f32),
+                            RandomWalkProposal(1.0), 2),
+        "pcn_gaussian_nd": (to_target("GaussianND", np.array([0.5, -0.5, 0.0]),
+                                      np.array([1.0, 0.7, 1.3]), **f32),
+                            PCNProposal(0.6), 3),
+        "isotropic_rosenbrock": (to_target("Rosenbrock2D", 1.0, 10.0),
+                                 IsotropicGaussian(0.5), 2),
+    }
+
+
+@pytest.mark.parametrize("name", ["walk_gaussian2d", "pcn_gaussian_nd",
+                                  "isotropic_rosenbrock"])
+def test_fused_run_equals_torch_backend(name):
+    target, proposal, d = _cases()[name]
+    x0 = init_det(16, d, device="cpu")
+    got = fused_mh.fused_mh_run(target, x0, proposal, 12, 5, seed=7, thin=2)
+    assert tuple(got.shape) == (16, 12, d) and got.dtype == torch.float32
+    assert got.transpose(0, 1).is_contiguous()  # a view of the steps-major store
+    assert bool(torch.isfinite(got).all())
+    kw = dict(seed=7, device="cpu")
+    torch_run = MetropolisHastings(target, proposal, x0, backend="torch", **kw).run(12, 5, thin=2)
+    cuda_on_cpu = MetropolisHastings(target, proposal, x0, backend="cuda", **kw).run(12, 5, thin=2)
+    torch.testing.assert_close(torch_run, got, rtol=0, atol=0)
+    torch.testing.assert_close(cuda_on_cpu, got, rtol=0, atol=0)
+    # the seed's 31-bit key addresses the draws, as in the JAX package
+    other = fused_mh.fused_mh_run(target, x0, proposal, 12, 5, seed=7 + 2**31, thin=2)
+    torch.testing.assert_close(other, got, rtol=0, atol=0)
+    # a chain's path does not depend on which other chains share the run
+    alone = fused_mh.fused_mh_run(target, x0[:5], proposal, 12, 5, seed=7, thin=2)
+    torch.testing.assert_close(alone, got[:5], rtol=0, atol=0)
+
+
+def test_thinning_identity():
+    """tests/test_pallas.py: thin=3 equals the unthinned run's [:, 2::3]."""
+    target = to_target("GaussianND", np.zeros(2), np.ones(2), dtype=torch.float32)
+    x0 = init_det(8, 2, device="cpu")
+    full = fused_mh.fused_mh_run(target, x0, RandomWalkProposal(0.7), 12, 4, seed=3)
+    thin = fused_mh.fused_mh_run(target, x0, RandomWalkProposal(0.7), 4, 4, seed=3, thin=3)
+    torch.testing.assert_close(thin, full[:, 2::3], rtol=0, atol=0)
+
+
+def test_pcn_on_standard_normal_moves_every_step():
+    """tests/test_pallas.py: with a standard-normal target the pCN Hastings
+    ratio is 1, so every step moves; true only with the q terms in."""
+    target = to_target("GaussianND", np.zeros(2), np.ones(2), dtype=torch.float32)
+    s = fused_mh.fused_mh_run(target, init_det(8, 2, device="cpu"), PCNProposal(0.6), 50, 0,
+                              seed=1)
+    assert tuple(s.shape) == (8, 50, 2)
+    assert bool((s[:, 1:] != s[:, :-1]).any(dim=2).all())
+
+
+def test_moments_match_target_and_jax_interpret():
+    """The port draws from Philox, the JAX kernel's interpret mode from a
+    hash, so the two runs agree in distribution only: 64 chains, 300 steps
+    after 100, held to tests/test_pallas.py's tolerances between two runs
+    (mean 0.4, covariance 1.0), which are some five sampling errors wide."""
+    jt = gmt.Gaussian2D(mean=jnp.asarray(_MEAN, jnp.float32), cov=jnp.asarray(_COV, jnp.float32))
+    x0 = np.asarray(gmt.init_det(64, 2))
+    j = np.asarray(jax_fused_mh_run(jt.unnorm_logp, jnp.asarray(x0), 1.0, 300, 100, seed=1,
+                                    interpret=True))
+    target, proposal, _ = _cases()["walk_gaussian2d"]
+    p = fused_mh.fused_mh_run(target, to_tensor(x0), proposal, 300, 100, seed=1).numpy()
+    assert p.shape == j.shape == (64, 300, 2)
+    pf, jf = p.reshape(-1, 2), j.reshape(-1, 2)
+    for flat in (pf, jf):
+        np.testing.assert_allclose(flat.mean(axis=0), _MEAN, atol=0.4)
+        np.testing.assert_allclose(np.cov(flat.T), _COV, atol=1.0)
+    np.testing.assert_allclose(pf.mean(axis=0), jf.mean(axis=0), atol=0.4)
+    np.testing.assert_allclose(np.cov(pf.T), np.cov(jf.T), atol=1.0)
+
+
+def test_wrapper_refusals():
+    """What the kernel does not take raises before anything touches a
+    device (a meta tensor has no data), on the CPU as on the card."""
+    target, proposal, _ = _cases()["walk_gaussian2d"]
+    x = torch.zeros(4, 2)
+    run = fused_mh.fused_mh_run
+    with pytest.raises(ValueError, match="not the target"):
+        run(lambda v: -0.5 * (v * v).sum(-1), x, proposal, 4)
+    with pytest.raises(ValueError, match="not the target DiffableGaussian2D"):
+        run(to_target("DiffableGaussian2D", _MEAN, _COV), x, proposal, 4)
+    with pytest.raises(ValueError, match="dense covariance"):
+        run(to_target("GaussianND", _MEAN, _COV), x, proposal, 4)
+    with pytest.raises(ValueError, match="mean must be"):
+        run(to_target("GaussianND", np.zeros(3), np.ones(3)), x, proposal, 4)
+    with pytest.raises(ValueError, match="width 2"):
+        run(target, torch.zeros(4, 3), proposal, 4)
+    with pytest.raises(ValueError, match="not the proposal DiscreteWalkProposal"):
+        run(target, x, DiscreteWalkProposal(), 4)
+    with pytest.raises(ValueError, match="float states"):
+        run(target, x.int(), proposal, 4)
+    with pytest.raises(ValueError, match=r"\[n_chains, dim\]"):
+        run(target, x[0], proposal, 4)
+    with pytest.raises(ValueError, match="thin >= 1"):
+        run(target, x, proposal, 4, thin=0)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        run(target, torch.empty(4, 2, device="meta"), proposal, 4)
+    # the sampler refuses on the CPU just as it would on the card
+    with pytest.raises(ValueError, match="not the target"):
+        MetropolisHastings(to_target("DiffableGaussian2D", _MEAN, _COV), proposal, x,
+                           backend="cuda", device="cpu").run(2)
+    before = fused_mh.launches
+    run(target, x, proposal, 3)
+    assert fused_mh.launches == before  # the CPU runs the plain version: no launch
