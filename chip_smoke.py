@@ -11,15 +11,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
 1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
    first-use ``nvcc`` build of ``general_mcmc_torch/csrc/*.cu``;
 2. K2, the counter-based generator: the fill kernel's bits equal the plain
-   version's bits exactly, and the device Philox equals the CUDA toolkit's
-   ``curand_Philox4x32_10``;
+   version's bits exactly, the device Philox equals the CUDA toolkit's
+   ``curand_Philox4x32_10``, and the device Box-Muller pair (``logf``,
+   ``sqrtf``, ``sincosf``) equals the plain one (``torch.log``, ``sqrt``,
+   ``cos``, ``sin``) bit for bit on every one of the 2^24 uniforms;
 3. K1, the fused HMC kernel, against its plain version at a small size
-   (identity and diagonal mass, even and odd widths);
+   (identity and diagonal mass; widths 2, 7, 8, 33, 70, 100 and 512, which
+   take every quads-per-lane build and both ways of drawing the accept
+   uniform);
 4. the slice's main path at full width: ``HMC(..., backend="cuda").run``
    on the 100-d benchmark Gaussian with 10,240 chains, then split-R-hat,
    ESS and the moment audit on the card; the same run through the plain
    version is compared with it and timed;
-5. the identity-mass path at full width (a short run);
+5. the identity-mass path at full width (a short run); "K1-split", the
+   kernel's time at 1, 10 and 20 leapfrogs with 1 and 1,000 stored rows,
+   fitted to a step's fixed cost, a leapfrog's and a row's; "K1-maps", the
+   main path's run at widths 33, 70 and 100 under every lane map the kernel
+   takes at each width, each equal to the others bit for bit, and timed;
 6. K3, the fused MH kernel, against its plain version at a small size (every
    device target with every device proposal, even and odd widths, one and
    several dimension pairs a lane), the pCN identity and the thinning
@@ -29,9 +37,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (81.9M samples in one launch), the moment, R-hat and ESS checks on the
    card; the same run through the plain version is compared with it and
    timed;
-8. K4, the fused logistic gradient chain, against its plain version after
-   1, 8, 64 and 512 steps at 10,240 chains, 48 features and 256 observations,
-   and timed.
+8. K4, the fused logistic gradient chain (tensor cores, three TF32 passes),
+   against its plain version at small ragged sizes and after 1, 8, 64 and
+   512 steps at 10,240 chains, 48 features and 256 observations, and timed,
+   with the two ``torch.matmul`` of a step timed alone as a yardstick.
 
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
@@ -41,6 +50,7 @@ code 2 and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -53,12 +63,20 @@ import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
 from general_mcmc_torch.ops import counter_rng, fused_hmc, fused_logistic, fused_mh
 
-# Published peaks of one H100 SXM at its full 700 W power limit: HBM rate
-# and the float32 rate outside the tensor cores.  The fused kernels use no
-# tensor cores; their 32-bit integer work (Philox) is counted at the same
-# rate, which gives a lower bound on their time.
+# Published peaks of one H100 SXM at its full 700 W power limit: HBM rate,
+# the float32 rate outside the tensor cores and the dense TF32 rate of the
+# tensor cores.  For a bound, 32-bit integer work (Philox) is counted at the
+# float32 rate, which can only lower the bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+# The 67 T/s count a fused multiply-add as two operations on each of an SM's
+# 128 float32 lanes.  A kernel held bit-equal to separate PyTorch ops executes
+# unfused operations, one a lane a clock, and an SM has 64 lanes for 32-bit
+# integer work: unfused_ms() states the time of the same operation count
+# under those two rates, at the card's highest SM clock as nvidia-smi reports
+# it (clocks.max.sm).
+F32_LANES_PER_SM, I32_LANES_PER_SM = 128, 64
 
 # Philox4x32-10: 10 rounds of 2 mul-hi, 2 mul-lo and 4 xor, and 9 key bumps
 # of 2 adds, for four 32-bit words.
@@ -71,6 +89,8 @@ N_COLLECT, N_DISCARD = 1000, 200
 # version (1024 chains, 50 steps), 0.4 about 0.87 (0.875 on the card).
 STEP_SIZE, N_LEAPFROG = 0.4, 10
 SEED = 0
+# Widths at which "K1-maps" times every lane map: 9, 18 and 25 quads.
+K1_MAP_WIDTHS = (33, 70, DIM)
 
 # The MH main path: the 2-d Gaussian stress run (80M samples) spread over
 # the card.
@@ -135,22 +155,33 @@ def timed(fn, reps: int):
     return sorted(dev_ms)[reps // 2], sorted(wall_s)[reps // 2], out
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     """Least time in ms for the work, and what sets it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def unfused_ms(float_ops: float, int_ops: float) -> float:
+    """Time in ms of the operations at one unfused float32 operation a lane
+    a clock and the integer operations at the SM's 32-bit integer rate, at
+    the highest SM clock (see F32_LANES_PER_SM)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_s = sms * max_sm_clock_hz()
+    return (float_ops / F32_LANES_PER_SM + int_ops / I32_LANES_PER_SM) / per_s * 1e3
+
+
 def fused_hmc_work(n: int, d: int, n_steps: int, n_collect: int, n_leapfrog: int):
-    """Bytes and operations of one fused HMC run: x0 read and the sample
-    store written once; per element and step, half a Philox block (two
-    normals per block), Box-Muller (~12), momentum scale, kinetic energies
-    and log density (~11), the select (2), and 7 per leapfrog
+    """Bytes, float operations and integer operations of one fused HMC run:
+    x0 read and the sample store written once; per element and step a
+    quarter of a Philox block (four normals a block), half a Box-Muller
+    pair (~10), momentum scale, kinetic energies and log density (~11), the
+    gradient at the step's start (2), the select (1), and 7 per leapfrog
     (p += (M⁻¹m)ε: 3, g = −(p−μ)·prec: 2, m += gε: 2)."""
     n_bytes = 4 * n * d * (1 + n_collect) + 4 * 4 * d
-    per_elem_step = PHILOX_OPS / 2 + 12 + 11 + 2 + 7 * n_leapfrog
-    return n_bytes, n * d * n_steps * per_elem_step
+    elem_steps = n * d * n_steps
+    return (n_bytes, elem_steps * (10 + 11 + 2 + 1 + 7 * n_leapfrog),
+            elem_steps * PHILOX_OPS / 4)
 
 
 def fused_mh_work(n: int, d: int, n_steps: int, n_collect: int, target_ops: int,
@@ -159,27 +190,38 @@ def fused_mh_work(n: int, d: int, n_steps: int, n_collect: int, target_ops: int,
     store written once; per chain and step one Philox block per dimension
     pair and one for the accept draw, Box-Muller (~12) and the proposal per
     coordinate, the target, and the accept test with its select (log ~4,
-    subtract, compare, d + 1 selects)."""
+    subtract, compare, d + 1 selects).  Returns bytes, float operations and
+    integer operations."""
     n_bytes = 4 * n * d * (1 + n_collect)
-    per_step = (PHILOX_OPS * ((d + 1) // 2 + 1) + (12 + proposal_ops) * d + target_ops
-                + 6 + d + 1)
-    return n_bytes, n * n_steps * per_step
+    per_step = (12 + proposal_ops) * d + target_ops + 6 + d + 1
+    return (n_bytes, n * n_steps * per_step,
+            n * n_steps * PHILOX_OPS * ((d + 1) // 2 + 1))
 
 
 def fused_logistic_work(n: int, p: int, n_obs: int, n_steps: int):
-    """Bytes and operations of one fused logistic chain: the state read and
-    written once, X and y read once; per chain and step the two products
-    (4·n_obs·p), a sigmoid and a subtraction per observation (~8), and
-    β, the hyper sums and the update per feature (~8)."""
+    """Bytes, product flops and other operations of one fused logistic
+    chain: the state read and written once, X and y read once; per chain and
+    step the two products (4·n_obs·p), a sigmoid and a subtraction per
+    observation (~8), and β, the hyper sums and the update per feature
+    (~8)."""
     n_bytes = 4 * (2 * n * (p + 2) + n_obs * p + n_obs)
-    return n_bytes, n * n_steps * (4 * n_obs * p + 8 * n_obs + 8 * p)
+    return n_bytes, n * n_steps * 4 * n_obs * p, n * n_steps * (8 * n_obs + 8 * p)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return nvidia_smi("name,power.limit")
+
+
+@functools.lru_cache(maxsize=None)
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm, "1980 MHz")."""
+    return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
 
 def phase_environment():
@@ -217,7 +259,7 @@ def phase_counter_rng(dev):
                                                   device=dev)
     check(torch.equal(got, want), "K2 fill bits equal the plain bits")
     errs = {}
-    for kind in ("uniform", "normal"):
+    for kind in ("uniform", "normal", "normal_pair"):
         g = counter_rng.counter_rng_fill(n, words, seed, step, counter_rng.TAG_MOMENTUM,
                                          kind, device=dev)
         w = counter_rng.counter_rng_fill_reference(n, words, seed, step,
@@ -243,6 +285,15 @@ def phase_counter_rng(dev):
         for i in range(ctr.shape[0])])
     check(torch.equal(mine.cpu(), as_i32(plain)), "device Philox equals the plain Philox")
     kat = [f"{int(w) & 0xFFFFFFFF:08x}" for w in mine[0].cpu()]
+    # the device Box-Muller pair (logf, sqrtf, sincosf) against the plain one
+    # (torch.log, sqrt, cos, sin on the card) on every 24-bit uniform: the
+    # fused HMC kernel equals its plain version bit for bit only if these do
+    z_cos, z_sin, bits = counter_rng.pair_sweep(dev)
+    want_cos, want_sin = counter_rng.box_muller_pair(bits, bits)
+    pair_diff = int((z_cos != want_cos).sum()) + int((z_sin != want_sin).sum())
+    check(pair_diff == 0, f"device Box-Muller pair equals torch's bit for bit ({pair_diff} of "
+          f"{2 * bits.numel()} differ)")
+    del z_cos, z_sin, bits, want_cos, want_sin
 
     fill = lambda: counter_rng.counter_rng_fill(n, words, seed, step, 0, "bits", device=dev)
     ref = lambda: counter_rng.counter_rng_fill_reference(n, words, seed, step, 0, "bits",
@@ -253,7 +304,8 @@ def phase_counter_rng(dev):
     say("K2", words=f"{n}x{words}", bits_equal=True, curand_equal=True,
         curand_pairs=ctr.shape[0], kat0="".join(kat),
         max_abs_err_uniform=errs["uniform"], max_abs_err_normal=errs["normal"],
-        fill_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.5f}")
+        max_abs_err_normal_pair=errs["normal_pair"], pair_sweep_uniforms=1 << 24,
+        pair_sweep_differ=pair_diff, fill_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.5f}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=max(errs.values()))
 
@@ -270,24 +322,36 @@ def compare(got, want, what):
 
 
 def phase_small(dev):
-    """K1 against its plain version at 256 chains, 8-d (even: paired
-    stores) and 7-d (odd: scalar stores), identity and diagonal mass."""
-    errs = []
-    for d in (8, 7):
+    """K1 against its plain version at 256 chains, identity and diagonal
+    mass, at widths that take every build and branch of the kernel: 2 (a
+    lane a chain, one quad), 7 (odd: scalar stores) and 8 (two quads a lane,
+    no idle lane slot: every lane draws the accept block), 33 and 70 (three
+    quads a lane), 100 (the main path's map) and 512 (a warp a chain, four
+    quads a lane)."""
+    errs, maps, moved = [], {}, []
+    for d in (2, 7, 8, 33, 70, 100, 512):
         gen = torch.Generator().manual_seed(d)
         mean = torch.randn(d, generator=gen)
         scales = torch.exp(torch.randn(d, generator=gen) * 0.5)
         target = gmt.GaussianND(mean, scales, device=dev)
         x0 = gmt.init_with_seed(256, d, 3, device=dev)
+        maps[d] = "x".join(str(v) for v in fused_hmc.lane_map(d))
         for mass_inv in (None, (scales**2).to(dev)):
-            args = (target, x0, 0.3, 5, 20, 5)
+            # identity mass: the narrowest scale bounds the step size
+            eps = 0.3 if mass_inv is not None or d <= 8 else 0.05
+            args = (target, x0, eps, 5, 20, 5)
             kw = dict(seed=11, thin=2, mass_inv=mass_inv)
             got = fused_hmc.fused_hmc_run(*args, **kw)
             want = fused_hmc.fused_hmc_run_reference(*args, **kw)
             torch.cuda.synchronize()
             check(tuple(got.shape) == (256, 20, d), "K1 output shape")
             errs.append(compare(got, want, f"K1 d={d} mass={mass_inv is not None}"))
-    say("K1-small", cases=len(errs), rtol=K1_RTOL, atol=K1_ATOL, max_abs_err=max(errs))
+            moved.append(float((got[:, 1:] != got[:, :-1]).any(dim=2).float().mean()))
+    check(min(moved) > 0.02, f"K1 small cases accept ({moved})")
+    say("K1-small", cases=len(errs), rtol=K1_RTOL, atol=K1_ATOL, max_abs_err=max(errs),
+        lane_maps=json.dumps(maps), moved_min=f"{min(moved):.3f}",
+        moved_max=f"{max(moved):.3f}")
+    return dict(max_abs_err=max(errs))
 
 
 def phase_main_path(dev):
@@ -316,6 +380,7 @@ def phase_main_path(dev):
     accept = float((store[1:] != store[:-1]).any(dim=2).float().mean())
     check(max_rhat < 1.01, f"max R-hat {max_rhat} < 1.01")
     check(audit < 0.05, f"moment audit max|std/scale - 1| {audit} < 0.05")
+    check(0.6 < accept < 0.95, f"accept rate {accept} within 0.6-0.95")
     diag_ms, _, _ = timed(lambda: gmt.split_rhat_mean_ess(store, steps_major=True), 1)
 
     # the same run through the plain version, on the same inputs
@@ -333,17 +398,21 @@ def phase_main_path(dev):
     del out
     n_steps = N_COLLECT + N_DISCARD
     grad_evals = N_CHAINS * n_steps * N_LEAPFROG
-    b_ms, b_by = bound(*fused_hmc_work(N_CHAINS, DIM, n_steps, N_COLLECT, N_LEAPFROG))
+    n_bytes, f_ops, i_ops = fused_hmc_work(N_CHAINS, DIM, n_steps, N_COLLECT, N_LEAPFROG)
+    b_ms, b_by = bound(n_bytes, f_ops + i_ops)
+    unfused = unfused_ms(f_ops, i_ops)
     say("main", chains=N_CHAINS, dim=DIM, steps=f"{N_DISCARD}+{N_COLLECT}",
         step_size=STEP_SIZE, n_leapfrog=N_LEAPFROG, launches=counts["fused_hmc"],
         accept=f"{accept:.4f}", max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}",
         moment_audit=f"{audit:.5f}", wall_s=f"{wall:.5f}", kernel_ms=f"{ms:.3f}",
         grad_evals_per_s=f"{grad_evals / wall:.4e}", min_ess_per_s=f"{min_ess / wall:.4e}",
         plain_s=f"{plain_s:.3f}", plain_steps=n_steps, bound_ms=f"{b_ms:.3f}",
-        bound_by=b_by, max_abs_err=err, diagnostics_ms=f"{diag_ms:.1f}")
+        bound_by=b_by, bound_unfused_ms=f"{unfused:.3f}",
+        sm_clock_mhz=f"{max_sm_clock_hz() / 1e6:.0f}", lane_map=fused_hmc.lane_map(DIM),
+        max_abs_err=err, diagnostics_ms=f"{diag_ms:.1f}")
     return dict(launches=counts["fused_hmc"], fill_launches=counts["counter_rng_fill"],
-                max_abs_err=err, ms=ms,
-                plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by)
+                max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3, bound_ms=b_ms, bound_by=b_by,
+                bound_unfused_ms=unfused, accept=accept, max_rhat=max_rhat, audit=audit)
 
 
 def phase_identity_mass(dev):
@@ -364,6 +433,78 @@ def phase_identity_mass(dev):
     say("identity-mass", chains=N_CHAINS, dim=DIM, steps="10+20", launches=launches,
         max_abs_err=err)
     return dict(launches=launches, max_abs_err=err)
+
+
+def phase_k1_split(dev):
+    """K1's time split from outside: the main path's shape and 1,200 steps
+    with 1, 10 and 20 leapfrogs, storing 1 and 1,000 samples, fitted to
+    ``ms = steps·(a + b·n_leapfrog) + c·n_collect``: ``a`` is a step's fixed
+    cost (draws, sums, accept), ``b`` a leapfrog's, ``c`` a stored row's."""
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM))
+    target = gmt.GaussianND(torch.zeros(DIM), scales, device=dev)
+    x0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
+    mass_inv = (scales**2).to(dev)
+    steps = N_COLLECT + N_DISCARD
+    rows, times = [], []
+    for n_leapfrog in (1, 10, 20):
+        for n_collect in (1, N_COLLECT):
+            run = lambda: fused_hmc.fused_hmc_run(
+                target, x0, STEP_SIZE, n_leapfrog, n_collect, steps - n_collect, seed=SEED,
+                mass_inv=mass_inv)
+            ms, _, out = timed(run, 3)
+            del out
+            rows.append([steps, steps * n_leapfrog, n_collect])
+            times.append(ms)
+    fit = torch.linalg.lstsq(torch.tensor(rows, dtype=torch.float64),
+                             torch.tensor(times, dtype=torch.float64)[:, None]).solution
+    a_us, b_us, c_us = (float(v) * 1e3 for v in fit[:, 0])
+    resid = float((torch.tensor(rows, dtype=torch.float64) @ fit
+                   - torch.tensor(times, dtype=torch.float64)[:, None]).abs().max())
+    at10 = a_us + b_us * N_LEAPFROG
+    say("K1-split", chains=N_CHAINS, dim=DIM, steps=steps,
+        ms=json.dumps({f"L{r[1] // steps}_c{r[2]}": round(t, 3) for r, t in zip(rows, times)}),
+        a_us_per_step=f"{a_us:.4f}", b_us_per_leapfrog=f"{b_us:.4f}",
+        c_us_per_row=f"{c_us:.4f}", a_share_at_L10=f"{a_us / at10:.3f}",
+        max_fit_residual_ms=f"{resid:.3f}")
+    return dict(a_us=a_us, b_us=b_us, c_us=c_us)
+
+
+def phase_k1_maps(dev):
+    """The main path's run (chains, steps, leapfrogs) at widths 33, 70 and
+    the main path's 100 under every lane map the kernel takes at that width
+    (lanes per chain x quads per lane).  The draws are addressed by (chain,
+    step, quad), so every map must give the same bits; the times say whether
+    the wrapper's choice (the first of each width) is the fastest.  At 33
+    and 70 the first map has three quads a lane and fewer lane slots than
+    the others; at 100 all three have 32 slots."""
+    f32 = dict(device=dev, dtype=torch.float32)
+    times = {}
+    for d in K1_MAP_WIDTHS:
+        scales = torch.exp(torch.linspace(0.0, math.log(10.0), d))
+        target = gmt.GaussianND(torch.zeros(d), scales, device=dev)
+        x0 = gmt.init_with_seed(N_CHAINS, d, SEED, device=dev)
+        mean, prec = target.mean.to(**f32), target.diag_prec.to(**f32)
+        inv_row = (scales**2).to(**f32)
+        scale_row = 1.0 / torch.sqrt(inv_row)
+        first, times[d] = None, {}
+        for g, qpl in fused_hmc.lane_maps(d):
+            out = torch.empty((N_COLLECT, N_CHAINS, d), **f32)
+            run = lambda: fused_hmc._launch(x0, mean, prec, inv_row, scale_row, out, N_DISCARD,
+                                            1, N_LEAPFROG, STEP_SIZE, SEED, True, (g, qpl))
+            ms, _, _ = timed(run, 3)
+            times[d][f"{g}x{qpl}"] = round(ms, 3)
+            if first is None:
+                first = out
+            else:
+                check(torch.equal(out, first),
+                      f"K1 lane map {g}x{qpl} at d={d} equals the chosen map's bits")
+            del out
+        del first
+    chosen = {d: next(iter(t)) for d, t in times.items()}
+    fastest = {d: min(t, key=t.get) for d, t in times.items()}
+    say("K1-maps", chains=N_CHAINS, widths=list(times), all_equal=True,
+        chosen=json.dumps(chosen), fastest=json.dumps(fastest), ms=json.dumps(times))
+    return dict(times=times[DIM], chosen=chosen[DIM])
 
 
 def phase_mh_small(dev):
@@ -456,7 +597,9 @@ def phase_mh_main(dev):
     n_steps = MH_COLLECT + MH_DISCARD
     # Gaussian2D: 2 subtractions, 9 products and sums, a division, a scale;
     # random walk: a product and a sum per coordinate
-    b_ms, b_by = bound(*fused_mh_work(MH_CHAINS, 2, n_steps, MH_COLLECT, 13, 2))
+    n_bytes, f_ops, i_ops = fused_mh_work(MH_CHAINS, 2, n_steps, MH_COLLECT, 13, 2)
+    b_ms, b_by = bound(n_bytes, f_ops + i_ops)
+    unfused = unfused_ms(f_ops, i_ops)
     n_samples = MH_CHAINS * MH_COLLECT
     say("mh-main", chains=MH_CHAINS, dim=2, steps=f"{MH_DISCARD}+{MH_COLLECT}",
         samples=n_samples, store_mb=f"{4 * 2 * n_samples / 1e6:.0f}", launches=launches,
@@ -464,9 +607,10 @@ def phase_mh_main(dev):
         max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}", wall_s=f"{wall:.5f}",
         kernel_ms=f"{ms:.3f}", samples_per_s=f"{n_samples / wall:.4e}",
         min_ess_per_s=f"{min_ess / wall:.4e}", plain_s=f"{plain_s:.3f}",
-        plain_steps=n_steps, bound_ms=f"{b_ms:.3f}", bound_by=b_by, max_abs_err=err)
+        plain_steps=n_steps, bound_ms=f"{b_ms:.3f}", bound_by=b_by,
+        bound_unfused_ms=f"{unfused:.3f}", max_abs_err=err)
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
-                bound_ms=b_ms, bound_by=b_by)
+                bound_ms=b_ms, bound_by=b_by, bound_unfused_ms=unfused)
 
 
 def phase_logistic(dev):
@@ -479,6 +623,25 @@ def phase_logistic(dev):
     chain = lambda steps: fused_logistic.fused_logistic_chain(theta0, X, y, steps, LG_LR)
     plain = lambda steps: fused_logistic.fused_logistic_chain_reference(theta0, X, y, steps,
                                                                         LG_LR)
+    # small ragged sizes: chains no multiple of a tile's 32, features and
+    # observations no multiples of 8, one case for each feature-tile build;
+    # and one with enough chains for three chain tiles a block whose X leaves
+    # room for two (one step: at 300 observations eight steps take the plain
+    # version in float32 further than the gate from itself in float64)
+    ragged = {}
+    for n, p, n_obs, steps in ((77, 13, 37, 8), (100, 20, 50, 8), (45, 33, 21, 8),
+                               (9000, 48, 300, 1)):
+        Xr, yr, _ = gmt.make_logistic_data(SEED + 3, n_obs, p, device=dev)
+        tr = (0.1 * torch.randn((n, p + 2), generator=gen)).to(dev)
+        got = fused_logistic.fused_logistic_chain(tr, Xr, yr, steps, LG_LR)
+        want = fused_logistic.fused_logistic_chain_reference(tr, Xr, yr, steps, LG_LR)
+        err = float((got - want).abs().max() / want.abs().max())
+        check(tuple(got.shape) == (n, p + 2) and err < LG_RTOL[steps],
+              f"K4 ragged {n}x{p}x{n_obs} after {steps} steps: relative error {err} "
+              f"< {LG_RTOL[steps]}")
+        ragged[f"{n}x{p}x{n_obs}@{steps}"] = f"{err:.3e}"
+    say("K4-ragged", rel_err=json.dumps(ragged))
+
     rel, abs_err = {}, 0.0
     for steps in (1, 8, 64):
         got, want = chain(steps), plain(steps)
@@ -507,8 +670,27 @@ def phase_logistic(dev):
 
     ms, wall, _ = timed(lambda: chain(LG_STEPS), 3)
     plain_ms, _, _ = timed(lambda: plain(LG_STEPS), 3)
-    b_ms, b_by = bound(*fused_logistic_work(LG_CHAINS, LG_FEATURES, LG_OBS, LG_STEPS))
-    flops = 4.0 * LG_CHAINS * LG_OBS * LG_FEATURES * LG_STEPS
+    # the yardstick: the two torch.matmul of one step at this shape, alone
+    # (float32, TF32 off), 200 pairs between two events, times the steps;
+    # the port's path on the card never calls them
+    beta = theta0[:, 2:].contiguous()
+    resid = torch.randn((LG_CHAINS, LG_OBS), device=dev)
+    Xt = X.T.contiguous()
+
+    def products():
+        for _ in range(200):
+            torch.matmul(beta, Xt)
+            torch.matmul(resid, X)
+
+    pair_ms, _, _ = timed(products, 3)
+    library_ms = pair_ms / 200 * LG_STEPS
+    # the bound: the lesser of the CUDA cores doing the products in float32
+    # and the tensor cores doing the three TF32 passes that float32 accuracy
+    # costs, each with the other operations on the CUDA cores
+    n_bytes, flops, other = fused_logistic_work(LG_CHAINS, LG_FEATURES, LG_OBS, LG_STEPS)
+    cuda_core_ms, _ = bound(n_bytes, flops + other)
+    tensor_ms = max(bound(n_bytes, 3 * flops, TF32_OPS_PER_S)[0], bound(n_bytes, other)[0])
+    b_ms, b_by = min(cuda_core_ms, tensor_ms), "operations"
     say("K4", chains=LG_CHAINS, features=LG_FEATURES, n_obs=LG_OBS, steps=LG_STEPS,
         launches=launches, rel_err_1=f"{rel[1]:.3e}", rel_err_8=f"{rel[8]:.3e}",
         rel_err_64=f"{rel[64]:.3e}", rel_err_512=f"{rel[LG_STEPS]:.3e}",
@@ -516,9 +698,11 @@ def phase_logistic(dev):
         wall_s=f"{wall:.5f}", us_per_grad=f"{ms * 1e3 / LG_STEPS:.3f}",
         tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}", plain_ms=f"{plain_ms:.3f}",
         plain_us_per_grad=f"{plain_ms * 1e3 / LG_STEPS:.3f}", bound_ms=f"{b_ms:.3f}",
-        bound_by=b_by)
+        bound_by=b_by, bound_cuda_core_ms=f"{cuda_core_ms:.3f}",
+        bound_tensor_3xtf32_ms=f"{tensor_ms:.3f}", library_ms=f"{library_ms:.3f}")
     return dict(launches=launches, max_abs_err=abs_err, rel_err=rel, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                bound_cuda_core_ms=cuda_core_ms, bound_tensor_ms=tensor_ms)
 
 
 def main() -> int:
@@ -531,9 +715,11 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_environment()
     k2 = phase_counter_rng(dev)
-    phase_small(dev)
+    small = phase_small(dev)
     main_path = phase_main_path(dev)
     ident = phase_identity_mass(dev)
+    split = phase_k1_split(dev)
+    maps = phase_k1_maps(dev)
     mh_small = phase_mh_small(dev)
     mh = phase_mh_main(dev)
     logistic = phase_logistic(dev)
@@ -541,10 +727,14 @@ def main() -> int:
         dict(name="fused_hmc", route="cuda", source="general_mcmc_torch/csrc/fused_hmc.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
              launches=main_path["launches"],
-             max_abs_err=max(main_path["max_abs_err"], ident["max_abs_err"]),
+             max_abs_err=max(main_path["max_abs_err"], ident["max_abs_err"],
+                             small["max_abs_err"]),
              ms=main_path["ms"], plain_ms=main_path["plain_ms"],
              bound_ms=main_path["bound_ms"], bound_by=main_path["bound_by"],
-             library_ms=None, checked_in="K1-small, main, identity-mass"),
+             bound_unfused_ms=main_path["bound_unfused_ms"], library_ms=None,
+             split_us={k: round(v, 4) for k, v in split.items()},
+             lane_map=maps["chosen"], lane_map_ms=maps["times"],
+             checked_in="K1-small, main, identity-mass, K1-maps"),
         # K2 is a device function: on the main paths it runs inside each
         # fused_hmc and fused_mh launch, so its launches are those kernels';
         # its times are those of its fill kernel (10,240 x 128 words), which
@@ -562,9 +752,10 @@ def main() -> int:
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]), ms=mh["ms"],
              plain_ms=mh["plain_ms"], bound_ms=mh["bound_ms"], bound_by=mh["bound_by"],
-             library_ms=None, checked_in="K3-small, mh-main"),
-        # no single PyTorch call computes the chain: the plain version's two
-        # torch.matmul calls a step are the library comparison (plain_ms)
+             bound_unfused_ms=mh["bound_unfused_ms"], library_ms=None,
+             checked_in="K3-small, mh-main"),
+        # no single PyTorch call computes the chain: library_ms is the time of
+        # its two torch.matmul a step, alone, times the steps
         dict(name="fused_logistic", route="cuda",
              source="general_mcmc_torch/csrc/fused_logistic.cu",
              replaces="scripts/exp_pallas_logistic.py:57", launches=logistic["launches"],
@@ -572,7 +763,10 @@ def main() -> int:
              max_rel_err={str(k): v for k, v in logistic["rel_err"].items()},
              ms=logistic["ms"], plain_ms=logistic["plain_ms"],
              bound_ms=logistic["bound_ms"], bound_by=logistic["bound_by"],
-             library_ms=None, checked_in="K4"),
+             bound_cuda_core_ms=logistic["bound_cuda_core_ms"],
+             bound_tensor_3xtf32_ms=logistic["bound_tensor_ms"],
+             library_ms=logistic["library_ms"],
+             checked_in="K4-ragged, K4"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -33,8 +33,9 @@ _FLAGS = [
 _NO_FMA = ["-fmad=false"]
 # Flags a source chooses for itself, in place of _NO_FMA.  The logistic
 # chain's two products sum in another order than the plain version's matrix
-# products whatever the rounding, so it agrees to a tolerance either way and
-# takes the fused multiply-adds, which double its arithmetic rate.
+# products whatever the rounding (and on the tensor cores), so it agrees to
+# a tolerance either way and takes the fused multiply-adds in the rest of
+# its arithmetic.
 _SOURCE_FLAGS: dict[str, list[str]] = {"fused_logistic": ["-fmad=true"]}
 
 _lock = threading.Lock()

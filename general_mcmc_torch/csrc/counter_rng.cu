@@ -19,8 +19,11 @@ namespace {
 // out[c, j] for chain c of n_chains, word j of n_words:
 //   kind 0: the raw bits of word j (group j / 4, lane j % 4) as int32;
 //   kind 1: the uniform of those bits;
-//   kind 2: normal j, Box-Muller of words (2j, 2j + 1) - the momentum
-//           layout of fused_hmc.cu (normal j lies in group j / 2).
+//   kind 2: normal j, the cosine branch of Box-Muller of words (2e, 2e + 1),
+//           e = j % 2, of group j / 2 - the proposal layout of fused_mh.cu;
+//   kind 3: normal j of the paired layout of fused_hmc.cu: group j / 4, words
+//           (0, 1) give normals 4q (cosine) and 4q + 1 (sine), words (2, 3)
+//           normals 4q + 2 and 4q + 3.
 __global__ void fill_kernel(void* out, int n_chains, int n_words, uint32_t seed,
                             uint32_t step, uint32_t tag, int kind) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -31,6 +34,17 @@ __global__ void fill_kernel(void* out, int n_chains, int n_words, uint32_t seed,
     const uint4 r = gmt::counter_bits(seed, chain, step, j / 2, tag);
     const float z = (j % 2 == 0) ? gmt::box_muller(r.x, r.y) : gmt::box_muller(r.z, r.w);
     static_cast<float*>(out)[i] = z;
+    return;
+  }
+  if (kind == 3) {
+    const uint4 r = gmt::counter_bits(seed, chain, step, j / 4, tag);
+    float zc, zs;
+    if (j % 4 < 2) {
+      gmt::box_muller_pair(r.x, r.y, zc, zs);
+    } else {
+      gmt::box_muller_pair(r.z, r.w, zc, zs);
+    }
+    static_cast<float*>(out)[i] = (j % 2 == 0) ? zc : zs;
     return;
   }
   const uint4 r = gmt::counter_bits(seed, chain, step, j / 4, tag);
@@ -63,7 +77,24 @@ __global__ void curand_check_kernel(const uint32_t* key, const uint32_t* ctr,
   theirs[4 * i + 3] = b.w;
 }
 
+// Both Box-Muller outputs for every 24-bit uniform: word i << 8 feeds the
+// radius and the angle alike, i < n.
+__global__ void pair_sweep_kernel(float* z_cos, float* z_sin, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t bits = static_cast<uint32_t>(i) << 8;
+  gmt::box_muller_pair(bits, bits, z_cos[i], z_sin[i]);
+}
+
 }  // namespace
+
+extern "C" int counter_rng_pair_sweep(void* z_cos, void* z_sin, int n, void* stream) {
+  const int threads = 256;
+  pair_sweep_kernel<<<(n + threads - 1) / threads, threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(z_cos), static_cast<float*>(z_sin), n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int counter_rng_fill(void* out, int n_chains, int n_words, unsigned int seed,
                                 unsigned int step, unsigned int tag, int kind,

@@ -11,7 +11,9 @@ repeat beyond 2³² draws.  Here the device function in
 Philox bits from a counter made only of (global chain, absolute step,
 dimension group, draw tag), keyed by the seed, so a chain's draws are the
 same whatever the batch, launch shape or device.  The bits-to-uniform map
-and the Box–Muller cosine branch are the JAX package's.
+and the Box–Muller cosine branch are the JAX package's; the fused HMC kernel
+also takes the sine branch of the same two uniforms, an independent normal,
+so that one Philox block serves four dimensions (:func:`box_muller_pair`).
 
 The plain version holds uint32 words in int64 tensors.  A 32×32-bit product
 can reach 2⁶⁴ and overflow int64, so the multiplier is split into 16-bit
@@ -19,15 +21,16 @@ halves and each partial product stays below 2⁴⁸.
 
 Which words each sampler reads at (seed; chain, step):
 
-- HMC: momentum normal ``j`` is Box–Muller of words ``(2e, 2e + 1)``,
-  ``e = j % 2``, of the counter (chain, step, group ``j // 2``,
-  ``TAG_MOMENTUM``); the accept uniform is word 0 of (chain, step, group 0,
-  ``TAG_ACCEPT``).
-- MH: proposal normal ``j`` has the momentum layout under ``TAG_PROPOSAL``
+- HMC: momentum normals ``4q`` and ``4q + 1`` are the cosine and the sine
+  branch of Box–Muller of words ``(0, 1)``, and normals ``4q + 2`` and
+  ``4q + 3`` those of words ``(2, 3)``, of the counter (chain, step, group
+  ``q``, ``TAG_MOMENTUM``) (:func:`normals_paired`); the accept uniform is
+  word 0 of (chain, step, group 0, ``TAG_ACCEPT``) (:func:`uniforms`).
+- MH: proposal normal ``j`` is the cosine branch of words ``(2e, 2e + 1)``,
+  ``e = j % 2``, of (chain, step, group ``j // 2``, ``TAG_PROPOSAL``)
   (:func:`normals`); the discrete walk's sign for coordinate ``j`` is the
   top bit of word ``j % 4`` of (chain, step, group ``j // 4``, ``TAG_SIGN``)
-  (:func:`signs`); the accept uniform is the same word as HMC's, under
-  ``TAG_ACCEPT``.
+  (:func:`signs`); the accept uniform is the same word as HMC's.
 
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``.
 
@@ -52,12 +55,15 @@ __all__ = [
     "counter_bits",
     "bits_to_uniform",
     "box_muller",
+    "box_muller_pair",
     "normals",
+    "normals_paired",
     "uniforms",
     "signs",
     "counter_rng_fill",
     "counter_rng_fill_reference",
     "curand_check",
+    "pair_sweep",
     "launches",
 ]
 
@@ -74,7 +80,7 @@ TAG_SIGN = 3
 # Launches of the fill kernel (counter_rng_fill) in this process.
 launches = 0
 
-_KINDS = {"bits": 0, "uniform": 1, "normal": 2}
+_KINDS = {"bits": 0, "uniform": 1, "normal": 2, "normal_pair": 3}
 
 
 def _mulhilo(m: int, c: torch.Tensor):
@@ -130,15 +136,40 @@ def box_muller(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
 
 
+def box_muller_pair(b1: torch.Tensor, b2: torch.Tensor):
+    """Two independent normals from two words: the cosine branch (which is
+    :func:`box_muller`) and the sine branch of the same radius and angle."""
+    u1 = bits_to_uniform(b1)
+    u2 = bits_to_uniform(b2)
+    r = torch.sqrt(-2.0 * torch.log(u1))
+    angle = _TWO_PI * u2
+    return r * torch.cos(angle), r * torch.sin(angle)
+
+
 def normals(seed: int, chains: torch.Tensor, step: int, dim: int,
             tag: int = TAG_MOMENTUM) -> torch.Tensor:
     """``[n_chains, dim]`` float32 standard normals: normal ``j`` of a chain
-    is Box–Muller of words ``(2e, 2e+1)``, ``e = j % 2``, of group
-    ``j // 2`` — the fused kernel's momentum layout."""
+    is the cosine branch of Box–Muller of words ``(2e, 2e+1)``,
+    ``e = j % 2``, of group ``j // 2`` — the fused MH kernel's proposal
+    layout."""
     groups = torch.arange((dim + 1) // 2, dtype=torch.int64, device=chains.device)
     w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
     z = torch.stack([box_muller(w[..., 0], w[..., 1]), box_muller(w[..., 2], w[..., 3])],
                     dim=-1)
+    return z.reshape(chains.shape[0], -1)[:, :dim]
+
+
+def normals_paired(seed: int, chains: torch.Tensor, step: int, dim: int,
+                   tag: int = TAG_MOMENTUM) -> torch.Tensor:
+    """``[n_chains, dim]`` float32 standard normals, four from each Philox
+    block: normals ``4q`` and ``4q + 1`` of a chain are the cosine and sine
+    branch of words ``(0, 1)`` of group ``q``, normals ``4q + 2`` and
+    ``4q + 3`` those of words ``(2, 3)`` — the fused HMC kernel's momentum
+    layout."""
+    groups = torch.arange((dim + 3) // 4, dtype=torch.int64, device=chains.device)
+    w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
+    z = torch.stack([*box_muller_pair(w[..., 0], w[..., 1]),
+                     *box_muller_pair(w[..., 2], w[..., 3])], dim=-1)
     return z.reshape(chains.shape[0], -1)[:, :dim]
 
 
@@ -167,6 +198,8 @@ def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int
     chains = torch.arange(n_chains, dtype=torch.int64, device=device)
     if kind == "normal":
         return normals(seed, chains, step, n_words, tag)
+    if kind == "normal_pair":
+        return normals_paired(seed, chains, step, n_words, tag)
     groups = torch.arange((n_words + 3) // 4, dtype=torch.int64, device=device)
     w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
     bits = w.reshape(n_chains, -1)[:, :n_words]
@@ -180,7 +213,8 @@ def counter_rng_fill(n_chains: int, n_words: int, seed: int, step: int, tag: int
     """``[n_chains, n_words]`` draws at ``(seed; chain, step, ·, tag)``:
     ``kind="bits"`` the raw words (int32 holding uint32 bits; word ``j`` is
     word ``j % 4`` of group ``j // 4``), ``"uniform"`` their uniforms,
-    ``"normal"`` the momentum normals of :func:`normals`.
+    ``"normal"`` the normals of :func:`normals`, ``"normal_pair"`` those of
+    :func:`normals_paired`.
 
     On a CUDA device this launches the fill kernel; on the CPU it computes
     the plain version."""
@@ -207,6 +241,29 @@ def counter_rng_fill(n_chains: int, n_words: int, seed: int, step: int, tag: int
     check(lib, code, "counter_rng_fill")
     launches += 1
     return out
+
+
+def pair_sweep(device=None):
+    """The device function ``box_muller_pair`` on every 24-bit uniform: word
+    ``i << 8``, ``i < 2²⁴``, feeds the radius and the angle alike.  Returns
+    ``(z_cos, z_sin, bits)``; the plain :func:`box_muller_pair` of ``bits``
+    is what they are held against (card only)."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type != "cuda":
+        raise ValueError("pair_sweep runs the device function: give it a CUDA device")
+    from .._build import check, load
+
+    lib = load("counter_rng")
+    fn = lib.counter_rng_pair_sweep
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = 1 << 24
+    z_cos = torch.empty(n, dtype=torch.float32, device=device)
+    z_sin = torch.empty_like(z_cos)
+    code = fn(z_cos.data_ptr(), z_sin.data_ptr(), n,
+              torch.cuda.current_stream(device).cuda_stream)
+    check(lib, code, "counter_rng_pair_sweep")
+    return z_cos, z_sin, torch.arange(n, dtype=torch.int64, device=device) << 8
 
 
 def curand_check(keys: torch.Tensor, counters: torch.Tensor):

@@ -13,6 +13,12 @@ The Pallas kernel inlines any traced target.  A CUDA kernel cannot inline
 a Python callable, so this one takes the target of the main path,
 ``GaussianND`` with a diagonal covariance (its mean and precision ride as
 ``[d]`` rows), and a diagonal ``mass_inv``; anything else raises.
+
+The kernel gives each chain a group of lanes of a warp and each lane a few
+quads of dimensions (one Philox block draws a quad's four momenta).
+:func:`lane_map` picks the group size and the quads per lane for a width;
+the draws are addressed by (chain, step, quad), so the map changes which
+lane computes a number and never the number.
 """
 
 from __future__ import annotations
@@ -24,12 +30,48 @@ import torch
 from ..models.distributions import GaussianND
 from ..rng import stream_key
 
-__all__ = ["fused_hmc_run", "fused_hmc_run_reference", "launches", "MAX_DIM"]
+__all__ = ["fused_hmc_run", "fused_hmc_run_reference", "lane_map", "lane_maps", "launches",
+           "MAX_DIM", "MAX_QUADS_PER_LANE"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
-MAX_DIM = 512  # widest state the kernel is built for (csrc/fused_hmc.cu)
+# What csrc/fused_hmc.cu is built for: a power-of-two group of up to 32 lanes
+# a chain and 1..4 quads of dimensions a lane (a lane keeps seven floats an element
+# in registers).
+MAX_QUADS_PER_LANE = 4
+MAX_DIM = 512  # 32 lanes x 4 quads x 4 dimensions
+
+def lane_maps(d: int):
+    """Every lane map ``(lanes per chain G, quads per lane)`` the kernel
+    takes for width ``d``, the one to launch first: for each number of quads
+    a lane the smallest power-of-two group that covers the width, ranked by
+    the lane slots ``G x quads`` a chain occupies (a slot is a Philox block,
+    two Box–Muller pairs and four elements of leapfrog, computed whether the
+    width fills it or not), ties going to two quads a lane, then one, then
+    four.  Fewer quads share a warp's row sums and accept test among fewer
+    chains; more need more registers than leave enough warps resident.
+
+    On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, phase "K1-maps",
+    10,240 chains) the first map was the fastest or within 0.02 ms of it at
+    each width timed: d = 33, 4 x 3 (12 slots) before 16 x 1 and 8 x 2 (16);
+    d = 70, 8 x 3 (24 slots) level with 16 x 2 (32); d = 100, where all have
+    32 slots, 16 x 2 before 32 x 1 before 8 x 4."""
+    n_quads = (d + 3) // 4
+    maps = {}
+    for g in (1, 2, 4, 8, 16, 32):
+        quads = -(-n_quads // g)
+        if quads <= MAX_QUADS_PER_LANE:
+            maps.setdefault(quads, g)
+    return sorted(((g, quads) for quads, g in maps.items()),
+                  key=lambda m: (m[0] * m[1], abs(m[1] - 2)))
+
+
+def lane_map(d: int):
+    """The lane map the wrapper launches for width ``d``: the first of
+    :func:`lane_maps`.  At ``d = 100`` (25 quads) that is 16 lanes of 2
+    quads, two chains a warp."""
+    return lane_maps(d)[0]
 
 
 def _check_args(target, initial_positions, n_leapfrog, n_collect, n_discard, thin,
@@ -100,18 +142,28 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)
 
+    _launch(x0, mean, prec, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
+            seed, use_mass, lane_map(d))
+    return out.transpose(0, 1)
+
+
+def _launch(x0, mean, prec, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
+            seed, use_mass, lanes):
+    """One launch of the kernel under the lane map ``lanes`` into the
+    steps-major store ``out`` (checked CUDA tensors)."""
     from .._build import check, load
 
     global launches
+    n, d = x0.shape
     lib = load("fused_hmc")
     fn = lib.fused_hmc_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(x0.data_ptr(), mean.data_ptr(), prec.data_ptr(), inv_row.data_ptr(),
-              scale_row.data_ptr(), out.data_ptr(), n, d, n_collect, n_discard, thin,
+              scale_row.data_ptr(), out.data_ptr(), n, d, out.shape[0], n_discard, thin,
               int(n_leapfrog), float(step_size), stream_key(seed), int(use_mass),
-              torch.cuda.current_stream(dev).cuda_stream)
+              int(lanes[0]), int(lanes[1]), torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, code, "fused_hmc_launch")
     launches += 1
-    return out.transpose(0, 1)

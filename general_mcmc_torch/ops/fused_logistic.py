@@ -12,10 +12,13 @@ and computes its plain version, :func:`fused_logistic_chain_reference`
 (the loop over the target's ``unnorm_logp_grad``, the script's
 ``xla_chain``), for tensors on the CPU.
 
-The kernel sums its two products in another order than ``torch.matmul``
-does, so the two agree to a tolerance and not bit for bit: after one step
-the maximum error relative to ``max|θ|`` stays below 1e-5 (the script's own
-gate); over more steps the two float32 programs drift apart by rounding.
+The kernel computes its two products on the tensor cores, each as three
+TF32 passes (``a = a_hi + a_lo`` with ``a_hi`` the TF32 rounding;
+``a_lo·b_hi + a_hi·b_lo + a_hi·b_hi`` accumulated in float32), and sums in
+another order than ``torch.matmul`` does, so the two agree to a tolerance
+and not bit for bit: after one step the maximum error relative to
+``max|θ|`` stays below 1e-5 (the script's own gate); over more steps the
+two float32 programs drift apart by rounding.
 """
 
 from __future__ import annotations
@@ -32,20 +35,25 @@ __all__ = ["fused_logistic_chain", "fused_logistic_chain_reference", "launches",
 # Launches of the fused kernel in this process.
 launches = 0
 
-# What csrc/fused_logistic.cu is built for: a chain's z, β and g live in a
-# thread's registers, so the feature count is capped; X (padded to a feature
-# count of 16, 32 or 48 and an even number of observations, its rows 4
-# floats apart) and y live in one block's shared memory, which on an H100 is
-# at most 232,448 bytes.
+# What csrc/fused_logistic.cu is built for: four warps share a tile of 32
+# chains and keep g in registers, so the feature count is capped; X, padded
+# to a feature count of 16, 32 or 48 and a multiple of 64 observations, its
+# rows 4 floats apart, lives in one block's shared memory twice (TF32 hi and
+# lo), with y and, for each of the block's one to three tiles, β as ready
+# fragments, the partial g in transit between the tile's warps and their
+# partial hyper sums; on an H100 a block has at most 232,448 bytes.
 MAX_FEATURES = 48
 MAX_SHARED_BYTES = 232_448
 
 
-def shared_bytes(n_obs: int, p: int) -> int:
-    """Shared memory the kernel needs for ``X [n_obs, p]`` and ``y``."""
+def shared_bytes(n_obs: int, p: int, tiles: int = 1) -> int:
+    """Shared memory of a block of ``tiles`` chain tiles for ``X [n_obs, p]``
+    and ``y``.  The launch takes up to three tiles a block where they fit;
+    one must."""
     p_pad = 16 * ((p + 15) // 16)
-    n_pad = n_obs + (n_obs & 1)
-    return 4 * n_pad * (p_pad + 4 + 1)
+    n_pad = 64 * ((n_obs + 63) // 64)
+    units = p_pad // 4  # (row tile, feature tile) pairs of a chain tile
+    return 4 * (n_pad * (2 * (p_pad + 4) + 1) + tiles * (units * (2 + 3) * 128 + 4 * 8 * 32))
 
 
 def _check_args(theta0, X, y, steps):

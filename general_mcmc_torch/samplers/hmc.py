@@ -143,7 +143,7 @@ class HMC(BatchSampler):
         x, lp, grad = carry
         dtype = x.dtype
         if z is None:
-            z = counter_rng.normals(self._key, self._chain_ids, m, x.shape[1])
+            z = counter_rng.normals_paired(self._key, self._chain_ids, m, x.shape[1])
         if u is None:
             u = counter_rng.uniforms(self._key, self._chain_ids, m)
         z = torch.as_tensor(z, device=x.device).to(dtype)

@@ -145,3 +145,72 @@ def test_mh_draws_layout_and_batch_invariance():
     assert not torch.equal(s, cr.signs(11, chains, 6, 6))
     flips = cr.signs(3, torch.arange(5_000), 0, 4).float().mean()
     assert abs(float(flips) - 0.5) < 0.02
+
+
+def test_pair_cosine_is_box_muller_and_both_branches_are_normal():
+    """box_muller_pair's first output is box_muller of the same words; both
+    outputs have normal moments and are uncorrelated with each other."""
+    w = cr.counter_bits(5, torch.arange(50_000)[:, None], 1, torch.arange(2)[None, :], 0)
+    zc, zs = cr.box_muller_pair(w[..., 0], w[..., 1])
+    torch.testing.assert_close(zc, cr.box_muller(w[..., 0], w[..., 1]), rtol=0, atol=0)
+    zc, zs = zc.double().ravel(), zs.double().ravel()  # 10^5 draws each
+    for z in (zc, zs):
+        assert abs(float(z.mean())) < 0.015
+        assert abs(float(z.var()) - 1.0) < 0.02
+        assert abs(float((z**3).mean())) < 0.05
+        assert abs(float((z**4).mean()) - 3.0) < 0.1
+    assert abs(float((zc * zs).mean())) < 0.015
+    assert abs(float((zc**2 * zs**2).mean()) - 1.0) < 0.05  # independent, not only uncorrelated
+    # the same radius: zc^2 + zs^2 = -2 log u1
+    r2 = -2.0 * torch.log(cr.bits_to_uniform(w[..., 0])).double().ravel()
+    torch.testing.assert_close(zc**2 + zs**2, r2, rtol=1e-5, atol=1e-6)
+
+
+def test_paired_layout_is_pinned():
+    """Which block and words feed momentum j, and which word the accept
+    uniform: normals 4q, 4q+1 are the cosine and sine branch of words (0, 1)
+    of (chain, step, group q, TAG_MOMENTUM), normals 4q+2, 4q+3 those of
+    words (2, 3); the accept uniform is word 0 of (chain, step, 0,
+    TAG_ACCEPT)."""
+    chains = torch.arange(6)
+    z = cr.normals_paired(9, chains, 4, 11)
+    assert z.dtype == torch.float32 and tuple(z.shape) == (6, 11)
+    for j in range(11):
+        w = cr.counter_bits(9, chains, 4, j // 4, cr.TAG_MOMENTUM)
+        pair = cr.box_muller_pair(w[:, 2 * ((j % 4) // 2)], w[:, 2 * ((j % 4) // 2) + 1])
+        torch.testing.assert_close(z[:, j], pair[j % 2], rtol=0, atol=0)
+    u = cr.uniforms(9, chains, 4)
+    w = cr.counter_bits(9, chains, 4, 0, cr.TAG_ACCEPT)
+    torch.testing.assert_close(u, cr.bits_to_uniform(w[:, 0]), rtol=0, atol=0)
+    # a golden value: the draws are a pure function of (seed; chain, step, j)
+    w0 = cr.counter_bits(0, torch.tensor([0]), 0, 0, cr.TAG_MOMENTUM)[0]
+    assert [int(v) for v in w0] == _philox_py([0, 0, 0, cr.TAG_MOMENTUM], [0, 0])
+    # the fill kernel's plain version has the same layout under its kind
+    fill = cr.counter_rng_fill(6, 11, 9, 4, cr.TAG_MOMENTUM, "normal_pair", device="cpu")
+    torch.testing.assert_close(fill, z, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dim,lanes,quads", [(100, 16, 2), (100, 8, 4), (33, 4, 3), (7, 1, 2),
+                                             (512, 32, 4)])
+def test_paired_draws_invariant_to_chain_batch_and_lane_map(dim, lanes, quads):
+    """A chain's momenta depend on (seed; chain, step, dimension) only: not
+    on the batch, and not on the fused kernel's lane map.  The map gives lane
+    ``sub`` of a chain's group the quads ``sub + lanes·k``; assembling the
+    draws lane by lane as the kernel does gives normals_paired whatever the
+    map, and the first idle lane slot is where the accept block is drawn."""
+    full = cr.normals_paired(11, torch.arange(40), 5, dim)
+    torch.testing.assert_close(cr.normals_paired(11, torch.arange(25, 40), 5, dim), full[25:],
+                               rtol=0, atol=0)
+    assert not torch.equal(full, cr.normals_paired(11, torch.arange(40), 6, dim))
+    chains = torch.arange(25, 40)
+    n_quads = (dim + 3) // 4
+    assert lanes * quads >= n_quads
+    by_lane = torch.zeros(15, 4 * lanes * quads)
+    for sub in range(lanes):
+        for k in range(quads):
+            q = sub + lanes * k
+            w = cr.counter_bits(11, chains, 5, q, cr.TAG_MOMENTUM)
+            zc0, zs0 = cr.box_muller_pair(w[:, 0], w[:, 1])
+            zc1, zs1 = cr.box_muller_pair(w[:, 2], w[:, 3])
+            by_lane[:, 4 * q:4 * q + 4] = torch.stack([zc0, zs0, zc1, zs1], dim=1)
+    torch.testing.assert_close(by_lane[:, :dim], full[25:], rtol=0, atol=0)

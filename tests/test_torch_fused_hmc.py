@@ -96,6 +96,57 @@ def test_torch_backend_equals_plain_fused_run(mass):
     torch.testing.assert_close(other, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("d", [2, 7, 8, 33, 100])
+def test_widths_torch_backend_equals_plain_fused_run(d):
+    """Even and odd widths, widths that fill their lane map (8) and widths
+    that leave lane slots idle (33, 100): the ``"torch"`` backend, the
+    plain fused run and the wrapper on the CPU give the same numbers, and
+    the momenta are the paired layout's."""
+    rng = np.random.default_rng(d)
+    mean, scales = rng.normal(size=d), np.exp(0.3 * rng.normal(size=d))
+    pt = to_target("GaussianND", mean, scales, dtype=torch.float32)
+    x = to_tensor(rng.normal(size=(6, d)), dtype=torch.float32)
+    mass_inv = to_tensor(scales**2, dtype=torch.float32)
+    want = fused_hmc.fused_hmc_run_reference(pt, x, 0.2, 3, 5, 2, seed=5, mass_inv=mass_inv)
+    got = fused_hmc.fused_hmc_run(pt, x, 0.2, 3, 5, 2, seed=5, mass_inv=mass_inv)
+    sampler = HMC(pt, x, 0.2, 3, seed=5, backend="torch", mass_inv=mass_inv, device="cpu")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(sampler.run(5, 2), want, rtol=0, atol=0)
+    assert tuple(want.shape) == (6, 5, d) and bool(torch.isfinite(want).all())
+    # one step by hand from the paired draws
+    from general_mcmc_torch.ops import counter_rng
+
+    z = counter_rng.normals_paired(sampler._key, sampler._chain_ids, 0, d)
+    u = counter_rng.uniforms(sampler._key, sampler._chain_ids, 0)
+    by_hand = sampler._step(sampler._init_carry(), 0, z=z, u=u)
+    drawn = sampler._step(sampler._init_carry(), 0)
+    torch.testing.assert_close(by_hand[0], drawn[0], rtol=0, atol=0)
+
+
+def test_lane_map_covers_every_width():
+    """The kernel's lane map (lanes per chain, quads per lane): every map
+    offered for a width covers it within what the kernel is built for, the
+    group is a power of two, and the first is the one launched."""
+    for d in range(1, fused_hmc.MAX_DIM + 1):
+        maps = fused_hmc.lane_maps(d)
+        assert maps and fused_hmc.lane_map(d) == maps[0]
+        for lanes, quads in maps:
+            assert lanes in (1, 2, 4, 8, 16, 32)
+            assert 1 <= quads <= fused_hmc.MAX_QUADS_PER_LANE
+            assert 4 * lanes * quads >= d > 4 * lanes * (quads - 1)
+        # the launched map occupies the fewest lane slots a chain
+        assert maps[0][0] * maps[0][1] == min(g * q for g, q in maps)
+        assert len({q for _, q in maps}) == len(maps)  # one group per quads a lane
+    assert fused_hmc.lane_maps(100) == [(16, 2), (32, 1), (8, 4)]
+    assert fused_hmc.lane_map(512) == (32, 4)
+    assert fused_hmc.lane_map(2) == (1, 1)
+    assert fused_hmc.lane_maps(70) == [(8, 3), (16, 2), (32, 1)]  # 24 lane slots, not 32
+    assert fused_hmc.lane_maps(33) == [(4, 3), (8, 2), (16, 1)]  # 12 lane slots, not 16
+    # the widths of chip_smoke.py's small cases take every quads-per-lane build
+    assert {fused_hmc.lane_map(d)[1] for d in (2, 7, 8, 33, 70, 100, 512)} == {1, 2, 3, 4}
+    assert fused_hmc.lane_maps(fused_hmc.MAX_DIM + 1) == []
+
+
 def test_chain_result_independent_of_batch():
     """Draws are addressed by global chain index, so a chain's path does not
     depend on which other chains share the run."""

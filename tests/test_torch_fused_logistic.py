@@ -62,6 +62,83 @@ def test_chain_matches_jax_kernel_and_reference(probe, inputs, steps, rtol):
     assert _rel_err(got.numpy(), np.asarray(theta0)) > 100 * rtol  # the chain moved
 
 
+def _split_tf32(a):
+    """``a = hi + lo`` as the kernel splits a float32 for the tensor cores:
+    ``hi`` is the TF32 rounding to nearest, ties away from zero (half of the
+    last kept place added to the bit pattern, then the low 13 of float32's
+    mantissa bits masked off, leaving TF32's 10), ``lo`` the exact remainder
+    rounded the same way."""
+    mask = torch.tensor(-8192, dtype=torch.int32)  # 0xFFFFE000
+    cut = lambda v: ((v.contiguous().view(torch.int32) + 0x1000) & mask).view(torch.float32)
+    hi = cut(a)
+    return hi, cut(a - hi)
+
+
+def _matmul_3xtf32(a, b):
+    """``a @ b`` by three TF32 passes accumulated in float32, small terms
+    first.  A product of two TF32 values is exact in float32, so float32
+    ``matmul`` of the cut operands is what the tensor cores compute up to
+    the order of the sum."""
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = _split_tf32(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _chain_3xtf32(theta, X, y, steps, lr=1e-3):
+    """The kernel's arithmetic with torch ops: the plain chain with its two
+    products replaced by the three-pass split."""
+    for _ in range(steps):
+        mu, lt, z = theta[:, :1], theta[:, 1:2], theta[:, 2:]
+        tau = torch.exp(lt)
+        g = _matmul_3xtf32(y - torch.sigmoid(_matmul_3xtf32(mu + tau * z, X.T)), X)
+        grad = torch.cat([-mu + g.sum(dim=1, keepdim=True),
+                          -lt + tau * (z * g).sum(dim=1, keepdim=True), -z + tau * g], dim=1)
+        theta = theta + lr * grad
+    return theta
+
+
+def test_tf32_split_is_exact_and_one_pass_is_not_enough():
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(64, 48, generator=gen)
+    b = torch.randn(48, 256, generator=gen)
+    hi, lo = _split_tf32(a)
+    assert bool(((hi.view(torch.int32) & 8191) == 0).all())  # 13 low bits clear
+    assert bool(((a - hi).abs() <= a.abs() * 2.0**-11).all())  # rounded, not cut
+    assert bool(((a - hi - lo).abs() <= a.abs() * 2.0**-22).all())
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+    err3 = float((_matmul_3xtf32(a, b).double() - exact).abs().max()) / scale
+    err1 = float(((hi @ _split_tf32(b)[0]).double() - exact).abs().max()) / scale
+    err_f32 = float(((a @ b).double() - exact).abs().max()) / scale
+    assert err3 < 2e-6 and err3 < 10 * max(err_f32, 1e-7), (err3, err_f32)
+    assert err1 > 100 * err3, (err1, err3)  # a single TF32 pass loses three digits
+
+
+@pytest.mark.parametrize("steps", [1, 8, 64])
+def test_three_pass_tf32_chain_meets_the_gate(probe, inputs, steps):
+    """The accuracy argument for the tensor-core kernel, before any card
+    time is spent: the chain with three-pass TF32 products stays within 1e-5
+    (relative to max|θ|) of the plain version after 1, 8 and 64 steps, the
+    gates chip_smoke.py holds the kernel to, and as close to the JAX probe
+    in interpret mode as the plain version is."""
+    X, y, theta0 = inputs
+    tX, ty, tt = (to_tensor(np.asarray(a)) for a in (X, y, theta0))
+    got = _chain_3xtf32(tt, tX, ty, steps)
+    plain = fused_logistic.fused_logistic_chain_reference(tt, tX, ty, steps)
+    assert _rel_err(got.numpy(), plain.numpy()) < 1e-5
+    kernel = np.asarray(probe.fused_chain(theta0, X, y, steps=steps, interpret=True))
+    limit = {1: RTOL_1_STEP, 8: RTOL_8_STEPS, 64: RTOL_8_STEPS}[steps]
+    assert _rel_err(got.numpy(), kernel) < limit
+    assert _rel_err(got.numpy(), np.asarray(theta0)) > 100 * limit  # the chain moved
+    if steps == 1:
+        # one TF32 pass alone would miss the gate's accuracy by far
+        hi = lambda a: _split_tf32(a)[0]
+        mu, lt, z = tt[:, :1], tt[:, 1:2], tt[:, 2:]
+        one_pass = hi(ty - torch.sigmoid(hi(mu + torch.exp(lt) * z) @ hi(tX.T))) @ hi(tX)
+        exact = (ty - torch.sigmoid((mu + torch.exp(lt) * z) @ tX.T)) @ tX
+        assert float((one_pass - exact).abs().max() / exact.abs().max()) > 1e-4
+
+
 def test_wrapper_is_the_plain_version_on_the_cpu_and_checks_arguments(inputs):
     X, y, theta0 = (to_tensor(np.asarray(a)) for a in inputs)
     before = fused_logistic.launches
@@ -109,9 +186,16 @@ def test_rounding_is_amplified_between_64_and_512_steps():
 def test_shared_memory_limits():
     """The probe's shape fits one block's shared memory; the limits are
     stated as module constants."""
-    # rows of 48 + 4 floats, and y
-    assert fused_logistic.shared_bytes(256, 48) == 4 * 256 * 53
-    assert fused_logistic.shared_bytes(255, 33) == 4 * 256 * 53  # padded to even rows, 48 columns
-    assert fused_logistic.shared_bytes(256, 48) <= fused_logistic.MAX_SHARED_BYTES
-    assert fused_logistic.shared_bytes(2000, 48) > fused_logistic.MAX_SHARED_BYTES
+    # X twice (TF32 hi and lo) in rows of 48 + 4 floats, y, and a tile's 12
+    # units of beta fragments (hi, lo) and partial g (3 senders), 128 words
+    # each, and 4 x 8 x 32 partial hyper sums
+    one = 4 * (256 * (2 * 52 + 1) + 12 * 5 * 128 + 1024)
+    assert fused_logistic.shared_bytes(256, 48) == one
+    assert fused_logistic.shared_bytes(193, 33) == one  # padded to 64 rows, 48 columns
+    assert fused_logistic.shared_bytes(256, 48, tiles=3) == one + 2 * 4 * (12 * 5 * 128 + 1024)
+    assert fused_logistic.shared_bytes(256, 16) == 4 * (256 * (2 * 20 + 1) + 4 * 5 * 128 + 1024)
+    # the probe's shape runs three tiles a block; 448 observations still fit one
+    assert fused_logistic.shared_bytes(256, 48, tiles=3) <= fused_logistic.MAX_SHARED_BYTES
+    assert fused_logistic.shared_bytes(448, 48) <= fused_logistic.MAX_SHARED_BYTES
+    assert fused_logistic.shared_bytes(512, 48) > fused_logistic.MAX_SHARED_BYTES
     assert fused_logistic.MAX_FEATURES == 48
