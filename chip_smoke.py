@@ -8,13 +8,17 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 Phases (each prints one line; any failure raises and exits non-zero):
 
-1. environment: the card (``nvidia-smi``), torch and CUDA versions, and the
-   first-use ``nvcc`` build of ``general_mcmc_torch/csrc/*.cu``;
-2. K2, the counter-based generator: the fill kernel's bits equal the plain
-   version's bits exactly, the device Philox equals the CUDA toolkit's
-   ``curand_Philox4x32_10``, and the device Box-Muller pair (``logf``,
-   ``sqrtf``, ``sincosf``) equals the plain one (``torch.log``, ``sqrt``,
-   ``cos``, ``sin``) bit for bit on every one of the 2^24 uniforms;
+1. environment: the card (``nvidia-smi``), torch and CUDA versions, the
+   first-use ``nvcc`` build of ``general_mcmc_torch/csrc/*.cu``, and the
+   registers and spills of every build ("K3-build": each of K3's);
+2. K2, the counter-based generator: the fill kernel's bits, uniforms, MH
+   draws and paired normals equal the plain version's exactly, the device
+   Philox equals the CUDA toolkit's ``curand_Philox4x32_10``, and the device
+   Box-Muller pair and log of the uniform (``logf``, ``sqrtf``,
+   ``sincosf``), and their branch-free forms that the MH kernel draws with,
+   equal the plain ones (``torch.log``, ``sqrt``, ``cos``, ``sin``) bit for
+   bit on every one of the 2^24 uniforms; the fill kernel's device time over
+   back-to-back launches;
 3. K1, the fused HMC kernel, against its plain version at a small size
    (identity and diagonal mass; widths 2, 7, 8, 33, 70, 100 and 512, which
    take every quads-per-lane build and both ways of drawing the accept
@@ -29,14 +33,16 @@ Phases (each prints one line; any failure raises and exits non-zero):
    main path's run at widths 33, 70 and 100 under every lane map the kernel
    takes at each width, each equal to the others bit for bit, and timed;
 6. K3, the fused MH kernel, against its plain version at a small size (every
-   device target with every device proposal, even and odd widths, one and
-   several dimension pairs a lane), the pCN identity and the thinning
-   identity;
+   device target with every device proposal, widths 1, 2, 7, 8, 33, 70 and
+   512: every lane map from a thread a chain to five blocks a lane, at 256
+   chains and at a ragged 200), the pCN identity and the thinning identity;
 7. the MH main path at full size: ``MetropolisHastings(..., backend="cuda")
    .run`` on the 2-d Gaussian with 16,384 chains of 5,000 collected steps
    (81.9M samples in one launch), the moment, R-hat and ESS checks on the
-   card; the same run through the plain version is compared with it and
-   timed;
+   card, timed apart; the same run through the plain version is compared
+   with it and timed; "K3-chains", the kernel at 4,096, 16,384 and 65,536
+   chains of 5,500 steps (samples/s at each); "K3-widths", the kernel on
+   the wider maps (a 100-d and a 512-d GaussianND), timed;
 8. K4, the fused logistic gradient chain (tensor cores, three TF32 passes),
    against its plain version at small ragged sizes and after 1, 8, 64 and
    512 steps at 10,240 chains, 48 features and 256 observations, and timed,
@@ -51,8 +57,10 @@ code 2 and prints no result.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,8 +101,16 @@ SEED = 0
 K1_MAP_WIDTHS = (33, 70, DIM)
 
 # The MH main path: the 2-d Gaussian stress run (80M samples) spread over
-# the card.
+# the card; "K3-chains" runs it at other chain counts.
 MH_CHAINS, MH_COLLECT, MH_DISCARD = 16_384, 5000, 500
+MH_CHAIN_COUNTS = (4096, MH_CHAINS, 65_536)
+# "K3-widths": the wider maps at these chains
+MH_WIDTHS, MH_WIDTH_CHAINS = (100, 512), 16_384
+# Gaussian2D: 2 subtractions, 9 products and sums, the product with 1/det, a
+# scale; random walk: a product and a sum per coordinate
+MH_TARGET_OPS, MH_PROPOSAL_OPS = 13, 2
+# Back-to-back launches of the fill kernel between two events.
+FILL_REPS = 200
 MH_MEAN, MH_COV = [0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]
 MH_SCALE = 1.0
 MH_MEAN_ATOL, MH_COV_ATOL = 0.05, 0.1
@@ -155,6 +171,20 @@ def timed(fn, reps: int):
     return sorted(dev_ms)[reps // 2], sorted(wall_s)[reps // 2], out
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time in ms of one call of ``fn``: ``reps`` back-to-back calls
+    between two events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     """Least time in ms for the work, and what sets it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -187,11 +217,24 @@ def fused_hmc_work(n: int, d: int, n_steps: int, n_collect: int, n_leapfrog: int
 def fused_mh_work(n: int, d: int, n_steps: int, n_collect: int, target_ops: int,
                   proposal_ops: int):
     """Bytes and operations of one fused MH run: x0 read and the sample
-    store written once; per chain and step one Philox block per dimension
-    pair and one for the accept draw, Box-Muller (~12) and the proposal per
-    coordinate, the target, and the accept test with its select (log ~4,
-    subtract, compare, d + 1 selects).  Returns bytes, float operations and
-    integer operations."""
+    store written once; per chain and step the Philox blocks of its word
+    sequence (⌈d/2⌉ // 2 + 1: one at d = 2), a Box-Muller pair per two
+    coordinates (two uniforms 4, log 4, sqrt 2, the angle 1, sincos 4, two
+    products: ~15), the proposal per coordinate, the target, and the accept
+    test with its select (uniform 2, log 4, subtract, compare, d + 1
+    selects).  Returns bytes, float operations and integer operations."""
+    n_bytes = 4 * n * d * (1 + n_collect)
+    pairs = (d + 1) // 2
+    per_step = 15 * pairs + proposal_ops * d + target_ops + 8 + d + 1
+    return n_bytes, n * n_steps * per_step, n * n_steps * PHILOX_OPS * (pairs // 2 + 1)
+
+
+def fused_mh_work_two_blocks(n: int, d: int, n_steps: int, n_collect: int, target_ops: int,
+                             proposal_ops: int):
+    """The same count for the two-block layout MH's draws had before the
+    one-sequence layout: a Philox block and two cosine-only Box-Muller
+    draws (~12 each) per dimension pair, and a block of its own for the
+    accept draw."""
     n_bytes = 4 * n * d * (1 + n_collect)
     per_step = (12 + proposal_ops) * d + target_ops + 6 + d + 1
     return (n_bytes, n * n_steps * per_step,
@@ -231,22 +274,53 @@ def phase_environment():
     # one nvcc per source, all started together
     _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic"])
     build_s = time.perf_counter() - t0
-    regs, spills = [], 0
-    for log in _build.compile_log.values():
-        for line in log.splitlines():
-            if "Used" in line and "registers" in line:
-                regs.append(int(line.split("Used", 1)[1].split("registers")[0]))
-            if "spill stores" in line and " 0 bytes spill stores" not in line:
-                spills += 1
     # the full register and spill report, beside the built libraries
     with open(_build.OUT_DIR / "ptxas.log", "w") as f:
         for name, log in sorted(_build.compile_log.items()):
             f.write(f"== {name}\n{log}\n")
+    report = {name: ptxas_report(log) for name, log in _build.compile_log.items()}
+    regs = [r for funcs in report.values() for r, _ in funcs.values()]
+    spilled = {f: b for funcs in report.values() for f, (_, b) in funcs.items() if b}
     say("env", torch=torch.__version__, cuda=torch.version.cuda,
         device=json.dumps(torch.cuda.get_device_name(0)), build_s=f"{build_s:.1f}",
         built=len(_build.compile_log), max_registers=max(regs) if regs else "n/a",
-        functions_with_spills=spills)
+        spill_store_bytes=json.dumps(spilled))
+    # K3's builds, one per map and design, target and proposal
+    say("K3-build", template="fused_mh_kernel<lanes,blocks_a_lane,tile,target,proposal>, "
+        "fused_mh_ws_kernel<producer_warps,tile,target,proposal>",
+        registers_and_spill_store_bytes=json.dumps(report.get("fused_mh", {})))
     return smi
+
+
+def ptxas_report(log: str) -> dict:
+    """``{kernel<template arguments>: (registers, spill store bytes)}`` of one
+    library's ``ptxas -v`` output."""
+    out, name, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spill = kernel_name(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), spill)
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """``kernel<template arguments>`` of a mangled ``..._kernel`` entry: the
+    name is the identifier ending in ``_kernel`` whose length prefix fits."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for start in range(end - len("_kernel"), 0, -1):
+        n = len(mangled[start:end])
+        if mangled[:start].endswith(str(n)):
+            name, args = mangled[start:end], re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+            if args is None:
+                return name
+            return name + "<" + ",".join(re.findall(r"(\d+)E", args.group(1))) + ">"
+    return mangled
 
 
 def phase_counter_rng(dev):
@@ -259,15 +333,18 @@ def phase_counter_rng(dev):
                                                   device=dev)
     check(torch.equal(got, want), "K2 fill bits equal the plain bits")
     errs = {}
-    for kind in ("uniform", "normal", "normal_pair"):
-        g = counter_rng.counter_rng_fill(n, words, seed, step, counter_rng.TAG_MOMENTUM,
+    # the mh kind at widths 2 (one block a step), 7 (odd pairs) and 100
+    # (even pairs: the uniform opens a block of its own)
+    for kind, cols in (("uniform", words), ("normal_pair", words), ("mh", 3), ("mh", 8),
+                       ("mh", 101)):
+        g = counter_rng.counter_rng_fill(n, cols, seed, step, counter_rng.TAG_PROPOSAL,
                                          kind, device=dev)
-        w = counter_rng.counter_rng_fill_reference(n, words, seed, step,
-                                                   counter_rng.TAG_MOMENTUM, kind,
+        w = counter_rng.counter_rng_fill_reference(n, cols, seed, step,
+                                                   counter_rng.TAG_PROPOSAL, kind,
                                                    device=dev)
-        errs[kind] = float((g - w).abs().max())
-        check(errs[kind] <= (0.0 if kind == "uniform" else 1e-5),
-              f"K2 {kind} draws agree ({errs[kind]})")
+        name = kind if kind != "mh" else f"mh{cols - 1}"
+        errs[name] = float((g - w).abs().max())
+        check(torch.equal(g, w), f"K2 {name} draws equal the plain version's ({errs[name]})")
     # curand's Philox4x32-10 on Random123's known-answer inputs and on
     # random (key, counter) pairs
     gen = torch.Generator().manual_seed(5)
@@ -285,29 +362,46 @@ def phase_counter_rng(dev):
         for i in range(ctr.shape[0])])
     check(torch.equal(mine.cpu(), as_i32(plain)), "device Philox equals the plain Philox")
     kat = [f"{int(w) & 0xFFFFFFFF:08x}" for w in mine[0].cpu()]
-    # the device Box-Muller pair (logf, sqrtf, sincosf) against the plain one
-    # (torch.log, sqrt, cos, sin on the card) on every 24-bit uniform: the
-    # fused HMC kernel equals its plain version bit for bit only if these do
-    z_cos, z_sin, bits = counter_rng.pair_sweep(dev)
-    want_cos, want_sin = counter_rng.box_muller_pair(bits, bits)
-    pair_diff = int((z_cos != want_cos).sum()) + int((z_sin != want_sin).sum())
-    check(pair_diff == 0, f"device Box-Muller pair equals torch's bit for bit ({pair_diff} of "
-          f"{2 * bits.numel()} differ)")
-    del z_cos, z_sin, bits, want_cos, want_sin
+    # the device Box-Muller pair and log (logf, sqrtf, sincosf) against the
+    # plain ones (torch.log, sqrt, cos, sin on the card) on every 24-bit
+    # uniform: the fused HMC kernel (box_muller_pair) and the fused MH kernel
+    # (box_muller_pair_straight) equal their plain versions bit for bit only
+    # if these do
+    differ = {}
+    for straight in (False, True):
+        z_cos, z_sin, log_u, bits = counter_rng.pair_sweep(dev, straight)
+        want_cos, want_sin = counter_rng.box_muller_pair(bits, bits)
+        want_log = torch.log(counter_rng.bits_to_uniform(bits))
+        differ[straight] = (int((z_cos != want_cos).sum()) + int((z_sin != want_sin).sum())
+                            + int((log_u != want_log).sum()))
+        check(differ[straight] == 0, f"device Box-Muller pair and log (straight={straight}) "
+              f"equal torch's bit for bit ({differ[straight]} of {3 * bits.numel()} differ)")
+        del z_cos, z_sin, log_u, bits, want_cos, want_sin, want_log
+    pair_diff = differ[False]
 
-    fill = lambda: counter_rng.counter_rng_fill(n, words, seed, step, 0, "bits", device=dev)
+    # the fill kernel's device time: FILL_REPS back-to-back launches of the
+    # built function between two events, after a warm-up; one wrapper call
+    # (its load, argument setup and allocation) is timed beside it
+    out = torch.empty((n, words), dtype=torch.int32, device=dev)
+    lib, launch = counter_rng.fill_launcher(out, seed, step, 0, "bits")
+    codes = []
+    ms = device_ms(lambda: codes.append(launch()), FILL_REPS)
+    _build.check(lib, next((c for c in codes if c), 0), "counter_rng_fill (timed)")
+    check(torch.equal(out, want), "K2 timed fill bits equal the plain bits")
+    call_ms, _, _ = timed(lambda: counter_rng.counter_rng_fill(n, words, seed, step, 0, "bits",
+                                                               device=dev), 20)
     ref = lambda: counter_rng.counter_rng_fill_reference(n, words, seed, step, 0, "bits",
                                                          device=dev)
-    ms, _, _ = timed(fill, 20)
     plain_ms, _, _ = timed(ref, 5)
     b_ms, b_by = bound(4 * n * words, n * words / 4 * PHILOX_OPS)
     say("K2", words=f"{n}x{words}", bits_equal=True, curand_equal=True,
         curand_pairs=ctr.shape[0], kat0="".join(kat),
-        max_abs_err_uniform=errs["uniform"], max_abs_err_normal=errs["normal"],
-        max_abs_err_normal_pair=errs["normal_pair"], pair_sweep_uniforms=1 << 24,
-        pair_sweep_differ=pair_diff, fill_ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.5f}")
+        **{f"max_abs_err_{k}": v for k, v in errs.items()}, pair_sweep_uniforms=1 << 24,
+        pair_sweep_differ=pair_diff, straight_sweep_differ=differ[True],
+        fill_ms=f"{ms:.5f}", fill_reps=FILL_REPS, wrapper_call_ms=f"{call_ms:.4f}",
+        plain_ms=f"{plain_ms:.3f}", bound_ms=f"{b_ms:.5f}", bound_share=f"{b_ms / ms:.3f}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max(errs.values()))
+                max_abs_err=max(errs.values()), wrapper_call_ms=call_ms)
 
 
 def compare(got, want, what):
@@ -508,32 +602,37 @@ def phase_k1_maps(dev):
 
 
 def phase_mh_small(dev):
-    """K3 against its plain version at 256 chains: each device target with
-    each device proposal, thin = 2 after 5 burn-in steps.  GaussianND at 8
-    and 7 (four lanes a chain), 70 (a warp a chain, two pairs a lane) and
-    33 (a warp a chain, odd) covers even and odd stores and both lane maps
-    beyond the 2-d targets' thread-per-chain."""
+    """K3 against its plain version at 256 chains and at 200 (a block's
+    walkers or lanes past the last chain): each device target with each
+    device proposal, thin = 2 after 5 burn-in steps, equal bit for bit.
+    GaussianND at 1 and 2 (a thread a chain, as the 2-d targets; one
+    dimension stored alone), 7 (four lanes, an odd number of normal pairs:
+    the uniform shares the last block), 8 (four lanes, even: the uniform's
+    block of its own), 33 (16 lanes, odd width), 70 (a warp a chain) and
+    512 (a warp, five blocks a lane) covers every build's draws and
+    stores."""
     gen = torch.Generator().manual_seed(17)
     targets = {
         "Gaussian2D": (gmt.Gaussian2D(MH_MEAN, MH_COV, device=dev), 2, 1.0, 0.6),
         "Rosenbrock2D": (gmt.Rosenbrock2D(1.0, 10.0), 2, 0.5, 0.4),
     }
-    for d in (8, 7, 70, 33):
+    for d in (1, 2, 7, 8, 33, 70, 512):
         mean = torch.randn(d, generator=gen) * 0.3
         scales = torch.exp(torch.randn(d, generator=gen) * 0.3)
         targets[f"GaussianND-{d}"] = (gmt.GaussianND(mean, scales, device=dev), d,
                                       1.5 / math.sqrt(d), 0.9 / math.sqrt(d))
     errs, rates = [], []
-    for name, (target, d, scale, beta) in targets.items():
-        x0 = gmt.init_with_seed(256, d, 3, device=dev)
+    for (name, (target, d, scale, beta)), n in itertools.product(targets.items(), (256, 200)):
+        x0 = gmt.init_with_seed(n, d, 3, device=dev)
         for proposal in (gmt.RandomWalkProposal(scale), gmt.PCNProposal(beta)):
             args, kw = (target, x0, proposal, 20, 5), dict(seed=11, thin=2)
             got = fused_mh.fused_mh_run(*args, **kw)
             want = fused_mh.fused_mh_run_reference(*args, **kw)
             torch.cuda.synchronize()
-            what = f"K3 {name} {type(proposal).__name__}"
-            check(tuple(got.shape) == (256, 20, d), f"{what}: output shape")
+            what = f"K3 {name} {type(proposal).__name__} at {n} chains"
+            check(tuple(got.shape) == (n, 20, d), f"{what}: output shape")
             errs.append(compare(got, want, what))
+            check(torch.equal(got, want), f"{what}: equal to the plain version bit for bit")
             moved = float((got[:, 1:] != got[:, :-1]).any(dim=2).float().mean())
             check(0.02 < moved < 0.999, f"{what}: accepts and rejects both occur ({moved})")
             rates.append(moved)
@@ -547,7 +646,7 @@ def phase_mh_small(dev):
     full = fused_mh.fused_mh_run(std_normal, x0, walk, 12, 4, seed=3)
     thin = fused_mh.fused_mh_run(std_normal, x0, walk, 4, 4, seed=3, thin=3)
     check(torch.equal(thin, full[:, 2::3]), "K3 thinning identity")
-    say("K3-small", cases=len(errs), rtol=K1_RTOL, atol=K1_ATOL, max_abs_err=max(errs),
+    say("K3-small", cases=len(errs), chains="256,200", bit_equal=True, max_abs_err=max(errs),
         moved_min=f"{min(rates):.3f}", moved_max=f"{max(rates):.3f}", pcn_identity=True,
         thinning_identity=True)
     return dict(max_abs_err=max(errs))
@@ -562,10 +661,11 @@ def phase_mh_main(dev):
 
     reset_counts()
     samples = sampler().run(MH_COLLECT, MH_DISCARD)
-    store = samples.transpose(0, 1)  # the steps-major [n_collect, n, 2] store
-    rhat, ess = gmt.split_rhat_mean_ess(store, steps_major=True)
     torch.cuda.synchronize()
     launches = fused_mh.launches
+    store = samples.transpose(0, 1)  # the steps-major [n_collect, n, 2] store
+    rhat, ess = gmt.split_rhat_mean_ess(store, steps_major=True)
+    diag_ms, _, _ = timed(lambda: gmt.split_rhat_mean_ess(store, steps_major=True), 1)
 
     check(launches == 1, f"one fused MH launch on the MH main path ({launches})")
     check(tuple(samples.shape) == (MH_CHAINS, MH_COLLECT, 2), "MH sample shape")
@@ -590,16 +690,19 @@ def phase_mh_main(dev):
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     err = compare(samples, plain, "K3 at full size")
+    check(torch.equal(samples, plain), "K3 at full size: equal to the plain version bit for bit")
     del plain, samples, store, flat
 
     ms, wall, out = timed(lambda: sampler().run(MH_COLLECT, MH_DISCARD), 3)
     del out
     n_steps = MH_COLLECT + MH_DISCARD
-    # Gaussian2D: 2 subtractions, 9 products and sums, a division, a scale;
-    # random walk: a product and a sum per coordinate
-    n_bytes, f_ops, i_ops = fused_mh_work(MH_CHAINS, 2, n_steps, MH_COLLECT, 13, 2)
+    work = (MH_CHAINS, 2, n_steps, MH_COLLECT, MH_TARGET_OPS, MH_PROPOSAL_OPS)
+    n_bytes, f_ops, i_ops = fused_mh_work(*work)
     b_ms, b_by = bound(n_bytes, f_ops + i_ops)
     unfused = unfused_ms(f_ops, i_ops)
+    o_bytes, o_f, o_i = fused_mh_work_two_blocks(*work)
+    old_ms, _ = bound(o_bytes, o_f + o_i)
+    old_unfused = unfused_ms(o_f, o_i)
     n_samples = MH_CHAINS * MH_COLLECT
     say("mh-main", chains=MH_CHAINS, dim=2, steps=f"{MH_DISCARD}+{MH_COLLECT}",
         samples=n_samples, store_mb=f"{4 * 2 * n_samples / 1e6:.0f}", launches=launches,
@@ -608,9 +711,71 @@ def phase_mh_main(dev):
         kernel_ms=f"{ms:.3f}", samples_per_s=f"{n_samples / wall:.4e}",
         min_ess_per_s=f"{min_ess / wall:.4e}", plain_s=f"{plain_s:.3f}",
         plain_steps=n_steps, bound_ms=f"{b_ms:.3f}", bound_by=b_by,
-        bound_unfused_ms=f"{unfused:.3f}", max_abs_err=err)
+        bound_unfused_ms=f"{unfused:.3f}", bound_two_block_layout_ms=f"{old_ms:.3f}",
+        bound_two_block_layout_unfused_ms=f"{old_unfused:.3f}",
+        max_abs_err=err, diagnostics_ms=f"{diag_ms:.1f}")
     return dict(launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_s * 1e3,
-                bound_ms=b_ms, bound_by=b_by, bound_unfused_ms=unfused)
+                bound_ms=b_ms, bound_by=b_by, bound_unfused_ms=unfused, diagnostics_ms=diag_ms)
+
+
+def phase_k3_chains(dev):
+    """K3 at the MH main path's width and steps at 4,096, 16,384 and 65,536
+    chains: the kernel's device time over back-to-back launches (no wrapper
+    between the events) and samples/s at each, which say whether the main
+    shape (one warp a scheduler) is still latency-bound; the plain version
+    is not run here (at 65,536 chains the store is 2.6 GB)."""
+    target = gmt.Gaussian2D(MH_MEAN, MH_COV, device=dev)
+    proposal = gmt.RandomWalkProposal(MH_SCALE)
+    n_steps = MH_COLLECT + MH_DISCARD
+    f32 = dict(device=dev, dtype=torch.float32)
+    rates, times = {}, {}
+    for n in MH_CHAIN_COUNTS:
+        x0 = gmt.init_det(n, 2, device=dev)
+        code, p_code, consts = fused_mh._check_args(target, x0, proposal, MH_COLLECT,
+                                                    MH_DISCARD, 1)
+        params = fused_mh._target_params(target, code, **f32)
+        out = torch.empty((MH_COLLECT, n, 2), **f32)
+        ms = device_ms(functools.partial(fused_mh._launch, x0, params, out, code, p_code,
+                                         consts, MH_DISCARD, 1, SEED), 5)
+        check(bool(torch.isfinite(out[-1]).all()), f"K3 at {n} chains: finite last samples")
+        del out
+        times[n] = round(ms, 4)
+        rates[n] = f"{n * MH_COLLECT / (ms * 1e-3):.4e}"
+    say("K3-chains", steps=n_steps, dim=2, kernel_ms=json.dumps(times),
+        samples_per_s=json.dumps(rates))
+    return dict(ms=times, samples_per_s=rates)
+
+
+def phase_k3_widths(dev):
+    """K3 on the wider maps: ``fused_mh_run`` on a diagonal GaussianND at
+    widths 100 (a warp a chain, a block a lane) and 512 (five blocks a
+    lane), 16,384 chains, 500 burn-in steps and 100 samples at thin 5, the
+    random walk; device time over back-to-back calls (the host's work in a
+    call overlaps the kernel's), bound as for the main path.  It calls only
+    the public entry points, so it times an earlier version of the package
+    as well."""
+    times, bounds = {}, {}
+    n, discard, collect, thin = MH_WIDTH_CHAINS, 500, 100, 5
+    for d in MH_WIDTHS:
+        gen = torch.Generator().manual_seed(d)
+        target = gmt.GaussianND(torch.randn(d, generator=gen) * 0.3,
+                                torch.exp(torch.randn(d, generator=gen) * 0.3), device=dev)
+        x0 = gmt.init_with_seed(n, d, 3, device=dev)
+        run = functools.partial(fused_mh.fused_mh_run, target, x0,
+                                gmt.RandomWalkProposal(1.5 / math.sqrt(d)), collect, discard,
+                                seed=SEED, thin=thin)
+        out = run()
+        check(tuple(out.shape) == (n, collect, d) and bool(torch.isfinite(out[:, -1]).all()),
+              f"K3 at width {d}: shape and finite last samples")
+        del out
+        times[d] = round(device_ms(run, 3), 4)
+        # GaussianND: a difference, a square, a product with the precision
+        # and a sum per coordinate, and the scale
+        work = fused_mh_work(n, d, discard + collect * thin, collect, 4 * d + 1, MH_PROPOSAL_OPS)
+        bounds[d] = round(bound(work[0], work[1] + work[2])[0], 4)
+    say("K3-widths", chains=n, steps=discard + collect * thin, kernel_ms=json.dumps(times),
+        bound_ms=json.dumps(bounds))
+    return dict(ms=times, bound_ms=bounds)
 
 
 def phase_logistic(dev):
@@ -722,6 +887,8 @@ def main() -> int:
     maps = phase_k1_maps(dev)
     mh_small = phase_mh_small(dev)
     mh = phase_mh_main(dev)
+    k3_chains = phase_k3_chains(dev)
+    k3_widths = phase_k3_widths(dev)
     logistic = phase_logistic(dev)
     kernels = [
         dict(name="fused_hmc", route="cuda", source="general_mcmc_torch/csrc/fused_hmc.cu",
@@ -737,8 +904,9 @@ def main() -> int:
              checked_in="K1-small, main, identity-mass, K1-maps"),
         # K2 is a device function: on the main paths it runs inside each
         # fused_hmc and fused_mh launch, so its launches are those kernels';
-        # its times are those of its fill kernel (10,240 x 128 words), which
-        # no main path launches (fill_launches).
+        # its times are those of its fill kernel (10,240 x 128 words, device
+        # time of back-to-back launches), which no main path launches
+        # (fill_launches).
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
@@ -747,13 +915,17 @@ def main() -> int:
              fill_launches=main_path["fill_launches"],
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
-             checked_in="K2"),
+             wrapper_call_ms=k2["wrapper_call_ms"], checked_in="K2"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
-             max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]), ms=mh["ms"],
+             max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),
+             ms=mh["ms"], kernel_only_ms=k3_chains["ms"][MH_CHAINS],
              plain_ms=mh["plain_ms"], bound_ms=mh["bound_ms"], bound_by=mh["bound_by"],
              bound_unfused_ms=mh["bound_unfused_ms"], library_ms=None,
-             checked_in="K3-small, mh-main"),
+             chains_kernel_only_ms={str(k): v for k, v in k3_chains["ms"].items()},
+             widths_ms={str(k): v for k, v in k3_widths["ms"].items()},
+             widths_bound_ms={str(k): v for k, v in k3_widths["bound_ms"].items()},
+             checked_in="K3-small, mh-main, K3-chains, K3-widths"),
         # no single PyTorch call computes the chain: library_ms is the time of
         # its two torch.matmul a step, alone, times the steps
         dict(name="fused_logistic", route="cuda",

@@ -4,7 +4,9 @@
 // Neither runs on the sampling path: the generator runs there inside
 // fused_hmc.cu and fused_mh.cu.  The fill kernel writes the device
 // function's draws to a tensor so that they can be compared, bit for bit,
-// with the plain version in ops/counter_rng.py.  Bound: the bytes written (one word per draw).
+// with the plain version in ops/counter_rng.py.  Bound: the bytes written.
+// One thread computes one Philox block and writes what its four words give,
+// as one 16-byte store where the row allows it.
 //
 // C interface, loaded with ctypes (general_mcmc_torch/_build.py).  Each
 // entry point returns cudaGetLastError() after its launch.
@@ -16,44 +18,68 @@
 
 namespace {
 
-// out[c, j] for chain c of n_chains, word j of n_words:
-//   kind 0: the raw bits of word j (group j / 4, lane j % 4) as int32;
-//   kind 1: the uniform of those bits;
-//   kind 2: normal j, the cosine branch of Box-Muller of words (2e, 2e + 1),
-//           e = j % 2, of group j / 2 - the proposal layout of fused_mh.cu;
-//   kind 3: normal j of the paired layout of fused_hmc.cu: group j / 4, words
-//           (0, 1) give normals 4q (cosine) and 4q + 1 (sine), words (2, 3)
-//           normals 4q + 2 and 4q + 3.
+enum Kind : int { kBits = 0, kUniform = 1, kMH = 2, kNormalPair = 3 };
+
+// Blocks a row of n_words columns takes: the MH layout's row is d = n_words
+// - 1 normals and the accept uniform, word 2 ceil(d / 2) of the sequence.
+__host__ __device__ __forceinline__ int row_blocks(int n_words, int kind) {
+  return kind == kMH ? n_words / 2 / 2 + 1 : (n_words + 3) / 4;
+}
+
+// out[c, j] for chain c of n_chains, column j of n_words, from the word
+// sequence of (seed; c, step, tag) - word w is word w % 4 of group w / 4:
+//   kBits: word j as int32;  kUniform: its uniform;
+//   kNormalPair: normal j, the cosine (j even) or sine (j odd) branch of
+//     words (j - j % 2, j - j % 2 + 1), the momentum layout of fused_hmc.cu;
+//   kMH: the same normals for j < d = n_words - 1 and in column d the
+//     uniform of word 2 ceil(d / 2), the draws of fused_mh.cu.
 __global__ void fill_kernel(void* out, int n_chains, int n_words, uint32_t seed,
                             uint32_t step, uint32_t tag, int kind) {
+  const int nb = row_blocks(n_words, kind);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= static_cast<int64_t>(n_chains) * n_words) return;
-  const uint32_t chain = static_cast<uint32_t>(i / n_words);
-  const int j = static_cast<int>(i % n_words);
-  if (kind == 2) {
-    const uint4 r = gmt::counter_bits(seed, chain, step, j / 2, tag);
-    const float z = (j % 2 == 0) ? gmt::box_muller(r.x, r.y) : gmt::box_muller(r.z, r.w);
-    static_cast<float*>(out)[i] = z;
-    return;
-  }
-  if (kind == 3) {
-    const uint4 r = gmt::counter_bits(seed, chain, step, j / 4, tag);
-    float zc, zs;
-    if (j % 4 < 2) {
-      gmt::box_muller_pair(r.x, r.y, zc, zs);
+  if (i >= static_cast<int64_t>(n_chains) * nb) return;
+  const uint32_t chain = static_cast<uint32_t>(i / nb);
+  const int q = static_cast<int>(i % nb);
+  const uint4 r = gmt::counter_bits(seed, chain, step, static_cast<uint32_t>(q), tag);
+  const int64_t base = static_cast<int64_t>(chain) * n_words + 4 * q;
+  const bool whole = (n_words & 3) == 0 && kind != kMH;  // rows 16-byte aligned
+  if (kind == kBits) {
+    uint32_t* dst = static_cast<uint32_t*>(out) + base;
+    if (whole) {
+      *reinterpret_cast<uint4*>(dst) = r;
     } else {
-      gmt::box_muller_pair(r.z, r.w, zc, zs);
+      const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+      for (int e = 0; e < 4 && 4 * q + e < n_words; ++e) dst[e] = w[e];
     }
-    static_cast<float*>(out)[i] = (j % 2 == 0) ? zc : zs;
     return;
   }
-  const uint4 r = gmt::counter_bits(seed, chain, step, j / 4, tag);
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-  const uint32_t b = w[j % 4];
-  if (kind == 0) {
-    static_cast<uint32_t*>(out)[i] = b;
+  float v[4];
+  if (kind == kUniform) {
+    v[0] = gmt::bits_to_uniform(r.x);
+    v[1] = gmt::bits_to_uniform(r.y);
+    v[2] = gmt::bits_to_uniform(r.z);
+    v[3] = gmt::bits_to_uniform(r.w);
+  } else if (kind == kMH) {
+    float log_u1;  // the draw function of fused_mh.cu
+    gmt::box_muller_pair_straight(r.x, r.y, v[0], v[1], log_u1);
+    gmt::box_muller_pair_straight(r.z, r.w, v[2], v[3], log_u1);
   } else {
-    static_cast<float*>(out)[i] = gmt::bits_to_uniform(b);
+    gmt::box_muller_pair(r.x, r.y, v[0], v[1]);
+    gmt::box_muller_pair(r.z, r.w, v[2], v[3]);
+  }
+  float* dst = static_cast<float*>(out) + base;
+  if (whole) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  const int n_values = kind == kMH ? n_words - 1 : n_words;
+  for (int e = 0; e < 4 && 4 * q + e < n_values; ++e) dst[e] = v[e];
+  if (kind == kMH && q == nb - 1) {
+    // the uniform's word: word 0 of this block for an even number of
+    // normal pairs, word 2 for an odd one
+    const bool odd_pairs = (n_words / 2) & 1;
+    static_cast<float*>(out)[static_cast<int64_t>(chain) * n_words + n_values] =
+        gmt::bits_to_uniform(odd_pairs ? r.z : r.x);
   }
 }
 
@@ -77,29 +103,41 @@ __global__ void curand_check_kernel(const uint32_t* key, const uint32_t* ctr,
   theirs[4 * i + 3] = b.w;
 }
 
-// Both Box-Muller outputs for every 24-bit uniform: word i << 8 feeds the
-// radius and the angle alike, i < n.
-__global__ void pair_sweep_kernel(float* z_cos, float* z_sin, int n) {
+// Both Box-Muller outputs and the log of the uniform for every 24-bit
+// uniform: word i << 8 feeds the radius and the angle alike, i < n;
+// box_muller_pair (fused_hmc.cu's), or with `straight`
+// box_muller_pair_straight (fused_mh.cu's).
+__global__ void pair_sweep_kernel(float* z_cos, float* z_sin, float* log_u, int n,
+                                  bool straight) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint32_t bits = static_cast<uint32_t>(i) << 8;
-  gmt::box_muller_pair(bits, bits, z_cos[i], z_sin[i]);
+  if (straight) {
+    gmt::box_muller_pair_straight(bits, bits, z_cos[i], z_sin[i], log_u[i]);
+  } else {
+    gmt::box_muller_pair(bits, bits, z_cos[i], z_sin[i], log_u[i]);
+  }
 }
 
 }  // namespace
 
-extern "C" int counter_rng_pair_sweep(void* z_cos, void* z_sin, int n, void* stream) {
+extern "C" int counter_rng_pair_sweep(void* z_cos, void* z_sin, void* log_u, int n,
+                                      int straight, void* stream) {
   const int threads = 256;
   pair_sweep_kernel<<<(n + threads - 1) / threads, threads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(z_cos), static_cast<float*>(z_sin), n);
+      static_cast<float*>(z_cos), static_cast<float*>(z_sin), static_cast<float*>(log_u), n,
+      straight != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int counter_rng_fill(void* out, int n_chains, int n_words, unsigned int seed,
                                 unsigned int step, unsigned int tag, int kind,
                                 void* stream) {
-  const int64_t total = static_cast<int64_t>(n_chains) * n_words;
+  if (kind < kBits || kind > kNormalPair || (kind == kMH && n_words < 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t total = static_cast<int64_t>(n_chains) * row_blocks(n_words, kind);
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
   fill_kernel<<<static_cast<unsigned int>(blocks), threads, 0,

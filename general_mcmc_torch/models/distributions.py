@@ -164,16 +164,21 @@ class Gaussian2D:
     """2-D Gaussian with a full covariance ``[[a, b], [c, d]]``, by the
     explicit quadratic form ``(d·d0² − (b + c)·d0·d1 + a·d1²) / det``.
     ``unnorm_logp`` leaves the normalizing constant out (target role);
-    ``logp`` includes it."""
+    ``logp`` includes it.
+
+    The form is multiplied by ``1/det``, computed once, rather than divided
+    by ``det`` (the JAX target divides): a division sits on the fused MH
+    kernel's step-to-step dependency and a product is a few clocks.  The two
+    differ by the rounding of ``1/det``, an ulp or so."""
 
     def __init__(self, mean, cov, dtype=None, device=None):
         self.mean = _tensor(mean, dtype, device)
         self.cov = _tensor(cov, dtype, device)
         c = self.cov
-        # [a, b + c, d, det]: the constants of the quadratic form, which the
-        # fused MH kernel takes as they are
+        # [a, b + c, d, 1 / det]: the constants of the quadratic form, which
+        # the fused MH kernel takes as they are
         self.form = torch.stack([c[0, 0], c[0, 1] + c[1, 0], c[1, 1],
-                                 c[0, 0] * c[1, 1] - c[0, 1] * c[1, 0]])
+                                 1.0 / (c[0, 0] * c[1, 1] - c[0, 1] * c[1, 0])])
 
     def to(self, device=None, dtype=None) -> "Gaussian2D":
         out = object.__new__(Gaussian2D)
@@ -182,16 +187,16 @@ class Gaussian2D:
         return out
 
     def _quad(self, x):
-        a, bc, d, det = self.form
+        a, bc, d, inv_det = self.form
         d0, d1 = x[..., 0] - self.mean[0], x[..., 1] - self.mean[1]
-        return (d * d0 * d0 - bc * d0 * d1 + a * d1 * d1) / det
+        return (d * d0 * d0 - bc * d0 * d1 + a * d1 * d1) * inv_det
 
     def unnorm_logp(self, x):
         return -0.5 * self._quad(x)
 
     def logp(self, x):
-        det = self.form[3]
-        return (-math.log(2.0 * math.pi) - 0.5 * torch.log(torch.abs(det))
+        inv_det = self.form[3]
+        return (-math.log(2.0 * math.pi) + 0.5 * torch.log(torch.abs(inv_det))
                 - 0.5 * self._quad(x))
 
     __call__ = unnorm_logp

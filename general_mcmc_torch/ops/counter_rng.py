@@ -11,26 +11,28 @@ repeat beyond 2³² draws.  Here the device function in
 Philox bits from a counter made only of (global chain, absolute step,
 dimension group, draw tag), keyed by the seed, so a chain's draws are the
 same whatever the batch, launch shape or device.  The bits-to-uniform map
-and the Box–Muller cosine branch are the JAX package's; the fused HMC kernel
-also takes the sine branch of the same two uniforms, an independent normal,
-so that one Philox block serves four dimensions (:func:`box_muller_pair`).
+and the Box–Muller cosine branch are the JAX package's; the port also takes
+the sine branch of the same two uniforms, an independent normal, so that
+one Philox block serves four normals (:func:`box_muller_pair`).
 
 The plain version holds uint32 words in int64 tensors.  A 32×32-bit product
 can reach 2⁶⁴ and overflow int64, so the multiplier is split into 16-bit
 halves and each partial product stays below 2⁴⁸.
 
-Which words each sampler reads at (seed; chain, step):
+A chain's words at (seed; chain, step, tag) are read as one sequence: word
+``w`` is word ``w % 4`` of the block at group ``w // 4``.  Which words each
+sampler reads:
 
-- HMC: momentum normals ``4q`` and ``4q + 1`` are the cosine and the sine
-  branch of Box–Muller of words ``(0, 1)``, and normals ``4q + 2`` and
-  ``4q + 3`` those of words ``(2, 3)``, of the counter (chain, step, group
-  ``q``, ``TAG_MOMENTUM``) (:func:`normals_paired`); the accept uniform is
-  word 0 of (chain, step, group 0, ``TAG_ACCEPT``) (:func:`uniforms`).
-- MH: proposal normal ``j`` is the cosine branch of words ``(2e, 2e + 1)``,
-  ``e = j % 2``, of (chain, step, group ``j // 2``, ``TAG_PROPOSAL``)
-  (:func:`normals`); the discrete walk's sign for coordinate ``j`` is the
-  top bit of word ``j % 4`` of (chain, step, group ``j // 4``, ``TAG_SIGN``)
-  (:func:`signs`); the accept uniform is the same word as HMC's.
+- HMC: momentum normals ``2k`` and ``2k + 1`` are the cosine and the sine
+  branch of Box–Muller of words ``(2k, 2k + 1)`` under ``TAG_MOMENTUM``
+  (:func:`normals_paired`); the accept uniform is word 0 of its own stream,
+  ``TAG_ACCEPT`` (:func:`uniforms`).
+- MH: the proposal normals are the same pairs under ``TAG_PROPOSAL``, and
+  the next word, ``2·⌈dim/2⌉``, gives the accept uniform
+  (:func:`mh_draws`): at dim 2 one block a step, words 0 and 1 for the
+  normals and word 2 for the uniform.  The discrete walk reads its own
+  stream, ``TAG_SIGN``: the sign of coordinate ``j`` is the top bit of word
+  ``j`` and the accept uniform is word ``dim`` (:func:`sign_draws`).
 
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``.
 
@@ -54,14 +56,14 @@ __all__ = [
     "philox4x32_10",
     "counter_bits",
     "bits_to_uniform",
-    "box_muller",
     "box_muller_pair",
-    "normals",
     "normals_paired",
     "uniforms",
-    "signs",
+    "mh_draws",
+    "sign_draws",
     "counter_rng_fill",
     "counter_rng_fill_reference",
+    "fill_launcher",
     "curand_check",
     "pair_sweep",
     "launches",
@@ -80,7 +82,7 @@ TAG_SIGN = 3
 # Launches of the fill kernel (counter_rng_fill) in this process.
 launches = 0
 
-_KINDS = {"bits": 0, "uniform": 1, "normal": 2, "normal_pair": 3}
+_KINDS = {"bits": 0, "uniform": 1, "mh": 2, "normal_pair": 3}
 
 
 def _mulhilo(m: int, c: torch.Tensor):
@@ -129,16 +131,10 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * 2.0**-24 + 2.0**-25
 
 
-def box_muller(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """One normal from two words, cosine branch (JAX ``_standard_normal``)."""
-    u1 = bits_to_uniform(b1)
-    u2 = bits_to_uniform(b2)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
-
-
 def box_muller_pair(b1: torch.Tensor, b2: torch.Tensor):
-    """Two independent normals from two words: the cosine branch (which is
-    :func:`box_muller`) and the sine branch of the same radius and angle."""
+    """Two independent normals from two words: the cosine branch (JAX
+    ``_standard_normal``) and the sine branch of the same radius and
+    angle."""
     u1 = bits_to_uniform(b1)
     u2 = bits_to_uniform(b2)
     r = torch.sqrt(-2.0 * torch.log(u1))
@@ -146,31 +142,30 @@ def box_muller_pair(b1: torch.Tensor, b2: torch.Tensor):
     return r * torch.cos(angle), r * torch.sin(angle)
 
 
-def normals(seed: int, chains: torch.Tensor, step: int, dim: int,
-            tag: int = TAG_MOMENTUM) -> torch.Tensor:
-    """``[n_chains, dim]`` float32 standard normals: normal ``j`` of a chain
-    is the cosine branch of Box–Muller of words ``(2e, 2e+1)``,
-    ``e = j % 2``, of group ``j // 2`` — the fused MH kernel's proposal
-    layout."""
-    groups = torch.arange((dim + 1) // 2, dtype=torch.int64, device=chains.device)
-    w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
-    z = torch.stack([box_muller(w[..., 0], w[..., 1]), box_muller(w[..., 2], w[..., 3])],
-                    dim=-1)
-    return z.reshape(chains.shape[0], -1)[:, :dim]
+def _words(seed: int, chains: torch.Tensor, step: int, n_words: int,
+           tag: int) -> torch.Tensor:
+    """``[n_chains, ≥ n_words]`` int64: each chain's word sequence at
+    (seed; chain, step, tag), in whole blocks."""
+    groups = torch.arange((n_words + 3) // 4, dtype=torch.int64, device=chains.device)
+    return counter_bits(seed, chains[:, None], step, groups[None, :], tag).reshape(
+        chains.shape[0], -1)
+
+
+def _paired(w: torch.Tensor, dim: int) -> torch.Tensor:
+    """Normals ``2k`` and ``2k + 1`` from the cosine and sine branch of words
+    ``(2k, 2k + 1)`` of the word sequences ``w``, ``k < ⌈dim/2⌉``."""
+    pairs = (dim + 1) // 2
+    z_cos, z_sin = box_muller_pair(w[:, 0:2 * pairs:2], w[:, 1:2 * pairs:2])
+    return torch.stack([z_cos, z_sin], dim=-1).reshape(w.shape[0], -1)[:, :dim]
 
 
 def normals_paired(seed: int, chains: torch.Tensor, step: int, dim: int,
                    tag: int = TAG_MOMENTUM) -> torch.Tensor:
     """``[n_chains, dim]`` float32 standard normals, four from each Philox
-    block: normals ``4q`` and ``4q + 1`` of a chain are the cosine and sine
-    branch of words ``(0, 1)`` of group ``q``, normals ``4q + 2`` and
-    ``4q + 3`` those of words ``(2, 3)`` — the fused HMC kernel's momentum
-    layout."""
-    groups = torch.arange((dim + 3) // 4, dtype=torch.int64, device=chains.device)
-    w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
-    z = torch.stack([*box_muller_pair(w[..., 0], w[..., 1]),
-                     *box_muller_pair(w[..., 2], w[..., 3])], dim=-1)
-    return z.reshape(chains.shape[0], -1)[:, :dim]
+    block: normals ``2k`` and ``2k + 1`` are the cosine and sine branch of
+    words ``(2k, 2k + 1)`` — so normals ``4q`` to ``4q + 3`` come from group
+    ``q`` — the fused HMC kernel's momentum layout."""
+    return _paired(_words(seed, chains, step, dim, tag), dim)
 
 
 def uniforms(seed: int, chains: torch.Tensor, step: int,
@@ -180,13 +175,24 @@ def uniforms(seed: int, chains: torch.Tensor, step: int,
     return bits_to_uniform(w[..., 0])
 
 
-def signs(seed: int, chains: torch.Tensor, step: int, dim: int,
-          tag: int = TAG_SIGN) -> torch.Tensor:
-    """``[n_chains, dim]`` fair coin flips (bool): flip ``j`` is the top bit
-    of word ``j % 4`` of group ``j // 4``."""
-    groups = torch.arange((dim + 3) // 4, dtype=torch.int64, device=chains.device)
-    w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
-    return (w.reshape(chains.shape[0], -1)[:, :dim] >> 31) == 1
+def mh_draws(seed: int, chains: torch.Tensor, step: int, dim: int,
+             tag: int = TAG_PROPOSAL):
+    """MH's draws for one step: ``z [n_chains, dim]`` float32 standard
+    normals and ``u [n_chains]`` float32 uniforms.  Normals ``2k`` and
+    ``2k + 1`` are the cosine and sine branch of words ``(2k, 2k + 1)`` (the
+    layout of :func:`normals_paired`), and ``u`` is word ``2·⌈dim/2⌉``."""
+    n_z = 2 * ((dim + 1) // 2)
+    w = _words(seed, chains, step, n_z + 1, tag)
+    return _paired(w, dim), bits_to_uniform(w[:, n_z])
+
+
+def sign_draws(seed: int, chains: torch.Tensor, step: int, dim: int,
+               tag: int = TAG_SIGN):
+    """The discrete walk's draws for one step: ``up [n_chains, dim]`` fair
+    coin flips (bool), flip ``j`` the top bit of word ``j``, and
+    ``u [n_chains]`` float32 uniforms from word ``dim``."""
+    w = _words(seed, chains, step, dim + 1, tag)
+    return (w[:, :dim] >> 31) == 1, bits_to_uniform(w[:, dim])
 
 
 def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,
@@ -196,13 +202,12 @@ def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}")
     chains = torch.arange(n_chains, dtype=torch.int64, device=device)
-    if kind == "normal":
-        return normals(seed, chains, step, n_words, tag)
+    if kind == "mh":
+        z, u = mh_draws(seed, chains, step, n_words - 1, tag)
+        return torch.cat([z, u[:, None]], dim=1)
     if kind == "normal_pair":
         return normals_paired(seed, chains, step, n_words, tag)
-    groups = torch.arange((n_words + 3) // 4, dtype=torch.int64, device=device)
-    w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
-    bits = w.reshape(n_chains, -1)[:, :n_words]
+    bits = _words(seed, chains, step, n_words, tag)[:, :n_words]
     if kind == "uniform":
         return bits_to_uniform(bits)
     return (bits - ((bits >> 31) << 32)).to(torch.int32)  # uint32 bits as int32
@@ -213,41 +218,58 @@ def counter_rng_fill(n_chains: int, n_words: int, seed: int, step: int, tag: int
     """``[n_chains, n_words]`` draws at ``(seed; chain, step, ·, tag)``:
     ``kind="bits"`` the raw words (int32 holding uint32 bits; word ``j`` is
     word ``j % 4`` of group ``j // 4``), ``"uniform"`` their uniforms,
-    ``"normal"`` the normals of :func:`normals`, ``"normal_pair"`` those of
-    :func:`normals_paired`.
+    ``"mh"`` the draws of :func:`mh_draws` for ``dim = n_words - 1`` (the
+    normals, then the uniform in the last column), ``"normal_pair"`` the
+    normals of :func:`normals_paired`.
 
     On a CUDA device this launches the fill kernel; on the CPU it computes
     the plain version."""
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}")
+    if kind == "mh" and n_words < 2:
+        raise ValueError("the mh layout needs n_words = dim + 1 >= 2")
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cpu":
         return counter_rng_fill_reference(n_chains, n_words, seed, step, tag, kind, device)
     if device.type != "cuda":
         raise ValueError(f"counter_rng_fill runs on cuda or cpu, not {device}")
-    from .._build import check, load
+    from .._build import check
 
     global launches
+    dtype = torch.int32 if kind == "bits" else torch.float32
+    out = torch.empty((n_chains, n_words), dtype=dtype, device=device)
+    lib, launch = fill_launcher(out, seed, step, tag, kind)
+    check(lib, launch(), "counter_rng_fill")
+    launches += 1
+    return out
+
+
+def fill_launcher(out: torch.Tensor, seed: int, step: int, tag: int, kind: str):
+    """``(lib, launch)``: ``launch()`` enqueues one fill of ``out``
+    (``[n_chains, n_words]`` on the card) and returns the CUDA error code,
+    with no check and no count; :func:`counter_rng_fill` is the wrapper.
+    Exposed so that the kernel's device time can be taken over back-to-back
+    launches."""
+    from .._build import load
+
     lib = load("counter_rng")
     fn = lib.counter_rng_fill
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
                    ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    dtype = torch.int32 if kind == "bits" else torch.float32
-    out = torch.empty((n_chains, n_words), dtype=dtype, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    code = fn(out.data_ptr(), n_chains, n_words, seed & _MASK, step & _MASK, tag & _MASK,
-              _KINDS[kind], stream)
-    check(lib, code, "counter_rng_fill")
-    launches += 1
-    return out
+    args = (out.data_ptr(), out.shape[0], out.shape[1], seed & _MASK, step & _MASK,
+            tag & _MASK, _KINDS[kind], torch.cuda.current_stream(out.device).cuda_stream)
+    return lib, lambda: fn(*args)
 
 
-def pair_sweep(device=None):
-    """The device function ``box_muller_pair`` on every 24-bit uniform: word
-    ``i << 8``, ``i < 2²⁴``, feeds the radius and the angle alike.  Returns
-    ``(z_cos, z_sin, bits)``; the plain :func:`box_muller_pair` of ``bits``
-    is what they are held against (card only)."""
+def pair_sweep(device=None, straight: bool = False):
+    """The device function ``box_muller_pair`` (the fused HMC kernel's) or,
+    with ``straight``, ``box_muller_pair_straight`` (the fused MH kernel's,
+    free of branches) on every 24-bit uniform: word ``i << 8``, ``i < 2²⁴``,
+    feeds the radius and the angle alike.  Returns ``(z_cos, z_sin, log_u,
+    bits)``: the normals, the log of the uniform, and the words, whose plain
+    :func:`box_muller_pair` and ``torch.log`` of :func:`bits_to_uniform`
+    they are held against (card only)."""
     device = torch.device(device if device is not None else "cuda")
     if device.type != "cuda":
         raise ValueError("pair_sweep runs the device function: give it a CUDA device")
@@ -255,15 +277,16 @@ def pair_sweep(device=None):
 
     lib = load("counter_rng")
     fn = lib.counter_rng_pair_sweep
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = 1 << 24
     z_cos = torch.empty(n, dtype=torch.float32, device=device)
     z_sin = torch.empty_like(z_cos)
-    code = fn(z_cos.data_ptr(), z_sin.data_ptr(), n,
+    log_u = torch.empty_like(z_cos)
+    code = fn(z_cos.data_ptr(), z_sin.data_ptr(), log_u.data_ptr(), n, int(straight),
               torch.cuda.current_stream(device).cuda_stream)
     check(lib, code, "counter_rng_pair_sweep")
-    return z_cos, z_sin, torch.arange(n, dtype=torch.int64, device=device) << 8
+    return z_cos, z_sin, log_u, torch.arange(n, dtype=torch.int64, device=device) << 8
 
 
 def curand_check(keys: torch.Tensor, counters: torch.Tensor):

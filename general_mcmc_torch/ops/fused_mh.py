@@ -17,6 +17,10 @@ with a diagonal covariance, and for the proposals Gaussian random walk
 anything else raises.  The TPU kernel's transposed ``[dim, chains]`` state
 is a tiling decision of that machine and is not carried over: the store is
 steps-major ``[n_collect, n_chains, dim]``, as the fused HMC run's is.
+
+The kernel computes the draws of a tile of steps ahead of the walk; it
+chooses its lane map, tile and design from the width (``csrc/fused_mh.cu``,
+head note).
 """
 
 from __future__ import annotations
@@ -127,7 +131,7 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
     n, d = x0.shape
     if d > MAX_DIM:
         raise ValueError(f"the fused MH kernel takes dim <= {MAX_DIM}, got {d}")
-    if (n_discard + n_collect * thin) >= 2**31:
+    if (n_discard + n_collect * thin) > 2**31 - 64:
         raise ValueError("too many steps for one launch")
     f32 = dict(device=x0.device, dtype=torch.float32)
     params = _target_params(target, code, **f32)
@@ -135,17 +139,25 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)
 
+    global launches
+    _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed)
+    launches += 1
+    return out.transpose(0, 1)
+
+
+def _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed):
+    """One launch of the kernel into the steps-major ``out``; no checks of
+    the arguments and no count.  :func:`fused_mh_run` is the wrapper; this
+    is exposed so that chip_smoke.py can time the kernel alone."""
     from .._build import check, load
 
-    global launches
     lib = load("fused_mh")
     fn = lib.fused_mh_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
         ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    n_collect, n, d = out.shape
     rc = fn(x0.data_ptr(), params.data_ptr(), out.data_ptr(), n, d, n_collect, n_discard,
             thin, code, p_code, *consts, stream_key(seed),
             torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, rc, "fused_mh_launch")
-    launches += 1
-    return out.transpose(0, 1)

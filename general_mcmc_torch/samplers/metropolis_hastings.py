@@ -5,8 +5,11 @@ sampler vmaps a one-chain update whose proposal draws from a per-step key;
 the port has no keys, so a proposal is the reparameterized pair
 ``propose(x [n, dim], draws [n, dim]) -> y`` and ``logp(from, to) -> [n]``,
 and the sampler hands it the counter generator's draws at (seed, chain,
-step) (:mod:`..ops.counter_rng`): standard normals, or fair coin flips for
-a proposal whose ``draws`` attribute is ``"sign"``.  Two backends:
+step) (:mod:`..ops.counter_rng`): standard normals and the accept uniform
+from one word sequence (:func:`..ops.counter_rng.mh_draws`: at dim 2 one
+Philox block a step), or, for a proposal whose ``draws`` attribute is
+``"sign"``, fair coin flips and the uniform from a stream of their own
+(:func:`..ops.counter_rng.sign_draws`).  Two backends:
 
 - ``"torch"`` (the JAX package's ``"xla"``): one step per Python iteration
   on batched tensors, float or integer states, any target and proposal;
@@ -168,12 +171,11 @@ class MetropolisHastings(BatchSampler):
         x, lp = carry
         proposal = self.proposal
         signs = getattr(proposal, "draws", "normal") == "sign"
-        if z is None:
-            draw = counter_rng.signs if signs else counter_rng.normals
-            tag = counter_rng.TAG_SIGN if signs else counter_rng.TAG_PROPOSAL
-            z = draw(self._key, self._chain_ids, m, x.shape[1], tag)
-        if u is None:
-            u = counter_rng.uniforms(self._key, self._chain_ids, m)
+        if z is None or u is None:
+            draw = counter_rng.sign_draws if signs else counter_rng.mh_draws
+            z_drawn, u_drawn = draw(self._key, self._chain_ids, m, x.shape[1])
+            z = z_drawn if z is None else z
+            u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device)
         if not signs:
             z = z.to(x.dtype)

@@ -71,33 +71,45 @@ def test_uniform_range_and_map():
 def test_draws_invariant_to_chain_batch():
     """A chain's draws depend on its global index and the step only, not on
     the batch it is computed in."""
-    full = cr.normals(11, torch.arange(64), 5, 9)
-    part = cr.normals(11, torch.arange(40, 64), 5, 9)
+    full, u_full = cr.mh_draws(11, torch.arange(64), 5, 9)
+    part, u_part = cr.mh_draws(11, torch.arange(40, 64), 5, 9)
     torch.testing.assert_close(part, full[40:], rtol=0, atol=0)
-    single = cr.normals(11, torch.tensor([17]), 5, 9)
+    torch.testing.assert_close(u_part, u_full[40:], rtol=0, atol=0)
+    single, _ = cr.mh_draws(11, torch.tensor([17]), 5, 9)
     torch.testing.assert_close(single, full[17:18], rtol=0, atol=0)
-    u_full = cr.uniforms(11, torch.arange(64), 5)
-    torch.testing.assert_close(cr.uniforms(11, torch.arange(8, 16), 5), u_full[8:16],
+    u_hmc = cr.uniforms(11, torch.arange(64), 5)
+    torch.testing.assert_close(cr.uniforms(11, torch.arange(8, 16), 5), u_hmc[8:16],
                                rtol=0, atol=0)
     # and they differ across steps, tags and seeds
-    assert not torch.equal(full, cr.normals(11, torch.arange(64), 6, 9))
-    assert not torch.equal(full, cr.normals(12, torch.arange(64), 5, 9))
-    assert not torch.equal(full, cr.normals(11, torch.arange(64), 5, 9, tag=cr.TAG_ACCEPT))
+    assert not torch.equal(full, cr.mh_draws(11, torch.arange(64), 6, 9)[0])
+    assert not torch.equal(full, cr.mh_draws(12, torch.arange(64), 5, 9)[0])
+    assert not torch.equal(full, cr.mh_draws(11, torch.arange(64), 5, 9, tag=cr.TAG_ACCEPT)[0])
 
 
 def test_normal_moments():
-    z = cr.normals(3, torch.arange(2_000), 0, 50).double().ravel()  # 10^5 draws
+    """MH's normals and accept uniforms: 10⁵ normals (both Box–Muller
+    branches) with normal moments, uniforms with the moments of U(0, 1), and
+    no correlation between a step's uniform and its normals."""
+    z, u = cr.mh_draws(3, torch.arange(2_000), 0, 50)
+    z = z.double().ravel()
     assert z.numel() == 100_000
     assert abs(float(z.mean())) < 0.015
     assert abs(float(z.var()) - 1.0) < 0.02
     assert abs(float((z**3).mean())) < 0.05
     assert abs(float((z**4).mean()) - 3.0) < 0.1
+    z2, u2 = cr.mh_draws(3, torch.arange(50_000), 7, 2)  # the main path's width
+    u2 = u2.double()
+    assert bool((u2 > 0).all()) and bool((u2 < 1).all())
+    assert abs(float(u2.mean()) - 0.5) < 0.005
+    assert abs(float(u2.var()) - 1.0 / 12.0) < 0.002
+    for j in range(2):
+        assert abs(float(torch.corrcoef(torch.stack([u2, z2[:, j].double()]))[0, 1])) < 0.015
 
 
 def test_fill_reference_layouts():
     """The fill kernel's plain version: bits word j is word j % 4 of group
-    j // 4; uniforms are those bits mapped; normals are the momentum
-    layout."""
+    j // 4; uniforms are those bits mapped; the mh kind is MH's normals and,
+    in the last column, its accept uniform."""
     bits = cr.counter_rng_fill(5, 10, 9, 2, 0, "bits", device="cpu")
     assert bits.dtype == torch.int32 and bits.shape == (5, 10)
     w = cr.counter_bits(9, torch.arange(5)[:, None], 2, torch.arange(3)[None, :], 0)
@@ -105,12 +117,17 @@ def test_fill_reference_layouts():
     np.testing.assert_array_equal(bits.numpy().view(np.uint32), want.numpy())
     uni = cr.counter_rng_fill(5, 10, 9, 2, 0, "uniform", device="cpu")
     torch.testing.assert_close(uni, cr.bits_to_uniform(want), rtol=0, atol=0)
-    nrm = cr.counter_rng_fill(5, 7, 9, 2, 0, "normal", device="cpu")
-    torch.testing.assert_close(nrm, cr.normals(9, torch.arange(5), 2, 7), rtol=0, atol=0)
-    z0 = cr.box_muller(w[:, 0, 0], w[:, 0, 1])
-    torch.testing.assert_close(nrm[:, 0], z0, rtol=0, atol=0)
+    mh = cr.counter_rng_fill(5, 8, 9, 2, 0, "mh", device="cpu")
+    z, u = cr.mh_draws(9, torch.arange(5), 2, 7, 0)
+    assert mh.shape == (5, 8)
+    torch.testing.assert_close(mh[:, :7], z, rtol=0, atol=0)
+    torch.testing.assert_close(mh[:, 7], u, rtol=0, atol=0)
+    z0 = cr.box_muller_pair(w[:, 0, 0], w[:, 0, 1])[0]
+    torch.testing.assert_close(mh[:, 0], z0, rtol=0, atol=0)
     with pytest.raises(ValueError):
         cr.counter_rng_fill(5, 10, 9, 2, 0, "gamma", device="cpu")
+    with pytest.raises(ValueError, match="mh layout"):
+        cr.counter_rng_fill(5, 1, 9, 2, 0, "mh", device="cpu")
 
 
 def test_tags_are_distinct_and_equal_the_header():
@@ -129,30 +146,49 @@ def test_tags_are_distinct_and_equal_the_header():
 
 
 def test_mh_draws_layout_and_batch_invariance():
-    """MH's proposal normals have the momentum layout under their own tag;
-    the discrete walk's signs are the top bits of the sign-tag words; neither
-    depends on the batch a chain is drawn in."""
+    """MH's draws at dim 7: normals 2k, 2k + 1 are the cosine and sine
+    branch of words (2k, 2k + 1) of (chain, step, ·, TAG_PROPOSAL), and the
+    accept uniform is word 8 (group 2, word 0); the discrete walk's signs
+    are the top bits of words 0..5 of its own tag and its uniform word 6;
+    neither depends on the batch a chain is drawn in."""
     chains = torch.arange(32)
-    z = cr.normals(11, chains, 5, 7, cr.TAG_PROPOSAL)
-    assert not torch.equal(z, cr.normals(11, chains, 5, 7, cr.TAG_MOMENTUM))
-    torch.testing.assert_close(cr.normals(11, chains[20:], 5, 7, cr.TAG_PROPOSAL), z[20:],
+    z, u = cr.mh_draws(11, chains, 5, 7)
+    assert z.dtype == u.dtype == torch.float32 and tuple(z.shape) == (32, 7)
+    w = cr.counter_bits(11, chains[:, None], 5, torch.arange(3)[None, :],
+                        cr.TAG_PROPOSAL).reshape(32, 12)
+    for j in range(7):
+        pair = cr.box_muller_pair(w[:, j - j % 2], w[:, j - j % 2 + 1])
+        torch.testing.assert_close(z[:, j], pair[j % 2], rtol=0, atol=0)
+    torch.testing.assert_close(u, cr.bits_to_uniform(w[:, 8]), rtol=0, atol=0)
+    assert not torch.equal(z, cr.normals_paired(11, chains, 5, 7, cr.TAG_MOMENTUM))
+    torch.testing.assert_close(z, cr.normals_paired(11, chains, 5, 7, cr.TAG_PROPOSAL),
                                rtol=0, atol=0)
-    s = cr.signs(11, chains, 5, 6)
+    z_part, u_part = cr.mh_draws(11, chains[20:], 5, 7)
+    torch.testing.assert_close(z_part, z[20:], rtol=0, atol=0)
+    torch.testing.assert_close(u_part, u[20:], rtol=0, atol=0)
+    s, u_sign = cr.sign_draws(11, chains, 5, 6)
     assert s.dtype == torch.bool and tuple(s.shape) == (32, 6)
     w = cr.counter_bits(11, chains[:, None], 5, torch.arange(2)[None, :], cr.TAG_SIGN)
     assert torch.equal(s, (w.reshape(32, 8)[:, :6] >> 31) == 1)
-    assert torch.equal(cr.signs(11, torch.tensor([9]), 5, 6), s[9:10])
-    assert not torch.equal(s, cr.signs(11, chains, 6, 6))
-    flips = cr.signs(3, torch.arange(5_000), 0, 4).float().mean()
+    torch.testing.assert_close(u_sign, cr.bits_to_uniform(w.reshape(32, 8)[:, 6]), rtol=0,
+                               atol=0)
+    assert torch.equal(cr.sign_draws(11, torch.tensor([9]), 5, 6)[0], s[9:10])
+    assert not torch.equal(s, cr.sign_draws(11, chains, 6, 6)[0])
+    flips = cr.sign_draws(3, torch.arange(5_000), 0, 4)[0].float().mean()
     assert abs(float(flips) - 0.5) < 0.02
 
 
 def test_pair_cosine_is_box_muller_and_both_branches_are_normal():
-    """box_muller_pair's first output is box_muller of the same words; both
-    outputs have normal moments and are uncorrelated with each other."""
+    """box_muller_pair's first output is the JAX package's Box–Muller
+    (_standard_normal: sqrt(-2 log u1)·cos(2π u2)), here in float64 from the
+    same uniforms; both outputs have normal moments and are uncorrelated
+    with each other."""
     w = cr.counter_bits(5, torch.arange(50_000)[:, None], 1, torch.arange(2)[None, :], 0)
     zc, zs = cr.box_muller_pair(w[..., 0], w[..., 1])
-    torch.testing.assert_close(zc, cr.box_muller(w[..., 0], w[..., 1]), rtol=0, atol=0)
+    u1 = cr.bits_to_uniform(w[..., 0]).double()
+    u2 = cr.bits_to_uniform(w[..., 1]).double()
+    want = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * np.pi * u2)
+    torch.testing.assert_close(zc.double(), want, rtol=1e-5, atol=2e-6)
     zc, zs = zc.double().ravel(), zs.double().ravel()  # 10^5 draws each
     for z in (zc, zs):
         assert abs(float(z.mean())) < 0.015
@@ -214,3 +250,80 @@ def test_paired_draws_invariant_to_chain_batch_and_lane_map(dim, lanes, quads):
             zc1, zs1 = cr.box_muller_pair(w[:, 2], w[:, 3])
             by_lane[:, 4 * q:4 * q + 4] = torch.stack([zc0, zs0, zc1, zs1], dim=1)
     torch.testing.assert_close(by_lane[:, :dim], full[25:], rtol=0, atol=0)
+
+
+def test_mh_layout_is_pinned():
+    """One Philox block a step at dim 2: words 0 and 1 of (chain, step, 0,
+    TAG_PROPOSAL) give both normals (cosine, then sine branch) and word 2
+    the accept uniform; word 3 is unused.  Golden values: the words are
+    Random123's Philox of that counter, the draws a pure function of them."""
+    w0 = cr.counter_bits(0, torch.tensor([0]), 0, 0, cr.TAG_PROPOSAL)[0]
+    assert [int(v) for v in w0] == _philox_py([0, 0, 0, cr.TAG_PROPOSAL], [0, 0])
+    assert [int(v) for v in w0] == [3710895380, 2918555867, 3874949922, 3551840884]
+    chains = torch.tensor([3, 4])
+    w = cr.counter_bits(7, chains, 11, 0, cr.TAG_PROPOSAL)
+    assert [int(v) for v in w[0]] == [1713569341, 925050125, 2081745248, 294536452]
+    z, u = cr.mh_draws(7, chains, 11, 2)
+    zc, zs = cr.box_muller_pair(w[:, 0], w[:, 1])
+    torch.testing.assert_close(z, torch.stack([zc, zs], dim=1), rtol=0, atol=0)
+    torch.testing.assert_close(u, cr.bits_to_uniform(w[:, 2]), rtol=0, atol=0)
+    assert float(u[0]) == (2081745248 >> 8) * 2.0**-24 + 2.0**-25
+    torch.testing.assert_close(z, torch.tensor([[0.2925613224506378, 1.323683738708496],
+                                                [-0.15453889966011047, 2.132591485977173]]),
+                               rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(u, torch.tensor([0.48469409346580505, 0.7070674896240234]),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dim,blocks,u_word", [(1, 1, 2), (2, 1, 2), (3, 2, 4), (4, 2, 4),
+                                               (5, 2, 6), (8, 3, 8), (100, 26, 100)])
+def test_mh_draws_read_words_in_sequence(dim, blocks, u_word):
+    """The normals take words 0 .. 2⌈dim/2⌉ − 1 and the uniform the next:
+    ⌈dim/2⌉ // 2 + 1 blocks a step (26 at dim 100, where the cosine-only
+    layout took 51)."""
+    chains = torch.arange(9)
+    z, u = cr.mh_draws(4, chains, 2, dim)
+    w = cr.counter_bits(4, chains[:, None], 2, torch.arange(blocks)[None, :],
+                        cr.TAG_PROPOSAL).reshape(9, -1)
+    assert u_word == 2 * ((dim + 1) // 2) and u_word // 4 == blocks - 1
+    torch.testing.assert_close(u, cr.bits_to_uniform(w[:, u_word]), rtol=0, atol=0)
+    torch.testing.assert_close(z, cr.normals_paired(4, chains, 2, dim, cr.TAG_PROPOSAL),
+                               rtol=0, atol=0)
+    fill = cr.counter_rng_fill(9, dim + 1, 4, 2, cr.TAG_PROPOSAL, "mh", device="cpu")
+    torch.testing.assert_close(fill, torch.cat([z, u[:, None]], dim=1), rtol=0, atol=0)
+
+
+def test_hmc_stream_is_unchanged():
+    """HMC's momenta (normals_paired under TAG_MOMENTUM) and accept uniforms
+    (word 0 of TAG_ACCEPT) keep the bits they had before MH's draws moved
+    to one word sequence: golden values taken from the earlier layout's
+    code, and a short HMC run's last states."""
+    import general_mcmc_torch as g
+
+    w = cr.counter_bits(9, torch.tensor([2]), 4, 1, cr.TAG_MOMENTUM)[0]
+    assert [int(v) for v in w] == [518581120, 1988283848, 3896622713, 1622034016]
+    w = cr.counter_bits(9, torch.tensor([2]), 4, 0, cr.TAG_ACCEPT)[0]
+    assert [int(v) for v in w] == [4242091672, 2828561485, 2229461248, 1779617763]
+    z = cr.normals_paired(9, torch.arange(3), 4, 6)
+    torch.testing.assert_close(z, torch.tensor([
+        [-0.8415234088897705, 0.721241295337677, 0.37681642174720764, -2.737266778945923,
+         -0.30938291549682617, 0.5619316101074219],
+        [0.19841720163822174, 0.2441571056842804, 1.1413366794586182, 0.27567529678344727,
+         -1.9063184261322021, -0.3050258457660675],
+        [-0.15591362118721008, -1.2832353115081787, 0.4174768030643463, 1.6132025718688965,
+         -2.0007452964782715, 0.4745776951313019]]), rtol=1e-6, atol=1e-7)
+    u = cr.uniforms(9, torch.arange(3), 4)
+    torch.testing.assert_close(u, torch.tensor(
+        [0.499582439661026, 0.451772004365921, 0.9876888990402222]), rtol=0, atol=0)
+    t = g.GaussianND(torch.zeros(5), torch.linspace(0.5, 2, 5), device="cpu")
+    x0 = g.init_with_seed(4, 5, 1, device="cpu")
+    s = g.HMC(t, x0, 0.3, 5, seed=3, device="cpu").run(3, 2)
+    torch.testing.assert_close(s[:, -1], torch.tensor([
+        [1.5064932107925415, 0.22221246361732483, -1.0089008808135986, 0.8674811124801636,
+         0.6818387508392334],
+        [-0.2708233892917633, 0.0021851733326911926, 0.28393906354904175, -1.0263843536376953,
+         -1.2084243297576904],
+        [-1.6957170963287354, -0.5943855047225952, 1.210091471672058, -2.399041175842285,
+         -0.2352045178413391],
+        [0.34427008032798767, 0.38208070397377014, 0.37375807762145996, 1.2181580066680908,
+         -0.5526200532913208]]), rtol=1e-5, atol=1e-6)

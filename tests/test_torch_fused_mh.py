@@ -134,3 +134,43 @@ def test_wrapper_refusals():
     before = fused_mh.launches
     run(target, x, proposal, 3)
     assert fused_mh.launches == before  # the CPU runs the plain version: no launch
+
+
+def _lane_map(d):
+    """The kernel's lane map at width ``d`` (csrc/fused_mh.cu, head note):
+    ⌈d/2⌉ // 2 + 1 Philox blocks a step, one a lane in a power-of-two group
+    of lanes up to a warp, several a lane beyond."""
+    blocks = (d + 1) // 2 // 2 + 1
+    lanes = min(32, 1 << (blocks - 1).bit_length())
+    return lanes, -(-blocks // lanes)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 7, 8, 15, 16, 33, 62, 63, 70, 100, 128, 129,
+                               255, 384, 512])
+def test_lane_assembly_equals_mh_draws(d):
+    """The kernel's draws, assembled lane by lane as csrc/fused_mh.cu does:
+    lane ``sub`` of a chain's group computes the blocks ``sub + lanes·k``,
+    normals 4q..4q+3 from block q's two Box–Muller pairs, and the lane with
+    the last block takes log u from word 0 of it (an even number of normal
+    pairs) or word 2 (odd).  That gives mh_draws whatever the width."""
+    from general_mcmc_torch.ops import counter_rng as cr
+
+    chains, seed, step = torch.arange(5, 12), 13, 6
+    lanes, per_lane = _lane_map(d)
+    pairs = (d + 1) // 2
+    blocks = pairs // 2 + 1
+    z = torch.zeros(len(chains), 4 * lanes * per_lane)
+    u = None
+    for sub in range(lanes):
+        for k in range(per_lane):
+            q = sub + lanes * k
+            if q >= blocks:
+                continue
+            w = cr.counter_bits(seed, chains, step, q, cr.TAG_PROPOSAL)
+            z[:, 4 * q:4 * q + 2] = torch.stack(cr.box_muller_pair(w[:, 0], w[:, 1]), dim=1)
+            z[:, 4 * q + 2:4 * q + 4] = torch.stack(cr.box_muller_pair(w[:, 2], w[:, 3]), dim=1)
+            if q == blocks - 1:
+                u = cr.bits_to_uniform(w[:, 2] if pairs % 2 else w[:, 0])
+    want_z, want_u = cr.mh_draws(seed, chains, step, d)
+    torch.testing.assert_close(z[:, :d], want_z, rtol=0, atol=0)
+    torch.testing.assert_close(u, want_u, rtol=0, atol=0)

@@ -198,3 +198,23 @@ def test_backend_and_proposal_refusals():
     with pytest.raises(ValueError, match="float states"):
         MetropolisHastings(target, IsotropicGaussian(1.0), torch.zeros(4, 2).int(),
                            backend="cuda", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["walk_gaussian2d", "pcn_gaussian3d", "discrete_poisson"])
+def test_step_reads_one_word_sequence(name):
+    """Without injected draws a step reads counter_rng.mh_draws (normals and
+    the accept uniform of one word sequence under TAG_PROPOSAL) or, for the
+    discrete walk, counter_rng.sign_draws (TAG_SIGN): the same step with
+    those draws injected gives the same bits, and injecting only one of z
+    and u takes the other from the same sequence."""
+    from general_mcmc_torch.ops import counter_rng as cr
+
+    _, _, pt, pp, x0 = _cases()[name]
+    ps = MetropolisHastings(pt, pp, to_tensor(x0), seed=9, device="cpu")
+    carry = ps._init_carry()
+    draw = cr.sign_draws if name == "discrete_poisson" else cr.mh_draws
+    z, u = draw(ps._key, ps._chain_ids, 3, x0.shape[1])
+    want = ps._step(carry, 3, z=z, u=u)
+    for got in (ps._step(carry, 3), ps._step(carry, 3, z=z), ps._step(carry, 3, u=u)):
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
