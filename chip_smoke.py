@@ -46,7 +46,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
 8. K4, the fused logistic gradient chain (tensor cores, three TF32 passes),
    against its plain version at small ragged sizes and after 1, 8, 64 and
    512 steps at 10,240 chains, 48 features and 256 observations, and timed,
-   with the two ``torch.matmul`` of a step timed alone as a yardstick.
+   with the two ``torch.matmul`` of a step timed alone as a yardstick;
+9. ChEES-HMC ("chees-small"): the 2-d autograd target through the adaptive
+   law with thinning and a 10-d Gaussian through the static law, 1,024
+   chains each, checked against the target's moments; then the headline's
+   shape for 8 + 8 steps twice, once drawing from K2's fill kernel and once
+   from the plain draws computed on the card and injected, equal bit for
+   bit; "chees-main", the bench headline at full size (100-d Gaussian,
+   10,240 chains, 192 warmup and 3,072 static steps through
+   ``ChEESHMC.run``): R-hat, the moment audit, the fill kernel's launches,
+   min-ESS/s, the wall split, peak memory, the device's busy share of a
+   50-step collection window from ``torch.profiler``, and the fill kernel
+   timed at its ChEES shapes; "chees-logistic", the bench stretch line
+   (non-centred hierarchical logistic, 10,240 chains, 256 + 1,024 steps with
+   the in-run statistics): R-hat and min-ESS/s.
 
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
@@ -127,6 +140,23 @@ LG_CHAINS, LG_FEATURES, LG_OBS, LG_STEPS, LG_LR = 10_240, 48, 256, 512, 1e-3
 # only against a gross fault.
 LG_RTOL = {1: 1e-5, 8: 1e-5, 64: 1e-5, 512: 0.1}
 
+# ChEES-HMC.  "chees-small": 1,024 chains; the 2-d target for 48 warmup and
+# 24 collected steps at thin 2, the 10-d one for 64 + 32; the K2 check at
+# the headline's shape for 8 + 8 steps.
+CHEES_SMALL_CHAINS = 1024
+CHEES_2D_STEPS, CHEES_10D_STEPS, CHEES_K2_STEPS = (48, 24), (64, 32), (8, 8)
+# Moment envelopes of tests/test_chees.py: the 2-d target's mean within 0.3
+# and covariance within 0.6 (:52-58); the 10-d target's std/scale within
+# 0.15 (:238-250), its mean within 0.3.
+CHEES_MEAN_ATOL, CHEES_COV_ATOL, CHEES_STD_RTOL = 0.3, 0.6, 0.15
+# "chees-main": the bench headline (bench.py:182-217, :77-102).
+CHEES_WARMUP, CHEES_COLLECT = 192, 3072
+CHEES_ACCEPT, CHEES_JITTER, CHEES_L = 0.98, 0.5, 10
+CHEES_WINDOW = 50  # collection steps under the profiler
+# "chees-logistic": the bench stretch line (bench.py:737-760).
+LGC_DIM, LGC_OBS, LGC_WARMUP, LGC_COLLECT = 50, 256, 256, 1024
+LGC_ACCEPT, LGC_JITTER = 0.95, 1.0
+
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
 # double, so they differ by the float32 ulps of the libm functions at most;
@@ -143,6 +173,16 @@ def check(cond: bool, what: str) -> None:
 def say(phase: str, **fields) -> None:
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[{phase}] {body}", flush=True)
+
+
+def union_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, -math.inf
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def reset_counts() -> None:
@@ -870,6 +910,288 @@ def phase_logistic(dev):
                 bound_cuda_core_ms=cuda_core_ms, bound_tensor_ms=tensor_ms)
 
 
+def chees_moments(samples):
+    """Pooled mean [d] and covariance [d, d] of a ``[n, steps, d]`` sample,
+    in float64."""
+    flat = samples.reshape(-1, samples.shape[-1]).double()
+    mean = flat.mean(dim=0)
+    centred = flat - mean
+    return mean, centred.T @ centred / (flat.shape[0] - 1)
+
+
+def headline_sampler(dev):
+    """The bench headline's sampler (bench.py:182-217) on the port."""
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM))
+    target = gmt.GaussianND(torch.zeros(DIM), scales, device=dev)
+    x0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
+    return scales, gmt.ChEESHMC(target, x0, target_accept_p=CHEES_ACCEPT,
+                                jitter_amount=CHEES_JITTER, static_collection=True,
+                                static_leapfrog=CHEES_L, seed=SEED)
+
+
+def phase_chees_small(dev):
+    """ChEES at 1,024 chains through ``run``: the 2-d target with no analytic
+    gradient (autograd) under the adaptive law in both phases at thin 2, a
+    10-d diagonal Gaussian under the static law with a derived L; then K2 on
+    the ChEES path: the headline's shape for 8 warmup and 8 static steps,
+    once with the fill kernel's draws and once with the plain draws computed
+    on the card and injected, equal bit for bit in every sample and every
+    carry field."""
+    n = CHEES_SMALL_CHAINS
+    mean2, cov2 = torch.tensor(MH_MEAN, dtype=torch.float64), torch.tensor(MH_COV,
+                                                                          dtype=torch.float64)
+    target2 = gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=dev)
+    warm, coll = CHEES_2D_STEPS
+    s2 = gmt.ChEESHMC(target2, gmt.init_with_seed(n, 2, 1, device=dev), seed=1)
+    out2 = s2.run(coll, warm, thin=2)
+    check(tuple(out2.shape) == (n, coll, 2) and bool(torch.isfinite(out2).all()),
+          "ChEES 2-d: shape and finite samples")
+    m2, c2 = chees_moments(out2)
+    err2 = (float((m2.cpu() - mean2).abs().max()), float((c2.cpu() - cov2).abs().max()))
+    check(err2[0] < CHEES_MEAN_ATOL and err2[1] < CHEES_COV_ATOL,
+          f"ChEES 2-d moments: mean {err2[0]} < {CHEES_MEAN_ATOL}, cov {err2[1]} < "
+          f"{CHEES_COV_ATOL}")
+
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), 10))
+    target10 = gmt.GaussianND(torch.zeros(10), scales, device=dev)
+    warm, coll = CHEES_10D_STEPS
+    s10 = gmt.ChEESHMC(target10, gmt.init_with_seed(n, 10, 2, device=dev), seed=2,
+                       target_accept_p=0.9, jitter_amount=0.5, static_collection=True)
+    out10 = s10.run(coll, warm)
+    check(tuple(out10.shape) == (n, coll, 10) and bool(torch.isfinite(out10).all()),
+          "ChEES 10-d: shape and finite samples")
+    m10, c10 = chees_moments(out10)
+    std_err = float((c10.diagonal().sqrt().cpu() / scales.double() - 1.0).abs().max())
+    mean_err = float(m10.abs().max())
+    check(mean_err < CHEES_MEAN_ATOL and std_err < CHEES_STD_RTOL,
+          f"ChEES 10-d moments: mean {mean_err} < {CHEES_MEAN_ATOL}, std/scale {std_err} < "
+          f"{CHEES_STD_RTOL}")
+
+    # K2 on the path: the same run with the fill kernel's draws and with the
+    # plain draws computed on the card and injected
+    warm, coll = CHEES_K2_STEPS
+    _, s = headline_sampler(dev)
+    reset_counts()
+    got = s.run(coll, warm).transpose(0, 1)
+    torch.cuda.synchronize()
+    fills = counter_rng.launches
+    check(fills == 2 * (warm + coll) + 1, f"ChEES K2 check: {fills} fill launches")
+    got_carry = s._final_carry
+    _, p = headline_sampler(dev)
+    key, chains = p._key, p._chain_ids
+    plain_draws = lambda m: (counter_rng.normals_paired(key, chains, m, DIM),
+                             counter_rng.uniforms(key, chains, m))
+    carry = p._init_carry(z_eps=counter_rng.normals_paired(key, chains, 0, DIM,
+                                                           counter_rng.TAG_EPS_SEARCH))
+    for m in range(warm):
+        z, u = plain_draws(m)
+        carry = p._step(carry, m, warm, z=z, u=u)
+    step = p._static_collect_step(CHEES_L)
+    want = []
+    for m in range(warm, warm + coll):
+        z, u = plain_draws(m)
+        carry = step(carry, m, z=z, u=u)
+        want.append(carry["pos"])
+    torch.cuda.synchronize()
+    check(counter_rng.launches == fills, "the plain draws launched no fill kernel")
+    check(torch.equal(got, torch.stack(want)), "ChEES samples equal with the fill kernel's "
+          "draws and the plain draws")
+    differ = [k for k in carry if not torch.equal(carry[k], got_carry[k])]
+    check(not differ, f"ChEES carry equal with both draws ({differ})")
+    say("chees-small", chains=n, d2_steps="{}+{}x2".format(*CHEES_2D_STEPS),
+        d2_mean_err=f"{err2[0]:.4f}", d2_cov_err=f"{err2[1]:.4f}",
+        d10_steps="{}+{}".format(*CHEES_10D_STEPS), d10_L=s10._static_L,
+        d10_mean_err=f"{mean_err:.4f}", d10_std_err=f"{std_err:.4f}",
+        k2_shape=f"{N_CHAINS}x{DIM}", k2_steps=f"{warm}+{coll}", k2_fill_launches=fills,
+        k2_bit_equal=True, k2_carry_fields=len(carry))
+    return dict(fill_launches=fills)
+
+
+def profile_window(fn, steps: int, label: str) -> dict:
+    """``fn()`` (``steps`` sampler steps) under ``torch.profiler``: the
+    device's busy time (the union of the intervals of its kernels and memory
+    operations), its share of the call's host wall, those operations a step,
+    and the five kernel names with the most device time; then the call
+    again without the profiler, its CUDA-event time and host wall.  Where
+    the profiler shows no device time the busy share is "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [e for e in prof.events()
+           if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    busy_us = union_us((e.time_range.start, e.time_range.end) for e in ops)
+    by_name = {}
+    for e in ops:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
+    event_ms, event_wall_s, _ = timed(fn, 3)
+    measured = busy_us > 0.0
+    out = dict(busy_share=f"{busy_us / wall_us:.4f}" if measured else "not measured",
+               device_ms=f"{busy_us / 1e3:.3f}" if measured else "not measured",
+               device_ops_per_step=f"{len(ops) / steps:.1f}" if measured else "not measured",
+               profiled_wall_ms=f"{wall_us / 1e3:.3f}", event_ms=f"{event_ms:.3f}",
+               wall_ms=f"{event_wall_s * 1e3:.3f}",
+               busy_share_unprofiled=f"{busy_us / 1e3 / (event_wall_s * 1e3):.4f}"
+               if measured else "not measured")
+    say(label, steps=steps, **out, top_device_us=json.dumps(
+        {k: round(v, 1) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}))
+    return dict(busy=busy_us / wall_us if measured else None)
+
+
+def fill_timings(dev, n: int, d: int):
+    """The fill kernel's device time at ChEES's two shapes (normal pairs
+    ``[n, d]`` and uniforms ``[n, 1]``), back-to-back launches, with their
+    bounds (the bytes written; the Philox blocks and Box–Muller pairs)."""
+    out = {}
+    for kind, cols, tag in (("normal_pair", d, counter_rng.TAG_MOMENTUM),
+                            ("uniform", 1, counter_rng.TAG_ACCEPT)):
+        buf = torch.empty((n, cols), dtype=torch.float32, device=dev)
+        lib, launch = counter_rng.fill_launcher(buf, SEED, 7, tag, kind)
+        codes = []
+        ms = device_ms(lambda: codes.append(launch()), FILL_REPS)
+        _build.check(lib, next((c for c in codes if c), 0), f"counter_rng_fill {kind} (timed)")
+        want = counter_rng.counter_rng_fill_reference(n, cols, SEED, 7, tag, kind, device=dev)
+        check(torch.equal(buf, want), f"K2 timed {kind} fill equals the plain draws")
+        blocks = n * ((cols + 3) // 4)
+        ops = blocks * PHILOX_OPS + (n * cols * 10 if kind == "normal_pair" else 2 * n)
+        out[kind] = (ms, *bound(4 * n * cols, ops))
+    return out
+
+
+def chees_work(n: int, d: int, leapfrogs: int, steps: int, n_collect: int):
+    """Bytes and operations of a ChEES run for its bound: the store written
+    once and the initial positions read once (the draws need not reach
+    memory: a fused kernel keeps them in registers, as K1 does); ~7
+    operations an element a leapfrog (drift 2, gradient 2, kick 2, the
+    select's share 1) and ~35 an element a step for the draws (a quarter of
+    a Philox block and half a Box–Muller pair)."""
+    n_bytes = 4 * n * d * (n_collect + 1)
+    return n_bytes, 7 * n * d * leapfrogs + 35 * n * d * steps
+
+
+def phase_chees_main(dev):
+    """The bench headline at full size through ``ChEESHMC.run``; then three
+    warm runs of ``run`` timed as bench.py times them (init + warmup +
+    collection, synchronised, median), split by the phase ends ``run``
+    records; a 50-step collection window under the profiler; the fill kernel
+    at its ChEES shapes."""
+    scales, sampler = headline_sampler(dev)
+    steps = CHEES_WARMUP + CHEES_COLLECT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    samples = sampler.run(CHEES_COLLECT, CHEES_WARMUP)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fills = counter_rng.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(fills == 2 * steps + 1, f"ChEES main path: {fills} fill launches == 2 x {steps} + 1")
+    check(tuple(samples.shape) == (N_CHAINS, CHEES_COLLECT, DIM), "ChEES sample shape")
+    store = samples.transpose(0, 1)  # the steps-major store
+    check(bool(torch.isfinite(store).all()), "every ChEES sample is finite")
+    t0 = time.perf_counter()
+    rhat, ess, _mean, std = gmt.split_rhat_mean_ess(store, steps_major=True,
+                                                    return_moments=True)
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    diag_s = time.perf_counter() - t0
+    audit = float((std.cpu() / scales - 1.0).abs().max())
+    check(max_rhat < 1.01, f"ChEES max R-hat {max_rhat} < 1.01")
+    check(audit < 0.05, f"ChEES moment audit max|std/scale - 1| {audit} < 0.05")
+    accept = float(torch.stack([(store[k + 1] != store[k]).any(dim=1).float().mean()
+                                for k in range(CHEES_COLLECT - 1)]).mean())
+    carry = sampler._final_carry
+    eps_bar = float(sampler.adapted_step_size)
+    t_len = float(sampler.adapted_trajectory_length)
+    mass_err = float((sampler.adapted_mass_inv.cpu() / scales**2 - 1.0).abs().max())
+    divergences = int(sampler.divergences.sum())
+    leapfrogs = int(sampler.leapfrog_count.sum())
+    del samples, store, carry
+
+    # warm runs through ChEESHMC.run, split by the phase ends it records
+    walls, parts = [], []
+    for _ in range(3):
+        store = sampler.run(CHEES_COLLECT, CHEES_WARMUP, time_phases=True)
+        phases = sampler.phase_seconds
+        walls.append(sum(phases.values()))
+        parts.append((phases["init"], phases["warmup"], phases["collection"]))
+        del store
+    order = sorted(range(3), key=walls.__getitem__)
+    wall, (init_s, warm_s, coll_s) = walls[order[1]], parts[order[1]]
+    adapted = sampler._final_carry
+
+    # a 50-step collection window under the profiler, beside its CUDA-event
+    # time and host wall unprofiled
+    window = lambda: sampler._run_static(adapted, CHEES_WINDOW, steps)
+    window()
+    prof = profile_window(window, CHEES_WINDOW, "chees-main-window")
+    fill = fill_timings(dev, N_CHAINS, DIM)
+
+    n_bytes, n_ops = chees_work(N_CHAINS, DIM, leapfrogs // N_CHAINS, steps, CHEES_COLLECT)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    say("chees-main", chains=N_CHAINS, dim=DIM, steps=f"{CHEES_WARMUP}+{CHEES_COLLECT}",
+        L=sampler._static_L, accept=f"{accept:.4f}", eps_bar=f"{eps_bar:.6f}",
+        T=f"{t_len:.6f}", divergences=divergences, mass_inv_err=f"{mass_err:.5f}",
+        max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}", moment_audit=f"{audit:.5f}",
+        fill_launches=fills, first_run_s=f"{first_s:.3f}", wall_s=f"{wall:.4f}",
+        walls_s=json.dumps([round(w, 4) for w in walls]), init_s=f"{init_s:.4f}",
+        warmup_s=f"{warm_s:.4f}", collection_s=f"{coll_s:.4f}",
+        diagnostics_s=f"{diag_s:.4f}", min_ess_per_s=f"{min_ess / wall:.4e}",
+        grad_evals_per_s=f"{leapfrogs / wall:.4e}", leapfrogs=leapfrogs,
+        peak_memory_gb=f"{peak_gb:.2f}", fill_normal_pair_ms=f"{fill['normal_pair'][0]:.5f}",
+        fill_uniform_ms=f"{fill['uniform'][0]:.5f}", bound_ms=f"{b_ms:.3f}",
+        bound_by=b_by, wall_over_bound=f"{wall * 1e3 / b_ms:.1f}")
+    return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"])
+
+
+def phase_chees_logistic(dev):
+    """The bench stretch line (bench.py:737-760) on the port's
+    ``HierarchicalLogisticNC``, with the port's data
+    (``make_logistic_data(1, 256, 48)``: a seeded torch generator, not JAX's
+    PRNGKey(1) data): 10,240 chains, 256 adaptive warmup steps, 1,024 static
+    steps with a derived L and the in-run statistics
+    (``run(with_stats=True)``), two runs, the wall the lesser
+    (bench.py:780-808), split by the phase ends ``run`` records."""
+    X, y, _ = gmt.make_logistic_data(1, LGC_OBS, LGC_DIM - 2, device=dev)
+    target = gmt.HierarchicalLogisticNC(X, y)
+    sampler = gmt.ChEESHMC(target, gmt.init_with_seed(N_CHAINS, LGC_DIM, SEED, device=dev),
+                           target_accept_p=LGC_ACCEPT, jitter_amount=LGC_JITTER,
+                           static_collection=True, seed=SEED)
+    walls, parts = [], []
+    for _ in range(2):
+        samples = None
+        samples = sampler.run(LGC_COLLECT, LGC_WARMUP, with_stats=True, time_phases=True)
+        stats = sampler._suffstats
+        phases = sampler.phase_seconds
+        walls.append(sum(phases.values()))
+        parts.append((phases["init"], phases["warmup"], phases["collection"]))
+    best = min(range(2), key=walls.__getitem__)
+    wall, (init_s, warm_s, coll_s) = walls[best], parts[best]
+    check(bool(torch.isfinite(samples).all()), "every logistic ChEES sample is finite")
+    rhat, ess, _m, _s = gmt.combine_suffstats_host(*stats)
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    check(max_rhat < 1.01, f"logistic ChEES max R-hat {max_rhat} < 1.01")
+    leapfrogs = int(sampler.leapfrog_count.sum())
+    divergences = int(sampler.divergences.sum())
+    adapted = sampler._final_carry
+    profile_window(lambda: sampler._run_static(adapted, CHEES_WINDOW, LGC_WARMUP + LGC_COLLECT),
+                   CHEES_WINDOW, "chees-logistic-window")
+    say("chees-logistic", chains=N_CHAINS, dim=LGC_DIM, n_obs=LGC_OBS,
+        steps=f"{LGC_WARMUP}+{LGC_COLLECT}", L=sampler._static_L,
+        eps_bar=f"{float(sampler.adapted_step_size):.6f}",
+        T=f"{float(sampler.adapted_trajectory_length):.6f}",
+        divergences=divergences, max_rhat=f"{max_rhat:.5f}",
+        min_ess=f"{min_ess:.1f}", wall_s=f"{wall:.4f}",
+        walls_s=json.dumps([round(w, 4) for w in walls]), init_s=f"{init_s:.4f}",
+        warmup_s=f"{warm_s:.4f}", collection_with_stats_s=f"{coll_s:.4f}",
+        min_ess_per_s=f"{min_ess / wall:.4e}", grad_evals_per_s=f"{leapfrogs / wall:.4e}")
+    return dict(wall=wall, max_rhat=max_rhat)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -890,6 +1212,9 @@ def main() -> int:
     k3_chains = phase_k3_chains(dev)
     k3_widths = phase_k3_widths(dev)
     logistic = phase_logistic(dev)
+    chees_small = phase_chees_small(dev)
+    chees = phase_chees_main(dev)
+    phase_chees_logistic(dev)
     kernels = [
         dict(name="fused_hmc", route="cuda", source="general_mcmc_torch/csrc/fused_hmc.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
@@ -902,20 +1227,26 @@ def main() -> int:
              split_us={k: round(v, 4) for k, v in split.items()},
              lane_map=maps["chosen"], lane_map_ms=maps["times"],
              checked_in="K1-small, main, identity-mass, K1-maps"),
-        # K2 is a device function: on the main paths it runs inside each
-        # fused_hmc and fused_mh launch, so its launches are those kernels';
-        # its times are those of its fill kernel (10,240 x 128 words, device
-        # time of back-to-back launches), which no main path launches
-        # (fill_launches).
+        # K2 is a device function: on the HMC and MH main paths it runs inside
+        # each fused_hmc and fused_mh launch; on the ChEES main path its fill
+        # kernel draws every step's momenta and uniforms (2 launches a step,
+        # 1 for the step-size search: fill_launches).  ms, plain_ms and the
+        # bound are the fill kernel's at 10,240 x 128 words (phase "K2");
+        # chees_fill_ms at the ChEES shapes, each with its bound.
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
-             launches=main_path["launches"] + mh["launches"],
+             launches=main_path["launches"] + mh["launches"] + chees["fill_launches"],
              runs_inside="fused_hmc, fused_mh",
-             fill_launches=main_path["fill_launches"],
+             fill_launches=chees["fill_launches"],
+             fill_launches_checked=chees_small["fill_launches"],
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
-             wrapper_call_ms=k2["wrapper_call_ms"], checked_in="K2"),
+             chees_fill_ms={f"{k}_{N_CHAINS}x{DIM if k == 'normal_pair' else 1}": v[0]
+                            for k, v in chees["fill"].items()},
+             chees_fill_bound_ms={k: v[1] for k, v in chees["fill"].items()},
+             wrapper_call_ms=k2["wrapper_call_ms"],
+             checked_in="K2, chees-small, chees-main"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),

@@ -1,9 +1,11 @@
 """general_mcmc_torch: the PyTorch and CUDA (Hopper) port of general_mcmc_tpu.
 
 Batched HMC and Metropolis–Hastings, each with a fused whole-run CUDA kernel
-(``backend="cuda"``) and a plain PyTorch backend, the Gaussian, Rosenbrock,
-discrete and hierarchical-logistic targets, the fused logistic gradient
-chain (``ops.fused_logistic``), and split-R-hat/ESS diagnostics.  Entry points run on the card unless given ``device="cpu"``.
+(``backend="cuda"``) and a plain PyTorch backend; ChEES-HMC in plain PyTorch,
+its draws from the counter generator's fill kernel on the card; the
+Gaussian, Rosenbrock, discrete and hierarchical-logistic targets, the fused
+logistic gradient chain (``ops.fused_logistic``), and split-R-hat/ESS
+diagnostics.  Entry points run on the card unless given ``device="cpu"``.
 The package imports torch and numpy only; its CUDA sources are compiled
 with ``nvcc`` at first use.
 """
@@ -28,6 +30,7 @@ from .models.regression import (
     HierarchicalLogisticNC,
     make_logistic_data,
 )
+from .samplers.chees import ChEESHMC, halton_base2
 from .samplers.hmc import HMC, leapfrog
 from .samplers.metropolis_hastings import (
     DiscreteWalkProposal,
@@ -37,6 +40,8 @@ from .samplers.metropolis_hastings import (
 )
 
 __all__ = [
+    "ChEESHMC",
+    "halton_base2",
     "HMC",
     "leapfrog",
     "MetropolisHastings",

@@ -3,7 +3,8 @@
 The port imports nothing of the JAX package, so state crosses as numpy
 arrays or plain numbers: a target's ``mean`` and ``cov``, the logistic
 targets' ``X`` and ``y``, initial positions, ``mass_inv``, a proposal's
-width.  Take them from the JAX side with ``np.asarray`` and hand them here.
+width, and a ChEES-HMC carry (:func:`to_chees_carry`).  Take them from the
+JAX side with ``np.asarray`` (or ``jax.device_get``) and hand them here.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from .samplers.metropolis_hastings import (
     RandomWalkProposal,
 )
 
-__all__ = ["to_tensor", "to_target", "to_proposal"]
+__all__ = ["to_tensor", "to_target", "to_proposal", "to_chees_carry"]
 
 # kind -> (class, names of its array parameters, names of its plain numbers)
 _TARGETS = {
@@ -84,3 +85,19 @@ def to_proposal(kind: str, **params):
     except KeyError:
         raise ValueError(f"no port proposal {kind!r}; have {sorted(_PROPOSALS)}") from None
     return cls(**{k: np.asarray(v).item() for k, v in params.items()})
+
+
+def to_chees_carry(jax_carry, device="cpu") -> dict:
+    """The port's ChEES-HMC carry from a JAX ``ChEESHMC`` carry given as a
+    dict of numpy arrays (``jax.device_get`` of ``_final_carry``), on
+    ``device``: ``keys`` is dropped (the port addresses draws by seed and
+    chain), ``mass_inv`` becomes its row 0 (the JAX rows are identical),
+    ``n_divergent`` is int32 and ``n_leapfrog`` int64."""
+    ints = {"n_divergent": torch.int32, "n_leapfrog": torch.int64}
+    out = {}
+    for name, value in jax_carry.items():
+        if name == "keys":
+            continue
+        a = np.asarray(value)
+        out[name] = to_tensor(a[0] if name == "mass_inv" else a, device, ints.get(name))
+    return out

@@ -23,10 +23,13 @@ A chain's words at (seed; chain, step, tag) are read as one sequence: word
 ``w`` is word ``w % 4`` of the block at group ``w // 4``.  Which words each
 sampler reads:
 
-- HMC: momentum normals ``2k`` and ``2k + 1`` are the cosine and the sine
-  branch of Box–Muller of words ``(2k, 2k + 1)`` under ``TAG_MOMENTUM``
-  (:func:`normals_paired`); the accept uniform is word 0 of its own stream,
-  ``TAG_ACCEPT`` (:func:`uniforms`).
+- HMC and ChEES-HMC: momentum normals ``2k`` and ``2k + 1`` are the cosine
+  and the sine branch of Box–Muller of words ``(2k, 2k + 1)`` under
+  ``TAG_MOMENTUM`` (:func:`normals_paired`); the accept uniform is word 0 of
+  its own stream, ``TAG_ACCEPT`` (:func:`uniforms`); :func:`step_draws`
+  gives both.  ChEES's step-size search draws its momenta the same way
+  under ``TAG_EPS_SEARCH`` at step 0 (the JAX package's
+  ``fold_in(chain_key, 2**31 - 1)``).
 - MH: the proposal normals are the same pairs under ``TAG_PROPOSAL``, and
   the next word, ``2·⌈dim/2⌉``, gives the accept uniform
   (:func:`mh_draws`): at dim 2 one block a step, words 0 and 1 for the
@@ -37,9 +40,9 @@ sampler reads:
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``.
 
 ``counter_rng_fill`` launches the fill kernel of ``csrc/counter_rng.cu``,
-which writes the device function's draws to a tensor; it exists to hold
-the device function against the plain version and is not on the sampling
-path (the generator runs inside the fused HMC and MH kernels there).
+which writes the device function's draws to a tensor.  ChEES-HMC draws
+with it on the card (:func:`step_draws`); the fused HMC and MH kernels run
+the device function inside themselves.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ __all__ = [
     "TAG_ACCEPT",
     "TAG_PROPOSAL",
     "TAG_SIGN",
+    "TAG_EPS_SEARCH",
     "philox4x32_10",
     "counter_bits",
     "bits_to_uniform",
@@ -61,6 +65,7 @@ __all__ = [
     "uniforms",
     "mh_draws",
     "sign_draws",
+    "step_draws",
     "counter_rng_fill",
     "counter_rng_fill_reference",
     "fill_launcher",
@@ -78,6 +83,7 @@ TAG_MOMENTUM = 0
 TAG_ACCEPT = 1
 TAG_PROPOSAL = 2
 TAG_SIGN = 3
+TAG_EPS_SEARCH = 4
 
 # Launches of the fill kernel (counter_rng_fill) in this process.
 launches = 0
@@ -193,6 +199,17 @@ def sign_draws(seed: int, chains: torch.Tensor, step: int, dim: int,
     ``u [n_chains]`` float32 uniforms from word ``dim``."""
     w = _words(seed, chains, step, dim + 1, tag)
     return (w[:, :dim] >> 31) == 1, bits_to_uniform(w[:, dim])
+
+
+def step_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
+    """One HMC or ChEES step's draws for chains ``0 … n_chains − 1``:
+    ``z [n_chains, dim]`` momentum normals (:func:`normals_paired`) and
+    ``u [n_chains]`` accept uniforms (:func:`uniforms`), float32.  On a
+    CUDA device they are two launches of the fill kernel, on the CPU the
+    plain version (:func:`counter_rng_fill`); both give the same bits."""
+    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
+    u = counter_rng_fill(n_chains, 1, seed, step, TAG_ACCEPT, "uniform", device)
+    return z, u[:, 0]
 
 
 def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,

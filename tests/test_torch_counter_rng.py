@@ -137,7 +137,8 @@ def test_tags_are_distinct_and_equal_the_header():
     import re
 
     tags = {"Momentum": cr.TAG_MOMENTUM, "Accept": cr.TAG_ACCEPT,
-            "Proposal": cr.TAG_PROPOSAL, "Sign": cr.TAG_SIGN}
+            "Proposal": cr.TAG_PROPOSAL, "Sign": cr.TAG_SIGN,
+            "EpsSearch": cr.TAG_EPS_SEARCH}
     assert len(set(tags.values())) == len(tags)
     header = os.path.join(os.path.dirname(cr.__file__), "..", "csrc", "counter_rng.cuh")
     with open(header) as f:
