@@ -59,7 +59,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
    50-step collection window from ``torch.profiler``, and the fill kernel
    timed at its ChEES shapes; "chees-logistic", the bench stretch line
    (non-centred hierarchical logistic, 10,240 chains, 256 + 1,024 steps with
-   the in-run statistics): R-hat and min-ESS/s.
+   the in-run statistics): R-hat and min-ESS/s;
+10. NUTS ("nuts-small", 1,024 chains): the 2-d autograd target with the
+    diagonal and with the dense metric and with the multinomial proposal,
+    each checked against the target's moments, Neal's funnel (the
+    divergence counter) and a 4-d Rosenbrock smoke run; then the headline's
+    shape for a 30-step warmup with two window ends and their step-size
+    re-searches and 8 collection steps, twice, once drawing from K2's fill
+    kernel and once from the plain draws computed on the card and injected,
+    equal bit for bit; "nuts-main", the bench's NUTS leg at full size (100-d
+    Gaussian, 10,240 chains, diagonal metric, multinomial proposal, cap 4,
+    192 warmup and 3,072 collection steps through ``NUTS.run``, once): R-hat,
+    the moment audit, min-ESS/s, grad-evals/s, the mean tree depth and
+    leapfrogs a step, divergences, the wall split, peak memory, the fill
+    kernel's launches, the busy share of a 50-step collection window, and
+    the fill kernel timed at NUTS's shapes.
 
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
@@ -82,7 +96,8 @@ import torch
 
 import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
-from general_mcmc_torch.ops import counter_rng, fused_hmc, fused_logistic, fused_mh
+from general_mcmc_torch.ops import counter_rng, fused_hmc, fused_logistic, fused_mh, tree
+from general_mcmc_torch.samplers import nuts as nuts_module
 
 # Published peaks of one H100 SXM at its full 700 W power limit: HBM rate,
 # the float32 rate outside the tensor cores and the dense TF32 rate of the
@@ -156,6 +171,24 @@ CHEES_WINDOW = 50  # collection steps under the profiler
 # "chees-logistic": the bench stretch line (bench.py:737-760).
 LGC_DIM, LGC_OBS, LGC_WARMUP, LGC_COLLECT = 50, 256, 256, 1024
 LGC_ACCEPT, LGC_JITTER = 0.95, 1.0
+
+# NUTS.  "nuts-small": 1,024 chains; the 2-d target for 300 warmup and 100
+# collected steps at cap 6 (the Stan windows end at steps 100, 125, 175 and
+# 249, counted from 1),
+# the funnel for 150 steps at the fixed step size 1.2 and cap 6
+# (tests/test_nuts.py:255-265), the 4-d Rosenbrock for 100 + 100; the K2
+# check at the headline's shape with the windows cut to a 30-step warmup
+# (window ends at step indices 19 and 23) and 8 collection steps.
+NUTS_SMALL_CHAINS = 1024
+NUTS_2D_STEPS, NUTS_2D_DEPTH = (300, 100), 6
+NUTS_FUNNEL_STEPS, NUTS_FUNNEL_EPS, NUTS_ROSEN_STEPS = 150, 1.2, (100, 100)
+NUTS_K2_STEPS = (30, 8)
+NUTS_SHORT_WINDOWS = dict(start_buffer=10, end_buffer=5, initial_window=10)
+# The 2-d target's pooled mean within 0.1 and covariance within 0.3 (102,400
+# draws; tests/test_nuts.py allows 0.3 and 0.7 at 4,000)
+NUTS_MEAN_ATOL, NUTS_COV_ATOL = 0.1, 0.3
+# "nuts-main": the bench's NUTS leg (bench.py:103-118, 218-232)
+NUTS_WARMUP, NUTS_COLLECT, NUTS_ACCEPT, NUTS_DEPTH = 192, 3072, 0.90, 4
 
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
@@ -1042,13 +1075,14 @@ def profile_window(fn, steps: int, label: str) -> dict:
     return dict(busy=busy_us / wall_us if measured else None)
 
 
-def fill_timings(dev, n: int, d: int):
-    """The fill kernel's device time at ChEES's two shapes (normal pairs
-    ``[n, d]`` and uniforms ``[n, 1]``), back-to-back launches, with their
-    bounds (the bytes written; the Philox blocks and Box–Muller pairs)."""
+def fill_timings(dev, n: int, shapes: dict):
+    """The fill kernel's device time at a sampler's shapes, ``{kind:
+    (columns, tag)}`` for ``n`` chains (ChEES: normal pairs ``[n, d]`` and
+    uniforms ``[n, 1]``), back-to-back launches, with their bounds (the
+    bytes written; the Philox blocks and Box–Muller pairs).  Returns
+    ``{kind: (ms, bound_ms, bound_by)}``."""
     out = {}
-    for kind, cols, tag in (("normal_pair", d, counter_rng.TAG_MOMENTUM),
-                            ("uniform", 1, counter_rng.TAG_ACCEPT)):
+    for kind, (cols, tag) in shapes.items():
         buf = torch.empty((n, cols), dtype=torch.float32, device=dev)
         lib, launch = counter_rng.fill_launcher(buf, SEED, 7, tag, kind)
         codes = []
@@ -1057,7 +1091,7 @@ def fill_timings(dev, n: int, d: int):
         want = counter_rng.counter_rng_fill_reference(n, cols, SEED, 7, tag, kind, device=dev)
         check(torch.equal(buf, want), f"K2 timed {kind} fill equals the plain draws")
         blocks = n * ((cols + 3) // 4)
-        ops = blocks * PHILOX_OPS + (n * cols * 10 if kind == "normal_pair" else 2 * n)
+        ops = blocks * PHILOX_OPS + n * cols * (10 if kind == "normal_pair" else 2)
         out[kind] = (ms, *bound(4 * n * cols, ops))
     return out
 
@@ -1129,7 +1163,8 @@ def phase_chees_main(dev):
     window = lambda: sampler._run_static(adapted, CHEES_WINDOW, steps)
     window()
     prof = profile_window(window, CHEES_WINDOW, "chees-main-window")
-    fill = fill_timings(dev, N_CHAINS, DIM)
+    fill = fill_timings(dev, N_CHAINS, {"normal_pair": (DIM, counter_rng.TAG_MOMENTUM),
+                                        "uniform": (1, counter_rng.TAG_ACCEPT)})
 
     n_bytes, n_ops = chees_work(N_CHAINS, DIM, leapfrogs // N_CHAINS, steps, CHEES_COLLECT)
     b_ms, b_by = bound(n_bytes, n_ops)
@@ -1192,6 +1227,233 @@ def phase_chees_logistic(dev):
     return dict(wall=wall, max_rhat=max_rhat)
 
 
+def nuts_moments_check(samples, what: str):
+    """The 2-d target's pooled mean and covariance against its own."""
+    m, c = chees_moments(samples)
+    errs = (float((m.cpu() - torch.tensor(MH_MEAN, dtype=torch.float64)).abs().max()),
+            float((c.cpu() - torch.tensor(MH_COV, dtype=torch.float64)).abs().max()))
+    check(bool(torch.isfinite(samples).all()), f"NUTS {what}: finite samples")
+    check(errs[0] < NUTS_MEAN_ATOL and errs[1] < NUTS_COV_ATOL,
+          f"NUTS {what} moments: mean {errs[0]} < {NUTS_MEAN_ATOL}, cov {errs[1]} < "
+          f"{NUTS_COV_ATOL}")
+    return errs
+
+
+def nuts_headline(dev, mass_config=None):
+    """The bench's NUTS leg (bench.py:218-232) on the port."""
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM))
+    target = gmt.GaussianND(torch.zeros(DIM), scales, device=dev)
+    x0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
+    cfg = mass_config or gmt.NUTSMassMatrixConfig(adaptation="diagonal")
+    return scales, gmt.NUTS(target, x0, target_accept_p=NUTS_ACCEPT, mass_config=cfg,
+                            max_tree_depth=NUTS_DEPTH, warmup_tree_depth=NUTS_DEPTH,
+                            proposal="multinomial", seed=SEED)
+
+
+def nuts_fills(n_steps: int, window_ends: int) -> int:
+    """Fill launches of a NUTS run: two a step (momenta, tree uniforms), one
+    for the initial step-size search and one for each window's re-search."""
+    return 2 * n_steps + 1 + window_ends
+
+
+def phase_nuts_small(dev):
+    """NUTS at 1,024 chains through ``run``: the 2-d autograd target with the
+    diagonal metric, the dense metric and the multinomial proposal against
+    its moments; Neal's funnel at a coarse fixed step size (divergences); a
+    4-d Rosenbrock smoke run; then K2 on the NUTS path: the headline's shape
+    with a 30-step warmup (two window ends) and 8 collection steps, once
+    with the fill kernel's draws and once with the plain draws computed on
+    the card and injected, equal bit for bit in every sample and carry
+    field."""
+    n = NUTS_SMALL_CHAINS
+    target2 = gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=dev)
+    warm, coll = NUTS_2D_STEPS
+    errs, adapted = {}, {}
+    for name, adaptation, proposal in (("diag", "diagonal", "slice"),
+                                       ("dense", "dense", "slice"),
+                                       ("multinomial", "diagonal", "multinomial")):
+        s = gmt.NUTS(target2, gmt.init_with_seed(n, 2, 1, device=dev), 0.8, seed=1,
+                     max_tree_depth=NUTS_2D_DEPTH, proposal=proposal,
+                     mass_config=gmt.NUTSMassMatrixConfig(adaptation=adaptation))
+        out = s.run(coll, warm)
+        check(tuple(out.shape) == (n, coll, 2), f"NUTS {name}: sample shape")
+        errs[name] = nuts_moments_check(out, name)
+        # the median chain's M⁻¹ against the covariance (its diagonal)
+        inv = s._final_carry["mass"].inv.median(dim=0).values.cpu().double()
+        cov = torch.tensor(MH_COV, dtype=torch.float64)
+        adapted[name] = float((inv - (cov if adaptation == "dense" else cov.diagonal()))
+                              .abs().max())
+    check(adapted["dense"] < 2.0 and adapted["diag"] < 2.0,
+          f"NUTS adapted metrics near the covariance ({adapted})")
+
+    funnel = gmt.NUTS(gmt.NealsFunnel(dim=8), gmt.init_with_seed(n, 8, 3, device=dev), 0.8,
+                      seed=3, step_size=NUTS_FUNNEL_EPS, max_tree_depth=6)
+    funnel.run(NUTS_FUNNEL_STEPS, 0)
+    funnel_div = int(funnel.divergences.sum())
+    check(funnel_div > 0, f"NUTS funnel at step size {NUTS_FUNNEL_EPS}: {funnel_div} divergences")
+    rosen = gmt.NUTS(gmt.RosenbrockND(), gmt.init_with_seed(n, 4, 4, device=dev) * 0.1, 0.95,
+                     seed=4, max_tree_depth=6)
+    r_out = rosen.run(NUTS_ROSEN_STEPS[1], NUTS_ROSEN_STEPS[0])
+    check(bool(torch.isfinite(r_out).all()), "NUTS Rosenbrock: finite samples")
+
+    # K2 on the path: the same run with the fill kernel's draws and with the
+    # plain draws computed on the card and injected
+    warm, coll = NUTS_K2_STEPS
+    cfg = gmt.NUTSMassMatrixConfig(adaptation="diagonal", **NUTS_SHORT_WINDOWS)
+    _, s = nuts_headline(dev, cfg)
+    reset_counts()
+    got = s.run(coll, warm).transpose(0, 1)
+    torch.cuda.synchronize()
+    fills = counter_rng.launches
+    ends = int(s._window_sched.sum())
+    check(ends == 2 and fills == nuts_fills(warm + coll, ends),
+          f"NUTS K2 check: {fills} fill launches, {ends} window ends")
+    got_carry = s._final_carry
+    _, p = nuts_headline(dev, cfg)
+    key, chains = p._key, p._chain_ids
+    p._prepare_run(coll, warm)
+    carry = p._init_carry(z_eps=counter_rng.normals_paired(key, chains, 0, DIM,
+                                                           counter_rng.TAG_EPS_SEARCH))
+    want = []
+    for m in range(warm + coll):
+        depth = p._depth(m)
+        u = counter_rng.counter_rng_fill_reference(N_CHAINS, tree.tree_words(depth), key, m,
+                                                   counter_rng.TAG_TREE, "uniform", dev)
+        draws = tree.TreeDraws.from_uniforms(counter_rng.normals_paired(key, chains, m, DIM),
+                                             u, depth)
+        z_window = counter_rng.normals_paired(key, chains, m, DIM, counter_rng.TAG_EPS_WINDOW)
+        carry = p._step(carry, m, draws=draws, z_window=z_window)
+        if m >= warm:
+            want.append(carry["pos"])
+    torch.cuda.synchronize()
+    check(counter_rng.launches == fills, "the plain draws launched no fill kernel")
+    check(torch.equal(got, torch.stack(want)), "NUTS samples equal with the fill kernel's "
+          "draws and the plain draws")
+    flat = lambda c: {f"{k}.{i}" if isinstance(v, tuple) else k: x
+                      for k, v in c.items()
+                      for i, x in (enumerate(v) if isinstance(v, tuple) else [(0, v)])}
+    mine, theirs = flat(carry), flat(got_carry)
+    differ = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+    check(not differ and set(mine) == set(theirs), f"NUTS carry equal with both draws ({differ})")
+    say("nuts-small", chains=n, d2_steps="{}+{}".format(*NUTS_2D_STEPS),
+        d2_depth=NUTS_2D_DEPTH,
+        **{f"{k}_mean_err": f"{v[0]:.4f}" for k, v in errs.items()},
+        **{f"{k}_cov_err": f"{v[1]:.4f}" for k, v in errs.items()},
+        diag_metric_err=f"{adapted['diag']:.4f}", dense_metric_err=f"{adapted['dense']:.4f}",
+        funnel_divergences=funnel_div, funnel_steps=NUTS_FUNNEL_STEPS,
+        rosenbrock_steps="{}+{}".format(*NUTS_ROSEN_STEPS),
+        k2_shape=f"{N_CHAINS}x{DIM}", k2_steps=f"{warm}+{coll}", k2_window_ends=ends,
+        k2_fill_launches=fills, k2_bit_equal=True, k2_carry_fields=len(mine))
+    return dict(fill_launches=fills)
+
+
+class DepthProbe:
+    """Counts the doublings of every transition while installed: wraps the
+    sampler module's ``nuts_tree_step`` and adds each result's depths to a
+    device total (two small device operations a step, no read-back)."""
+
+    def __init__(self, dev):
+        self.total = torch.zeros((), dtype=torch.int64, device=dev)
+        self.steps = 0
+        self._inner = nuts_module.nuts_tree_step
+
+    def __call__(self, *args, **kw):
+        res = self._inner(*args, **kw)
+        self.total += res.depth.sum()
+        self.steps += 1
+        return res
+
+    def __enter__(self):
+        nuts_module.nuts_tree_step = self
+        return self
+
+    def __exit__(self, *exc):
+        nuts_module.nuts_tree_step = self._inner
+
+
+def nuts_work(n: int, d: int, leapfrogs: int, steps: int, n_collect: int):
+    """Bytes and operations of a NUTS run for its bound: the store written
+    once and the initial positions read once (the draws need not reach
+    memory, as in chees_work); ~13 operations an element a leapfrog (drift
+    2, gradient 2, kick 2, the velocity 1, the energy's dot 2, the U-turn
+    dots and the proposal's select ~4) and ~35 an element a step for the
+    momentum draws."""
+    n_bytes = 4 * n * d * (n_collect + 1)
+    return n_bytes, 13 * n * d * leapfrogs + 35 * n * d * steps
+
+
+def phase_nuts_main(dev):
+    """The bench's NUTS leg at full size through ``NUTS.run``, once, timed
+    by the phase ends ``run`` records, with the tree depths counted; then a
+    50-step collection window under the profiler and the fill kernel at
+    NUTS's shapes."""
+    scales, sampler = nuts_headline(dev)
+    steps = NUTS_WARMUP + NUTS_COLLECT
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with DepthProbe(dev) as probe:
+        samples = sampler.run(NUTS_COLLECT, NUTS_WARMUP, time_phases=True)
+    torch.cuda.synchronize()
+    fills = counter_rng.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phases = sampler.phase_seconds
+    wall = sum(phases.values())
+    ends = int(sampler._window_sched.sum())
+    check(fills == nuts_fills(steps, ends),
+          f"NUTS main path: {fills} fill launches == 2 x {steps} + 1 + {ends}")
+    check(probe.steps == steps, f"the depth probe saw {probe.steps} of {steps} steps")
+    check(tuple(samples.shape) == (N_CHAINS, NUTS_COLLECT, DIM), "NUTS sample shape")
+    store = samples.transpose(0, 1)  # the steps-major store
+    check(bool(torch.isfinite(store).all()), "every NUTS sample is finite")
+    t0 = time.perf_counter()
+    rhat, ess, _mean, std = gmt.split_rhat_mean_ess(store, steps_major=True,
+                                                    return_moments=True)
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    diag_s = time.perf_counter() - t0
+    audit = float((std.cpu() / scales - 1.0).abs().max())
+    check(max_rhat < 1.01, f"NUTS max R-hat {max_rhat} < 1.01")
+    check(audit < 0.05, f"NUTS moment audit max|std/scale - 1| {audit} < 0.05")
+    leapfrogs = int(sampler.leapfrog_count.sum())
+    divergences = int(sampler.divergences.sum())
+    eps_bar = sampler.adapted_step_size
+    mass_err = float((sampler._final_carry["mass"].inv.median(dim=0).values.cpu() / scales**2
+                      - 1.0).abs().max())
+    mean_depth = float(probe.total) / (steps * N_CHAINS)
+    del samples, store
+    adapted = sampler._final_carry
+
+    # a 50-step collection window under the profiler, beside its CUDA-event
+    # time and host wall unprofiled
+    window = lambda: gmt.run_kernel(sampler._step_fn, adapted, CHEES_WINDOW, 0,
+                                    step_offset=steps)
+    window()
+    prof = profile_window(window, CHEES_WINDOW, "nuts-main-window")
+    words = tree.tree_words(NUTS_DEPTH)
+    fill = fill_timings(dev, N_CHAINS, {"normal_pair": (DIM, counter_rng.TAG_MOMENTUM),
+                                        "uniform": (words, counter_rng.TAG_TREE)})
+    fill = {f"{k}_{N_CHAINS}x{DIM if k == 'normal_pair' else words}": v
+            for k, v in fill.items()}
+
+    n_bytes, n_ops = nuts_work(N_CHAINS, DIM, leapfrogs // N_CHAINS, steps, NUTS_COLLECT)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    say("nuts-main", chains=N_CHAINS, dim=DIM, steps=f"{NUTS_WARMUP}+{NUTS_COLLECT}",
+        max_tree_depth=NUTS_DEPTH, accept_target=NUTS_ACCEPT, proposal="multinomial",
+        eps_bar_median=f"{float(eps_bar.median()):.6f}", mass_inv_err=f"{mass_err:.5f}",
+        window_ends=ends, divergences=divergences, max_rhat=f"{max_rhat:.5f}",
+        min_ess=f"{min_ess:.1f}", moment_audit=f"{audit:.5f}", fill_launches=fills,
+        wall_s=f"{wall:.4f}", init_s=f"{phases['init']:.4f}",
+        warmup_s=f"{phases['warmup']:.4f}", collection_s=f"{phases['collection']:.4f}",
+        diagnostics_s=f"{diag_s:.4f}", min_ess_per_s=f"{min_ess / wall:.4e}",
+        grad_evals_per_s=f"{leapfrogs / wall:.4e}", leapfrogs=leapfrogs,
+        leapfrogs_per_step=f"{leapfrogs / (steps * N_CHAINS):.4f}",
+        mean_tree_depth=f"{mean_depth:.4f}", ms_per_step=f"{wall * 1e3 / steps:.3f}",
+        peak_memory_gb=f"{peak_gb:.2f}",
+        fill_ms=json.dumps({k: round(v[0], 5) for k, v in fill.items()}),
+        bound_ms=f"{b_ms:.3f}", bound_by=b_by, wall_over_bound=f"{wall * 1e3 / b_ms:.1f}")
+    return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1215,6 +1477,8 @@ def main() -> int:
     chees_small = phase_chees_small(dev)
     chees = phase_chees_main(dev)
     phase_chees_logistic(dev)
+    nuts_small = phase_nuts_small(dev)
+    nuts = phase_nuts_main(dev)
     kernels = [
         dict(name="fused_hmc", route="cuda", source="general_mcmc_torch/csrc/fused_hmc.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
@@ -1228,25 +1492,31 @@ def main() -> int:
              lane_map=maps["chosen"], lane_map_ms=maps["times"],
              checked_in="K1-small, main, identity-mass, K1-maps"),
         # K2 is a device function: on the HMC and MH main paths it runs inside
-        # each fused_hmc and fused_mh launch; on the ChEES main path its fill
-        # kernel draws every step's momenta and uniforms (2 launches a step,
-        # 1 for the step-size search: fill_launches).  ms, plain_ms and the
-        # bound are the fill kernel's at 10,240 x 128 words (phase "K2");
-        # chees_fill_ms at the ChEES shapes, each with its bound.
+        # each fused_hmc and fused_mh launch; on the ChEES and NUTS main paths
+        # its fill kernel draws every step's momenta and uniforms (2 launches
+        # a step, 1 for the step-size search and, for NUTS, 1 a window end:
+        # fill_launches, nuts_fill_launches).  ms, plain_ms and the bound are
+        # the fill kernel's at 10,240 x 128 words (phase "K2"); chees_fill_ms
+        # and nuts_fill_ms at the ChEES and NUTS shapes, each with its bound.
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
-             launches=main_path["launches"] + mh["launches"] + chees["fill_launches"],
+             launches=(main_path["launches"] + mh["launches"] + chees["fill_launches"]
+                       + nuts["fill_launches"]),
              runs_inside="fused_hmc, fused_mh",
              fill_launches=chees["fill_launches"],
              fill_launches_checked=chees_small["fill_launches"],
+             nuts_fill_launches=nuts["fill_launches"],
+             nuts_fill_launches_checked=nuts_small["fill_launches"],
+             nuts_fill_ms={k: v[0] for k, v in nuts["fill"].items()},
+             nuts_fill_bound_ms={k: v[1] for k, v in nuts["fill"].items()},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
              chees_fill_ms={f"{k}_{N_CHAINS}x{DIM if k == 'normal_pair' else 1}": v[0]
                             for k, v in chees["fill"].items()},
              chees_fill_bound_ms={k: v[1] for k, v in chees["fill"].items()},
              wrapper_call_ms=k2["wrapper_call_ms"],
-             checked_in="K2, chees-small, chees-main"),
+             checked_in="K2, chees-small, chees-main, nuts-small, nuts-main"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),

@@ -1,9 +1,11 @@
 """general_mcmc_torch: the PyTorch and CUDA (Hopper) port of general_mcmc_tpu.
 
 Batched HMC and Metropolis–Hastings, each with a fused whole-run CUDA kernel
-(``backend="cuda"``) and a plain PyTorch backend; ChEES-HMC in plain PyTorch,
-its draws from the counter generator's fill kernel on the card; the
-Gaussian, Rosenbrock, discrete and hierarchical-logistic targets, the fused
+(``backend="cuda"``) and a plain PyTorch backend; ChEES-HMC and NUTS (the
+dynamic tree, slice and multinomial proposals, Stan-windowed diagonal and
+dense metrics) in plain PyTorch, their draws from the counter generator's
+fill kernel on the card; the Gaussian, Rosenbrock, funnel, discrete and
+hierarchical-logistic targets, the fused
 logistic gradient chain (``ops.fused_logistic``), and split-R-hat/ESS
 diagnostics.  Entry points run on the card unless given ``device="cpu"``.
 The package imports torch and numpy only; its CUDA sources are compiled
@@ -18,12 +20,15 @@ from .diagnostics.stats import (
 )
 from .models.distributions import (
     Binomial,
+    Categorical,
     DiffableGaussian2D,
     Gaussian2D,
     GaussianND,
     IsotropicGaussian,
+    NealsFunnel,
     Poisson,
     Rosenbrock2D,
+    RosenbrockND,
 )
 from .models.regression import (
     HierarchicalLogistic,
@@ -38,8 +43,11 @@ from .samplers.metropolis_hastings import (
     PCNProposal,
     RandomWalkProposal,
 )
+from .samplers.nuts import NUTS, NUTSMassMatrixConfig
 
 __all__ = [
+    "NUTS",
+    "NUTSMassMatrixConfig",
     "ChEESHMC",
     "halton_base2",
     "HMC",
@@ -53,8 +61,11 @@ __all__ = [
     "Gaussian2D",
     "IsotropicGaussian",
     "Rosenbrock2D",
+    "RosenbrockND",
+    "NealsFunnel",
     "Poisson",
     "Binomial",
+    "Categorical",
     "HierarchicalLogistic",
     "HierarchicalLogisticNC",
     "make_logistic_data",

@@ -3,8 +3,9 @@
 The port imports nothing of the JAX package, so state crosses as numpy
 arrays or plain numbers: a target's ``mean`` and ``cov``, the logistic
 targets' ``X`` and ``y``, initial positions, ``mass_inv``, a proposal's
-width, and a ChEES-HMC carry (:func:`to_chees_carry`).  Take them from the
-JAX side with ``np.asarray`` (or ``jax.device_get``) and hand them here.
+width, a ChEES-HMC carry (:func:`to_chees_carry`) and a NUTS carry
+(:func:`to_nuts_carry`).  Take them from the JAX side with ``np.asarray``
+(or ``jax.device_get``) and hand them here.
 """
 
 from __future__ import annotations
@@ -14,12 +15,15 @@ import torch
 
 from .models.distributions import (
     Binomial,
+    Categorical,
     DiffableGaussian2D,
     Gaussian2D,
     GaussianND,
     IsotropicGaussian,
+    NealsFunnel,
     Poisson,
     Rosenbrock2D,
+    RosenbrockND,
 )
 from .models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from .samplers.metropolis_hastings import (
@@ -28,7 +32,7 @@ from .samplers.metropolis_hastings import (
     RandomWalkProposal,
 )
 
-__all__ = ["to_tensor", "to_target", "to_proposal", "to_chees_carry"]
+__all__ = ["to_tensor", "to_target", "to_proposal", "to_chees_carry", "to_nuts_carry"]
 
 # kind -> (class, names of its array parameters, names of its plain numbers)
 _TARGETS = {
@@ -41,6 +45,9 @@ _TARGETS = {
     "Rosenbrock2D": (Rosenbrock2D, (), ("a", "b")),
     "Poisson": (Poisson, (), ("lam",)),
     "Binomial": (Binomial, (), ("n", "p")),
+    "RosenbrockND": (RosenbrockND, (), ()),
+    "NealsFunnel": (NealsFunnel, (), ("dim", "v_std")),
+    "Categorical": (Categorical, ("probs",), ()),
 }
 
 _PROPOSALS = {
@@ -62,15 +69,19 @@ def to_tensor(array, device="cpu", dtype=None) -> torch.Tensor:
 def to_target(kind: str, *params, device="cpu", dtype=None):
     """The port's target ``kind`` from the JAX target's parameters, in the
     JAX constructor's order: ``mean, cov`` arrays for the Gaussians, ``X, y``
-    arrays for the two logistic targets, plain numbers for
-    ``IsotropicGaussian(std)``, ``Rosenbrock2D(a, b)``, ``Poisson(lam)`` and
-    ``Binomial(n, p)``.  Arrays become tensors on ``device`` in ``dtype``."""
+    arrays for the two logistic targets, the ``probs`` array for
+    ``Categorical``, plain numbers for ``IsotropicGaussian(std)``,
+    ``Rosenbrock2D(a, b)``, ``NealsFunnel(dim, v_std)``, ``Poisson(lam)`` and
+    ``Binomial(n, p)``, nothing for ``RosenbrockND``.  Arrays become tensors
+    on ``device`` in ``dtype``."""
     try:
         cls, arrays, numbers = _TARGETS[kind]
     except KeyError:
         raise ValueError(f"no port target {kind!r}; have {sorted(_TARGETS)}") from None
     if len(params) != len(arrays) + len(numbers):
         raise ValueError(f"{kind} takes {', '.join(arrays + numbers)}")
+    if kind == "Categorical":  # the JAX class keeps its probabilities in float32
+        return cls(to_tensor(params[0], device))
     if arrays:
         return cls(*(to_tensor(a, device, dtype) for a in params))
     return cls(*(np.asarray(v).item() for v in params))
@@ -100,4 +111,30 @@ def to_chees_carry(jax_carry, device="cpu") -> dict:
             continue
         a = np.asarray(value)
         out[name] = to_tensor(a[0] if name == "mass_inv" else a, device, ints.get(name))
+    return out
+
+
+def to_nuts_carry(jax_carry, device="cpu") -> dict:
+    """The port's NUTS carry from a JAX ``NUTS`` carry given as a dict of
+    numpy arrays (``jax.device_get`` of ``_final_carry``), on ``device``:
+    ``keys`` is dropped, as in :func:`to_chees_carry`; ``mass`` (the JAX
+    ``MassMatrix``) becomes the port's ``MassMatrix`` and ``welford`` (the
+    JAX ``_Welford``) the port's ``Welford``, field by field; ``n_divergent``
+    and the Welford ``count`` are int32, ``n_leapfrog`` int64."""
+    from .ops.tree import MassMatrix
+    from .samplers.nuts import Welford
+
+    ints = {"n_divergent": torch.int32, "n_leapfrog": torch.int64}
+    out = {}
+    for name, value in jax_carry.items():
+        if name == "keys":
+            continue
+        if name == "mass":
+            out[name] = MassMatrix(*(to_tensor(v, device) for v in value))
+        elif name == "welford":
+            count, *rest = (np.asarray(v) for v in value)
+            out[name] = Welford(to_tensor(count, device, torch.int32),
+                                *(to_tensor(v, device) for v in rest))
+        else:
+            out[name] = to_tensor(np.asarray(value), device, ints.get(name))
     return out

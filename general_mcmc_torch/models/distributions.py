@@ -1,5 +1,6 @@
-"""Built-in targets and proposals: the Gaussians, ``Rosenbrock2D`` and the
-discrete ``Poisson`` and ``Binomial``.
+"""Built-in targets and proposals: the Gaussians, the Rosenbrock densities,
+Neal's funnel, and the discrete ``Poisson``, ``Binomial`` and
+``Categorical``.
 
 Port of ``general_mcmc_tpu/models/distributions.py``.  The JAX targets are
 per-state functions ``logp(x: [dim]) -> scalar`` that the samplers vmap and
@@ -17,8 +18,6 @@ accept decisions.  For the same reason a formula is written out as the
 products and sums the kernels compute, in their order, and a division by a
 Python number is written as a product with its reciprocal: PyTorch divides
 on the CPU and multiplies by the reciprocal on the card.
-
-Not ported yet: ``Categorical``, ``RosenbrockND``, ``NealsFunnel``.
 """
 
 from __future__ import annotations
@@ -28,8 +27,8 @@ import math
 import torch
 
 __all__ = ["GaussianND", "DiffableGaussian2D", "Gaussian2D", "IsotropicGaussian",
-           "Rosenbrock2D", "Poisson", "Binomial", "as_logp_fn", "as_grad_fn",
-           "as_value_and_grad", "rowsum"]
+           "Rosenbrock2D", "RosenbrockND", "NealsFunnel", "Poisson", "Binomial",
+           "Categorical", "as_logp_fn", "as_grad_fn", "as_value_and_grad", "rowsum"]
 
 
 def rowsum(v: torch.Tensor) -> torch.Tensor:
@@ -246,6 +245,58 @@ class Rosenbrock2D:
     __call__ = unnorm_logp
 
 
+class RosenbrockND:
+    """N-dimensional Rosenbrock density
+    ``−Σᵢ (100·(xᵢ₊₁ − xᵢ²)² + (1 − xᵢ)²)`` (arXiv:1903.09556), with its
+    analytic gradient."""
+
+    def unnorm_logp(self, pos):
+        low, high = pos[..., :-1], pos[..., 1:]
+        v = high - low * low
+        u = 1.0 - low
+        return -rowsum(100.0 * (v * v) + u * u)
+
+    def unnorm_logp_grad(self, pos):
+        """∂/∂xₖ: 400·xₖ·(xₖ₊₁ − xₖ²) + 2·(1 − xₖ) for k < d − 1, and
+        −200·(xₖ − xₖ₋₁²) for k > 0."""
+        low, high = pos[..., :-1], pos[..., 1:]
+        v = high - low * low
+        g = torch.zeros_like(pos)
+        g[..., :-1] = 400.0 * low * v + 2.0 * (1.0 - low)
+        g[..., 1:] -= 200.0 * v
+        return g
+
+    __call__ = unnorm_logp
+
+
+class NealsFunnel:
+    """Neal's funnel: ``v ~ N(0, v_std²)`` and ``xᵢ | v ~ N(0, eᵛ)``, state
+    ``[x₁ … x_{dim−1}, v]``; the stress target for the divergence counters.
+    ``dim`` enters only the normalising term of the ``x`` block, as in the
+    JAX target."""
+
+    def __init__(self, dim: int = 10, v_std: float = 3.0):
+        self.dim = int(dim)
+        self.v_std = float(v_std)
+
+    def _parts(self, theta):
+        x, v = theta[..., :-1], theta[..., -1]
+        return x, v, rowsum(x * x), torch.exp(-v)
+
+    def unnorm_logp(self, theta):
+        _, v, sq, w = self._parts(theta)
+        lp_v = -0.5 * (v / self.v_std) ** 2
+        return lp_v + (-0.5 * sq * w - 0.5 * (self.dim - 1) * v)
+
+    def unnorm_logp_grad(self, theta):
+        """``−xᵢ·e⁻ᵛ`` and ``−v/v_std² + ½·Σx²·e⁻ᵛ − ½·(dim − 1)``."""
+        x, v, sq, w = self._parts(theta)
+        g_v = -v / (self.v_std * self.v_std) + 0.5 * sq * w - 0.5 * (self.dim - 1)
+        return torch.cat([-x * w[..., None], g_v[..., None]], dim=-1)
+
+    __call__ = unnorm_logp
+
+
 def _count(state):
     """The count held by a batch of length-1 integer states, as float32
     (the JAX package computes the discrete log pmfs in float32)."""
@@ -285,5 +336,38 @@ class Binomial:
         lp = (log_choose + safe_k * math.log(self.p)
               + (n - safe_k) * math.log(1.0 - self.p))
         return torch.where((k >= 0) & (k <= n), lp, torch.full_like(lp, -math.inf))
+
+    __call__ = unnorm_logp
+
+
+class Categorical:
+    """Categorical distribution over ``len(probs)`` categories; the
+    probabilities are normalised on construction, in float32 as the JAX
+    class keeps them.  Target role: length-1 integer states ``[n, 1]``;
+    indices out of range get ``−inf``."""
+
+    def __init__(self, probs, device=None):
+        p = torch.as_tensor(probs, device=device).to(torch.float32)
+        self.probs = p / torch.sum(p)
+
+    def sample(self, generator: torch.Generator, n: int | None = None) -> torch.Tensor:
+        """Inverse-CDF draws (distributions.rs:451-463): the first category
+        whose cumulative probability exceeds a uniform from ``generator``,
+        the last where rounding leaves the total below it.  One index (0-d
+        int64) or, with ``n``, ``[n]``."""
+        shape = () if n is None else (n,)
+        u = torch.rand(shape, generator=generator, device=generator.device)
+        cdf = torch.cumsum(self.probs, dim=0)
+        idx = torch.searchsorted(cdf, u.to(cdf.device).reshape(-1), right=True)
+        return torch.clamp(idx, max=self.probs.shape[0] - 1).reshape(shape)
+
+    def logp(self, index):
+        index = torch.as_tensor(index, device=self.probs.device)
+        k = self.probs.shape[0]
+        lp = torch.log(self.probs[torch.clamp(index, 0, k - 1).long()])
+        return torch.where((index >= 0) & (index < k), lp, torch.full_like(lp, -math.inf))
+
+    def unnorm_logp(self, state):
+        return self.logp(state[..., 0])
 
     __call__ = unnorm_logp

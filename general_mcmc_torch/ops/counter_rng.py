@@ -30,6 +30,16 @@ sampler reads:
   gives both.  ChEES's step-size search draws its momenta the same way
   under ``TAG_EPS_SEARCH`` at step 0 (the JAX package's
   ``fold_in(chain_key, 2**31 - 1)``).
+- NUTS: the momenta are HMC's (``TAG_MOMENTUM`` at (seed, chain, step)),
+  and the tree's uniforms one word sequence under ``TAG_TREE``: word 0 the
+  slice's, words ``1 + 2j`` and ``2 + 2j`` doubling ``j``'s direction and
+  swap, and leaf ``i`` of doubling ``j ≥ 1`` word ``1 + 2D + 2^j − 1 + i``
+  at doubling cap ``D``, ``1 + 2D + 2^D`` words a step
+  (:func:`nuts_draws`; ``ops.tree.TreeDraws.from_uniforms`` reads them).
+  The initial step-size search draws its momenta as ChEES's does
+  (``TAG_EPS_SEARCH`` at step 0); the re-search at the end of a metric
+  window at step ``m`` under ``TAG_EPS_WINDOW`` at step ``m`` (the JAX
+  package's ``fold_in(step_key, 2**31 - 2)``).
 - MH: the proposal normals are the same pairs under ``TAG_PROPOSAL``, and
   the next word, ``2·⌈dim/2⌉``, gives the accept uniform
   (:func:`mh_draws`): at dim 2 one block a step, words 0 and 1 for the
@@ -40,9 +50,9 @@ sampler reads:
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``.
 
 ``counter_rng_fill`` launches the fill kernel of ``csrc/counter_rng.cu``,
-which writes the device function's draws to a tensor.  ChEES-HMC draws
-with it on the card (:func:`step_draws`); the fused HMC and MH kernels run
-the device function inside themselves.
+which writes the device function's draws to a tensor.  ChEES-HMC and NUTS
+draw with it on the card (:func:`step_draws`, :func:`nuts_draws`); the
+fused HMC and MH kernels run the device function inside themselves.
 """
 
 from __future__ import annotations
@@ -51,12 +61,16 @@ import ctypes
 
 import torch
 
+from .tree import tree_words
+
 __all__ = [
     "TAG_MOMENTUM",
     "TAG_ACCEPT",
     "TAG_PROPOSAL",
     "TAG_SIGN",
     "TAG_EPS_SEARCH",
+    "TAG_TREE",
+    "TAG_EPS_WINDOW",
     "philox4x32_10",
     "counter_bits",
     "bits_to_uniform",
@@ -66,6 +80,7 @@ __all__ = [
     "mh_draws",
     "sign_draws",
     "step_draws",
+    "nuts_draws",
     "counter_rng_fill",
     "counter_rng_fill_reference",
     "fill_launcher",
@@ -84,6 +99,8 @@ TAG_ACCEPT = 1
 TAG_PROPOSAL = 2
 TAG_SIGN = 3
 TAG_EPS_SEARCH = 4
+TAG_TREE = 5
+TAG_EPS_WINDOW = 6
 
 # Launches of the fill kernel (counter_rng_fill) in this process.
 launches = 0
@@ -210,6 +227,18 @@ def step_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
     z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
     u = counter_rng_fill(n_chains, 1, seed, step, TAG_ACCEPT, "uniform", device)
     return z, u[:, 0]
+
+
+def nuts_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device=None):
+    """One NUTS step's draws for chains ``0 … n_chains − 1`` at doubling cap
+    ``depth``: ``z [n_chains, dim]`` momentum normals (:func:`normals_paired`
+    under ``TAG_MOMENTUM``) and ``u [n_chains, 1 + 2·depth + 2^depth]`` the
+    tree's uniforms (``TAG_TREE``; layout in the module docstring), float32.
+    On a CUDA device they are two launches of the fill kernel, on the CPU
+    the plain version; both give the same bits."""
+    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
+    u = counter_rng_fill(n_chains, tree_words(depth), seed, step, TAG_TREE, "uniform", device)
+    return z, u
 
 
 def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,

@@ -1,28 +1,52 @@
-"""Mass-matrix operations, the leapfrog and the step-size search.
+"""NUTS building blocks: mass-matrix ops, the leapfrog, the step-size
+search and the iterative tree.
 
-Port of the parts of ``general_mcmc_tpu/ops/tree.py`` that ChEES-HMC uses
-(``identity_mass``, ``inv_mass_mul``, ``kinetic_energy``,
-``sample_momentum``, ``leapfrog_chain``, ``find_reasonable_epsilon``).  The
-JAX functions are written for one chain and vmapped; these take the whole
-``[n_chains, dim]`` batch with one diagonal metric shared by every chain
-(``inv`` and ``scale`` ``[dim]``), the only metric ChEES uses.  The
-step-size search runs each of JAX's two
-``lax.while_loop`` as one loop over the batch that ends when no chain is
-active; a chain that has finished keeps its value, so each chain's result is
-the one its own loop gives.  The loop reads one flag back from the device
-each iteration.
+Port of ``general_mcmc_tpu/ops/tree.py``.  The JAX functions are written
+for one chain and vmapped by the sampler; these take the whole
+``[n_chains, dim]`` batch.  A metric (:class:`MassMatrix`) is diagonal or
+dense by the explicit ``dense`` flag, as in JAX, because the shapes cannot
+tell a shared dense ``[dim, dim]`` metric from one diagonal a chain
+``[n, dim]``: the diagonal ``inv``/``scale`` are ``[dim]`` (one shared by
+every chain, as ChEES keeps it) or ``[n, dim]`` (one a chain, as NUTS keeps
+it), the dense ones ``[n, dim, dim]`` (or a shared ``[dim, dim]``), and the
+products are batched matvecs.
 
-Not ported yet: the dense metric, the iterative tree and ``nuts_tree_step``
-(NUTS).
+Control flow.  Under ``vmap`` every chain runs every loop body and the
+chains that have finished are selected away.  Here each loop is a Python
+loop over the batch that ends when no chain is left in it, and a chain
+that has finished keeps its values through ``torch.where`` (never through
+a product with a mask: a finished chain's body may make NaN or ±inf):
+
+- the step-size search runs each of JAX's two ``lax.while_loop`` so, one
+  flag read back from the device an iteration;
+- :func:`nuts_tree_step` runs the doubling loop while some chain's
+  ``s & (j < depth)`` holds, one flag read back a doubling;
+- :func:`build_subtree` runs its leaf-pair loop for at most
+  ``2^(depth−1)`` iterations and reads back, before each pair after the
+  first, whether any chain is still building: a subtree in which every
+  chain has turned or diverged ends there.  Every active chain of a
+  doubling sits at the same leaf pair, so the pair's checkpoint slot
+  ``popcount(i >> 1)`` and the U-turn slot range are Python ints: the
+  stack write is a plain slot index, and the check reads only the slots in
+  range (JAX writes through a one-hot select and masks all slots).
+
+Draws are passed in (:class:`TreeDraws`), one set a step, as
+``ChEESHMC._propose`` takes them: the momentum normals, the slice's Exp(1),
+one direction and one swap uniform a doubling, and one uniform a leaf,
+addressed by (doubling ``j``, leaf ``i``).  The JAX functions split keys
+for them instead (momentum, slice and loop key a step; next, direction,
+swap and tree key a doubling; next, leaf A and leaf B key a pair).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
 
 __all__ = [
+    "DELTA_MAX",
     "MassMatrix",
     "identity_mass",
     "inv_mass_mul",
@@ -30,39 +54,71 @@ __all__ = [
     "sample_momentum",
     "leapfrog_chain",
     "find_reasonable_epsilon",
+    "TreeDraws",
+    "tree_words",
+    "build_subtree",
+    "nuts_tree_step",
+    "SubtreeResult",
+    "TreeStepResult",
 ]
+
+DELTA_MAX = 1000.0  # divergence threshold (generic_nuts.rs:1199)
 
 
 class MassMatrix(NamedTuple):
-    """The diagonal of M⁻¹ (``inv``, ``[dim]``) and ``scale``, which maps
-    standard normals to momenta (the diagonal of M^½)."""
+    """M⁻¹ (``inv``) and ``scale``, which maps standard normals to momenta
+    (the square root of the diagonal of M, or a factor of M): diagonal
+    ``[dim]`` or ``[n, dim]``, dense ``[dim, dim]`` or ``[n, dim, dim]``."""
 
     inv: torch.Tensor
     scale: torch.Tensor
 
 
-def identity_mass(dim: int, dtype=torch.float32, device=None) -> MassMatrix:
-    ones = torch.ones(dim, dtype=dtype, device=device)
-    return MassMatrix(inv=ones, scale=ones)
+def identity_mass(dim: int, dtype=torch.float32, device=None, dense: bool = False,
+                  n_chains: int | None = None) -> MassMatrix:
+    """The identity metric: one ``[dim]`` row of ones shared by every chain
+    or, with ``n_chains``, one a chain (``[n, dim]``, or ``[n, dim, dim]``
+    with ``dense``)."""
+    if dense:
+        one = torch.eye(dim, dtype=dtype, device=device)
+    else:
+        one = torch.ones(dim, dtype=dtype, device=device)
+    if n_chains is not None:
+        one = one.expand((n_chains,) + tuple(one.shape)).clone()
+    return MassMatrix(inv=one, scale=one)
 
 
-def inv_mass_mul(mass: MassMatrix, p: torch.Tensor) -> torch.Tensor:
+def _matvec(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``a @ p`` a chain: ``a [n, d, d]`` or ``[d, d]``, ``p [n, d]``."""
+    return torch.matmul(a, p.unsqueeze(-1)).squeeze(-1)
+
+
+def inv_mass_mul(mass: MassMatrix, p: torch.Tensor, dense: bool = False) -> torch.Tensor:
     """v = M⁻¹ p for every chain of ``p [n, dim]``."""
+    if dense:
+        return _matvec(mass.inv, p)
     return mass.inv * p
 
 
-def kinetic_energy(mass: MassMatrix, p: torch.Tensor) -> torch.Tensor:
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def kinetic_energy(mass: MassMatrix, p: torch.Tensor, dense: bool = False) -> torch.Tensor:
     """½ pᵀ M⁻¹ p, ``[n]``."""
-    return 0.5 * torch.sum(p * inv_mass_mul(mass, p), dim=-1)
+    return 0.5 * _dot(p, inv_mass_mul(mass, p, dense))
 
 
-def sample_momentum(z: torch.Tensor, mass: MassMatrix) -> torch.Tensor:
+def sample_momentum(z: torch.Tensor, mass: MassMatrix, dense: bool = False) -> torch.Tensor:
     """p = scale · z for given standard normals ``z [n, dim]`` (the JAX
     function draws ``z`` itself from a key)."""
+    if dense:
+        return _matvec(mass.scale, z)
     return mass.scale * z
 
 
-def leapfrog_chain(vg_fn: Callable, pos, mom, grad, eps, mass: MassMatrix):
+def leapfrog_chain(vg_fn: Callable, pos, mom, grad, eps, mass: MassMatrix,
+                   dense: bool = False):
     """One leapfrog step for every chain: half-kick, mass-weighted drift,
     re-grad, half-kick.  ``vg_fn(x [n, dim]) -> (logp [n], grad [n, dim])``;
     ``eps`` is a scalar or one step size a chain (``[n]``) and carries the
@@ -72,7 +128,7 @@ def leapfrog_chain(vg_fn: Callable, pos, mom, grad, eps, mass: MassMatrix):
         eps = eps[:, None]
     half = eps * 0.5
     mom = mom + grad * half
-    pos = pos + inv_mass_mul(mass, mom) * eps
+    pos = pos + inv_mass_mul(mass, mom, dense) * eps
     logp, grad = vg_fn(pos)
     # the positions' dtype, as the JAX function pins it
     logp = logp.to(pos.dtype)
@@ -85,17 +141,17 @@ def _finite(lp: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     return torch.isfinite(lp) & torch.isfinite(grad).all(dim=-1)
 
 
-def find_reasonable_epsilon(vg_fn: Callable, position, mom,
-                            mass: MassMatrix) -> torch.Tensor:
+def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
+                            dense: bool = False) -> torch.Tensor:
     """Heuristic initial step size of every chain, ``[n]``
     (find_reasonable_epsilon_with_mass, generic_nuts.rs:1025-1102): halve ε
     until the first leapfrog is finite, then double or halve it until the
     log-acceptance crosses ln(1/2).
 
-    Golden behaviour: a standard normal at [0, 1] with momentum [1, 0]
-    gives exactly ε = 2.0 (nuts.rs:508-519).  Raises ``RuntimeError`` where
-    the JAX loop would never end: a chain whose leapfrog stays non-finite
-    after ε has underflowed to 0."""
+    Golden behaviour: a standard normal at [0, 1] with momentum [1, 0] gives
+    exactly ε = 2.0 (nuts.rs:508-519).  Raises ``RuntimeError`` where the JAX
+    loop would never end: a chain whose leapfrog stays non-finite after ε
+    has underflowed to 0."""
     dtype, dev = position.dtype, position.device
     full = lambda v: torch.full((), v, dtype=dtype, device=dev)
     one = torch.ones(position.shape[0], dtype=dtype, device=dev)
@@ -105,7 +161,7 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom,
     ulogp, grad = vg_fn(position)
 
     def try_eps(eps):
-        return leapfrog_chain(vg_fn, position, mom, grad, eps, mass)
+        return leapfrog_chain(vg_fn, position, mom, grad, eps, mass, dense)
 
     # Phase 1: shrink until finite (generic_nuts.rs:1057-1070).
     _, mom_p, lp_p, grad_p = try_eps(one)
@@ -127,8 +183,8 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom,
         grad_p = torch.where(active[:, None], g_n, grad_p)
 
     eps = 0.5 * k  # epsilon = half * k * 1.0 (generic_nuts.rs:1072)
-    ke0 = kinetic_energy(mass, mom)
-    log_accept = lp_p - ulogp - (kinetic_energy(mass, mom_p) - ke0)
+    ke0 = kinetic_energy(mass, mom, dense)
+    log_accept = lp_p - ulogp - (kinetic_energy(mass, mom_p, dense) - ke0)
     a = torch.where(log_accept > ln_half, 1.0, -1.0).to(dtype)
 
     # Phase 2: geometric search until crossing ln(1/2)
@@ -140,6 +196,352 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom,
             break
         eps = torch.where(active, eps * step, eps)
         _, m_n, lp_n, _ = try_eps(eps)
-        la = lp_n - ulogp - (kinetic_energy(mass, m_n) - ke0)
+        la = lp_n - ulogp - (kinetic_energy(mass, m_n, dense) - ke0)
         log_accept = torch.where(active, la, log_accept)
     return eps
+
+
+# ---------------------------------------------------------------------------
+# Iterative tree building
+# ---------------------------------------------------------------------------
+
+
+class TreeDraws(NamedTuple):
+    """One NUTS transition's draws for every chain: momentum normals
+    ``z [n, dim]``, the slice's Exp(1) ``e [n]``, the direction and swap
+    uniforms of doubling ``j`` in column ``j`` of ``u_dir`` and ``u_swap``
+    (``[n, depth]``), and the uniform of leaf ``i`` of doubling ``j ≥ 1`` in
+    column ``2^j − 1 + i`` of ``u_leaf [n, 2^depth]`` (doubling 0 is peeled
+    and draws no leaf uniform, so column 0 is unused)."""
+
+    z: torch.Tensor
+    e: torch.Tensor
+    u_dir: torch.Tensor
+    u_swap: torch.Tensor
+    u_leaf: torch.Tensor
+
+    @classmethod
+    def from_uniforms(cls, z: torch.Tensor, u: torch.Tensor, depth: int) -> "TreeDraws":
+        """The draws from normals ``z`` and ``tree_words(depth)`` uniforms
+        ``u [n, ·]`` a chain: word 0 the slice's (its Exp(1) is
+        ``−log1p(−u)``, finite at ``u = 0``), words ``1 + 2j`` and
+        ``2 + 2j`` doubling ``j``'s direction and swap, and leaf column
+        ``c`` word ``1 + 2·depth + c``."""
+        return cls(z=z, e=-torch.log1p(-u[:, 0]), u_dir=u[:, 1:1 + 2 * depth:2],
+                   u_swap=u[:, 2:2 + 2 * depth:2], u_leaf=u[:, 1 + 2 * depth:])
+
+
+def tree_words(depth: int) -> int:
+    """Uniforms a chain draws for one transition at doubling cap ``depth``:
+    the slice's, two a doubling and ``2^depth`` leaf columns."""
+    return 1 + 2 * depth + (1 << depth)
+
+
+def _popcount(i: int) -> int:
+    return bin(i).count("1")
+
+
+def _trailing_ones(i: int) -> int:
+    """Trailing one bits of ``i``, as JAX's ``_trailing_ones``."""
+    return _popcount(((i + 1) & -(i + 1)) - 1)
+
+
+class SubtreeResult(NamedTuple):
+    end_pos: torch.Tensor
+    end_mom: torch.Tensor
+    end_grad: torch.Tensor
+    first_pos: torch.Tensor  # state after the first leapfrog (the near edge)
+    first_mom: torch.Tensor
+    first_grad: torch.Tensor
+    prop_pos: torch.Tensor
+    prop_lp: torch.Tensor
+    prop_grad: torch.Tensor
+    n: torch.Tensor  # slice-valid leaves (int64), or log Σ w (multinomial)
+    s: torch.Tensor  # subtree still valid (no U-turn, no divergence)
+    diverged: torch.Tensor
+    alpha: torch.Tensor  # Σ min(1, exp(joint − joint₀)) over evaluated leaves
+    n_alpha: torch.Tensor
+
+
+def _joint(lp, mom, vel):
+    return lp - 0.5 * _dot(mom, vel)
+
+
+def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMatrix,
+                  vg_fn: Callable, max_depth: int, u_leaf, dense: bool = False,
+                  collect_edges: bool = False, ckpt_dtype=None, multinomial: bool = False,
+                  active=None) -> SubtreeResult:
+    """Build one subtree of ``2^depth`` leapfrog leaves for every chain in
+    direction ``v [n]`` (±1) from the endpoints ``(pos, mom, grad)``;
+    ``u_leaf [n, 2^depth]`` holds leaf ``i``'s uniform in column ``i``.
+    ``active [n]`` (default all) marks the chains that build it: the others
+    start stopped and keep their initial values.  ``depth < max_depth``
+    (the checkpoint stack holds ``max(1, max_depth − 1)`` slots).
+
+    Leaves come in travel order, an even and an odd one each pair
+    iteration: the even leaf is stored at slot ``popcount(i >> 1)`` and the
+    odd leaf is checked for a U-turn against slots ``[idx_min, idx_max]``,
+    the nodes of the binary tree that end at it; a divergence or a U-turn
+    ends the chain's subtree (generic_nuts.rs:1251).  The stacks hold
+    (position, velocity, position·velocity), positions and velocities in
+    ``ckpt_dtype`` when given.  Slice mode counts slice-valid leaves and
+    takes leaf ``i`` with probability ``1/n``; multinomial mode weights
+    leaf ``i`` by ``exp(joint − joint₀)`` in log space.  ``collect_edges``
+    also returns the first leaf's state and the proposal's log density and
+    gradient (the depth-3 golden); otherwise those fields are zeros.
+    """
+    dtype, dev = pos.dtype, pos.device
+    n, d = pos.shape
+    n_leaves = 1 << depth
+    vf = v.to(dtype)
+    eps_v = eps * vf
+    neg_inf = torch.full((), -math.inf, dtype=dtype, device=dev)
+    # divergence reference: the slice variable, or joint₀ (multinomial)
+    div_lim = (joint0 if multinomial else logu) - DELTA_MAX
+    n_slots = max(1, max_depth - 1)
+    ck_dtype = dtype if ckpt_dtype is None else ckpt_dtype
+    s = torch.ones(n, dtype=torch.bool, device=dev) if active is None else active.clone()
+
+    p_c, m_c, g_c = pos, mom, grad
+    prop_pos = torch.zeros_like(pos)
+    cnt = (torch.full((n,), -math.inf, dtype=dtype, device=dev) if multinomial
+           else torch.zeros(n, dtype=torch.int64, device=dev))
+    diverged = torch.zeros(n, dtype=torch.bool, device=dev)
+    alpha = torch.zeros(n, dtype=dtype, device=dev)
+    n_alpha = torch.zeros(n, dtype=torch.int64, device=dev)
+    pos_ck = torch.zeros((n, n_slots, d), dtype=ck_dtype, device=dev)
+    vel_ck = torch.zeros((n, n_slots, d), dtype=ck_dtype, device=dev)
+    c1_ck = torch.zeros((n, n_slots), dtype=dtype, device=dev)
+    if collect_edges:
+        first = [torch.zeros_like(pos) for _ in range(3)]
+        prop_lp = torch.zeros(n, dtype=dtype, device=dev)
+        prop_grad = torch.zeros_like(pos)
+
+    for t in range((n_leaves + 1) // 2):
+        i = 2 * t
+        if t and not bool(s.any()):
+            break
+        live = s  # chains still building this subtree
+        # --- leaf A (even): leapfrog, proposal accounting, stack store ----
+        pA, mA, lpA, gA = leapfrog_chain(vg_fn, p_c, m_c, g_c, eps_v, mass, dense)
+        velA = inv_mass_mul(mass, mA, dense)
+        jointA = _joint(lpA, mA, velA)
+        okA = div_lim < jointA
+        uA = u_leaf[:, i]
+        if multinomial:
+            lwA = torch.where(torch.isfinite(jointA), jointA - joint0, neg_inf)
+            nA = torch.logaddexp(cnt, lwA)
+            takeA = live if i == 0 else live & (torch.log(uA) < lwA - nA)
+        else:
+            validA = logu < jointA
+            nA = cnt + (validA & live)
+            takeA = live if i == 0 else live & validA & (uA * nA.to(dtype) < 1.0)
+        prop_pos = torch.where(takeA[:, None], pA, prop_pos)
+        alpha_new = alpha + torch.clamp(torch.exp(jointA - joint0), max=1.0)
+        slot = _popcount(t)  # popcount(i >> 1)
+        if i + 1 < n_leaves:  # the stack serves leaf B's U-turn check only
+            pos_ck[:, slot] = pA.to(ck_dtype)
+            vel_ck[:, slot] = velA.to(ck_dtype)
+            c1_ck[:, slot] = _dot(pA, velA)
+        if collect_edges and i == 0:
+            first = [torch.where(live[:, None], a, b) for a, b in zip((pA, mA, gA), first)]
+        if collect_edges:
+            prop_lp = torch.where(takeA, lpA, prop_lp)
+            prop_grad = torch.where(takeA[:, None], gA, prop_grad)
+
+        if i + 1 >= n_leaves:  # a one-leaf subtree: no leaf B
+            p_c = torch.where(live[:, None], pA, p_c)
+            m_c = torch.where(live[:, None], mA, m_c)
+            g_c = torch.where(live[:, None], gA, g_c)
+            cnt = torch.where(live, nA, cnt) if multinomial else nA
+            diverged = diverged | (live & ~okA)
+            alpha = torch.where(live, alpha_new, alpha)
+            n_alpha = n_alpha + live.to(torch.int64)
+            s = live & okA
+            break
+
+        # --- leaf B (odd): leapfrog, accounting, U-turn check -------------
+        do_b = live & okA
+        pB, mB, lpB, gB = leapfrog_chain(vg_fn, pA, mA, gA, eps_v, mass, dense)
+        velB = inv_mass_mul(mass, mB, dense)
+        jointB = _joint(lpB, mB, velB)
+        okB = div_lim < jointB
+        uB = u_leaf[:, i + 1]
+        if multinomial:
+            lwB = torch.where(do_b & torch.isfinite(jointB), jointB - joint0, neg_inf)
+            nB = torch.logaddexp(nA, lwB)
+            takeB = torch.log(uB) < lwB - nB
+            cnt = torch.where(live, nB, cnt)
+        else:
+            validB = (logu < jointB) & do_b
+            nB = nA + validB
+            takeB = validB & (uB * nB.to(dtype) < 1.0)
+            cnt = nB
+        prop_pos = torch.where(takeB[:, None], pB, prop_pos)
+        if collect_edges:
+            prop_lp = torch.where(takeB, lpB, prop_lp)
+            prop_grad = torch.where(takeB[:, None], gB, prop_grad)
+        alpha_new = alpha_new + torch.where(
+            do_b, torch.clamp(torch.exp(jointB - joint0), max=1.0), 0.0)
+        alpha = torch.where(live, alpha_new, alpha)
+        n_alpha = n_alpha + live.to(torch.int64) + do_b.to(torch.int64)
+
+        # U-turn nodes ending at leaf i + 1: slots [idx_min, slot]
+        lo = slot - _trailing_ones(i + 1) + 1
+        vel_s = vel_ck[:, lo:slot + 1].to(dtype)
+        pos_s = pos_ck[:, lo:slot + 1].to(dtype)
+        dots_ck = vf[:, None] * (torch.sum(vel_s * pB[:, None, :], dim=-1)
+                                 - c1_ck[:, lo:slot + 1])
+        dots_cur = vf[:, None] * (_dot(pB, velB)[:, None]
+                                  - torch.sum(pos_s * velB[:, None, :], dim=-1))
+        turned = ((dots_ck < 0.0) | (dots_cur < 0.0)).any(dim=1)
+
+        # the pair's endpoint is B where it was evaluated, else A
+        end_b = do_b[:, None]
+        p_c = torch.where(live[:, None], torch.where(end_b, pB, pA), p_c)
+        m_c = torch.where(live[:, None], torch.where(end_b, mB, mA), m_c)
+        g_c = torch.where(live[:, None], torch.where(end_b, gB, gA), g_c)
+        diverged = diverged | (live & (~okA | (do_b & ~okB)))
+        s = do_b & okB & ~turned
+
+    zero_d = torch.zeros_like(pos)
+    return SubtreeResult(
+        end_pos=p_c, end_mom=m_c, end_grad=g_c,
+        first_pos=first[0] if collect_edges else zero_d,
+        first_mom=first[1] if collect_edges else zero_d,
+        first_grad=first[2] if collect_edges else zero_d,
+        prop_pos=prop_pos,
+        prop_lp=prop_lp if collect_edges else torch.zeros(n, dtype=dtype, device=dev),
+        prop_grad=prop_grad if collect_edges else zero_d,
+        n=cnt, s=s, diverged=diverged, alpha=alpha, n_alpha=n_alpha,
+    )
+
+
+def _stop_criterion(pos_m, pos_p, mom_m, mom_p, mass, dense):
+    """Global U-turn check (stop_criterion_with_mass,
+    generic_nuts.rs:1357-1378)."""
+    diff = pos_p - pos_m
+    ok_m = _dot(diff, inv_mass_mul(mass, mom_m, dense)) >= 0.0
+    ok_p = _dot(diff, inv_mass_mul(mass, mom_p, dense)) >= 0.0
+    return ok_m & ok_p
+
+
+class TreeStepResult(NamedTuple):
+    pos: torch.Tensor
+    lp: torch.Tensor
+    grad: torch.Tensor
+    alpha: torch.Tensor  # last-subtree Σα (dual-averaging numerator)
+    n_alpha: torch.Tensor
+    depth: torch.Tensor  # doublings performed (int64)
+    diverged: torch.Tensor
+    leapfrogs: torch.Tensor  # gradient evaluations of the trajectory (int64)
+
+
+def _sel(mask, a, b):
+    """``a`` where ``mask [n]`` holds, else ``b`` (rows of ``[n, d]``)."""
+    return torch.where(mask[:, None] if a.ndim == 2 else mask, a, b)
+
+
+def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_depth: int,
+                   draws: TreeDraws, dense: bool = False, ckpt_dtype=None,
+                   multinomial: bool = False) -> TreeStepResult:
+    """One NUTS transition for every chain (GenericNUTSChain::step,
+    generic_nuts.rs:755-880): momentum from ``draws.z``, the slice variable
+    ``joint₀ − draws.e``, then doublings in random directions until a U-turn
+    or a divergence, or the ``max_depth`` cap.  ``eps`` is ``[n]``.  With
+    ``multinomial``, Stan's multinomial proposal replaces the slice sampler
+    (the slice variable is still drawn, so both modes read the same draws).
+
+    The first doubling, a single leaf, is straight-line code
+    (:func:`_first_doubling`); it reads doubling 0's direction and swap
+    uniforms and no leaf uniform.  At the end the proposal's ``(lp, grad)``
+    is evaluated once more, outside ``leapfrogs`` (the JAX function does the
+    same instead of carrying them through the loops)."""
+    dtype, dev = pos.dtype, pos.device
+    n = pos.shape[0]
+    mom0 = sample_momentum(draws.z, mass, dense)
+    joint0 = lp - kinetic_energy(mass, mom0, dense)
+    logu = joint0 - draws.e
+    if max_depth == 0:
+        zeros = torch.zeros(n, dtype=torch.int64, device=dev)
+        return TreeStepResult(pos=pos, lp=lp, grad=grad,
+                              alpha=torch.zeros(n, dtype=dtype, device=dev),
+                              n_alpha=zeros + 1, depth=zeros,
+                              diverged=torch.zeros(n, dtype=torch.bool, device=dev),
+                              leapfrogs=zeros)
+    c = _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draws,
+                        multinomial)
+    for j in range(1, max_depth):
+        active = c["s"]
+        if not bool(active.any()):
+            break
+        backward = draws.u_dir[:, j] < 0.5
+        v = torch.where(backward, -1, 1)
+        start = [_sel(backward, c[a + "_m"], c[a + "_p"]) for a in ("pos", "mom", "grad")]
+        sub = build_subtree(*start, v, j, eps, logu, joint0, mass, vg_fn, max_depth,
+                            draws.u_leaf[:, (1 << j) - 1:(1 << (j + 1)) - 1], dense=dense,
+                            ckpt_dtype=ckpt_dtype, multinomial=multinomial, active=active)
+        to_m, to_p = active & backward, active & ~backward
+        for a, end in (("pos", sub.end_pos), ("mom", sub.end_mom), ("grad", sub.end_grad)):
+            c[a + "_m"] = _sel(to_m, end, c[a + "_m"])
+            c[a + "_p"] = _sel(to_p, end, c[a + "_p"])
+        # across-doubling swap w.p. min(1, n'/n) (generic_nuts.rs:860-868);
+        # multinomial: the biased-progressive min(1, W'/W), in log space
+        u = draws.u_swap[:, j]
+        if multinomial:
+            take = active & sub.s & (torch.log(u) < sub.n - c["n"])
+            c["n"] = torch.where(active, torch.logaddexp(c["n"], sub.n), c["n"])
+        else:
+            take = active & sub.s & (u * c["n"].to(dtype) < sub.n.to(dtype))
+            c["n"] = torch.where(active, c["n"] + sub.n, c["n"])
+        c["prop_pos"] = _sel(take, sub.prop_pos, c["prop_pos"])
+        c["s"] = active & sub.s & _stop_criterion(c["pos_m"], c["pos_p"], c["mom_m"],
+                                                  c["mom_p"], mass, dense)
+        c["diverged"] = c["diverged"] | (active & sub.diverged)
+        c["alpha"] = torch.where(active, sub.alpha, c["alpha"])
+        c["n_alpha"] = torch.where(active, sub.n_alpha, c["n_alpha"])
+        c["leapfrogs"] = c["leapfrogs"] + torch.where(active, sub.n_alpha, 0)
+        c["depth"] = c["depth"] + active.to(torch.int64)
+    lp_f, grad_f = vg_fn(c["prop_pos"])
+    return TreeStepResult(pos=c["prop_pos"], lp=lp_f.to(dtype), grad=grad_f.to(dtype),
+                          alpha=c["alpha"], n_alpha=c["n_alpha"], depth=c["depth"],
+                          diverged=c["diverged"], leapfrogs=c["leapfrogs"])
+
+
+def _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draws,
+                    multinomial):
+    """The ``j = 0`` doubling as straight-line code: one leapfrog, no
+    checkpoint stack, no leaf B; it reads doubling 0's direction and swap
+    uniforms (``_first_doubling`` of the JAX package)."""
+    dtype = pos.dtype
+    n = pos.shape[0]
+    backward = draws.u_dir[:, 0] < 0.5
+    eps_v = eps * torch.where(backward, -1.0, 1.0).to(dtype)
+    pA, mA, lpA, gA = leapfrog_chain(vg_fn, pos, mom0, grad, eps_v, mass, dense)
+    jointA = _joint(lpA, mA, inv_mass_mul(mass, mA, dense))
+    okA = ((joint0 if multinomial else logu) - DELTA_MAX) < jointA
+    alphaA = torch.clamp(torch.exp(jointA - joint0), max=1.0)
+    c = {}
+    for a, start, leaf in (("pos", pos, pA), ("mom", mom0, mA), ("grad", grad, gA)):
+        c[a + "_m"] = _sel(backward, leaf, start)
+        c[a + "_p"] = _sel(backward, start, leaf)
+    u = draws.u_swap[:, 0]
+    if multinomial:
+        w0 = torch.zeros_like(jointA)  # log W = 0: the initial leaf's weight is 1
+        lwA = torch.where(torch.isfinite(jointA), jointA - joint0, -math.inf)
+        take = okA & (torch.log(u) < lwA - w0)
+        c["n"] = torch.logaddexp(w0, lwA)
+    else:
+        validA = (logu < jointA).to(torch.int64)  # the initial leaf is slice-valid
+        take = okA & (u < validA.to(dtype))
+        c["n"] = 1 + validA
+    c["prop_pos"] = _sel(take, pA, pos)
+    c["s"] = okA & _stop_criterion(c["pos_m"], c["pos_p"], c["mom_m"], c["mom_p"],
+                                   mass, dense)
+    c["diverged"] = ~okA
+    c["alpha"] = alphaA
+    ones = torch.ones(n, dtype=torch.int64, device=pos.device)
+    c["n_alpha"] = ones
+    c["leapfrogs"] = ones
+    c["depth"] = ones
+    return c

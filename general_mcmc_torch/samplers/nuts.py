@@ -1,0 +1,453 @@
+"""No-U-Turn Sampler with dual-averaging step-size adaptation and
+Stan-windowed mass-matrix warmup.
+
+Port of ``general_mcmc_tpu/samplers/nuts.py`` (the dynamic tree).  All
+chains advance together through the batched tree of :mod:`..ops.tree`; the
+adaptation state (ε, ε̄, h̄, μ, one metric a chain and the Welford
+accumulators) lives in the carry.  The semantics are the JAX sampler's:
+
+- dual averaging with γ = 0.05, t₀ = 10, κ = 0.75 and μ = ln(10ε₀),
+  ``ε = ε̄`` after warmup (generic_nuts.rs:638-643, 882-895);
+- the initial ε from the doubling/halving search (ε = 2.0 on the standard
+  normal golden, nuts.rs:508-519);
+- Stan's windows (start buffer 75, end buffer 50, a first window of 25
+  doubling to a cap of 400), a batched Welford accumulator, the shrinkage
+  ``(1 − 0.05)·Σ̂ + 0.05·I``, the Stan metric ``M⁻¹ = Σ̂``, a jittered
+  Cholesky with ×10 retries (8 tries) for the dense metric, which falls
+  back to the diagonal above ``dense_max_dim``, and after each window the ε
+  re-search under the new metric and the dual-averaging reset.
+
+As in the JAX package, NUTS runs no kernel of its own (the JAX package's
+two fused NUTS kernels were retired; XLA fuses the rest), so here it is
+eager PyTorch.  Its draws are the port's counter stream: the momenta of
+step ``m`` under ``TAG_MOMENTUM``, the tree's uniforms under ``TAG_TREE``,
+the initial ε search's momenta under ``TAG_EPS_SEARCH`` at step 0 and a
+window's re-search momenta under ``TAG_EPS_WINDOW`` at its step; on the
+card each comes from K2's fill kernel (:func:`..ops.counter_rng.nuts_draws`).
+A failed build or launch fails the run.
+
+Differences from the JAX sampler, none of them in the maths:
+
+- the carry is a dict of tensors with the JAX field names less ``keys``;
+  ``mass`` is a :class:`..ops.tree.MassMatrix` and ``welford`` a
+  :class:`Welford`; ``n_leapfrog`` is int64 at every dtype (JAX: int64
+  under x64);
+- the window schedule is host data, so the warmup gate, the Welford
+  update, the window end and the warmup tree cap are Python ``if``\\ s on
+  the step index (JAX: ``lax.cond`` and selects on streamed flags);
+- ``backend="torch"``, the dynamic tree (JAX's ``"xla"``), is the only
+  backend.
+
+Not ported yet: ``backend="static"`` and ``"auto"`` (the static tree,
+``ops/static_tree.py``), ``resume``, ``chain``, ``track`` and
+``run_progress``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core import run_kernel
+from ..models.distributions import as_value_and_grad
+from ..ops import counter_rng
+from ..ops.tree import (
+    MassMatrix,
+    TreeDraws,
+    find_reasonable_epsilon,
+    identity_mass,
+    nuts_tree_step,
+    sample_momentum,
+)
+from .base import BatchSampler, _StepFn
+
+__all__ = ["NUTS", "NUTSMassMatrixConfig", "Welford"]
+
+# Dual-averaging constants (generic_nuts.rs:638-643).
+_GAMMA = 0.05
+_T0 = 10.0
+_KAPPA = 0.75
+# Tries of the jittered Cholesky, the jitter ×10 each (generic_nuts.rs:209-225).
+_CHOL_TRIES = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class NUTSMassMatrixConfig:
+    """Warmup mass-matrix adaptation config (generic_nuts.rs:43-79).
+
+    ``adaptation`` is one of ``"none"``, ``"diagonal"``, ``"dense"``.
+    """
+
+    adaptation: str = "diagonal"
+    start_buffer: int = 75
+    end_buffer: int = 50
+    initial_window: int = 25
+    regularize: float = 0.05
+    jitter: float = 1e-6
+    dense_max_dim: int = 75
+
+    @classmethod
+    def disabled(cls) -> "NUTSMassMatrixConfig":
+        return cls(adaptation="none", start_buffer=0, end_buffer=0,
+                   initial_window=0, regularize=0.0, jitter=0.0, dense_max_dim=0)
+
+
+def _warmup_schedule(config: NUTSMassMatrixConfig, n_warmup: int, total: int):
+    """Host replica of MassMatrixWarmup's should_collect and
+    note_if_window_end (generic_nuts.rs:141-174) over the 1-based step
+    numbers ``m = 1 … total``.  Returns ``(collect[total], window_end[total])``."""
+    collect = np.zeros(total, bool)
+    window_end = np.zeros(total, bool)
+    if config.adaptation == "none" or n_warmup == 0:
+        return collect, window_end
+    start_buffer = max(config.start_buffer, 1)
+    window_len = max(config.initial_window, 10)
+    next_window_end = start_buffer + window_len
+    for idx in range(total):
+        m = idx + 1
+        should = (
+            m <= n_warmup
+            and m > config.start_buffer
+            and m < max(n_warmup - config.end_buffer, 0)
+        )
+        collect[idx] = should
+        if should and (
+            m >= next_window_end or m + 1 >= max(n_warmup - config.end_buffer, 0)
+        ):
+            next_window_end += window_len
+            window_len = min(window_len * 2, 400)
+            window_end[idx] = True
+    return collect, window_end
+
+
+class Welford(NamedTuple):
+    """Batched running covariance (RunningCov, generic_nuts.rs:81-132)."""
+
+    count: torch.Tensor  # [n] int32
+    mean: torch.Tensor  # [n, d]
+    m2_diag: torch.Tensor  # [n, d]
+    m2_dense: torch.Tensor  # [n, d, d], or [n, 0, 0] without the dense metric
+
+
+class NUTS(BatchSampler):
+    """Multi-chain No-U-Turn Sampler (nuts.rs:156-304,
+    generic_nuts.rs:361-557).
+
+    Parameters are the JAX sampler's: ``target`` (batch callable
+    ``[n, dim] -> [n]`` or object with ``unnorm_logp``, differentiated by
+    autograd unless it has ``unnorm_logp_grad``), ``initial_positions
+    [n_chains, dim]``, ``target_accept_p`` (0.8), ``seed``,
+    ``max_tree_depth`` (10), ``step_size`` (a fixed initial ε; None: the
+    search), ``mass_config`` (default disabled, as the reference façade),
+    ``warmup_tree_depth`` (a smaller doubling cap during warmup; default
+    ``max_tree_depth``), ``ckpt_dtype`` (a torch dtype for the checkpoint
+    stacks, which feed only the U-turn sign tests) and ``proposal``
+    (``"slice"`` or ``"multinomial"``); ``backend``: ``"torch"``, the
+    dynamic tree, the only one ported (``"static"`` and ``"auto"`` raise
+    ``NotImplementedError``); and ``device``: where to run, ``None`` meaning
+    the card (raises if there is none; pass ``device="cpu"`` to run on the
+    CPU).
+    """
+
+    def __init__(self, target, initial_positions, target_accept_p: float = 0.8, seed=0,
+                 max_tree_depth: int = 10, step_size: float | None = None,
+                 mass_config: NUTSMassMatrixConfig | None = None, backend: str = "torch",
+                 warmup_tree_depth: int | None = None, ckpt_dtype=None,
+                 proposal: str = "slice", device=None):
+        if backend in ("static", "auto"):
+            raise NotImplementedError(
+                f"backend={backend!r} needs the static tree (ops/static_tree.py), "
+                "which a later slice of the port brings; use backend='torch'")
+        if backend != "torch":
+            raise ValueError(f"unknown backend {backend!r}; the port has 'torch'")
+        if proposal not in ("slice", "multinomial"):
+            raise ValueError(f"unknown proposal {proposal!r}")
+        super().__init__(n_chains=len(initial_positions), seed=seed, device=device)
+        x0 = torch.as_tensor(initial_positions, device=self.device)
+        if not x0.dtype.is_floating_point:
+            x0 = x0.to(torch.float32)
+        self.initial_positions = x0
+        self.dim = x0.shape[1]
+        self.target = target.to(device=self.device, dtype=x0.dtype) \
+            if hasattr(target, "to") else target
+        self.target_accept_p = float(target_accept_p)
+        self.max_tree_depth = int(max_tree_depth)
+        self.warmup_tree_depth = int(
+            warmup_tree_depth if warmup_tree_depth is not None else max_tree_depth)
+        self.step_size = step_size
+        cfg = mass_config if mass_config is not None else NUTSMassMatrixConfig.disabled()
+        # dense falls back to diagonal above dense_max_dim (generic_nuts.rs:612-617)
+        if cfg.adaptation == "dense" and self.dim > cfg.dense_max_dim:
+            cfg = dataclasses.replace(cfg, adaptation="diagonal")
+        if cfg.adaptation not in ("none", "diagonal", "dense"):
+            raise ValueError(f"unknown adaptation {cfg.adaptation!r}")
+        self.mass_config = cfg
+        self._dense = cfg.adaptation == "dense"
+        self.backend = backend
+        self.proposal = proposal
+        self._multinomial = proposal == "multinomial"
+        self.ckpt_dtype = ckpt_dtype
+        self._vgrad = as_value_and_grad(self.target)
+        self._n_discard = 0
+        self._collect_sched = np.zeros(0, bool)
+        self._window_sched = np.zeros(0, bool)
+
+    # -- per-run preparation ----------------------------------------------------
+    def _prepare_run(self, n_collect: int, n_discard: int) -> None:
+        """The run's warmup length and window schedule.  Steps past the
+        schedule (thinned runs) read "no adaptation"."""
+        self._n_discard = n_discard
+        self._collect_sched, self._window_sched = _warmup_schedule(
+            self.mass_config, n_discard, n_collect + n_discard)
+
+    def _scheduled(self, sched: np.ndarray, m: int) -> bool:
+        return bool(sched[m]) if m < sched.shape[0] else False
+
+    def _depth(self, m: int) -> int:
+        """The doubling cap of step ``m``."""
+        return self.warmup_tree_depth if m < self._n_discard else self.max_tree_depth
+
+    # -- carry ------------------------------------------------------------------
+    def _init_carry(self, z_eps=None):
+        """The initial carry.  Without a fixed ``step_size``, ε₀ is each
+        chain's step-size search from momenta ``z_eps [n, dim]`` (default:
+        the ``TAG_EPS_SEARCH`` draws at step 0)."""
+        x0 = self.initial_positions
+        dtype = x0.dtype
+        n, d = x0.shape
+        dev = self.device
+        lp0, grad0 = self._vgrad(x0)
+        lp0, grad0 = lp0.to(dtype), grad0.to(dtype)
+        mass = identity_mass(d, dtype, dev, dense=self._dense, n_chains=n)
+        if self.step_size is not None:
+            eps0 = torch.full((n,), self.step_size, dtype=dtype, device=dev)
+        else:
+            if z_eps is None:
+                z_eps = counter_rng.counter_rng_fill(n, d, self._key, 0,
+                                                     counter_rng.TAG_EPS_SEARCH,
+                                                     "normal_pair", dev)
+            mom = sample_momentum(torch.as_tensor(z_eps, device=dev).to(dtype), mass,
+                                  self._dense)
+            eps0 = find_reasonable_epsilon(self._vgrad, x0, mom, mass, self._dense)
+        zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
+        welford = Welford(count=torch.zeros(n, dtype=torch.int32, device=dev),
+                          mean=zeros(n, d), m2_diag=zeros(n, d),
+                          m2_dense=zeros(n, d, d) if self._dense else zeros(n, 0, 0))
+        return dict(
+            pos=x0,
+            lp=lp0,
+            grad=grad0,
+            eps=eps0,
+            eps_bar=eps0,
+            h_bar=zeros(n),
+            mu=torch.log(10.0 * eps0),
+            mass=mass,
+            welford=welford,
+            n_divergent=torch.zeros(n, dtype=torch.int32, device=dev),
+            n_leapfrog=torch.zeros(n, dtype=torch.int64, device=dev),
+        )
+
+    # -- draws ------------------------------------------------------------------
+    def _draws(self, m: int, depth: int, dtype) -> TreeDraws:
+        """Step ``m``'s draws at doubling cap ``depth`` from the counter
+        stream, in the positions' dtype."""
+        z, u = counter_rng.nuts_draws(self._key, self.n_chains, m, self.dim, depth,
+                                      self.device)
+        return TreeDraws.from_uniforms(z.to(dtype), u.to(dtype), depth)
+
+    # -- transition -------------------------------------------------------------
+    def _step(self, carry, m: int, draws: TreeDraws | None = None, z_window=None):
+        """One transition at absolute step index ``m``: the tree (at the
+        warmup cap while ``m < n_discard``), dual averaging, the counters and
+        the mass-matrix warmup.  ``draws`` replaces the step's draws and
+        ``z_window`` a window end's re-search normals (a test feeds both
+        packages the same numbers)."""
+        pos = carry["pos"]
+        dtype = pos.dtype
+        depth = self._depth(m)
+        if draws is None:
+            draws = self._draws(m, depth, dtype)
+        tree = nuts_tree_step(pos, carry["lp"], carry["grad"], carry["eps"], carry["mass"],
+                              self._vgrad, depth, draws, dense=self._dense,
+                              ckpt_dtype=self.ckpt_dtype, multinomial=self._multinomial)
+
+        # dual averaging (generic_nuts.rs:882-895)
+        m1 = torch.full((), m + 1, dtype=dtype, device=self.device)
+        eta = 1.0 / (m1 + _T0)
+        accept_stat = tree.alpha / tree.n_alpha.to(dtype)
+        h_bar = (1.0 - eta) * carry["h_bar"] + eta * (self.target_accept_p - accept_stat)
+        warmup = m + 1 <= self._n_discard
+        if warmup:
+            eps = torch.exp(carry["mu"] - torch.sqrt(m1) / _GAMMA * h_bar)
+            eta2 = m1 ** (-_KAPPA)
+            eps_bar = torch.exp((1.0 - eta2) * torch.log(carry["eps_bar"])
+                                + eta2 * torch.log(eps))
+        else:
+            eps = eps_bar = carry["eps_bar"]
+        new = dict(carry)
+        new.update(pos=tree.pos, lp=tree.lp, grad=tree.grad, eps=eps, eps_bar=eps_bar,
+                   h_bar=h_bar, n_leapfrog=carry["n_leapfrog"] + tree.leapfrogs)
+        if not warmup:
+            new["n_divergent"] = carry["n_divergent"] + tree.diverged.to(torch.int32)
+        if self.mass_config.adaptation != "none":
+            new = self._mass_adaptation(new, m, z_window)
+        return new
+
+    # -- mass-matrix warmup -----------------------------------------------------
+    def _mass_adaptation(self, carry, m: int, z_window=None):
+        if self._scheduled(self._collect_sched, m):
+            carry = dict(carry)
+            carry["welford"] = self._welford_update(carry["welford"], carry["pos"])
+        if self._scheduled(self._window_sched, m):
+            carry = self._window_update(carry, m, z_window)
+        return carry
+
+    def _welford_update(self, w: Welford, x) -> Welford:
+        """Batched Welford update of every chain (RunningCov::update,
+        generic_nuts.rs:109-131)."""
+        cnt = w.count + 1
+        delta = x - w.mean
+        mean = w.mean + delta / cnt.to(x.dtype)[:, None]
+        delta2 = x - mean
+        m2_dense = w.m2_dense
+        if self._dense:
+            m2_dense = m2_dense + delta[:, :, None] * delta2[:, None, :]
+        return Welford(cnt, mean, w.m2_diag + delta * delta2, m2_dense)
+
+    def _dense_metric(self, cov, jitter: float):
+        """Stan's dense metric ``M⁻¹ = Σ̂`` from the shrunk covariances
+        ``cov [n, d, d]``: with ``Σ̂ = L Lᵀ`` the momenta are ``L⁻ᵀ z``.  The
+        jittered Cholesky with ×10 escalation, ``_CHOL_TRIES`` tries; a try
+        succeeds where the factor and its inverse are finite
+        (``cholesky_ex`` reports the failure, nothing raises).  Returns
+        ``(found [n], inv, scale)``."""
+        n, d, _ = cov.shape
+        eye = torch.eye(d, dtype=cov.dtype, device=cov.device).expand(n, d, d)
+        found = torch.zeros(n, dtype=torch.bool, device=cov.device)
+        inv, scale = eye, eye
+        for k in range(_CHOL_TRIES):
+            trial = cov + (jitter * 10.0**k) * eye
+            L, info = torch.linalg.cholesky_ex(trial)
+            ok = (info == 0) & torch.isfinite(L).all(dim=(1, 2))
+            L_inv = torch.linalg.solve_triangular(torch.where(ok[:, None, None], L, eye),
+                                                  eye, upper=False)
+            ok = ok & torch.isfinite(L_inv).all(dim=(1, 2))
+            take = (ok & ~found)[:, None, None]
+            inv = torch.where(take, trial, inv)
+            scale = torch.where(take, L_inv.mT, scale)
+            found = found | ok
+            if bool(found.all()):  # the tries left would change nothing
+                break
+        return found, inv, scale
+
+    def _window_update(self, carry, m: int, z_window=None):
+        """End of a window: the metric from the Welford state, the ε
+        re-search under it, the dual-averaging and accumulator reset
+        (generic_nuts.rs:897-921, 948-997).  ``z_window`` replaces the
+        re-search's normals (default: ``TAG_EPS_WINDOW`` at step ``m``)."""
+        cfg = self.mass_config
+        w: Welford = carry["welford"]
+        pos = carry["pos"]
+        dtype, dev = pos.dtype, pos.device
+        n, d = pos.shape
+        reg = cfg.regularize
+        jitter = max(cfg.jitter, 1e-10)
+        have = w.count >= 5  # update gate (generic_nuts.rs:952-954)
+        denom = torch.clamp(w.count - 1, min=1).to(dtype)
+        old: MassMatrix = carry["mass"]
+        if self._dense:
+            raw = w.m2_dense / denom[:, None, None]
+            diag = torch.clamp((1.0 - reg) * torch.diagonal(raw, dim1=1, dim2=2) + reg,
+                               min=jitter)
+            eye = torch.eye(d, dtype=dtype, device=dev)
+            cov = (1.0 - reg) * raw * (1.0 - eye) + torch.diag_embed(diag)
+            found, inv, scale = self._dense_metric(cov, jitter)
+            updated = have & found
+            use = updated[:, None, None]
+        else:
+            raw = w.m2_diag / denom[:, None]
+            inv = torch.clamp((1.0 - reg) * raw + reg, min=jitter)
+            scale = 1.0 / torch.sqrt(inv)
+            updated = have
+            use = updated[:, None]
+        mass = MassMatrix(inv=torch.where(use, inv, old.inv),
+                          scale=torch.where(use, scale, old.scale))
+
+        if z_window is None:
+            z_window = counter_rng.counter_rng_fill(n, d, self._key, m,
+                                                    counter_rng.TAG_EPS_WINDOW,
+                                                    "normal_pair", dev)
+        mom = sample_momentum(torch.as_tensor(z_window, device=dev).to(dtype), mass,
+                              self._dense)
+        eps_new = find_reasonable_epsilon(self._vgrad, pos, mom, mass, self._dense)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        out = dict(carry)
+        out.update(
+            mass=mass,
+            eps=torch.where(updated, eps_new, carry["eps"]),
+            mu=torch.where(updated, torch.log(10.0 * eps_new), carry["mu"]),
+            eps_bar=torch.where(updated, eps_new, carry["eps_bar"]),
+            h_bar=torch.where(updated, zero, carry["h_bar"]),
+            welford=Welford(
+                count=torch.where(updated, 0, w.count).to(torch.int32),
+                mean=torch.where(updated[:, None], zero, w.mean),
+                m2_diag=torch.where(updated[:, None], zero, w.m2_diag),
+                m2_dense=torch.where(updated[:, None, None], zero, w.m2_dense)
+                if self._dense else w.m2_dense,
+            ),
+        )
+        return out
+
+    def _positions(self, carry):
+        return carry["pos"]
+
+    # -- running ----------------------------------------------------------------
+    def run(self, n_collect: int, n_discard: int = 0, thin: int = 1,
+            time_phases: bool = False):
+        """``n_discard`` warmup steps, then ``n_collect`` samples, every
+        ``thin``-th state.  Returns ``[n_chains, n_collect, dim]`` (a view of
+        the steps-major store).  ``time_phases`` waits for the device at the
+        start and at the end of init, warmup and collection, and keeps each
+        phase's host wall in seconds in ``phase_seconds``."""
+        marks = []
+
+        def mark():
+            if time_phases:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                marks.append(time.perf_counter())
+
+        mark()
+        self._prepare_run(n_collect, n_discard)
+        carry = self._init_carry()
+        mark()
+        step_fn = _StepFn(self._step, self._positions)
+        if n_discard > 0:
+            carry = run_kernel(step_fn, carry, 0, n_discard).carry
+        mark()
+        out = run_kernel(step_fn, carry, n_collect, 0, step_offset=n_discard, thin=thin)
+        self._final_carry = out.carry
+        mark()
+        if time_phases:
+            self.phase_seconds = {name: marks[k + 1] - marks[k] for k, name in
+                                  enumerate(("init", "warmup", "collection"))}
+        return out.samples.transpose(0, 1)
+
+    # -- extras -----------------------------------------------------------------
+    @property
+    def divergences(self):
+        """Per-chain post-warmup divergence counts from the last run."""
+        return getattr(self, "_final_carry", {}).get("n_divergent")
+
+    @property
+    def adapted_step_size(self):
+        return getattr(self, "_final_carry", {}).get("eps_bar")
+
+    @property
+    def leapfrog_count(self):
+        """Per-chain total gradient evaluations from the last run."""
+        return getattr(self, "_final_carry", {}).get("n_leapfrog")

@@ -138,7 +138,8 @@ def test_tags_are_distinct_and_equal_the_header():
 
     tags = {"Momentum": cr.TAG_MOMENTUM, "Accept": cr.TAG_ACCEPT,
             "Proposal": cr.TAG_PROPOSAL, "Sign": cr.TAG_SIGN,
-            "EpsSearch": cr.TAG_EPS_SEARCH}
+            "EpsSearch": cr.TAG_EPS_SEARCH, "Tree": cr.TAG_TREE,
+            "EpsWindow": cr.TAG_EPS_WINDOW}
     assert len(set(tags.values())) == len(tags)
     header = os.path.join(os.path.dirname(cr.__file__), "..", "csrc", "counter_rng.cuh")
     with open(header) as f:

@@ -59,7 +59,7 @@ def test_target_to_moves_parameters():
     assert t.mean.dtype == torch.float32 and t.diag_prec.dtype == torch.float32
     assert t.is_diagonal and t.unnorm_logp(torch.zeros(3, 5)).dtype == torch.float32
     with pytest.raises(ValueError, match="no port target"):
-        to_target("NealsFunnel", mean, cov)
+        to_target("StudentT", mean, cov)
     with pytest.raises(ValueError, match="Rosenbrock2D takes a, b"):
         to_target("Rosenbrock2D", mean, cov, 1.0)
 
@@ -118,3 +118,66 @@ def test_discrete_target_logp_matches_jax(name, int_dtype):
     assert support.sum() == (15 if name == "poisson" else 11)
     np.testing.assert_array_equal(np.isneginf(got.numpy()), ~support)  # -inf outside
     np.testing.assert_allclose(got.numpy()[support], want[support], rtol=1e-5, atol=1e-6)
+
+
+# -- the NUTS targets: RosenbrockND, NealsFunnel, Categorical -------------------------
+@pytest.mark.parametrize("name,params,d", [
+    ("RosenbrockND", (), 5),
+    ("NealsFunnel", (8, 3.0), 8),
+    ("NealsFunnel", (10, 1.5), 6),  # dim enters only the normalising term
+])
+def test_nuts_targets_logp_and_grad_match_jax(name, params, d):
+    jt = getattr(gmt, name)(*params)
+    pt = to_target(name, *params)
+    x = np.random.default_rng(5).normal(size=(9, d)) * 1.2
+    lp_j, g_j = jax.vmap(jax.value_and_grad(jt.unnorm_logp))(jnp.asarray(x))
+    lp_p, g_p = as_value_and_grad(pt)(to_tensor(x))
+    np.testing.assert_allclose(lp_p.numpy(), np.asarray(lp_j), rtol=RTOL)
+    np.testing.assert_allclose(pt(to_tensor(x)).numpy(), np.asarray(lp_j), rtol=RTOL)
+    np.testing.assert_allclose(g_p.numpy(), np.asarray(g_j), rtol=1e-11, atol=1e-12)
+    # the analytic gradient is the autograd gradient
+    xt = to_tensor(x).requires_grad_(True)
+    (g_auto,) = torch.autograd.grad(pt.unnorm_logp(xt).sum(), xt)
+    np.testing.assert_allclose(pt.unnorm_logp_grad(to_tensor(x)).numpy(), g_auto.numpy(),
+                               rtol=1e-10, atol=1e-12)
+    # float32 in, float32 out
+    assert pt.unnorm_logp_grad(to_tensor(x.astype(np.float32))).dtype == torch.float32
+
+
+def test_categorical_logp_and_sample_frequencies_match_jax():
+    """Indices out of range get −inf; the inverse-CDF draws' frequencies
+    lie within 0.01 of the probabilities, as the JAX sampler's do."""
+    probs = np.array([0.1, 0.4, 0.2, 0.3]) * 2.0  # normalised on construction
+    jt, pt = gmt.Categorical(jnp.asarray(probs)), to_target("Categorical", probs)
+    k = np.arange(-2, 7)[:, None]
+    want = np.asarray(jax.vmap(jt.unnorm_logp)(jnp.asarray(k)))
+    got = pt.unnorm_logp(to_tensor(k))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (9,)
+    np.testing.assert_array_equal(np.isneginf(got.numpy()), np.isneginf(want))
+    np.testing.assert_allclose(got.numpy()[np.isfinite(want)], want[np.isfinite(want)],
+                               rtol=1e-6)
+    np.testing.assert_allclose(pt.probs.numpy(), np.asarray(jt.probs), rtol=1e-7)
+    n = 100_000
+    gen = torch.Generator().manual_seed(0)
+    draws = pt.sample(gen, n)
+    assert draws.dtype == torch.int64 and tuple(draws.shape) == (n,)
+    freq = np.bincount(draws.numpy(), minlength=4) / n
+    j_draws = jax.vmap(jt.sample)(jax.random.split(jax.random.key(0), n))
+    j_freq = np.bincount(np.asarray(j_draws), minlength=4) / n
+    np.testing.assert_allclose(freq, probs / probs.sum(), atol=0.01)
+    np.testing.assert_allclose(j_freq, probs / probs.sum(), atol=0.01)
+    one = pt.sample(torch.Generator().manual_seed(1))
+    assert one.shape == () and 0 <= int(one) < 4
+    # the same generator state gives the same draws
+    assert torch.equal(pt.sample(torch.Generator().manual_seed(0), n), draws)
+
+
+def test_to_target_builds_the_nuts_targets():
+    rb = to_target("RosenbrockND")
+    funnel = to_target("NealsFunnel", 8, 3.0)
+    cat = to_target("Categorical", np.array([1.0, 3.0]))
+    assert type(rb).__name__ == "RosenbrockND"
+    assert (funnel.dim, funnel.v_std) == (8, 3.0)
+    assert cat.probs.dtype == torch.float32 and cat.probs.tolist() == [0.25, 0.75]
+    with pytest.raises(ValueError, match="NealsFunnel takes dim, v_std"):
+        to_target("NealsFunnel", 8)
