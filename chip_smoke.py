@@ -73,7 +73,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
     the moment audit, min-ESS/s, grad-evals/s, the mean tree depth and
     leapfrogs a step, divergences, the wall split, peak memory, the fill
     kernel's launches, the busy share of a 50-step collection window, and
-    the fill kernel timed at NUTS's shapes.
+    the fill kernel timed at NUTS's shapes;
+11. NUTS through the static window ("nuts-static-small", 1,024 chains): the
+    2-d autograd target with the diagonal metric and the slice proposal and
+    with the dense metric and the multinomial proposal, against its
+    moments, and the funnel (divergences); the headline's shape for 30 + 8
+    steps through ``backend="static"``, once with the fill kernel's draws
+    and once with the plain ``static_draws`` computed on the card and
+    injected, equal bit for bit; an ``"auto"`` run of the headline target
+    at 1,024 chains, which must pick ``"static"``; "nuts-static", the
+    bench's NUTS leg at full size as ``bench.py`` runs it
+    (``backend="static"``), with the gates and fields of "nuts-main" and 15
+    leapfrogs a step.
 
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
@@ -96,7 +107,8 @@ import torch
 
 import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
-from general_mcmc_torch.ops import counter_rng, fused_hmc, fused_logistic, fused_mh, tree
+from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_logistic, fused_mh,
+                                    static_tree, tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
 
 # Published peaks of one H100 SXM at its full 700 W power limit: HBM rate,
@@ -189,6 +201,9 @@ NUTS_SHORT_WINDOWS = dict(start_buffer=10, end_buffer=5, initial_window=10)
 NUTS_MEAN_ATOL, NUTS_COV_ATOL = 0.1, 0.3
 # "nuts-main": the bench's NUTS leg (bench.py:103-118, 218-232)
 NUTS_WARMUP, NUTS_COLLECT, NUTS_ACCEPT, NUTS_DEPTH = 192, 3072, 0.90, 4
+# "nuts-static-small": the 2-d target and the funnel at the leg's cap, the
+# "auto" run of the headline target for 192 warmup and 64 collection steps
+NUTS_STATIC_AUTO_STEPS = (192, 64)
 
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
@@ -1083,7 +1098,8 @@ def fill_timings(dev, n: int, shapes: dict):
     ``{kind: (ms, bound_ms, bound_by)}``."""
     out = {}
     for kind, (cols, tag) in shapes.items():
-        buf = torch.empty((n, cols), dtype=torch.float32, device=dev)
+        buf = torch.empty((n, cols), dtype=torch.int32 if kind == "bits" else torch.float32,
+                          device=dev)
         lib, launch = counter_rng.fill_launcher(buf, SEED, 7, tag, kind)
         codes = []
         ms = device_ms(lambda: codes.append(launch()), FILL_REPS)
@@ -1091,7 +1107,7 @@ def fill_timings(dev, n: int, shapes: dict):
         want = counter_rng.counter_rng_fill_reference(n, cols, SEED, 7, tag, kind, device=dev)
         check(torch.equal(buf, want), f"K2 timed {kind} fill equals the plain draws")
         blocks = n * ((cols + 3) // 4)
-        ops = blocks * PHILOX_OPS + n * cols * (10 if kind == "normal_pair" else 2)
+        ops = blocks * PHILOX_OPS + n * cols * {"normal_pair": 10, "uniform": 2}.get(kind, 0)
         out[kind] = (ms, *bound(4 * n * cols, ops))
     return out
 
@@ -1239,15 +1255,17 @@ def nuts_moments_check(samples, what: str):
     return errs
 
 
-def nuts_headline(dev, mass_config=None):
-    """The bench's NUTS leg (bench.py:218-232) on the port."""
+def nuts_headline(dev, mass_config=None, backend="torch", n=None):
+    """The bench's NUTS leg (bench.py:218-232) on the port at ``n`` chains
+    (default ``N_CHAINS``), through the dynamic tree unless ``backend``
+    names another."""
     scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM))
     target = gmt.GaussianND(torch.zeros(DIM), scales, device=dev)
-    x0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
+    x0 = gmt.init_with_seed(n or N_CHAINS, DIM, SEED, device=dev)
     cfg = mass_config or gmt.NUTSMassMatrixConfig(adaptation="diagonal")
     return scales, gmt.NUTS(target, x0, target_accept_p=NUTS_ACCEPT, mass_config=cfg,
                             max_tree_depth=NUTS_DEPTH, warmup_tree_depth=NUTS_DEPTH,
-                            proposal="multinomial", seed=SEED)
+                            proposal="multinomial", seed=SEED, backend=backend)
 
 
 def nuts_fills(n_steps: int, window_ends: int) -> int:
@@ -1273,7 +1291,7 @@ def phase_nuts_small(dev):
                                        ("dense", "dense", "slice"),
                                        ("multinomial", "diagonal", "multinomial")):
         s = gmt.NUTS(target2, gmt.init_with_seed(n, 2, 1, device=dev), 0.8, seed=1,
-                     max_tree_depth=NUTS_2D_DEPTH, proposal=proposal,
+                     max_tree_depth=NUTS_2D_DEPTH, proposal=proposal, backend="torch",
                      mass_config=gmt.NUTSMassMatrixConfig(adaptation=adaptation))
         out = s.run(coll, warm)
         check(tuple(out.shape) == (n, coll, 2), f"NUTS {name}: sample shape")
@@ -1287,54 +1305,16 @@ def phase_nuts_small(dev):
           f"NUTS adapted metrics near the covariance ({adapted})")
 
     funnel = gmt.NUTS(gmt.NealsFunnel(dim=8), gmt.init_with_seed(n, 8, 3, device=dev), 0.8,
-                      seed=3, step_size=NUTS_FUNNEL_EPS, max_tree_depth=6)
+                      seed=3, step_size=NUTS_FUNNEL_EPS, max_tree_depth=6, backend="torch")
     funnel.run(NUTS_FUNNEL_STEPS, 0)
     funnel_div = int(funnel.divergences.sum())
     check(funnel_div > 0, f"NUTS funnel at step size {NUTS_FUNNEL_EPS}: {funnel_div} divergences")
     rosen = gmt.NUTS(gmt.RosenbrockND(), gmt.init_with_seed(n, 4, 4, device=dev) * 0.1, 0.95,
-                     seed=4, max_tree_depth=6)
+                     seed=4, max_tree_depth=6, backend="torch")
     r_out = rosen.run(NUTS_ROSEN_STEPS[1], NUTS_ROSEN_STEPS[0])
     check(bool(torch.isfinite(r_out).all()), "NUTS Rosenbrock: finite samples")
 
-    # K2 on the path: the same run with the fill kernel's draws and with the
-    # plain draws computed on the card and injected
-    warm, coll = NUTS_K2_STEPS
-    cfg = gmt.NUTSMassMatrixConfig(adaptation="diagonal", **NUTS_SHORT_WINDOWS)
-    _, s = nuts_headline(dev, cfg)
-    reset_counts()
-    got = s.run(coll, warm).transpose(0, 1)
-    torch.cuda.synchronize()
-    fills = counter_rng.launches
-    ends = int(s._window_sched.sum())
-    check(ends == 2 and fills == nuts_fills(warm + coll, ends),
-          f"NUTS K2 check: {fills} fill launches, {ends} window ends")
-    got_carry = s._final_carry
-    _, p = nuts_headline(dev, cfg)
-    key, chains = p._key, p._chain_ids
-    p._prepare_run(coll, warm)
-    carry = p._init_carry(z_eps=counter_rng.normals_paired(key, chains, 0, DIM,
-                                                           counter_rng.TAG_EPS_SEARCH))
-    want = []
-    for m in range(warm + coll):
-        depth = p._depth(m)
-        u = counter_rng.counter_rng_fill_reference(N_CHAINS, tree.tree_words(depth), key, m,
-                                                   counter_rng.TAG_TREE, "uniform", dev)
-        draws = tree.TreeDraws.from_uniforms(counter_rng.normals_paired(key, chains, m, DIM),
-                                             u, depth)
-        z_window = counter_rng.normals_paired(key, chains, m, DIM, counter_rng.TAG_EPS_WINDOW)
-        carry = p._step(carry, m, draws=draws, z_window=z_window)
-        if m >= warm:
-            want.append(carry["pos"])
-    torch.cuda.synchronize()
-    check(counter_rng.launches == fills, "the plain draws launched no fill kernel")
-    check(torch.equal(got, torch.stack(want)), "NUTS samples equal with the fill kernel's "
-          "draws and the plain draws")
-    flat = lambda c: {f"{k}.{i}" if isinstance(v, tuple) else k: x
-                      for k, v in c.items()
-                      for i, x in (enumerate(v) if isinstance(v, tuple) else [(0, v)])}
-    mine, theirs = flat(carry), flat(got_carry)
-    differ = [k for k in mine if not torch.equal(mine[k], theirs[k])]
-    check(not differ and set(mine) == set(theirs), f"NUTS carry equal with both draws ({differ})")
+    fills, ends, n_fields = nuts_k2_check(dev, "torch")
     say("nuts-small", chains=n, d2_steps="{}+{}".format(*NUTS_2D_STEPS),
         d2_depth=NUTS_2D_DEPTH,
         **{f"{k}_mean_err": f"{v[0]:.4f}" for k, v in errs.items()},
@@ -1342,20 +1322,76 @@ def phase_nuts_small(dev):
         diag_metric_err=f"{adapted['diag']:.4f}", dense_metric_err=f"{adapted['dense']:.4f}",
         funnel_divergences=funnel_div, funnel_steps=NUTS_FUNNEL_STEPS,
         rosenbrock_steps="{}+{}".format(*NUTS_ROSEN_STEPS),
-        k2_shape=f"{N_CHAINS}x{DIM}", k2_steps=f"{warm}+{coll}", k2_window_ends=ends,
-        k2_fill_launches=fills, k2_bit_equal=True, k2_carry_fields=len(mine))
+        k2_shape=f"{N_CHAINS}x{DIM}", k2_steps="{}+{}".format(*NUTS_K2_STEPS),
+        k2_window_ends=ends, k2_fill_launches=fills, k2_bit_equal=True,
+        k2_carry_fields=n_fields)
     return dict(fill_launches=fills)
+
+
+def nuts_k2_check(dev, backend: str):
+    """K2 on a NUTS path: the headline's shape through ``backend`` with a
+    30-step warmup (two window ends) and 8 collection steps, once with the
+    fill kernel's draws and once with the plain draws computed on the card
+    and injected, equal bit for bit in every sample and carry field.
+    Returns the fill launches, the window ends and the carry fields."""
+    warm, coll = NUTS_K2_STEPS
+    cfg = gmt.NUTSMassMatrixConfig(adaptation="diagonal", **NUTS_SHORT_WINDOWS)
+    _, s = nuts_headline(dev, cfg, backend)
+    reset_counts()
+    got = s.run(coll, warm).transpose(0, 1)
+    torch.cuda.synchronize()
+    fills = counter_rng.launches
+    ends = int(s._window_sched.sum())
+    check(ends == 2 and fills == nuts_fills(warm + coll, ends),
+          f"NUTS {backend} K2 check: {fills} fill launches, {ends} window ends")
+    got_carry = s._final_carry
+    _, p = nuts_headline(dev, cfg, backend)
+    key, chains = p._key, p._chain_ids
+    p._prepare_run(coll, warm)
+    carry = p._init_carry(z_eps=counter_rng.normals_paired(key, chains, 0, DIM,
+                                                           counter_rng.TAG_EPS_SEARCH))
+    want = []
+    for m in range(warm + coll):
+        depth = p._depth(m)
+        z = counter_rng.normals_paired(key, chains, m, DIM)
+        if backend == "static":
+            w = counter_rng.counter_rng_fill_reference(
+                N_CHAINS, counter_rng.static_words(depth), key, m, counter_rng.TAG_STATIC,
+                "bits", dev)
+            draws = static_tree.StaticDraws.from_words(z, w, depth, carry["mass"])
+        else:
+            u = counter_rng.counter_rng_fill_reference(N_CHAINS, tree.tree_words(depth), key,
+                                                       m, counter_rng.TAG_TREE, "uniform", dev)
+            draws = tree.TreeDraws.from_uniforms(z, u, depth)
+        z_window = counter_rng.normals_paired(key, chains, m, DIM, counter_rng.TAG_EPS_WINDOW)
+        carry = p._step(carry, m, draws=draws, z_window=z_window)
+        if m >= warm:
+            want.append(carry["pos"])
+    torch.cuda.synchronize()
+    check(counter_rng.launches == fills, "the plain draws launched no fill kernel")
+    check(torch.equal(got, torch.stack(want)), f"NUTS {backend} samples equal with the fill "
+          "kernel's draws and the plain draws")
+    flat = lambda c: {f"{k}.{i}" if isinstance(v, tuple) else k: x
+                      for k, v in c.items()
+                      for i, x in (enumerate(v) if isinstance(v, tuple) else [(0, v)])}
+    mine, theirs = flat(carry), flat(got_carry)
+    differ = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+    check(not differ and set(mine) == set(theirs),
+          f"NUTS {backend} carry equal with both draws ({differ})")
+    return fills, ends, len(mine)
 
 
 class DepthProbe:
     """Counts the doublings of every transition while installed: wraps the
-    sampler module's ``nuts_tree_step`` and adds each result's depths to a
-    device total (two small device operations a step, no read-back)."""
+    sampler module's tree step ``name`` (``nuts_tree_step`` or
+    ``static_nuts_step``) and adds each result's depths to a device total
+    (two small device operations a step, no read-back)."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, name: str = "nuts_tree_step"):
         self.total = torch.zeros((), dtype=torch.int64, device=dev)
         self.steps = 0
-        self._inner = nuts_module.nuts_tree_step
+        self._name = name
+        self._inner = getattr(nuts_module, name)
 
     def __call__(self, *args, **kw):
         res = self._inner(*args, **kw)
@@ -1364,11 +1400,11 @@ class DepthProbe:
         return res
 
     def __enter__(self):
-        nuts_module.nuts_tree_step = self
+        setattr(nuts_module, self._name, self)
         return self
 
     def __exit__(self, *exc):
-        nuts_module.nuts_tree_step = self._inner
+        setattr(nuts_module, self._name, self._inner)
 
 
 def nuts_work(n: int, d: int, leapfrogs: int, steps: int, n_collect: int):
@@ -1382,17 +1418,20 @@ def nuts_work(n: int, d: int, leapfrogs: int, steps: int, n_collect: int):
     return n_bytes, 13 * n * d * leapfrogs + 35 * n * d * steps
 
 
-def phase_nuts_main(dev):
-    """The bench's NUTS leg at full size through ``NUTS.run``, once, timed
-    by the phase ends ``run`` records, with the tree depths counted; then a
-    50-step collection window under the profiler and the fill kernel at
-    NUTS's shapes."""
-    scales, sampler = nuts_headline(dev)
+def phase_nuts_leg(dev, backend: str):
+    """The bench's NUTS leg at full size through ``NUTS.run`` with
+    ``backend`` ("nuts-main": ``"torch"``, the dynamic tree; "nuts-static":
+    ``"static"``, as ``bench.py`` runs it), once, timed by the phase ends
+    ``run`` records, with the tree depths counted; then a 50-step collection
+    window under the profiler and the fill kernel at the path's shapes."""
+    label = "nuts-static" if backend == "static" else "nuts-main"
+    static = backend == "static"
+    scales, sampler = nuts_headline(dev, backend=backend)
     steps = NUTS_WARMUP + NUTS_COLLECT
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with DepthProbe(dev) as probe:
+    with DepthProbe(dev, "static_nuts_step" if static else "nuts_tree_step") as probe:
         samples = sampler.run(NUTS_COLLECT, NUTS_WARMUP, time_phases=True)
     torch.cuda.synchronize()
     fills = counter_rng.launches
@@ -1401,20 +1440,23 @@ def phase_nuts_main(dev):
     wall = sum(phases.values())
     ends = int(sampler._window_sched.sum())
     check(fills == nuts_fills(steps, ends),
-          f"NUTS main path: {fills} fill launches == 2 x {steps} + 1 + {ends}")
+          f"{label}: {fills} fill launches == 2 x {steps} + 1 + {ends}")
     check(probe.steps == steps, f"the depth probe saw {probe.steps} of {steps} steps")
-    check(tuple(samples.shape) == (N_CHAINS, NUTS_COLLECT, DIM), "NUTS sample shape")
+    check(tuple(samples.shape) == (N_CHAINS, NUTS_COLLECT, DIM), f"{label} sample shape")
     store = samples.transpose(0, 1)  # the steps-major store
-    check(bool(torch.isfinite(store).all()), "every NUTS sample is finite")
+    check(bool(torch.isfinite(store).all()), f"every {label} sample is finite")
     t0 = time.perf_counter()
     rhat, ess, _mean, std = gmt.split_rhat_mean_ess(store, steps_major=True,
                                                     return_moments=True)
     max_rhat, min_ess = float(rhat.max()), float(ess.min())
     diag_s = time.perf_counter() - t0
     audit = float((std.cpu() / scales - 1.0).abs().max())
-    check(max_rhat < 1.01, f"NUTS max R-hat {max_rhat} < 1.01")
-    check(audit < 0.05, f"NUTS moment audit max|std/scale - 1| {audit} < 0.05")
+    check(max_rhat < 1.01, f"{label} max R-hat {max_rhat} < 1.01")
+    check(audit < 0.05, f"{label} moment audit max|std/scale - 1| {audit} < 0.05")
     leapfrogs = int(sampler.leapfrog_count.sum())
+    window = (1 << NUTS_DEPTH) - 1
+    check(not static or leapfrogs == window * steps * N_CHAINS,
+          f"{label}: {leapfrogs} leapfrogs == {window} a step")
     divergences = int(sampler.divergences.sum())
     eps_bar = sampler.adapted_step_size
     mass_err = float((sampler._final_carry["mass"].inv.median(dim=0).values.cpu() / scales**2
@@ -1425,24 +1467,27 @@ def phase_nuts_main(dev):
 
     # a 50-step collection window under the profiler, beside its CUDA-event
     # time and host wall unprofiled
-    window = lambda: gmt.run_kernel(sampler._step_fn, adapted, CHEES_WINDOW, 0,
-                                    step_offset=steps)
-    window()
-    prof = profile_window(window, CHEES_WINDOW, "nuts-main-window")
-    words = tree.tree_words(NUTS_DEPTH)
+    window_fn = lambda: gmt.run_kernel(sampler._step_fn, adapted, CHEES_WINDOW, 0,
+                                       step_offset=steps)
+    window_fn()
+    prof = profile_window(window_fn, CHEES_WINDOW, f"{label}-window")
+    if static:
+        words, kind, tag = counter_rng.static_words(NUTS_DEPTH), "bits", counter_rng.TAG_STATIC
+    else:
+        words, kind, tag = tree.tree_words(NUTS_DEPTH), "uniform", counter_rng.TAG_TREE
     fill = fill_timings(dev, N_CHAINS, {"normal_pair": (DIM, counter_rng.TAG_MOMENTUM),
-                                        "uniform": (words, counter_rng.TAG_TREE)})
+                                        kind: (words, tag)})
     fill = {f"{k}_{N_CHAINS}x{DIM if k == 'normal_pair' else words}": v
             for k, v in fill.items()}
 
     n_bytes, n_ops = nuts_work(N_CHAINS, DIM, leapfrogs // N_CHAINS, steps, NUTS_COLLECT)
     b_ms, b_by = bound(n_bytes, n_ops)
-    say("nuts-main", chains=N_CHAINS, dim=DIM, steps=f"{NUTS_WARMUP}+{NUTS_COLLECT}",
-        max_tree_depth=NUTS_DEPTH, accept_target=NUTS_ACCEPT, proposal="multinomial",
-        eps_bar_median=f"{float(eps_bar.median()):.6f}", mass_inv_err=f"{mass_err:.5f}",
-        window_ends=ends, divergences=divergences, max_rhat=f"{max_rhat:.5f}",
-        min_ess=f"{min_ess:.1f}", moment_audit=f"{audit:.5f}", fill_launches=fills,
-        wall_s=f"{wall:.4f}", init_s=f"{phases['init']:.4f}",
+    say(label, chains=N_CHAINS, dim=DIM, steps=f"{NUTS_WARMUP}+{NUTS_COLLECT}",
+        backend=backend, max_tree_depth=NUTS_DEPTH, accept_target=NUTS_ACCEPT,
+        proposal="multinomial", eps_bar_median=f"{float(eps_bar.median()):.6f}",
+        mass_inv_err=f"{mass_err:.5f}", window_ends=ends, divergences=divergences,
+        max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}", moment_audit=f"{audit:.5f}",
+        fill_launches=fills, wall_s=f"{wall:.4f}", init_s=f"{phases['init']:.4f}",
         warmup_s=f"{phases['warmup']:.4f}", collection_s=f"{phases['collection']:.4f}",
         diagnostics_s=f"{diag_s:.4f}", min_ess_per_s=f"{min_ess / wall:.4e}",
         grad_evals_per_s=f"{leapfrogs / wall:.4e}", leapfrogs=leapfrogs,
@@ -1451,7 +1496,70 @@ def phase_nuts_main(dev):
         peak_memory_gb=f"{peak_gb:.2f}",
         fill_ms=json.dumps({k: round(v[0], 5) for k, v in fill.items()}),
         bound_ms=f"{b_ms:.3f}", bound_by=b_by, wall_over_bound=f"{wall * 1e3 / b_ms:.1f}")
-    return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"])
+    return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"],
+                min_ess_per_s=min_ess / wall)
+
+
+def phase_nuts_static_small(dev):
+    """NUTS through the static window at 1,024 chains and the leg's cap: the
+    2-d autograd target with the diagonal metric and the slice proposal and
+    with the dense metric and the multinomial proposal, against its moments
+    and metric; the funnel at a coarse fixed step size (divergences); K2 on
+    the static path (:func:`nuts_k2_check`); then ``backend="auto"`` on the
+    headline target at 1,024 chains, which must pick ``"static"`` and run
+    its collection through it."""
+    n = NUTS_SMALL_CHAINS
+    target2 = gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=dev)
+    warm, coll = NUTS_2D_STEPS
+    errs, adapted = {}, {}
+    for name, adaptation, proposal in (("diag_slice", "diagonal", "slice"),
+                                       ("dense_multinomial", "dense", "multinomial")):
+        s = gmt.NUTS(target2, gmt.init_with_seed(n, 2, 1, device=dev), 0.8, seed=1,
+                     max_tree_depth=NUTS_DEPTH, proposal=proposal, backend="static",
+                     mass_config=gmt.NUTSMassMatrixConfig(adaptation=adaptation))
+        out = s.run(coll, warm)
+        check(tuple(out.shape) == (n, coll, 2), f"NUTS static {name}: sample shape")
+        errs[name] = nuts_moments_check(out, f"static {name}")
+        inv = s._final_carry["mass"].inv.median(dim=0).values.cpu().double()
+        cov = torch.tensor(MH_COV, dtype=torch.float64)
+        adapted[name] = float((inv - (cov if adaptation == "dense" else cov.diagonal()))
+                              .abs().max())
+        check(int(s.leapfrog_count.min()) == (warm + coll) * ((1 << NUTS_DEPTH) - 1),
+              f"NUTS static {name}: the full window every step")
+    check(max(adapted.values()) < 2.0, f"NUTS static adapted metrics near the covariance "
+          f"({adapted})")
+
+    funnel = gmt.NUTS(gmt.NealsFunnel(dim=8), gmt.init_with_seed(n, 8, 3, device=dev), 0.8,
+                      seed=3, step_size=NUTS_FUNNEL_EPS, max_tree_depth=NUTS_DEPTH,
+                      backend="static")
+    funnel.run(NUTS_FUNNEL_STEPS, 0)
+    funnel_div = int(funnel.divergences.sum())
+    check(funnel_div > 0, f"NUTS static funnel at step size {NUTS_FUNNEL_EPS}: {funnel_div} "
+          "divergences")
+
+    fills, ends, n_fields = nuts_k2_check(dev, "static")
+
+    warm, coll = NUTS_STATIC_AUTO_STEPS
+    _, auto = nuts_headline(dev, backend="auto", n=n)
+    with DepthProbe(dev, "static_nuts_step") as probe:
+        out = auto.run(coll, warm)
+    check(auto.backend_selected == "static" and probe.steps == coll,
+          f"NUTS auto on the headline target picked {auto.backend_selected!r} "
+          f"({probe.steps} static steps)")
+    check(bool(torch.isfinite(out).all()), "NUTS auto: finite samples")
+    mean, std = auto.depth_stats
+    say("nuts-static-small", chains=n, d2_steps="{}+{}".format(*NUTS_2D_STEPS),
+        max_tree_depth=NUTS_DEPTH,
+        **{f"{k}_mean_err": f"{v[0]:.4f}" for k, v in errs.items()},
+        **{f"{k}_cov_err": f"{v[1]:.4f}" for k, v in errs.items()},
+        **{f"{k}_metric_err": f"{v:.4f}" for k, v in adapted.items()},
+        funnel_divergences=funnel_div, funnel_steps=NUTS_FUNNEL_STEPS,
+        k2_shape=f"{N_CHAINS}x{DIM}", k2_steps="{}+{}".format(*NUTS_K2_STEPS),
+        k2_window_ends=ends, k2_fill_launches=fills, k2_bit_equal=True,
+        k2_carry_fields=n_fields, auto_steps=f"{warm}+{coll}",
+        auto_backend_selected=auto.backend_selected, auto_depth_mean=f"{mean:.4f}",
+        auto_depth_std=f"{std:.4f}")
+    return dict(fill_launches=fills)
 
 
 def main() -> int:
@@ -1478,7 +1586,12 @@ def main() -> int:
     chees = phase_chees_main(dev)
     phase_chees_logistic(dev)
     nuts_small = phase_nuts_small(dev)
-    nuts = phase_nuts_main(dev)
+    nuts = phase_nuts_leg(dev, "torch")
+    static_small = phase_nuts_static_small(dev)
+    static = phase_nuts_leg(dev, "static")
+    say("nuts-leg-compare",
+        static_over_dynamic_min_ess_per_s=f"{static['min_ess_per_s'] / nuts['min_ess_per_s']:.4f}",
+        static_over_dynamic_wall=f"{static['wall'] / nuts['wall']:.4f}")
     kernels = [
         dict(name="fused_hmc", route="cuda", source="general_mcmc_torch/csrc/fused_hmc.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
@@ -1493,16 +1606,18 @@ def main() -> int:
              checked_in="K1-small, main, identity-mass, K1-maps"),
         # K2 is a device function: on the HMC and MH main paths it runs inside
         # each fused_hmc and fused_mh launch; on the ChEES and NUTS main paths
-        # its fill kernel draws every step's momenta and uniforms (2 launches
-        # a step, 1 for the step-size search and, for NUTS, 1 a window end:
-        # fill_launches, nuts_fill_launches).  ms, plain_ms and the bound are
-        # the fill kernel's at 10,240 x 128 words (phase "K2"); chees_fill_ms
-        # and nuts_fill_ms at the ChEES and NUTS shapes, each with its bound.
+        # its fill kernel draws every step's momenta and uniforms or words (2
+        # launches a step, 1 for the step-size search and, for NUTS, 1 a
+        # window end: fill_launches, nuts_fill_launches for the dynamic tree,
+        # nuts_static_fill_launches for the static one).  ms, plain_ms and the
+        # bound are the fill kernel's at 10,240 x 128 words (phase "K2");
+        # chees_fill_ms, nuts_fill_ms and nuts_static_fill_ms at the ChEES and
+        # the two NUTS paths' shapes, each with its bound.
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
              launches=(main_path["launches"] + mh["launches"] + chees["fill_launches"]
-                       + nuts["fill_launches"]),
+                       + nuts["fill_launches"] + static["fill_launches"]),
              runs_inside="fused_hmc, fused_mh",
              fill_launches=chees["fill_launches"],
              fill_launches_checked=chees_small["fill_launches"],
@@ -1510,13 +1625,18 @@ def main() -> int:
              nuts_fill_launches_checked=nuts_small["fill_launches"],
              nuts_fill_ms={k: v[0] for k, v in nuts["fill"].items()},
              nuts_fill_bound_ms={k: v[1] for k, v in nuts["fill"].items()},
+             nuts_static_fill_launches=static["fill_launches"],
+             nuts_static_fill_launches_checked=static_small["fill_launches"],
+             nuts_static_fill_ms={k: v[0] for k, v in static["fill"].items()},
+             nuts_static_fill_bound_ms={k: v[1] for k, v in static["fill"].items()},
              max_abs_err=k2["max_abs_err"], ms=k2["ms"], plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by=k2["bound_by"], library_ms=None,
              chees_fill_ms={f"{k}_{N_CHAINS}x{DIM if k == 'normal_pair' else 1}": v[0]
                             for k, v in chees["fill"].items()},
              chees_fill_bound_ms={k: v[1] for k, v in chees["fill"].items()},
              wrapper_call_ms=k2["wrapper_call_ms"],
-             checked_in="K2, chees-small, chees-main, nuts-small, nuts-main"),
+             checked_in="K2, chees-small, chees-main, nuts-small, nuts-main, "
+                        "nuts-static-small, nuts-static"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),

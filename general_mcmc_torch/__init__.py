@@ -2,9 +2,9 @@
 
 Batched HMC and Metropolis–Hastings, each with a fused whole-run CUDA kernel
 (``backend="cuda"``) and a plain PyTorch backend; ChEES-HMC and NUTS (the
-dynamic tree, slice and multinomial proposals, Stan-windowed diagonal and
-dense metrics) in plain PyTorch, their draws from the counter generator's
-fill kernel on the card; the Gaussian, Rosenbrock, funnel, discrete and
+dynamic tree, the static window and ``backend="auto"``, slice and
+multinomial proposals, Stan-windowed diagonal and dense metrics) in plain
+PyTorch, their draws from the counter generator's fill kernel on the card; the Gaussian, Rosenbrock, funnel, discrete and
 hierarchical-logistic targets, the fused
 logistic gradient chain (``ops.fused_logistic``), and split-R-hat/ESS
 diagnostics.  Entry points run on the card unless given ``device="cpu"``.

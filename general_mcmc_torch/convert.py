@@ -120,11 +120,14 @@ def to_nuts_carry(jax_carry, device="cpu") -> dict:
     ``keys`` is dropped, as in :func:`to_chees_carry`; ``mass`` (the JAX
     ``MassMatrix``) becomes the port's ``MassMatrix`` and ``welford`` (the
     JAX ``_Welford``) the port's ``Welford``, field by field; ``n_divergent``
-    and the Welford ``count`` are int32, ``n_leapfrog`` int64."""
+    and the Welford ``count`` are int32, ``n_leapfrog`` and, where the JAX
+    carry has them (``backend="auto"``'s warmup), ``depth_sum`` and
+    ``depth_sqsum`` int64."""
     from .ops.tree import MassMatrix
     from .samplers.nuts import Welford
 
-    ints = {"n_divergent": torch.int32, "n_leapfrog": torch.int64}
+    ints = {"n_divergent": torch.int32, "n_leapfrog": torch.int64, "depth_sum": torch.int64,
+            "depth_sqsum": torch.int64}
     out = {}
     for name, value in jax_carry.items():
         if name == "keys":

@@ -40,6 +40,18 @@ sampler reads:
   (``TAG_EPS_SEARCH`` at step 0); the re-search at the end of a metric
   window at step ``m`` under ``TAG_EPS_WINDOW`` at step ``m`` (the JAX
   package's ``fold_in(step_key, 2**31 - 2)``).
+- NUTS's static tree at doubling cap ``J``: the momenta are HMC's, and the
+  rest one word sequence under ``TAG_STATIC``, ``2 + 2J`` raw words a step
+  (:func:`static_draws`; ``ops.static_tree.StaticDraws.from_words`` reads
+  them): word 0's uniform gives the slice's Exp(1), ``−log1p(−u₀)``, as
+  the JAX package draws it, in both proposal modes; word 1's top ``J``
+  bits the window offset ``o``, exactly uniform on ``{0, …, 2^J − 1}`` as
+  JAX's ``randint(0, 2^J)``; words ``2 … J + 1`` give ``u_sel`` and
+  ``J + 2 … 2J + 1`` ``u_swap``, one uniform a doubling each.  The offset
+  is read from the word and not from its uniform: in float32 the uniform
+  of a word in the upper half rounds to an even multiple of 2⁻²⁴, which
+  merges two words, so ``floor(u·2^J)`` would move a word across a block
+  boundary and reach ``2^J`` at the top word.
 - MH: the proposal normals are the same pairs under ``TAG_PROPOSAL``, and
   the next word, ``2·⌈dim/2⌉``, gives the accept uniform
   (:func:`mh_draws`): at dim 2 one block a step, words 0 and 1 for the
@@ -47,11 +59,14 @@ sampler reads:
   stream, ``TAG_SIGN``: the sign of coordinate ``j`` is the top bit of word
   ``j`` and the accept uniform is word ``dim`` (:func:`sign_draws`).
 
-The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``.
+The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``,
+but for ``TAG_STATIC``, which has no constant there: it reaches the card
+only as the fill kernel's argument.
 
 ``counter_rng_fill`` launches the fill kernel of ``csrc/counter_rng.cu``,
 which writes the device function's draws to a tensor.  ChEES-HMC and NUTS
-draw with it on the card (:func:`step_draws`, :func:`nuts_draws`); the
+draw with it on the card (:func:`step_draws`, :func:`nuts_draws`,
+:func:`static_draws`); the
 fused HMC and MH kernels run the device function inside themselves.
 """
 
@@ -71,6 +86,7 @@ __all__ = [
     "TAG_EPS_SEARCH",
     "TAG_TREE",
     "TAG_EPS_WINDOW",
+    "TAG_STATIC",
     "philox4x32_10",
     "counter_bits",
     "bits_to_uniform",
@@ -81,6 +97,9 @@ __all__ = [
     "sign_draws",
     "step_draws",
     "nuts_draws",
+    "static_words",
+    "static_draws",
+    "words_to_uniform",
     "counter_rng_fill",
     "counter_rng_fill_reference",
     "fill_launcher",
@@ -101,6 +120,7 @@ TAG_SIGN = 3
 TAG_EPS_SEARCH = 4
 TAG_TREE = 5
 TAG_EPS_WINDOW = 6
+TAG_STATIC = 7
 
 # Launches of the fill kernel (counter_rng_fill) in this process.
 launches = 0
@@ -239,6 +259,32 @@ def nuts_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device
     z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
     u = counter_rng_fill(n_chains, tree_words(depth), seed, step, TAG_TREE, "uniform", device)
     return z, u
+
+
+def static_words(depth: int) -> int:
+    """Words a chain draws under ``TAG_STATIC`` for one static-tree
+    transition at doubling cap ``depth``: the slice's, the offset's and two
+    a doubling."""
+    return 2 + 2 * depth
+
+
+def static_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device=None):
+    """One static-tree NUTS step's draws for chains ``0 … n_chains − 1`` at
+    doubling cap ``depth``: ``z [n_chains, dim]`` float32 momentum normals
+    (:func:`normals_paired` under ``TAG_MOMENTUM``) and ``w [n_chains,
+    static_words(depth)]`` the raw words under ``TAG_STATIC`` (int32
+    holding uint32 bits; layout in the module docstring).  On a CUDA device
+    they are two launches of the fill kernel, on the CPU the plain version;
+    both give the same bits."""
+    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
+    w = counter_rng_fill(n_chains, static_words(depth), seed, step, TAG_STATIC, "bits", device)
+    return z, w
+
+
+def words_to_uniform(w: torch.Tensor) -> torch.Tensor:
+    """:func:`bits_to_uniform` of int32 words holding uint32 bits (the fill
+    kernel's ``"bits"``)."""
+    return bits_to_uniform(w.to(torch.int64) & _MASK)
 
 
 def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,

@@ -1,10 +1,11 @@
 """No-U-Turn Sampler with dual-averaging step-size adaptation and
 Stan-windowed mass-matrix warmup.
 
-Port of ``general_mcmc_tpu/samplers/nuts.py`` (the dynamic tree).  All
-chains advance together through the batched tree of :mod:`..ops.tree`; the
-adaptation state (ε, ε̄, h̄, μ, one metric a chain and the Welford
-accumulators) lives in the carry.  The semantics are the JAX sampler's:
+Port of ``general_mcmc_tpu/samplers/nuts.py``.  All chains advance together
+through the batched dynamic tree of :mod:`..ops.tree` or the static-window
+tree of :mod:`..ops.static_tree`; the adaptation state (ε, ε̄, h̄, μ, one
+metric a chain and the Welford accumulators) lives in the carry.  The
+semantics are the JAX sampler's:
 
 - dual averaging with γ = 0.05, t₀ = 10, κ = 0.75 and μ = ln(10ε₀),
   ``ε = ε̄`` after warmup (generic_nuts.rs:638-643, 882-895);
@@ -15,16 +16,23 @@ accumulators) lives in the carry.  The semantics are the JAX sampler's:
   ``(1 − 0.05)·Σ̂ + 0.05·I``, the Stan metric ``M⁻¹ = Σ̂``, a jittered
   Cholesky with ×10 retries (8 tries) for the dense metric, which falls
   back to the diagonal above ``dense_max_dim``, and after each window the ε
-  re-search under the new metric and the dual-averaging reset.
+  re-search under the new metric and the dual-averaging reset;
+- three backends: ``"torch"`` (the dynamic tree, JAX's ``"xla"``),
+  ``"static"`` (the static window) and ``"auto"``, the default, which runs
+  the warmup on the dynamic tree, measures its realised depths over the
+  last quarter of warmup and picks the collection backend by JAX's rule
+  (:meth:`NUTS._choose_backend`).
 
 As in the JAX package, NUTS runs no kernel of its own (the JAX package's
 two fused NUTS kernels were retired; XLA fuses the rest), so here it is
 eager PyTorch.  Its draws are the port's counter stream: the momenta of
-step ``m`` under ``TAG_MOMENTUM``, the tree's uniforms under ``TAG_TREE``,
-the initial ε search's momenta under ``TAG_EPS_SEARCH`` at step 0 and a
-window's re-search momenta under ``TAG_EPS_WINDOW`` at its step; on the
-card each comes from K2's fill kernel (:func:`..ops.counter_rng.nuts_draws`).
-A failed build or launch fails the run.
+step ``m`` under ``TAG_MOMENTUM``, the dynamic tree's uniforms under
+``TAG_TREE`` and the static tree's words under ``TAG_STATIC``, the initial
+ε search's momenta under ``TAG_EPS_SEARCH`` at step 0 and a window's
+re-search momenta under ``TAG_EPS_WINDOW`` at its step; on the card each
+comes from K2's fill kernel (:func:`..ops.counter_rng.nuts_draws`,
+:func:`..ops.counter_rng.static_draws`).  A failed build or launch fails
+the run.
 
 Differences from the JAX sampler, none of them in the maths:
 
@@ -32,20 +40,23 @@ Differences from the JAX sampler, none of them in the maths:
   ``mass`` is a :class:`..ops.tree.MassMatrix` and ``welford`` a
   :class:`Welford`; ``n_leapfrog`` is int64 at every dtype (JAX: int64
   under x64);
+- ``"auto"``'s depth accumulators ``depth_sum`` and ``depth_sqsum`` are
+  int64 (JAX: int32, whose sums wrap near 64k chains × 4k warmup steps),
+  and, as in JAX (nuts.py:316), they exist only where auto can measure:
+  with a warmup and a cap ≤ 6;
 - the window schedule is host data, so the warmup gate, the Welford
-  update, the window end and the warmup tree cap are Python ``if``\\ s on
-  the step index (JAX: ``lax.cond`` and selects on streamed flags);
-- ``backend="torch"``, the dynamic tree (JAX's ``"xla"``), is the only
-  backend.
+  update, the window end, the warmup tree cap and the depth window are
+  Python ``if``\\ s on the step index (JAX: ``lax.cond`` and selects on
+  streamed flags), and ``run`` resolves ``"auto"`` between its two
+  ``run_kernel`` calls (JAX: between its two dispatches).
 
-Not ported yet: ``backend="static"`` and ``"auto"`` (the static tree,
-``ops/static_tree.py``), ``resume``, ``chain``, ``track`` and
-``run_progress``.
+Not ported yet: ``resume``, ``chain``, ``track`` and ``run_progress``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple
 
@@ -55,6 +66,7 @@ import torch
 from ..core import run_kernel
 from ..models.distributions import as_value_and_grad
 from ..ops import counter_rng
+from ..ops.static_tree import StaticDraws, static_nuts_step
 from ..ops.tree import (
     MassMatrix,
     TreeDraws,
@@ -144,26 +156,48 @@ class NUTS(BatchSampler):
     ``max_tree_depth`` (10), ``step_size`` (a fixed initial ε; None: the
     search), ``mass_config`` (default disabled, as the reference façade),
     ``warmup_tree_depth`` (a smaller doubling cap during warmup; default
-    ``max_tree_depth``), ``ckpt_dtype`` (a torch dtype for the checkpoint
-    stacks, which feed only the U-turn sign tests) and ``proposal``
-    (``"slice"`` or ``"multinomial"``); ``backend``: ``"torch"``, the
-    dynamic tree, the only one ported (``"static"`` and ``"auto"`` raise
-    ``NotImplementedError``); and ``device``: where to run, ``None`` meaning
-    the card (raises if there is none; pass ``device="cpu"`` to run on the
-    CPU).
+    ``max_tree_depth``), ``ckpt_dtype`` (a torch dtype for the dynamic
+    tree's checkpoint stacks, which feed only the U-turn sign tests) and
+    ``proposal`` (``"slice"`` or ``"multinomial"``, for both trees);
+    ``device``: where to run, ``None`` meaning the card (raises if there is
+    none; pass ``device="cpu"`` to run on the CPU).
+
+    ``backend``:
+
+    - ``"auto"`` (the default): with a warmup and ``max_tree_depth <= 6``,
+      the warmup runs the dynamic tree and accumulates each chain's
+      realised depth and its square over the last quarter of warmup; at
+      the boundary they are read back once and :meth:`_choose_backend`
+      picks the collection backend.  The choice is ``backend_selected``,
+      the depths' mean and standard deviation ``depth_stats``.  Without a
+      warmup, or at a cap above 6, auto is ``"torch"`` without measuring,
+      the exact path of ``backend="torch"``; an auto run that resolves to
+      ``"torch"`` equals a ``"torch"`` run bit for bit (the accumulators
+      draw nothing);
+    - ``"torch"``: the dynamic tree (JAX's ``"xla"``);
+    - ``"static"``: the static window (:func:`..ops.static_tree.
+      static_nuts_step`), every transition all ``2^cap − 1`` leapfrogs,
+      for caps ≤ 8 (warmup cap included).  Its draws differ from the
+      dynamic tree's, its law is the same.
+
+    ``"pallas"`` and ``"pallas2"`` raise the JAX sampler's retirement
+    message, other names ``ValueError``.
     """
 
     def __init__(self, target, initial_positions, target_accept_p: float = 0.8, seed=0,
                  max_tree_depth: int = 10, step_size: float | None = None,
-                 mass_config: NUTSMassMatrixConfig | None = None, backend: str = "torch",
+                 mass_config: NUTSMassMatrixConfig | None = None, backend: str = "auto",
                  warmup_tree_depth: int | None = None, ckpt_dtype=None,
                  proposal: str = "slice", device=None):
-        if backend in ("static", "auto"):
-            raise NotImplementedError(
-                f"backend={backend!r} needs the static tree (ops/static_tree.py), "
-                "which a later slice of the port brings; use backend='torch'")
-        if backend != "torch":
-            raise ValueError(f"unknown backend {backend!r}; the port has 'torch'")
+        if backend in ("pallas", "pallas2"):
+            raise ValueError(
+                "the fused Pallas NUTS backend was retired in the JAX package "
+                "(docs/MOSAIC_RULES.md has the record): its varied-depth niche "
+                "is owned by backend='static' — use 'static' for caps <= 8, "
+                "'torch' for deeper trees")
+        if backend not in ("torch", "static", "auto"):
+            raise ValueError(f"unknown backend {backend!r}; the port has 'torch', 'static' "
+                             "and 'auto'")
         if proposal not in ("slice", "multinomial"):
             raise ValueError(f"unknown proposal {proposal!r}")
         super().__init__(n_chains=len(initial_positions), seed=seed, device=device)
@@ -178,6 +212,13 @@ class NUTS(BatchSampler):
         self.max_tree_depth = int(max_tree_depth)
         self.warmup_tree_depth = int(
             warmup_tree_depth if warmup_tree_depth is not None else max_tree_depth)
+        if backend == "static" and max(self.max_tree_depth, self.warmup_tree_depth) > 8:
+            # every transition costs 2^depth - 1 gradient evaluations wherever
+            # the trajectory stops
+            raise ValueError(
+                "the static backend always integrates the full 2^max_depth "
+                "window; set max_tree_depth <= 8 (it is built for small "
+                "caps) or use backend='torch'")
         self.step_size = step_size
         cfg = mass_config if mass_config is not None else NUTSMassMatrixConfig.disabled()
         # dense falls back to diagonal above dense_max_dim (generic_nuts.rs:612-617)
@@ -237,7 +278,7 @@ class NUTS(BatchSampler):
         welford = Welford(count=torch.zeros(n, dtype=torch.int32, device=dev),
                           mean=zeros(n, d), m2_diag=zeros(n, d),
                           m2_dense=zeros(n, d, d) if self._dense else zeros(n, 0, 0))
-        return dict(
+        carry = dict(
             pos=x0,
             lp=lp0,
             grad=grad0,
@@ -250,30 +291,57 @@ class NUTS(BatchSampler):
             n_divergent=torch.zeros(n, dtype=torch.int32, device=dev),
             n_leapfrog=torch.zeros(n, dtype=torch.int64, device=dev),
         )
+        if self.backend == "auto" and self._n_discard > 0 and self.max_tree_depth <= 6:
+            # each chain's realised depths and their squares over the last
+            # quarter of warmup, for "auto"'s choice (above cap 6 the rule
+            # answers "torch" whatever the depths, so nothing is measured)
+            carry["depth_sum"] = torch.zeros(n, dtype=torch.int64, device=dev)
+            carry["depth_sqsum"] = torch.zeros(n, dtype=torch.int64, device=dev)
+        return carry
 
     # -- draws ------------------------------------------------------------------
     def _draws(self, m: int, depth: int, dtype) -> TreeDraws:
-        """Step ``m``'s draws at doubling cap ``depth`` from the counter
-        stream, in the positions' dtype."""
+        """Step ``m``'s dynamic-tree draws at doubling cap ``depth`` from the
+        counter stream, in the positions' dtype."""
         z, u = counter_rng.nuts_draws(self._key, self.n_chains, m, self.dim, depth,
                                       self.device)
         return TreeDraws.from_uniforms(z.to(dtype), u.to(dtype), depth)
 
+    def _static_draws(self, m: int, depth: int, mass: MassMatrix, dtype) -> StaticDraws:
+        """Step ``m``'s static-tree draws at doubling cap ``depth`` under the
+        metric ``mass``, in the positions' dtype."""
+        z, w = counter_rng.static_draws(self._key, self.n_chains, m, self.dim, depth,
+                                        self.device)
+        return StaticDraws.from_words(z.to(dtype), w, depth, mass, self._dense)
+
     # -- transition -------------------------------------------------------------
-    def _step(self, carry, m: int, draws: TreeDraws | None = None, z_window=None):
+    def _step(self, carry, m: int, draws: TreeDraws | StaticDraws | None = None,
+              z_window=None, backend: str | None = None):
         """One transition at absolute step index ``m``: the tree (at the
-        warmup cap while ``m < n_discard``), dual averaging, the counters and
-        the mass-matrix warmup.  ``draws`` replaces the step's draws and
-        ``z_window`` a window end's re-search normals (a test feeds both
+        warmup cap while ``m < n_discard``), dual averaging, the counters,
+        the depth accumulators where the carry has them, and the mass-matrix
+        warmup.  ``backend`` is the tree, ``"torch"`` or ``"static"``
+        (default: the sampler's, ``"auto"`` meaning ``"torch"``: auto's
+        warmup tree).  ``draws`` (the tree's :class:`..ops.tree.TreeDraws`
+        or :class:`..ops.static_tree.StaticDraws`) replaces the step's draws
+        and ``z_window`` a window end's re-search normals (a test feeds both
         packages the same numbers)."""
         pos = carry["pos"]
         dtype = pos.dtype
         depth = self._depth(m)
-        if draws is None:
-            draws = self._draws(m, depth, dtype)
-        tree = nuts_tree_step(pos, carry["lp"], carry["grad"], carry["eps"], carry["mass"],
-                              self._vgrad, depth, draws, dense=self._dense,
-                              ckpt_dtype=self.ckpt_dtype, multinomial=self._multinomial)
+        backend = backend or ("torch" if self.backend == "auto" else self.backend)
+        if backend == "static":
+            if draws is None:
+                draws = self._static_draws(m, depth, carry["mass"], dtype)
+            tree = static_nuts_step(pos, carry["lp"], carry["grad"], carry["eps"],
+                                    carry["mass"], self._vgrad, depth, draws, dense=self._dense,
+                                    multinomial=self._multinomial)
+        else:
+            if draws is None:
+                draws = self._draws(m, depth, dtype)
+            tree = nuts_tree_step(pos, carry["lp"], carry["grad"], carry["eps"], carry["mass"],
+                                  self._vgrad, depth, draws, dense=self._dense,
+                                  ckpt_dtype=self.ckpt_dtype, multinomial=self._multinomial)
 
         # dual averaging (generic_nuts.rs:882-895)
         m1 = torch.full((), m + 1, dtype=dtype, device=self.device)
@@ -293,6 +361,13 @@ class NUTS(BatchSampler):
                    h_bar=h_bar, n_leapfrog=carry["n_leapfrog"] + tree.leapfrogs)
         if not warmup:
             new["n_divergent"] = carry["n_divergent"] + tree.diverged.to(torch.int32)
+        # "auto": the depths of the last quarter of warmup, where ε has
+        # largely settled toward ε̄ (earlier depths reflect the unadapted
+        # metric and the dual-averaging wander; nuts.py:510-538)
+        win = max(self._n_discard // 4, 1)
+        if "depth_sum" in carry and self._n_discard - win <= m < self._n_discard:
+            new["depth_sum"] = carry["depth_sum"] + tree.depth
+            new["depth_sqsum"] = carry["depth_sqsum"] + tree.depth * tree.depth
         if self.mass_config.adaptation != "none":
             new = self._mass_adaptation(new, m, z_window)
         return new
@@ -405,14 +480,64 @@ class NUTS(BatchSampler):
     def _positions(self, carry):
         return carry["pos"]
 
+    # -- backend="auto" -----------------------------------------------------------
+    @staticmethod
+    def _choose_backend(measured_cap: int, mean_depth: float, std_depth: float, max_cap: int,
+                        static_cap: int = 6) -> str:
+        """The collection backend from the warmup's depth statistics: the JAX
+        sampler's rule (nuts.py:675-718), ``"torch"`` where it says
+        ``"xla"``.
+
+        - caps above ``static_cap``: ``"torch"``;
+        - saturated trees, mean depth within 1.25 of the cap they were
+          measured under (``measured_cap``, the warmup cap): ``"static"``;
+        - varied depths, standard deviation ≥ 1.0 (funnel-like):
+          ``"static"``;
+        - else (uniformly shallow trees that stop well below the cap):
+          ``"torch"``.
+
+        The thresholds are the JAX package's crossover measurements, and
+        its ``static_cap`` of 6 on an accelerator and 5 on the CPU comes
+        from XLA's compile times of the unrolled window, so the caps are
+        JAX's and not the card's; :meth:`run` passes 6 on the card and 5 on
+        the CPU, which keeps the port's choice equal to JAX's in the CPU
+        tests.  ``max_cap`` is the collection cap."""
+        if max_cap > static_cap:
+            return "torch"
+        if measured_cap - mean_depth <= 1.25:
+            return "static"
+        if std_depth >= 1.0:
+            return "static"
+        return "torch"
+
+    def _resolve_auto(self, carry) -> str:
+        """``"auto"``'s collection backend after the warmup: pops the depth
+        accumulators from ``carry``, reads their sums back (one read-back),
+        and sets ``backend_selected`` and ``depth_stats``."""
+        if "depth_sum" not in carry:  # no warmup or a cap > 6: nothing to measure
+            self.backend_selected = "torch"
+            return "torch"
+        d_sum, d_sq = carry.pop("depth_sum"), carry.pop("depth_sqsum")
+        total = max(self._n_discard // 4, 1) * self.n_chains  # tracked chain-steps
+        s1, s2 = torch.stack([d_sum.sum(), d_sq.sum()]).tolist()
+        mean = s1 / total
+        std = max(s2 / total - mean * mean, 0.0) ** 0.5
+        choice = self._choose_backend(self.warmup_tree_depth, mean, std, self.max_tree_depth,
+                                      static_cap=6 if self.device.type == "cuda" else 5)
+        self.backend_selected = choice
+        self.depth_stats = (mean, std)
+        return choice
+
     # -- running ----------------------------------------------------------------
     def run(self, n_collect: int, n_discard: int = 0, thin: int = 1,
             time_phases: bool = False):
         """``n_discard`` warmup steps, then ``n_collect`` samples, every
         ``thin``-th state.  Returns ``[n_chains, n_collect, dim]`` (a view of
-        the steps-major store).  ``time_phases`` waits for the device at the
-        start and at the end of init, warmup and collection, and keeps each
-        phase's host wall in seconds in ``phase_seconds``."""
+        the steps-major store).  With ``backend="auto"`` the collection's
+        backend is resolved between the two (:meth:`_resolve_auto`).
+        ``time_phases`` waits for the device at the start and at the end of
+        init, warmup and collection, and keeps each phase's host wall in
+        seconds in ``phase_seconds``."""
         marks = []
 
         def mark():
@@ -425,10 +550,11 @@ class NUTS(BatchSampler):
         self._prepare_run(n_collect, n_discard)
         carry = self._init_carry()
         mark()
-        step_fn = _StepFn(self._step, self._positions)
         if n_discard > 0:
-            carry = run_kernel(step_fn, carry, 0, n_discard).carry
+            carry = run_kernel(self._step_fn, carry, 0, n_discard).carry
+        backend = self._resolve_auto(carry) if self.backend == "auto" else self.backend
         mark()
+        step_fn = _StepFn(functools.partial(self._step, backend=backend), self._positions)
         out = run_kernel(step_fn, carry, n_collect, 0, step_offset=n_discard, thin=thin)
         self._final_carry = out.carry
         mark()

@@ -329,3 +329,26 @@ def test_hmc_stream_is_unchanged():
          -0.2352045178413391],
         [0.34427008032798767, 0.38208070397377014, 0.37375807762145996, 1.2181580066680908,
          -0.5526200532913208]]), rtol=1e-5, atol=1e-6)
+
+
+def test_static_draws_layout():
+    """The static tree's draws: the momenta are HMC's pairs under
+    TAG_MOMENTUM; the rest are 2 + 2J raw words of one word sequence under
+    TAG_STATIC, a tag of its own, word j word j % 4 of the block at group
+    j // 4, as uint32 bits in int32; words_to_uniform is the uniform map of
+    those bits."""
+    n, d, depth, seed, step = 6, 5, 4, 13, 9
+    z, w = cr.static_draws(seed, n, step, d, depth, "cpu")
+    chains = torch.arange(n)
+    assert torch.equal(z, cr.normals_paired(seed, chains, step, d))
+    assert cr.static_words(depth) == 2 + 2 * depth
+    assert w.dtype == torch.int32 and tuple(w.shape) == (n, cr.static_words(depth))
+    tags = [cr.TAG_MOMENTUM, cr.TAG_ACCEPT, cr.TAG_PROPOSAL, cr.TAG_SIGN, cr.TAG_EPS_SEARCH,
+            cr.TAG_TREE, cr.TAG_EPS_WINDOW]
+    assert cr.TAG_STATIC == 7 and cr.TAG_STATIC not in tags
+    for j in range(cr.static_words(depth)):
+        word = cr.counter_bits(seed, chains, step, j // 4, cr.TAG_STATIC)[:, j % 4]
+        assert torch.equal(w[:, j].long() & _MASK, word)
+        assert torch.equal(cr.words_to_uniform(w[:, j]), cr.bits_to_uniform(word))
+    assert torch.equal(w, cr.counter_rng_fill_reference(n, 2 + 2 * depth, seed, step,
+                                                        cr.TAG_STATIC, "bits"))

@@ -232,10 +232,13 @@ def test_draws_come_from_the_counter_stream():
 
 def test_backend_proposal_and_adaptation_errors():
     target, x0 = to_target("GaussianND", np.zeros(2), np.ones(2)), torch.zeros(4, 2)
-    for backend in ("static", "auto"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            NUTS(target, x0, backend=backend, device="cpu")
-    for backend in ("xla", "pallas", "cuda"):
+    assert NUTS(target, x0, device="cpu").backend == "auto"  # the default, as JAX's
+    with pytest.raises(ValueError, match="static backend"):  # at the default cap, 10
+        NUTS(target, x0, backend="static", device="cpu")
+    for backend in ("pallas", "pallas2"):
+        with pytest.raises(ValueError, match="retired"):
+            NUTS(target, x0, backend=backend, max_tree_depth=4, device="cpu")
+    for backend in ("xla", "cuda"):
         with pytest.raises(ValueError, match="unknown backend"):
             NUTS(target, x0, backend=backend, device="cpu")
     with pytest.raises(ValueError, match="unknown proposal"):
