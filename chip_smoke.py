@@ -86,6 +86,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
     (``backend="static"``), with the gates and fields of "nuts-main" and 15
     leapfrogs a step.
 
+12. the sampler runtime ("runtime-small", 256 chains of the 2-d target):
+    for HMC, MH (float and integer states), ChEES (adaptive and static) and
+    NUTS (``"torch"``, ``"static"``, ``"auto"``), checkpoint and resume,
+    ``chain``, ``track`` and both ``run_progress`` modes equal ``run`` bit
+    for bit, a resumed stream follows the checkpoint's seed, a fused run
+    leaves nothing to checkpoint; "resume-main", the ChEES headline
+    checkpointed half way and resumed on a fresh sampler, equal to
+    "chees-main"'s store bit for bit; "progress-main", the headline through
+    ``run_progress`` in the stream mode, equal to it bit for bit, with its
+    ticks, wall and the tracker's device operations a step; "rank-main",
+    the rank-normalized R-hat and bulk and tail ESS of that store on the
+    card, checked against the classic ESS and against the CPU in float64 on
+    a 256-chain slice; "nuts-resume", the NUTS leg's sampler with
+    ``backend="auto"`` checkpointed and resumed, equal to its uninterrupted
+    run bit for bit, through the static tree both times.
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -95,12 +111,16 @@ code 2 and prints no result.
 from __future__ import annotations
 
 import functools
+import io
 import itertools
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -110,6 +130,8 @@ from general_mcmc_torch import _build
 from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_logistic, fused_mh,
                                     static_tree, tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
+from general_mcmc_torch.utils.checkpoint import load_carry
+from general_mcmc_torch.utils.progress import ProgressRenderer
 
 # Published peaks of one H100 SXM at its full 700 W power limit: HBM rate,
 # the float32 rate outside the tensor cores and the dense TF32 rate of the
@@ -204,6 +226,20 @@ NUTS_WARMUP, NUTS_COLLECT, NUTS_ACCEPT, NUTS_DEPTH = 192, 3072, 0.90, 4
 # "nuts-static-small": the 2-d target and the funnel at the leg's cap, the
 # "auto" run of the headline target for 192 warmup and 64 collection steps
 NUTS_STATIC_AUTO_STEPS = (192, 64)
+
+# The sampler runtime.  "runtime-small": 256 chains of the 2-d target (a
+# Poisson count for integer MH), RT_WARMUP warmup steps (NUTS's short
+# windows end at steps 19 and 25 of them), RT_COLLECT collected,
+# checkpointed after RT_SPLIT of them.  "resume-main": the ChEES
+# headline checkpointed half way through its collection.  "nuts-resume": the
+# NUTS leg's sampler with backend="auto", NUTS_RESUME_COLLECT collected steps
+# (a twelfth of nuts-static's), checkpointed half way.
+RT_CHAINS, RT_WARMUP, RT_COLLECT, RT_SPLIT = 256, 32, 24, 9
+NUTS_RESUME_COLLECT = 256
+# "rank-main": the card's rank diagnostics on RANK_SLICE_CHAINS chains against
+# the same function on the CPU in float64, and the rank bulk ESS against the
+# classic min ESS of the same store
+RANK_SLICE_CHAINS, RANK_RTOL, RANK_ESS_RATIO = 256, 1e-4, (0.8, 1.25)
 
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
@@ -1059,7 +1095,8 @@ def profile_window(fn, steps: int, label: str) -> dict:
     """``fn()`` (``steps`` sampler steps) under ``torch.profiler``: the
     device's busy time (the union of the intervals of its kernels and memory
     operations), its share of the call's host wall, those operations a step,
-    and the five kernel names with the most device time; then the call
+    its device-to-host copies (read-backs), and the five kernel names with
+    the most device time; then the call
     again without the profiler, its CUDA-event time and host wall.  Where
     the profiler shows no device time the busy share is "not measured"."""
     from torch.profiler import ProfilerActivity, profile
@@ -1076,18 +1113,21 @@ def profile_window(fn, steps: int, label: str) -> dict:
     by_name = {}
     for e in ops:
         by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
+    dtoh = sum(e.name.startswith("Memcpy DtoH") for e in ops)
     event_ms, event_wall_s, _ = timed(fn, 3)
     measured = busy_us > 0.0
     out = dict(busy_share=f"{busy_us / wall_us:.4f}" if measured else "not measured",
                device_ms=f"{busy_us / 1e3:.3f}" if measured else "not measured",
                device_ops_per_step=f"{len(ops) / steps:.1f}" if measured else "not measured",
-               profiled_wall_ms=f"{wall_us / 1e3:.3f}", event_ms=f"{event_ms:.3f}",
+               read_backs=dtoh if measured else "not measured", profiled_wall_ms=f"{wall_us / 1e3:.3f}", event_ms=f"{event_ms:.3f}",
                wall_ms=f"{event_wall_s * 1e3:.3f}",
                busy_share_unprofiled=f"{busy_us / 1e3 / (event_wall_s * 1e3):.4f}"
                if measured else "not measured")
     say(label, steps=steps, **out, top_device_us=json.dumps(
         {k: round(v, 1) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}))
-    return dict(busy=busy_us / wall_us if measured else None)
+    return dict(busy=busy_us / wall_us if measured else None,
+                ops_per_step=len(ops) / steps if measured else None,
+                read_backs=dtoh if measured else None)
 
 
 def fill_timings(dev, n: int, shapes: dict):
@@ -1160,16 +1200,16 @@ def phase_chees_main(dev):
     mass_err = float((sampler.adapted_mass_inv.cpu() / scales**2 - 1.0).abs().max())
     divergences = int(sampler.divergences.sum())
     leapfrogs = int(sampler.leapfrog_count.sum())
-    del samples, store, carry
+    del samples, carry  # the store stays: resume-main, progress-main, rank-main read it
 
     # warm runs through ChEESHMC.run, split by the phase ends it records
     walls, parts = [], []
     for _ in range(3):
-        store = sampler.run(CHEES_COLLECT, CHEES_WARMUP, time_phases=True)
+        warm = sampler.run(CHEES_COLLECT, CHEES_WARMUP, time_phases=True)
         phases = sampler.phase_seconds
         walls.append(sum(phases.values()))
         parts.append((phases["init"], phases["warmup"], phases["collection"]))
-        del store
+        del warm
     order = sorted(range(3), key=walls.__getitem__)
     wall, (init_s, warm_s, coll_s) = walls[order[1]], parts[order[1]]
     adapted = sampler._final_carry
@@ -1196,7 +1236,8 @@ def phase_chees_main(dev):
         peak_memory_gb=f"{peak_gb:.2f}", fill_normal_pair_ms=f"{fill['normal_pair'][0]:.5f}",
         fill_uniform_ms=f"{fill['uniform'][0]:.5f}", bound_ms=f"{b_ms:.3f}",
         bound_by=b_by, wall_over_bound=f"{wall * 1e3 / b_ms:.1f}")
-    return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"])
+    return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"],
+                ops_per_step=prof["ops_per_step"], min_ess=min_ess, store=store)
 
 
 def phase_chees_logistic(dev):
@@ -1562,6 +1603,336 @@ def phase_nuts_static_small(dev):
     return dict(fill_launches=fills)
 
 
+def runtime_samplers(dev):
+    """The runtime-small samplers: ``{name: factory(seed)}`` at 256 chains
+    of the 2-d autograd target (MH: the Gaussian, and a Poisson count on
+    integer states; NUTS at the leg's cap with the diagonal metric)."""
+    n = RT_CHAINS
+    x0 = lambda: gmt.init_with_seed(n, 2, 5, device=dev)
+    t2 = lambda: gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=dev)
+    nuts = lambda backend: lambda seed: gmt.NUTS(
+        t2(), x0(), 0.8, seed=seed, max_tree_depth=NUTS_DEPTH, backend=backend,
+        proposal="multinomial", mass_config=gmt.NUTSMassMatrixConfig(adaptation="diagonal",
+                                                                      **NUTS_SHORT_WINDOWS))
+    return {
+        "hmc": lambda seed: gmt.HMC(t2(), x0(), 0.2, 5, seed=seed),
+        "mh": lambda seed: gmt.MetropolisHastings(gmt.Gaussian2D(MH_MEAN, MH_COV, device=dev),
+                                                  gmt.RandomWalkProposal(MH_SCALE), x0(),
+                                                  seed=seed),
+        "mh_int": lambda seed: gmt.MetropolisHastings(
+            gmt.Poisson(4.0), gmt.DiscreteWalkProposal(),
+            torch.full((n, 1), 4, dtype=torch.int32, device=dev), seed=seed),
+        "chees": lambda seed: gmt.ChEESHMC(t2(), x0(), seed=seed),
+        "chees_static": lambda seed: gmt.ChEESHMC(t2(), x0(), seed=seed, static_collection=True),
+        "nuts_torch": nuts("torch"),
+        "nuts_static": nuts("static"),
+        "nuts_auto": nuts("auto"),
+    }
+
+
+def phase_runtime_small(dev, tmp: str):
+    """The sampler runtime at 256 chains, every check ``torch.equal``: for
+    every sampler ``run(N, K)`` equals ``run(N₁, K)`` + ``save_checkpoint``
+    + ``resume(N − N₁)`` on a fresh sampler of another seed (the
+    checkpoint's stream is resumed; ``"auto"`` resumes on the sampler that
+    ran, which keeps its resolved tree); ``chain(K)`` + ``step(K)`` +
+    ``step(N)`` and both ``run_progress`` modes equal ``run`` (but for
+    ``"auto"``, whose incremental and progress drivers step one tree);
+    ``track(f).run`` is ``f`` of ``run``; ``save_checkpoint`` after
+    ``HMC(backend="cuda").run`` raises; ChEES's resumed segment issues two
+    fill launches a step."""
+    factories = runtime_samplers(dev)
+    K, N, N1 = RT_WARMUP, RT_COLLECT, RT_SPLIT
+    f = lambda x: torch.stack([x[:, 0] - x[:, -1], 2.0 * x[:, 0]], dim=1)
+    checked = {}
+    t0 = time.perf_counter()
+    reset_counts()
+    for name, make in factories.items():
+        ref = make(SEED).run(N, K)
+        part = make(SEED)
+        first = part.run(N1, K)
+        path = f"{tmp}/{name}.npz"
+        part.save_checkpoint(path)
+        auto = name == "nuts_auto"
+        resumer = part if auto else make(SEED + 1)
+        fills0 = counter_rng.launches
+        rest = resumer.resume(path, N - N1)
+        torch.cuda.synchronize()
+        if name.startswith("chees"):
+            check(counter_rng.launches - fills0 == 2 * (N - N1),
+                  f"ChEES resume: {counter_rng.launches - fills0} fill launches for "
+                  f"{N - N1} steps")
+        check(torch.equal(torch.cat([first, rest], dim=1), ref),
+              f"{name}: run(N1) + checkpoint + resume equals run(N)")
+        names = ["resume"]
+        if not auto:
+            ch = make(SEED).chain(K)
+            ch.step(K)
+            block = ch.step(N)
+            if name != "chees_static":  # chain steps the adaptive law
+                check(torch.equal(block, ref), f"{name}: chain(K) + step(K) + step(N) == run")
+                names.append("chain")
+            for mode in ("stream", "chunked"):
+                got, _stats = make(SEED).run_progress(N, K, progress=False, mode=mode)
+                check(torch.equal(got, ref), f"{name}: run_progress {mode} == run")
+            names.append("progress")
+        if not name.startswith("mh_int"):
+            tracked = make(SEED).track(f).run(N, K)
+            check(torch.equal(tracked, f(ref.reshape(-1, 2)).reshape(RT_CHAINS, N, 2)),
+                  f"{name}: track(f).run == f(run)")
+            names.append("track")
+        checked[name] = "+".join(names)
+    torch.cuda.synchronize()
+    fills = counter_rng.launches
+    # a checkpoint written on the card resumes on the CPU
+    hmc_cpu = gmt.HMC(gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device="cpu"),
+                      gmt.init_with_seed(RT_CHAINS, 2, 5, device="cpu"), 0.2, 5, seed=SEED + 1,
+                      device="cpu")
+    on_cpu = hmc_cpu.resume(f"{tmp}/hmc.npz", 3)
+    check(on_cpu.device.type == "cpu" and tuple(on_cpu.shape) == (RT_CHAINS, 3, 2)
+          and bool(torch.isfinite(on_cpu).all()), "a card checkpoint resumes on the CPU")
+    fused = gmt.HMC(gmt.GaussianND(torch.zeros(2), torch.ones(2), device=dev),
+                    gmt.init_with_seed(RT_CHAINS, 2, 5, device=dev), 0.2, 5, backend="cuda")
+    fused.run(4, 2)
+    try:
+        fused.save_checkpoint(f"{tmp}/fused.npz")
+        raise RuntimeError("check failed: save_checkpoint after a fused run did not raise")
+    except RuntimeError as e:
+        check("nothing to checkpoint" in str(e), f"fused run: {e}")
+    say("runtime-small", chains=RT_CHAINS, steps=f"{K}+{N}", split=N1,
+        wall_s=f"{time.perf_counter() - t0:.2f}",
+        checked=json.dumps(checked), fused_checkpoint_raises=True, resumed_on_cpu=True,
+        chees_resume_fills_per_step=2, fill_launches=fills)
+    return dict(fill_launches=fills)
+
+
+def phase_resume_main(dev, store, tmp: str):
+    """The ChEES headline at full width checkpointed half way:
+    ``run(1536, 192)``, ``save_checkpoint``, then ``resume(1536)`` on a
+    fresh sampler of another seed; both halves equal the uninterrupted
+    store of "chees-main" bit for bit.  Prints the checkpoint's bytes, the
+    save and load seconds, the resume's wall and its fill launches."""
+    half = CHEES_COLLECT // 2
+    path = f"{tmp}/chees_main.npz"
+    reset_counts()
+    _, part = headline_sampler(dev)
+    first = part.run(half, CHEES_WARMUP)
+    torch.cuda.synchronize()
+    first_fills = counter_rng.launches
+    t0 = time.perf_counter()
+    part.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    n_bytes = os.path.getsize(path)
+    check(torch.equal(first, store[:half].transpose(0, 1)),
+          "resume-main: run(1536, 192) equals the first half of chees-main")
+    del first
+    t0 = time.perf_counter()
+    loaded = load_carry(path, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    del loaded
+    _, fresh = headline_sampler(dev)
+    fresh.set_seed(SEED + 1)  # the checkpoint's stream, whatever the sampler's seed
+    fills0 = counter_rng.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rest = fresh.resume(path, half)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    resume_fills = counter_rng.launches - fills0
+    check(resume_fills == 2 * half, f"resume-main: {resume_fills} fill launches == 2 x {half}")
+    check(torch.equal(rest, store[half:].transpose(0, 1)),
+          "resume-main: resume(1536) equals the second half of chees-main")
+    check(fresh._steps_done == CHEES_WARMUP + CHEES_COLLECT, "resume-main: step count")
+    del rest
+    os.remove(path)
+    say("resume-main", chains=N_CHAINS, dim=DIM, steps=f"{CHEES_WARMUP}+{half}+{half}",
+        L=fresh._static_L, bit_equal=True, checkpoint_bytes=n_bytes, save_s=f"{save_s:.4f}",
+        load_s=f"{load_s:.4f}", resume_wall_s=f"{resume_s:.4f}",
+        resume_fill_launches=resume_fills, first_fill_launches=first_fills)
+    return dict(fill_launches=first_fills + resume_fills)
+
+
+class TickRenderer(ProgressRenderer):
+    """The progress renderer writing to an in-memory stream, recording every
+    update it is given: ``(done, max R-hat, p_accept, view type)``."""
+
+    def __init__(self, n_chains: int, total_steps: int):
+        super().__init__(n_chains, total_steps, stream=io.StringIO())
+        self.ticks = []
+
+    def update(self, done, tracker=None):
+        self.ticks.append((done, tracker.max_rhat(), tracker.p_accept, type(tracker).__name__))
+        super().update(done, tracker)
+
+
+def phase_progress_main(dev, store, chees: dict):
+    """The ChEES headline through ``run_progress(3072, 192)``: ``"auto"``
+    picks the stream mode (13 GB would be staged); the renderer writes to
+    an in-memory stream.  The samples equal "chees-main"'s bit for bit.
+    Prints the hook count (3 warmup ticks, 48 collection ticks), the final
+    streamed max R-hat and p_accept, the wall beside chees-main's, and the
+    device operations a step and busy share of a 50-step collection window
+    with the stream tracker (:func:`..core.run_kernel_progress_stream`), to
+    set beside "chees-main-window"'s: the difference is the tracker's; and
+    the whole collection from the adapted carry through ``run_kernel`` and
+    through the stream runner, in turns."""
+    from general_mcmc_torch.samplers import base as base_module
+
+    steps = CHEES_WARMUP + CHEES_COLLECT
+    staged = steps * N_CHAINS * DIM * 4
+    check(staged > base_module.BatchSampler._AUTO_STREAM_BYTES, "progress-main stages > 64 MiB")
+    renderers = []
+    real = base_module.ProgressRenderer
+    base_module.ProgressRenderer = lambda n, total: renderers.append(TickRenderer(n, total)) \
+        or renderers[-1]
+    try:
+        _, sampler = headline_sampler(dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples, stats = sampler.run_progress(CHEES_COLLECT, CHEES_WARMUP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fills = counter_rng.launches
+    finally:
+        base_module.ProgressRenderer = real
+    ticks = renderers[0].ticks
+    done = [t[0] for t in ticks]
+    want = [64, 128, 192] + [CHEES_WARMUP + 64 * k for k in range(1, CHEES_COLLECT // 64 + 1)]
+    check(done == want, f"progress-main ticks at {done[:5]}..., {len(done)} of {len(want)}")
+    check({t[3] for t in ticks} == {"_LatestStats"}, "progress-main ran the stream mode")
+    check(fills == 2 * steps + 1, f"progress-main: {fills} fill launches == 2 x {steps} + 1")
+    check(torch.equal(samples.transpose(0, 1), store), "progress-main samples equal chees-main's")
+    t0 = time.perf_counter()
+    gmt.RunStats.from_sample(samples)
+    stats_s = time.perf_counter() - t0
+    last_rhat, last_p = ticks[-1][1], ticks[-1][2]
+    check(math.isfinite(last_rhat) and last_rhat < 1.01,
+          f"progress-main streamed max R-hat {last_rhat} < 1.01")
+    check(stats.rhat.max < 1.01, f"progress-main RunStats max R-hat {stats.rhat.max} < 1.01")
+    del samples
+    adapted = sampler._final_carry
+    static_fn = sampler._static_fn(adapted)
+    # the whole collection from the adapted carry without and with the
+    # stream tracker, in turns (plain, stream, stream, plain), one store at
+    # a time beside chees-main's
+    collect = {
+        "plain": lambda: gmt.run_kernel(static_fn, adapted, CHEES_COLLECT, 0,
+                                        step_offset=CHEES_WARMUP).samples,
+        "stream": lambda: gmt.run_kernel_progress_stream(
+            static_fn, adapted, CHEES_COLLECT, 0, lambda *tick: None).samples,
+    }
+    turns = {"plain": [], "stream": []}
+    for kind in ("plain", "stream", "stream", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collect[kind]()
+        torch.cuda.synchronize()
+        turns[kind].append(time.perf_counter() - t0)
+        del out
+    stream_over_plain = sum(turns["stream"]) / sum(turns["plain"])
+    window = lambda: gmt.run_kernel_progress_stream(static_fn, adapted, CHEES_WINDOW, 0,
+                                                    lambda *tick: None)
+    window()
+    prof = profile_window(window, CHEES_WINDOW, "progress-main-window")
+    tracker_ops = (None if prof["ops_per_step"] is None or chees["ops_per_step"] is None
+                   else prof["ops_per_step"] - chees["ops_per_step"])
+    # the window's one tick (its remainder at step 50) is its only read-back
+    check(prof["read_backs"] in (None, 1), f"progress-main window: {prof['read_backs']} "
+          "read-backs, the tick's only")
+    say("progress-main", chains=N_CHAINS, dim=DIM, steps=f"{CHEES_WARMUP}+{CHEES_COLLECT}",
+        mode="stream", staged_gb=f"{staged / 1e9:.2f}", bit_equal=True, hooks=len(ticks),
+        warmup_hooks=sum(d <= CHEES_WARMUP for d in done),
+        streamed_max_rhat=f"{last_rhat:.5f}", streamed_p_accept=f"{last_p:.5f}",
+        runstats_max_rhat=f"{stats.rhat.max:.5f}", wall_s=f"{wall:.4f}",
+        runstats_s=f"{stats_s:.4f}", wall_less_runstats_s=f"{wall - stats_s:.4f}",
+        chees_main_wall_s=f"{chees['wall']:.4f}",
+        wall_over_chees_main=f"{(wall - stats_s) / chees['wall']:.4f}",
+        collection_plain_s=json.dumps([round(t, 4) for t in turns["plain"]]),
+        collection_stream_s=json.dumps([round(t, 4) for t in turns["stream"]]),
+        collection_stream_over_plain=f"{stream_over_plain:.4f}",
+        window_ops_per_step="not measured" if prof["ops_per_step"] is None
+        else f"{prof['ops_per_step']:.1f}",
+        tracker_ops_per_step="not measured" if tracker_ops is None else f"{tracker_ops:.1f}",
+        fill_launches=fills)
+    return dict(fill_launches=fills)
+
+
+def phase_rank_main(dev, store, classic_min_ess: float):
+    """``rank_normalized_summary`` of "chees-main"'s store (steps-major, on
+    the card, parameters a block at a time sized from the free memory):
+    max rank-normalized R-hat < 1.01, every ESS finite, the least bulk ESS
+    within 0.8–1.25 times the classic least ESS of the same store (on this
+    Gaussian both estimate the same thing); on a 256-chain slice the card's
+    result equals the same function on the CPU in float64 within rtol
+    1e-4.  Prints the seconds, the added peak memory and the minima."""
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rank = gmt.rank_normalized_summary(store, steps_major=True)
+    torch.cuda.synchronize()
+    rank_s = time.perf_counter() - t0
+    added_gb = (torch.cuda.max_memory_allocated() - base_bytes) / 1e9
+    max_rhat = float(rank.rhat.max())
+    min_bulk, min_tail = float(rank.ess_bulk.min()), float(rank.ess_tail.min())
+    check(max_rhat < 1.01, f"rank-main max rank-normalized R-hat {max_rhat} < 1.01")
+    check(bool(torch.isfinite(rank.ess_bulk).all() & torch.isfinite(rank.ess_tail).all()),
+          "rank-main: every ESS finite")
+    ratio = min_bulk / classic_min_ess
+    check(RANK_ESS_RATIO[0] <= ratio <= RANK_ESS_RATIO[1],
+          f"rank-main: least bulk ESS / classic least ESS {ratio} in {RANK_ESS_RATIO}")
+    part = store[:, :RANK_SLICE_CHAINS]
+    on_card = gmt.rank_normalized_summary(part, steps_major=True)
+    t0 = time.perf_counter()
+    on_cpu = gmt.rank_normalized_summary(part.cpu().double(), steps_major=True)
+    cpu_s = time.perf_counter() - t0
+    rel = max(float(((a.cpu().double() - b) / b).abs().max()) for a, b in zip(on_card, on_cpu))
+    check(rel < RANK_RTOL, f"rank-main: the card's {RANK_SLICE_CHAINS}-chain slice against the "
+          f"CPU in float64, {rel} < {RANK_RTOL}")
+    say("rank-main", draws_per_param=store.shape[0] * store.shape[1], params=store.shape[2],
+        seconds=f"{rank_s:.3f}", added_peak_memory_gb=f"{added_gb:.2f}",
+        max_rank_rhat=f"{max_rhat:.5f}", min_ess_bulk=f"{min_bulk:.1f}",
+        min_ess_tail=f"{min_tail:.1f}", classic_min_ess=f"{classic_min_ess:.1f}",
+        bulk_over_classic=f"{ratio:.4f}", slice_chains=RANK_SLICE_CHAINS,
+        slice_max_rel_err=f"{rel:.2e}", slice_cpu_f64_s=f"{cpu_s:.2f}")
+
+
+def phase_nuts_resume(dev, tmp: str):
+    """The NUTS leg's sampler at full width (10,240 × 100, cap 4, diagonal
+    metric, multinomial proposal) with ``backend="auto"``: ``run(256,
+    192)`` against ``run(128, 192)`` + ``save_checkpoint`` + ``resume(128)``
+    on the same sampler (as tests/test_nuts_auto.py does), bit for bit,
+    ``"static"`` selected by both runs.  256 collected steps, a twelfth of
+    "nuts-static"'s, keep the phase to about half a minute."""
+    path = f"{tmp}/nuts_auto.npz"
+    half = NUTS_RESUME_COLLECT // 2
+    t_phase = time.perf_counter()
+    reset_counts()
+    _, s = nuts_headline(dev, backend="auto")
+    want = s.run(NUTS_RESUME_COLLECT, NUTS_WARMUP)
+    whole = s.backend_selected
+    first = s.run(half, NUTS_WARMUP)
+    split = s.backend_selected
+    s.save_checkpoint(path)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rest = s.resume(path, half)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    fills = counter_rng.launches
+    check(whole == split == "static", f"nuts-resume: auto selected {whole!r} and {split!r}")
+    check(torch.equal(torch.cat([first, rest], dim=1), want),
+          "nuts-resume: run(128) + checkpoint + resume(128) equals run(256)")
+    os.remove(path)
+    say("nuts-resume", chains=N_CHAINS, dim=DIM, steps=f"{NUTS_WARMUP}+{half}+{half}",
+        backend="auto", backend_selected=whole, bit_equal=True,
+        resume_wall_s=f"{resume_s:.4f}", phase_wall_s=f"{time.perf_counter() - t_phase:.2f}",
+        fill_launches=fills)
+    return dict(fill_launches=fills)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1583,7 +1954,15 @@ def main() -> int:
     k3_widths = phase_k3_widths(dev)
     logistic = phase_logistic(dev)
     chees_small = phase_chees_small(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    runtime = phase_runtime_small(dev, tmp)
     chees = phase_chees_main(dev)
+    store = chees.pop("store")  # the uninterrupted headline store
+    resumed = phase_resume_main(dev, store, tmp)
+    progress = phase_progress_main(dev, store, chees)
+    phase_rank_main(dev, store, chees["min_ess"])
+    del store
+    torch.cuda.empty_cache()
     phase_chees_logistic(dev)
     nuts_small = phase_nuts_small(dev)
     nuts = phase_nuts_leg(dev, "torch")
@@ -1592,6 +1971,12 @@ def main() -> int:
     say("nuts-leg-compare",
         static_over_dynamic_min_ess_per_s=f"{static['min_ess_per_s'] / nuts['min_ess_per_s']:.4f}",
         static_over_dynamic_wall=f"{static['wall'] / nuts['wall']:.4f}")
+    nuts_resume = phase_nuts_resume(dev, tmp)
+    shutil.rmtree(tmp)
+    runtime_fills = {"runtime-small": runtime["fill_launches"],
+                     "resume-main": resumed["fill_launches"],
+                     "progress-main": progress["fill_launches"],
+                     "nuts-resume": nuts_resume["fill_launches"]}
     kernels = [
         dict(name="fused_hmc", route="cuda", source="general_mcmc_torch/csrc/fused_hmc.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
@@ -1611,13 +1996,16 @@ def main() -> int:
         # window end: fill_launches, nuts_fill_launches for the dynamic tree,
         # nuts_static_fill_launches for the static one).  ms, plain_ms and the
         # bound are the fill kernel's at 10,240 x 128 words (phase "K2");
+        # runtime_fill_launches: the fill launches of the runtime phases, each
+        # counted from 0 over its runs (in launches too);
         # chees_fill_ms, nuts_fill_ms and nuts_static_fill_ms at the ChEES and
         # the two NUTS paths' shapes, each with its bound.
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
              launches=(main_path["launches"] + mh["launches"] + chees["fill_launches"]
-                       + nuts["fill_launches"] + static["fill_launches"]),
+                       + nuts["fill_launches"] + static["fill_launches"]
+                       + sum(runtime_fills.values())),
              runs_inside="fused_hmc, fused_mh",
              fill_launches=chees["fill_launches"],
              fill_launches_checked=chees_small["fill_launches"],
@@ -1635,8 +2023,10 @@ def main() -> int:
                             for k, v in chees["fill"].items()},
              chees_fill_bound_ms={k: v[1] for k, v in chees["fill"].items()},
              wrapper_call_ms=k2["wrapper_call_ms"],
+             runtime_fill_launches=runtime_fills,
              checked_in="K2, chees-small, chees-main, nuts-small, nuts-main, "
-                        "nuts-static-small, nuts-static"),
+                        "nuts-static-small, nuts-static, runtime-small, resume-main, "
+                        "progress-main, nuts-resume"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),

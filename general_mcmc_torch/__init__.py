@@ -6,16 +6,41 @@ dynamic tree, the static window and ``backend="auto"``, slice and
 multinomial proposals, Stan-windowed diagonal and dense metrics) in plain
 PyTorch, their draws from the counter generator's fill kernel on the card; the Gaussian, Rosenbrock, funnel, discrete and
 hierarchical-logistic targets, the fused
-logistic gradient chain (``ops.fused_logistic``), and split-R-hat/ESS
-diagnostics.  Entry points run on the card unless given ``device="cpu"``.
+logistic gradient chain (``ops.fused_logistic``); the sampler runtime
+(``chain``, ``track``, checkpoints and ``resume``, ``run_progress`` with
+streaming R-hat) on every sampler; and split-R-hat/ESS, streaming and
+rank-normalized diagnostics.  Entry points run on the card unless given
+``device="cpu"``.
 The package imports torch and numpy only; its CUDA sources are compiled
 with ``nvcc`` at first use.
 """
 
-from .core import init, init_det, init_with_seed, run_kernel, run_kernel_stats
+from .core import (
+    advance_kernel,
+    init,
+    init_det,
+    init_with_seed,
+    run_kernel,
+    run_kernel_progress,
+    run_kernel_progress_stream,
+    run_kernel_stats,
+)
 from .diagnostics.stats import (
+    BasicStats,
+    ChainStats,
+    ChainTracker,
+    MultiChainTracker,
+    RunStats,
+    basic_stats,
     chain_suffstats,
+    collect_rhat,
     combine_suffstats_host,
+    ess_bulk,
+    ess_from_chainstats,
+    ess_tail,
+    max_skipnan,
+    rank_normalized_rhat,
+    rank_normalized_summary,
     split_rhat_mean_ess,
 )
 from .models.distributions import (
@@ -35,6 +60,7 @@ from .models.regression import (
     HierarchicalLogisticNC,
     make_logistic_data,
 )
+from .samplers.base import BatchChain, BatchSampler
 from .samplers.chees import ChEESHMC, halton_base2
 from .samplers.hmc import HMC, leapfrog
 from .samplers.metropolis_hastings import (
@@ -74,7 +100,25 @@ __all__ = [
     "init_with_seed",
     "run_kernel",
     "run_kernel_stats",
+    "advance_kernel",
+    "run_kernel_progress",
+    "run_kernel_progress_stream",
+    "BatchSampler",
+    "BatchChain",
     "split_rhat_mean_ess",
     "chain_suffstats",
     "combine_suffstats_host",
+    "BasicStats",
+    "ChainStats",
+    "ChainTracker",
+    "MultiChainTracker",
+    "RunStats",
+    "basic_stats",
+    "collect_rhat",
+    "ess_bulk",
+    "ess_from_chainstats",
+    "ess_tail",
+    "max_skipnan",
+    "rank_normalized_rhat",
+    "rank_normalized_summary",
 ]

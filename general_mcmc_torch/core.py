@@ -1,6 +1,6 @@
-"""Chain runtime: device choice, initializers and the step-loop runner.
+"""Chain runtime: device choice, initializers and the step-loop runners.
 
-Port of ``general_mcmc_tpu/core.py``.  The JAX runner traces burn-in and
+Port of ``general_mcmc_tpu/core.py``.  The JAX runners trace burn-in and
 collection into ``lax.scan`` programs; PyTorch runs eagerly, so here a run
 is a Python loop over absolute step indices that calls the step function
 and copies every ``thin``-th post-step state of the collection phase into a
@@ -9,12 +9,24 @@ TPU-only parts of the JAX runner are left out: the layout pinning of the
 samples buffer and the split of burn-in and collection into two compiled
 programs exist to steer the TPU compiler, and an eager loop has neither
 problem.
+
+Besides :func:`run_kernel` there are the incremental runner
+:func:`advance_kernel` (``BatchChain.step``) and the two progress runners:
+:func:`run_kernel_progress`, which hands each block of ``chunk`` post-step
+states to a callback, and :func:`run_kernel_progress_stream`, which keeps a
+streaming R-hat tracker on the device and reads back a few scalars every
+``stride`` steps.  The progress runners take an optional
+``collection_fn``: a function of the post-warmup carry that gives the
+collection phase's step function (ChEES's static law); the JAX runners
+take one step function for the whole run.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .rng import as_seed, random_seed
@@ -26,6 +38,9 @@ __all__ = [
     "init_with_seed",
     "run_kernel",
     "run_kernel_stats",
+    "advance_kernel",
+    "run_kernel_progress",
+    "run_kernel_progress_stream",
     "KernelRun",
     "KernelRunStats",
 ]
@@ -127,3 +142,102 @@ def run_kernel_stats(step_fn: Callable, carry, n_collect: int, n_discard: int,
     out = run_kernel(step_fn, carry, n_collect, n_discard, step_offset, thin)
     stats = chain_suffstats(out.samples, split=True, steps_major=True)
     return KernelRunStats(out.carry, out.samples, stats)
+
+
+def advance_kernel(step_fn: Callable, carry, n: int, step_offset: int) -> KernelRun:
+    """Advance ``n`` steps from absolute step index ``step_offset`` and keep
+    every post-step state: ``samples [n, n_chains, k]``, steps-major.  The
+    incremental driver of ``BatchChain.step``."""
+    return run_kernel(step_fn, carry, n, 0, step_offset=step_offset)
+
+
+def run_kernel_progress(step_fn: Callable, carry, n_collect: int, n_discard: int,
+                        callback: Callable, chunk: int = 64,
+                        collection_fn: Callable | None = None) -> KernelRun:
+    """:func:`run_kernel` from step 0, calling ``callback(done, states)``
+    after every ``chunk`` steps (and at the end) with the ``[≤chunk,
+    n_chains, k]`` block of the chunk's post-step states, burn-in included.
+    Only the collected states are kept, in a steps-major store on the
+    states' device (the JAX runner stages them through the host).
+    ``collection_fn``, if given, maps the post-warmup carry to the step
+    function of the collection phase."""
+    fn, samples, block = step_fn, None, []
+    total = n_discard + n_collect
+    for m in range(total):
+        if m == n_discard and collection_fn is not None:
+            fn = collection_fn(carry)
+        carry = fn(carry, m)
+        state = fn.extract(carry)
+        block.append(state)
+        if m >= n_discard:
+            if samples is None:
+                samples = state.new_empty((n_collect,) + tuple(state.shape))
+            samples[m - n_discard] = state
+        done = m + 1
+        if len(block) == chunk or done == total:
+            callback(done, torch.stack(block))
+            block = []
+    if samples is None:
+        state = fn.extract(carry)
+        samples = state.new_empty((0,) + tuple(state.shape))
+    return KernelRun(carry, samples)
+
+
+def run_kernel_progress_stream(step_fn: Callable, carry, n_collect: int, n_discard: int,
+                               hook: Callable, stride: int = 64,
+                               collection_fn: Callable | None = None) -> KernelRun:
+    """Progress with the statistics kept on the device: a streaming
+    multi-chain tracker (``diagnostics.stats._multi_update``, in float32
+    from the extracted state cast to float32, its initial state zeros,
+    ``p_accept`` 0 and ``p_chain`` −1) is updated after every step, and
+    after every ``stride`` steps of a phase, and once more at a phase's
+    remainder, one read-back of a few scalars goes to ``hook(done,
+    max_rhat, p_accept, window_start, p_chain_window)``: ``done`` the
+    steps run, ``max_rhat`` the largest finite R-hat (NaN when none is),
+    the pooled acceptance EWMA, and a ≤5-chain window of per-chain EWMAs
+    starting at chain ``(done // stride) % n_chains`` and wrapping around,
+    a float32 numpy array.  Burn-in and collection are the two phases.
+    The collected states stay on the device, steps-major.
+    ``collection_fn`` as in :func:`run_kernel_progress`."""
+    from .diagnostics.stats import _decay, _initial_state, _multi_update, _multi_within_and_var
+
+    x0 = step_fn.extract(carry)
+    n_chains = x0.shape[0]
+    n_head = min(5, n_chains)
+    tstate = _initial_state(n_chains, x0.shape[1], torch.float32, x0.device)
+    decay = _decay(tstate)
+
+    def emit(done: int, ts) -> None:
+        within, var = _multi_within_and_var(ts)
+        rhat = torch.sqrt(var / within)
+        finite = torch.isfinite(rhat)
+        max_rhat = torch.where(finite, rhat, -math.inf).max()
+        start = (done // stride) % n_chains
+        window = torch.cat([ts.p_chain, ts.p_chain[:n_head]])[start:start + n_head]
+        row = torch.cat([max_rhat.reshape(1), ts.p_accept.reshape(1),
+                         finite.any().to(torch.float32).reshape(1), window])
+        vals = row.cpu().numpy()  # the tick's one read-back
+        # all-NaN R-hats (the first updates) show as NaN, not -inf
+        top = vals[0] if vals[2] else np.float32(np.nan)
+        hook(done, top, vals[1], start, vals[3:])
+
+    fn, samples = step_fn, None
+    total = n_discard + n_collect
+    for m in range(total):
+        if m == n_discard and collection_fn is not None:
+            fn = collection_fn(carry)
+        carry = fn(carry, m)
+        x = fn.extract(carry)
+        tstate = _multi_update(tstate, x.to(torch.float32), decay)
+        if m >= n_discard:
+            if samples is None:
+                samples = x.new_empty((n_collect,) + tuple(x.shape))
+            samples[m - n_discard] = x
+        done = m + 1
+        phase_start = 0 if done <= n_discard else n_discard
+        phase_end = n_discard if done <= n_discard else total
+        if (done - phase_start) % stride == 0 or done == phase_end:
+            emit(done, tstate)
+    if samples is None:
+        samples = x0.new_empty((0,) + tuple(x0.shape))
+    return KernelRun(carry, samples)

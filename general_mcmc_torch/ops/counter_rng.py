@@ -43,8 +43,9 @@ sampler reads:
 - NUTS's static tree at doubling cap ``J``: the momenta are HMC's, and the
   rest one word sequence under ``TAG_STATIC``, ``2 + 2J`` raw words a step
   (:func:`static_draws`; ``ops.static_tree.StaticDraws.from_words`` reads
-  them): word 0's uniform gives the slice's Exp(1), ``−log1p(−u₀)``, as
-  the JAX package draws it, in both proposal modes; word 1's top ``J``
+  them): word 0's uniform gives the slice's Exp(1), ``−log(u₀)`` (finite
+  at every word; the law of the JAX package's draw), in both proposal
+  modes; word 1's top ``J``
   bits the window offset ``o``, exactly uniform on ``{0, …, 2^J − 1}`` as
   JAX's ``randint(0, 2^J)``; words ``2 … J + 1`` give ``u_sel`` and
   ``J + 2 … 2J + 1`` ``u_swap``, one uniform a doubling each.  The offset

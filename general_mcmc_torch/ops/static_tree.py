@@ -96,14 +96,15 @@ class StaticDraws(NamedTuple):
                    dense: bool = False) -> "StaticDraws":
         """The draws from normals ``z [n, d]`` and the ``2 + 2·depth`` words
         ``w`` a chain of :func:`..ops.counter_rng.static_draws`: word 0's
-        uniform ``u₀`` gives ``expo = −log1p(−u₀)`` (``+inf`` only at the
-        top word, whose uniform rounds to 1.0 in float32, as in
-        :meth:`..ops.tree.TreeDraws.from_uniforms`), word 1's top ``depth``
-        bits the offset, words ``2 … depth + 1`` ``u_sel`` and the rest
-        ``u_swap``, in ``z``'s dtype."""
+        uniform ``u₀`` gives ``expo = −log(u₀)``, finite at every word since
+        ``u₀`` lies in (0, 1], as in :meth:`..ops.tree.TreeDraws.from_uniforms`
+        (the reading was ``−log1p(−u₀)``, +inf at the top word, until the
+        stream changed to this one), word 1's top ``depth`` bits the
+        offset, words ``2 … depth + 1`` ``u_sel`` and the rest ``u_swap``,
+        in ``z``'s dtype."""
         u = counter_rng.words_to_uniform(w).to(z.dtype)
         offset = (w[:, 1].to(torch.int64) & 0xFFFFFFFF) >> (32 - depth)
-        return cls(mom0=sample_momentum(z, mass, dense), expo=-torch.log1p(-u[:, 0]),
+        return cls(mom0=sample_momentum(z, mass, dense), expo=-torch.log(u[:, 0]),
                    offset=offset, u_sel=u[:, 2:2 + depth], u_swap=u[:, 2 + depth:])
 
 

@@ -223,11 +223,15 @@ class TreeDraws(NamedTuple):
     @classmethod
     def from_uniforms(cls, z: torch.Tensor, u: torch.Tensor, depth: int) -> "TreeDraws":
         """The draws from normals ``z`` and ``tree_words(depth)`` uniforms
-        ``u [n, ·]`` a chain: word 0 the slice's (its Exp(1) is
-        ``−log1p(−u)``, finite at ``u = 0``), words ``1 + 2j`` and
+        ``u [n, ·]`` a chain: word 0 the slice's, words ``1 + 2j`` and
         ``2 + 2j`` doubling ``j``'s direction and swap, and leaf column
-        ``c`` word ``1 + 2·depth + c``."""
-        return cls(z=z, e=-torch.log1p(-u[:, 0]), u_dir=u[:, 1:1 + 2 * depth:2],
+        ``c`` word ``1 + 2·depth + c``.  The slice's Exp(1) is ``−log(u)``:
+        the counter uniform lies in (0, 1] (its least value 2⁻²⁵, its top
+        word rounding to 1.0 in float32), so it is finite at every word,
+        with the law of JAX's ``−log1p(−u)`` over [0, 1).  (Until this
+        reading the port took ``−log1p(−u)``, +inf at the top word; the
+        stream of every NUTS run changed with it.)"""
+        return cls(z=z, e=-torch.log(u[:, 0]), u_dir=u[:, 1:1 + 2 * depth:2],
                    u_swap=u[:, 2:2 + 2 * depth:2], u_leaf=u[:, 1 + 2 * depth:])
 
 

@@ -7,19 +7,75 @@ burn-in followed by collection (:func:`..core.run_kernel`).  Randomness is
 addressed by (stream key, global chain index, step), the counterpart of
 the JAX package's per-chain Threefry keys.
 
-Not ported yet: progress mode, checkpoint/resume, ``track`` and ``chain``.
+Every sampler inherits the runtime around its step: ``run``, incremental
+driving (:meth:`BatchSampler.chain`, :class:`BatchChain`), derived
+quantities (:meth:`BatchSampler.track`), checkpoints
+(:meth:`BatchSampler.save_checkpoint`, :meth:`BatchSampler.resume`) and
+progress with streaming R-hat (:meth:`BatchSampler.run_progress`).
+
+The JAX carry holds each chain's key, so a JAX checkpoint continues its
+own stream whatever seed the resuming sampler holds.  The port's carry
+holds no keys: the draws of a step are addressed by the sampler's seed.
+So a checkpoint stores the stream key its carry was drawn under beside
+the carry, and :meth:`BatchSampler.resume` draws under that key, which
+keeps JAX's behaviour.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import torch
 
-from ..core import resolve_device, run_kernel
+from ..core import (
+    advance_kernel,
+    resolve_device,
+    run_kernel,
+    run_kernel_progress,
+    run_kernel_progress_stream,
+)
+from ..diagnostics.stats import MultiChainTracker, RunStats
 from ..rng import as_seed, chain_ids, stream_key
+from ..utils.progress import ProgressRenderer
 
-__all__ = ["BatchSampler"]
+__all__ = ["BatchSampler", "BatchChain"]
+
+
+class BatchChain:
+    """Incremental driving of all chains: create it with
+    :meth:`BatchSampler.chain`, call :meth:`step` repeatedly and read
+    :meth:`current_state` between calls.  Step indices are absolute and
+    continue across calls, and the draws stay under the key the chain was
+    opened with, so ``step(K); step(N)`` after ``chain(K)`` visits exactly
+    the states of ``run(N, K)``."""
+
+    def __init__(self, sampler: "BatchSampler", carry):
+        self._sampler = sampler
+        self._step_fn = sampler._step_fn
+        self._carry = carry
+        self._key = sampler._key
+        self._m = 0
+
+    @property
+    def steps_done(self) -> int:
+        return self._m
+
+    def current_state(self):
+        """The tracked state ``[n_chains, k]`` (positions, or the
+        :meth:`BatchSampler.track` map of them)."""
+        return self._step_fn.extract(self._carry)
+
+    def step(self, n: int = 1):
+        """Advance all chains ``n`` steps; returns the ``[n_chains, n, k]``
+        block of post-step tracked states.  The owning sampler keeps the
+        frontier, so it can be checkpointed after any call."""
+        with self._sampler._drawing_under(self._key):
+            out = advance_kernel(self._step_fn, self._carry, n, self._m)
+            self._carry = out.carry
+            self._m += n
+            self._sampler._keep(out.carry, self._m)
+        return out.samples.transpose(0, 1)
 
 
 class _StepFn:
@@ -33,17 +89,61 @@ class _StepFn:
         return self._step(carry, m)
 
 
+class _LatestStats:
+    """The renderer's view of the last streamed tick: max R-hat, p_accept
+    and the rotated window of per-chain acceptance EWMAs."""
+
+    p_accept = float("nan")
+    p_accept_chain = None
+    p_accept_chain_start = 0
+    p_chain_is_window = True  # p_accept_chain is a pre-rotated window
+    _max_rhat = float("nan")
+
+    def max_rhat(self) -> float:
+        return self._max_rhat
+
+
 class BatchSampler:
     """Base class: subclasses implement ``_init_carry``, ``_step`` and
-    ``_positions`` and inherit ``run`` and ``set_seed``."""
+    ``_positions`` and inherit ``run``, ``chain``, ``track``,
+    ``save_checkpoint``, ``resume``, ``run_progress`` and ``set_seed``."""
 
     def __init__(self, n_chains: int, seed=None, device=None):
         self.n_chains = n_chains
         self.device = resolve_device(device)
         self._seed = as_seed(seed if seed is not None else 0)
-        self._step_fn = _StepFn(self._step, self._positions)
+        self._extract_fn = None
+        self._step_fn = self._make_step_fn()
+
+    def _make_step_fn(self, step: Callable | None = None) -> _StepFn:
+        """The runner-facing step function: ``step`` (default ``_step``)
+        with the ``track`` map, if any, composed over ``_positions``."""
+        step = step if step is not None else self._step
+        fn = self._extract_fn
+        if fn is None:
+            return _StepFn(step, self._positions)
+        return _StepFn(step, lambda carry: fn(self._positions(carry)))
+
+    def track(self, extract_fn: Callable | None):
+        """Record ``extract_fn(positions)`` (``[n_chains, dim] -> [n_chains,
+        k]``) instead of the positions: collected samples, streaming
+        progress statistics and post-run diagnostics then all see the
+        derived quantities (e.g. β = μ + τ·z of a non-centred hierarchical
+        model).  ``None`` restores the raw positions.  Returns ``self``."""
+        self._extract_fn = extract_fn
+        self._step_fn = self._make_step_fn()
+        return self
 
     # -- subclass interface -------------------------------------------------
+    def _prepare_run(self, n_collect: int, n_discard: int) -> None:
+        """Called before each run: samplers with state that depends on the
+        run's lengths (warmup gates, window schedules) set it here."""
+
+    def _collection_fn(self, carry) -> _StepFn:
+        """The step function of the collection phase, given the post-warmup
+        carry (``run_progress`` and ``resume``): ``_step_fn`` here."""
+        return self._step_fn
+
     def _init_carry(self) -> Any:
         raise NotImplementedError
 
@@ -70,12 +170,145 @@ class BatchSampler:
         """Global chain indices, the chain coordinate of every draw."""
         return chain_ids(self.n_chains, self.device)
 
+    @contextlib.contextmanager
+    def _drawing_under(self, key: int):
+        """Draw under stream key ``key`` inside the block (a checkpoint's,
+        or an open chain's), whatever the sampler's seed."""
+        saved = self._seed
+        self._seed = key
+        try:
+            yield
+        finally:
+            self._seed = saved
+
+    def _keep(self, carry, steps_done: int) -> None:
+        """Keep a run's last carry, its absolute step count and the key it
+        was drawn under: what :meth:`save_checkpoint` writes."""
+        self._final_carry = carry
+        self._steps_done = steps_done
+        self._carry_key = self._key
+
+    def _drop_carry(self, steps_done: int) -> None:
+        """After a run that keeps no carry (a fused kernel's): keep the step
+        count and drop any earlier carry, so that nothing stale can be
+        checkpointed."""
+        self.__dict__.pop("_final_carry", None)
+        self._steps_done = steps_done
+
+    # -- incremental driving --------------------------------------------------
+    def chain(self, n_warmup: int = 0) -> BatchChain:
+        """An incremental view of this sampler (:class:`BatchChain`).
+        Adaptive samplers prepare their warmup for the first ``n_warmup``
+        steps: ``chain(K)`` then ``step(K); step(N)`` visits exactly the
+        states of ``run(N, K)``."""
+        self._prepare_run(0, n_warmup)
+        return BatchChain(self, self._init_carry())
+
     # -- running ------------------------------------------------------------
     def run(self, n_collect: int, n_discard: int = 0, thin: int = 1):
         """Run ``n_discard + n_collect·thin`` steps and return every
         ``thin``-th collected post-step state as ``[n_chains, n_collect,
         dim]``: a view of the steps-major store (``.transpose(0, 1)`` gives
         the store back without a copy)."""
+        self._prepare_run(n_collect, n_discard)
         out = run_kernel(self._step_fn, self._init_carry(), n_collect, n_discard,
                          thin=thin)
+        self._keep(out.carry, n_discard + n_collect * thin)
         return out.samples.transpose(0, 1)
+
+    # -- checkpoint / resume --------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Write the state after the last run to ``path``: the carry, the
+        absolute step count, the stream key the carry was drawn under and
+        the chain count (:func:`..utils.checkpoint.save_carry`)."""
+        from ..utils.checkpoint import save_carry
+
+        if not hasattr(self, "_final_carry"):
+            raise RuntimeError("nothing to checkpoint: call run() first")
+        save_carry({"carry": self._final_carry, "steps": int(self._steps_done),
+                    "seed": int(self._carry_key), "n_chains": int(self.n_chains)}, path)
+
+    def _load_checkpoint(self, path: str):
+        """``(carry, steps, key)`` of a checkpoint, its tensors on this
+        sampler's device; raises if its chain count is not this sampler's."""
+        from ..utils.checkpoint import load_carry
+
+        state = load_carry(path, device=self.device)
+        if int(state["n_chains"]) != self.n_chains:
+            raise ValueError(f"checkpoint holds {state['n_chains']} chains, this sampler "
+                             f"{self.n_chains}")
+        return state["carry"], int(state["steps"]), int(state["seed"])
+
+    def resume(self, path: str, n_collect: int):
+        """Continue a checkpoint for ``n_collect`` more post-step states: no
+        burn-in, step indices continuing from the checkpoint's step count,
+        and the draws under the checkpoint's stream key, whatever this
+        sampler's seed (as in JAX, whose keys ride in the carry).  Adaptive
+        samplers keep their adapted state frozen, as after their warmup.
+        The checkpoint loads onto this sampler's device, whatever device
+        wrote it.  Returns ``[n_chains, n_collect, dim]``."""
+        return self._resume(path, n_collect, self._collection_fn)
+
+    def _resume(self, path: str, n_collect: int, collection_fn: Callable):
+        carry, offset, key = self._load_checkpoint(path)
+        self._prepare_run(n_collect, 0)
+        with self._drawing_under(key):
+            out = run_kernel(collection_fn(carry), carry, n_collect, 0, step_offset=offset)
+            self._keep(out.carry, offset + n_collect)
+        return out.samples.transpose(0, 1)
+
+    # Above this many staged bytes (total steps × chains × dim × 4) "auto"
+    # picks the stream mode, as in the JAX package.
+    _AUTO_STREAM_BYTES = 64 * 1024 * 1024
+
+    def run_progress(self, n_collect: int, n_discard: int = 0, progress: bool = True,
+                     mode: str = "auto"):
+        """:meth:`run` (no thinning) with a live progress display and
+        streaming R-hat.  Returns ``(samples, RunStats)``.
+
+        ``mode="chunked"`` hands each block of 64 post-step states to a
+        :class:`..diagnostics.stats.MultiChainTracker`
+        (:func:`..core.run_kernel_progress`); ``mode="stream"`` keeps the
+        tracker on the device and reads back a few scalars every 64 steps
+        (:func:`..core.run_kernel_progress_stream`).  ``"auto"`` picks
+        ``"stream"`` once the run would stage more than 64 MiB of states,
+        else ``"chunked"``.  In both, the samples stay on the device."""
+        self._prepare_run(n_collect, n_discard)
+        carry = self._init_carry()
+        dim = self._step_fn.extract(carry).shape[-1]
+        total = n_discard + n_collect
+        if mode == "auto":
+            staged = total * self.n_chains * dim * 4
+            mode = "stream" if staged > self._AUTO_STREAM_BYTES else "chunked"
+        renderer = ProgressRenderer(self.n_chains, total) if progress else None
+
+        if mode == "stream":
+            stats = _LatestStats()
+
+            def hook(done, max_rhat, p_accept, window_start, p_chain_window):
+                stats.p_accept = float(p_accept)
+                stats.p_accept_chain = p_chain_window
+                stats.p_accept_chain_start = int(window_start)
+                stats._max_rhat = float(max_rhat)
+                if renderer is not None:
+                    renderer.update(int(done), stats)
+
+            out = run_kernel_progress_stream(self._step_fn, carry, n_collect, n_discard,
+                                             hook, collection_fn=self._collection_fn)
+        elif mode == "chunked":
+            tracker = MultiChainTracker(self.n_chains, dim)
+
+            def callback(done, states):
+                tracker.step_batch(states)
+                if renderer is not None:
+                    renderer.update(done, tracker)
+
+            out = run_kernel_progress(self._step_fn, carry, n_collect, n_discard, callback,
+                                      collection_fn=self._collection_fn)
+        else:
+            raise ValueError(f"unknown progress mode {mode!r}")
+        if renderer is not None:
+            renderer.close()
+        self._keep(out.carry, total)
+        samples = out.samples.transpose(0, 1)
+        return samples, RunStats.from_sample(samples)

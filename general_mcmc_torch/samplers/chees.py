@@ -31,8 +31,9 @@ Differences from the JAX sampler, none of them in the maths:
 - the JAX package's unroll-or-scan split of the static loop, a compiler
   concern, is one loop.
 
-Not ported yet: ``resume``, ``chain``, ``track`` and ``run_progress``
-(they need the base-class features of ``general_mcmc_tpu/samplers/base.py``).
+The runtime of :mod:`.base` (``chain``, ``track``, ``save_checkpoint``,
+``resume``, ``run_progress``) works as for every sampler; see :meth:`ChEESHMC.run`
+for the law each collects under.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ from ..core import run_kernel, run_kernel_stats
 from ..models.distributions import as_grad_fn, as_value_and_grad
 from ..ops import counter_rng
 from ..ops.tree import find_reasonable_epsilon, identity_mass, sample_momentum
-from .base import BatchSampler, _StepFn
+from .base import BatchSampler
 
 __all__ = ["ChEESHMC", "halton_base2"]
 
@@ -352,14 +353,19 @@ class ChEESHMC(BatchSampler):
 
         return step
 
-    def _run_static(self, carry, n_collect: int, offset: int, thin: int = 1,
-                    with_stats: bool = False):
-        """Collection under the static law from an adapted carry, from
-        absolute step ``offset``.  ``L`` is ``static_leapfrog`` capped by
-        ``max_leapfrog`` or, without it, ``round(T·(1 − j/2)/ε̄)`` (stored
-        as ``_static_L``).  ``with_stats`` runs :func:`..core.run_kernel_stats`
-        and keeps its statistics in ``_suffstats``.  Returns the steps-major
-        ``[n_collect, n_chains, dim]`` store."""
+    # -- runs -------------------------------------------------------------------
+    def _prepare_run(self, n_collect: int, n_discard: int) -> None:
+        """Bind the run's warmup gate into the step function (composed with
+        ``track``), so that a chain opened for one run keeps its gate."""
+        self._n_discard = n_discard
+        self._step_fn = self._make_step_fn(
+            step=lambda c, m, _nd=n_discard: self._step(c, m, _nd))
+
+    def _static_fn(self, carry):
+        """The static-law step function (composed with ``track``) for an
+        adapted carry.  ``L`` is ``static_leapfrog`` capped by
+        ``max_leapfrog`` or, without it, ``round(T·(1 − j/2)/ε̄)`` from the
+        carry (one read-back); it is kept as ``_static_L``."""
         if self.static_leapfrog is not None:
             L = min(self.max_leapfrog, self.static_leapfrog)
         else:
@@ -375,19 +381,32 @@ class ChEESHMC(BatchSampler):
             mean_t = t_max * (1.0 - 0.5 * self.jitter_amount)
             L = max(1, min(self.max_leapfrog, round(mean_t / eps_bar)))
         self._static_L = L
-        return self._collect(_StepFn(self._static_collect_step(L), self._positions), carry,
-                             n_collect, offset, thin, with_stats)
+        return self._make_step_fn(step=self._static_collect_step(L))
+
+    def _collection_fn(self, carry):
+        """The collection phase's step function: the static law with
+        ``static_collection``, else the adaptive law past its warmup gate."""
+        return self._static_fn(carry) if self.static_collection else self._step_fn
+
+    def _run_static(self, carry, n_collect: int, offset: int, thin: int = 1,
+                    with_stats: bool = False):
+        """Collection under the static law from an adapted carry, from
+        absolute step ``offset`` (:meth:`_static_fn`, :meth:`_collect`).
+        Returns the steps-major ``[n_collect, n_chains, dim]`` store."""
+        return self._collect(self._static_fn(carry), carry, n_collect, offset, thin,
+                             with_stats)
 
     def _collect(self, step_fn, carry, n_collect: int, offset: int, thin: int,
                  with_stats: bool):
         """``n_collect`` samples of ``step_fn`` from absolute step
-        ``offset``; keeps the last carry in ``_final_carry`` and, with
-        ``with_stats``, the statistics of :func:`..core.run_kernel_stats` in
-        ``_suffstats``.  Returns the steps-major store."""
+        ``offset``; keeps the last carry and step count (:meth:`_keep`)
+        and, with ``with_stats``, the statistics of
+        :func:`..core.run_kernel_stats` in ``_suffstats``.  Returns the
+        steps-major store."""
         runner = run_kernel_stats if with_stats else run_kernel
         out = runner(step_fn, carry, n_collect, 0, step_offset=offset, thin=thin)
         self._suffstats = out.suffstats if with_stats else None
-        self._final_carry = out.carry
+        self._keep(out.carry, offset + n_collect * thin)
         return out.samples
 
     def run(self, n_collect: int, n_discard: int = 0, thin: int = 1,
@@ -401,7 +420,14 @@ class ChEESHMC(BatchSampler):
         collected states inside the run and keeps them in ``_suffstats``.
         ``time_phases`` waits for the device at the start and at the end of
         init, warmup and collection, and keeps each phase's host wall in
-        seconds in ``phase_seconds``."""
+        seconds in ``phase_seconds``.
+
+        ``resume`` and ``run_progress`` collect under the same law as
+        ``run`` (``resume`` re-derives ``L`` from the frozen ε̄ and T);
+        ``chain`` steps the adaptive law throughout, as the JAX package's
+        incremental driver does.  The JAX package's ``run_progress`` also
+        steps the adaptive law throughout; the port's switches to the
+        static law after the warmup, so that its samples equal ``run``'s."""
         marks = []
 
         def mark():
@@ -411,17 +437,14 @@ class ChEESHMC(BatchSampler):
                 marks.append(time.perf_counter())
 
         mark()
-        self._n_discard = n_discard
+        self._prepare_run(n_collect, n_discard)
         carry = self._init_carry()
         mark()
-        step_fn = _StepFn(lambda c, m: self._step(c, m, n_discard), self._positions)
         if n_discard > 0:
-            carry = run_kernel(step_fn, carry, 0, n_discard).carry
+            carry = run_kernel(self._step_fn, carry, 0, n_discard).carry
         mark()
-        if self.static_collection:
-            samples = self._run_static(carry, n_collect, n_discard, thin, with_stats)
-        else:
-            samples = self._collect(step_fn, carry, n_collect, n_discard, thin, with_stats)
+        samples = self._collect(self._collection_fn(carry), carry, n_collect, n_discard, thin,
+                                with_stats)
         mark()
         if time_phases:
             self.phase_seconds = {name: marks[k + 1] - marks[k] for k, name in

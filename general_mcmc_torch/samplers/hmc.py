@@ -10,6 +10,9 @@ Port of ``general_mcmc_tpu/samplers/hmc.py``.  Two backends:
   of the fused kernel (:func:`..ops.fused_hmc.fused_hmc_run`), which reads
   the same draws, so both backends follow the same trajectory up to float
   rounding for the same seed.
+
+``chain``, ``track``, ``resume`` and ``run_progress`` run the ``"torch"``
+step whatever the backend, as the JAX package's run its XLA step.
 """
 
 from __future__ import annotations
@@ -109,9 +112,14 @@ class HMC(BatchSampler):
         self.backend = backend
 
     def run(self, n_collect: int, n_discard: int = 0, thin: int = 1):
+        """:meth:`.base.BatchSampler.run`; with ``backend="cuda"`` the whole
+        run is one launch of the fused kernel, which keeps no carry: the
+        step count is kept, and :meth:`save_checkpoint` raises until a
+        ``"torch"`` run, as after the JAX package's Pallas run."""
         if self.backend == "cuda":
             from ..ops.fused_hmc import fused_hmc_run
 
+            self._drop_carry(n_discard + n_collect * thin)
             return fused_hmc_run(
                 self.target,
                 self.initial_positions.to(torch.float32),

@@ -18,6 +18,9 @@ Philox block a step), or, for a proposal whose ``draws`` attribute is
   the same draws and rounds the same way, so both backends follow the same
   trajectory for the same seed.
 
+``chain``, ``track``, ``resume`` and ``run_progress`` run the ``"torch"``
+step whatever the backend, as the JAX package's run its XLA step.
+
 The accept rule is the log-space Hastings rule
 ``log u < (lp' + q(y→x)) − (lp + q(x→y))``; a proposal that declares itself
 ``symmetric`` skips the two ``q`` terms, which cancel.  Whenever the
@@ -144,9 +147,14 @@ class MetropolisHastings(BatchSampler):
         self.backend = backend
 
     def run(self, n_collect: int, n_discard: int = 0, thin: int = 1):
+        """:meth:`.base.BatchSampler.run`; with ``backend="cuda"`` the whole
+        run is one launch of the fused kernel, which keeps no carry: the
+        step count is kept, and :meth:`save_checkpoint` raises until a
+        ``"torch"`` run, as after the JAX package's Pallas run."""
         if self.backend == "cuda":
             from ..ops.fused_mh import fused_mh_run
 
+            self._drop_carry(n_discard + n_collect * thin)
             return fused_mh_run(
                 self.target,
                 self.initial_states.to(torch.float32),

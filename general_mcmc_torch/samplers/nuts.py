@@ -50,7 +50,12 @@ Differences from the JAX sampler, none of them in the maths:
   streamed flags), and ``run`` resolves ``"auto"`` between its two
   ``run_kernel`` calls (JAX: between its two dispatches).
 
-Not ported yet: ``resume``, ``chain``, ``track`` and ``run_progress``.
+The runtime of :mod:`.base` (``chain``, ``track``, ``save_checkpoint``,
+``resume``, ``run_progress``) works as for every sampler.  ``chain`` and
+``run_progress`` step one tree throughout, the warmup's (``"auto"``: the
+dynamic tree), with no resolution at the warmup's end, as the JAX
+package's incremental and progress drivers do; ``resume`` of ``"auto"``
+follows :meth:`NUTS.resume`.
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ from ..ops.tree import (
     nuts_tree_step,
     sample_momentum,
 )
-from .base import BatchSampler, _StepFn
+from .base import BatchSampler
 
 __all__ = ["NUTS", "NUTSMassMatrixConfig", "Welford"]
 
@@ -134,6 +139,15 @@ def _warmup_schedule(config: NUTSMassMatrixConfig, n_warmup: int, total: int):
             window_len = min(window_len * 2, 400)
             window_end[idx] = True
     return collect, window_end
+
+
+class _Sched(NamedTuple):
+    """A run's warmup length and its host window schedule (the
+    ``collect`` and ``window_end`` flags of :func:`_warmup_schedule`)."""
+
+    n_discard: int
+    collect: np.ndarray
+    window: np.ndarray
 
 
 class Welford(NamedTuple):
@@ -233,24 +247,40 @@ class NUTS(BatchSampler):
         self._multinomial = proposal == "multinomial"
         self.ckpt_dtype = ckpt_dtype
         self._vgrad = as_value_and_grad(self.target)
-        self._n_discard = 0
-        self._collect_sched = np.zeros(0, bool)
-        self._window_sched = np.zeros(0, bool)
+        self._sched = _Sched(0, np.zeros(0, bool), np.zeros(0, bool))
 
     # -- per-run preparation ----------------------------------------------------
     def _prepare_run(self, n_collect: int, n_discard: int) -> None:
-        """The run's warmup length and window schedule.  Steps past the
-        schedule (thinned runs) read "no adaptation"."""
-        self._n_discard = n_discard
-        self._collect_sched, self._window_sched = _warmup_schedule(
-            self.mass_config, n_discard, n_collect + n_discard)
+        """The run's warmup length and window schedule (:class:`_Sched`),
+        bound into the step function, so that a chain opened for one run
+        keeps its schedule.  Steps past the schedule (thinned runs) read
+        "no adaptation"."""
+        self._sched = _Sched(n_discard, *_warmup_schedule(self.mass_config, n_discard,
+                                                          n_collect + n_discard))
+        self._step_fn = self._make_step_fn(step=functools.partial(self._step,
+                                                                  sched=self._sched))
 
-    def _scheduled(self, sched: np.ndarray, m: int) -> bool:
-        return bool(sched[m]) if m < sched.shape[0] else False
+    @property
+    def _n_discard(self) -> int:
+        return self._sched.n_discard
 
-    def _depth(self, m: int) -> int:
-        """The doubling cap of step ``m``."""
-        return self.warmup_tree_depth if m < self._n_discard else self.max_tree_depth
+    @property
+    def _collect_sched(self) -> np.ndarray:
+        return self._sched.collect
+
+    @property
+    def _window_sched(self) -> np.ndarray:
+        return self._sched.window
+
+    @staticmethod
+    def _scheduled(flags: np.ndarray, m: int) -> bool:
+        return bool(flags[m]) if m < flags.shape[0] else False
+
+    def _depth(self, m: int, sched: _Sched | None = None) -> int:
+        """The doubling cap of step ``m`` (under ``sched``, default the
+        last prepared run's)."""
+        n_discard = (sched if sched is not None else self._sched).n_discard
+        return self.warmup_tree_depth if m < n_discard else self.max_tree_depth
 
     # -- carry ------------------------------------------------------------------
     def _init_carry(self, z_eps=None):
@@ -316,7 +346,7 @@ class NUTS(BatchSampler):
 
     # -- transition -------------------------------------------------------------
     def _step(self, carry, m: int, draws: TreeDraws | StaticDraws | None = None,
-              z_window=None, backend: str | None = None):
+              z_window=None, backend: str | None = None, sched: _Sched | None = None):
         """One transition at absolute step index ``m``: the tree (at the
         warmup cap while ``m < n_discard``), dual averaging, the counters,
         the depth accumulators where the carry has them, and the mass-matrix
@@ -325,10 +355,13 @@ class NUTS(BatchSampler):
         warmup tree).  ``draws`` (the tree's :class:`..ops.tree.TreeDraws`
         or :class:`..ops.static_tree.StaticDraws`) replaces the step's draws
         and ``z_window`` a window end's re-search normals (a test feeds both
-        packages the same numbers)."""
+        packages the same numbers).  ``sched`` is the run's schedule
+        (default: the last prepared run's)."""
+        sched = sched if sched is not None else self._sched
+        n_discard = sched.n_discard
         pos = carry["pos"]
         dtype = pos.dtype
-        depth = self._depth(m)
+        depth = self._depth(m, sched)
         backend = backend or ("torch" if self.backend == "auto" else self.backend)
         if backend == "static":
             if draws is None:
@@ -348,7 +381,7 @@ class NUTS(BatchSampler):
         eta = 1.0 / (m1 + _T0)
         accept_stat = tree.alpha / tree.n_alpha.to(dtype)
         h_bar = (1.0 - eta) * carry["h_bar"] + eta * (self.target_accept_p - accept_stat)
-        warmup = m + 1 <= self._n_discard
+        warmup = m + 1 <= n_discard
         if warmup:
             eps = torch.exp(carry["mu"] - torch.sqrt(m1) / _GAMMA * h_bar)
             eta2 = m1 ** (-_KAPPA)
@@ -364,20 +397,20 @@ class NUTS(BatchSampler):
         # "auto": the depths of the last quarter of warmup, where ε has
         # largely settled toward ε̄ (earlier depths reflect the unadapted
         # metric and the dual-averaging wander; nuts.py:510-538)
-        win = max(self._n_discard // 4, 1)
-        if "depth_sum" in carry and self._n_discard - win <= m < self._n_discard:
+        win = max(n_discard // 4, 1)
+        if "depth_sum" in carry and n_discard - win <= m < n_discard:
             new["depth_sum"] = carry["depth_sum"] + tree.depth
             new["depth_sqsum"] = carry["depth_sqsum"] + tree.depth * tree.depth
         if self.mass_config.adaptation != "none":
-            new = self._mass_adaptation(new, m, z_window)
+            new = self._mass_adaptation(new, m, sched, z_window)
         return new
 
     # -- mass-matrix warmup -----------------------------------------------------
-    def _mass_adaptation(self, carry, m: int, z_window=None):
-        if self._scheduled(self._collect_sched, m):
+    def _mass_adaptation(self, carry, m: int, sched: _Sched, z_window=None):
+        if self._scheduled(sched.collect, m):
             carry = dict(carry)
             carry["welford"] = self._welford_update(carry["welford"], carry["pos"])
-        if self._scheduled(self._window_sched, m):
+        if self._scheduled(sched.window, m):
             carry = self._window_update(carry, m, z_window)
         return carry
 
@@ -554,14 +587,32 @@ class NUTS(BatchSampler):
             carry = run_kernel(self._step_fn, carry, 0, n_discard).carry
         backend = self._resolve_auto(carry) if self.backend == "auto" else self.backend
         mark()
-        step_fn = _StepFn(functools.partial(self._step, backend=backend), self._positions)
-        out = run_kernel(step_fn, carry, n_collect, 0, step_offset=n_discard, thin=thin)
-        self._final_carry = out.carry
+        out = run_kernel(self._collection_step_fn(backend), carry, n_collect, 0,
+                         step_offset=n_discard, thin=thin)
+        self._keep(out.carry, n_discard + n_collect * thin)
         mark()
         if time_phases:
             self.phase_seconds = {name: marks[k + 1] - marks[k] for k, name in
                                   enumerate(("init", "warmup", "collection"))}
         return out.samples.transpose(0, 1)
+
+    def _collection_step_fn(self, backend: str):
+        """The collection phase's step function through ``backend``'s tree,
+        composed with ``track``."""
+        return self._make_step_fn(step=functools.partial(self._step, backend=backend,
+                                                         sched=self._sched))
+
+    def resume(self, path: str, n_collect: int):
+        """:meth:`.base.BatchSampler.resume`.  With ``backend="auto"`` the
+        resumed collection runs the tree this sampler's last ``run``
+        resolved (``backend_selected``), or the dynamic tree if it has
+        resolved none, as the JAX sampler falls back to ``"xla"``: a fresh
+        sampler resuming an auto checkpoint therefore takes the dynamic
+        tree, whatever the checkpointed run chose."""
+        if self.backend != "auto":
+            return super().resume(path, n_collect)
+        choice = getattr(self, "backend_selected", "torch")
+        return self._resume(path, n_collect, lambda carry: self._collection_step_fn(choice))
 
     # -- extras -----------------------------------------------------------------
     @property

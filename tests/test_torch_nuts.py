@@ -213,11 +213,18 @@ def test_draws_come_from_the_counter_stream():
                                                    counter_rng.TAG_TREE, "uniform")
     assert torch.equal(u, words) and u.shape == (n, tree.tree_words(depth))
     dr = tree.TreeDraws.from_uniforms(z, u, depth)
-    assert torch.equal(dr.e, -torch.log1p(-u[:, 0]))
+    assert torch.equal(dr.e, -torch.log(u[:, 0]))
     assert torch.equal(dr.u_dir, u[:, [1, 3, 5]]) and torch.equal(dr.u_swap, u[:, [2, 4, 6]])
     assert torch.equal(dr.u_leaf, u[:, 7:]) and dr.u_leaf.shape == (n, 8)
-    # the Exp(1) stays finite at the smallest uniform
-    assert torch.isfinite(tree.TreeDraws.from_uniforms(z, torch.zeros_like(u), depth).e).all()
+    # the Exp(1) stays finite at the least uniform the counter gives (2^-25;
+    # it never gives 0) and at every one of the 2^24 word values
+    least = counter_rng.bits_to_uniform(torch.zeros_like(u, dtype=torch.int64))
+    assert float(least.min()) == 2.0**-25
+    assert torch.isfinite(tree.TreeDraws.from_uniforms(z, least, depth).e).all()
+    every = counter_rng.bits_to_uniform(torch.arange(1 << 24, dtype=torch.int64) << 8)
+    assert float(every[-1]) == 1.0  # the top word's uniform rounds to 1.0
+    e = tree.TreeDraws.from_uniforms(torch.zeros(1 << 24, 1), every[:, None], 0).e
+    assert torch.isfinite(e).all() and float(e[-1]) == 0.0
     tags = {counter_rng.TAG_MOMENTUM, counter_rng.TAG_TREE, counter_rng.TAG_EPS_SEARCH,
             counter_rng.TAG_EPS_WINDOW}
     assert len(tags) == 4

@@ -226,7 +226,7 @@ def test_law_matches_dynamic_tree(multinomial):
 
 def test_static_draws_layout():
     """StaticDraws.from_words reads the words of counter_rng.static_draws as
-    documented: Exp(1) = −log1p(−u₀), JAX's formula, on word 0's uniform;
+    documented: Exp(1) = −log(u₀) on word 0's uniform, finite at every word;
     the offset the top J bits of word 1, exactly uniform on {0, …, 2^J − 1}
     over every 24-bit uniform (where floor(u·2^J) of the float32 uniform is
     not: it moves words across block ends and reaches 2^J); u_sel and u_swap
@@ -238,9 +238,9 @@ def test_static_draws_layout():
     mass = tree.MassMatrix(torch.full((n, d), 4.0, dtype=torch.float64),
                            torch.full((n, d), 0.5, dtype=torch.float64))
     dr = static_tree.StaticDraws.from_words(z.double(), w, J, mass)
-    assert torch.equal(dr.expo, -torch.log1p(-u[:, 0]))
-    # XLA's log1p and torch's differ by a few ulps
-    np.testing.assert_allclose(dr.expo.numpy(), np.asarray(-jnp.log1p(-jnp.asarray(u[:, 0]))),
+    assert torch.equal(dr.expo, -torch.log(u[:, 0]))
+    # XLA's log and torch's differ by a few ulps
+    np.testing.assert_allclose(dr.expo.numpy(), np.asarray(-jnp.log(jnp.asarray(u[:, 0]))),
                                rtol=1e-13)
     assert torch.equal(dr.u_sel, u[:, 2:2 + J]) and torch.equal(dr.u_swap, u[:, 2 + J:])
     assert torch.equal(dr.mom0, 0.5 * z.double())
@@ -255,9 +255,9 @@ def test_static_draws_layout():
     assert torch.equal(torch.bincount(every.offset), torch.full((1 << J,), 1 << (24 - J)))
     floor_u = torch.floor(counter_rng.words_to_uniform(words) * (1 << J)).long()
     assert int(floor_u.max()) == 1 << J and int((floor_u != every.offset).sum()) == 1 << (J - 1)
-    # the Exp(1) is finite but at the top word, whose uniform rounds to 1.0
-    # in float32 (probability 2^-24), as the dynamic tree's
-    assert torch.isfinite(every.expo[:-1]).all() and every.expo[-1] == torch.inf
+    # the Exp(1) is finite at every word, the top one included, whose uniform
+    # rounds to 1.0 in float32 (Exp 0), as the dynamic tree's
+    assert torch.isfinite(every.expo).all() and every.expo[-1] == 0.0
 
 
 def test_pick_is_the_first_crossing_in_travel_order():
