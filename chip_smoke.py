@@ -100,7 +100,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
     card, checked against the classic ESS and against the CPU in float64 on
     a 256-chain slice; "nuts-resume", the NUTS leg's sampler with
     ``backend="auto"`` checkpointed and resumed, equal to its uninterrupted
-    run bit for bit, through the static tree both times.
+    run bit for bit, through the static tree both times;
+13. MALA, Gibbs and replica exchange, every draw a launch of K2's fill
+    kernel: "mala-small", "gibbs-small" and "tempering-small" at 256 chains
+    (each run equal to the same steps with the plain draws injected, bit
+    for bit; the moments of tests/test_mala.py; the constant and copy
+    conditionals; the swap acceptance of each rung pair); "mala-main" (the
+    100-d unit Gaussian at 10,240 chains, 1,000 + 2,000 steps: R-hat, the
+    moments, the accept rate, min-ESS/s, a 50-step window), "io-main" (a
+    1,024 × 100 × 100 slice of its store to CSV through the native writer,
+    a smaller one read back exactly, Arrow and Parquet or their
+    ``ImportError`` without pyarrow), "gibbs-main" (the 64-d chain graph at
+    10,240 chains: the stationary variance and correlation, R-hat),
+    "gibbs-mixture" (the reference's mixture: x's moments) and
+    "tempering-main" (the two wells at 10,240 chains from one well: both
+    wells' mass and widths, and random-walk MH trapped as the control);
+    "runtime-small" also holds MALA, Gibbs and replica exchange to the
+    runtime's equalities.
 
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
@@ -110,6 +126,7 @@ code 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import io
 import itertools
@@ -127,9 +144,13 @@ import torch
 
 import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
+from general_mcmc_torch import io as gmt_io
+from general_mcmc_torch.io import native as io_native
+from general_mcmc_torch.models.distributions import rowsum
 from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_logistic, fused_mh,
                                     static_tree, tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
+from general_mcmc_torch.samplers.gibbs import GibbsDraws
 from general_mcmc_torch.utils.checkpoint import load_carry
 from general_mcmc_torch.utils.progress import ProgressRenderer
 
@@ -240,6 +261,30 @@ NUTS_RESUME_COLLECT = 256
 # the same function on the CPU in float64, and the rank bulk ESS against the
 # classic min ESS of the same store
 RANK_SLICE_CHAINS, RANK_RTOL, RANK_ESS_RATIO = 256, 1e-4, (0.8, 1.25)
+
+# MALA, Gibbs and replica exchange.  The small phases ("mala-small",
+# "gibbs-small", "tempering-small") run 256 chains; the main ones the
+# headline's 10,240.  "mala-main": the 100-d unit Gaussian at ε 0.6 (about
+# 0.79 accepted: MALA's Gaussian scaling at ℓ = 0.6·100^(1/6)); unit scales
+# because MALA has no metric.  2,000 collected after 1,000: split R-hat sits
+# about (τ − 1)/(2n) above 1 for half-chains of n steps, and at this ε the
+# integrated autocorrelation time τ is ~12, so 1,000 collected steps put
+# the JAX package's MALA and the port's alike at ~1.013, above the 1.01
+# gate whatever the chain count.
+NEW_SMALL_CHAINS = 256
+MALA_EPS, MALA_STEPS = 0.6, (2000, 1000)
+MALA_SMALL_EPS, MALA_SMALL_STEPS = 0.9, (400, 100)
+# "gibbs-main": the 64-d chain graph, 500 after 100; "gibbs-mixture": the
+# reference's mixture, 5,000 after 2,000.
+GIBBS_DIM, GIBBS_STEPS, GIBBS_SMALL_STEPS = 64, (500, 100), (20, 10)
+GIBBS_MIX_STEPS = (5000, 2000)
+# "tempering-main": the two wells, geometric_temperatures(6, 64), scale 0.5,
+# 2,000 after 300, as examples/two_wells_tempering.py runs them.
+TEMPER_LADDER, TEMPER_SCALE, TEMPER_STEPS = (6, 64.0), 0.5, (2000, 300)
+TEMPER_SMALL_STEPS = (200, 100)
+# "io-main": a [IO_CHAINS, IO_OBS, 100] slice of "mala-main"'s store to CSV,
+# and a [IO_CHECK_CHAINS, IO_OBS, 100] slice read back.
+IO_CHAINS, IO_OBS, IO_CHECK_CHAINS = 1024, 100, 64
 
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
@@ -1606,7 +1651,9 @@ def phase_nuts_static_small(dev):
 def runtime_samplers(dev):
     """The runtime-small samplers: ``{name: factory(seed)}`` at 256 chains
     of the 2-d autograd target (MH: the Gaussian, and a Poisson count on
-    integer states; NUTS at the leg's cap with the diagonal metric)."""
+    integer states; NUTS at the leg's cap with the diagonal metric; replica
+    exchange over 3 rungs, swapping every other step; Gibbs: the
+    reference's mixture)."""
     n = RT_CHAINS
     x0 = lambda: gmt.init_with_seed(n, 2, 5, device=dev)
     t2 = lambda: gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=dev)
@@ -1627,7 +1674,22 @@ def runtime_samplers(dev):
         "nuts_torch": nuts("torch"),
         "nuts_static": nuts("static"),
         "nuts_auto": nuts("auto"),
+        "mala": lambda seed: gmt.MALA(t2(), x0(), 0.5, seed=seed),
+        "gibbs": lambda seed: gmt.GibbsSampler(MixtureConditional(), mixture_inits(n, dev),
+                                               seed=seed),
+        "tempering": lambda seed: gmt.ReplicaExchange(
+            t2(), x0(), gmt.geometric_temperatures(3, 4.0, device=dev), scale=0.8,
+            swap_every=2, seed=seed),
     }
+
+
+# Fill launches a step of each runtime-small sampler's collection (the
+# "torch" step of HMC and MH, the eager samplers).
+RT_FILLS_PER_STEP = {"hmc": 2, "mh": 1, "mh_int": 1, "chees": 2, "chees_static": 2,
+                     "nuts_torch": 2, "nuts_static": 2, "nuts_auto": 2, "mala": 1, "gibbs": 2,
+                     "tempering": 2}
+# The samplers whose run runtime-small also holds against the plain draws.
+RT_PLAIN = ("hmc", "mh", "mh_int", "mala", "gibbs", "tempering")
 
 
 def phase_runtime_small(dev, tmp: str):
@@ -1639,8 +1701,10 @@ def phase_runtime_small(dev, tmp: str):
     ``step(N)`` and both ``run_progress`` modes equal ``run`` (but for
     ``"auto"``, whose incremental and progress drivers step one tree);
     ``track(f).run`` is ``f`` of ``run``; ``save_checkpoint`` after
-    ``HMC(backend="cuda").run`` raises; ChEES's resumed segment issues two
-    fill launches a step."""
+    ``HMC(backend="cuda").run`` raises; every resumed segment makes its
+    sampler's fill launches a step (``RT_FILLS_PER_STEP``); the run of HMC,
+    MH (float and integer), MALA, Gibbs and replica exchange equals the same
+    steps with the plain draws computed on the card and injected."""
     factories = runtime_samplers(dev)
     K, N, N1 = RT_WARMUP, RT_COLLECT, RT_SPLIT
     f = lambda x: torch.stack([x[:, 0] - x[:, -1], 2.0 * x[:, 0]], dim=1)
@@ -1658,13 +1722,20 @@ def phase_runtime_small(dev, tmp: str):
         fills0 = counter_rng.launches
         rest = resumer.resume(path, N - N1)
         torch.cuda.synchronize()
-        if name.startswith("chees"):
-            check(counter_rng.launches - fills0 == 2 * (N - N1),
-                  f"ChEES resume: {counter_rng.launches - fills0} fill launches for "
-                  f"{N - N1} steps")
+        per_step = RT_FILLS_PER_STEP[name]
+        check(counter_rng.launches - fills0 == per_step * (N - N1),
+              f"{name} resume: {counter_rng.launches - fills0} fill launches for "
+              f"{N - N1} steps ({per_step} a step)")
         check(torch.equal(torch.cat([first, rest], dim=1), ref),
               f"{name}: run(N1) + checkpoint + resume equals run(N)")
         names = ["resume"]
+        if name in RT_PLAIN:
+            fills0 = counter_rng.launches
+            plain = plain_run(make(SEED), N, K, plain_draws(name, make(SEED)))
+            torch.cuda.synchronize()
+            check(counter_rng.launches == fills0, f"{name}: the plain draws launched no fill")
+            check(torch.equal(plain, ref), f"{name}: run equals the run with the plain draws")
+            names.append("plain")
         if not auto:
             ch = make(SEED).chain(K)
             ch.step(K)
@@ -1702,7 +1773,7 @@ def phase_runtime_small(dev, tmp: str):
     say("runtime-small", chains=RT_CHAINS, steps=f"{K}+{N}", split=N1,
         wall_s=f"{time.perf_counter() - t0:.2f}",
         checked=json.dumps(checked), fused_checkpoint_raises=True, resumed_on_cpu=True,
-        chees_resume_fills_per_step=2, fill_launches=fills)
+        resume_fills_per_step=json.dumps(RT_FILLS_PER_STEP), fill_launches=fills)
     return dict(fill_launches=fills)
 
 
@@ -1933,6 +2004,436 @@ def phase_nuts_resume(dev, tmp: str):
     return dict(fill_launches=fills)
 
 
+# ---------------------------------------------------------------------------
+# MALA, Gibbs, replica exchange and sample export
+# ---------------------------------------------------------------------------
+
+
+def plain_run(sampler, n_collect: int, n_discard: int, draws) -> torch.Tensor:
+    """``sampler.run(n_collect, n_discard)`` stepped by hand with the plain
+    draws of step ``m``, ``draws(m)`` (keyword arguments of ``_step``),
+    computed on the card and injected: ``[n_chains, n_collect, dim]``."""
+    carry, kept = sampler._init_carry(), []
+    for m in range(n_discard + n_collect):
+        carry = sampler._step(carry, m, **draws(m))
+        if m >= n_discard:
+            kept.append(sampler._positions(carry))
+    return torch.stack(kept, dim=1)
+
+
+def plain_draws(name: str, sampler):
+    """``m -> _step`` keyword arguments: the plain draws (the fill kernel's
+    plain version) of sampler ``name``'s step ``m``, on its device."""
+    key, chains, n = sampler._key, sampler._chain_ids, sampler.n_chains
+    dim = sampler._positions(sampler._init_carry()).shape[1]
+    ref = lambda cols, m, tag, kind: counter_rng.counter_rng_fill_reference(
+        n, cols, key, m, tag, kind, device=sampler.device)
+    if name == "hmc":
+        return lambda m: dict(z=counter_rng.normals_paired(key, chains, m, dim),
+                              u=counter_rng.uniforms(key, chains, m))
+    if name in ("mh", "mh_int", "mala"):
+        tag = counter_rng.TAG_MALA if name == "mala" else counter_rng.TAG_PROPOSAL
+        draw = counter_rng.sign_draws if name == "mh_int" else functools.partial(
+            counter_rng.mh_draws, tag=tag)
+        return lambda m: dict(zip(("z", "u"), draw(key, chains, m, dim)))
+    if name == "tempering":
+        t = sampler.n_temps
+
+        def temper(m):
+            u = ref(2 * t - 1, m, counter_rng.TAG_TEMPER_UNIFORM, "uniform")
+            z = ref(t * dim, m, counter_rng.TAG_TEMPER_NORMAL, "normal_pair")
+            return dict(z=z.reshape(n, t, dim), u_acc=u[:, :t], u_swap=u[:, t:])
+        return temper
+    if name == "gibbs":
+        cols = counter_rng.GIBBS_DRAWS * dim
+        return lambda m: dict(draws=GibbsDraws(
+            ref(cols, m, counter_rng.TAG_GIBBS_NORMAL, "normal_pair"),
+            ref(cols, m, counter_rng.TAG_GIBBS_UNIFORM, "uniform")))
+    raise ValueError(f"no plain draws for {name!r}")
+
+
+def k2_bit_check(name: str, sampler, n_collect: int, n_discard: int, fills_per_step: int):
+    """``run`` with the fill kernel's draws against :func:`plain_run` with
+    the plain draws, ``torch.equal``; the run launches the fill kernel
+    ``fills_per_step`` times a step and the plain run not at all.  Returns
+    the run's samples and its fill launches."""
+    steps = n_discard + n_collect
+    before = counter_rng.launches
+    got = sampler.run(n_collect, n_discard)
+    torch.cuda.synchronize()
+    fills = counter_rng.launches - before
+    check(fills == fills_per_step * steps,
+          f"{name}: {fills} fill launches for {steps} steps ({fills_per_step} a step)")
+    want = plain_run(sampler, n_collect, n_discard, plain_draws(name, sampler))
+    torch.cuda.synchronize()
+    check(counter_rng.launches - before == fills, f"{name}: the plain draws launched no fill")
+    check(torch.equal(got, want), f"{name}: the fill kernel's draws and the plain draws give "
+          "the same samples bit for bit")
+    return got, fills
+
+
+def moved_share(samples) -> float:
+    """Share of a ``[n, collect, dim]`` sample's steps whose coordinate 0
+    changed: the accept rate of a continuous proposal."""
+    x = samples[:, :, 0]
+    return float((x[:, 1:] != x[:, :-1]).float().mean())
+
+
+def step_window(sampler, label: str, start: int) -> dict:
+    """:func:`profile_window` of 50 ``_step`` calls from the sampler's last
+    carry, at step indices ``start …``."""
+    carry = sampler._final_carry
+
+    def window():
+        c = carry
+        for m in range(start, start + CHEES_WINDOW):
+            c = sampler._step(c, m)
+
+    window()
+    return profile_window(window, CHEES_WINDOW, label)
+
+
+def timed_run(sampler, n_collect: int, n_discard: int):
+    """``sampler.run`` from a synchronised start to a synchronised end with
+    the fill launches counted from 0: ``(samples, wall_s, fills)``."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = sampler.run(n_collect, n_discard)
+    torch.cuda.synchronize()
+    return samples, time.perf_counter() - t0, counter_rng.launches
+
+
+def phase_mala_small(dev):
+    """MALA at 256 chains on the 2-d ``GaussianND([1, -2], [1, 2])`` of
+    tests/test_mala.py at ε 0.9: the fill kernel's draws bit-equal to the
+    plain draws over the whole run, and the JAX test's moment envelopes
+    (mean within 0.15, std within 15%)."""
+    n = NEW_SMALL_CHAINS
+    coll, warm = MALA_SMALL_STEPS
+    s = gmt.MALA(gmt.GaussianND([1.0, -2.0], [1.0, 2.0], device=dev),
+                 gmt.init_with_seed(n, 2, 4, device=dev), MALA_SMALL_EPS, seed=4)
+    reset_counts()
+    got, fills = k2_bit_check("mala", s, coll, warm, 1)
+    flat = got.reshape(-1, 2).double().cpu()
+    want_mean = torch.tensor([1.0, -2.0], dtype=torch.float64)
+    want_std = torch.tensor([1.0, 2.0], dtype=torch.float64)
+    mean_err = float((flat.mean(0) - want_mean).abs().max())
+    std_err = float((flat.std(0) / want_std - 1.0).abs().max())
+    check(mean_err < 0.15 and std_err < 0.15,
+          f"mala-small moments: mean {mean_err} < 0.15, std {std_err} < 0.15")
+    say("mala-small", chains=n, steps=f"{warm}+{coll}", eps=MALA_SMALL_EPS,
+        accept=f"{moved_share(got):.4f}", mean_err=f"{mean_err:.4f}",
+        std_err=f"{std_err:.4f}", k2_fill_launches=fills, k2_bit_equal=True)
+    return dict(fill_launches=fills)
+
+
+def phase_mala_main(dev):
+    """MALA at the headline's width: 10,240 chains of the 100-d unit
+    Gaussian from ``init_with_seed(10240, 100, 0)``, ε 0.6, ``run(2000,
+    1000)`` (an 8.2 GB store): R-hat, the moments, the accept rate, min-ESS/s
+    and grad-evals/s against the run's wall, its fill launches (one a
+    step), and the device operations a step and busy share of a 50-step
+    window; the fill kernel timed at MALA's shape.  Returns the store for
+    "io-main"."""
+    coll, warm = MALA_STEPS
+    steps = coll + warm
+    s = gmt.MALA(gmt.GaussianND(torch.zeros(DIM), torch.ones(DIM), device=dev),
+                 gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev), MALA_EPS, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    samples, wall, fills = timed_run(s, coll, warm)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(fills == steps, f"mala-main: {fills} fill launches for {steps} steps")
+    store = samples.transpose(0, 1)
+    check(bool(torch.isfinite(store).all()), "every MALA sample is finite")
+    rhat, ess, mean, std = gmt.split_rhat_mean_ess(store, steps_major=True,
+                                                   return_moments=True)
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    mean_err, std_err = float(mean.abs().max()), float((std - 1.0).abs().max())
+    accept = moved_share(samples)
+    check(max_rhat < 1.01, f"mala-main max R-hat {max_rhat} < 1.01")
+    check(mean_err < 0.05 and std_err < 0.05,
+          f"mala-main moments: max|mean| {mean_err} < 0.05, max|std - 1| {std_err} < 0.05")
+    prof = step_window(s, "mala-main-window", steps)
+    fill = fill_timings(dev, N_CHAINS, {"mh": (DIM + 1, counter_rng.TAG_MALA)})
+    say("mala-main", chains=N_CHAINS, dim=DIM, steps=f"{warm}+{coll}", eps=MALA_EPS,
+        accept=f"{accept:.4f}", max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}",
+        mean_err=f"{mean_err:.5f}", std_err=f"{std_err:.5f}", wall_s=f"{wall:.4f}",
+        min_ess_per_s=f"{min_ess / wall:.4e}",
+        grad_evals_per_s=f"{N_CHAINS * steps / wall:.4e}", fill_launches=fills,
+        host_ms_per_step=f"{wall * 1e3 / steps:.4f}", peak_memory_gb=f"{peak_gb:.2f}",
+        fill_mh_ms=f"{fill['mh'][0]:.5f}", fill_mh_bound_ms=f"{fill['mh'][1]:.7f}")
+    return dict(fill_launches=fills, fill=fill, store=store)
+
+
+def phase_io_main(store, tmp: str):
+    """Sample export from the card: ``save_csv`` of a 1,024 × 100 × 100 slice
+    of "mala-main"'s store through the native writer (MB and MB/s, the copy
+    from the card included); a 64 × 100 × 100 slice written and read back
+    with numpy, equal to the float64 of the float32 store exactly (the
+    writer prints shortest round-trip floats); Arrow and Parquet round
+    trips where pyarrow is present, else their ``ImportError``."""
+    import numpy as np
+
+    big = store[:IO_OBS, :IO_CHAINS].transpose(0, 1)  # [chains, obs, dim]
+    path = f"{tmp}/mala.csv"
+    writes = io_native.writes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gmt_io.save_csv(big, path)
+    write_s = time.perf_counter() - t0
+    check(io_native.writes == writes + 1, "io-main: save_csv went through the native writer")
+    mb = os.path.getsize(path) / 1e6
+    os.remove(path)
+
+    small = store[:IO_OBS, :IO_CHECK_CHAINS].transpose(0, 1)
+    gmt_io.save_csv(small, path)
+    back = np.loadtxt(path, delimiter=",", skiprows=1)
+    os.remove(path)
+    want = small.double().cpu().numpy()
+    c, o, d = want.shape
+    check(back.shape == (c * o, d + 2), f"io-main: read back {back.shape}")
+    check(np.array_equal(back[:, 0], np.repeat(np.arange(c), o))
+          and np.array_equal(back[:, 1], np.tile(np.arange(o), c)),
+          "io-main: chain and observation columns in chain-major order")
+    check(np.array_equal(back[:, 2:].reshape(c, o, d), want),
+          "io-main: the CSV reads back to the float64 of the stored float32 exactly")
+    try:
+        import pyarrow  # noqa: F401
+        arrow = "present"
+    except ImportError:
+        arrow = "absent"
+    for name, saver in (("arrow", gmt_io.save_arrow), ("parquet", gmt_io.save_parquet)):
+        p = f"{tmp}/mala.{name}"
+        if arrow == "present":
+            saver(small, p)
+            check(np.array_equal(gmt_io.load_table(p), want), f"io-main: {name} round trip")
+            os.remove(p)
+            continue
+        try:
+            saver(small, p)
+        except ImportError as e:
+            check("pyarrow" in str(e), f"io-main: save_{name} raises naming pyarrow ({e})")
+        else:
+            raise RuntimeError(f"check failed: save_{name} without pyarrow did not raise")
+    say("io-main", csv_shape=f"{IO_CHAINS}x{IO_OBS}x{DIM}", csv_values=big.numel(),
+        csv_mb=f"{mb:.2f}", csv_s=f"{write_s:.4f}", csv_mb_per_s=f"{mb / write_s:.2f}",
+        native_writer=True, library=io_native.library_path().name,
+        roundtrip_shape=f"{c}x{o}x{d}", roundtrip_exact=True, pyarrow=arrow)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MixtureConditional:
+    """The reference's two-component mixture (examples/mixture_gibbs.py):
+    state ``[x, z]``; ``x | z ~ N(mu_z, sigma_z²)``, ``z | x`` by posterior
+    odds, batched for the port's ``(draws, i, state)`` conditional."""
+
+    mu0: float = -2.0
+    sigma0: float = 1.0
+    mu1: float = 3.0
+    sigma1: float = 1.5
+    pi0: float = 0.4
+
+    def _pdf(self, x, mu, sigma):
+        var = sigma * sigma
+        return torch.exp(-((x - mu) ** 2) / (2 * var)) / math.sqrt(2 * math.pi * var)
+
+    def sample(self, draws, i, state):
+        if i == 0:
+            noise = draws.normal(0)
+            return torch.where(state[:, 1] < 0.5, self.mu0 + self.sigma0 * noise,
+                               self.mu1 + self.sigma1 * noise)
+        x = state[:, 0]
+        p0 = self.pi0 * self._pdf(x, self.mu0, self.sigma0)
+        p1 = (1.0 - self.pi0) * self._pdf(x, self.mu1, self.sigma1)
+        total = p0 + p1
+        prob_z1 = torch.where(total > 0.0, p1 / total, 0.5)
+        return (draws.uniform(0) < prob_z1).to(state.dtype)
+
+    def moments(self):
+        """x's mean and variance (gibbs.rs:341-418)."""
+        mean = self.pi0 * self.mu0 + (1 - self.pi0) * self.mu1
+        var = self.pi0 * (self.sigma0**2 + (self.mu0 - mean) ** 2) + (1 - self.pi0) * (
+            self.sigma1**2 + (self.mu1 - mean) ** 2)
+        return mean, var
+
+
+def chain_graph(draws, i, state):
+    """tests/test_gibbs.py:111-130: ``x_i | x_{i-1} ~ N(0.5·x_{i-1}, 1)``,
+    ``x_0 ~ N(0, 1)``."""
+    prev = state[:, i - 1] if i > 0 else 0.0
+    return 0.5 * prev + draws.normal(0)
+
+
+def mixture_inits(n: int, dev):
+    return torch.cat([gmt.init_with_seed(n, 1, 1, device=dev),
+                      torch.zeros(n, 1, device=dev)], dim=1)
+
+
+def phase_gibbs_small(dev):
+    """Gibbs at 256 chains: the constant and copy conditionals of
+    tests/test_gibbs.py:56-83 (every coordinate at the constant; coordinate
+    1 sees coordinate 0's value of the same sweep), then the 64-d chain
+    graph with the fill kernel's draws bit-equal to the plain draws."""
+    n = NEW_SMALL_CHAINS
+    const = gmt.GibbsSampler(lambda draws, i, x: torch.full((len(x),), 42.0, device=x.device),
+                             gmt.init_with_seed(n, 2, 2, device=dev)).run(10, 5)
+    check(bool((const == 42.0).all()), "gibbs-small: the constant conditional")
+    copy = gmt.GibbsSampler(lambda draws, i, x: x[:, 0] + 1.0 if i == 0 else x[:, 0],
+                            torch.zeros(n, 2, device=dev)).run(3, 0)
+    sweeps = torch.tensor([1.0, 2.0, 3.0], device=dev)
+    check(bool((copy[:, :, 0] == sweeps).all() and (copy[:, :, 1] == sweeps).all()),
+          "gibbs-small: the sweep is sequential (coordinate 1 sees coordinate 0's update)")
+    reset_counts()
+    coll, warm = GIBBS_SMALL_STEPS
+    s = gmt.GibbsSampler(chain_graph, torch.zeros(n, GIBBS_DIM, device=dev), seed=3)
+    _, fills = k2_bit_check("gibbs", s, coll, warm, 2)
+    say("gibbs-small", chains=n, constant=True, sequential=True, k2_dim=GIBBS_DIM,
+        k2_steps=f"{warm}+{coll}", k2_fill_launches=fills, k2_bit_equal=True)
+    return dict(fill_launches=fills)
+
+
+def phase_gibbs_main(dev):
+    """The 64-d chain graph (tests/test_gibbs.py:111-130) at 10,240 chains,
+    ``run(500, 100)`` (a 1.3 GB store): the middle coordinate's variance
+    within 0.05 of 4/3, corr(x₃₀, x₃₁) within 0.03 of 0.5, max R-hat < 1.01;
+    the wall, the fill launches (two a step) and a 50-step window; the fill
+    kernel timed at Gibbs's shapes."""
+    coll, warm = GIBBS_STEPS
+    steps = coll + warm
+    s = gmt.GibbsSampler(chain_graph, torch.zeros(N_CHAINS, GIBBS_DIM, device=dev), seed=3)
+    samples, wall, fills = timed_run(s, coll, warm)
+    check(fills == 2 * steps, f"gibbs-main: {fills} fill launches for {steps} steps")
+    check(bool(torch.isfinite(samples).all()), "every Gibbs sample is finite")
+    mid = samples[:, :, GIBBS_DIM // 2].double()
+    var_mid = float(mid.var())
+    corr = float(torch.corrcoef(samples[:, :, 30:32].reshape(-1, 2).double().T)[0, 1])
+    rhat, _ess = gmt.split_rhat_mean_ess(samples)
+    max_rhat = float(rhat.max())
+    check(abs(var_mid - 4.0 / 3.0) < 0.05, f"gibbs-main: var x_32 {var_mid} within 0.05 of 4/3")
+    check(abs(corr - 0.5) < 0.03, f"gibbs-main: corr(x_30, x_31) {corr} within 0.03 of 0.5")
+    check(max_rhat < 1.01, f"gibbs-main max R-hat {max_rhat} < 1.01")
+    prof = step_window(s, "gibbs-main-window", steps)
+    cols = counter_rng.GIBBS_DRAWS * GIBBS_DIM
+    fill = fill_timings(dev, N_CHAINS, {"normal_pair": (cols, counter_rng.TAG_GIBBS_NORMAL),
+                                        "uniform": (cols, counter_rng.TAG_GIBBS_UNIFORM)})
+    say("gibbs-main", chains=N_CHAINS, dim=GIBBS_DIM, steps=f"{warm}+{coll}",
+        var_mid=f"{var_mid:.5f}", corr_30_31=f"{corr:.5f}", max_rhat=f"{max_rhat:.5f}",
+        wall_s=f"{wall:.4f}", host_ms_per_step=f"{wall * 1e3 / steps:.4f}",
+        fill_launches=fills, fill_normal_pair_ms=f"{fill['normal_pair'][0]:.5f}",
+        fill_uniform_ms=f"{fill['uniform'][0]:.5f}")
+    return dict(fill_launches=fills, fill=fill, ops_per_step=prof["ops_per_step"])
+
+
+def phase_gibbs_mixture(dev):
+    """The reference's mixture (examples/mixture_gibbs.py) at 10,240
+    chains, ``run(5000, 2000)``: x's mean and variance within a tenth of
+    theory (tests/test_gibbs.py:99-100)."""
+    coll, warm = GIBBS_MIX_STEPS
+    cond = MixtureConditional()
+    s = gmt.GibbsSampler(cond, mixture_inits(N_CHAINS, dev), seed=42)
+    samples, wall, fills = timed_run(s, coll, warm)
+    check(fills == 2 * (coll + warm), f"gibbs-mixture: {fills} fill launches")
+    x = samples[:, :, 0].double()
+    mean, var = float(x.mean()), float(x.var())
+    want_mean, want_var = cond.moments()
+    check(abs(mean - want_mean) < abs(want_mean) / 10.0,
+          f"gibbs-mixture mean {mean} within a tenth of {want_mean}")
+    check(abs(var - want_var) < abs(want_var) / 10.0,
+          f"gibbs-mixture variance {var} within a tenth of {want_var}")
+    say("gibbs-mixture", chains=N_CHAINS, steps=f"{warm}+{coll}", mean=f"{mean:.5f}",
+        theory_mean=f"{want_mean:.5f}", var=f"{var:.5f}", theory_var=f"{want_var:.5f}",
+        z1_share=f"{float(samples[:, :, 1].double().mean()):.5f}", wall_s=f"{wall:.4f}",
+        host_ms_per_step=f"{wall * 1e3 / (coll + warm):.4f}", fill_launches=fills)
+    return dict(fill_launches=fills)
+
+
+def two_wells(x):
+    """Equal mixture of N(-4, 0.5²) and N(+4, 0.5²) (examples/
+    two_wells_tempering.py), batched."""
+    a = -0.5 * rowsum((x + 4.0) * (x + 4.0)) / 0.25
+    b = -0.5 * rowsum((x - 4.0) * (x - 4.0)) / 0.25
+    return torch.logaddexp(a, b)
+
+
+def tempering_sampler(n: int, dev, swap_every: int = 1):
+    return gmt.ReplicaExchange(two_wells, torch.full((n, 1), -4.0, device=dev),
+                               gmt.geometric_temperatures(*TEMPER_LADDER, device=dev),
+                               scale=TEMPER_SCALE, swap_every=swap_every, seed=SEED)
+
+
+def phase_tempering_small(dev):
+    """Replica exchange at 256 chains on the two wells: the fill kernel's
+    draws bit-equal to the plain draws over the whole run, and the swap
+    acceptance of each rung pair (the swaps counted against a copy of the
+    sampler whose swap interval no step closes, stepped beside it)."""
+    n = NEW_SMALL_CHAINS
+    coll, warm = TEMPER_SMALL_STEPS
+    s = tempering_sampler(n, dev)
+    reset_counts()
+    _, fills = k2_bit_check("tempering", s, coll, warm, 2)
+    moves_only = tempering_sampler(n, dev, swap_every=10**9)
+    draws = plain_draws("tempering", s)
+    t = s.n_temps
+    tried = torch.zeros(t - 1, device=dev)
+    took = torch.zeros(t - 1, device=dev)
+    carry = s._init_carry()
+    for m in range(coll + warm):
+        kw = draws(m)
+        mid = moves_only._step(carry, m, **kw)
+        carry = s._step(carry, m, **kw)
+        active = (torch.arange(t - 1, device=dev) % 2 == m % 2).float()
+        tried += active * n
+        took += active * (carry[1][:, :-1] != mid[1][:, :-1]).float().sum(0)
+    rates = (took / tried).cpu().tolist()
+    check(all(0.0 < r < 1.0 for r in rates), f"tempering-small: swap rates {rates}")
+    say("tempering-small", chains=n, rungs=t, steps=f"{warm}+{coll}", k2_fill_launches=fills,
+        k2_bit_equal=True, swap_accept=json.dumps([round(r, 4) for r in rates]))
+    return dict(fill_launches=fills)
+
+
+def phase_tempering_main(dev):
+    """The two wells (examples/two_wells_tempering.py) at 10,240 chains, all
+    starting at −4: ``ReplicaExchange(geometric_temperatures(6, 64),
+    scale=0.5).run(2000, 300)``; the right well's mass in 0.45–0.55, the
+    cold chain's left well mean within 0.05 of −4 and std within 0.05 of
+    0.5; the control, ``MetropolisHastings(two_wells,
+    IsotropicGaussian(0.5))`` at the same size, keeps the right well's mass
+    below 0.05.  The wall, the fill launches (two a step) and a 50-step
+    window; the fill kernel timed at replica exchange's shapes."""
+    coll, warm = TEMPER_STEPS
+    steps = coll + warm
+    s = tempering_sampler(N_CHAINS, dev)
+    samples, wall, fills = timed_run(s, coll, warm)
+    check(fills == 2 * steps, f"tempering-main: {fills} fill launches for {steps} steps")
+    x = samples.reshape(-1).double()
+    right = float((x > 0).double().mean())
+    left = x[x < 0]
+    left_mean, left_std = float(left.mean()), float(left.std())
+    check(0.45 < right < 0.55, f"tempering-main: right-well mass {right} in 0.45-0.55")
+    check(abs(left_mean + 4.0) < 0.05 and abs(left_std - 0.5) < 0.05,
+          f"tempering-main: left well mean {left_mean}, std {left_std}")
+    prof = step_window(s, "tempering-main-window", steps)
+    t = s.n_temps
+    fill = fill_timings(dev, N_CHAINS, {
+        "normal_pair": (t, counter_rng.TAG_TEMPER_NORMAL),
+        "uniform": (2 * t - 1, counter_rng.TAG_TEMPER_UNIFORM)})
+
+    mh = gmt.MetropolisHastings(two_wells, gmt.IsotropicGaussian(TEMPER_SCALE),
+                                torch.full((N_CHAINS, 1), -4.0, device=dev), seed=SEED)
+    trapped, mh_wall, mh_fills = timed_run(mh, coll, warm)
+    check(mh_fills == steps, f"tempering-main control: {mh_fills} fill launches")
+    mh_right = float((trapped > 0).double().mean())
+    check(mh_right < 0.05, f"tempering-main control: MH right-well mass {mh_right} < 0.05")
+    say("tempering-main", chains=N_CHAINS, rungs=t, steps=f"{warm}+{coll}",
+        right_mass=f"{right:.5f}", left_mean=f"{left_mean:.5f}", left_std=f"{left_std:.5f}",
+        wall_s=f"{wall:.4f}", host_ms_per_step=f"{wall * 1e3 / steps:.4f}",
+        fill_launches=fills, mh_right_mass=f"{mh_right:.5f}", mh_wall_s=f"{mh_wall:.4f}",
+        mh_fill_launches=mh_fills, fill_normal_pair_ms=f"{fill['normal_pair'][0]:.5f}",
+        fill_uniform_ms=f"{fill['uniform'][0]:.5f}")
+    return dict(fill_launches=fills + mh_fills, fill=fill, ops_per_step=prof["ops_per_step"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1972,7 +2473,26 @@ def main() -> int:
         static_over_dynamic_min_ess_per_s=f"{static['min_ess_per_s'] / nuts['min_ess_per_s']:.4f}",
         static_over_dynamic_wall=f"{static['wall'] / nuts['wall']:.4f}")
     nuts_resume = phase_nuts_resume(dev, tmp)
+    mala_small = phase_mala_small(dev)
+    mala = phase_mala_main(dev)
+    phase_io_main(mala.pop("store"), tmp)
+    torch.cuda.empty_cache()
+    gibbs_small = phase_gibbs_small(dev)
+    gibbs = phase_gibbs_main(dev)
+    mixture = phase_gibbs_mixture(dev)
+    temper_small = phase_tempering_small(dev)
+    temper = phase_tempering_main(dev)
     shutil.rmtree(tmp)
+    new_fills = {"mala-main": mala["fill_launches"], "gibbs-main": gibbs["fill_launches"],
+                 "gibbs-mixture": mixture["fill_launches"],
+                 "tempering-main": temper["fill_launches"]}
+    new_fill = {f"mala_mh_{N_CHAINS}x{DIM + 1}": mala["fill"]["mh"]}
+    cols = {"gibbs": counter_rng.GIBBS_DRAWS * GIBBS_DIM}
+    for name, phase in (("gibbs", gibbs), ("tempering", temper)):
+        for kind, v in phase["fill"].items():
+            width = cols.get(name, TEMPER_LADDER[0] if kind == "normal_pair"
+                             else 2 * TEMPER_LADDER[0] - 1)
+            new_fill[f"{name}_{kind}_{N_CHAINS}x{width}"] = v
     runtime_fills = {"runtime-small": runtime["fill_launches"],
                      "resume-main": resumed["fill_launches"],
                      "progress-main": progress["fill_launches"],
@@ -1998,14 +2518,18 @@ def main() -> int:
         # bound are the fill kernel's at 10,240 x 128 words (phase "K2");
         # runtime_fill_launches: the fill launches of the runtime phases, each
         # counted from 0 over its runs (in launches too);
-        # chees_fill_ms, nuts_fill_ms and nuts_static_fill_ms at the ChEES and
-        # the two NUTS paths' shapes, each with its bound.
+        # sampler_fill_launches: those of the MALA, Gibbs and replica-exchange
+        # main phases (with the MH control's), each counted from 0 (in launches
+        # too), and of their small phases' bit checks (not in launches);
+        # chees_fill_ms, nuts_fill_ms, nuts_static_fill_ms and sampler_fill_ms
+        # at the ChEES, NUTS, MALA, Gibbs and replica-exchange shapes, each
+        # with its bound.
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
              launches=(main_path["launches"] + mh["launches"] + chees["fill_launches"]
                        + nuts["fill_launches"] + static["fill_launches"]
-                       + sum(runtime_fills.values())),
+                       + sum(runtime_fills.values()) + sum(new_fills.values())),
              runs_inside="fused_hmc, fused_mh",
              fill_launches=chees["fill_launches"],
              fill_launches_checked=chees_small["fill_launches"],
@@ -2024,9 +2548,16 @@ def main() -> int:
              chees_fill_bound_ms={k: v[1] for k, v in chees["fill"].items()},
              wrapper_call_ms=k2["wrapper_call_ms"],
              runtime_fill_launches=runtime_fills,
+             sampler_fill_launches=new_fills,
+             sampler_fill_launches_checked={"mala-small": mala_small["fill_launches"],
+                                            "gibbs-small": gibbs_small["fill_launches"],
+                                            "tempering-small": temper_small["fill_launches"]},
+             sampler_fill_ms={k: v[0] for k, v in new_fill.items()},
+             sampler_fill_bound_ms={k: v[1] for k, v in new_fill.items()},
              checked_in="K2, chees-small, chees-main, nuts-small, nuts-main, "
                         "nuts-static-small, nuts-static, runtime-small, resume-main, "
-                        "progress-main, nuts-resume"),
+                        "progress-main, nuts-resume, mala-small, mala-main, gibbs-small, "
+                        "gibbs-main, gibbs-mixture, tempering-small, tempering-main"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),

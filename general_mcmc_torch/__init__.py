@@ -1,16 +1,18 @@
 """general_mcmc_torch: the PyTorch and CUDA (Hopper) port of general_mcmc_tpu.
 
 Batched HMC and Metropolis–Hastings, each with a fused whole-run CUDA kernel
-(``backend="cuda"``) and a plain PyTorch backend; ChEES-HMC and NUTS (the
+(``backend="cuda"``) and a plain PyTorch backend; ChEES-HMC, NUTS (the
 dynamic tree, the static window and ``backend="auto"``, slice and
-multinomial proposals, Stan-windowed diagonal and dense metrics) in plain
-PyTorch, their draws from the counter generator's fill kernel on the card; the Gaussian, Rosenbrock, funnel, discrete and
-hierarchical-logistic targets, the fused
-logistic gradient chain (``ops.fused_logistic``); the sampler runtime
-(``chain``, ``track``, checkpoints and ``resume``, ``run_progress`` with
-streaming R-hat) on every sampler; and split-R-hat/ESS, streaming and
-rank-normalized diagnostics.  Entry points run on the card unless given
-``device="cpu"``.
+multinomial proposals, Stan-windowed diagonal and dense metrics), MALA,
+Gibbs sampling and replica exchange in plain PyTorch, the draws of every
+eager step from the counter generator's fill kernel on the card; the
+Gaussian, Rosenbrock, funnel, discrete and hierarchical-logistic targets,
+the fused logistic gradient chain (``ops.fused_logistic``); the sampler
+runtime (``chain``, ``track``, checkpoints and ``resume``, ``run_progress``
+with streaming R-hat) on every sampler; split-R-hat/ESS, streaming and
+rank-normalized diagnostics; and sample export (``io``: CSV through the
+repo's native writer, Arrow and Parquet through pyarrow).  Entry points run
+on the card unless given ``device="cpu"``.
 The package imports torch and numpy only; its CUDA sources are compiled
 with ``nvcc`` at first use.
 """
@@ -62,7 +64,9 @@ from .models.regression import (
 )
 from .samplers.base import BatchChain, BatchSampler
 from .samplers.chees import ChEESHMC, halton_base2
+from .samplers.gibbs import GibbsSampler
 from .samplers.hmc import HMC, leapfrog
+from .samplers.mala import MALA
 from .samplers.metropolis_hastings import (
     DiscreteWalkProposal,
     MetropolisHastings,
@@ -70,6 +74,7 @@ from .samplers.metropolis_hastings import (
     RandomWalkProposal,
 )
 from .samplers.nuts import NUTS, NUTSMassMatrixConfig
+from .samplers.tempering import ReplicaExchange, geometric_temperatures
 
 __all__ = [
     "NUTS",
@@ -78,6 +83,10 @@ __all__ = [
     "halton_base2",
     "HMC",
     "leapfrog",
+    "MALA",
+    "GibbsSampler",
+    "ReplicaExchange",
+    "geometric_temperatures",
     "MetropolisHastings",
     "RandomWalkProposal",
     "PCNProposal",

@@ -3,8 +3,10 @@
 The port imports nothing of the JAX package, so state crosses as numpy
 arrays or plain numbers: a target's ``mean`` and ``cov``, the logistic
 targets' ``X`` and ``y``, initial positions, ``mass_inv``, a proposal's
-width, a ChEES-HMC carry (:func:`to_chees_carry`) and a NUTS carry
-(:func:`to_nuts_carry`).  Take them from the JAX side with ``np.asarray``
+width, a ChEES-HMC carry (:func:`to_chees_carry`), a NUTS carry
+(:func:`to_nuts_carry`), and the tuple carries of MALA, replica exchange
+and Gibbs (:func:`to_mala_carry`, :func:`to_tempering_carry`,
+:func:`to_gibbs_carry`).  Take them from the JAX side with ``np.asarray``
 (or ``jax.device_get``) and hand them here.
 """
 
@@ -32,7 +34,8 @@ from .samplers.metropolis_hastings import (
     RandomWalkProposal,
 )
 
-__all__ = ["to_tensor", "to_target", "to_proposal", "to_chees_carry", "to_nuts_carry"]
+__all__ = ["to_tensor", "to_target", "to_proposal", "to_chees_carry", "to_nuts_carry",
+           "to_mala_carry", "to_tempering_carry", "to_gibbs_carry"]
 
 # kind -> (class, names of its array parameters, names of its plain numbers)
 _TARGETS = {
@@ -141,3 +144,32 @@ def to_nuts_carry(jax_carry, device="cpu") -> dict:
         else:
             out[name] = to_tensor(np.asarray(value), device, ints.get(name))
     return out
+
+
+def _tuple_carry(jax_carry, n_arrays: int, device) -> tuple:
+    """The first ``n_arrays`` of a JAX tuple carry, whose last entry is the
+    chains' keys, as tensors on ``device``; the keys are dropped."""
+    if len(jax_carry) != n_arrays + 1:
+        raise ValueError(f"expected {n_arrays} arrays and the keys, got {len(jax_carry)} "
+                         "entries")
+    return tuple(to_tensor(np.asarray(a), device) for a in jax_carry[:n_arrays])
+
+
+def to_mala_carry(jax_carry, device="cpu") -> tuple:
+    """The port's MALA carry ``(x, lp, grad)`` from a JAX ``MALA`` carry
+    ``(x, lp, grad, keys)`` given as numpy arrays, on ``device``: the keys
+    are dropped, as in :func:`to_chees_carry`."""
+    return _tuple_carry(jax_carry, 3, device)
+
+
+def to_tempering_carry(jax_carry, device="cpu") -> tuple:
+    """The port's replica-exchange carry ``(x [n, T, dim], lp [n, T])`` from
+    a JAX ``ReplicaExchange`` carry ``(x, lp, keys)``, on ``device``; the
+    keys are dropped."""
+    return _tuple_carry(jax_carry, 2, device)
+
+
+def to_gibbs_carry(jax_carry, device="cpu") -> tuple:
+    """The port's Gibbs carry ``(x,)`` from a JAX ``GibbsSampler`` carry
+    ``(x, keys)``, on ``device``; the keys are dropped."""
+    return _tuple_carry(jax_carry, 1, device)

@@ -56,6 +56,8 @@ __all__ = [
     "collect_rhat",
     "max_skipnan",
     "autocov_fft",
+    "autocov_bf",
+    "autocov",
     "chain_suffstats",
     "combine_suffstats",
     "combine_suffstats_host",
@@ -77,6 +79,9 @@ ALPHA = 0.01
 # Bytes of FFT working set per chain block: complex spectrum, inverse
 # transform and centred copy of every (half-)chain in the block.
 _CHUNK_BYTES = 512 * 1024 * 1024
+
+# Series up to this length take the brute-force autocovariance in autocov.
+_AUTOCOV_BF_MAX = 100
 
 
 # ---------------------------------------------------------------------------
@@ -315,6 +320,28 @@ def autocov_fft(sample: torch.Tensor) -> torch.Tensor:
     f = torch.fft.rfft(centered, n=_padded(n), dim=-2)
     acov = torch.fft.irfft(f * f.conj(), n=_padded(n), dim=-2)[..., :n, :]
     return acov / n
+
+
+def autocov_bf(sample: torch.Tensor) -> torch.Tensor:
+    """Brute-force biased autocovariance of ``(..., n, d)`` along the steps
+    axis (stats.rs:659-681): ``acov[lag] = Σ_t x[t]·x[t + lag] / n`` over
+    the centred series, as one masked product over a ``(lag, t)`` grid;
+    O(n²), for short series."""
+    n = sample.shape[-2]
+    centered = sample - sample.mean(dim=-2, keepdim=True)
+    idx = torch.arange(n, device=sample.device)
+    gather = idx[:, None] + idx[None, :]  # (lag, t) -> t + lag
+    shifted = centered[..., gather.clamp(max=n - 1), :]  # (..., lag, t, d)
+    shifted = torch.where((gather < n)[..., None], shifted, 0.0)
+    return torch.einsum("...td,...ltd->...ld", centered, shifted) / n
+
+
+def autocov(sample: torch.Tensor) -> torch.Tensor:
+    """:func:`autocov_bf` for series of at most 100 steps, else
+    :func:`autocov_fft` (stats.rs:575-581)."""
+    if sample.shape[-2] <= _AUTOCOV_BF_MAX:
+        return autocov_bf(sample)
+    return autocov_fft(sample)
 
 
 def _geyer_tau(rho: torch.Tensor) -> torch.Tensor:

@@ -58,17 +58,35 @@ sampler reads:
   (:func:`mh_draws`): at dim 2 one block a step, words 0 and 1 for the
   normals and word 2 for the uniform.  The discrete walk reads its own
   stream, ``TAG_SIGN``: the sign of coordinate ``j`` is the top bit of word
-  ``j`` and the accept uniform is word ``dim`` (:func:`sign_draws`).
+  ``j`` and the accept uniform is word ``dim`` (:func:`sign_draws`).  The
+  ``"torch"`` step draws both with one fill launch (:func:`walk_draws`,
+  :func:`sign_walk_draws`).
+- MALA: MH's layout under its own tag, ``TAG_MALA``: the ``dim`` proposal
+  normals from the pairs and the accept uniform from word ``2·⌈dim/2⌉``
+  (:func:`walk_draws` with ``tag=TAG_MALA``), one fill launch a step.
+- Replica exchange over ``T`` rungs: the proposal normals of every rung
+  from one pair stream under ``TAG_TEMPER_NORMAL``, ``T·dim`` normals with
+  rung ``t``'s coordinates at ``t·dim … t·dim + dim − 1``; and ``2T − 1``
+  uniforms from one word sequence under ``TAG_TEMPER_UNIFORM``, words ``0 …
+  T − 1`` the rungs' accepts and words ``T … 2T − 2`` the adjacent pairs'
+  swaps (:func:`tempering_draws`), two fill launches a step.
+- Gibbs: coordinate ``i`` owns group ``i`` (one Philox block) of a pair
+  stream under ``TAG_GIBBS_NORMAL`` and of a word sequence under
+  ``TAG_GIBBS_UNIFORM``: normals ``4i … 4i + 3`` and uniforms ``4i … 4i +
+  3``, so a conditional may take up to four of each, and no normal shares a
+  word with a uniform (:func:`gibbs_draws`), two fill launches a step
+  whatever ``dim`` is.
 
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``,
-but for ``TAG_STATIC``, which has no constant there: it reaches the card
-only as the fill kernel's argument.
+but for ``TAG_STATIC`` and the tags after it, which have no constant there:
+they reach the card only as the fill kernel's argument.
 
 ``counter_rng_fill`` launches the fill kernel of ``csrc/counter_rng.cu``,
-which writes the device function's draws to a tensor.  ChEES-HMC and NUTS
-draw with it on the card (:func:`step_draws`, :func:`nuts_draws`,
-:func:`static_draws`); the
-fused HMC and MH kernels run the device function inside themselves.
+which writes the device function's draws to a tensor.  Every eager sampler
+draws with it on the card (:func:`step_draws`, :func:`walk_draws`,
+:func:`sign_walk_draws`, :func:`nuts_draws`, :func:`static_draws`,
+:func:`tempering_draws`, :func:`gibbs_draws`); the fused HMC and MH kernels
+run the device function inside themselves.
 """
 
 from __future__ import annotations
@@ -88,6 +106,12 @@ __all__ = [
     "TAG_TREE",
     "TAG_EPS_WINDOW",
     "TAG_STATIC",
+    "TAG_MALA",
+    "TAG_TEMPER_NORMAL",
+    "TAG_TEMPER_UNIFORM",
+    "TAG_GIBBS_NORMAL",
+    "TAG_GIBBS_UNIFORM",
+    "GIBBS_DRAWS",
     "philox4x32_10",
     "counter_bits",
     "bits_to_uniform",
@@ -97,6 +121,10 @@ __all__ = [
     "mh_draws",
     "sign_draws",
     "step_draws",
+    "walk_draws",
+    "sign_walk_draws",
+    "tempering_draws",
+    "gibbs_draws",
     "nuts_draws",
     "static_words",
     "static_draws",
@@ -122,6 +150,15 @@ TAG_EPS_SEARCH = 4
 TAG_TREE = 5
 TAG_EPS_WINDOW = 6
 TAG_STATIC = 7
+TAG_MALA = 8
+TAG_TEMPER_NORMAL = 9
+TAG_TEMPER_UNIFORM = 10
+TAG_GIBBS_NORMAL = 11
+TAG_GIBBS_UNIFORM = 12
+
+# Normals, and uniforms, a Gibbs coordinate may draw in one sweep: one
+# Philox block of each stream.
+GIBBS_DRAWS = 4
 
 # Launches of the fill kernel (counter_rng_fill) in this process.
 launches = 0
@@ -248,6 +285,53 @@ def step_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
     z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
     u = counter_rng_fill(n_chains, 1, seed, step, TAG_ACCEPT, "uniform", device)
     return z, u[:, 0]
+
+
+def walk_draws(seed: int, n_chains: int, step: int, dim: int, tag: int = TAG_PROPOSAL,
+               device=None):
+    """One step's draws of :func:`mh_draws` for chains ``0 … n_chains − 1``:
+    ``z [n_chains, dim]`` normals and ``u [n_chains]`` uniforms, float32,
+    from one fill launch of kind ``"mh"`` on a CUDA device (the plain
+    version on the CPU).  MH's normal proposals draw under ``TAG_PROPOSAL``,
+    MALA under ``TAG_MALA``."""
+    w = counter_rng_fill(n_chains, dim + 1, seed, step, tag, "mh", device)
+    return w[:, :dim], w[:, dim]
+
+
+def sign_walk_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
+    """One step's draws of :func:`sign_draws` for chains ``0 … n_chains −
+    1``: ``up [n_chains, dim]`` coin flips (bool) and ``u [n_chains]``
+    float32 uniforms, from one fill launch of ``dim + 1`` raw words under
+    ``TAG_SIGN`` on a CUDA device (the plain version on the CPU)."""
+    w = counter_rng_fill(n_chains, dim + 1, seed, step, TAG_SIGN, "bits", device)
+    return w[:, :dim] < 0, words_to_uniform(w[:, dim])  # int32 < 0: the top bit
+
+
+def tempering_draws(seed: int, n_chains: int, step: int, n_temps: int, dim: int,
+                    device=None):
+    """One replica-exchange step's draws for chains ``0 … n_chains − 1`` over
+    ``n_temps`` rungs (layout in the module docstring): ``z [n_chains,
+    n_temps, dim]`` proposal normals, ``u_acc [n_chains, n_temps]`` accept
+    uniforms and ``u_swap [n_chains, n_temps − 1]`` swap uniforms, float32.
+    On a CUDA device two fill launches, on the CPU the plain version."""
+    z = counter_rng_fill(n_chains, n_temps * dim, seed, step, TAG_TEMPER_NORMAL,
+                         "normal_pair", device)
+    u = counter_rng_fill(n_chains, 2 * n_temps - 1, seed, step, TAG_TEMPER_UNIFORM,
+                         "uniform", device)
+    return z.reshape(n_chains, n_temps, dim), u[:, :n_temps], u[:, n_temps:]
+
+
+def gibbs_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
+    """One Gibbs sweep's draws for chains ``0 … n_chains − 1``: ``normals``
+    and ``uniforms``, each ``[n_chains, GIBBS_DRAWS·dim]`` float32, columns
+    ``4i … 4i + 3`` coordinate ``i``'s (layout in the module docstring).  On
+    a CUDA device two fill launches, on the CPU the plain version."""
+    cols = GIBBS_DRAWS * dim
+    normals = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_NORMAL, "normal_pair",
+                               device)
+    uniforms = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_UNIFORM, "uniform",
+                                device)
+    return normals, uniforms
 
 
 def nuts_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device=None):

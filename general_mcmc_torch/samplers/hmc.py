@@ -5,7 +5,8 @@ Port of ``general_mcmc_tpu/samplers/hmc.py``.  Two backends:
 
 - ``"torch"`` (the JAX package's ``"xla"``): one step per Python iteration
   on batched tensors, with momenta and accept draws from the counter
-  generator (:mod:`..ops.counter_rng`) at (seed, chain, step);
+  generator (:mod:`..ops.counter_rng`) at (seed, chain, step), two launches
+  of its fill kernel a step on the card (:func:`..ops.counter_rng.step_draws`);
 - ``"cuda"`` (the JAX package's ``"pallas"``): the whole run in one launch
   of the fused kernel (:func:`..ops.fused_hmc.fused_hmc_run`), which reads
   the same draws, so both backends follow the same trajectory up to float
@@ -150,10 +151,11 @@ class HMC(BatchSampler):
         both this port and the JAX package the same numbers."""
         x, lp, grad = carry
         dtype = x.dtype
-        if z is None:
-            z = counter_rng.normals_paired(self._key, self._chain_ids, m, x.shape[1])
-        if u is None:
-            u = counter_rng.uniforms(self._key, self._chain_ids, m)
+        if z is None or u is None:
+            z_drawn, u_drawn = counter_rng.step_draws(self._key, self.n_chains, m, x.shape[1],
+                                                      x.device)
+            z = z_drawn if z is None else z
+            u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device).to(dtype)
         u = torch.as_tensor(u, device=x.device).to(dtype)
         if self.dense_mass:

@@ -9,7 +9,8 @@ step) (:mod:`..ops.counter_rng`): standard normals and the accept uniform
 from one word sequence (:func:`..ops.counter_rng.mh_draws`: at dim 2 one
 Philox block a step), or, for a proposal whose ``draws`` attribute is
 ``"sign"``, fair coin flips and the uniform from a stream of their own
-(:func:`..ops.counter_rng.sign_draws`).  Two backends:
+(:func:`..ops.counter_rng.sign_draws`); on the card the ``"torch"`` step
+takes either with one launch of the generator's fill kernel.  Two backends:
 
 - ``"torch"`` (the JAX package's ``"xla"``): one step per Python iteration
   on batched tensors, float or integer states, any target and proposal;
@@ -180,8 +181,8 @@ class MetropolisHastings(BatchSampler):
         proposal = self.proposal
         signs = getattr(proposal, "draws", "normal") == "sign"
         if z is None or u is None:
-            draw = counter_rng.sign_draws if signs else counter_rng.mh_draws
-            z_drawn, u_drawn = draw(self._key, self._chain_ids, m, x.shape[1])
+            draw = counter_rng.sign_walk_draws if signs else counter_rng.walk_draws
+            z_drawn, u_drawn = draw(self._key, self.n_chains, m, x.shape[1], device=x.device)
             z = z_drawn if z is None else z
             u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device)

@@ -134,3 +134,28 @@ def test_unknown_backend_raises():
     t = to_target("GaussianND", np.zeros(3), np.ones(3))
     with pytest.raises(ValueError, match="unknown backend"):
         HMC(t, torch.zeros(4, 3), 0.1, 3, backend="xla", device="cpu")
+
+
+def test_torch_step_draws_through_the_fill_and_keeps_its_trajectory(monkeypatch):
+    """The "torch" step draws its momenta and accept uniforms through
+    counter_rng_fill (two fills a step: on the card two launches of the fill
+    kernel), and its run equals the same steps with the plain draws
+    (normals_paired, uniforms) injected, bit for bit."""
+    from general_mcmc_torch.ops import counter_rng as cr
+
+    fills = []
+    real = cr.counter_rng_fill
+    monkeypatch.setattr(cr, "counter_rng_fill",
+                        lambda *a, **k: fills.append(a[4]) or real(*a, **k))
+    x0 = torch.from_numpy(np.random.default_rng(8).normal(size=(6, 3))).float()
+    h = HMC(to_target("GaussianND", np.zeros(3), np.ones(3)), x0, 0.3, 4, seed=7,
+            device="cpu")
+    got = h.run(10, 5)
+    assert fills == [cr.TAG_MOMENTUM, cr.TAG_ACCEPT] * 15
+    carry, want = h._init_carry(), []
+    for m in range(15):
+        z = cr.normals_paired(h._key, h._chain_ids, m, 3)
+        carry = h._step(carry, m, z=z, u=cr.uniforms(h._key, h._chain_ids, m))
+        want.append(carry[0])
+    assert len(fills) == 30  # the injected steps drew nothing
+    assert torch.equal(got, torch.stack(want[5:], dim=1))

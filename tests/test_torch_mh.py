@@ -218,3 +218,30 @@ def test_step_reads_one_word_sequence(name):
     for got in (ps._step(carry, 3), ps._step(carry, 3, z=z), ps._step(carry, 3, u=u)):
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["walk_gaussian2d", "pcn_gaussian3d", "discrete_poisson"])
+def test_torch_step_draws_through_the_fill_and_keeps_its_trajectory(name, monkeypatch):
+    """The "torch" step draws through counter_rng_fill, one fill a step
+    (kind "mh" under TAG_PROPOSAL, or "bits" under TAG_SIGN: on the card one
+    launch of the fill kernel), and its run equals the same steps with the
+    plain draws (mh_draws, sign_draws) injected, bit for bit."""
+    from general_mcmc_torch.ops import counter_rng as cr
+
+    _, _, pt, pp, x0 = _cases()[name]
+    fills = []
+    real = cr.counter_rng_fill
+    monkeypatch.setattr(cr, "counter_rng_fill",
+                        lambda *a, **k: fills.append(a[4:6]) or real(*a, **k))
+    ps = MetropolisHastings(pt, pp, to_tensor(x0), seed=4, device="cpu")
+    got = ps.run(12, 3)
+    signs = name == "discrete_poisson"
+    assert fills == [(cr.TAG_SIGN, "bits") if signs else (cr.TAG_PROPOSAL, "mh")] * 15
+    draw = cr.sign_draws if signs else cr.mh_draws
+    carry, want = ps._init_carry(), []
+    for m in range(15):
+        z, u = draw(ps._key, ps._chain_ids, m, x0.shape[1])
+        carry = ps._step(carry, m, z=z, u=u)
+        want.append(carry[0])
+    assert len(fills) == 15
+    assert torch.equal(got, torch.stack(want[3:], dim=1))

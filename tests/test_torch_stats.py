@@ -117,6 +117,19 @@ def test_autocov_fft_matches_jax():
                                rtol=RTOL, atol=1e-12)
 
 
+@pytest.mark.parametrize("fn,n", [("autocov_bf", 17), ("autocov", 17), ("autocov", 150)])
+def test_autocov_bf_and_dispatch_match_jax(fn, n):
+    """The brute-force autocovariance and the length dispatch (brute force
+    up to 100 steps, FFT beyond) against the JAX package's, on a batch of
+    chains, and the brute force against the FFT."""
+    x = _sample(3, n, 2, seed=5)
+    got = getattr(pst, fn)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(getattr(jst, fn)(jnp.asarray(x))),
+                               rtol=RTOL, atol=1e-12)
+    np.testing.assert_allclose(got, pst.autocov_fft(torch.from_numpy(x)).numpy(), rtol=1e-9,
+                               atol=1e-12)
+
+
 def test_run_kernel_stats_carries_the_suffstats_of_its_samples():
     from general_mcmc_torch import GaussianND, HMC
     from general_mcmc_torch.core import run_kernel, run_kernel_stats
