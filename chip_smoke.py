@@ -118,6 +118,22 @@ Phases (each prints one line; any failure raises and exits non-zero):
     "runtime-small" also holds MALA, Gibbs and replica exchange to the
     runtime's equalities.
 
+14. ``parallel/`` (chains split over ranks, ``run_sharded``): the ranks are
+    child processes of this script sharing the card under a gloo group on
+    CUDA tensors (this process joins no group); "shard-small" (K2's fill
+    kernel from a nonzero ``chain0``/``word0`` equal to the plain version's
+    block and timed; two ranks at 1,024 chains: HMC, MH, MALA, replica
+    exchange, Gibbs and NUTS (both trees), each rank's rows bit-equal to the
+    unsharded run's; ``init_positions_on_mesh`` the same array on 1 and 2
+    ranks), "shard-main" (the ChEES headline on two ranks, 5,120 chains
+    each: max pooled R-hat < 1.01, the pooled moment audit < 0.05, ``L``,
+    ε̄ and T against chees-main's, each rank's fill launches, wall split and
+    the all-reduces of a warmup step with their host time), "shard-one" (the
+    headline on a one-rank NCCL mesh, its store bit-equal to chees-main's
+    by digest) and "shard-dim" (NUTS and ChEES on a 2 x 2 mesh of four
+    ranks with ``shard_dim``, 1,024 chains of a 64-d diagonal Gaussian in
+    float64, within 1e-8 of the unsharded runs).
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -127,6 +143,7 @@ code 2 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import functools
 import io
 import itertools
@@ -135,6 +152,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -145,6 +163,7 @@ import torch
 import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
 from general_mcmc_torch import io as gmt_io
+from general_mcmc_torch import parallel as gmt_parallel
 from general_mcmc_torch.io import native as io_native
 from general_mcmc_torch.models.distributions import rowsum
 from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_logistic, fused_mh,
@@ -1282,7 +1301,8 @@ def phase_chees_main(dev):
         fill_uniform_ms=f"{fill['uniform'][0]:.5f}", bound_ms=f"{b_ms:.3f}",
         bound_by=b_by, wall_over_bound=f"{wall * 1e3 / b_ms:.1f}")
     return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"],
-                ops_per_step=prof["ops_per_step"], min_ess=min_ess, store=store)
+                ops_per_step=prof["ops_per_step"], min_ess=min_ess, store=store,
+                L=sampler._static_L, eps_bar=eps_bar, T=t_len)
 
 
 def phase_chees_logistic(dev):
@@ -2434,7 +2454,402 @@ def phase_tempering_main(dev):
     return dict(fill_launches=fills + mh_fills, fill=fill, ops_per_step=prof["ops_per_step"])
 
 
+# -- parallel/: chains (and coordinates) split over ranks -------------------------
+# The card is one, so a multi-rank phase runs its ranks as child processes of
+# this script (``chip_smoke.py --child <program> ...``) that share the card
+# under a gloo group on CUDA tensors (NCCL refuses two ranks on one card);
+# "shard-one" is a one-rank NCCL child.  This process never joins a group.
+# A child that fails fails its phase.
+SHARD_RANKS = 2
+# "shard-small": 1,024 chains of the 2-d Gaussian, 10 + 20 steps of each
+# sampler with no cross-chain reduction; "shard-dim": a 2 x 2 mesh, 1,024
+# chains of a 64-d diagonal Gaussian in float64.
+SHARD_SMALL_CHAINS, SHARD_SMALL_STEPS = 1024, (20, 10)
+SHARD_SMALL_CASES = ("hmc", "mh", "mala", "tempering", "gibbs", "nuts_torch", "nuts_static")
+SHARD_DIM_MESH, SHARD_DIM_D = (2, 2), 64
+SHARD_DIM_STEPS = {"nuts": (10, 10), "chees": (20, 20)}
+# float64, sums over four column or chain blocks in another order: rounding
+SHARD_DIM_ATOL = 1e-8
+# "shard-main" against "chees-main": the adapted ε̄ and T in float32 from
+# cross-chain means summed in another order
+SHARD_ADAPT_RTOL = 1e-3
+# warmup steps of the all-reduce probe of "shard-main"
+SHARD_PROBE_STEPS = 10
+SHARD_CHILD_TIMEOUT = 400
+
+
+def store_digest(store) -> torch.Tensor:
+    """``[steps, 2]`` int64 on the CPU: per step, the sum of the store's
+    float32 bits as int32 and their sum weighted by the element's index
+    modulo 1,021 plus one; two stores that differ in any bit differ here
+    but by a coincidence of both sums."""
+    steps = store.shape[0]
+    w = (torch.arange(store[0].numel(), device=store.device) % 1021 + 1).reshape(
+        store.shape[1:])
+    out = []
+    for k in range(0, steps, 256):
+        bits = store[k:k + 256].contiguous().view(torch.int32).to(torch.int64)
+        out.append(torch.stack([bits.sum(dim=(1, 2)), (bits * w).sum(dim=(1, 2))], dim=1))
+    return torch.cat(out).cpu()
+
+
+def spawn_children(program: str, world: int, backend: str, payload: dict, tmp: str):
+    """Run ``program`` on ``world`` child ranks of this script (``backend``
+    ``"gloo"``, or ``"nccl"`` at one rank), all on card 0; returns each
+    rank's result and the seconds from the start to the last exit.  A child
+    that fails raises here with its output; every child is ended."""
+    workdir = tempfile.mkdtemp(prefix=f"{program}_", dir=tmp)
+    torch.save(payload, os.path.join(workdir, "payload.pt"))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", program,
+                               str(port), str(r), str(world), backend, workdir],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=SHARD_CHILD_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"{program} rank {r} of {world} exited {p.returncode}:\n"
+              f"{log[-6000:]}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt")) for r in range(world)], seconds
+
+
+def child_main(argv) -> int:
+    """One rank of a multi-rank phase: join the group, run the program,
+    write its result."""
+    program, port, rank, world, backend, workdir = argv
+    rank, world = int(rank), int(world)
+    torch.cuda.set_device(0)
+    gmt_parallel.initialize(init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, backend=backend, timeout=datetime.timedelta(seconds=300))
+    payload = torch.load(os.path.join(workdir, "payload.pt"))
+    out = CHILD_PROGRAMS[program](torch.device("cuda", 0), payload)
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def child_shard_main(dev, payload):
+    """The ChEES headline through ``run_sharded`` on this rank's half of
+    the chains: the gates' inputs (pooled R-hat, the pooled moments, ε̄, T,
+    L), the fill launches, the wall of the run and of a second run split by
+    phase, and the all-reduces of a warmup step and their host time."""
+    scales, sampler = headline_sampler(dev)
+    mesh = gmt_parallel.chain_mesh()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = gmt_parallel.run_sharded(sampler, CHEES_COLLECT, CHEES_WARMUP, mesh)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    fills = counter_rng.launches
+    finite = bool(torch.isfinite(samples).all())
+    # per-chain moments in float32, pooled over both ranks in float64
+    sm2, mean = torch.var_mean(samples, dim=1)
+    rhat = gmt_parallel.pooled_rhat_sharded(mean.double(), sm2.double(), CHEES_COLLECT, mesh)
+    n = CHEES_COLLECT
+    pooled = torch.stack([mean.double().sum(0), (mean.double() ** 2).sum(0),
+                          (sm2.double() * ((n - 1) / n)).sum(0)])
+    torch.distributed.all_reduce(pooled, group=mesh.chains_group)
+    var = pooled[2] / N_CHAINS + pooled[1] / N_CHAINS - (pooled[0] / N_CHAINS) ** 2
+    audit = float((var.sqrt().cpu() / scales.double() - 1.0).abs().max())
+    out = dict(shape=tuple(samples.shape), chain0=sampler.shard.chain0, fills=fills,
+               finite=finite, max_rhat=float(rhat.max()), audit=audit, L=sampler._static_L,
+               eps_bar=float(sampler.adapted_step_size),
+               T=float(sampler.adapted_trajectory_length), first_s=first_s,
+               divergences=int(sampler.divergences.sum()))
+    del samples, sm2, mean
+    torch.cuda.empty_cache()
+    again = sampler.run(CHEES_COLLECT, CHEES_WARMUP, time_phases=True)
+    out["phases"] = dict(sampler.phase_seconds)
+    del again
+    torch.cuda.empty_cache()
+
+    # the all-reduces of SHARD_PROBE_STEPS warmup steps, each timed on the host
+    real, times = torch.distributed.all_reduce, []
+
+    def counted(*args, **kwargs):
+        t = time.perf_counter()
+        r = real(*args, **kwargs)
+        times.append(time.perf_counter() - t)
+        return r
+
+    torch.distributed.all_reduce = counted
+    try:
+        sampler._prepare_run(0, CHEES_WARMUP)
+        carry = sampler._init_carry()
+        n_init = len(times)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in range(SHARD_PROBE_STEPS):
+            carry = sampler._step_fn(carry, m)
+        torch.cuda.synchronize()
+        probe_s = time.perf_counter() - t0
+    finally:
+        torch.distributed.all_reduce = real
+    out.update(init_all_reduces=n_init,
+               all_reduces_per_step=(len(times) - n_init) / SHARD_PROBE_STEPS,
+               all_reduce_ms_per_step=sum(times[n_init:]) * 1e3 / SHARD_PROBE_STEPS,
+               warmup_step_ms=probe_s * 1e3 / SHARD_PROBE_STEPS)
+    return out
+
+
+def child_shard_one(dev, payload):
+    """The headline through ``run_sharded`` on a one-rank NCCL mesh: the
+    store's digest against chees-main's, and an NCCL all-reduce and
+    broadcast on the world group."""
+    _, sampler = headline_sampler(dev)
+    mesh = gmt_parallel.chain_mesh()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = gmt_parallel.run_sharded(sampler, CHEES_COLLECT, CHEES_WARMUP, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fills = counter_rng.launches
+    digest = store_digest(samples.transpose(0, 1))
+    probe = torch.full((4,), 3.0, device=dev)
+    torch.distributed.all_reduce(probe)
+    torch.distributed.broadcast(probe, 0)
+    torch.cuda.synchronize()
+    return dict(equal=bool(torch.equal(digest, payload["digest"])), fills=fills, wall=wall,
+                mesh_size=mesh.size, nccl_probe=probe.cpu().tolist(),
+                backend=torch.distributed.get_backend())
+
+
+def shard_small_sampler(name: str, x0):
+    """The "shard-small" samplers on the 2-d Gaussian (autograd), seed 4."""
+    t = gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=x0.device)
+    if name == "hmc":
+        return gmt.HMC(t, x0, 0.1, 5, seed=4)
+    if name == "mh":
+        return gmt.MetropolisHastings(t, gmt.RandomWalkProposal(1.0), x0, seed=4)
+    if name == "mala":
+        return gmt.MALA(t, x0, 0.5, seed=4)
+    if name == "tempering":
+        return gmt.ReplicaExchange(t, x0, gmt.geometric_temperatures(4, 8.0, device=x0.device),
+                                   scale=0.8, seed=4)
+    if name == "gibbs":
+        return gmt.GibbsSampler(chain_graph, x0, seed=4)
+    return gmt.NUTS(t, x0, 0.8, max_tree_depth=NUTS_DEPTH, backend=name[5:], seed=4)
+
+
+def child_shard_small(dev, payload):
+    """Each "shard-small" sampler unsharded and through ``run_sharded``:
+    this rank's rows of the first equal to the second, bit for bit; and this
+    rank's rows of ``init_positions_on_mesh``."""
+    mesh = gmt_parallel.chain_mesh()
+    lo, hi = mesh.rows(SHARD_SMALL_CHAINS)
+    x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, 2, 3, device=dev)
+    equal, fills = {}, {}
+    for name in SHARD_SMALL_CASES:
+        whole = shard_small_sampler(name, x0).run(*SHARD_SMALL_STEPS)
+        reset_counts()
+        block = gmt_parallel.run_sharded(shard_small_sampler(name, x0), *SHARD_SMALL_STEPS,
+                                         mesh)
+        torch.cuda.synchronize()
+        fills[name] = counter_rng.launches
+        equal[name] = bool(torch.equal(block, whole[lo:hi]))
+    init = gmt_parallel.init_positions_on_mesh(SHARD_SMALL_CHAINS, DIM, 7, mesh, device=dev)
+    return dict(rows=(lo, hi), equal=equal, fills=fills, init=init.cpu())
+
+
+def shard_dim_sampler(name: str, x0):
+    target = gmt.GaussianND(torch.zeros(SHARD_DIM_D, dtype=torch.float64),
+                            torch.linspace(1.0, 3.0, SHARD_DIM_D, dtype=torch.float64),
+                            device=x0.device)
+    if name == "nuts":
+        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch")
+    return gmt.ChEESHMC(target, x0, seed=11)
+
+
+def child_shard_dim(dev, payload):
+    """NUTS and ChEES on the 2 x 2 mesh with ``shard_dim``: this rank's
+    [rows, columns] block against the unsharded run's."""
+    mesh = gmt_parallel.make_mesh(*SHARD_DIM_MESH)
+    r0, r1 = mesh.rows(SHARD_SMALL_CHAINS)
+    c0, c1 = mesh.cols(SHARD_DIM_D)
+    x0 = payload["x0"].to(dev)
+    out = dict(block=(r0, r1, c0, c1))
+    for name, steps in SHARD_DIM_STEPS.items():
+        s = shard_dim_sampler(name, x0)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = gmt_parallel.run_sharded(s, *steps, mesh, shard_dim=True)
+        torch.cuda.synchronize()
+        want = payload[name][r0:r1, :, c0:c1].to(dev)
+        out[name] = dict(err=float((got - want).abs().max()), wall=time.perf_counter() - t0,
+                         fills=counter_rng.launches,
+                         div_equal=bool(torch.equal(s.divergences.cpu(),
+                                                    payload[name + "_div"][r0:r1])))
+    return out
+
+
+CHILD_PROGRAMS = {"shard-main": child_shard_main, "shard-one": child_shard_one,
+                  "shard-small": child_shard_small, "shard-dim": child_shard_dim}
+
+
+def phase_shard_main(chees: dict, tmp: str):
+    """"shard-main": the ChEES headline on two ranks of the card through
+    ``run_sharded`` (5,120 chains a rank): max pooled R-hat < 1.01, the
+    pooled moment audit < 0.05, ``L`` equal to chees-main's, ε̄ and T
+    within 1e-3 of chees-main's, each rank's fill launches 2 a step + 1."""
+    outs, seconds = spawn_children("shard-main", SHARD_RANKS, "gloo", {}, tmp)
+    steps = CHEES_WARMUP + CHEES_COLLECT
+    for r, o in enumerate(outs):
+        check(o["shape"] == (N_CHAINS // SHARD_RANKS, CHEES_COLLECT, DIM) and o["finite"],
+              f"shard-main rank {r}: shape {o['shape']} and finite samples")
+        check(o["fills"] == 2 * steps + 1, f"shard-main rank {r}: {o['fills']} fill launches")
+        check(o["L"] == chees["L"], f"shard-main rank {r}: L {o['L']} == chees-main's "
+              f"{chees['L']}")
+        for k in ("eps_bar", "T"):
+            rel = abs(o[k] / chees[k] - 1.0)
+            check(rel < SHARD_ADAPT_RTOL, f"shard-main rank {r}: {k} {o[k]} within "
+                  f"{SHARD_ADAPT_RTOL} of chees-main's {chees[k]} ({rel})")
+    for k in ("max_rhat", "audit", "eps_bar", "T"):
+        check(len({o[k] for o in outs}) == 1, f"shard-main: {k} the same on every rank")
+    o = outs[0]
+    check(o["max_rhat"] < 1.01, f"shard-main: max pooled R-hat {o['max_rhat']} < 1.01")
+    check(o["audit"] < 0.05, f"shard-main: pooled moment audit {o['audit']} < 0.05")
+    say("shard-main", ranks=SHARD_RANKS, backend="gloo", chains=N_CHAINS,
+        chains_a_rank=N_CHAINS // SHARD_RANKS, steps=f"{CHEES_WARMUP}+{CHEES_COLLECT}",
+        L=o["L"], eps_bar=f"{o['eps_bar']:.6f}", T=f"{o['T']:.6f}",
+        eps_bar_rel=f"{abs(o['eps_bar'] / chees['eps_bar'] - 1):.3e}",
+        T_rel=f"{abs(o['T'] / chees['T'] - 1):.3e}", max_pooled_rhat=f"{o['max_rhat']:.5f}",
+        moment_audit=f"{o['audit']:.5f}",
+        divergences=sum(x["divergences"] for x in outs),
+        fill_launches=json.dumps([x["fills"] for x in outs]),
+        first_run_s=json.dumps([round(x["first_s"], 4) for x in outs]),
+        wall_split_s=json.dumps([{k: round(v, 4) for k, v in x["phases"].items()}
+                                 for x in outs]),
+        init_all_reduces=o["init_all_reduces"],
+        all_reduces_per_warmup_step=o["all_reduces_per_step"],
+        all_reduce_ms_per_warmup_step=json.dumps(
+            [round(x["all_reduce_ms_per_step"], 4) for x in outs]),
+        warmup_step_ms=json.dumps([round(x["warmup_step_ms"], 4) for x in outs]),
+        phase_s=f"{seconds:.2f}")
+    return dict(fills=[x["fills"] for x in outs])
+
+
+def phase_shard_one(chees: dict, tmp: str):
+    """"shard-one": the headline through ``run_sharded`` on a one-rank NCCL
+    mesh, its store bit-equal (digest) to chees-main's."""
+    (o,), seconds = spawn_children("shard-one", 1, "nccl", {"digest": chees["digest"]}, tmp)
+    check(o["backend"] == "nccl" and o["mesh_size"] == 1, f"shard-one: {o['backend']} mesh "
+          f"of {o['mesh_size']}")
+    check(o["equal"], "shard-one: the store equals chees-main's bit for bit (digest)")
+    check(o["fills"] == 2 * (CHEES_WARMUP + CHEES_COLLECT) + 1,
+          f"shard-one: {o['fills']} fill launches")
+    check(o["nccl_probe"] == [3.0] * 4, f"shard-one: NCCL probe {o['nccl_probe']}")
+    say("shard-one", backend=o["backend"], digest_equal=True, fill_launches=o["fills"],
+        run_s=f"{o['wall']:.4f}", phase_s=f"{seconds:.2f}")
+    return dict(fills=o["fills"])
+
+
+def phase_shard_small(dev, tmp: str):
+    """"shard-small": the fill kernel with ``chain0``/``word0`` against the
+    plain version's block and timed; then two ranks at 1,024 chains run
+    HMC, MH, MALA, replica exchange, Gibbs and NUTS (both trees) through
+    ``run_sharded``, each rank's rows bit-equal to the unsharded run's;
+    ``init_positions_on_mesh`` the same global array on 1 and 2 ranks."""
+    half, cols = N_CHAINS // 2, DIM // 2
+    errs = {}
+    for kind, tag in (("normal_pair", counter_rng.TAG_MOMENTUM),
+                      ("uniform", counter_rng.TAG_TREE), ("bits", counter_rng.TAG_STATIC)):
+        want = counter_rng.counter_rng_fill_reference(N_CHAINS, DIM, SEED, 7, tag, kind,
+                                                      device=dev)[half:, cols:]
+        got = counter_rng.counter_rng_fill(half, cols, SEED, 7, tag, kind, dev, chain0=half,
+                                           word0=cols)
+        errs[kind] = float((got.double() - want.double()).abs().max())
+        check(torch.equal(got, want), f"K2 {kind} fill from chain {half}, word {cols} equals "
+              "the plain version's block")
+    # the fill at one nonzero (chain0, word0) and unshifted, same shape
+    times = {}
+    for offsets in ((0, 0), (half, cols)):
+        buf = torch.empty((half, cols), dtype=torch.float32, device=dev)
+        lib, launch = counter_rng.fill_launcher(buf, SEED, 7, counter_rng.TAG_MOMENTUM,
+                                                "normal_pair", *offsets)
+        codes = []
+        times[offsets] = device_ms(lambda: codes.append(launch()), FILL_REPS)
+        _build.check(lib, next((c for c in codes if c), 0), "counter_rng_fill (offset, timed)")
+    offset_ms = times[(half, cols)]
+    b_ms, b_by = bound(4 * half * cols, half * cols / 4 * PHILOX_OPS + half * cols * 10)
+
+    alone = gmt_parallel.init_positions_on_mesh(SHARD_SMALL_CHAINS, DIM, 7,
+                                                gmt_parallel.chain_mesh(), device=dev).cpu()
+    outs, seconds = spawn_children("shard-small", SHARD_RANKS, "gloo", {}, tmp)
+    glued = torch.cat([o["init"] for o in outs])
+    check(torch.equal(glued, alone), "shard-small: init_positions_on_mesh on 2 ranks equals "
+          "1 rank's")
+    steps = sum(SHARD_SMALL_STEPS)
+    per_step = {"hmc": 2, "mh": 1, "mala": 1, "tempering": 2, "gibbs": 2, "nuts_torch": 2,
+                "nuts_static": 2}
+    for r, o in enumerate(outs):
+        differ = [k for k, v in o["equal"].items() if not v]
+        check(not differ, f"shard-small rank {r}: rows differ from the unsharded run's for "
+              f"{differ}")
+        for name, f in o["fills"].items():
+            want = per_step[name] * steps + (1 if name.startswith("nuts") else 0)
+            check(f == want, f"shard-small rank {r} {name}: {f} fill launches, not {want}")
+    say("shard-small", ranks=SHARD_RANKS, chains=SHARD_SMALL_CHAINS,
+        steps="{1}+{0}".format(*SHARD_SMALL_STEPS), samplers=",".join(SHARD_SMALL_CASES),
+        rows_bit_equal=True, init_equal=True,
+        fill_launches=json.dumps([o["fills"] for o in outs]),
+        offset_fill=f"{half}x{cols} from ({half},{cols})", offset_bit_equal=True,
+        offset_fill_ms=f"{offset_ms:.5f}", unshifted_fill_ms=f"{times[(0, 0)]:.5f}",
+        offset_bound_ms=f"{b_ms:.6f}", phase_s=f"{seconds:.2f}")
+    return dict(fills=[sum(o["fills"].values()) for o in outs], offset_ms=offset_ms,
+                unshifted_ms=times[(0, 0)], bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=max(errs.values()))
+
+
+def phase_shard_dim(dev, tmp: str):
+    """"shard-dim": NUTS (the dynamic tree) and ChEES on a 2 x 2 mesh of
+    four ranks with ``shard_dim``, 1,024 chains of a 64-d diagonal Gaussian
+    in float64: every rank's block within 1e-8 of the unsharded run."""
+    x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, SHARD_DIM_D, 5, dtype=torch.float64,
+                            device=dev)
+    payload, walls = {"x0": x0.cpu()}, {}
+    for name, steps in SHARD_DIM_STEPS.items():
+        s = shard_dim_sampler(name, x0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload[name] = s.run(*steps).cpu()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        payload[name + "_div"] = s.divergences.cpu()
+    outs, seconds = spawn_children("shard-dim", SHARD_DIM_MESH[0] * SHARD_DIM_MESH[1], "gloo",
+                                   payload, tmp)
+    for r, o in enumerate(outs):
+        for name in SHARD_DIM_STEPS:
+            check(o[name]["err"] < SHARD_DIM_ATOL and o[name]["div_equal"],
+                  f"shard-dim rank {r} {name}: max |d| {o[name]['err']} < {SHARD_DIM_ATOL}, "
+                  f"divergences equal {o[name]['div_equal']}")
+    say("shard-dim", mesh="x".join(map(str, SHARD_DIM_MESH)), chains=SHARD_SMALL_CHAINS,
+        dim=SHARD_DIM_D, dtype="float64",
+        steps=json.dumps({k: f"{v[1]}+{v[0]}" for k, v in SHARD_DIM_STEPS.items()}),
+        max_abs_err=json.dumps({k: max(o[k]["err"] for o in outs) for k in SHARD_DIM_STEPS}),
+        sharded_wall_s=json.dumps({k: [round(o[k]["wall"], 3) for o in outs]
+                                   for k in SHARD_DIM_STEPS}),
+        unsharded_wall_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
+        fill_launches=json.dumps({k: [o[k]["fills"] for o in outs] for k in SHARD_DIM_STEPS}),
+        phase_s=f"{seconds:.2f}")
+    return dict(fills=[sum(o[k]["fills"] for k in SHARD_DIM_STEPS) for o in outs])
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--child"]:
+        return child_main(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -2459,6 +2874,7 @@ def main() -> int:
     runtime = phase_runtime_small(dev, tmp)
     chees = phase_chees_main(dev)
     store = chees.pop("store")  # the uninterrupted headline store
+    chees["digest"] = store_digest(store)  # "shard-one" holds its store to it
     resumed = phase_resume_main(dev, store, tmp)
     progress = phase_progress_main(dev, store, chees)
     phase_rank_main(dev, store, chees["min_ess"])
@@ -2482,7 +2898,14 @@ def main() -> int:
     mixture = phase_gibbs_mixture(dev)
     temper_small = phase_tempering_small(dev)
     temper = phase_tempering_main(dev)
+    torch.cuda.empty_cache()
+    shard_small = phase_shard_small(dev, tmp)
+    shard = phase_shard_main(chees, tmp)
+    shard_one = phase_shard_one(chees, tmp)
+    shard_dim = phase_shard_dim(dev, tmp)
     shutil.rmtree(tmp)
+    shard_fills = {"shard-main": shard["fills"], "shard-one": [shard_one["fills"]],
+                   "shard-small": shard_small["fills"], "shard-dim": shard_dim["fills"]}
     new_fills = {"mala-main": mala["fill_launches"], "gibbs-main": gibbs["fill_launches"],
                  "gibbs-mixture": mixture["fill_launches"],
                  "tempering-main": temper["fill_launches"]}
@@ -2523,13 +2946,18 @@ def main() -> int:
         # too), and of their small phases' bit checks (not in launches);
         # chees_fill_ms, nuts_fill_ms, nuts_static_fill_ms and sampler_fill_ms
         # at the ChEES, NUTS, MALA, Gibbs and replica-exchange shapes, each
-        # with its bound.
+        # with its bound; shard_fill_launches: each rank's fill launches in
+        # the parallel phases, counted from 0 in the rank's process
+        # (shard-main's in launches too); offset_fill_ms: the fill of a
+        # [5120, 50] block of normal pairs from chain 5,120 and word 50, beside
+        # the same shape from (0, 0) and its bound.
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
              launches=(main_path["launches"] + mh["launches"] + chees["fill_launches"]
                        + nuts["fill_launches"] + static["fill_launches"]
-                       + sum(runtime_fills.values()) + sum(new_fills.values())),
+                       + sum(runtime_fills.values()) + sum(new_fills.values())
+                       + sum(shard["fills"])),
              runs_inside="fused_hmc, fused_mh",
              fill_launches=chees["fill_launches"],
              fill_launches_checked=chees_small["fill_launches"],
@@ -2554,10 +2982,16 @@ def main() -> int:
                                             "tempering-small": temper_small["fill_launches"]},
              sampler_fill_ms={k: v[0] for k, v in new_fill.items()},
              sampler_fill_bound_ms={k: v[1] for k, v in new_fill.items()},
+             shard_fill_launches=shard_fills,
+             offset_fill_ms=shard_small["offset_ms"],
+             offset_unshifted_fill_ms=shard_small["unshifted_ms"],
+             offset_fill_bound_ms=shard_small["bound_ms"],
+             offset_max_abs_err=shard_small["max_abs_err"],
              checked_in="K2, chees-small, chees-main, nuts-small, nuts-main, "
                         "nuts-static-small, nuts-static, runtime-small, resume-main, "
                         "progress-main, nuts-resume, mala-small, mala-main, gibbs-small, "
-                        "gibbs-main, gibbs-mixture, tempering-small, tempering-main"),
+                        "gibbs-main, gibbs-mixture, tempering-small, tempering-main, "
+                        "shard-small, shard-main, shard-one, shard-dim"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),

@@ -20,36 +20,49 @@ namespace {
 
 enum Kind : int { kBits = 0, kUniform = 1, kMH = 2, kNormalPair = 3 };
 
-// Blocks a row of n_words columns takes: the MH layout's row is d = n_words
-// - 1 normals and the accept uniform, word 2 ceil(d / 2) of the sequence.
-__host__ __device__ __forceinline__ int row_blocks(int n_words, int kind) {
-  return kind == kMH ? n_words / 2 / 2 + 1 : (n_words + 3) / 4;
+// Blocks a row of n_words columns takes when its first column is word
+// `lead` of its first block: the MH layout's row (lead 0) is d = n_words - 1
+// normals and the accept uniform, word 2 ceil(d / 2) of the sequence.
+__host__ __device__ __forceinline__ int row_blocks(int n_words, int kind, int lead) {
+  return kind == kMH ? n_words / 2 / 2 + 1 : (lead + n_words + 3) / 4;
 }
 
-// out[c, j] for chain c of n_chains, column j of n_words, from the word
-// sequence of (seed; c, step, tag) - word w is word w % 4 of group w / 4:
-//   kBits: word j as int32;  kUniform: its uniform;
-//   kNormalPair: normal j, the cosine (j even) or sine (j odd) branch of
-//     words (j - j % 2, j - j % 2 + 1), the momentum layout of fused_hmc.cu;
-//   kMH: the same normals for j < d = n_words - 1 and in column d the
-//     uniform of word 2 ceil(d / 2), the draws of fused_mh.cu.
+// out[r, j] for row r of n_chains, column j of n_words, from the word
+// sequence of (seed; chain0 + r, step, tag) - word w is word w % 4 of group
+// w / 4 - at global word w = word0 + j:
+//   kBits: word w as int32;  kUniform: its uniform;
+//   kNormalPair: normal w, the cosine (w even) or sine (w odd) branch of
+//     words (w - w % 2, w - w % 2 + 1), the momentum layout of fused_hmc.cu
+//     (word0 is even, so a pair never straddles two fills);
+//   kMH (word0 = 0): the same normals for j < d = n_words - 1 and in column
+//     d the uniform of word 2 ceil(d / 2), the draws of fused_mh.cu.
+// chain0 and word0 let a rank that holds chains [chain0, chain0 + n_chains)
+// and columns [word0, word0 + n_words) draw exactly the rows and columns of
+// the unsharded fill.
 __global__ void fill_kernel(void* out, int n_chains, int n_words, uint32_t seed,
-                            uint32_t step, uint32_t tag, int kind) {
-  const int nb = row_blocks(n_words, kind);
+                            uint32_t step, uint32_t tag, int kind, uint32_t chain0,
+                            uint32_t word0) {
+  const int lead = static_cast<int>(word0 & 3u);
+  const int nb = row_blocks(n_words, kind, lead);
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= static_cast<int64_t>(n_chains) * nb) return;
-  const uint32_t chain = static_cast<uint32_t>(i / nb);
+  const int64_t row = i / nb;
   const int q = static_cast<int>(i % nb);
-  const uint4 r = gmt::counter_bits(seed, chain, step, static_cast<uint32_t>(q), tag);
-  const int64_t base = static_cast<int64_t>(chain) * n_words + 4 * q;
-  const bool whole = (n_words & 3) == 0 && kind != kMH;  // rows 16-byte aligned
+  const uint4 r = gmt::counter_bits(seed, chain0 + static_cast<uint32_t>(row), step,
+                                    (word0 >> 2) + static_cast<uint32_t>(q), tag);
+  const int64_t base = row * n_words;
+  const int j0 = 4 * q - lead;  // the column of the block's word 0
+  // rows 16-byte aligned and the block's four words all in the row
+  const bool whole = lead == 0 && (n_words & 3) == 0 && kind != kMH;
   if (kind == kBits) {
     uint32_t* dst = static_cast<uint32_t*>(out) + base;
     if (whole) {
-      *reinterpret_cast<uint4*>(dst) = r;
+      *reinterpret_cast<uint4*>(dst + j0) = r;
     } else {
       const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-      for (int e = 0; e < 4 && 4 * q + e < n_words; ++e) dst[e] = w[e];
+      for (int e = 0; e < 4; ++e) {
+        if (j0 + e >= 0 && j0 + e < n_words) dst[j0 + e] = w[e];
+      }
     }
     return;
   }
@@ -69,17 +82,18 @@ __global__ void fill_kernel(void* out, int n_chains, int n_words, uint32_t seed,
   }
   float* dst = static_cast<float*>(out) + base;
   if (whole) {
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + j0) = make_float4(v[0], v[1], v[2], v[3]);
     return;
   }
   const int n_values = kind == kMH ? n_words - 1 : n_words;
-  for (int e = 0; e < 4 && 4 * q + e < n_values; ++e) dst[e] = v[e];
+  for (int e = 0; e < 4; ++e) {
+    if (j0 + e >= 0 && j0 + e < n_values) dst[j0 + e] = v[e];
+  }
   if (kind == kMH && q == nb - 1) {
     // the uniform's word: word 0 of this block for an even number of
     // normal pairs, word 2 for an odd one
     const bool odd_pairs = (n_words / 2) & 1;
-    static_cast<float*>(out)[static_cast<int64_t>(chain) * n_words + n_values] =
-        gmt::bits_to_uniform(odd_pairs ? r.z : r.x);
+    dst[n_values] = gmt::bits_to_uniform(odd_pairs ? r.z : r.x);
   }
 }
 
@@ -133,16 +147,18 @@ extern "C" int counter_rng_pair_sweep(void* z_cos, void* z_sin, void* log_u, int
 
 extern "C" int counter_rng_fill(void* out, int n_chains, int n_words, unsigned int seed,
                                 unsigned int step, unsigned int tag, int kind,
-                                void* stream) {
-  if (kind < kBits || kind > kNormalPair || (kind == kMH && n_words < 2)) {
+                                unsigned int chain0, unsigned int word0, void* stream) {
+  if (kind < kBits || kind > kNormalPair || (kind == kMH && (n_words < 2 || word0 != 0)) ||
+      (kind == kNormalPair && (word0 & 1u) != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t total = static_cast<int64_t>(n_chains) * row_blocks(n_words, kind);
+  const int lead = static_cast<int>(word0 & 3u);
+  const int64_t total = static_cast<int64_t>(n_chains) * row_blocks(n_words, kind, lead);
   const int threads = 256;
   const int64_t blocks = (total + threads - 1) / threads;
   fill_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
                 static_cast<cudaStream_t>(stream)>>>(out, n_chains, n_words, seed, step,
-                                                     tag, kind);
+                                                     tag, kind, chain0, word0);
   return static_cast<int>(cudaGetLastError());
 }
 

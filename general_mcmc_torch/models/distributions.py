@@ -26,16 +26,20 @@ import math
 
 import torch
 
+from ..parallel.collectives import all_sum
+
 __all__ = ["GaussianND", "DiffableGaussian2D", "Gaussian2D", "IsotropicGaussian",
            "Rosenbrock2D", "RosenbrockND", "NealsFunnel", "Poisson", "Binomial",
            "Categorical", "as_logp_fn", "as_grad_fn", "as_value_and_grad", "rowsum"]
 
 
-def rowsum(v: torch.Tensor) -> torch.Tensor:
+def rowsum(v: torch.Tensor, group=None) -> torch.Tensor:
     """Sum over the last axis, accumulated in float64 and returned in
     ``v``'s dtype: the result is the correctly rounded sum whatever the
-    order of the additions, so the plain version and the kernel agree."""
-    return torch.sum(v, dim=-1, dtype=torch.float64).to(v.dtype)
+    order of the additions, so the plain version and the kernel agree.
+    With a dim group (the parameter axis split over ranks) the float64
+    partial sums of the column blocks are added before the rounding."""
+    return all_sum(torch.sum(v, dim=-1, dtype=torch.float64), group).to(v.dtype)
 
 
 def as_logp_fn(target):
@@ -86,7 +90,10 @@ class GaussianND:
     """N-dimensional Gaussian, the benchmark target.  ``cov`` is either a
     1-D vector of standard deviations (diagonal form) or a full covariance
     matrix (Cholesky form: ``diffᵀΣ⁻¹diff = ‖L⁻¹diff‖²``, no explicit
-    inverse)."""
+    inverse).  :meth:`columns` gives the diagonal form's block of
+    coordinates for a parameter axis split over ranks."""
+
+    dim_group = None  # the ranks whose column blocks the log density adds
 
     def __init__(self, mean, cov, dtype=None, device=None):
         self.mean = _tensor(mean, dtype, device)
@@ -108,12 +115,29 @@ class GaussianND:
         for name in ("mean", "cov", "diag_prec", "chol"):
             v = getattr(self, name)
             setattr(out, name, None if v is None else v.to(device=device, dtype=dtype))
+        out.dim_group = self.dim_group
+        return out
+
+    def columns(self, lo: int, hi: int, group) -> "GaussianND":
+        """The density of coordinates ``lo … hi − 1`` of a diagonal Gaussian
+        whose log density sums over ``group``'s column blocks: each rank of
+        the dim group holds one block, and the log density of a state is
+        the whole one on every rank.  The dense form couples every
+        coordinate and has no column block."""
+        if self.diag_prec is None:
+            raise NotImplementedError("a dense-covariance GaussianND has no column block: "
+                                      "the dim axis is ported for the diagonal form")
+        out = object.__new__(GaussianND)
+        out.mean, out.cov, out.diag_prec = (v[..., lo:hi].clone() for v in
+                                            (self.mean, self.cov, self.diag_prec))
+        out.chol = None
+        out.dim_group = group
         return out
 
     def unnorm_logp(self, x):
         diff = x - self.mean
         if self.diag_prec is not None:
-            return -0.5 * rowsum(diff * diff * self.diag_prec)
+            return -0.5 * rowsum(diff * diff * self.diag_prec, self.dim_group)
         y = torch.linalg.solve_triangular(self.chol, diff.unsqueeze(-1), upper=False)
         return -0.5 * rowsum(y.squeeze(-1) ** 2)
 

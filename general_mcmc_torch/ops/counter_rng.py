@@ -76,6 +76,19 @@ sampler reads:
   3``, so a conditional may take up to four of each, and no normal shares a
   word with a uniform (:func:`gibbs_draws`), two fill launches a step
   whatever ``dim`` is.
+- Initial positions on a mesh (``parallel.init_positions_on_mesh``): chain
+  ``c``'s ``dim`` coordinates are the pairs of ``(seed; c, 0, ·,
+  TAG_INIT)``.
+
+Every draw is addressed by the *global* chain and word.  A fill of ``n``
+rows from ``chain0`` and ``n_words`` columns from ``word0`` gives rows
+``chain0 … chain0 + n − 1`` and columns ``word0 … word0 + n_words − 1`` of
+the unsharded fill, so a rank that holds a block of chains (and, on the dim
+axis, of coordinates) draws exactly its block of the unsharded draws.  The
+momentum normals of a coordinate block take its first column as ``word0``
+(even, so that no Box–Muller pair straddles two blocks); the per-chain
+uniforms and tree words are the chain's own, the same on every rank of a
+dim group.  With both offsets 0 every stream is the one it always was.
 
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``,
 but for ``TAG_STATIC`` and the tags after it, which have no constant there:
@@ -95,8 +108,6 @@ import ctypes
 
 import torch
 
-from .tree import tree_words
-
 __all__ = [
     "TAG_MOMENTUM",
     "TAG_ACCEPT",
@@ -111,6 +122,7 @@ __all__ = [
     "TAG_TEMPER_UNIFORM",
     "TAG_GIBBS_NORMAL",
     "TAG_GIBBS_UNIFORM",
+    "TAG_INIT",
     "GIBBS_DRAWS",
     "philox4x32_10",
     "counter_bits",
@@ -126,6 +138,7 @@ __all__ = [
     "tempering_draws",
     "gibbs_draws",
     "nuts_draws",
+    "tree_words",
     "static_words",
     "static_draws",
     "words_to_uniform",
@@ -155,6 +168,7 @@ TAG_TEMPER_NORMAL = 9
 TAG_TEMPER_UNIFORM = 10
 TAG_GIBBS_NORMAL = 11
 TAG_GIBBS_UNIFORM = 12
+TAG_INIT = 13
 
 # Normals, and uniforms, a Gibbs coordinate may draw in one sweep: one
 # Philox block of each stream.
@@ -224,12 +238,14 @@ def box_muller_pair(b1: torch.Tensor, b2: torch.Tensor):
 
 
 def _words(seed: int, chains: torch.Tensor, step: int, n_words: int,
-           tag: int) -> torch.Tensor:
+           tag: int, word0: int = 0) -> torch.Tensor:
     """``[n_chains, ≥ n_words]`` int64: each chain's word sequence at
-    (seed; chain, step, tag), in whole blocks."""
-    groups = torch.arange((n_words + 3) // 4, dtype=torch.int64, device=chains.device)
-    return counter_bits(seed, chains[:, None], step, groups[None, :], tag).reshape(
-        chains.shape[0], -1)
+    (seed; chain, step, tag) from word ``word0`` to the end of the block that
+    holds word ``word0 + n_words − 1``."""
+    groups = torch.arange(word0 >> 2, (word0 + n_words + 3) >> 2, dtype=torch.int64,
+                          device=chains.device)
+    w = counter_bits(seed, chains[:, None], step, groups[None, :], tag)
+    return w.reshape(chains.shape[0], -1)[:, word0 & 3:]
 
 
 def _paired(w: torch.Tensor, dim: int) -> torch.Tensor:
@@ -276,73 +292,92 @@ def sign_draws(seed: int, chains: torch.Tensor, step: int, dim: int,
     return (w[:, :dim] >> 31) == 1, bits_to_uniform(w[:, dim])
 
 
-def step_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
-    """One HMC or ChEES step's draws for chains ``0 … n_chains − 1``:
-    ``z [n_chains, dim]`` momentum normals (:func:`normals_paired`) and
-    ``u [n_chains]`` accept uniforms (:func:`uniforms`), float32.  On a
-    CUDA device they are two launches of the fill kernel, on the CPU the
-    plain version (:func:`counter_rng_fill`); both give the same bits."""
-    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
-    u = counter_rng_fill(n_chains, 1, seed, step, TAG_ACCEPT, "uniform", device)
+def step_draws(seed: int, n_chains: int, step: int, dim: int, device=None, chain0: int = 0,
+               word0: int = 0):
+    """One HMC or ChEES step's draws for chains ``chain0 … chain0 + n_chains
+    − 1``: ``z [n_chains, dim]`` momentum normals (:func:`normals_paired`,
+    columns from ``word0``) and ``u [n_chains]`` accept uniforms
+    (:func:`uniforms`), float32.  On a CUDA device they are two launches of
+    the fill kernel, on the CPU the plain version (:func:`counter_rng_fill`);
+    both give the same bits."""
+    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device,
+                         chain0, word0)
+    u = counter_rng_fill(n_chains, 1, seed, step, TAG_ACCEPT, "uniform", device, chain0)
     return z, u[:, 0]
 
 
 def walk_draws(seed: int, n_chains: int, step: int, dim: int, tag: int = TAG_PROPOSAL,
-               device=None):
-    """One step's draws of :func:`mh_draws` for chains ``0 … n_chains − 1``:
-    ``z [n_chains, dim]`` normals and ``u [n_chains]`` uniforms, float32,
-    from one fill launch of kind ``"mh"`` on a CUDA device (the plain
-    version on the CPU).  MH's normal proposals draw under ``TAG_PROPOSAL``,
-    MALA under ``TAG_MALA``."""
-    w = counter_rng_fill(n_chains, dim + 1, seed, step, tag, "mh", device)
+               device=None, chain0: int = 0):
+    """One step's draws of :func:`mh_draws` for chains ``chain0 … chain0 +
+    n_chains − 1``: ``z [n_chains, dim]`` normals and ``u [n_chains]``
+    uniforms, float32, from one fill launch of kind ``"mh"`` on a CUDA device
+    (the plain version on the CPU).  MH's normal proposals draw under
+    ``TAG_PROPOSAL``, MALA under ``TAG_MALA``."""
+    w = counter_rng_fill(n_chains, dim + 1, seed, step, tag, "mh", device, chain0)
     return w[:, :dim], w[:, dim]
 
 
-def sign_walk_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
-    """One step's draws of :func:`sign_draws` for chains ``0 … n_chains −
-    1``: ``up [n_chains, dim]`` coin flips (bool) and ``u [n_chains]``
-    float32 uniforms, from one fill launch of ``dim + 1`` raw words under
-    ``TAG_SIGN`` on a CUDA device (the plain version on the CPU)."""
-    w = counter_rng_fill(n_chains, dim + 1, seed, step, TAG_SIGN, "bits", device)
+def sign_walk_draws(seed: int, n_chains: int, step: int, dim: int, device=None,
+                    chain0: int = 0):
+    """One step's draws of :func:`sign_draws` for chains ``chain0 … chain0 +
+    n_chains − 1``: ``up [n_chains, dim]`` coin flips (bool) and ``u
+    [n_chains]`` float32 uniforms, from one fill launch of ``dim + 1`` raw
+    words under ``TAG_SIGN`` on a CUDA device (the plain version on the
+    CPU)."""
+    w = counter_rng_fill(n_chains, dim + 1, seed, step, TAG_SIGN, "bits", device, chain0)
     return w[:, :dim] < 0, words_to_uniform(w[:, dim])  # int32 < 0: the top bit
 
 
 def tempering_draws(seed: int, n_chains: int, step: int, n_temps: int, dim: int,
-                    device=None):
-    """One replica-exchange step's draws for chains ``0 … n_chains − 1`` over
-    ``n_temps`` rungs (layout in the module docstring): ``z [n_chains,
-    n_temps, dim]`` proposal normals, ``u_acc [n_chains, n_temps]`` accept
-    uniforms and ``u_swap [n_chains, n_temps − 1]`` swap uniforms, float32.
-    On a CUDA device two fill launches, on the CPU the plain version."""
+                    device=None, chain0: int = 0):
+    """One replica-exchange step's draws for chains ``chain0 … chain0 +
+    n_chains − 1`` over ``n_temps`` rungs (layout in the module docstring):
+    ``z [n_chains, n_temps, dim]`` proposal normals, ``u_acc [n_chains,
+    n_temps]`` accept uniforms and ``u_swap [n_chains, n_temps − 1]`` swap
+    uniforms, float32.  On a CUDA device two fill launches, on the CPU the
+    plain version."""
     z = counter_rng_fill(n_chains, n_temps * dim, seed, step, TAG_TEMPER_NORMAL,
-                         "normal_pair", device)
+                         "normal_pair", device, chain0)
     u = counter_rng_fill(n_chains, 2 * n_temps - 1, seed, step, TAG_TEMPER_UNIFORM,
-                         "uniform", device)
+                         "uniform", device, chain0)
     return z.reshape(n_chains, n_temps, dim), u[:, :n_temps], u[:, n_temps:]
 
 
-def gibbs_draws(seed: int, n_chains: int, step: int, dim: int, device=None):
-    """One Gibbs sweep's draws for chains ``0 … n_chains − 1``: ``normals``
-    and ``uniforms``, each ``[n_chains, GIBBS_DRAWS·dim]`` float32, columns
-    ``4i … 4i + 3`` coordinate ``i``'s (layout in the module docstring).  On
-    a CUDA device two fill launches, on the CPU the plain version."""
+def gibbs_draws(seed: int, n_chains: int, step: int, dim: int, device=None,
+                chain0: int = 0):
+    """One Gibbs sweep's draws for chains ``chain0 … chain0 + n_chains − 1``:
+    ``normals`` and ``uniforms``, each ``[n_chains, GIBBS_DRAWS·dim]``
+    float32, columns ``4i … 4i + 3`` coordinate ``i``'s (layout in the module
+    docstring).  On a CUDA device two fill launches, on the CPU the plain
+    version."""
     cols = GIBBS_DRAWS * dim
     normals = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_NORMAL, "normal_pair",
-                               device)
+                               device, chain0)
     uniforms = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_UNIFORM, "uniform",
-                                device)
+                                device, chain0)
     return normals, uniforms
 
 
-def nuts_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device=None):
-    """One NUTS step's draws for chains ``0 … n_chains − 1`` at doubling cap
-    ``depth``: ``z [n_chains, dim]`` momentum normals (:func:`normals_paired`
-    under ``TAG_MOMENTUM``) and ``u [n_chains, 1 + 2·depth + 2^depth]`` the
-    tree's uniforms (``TAG_TREE``; layout in the module docstring), float32.
-    On a CUDA device they are two launches of the fill kernel, on the CPU
-    the plain version; both give the same bits."""
-    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
-    u = counter_rng_fill(n_chains, tree_words(depth), seed, step, TAG_TREE, "uniform", device)
+def tree_words(depth: int) -> int:
+    """Uniforms a chain draws for one dynamic-tree transition at doubling
+    cap ``depth``: the slice's, two a doubling and ``2^depth`` leaf
+    columns."""
+    return 1 + 2 * depth + (1 << depth)
+
+
+def nuts_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device=None,
+               chain0: int = 0, word0: int = 0):
+    """One NUTS step's draws for chains ``chain0 … chain0 + n_chains − 1`` at
+    doubling cap ``depth``: ``z [n_chains, dim]`` momentum normals
+    (:func:`normals_paired` under ``TAG_MOMENTUM``, columns from ``word0``)
+    and ``u [n_chains, tree_words(depth)]`` the tree's uniforms
+    (``TAG_TREE``; layout in the module docstring), float32.  On a CUDA
+    device they are two launches of the fill kernel, on the CPU the plain
+    version; both give the same bits."""
+    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device,
+                         chain0, word0)
+    u = counter_rng_fill(n_chains, tree_words(depth), seed, step, TAG_TREE, "uniform", device,
+                         chain0)
     return z, u
 
 
@@ -353,16 +388,19 @@ def static_words(depth: int) -> int:
     return 2 + 2 * depth
 
 
-def static_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device=None):
-    """One static-tree NUTS step's draws for chains ``0 … n_chains − 1`` at
-    doubling cap ``depth``: ``z [n_chains, dim]`` float32 momentum normals
-    (:func:`normals_paired` under ``TAG_MOMENTUM``) and ``w [n_chains,
-    static_words(depth)]`` the raw words under ``TAG_STATIC`` (int32
-    holding uint32 bits; layout in the module docstring).  On a CUDA device
-    they are two launches of the fill kernel, on the CPU the plain version;
-    both give the same bits."""
-    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device)
-    w = counter_rng_fill(n_chains, static_words(depth), seed, step, TAG_STATIC, "bits", device)
+def static_draws(seed: int, n_chains: int, step: int, dim: int, depth: int, device=None,
+                 chain0: int = 0, word0: int = 0):
+    """One static-tree NUTS step's draws for chains ``chain0 … chain0 +
+    n_chains − 1`` at doubling cap ``depth``: ``z [n_chains, dim]`` float32
+    momentum normals (:func:`normals_paired` under ``TAG_MOMENTUM``, columns
+    from ``word0``) and ``w [n_chains, static_words(depth)]`` the raw words
+    under ``TAG_STATIC`` (int32 holding uint32 bits; layout in the module
+    docstring).  On a CUDA device they are two launches of the fill kernel,
+    on the CPU the plain version; both give the same bits."""
+    z = counter_rng_fill(n_chains, dim, seed, step, TAG_MOMENTUM, "normal_pair", device,
+                         chain0, word0)
+    w = counter_rng_fill(n_chains, static_words(depth), seed, step, TAG_STATIC, "bits", device,
+                         chain0)
     return z, w
 
 
@@ -372,42 +410,56 @@ def words_to_uniform(w: torch.Tensor) -> torch.Tensor:
     return bits_to_uniform(w.to(torch.int64) & _MASK)
 
 
-def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,
-                               tag: int, kind: str = "bits",
-                               device=None) -> torch.Tensor:
-    """Plain version of :func:`counter_rng_fill`."""
+def _check_fill(n_words: int, kind: str, chain0: int, word0: int) -> None:
+    """Raise on a fill the kernel does not take."""
     if kind not in _KINDS:
         raise ValueError(f"unknown kind {kind!r}")
-    chains = torch.arange(n_chains, dtype=torch.int64, device=device)
+    if kind == "mh" and n_words < 2:
+        raise ValueError("the mh layout needs n_words = dim + 1 >= 2")
+    if not (0 <= chain0 <= _MASK and 0 <= word0 <= _MASK):
+        raise ValueError(f"chain0 and word0 must be uint32, got {chain0} and {word0}")
+    if kind == "mh" and word0:
+        raise ValueError("the mh layout's uniform follows the whole row's normals: "
+                         "word0 must be 0")
+    if kind == "normal_pair" and word0 % 2:
+        raise ValueError(f"normal pairs start at an even word, got word0={word0}")
+
+
+def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,
+                               tag: int, kind: str = "bits", device=None,
+                               chain0: int = 0, word0: int = 0) -> torch.Tensor:
+    """Plain version of :func:`counter_rng_fill`."""
+    _check_fill(n_words, kind, chain0, word0)
+    chains = (torch.arange(n_chains, dtype=torch.int64, device=device) + chain0) & _MASK
     if kind == "mh":
         z, u = mh_draws(seed, chains, step, n_words - 1, tag)
         return torch.cat([z, u[:, None]], dim=1)
     if kind == "normal_pair":
-        return normals_paired(seed, chains, step, n_words, tag)
-    bits = _words(seed, chains, step, n_words, tag)[:, :n_words]
+        return _paired(_words(seed, chains, step, n_words, tag, word0), n_words)
+    bits = _words(seed, chains, step, n_words, tag, word0)[:, :n_words]
     if kind == "uniform":
         return bits_to_uniform(bits)
     return (bits - ((bits >> 31) << 32)).to(torch.int32)  # uint32 bits as int32
 
 
 def counter_rng_fill(n_chains: int, n_words: int, seed: int, step: int, tag: int,
-                     kind: str = "bits", device=None) -> torch.Tensor:
-    """``[n_chains, n_words]`` draws at ``(seed; chain, step, ·, tag)``:
-    ``kind="bits"`` the raw words (int32 holding uint32 bits; word ``j`` is
-    word ``j % 4`` of group ``j // 4``), ``"uniform"`` their uniforms,
+                     kind: str = "bits", device=None, chain0: int = 0,
+                     word0: int = 0) -> torch.Tensor:
+    """``[n_chains, n_words]`` draws at ``(seed; chain0 + r, step, ·, tag)``
+    for row ``r``, column ``j`` the sequence's word ``word0 + j``:
+    ``kind="bits"`` the raw words (int32 holding uint32 bits; word ``w`` is
+    word ``w % 4`` of group ``w // 4``), ``"uniform"`` their uniforms,
     ``"mh"`` the draws of :func:`mh_draws` for ``dim = n_words - 1`` (the
-    normals, then the uniform in the last column), ``"normal_pair"`` the
-    normals of :func:`normals_paired`.
+    normals, then the uniform in the last column; ``word0`` must be 0),
+    ``"normal_pair"`` the normals of :func:`normals_paired` (``word0`` must
+    be even).
 
     On a CUDA device this launches the fill kernel; on the CPU it computes
-    the plain version."""
-    if kind not in _KINDS:
-        raise ValueError(f"unknown kind {kind!r}")
-    if kind == "mh" and n_words < 2:
-        raise ValueError("the mh layout needs n_words = dim + 1 >= 2")
+    the plain version.  Both raise on a fill the kernel does not take."""
     device = torch.device(device if device is not None else "cuda")
     if device.type == "cpu":
-        return counter_rng_fill_reference(n_chains, n_words, seed, step, tag, kind, device)
+        return counter_rng_fill_reference(n_chains, n_words, seed, step, tag, kind, device,
+                                          chain0, word0)
     if device.type != "cuda":
         raise ValueError(f"counter_rng_fill runs on cuda or cpu, not {device}")
     from .._build import check
@@ -415,27 +467,31 @@ def counter_rng_fill(n_chains: int, n_words: int, seed: int, step: int, tag: int
     global launches
     dtype = torch.int32 if kind == "bits" else torch.float32
     out = torch.empty((n_chains, n_words), dtype=dtype, device=device)
-    lib, launch = fill_launcher(out, seed, step, tag, kind)
+    lib, launch = fill_launcher(out, seed, step, tag, kind, chain0, word0)
     check(lib, launch(), "counter_rng_fill")
     launches += 1
     return out
 
 
-def fill_launcher(out: torch.Tensor, seed: int, step: int, tag: int, kind: str):
+def fill_launcher(out: torch.Tensor, seed: int, step: int, tag: int, kind: str,
+                  chain0: int = 0, word0: int = 0):
     """``(lib, launch)``: ``launch()`` enqueues one fill of ``out``
-    (``[n_chains, n_words]`` on the card) and returns the CUDA error code,
-    with no check and no count; :func:`counter_rng_fill` is the wrapper.
-    Exposed so that the kernel's device time can be taken over back-to-back
-    launches."""
+    (``[n_chains, n_words]`` on the card, rows from ``chain0``, columns from
+    ``word0``) and returns the CUDA error code, with no check and no count;
+    :func:`counter_rng_fill` is the wrapper.  Exposed so that the kernel's
+    device time can be taken over back-to-back launches."""
     from .._build import load
 
+    _check_fill(out.shape[1], kind, chain0, word0)
     lib = load("counter_rng")
     fn = lib.counter_rng_fill
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
-                   ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_uint,
+                   ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     args = (out.data_ptr(), out.shape[0], out.shape[1], seed & _MASK, step & _MASK,
-            tag & _MASK, _KINDS[kind], torch.cuda.current_stream(out.device).cuda_stream)
+            tag & _MASK, _KINDS[kind], chain0, word0,
+            torch.cuda.current_stream(out.device).cuda_stream)
     return lib, lambda: fn(*args)
 
 

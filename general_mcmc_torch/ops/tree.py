@@ -30,6 +30,15 @@ a product with a mask: a finished chain's body may make NaN or ±inf):
   stack write is a plain slot index, and the check reads only the slots in
   range (JAX writes through a one-hot select and masks all slots).
 
+The parameter axis may be split over ranks (a dim group,
+``parallel.make_mesh(c, d)``): each function that sums over it takes the
+group, ``group``, and every such sum (kinetic energy, the joint, the U-turn
+dots, the finiteness of a gradient) adds the column blocks with one
+``all_reduce``; the target's log density reduces through its own group.
+The sums are then the same on every rank of the group, so every rank takes
+the same branch of the host loops and no collective is left waiting.  With
+no group the sums are the plain local ones.
+
 Draws are passed in (:class:`TreeDraws`), one set a step, as
 ``ChEESHMC._propose`` takes them: the momentum normals, the slice's Exp(1),
 one direction and one swap uniform a doubling, and one uniform a leaf,
@@ -44,6 +53,9 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from ..parallel.collectives import all_finite, dim_sum
+from .counter_rng import tree_words
 
 __all__ = [
     "DELTA_MAX",
@@ -100,13 +112,14 @@ def inv_mass_mul(mass: MassMatrix, p: torch.Tensor, dense: bool = False) -> torc
     return mass.inv * p
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.sum(a * b, dim=-1)
+def _dot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
+    return dim_sum(a * b, group)
 
 
-def kinetic_energy(mass: MassMatrix, p: torch.Tensor, dense: bool = False) -> torch.Tensor:
+def kinetic_energy(mass: MassMatrix, p: torch.Tensor, dense: bool = False,
+                   group=None) -> torch.Tensor:
     """½ pᵀ M⁻¹ p, ``[n]``."""
-    return 0.5 * _dot(p, inv_mass_mul(mass, p, dense))
+    return 0.5 * _dot(p, inv_mass_mul(mass, p, dense), group)
 
 
 def sample_momentum(z: torch.Tensor, mass: MassMatrix, dense: bool = False) -> torch.Tensor:
@@ -137,12 +150,12 @@ def leapfrog_chain(vg_fn: Callable, pos, mom, grad, eps, mass: MassMatrix,
     return pos, mom, logp, grad
 
 
-def _finite(lp: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
-    return torch.isfinite(lp) & torch.isfinite(grad).all(dim=-1)
+def _finite(lp: torch.Tensor, grad: torch.Tensor, group=None) -> torch.Tensor:
+    return torch.isfinite(lp) & all_finite(grad, group)
 
 
 def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
-                            dense: bool = False) -> torch.Tensor:
+                            dense: bool = False, group=None) -> torch.Tensor:
     """Heuristic initial step size of every chain, ``[n]``
     (find_reasonable_epsilon_with_mass, generic_nuts.rs:1025-1102): halve ε
     until the first leapfrog is finite, then double or halve it until the
@@ -167,7 +180,7 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
     _, mom_p, lp_p, grad_p = try_eps(one)
     k = one
     while True:
-        active = ~_finite(lp_p, grad_p)
+        active = ~_finite(lp_p, grad_p, group)
         stuck = active & (k == 0)
         flags = torch.stack([active.any(), stuck.any()]).tolist()
         if not flags[0]:
@@ -183,8 +196,8 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
         grad_p = torch.where(active[:, None], g_n, grad_p)
 
     eps = 0.5 * k  # epsilon = half * k * 1.0 (generic_nuts.rs:1072)
-    ke0 = kinetic_energy(mass, mom, dense)
-    log_accept = lp_p - ulogp - (kinetic_energy(mass, mom_p, dense) - ke0)
+    ke0 = kinetic_energy(mass, mom, dense, group)
+    log_accept = lp_p - ulogp - (kinetic_energy(mass, mom_p, dense, group) - ke0)
     a = torch.where(log_accept > ln_half, 1.0, -1.0).to(dtype)
 
     # Phase 2: geometric search until crossing ln(1/2)
@@ -196,7 +209,7 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
             break
         eps = torch.where(active, eps * step, eps)
         _, m_n, lp_n, _ = try_eps(eps)
-        la = lp_n - ulogp - (kinetic_energy(mass, m_n, dense) - ke0)
+        la = lp_n - ulogp - (kinetic_energy(mass, m_n, dense, group) - ke0)
         log_accept = torch.where(active, la, log_accept)
     return eps
 
@@ -235,12 +248,6 @@ class TreeDraws(NamedTuple):
                    u_swap=u[:, 2:2 + 2 * depth:2], u_leaf=u[:, 1 + 2 * depth:])
 
 
-def tree_words(depth: int) -> int:
-    """Uniforms a chain draws for one transition at doubling cap ``depth``:
-    the slice's, two a doubling and ``2^depth`` leaf columns."""
-    return 1 + 2 * depth + (1 << depth)
-
-
 def _popcount(i: int) -> int:
     return bin(i).count("1")
 
@@ -267,14 +274,14 @@ class SubtreeResult(NamedTuple):
     n_alpha: torch.Tensor
 
 
-def _joint(lp, mom, vel):
-    return lp - 0.5 * _dot(mom, vel)
+def _joint(lp, mom, vel, group=None):
+    return lp - 0.5 * _dot(mom, vel, group)
 
 
 def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMatrix,
                   vg_fn: Callable, max_depth: int, u_leaf, dense: bool = False,
                   collect_edges: bool = False, ckpt_dtype=None, multinomial: bool = False,
-                  active=None) -> SubtreeResult:
+                  active=None, group=None) -> SubtreeResult:
     """Build one subtree of ``2^depth`` leapfrog leaves for every chain in
     direction ``v [n]`` (±1) from the endpoints ``(pos, mom, grad)``;
     ``u_leaf [n, 2^depth]`` holds leaf ``i``'s uniform in column ``i``.
@@ -329,7 +336,7 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
         # --- leaf A (even): leapfrog, proposal accounting, stack store ----
         pA, mA, lpA, gA = leapfrog_chain(vg_fn, p_c, m_c, g_c, eps_v, mass, dense)
         velA = inv_mass_mul(mass, mA, dense)
-        jointA = _joint(lpA, mA, velA)
+        jointA = _joint(lpA, mA, velA, group)
         okA = div_lim < jointA
         uA = u_leaf[:, i]
         if multinomial:
@@ -346,7 +353,7 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
         if i + 1 < n_leaves:  # the stack serves leaf B's U-turn check only
             pos_ck[:, slot] = pA.to(ck_dtype)
             vel_ck[:, slot] = velA.to(ck_dtype)
-            c1_ck[:, slot] = _dot(pA, velA)
+            c1_ck[:, slot] = _dot(pA, velA, group)
         if collect_edges and i == 0:
             first = [torch.where(live[:, None], a, b) for a, b in zip((pA, mA, gA), first)]
         if collect_edges:
@@ -368,7 +375,7 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
         do_b = live & okA
         pB, mB, lpB, gB = leapfrog_chain(vg_fn, pA, mA, gA, eps_v, mass, dense)
         velB = inv_mass_mul(mass, mB, dense)
-        jointB = _joint(lpB, mB, velB)
+        jointB = _joint(lpB, mB, velB, group)
         okB = div_lim < jointB
         uB = u_leaf[:, i + 1]
         if multinomial:
@@ -394,10 +401,10 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
         lo = slot - _trailing_ones(i + 1) + 1
         vel_s = vel_ck[:, lo:slot + 1].to(dtype)
         pos_s = pos_ck[:, lo:slot + 1].to(dtype)
-        dots_ck = vf[:, None] * (torch.sum(vel_s * pB[:, None, :], dim=-1)
+        dots_ck = vf[:, None] * (dim_sum(vel_s * pB[:, None, :], group)
                                  - c1_ck[:, lo:slot + 1])
-        dots_cur = vf[:, None] * (_dot(pB, velB)[:, None]
-                                  - torch.sum(pos_s * velB[:, None, :], dim=-1))
+        dots_cur = vf[:, None] * (_dot(pB, velB, group)[:, None]
+                                  - dim_sum(pos_s * velB[:, None, :], group))
         turned = ((dots_ck < 0.0) | (dots_cur < 0.0)).any(dim=1)
 
         # the pair's endpoint is B where it was evaluated, else A
@@ -421,12 +428,12 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
     )
 
 
-def _stop_criterion(pos_m, pos_p, mom_m, mom_p, mass, dense):
+def _stop_criterion(pos_m, pos_p, mom_m, mom_p, mass, dense, group=None):
     """Global U-turn check (stop_criterion_with_mass,
     generic_nuts.rs:1357-1378)."""
     diff = pos_p - pos_m
-    ok_m = _dot(diff, inv_mass_mul(mass, mom_m, dense)) >= 0.0
-    ok_p = _dot(diff, inv_mass_mul(mass, mom_p, dense)) >= 0.0
+    ok_m = _dot(diff, inv_mass_mul(mass, mom_m, dense), group) >= 0.0
+    ok_p = _dot(diff, inv_mass_mul(mass, mom_p, dense), group) >= 0.0
     return ok_m & ok_p
 
 
@@ -448,7 +455,7 @@ def _sel(mask, a, b):
 
 def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_depth: int,
                    draws: TreeDraws, dense: bool = False, ckpt_dtype=None,
-                   multinomial: bool = False) -> TreeStepResult:
+                   multinomial: bool = False, group=None) -> TreeStepResult:
     """One NUTS transition for every chain (GenericNUTSChain::step,
     generic_nuts.rs:755-880): momentum from ``draws.z``, the slice variable
     ``joint₀ − draws.e``, then doublings in random directions until a U-turn
@@ -460,11 +467,12 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
     (:func:`_first_doubling`); it reads doubling 0's direction and swap
     uniforms and no leaf uniform.  At the end the proposal's ``(lp, grad)``
     is evaluated once more, outside ``leapfrogs`` (the JAX function does the
-    same instead of carrying them through the loops)."""
+    same instead of carrying them through the loops).  ``group`` is the dim
+    group of a parameter axis split over ranks (module docstring)."""
     dtype, dev = pos.dtype, pos.device
     n = pos.shape[0]
     mom0 = sample_momentum(draws.z, mass, dense)
-    joint0 = lp - kinetic_energy(mass, mom0, dense)
+    joint0 = lp - kinetic_energy(mass, mom0, dense, group)
     logu = joint0 - draws.e
     if max_depth == 0:
         zeros = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -474,7 +482,7 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
                               diverged=torch.zeros(n, dtype=torch.bool, device=dev),
                               leapfrogs=zeros)
     c = _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draws,
-                        multinomial)
+                        multinomial, group)
     for j in range(1, max_depth):
         active = c["s"]
         if not bool(active.any()):
@@ -484,7 +492,8 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
         start = [_sel(backward, c[a + "_m"], c[a + "_p"]) for a in ("pos", "mom", "grad")]
         sub = build_subtree(*start, v, j, eps, logu, joint0, mass, vg_fn, max_depth,
                             draws.u_leaf[:, (1 << j) - 1:(1 << (j + 1)) - 1], dense=dense,
-                            ckpt_dtype=ckpt_dtype, multinomial=multinomial, active=active)
+                            ckpt_dtype=ckpt_dtype, multinomial=multinomial, active=active,
+                            group=group)
         to_m, to_p = active & backward, active & ~backward
         for a, end in (("pos", sub.end_pos), ("mom", sub.end_mom), ("grad", sub.end_grad)):
             c[a + "_m"] = _sel(to_m, end, c[a + "_m"])
@@ -500,7 +509,7 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
             c["n"] = torch.where(active, c["n"] + sub.n, c["n"])
         c["prop_pos"] = _sel(take, sub.prop_pos, c["prop_pos"])
         c["s"] = active & sub.s & _stop_criterion(c["pos_m"], c["pos_p"], c["mom_m"],
-                                                  c["mom_p"], mass, dense)
+                                                  c["mom_p"], mass, dense, group)
         c["diverged"] = c["diverged"] | (active & sub.diverged)
         c["alpha"] = torch.where(active, sub.alpha, c["alpha"])
         c["n_alpha"] = torch.where(active, sub.n_alpha, c["n_alpha"])
@@ -513,7 +522,7 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
 
 
 def _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draws,
-                    multinomial):
+                    multinomial, group=None):
     """The ``j = 0`` doubling as straight-line code: one leapfrog, no
     checkpoint stack, no leaf B; it reads doubling 0's direction and swap
     uniforms (``_first_doubling`` of the JAX package)."""
@@ -522,7 +531,7 @@ def _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draw
     backward = draws.u_dir[:, 0] < 0.5
     eps_v = eps * torch.where(backward, -1.0, 1.0).to(dtype)
     pA, mA, lpA, gA = leapfrog_chain(vg_fn, pos, mom0, grad, eps_v, mass, dense)
-    jointA = _joint(lpA, mA, inv_mass_mul(mass, mA, dense))
+    jointA = _joint(lpA, mA, inv_mass_mul(mass, mA, dense), group)
     okA = ((joint0 if multinomial else logu) - DELTA_MAX) < jointA
     alphaA = torch.clamp(torch.exp(jointA - joint0), max=1.0)
     c = {}
@@ -541,7 +550,7 @@ def _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draw
         c["n"] = 1 + validA
     c["prop_pos"] = _sel(take, pA, pos)
     c["s"] = okA & _stop_criterion(c["pos_m"], c["pos_p"], c["mom_m"], c["mom_p"],
-                                   mass, dense)
+                                   mass, dense, group)
     c["diverged"] = ~okA
     c["alpha"] = alphaA
     ones = torch.ones(n, dtype=torch.int64, device=pos.device)

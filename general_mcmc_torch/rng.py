@@ -41,10 +41,12 @@ def stream_key(seed) -> int:
     return as_seed(seed) & _KEY_MASK
 
 
-def chain_ids(n_chains: int, device=None) -> torch.Tensor:
-    """Global chain indices ``[n_chains]`` (int64): the chain coordinate of
-    the counter, the counterpart of the JAX package's ``chain_keys``."""
-    return torch.arange(n_chains, dtype=torch.int64, device=device)
+def chain_ids(n_chains: int, device=None, chain0: int = 0) -> torch.Tensor:
+    """Global chain indices ``chain0 … chain0 + n_chains − 1`` (int64): the
+    chain coordinate of the counter, the counterpart of the JAX package's
+    ``chain_keys``.  A rank that holds a block of chains passes the block's
+    first global index."""
+    return torch.arange(chain0, chain0 + n_chains, dtype=torch.int64, device=device)
 
 
 def random_seed() -> int:

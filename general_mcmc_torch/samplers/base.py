@@ -13,6 +13,15 @@ quantities (:meth:`BatchSampler.track`), checkpoints
 (:meth:`BatchSampler.save_checkpoint`, :meth:`BatchSampler.resume`) and
 progress with streaming R-hat (:meth:`BatchSampler.run_progress`).
 
+A sampler may be one rank's block of a run split over ranks
+(:func:`..parallel.runner.run_sharded`): it then holds a
+:class:`..parallel.mesh.Shard` in ``shard`` (``None`` when unsharded):
+its first global chain and coordinate, its local and total chain and
+coordinate counts, and its chains and dim groups.  ``n_chains`` is then the
+local count, every draw is addressed from the block's first global chain
+(and, on the dim axis, coordinate), and every reduction across chains or
+coordinates goes through the shard's groups.
+
 The JAX carry holds each chain's key, so a JAX checkpoint continues its
 own stream whatever seed the resuming sampler holds.  The port's carry
 holds no keys: the draws of a step are addressed by the sampler's seed.
@@ -108,8 +117,12 @@ class BatchSampler:
     ``_positions`` and inherit ``run``, ``chain``, ``track``,
     ``save_checkpoint``, ``resume``, ``run_progress`` and ``set_seed``."""
 
+    # The attribute that holds the [n_chains, dim] initial states.
+    _init_name = "initial_positions"
+
     def __init__(self, n_chains: int, seed=None, device=None):
         self.n_chains = n_chains
+        self.shard = None
         self.device = resolve_device(device)
         self._seed = as_seed(seed if seed is not None else 0)
         self._extract_fn = None
@@ -153,6 +166,84 @@ class BatchSampler:
     def _positions(self, carry):
         raise NotImplementedError
 
+    def _carry_axes(self, carry):
+        """The carry's structure with an :class:`..parallel.mesh.Axes` at
+        each leaf: where it holds the chains axis and the parameter axis
+        (what ``parallel.shard_carry`` slices by)."""
+        raise NotImplementedError
+
+    # -- shards ---------------------------------------------------------------
+    @property
+    def _chain0(self) -> int:
+        """The global index of this sampler's first chain."""
+        return 0 if self.shard is None else self.shard.chain0
+
+    @property
+    def _word0(self) -> int:
+        """The global index of this sampler's first coordinate: the first
+        word of its momentum normals."""
+        return 0 if self.shard is None else self.shard.col0
+
+    @property
+    def _n_total(self) -> int:
+        """The chains of the whole run, on every rank."""
+        return self.n_chains if self.shard is None else self.shard.n_total
+
+    @property
+    def _chains_group(self):
+        return None if self.shard is None else self.shard.chains_group
+
+    @property
+    def _dim_group(self):
+        return None if self.shard is None else self.shard.dim_group
+
+    @property
+    def _dim_total(self) -> int:
+        """The coordinates of the whole run."""
+        if self.shard is not None:
+            return self.shard.d_total
+        return getattr(self, self._init_name).shape[-1]
+
+    def _check_dim_axis(self) -> None:
+        """Raise unless this sampler, its target, metric and backend can
+        split the parameter axis over ranks."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no dim axis in the port yet: shard_dim=True is "
+            "ported for NUTS (dynamic tree, identity or diagonal metric) and ChEES on the "
+            "diagonal GaussianND")
+
+    def _take_columns(self, shard) -> None:
+        """Restrict the target and the parameter-axis state to the shard's
+        coordinates (samplers with a dim axis)."""
+        raise NotImplementedError
+
+    def _bind_shard(self, shard, slice_rows: bool, shard_dim: bool = False) -> None:
+        """Make this sampler the block ``shard`` of itself
+        (``parallel.runner.shard_sampler``): slice its initial states to the
+        block's rows (``slice_rows``: it was built on the whole array) and
+        with ``shard_dim`` to its columns, and its target to those columns.
+        Binding again to an equal block is a no-op; to another, an error."""
+        if self.shard is not None:
+            if shard != self.shard:
+                raise ValueError("this sampler already holds another block of a sharded "
+                                 "run; build a new sampler for another mesh")
+            return
+        if shard_dim:
+            self._check_dim_axis()
+            if shard.col0 % 2:
+                raise ValueError(f"a column block must start at an even coordinate (the "
+                                 f"momentum normals come in pairs), not {shard.col0}")
+            self._take_columns(shard)
+        x = getattr(self, self._init_name)
+        if slice_rows:
+            x = x[shard.chain0:shard.chain0 + shard.n_local]
+        if shard.d_local != shard.d_total:
+            x = x[:, shard.col0:shard.col0 + shard.d_local]
+        if x is not getattr(self, self._init_name):
+            setattr(self, self._init_name, x.clone())  # the whole array can be freed
+        self.n_chains = shard.n_local
+        self.shard = shard
+
     # -- seeding ------------------------------------------------------------
     def set_seed(self, seed):
         self._seed = as_seed(seed)
@@ -168,7 +259,7 @@ class BatchSampler:
     @property
     def _chain_ids(self) -> torch.Tensor:
         """Global chain indices, the chain coordinate of every draw."""
-        return chain_ids(self.n_chains, self.device)
+        return chain_ids(self.n_chains, self.device, self._chain0)
 
     @contextlib.contextmanager
     def _drawing_under(self, key: int):
@@ -219,24 +310,35 @@ class BatchSampler:
     # -- checkpoint / resume --------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
         """Write the state after the last run to ``path``: the carry, the
-        absolute step count, the stream key the carry was drawn under and
-        the chain count (:func:`..utils.checkpoint.save_carry`)."""
+        absolute step count, the stream key the carry was drawn under, the
+        chain count and, for a shard, its first global chain and coordinate
+        (:func:`..utils.checkpoint.save_carry`).  After ``run_sharded`` each
+        rank writes its block."""
         from ..utils.checkpoint import save_carry
 
         if not hasattr(self, "_final_carry"):
             raise RuntimeError("nothing to checkpoint: call run() first")
-        save_carry({"carry": self._final_carry, "steps": int(self._steps_done),
-                    "seed": int(self._carry_key), "n_chains": int(self.n_chains)}, path)
+        state = {"carry": self._final_carry, "steps": int(self._steps_done),
+                 "seed": int(self._carry_key), "n_chains": int(self.n_chains)}
+        if self.shard is not None:
+            state.update(chain0=self._chain0, col0=self._word0)
+        save_carry(state, path)
 
     def _load_checkpoint(self, path: str):
         """``(carry, steps, key)`` of a checkpoint, its tensors on this
-        sampler's device; raises if its chain count is not this sampler's."""
+        sampler's device; raises if its chain count, or its block's first
+        chain and coordinate, are not this sampler's."""
         from ..utils.checkpoint import load_carry
 
         state = load_carry(path, device=self.device)
         if int(state["n_chains"]) != self.n_chains:
             raise ValueError(f"checkpoint holds {state['n_chains']} chains, this sampler "
                              f"{self.n_chains}")
+        block = (int(state.get("chain0", 0)), int(state.get("col0", 0)))
+        if block != (self._chain0, self._word0):
+            raise ValueError(f"checkpoint holds the block from chain {block[0]} and "
+                             f"coordinate {block[1]}, this sampler the block from "
+                             f"{self._chain0} and {self._word0}")
         return state["carry"], int(state["steps"]), int(state["seed"])
 
     def resume(self, path: str, n_collect: int):

@@ -31,6 +31,17 @@ Differences from the JAX sampler, none of them in the maths:
 - the JAX package's unroll-or-scan split of the static loop, a compiler
   concern, is one loop.
 
+Split over ranks (``parallel.run_sharded``), every cross-chain reduction
+of the warmup, the median of the ε searches, the acceptance-weighted
+criterion, the dual-averaging statistic and the metric's variance, goes
+through the shard's chains group, and on the dim axis every sum over the
+parameter axis (the kinetic energies, the finiteness test, ``a_gap``,
+``da_dt``) through its dim group (:mod:`..parallel.collectives`).  The
+leapfrog count ``⌈t/ε⌉`` and the static ``L`` are read from reduced values,
+which ``all_reduce`` hands every rank bit for bit, so every rank takes the
+same count and no collective is left waiting.  The collection has no
+cross-chain reduction.
+
 The runtime of :mod:`.base` (``chain``, ``track``, ``save_checkpoint``,
 ``resume``, ``run_progress``) works as for every sampler; see :meth:`ChEESHMC.run`
 for the law each collects under.
@@ -47,6 +58,8 @@ from ..core import run_kernel, run_kernel_stats
 from ..models.distributions import as_grad_fn, as_value_and_grad
 from ..ops import counter_rng
 from ..ops.tree import find_reasonable_epsilon, identity_mass, sample_momentum
+from ..parallel.collectives import all_finite, chain_mean, chain_median, chain_var, dim_sum
+from ..parallel.mesh import Axes
 from .base import BatchSampler
 
 __all__ = ["ChEESHMC", "halton_base2"]
@@ -77,13 +90,6 @@ def halton_base2(m) -> torch.Tensor:
     n = ((n & 0x33333333) << 2) | ((n >> 2) & 0x33333333)
     n = ((n & 0x55555555) << 1) | ((n >> 1) & 0x55555555)
     return n.to(torch.float32) * 2.0**-32
-
-
-def _median(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.median``: the mean of the two middle order statistics."""
-    s = torch.sort(x).values
-    n = s.shape[0]
-    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
 class ChEESHMC(BatchSampler):
@@ -148,7 +154,7 @@ class ChEESHMC(BatchSampler):
         ``z``, ``u`` (a test feeds both packages the same numbers)."""
         if z is None or u is None:
             z_d, u_d = counter_rng.step_draws(self._key, self.n_chains, m, self.dim,
-                                              self.device)
+                                              self.device, self._chain0, self._word0)
             z = z_d if z is None else z
             u = u_d if u is None else u
         return (torch.as_tensor(z, device=self.device).to(dtype),
@@ -170,11 +176,13 @@ class ChEESHMC(BatchSampler):
             if z_eps is None:
                 z_eps = counter_rng.counter_rng_fill(n, d, self._key, 0,
                                                      counter_rng.TAG_EPS_SEARCH,
-                                                     "normal_pair", self.device)
+                                                     "normal_pair", self.device,
+                                                     self._chain0, self._word0)
             mass = identity_mass(d, dtype, self.device)
             mom = sample_momentum(torch.as_tensor(z_eps, device=self.device).to(dtype), mass)
             # one shared scalar ε: the median is robust to stragglers
-            eps0 = _median(find_reasonable_epsilon(self._vgrad, x0, mom, mass))
+            eps = find_reasonable_epsilon(self._vgrad, x0, mom, mass, group=self._dim_group)
+            eps0 = chain_median(eps, self._chains_group, self._chain0, self._n_total)
         zero = torch.zeros((), dtype=dtype, device=self.device)
         return dict(
             pos=x0,
@@ -230,14 +238,14 @@ class ChEESHMC(BatchSampler):
         pos, lp, grad = carry["pos"], carry["lp"], carry["grad"]
         inv = carry["mass_inv"]  # [d] diag of M⁻¹ = Σ̂
         z, u = self._draws(m, z, u, pos.dtype)
+        dg = self._dim_group
         mom = (1.0 / torch.sqrt(inv)) * z
-        ke0 = 0.5 * torch.sum(inv * mom * mom, dim=1)
+        ke0 = 0.5 * dim_sum(inv * mom * mom, dg)
 
         pos_p, mom_p, grad_p, lp_p = self._integrate(pos, mom, grad, lp, inv, eps, n_steps)
-        ke_p = 0.5 * torch.sum(inv * mom_p * mom_p, dim=1)
+        ke_p = 0.5 * dim_sum(inv * mom_p * mom_p, dg)
 
-        ok = (torch.isfinite(lp_p) & torch.isfinite(pos_p).all(dim=1)
-              & torch.isfinite(mom_p).all(dim=1))
+        ok = torch.isfinite(lp_p) & all_finite(pos_p, dg) & all_finite(mom_p, dg)
         raw = (lp_p - lp) + (ke0 - ke_p)
         log_accept = torch.where(ok, raw, -math.inf)
         diverged = ~ok | (-raw > _DELTA_MAX)
@@ -282,6 +290,10 @@ class ChEESHMC(BatchSampler):
         out.update(new)
         if warmup:
             inv = carry["mass_inv"]
+            # means over every chain of the run (the chains group) and sums
+            # over every coordinate (the dim group)
+            cg, dg, n_all = self._chains_group, self._dim_group, self._n_total
+            mean = lambda v: chain_mean(v, cg, n_all)
             alpha = torch.clamp(torch.exp(log_accept), max=1.0)  # exp(-inf) = 0
             # sanitise before any cross-chain reduction: one NaN chain would
             # poison the batch means the adaptation feeds on
@@ -290,13 +302,14 @@ class ChEESHMC(BatchSampler):
 
             # ChEES criterion E[(‖θ⁺−μ⁺‖² − ‖θ−μ‖²)²]/4 over proposals,
             # importance-weighted by acceptance; dθ⁺/dt = M⁻¹p⁺, dt/dlog T = t
-            w = alpha / (torch.mean(alpha) + 1e-20)
-            c0 = pos - torch.mean(pos, dim=0)
-            cp = pos_ps - torch.mean(pos_ps, dim=0)
-            a_gap = torch.sum(cp * cp, dim=1) - torch.sum(c0 * c0, dim=1)
-            da_dt = 2.0 * torch.sum(cp * (inv * mom_ps), dim=1)
-            chees = torch.mean(w * a_gap * a_gap) * 0.25
-            d_chees = torch.mean(w * a_gap * da_dt) * 0.5 * t_eff
+            accept_stat = mean(alpha)
+            w = alpha / (accept_stat + 1e-20)
+            c0 = pos - mean(pos)
+            cp = pos_ps - mean(pos_ps)
+            a_gap = dim_sum(cp * cp, dg) - dim_sum(c0 * c0, dg)
+            da_dt = 2.0 * dim_sum(cp * (inv * mom_ps), dg)
+            chees = mean(w * a_gap * a_gap) * 0.25
+            d_chees = mean(w * a_gap * da_dt) * 0.5 * t_eff
             # criterion-normalised gradient, clipped, and skipped when not
             # finite (a non-finite estimate would latch Adam at NaN)
             g_raw = d_chees / (chees + 1e-20)
@@ -310,7 +323,6 @@ class ChEESHMC(BatchSampler):
             log_t = torch.clamp(log_t, -6.0, 12.0)
 
             # dual averaging on the shared ε (cross-chain mean acceptance)
-            accept_stat = torch.mean(alpha)
             eta = 1.0 / (m1 + _T0)
             h_bar = (1.0 - eta) * carry["h_bar"] + eta * (self.target_accept_p - accept_stat)
             # log-space clamp: a run of all-accepts can overflow float32
@@ -324,7 +336,7 @@ class ChEESHMC(BatchSampler):
 
             # diagonal metric from the cross-chain variance (Stan M⁻¹ = Σ̂)
             if self.mass_adaptation:
-                var = torch.var(pos_new, dim=0, correction=0)
+                var = chain_var(pos_new, cg, n_all)
                 out["mass_inv"] = torch.clamp(
                     (1.0 - self.mass_ema) * inv + self.mass_ema * var, min=1e-8)
         else:
@@ -453,6 +465,25 @@ class ChEESHMC(BatchSampler):
 
     def _positions(self, carry):
         return carry["pos"]
+
+    def _carry_axes(self, carry):
+        per_chain = {"lp", "n_divergent", "n_leapfrog"}
+        axes = {k: Axes(0) if k in per_chain else Axes() for k in carry}
+        axes.update(pos=Axes(0, 1), grad=Axes(0, 1), mass_inv=Axes(None, 0))
+        return axes
+
+    def _check_dim_axis(self) -> None:
+        if not hasattr(self.target, "columns"):
+            raise NotImplementedError(
+                f"ChEES's dim axis needs a target with a column block (the diagonal "
+                f"GaussianND); {type(self.target).__name__} has none")
+
+    def _take_columns(self, shard) -> None:
+        self.target = self.target.columns(shard.col0, shard.col0 + shard.d_local,
+                                          shard.dim_group)
+        self._vgrad = as_value_and_grad(self.target)
+        self._ggrad = as_grad_fn(self.target)
+        self.dim = shard.d_local
 
     # -- extras -----------------------------------------------------------------
     @property

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import counter_rng
+from ..parallel.mesh import Axes
 from .base import BatchSampler
 
 __all__ = ["GibbsSampler", "GibbsDraws", "CoordinateDraws"]
@@ -85,6 +86,8 @@ class GibbsSampler(BatchSampler):
         none (pass ``device="cpu"`` to run on the CPU)
     """
 
+    _init_name = "initial_states"
+
     def __init__(self, conditional, initial_states, seed=0, static_sweep: bool = True,
                  device=None):
         super().__init__(n_chains=len(initial_states), seed=seed, device=device)
@@ -108,7 +111,7 @@ class GibbsSampler(BatchSampler):
         x = carry[0]
         if draws is None:
             normals, uniforms = counter_rng.gibbs_draws(self._key, self.n_chains, m, self.dim,
-                                                        x.device)
+                                                        x.device, chain0=self._chain0)
             if x.dtype.is_floating_point:
                 normals, uniforms = normals.to(x.dtype), uniforms.to(x.dtype)
             draws = GibbsDraws(normals, uniforms)
@@ -119,3 +122,6 @@ class GibbsSampler(BatchSampler):
 
     def _positions(self, carry):
         return carry[0]
+
+    def _carry_axes(self, carry):
+        return (Axes(0, 1),)

@@ -22,6 +22,7 @@ import torch
 
 from ..models.distributions import as_grad_fn, as_value_and_grad, rowsum
 from ..ops import counter_rng
+from ..parallel.mesh import Axes
 from .base import BatchSampler
 
 __all__ = ["HMC", "leapfrog"]
@@ -120,6 +121,11 @@ class HMC(BatchSampler):
         if self.backend == "cuda":
             from ..ops.fused_hmc import fused_hmc_run
 
+            if self.shard is not None:
+                raise NotImplementedError(
+                    "the fused HMC kernel draws chains from 0: a block of a sharded run "
+                    "needs backend='torch'")
+
             self._drop_carry(n_discard + n_collect * thin)
             return fused_hmc_run(
                 self.target,
@@ -153,7 +159,7 @@ class HMC(BatchSampler):
         dtype = x.dtype
         if z is None or u is None:
             z_drawn, u_drawn = counter_rng.step_draws(self._key, self.n_chains, m, x.shape[1],
-                                                      x.device)
+                                                      x.device, chain0=self._chain0)
             z = z_drawn if z is None else z
             u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device).to(dtype)
@@ -177,3 +183,6 @@ class HMC(BatchSampler):
 
     def _positions(self, carry):
         return carry[0]
+
+    def _carry_axes(self, carry):
+        return (Axes(0, 1), Axes(0), Axes(0, 1))

@@ -24,6 +24,7 @@ import torch
 
 from ..models.distributions import as_value_and_grad, rowsum
 from ..ops import counter_rng
+from ..parallel.mesh import Axes
 from .base import BatchSampler
 
 __all__ = ["MALA"]
@@ -73,7 +74,8 @@ class MALA(BatchSampler):
         dtype = x.dtype
         if z is None or u is None:
             z_drawn, u_drawn = counter_rng.walk_draws(self._key, self.n_chains, m, x.shape[1],
-                                                      counter_rng.TAG_MALA, x.device)
+                                                      counter_rng.TAG_MALA, x.device,
+                                                      chain0=self._chain0)
             z = z_drawn if z is None else z
             u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device).to(dtype)
@@ -102,3 +104,6 @@ class MALA(BatchSampler):
 
     def _positions(self, carry):
         return carry[0]
+
+    def _carry_axes(self, carry):
+        return (Axes(0, 1), Axes(0), Axes(0, 1))

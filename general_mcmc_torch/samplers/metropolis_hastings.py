@@ -37,6 +37,7 @@ import torch
 
 from ..models.distributions import as_logp_fn, rowsum
 from ..ops import counter_rng
+from ..parallel.mesh import Axes
 from .base import BatchSampler
 
 __all__ = [
@@ -120,6 +121,8 @@ class MetropolisHastings(BatchSampler):
         none (pass ``device="cpu"`` to run on the CPU)
     """
 
+    _init_name = "initial_states"
+
     def __init__(self, target, proposal, initial_states, seed=0, backend: str = "torch",
                  device=None):
         if backend not in ("torch", "cuda"):
@@ -155,6 +158,11 @@ class MetropolisHastings(BatchSampler):
         if self.backend == "cuda":
             from ..ops.fused_mh import fused_mh_run
 
+            if self.shard is not None:
+                raise NotImplementedError(
+                    "the fused MH kernel draws chains from 0: a block of a sharded run "
+                    "needs backend='torch'")
+
             self._drop_carry(n_discard + n_collect * thin)
             return fused_mh_run(
                 self.target,
@@ -182,7 +190,8 @@ class MetropolisHastings(BatchSampler):
         signs = getattr(proposal, "draws", "normal") == "sign"
         if z is None or u is None:
             draw = counter_rng.sign_walk_draws if signs else counter_rng.walk_draws
-            z_drawn, u_drawn = draw(self._key, self.n_chains, m, x.shape[1], device=x.device)
+            z_drawn, u_drawn = draw(self._key, self.n_chains, m, x.shape[1], device=x.device,
+                                    chain0=self._chain0)
             z = z_drawn if z is None else z
             u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device)
@@ -202,3 +211,6 @@ class MetropolisHastings(BatchSampler):
 
     def _positions(self, carry):
         return carry[0]
+
+    def _carry_axes(self, carry):
+        return (Axes(0, 1), Axes(0))

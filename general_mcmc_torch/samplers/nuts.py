@@ -50,6 +50,16 @@ Differences from the JAX sampler, none of them in the maths:
   streamed flags), and ``run`` resolves ``"auto"`` between its two
   ``run_kernel`` calls (JAX: between its two dispatches).
 
+Split over ranks (``parallel.run_sharded``), NUTS has no cross-chain
+reduction: every chain adapts its own ε and metric, so a block of chains
+runs alone, and the host loops of the dynamic tree stay rank-local.  Under
+a shard, or in a world of more than one rank, ``"auto"`` resolves to
+``"torch"`` without measuring, as JAX's does (nuts.py:736).  On the dim
+axis (the dynamic tree with the identity or diagonal metric, on a target
+with a column block) every sum over the parameter axis goes through the
+shard's dim group (:mod:`..ops.tree`), and the momenta of the block's
+columns are words ``col0 …`` of each chain's pairs.
+
 The runtime of :mod:`.base` (``chain``, ``track``, ``save_checkpoint``,
 ``resume``, ``run_progress``) works as for every sampler.  ``chain`` and
 ``run_progress`` step one tree throughout, the warmup's (``"auto"``: the
@@ -80,6 +90,7 @@ from ..ops.tree import (
     nuts_tree_step,
     sample_momentum,
 )
+from ..parallel.mesh import Axes, world
 from .base import BatchSampler
 
 __all__ = ["NUTS", "NUTSMassMatrixConfig", "Welford"]
@@ -300,10 +311,12 @@ class NUTS(BatchSampler):
             if z_eps is None:
                 z_eps = counter_rng.counter_rng_fill(n, d, self._key, 0,
                                                      counter_rng.TAG_EPS_SEARCH,
-                                                     "normal_pair", dev)
+                                                     "normal_pair", dev, self._chain0,
+                                                     self._word0)
             mom = sample_momentum(torch.as_tensor(z_eps, device=dev).to(dtype), mass,
                                   self._dense)
-            eps0 = find_reasonable_epsilon(self._vgrad, x0, mom, mass, self._dense)
+            eps0 = find_reasonable_epsilon(self._vgrad, x0, mom, mass, self._dense,
+                                           self._dim_group)
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
         welford = Welford(count=torch.zeros(n, dtype=torch.int32, device=dev),
                           mean=zeros(n, d), m2_diag=zeros(n, d),
@@ -321,27 +334,34 @@ class NUTS(BatchSampler):
             n_divergent=torch.zeros(n, dtype=torch.int32, device=dev),
             n_leapfrog=torch.zeros(n, dtype=torch.int64, device=dev),
         )
-        if self.backend == "auto" and self._n_discard > 0 and self.max_tree_depth <= 6:
+        if self._measures_depths():
             # each chain's realised depths and their squares over the last
-            # quarter of warmup, for "auto"'s choice (above cap 6 the rule
-            # answers "torch" whatever the depths, so nothing is measured)
+            # quarter of warmup, for "auto"'s choice
             carry["depth_sum"] = torch.zeros(n, dtype=torch.int64, device=dev)
             carry["depth_sqsum"] = torch.zeros(n, dtype=torch.int64, device=dev)
         return carry
+
+    def _measures_depths(self) -> bool:
+        """Whether ``"auto"`` measures the warmup's tree depths: with a
+        warmup, a cap ≤ 6 (above it the rule answers ``"torch"`` whatever
+        the depths), unsharded and in a world of one rank (JAX: one process,
+        nuts.py:736)."""
+        return (self.backend == "auto" and self._n_discard > 0 and self.max_tree_depth <= 6
+                and self.shard is None and world()[1] == 1)
 
     # -- draws ------------------------------------------------------------------
     def _draws(self, m: int, depth: int, dtype) -> TreeDraws:
         """Step ``m``'s dynamic-tree draws at doubling cap ``depth`` from the
         counter stream, in the positions' dtype."""
         z, u = counter_rng.nuts_draws(self._key, self.n_chains, m, self.dim, depth,
-                                      self.device)
+                                      self.device, self._chain0, self._word0)
         return TreeDraws.from_uniforms(z.to(dtype), u.to(dtype), depth)
 
     def _static_draws(self, m: int, depth: int, mass: MassMatrix, dtype) -> StaticDraws:
         """Step ``m``'s static-tree draws at doubling cap ``depth`` under the
         metric ``mass``, in the positions' dtype."""
         z, w = counter_rng.static_draws(self._key, self.n_chains, m, self.dim, depth,
-                                        self.device)
+                                        self.device, self._chain0, self._word0)
         return StaticDraws.from_words(z.to(dtype), w, depth, mass, self._dense)
 
     # -- transition -------------------------------------------------------------
@@ -374,7 +394,8 @@ class NUTS(BatchSampler):
                 draws = self._draws(m, depth, dtype)
             tree = nuts_tree_step(pos, carry["lp"], carry["grad"], carry["eps"], carry["mass"],
                                   self._vgrad, depth, draws, dense=self._dense,
-                                  ckpt_dtype=self.ckpt_dtype, multinomial=self._multinomial)
+                                  ckpt_dtype=self.ckpt_dtype, multinomial=self._multinomial,
+                                  group=self._dim_group)
 
         # dual averaging (generic_nuts.rs:882-895)
         m1 = torch.full((), m + 1, dtype=dtype, device=self.device)
@@ -488,10 +509,12 @@ class NUTS(BatchSampler):
         if z_window is None:
             z_window = counter_rng.counter_rng_fill(n, d, self._key, m,
                                                     counter_rng.TAG_EPS_WINDOW,
-                                                    "normal_pair", dev)
+                                                    "normal_pair", dev, self._chain0,
+                                                    self._word0)
         mom = sample_momentum(torch.as_tensor(z_window, device=dev).to(dtype), mass,
                               self._dense)
-        eps_new = find_reasonable_epsilon(self._vgrad, pos, mom, mass, self._dense)
+        eps_new = find_reasonable_epsilon(self._vgrad, pos, mom, mass, self._dense,
+                                          self._dim_group)
         zero = torch.zeros((), dtype=dtype, device=dev)
         out = dict(carry)
         out.update(
@@ -512,6 +535,36 @@ class NUTS(BatchSampler):
 
     def _positions(self, carry):
         return carry["pos"]
+
+    def _carry_axes(self, carry):
+        # a diagonal metric or Welford row per chain splits with the
+        # coordinates; a dense one ([n, d, d]) only with the chains
+        row = Axes(0, None if self._dense else 1)
+        axes = {k: Axes(0) for k in carry}
+        axes.update(pos=Axes(0, 1), grad=Axes(0, 1), mass=MassMatrix(inv=row, scale=row),
+                    welford=Welford(count=Axes(0), mean=Axes(0, 1), m2_diag=Axes(0, 1),
+                                    m2_dense=Axes(0)))
+        return axes
+
+    def _check_dim_axis(self) -> None:
+        missing = []
+        if self.backend == "static":
+            missing.append("the static tree (backend='static')")
+        if self._dense:
+            missing.append("the dense metric")
+        if not hasattr(self.target, "columns"):
+            missing.append(f"a column block of {type(self.target).__name__} (the diagonal "
+                           "GaussianND has one)")
+        if missing:
+            raise NotImplementedError("NUTS's dim axis is ported for the dynamic tree with "
+                                      "the identity or diagonal metric; not yet for "
+                                      + ", ".join(missing))
+
+    def _take_columns(self, shard) -> None:
+        self.target = self.target.columns(shard.col0, shard.col0 + shard.d_local,
+                                          shard.dim_group)
+        self._vgrad = as_value_and_grad(self.target)
+        self.dim = shard.d_local
 
     # -- backend="auto" -----------------------------------------------------------
     @staticmethod
@@ -547,7 +600,7 @@ class NUTS(BatchSampler):
         """``"auto"``'s collection backend after the warmup: pops the depth
         accumulators from ``carry``, reads their sums back (one read-back),
         and sets ``backend_selected`` and ``depth_stats``."""
-        if "depth_sum" not in carry:  # no warmup or a cap > 6: nothing to measure
+        if "depth_sum" not in carry:  # nothing measured (_measures_depths)
             self.backend_selected = "torch"
             return "torch"
         d_sum, d_sq = carry.pop("depth_sum"), carry.pop("depth_sqsum")

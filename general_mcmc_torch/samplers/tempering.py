@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from ..core import resolve_device
 from ..models.distributions import as_logp_fn
 from ..ops import counter_rng
+from ..parallel.mesh import Axes
 from .base import BatchSampler
 
 __all__ = ["ReplicaExchange", "geometric_temperatures"]
@@ -66,6 +67,8 @@ class ReplicaExchange(BatchSampler):
     device : where to run; ``None`` means the card, and raises if there is
         none (pass ``device="cpu"`` to run on the CPU)
     """
+
+    _init_name = "initial_states"
 
     def __init__(self, target, initial_states, temperatures, scale: float = 1.0,
                  swap_every: int = 1, seed=0, device=None):
@@ -117,7 +120,8 @@ class ReplicaExchange(BatchSampler):
         n, t, d = x.shape
         dtype = x.dtype
         if z is None or u_acc is None or u_swap is None:
-            drawn = counter_rng.tempering_draws(self._key, n, m, t, d, x.device)
+            drawn = counter_rng.tempering_draws(self._key, n, m, t, d, x.device,
+                                                chain0=self._chain0)
             z, u_acc, u_swap = (given if given is not None else draw
                                 for given, draw in zip((z, u_acc, u_swap), drawn))
         z, u_acc, u_swap = (torch.as_tensor(v, device=x.device).to(dtype)
@@ -153,3 +157,6 @@ class ReplicaExchange(BatchSampler):
 
     def _positions(self, carry):
         return carry[0][:, 0, :]  # the cold replica
+
+    def _carry_axes(self, carry):
+        return (Axes(0, 2), Axes(0))

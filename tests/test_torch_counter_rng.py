@@ -352,3 +352,55 @@ def test_static_draws_layout():
         assert torch.equal(cr.words_to_uniform(w[:, j]), cr.bits_to_uniform(word))
     assert torch.equal(w, cr.counter_rng_fill_reference(n, 2 + 2 * depth, seed, step,
                                                         cr.TAG_STATIC, "bits"))
+
+
+@pytest.mark.parametrize("kind,word0", [("bits", 0), ("bits", 3), ("bits", 6),
+                                        ("uniform", 1), ("uniform", 8),
+                                        ("normal_pair", 2), ("normal_pair", 4),
+                                        ("normal_pair", 10), ("mh", 0)])
+@pytest.mark.parametrize("n_words", [1, 5, 8])
+def test_fill_offsets_are_rows_and_columns_of_the_unshifted_fill(kind, word0, n_words):
+    """A fill of rows from chain0 and columns from word0 is that block of the
+    fill from (0, 0), bit for bit: what a rank holding a block of chains and
+    coordinates draws."""
+    if kind == "mh" and n_words < 2:
+        n_words = 2
+    whole = cr.counter_rng_fill(13, word0 + n_words, 9, 2, cr.TAG_MOMENTUM, kind, "cpu")
+    block = cr.counter_rng_fill(4, n_words, 9, 2, cr.TAG_MOMENTUM, kind, "cpu", chain0=7,
+                                word0=word0)
+    assert block.shape == (4, n_words) and block.dtype == whole.dtype
+    assert torch.equal(block, whole[7:11, word0:])
+    assert torch.equal(cr.counter_rng_fill_reference(4, n_words, 9, 2, cr.TAG_MOMENTUM, kind,
+                                                     chain0=7, word0=word0), block)
+
+
+def test_draw_helpers_take_the_block_offsets():
+    """The samplers' draw helpers: momentum normals from (chain0, word0),
+    the per-chain uniforms and tree words from chain0 alone."""
+    z, u = cr.nuts_draws(5, 12, 3, 8, 3, "cpu")
+    zb, ub = cr.nuts_draws(5, 4, 3, 4, 3, "cpu", chain0=8, word0=4)
+    assert torch.equal(zb, z[8:12, 4:8]) and torch.equal(ub, u[8:12])
+    z, u = cr.step_draws(5, 12, 3, 6, "cpu")
+    zb, ub = cr.step_draws(5, 6, 3, 2, "cpu", chain0=6, word0=4)
+    assert torch.equal(zb, z[6:12, 4:6]) and torch.equal(ub, u[6:12])
+    for fn, args in ((cr.walk_draws, (5, 12, 3, 3)), (cr.sign_walk_draws, (5, 12, 3, 3)),
+                     (cr.gibbs_draws, (5, 12, 3, 3)), (cr.tempering_draws, (5, 12, 3, 4, 2))):
+        whole = fn(*args, device="cpu")
+        block = fn(args[0], 5, *args[2:], device="cpu", chain0=7)
+        for w, b in zip(whole, block):
+            assert torch.equal(b, w[7:12])
+    assert torch.equal(cr.static_draws(5, 4, 3, 4, 2, "cpu", chain0=2)[1],
+                       cr.static_draws(5, 6, 3, 4, 2, "cpu")[1][2:])
+
+
+@pytest.mark.parametrize("kind,chain0,word0,match", [
+    ("normal_pair", 0, 3, "even word"),
+    ("mh", 0, 2, "word0 must be 0"),
+    ("bits", -1, 0, "uint32"),
+    ("bits", 0, 2**32, "uint32"),
+])
+def test_fill_offset_errors(kind, chain0, word0, match):
+    with pytest.raises(ValueError, match=match):
+        cr.counter_rng_fill(4, 6, 9, 2, 0, kind, "cpu", chain0=chain0, word0=word0)
+    with pytest.raises(ValueError, match=match):
+        cr.fill_launcher(torch.empty(4, 6), 9, 2, 0, kind, chain0, word0)
