@@ -58,8 +58,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    min-ESS/s, the wall split, peak memory, the device's busy share of a
    50-step collection window from ``torch.profiler``, and the fill kernel
    timed at its ChEES shapes; "chees-logistic", the bench stretch line
-   (non-centred hierarchical logistic, 10,240 chains, 256 + 1,024 steps with
-   the in-run statistics): R-hat and min-ESS/s;
+   (non-centred hierarchical logistic on bench.py's data, 10,240 chains,
+   256 + 1,024 steps with the in-run statistics): R-hat, min-ESS/s and the
+   post-warmup divergences;
 10. NUTS ("nuts-small", 1,024 chains): the 2-d autograd target with the
     diagonal and with the dense metric and with the multinomial proposal,
     each checked against the target's moments, Neal's funnel (the
@@ -134,6 +135,21 @@ Phases (each prints one line; any failure raises and exits non-zero):
     ranks with ``shard_dim``, 1,024 chains of a 64-d diagonal Gaussian in
     float64, within 1e-8 of the unsharded runs).
 
+15. The examples and the last repairs: "shard-cuda" (``HMC(backend=
+    "cuda")`` at "main"'s shape and ``MetropolisHastings(backend="cuda")``
+    at "mh-main"'s through ``run_sharded`` on two gloo ranks: each rank one
+    kernel launch, its rows drawn from its ``chain0`` and bit-equal to the
+    same rows of the unsharded launch), "shard-dim-odd" (NUTS with the
+    diagonal metric and ChEES on the 100-d headline target on a 1 x 4 mesh,
+    blocks of 25 from columns 0, 25, 50 and 75, 1,024 chains in float64,
+    within 1e-8 of the unsharded runs), "examples" (every program of
+    ``examples_torch/`` but the sharded one, its ``main()`` on the card one
+    by one with the gates of ``tests/test_examples.py``, its wall and fill
+    launches) and "examples-sharded" (``examples_torch/sharded_nuts.py`` as
+    one NCCL rank).  "chees-logistic" runs on bench.py's own data, the JAX
+    package's ``make_logistic_data(PRNGKey(1), 256, 48)`` shipped as
+    ``general_mcmc_torch/data/bench_logistic_k1.npz``.
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -142,9 +158,11 @@ code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import functools
+import importlib.util
 import io
 import itertools
 import json
@@ -166,6 +184,7 @@ from general_mcmc_torch import io as gmt_io
 from general_mcmc_torch import parallel as gmt_parallel
 from general_mcmc_torch.io import native as io_native
 from general_mcmc_torch.models.distributions import rowsum
+from general_mcmc_torch.models.regression import bench_logistic_data
 from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_logistic, fused_mh,
                                     static_tree, tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
@@ -636,14 +655,22 @@ def phase_small(dev):
     return dict(max_abs_err=max(errs))
 
 
-def phase_main_path(dev):
-    """The slice at full width through the user's entry points."""
+def hmc_main_sampler(dev):
+    """The HMC main path: its target, initial positions, ``mass_inv`` and
+    a factory of its sampler (the 100-d benchmark Gaussian, 10,240 chains,
+    the diagonal metric, the fused kernel)."""
     scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM))
     target = gmt.GaussianND(torch.zeros(DIM), scales, device=dev)
     x0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
     mass_inv = (scales**2).to(dev)
-    sampler = lambda: gmt.HMC(target, x0, STEP_SIZE, N_LEAPFROG, seed=SEED,
-                              mass_inv=mass_inv, backend="cuda")
+    return target, x0, mass_inv, lambda: gmt.HMC(target, x0, STEP_SIZE, N_LEAPFROG, seed=SEED,
+                                                 mass_inv=mass_inv, backend="cuda")
+
+
+def phase_main_path(dev):
+    """The slice at full width through the user's entry points."""
+    target, x0, mass_inv, sampler = hmc_main_sampler(dev)
+    scales = target.cov.cpu()  # the standard deviations
 
     reset_counts()
     samples = sampler().run(N_COLLECT, N_DISCARD)
@@ -840,12 +867,19 @@ def phase_mh_small(dev):
     return dict(max_abs_err=max(errs))
 
 
-def phase_mh_main(dev):
-    """The MH main path at full size through the user's entry point."""
+def mh_main_sampler(dev):
+    """The MH main path: its target, proposal, initial states and a factory
+    of its sampler (the 2-d Gaussian, 16,384 chains, the fused kernel)."""
     target = gmt.Gaussian2D(MH_MEAN, MH_COV, device=dev)
     proposal = gmt.RandomWalkProposal(MH_SCALE)
     x0 = gmt.init_det(MH_CHAINS, 2, device=dev)
-    sampler = lambda: gmt.MetropolisHastings(target, proposal, x0, seed=SEED, backend="cuda")
+    return target, proposal, x0, lambda: gmt.MetropolisHastings(target, proposal, x0,
+                                                                seed=SEED, backend="cuda")
+
+
+def phase_mh_main(dev):
+    """The MH main path at full size through the user's entry point."""
+    target, proposal, x0, sampler = mh_main_sampler(dev)
 
     reset_counts()
     samples = sampler().run(MH_COLLECT, MH_DISCARD)
@@ -1307,13 +1341,15 @@ def phase_chees_main(dev):
 
 def phase_chees_logistic(dev):
     """The bench stretch line (bench.py:737-760) on the port's
-    ``HierarchicalLogisticNC``, with the port's data
-    (``make_logistic_data(1, 256, 48)``: a seeded torch generator, not JAX's
-    PRNGKey(1) data): 10,240 chains, 256 adaptive warmup steps, 1,024 static
-    steps with a derived L and the in-run statistics
-    (``run(with_stats=True)``), two runs, the wall the lesser
-    (bench.py:780-808), split by the phase ends ``run`` records."""
-    X, y, _ = gmt.make_logistic_data(1, LGC_OBS, LGC_DIM - 2, device=dev)
+    ``HierarchicalLogisticNC``, on bench.py's own data (the JAX package's
+    ``make_logistic_data(PRNGKey(1), 256, 48)``, which the port ships as
+    ``general_mcmc_torch/data/bench_logistic_k1.npz``): 10,240 chains, 256
+    adaptive warmup steps, 1,024 static steps with a derived L and the
+    in-run statistics (``run(with_stats=True)``), two runs, the wall the
+    lesser (bench.py:780-808), split by the phase ends ``run`` records; the
+    post-warmup divergences, how many chains had one and the most in one
+    chain."""
+    X, y, _ = bench_logistic_data(device=dev)
     target = gmt.HierarchicalLogisticNC(X, y)
     sampler = gmt.ChEESHMC(target, gmt.init_with_seed(N_CHAINS, LGC_DIM, SEED, device=dev),
                            target_accept_p=LGC_ACCEPT, jitter_amount=LGC_JITTER,
@@ -1333,7 +1369,8 @@ def phase_chees_logistic(dev):
     max_rhat, min_ess = float(rhat.max()), float(ess.min())
     check(max_rhat < 1.01, f"logistic ChEES max R-hat {max_rhat} < 1.01")
     leapfrogs = int(sampler.leapfrog_count.sum())
-    divergences = int(sampler.divergences.sum())
+    per_chain = sampler.divergences
+    divergences = int(per_chain.sum())
     adapted = sampler._final_carry
     profile_window(lambda: sampler._run_static(adapted, CHEES_WINDOW, LGC_WARMUP + LGC_COLLECT),
                    CHEES_WINDOW, "chees-logistic-window")
@@ -1341,8 +1378,10 @@ def phase_chees_logistic(dev):
         steps=f"{LGC_WARMUP}+{LGC_COLLECT}", L=sampler._static_L,
         eps_bar=f"{float(sampler.adapted_step_size):.6f}",
         T=f"{float(sampler.adapted_trajectory_length):.6f}",
-        divergences=divergences, max_rhat=f"{max_rhat:.5f}",
-        min_ess=f"{min_ess:.1f}", wall_s=f"{wall:.4f}",
+        data="bench_logistic_k1.npz", divergences=divergences,
+        divergence_rate=f"{divergences / (N_CHAINS * LGC_COLLECT):.4e}",
+        chains_diverging=int((per_chain > 0).sum()), most_in_a_chain=int(per_chain.max()),
+        max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}", wall_s=f"{wall:.4f}",
         walls_s=json.dumps([round(w, 4) for w in walls]), init_s=f"{init_s:.4f}",
         warmup_s=f"{warm_s:.4f}", collection_with_stats_s=f"{coll_s:.4f}",
         min_ess_per_s=f"{min_ess / wall:.4e}", grad_evals_per_s=f"{leapfrogs / wall:.4e}")
@@ -2476,6 +2515,11 @@ SHARD_ADAPT_RTOL = 1e-3
 # warmup steps of the all-reduce probe of "shard-main"
 SHARD_PROBE_STEPS = 10
 SHARD_CHILD_TIMEOUT = 400
+# "shard-dim-odd": the headline target on a 1 x 4 mesh (blocks of 25 from
+# columns 0, 25, 50, 75), 1,024 chains in float64, "shard-dim"'s steps; its
+# NUTS has the diagonal metric with one window end in the 10 warmup steps
+SHARD_ODD_MESH = (1, 4)
+SHARD_ODD_WINDOWS = dict(start_buffer=2, end_buffer=2, initial_window=6)
 
 
 def store_digest(store) -> torch.Tensor:
@@ -2495,9 +2539,10 @@ def store_digest(store) -> torch.Tensor:
 
 def spawn_children(program: str, world: int, backend: str, payload: dict, tmp: str):
     """Run ``program`` on ``world`` child ranks of this script (``backend``
-    ``"gloo"``, or ``"nccl"`` at one rank), all on card 0; returns each
-    rank's result and the seconds from the start to the last exit.  A child
-    that fails raises here with its output; every child is ended."""
+    ``"gloo"``, ``"nccl"`` at one rank, or ``"none"``: processes that join
+    no group), all on card 0; returns each rank's result and the seconds
+    from the start to the last exit.  A child that fails raises here with
+    its output; every child is ended."""
     workdir = tempfile.mkdtemp(prefix=f"{program}_", dir=tmp)
     torch.save(payload, os.path.join(workdir, "payload.pt"))
     with socket.socket() as s:
@@ -2523,18 +2568,27 @@ def spawn_children(program: str, world: int, backend: str, payload: dict, tmp: s
     return [torch.load(os.path.join(workdir, f"rank{r}.pt")) for r in range(world)], seconds
 
 
+# This process's rank among the children of its phase (child_main).
+CHILD_RANK = 0
+
+
 def child_main(argv) -> int:
-    """One rank of a multi-rank phase: join the group, run the program,
-    write its result."""
+    """One rank of a multi-rank phase: join the group (unless the backend
+    is ``"none"``), run the program, write its result."""
+    global CHILD_RANK
     program, port, rank, world, backend, workdir = argv
     rank, world = int(rank), int(world)
+    CHILD_RANK = rank
     torch.cuda.set_device(0)
-    gmt_parallel.initialize(init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank, backend=backend, timeout=datetime.timedelta(seconds=300))
+    if backend != "none":
+        gmt_parallel.initialize(init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                                rank=rank, backend=backend,
+                                timeout=datetime.timedelta(seconds=300))
     payload = torch.load(os.path.join(workdir, "payload.pt"))
     out = CHILD_PROGRAMS[program](torch.device("cuda", 0), payload)
     torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
-    torch.distributed.destroy_process_group()
+    if backend != "none":
+        torch.distributed.destroy_process_group()
     return 0
 
 
@@ -2663,25 +2717,33 @@ def child_shard_small(dev, payload):
     return dict(rows=(lo, hi), equal=equal, fills=fills, init=init.cpu())
 
 
-def shard_dim_sampler(name: str, x0):
-    target = gmt.GaussianND(torch.zeros(SHARD_DIM_D, dtype=torch.float64),
-                            torch.linspace(1.0, 3.0, SHARD_DIM_D, dtype=torch.float64),
-                            device=x0.device)
+def shard_dim_sampler(name: str, x0, scales=None):
+    """NUTS (the dynamic tree; "nuts_diag": with the diagonal metric and
+    short windows) or ChEES on the diagonal Gaussian of standard deviations
+    ``scales`` (default: "shard-dim"'s ``linspace(1, 3, 64)``), float64."""
+    if scales is None:
+        scales = torch.linspace(1.0, 3.0, SHARD_DIM_D, dtype=torch.float64)
+    target = gmt.GaussianND(torch.zeros_like(scales), scales, device=x0.device)
     if name == "nuts":
         return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch")
+    if name == "nuts_diag":
+        cfg = gmt.NUTSMassMatrixConfig("diagonal", **SHARD_ODD_WINDOWS)
+        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch", mass_config=cfg)
     return gmt.ChEESHMC(target, x0, seed=11)
 
 
 def child_shard_dim(dev, payload):
-    """NUTS and ChEES on the 2 x 2 mesh with ``shard_dim``: this rank's
-    [rows, columns] block against the unsharded run's."""
-    mesh = gmt_parallel.make_mesh(*SHARD_DIM_MESH)
-    r0, r1 = mesh.rows(SHARD_SMALL_CHAINS)
-    c0, c1 = mesh.cols(SHARD_DIM_D)
+    """NUTS and ChEES on a (chains, dim) mesh with ``shard_dim`` ("shard-dim":
+    2 x 2; "shard-dim-odd": 1 x 4 on the headline target, two blocks at an
+    odd coordinate): this rank's [rows, columns] block against the unsharded
+    run's."""
+    mesh = gmt_parallel.make_mesh(*payload["mesh"])
     x0 = payload["x0"].to(dev)
+    r0, r1 = mesh.rows(x0.shape[0])
+    c0, c1 = mesh.cols(x0.shape[1])
     out = dict(block=(r0, r1, c0, c1))
-    for name, steps in SHARD_DIM_STEPS.items():
-        s = shard_dim_sampler(name, x0)
+    for name, steps in payload["steps"].items():
+        s = shard_dim_sampler(name, x0, payload.get("scales"))
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2693,10 +2755,6 @@ def child_shard_dim(dev, payload):
                          div_equal=bool(torch.equal(s.divergences.cpu(),
                                                     payload[name + "_div"][r0:r1])))
     return out
-
-
-CHILD_PROGRAMS = {"shard-main": child_shard_main, "shard-one": child_shard_one,
-                  "shard-small": child_shard_small, "shard-dim": child_shard_dim}
 
 
 def phase_shard_main(chees: dict, tmp: str):
@@ -2813,38 +2871,362 @@ def phase_shard_small(dev, tmp: str):
                 max_abs_err=max(errs.values()))
 
 
+def dim_phase(label: str, dev, tmp: str, x0, mesh, steps: dict, scales=None):
+    """NUTS and ChEES (``steps``: sampler name -> (collected, warmup)) with
+    ``shard_dim`` on ``mesh`` in child ranks, each rank's block within
+    ``SHARD_DIM_ATOL`` of the unsharded run, its divergences equal; one line
+    for ``label``.  Returns each rank's fill launches."""
+    payload = {"x0": x0.cpu(), "mesh": mesh, "steps": steps, "scales": scales}
+    walls = {}
+    reset_counts()
+    for name, st in steps.items():
+        s = shard_dim_sampler(name, x0, scales)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload[name] = s.run(*st).cpu()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        payload[name + "_div"] = s.divergences.cpu()
+    check(counter_rng.launches > 0, f"{label}: the unsharded runs launched the fill kernel")
+    outs, seconds = spawn_children(label, mesh[0] * mesh[1], "gloo", payload, tmp)
+    for r, o in enumerate(outs):
+        for name in steps:
+            check(o[name]["err"] < SHARD_DIM_ATOL and o[name]["div_equal"],
+                  f"{label} rank {r} {name}: max |d| {o[name]['err']} < {SHARD_DIM_ATOL}, "
+                  f"divergences equal {o[name]['div_equal']}")
+            check(o[name]["fills"] > 0, f"{label} rank {r} {name}: no fill launch")
+    say(label, mesh="x".join(map(str, mesh)), chains=x0.shape[0], dim=x0.shape[1],
+        dtype="float64", col_starts=json.dumps(sorted({o["block"][2] for o in outs})),
+        steps=json.dumps({k: f"{v[1]}+{v[0]}" for k, v in steps.items()}),
+        max_abs_err=json.dumps({k: max(o[k]["err"] for o in outs) for k in steps}),
+        sharded_wall_s=json.dumps({k: [round(o[k]["wall"], 3) for o in outs] for k in steps}),
+        unsharded_wall_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
+        fill_launches=json.dumps({k: [o[k]["fills"] for o in outs] for k in steps}),
+        phase_s=f"{seconds:.2f}")
+    return [sum(o[k]["fills"] for k in steps) for o in outs]
+
+
 def phase_shard_dim(dev, tmp: str):
     """"shard-dim": NUTS (the dynamic tree) and ChEES on a 2 x 2 mesh of
     four ranks with ``shard_dim``, 1,024 chains of a 64-d diagonal Gaussian
     in float64: every rank's block within 1e-8 of the unsharded run."""
     x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, SHARD_DIM_D, 5, dtype=torch.float64,
                             device=dev)
-    payload, walls = {"x0": x0.cpu()}, {}
-    for name, steps in SHARD_DIM_STEPS.items():
-        s = shard_dim_sampler(name, x0)
+    return dict(fills=dim_phase("shard-dim", dev, tmp, x0, SHARD_DIM_MESH, SHARD_DIM_STEPS))
+
+
+def phase_shard_dim_odd(dev, tmp: str):
+    """"shard-dim-odd": NUTS (the dynamic tree, the diagonal metric with a
+    window end inside the warmup) and ChEES on the 100-d headline target
+    on a 1 x 4 mesh, blocks of 25 from columns 0, 25, 50 and 75 (two odd
+    starts, whose momentum normals are filled from the even word before),
+    1,024 chains in float64, the step counts of "shard-dim": every rank's
+    block within 1e-8 of the unsharded run."""
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM, dtype=torch.float64))
+    x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, DIM, 5, dtype=torch.float64, device=dev)
+    steps = {"nuts_diag": SHARD_DIM_STEPS["nuts"], "chees": SHARD_DIM_STEPS["chees"]}
+    return dict(fills=dim_phase("shard-dim-odd", dev, tmp, x0, SHARD_ODD_MESH, steps, scales))
+
+
+def child_shard_cuda(dev, payload):
+    """HMC's and MH's fused backends through ``run_sharded`` on this rank's
+    half of the chains at the main paths' shapes: the kernel launches of
+    the sharded run (each its block in one launch, rows drawn from
+    ``chain0``), and its rows against the same rows of the unsharded single
+    launch, bit for bit (``torch.equal``)."""
+    mesh = gmt_parallel.chain_mesh()
+    out = {}
+    for name, make, steps, module in (
+            ("hmc", hmc_main_sampler(dev)[-1], (N_COLLECT, N_DISCARD), fused_hmc),
+            ("mh", mh_main_sampler(dev)[-1], (MH_COLLECT, MH_DISCARD), fused_mh)):
+        sampler = make()
+        lo, hi = mesh.rows(sampler.n_chains)
+        reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        payload[name] = s.run(*steps).cpu()
+        block = gmt_parallel.run_sharded(sampler, *steps, mesh)
         torch.cuda.synchronize()
-        walls[name] = time.perf_counter() - t0
-        payload[name + "_div"] = s.divergences.cpu()
-    outs, seconds = spawn_children("shard-dim", SHARD_DIM_MESH[0] * SHARD_DIM_MESH[1], "gloo",
-                                   payload, tmp)
+        wall = time.perf_counter() - t0
+        launches = module.launches
+        whole = make().run(*steps)
+        out[name] = dict(rows=(lo, hi), launches=launches, wall=wall,
+                         shape=tuple(block.shape), chain0=sampler._chain0,
+                         equal=bool(torch.equal(block, whole[lo:hi])))
+        del block, whole
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard_cuda(tmp: str):
+    """"shard-cuda": ``HMC(backend="cuda")`` at "main"'s shape (10,240 x
+    100, 200 + 1,000 steps) and ``MetropolisHastings(backend="cuda")`` at
+    "mh-main"'s (16,384 x 2, 500 + 5,000) through ``run_sharded`` on two
+    gloo ranks sharing the card: each rank makes exactly one kernel launch,
+    and its rows are bit-equal to the same rows of the unsharded launch."""
+    outs, seconds = spawn_children("shard-cuda", SHARD_RANKS, "gloo", {}, tmp)
     for r, o in enumerate(outs):
-        for name in SHARD_DIM_STEPS:
-            check(o[name]["err"] < SHARD_DIM_ATOL and o[name]["div_equal"],
-                  f"shard-dim rank {r} {name}: max |d| {o[name]['err']} < {SHARD_DIM_ATOL}, "
-                  f"divergences equal {o[name]['div_equal']}")
-    say("shard-dim", mesh="x".join(map(str, SHARD_DIM_MESH)), chains=SHARD_SMALL_CHAINS,
-        dim=SHARD_DIM_D, dtype="float64",
-        steps=json.dumps({k: f"{v[1]}+{v[0]}" for k, v in SHARD_DIM_STEPS.items()}),
-        max_abs_err=json.dumps({k: max(o[k]["err"] for o in outs) for k in SHARD_DIM_STEPS}),
-        sharded_wall_s=json.dumps({k: [round(o[k]["wall"], 3) for o in outs]
-                                   for k in SHARD_DIM_STEPS}),
-        unsharded_wall_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
-        fill_launches=json.dumps({k: [o[k]["fills"] for o in outs] for k in SHARD_DIM_STEPS}),
+        for name, n in (("hmc", N_CHAINS), ("mh", MH_CHAINS)):
+            k = n // SHARD_RANKS
+            check(o[name]["launches"] == 1, f"shard-cuda rank {r} {name}: "
+                  f"{o[name]['launches']} kernel launches, not 1")
+            check(o[name]["rows"] == (r * k, (r + 1) * k) and o[name]["chain0"] == r * k,
+                  f"shard-cuda rank {r} {name}: rows {o[name]['rows']}")
+            check(o[name]["equal"], f"shard-cuda rank {r} {name}: rows bit-equal to the "
+                  "unsharded launch's")
+    say("shard-cuda", ranks=SHARD_RANKS, backend="gloo",
+        hmc=f"{N_CHAINS}x{DIM} {N_DISCARD}+{N_COLLECT}",
+        mh=f"{MH_CHAINS}x2 {MH_DISCARD}+{MH_COLLECT}", rows_bit_equal=True,
+        launches=json.dumps({k: [o[k]["launches"] for o in outs] for k in ("hmc", "mh")}),
+        run_s=json.dumps({k: [round(o[k]["wall"], 4) for o in outs] for k in ("hmc", "mh")}),
         phase_s=f"{seconds:.2f}")
-    return dict(fills=[sum(o[k]["fills"] for k in SHARD_DIM_STEPS) for o in outs])
+    return {k: [o[k]["launches"] for o in outs] for k in ("hmc", "mh")}
+
+
+# -- the ported examples (examples_torch/) -------------------------------------------------
+def load_example(name: str):
+    """``examples_torch/<name>.py`` of this checkout, loaded by path (its
+    directory last on ``sys.path``: the examples import ``_figure``)."""
+    directory = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples_torch")
+    if directory not in sys.path:
+        sys.path.append(directory)
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  os.path.join(directory, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cpu(t):
+    return t.detach().cpu().numpy()
+
+
+def gate_paths(*paths):
+    check(all(os.path.exists(p) for p in paths), f"files written: {paths}")
+    return {"files": [os.path.basename(p) for p in paths]}
+
+
+def gate_regression(out, kw):
+    sample, beta_hat, beta_true = out
+    p = kw.get("n_features", 8)
+    check(tuple(sample.shape) == (kw.get("n_chains", 256), kw.get("n_collect", 300), p + 2),
+          f"logistic_nuts shape {tuple(sample.shape)}")
+    err = float(abs(beta_hat - beta_true).max())
+    strong = abs(beta_true) > 0.5
+    signs = bool((beta_hat[strong] > 0).tolist() == (beta_true[strong] > 0).tolist())
+    check(err < 1.5 and signs, f"logistic_nuts: max beta error {err} < 1.5, strong signs {signs}")
+    return {"max_beta_err": round(err, 4), "strong_signs": signs}
+
+
+def gate_track(out, kw):
+    sample, stats, _ = out
+    want = (kw.get("n_chains", 256), kw.get("n_collect", 300), kw.get("n_features", 8))
+    check(tuple(sample.shape) == want, f"regression_nc_track shape {tuple(sample.shape)}")
+    check(stats.rhat.max < 1.2, f"regression_nc_track R-hat {stats.rhat.max} < 1.2")
+    return {"max_rhat": round(stats.rhat.max, 5)}
+
+
+def gate_custom(out, kw):
+    sample, stats = out
+    flat = _cpu(sample).reshape(-1, 3)
+    mean_err = float(abs(flat.mean(axis=0) - [1.0, -2.0, 3.0]).max())
+    var_rel = float(abs(flat.var(axis=0) / [0.5, 2.0, 4.0] - 1.0).max())
+    check(mean_err < 0.25 and var_rel < 0.35 and stats.rhat.max < 1.05,
+          f"custom_gradient_nuts: mean {mean_err} < 0.25, var {var_rel} < 0.35, R-hat "
+          f"{stats.rhat.max} < 1.05")
+    return {"mean_err": round(mean_err, 4), "var_rel_err": round(var_rel, 4),
+            "max_rhat": round(stats.rhat.max, 5)}
+
+
+def gate_funnel(out, kw):
+    div_coarse, div_adapted, path = out
+    check(os.path.exists(path) and div_coarse > div_adapted and div_coarse > 0,
+          f"funnel_nuts: divergences {div_coarse} > {div_adapted} and > 0, {path}")
+    return {"div_coarse": div_coarse, "div_adapted": div_adapted}
+
+
+def gate_std(sample, width=16):
+    flat = _cpu(sample).reshape(-1, width)
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), width)).numpy()
+    rel = float(abs(flat.std(axis=0) / scales - 1.0).max())
+    check(rel < 0.12, f"std within 0.12 of the scales ({rel})")
+    return {"std_rel_err": round(rel, 4)}
+
+
+def gate_auto(out, kw):
+    worst = {}
+    for tag, s in zip("ab", out):
+        flat = _cpu(s)[:, 128:, :].reshape(-1, 8)
+        m, sd = float(abs(flat.mean(axis=0)).max()), float(abs(flat.std(axis=0) - 1.0).max())
+        check(m < 0.3 and sd < 0.25, f"auto_backend_nuts run {tag}: mean {m}, std {sd}")
+        worst[tag] = (round(m, 4), round(sd, 4))
+    return {"mean_std_err": worst}
+
+
+def gate_multinomial(out, kw):
+    check(set(out) == {"slice", "multinomial"}, f"multinomial_nuts: {set(out)}")
+    for rhat_max, min_ess in out.values():
+        check(rhat_max < 1.05 and min_ess > 500, f"multinomial_nuts: R-hat {rhat_max}, "
+              f"ESS {min_ess}")
+    return {k: (round(v[0], 5), round(v[1], 1)) for k, v in out.items()}
+
+
+def gate_wells(out, kw):
+    trapped, mixed = out
+    check(trapped < 0.05 and 0.3 < mixed < 0.7, f"two_wells: trapped {trapped}, mixed {mixed}")
+    return {"trapped": round(float(trapped), 4), "mixed": round(float(mixed), 4)}
+
+
+def gate_finite(sample, kw=None):
+    check(bool(torch.isfinite(sample).all()), "finite samples")
+    return {"shape": list(sample.shape)}
+
+
+def minimal_nuts_cut(dev):
+    """tests/test_examples.py's cut of examples/minimal_nuts.py, whose
+    ``main()`` takes no sizes: the example's sampler at 4 chains for 50 +
+    50 steps (its ``main()`` is loaded, as the test imports it)."""
+    sampler = gmt.NUTS(gmt.Rosenbrock2D(1.0, 100.0), gmt.init_det(4, 2, device=dev), 0.95,
+                       device=dev).set_seed(42)
+    sample, _ = sampler.run_progress(50, 50, progress=False)
+    check(tuple(sample.shape) == (4, 50, 2), f"minimal_nuts cut shape {tuple(sample.shape)}")
+    return sample
+
+
+# Each program of examples_torch/ but sharded_nuts ("examples-sharded") with
+# the keyword sizes it runs at on the card (None: its own defaults; a dict:
+# the cut sizes of tests/test_examples.py, "cut": that file's own cut of a
+# program whose main() takes no sizes) and the gates of
+# tests/test_examples.py.  The dynamic-tree programs whose defaults take
+# minutes on the card (PR 11's chip run A, NVIDIA H100 80GB HBM3 at 700 W:
+# minimal_nuts 183.0 s, funnel_nuts 211.7 s; auto_backend_nuts 125.0 s,
+# which has no cut) run cut.  The programs run in EXAMPLE_GROUPS, one
+# process a group, the groups at once: the eager paths are host-bound, so
+# the groups share the card and take one host core each.
+EXAMPLES = {
+    "minimal_mh": (None, gate_finite),
+    "minimal_hmc": (None, gate_finite),
+    "minimal_nuts": ("cut", gate_finite),
+    "gauss_mh": (None, lambda out, kw: gate_paths(*out)),
+    "rosenbrock_mh": (None, lambda out, kw: gate_paths(out)),
+    "rosenbrock3d_hmc": (None, lambda out, kw: gate_paths(out)),
+    "static_window_nuts": (None, lambda out, kw: gate_std(out)),
+    "multinomial_nuts": (None, gate_multinomial),
+    "auto_backend_nuts": (None, gate_auto),
+    "chees_hmc": (None, lambda out, kw: gate_std(out)),
+    "funnel_nuts": (dict(n_chains=16, dim=6, n_collect=120, n_warmup=200), gate_funnel),
+    "logistic_nuts": (None, gate_regression),
+    "regression_nc_track": (None, gate_track),
+    "two_wells_tempering": (None, gate_wells),
+    "poisson_mh": (None, lambda out, kw: gate_paths(out)),
+    "mixture_gibbs": (None, lambda out, kw: gate_paths(out)),
+    "custom_gradient_nuts": (None, gate_custom),
+}
+EXAMPLE_GROUPS = (
+    ("auto_backend_nuts",),
+    ("funnel_nuts", "logistic_nuts", "chees_hmc", "static_window_nuts"),
+    ("regression_nc_track", "minimal_nuts", "custom_gradient_nuts", "two_wells_tempering",
+     "poisson_mh"),
+    ("mixture_gibbs", "rosenbrock3d_hmc", "multinomial_nuts", "gauss_mh", "rosenbrock_mh",
+     "minimal_mh", "minimal_hmc"),
+)
+
+
+def child_examples(dev, payload):
+    """This rank's group of EXAMPLE_GROUPS: each program's ``main()`` (or
+    its cut) on the card, one after another, each with the counts set to 0
+    before it: its wall, fill launches and gates.  A program's own output
+    is kept and shown only if it fails.  The process joins no group: a
+    program sees the single-process world its user would run it in."""
+    os.environ["EXAMPLE_OUT"] = os.path.join(payload["out"], f"rank{CHILD_RANK}")
+    out = []
+    for name in EXAMPLE_GROUPS[CHILD_RANK]:
+        kw, gate = EXAMPLES[name]
+        mod = load_example(name)
+        log = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+                result = (minimal_nuts_cut(dev) if kw == "cut"
+                          else mod.main(device=dev, **(kw or {})))
+            torch.cuda.synchronize()
+        except BaseException:
+            print(log.getvalue()[-6000:], flush=True)
+            raise
+        wall = time.perf_counter() - t0
+        fills = counter_rng.launches
+        check(fills > 0, f"examples {name}: the fill kernel was never launched")
+        out.append(dict(name=name, wall=wall, fills=fills, sizes=kw,
+                        gates=gate(result, kw if isinstance(kw, dict) else {})))
+    return out
+
+
+def phase_examples(tmp: str):
+    """"examples": every ported program but the sharded one on the card
+    through its ``main()`` (or tests/test_examples.py's cut), the groups of
+    EXAMPLE_GROUPS in child processes at once, each program timed and
+    counted on its own: one line each with its wall, gates and fill
+    launches."""
+    check(sorted(n for g in EXAMPLE_GROUPS for n in g) == sorted(EXAMPLES),
+          "every example in one group")
+    outs, seconds = spawn_children("examples", len(EXAMPLE_GROUPS), "none",
+                                   {"out": os.path.join(tmp, "examples")}, tmp)
+    walls, fills = {}, {}
+    for group, o in enumerate(outs):
+        for r in o:
+            walls[r["name"]], fills[r["name"]] = r["wall"], r["fills"]
+            kw = r["sizes"]
+            sizes = ("default" if kw is None else "cut" if kw == "cut"
+                     else json.dumps(kw, separators=(",", ":")))
+            say("examples", program=r["name"], group=group, sizes=sizes,
+                wall_s=f"{r['wall']:.3f}", fill_launches=r["fills"],
+                gates=json.dumps(r["gates"], separators=(",", ":")))
+    say("examples-total", programs=len(walls), groups=len(EXAMPLE_GROUPS),
+        wall_s=f"{sum(walls.values()):.2f}", phase_s=f"{seconds:.2f}",
+        cut=",".join(n for n, (kw, _) in EXAMPLES.items() if kw is not None),
+        fill_launches=sum(fills.values()))
+    return dict(fills=fills, walls=walls)
+
+
+def child_examples_sharded(dev, payload):
+    """examples_torch/sharded_nuts.py's ``main()`` at its own defaults on
+    this rank (the process group is already up: its ``initialize`` is a
+    no-op)."""
+    mod = load_example("sharded_nuts")
+    log = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        sample = mod.main()
+    torch.cuda.synchronize()
+    wall, fills = time.perf_counter() - t0, counter_rng.launches
+    rhat, _ = gmt.split_rhat_mean_ess(sample)
+    return dict(wall=wall, shape=tuple(sample.shape), fills=fills,
+                finite=bool(torch.isfinite(sample).all()), max_rhat=float(rhat.max()),
+                device=str(sample.device), backend=torch.distributed.get_backend())
+
+
+def phase_examples_sharded(tmp: str):
+    """"examples-sharded": examples_torch/sharded_nuts.py as one NCCL rank
+    (the card's one-card host), at its own defaults: 512 chains, finite,
+    every draw a fill launch."""
+    (o,), seconds = spawn_children("examples-sharded", 1, "nccl", {}, tmp)
+    check(o["backend"] == "nccl" and o["device"].startswith("cuda"),
+          f"examples-sharded: {o['backend']} on {o['device']}")
+    check(o["shape"][0] == 512 and o["finite"], f"examples-sharded: shape {o['shape']}")
+    check(o["fills"] > 0, "examples-sharded: the fill kernel was never launched")
+    say("examples-sharded", backend=o["backend"], shape=json.dumps(list(o["shape"])),
+        max_split_rhat=f"{o['max_rhat']:.5f}", wall_s=f"{o['wall']:.3f}",
+        fill_launches=o["fills"], phase_s=f"{seconds:.2f}")
+    return dict(fills=o["fills"], wall=o["wall"])
+
+
+CHILD_PROGRAMS = {"shard-main": child_shard_main, "shard-one": child_shard_one,
+                  "shard-small": child_shard_small, "shard-dim": child_shard_dim,
+                  "shard-dim-odd": child_shard_dim, "shard-cuda": child_shard_cuda,
+                  "examples": child_examples, "examples-sharded": child_examples_sharded}
 
 
 def main() -> int:
@@ -2903,9 +3285,15 @@ def main() -> int:
     shard = phase_shard_main(chees, tmp)
     shard_one = phase_shard_one(chees, tmp)
     shard_dim = phase_shard_dim(dev, tmp)
+    shard_cuda = phase_shard_cuda(tmp)
+    shard_odd = phase_shard_dim_odd(dev, tmp)
+    examples = phase_examples(tmp)
+    examples_sharded = phase_examples_sharded(tmp)
     shutil.rmtree(tmp)
     shard_fills = {"shard-main": shard["fills"], "shard-one": [shard_one["fills"]],
-                   "shard-small": shard_small["fills"], "shard-dim": shard_dim["fills"]}
+                   "shard-small": shard_small["fills"], "shard-dim": shard_dim["fills"],
+                   "shard-dim-odd": shard_odd["fills"]}
+    example_fills = {**examples["fills"], "sharded_nuts": examples_sharded["fills"]}
     new_fills = {"mala-main": mala["fill_launches"], "gibbs-main": gibbs["fill_launches"],
                  "gibbs-mixture": mixture["fill_launches"],
                  "tempering-main": temper["fill_launches"]}
@@ -2921,9 +3309,12 @@ def main() -> int:
                      "progress-main": progress["fill_launches"],
                      "nuts-resume": nuts_resume["fill_launches"]}
     kernels = [
+        # launches: the main path's one and one a rank of "shard-cuda"
+        # (shard_cuda_launches), each counted from 0 around its run
         dict(name="fused_hmc", route="cuda", source="general_mcmc_torch/csrc/fused_hmc.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
-             launches=main_path["launches"],
+             launches=main_path["launches"] + sum(shard_cuda["hmc"]),
+             main_path_launches=main_path["launches"], shard_cuda_launches=shard_cuda["hmc"],
              max_abs_err=max(main_path["max_abs_err"], ident["max_abs_err"],
                              small["max_abs_err"]),
              ms=main_path["ms"], plain_ms=main_path["plain_ms"],
@@ -2931,7 +3322,7 @@ def main() -> int:
              bound_unfused_ms=main_path["bound_unfused_ms"], library_ms=None,
              split_us={k: round(v, 4) for k, v in split.items()},
              lane_map=maps["chosen"], lane_map_ms=maps["times"],
-             checked_in="K1-small, main, identity-mass, K1-maps"),
+             checked_in="K1-small, main, identity-mass, K1-maps, shard-cuda"),
         # K2 is a device function: on the HMC and MH main paths it runs inside
         # each fused_hmc and fused_mh launch; on the ChEES and NUTS main paths
         # its fill kernel draws every step's momenta and uniforms or words (2
@@ -2950,14 +3341,16 @@ def main() -> int:
         # the parallel phases, counted from 0 in the rank's process
         # (shard-main's in launches too); offset_fill_ms: the fill of a
         # [5120, 50] block of normal pairs from chain 5,120 and word 50, beside
-        # the same shape from (0, 0) and its bound.
+        # the same shape from (0, 0) and its bound; example_fill_launches:
+        # each ported example's fill launches ("examples", "examples-sharded"),
+        # counted from 0 around its main() (in launches too).
         dict(name="counter_rng", route="cuda",
              source="general_mcmc_torch/csrc/counter_rng.cuh",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:61",
              launches=(main_path["launches"] + mh["launches"] + chees["fill_launches"]
                        + nuts["fill_launches"] + static["fill_launches"]
                        + sum(runtime_fills.values()) + sum(new_fills.values())
-                       + sum(shard["fills"])),
+                       + sum(shard["fills"]) + sum(example_fills.values())),
              runs_inside="fused_hmc, fused_mh",
              fill_launches=chees["fill_launches"],
              fill_launches_checked=chees_small["fill_launches"],
@@ -2983,6 +3376,7 @@ def main() -> int:
              sampler_fill_ms={k: v[0] for k, v in new_fill.items()},
              sampler_fill_bound_ms={k: v[1] for k, v in new_fill.items()},
              shard_fill_launches=shard_fills,
+             example_fill_launches=example_fills,
              offset_fill_ms=shard_small["offset_ms"],
              offset_unshifted_fill_ms=shard_small["unshifted_ms"],
              offset_fill_bound_ms=shard_small["bound_ms"],
@@ -2991,9 +3385,12 @@ def main() -> int:
                         "nuts-static-small, nuts-static, runtime-small, resume-main, "
                         "progress-main, nuts-resume, mala-small, mala-main, gibbs-small, "
                         "gibbs-main, gibbs-mixture, tempering-small, tempering-main, "
-                        "shard-small, shard-main, shard-one, shard-dim"),
+                        "shard-small, shard-main, shard-one, shard-dim, shard-dim-odd, "
+                        "examples, examples-sharded"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
-             replaces="general_mcmc_tpu/ops/pallas_mh.py:61", launches=mh["launches"],
+             replaces="general_mcmc_tpu/ops/pallas_mh.py:61",
+             launches=mh["launches"] + sum(shard_cuda["mh"]),
+             main_path_launches=mh["launches"], shard_cuda_launches=shard_cuda["mh"],
              max_abs_err=max(mh["max_abs_err"], mh_small["max_abs_err"]),
              ms=mh["ms"], kernel_only_ms=k3_chains["ms"][MH_CHAINS],
              plain_ms=mh["plain_ms"], bound_ms=mh["bound_ms"], bound_by=mh["bound_by"],
@@ -3001,7 +3398,7 @@ def main() -> int:
              chains_kernel_only_ms={str(k): v for k, v in k3_chains["ms"].items()},
              widths_ms={str(k): v for k, v in k3_widths["ms"].items()},
              widths_bound_ms={str(k): v for k, v in k3_widths["bound_ms"].items()},
-             checked_in="K3-small, mh-main, K3-chains, K3-widths"),
+             checked_in="K3-small, mh-main, K3-chains, K3-widths, shard-cuda"),
         # no single PyTorch call computes the chain: library_ms is the time of
         # its two torch.matmul a step, alone, times the steps
         dict(name="fused_logistic", route="cuda",

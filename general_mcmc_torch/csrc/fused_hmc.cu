@@ -44,6 +44,9 @@
 //    (8 x 4, or 5 lanes of 5 quads, which would idle 2 of 32 lanes instead
 //    of 7 of 32 slots) were slower: a lane keeps seven floats an element,
 //    and past 128 registers too few warps are resident to hide latency.
+//  - A chain's draws are addressed by its global index, chain0 plus its row
+//    in the launch, so a block of a sharded run draws its rows of the
+//    unsharded run's draws.
 //  - The accept uniform is word 0 of the block (chain, step, 0, accept tag).
 //    Where the map leaves a lane slot idle, that lane computes this block in
 //    the Philox pass in which it would otherwise do nothing - its Box-Muller
@@ -97,7 +100,7 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
                      const float* __restrict__ prec, const float* __restrict__ inv_row,
                      const float* __restrict__ scale_row, float* __restrict__ out, int n,
                      int d, int G, int n_collect, int n_discard, int thin, int n_leapfrog,
-                     float eps, uint32_t seed) {
+                     float eps, uint32_t seed, uint32_t chain0) {
   constexpr int E = 4 * QPL;  // elements per lane
   const int lane = threadIdx.x & 31;
   const int cpw = 32 / G;  // chains per warp
@@ -110,6 +113,7 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
   // nothing: every lane reaches every shuffle.
   const bool live = first + slot < n;
   const uint32_t chain = static_cast<uint32_t>(live ? first + slot : n - 1);
+  const uint32_t key_chain = chain0 + chain;  // the global chain: the draws' address
   const int nq = (d + 3) >> 2;  // quads that hold dimensions
   // the first idle lane slot, if the map has one, draws the accept block
   const bool accept_in_slot = nq < G * QPL;
@@ -157,7 +161,7 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
     for (int k = 0; k < QPL; ++k) {
       const int q = sub + G * k;
       const bool draws_accept = accept_in_slot && q == nq;
-      const uint4 r = gmt::counter_bits(seed, chain, static_cast<uint32_t>(t),
+      const uint4 r = gmt::counter_bits(seed, key_chain, static_cast<uint32_t>(t),
                                         draws_accept ? 0u : static_cast<uint32_t>(q),
                                         draws_accept ? gmt::kTagAccept : gmt::kTagMomentum);
       float log_u1;  // log of word 0's uniform: log u where the block is the accept block
@@ -169,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
       log_u = __shfl_sync(kFull, log_u, accept_lane);
     } else {
       log_u = logf(gmt::bits_to_uniform(
-          gmt::counter_bits(seed, chain, static_cast<uint32_t>(t), 0u, gmt::kTagAccept).x));
+          gmt::counter_bits(seed, key_chain, static_cast<uint32_t>(t), 0u, gmt::kTagAccept).x));
     }
 
     double acc = 0.0;
@@ -248,7 +252,7 @@ struct Args {
   float* out;
   int n, d, G, n_collect, n_discard, thin, n_leapfrog;
   float eps;
-  uint32_t seed;
+  uint32_t seed, chain0;
 };
 
 template <int QPL>
@@ -258,11 +262,11 @@ cudaError_t launch_qpl(bool use_mass, const Args& a, cudaStream_t stream) {
   if (use_mass) {
     fused_hmc_kernel<QPL, true><<<grid, kThreads, 0, stream>>>(
         a.x0, a.mean, a.prec, a.inv, a.scale, a.out, a.n, a.d, a.G, a.n_collect, a.n_discard,
-        a.thin, a.n_leapfrog, a.eps, a.seed);
+        a.thin, a.n_leapfrog, a.eps, a.seed, a.chain0);
   } else {
     fused_hmc_kernel<QPL, false><<<grid, kThreads, 0, stream>>>(
         a.x0, a.mean, a.prec, a.inv, a.scale, a.out, a.n, a.d, a.G, a.n_collect, a.n_discard,
-        a.thin, a.n_leapfrog, a.eps, a.seed);
+        a.thin, a.n_leapfrog, a.eps, a.seed, a.chain0);
   }
   return cudaGetLastError();
 }
@@ -275,8 +279,9 @@ cudaError_t launch_qpl(bool use_mass, const Args& a, cudaStream_t stream) {
 extern "C" int fused_hmc_launch(const void* x0, const void* mean, const void* prec,
                                 const void* inv, const void* scale, void* out, int n, int d,
                                 int n_collect, int n_discard, int thin, int n_leapfrog,
-                                float step_size, unsigned int seed, int use_mass,
-                                int lanes_per_chain, int quads_per_lane, void* stream) {
+                                float step_size, unsigned int seed, unsigned int chain0,
+                                int use_mass, int lanes_per_chain, int quads_per_lane,
+                                void* stream) {
   if (n < 1 || d < 1 || lanes_per_chain < 1 || lanes_per_chain > 32 ||
       (lanes_per_chain & (lanes_per_chain - 1)) != 0 ||
       4 * lanes_per_chain * quads_per_lane < d) {
@@ -286,7 +291,7 @@ extern "C" int fused_hmc_launch(const void* x0, const void* mean, const void* pr
                static_cast<const float*>(prec), static_cast<const float*>(inv),
                static_cast<const float*>(scale), static_cast<float*>(out),
                n, d, lanes_per_chain, n_collect, n_discard, thin, n_leapfrog,
-               step_size, seed};
+               step_size, seed, chain0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (quads_per_lane) {
     case 1: return static_cast<int>(launch_qpl<1>(use_mass != 0, a, s));

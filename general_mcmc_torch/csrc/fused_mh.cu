@@ -17,8 +17,8 @@
 //             y = rho x + beta z with log q(a->b) = -1/2 sum ((b - rho a)/beta)^2.
 // The initial log density is computed here, from the same device function.
 //
-// Draws.  A step's draws are the chain's word sequence at (chain, step,
-// proposal tag) (counter_rng.cuh): normals 2k and 2k + 1 are both branches
+// Draws.  A step's draws are the chain's word sequence at (chain0 + row,
+// step, proposal tag), chain0 the global index of the launch's first row (counter_rng.cuh): normals 2k and 2k + 1 are both branches
 // of Box-Muller of words (2k, 2k + 1), and the accept uniform is the next
 // word, 2 ceil(d / 2).  At d = 2 that is one Philox block a step: words 0
 // and 1 give both normals, word 2 the uniform.
@@ -98,6 +98,7 @@ struct Args {
   int n, d, n_collect, n_discard, thin;
   float p0, p1, p2;  // random walk: scale; pCN: rho, beta, 1 / beta
   uint32_t seed;
+  uint32_t chain0;  // the global index of row 0: row r draws as chain chain0 + r
 };
 
 // Sum over the G lanes of a group, accumulated in double and rounded once
@@ -347,6 +348,7 @@ __global__ void __launch_bounds__(kThreads) fused_mh_kernel(const Args a) {
   // nothing: every lane of a warp then reaches every shuffle.
   const bool live = slot < a.n;
   const uint32_t chain = static_cast<uint32_t>(live ? slot : a.n - 1);
+  const uint32_t key_chain = a.chain0 + chain;  // the global chain: the draws' address
   const int pairs = (a.d + 1) / 2;
   const int lane = static_cast<int>(threadIdx.x & 31);
   const Layout lay{pairs / 2 + 1, (pairs & 1) != 0, lane - sub + (pairs / 2) % G};
@@ -358,7 +360,8 @@ __global__ void __launch_bounds__(kThreads) fused_mh_kernel(const Args a) {
   float z_next[S][E], lu_next[S];  // the next tile, drawn meanwhile
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    draw_step<G, QPL>(a.seed, chain, static_cast<uint32_t>(s), sub, lay, c.ok, z[s], log_u[s]);
+    draw_step<G, QPL>(a.seed, key_chain, static_cast<uint32_t>(s), sub, lay, c.ok, z[s],
+                      log_u[s]);
   }
   for (int t0 = 0; t0 < st.total; t0 += S) {
 #pragma unroll
@@ -366,7 +369,8 @@ __global__ void __launch_bounds__(kThreads) fused_mh_kernel(const Args a) {
       // step t0 + S + s's draws, independent of step t0 + s's walk that
       // follows: the draws have no branch (box_muller_pair_straight), so the
       // compiler may interleave them with the walk
-      draw_step<G, QPL>(a.seed, chain, static_cast<uint32_t>(t0) + static_cast<uint32_t>(S + s),
+      draw_step<G, QPL>(a.seed, key_chain,
+                        static_cast<uint32_t>(t0) + static_cast<uint32_t>(S + s),
                         sub, lay, c.ok, z_next[s], lu_next[s]);
       c.step(a, z[s], log_u[s]);
       st.after(a, t0 + s, c, sub, live);
@@ -433,7 +437,8 @@ __global__ void __launch_bounds__(kWalkers + 32 * P) fused_mh_ws_kernel(const Ar
     const int w = p % kWalkers;  // the walker whose draws this thread computes
     const int s0 = p / kWalkers;
     const int64_t slot = first + w;
-    const uint32_t chain = static_cast<uint32_t>(slot < a.n ? slot : a.n - 1);
+    // the global chain of the walker's row: the draws' address
+    const uint32_t key_chain = a.chain0 + static_cast<uint32_t>(slot < a.n ? slot : a.n - 1);
     const bool ok[2] = {true, a.d == 2};
     const Layout lay{1, true, 0};  // one block, the uniform in word 2
     for (int i0 = 0; i0 < n_tiles; i0 += kSlots) {
@@ -446,7 +451,7 @@ __global__ void __launch_bounds__(kWalkers + 32 * P) fused_mh_ws_kernel(const Ar
         for (int j = 0; j < T / kPerChain; ++j) {
           const int s = s0 + j * kPerChain;
           float z[2], log_u;
-          draw_step<1, 1>(a.seed, chain, static_cast<uint32_t>(i * T + s), 0, lay, ok, z,
+          draw_step<1, 1>(a.seed, key_chain, static_cast<uint32_t>(i * T + s), 0, lay, ok, z,
                           log_u);
           ring[k][0][s][w] = z[0];
           ring[k][1][s][w] = z[1];
@@ -525,9 +530,10 @@ cudaError_t launch_ws(const Args& a, int proposal, cudaStream_t stream) {
 extern "C" int fused_mh_launch(const void* x0, const void* params, void* out, int n, int d,
                                int n_collect, int n_discard, int thin, int target,
                                int proposal, float p0, float p1, float p2, unsigned int seed,
-                               void* stream) {
+                               unsigned int chain0, void* stream) {
   const Args a{static_cast<const float*>(x0), static_cast<const float*>(params),
-               static_cast<float*>(out), n, d, n_collect, n_discard, thin, p0, p1, p2, seed};
+               static_cast<float*>(out), n, d, n_collect, n_discard, thin, p0, p1, p2, seed,
+               chain0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (target == kGaussian2D || target == kRosenbrock2D) {
     if (d != 2) return static_cast<int>(cudaErrorInvalidValue);

@@ -12,12 +12,22 @@ beside them are plain ``torch.sum``.
 
 from __future__ import annotations
 
+from pathlib import Path
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core import resolve_device
 
-__all__ = ["HierarchicalLogistic", "HierarchicalLogisticNC", "make_logistic_data"]
+__all__ = ["HierarchicalLogistic", "HierarchicalLogisticNC", "make_logistic_data",
+           "bench_logistic_data"]
+
+# The stretch line's data: the JAX package's
+# make_logistic_data(jax.random.PRNGKey(1), 256, 48), as bench.py draws it,
+# saved once as float32 (tests/test_torch_regression.py regenerates it with
+# JAX and checks the file bit for bit).
+BENCH_LOGISTIC_FILE = Path(__file__).resolve().parent.parent / "data" / "bench_logistic_k1.npz"
 
 
 def make_logistic_data(seed: int, n_obs: int, n_features: int, device=None,
@@ -34,6 +44,16 @@ def make_logistic_data(seed: int, n_obs: int, n_features: int, device=None,
     u = torch.rand((n_obs,), generator=gen, dtype=dtype)
     y = (u < torch.sigmoid(X @ beta_true)).to(dtype)
     return X.to(dev), y.to(dev), beta_true.to(dev)
+
+
+def bench_logistic_data(device=None):
+    """The stretch line's data, ``(X [256, 48], y [256], beta_true [48])``
+    float32 on ``device`` (the card unless named): the JAX package's
+    ``make_logistic_data(PRNGKey(1), 256, 48)``, read from the file the
+    port ships (``data/bench_logistic_k1.npz``) with numpy."""
+    dev = resolve_device(device)
+    with np.load(BENCH_LOGISTIC_FILE) as f:
+        return tuple(torch.from_numpy(f[k]).to(dev) for k in ("X", "y", "beta_true"))
 
 
 class _LogisticData:

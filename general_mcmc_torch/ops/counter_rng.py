@@ -85,10 +85,14 @@ rows from ``chain0`` and ``n_words`` columns from ``word0`` gives rows
 ``chain0 … chain0 + n − 1`` and columns ``word0 … word0 + n_words − 1`` of
 the unsharded fill, so a rank that holds a block of chains (and, on the dim
 axis, of coordinates) draws exactly its block of the unsharded draws.  The
-momentum normals of a coordinate block take its first column as ``word0``
-(even, so that no Box–Muller pair straddles two blocks); the per-chain
-uniforms and tree words are the chain's own, the same on every rank of a
-dim group.  With both offsets 0 every stream is the one it always was.
+momentum normals of a coordinate block take its first column as ``word0``;
+the fill kernel draws normal pairs only from an even word, so a block that
+starts at an odd coordinate is filled from ``word0 − 1`` with one column
+more and its leading column dropped (:func:`counter_rng_fill` and its plain
+version), as :func:`_words` drops the words before ``word0`` in its first
+block.  The per-chain uniforms and tree words are the chain's own, the same
+on every rank of a dim group.  With both offsets 0 every stream is the one
+it always was.
 
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``,
 but for ``TAG_STATIC`` and the tags after it, which have no constant there:
@@ -422,13 +426,24 @@ def _check_fill(n_words: int, kind: str, chain0: int, word0: int) -> None:
         raise ValueError("the mh layout's uniform follows the whole row's normals: "
                          "word0 must be 0")
     if kind == "normal_pair" and word0 % 2:
-        raise ValueError(f"normal pairs start at an even word, got word0={word0}")
+        raise ValueError(f"the fill kernel starts normal pairs at an even word, got "
+                         f"word0={word0}")
+
+
+def _odd_pair_start(kind: str, word0: int) -> bool:
+    """Whether a fill of normal pairs starts at an odd word: it is then
+    filled from ``word0 − 1`` with one column more, and that column
+    dropped."""
+    return kind == "normal_pair" and word0 % 2 == 1
 
 
 def counter_rng_fill_reference(n_chains: int, n_words: int, seed: int, step: int,
                                tag: int, kind: str = "bits", device=None,
                                chain0: int = 0, word0: int = 0) -> torch.Tensor:
     """Plain version of :func:`counter_rng_fill`."""
+    if _odd_pair_start(kind, word0):
+        return counter_rng_fill_reference(n_chains, n_words + 1, seed, step, tag, kind,
+                                          device, chain0, word0 - 1)[:, 1:].contiguous()
     _check_fill(n_words, kind, chain0, word0)
     chains = (torch.arange(n_chains, dtype=torch.int64, device=device) + chain0) & _MASK
     if kind == "mh":
@@ -451,12 +466,16 @@ def counter_rng_fill(n_chains: int, n_words: int, seed: int, step: int, tag: int
     word ``w % 4`` of group ``w // 4``), ``"uniform"`` their uniforms,
     ``"mh"`` the draws of :func:`mh_draws` for ``dim = n_words - 1`` (the
     normals, then the uniform in the last column; ``word0`` must be 0),
-    ``"normal_pair"`` the normals of :func:`normals_paired` (``word0`` must
-    be even).
+    ``"normal_pair"`` the normals of :func:`normals_paired`, column ``j``
+    normal ``word0 + j`` (from an odd ``word0``, one launch of ``n_words +
+    1`` columns from ``word0 − 1`` with its first column dropped).
 
     On a CUDA device this launches the fill kernel; on the CPU it computes
     the plain version.  Both raise on a fill the kernel does not take."""
     device = torch.device(device if device is not None else "cuda")
+    if _odd_pair_start(kind, word0):
+        return counter_rng_fill(n_chains, n_words + 1, seed, step, tag, kind, device, chain0,
+                                word0 - 1)[:, 1:].contiguous()
     if device.type == "cpu":
         return counter_rng_fill_reference(n_chains, n_words, seed, step, tag, kind, device,
                                           chain0, word0)

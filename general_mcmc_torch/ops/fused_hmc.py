@@ -18,7 +18,10 @@ The kernel gives each chain a group of lanes of a warp and each lane a few
 quads of dimensions (one Philox block draws a quad's four momenta).
 :func:`lane_map` picks the group size and the quads per lane for a width;
 the draws are addressed by (chain, step, quad), so the map changes which
-lane computes a number and never the number.
+lane computes a number and never the number.  The chain of that address is
+the global one, ``chain0`` plus the row of the launch: a rank that holds
+chains ``chain0 …`` of a sharded run draws its rows of the unsharded run's
+draws, in one launch.
 """
 
 from __future__ import annotations
@@ -75,7 +78,7 @@ def lane_map(d: int):
 
 
 def _check_args(target, initial_positions, n_leapfrog, n_collect, n_discard, thin,
-                mass_inv):
+                mass_inv, chain0=0):
     if not isinstance(target, GaussianND) or not target.is_diagonal:
         raise ValueError(
             "the fused HMC kernel takes a GaussianND target with a diagonal "
@@ -91,37 +94,43 @@ def _check_args(target, initial_positions, n_leapfrog, n_collect, n_discard, thi
         raise ValueError(f"the fused HMC kernel takes a diagonal mass_inv [{d}]")
     if n_leapfrog < 1 or thin < 1 or n_collect < 0 or n_discard < 0:
         raise ValueError("need n_leapfrog >= 1, thin >= 1, n_collect, n_discard >= 0")
+    if not 0 <= chain0 < 2**32:
+        raise ValueError(f"chain0 must be uint32, got {chain0}")
 
 
 def fused_hmc_run_reference(target, initial_positions, step_size, n_leapfrog,
-                            n_collect, n_discard=0, seed=0, thin=1, mass_inv=None):
+                            n_collect, n_discard=0, seed=0, thin=1, mass_inv=None,
+                            chain0=0):
     """Plain PyTorch version of :func:`fused_hmc_run`: the ``"torch"``
-    backend's step loop on the positions' device."""
+    backend's step loop on the positions' device, its rows drawing as
+    chains ``chain0 …``."""
     from ..samplers.hmc import HMC
 
     x0 = initial_positions
     sampler = HMC(target, x0, step_size, n_leapfrog, seed=seed, backend="torch",
                   mass_inv=mass_inv, device=x0.device)
+    sampler._address_rows_from(chain0)
     return sampler.run(n_collect, n_discard, thin=thin)
 
 
 def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
-                  n_discard=0, seed=0, thin=1, mass_inv=None):
+                  n_discard=0, seed=0, thin=1, mass_inv=None, chain0=0):
     """Run batched HMC for ``n_discard + n_collect·thin`` steps and return
     every ``thin``-th post-burn-in state as ``[n_chains, n_collect, dim]``
     float32, a view of the steps-major ``[n_collect, n_chains, dim]``
     store.  ``seed`` is the 31-bit key of the draws; ``mass_inv`` an
-    optional ``[dim]`` diagonal of M⁻¹.
+    optional ``[dim]`` diagonal of M⁻¹; ``chain0`` the global index of row
+    0 (row ``r`` draws as chain ``chain0 + r``).
 
     For ``initial_positions`` on the card this is one launch of
     ``csrc/fused_hmc.cu``; on the CPU it is the plain version."""
     x0 = initial_positions
     if mass_inv is not None:
         mass_inv = torch.as_tensor(mass_inv, device=x0.device)
-    _check_args(target, x0, n_leapfrog, n_collect, n_discard, thin, mass_inv)
+    _check_args(target, x0, n_leapfrog, n_collect, n_discard, thin, mass_inv, chain0)
     if x0.device.type == "cpu":
         return fused_hmc_run_reference(target, x0, step_size, n_leapfrog, n_collect,
-                                       n_discard, seed, thin, mass_inv)
+                                       n_discard, seed, thin, mass_inv, chain0)
     if x0.device.type != "cuda":
         raise ValueError(f"fused_hmc_run runs on cuda or cpu, not {x0.device}")
     if x0.dtype != torch.float32 or not x0.is_contiguous():
@@ -143,12 +152,12 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
         return out.transpose(0, 1)
 
     _launch(x0, mean, prec, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
-            seed, use_mass, lane_map(d))
+            seed, use_mass, lane_map(d), chain0)
     return out.transpose(0, 1)
 
 
 def _launch(x0, mean, prec, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
-            seed, use_mass, lanes):
+            seed, use_mass, lanes, chain0=0):
     """One launch of the kernel under the lane map ``lanes`` into the
     steps-major store ``out`` (checked CUDA tensors)."""
     from .._build import check, load
@@ -158,12 +167,12 @@ def _launch(x0, mean, prec, inv_row, scale_row, out, n_discard, thin, n_leapfrog
     lib = load("fused_hmc")
     fn = lib.fused_hmc_launch
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(x0.data_ptr(), mean.data_ptr(), prec.data_ptr(), inv_row.data_ptr(),
               scale_row.data_ptr(), out.data_ptr(), n, d, out.shape[0], n_discard, thin,
-              int(n_leapfrog), float(step_size), stream_key(seed), int(use_mass),
+              int(n_leapfrog), float(step_size), stream_key(seed), int(chain0), int(use_mass),
               int(lanes[0]), int(lanes[1]), torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, code, "fused_hmc_launch")
     launches += 1

@@ -20,7 +20,9 @@ steps-major ``[n_collect, n_chains, dim]``, as the fused HMC run's is.
 
 The kernel computes the draws of a tile of steps ahead of the walk; it
 chooses its lane map, tile and design from the width (``csrc/fused_mh.cu``,
-head note).
+head note).  Row ``r`` draws as the global chain ``chain0 + r``, so a rank
+that holds chains ``chain0 …`` of a sharded run walks its rows of the
+unsharded run, in one launch.
 """
 
 from __future__ import annotations
@@ -77,7 +79,7 @@ def _proposal_code(proposal):
     raise ValueError(f"{_TAKES}, not the proposal {type(proposal).__name__}")
 
 
-def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin):
+def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin, chain0=0):
     if initial_positions.ndim != 2:
         raise ValueError("initial_positions must be [n_chains, dim]")
     if not initial_positions.dtype.is_floating_point:
@@ -86,6 +88,8 @@ def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin)
     p_code, consts = _proposal_code(proposal)
     if thin < 1 or n_collect < 0 or n_discard < 0:
         raise ValueError("need thin >= 1, n_collect, n_discard >= 0")
+    if not 0 <= chain0 < 2**32:
+        raise ValueError(f"chain0 must be uint32, got {chain0}")
     return code, p_code, consts
 
 
@@ -100,30 +104,35 @@ def _target_params(target, code: int, **f32) -> torch.Tensor:
 
 
 def fused_mh_run_reference(target, initial_positions, proposal, n_collect, n_discard=0,
-                           seed=0, thin=1):
+                           seed=0, thin=1, chain0=0):
     """Plain PyTorch version of :func:`fused_mh_run`: the ``"torch"``
-    backend's step loop on the positions' device."""
+    backend's step loop on the positions' device, its rows drawing as
+    chains ``chain0 …``."""
     from ..samplers.metropolis_hastings import MetropolisHastings
 
     x0 = initial_positions
     sampler = MetropolisHastings(target, proposal, x0, seed=seed, backend="torch",
                                  device=x0.device)
+    sampler._address_rows_from(chain0)
     return sampler.run(n_collect, n_discard, thin=thin)
 
 
 def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, seed=0,
-                 thin=1):
+                 thin=1, chain0=0):
     """Run batched MH for ``n_discard + n_collect·thin`` steps and return
     every ``thin``-th post-burn-in state as ``[n_chains, n_collect, dim]``,
     a view of the steps-major ``[n_collect, n_chains, dim]`` store.
-    ``seed`` is the 31-bit key of the draws.
+    ``seed`` is the 31-bit key of the draws; ``chain0`` the global index of
+    row 0 (row ``r`` draws as chain ``chain0 + r``).
 
     For ``initial_positions`` on the card this is one launch of
     ``csrc/fused_mh.cu`` (float32); on the CPU it is the plain version."""
     x0 = initial_positions
-    code, p_code, consts = _check_args(target, x0, proposal, n_collect, n_discard, thin)
+    code, p_code, consts = _check_args(target, x0, proposal, n_collect, n_discard, thin,
+                                       chain0)
     if x0.device.type == "cpu":
-        return fused_mh_run_reference(target, x0, proposal, n_collect, n_discard, seed, thin)
+        return fused_mh_run_reference(target, x0, proposal, n_collect, n_discard, seed, thin,
+                                      chain0)
     if x0.device.type != "cuda":
         raise ValueError(f"fused_mh_run runs on cuda or cpu, not {x0.device}")
     if x0.dtype != torch.float32 or not x0.is_contiguous():
@@ -140,12 +149,12 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
         return out.transpose(0, 1)
 
     global launches
-    _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed)
+    _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed, chain0)
     launches += 1
     return out.transpose(0, 1)
 
 
-def _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed):
+def _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed, chain0=0):
     """One launch of the kernel into the steps-major ``out``; no checks of
     the arguments and no count.  :func:`fused_mh_run` is the wrapper; this
     is exposed so that chip_smoke.py can time the kernel alone."""
@@ -154,10 +163,10 @@ def _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed):
     lib = load("fused_mh")
     fn = lib.fused_mh_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
-        ctypes.c_uint, ctypes.c_void_p]
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n_collect, n, d = out.shape
     rc = fn(x0.data_ptr(), params.data_ptr(), out.data_ptr(), n, d, n_collect, n_discard,
-            thin, code, p_code, *consts, stream_key(seed),
+            thin, code, p_code, *consts, stream_key(seed), int(chain0),
             torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, rc, "fused_mh_launch")

@@ -55,11 +55,12 @@ def run_sharded(sampler, n_collect: int, n_discard: int, mesh: Mesh, shard_dim: 
     then the sampler's ``run`` on the block.  Every rank of the mesh calls
     it.  Returns this rank's block ``[n_local, n_collect, d_local]``.
 
-    The run is the sampler's ``run`` through its step: HMC's and MH's fused
-    kernels address chains from 0 and raise on a block, as the JAX runner
-    drives the XLA step; ChEES collects under its own law, the static law
-    with ``static_collection``; NUTS's ``"auto"`` resolves to ``"torch"``
-    without measuring.  At one rank the result equals ``run``'s bit for
+    The run is the sampler's ``run``: HMC's and MH's ``backend="cuda"``
+    run the block in one launch of their fused kernel, its rows drawing as
+    their global chains (the kernels' ``chain0``), where the JAX runner
+    drives the XLA step whatever the backend; ChEES collects under its own
+    law, the static law with ``static_collection``; NUTS's ``"auto"``
+    resolves to ``"torch"`` without measuring.  At one rank the result equals ``run``'s bit for
     bit, and on more it equals rows ``[lo, hi)`` of ``run``'s wherever no
     reduction crosses chains.  The sampler keeps its last carry and step
     count, so ``save_checkpoint`` writes this rank's block (the JAX runner

@@ -45,6 +45,7 @@ from ..core import (
     run_kernel_progress_stream,
 )
 from ..diagnostics.stats import MultiChainTracker, RunStats
+from ..parallel.mesh import Shard
 from ..rng import as_seed, chain_ids, stream_key
 from ..utils.progress import ProgressRenderer
 
@@ -230,9 +231,6 @@ class BatchSampler:
             return
         if shard_dim:
             self._check_dim_axis()
-            if shard.col0 % 2:
-                raise ValueError(f"a column block must start at an even coordinate (the "
-                                 f"momentum normals come in pairs), not {shard.col0}")
             self._take_columns(shard)
         x = getattr(self, self._init_name)
         if slice_rows:
@@ -243,6 +241,17 @@ class BatchSampler:
             setattr(self, self._init_name, x.clone())  # the whole array can be freed
         self.n_chains = shard.n_local
         self.shard = shard
+
+    def _address_rows_from(self, chain0: int) -> None:
+        """Draw this sampler's rows as the global chains ``chain0 …`` (a
+        block of chains with no group to reduce over: the fused kernels'
+        plain versions take their ``chain0`` so)."""
+        if chain0:
+            d = self._dim_total
+            self._bind_shard(Shard(chain0=chain0, n_local=self.n_chains,
+                                   n_total=chain0 + self.n_chains, col0=0, d_local=d,
+                                   d_total=d, chains_group=None, dim_group=None),
+                             slice_rows=False)
 
     # -- seeding ------------------------------------------------------------
     def set_seed(self, seed):

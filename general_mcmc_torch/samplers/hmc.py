@@ -121,11 +121,6 @@ class HMC(BatchSampler):
         if self.backend == "cuda":
             from ..ops.fused_hmc import fused_hmc_run
 
-            if self.shard is not None:
-                raise NotImplementedError(
-                    "the fused HMC kernel draws chains from 0: a block of a sharded run "
-                    "needs backend='torch'")
-
             self._drop_carry(n_discard + n_collect * thin)
             return fused_hmc_run(
                 self.target,
@@ -136,6 +131,7 @@ class HMC(BatchSampler):
                 n_discard,
                 seed=self._key,
                 thin=thin,
+                chain0=self._chain0,  # a block of a sharded run: its global rows
                 mass_inv=self.mass_inv,  # all ones (none given): the identity-mass path
             )
         return super().run(n_collect, n_discard, thin=thin)

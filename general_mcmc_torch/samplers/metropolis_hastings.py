@@ -158,11 +158,6 @@ class MetropolisHastings(BatchSampler):
         if self.backend == "cuda":
             from ..ops.fused_mh import fused_mh_run
 
-            if self.shard is not None:
-                raise NotImplementedError(
-                    "the fused MH kernel draws chains from 0: a block of a sharded run "
-                    "needs backend='torch'")
-
             self._drop_carry(n_discard + n_collect * thin)
             return fused_mh_run(
                 self.target,
@@ -172,6 +167,7 @@ class MetropolisHastings(BatchSampler):
                 n_discard,
                 seed=self._key,
                 thin=thin,
+                chain0=self._chain0,  # a block of a sharded run: its global rows
             )
         return super().run(n_collect, n_discard, thin=thin)
 

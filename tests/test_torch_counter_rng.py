@@ -400,7 +400,37 @@ def test_draw_helpers_take_the_block_offsets():
     ("bits", 0, 2**32, "uint32"),
 ])
 def test_fill_offset_errors(kind, chain0, word0, match):
-    with pytest.raises(ValueError, match=match):
-        cr.counter_rng_fill(4, 6, 9, 2, 0, kind, "cpu", chain0=chain0, word0=word0)
+    """The fill kernel's launcher refuses every one of these.  The wrapper
+    and its plain version refuse them too, but normal pairs from an odd
+    word: those they fill from the even word before, one column wider, and
+    drop that column (what a dim block at an odd coordinate draws)."""
+    if kind == "normal_pair":
+        got = cr.counter_rng_fill(4, 6, 9, 2, 0, kind, "cpu", chain0=chain0, word0=word0)
+        whole = cr.counter_rng_fill(4, 6 + word0, 9, 2, 0, kind, "cpu", chain0=chain0)
+        assert torch.equal(got, whole[:, word0:])
+    else:
+        with pytest.raises(ValueError, match=match):
+            cr.counter_rng_fill(4, 6, 9, 2, 0, kind, "cpu", chain0=chain0, word0=word0)
     with pytest.raises(ValueError, match=match):
         cr.fill_launcher(torch.empty(4, 6), 9, 2, 0, kind, chain0, word0)
+
+
+@pytest.mark.parametrize("col0,d", [(1, 1), (1, 4), (3, 3), (25, 25), (75, 25), (9, 3)])
+def test_odd_column_block_draws_are_columns_of_the_unshifted_draws(col0, d):
+    """A dim block that starts at an odd coordinate: its momentum normals
+    (``step_draws``, ``nuts_draws``, the step-size searches' fills) are
+    columns ``[col0, col0 + d)`` of the unshifted draws, bit for bit, from
+    the wrapper and from the plain version alike, and a contiguous
+    ``[n, d]`` tensor."""
+    n = 6
+    whole = cr.counter_rng_fill(n + 3, col0 + d, 5, 4, cr.TAG_MOMENTUM, "normal_pair", "cpu")
+    for fill in (cr.counter_rng_fill, cr.counter_rng_fill_reference):
+        block = fill(n, d, 5, 4, cr.TAG_MOMENTUM, "normal_pair", "cpu", chain0=3, word0=col0)
+        assert block.shape == (n, d) and block.is_contiguous()
+        assert torch.equal(block, whole[3:, col0:])
+    z, u = cr.step_draws(5, n, 4, d, "cpu", chain0=3, word0=col0)
+    assert torch.equal(z, whole[3:, col0:])
+    assert torch.equal(u, cr.step_draws(5, n + 3, 4, 1, "cpu")[1][3:])
+    zn, un = cr.nuts_draws(5, n, 4, d, 3, "cpu", chain0=3, word0=col0)
+    assert torch.equal(zn, whole[3:, col0:])
+    assert torch.equal(un, cr.nuts_draws(5, n + 3, 4, 2, 3, "cpu")[1][3:])

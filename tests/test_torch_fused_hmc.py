@@ -169,3 +169,26 @@ def test_wrapper_checks_arguments():
     before = fused_hmc.launches
     fused_hmc.fused_hmc_run(pt, x, 0.1, 2, 3)
     assert fused_hmc.launches == before  # the CPU runs the plain version: no launch
+
+
+@pytest.mark.parametrize("chain0", [1, 6, 12])
+def test_chain0_rows_are_rows_of_the_run_from_zero(chain0):
+    """The plain version with ``chain0 = c`` on rows ``[c, c + n)`` of the
+    positions is rows ``[c, c + n)`` of the run from chain 0, bit for bit;
+    so is the wrapper on the CPU, and ``HMC(backend="cuda")`` on the block a
+    sharded run binds."""
+    _, pt, x0 = _both(16)
+    x = to_tensor(x0)
+    mass_inv = to_tensor(_SCALES**2, dtype=torch.float32)
+    full = fused_hmc.fused_hmc_run_reference(pt, x, 0.3, 6, 8, 2, seed=3, mass_inv=mass_inv)
+    rows = slice(chain0, chain0 + 4)
+    for run in (fused_hmc.fused_hmc_run_reference, fused_hmc.fused_hmc_run):
+        block = run(pt, x[rows], 0.3, 6, 8, 2, seed=3, mass_inv=mass_inv, chain0=chain0)
+        torch.testing.assert_close(block, full[rows], rtol=0, atol=0)
+    sampler = HMC(pt, x[rows], 0.3, 6, seed=3, backend="cuda", mass_inv=mass_inv,
+                  device="cpu")
+    sampler._address_rows_from(chain0)
+    torch.testing.assert_close(sampler.run(8, 2), full[rows], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="chain0 must be uint32"):
+        fused_hmc.fused_hmc_run(pt, x, 0.3, 6, 8, chain0=-1)
+

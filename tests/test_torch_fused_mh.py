@@ -174,3 +174,25 @@ def test_lane_assembly_equals_mh_draws(d):
     want_z, want_u = cr.mh_draws(seed, chains, step, d)
     torch.testing.assert_close(z[:, :d], want_z, rtol=0, atol=0)
     torch.testing.assert_close(u, want_u, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["walk_gaussian2d", "pcn_gaussian_nd"])
+@pytest.mark.parametrize("chain0", [1, 9])
+def test_chain0_rows_are_rows_of_the_run_from_zero(name, chain0):
+    """The plain version with ``chain0 = c`` on rows ``[c, c + n)`` is rows
+    ``[c, c + n)`` of the run from chain 0, bit for bit; so is the wrapper
+    on the CPU and ``MetropolisHastings(backend="cuda")`` on a block."""
+    target, proposal, d = _cases()[name]
+    x0 = init_det(16, d, device="cpu")
+    full = fused_mh.fused_mh_run_reference(target, x0, proposal, 10, 4, seed=7)
+    rows = slice(chain0, chain0 + 5)
+    for run in (fused_mh.fused_mh_run_reference, fused_mh.fused_mh_run):
+        block = run(target, x0[rows], proposal, 10, 4, seed=7, chain0=chain0)
+        torch.testing.assert_close(block, full[rows], rtol=0, atol=0)
+    sampler = MetropolisHastings(target, proposal, x0[rows], seed=7, backend="cuda",
+                                 device="cpu")
+    sampler._address_rows_from(chain0)
+    torch.testing.assert_close(sampler.run(10, 4), full[rows], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="chain0 must be uint32"):
+        fused_mh.fused_mh_run(target, x0, proposal, 10, chain0=2**32)
+

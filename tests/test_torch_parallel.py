@@ -77,7 +77,7 @@ def ranks(tmp_path_factory):
     """Every rank's outputs, the inputs and the JAX references."""
     rng = np.random.default_rng(0)
     inputs = dict(x0=rng.normal(size=(N_CHAINS, 2)), x4=rng.normal(size=(N_CHAINS, 4)),
-                  x8=rng.normal(size=(8, 8)))
+                  x8=rng.normal(size=(8, 8)), x12=rng.normal(size=(8, tpr.ODD_DIM)))
     j_inputs, j_states, j_carry = _jax_chees_steps(rng)
     inputs.update(j_inputs)
     draws = rng.normal(size=(N_CHAINS, 40, 3))
@@ -189,6 +189,38 @@ def test_dim_sharded_2x2_matches_unsharded(ranks, name):
         np.testing.assert_array_equal(o[f"dim_{name}_div"], ref.divergences[r0:r1].numpy())
 
 
+@pytest.mark.parametrize("name", list(tpr.ODD_STEPS))
+def test_dim_sharded_odd_split_matches_unsharded(ranks, name):
+    """NUTS (dynamic tree, diagonal metric) and ChEES on a 1 x 4 mesh over
+    12 coordinates: blocks of 3 from columns 0, 3, 6 and 9, two of them at
+    an odd coordinate, whose momentum normals are filled from the even word
+    before.  Each rank's block equals the unsharded run within 1e-8 in
+    float64."""
+    ref = tpr.make_odd_sampler(name, torch.from_numpy(ranks["inputs"]["x12"]))
+    want = ref.run(*tpr.ODD_STEPS[name]).numpy()
+    assert np.isfinite(want).all()
+    starts = []
+    for r, o in enumerate(ranks["outs"]):
+        r0, r1, c0, c1 = (int(v) for v in o["odd_block"])
+        assert (r0, r1, c1 - c0) == (0, 8, 3)
+        starts.append(c0)
+        np.testing.assert_allclose(o[f"odd_{name}"], want[:, :, c0:c1], rtol=0, atol=ATOL,
+                                   err_msg=f"rank {r}")
+        np.testing.assert_array_equal(o[f"odd_{name}_div"], ref.divergences.numpy())
+    assert starts == [0, 3, 6, 9]
+
+
+@pytest.mark.parametrize("name", tpr.FUSED_CASES)
+def test_fused_backend_sharded_equals_unsharded(ranks, name):
+    """``run_sharded`` of HMC and MH with ``backend="cuda"``: each rank runs
+    its block through the fused run with its ``chain0`` (the plain version
+    on the CPU), and its rows are the unsharded run's, bit for bit."""
+    x0 = torch.from_numpy(ranks["inputs"]["x0"]).float()
+    want = tpr.make_fused_sampler(name, x0).run(*tpr.EQUAL_STEPS).numpy()
+    for r, o in enumerate(ranks["outs"]):
+        np.testing.assert_array_equal(o[f"fused_{name}"], want[_rows(r)], err_msg=f"rank {r}")
+
+
 # -- checkpoints after a sharded run ---------------------------------------------------------
 @pytest.mark.parametrize("name", ["hmc", "chees_static"])
 def test_checkpoint_after_run_sharded(ranks, name):
@@ -252,8 +284,15 @@ def test_unsupported_dim_paths_raise(case):
 
 
 def test_fused_backend_raises_on_a_block():
-    """The fused kernels address chains from 0: a block needs the step."""
+    """The fused kernels address a block's rows by their global chain
+    (``chain0``), so a block raises only what the unsharded run raises: a
+    target the kernel does not take.  On one a kernel takes, the block runs
+    and is ``run``'s result."""
     x0 = torch.zeros(4, 2)
-    with pytest.raises(NotImplementedError, match="fused HMC kernel"):
-        run_sharded(HMC(tpr.gauss2(torch.float32), x0, 0.1, 3, backend="cuda", device="cpu"),
-                    2, 2, chain_mesh())
+    for runner in (lambda s: run_sharded(s, 2, 2, chain_mesh()), lambda s: s.run(2, 2)):
+        with pytest.raises(ValueError, match="fused HMC kernel takes a GaussianND"):
+            runner(HMC(tpr.gauss2(torch.float32), x0, 0.1, 3, backend="cuda", device="cpu"))
+    x0 = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 2))).float()
+    for name in tpr.FUSED_CASES:
+        got = run_sharded(tpr.make_fused_sampler(name, x0), 6, 6, chain_mesh())
+        assert torch.equal(got, tpr.make_fused_sampler(name, x0).run(6, 6))

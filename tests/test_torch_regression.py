@@ -72,3 +72,21 @@ def test_make_logistic_data_needs_a_card_unless_told_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_logistic_data(0, 8, 2)
+
+
+def test_bench_logistic_data_is_jax_make_logistic_data():
+    """The stretch line's committed data is the JAX package's
+    ``make_logistic_data(PRNGKey(1), 256, 48)`` (bench.py's), bit for bit:
+    the file's provenance, checked on every run of the tests."""
+    from general_mcmc_torch.models.regression import BENCH_LOGISTIC_FILE, bench_logistic_data
+
+    want = [np.asarray(a) for a in jreg.make_logistic_data(jax.random.PRNGKey(1), 256, 48)]
+    got = bench_logistic_data(device="cpu")
+    with np.load(BENCH_LOGISTIC_FILE) as f:
+        assert sorted(f.files) == ["X", "beta_true", "y"]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.numpy(), w)
+    X, y, _ = got
+    target = HierarchicalLogisticNC(X, y)
+    assert target.dim == 50 and set(np.unique(y.numpy())) == {0.0, 1.0}

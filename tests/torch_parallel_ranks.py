@@ -115,6 +115,46 @@ def make_dim_sampler(name: str, inits):
 DIM_STEPS = {"nuts": (6, 6), "nuts_multinomial": (6, 6), "nuts_adapt": (5, 30),
              "chees": (8, 8)}
 
+# The odd split: 12 coordinates over a dim axis of 4, blocks of 3 from
+# columns 0, 3, 6 and 9.
+ODD_DIM = 12
+ODD_STEPS = {"nuts_adapt": (5, 30), "chees": (8, 8)}
+
+
+def odd_target():
+    return gmt.GaussianND(torch.zeros(ODD_DIM, dtype=torch.float64),
+                          torch.linspace(1.0, 3.0, ODD_DIM, dtype=torch.float64),
+                          device="cpu")
+
+
+def make_odd_sampler(name: str, inits):
+    """NUTS (dynamic tree, diagonal metric) and ChEES on the 12-d target."""
+    if name == "nuts_adapt":
+        cfg = gmt.NUTSMassMatrixConfig(adaptation="diagonal", start_buffer=5, end_buffer=5,
+                                       initial_window=10)
+        return gmt.NUTS(odd_target(), inits, 0.8, seed=13, backend="torch", mass_config=cfg,
+                        device="cpu")
+    if name == "chees":
+        return gmt.ChEESHMC(odd_target(), inits, seed=13, device="cpu")
+    raise ValueError(name)
+
+
+def make_fused_sampler(name: str, x0: torch.Tensor):
+    """HMC and MH with ``backend="cuda"`` on targets their fused kernels
+    take (on the CPU their plain versions run)."""
+    kw = dict(seed=4, backend="cuda", device="cpu")
+    if name == "hmc_cuda":
+        t = gmt.GaussianND(torch.tensor([0.0, 1.0]), torch.tensor([1.5, 0.7]), device="cpu")
+        return gmt.HMC(t, x0, 0.3, 5, mass_inv=torch.tensor([1.2, 0.8]), **kw)
+    if name == "mh_cuda":
+        t = gmt.Gaussian2D(torch.tensor([0.0, 1.0]), torch.tensor([[4.0, 2.0], [2.0, 3.0]]),
+                           device="cpu")
+        return gmt.MetropolisHastings(t, gmt.RandomWalkProposal(1.0), x0, **kw)
+    raise ValueError(name)
+
+
+FUSED_CASES = ("hmc_cuda", "mh_cuda")
+
 
 # -- rank programs ---------------------------------------------------------------
 def program_parallel(rank: int, world: int, inp: dict, out_dir: Path) -> dict:
@@ -184,6 +224,20 @@ def program_parallel(rank: int, world: int, inp: dict, out_dir: Path) -> dict:
         out[f"dim_{name}"] = run_sharded(s, *steps, mesh2, shard_dim=True).numpy()
         out[f"dim_{name}_div"] = s.divergences.numpy()
     out["dim_block"] = np.array(mesh2.rows(8) + mesh2.cols(8))
+
+    # the odd split: a 1 x 4 mesh, blocks of 3 coordinates
+    mesh4 = make_mesh(1, 4)
+    for name, steps in ODD_STEPS.items():
+        s = make_odd_sampler(name, torch.from_numpy(inp["x12"]))
+        out[f"odd_{name}"] = run_sharded(s, *steps, mesh4, shard_dim=True).numpy()
+        out[f"odd_{name}_div"] = s.divergences.numpy()
+    out["odd_block"] = np.array(mesh4.rows(8) + mesh4.cols(ODD_DIM))
+
+    # HMC's and MH's fused backends on a block of chains
+    for name in FUSED_CASES:
+        out[f"fused_{name}"] = run_sharded(
+            make_fused_sampler(name, torch.from_numpy(inp["x0"]).float()), *EQUAL_STEPS,
+            mesh).numpy()
     return out
 
 
@@ -216,7 +270,23 @@ def program_distributed(rank: int, world: int, inp: dict, out_dir: Path) -> dict
     return out
 
 
-PROGRAMS = {"parallel": program_parallel, "distributed": program_distributed}
+# examples_torch/sharded_nuts.py at tests/test_examples.py's cut sizes
+EXAMPLE_SHARDED_ARGS = dict(n_chains=64, dim=8, n_collect=30, n_warmup=80)
+
+
+def program_example_sharded(rank: int, world: int, inp: dict, out_dir: Path) -> dict:
+    """The port's sharded example, loaded by path, on this rank."""
+    import importlib.util
+
+    path = _REPO / "examples_torch" / "sharded_nuts.py"
+    spec = importlib.util.spec_from_file_location("examples_torch_sharded_nuts", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return {"sample": mod.main(**EXAMPLE_SHARDED_ARGS, device="cpu").numpy()}
+
+
+PROGRAMS = {"parallel": program_parallel, "distributed": program_distributed,
+            "example_sharded": program_example_sharded}
 
 
 # -- harness ---------------------------------------------------------------------
