@@ -150,6 +150,25 @@ Phases (each prints one line; any failure raises and exits non-zero):
     package's ``make_logistic_data(PRNGKey(1), 256, 48)`` shipped as
     ``general_mcmc_torch/data/bench_logistic_k1.npz``.
 
+16. The fused kernels on the repo's other continuous targets (after
+    "K3-widths"): "K1-targets" (K1 against its plain version on
+    DiffableGaussian2D, Gaussian2D, Rosenbrock2D, RosenbrockND and
+    NealsFunnel at every lane map, 256 and 200 chains; each family timed
+    beside its plain version; the DiffableGaussian2D through
+    ``HMC(backend="cuda")`` at 10,240 chains held to the MH leg's moment
+    gates, the 3-d Rosenbrock as examples_torch/rosenbrock3d_hmc.py runs it),
+    "K3-targets" (the same for K3, bit for bit, the DiffableGaussian2D at the
+    MH main path's shape), "dense-main" (the 100-d dense GaussianND ``D R D``
+    through K1 and K3 at 10,240 chains: the std and lag-1 correlation gates,
+    the kernels against their plain versions over 8 and 64 steps and over
+    the whole run) and, after "chees-logistic", "K1-logistic"
+    (``HMC(backend="cuda")`` on the stretch line's posterior in the metric
+    that phase adapts, at ε 0.2 beside its ε̄ rounded down (see LGH_EPS):
+    one launch of ``csrc/fused_hmc_logistic.cu``, accept,
+    R-hat, the posterior against chees-logistic's, the kernel against its
+    plain version after 1, 8 and 64 steps, timed beside its two
+    ``torch.matmul`` a leapfrog).
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -185,8 +204,8 @@ from general_mcmc_torch import parallel as gmt_parallel
 from general_mcmc_torch.io import native as io_native
 from general_mcmc_torch.models.distributions import rowsum
 from general_mcmc_torch.models.regression import bench_logistic_data
-from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_logistic, fused_mh,
-                                    static_tree, tree)
+from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_hmc_logistic,
+                                    fused_logistic, fused_mh, static_tree, tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
 from general_mcmc_torch.samplers.gibbs import GibbsDraws
 from general_mcmc_torch.utils.checkpoint import load_carry
@@ -324,6 +343,56 @@ TEMPER_SMALL_STEPS = (200, 100)
 # and a [IO_CHECK_CHAINS, IO_OBS, 100] slice read back.
 IO_CHAINS, IO_OBS, IO_CHECK_CHAINS = 1024, 100, 64
 
+# "K1-targets" and "K3-targets": the repo's other continuous targets through
+# the fused kernels.  Each kernel against its plain version at the small
+# shapes of "K1-small" and "K3-small" (256 and 200 chains, 20 collected after
+# 5 at thin 2, every lane map); a run of each target family timed beside its
+# plain version on the same inputs (TG_TIMED_STEPS steps); and the gate runs
+# through the samplers: the DiffableGaussian2D (tests/test_pallas.py's) at
+# the HMC main path's chains (ε 0.25, L 10, run(1000, 200)) and at the MH
+# main path's (random walk 1.0, run(5000, 500)), held to the MH leg's moment
+# gates; the 3-d Rosenbrock as examples_torch/rosenbrock3d_hmc.py runs it.
+# RosenbrockND at d = 100 (1,024 chains, ε 1e-4, L 50: the step size of
+# tests/test_benchmarks.py:107-113) and NealsFunnel(10) (1,024 chains: fixed-ε
+# HMC is biased in its neck, so no moment gate) are held only to the plain
+# version.
+TG_SMALL_CHAINS = (256, 200)
+TG_TIMED_STEPS = 64
+TG_2D_STEPS, TG_2D_EPS, TG_2D_L = (1000, 200), 0.25, 10
+ROSEN3_STEPS, ROSEN3_EPS, ROSEN3_L, ROSEN3_CHAINS, ROSEN3_SEED = (1000, 100), 0.01, 50, 6, 42
+ROSEN3_COMPARE_STEPS = 100
+ROSEN_WIDE_D, ROSEN_WIDE_CHAINS, ROSEN_WIDE_EPS, ROSEN_WIDE_L = 100, 1024, 1e-4, 50
+FUNNEL_CHAINS, FUNNEL_EPS, FUNNEL_L, FUNNEL_WALK = 1024, 0.1, 10, 0.3
+# "dense-main": GaussianND(zeros(100), D R D), D the headline's scales and
+# R_ij = 0.5^|i-j|; K1 at ε 0.3, L 10, M⁻¹ = D², run(1000, 200) from
+# init_with_seed; K3 the random walk 0.1, run(2000, 500), from exact draws
+# of the target (L times init_with_seed's normals): a walk of 0.1 moves a
+# coordinate ~0.1·sqrt(2,500) ≈ 5 in the run, so from standard-normal
+# starts the scale-10 coordinates cannot reach their spread whatever the
+# kernel; from the target the gates test that the kernel leaves it
+# invariant.  Gates: max|std/scale - 1| and the mean lag-1 correlation
+# corr(x_i, x_i+1) against 0.5, each within DENSE_TOL; the kernels against
+# their plain versions over DENSE_EQ_STEPS steps.
+DENSE_EPS, DENSE_L, DENSE_STEPS = 0.3, 10, (1000, 200)
+DENSE_WALK, DENSE_MH_STEPS = 0.1, (2000, 500)
+DENSE_TOL = {"K1": 0.05, "K3": 0.1}
+DENSE_EQ_STEPS = {"K1": 8, "K3": 64}
+# "K1-logistic": HMC(backend="cuda") on the stretch line's posterior in the
+# diagonal metric "chees-logistic" adapts, L 10, from 0.1 x init_with_seed,
+# run(1000, 200).  The step size: that phase's ε̄ (0.169134 on the card,
+# seeded, the same in every run) rounded down to two figures, 0.16, accepts
+# more than 0.95 of proposals at L 10 - ChEES adapts towards a 0.95 target -
+# so it misses the gate's window; LGH_EPS meets it.  The phase runs the
+# rounded ε̄ too, for LGH_ROUNDED_STEPS, and prints its accept rate.
+# Against its plain version at 1, 8 and 64 steps as max|Δ|/max|θ| over the
+# chains whose accept decisions agree (K4's criterion for the same
+# products), the chains whose accept histories differ reported; the
+# posterior's mean within LGH_MEAN_SD of chees-logistic's sd, its sd within
+# LGH_SD_REL.
+LGH_L, LGH_STEPS, LGH_EQ_STEPS, LGH_RTOL = 10, (1000, 200), (1, 8, 64), 1e-5
+LGH_EPS, LGH_ROUNDED_STEPS = 0.2, (300, 100)
+LGH_MEAN_SD, LGH_SD_REL = 0.1, 0.1
+
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
 # double, so they differ by the float32 ulps of the libm functions at most;
@@ -354,6 +423,7 @@ def union_us(intervals) -> float:
 
 def reset_counts() -> None:
     fused_hmc.launches = 0
+    fused_hmc_logistic.launches = 0
     counter_rng.launches = 0
     fused_mh.launches = 0
     fused_logistic.launches = 0
@@ -479,7 +549,8 @@ def phase_environment():
     print(smi, flush=True)
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic"])
+    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic",
+                  "fused_hmc_logistic"])
     build_s = time.perf_counter() - t0
     # the full register and spill report, beside the built libraries
     with open(_build.OUT_DIR / "ptxas.log", "w") as f:
@@ -792,14 +863,14 @@ def phase_k1_maps(dev):
         scales = torch.exp(torch.linspace(0.0, math.log(10.0), d))
         target = gmt.GaussianND(torch.zeros(d), scales, device=dev)
         x0 = gmt.init_with_seed(N_CHAINS, d, SEED, device=dev)
-        mean, prec = target.mean.to(**f32), target.diag_prec.to(**f32)
+        params = fused_hmc.target_params(target, fused_hmc.TARGET_GAUSSIAN_DIAG, **f32)
         inv_row = (scales**2).to(**f32)
         scale_row = 1.0 / torch.sqrt(inv_row)
         first, times[d] = None, {}
         for g, qpl in fused_hmc.lane_maps(d):
             out = torch.empty((N_COLLECT, N_CHAINS, d), **f32)
-            run = lambda: fused_hmc._launch(x0, mean, prec, inv_row, scale_row, out, N_DISCARD,
-                                            1, N_LEAPFROG, STEP_SIZE, SEED, True, (g, qpl))
+            run = lambda: fused_hmc._launch(x0, params, inv_row, scale_row, out, N_DISCARD, 1,
+                                            N_LEAPFROG, STEP_SIZE, SEED, True, (g, qpl))
             ms, _, _ = timed(run, 3)
             times[d][f"{g}x{qpl}"] = round(ms, 3)
             if first is None:
@@ -955,7 +1026,7 @@ def phase_k3_chains(dev):
         x0 = gmt.init_det(n, 2, device=dev)
         code, p_code, consts = fused_mh._check_args(target, x0, proposal, MH_COLLECT,
                                                     MH_DISCARD, 1)
-        params = fused_mh._target_params(target, code, **f32)
+        params = fused_hmc.target_params(target, code, **f32)
         out = torch.empty((MH_COLLECT, n, 2), **f32)
         ms = device_ms(functools.partial(fused_mh._launch, x0, params, out, code, p_code,
                                          consts, MH_DISCARD, 1, SEED), 5)
@@ -1090,6 +1161,444 @@ def phase_logistic(dev):
     return dict(launches=launches, max_abs_err=abs_err, rel_err=rel, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 bound_cuda_core_ms=cuda_core_ms, bound_tensor_ms=tensor_ms)
+
+
+def target_hmc_work(n: int, d: int, n_steps: int, n_collect: int, n_leapfrog: int,
+                    grad_ops: float, value_ops: float):
+    """Bytes, float operations and integer operations of one fused HMC run
+    on a target whose gradient costs ``grad_ops`` and log density
+    ``value_ops`` a chain: x0 read and the store written once; per element
+    and step the draws, the energies and the select (as fused_hmc_work's),
+    5 a leapfrog (the drift and the kick); the target's own operations."""
+    n_bytes = 4 * n * d * (1 + n_collect)
+    per_step = d * (10 + 11 + 1 + 5 * n_leapfrog) + grad_ops * n_leapfrog + value_ops
+    return n_bytes, n * n_steps * per_step, n * n_steps * d * PHILOX_OPS / 4
+
+
+def target_ops(family: str, d: int):
+    """``(gradient, log density)`` operations a chain of a target family at
+    width ``d``: the 2-d quadratic forms and Rosenbrock with autograd's
+    backward pass; RosenbrockND's neighbour terms; the funnel's sum of
+    squares and its exp; the dense Gaussian's triangular solves, d(d + 1)/2
+    multiply-adds each (two for the gradient, one for the density)."""
+    return {"2d": (22, 10), "rosenbrock_nd": (10 * d, 5 * d),
+            "funnel": (4 * d + 15, 2 * d + 15),
+            "dense": (2 * d * (d + 1) + 2 * d, d * (d + 1) + 3 * d)}[family]
+
+
+def dense_target(d: int, dev):
+    """GaussianND(zeros(d), D R D) with D the headline's scales and R_ij =
+    0.5^|i-j|, and D."""
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), d, dtype=torch.float64))
+    idx = torch.arange(d, dtype=torch.float64)
+    cov = scales[:, None] * 0.5 ** (idx[:, None] - idx[None, :]).abs() * scales[None, :]
+    return gmt.GaussianND(torch.zeros(d), cov.float(), device=dev), scales.float()
+
+
+def small_targets(dev):
+    """name -> (target, width, ε, L, random-walk scale) of "K1-targets" and
+    "K3-targets"'s small cases: the widths take every lane map of both
+    kernels (one quad or block a lane to four or five, odd widths)."""
+    g2 = (MH_MEAN, MH_COV)
+    cases = {"DiffableGaussian2D": (gmt.DiffableGaussian2D(*g2, device=dev), 2, 0.25, 10, 1.0),
+             "Gaussian2D": (gmt.Gaussian2D(*g2, device=dev), 2, 0.25, 10, None),
+             "Rosenbrock2D": (gmt.Rosenbrock2D(1.0, 10.0), 2, 0.05, 10, None)}
+    for d in (3, 7, 33, 100, 512):
+        cases[f"RosenbrockND-{d}"] = (gmt.RosenbrockND(), d, 0.01 if d < 100 else 1e-4, 20,
+                                      0.1 / math.sqrt(d))
+    for d in (10, 33, 512):
+        cases[f"NealsFunnel-{d}"] = (gmt.NealsFunnel(d), d, 0.1, 10, 1.0 / math.sqrt(d))
+    return cases
+
+
+def equal_or_close(got, want, what, bit: bool):
+    """``compare`` (K1's tolerance, no chain differing) and, with ``bit``,
+    equality bit for bit; returns max |Δ| and whether the bits are equal."""
+    err = compare(got, want, what)
+    same = bool(torch.equal(got, want))
+    if bit:
+        check(same, f"{what}: equal to the plain version bit for bit")
+    return err, same
+
+
+def moment_errors(store, mean, cov):
+    """Pooled mean and covariance errors of a 2-d store against the
+    target's, in float64."""
+    flat = store.reshape(-1, 2)
+    m = flat.mean(dim=0, dtype=torch.float64)
+    centred = flat.double() - m
+    c = centred.T @ centred / (flat.shape[0] - 1)
+    return (float((m.cpu() - torch.tensor(mean, dtype=torch.float64)).abs().max()),
+            float((c.cpu() - torch.tensor(cov, dtype=torch.float64)).abs().max()))
+
+
+def timed_pair(kernel, plain, n: int, d: int, n_steps: int, n_collect: int, work, what: str,
+               bit: bool):
+    """A family's timed run: the kernel (median of 3, CUDA events) and its
+    plain version (once) on the same inputs, compared; the bound of
+    ``work = (bytes, float ops, int ops)``."""
+    ms, _, got = timed(kernel, 3)
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, same = equal_or_close(got, want, what, bit)
+    b_ms, b_by = bound(work[0], work[1] + work[2])
+    return dict(ms=round(ms, 4), plain_ms=round(plain_ms, 2), bound_ms=round(b_ms, 5),
+                bound_by=b_by, max_abs_err=err, bit_equal=same,
+                shape=f"{n}x{d}, {n_steps} steps")
+
+
+def phase_k1_targets(dev):
+    """K1 on the 2-d targets, RosenbrockND and NealsFunnel: against its
+    plain version at small shapes (identity and diagonal mass); each family
+    timed beside its plain version; the gate runs through ``HMC``."""
+    errs, same = [], []
+    for name, (t, d, eps, n_leap, _) in small_targets(dev).items():
+        for n in TG_SMALL_CHAINS:
+            x0 = (0.3 * gmt.init_with_seed(n, d, 3, device=dev)).contiguous()
+            gen = torch.Generator().manual_seed(d)
+            for mass_inv in (None, torch.exp(0.2 * torch.randn(d, generator=gen)).to(dev)):
+                args, kw = (t, x0, eps, n_leap, 20, 5), dict(seed=11, thin=2, mass_inv=mass_inv)
+                got = fused_hmc.fused_hmc_run(*args, **kw)
+                want = fused_hmc.fused_hmc_run_reference(*args, **kw)
+                torch.cuda.synchronize()
+                check(tuple(got.shape) == (n, 20, d), f"K1 {name} output shape")
+                err, bits = equal_or_close(got, want, f"K1 {name} at {n} chains "
+                                           f"mass={mass_inv is not None}", bit=False)
+                errs.append(err)
+                same.append(bits)
+
+    # each family timed beside its plain version on the same inputs
+    fam = {}
+    g2 = gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=dev)
+    runs = {"2d": (g2, 2, N_CHAINS, TG_2D_EPS, TG_2D_L),
+            "rosenbrock_nd": (gmt.RosenbrockND(), ROSEN_WIDE_D, ROSEN_WIDE_CHAINS,
+                              ROSEN_WIDE_EPS, ROSEN_WIDE_L),
+            "funnel": (gmt.NealsFunnel(10), 10, FUNNEL_CHAINS, FUNNEL_EPS, FUNNEL_L)}
+    for family, (t, d, n, eps, n_leap) in runs.items():
+        x0 = (0.3 * gmt.init_with_seed(n, d, SEED, device=dev)).contiguous()
+        args = (t, x0, eps, n_leap, TG_TIMED_STEPS, 0)
+        work = target_hmc_work(n, d, TG_TIMED_STEPS, TG_TIMED_STEPS, n_leap,
+                               *target_ops(family, d))
+        fam[family] = timed_pair(lambda: fused_hmc.fused_hmc_run(*args, seed=SEED),
+                                 lambda: fused_hmc.fused_hmc_run_reference(*args, seed=SEED),
+                                 n, d, TG_TIMED_STEPS, TG_TIMED_STEPS, work,
+                                 f"K1 {family} timed run", bit=False)
+
+    # the gate runs through the sampler: the DiffableGaussian2D at the main
+    # path's chains, the 3-d Rosenbrock as its example runs it
+    x0 = gmt.init_det(N_CHAINS, 2, device=dev)
+    reset_counts()
+    samples = gmt.HMC(g2, x0, TG_2D_EPS, TG_2D_L, seed=SEED, backend="cuda").run(*TG_2D_STEPS)
+    torch.cuda.synchronize()
+    launches = fused_hmc.launches
+    check(launches == 1, f"one fused HMC launch on the DiffableGaussian2D run ({launches})")
+    store = samples.transpose(0, 1)
+    check(bool(torch.isfinite(store).all()), "DiffableGaussian2D samples are finite")
+    mean_err, cov_err = moment_errors(store, MH_MEAN, MH_COV)
+    accept = float((store[1:] != store[:-1]).any(dim=2).float().mean())
+    check(mean_err < MH_MEAN_ATOL and cov_err < MH_COV_ATOL,
+          f"K1 DiffableGaussian2D mean error {mean_err} < {MH_MEAN_ATOL}, covariance "
+          f"{cov_err} < {MH_COV_ATOL}")
+    del samples, store
+    rosen = gmt.RosenbrockND()
+    x3 = gmt.init_det(ROSEN3_CHAINS, 3, device=dev)
+    sampler = gmt.HMC(rosen, x3, ROSEN3_EPS, ROSEN3_L, backend="cuda").set_seed(ROSEN3_SEED)
+    r3 = sampler.run(*ROSEN3_STEPS)
+    torch.cuda.synchronize()
+    check(tuple(r3.shape) == (ROSEN3_CHAINS, ROSEN3_STEPS[0], 3)
+          and bool(torch.isfinite(r3).all()), "rosenbrock3d_hmc's run: shape and finite")
+    args = (rosen, x3, ROSEN3_EPS, ROSEN3_L, ROSEN3_COMPARE_STEPS, 0)
+    err3, _ = equal_or_close(fused_hmc.fused_hmc_run(*args, seed=sampler._key),
+                             fused_hmc.fused_hmc_run_reference(*args, seed=sampler._key),
+                             "K1 3-d Rosenbrock", bit=False)
+    errs.append(err3)
+    say("K1-targets", small_cases=len(errs) - 1, rtol=K1_RTOL, atol=K1_ATOL,
+        max_abs_err=max(errs), bit_equal=f"{sum(same)}/{len(same)}",
+        families=json.dumps(fam), diffable2d_launches=launches,
+        diffable2d=f"{N_CHAINS}x{TG_2D_STEPS[1]}+{TG_2D_STEPS[0]}", accept=f"{accept:.4f}",
+        mean_err=f"{mean_err:.5f}", cov_err=f"{cov_err:.5f}",
+        rosenbrock3d=f"{ROSEN3_CHAINS}x{ROSEN3_STEPS[1]}+{ROSEN3_STEPS[0]}",
+        rosenbrock3d_max_abs_err=err3)
+    return dict(max_abs_err=max(errs), families=fam, launches=launches)
+
+
+def phase_k3_targets(dev):
+    """K3 on DiffableGaussian2D, RosenbrockND and NealsFunnel: equal to its
+    plain version bit for bit at small shapes with both proposals; each
+    family timed beside its plain version; the DiffableGaussian2D at the MH
+    main path's shape through ``MetropolisHastings``."""
+    errs = []
+    for name, (t, d, _, _, scale) in small_targets(dev).items():
+        if scale is None:  # Gaussian2D and Rosenbrock2D: "K3-small"'s
+            continue
+        for n in TG_SMALL_CHAINS:
+            x0 = (0.3 * gmt.init_with_seed(n, d, 3, device=dev)).contiguous()
+            for proposal in (gmt.RandomWalkProposal(scale), gmt.PCNProposal(0.3)):
+                args, kw = (t, x0, proposal, 20, 5), dict(seed=11, thin=2)
+                got = fused_mh.fused_mh_run(*args, **kw)
+                want = fused_mh.fused_mh_run_reference(*args, **kw)
+                torch.cuda.synchronize()
+                what = f"K3 {name} {type(proposal).__name__} at {n} chains"
+                check(tuple(got.shape) == (n, 20, d), f"{what}: output shape")
+                errs.append(equal_or_close(got, want, what, bit=True)[0])
+
+    fam = {}
+    g2 = gmt.DiffableGaussian2D(MH_MEAN, MH_COV, device=dev)
+    runs = {"2d": (g2, 2, MH_CHAINS, MH_SCALE),
+            "rosenbrock_nd": (gmt.RosenbrockND(), ROSEN_WIDE_D, ROSEN_WIDE_CHAINS,
+                              0.1 / math.sqrt(ROSEN_WIDE_D)),
+            "funnel": (gmt.NealsFunnel(10), 10, FUNNEL_CHAINS, FUNNEL_WALK)}
+    for family, (t, d, n, scale) in runs.items():
+        x0 = (0.3 * gmt.init_with_seed(n, d, SEED, device=dev)).contiguous()
+        args = (t, x0, gmt.RandomWalkProposal(scale), TG_TIMED_STEPS, 0)
+        work = fused_mh_work(n, d, TG_TIMED_STEPS, TG_TIMED_STEPS, target_ops(family, d)[1],
+                             MH_PROPOSAL_OPS)
+        fam[family] = timed_pair(lambda: fused_mh.fused_mh_run(*args, seed=SEED),
+                                 lambda: fused_mh.fused_mh_run_reference(*args, seed=SEED),
+                                 n, d, TG_TIMED_STEPS, TG_TIMED_STEPS, work,
+                                 f"K3 {family} timed run", bit=True)
+
+    x0 = gmt.init_det(MH_CHAINS, 2, device=dev)
+    reset_counts()
+    samples = gmt.MetropolisHastings(g2, gmt.RandomWalkProposal(MH_SCALE), x0, seed=SEED,
+                                     backend="cuda").run(MH_COLLECT, MH_DISCARD)
+    torch.cuda.synchronize()
+    launches = fused_mh.launches
+    check(launches == 1, f"one fused MH launch on the DiffableGaussian2D run ({launches})")
+    store = samples.transpose(0, 1)
+    check(bool(torch.isfinite(store).all()), "K3 DiffableGaussian2D samples are finite")
+    mean_err, cov_err = moment_errors(store, MH_MEAN, MH_COV)
+    rhat, _ = gmt.split_rhat_mean_ess(store, steps_major=True)
+    max_rhat = float(rhat.max())
+    check(mean_err < MH_MEAN_ATOL and cov_err < MH_COV_ATOL and max_rhat < 1.01,
+          f"K3 DiffableGaussian2D mean error {mean_err} < {MH_MEAN_ATOL}, covariance "
+          f"{cov_err} < {MH_COV_ATOL}, R-hat {max_rhat} < 1.01")
+    say("K3-targets", small_cases=len(errs), bit_equal=True, max_abs_err=max(errs),
+        families=json.dumps(fam), diffable2d_launches=launches,
+        diffable2d=f"{MH_CHAINS}x{MH_DISCARD}+{MH_COLLECT}", mean_err=f"{mean_err:.5f}",
+        cov_err=f"{cov_err:.5f}", max_rhat=f"{max_rhat:.5f}")
+    return dict(max_abs_err=max(errs), families=fam, launches=launches)
+
+
+def dense_moments(store, scales):
+    """max|std/scale - 1| and the mean lag-1 correlation corr(x_i, x_i+1)
+    of a steps-major store, pooled, in float64, a million rows at a time."""
+    flat = store.reshape(-1, store.shape[-1])
+    s1 = torch.zeros(flat.shape[1], dtype=torch.float64, device=flat.device)
+    s2, s12 = s1.clone(), s1[:-1].clone()
+    for rows in torch.split(flat, 1 << 20):
+        r = rows.double()
+        s1 += r.sum(0)
+        s2 += (r * r).sum(0)
+        s12 += (r[:, :-1] * r[:, 1:]).sum(0)
+    n = flat.shape[0]
+    mean = s1 / n
+    var = s2 / n - mean * mean
+    corr = (s12 / n - mean[:-1] * mean[1:]) / torch.sqrt(var[:-1] * var[1:])
+    std_err = float((torch.sqrt(var).cpu() / scales.double() - 1.0).abs().max())
+    return std_err, float(corr.mean())
+
+
+def phase_dense_main(dev):
+    """The dense GaussianND through K1 (``HMC``) and K3
+    (``MetropolisHastings``) at the main path's chains: the launches, the
+    moment gates, the kernels against their plain versions over a few steps
+    (no chain differing) and over the whole run (reported), timed."""
+    target, scales = dense_target(DIM, dev)
+    z0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
+    mass_inv = (scales**2).to(dev)
+    out = {}
+    n_ops = target_ops("dense", DIM)
+    for kernel in ("K1", "K3"):
+        # K3's chains start from the target (see DENSE_WALK's note)
+        x0 = z0 if kernel == "K1" else (z0 @ target.chol.mT).contiguous()
+        if kernel == "K1":
+            sampler = lambda: gmt.HMC(target, x0, DENSE_EPS, DENSE_L, seed=SEED,
+                                      mass_inv=mass_inv, backend="cuda")
+            steps, module = DENSE_STEPS, fused_hmc
+            plain = lambda c, dsc: fused_hmc.fused_hmc_run_reference(
+                target, x0, DENSE_EPS, DENSE_L, c, dsc, seed=SEED, mass_inv=mass_inv)
+            run = lambda c, dsc: fused_hmc.fused_hmc_run(target, x0, DENSE_EPS, DENSE_L, c,
+                                                         dsc, seed=SEED, mass_inv=mass_inv)
+            work = target_hmc_work(N_CHAINS, DIM, sum(steps), steps[0], DENSE_L, *n_ops)
+        else:
+            walk = gmt.RandomWalkProposal(DENSE_WALK)
+            sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED,
+                                                     backend="cuda")
+            steps, module = DENSE_MH_STEPS, fused_mh
+            plain = lambda c, dsc: fused_mh.fused_mh_run_reference(target, x0, walk, c, dsc,
+                                                                   seed=SEED)
+            run = lambda c, dsc: fused_mh.fused_mh_run(target, x0, walk, c, dsc, seed=SEED)
+            work = fused_mh_work(N_CHAINS, DIM, sum(steps), steps[0], n_ops[1],
+                                 MH_PROPOSAL_OPS)
+        reset_counts()
+        samples = sampler().run(*steps)
+        torch.cuda.synchronize()
+        launches = module.launches
+        check(launches == 1, f"one {kernel} launch on the dense GaussianND ({launches})")
+        store = samples.transpose(0, 1)
+        check(bool(torch.isfinite(store).all()), f"{kernel} dense samples are finite")
+        accept = float((store[1:] != store[:-1]).any(dim=2).float().mean())
+        std_err, corr = dense_moments(store, scales)
+        tol = DENSE_TOL[kernel]
+        check(std_err < tol and abs(corr - 0.5) < tol,
+              f"{kernel} dense: max|std/scale - 1| {std_err} < {tol}, lag-1 correlation "
+              f"{corr} within {tol} of 0.5")
+        if kernel == "K1":
+            check(0.6 < accept < 0.95, f"K1 dense accept {accept} within 0.6-0.95")
+        eq = DENSE_EQ_STEPS[kernel]
+        eq_err = compare(run(eq, 0), plain(eq, 0), f"{kernel} dense over {eq} steps")
+        # the whole run's plain version, compared and timed
+        t0 = time.perf_counter()
+        want = plain(*steps)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        close = torch.isclose(samples, want, rtol=K1_RTOL, atol=K1_ATOL)
+        run_differ = int((~close).reshape(N_CHAINS, -1).any(dim=1).sum())
+        run_err = float((samples - want).abs().max())
+        del samples, store, want, close
+        ms, _, o = timed(lambda: sampler().run(*steps), 3)
+        del o
+        b_ms, b_by = bound(work[0], work[1] + work[2])
+        out[kernel] = dict(launches=launches, accept=round(accept, 4),
+                           std_err=round(std_err, 5), corr=round(corr, 5),
+                           eq_steps=eq, eq_max_abs_err=eq_err, run_max_abs_err=run_err,
+                           run_chains_differ=run_differ, ms=round(ms, 3),
+                           plain_ms=round(plain_ms, 1), bound_ms=round(b_ms, 4), bound_by=b_by)
+    say("dense-main", chains=N_CHAINS, dim=DIM, k1=f"eps {DENSE_EPS} L {DENSE_L} "
+        f"{DENSE_STEPS[1]}+{DENSE_STEPS[0]}", k3=f"walk {DENSE_WALK} "
+        f"{DENSE_MH_STEPS[1]}+{DENSE_MH_STEPS[0]}", max_dense_dim_k1=fused_hmc.MAX_DENSE_DIM,
+        max_dense_dim_k3=fused_mh.MAX_DENSE_DIM, results=json.dumps(out))
+    return out
+
+
+def two_figures_down(x: float) -> float:
+    """``x`` rounded down to two significant figures."""
+    scale = 10.0 ** (math.floor(math.log10(abs(x))) - 1)
+    return math.floor(x / scale) * scale
+
+
+def accept_history(samples, x0):
+    """[n, steps] bool: whether each step moved its chain."""
+    first = (samples[:, :1] != x0[:, None]).any(dim=2)
+    return torch.cat([first, (samples[:, 1:] != samples[:, :-1]).any(dim=2)], dim=1)
+
+
+def phase_k1_logistic(dev, chees: dict):
+    """``HMC(backend="cuda")`` on the stretch line's posterior at full width
+    (one launch of ``csrc/fused_hmc_logistic.cu``): accept, R-hat, the
+    posterior against "chees-logistic"'s; the kernel against its plain
+    version at 1, 8 and 64 steps (and the plain version in float32 against
+    itself in float64, for scale); timed beside the plain version and the
+    two ``torch.matmul`` of a leapfrog."""
+    X, y, _ = bench_logistic_data(device=dev)
+    target = gmt.HierarchicalLogisticNC(X, y)
+    mass_inv = chees["mass_inv"].to(dev)
+    x0 = (0.1 * gmt.init_with_seed(N_CHAINS, LGC_DIM, SEED, device=dev)).contiguous()
+    sampler = lambda e: gmt.HMC(target, x0, e, LGH_L, seed=SEED, mass_inv=mass_inv,
+                                backend="cuda")
+    rounded = two_figures_down(chees["eps_bar"])
+    s = sampler(rounded).run(*LGH_ROUNDED_STEPS).transpose(0, 1)
+    rounded_accept = float((s[1:] != s[:-1]).any(dim=2).float().mean())
+    del s
+    eps = LGH_EPS
+    reset_counts()
+    samples = sampler(eps).run(*LGH_STEPS)
+    torch.cuda.synchronize()
+    launches, k1_launches = fused_hmc_logistic.launches, fused_hmc.launches
+    check(launches == 1 and k1_launches == 0,
+          f"one logistic HMC launch on its path ({launches}; K1 {k1_launches})")
+    store = samples.transpose(0, 1)
+    check(tuple(samples.shape) == (N_CHAINS, LGH_STEPS[0], LGC_DIM)
+          and bool(torch.isfinite(store).all()), "logistic HMC samples: shape and finite")
+    accept = float((store[1:] != store[:-1]).any(dim=2).float().mean())
+    rhat, ess, mean, std = gmt.split_rhat_mean_ess(store, steps_major=True, return_moments=True)
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    ref_mean, ref_std = chees["mean"].float(), chees["std"].float()
+    mean_dev = float(((mean.cpu() - ref_mean).abs() / ref_std).max())
+    sd_dev = float((std.cpu() / ref_std - 1.0).abs().max())
+    check(0.6 < accept < 0.95, f"logistic HMC accept {accept} within 0.6-0.95")
+    check(max_rhat < 1.01, f"logistic HMC max R-hat {max_rhat} < 1.01")
+    check(mean_dev < LGH_MEAN_SD and sd_dev < LGH_SD_REL,
+          f"logistic HMC posterior: means within {mean_dev} < {LGH_MEAN_SD} sd of "
+          f"chees-logistic's, sds within {sd_dev} < {LGH_SD_REL}")
+    del samples, store
+
+    # the kernel against its plain version, over the chains whose accept
+    # decisions agree; the plain version in float32 against float64
+    rel, differ, rel64, abs_err = {}, {}, {}, 0.0
+    for steps in LGH_EQ_STEPS:
+        args = (target, x0, eps, LGH_L, steps, 0)
+        got = fused_hmc.fused_hmc_run(*args, seed=SEED, mass_inv=mass_inv)
+        want = fused_hmc.fused_hmc_run_reference(*args, seed=SEED, mass_inv=mass_inv)
+        same = (accept_history(got, x0) == accept_history(want, x0)).all(dim=1)
+        differ[steps] = int((~same).sum())
+        rel[steps] = float((got[same] - want[same]).abs().max() / want[same].abs().max())
+        abs_err = max(abs_err, float((got[same] - want[same]).abs().max()))
+        want64 = fused_hmc.fused_hmc_run_reference(target.to(dtype=torch.float64),
+                                                   x0.double(), eps, LGH_L, steps, 0,
+                                                   seed=SEED, mass_inv=mass_inv.double())
+        same64 = (accept_history(want64, x0.double()) == accept_history(want, x0)).all(dim=1)
+        rel64[steps] = float((want[same64].double() - want64[same64]).abs().max()
+                             / want64[same64].abs().max())
+        del got, want, want64
+    say("K1-logistic-agreement", eps=eps, **{f"rel_err_{k}": f"{v:.3e}" for k, v in rel.items()},
+        **{f"chains_differ_{k}": v for k, v in differ.items()},
+        **{f"plain_f32_vs_f64_rel_{k}": f"{v:.3e}" for k, v in rel64.items()})
+    for steps in LGH_EQ_STEPS:
+        check(rel[steps] < LGH_RTOL, f"logistic HMC after {steps} steps: relative error "
+              f"{rel[steps]} < {LGH_RTOL}")
+
+    ms, wall, o = timed(lambda: sampler(eps).run(*LGH_STEPS), 3)
+    del o
+    t0 = time.perf_counter()
+    o = fused_hmc.fused_hmc_run_reference(target, x0, eps, LGH_L, *LGH_STEPS, seed=SEED,
+                                          mass_inv=mass_inv)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del o
+    # the yardstick: the two torch.matmul of one leapfrog alone (float32,
+    # TF32 off), 200 pairs between two events, times the run's leapfrogs;
+    # the port's path on the card never calls them
+    n_steps = sum(LGH_STEPS)
+    leapfrogs = n_steps * LGH_L
+    beta = x0[:, 2:].contiguous()
+    resid = torch.randn((N_CHAINS, LGC_OBS), device=dev)
+    Xt = X.T.contiguous()
+
+    def products():
+        for _ in range(200):
+            torch.matmul(beta, Xt)
+            torch.matmul(resid, X)
+
+    pair_ms, _, _ = timed(products, 3)
+    library_ms = pair_ms / 200 * leapfrogs
+    # the bound: the algorithm's gradients (L a step) in three TF32 passes on
+    # the tensor cores, beside the other operations on the CUDA cores (K4's
+    # per gradient, a softplus and its sum an observation at the last
+    # position of a step); the state and X read once, the store written once
+    p = X.shape[1]
+    n_bytes = 4 * (N_CHAINS * LGC_DIM * (1 + LGH_STEPS[0]) + LGC_OBS * p + LGC_OBS)
+    flops = N_CHAINS * leapfrogs * 4 * LGC_OBS * p
+    other = N_CHAINS * (leapfrogs * (8 * LGC_OBS + 8 * p) + n_steps * 20 * LGC_OBS)
+    b_ms = max(bound(n_bytes, 3 * flops, TF32_OPS_PER_S)[0], bound(n_bytes, other)[0])
+    say("K1-logistic", chains=N_CHAINS, dim=LGC_DIM, n_obs=LGC_OBS, eps=eps,
+        eps_bar=f"{chees['eps_bar']:.6f}", eps_bar_rounded=rounded,
+        rounded_accept=f"{rounded_accept:.4f}",
+        rounded_steps=f"{LGH_ROUNDED_STEPS[1]}+{LGH_ROUNDED_STEPS[0]}",
+        L=LGH_L, steps=f"{LGH_STEPS[1]}+{LGH_STEPS[0]}",
+        launches=launches, accept=f"{accept:.4f}", max_rhat=f"{max_rhat:.5f}",
+        min_ess=f"{min_ess:.1f}", mean_dev_sd=f"{mean_dev:.4f}", sd_dev=f"{sd_dev:.4f}",
+        kernel_ms=f"{ms:.3f}", wall_s=f"{wall:.5f}",
+        grad_evals_per_s=f"{N_CHAINS * leapfrogs / wall:.4e}",
+        min_ess_per_s=f"{min_ess / wall:.4e}", plain_ms=f"{plain_ms:.1f}",
+        bound_ms=f"{b_ms:.3f}", bound_by="operations", library_ms=f"{library_ms:.3f}",
+        tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}")
+    return dict(launches=launches, rel_err=rel, chains_differ=differ, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, library_ms=library_ms, max_abs_err=abs_err, accept=accept,
+                eps=eps)
 
 
 def chees_moments(samples):
@@ -1365,7 +1874,7 @@ def phase_chees_logistic(dev):
     best = min(range(2), key=walls.__getitem__)
     wall, (init_s, warm_s, coll_s) = walls[best], parts[best]
     check(bool(torch.isfinite(samples).all()), "every logistic ChEES sample is finite")
-    rhat, ess, _m, _s = gmt.combine_suffstats_host(*stats)
+    rhat, ess, post_mean, post_std = gmt.combine_suffstats_host(*stats)
     max_rhat, min_ess = float(rhat.max()), float(ess.min())
     check(max_rhat < 1.01, f"logistic ChEES max R-hat {max_rhat} < 1.01")
     leapfrogs = int(sampler.leapfrog_count.sum())
@@ -1385,7 +1894,9 @@ def phase_chees_logistic(dev):
         walls_s=json.dumps([round(w, 4) for w in walls]), init_s=f"{init_s:.4f}",
         warmup_s=f"{warm_s:.4f}", collection_with_stats_s=f"{coll_s:.4f}",
         min_ess_per_s=f"{min_ess / wall:.4e}", grad_evals_per_s=f"{leapfrogs / wall:.4e}")
-    return dict(wall=wall, max_rhat=max_rhat)
+    return dict(wall=wall, max_rhat=max_rhat, eps_bar=float(sampler.adapted_step_size),
+                mass_inv=sampler.adapted_mass_inv.float(), mean=torch.as_tensor(post_mean),
+                std=torch.as_tensor(post_std))
 
 
 def nuts_moments_check(samples, what: str):
@@ -3250,6 +3761,10 @@ def main() -> int:
     mh = phase_mh_main(dev)
     k3_chains = phase_k3_chains(dev)
     k3_widths = phase_k3_widths(dev)
+    k1_targets = phase_k1_targets(dev)
+    k3_targets = phase_k3_targets(dev)
+    dense = phase_dense_main(dev)
+    torch.cuda.empty_cache()
     logistic = phase_logistic(dev)
     chees_small = phase_chees_small(dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -3262,7 +3777,9 @@ def main() -> int:
     phase_rank_main(dev, store, chees["min_ess"])
     del store
     torch.cuda.empty_cache()
-    phase_chees_logistic(dev)
+    chees_lg = phase_chees_logistic(dev)
+    k1_logistic = phase_k1_logistic(dev, chees_lg)
+    torch.cuda.empty_cache()
     nuts_small = phase_nuts_small(dev)
     nuts = phase_nuts_leg(dev, "torch")
     static_small = phase_nuts_static_small(dev)
@@ -3322,7 +3839,16 @@ def main() -> int:
              bound_unfused_ms=main_path["bound_unfused_ms"], library_ms=None,
              split_us={k: round(v, 4) for k, v in split.items()},
              lane_map=maps["chosen"], lane_map_ms=maps["times"],
-             checked_in="K1-small, main, identity-mass, K1-maps, shard-cuda"),
+             # the other targets: each family's run timed beside its plain
+             # version ("K1-targets"), the dense GaussianND's main run
+             # ("dense-main"), the launches of their gate runs through HMC
+             targets=k1_targets["families"], dense=dense["K1"],
+             target_launches={"diffable2d": k1_targets["launches"],
+                              "dense": dense["K1"]["launches"]},
+             targets_max_abs_err=max(k1_targets["max_abs_err"],
+                                     dense["K1"]["eq_max_abs_err"]),
+             checked_in="K1-small, main, identity-mass, K1-maps, shard-cuda, K1-targets, "
+                        "dense-main"),
         # K2 is a device function: on the HMC and MH main paths it runs inside
         # each fused_hmc and fused_mh launch; on the ChEES and NUTS main paths
         # its fill kernel draws every step's momenta and uniforms or words (2
@@ -3398,7 +3924,13 @@ def main() -> int:
              chains_kernel_only_ms={str(k): v for k, v in k3_chains["ms"].items()},
              widths_ms={str(k): v for k, v in k3_widths["ms"].items()},
              widths_bound_ms={str(k): v for k, v in k3_widths["bound_ms"].items()},
-             checked_in="K3-small, mh-main, K3-chains, K3-widths, shard-cuda"),
+             targets=k3_targets["families"], dense=dense["K3"],
+             target_launches={"diffable2d": k3_targets["launches"],
+                              "dense": dense["K3"]["launches"]},
+             targets_max_abs_err=max(k3_targets["max_abs_err"],
+                                     dense["K3"]["eq_max_abs_err"]),
+             checked_in="K3-small, mh-main, K3-chains, K3-widths, shard-cuda, K3-targets, "
+                        "dense-main"),
         # no single PyTorch call computes the chain: library_ms is the time of
         # its two torch.matmul a step, alone, times the steps
         dict(name="fused_logistic", route="cuda",
@@ -3412,6 +3944,21 @@ def main() -> int:
              bound_tensor_3xtf32_ms=logistic["bound_tensor_ms"],
              library_ms=logistic["library_ms"],
              checked_in="K4-ragged, K4"),
+        # K1 on the stretch line's posterior: its own kernel on K4's tile
+        # code; launches from "K1-logistic"'s run through HMC; max_abs_err
+        # over the chains whose accept decisions agree with the plain
+        # version's after 1, 8 and 64 steps; library_ms the two torch.matmul
+        # of a leapfrog alone times the run's leapfrogs
+        dict(name="fused_hmc_logistic", route="cuda",
+             source="general_mcmc_torch/csrc/fused_hmc_logistic.cu",
+             replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
+             launches=k1_logistic["launches"], max_abs_err=k1_logistic["max_abs_err"],
+             max_rel_err={str(k): v for k, v in k1_logistic["rel_err"].items()},
+             chains_differ={str(k): v for k, v in k1_logistic["chains_differ"].items()},
+             ms=k1_logistic["ms"], plain_ms=k1_logistic["plain_ms"],
+             bound_ms=k1_logistic["bound_ms"], bound_by="operations",
+             library_ms=k1_logistic["library_ms"], step_size=k1_logistic["eps"],
+             checked_in="K1-logistic"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

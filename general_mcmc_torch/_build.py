@@ -32,11 +32,13 @@ _FLAGS = [
 # arithmetic then rounds as its plain PyTorch version's separate ops do
 _NO_FMA = ["-fmad=false"]
 # Flags a source chooses for itself, in place of _NO_FMA.  The logistic
-# chain's two products sum in another order than the plain version's matrix
-# products whatever the rounding (and on the tensor cores), so it agrees to
-# a tolerance either way and takes the fused multiply-adds in the rest of
-# its arithmetic.
-_SOURCE_FLAGS: dict[str, list[str]] = {"fused_logistic": ["-fmad=true"]}
+# kernels' two products sum in another order than the plain version's matrix
+# products whatever the rounding (and on the tensor cores), so they agree to
+# a tolerance either way and take the fused multiply-adds in their tile code
+# (the HMC kernel writes the arithmetic around it with intrinsics that are
+# never contracted).
+_SOURCE_FLAGS: dict[str, list[str]] = {"fused_logistic": ["-fmad=true"],
+                                       "fused_hmc_logistic": ["-fmad=true"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

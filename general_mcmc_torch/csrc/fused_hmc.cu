@@ -5,13 +5,26 @@
 // Same semantics: momentum scale * N(0, 1); ke0 = 1/2 sum m M^-1 m;
 // fused-kick leapfrog; log u < dlogp + ke0 - ke1; masked select; sample k
 // is the post-step state n_discard + (k + 1) * thin - 1, written to a
-// steps-major [n_collect, n, d] store.  Target: GaussianND with diagonal
-// covariance, lp = -1/2 sum (x - mu)^2 prec and grad = -(x - mu) prec, with
-// mu and prec given as [d] rows (the TPU kernel inlines any traced target;
-// CUDA cannot inline a Python callable, and the wrapper refuses others).
-// The leapfrog is the analytic-gradient form of samplers/hmc.py: n - 1
-// interior gradient-only kicks, the log density only at the last position,
-// closing half-kick added - the plain version's arithmetic.
+// steps-major [n_collect, n, d] store.  The TPU kernel inlines any traced
+// target's value_and_grad; CUDA cannot inline a Python callable, so each of
+// the repo's continuous targets is a device function here, chosen by an
+// enum (Target, lane_targets.cuh), its constants given as one float32 row, and the
+// wrapper (ops/fused_hmc.py) refuses any other target:
+//   GaussianND, diagonal:   mean and precision rows, lp = -1/2 sum diff^2 prec;
+//   GaussianND, dense:      mean and the Cholesky factor L, lp = -1/2 |L^-1 diff|^2
+//                           and grad = -L^-T L^-1 diff by two triangular
+//                           solves against L in shared memory (no inverse);
+//   RosenbrockND, NealsFunnel: the neighbour and the last coordinate reach
+//                           the lanes that need them by shuffles;
+//   DiffableGaussian2D, Gaussian2D, Rosenbrock2D: d = 2, a lane a chain.
+// The HierarchicalLogisticNC target has a kernel of its own on the tensor
+// cores (fused_hmc_logistic.cu).  The leapfrog is the plain version's
+// (samplers/hmc.py): for a target whose port has an analytic gradient
+// (unnorm_logp_grad) n - 1 interior gradient-only kicks, the log density
+// only at the last position and the closing half-kick added; for the 2-d
+// targets, whose gradient the plain version takes from autograd, n full
+// kicks and the surplus half-kick subtracted, each gradient computed in
+// autograd's order of operations (the notes at each target).
 //
 // What bounds it on the H100: the warp schedulers.  The only device-memory
 // traffic in the loop is the sample store, and there is no matrix product,
@@ -53,10 +66,20 @@
 //    draw there already takes the log of that word's uniform - and the
 //    group reads log u by one shuffle; else every lane computes it.
 //  - The gradient at the current position is recomputed from the position
-//    at the start of a step (two operations an element, the same bits)
-//    instead of being carried and selected: E fewer registers a lane.
+//    at the start of a step (the same bits: the gradient is a function of
+//    the position) instead of being carried and selected: E fewer
+//    registers a lane.
 //  - The per-lane elements are independent of each other, which gives a
 //    warp work to overlap where few warps are resident.
+//  - Targets that couple coordinates (lane_targets.cuh): RosenbrockND's
+//    neighbours cross lanes by one shuffle a quad each way; NealsFunnel's
+//    v, the last coordinate, reaches the group by one shuffle and sum x^2
+//    by group_sum; the dense GaussianND's two triangular solves go by
+//    columns against L and L^T, both kept in shared memory (2 d^2 floats:
+//    d <= 168, MAX_DENSE_DIM in ops/fused_hmc.py), one shuffle a solved
+//    element.  A dense block is 512 threads, so that the copy of L serves
+//    16 warps.  The dense target agrees with the plain version (cuBLAS trsm)
+//    to a tolerance, not bit for bit.
 //
 // Agreement with the plain version: built with -fmad=false (and without
 // --use_fast_math), each elementwise operation rounds as the plain version's
@@ -67,21 +90,64 @@
 // butterfly, so every lane of a group holds the same bits.  With float sums the accept
 // test log u < log_accept would see differences of ~1e-5 at d = 100, and a
 // few of the ~10^7 decisions of a run would flip and send a chain down
-// another path.
+// another path.  A division by a Python number is a product with the
+// float reciprocal on the card (PyTorch's CUDA division by a scalar), so
+// the funnel takes 1 / v_std and 1 / v_std^2 as floats.  For the 2-d
+// targets the gradient is autograd's: each product's two partial
+// derivatives and the sums of the contributions to a coordinate in the
+// order the autograd engine adds them (tests/test_torch_fused_targets.py
+// holds these formulas to autograd bit for bit on the CPU).
 //
 // C interface, loaded with ctypes (general_mcmc_torch/_build.py); the entry
 // point returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
-// for a width or lane map it was not built for.
+// for a target, width or lane map it was not built for.
 
 #include <cuda_runtime.h>
 
 #include "counter_rng.cuh"
+#include "lane_targets.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kDenseThreads = 512;  // a block of the dense GaussianND (see Design)
 constexpr unsigned kFull = 0xffffffffu;
+
+using gmt_lanes::kDiffable2D;
+using gmt_lanes::kFunnel;
+using gmt_lanes::kGaussian2D;
+using gmt_lanes::kGaussianDense;
+using gmt_lanes::kGaussianDiag;
+using gmt_lanes::kRosenbrock2D;
+using gmt_lanes::kRosenbrockND;
+
+// Targets whose port has an analytic gradient: the plain version's leapfrog
+// takes n - 1 gradient-only kicks and the value at the last position only.
+__host__ __device__ constexpr bool analytic_gradient(int tgt) {
+  return tgt == kGaussianDiag || tgt == kGaussianDense || tgt == kRosenbrockND ||
+         tgt == kFunnel;
+}
+__host__ __device__ constexpr bool two_d(int tgt) {
+  return tgt == kDiffable2D || tgt == kGaussian2D || tgt == kRosenbrock2D;
+}
+__host__ __device__ constexpr int block_threads(int tgt) {
+  return tgt == kGaussianDense ? kDenseThreads : kThreads;
+}
+// blocks an SM: 128 registers a lane up to three quads, 168 at four; a
+// dense block holds its SM's registers
+__host__ __device__ constexpr int min_blocks(int qpl, int tgt) {
+  return tgt == kGaussianDense ? 1 : (qpl <= 3 ? 4 : 3);
+}
+// the quads a lane each target is built for: one at d = 2; the dense
+// target's widths (d <= 168) take at most three (ops/fused_hmc.py, lane_map)
+__host__ __device__ constexpr int max_qpl(int tgt) {
+  return two_d(tgt) ? 1 : (tgt == kGaussianDense ? 3 : 4);
+}
+
+// L, L^T and 1 / diag(L), each padded to rows of dense_pitch(d) floats
+__host__ __device__ constexpr size_t dense_shared_bytes(int d) {
+  return sizeof(float) * (2 * static_cast<size_t>(d) + 1) * gmt_lanes::dense_pitch(d);
+}
 
 // Sum over the G lanes of a group (G a power of two, the group aligned),
 // accumulated in double and rounded once to float (the plain version sums
@@ -92,20 +158,273 @@ __device__ __forceinline__ float group_sum(double v, int G) {
   return static_cast<float>(v);
 }
 
+// One target on one lane of a chain's group: its constants and the log
+// density and gradient at the lane's E elements (element i is coordinate
+// 4 (sub + G (i / 4)) + i % 4; elements past d hold zeros and get a zero
+// gradient).  Every lane of a group returns the same log density.
+template <int QPL, int TGT>
+struct Density {
+  static constexpr int E = 4 * QPL;
+  int d, G, sub;
+  float mu[E], pr[E];  // GaussianND: the mean (both forms), the precision (diagonal)
+  float k[6];          // the 2-d targets' constants; the funnel's
+  const float *l, *lt, *rdiag;  // dense: L, L^T and 1 / diag(L) in shared memory
+  int dp;
+
+  __device__ __forceinline__ int coord(int i) const { return 4 * (sub + G * (i / 4)) + i % 4; }
+
+  // params: diagonal: mean[d], prec[d]; dense: mean[d] (L is in shared
+  // memory already); DiffableGaussian2D: m0, m1, ic00, ic01 + ic10, ic11,
+  // the normalising constant; Gaussian2D: m0, m1, a, b + c, d, 1 / det;
+  // Rosenbrock2D: a, b; funnel: 1 / v_std, 1 / v_std^2, (dim - 1) / 2.
+  __device__ __forceinline__ void init(const float* params, int d_, int G_, int sub_,
+                                       const float* shared) {
+    d = d_;
+    G = G_;
+    sub = sub_;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) k[i] = 0.0f;
+    if constexpr (TGT == kDiffable2D || TGT == kGaussian2D) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) k[i] = params[i];
+    } else if constexpr (TGT == kRosenbrock2D) {
+      k[0] = params[0];
+      k[1] = params[1];
+    } else if constexpr (TGT == kFunnel) {
+      k[0] = params[0];
+      k[1] = params[1];
+      k[2] = params[2];
+    }
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = coord(i);
+      const bool ok = j < d;
+      mu[i] = ((TGT == kGaussianDiag || TGT == kGaussianDense) && ok) ? params[j] : 0.0f;
+      pr[i] = (TGT == kGaussianDiag && ok) ? params[d + j] : 0.0f;
+    }
+    dp = gmt_lanes::dense_pitch(d);
+    l = shared;
+    lt = shared + d * dp;
+    rdiag = lt + d * dp;
+  }
+
+  // The two triangular solves' shared-memory copy of L: rows of L, rows of
+  // L^T, then 1 / L_ii (all threads of the block, before any returns).
+  __device__ static void load_shared(const float* chol, int d, float* shared) {
+    const int p = gmt_lanes::dense_pitch(d);
+    for (int idx = threadIdx.x; idx < d * p; idx += blockDim.x) {
+      const int i = idx / p, j = idx % p;
+      shared[idx] = j < d ? chol[i * d + j] : 0.0f;           // L[i][j]
+      shared[d * p + idx] = j < d ? chol[j * d + i] : 0.0f;   // L^T[i][j] = L[j][i]
+    }
+    for (int i = threadIdx.x; i < p; i += blockDim.x) {
+      shared[2 * d * p + i] = i < d ? 1.0f / chol[i * d + i] : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  // NealsFunnel: sum x^2 over the x block, and v, the last coordinate.
+  __device__ __forceinline__ void funnel_parts(const float (&x)[E], float& sq, float& v) const {
+    double acc = 0.0;
+    float mine = 0.0f;
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      const int j = coord(i);
+      if (j < d - 1) acc += x[i] * x[i];
+      if (j == d - 1) mine = x[i];
+    }
+    sq = group_sum(acc, G);
+    v = __shfl_sync(kFull, mine, ((d - 1) / 4) % G, G);
+  }
+
+  __device__ __forceinline__ float value(const float (&x)[E]) const {
+    if constexpr (TGT == kGaussianDiag) {
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const float diff = x[i] - mu[i];
+        acc += diff * diff * pr[i];
+      }
+      return -0.5f * group_sum(acc, G);
+    } else if constexpr (TGT == kGaussianDense) {
+      float r[E], y[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        r[i] = x[i] - mu[i];
+        y[i] = 0.0f;
+      }
+      gmt_lanes::forward_solve<QPL>(lt, rdiag, dp, d, G, sub, r, y);
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < E; ++i) acc += y[i] * y[i];
+      return -0.5f * group_sum(acc, G);
+    } else if constexpr (TGT == kDiffable2D) {
+      // norm_const - 0.5 (ic00 d0 d0 + (ic01 + ic10) d0 d1 + ic11 d1 d1)
+      const float d0 = x[0] - k[0], d1 = x[1] - k[1];
+      const float quad = (k[2] * d0 * d0 + k[3] * d0 * d1) + k[4] * d1 * d1;
+      return k[5] - 0.5f * quad;
+    } else if constexpr (TGT == kGaussian2D) {
+      const float d0 = x[0] - k[0], d1 = x[1] - k[1];
+      const float quad = ((k[4] * d0 * d0 - k[3] * d0 * d1) + k[2] * d1 * d1) * k[5];
+      return -0.5f * quad;
+    } else if constexpr (TGT == kRosenbrock2D) {
+      const float u = k[0] - x[0];
+      const float w = x[1] - x[0] * x[0];
+      return -(u * u + k[1] * (w * w));
+    } else if constexpr (TGT == kRosenbrockND) {
+      float v[E];
+      gmt_lanes::rosen_v<QPL>(x, v, G, sub);
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const float u = 1.0f - x[i];
+        if (coord(i) < d - 1) acc += 100.0f * (v[i] * v[i]) + u * u;
+      }
+      return -group_sum(acc, G);
+    } else {  // kFunnel
+      float sq, v;
+      funnel_parts(x, sq, v);
+      const float w = expf(-v);
+      const float t = v * k[0];
+      const float lp_v = -0.5f * (t * t);
+      return lp_v + ((-0.5f * sq) * w - k[2] * v);
+    }
+  }
+
+  __device__ __forceinline__ void grad(const float (&x)[E], float (&g)[E]) const {
+    if constexpr (TGT == kGaussianDiag) {
+#pragma unroll
+      for (int i = 0; i < E; ++i) g[i] = -(x[i] - mu[i]) * pr[i];
+    } else if constexpr (TGT == kGaussianDense) {
+      float r[E], y[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        r[i] = x[i] - mu[i];
+        y[i] = 0.0f;
+      }
+      gmt_lanes::forward_solve<QPL>(lt, rdiag, dp, d, G, sub, r, y);
+      dense_back(y, g);
+    } else if constexpr (TGT == kDiffable2D) {
+      // autograd of value(): the quadratic's three products, each (a * d) * d',
+      // pass -0.5 d' a to d and (-0.5 d') * a' to a's own factor; the
+      // engine adds a coordinate's contributions in the order of the
+      // products' creation, last first
+      const float d0 = x[0] - k[0], d1 = x[1] - k[1];
+      const float a1 = k[2] * d0, a2 = k[3] * d0, a3 = k[4] * d1;
+      const float h0 = -0.5f * d0, h1 = -0.5f * d1;
+      g[0] = (h1 * k[3] + -0.5f * a1) + h0 * k[2];
+      g[1] = (-0.5f * a3 + h1 * k[4]) + -0.5f * a2;
+#pragma unroll
+      for (int i = 2; i < E; ++i) g[i] = 0.0f;
+    } else if constexpr (TGT == kGaussian2D) {
+      // autograd of value(): h = -0.5 / det reaches the three products
+      // (d d0) d0, (bc d0) d1 (negated), (a d1) d1
+      const float d0 = x[0] - k[0], d1 = x[1] - k[1];
+      const float h = -0.5f * k[5];
+      const float nh = -h;
+      const float a1 = k[4] * d0, b2 = k[3] * d0, a3 = k[2] * d1;
+      g[0] = ((nh * d1) * k[3] + h * a1) + (h * d0) * k[4];
+      g[1] = (h * a3 + (h * d1) * k[2]) + nh * b2;
+#pragma unroll
+      for (int i = 2; i < E; ++i) g[i] = 0.0f;
+    } else if constexpr (TGT == kRosenbrock2D) {
+      // autograd of value(): -(u u + b (w w)), u = a - x0, w = x1 - x0 x0
+      const float u = k[0] - x[0];
+      const float w = x[1] - x[0] * x[0];
+      const float nb = -k[1];
+      const float gw = nb * w + nb * w;
+      const float gu = -u + -u;
+      const float c = -gw * x[0];
+      g[0] = (c + c) + -gu;
+      g[1] = gw;
+#pragma unroll
+      for (int i = 2; i < E; ++i) g[i] = 0.0f;
+    } else if constexpr (TGT == kRosenbrockND) {
+      // 400 x_j v_j + 2 (1 - x_j) for j < d - 1, then -200 v_{j-1} for j >= 1
+      float v[E];
+      gmt_lanes::rosen_v<QPL>(x, v, G, sub);
+      float prev[E];
+      gmt_lanes::rosen_prev<QPL>(v, prev, G, sub);
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int j = coord(i);
+        const float base = j < d - 1 ? 400.0f * x[i] * v[i] + (1.0f - x[i]) * 2.0f : 0.0f;
+        g[i] = (j >= 1 && j < d) ? base - 200.0f * prev[i] : base;
+      }
+    } else {  // kFunnel: -x e^-v, and -v / v_std^2 + sum x^2 e^-v / 2 - (dim - 1) / 2
+      float sq, v;
+      funnel_parts(x, sq, v);
+      const float w = expf(-v);
+      const float g_v = ((-v) * k[1] + (0.5f * sq) * w) - k[2];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int j = coord(i);
+        g[i] = j < d - 1 ? (-x[i]) * w : (j == d - 1 ? g_v : 0.0f);
+      }
+    }
+  }
+
+  // The back solve and the sign: g = -L^-T y.
+  __device__ __forceinline__ void dense_back(const float (&y)[E], float (&g)[E]) const {
+    float r[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      r[i] = y[i];
+      g[i] = 0.0f;
+    }
+    gmt_lanes::back_solve<QPL>(l, rdiag, dp, d, G, sub, r, g);
+#pragma unroll
+    for (int i = 0; i < E; ++i) g[i] = -g[i];
+  }
+
+  // The log density and the gradient at one position (the analytic form's
+  // last leapfrog): the dense target solves forward once for both.
+  __device__ __forceinline__ float value_grad(const float (&x)[E], float (&g)[E]) const {
+    if constexpr (TGT == kGaussianDense) {
+      float r[E], y[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        r[i] = x[i] - mu[i];
+        y[i] = 0.0f;
+      }
+      gmt_lanes::forward_solve<QPL>(lt, rdiag, dp, d, G, sub, r, y);
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < E; ++i) acc += y[i] * y[i];
+      dense_back(y, g);
+      return -0.5f * group_sum(acc, G);
+    } else {
+      grad(x, g);
+      return value(x);
+    }
+  }
+};
+
+struct Args {
+  const float *x0, *params, *inv, *scale;
+  float* out;
+  int n, d, G, n_collect, n_discard, thin, n_leapfrog;
+  float eps;
+  uint32_t seed, chain0;
+};
+
 // QPL: dimension quads per lane; USE_MASS: the diagonal-metric path
-// (inv = M^-1 row, scale = sqrt(M) row); without it both are 1.
-template <int QPL, bool USE_MASS>
-__global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 registers
-    fused_hmc_kernel(const float* __restrict__ x0, const float* __restrict__ mean,
-                     const float* __restrict__ prec, const float* __restrict__ inv_row,
-                     const float* __restrict__ scale_row, float* __restrict__ out, int n,
-                     int d, int G, int n_collect, int n_discard, int thin, int n_leapfrog,
-                     float eps, uint32_t seed, uint32_t chain0) {
+// (inv = M^-1 row, scale = sqrt(M) row); without it both are 1; TGT: the
+// target (Target above).
+template <int QPL, bool USE_MASS, int TGT>
+__global__ void __launch_bounds__(block_threads(TGT), min_blocks(QPL, TGT))
+    fused_hmc_kernel(const Args a) {
   constexpr int E = 4 * QPL;  // elements per lane
+  extern __shared__ float4 k1_shared[];
+  float* shared = reinterpret_cast<float*>(k1_shared);
+  if constexpr (TGT == kGaussianDense) {
+    Density<QPL, TGT>::load_shared(a.params + a.d, a.d, shared);
+  }
+  const int n = a.n, d = a.d, G = a.G;
   const int lane = threadIdx.x & 31;
   const int cpw = 32 / G;  // chains per warp
   const int64_t first =
-      (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5)) * cpw;
+      (static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5)) * cpw;
   if (first >= n) return;  // whole warps only: shuffles stay full-mask
   const int slot = lane / G;
   const int sub = lane - slot * G;
@@ -113,67 +432,55 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
   // nothing: every lane reaches every shuffle.
   const bool live = first + slot < n;
   const uint32_t chain = static_cast<uint32_t>(live ? first + slot : n - 1);
-  const uint32_t key_chain = chain0 + chain;  // the global chain: the draws' address
+  const uint32_t key_chain = a.chain0 + chain;  // the global chain: the draws' address
   const int nq = (d + 3) >> 2;  // quads that hold dimensions
   // the first idle lane slot, if the map has one, draws the accept block
   const bool accept_in_slot = nq < G * QPL;
   const int accept_lane = lane - sub + nq % G;
 
-  float x[E], mu[E], pr[E], iv[E], sc[E];  // iv, sc: only with a mass
+  Density<QPL, TGT> f;
+  f.init(a.params, d, G, sub, shared);
+  float x[E], iv[E], sc[E];  // iv, sc: only with a mass
   bool ok[E];
 #pragma unroll
-  for (int k = 0; k < QPL; ++k) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * k + e;
-      const int j = 4 * (sub + G * k) + e;
-      ok[i] = j < d;
-      x[i] = ok[i] ? x0[static_cast<int64_t>(chain) * d + j] : 0.0f;
-      mu[i] = ok[i] ? mean[j] : 0.0f;
-      pr[i] = ok[i] ? prec[j] : 0.0f;
-      if (USE_MASS) {
-        iv[i] = ok[i] ? inv_row[j] : 1.0f;
-        sc[i] = ok[i] ? scale_row[j] : 1.0f;
-      }
+  for (int i = 0; i < E; ++i) {
+    const int j = f.coord(i);
+    ok[i] = j < d;
+    x[i] = ok[i] ? a.x0[static_cast<int64_t>(chain) * d + j] : 0.0f;
+    if (USE_MASS) {
+      iv[i] = ok[i] ? a.inv[j] : 1.0f;
+      sc[i] = ok[i] ? a.scale[j] : 1.0f;
     }
   }
-  // initial log density (out-of-range elements carry zeros)
-  float lp;
-  {
-    double acc = 0.0;
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const float diff = x[i] - mu[i];
-      acc += diff * diff * pr[i];
-    }
-    lp = -0.5f * group_sum(acc, G);
-  }
+  float lp = f.value(x);  // initial log density
 
+  const float eps = a.eps;
   const float half = 0.5f * eps;
-  const int total = n_discard + n_collect * thin;
+  const int total = a.n_discard + a.n_collect * a.thin;
   const int64_t row = static_cast<int64_t>(n) * d;
-  float* dst = out + static_cast<int64_t>(chain) * d;  // this chain's row of the next sample
-  int until_store = thin;  // post-burn-in steps until the next stored sample
+  float* dst = a.out + static_cast<int64_t>(chain) * d;  // this chain's row of the next sample
+  int until_store = a.thin;  // post-burn-in steps until the next stored sample
   for (int t = 0; t < total; ++t) {
-    float m[E], p[E];
+    float m[E], p[E], g[E];
     float log_u = 0.0f;
 #pragma unroll
-    for (int k = 0; k < QPL; ++k) {
-      const int q = sub + G * k;
+    for (int kq = 0; kq < QPL; ++kq) {
+      const int q = sub + G * kq;
       const bool draws_accept = accept_in_slot && q == nq;
-      const uint4 r = gmt::counter_bits(seed, key_chain, static_cast<uint32_t>(t),
+      const uint4 r = gmt::counter_bits(a.seed, key_chain, static_cast<uint32_t>(t),
                                         draws_accept ? 0u : static_cast<uint32_t>(q),
                                         draws_accept ? gmt::kTagAccept : gmt::kTagMomentum);
       float log_u1;  // log of word 0's uniform: log u where the block is the accept block
-      gmt::box_muller_pair(r.x, r.y, m[4 * k], m[4 * k + 1], log_u1);
-      gmt::box_muller_pair(r.z, r.w, m[4 * k + 2], m[4 * k + 3]);
+      gmt::box_muller_pair(r.x, r.y, m[4 * kq], m[4 * kq + 1], log_u1);
+      gmt::box_muller_pair(r.z, r.w, m[4 * kq + 2], m[4 * kq + 3]);
       if (draws_accept) log_u = log_u1;
     }
     if (accept_in_slot) {
       log_u = __shfl_sync(kFull, log_u, accept_lane);
     } else {
       log_u = logf(gmt::bits_to_uniform(
-          gmt::counter_bits(seed, key_chain, static_cast<uint32_t>(t), 0u, gmt::kTagAccept).x));
+          gmt::counter_bits(a.seed, key_chain, static_cast<uint32_t>(t), 0u,
+                            gmt::kTagAccept).x));
     }
 
     double acc = 0.0;
@@ -185,35 +492,47 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
     }
     const float ke0 = 0.5f * group_sum(acc, G);
 
-    // fused-kick leapfrog, analytic-gradient form; the opening half-kick
-    // takes the gradient at x, recomputed from x
+    // fused-kick leapfrog; the opening half-kick takes the gradient at x,
+    // recomputed from x
+    f.grad(x, g);
 #pragma unroll
     for (int i = 0; i < E; ++i) {
       p[i] = x[i];
-      const float grad = -(x[i] - mu[i]) * pr[i];
-      m[i] = m[i] + grad * half;
+      m[i] = m[i] + g[i] * half;
     }
-    for (int l = 0; l < n_leapfrog - 1; ++l) {
+    float lp_new;
+    if constexpr (analytic_gradient(TGT)) {
+      // n - 1 gradient-only kicks, value and gradient at the last position,
+      // the closing half-kick added
+      for (int l = 0; l < a.n_leapfrog - 1; ++l) {
 #pragma unroll
-      for (int i = 0; i < E; ++i) {
-        p[i] = p[i] + (USE_MASS ? iv[i] * m[i] : m[i]) * eps;
-        const float grad = -(p[i] - mu[i]) * pr[i];
-        m[i] = m[i] + grad * eps;
+        for (int i = 0; i < E; ++i) p[i] = p[i] + (USE_MASS ? iv[i] * m[i] : m[i]) * eps;
+        f.grad(p, g);
+#pragma unroll
+        for (int i = 0; i < E; ++i) m[i] = m[i] + g[i] * eps;
       }
+#pragma unroll
+      for (int i = 0; i < E; ++i) p[i] = p[i] + (USE_MASS ? iv[i] * m[i] : m[i]) * eps;
+      lp_new = f.value_grad(p, g);
+#pragma unroll
+      for (int i = 0; i < E; ++i) m[i] = m[i] + g[i] * half;
+    } else {
+      // autograd's form: n full kicks, the surplus half-kick subtracted
+      for (int l = 0; l < a.n_leapfrog; ++l) {
+#pragma unroll
+        for (int i = 0; i < E; ++i) p[i] = p[i] + (USE_MASS ? iv[i] * m[i] : m[i]) * eps;
+        f.grad(p, g);
+#pragma unroll
+        for (int i = 0; i < E; ++i) m[i] = m[i] + g[i] * eps;
+      }
+#pragma unroll
+      for (int i = 0; i < E; ++i) m[i] = m[i] - g[i] * half;
+      lp_new = f.value(p);
     }
     acc = 0.0;
-    double acc_ke = 0.0;
 #pragma unroll
-    for (int i = 0; i < E; ++i) {
-      p[i] = p[i] + (USE_MASS ? iv[i] * m[i] : m[i]) * eps;
-      const float diff = p[i] - mu[i];
-      acc += diff * diff * pr[i];
-      const float grad = -diff * pr[i];
-      m[i] = m[i] + grad * half;
-      acc_ke += m[i] * (USE_MASS ? iv[i] * m[i] : m[i]);
-    }
-    const float lp_new = -0.5f * group_sum(acc, G);
-    const float ke1 = 0.5f * group_sum(acc_ke, G);
+    for (int i = 0; i < E; ++i) acc += m[i] * (USE_MASS ? iv[i] * m[i] : m[i]);
+    const float ke1 = 0.5f * group_sum(acc, G);
 
     const float log_accept = (lp_new - lp) + (ke0 - ke1);
     if (log_u < log_accept) {  // NaN rejects
@@ -222,24 +541,23 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
       for (int i = 0; i < E; ++i) x[i] = p[i];
     }
 
-    if (t < n_discard || --until_store > 0) continue;
-    until_store = thin;
+    if (t < a.n_discard || --until_store > 0) continue;
+    until_store = a.thin;
     if (live) {
       if ((d & 3) == 0) {
         // width a multiple of four: every row starts 16-byte aligned, a
         // lane's quad is one float4 and a group's store one contiguous run
 #pragma unroll
-        for (int k = 0; k < QPL; ++k) {
-          if (ok[4 * k]) {
-            reinterpret_cast<float4*>(dst)[sub + G * k] =
-                make_float4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+        for (int kq = 0; kq < QPL; ++kq) {
+          if (ok[4 * kq]) {
+            reinterpret_cast<float4*>(dst)[sub + G * kq] =
+                make_float4(x[4 * kq], x[4 * kq + 1], x[4 * kq + 2], x[4 * kq + 3]);
           }
         }
       } else {
 #pragma unroll
         for (int i = 0; i < E; ++i) {
-          const int j = 4 * (sub + G * (i / 4)) + (i % 4);
-          if (ok[i]) dst[j] = x[i];
+          if (ok[i]) dst[f.coord(i)] = x[i];
         }
       }
     }
@@ -247,57 +565,84 @@ __global__ void __launch_bounds__(kThreads, QPL <= 3 ? 4 : 3)  // 128 and 168 re
   }
 }
 
-struct Args {
-  const float *x0, *mean, *prec, *inv, *scale;
-  float* out;
-  int n, d, G, n_collect, n_discard, thin, n_leapfrog;
-  float eps;
-  uint32_t seed, chain0;
-};
-
-template <int QPL>
+template <int QPL, int TGT>
 cudaError_t launch_qpl(bool use_mass, const Args& a, cudaStream_t stream) {
+  constexpr int threads = block_threads(TGT);
   const int64_t warps = (static_cast<int64_t>(a.n) + 32 / a.G - 1) / (32 / a.G);
-  const dim3 grid(static_cast<unsigned int>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  const dim3 grid(static_cast<unsigned int>((warps + threads / 32 - 1) / (threads / 32)));
+  size_t bytes = 0;
+  if (TGT == kGaussianDense) {
+    // above 48 KB a block's shared memory is granted only on request
+    bytes = dense_shared_bytes(a.d);
+    const cudaError_t err = cudaFuncSetAttribute(
+        use_mass ? fused_hmc_kernel<QPL, true, TGT> : fused_hmc_kernel<QPL, false, TGT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
   if (use_mass) {
-    fused_hmc_kernel<QPL, true><<<grid, kThreads, 0, stream>>>(
-        a.x0, a.mean, a.prec, a.inv, a.scale, a.out, a.n, a.d, a.G, a.n_collect, a.n_discard,
-        a.thin, a.n_leapfrog, a.eps, a.seed, a.chain0);
+    fused_hmc_kernel<QPL, true, TGT><<<grid, threads, bytes, stream>>>(a);
   } else {
-    fused_hmc_kernel<QPL, false><<<grid, kThreads, 0, stream>>>(
-        a.x0, a.mean, a.prec, a.inv, a.scale, a.out, a.n, a.d, a.G, a.n_collect, a.n_discard,
-        a.thin, a.n_leapfrog, a.eps, a.seed, a.chain0);
+    fused_hmc_kernel<QPL, false, TGT><<<grid, threads, bytes, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
+template <int TGT>
+cudaError_t launch_target(bool use_mass, const Args& a, int qpl, cudaStream_t s) {
+  constexpr int kMax = max_qpl(TGT);
+  if (qpl == 1) return launch_qpl<1, TGT>(use_mass, a, s);
+  if constexpr (kMax >= 2) {
+    if (qpl == 2) return launch_qpl<2, TGT>(use_mass, a, s);
+  }
+  if constexpr (kMax >= 3) {
+    if (qpl == 3) return launch_qpl<3, TGT>(use_mass, a, s);
+  }
+  if constexpr (kMax >= 4) {
+    if (qpl == 4) return launch_qpl<4, TGT>(use_mass, a, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// target: the Target codes; params: its constants as one float32 row (see
+// Density::init; the dense GaussianND's row is mean[d] then L[d][d]);
 // lanes_per_chain (a power of two up to 32) and quads_per_lane (1..4,
 // MAX_QUADS_PER_LANE in ops/fused_hmc.py) are the lane map; together they
 // must cover the width.
-extern "C" int fused_hmc_launch(const void* x0, const void* mean, const void* prec,
-                                const void* inv, const void* scale, void* out, int n, int d,
-                                int n_collect, int n_discard, int thin, int n_leapfrog,
-                                float step_size, unsigned int seed, unsigned int chain0,
-                                int use_mass, int lanes_per_chain, int quads_per_lane,
+extern "C" int fused_hmc_launch(const void* x0, const void* params, const void* inv,
+                                const void* scale, void* out, int n, int d, int n_collect,
+                                int n_discard, int thin, int n_leapfrog, float step_size,
+                                unsigned int seed, unsigned int chain0, int use_mass,
+                                int target, int lanes_per_chain, int quads_per_lane,
                                 void* stream) {
   if (n < 1 || d < 1 || lanes_per_chain < 1 || lanes_per_chain > 32 ||
       (lanes_per_chain & (lanes_per_chain - 1)) != 0 ||
       4 * lanes_per_chain * quads_per_lane < d) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{static_cast<const float*>(x0),   static_cast<const float*>(mean),
-               static_cast<const float*>(prec), static_cast<const float*>(inv),
-               static_cast<const float*>(scale), static_cast<float*>(out),
-               n, d, lanes_per_chain, n_collect, n_discard, thin, n_leapfrog,
-               step_size, seed, chain0};
+  const Args a{static_cast<const float*>(x0),  static_cast<const float*>(params),
+               static_cast<const float*>(inv), static_cast<const float*>(scale),
+               static_cast<float*>(out),       n,
+               d,                              lanes_per_chain,
+               n_collect,                      n_discard,
+               thin,                           n_leapfrog,
+               step_size,                      seed,
+               chain0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (quads_per_lane) {
-    case 1: return static_cast<int>(launch_qpl<1>(use_mass != 0, a, s));
-    case 2: return static_cast<int>(launch_qpl<2>(use_mass != 0, a, s));
-    case 3: return static_cast<int>(launch_qpl<3>(use_mass != 0, a, s));
-    case 4: return static_cast<int>(launch_qpl<4>(use_mass != 0, a, s));
+  const bool m = use_mass != 0;
+  const int qpl = quads_per_lane;
+  if (two_d(target) && (d != 2 || lanes_per_chain != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (target) {
+    case kGaussianDiag: return static_cast<int>(launch_target<kGaussianDiag>(m, a, qpl, s));
+    case kGaussianDense: return static_cast<int>(launch_target<kGaussianDense>(m, a, qpl, s));
+    case kDiffable2D: return static_cast<int>(launch_target<kDiffable2D>(m, a, qpl, s));
+    case kGaussian2D: return static_cast<int>(launch_target<kGaussian2D>(m, a, qpl, s));
+    case kRosenbrock2D: return static_cast<int>(launch_target<kRosenbrock2D>(m, a, qpl, s));
+    case kRosenbrockND: return static_cast<int>(launch_target<kRosenbrockND>(m, a, qpl, s));
+    case kFunnel: return static_cast<int>(launch_target<kFunnel>(m, a, qpl, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -90,6 +90,10 @@
 // sigmoids a run), at the same distance from the plain version (1.0e-6,
 // 1.3e-6 and 3.1e-7 after 1, 8 and 64 steps against 1.0e-6, 1.5e-6, 3.1e-7).
 //
+// The tile's parts - the split, the fragment loads, the two products and
+// the hand-over of g between a tile's warps - live in logistic_tile.cuh,
+// which the fused HMC run on the same target (fused_hmc_logistic.cu) shares.
+//
 // C interface, loaded with ctypes (general_mcmc_torch/_build.py); the entry
 // point returns the first CUDA error of its calls, or cudaErrorInvalidValue
 // for a feature count it was not built for.
@@ -98,65 +102,16 @@
 
 #include <cstdint>
 
+#include "logistic_tile.cuh"
+
 namespace {
 
-constexpr int kSplit = 4;     // warps that share a tile of 32 chains
-constexpr int kMaxTiles = 3;  // tiles a block: 12 warps of at most 168 registers a lane
-constexpr int kRowPad = 4;    // floats between rows of X (see Design)
-constexpr unsigned kFull = 0xffffffffu;
+using namespace gmt_logistic;
 
-__device__ __forceinline__ float sigmoidf(float v) {
-  return __fdividef(1.0f, 1.0f + __expf(-v));
-}
-
-// The TF32 rounding of a finite float, to nearest with ties away from zero
-// as cvt.rna.tf32.f32 rounds: add half of the last kept place to the bit
-// pattern and clear the 13 dropped bits (two operations; the cvt compiles
-// to five on this target, and the kernel splits a value for every 4 mma).
-__device__ __forceinline__ uint32_t round_tf32(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-}
-
-// v = hi + lo with hi the TF32 rounding of v and lo the TF32 rounding of the
-// exact remainder; both as the bit patterns mma takes.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = round_tf32(v);
-  lo = round_tf32(v - __uint_as_float(hi));
-}
-
-// d += A B for one 16 x 8 x 8 TF32 tile.  Lane (g = lane / 4, t = lane % 4)
-// holds a.x = A[g][t], a.y = A[g + 8][t], a.z = A[g][t + 4],
-// a.w = A[g + 8][t + 4]; b0 = B[t][g], b1 = B[t + 4][g]; d0, d1 = D[g][2t],
-// D[g][2t + 1] and d2, d3 = D[g + 8][2t], D[g + 8][2t + 1].
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// The three passes of the split product, small terms first.
-__device__ __forceinline__ void mma_3x(float (&d)[4], const uint4& a_hi, const uint4& a_lo,
-                                       uint32_t b0_hi, uint32_t b1_hi, uint32_t b0_lo,
-                                       uint32_t b1_lo) {
-  mma_tf32(d, a_lo, b0_hi, b1_hi);
-  mma_tf32(d, a_hi, b0_lo, b1_lo);
-  mma_tf32(d, a_hi, b0_hi, b1_hi);
-}
-
-// Barrier `id` (1..15) for the `threads` threads that name it.
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Shared memory of a block of `tiles` chain tiles, in 4-byte words: X as hi
-// and lo, y, and for each tile the beta fragments (hi and lo, 4 words a lane
-// a unit), the partial g in transit (3 senders a unit) and the four warps'
-// partial hyper sums (8 a lane).
+// Shared memory of a block of `tiles` chain tiles, in 4-byte words (see
+// logistic_tile.cuh, data_words and tile_words).
 __host__ __device__ constexpr size_t shared_words(int pt, int n_pad, int tiles) {
-  return static_cast<size_t>(n_pad) * (2 * (pt * 8 + kRowPad) + 1) +
-         static_cast<size_t>(tiles) * (2 * pt * (2 + 3) * 128 + kSplit * 8 * 32);
+  return data_words(pt, n_pad) + static_cast<size_t>(tiles) * tile_words(pt);
 }
 
 // PT: 8-feature tiles (the padded feature count is PT * 8), even.  Padded
@@ -167,38 +122,19 @@ __global__ void __launch_bounds__(kMaxTiles * kSplit * 32, 1)
     fused_logistic_kernel(const float* __restrict__ theta0, const float* __restrict__ X,
                           const float* __restrict__ y, float* __restrict__ theta_out, int n,
                           int p, int n_obs, int n_pad, int steps, float lr) {
-  constexpr int S = PT * 8 + kRowPad;  // row stride of X in shared memory
-  constexpr int U = 2 * PT;            // units of a tile: (row tile m, feature tile j)
-  constexpr int OWN = U / kSplit;      // units a warp owns: unit q belongs to warp q % 4
-  static_assert(U % kSplit == 0, "the units of a tile are dealt evenly to its warps");
+  using W = TileWarp<PT>;
+  constexpr int U = W::U;
+  constexpr int OWN = W::OWN;
   const int tiles = blockDim.x / (32 * kSplit);
   extern __shared__ float4 shared[];
-  uint32_t* xh = reinterpret_cast<uint32_t*>(shared);    // [n_pad][S], TF32 hi of X
-  uint32_t* xl = xh + n_pad * S;                         // [n_pad][S], TF32 lo of X
-  float* ys = reinterpret_cast<float*>(xl + n_pad * S);  // [n_pad]
-  uint4* bf = reinterpret_cast<uint4*>(ys + n_pad);      // [tiles][U][hi, lo][32]
-  float4* ex = reinterpret_cast<float4*>(bf + tiles * U * 2 * 32);  // [tiles][U][3][32]
-  float* sm = reinterpret_cast<float*>(ex + tiles * U * 3 * 32);    // [tiles][4][8][32]
-  for (int idx = threadIdx.x; idx < n_pad * S; idx += blockDim.x) {
-    const int i = idx / S;
-    const int j = idx % S;
-    split_tf32((i < n_obs && j < p) ? X[i * p + j] : 0.0f, xh[idx], xl[idx]);
-  }
-  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) ys[i] = i < n_obs ? y[i] : 0.0f;
-  __syncthreads();
+  const Shared<PT> s(shared, n_pad, tiles);
+  s.stage(X, y, n_obs, p, n_pad);
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int tile = warp / kSplit;  // the tile's warps are neighbours: they leave together
-  const int part = warp % kSplit;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int tile = (threadIdx.x >> 5) / kSplit;  // the tile's warps are neighbours: they leave together
   const int64_t first = (static_cast<int64_t>(blockIdx.x) * tiles + tile) * 32;
   if (first >= n) return;  // whole tiles only; only the tile's own barriers follow
-  const int bar = 1 + tile;
-  bf += tile * (U * 2 * 32) + lane;
-  ex += tile * (U * 3 * 32) + lane;
-  sm += tile * (kSplit * 8 * 32) + lane;
+  const W w(s, tile, n_pad);
+  const int part = w.part, g = w.g, t = w.t;
 
   // This lane's four rows: row tile m (0, 1), half h (0, 1) is chain
   // first + 16 m + g + 8 h.  Register c of a unit's quadruple holds half
@@ -231,134 +167,16 @@ __global__ void __launch_bounds__(kMaxTiles * kSplit * 32, 1)
     }
   }
 
-  // fragment offsets into X: first product row g, column t (and t + 4);
-  // second product rows 2 t and 2 t + 1, column pi(g)
-  const int off1 = g * S + t;
-  const int off2 = 2 * t * S + (g >> 1) + 4 * (g & 1);
-  const int obs_each = n_pad / kSplit;  // a multiple of 16
-  const int obs_from = part * obs_each;
-
   for (int step = 0; step < steps; ++step) {
-    // beta = mu + tau z of the own units as A fragments (a_i <- c_{0, 2, 1, 3})
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
-        const int m = q / PT;
-        uint32_t hi[4], lo[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int c = ((i & 1) << 1) | (i >> 1);
-          split_tf32(mu[m][c >> 1] + tau[m][c >> 1] * z[q / kSplit][c], hi[i], lo[i]);
-        }
-        bf[(q * 2) * 32] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        bf[(q * 2 + 1) * 32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      }
-    }
-    named_barrier(bar, kSplit * 32);
-
-    // (1) the partial g of this warp's quarter of the observations
+    // (0) beta fragments, (1) the partial g of a quarter of the
+    // observations, (2)-(3) g of the own units and the hyper sums
+    w.write_beta(mu, tau, z);
     float grad[2][PT][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < PT; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) grad[m][j][c] = 0.0f;
-
-    for (int i0 = obs_from; i0 < obs_from + obs_each; i0 += 16) {
-      // logits of two 8-observation tiles
-      float acc[2][2][4];
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[u][m][c] = 0.0f;
-#pragma unroll
-      for (int j = 0; j < PT; ++j) {
-        uint4 ah[2], al[2];
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          ah[m] = bf[((m * PT + j) * 2) * 32];
-          al[m] = bf[((m * PT + j) * 2 + 1) * 32];
-        }
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const int at = (i0 + 8 * u) * S + off1 + 8 * j;
-          const uint32_t b0h = xh[at], b1h = xh[at + 4];
-          const uint32_t b0l = xl[at], b1l = xl[at + 4];
-#pragma unroll
-          for (int m = 0; m < 2; ++m) mma_3x(acc[u][m], ah[m], al[m], b0h, b1h, b0l, b1l);
-        }
-      }
-      // r = y - sigmoid(logit), then g += r X over the same 16 observations
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float2 yv = *reinterpret_cast<const float2*>(ys + i0 + 8 * u + 2 * t);
-        uint4 rh[2], rl[2];  // r as A fragments: a_i <- c_{0, 2, 1, 3}
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          split_tf32(yv.x - sigmoidf(acc[u][m][0]), rh[m].x, rl[m].x);
-          split_tf32(yv.x - sigmoidf(acc[u][m][2]), rh[m].y, rl[m].y);
-          split_tf32(yv.y - sigmoidf(acc[u][m][1]), rh[m].z, rl[m].z);
-          split_tf32(yv.y - sigmoidf(acc[u][m][3]), rh[m].w, rl[m].w);
-        }
-#pragma unroll
-        for (int j = 0; j < PT; ++j) {
-          const int at = (i0 + 8 * u) * S + off2 + 8 * j;
-          const uint32_t b0h = xh[at], b1h = xh[at + S];
-          const uint32_t b0l = xl[at], b1l = xl[at + S];
-#pragma unroll
-          for (int m = 0; m < 2; ++m) mma_3x(grad[m][j], rh[m], rl[m], b0h, b1h, b0l, b1l);
-        }
-      }
-    }
-
-    // (2) hand the other warps' units to their owners; sender `part` is the
-    // owner's slot part (below the owner) or part - 1 (above it)
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      const int owner = q % kSplit;
-      if (part != owner) {
-        const int slot = part < owner ? part : part - 1;
-        const float(&v)[4] = grad[q / PT][q % PT];
-        ex[(q * 3 + slot) * 32] = make_float4(v[0], v[1], v[2], v[3]);
-      }
-    }
-    named_barrier(bar, kSplit * 32);
+    double ll[2][2];  // unused: the ascent needs no log density
+    w.partial_grad(grad, ll, n_obs, false);
     float own[OWN][4];
     float sums[8];  // sum g and sum z g of rows (m, h): [2 (2 m + h)], [2 (2 m + h) + 1]
-#pragma unroll
-    for (int k = 0; k < 8; ++k) sums[k] = 0.0f;
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
-        const int m = q / PT, i = q / kSplit;
-        const float4 e0 = ex[(q * 3) * 32], e1 = ex[(q * 3 + 1) * 32], e2 = ex[(q * 3 + 2) * 32];
-        const float(&v)[4] = grad[m][q % PT];
-        own[i][0] = ((v[0] + e0.x) + e1.x) + e2.x;
-        own[i][1] = ((v[1] + e0.y) + e1.y) + e2.y;
-        own[i][2] = ((v[2] + e0.z) + e1.z) + e2.z;
-        own[i][3] = ((v[3] + e0.w) + e1.w) + e2.w;
-        // (3) this warp's share of the hyper sums
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          sums[2 * (2 * m + (c >> 1))] += own[i][c];
-          sums[2 * (2 * m + (c >> 1)) + 1] += z[i][c] * own[i][c];
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      sums[k] += __shfl_xor_sync(kFull, sums[k], 1);
-      sums[k] += __shfl_xor_sync(kFull, sums[k], 2);
-      sm[(part * 8 + k) * 32] = sums[k];
-    }
-    named_barrier(bar, kSplit * 32);
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      sums[k] = ((sm[k * 32] + sm[(8 + k) * 32]) + sm[(16 + k) * 32]) + sm[(24 + k) * 32];
-    }
+    w.gather(grad, z, own, sums);
 
     // (4) the update: z of the own units, mu and log tau in every warp alike
 #pragma unroll

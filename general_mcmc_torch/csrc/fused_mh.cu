@@ -10,9 +10,14 @@
 // proposal; CUDA cannot inline a Python callable, so the targets and
 // proposals are device functions selected by an enum, and the wrapper
 // (ops/fused_mh.py) refuses any other:
-//   targets   GaussianND with diagonal covariance (mean and precision rows),
-//             Gaussian2D (the explicit quadratic form, times 1 / det),
-//             Rosenbrock2D;
+//   targets   GaussianND with diagonal covariance (mean and precision rows)
+//             or a dense one (the Cholesky factor L: y = L^-1 (x - mean) by
+//             a forward solve against L^T in shared memory, d <= 240,
+//             MAX_DENSE_DIM in ops/fused_mh.py), Gaussian2D (the explicit
+//             quadratic form, times 1 / det), DiffableGaussian2D,
+//             Rosenbrock2D, RosenbrockND and NealsFunnel (the neighbour and
+//             the last coordinate reach the lanes that need them by
+//             shuffles, lane_targets.cuh);
 //   proposals Gaussian random walk y = x + s z (symmetric) and pCN
 //             y = rho x + beta z with log q(a->b) = -1/2 sum ((b - rho a)/beta)^2.
 // The initial log density is computed here, from the same device function.
@@ -62,12 +67,17 @@
 // from its Box-Muller draw (which computes that log anyway) and the group
 // reads it by one shuffle.  G is the power of two >= the blocks, at most 32
 // (then QPL = the blocks / 32, rounded up, up to 5: d <= 512); at d <= 2,
-// G = 1.  Row sums are butterfly shuffles within the group, which leave the
-// same bits on every lane.
+// G = 1 for the 2-d targets and the diagonal GaussianND (design (b)) and 2
+// for the targets that need a lane group at any width (RosenbrockND, the
+// funnel, the dense GaussianND).  Row sums are butterfly shuffles within the
+// group, which leave the same bits on every lane.
 //
 // Agreement with the plain version: built with -fmad=false, every
 // elementwise operation rounds as the plain version's separate PyTorch ops
-// do, in the same order; row sums are accumulated in double and rounded once
+// do, in the same order (a division by a Python number as the product with
+// its float reciprocal, as PyTorch divides on the card: the funnel's
+// 1 / v_std); the dense GaussianND's solve sums in column order, not in
+// cuBLAS's, and agrees to a tolerance; row sums are accumulated in double and rounded once
 // to float, as the plain version's are (see fused_hmc.cu).  The draws are
 // the words the plain version reads (ops/counter_rng.py, mh_draws), through
 // the straight forms of logf, sqrtf and sincosf, whose bits equal
@@ -81,19 +91,31 @@
 #include <cuda_runtime.h>
 
 #include "counter_rng.cuh"
+#include "lane_targets.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Target : int { kGaussianND = 0, kGaussian2D = 1, kRosenbrock2D = 2 };
+// The device targets: gmt_lanes::Target, the TARGET_* codes of ops/fused_hmc.py.
+constexpr int kGaussianND = gmt_lanes::kGaussianDiag;
+constexpr int kGaussianDense = gmt_lanes::kGaussianDense;
+constexpr int kDiffable2D = gmt_lanes::kDiffable2D;
+constexpr int kGaussian2D = gmt_lanes::kGaussian2D;
+constexpr int kRosenbrock2D = gmt_lanes::kRosenbrock2D;
+constexpr int kRosenbrockND = gmt_lanes::kRosenbrockND;
+constexpr int kFunnel = gmt_lanes::kFunnel;
 enum Proposal : int { kRandomWalk = 0, kPCN = 1 };
 
 struct Args {
   const float* x0;
-  const float* params;  // GaussianND: mean[d], prec[d]; Gaussian2D: m0, m1, a,
-                        // b + c, d, 1 / det; Rosenbrock2D: a, b
+  const float* params;  // GaussianND: mean[d], prec[d]; dense: mean[d], L[d][d];
+                        // Gaussian2D: m0, m1, a, b + c, d, 1 / det;
+                        // DiffableGaussian2D: m0, m1, ic00, ic01 + ic10, ic11,
+                        // the normalising constant; Rosenbrock2D: a, b;
+                        // NealsFunnel: 1 / v_std, 1 / v_std^2, (dim - 1) / 2
+                        // (the rows of ops/fused_hmc.py, target_params)
   float* out;
   int n, d, n_collect, n_discard, thin;
   float p0, p1, p2;  // random walk: scale; pCN: rho, beta, 1 / beta
@@ -110,30 +132,22 @@ __device__ __forceinline__ float group_sum(double v) {
   return static_cast<float>(v);
 }
 
-// The target's log density at this lane's elements v (out-of-range elements
-// hold zeros and add nothing).  mu and prec are the GaussianND rows; k holds
-// the 2-d targets' constants.
-template <int G, int E, int TGT>
-__device__ __forceinline__ float log_density(const float (&v)[E], const float (&mu)[E],
-                                             const float (&prec)[E], const float (&k)[6]) {
-  if (TGT == kGaussianND) {
-    double acc = 0.0;
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const float diff = v[i] - mu[i];
-      acc += diff * diff * prec[i];
-    }
-    return -0.5f * group_sum<G>(acc);
-  } else if (TGT == kGaussian2D) {
-    const float d0 = v[0] - k[0];
-    const float d1 = v[1] - k[1];
-    const float quad = (k[4] * d0 * d0 - k[3] * d0 * d1 + k[2] * d1 * d1) * k[5];
-    return -0.5f * quad;
-  } else {
-    const float u = k[0] - v[0];
-    const float w = v[1] - v[0] * v[0];
-    return -(u * u + k[1] * (w * w));
+// The dense GaussianND's shared memory: the rows of L^T, dense_pitch(d)
+// floats apart, then 1 / L_ii padded to dense_pitch(d); loaded by every
+// thread of the block.
+__host__ __device__ constexpr size_t dense_shared_bytes(int d) {
+  return sizeof(float) * (static_cast<size_t>(d) + 1) * gmt_lanes::dense_pitch(d);
+}
+__device__ void load_dense(const float* chol, int d, float* shared) {
+  const int p = gmt_lanes::dense_pitch(d);
+  for (int idx = threadIdx.x; idx < d * p; idx += blockDim.x) {
+    const int i = idx / p, j = idx % p;
+    shared[idx] = j < d ? chol[j * d + i] : 0.0f;  // L^T[i][j] = L[j][i]
   }
+  for (int i = threadIdx.x; i < p; i += blockDim.x) {
+    shared[d * p + i] = i < d ? 1.0f / chol[i * d + i] : 0.0f;
+  }
+  __syncthreads();
 }
 
 // pCN's log q(a -> b) up to its constant: -1/2 sum ((b - rho a) / beta)^2,
@@ -249,33 +263,115 @@ __device__ __forceinline__ void store_row(float* dst, const float (&x)[E], const
 }
 
 // One chain's state on this lane and its MH step; G lanes per chain, QPL
-// Philox blocks (four dimensions) per lane.
+// Philox blocks (four dimensions) per lane.  Element i of a lane is
+// coordinate 4 (sub + G (i / 4)) + i % 4 (at G = 1, i).
 template <int G, int QPL, int TGT, int PROP>
 struct Chain {
   static constexpr int E = kElems<G, QPL>;
   float x[E], y[E], mu[E], prec[E], k[6];
   bool ok[E];
   float lp;
+  int d, sub;
+  const float* lt;     // dense: rows of L^T and 1 / diag(L) in shared memory
+  const float* rdiag;
 
-  __device__ __forceinline__ void init(const Args& a, uint32_t chain, int sub) {
+  __device__ __forceinline__ int coord(int i) const { return 4 * (sub + G * (i / 4)) + i % 4; }
+
+  __device__ __forceinline__ void init(const Args& a, uint32_t chain, int sub_,
+                                       const float* shared) {
+    d = a.d;
+    sub = sub_;
+    lt = shared;
+    rdiag = shared + a.d * gmt_lanes::dense_pitch(a.d);
 #pragma unroll
     for (int i = 0; i < 6; ++i) k[i] = 0.0f;
-    if (TGT == kGaussian2D) {
+    if (TGT == kGaussian2D || TGT == kDiffable2D) {
 #pragma unroll
       for (int i = 0; i < 6; ++i) k[i] = a.params[i];
     } else if (TGT == kRosenbrock2D) {
       k[0] = a.params[0];
       k[1] = a.params[1];
+    } else if (TGT == kFunnel) {
+      k[0] = a.params[0];
+      k[2] = a.params[2];
     }
 #pragma unroll
     for (int i = 0; i < E; ++i) {
-      const int j = 4 * (sub + G * (i / 4)) + i % 4;
+      const int j = coord(i);
       ok[i] = j < a.d;
       x[i] = ok[i] ? a.x0[static_cast<int64_t>(chain) * a.d + j] : 0.0f;
-      mu[i] = (TGT == kGaussianND && ok[i]) ? a.params[j] : 0.0f;
+      mu[i] = ((TGT == kGaussianND || TGT == kGaussianDense) && ok[i]) ? a.params[j] : 0.0f;
       prec[i] = (TGT == kGaussianND && ok[i]) ? a.params[a.d + j] : 0.0f;
     }
-    lp = log_density<G, E, TGT>(x, mu, prec, k);
+    lp = log_density(x);
+  }
+
+  // The target's log density at this lane's elements v (out-of-range
+  // elements hold zeros and add nothing); the same on every lane of the
+  // group.
+  __device__ __forceinline__ float log_density(const float (&v)[E]) const {
+    if constexpr (TGT == kGaussianND) {
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const float diff = v[i] - mu[i];
+        acc += diff * diff * prec[i];
+      }
+      return -0.5f * group_sum<G>(acc);
+    } else if constexpr (TGT == kGaussian2D) {
+      const float d0 = v[0] - k[0];
+      const float d1 = v[1] - k[1];
+      const float quad = (k[4] * d0 * d0 - k[3] * d0 * d1 + k[2] * d1 * d1) * k[5];
+      return -0.5f * quad;
+    } else if constexpr (TGT == kDiffable2D) {
+      // norm_const - 0.5 (ic00 d0 d0 + (ic01 + ic10) d0 d1 + ic11 d1 d1)
+      const float d0 = v[0] - k[0];
+      const float d1 = v[1] - k[1];
+      const float quad = k[2] * d0 * d0 + k[3] * d0 * d1 + k[4] * d1 * d1;
+      return k[5] - 0.5f * quad;
+    } else if constexpr (TGT == kRosenbrock2D) {
+      const float u = k[0] - v[0];
+      const float w = v[1] - v[0] * v[0];
+      return -(u * u + k[1] * (w * w));
+    } else if constexpr (TGT == kRosenbrockND) {
+      // -sum_{j < d - 1} (100 (x_{j+1} - x_j^2)^2 + (1 - x_j)^2)
+      float w[E];
+      gmt_lanes::rosen_v<QPL>(v, w, G, sub);
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const float u = 1.0f - v[i];
+        if (coord(i) < d - 1) acc += 100.0f * (w[i] * w[i]) + u * u;
+      }
+      return -group_sum<G>(acc);
+    } else if constexpr (TGT == kFunnel) {
+      // -(v / v_std)^2 / 2 + (-sum x^2 e^-v / 2 - (dim - 1) v / 2), v the
+      // last coordinate, reaching the group from its lane
+      double acc = 0.0;
+      float mine = 0.0f;
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        const int j = coord(i);
+        if (j < d - 1) acc += v[i] * v[i];
+        if (j == d - 1) mine = v[i];
+      }
+      const float sq = group_sum<G>(acc);
+      const float lv = __shfl_sync(kFull, mine, ((d - 1) / 4) % G, G);
+      const float t = lv * k[0];
+      return -0.5f * (t * t) + ((-0.5f * sq) * expf(-lv) - k[2] * lv);
+    } else {  // kGaussianDense: -1/2 |L^-1 (v - mean)|^2
+      float r[E], yv[E];
+#pragma unroll
+      for (int i = 0; i < E; ++i) {
+        r[i] = v[i] - mu[i];
+        yv[i] = 0.0f;
+      }
+      gmt_lanes::forward_solve<QPL>(lt, rdiag, gmt_lanes::dense_pitch(d), d, G, sub, r, yv);
+      double acc = 0.0;
+#pragma unroll
+      for (int i = 0; i < E; ++i) acc += yv[i] * yv[i];
+      return -0.5f * group_sum<G>(acc);
+    }
   }
 
   // One step with the draws z (zero beyond d) and log u.
@@ -284,7 +380,7 @@ struct Chain {
     for (int i = 0; i < E; ++i) {
       y[i] = (PROP == kRandomWalk) ? x[i] + a.p0 * z[i] : a.p0 * x[i] + a.p1 * z[i];
     }
-    const float lp_new = log_density<G, E, TGT>(y, mu, prec, k);
+    const float lp_new = log_density(y);
     float log_accept;
     if (PROP == kRandomWalk) {
       log_accept = lp_new - lp;
@@ -353,8 +449,11 @@ __global__ void __launch_bounds__(kThreads) fused_mh_kernel(const Args a) {
   const int lane = static_cast<int>(threadIdx.x & 31);
   const Layout lay{pairs / 2 + 1, (pairs & 1) != 0, lane - sub + (pairs / 2) % G};
 
+  extern __shared__ float4 k3_shared[];  // the dense GaussianND's L^T (load_dense)
+  float* shared = reinterpret_cast<float*>(k3_shared);
+  if constexpr (TGT == kGaussianDense) load_dense(a.params + a.d, a.d, shared);
   C c;
-  c.init(a, chain, sub);
+  c.init(a, chain, sub, shared);
   Store st(a, chain);
   float z[S][E], log_u[S];        // the tile being walked
   float z_next[S][E], lu_next[S];  // the next tile, drawn meanwhile
@@ -467,7 +566,7 @@ __global__ void __launch_bounds__(kWalkers + 32 * P) fused_mh_ws_kernel(const Ar
   const bool live = slot < a.n;
   const uint32_t chain = static_cast<uint32_t>(live ? slot : a.n - 1);
   Chain<1, 1, TGT, PROP> c;
-  c.init(a, chain, 0);
+  c.init(a, chain, 0, nullptr);
   Store st(a, chain);
   for (int i0 = 0; i0 < n_tiles; i0 += kSlots) {
 #pragma unroll
@@ -499,14 +598,40 @@ cudaError_t launch(const Args& a, int proposal, cudaStream_t stream) {
   constexpr int S = QPL == 1 ? 4 : 1;
   const int64_t threads = static_cast<int64_t>(a.n) * G;
   const dim3 grid(static_cast<unsigned int>((threads + kThreads - 1) / kThreads));
-  if (proposal == kRandomWalk) {
-    fused_mh_kernel<G, QPL, S, TGT, kRandomWalk><<<grid, kThreads, 0, stream>>>(a);
-  } else if (proposal == kPCN) {
-    fused_mh_kernel<G, QPL, S, TGT, kPCN><<<grid, kThreads, 0, stream>>>(a);
-  } else {
-    return cudaErrorInvalidValue;
+  const auto kernel = proposal == kPCN ? fused_mh_kernel<G, QPL, S, TGT, kPCN>
+                                       : fused_mh_kernel<G, QPL, S, TGT, kRandomWalk>;
+  if (proposal != kRandomWalk && proposal != kPCN) return cudaErrorInvalidValue;
+  size_t bytes = 0;
+  if (TGT == kGaussianDense) {
+    // above 48 KB a block's shared memory is granted only on request
+    bytes = dense_shared_bytes(a.d);
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
   }
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Design (a) at the width: G the power of two >= the Philox blocks a step
+// (at least 2), a whole warp and 1..QMAX (2 or 5) blocks a lane past 16
+// blocks.
+template <int TGT, int QMAX>
+cudaError_t launch_lanes(const Args& a, int proposal, cudaStream_t s) {
+  const int nb = (a.d + 1) / 2 / 2 + 1;  // Philox blocks a step
+  if (nb <= 2) return launch<2, 1, TGT>(a, proposal, s);
+  if (nb <= 4) return launch<4, 1, TGT>(a, proposal, s);
+  if (nb <= 8) return launch<8, 1, TGT>(a, proposal, s);
+  if (nb <= 16) return launch<16, 1, TGT>(a, proposal, s);
+  const int qpl = (nb + 31) / 32;
+  if (qpl == 1) return launch<32, 1, TGT>(a, proposal, s);
+  if (qpl == 2) return launch<32, 2, TGT>(a, proposal, s);
+  if constexpr (QMAX >= 5) {
+    if (qpl == 3) return launch<32, 3, TGT>(a, proposal, s);
+    if (qpl == 4) return launch<32, 4, TGT>(a, proposal, s);
+    if (qpl == 5) return launch<32, 5, TGT>(a, proposal, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // Design (b) for a thread a chain: 16 producer warps a block, tiles of 8
@@ -535,27 +660,29 @@ extern "C" int fused_mh_launch(const void* x0, const void* params, void* out, in
                static_cast<float*>(out), n, d, n_collect, n_discard, thin, p0, p1, p2, seed,
                chain0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (target == kGaussian2D || target == kRosenbrock2D) {
-    if (d != 2) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(target == kGaussian2D ? launch_ws<kGaussian2D>(a, proposal, s)
-                                                  : launch_ws<kRosenbrock2D>(a, proposal, s));
-  }
-  if (target != kGaussianND || d < 1) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int ND = kGaussianND;
-  const int nb = (d + 1) / 2 / 2 + 1;  // Philox blocks a step
-  if (nb <= 1) return static_cast<int>(launch_ws<ND>(a, proposal, s));
-  if (nb <= 2) return static_cast<int>(launch<2, 1, ND>(a, proposal, s));
-  if (nb <= 4) return static_cast<int>(launch<4, 1, ND>(a, proposal, s));
-  if (nb <= 8) return static_cast<int>(launch<8, 1, ND>(a, proposal, s));
-  if (nb <= 16) return static_cast<int>(launch<16, 1, ND>(a, proposal, s));
-  // a whole warp per chain, built for 1..5 blocks a lane: d <= 512 (MAX_DIM
-  // in ops/fused_mh.py)
-  switch ((nb + 31) / 32) {
-    case 1: return static_cast<int>(launch<32, 1, ND>(a, proposal, s));
-    case 2: return static_cast<int>(launch<32, 2, ND>(a, proposal, s));
-    case 3: return static_cast<int>(launch<32, 3, ND>(a, proposal, s));
-    case 4: return static_cast<int>(launch<32, 4, ND>(a, proposal, s));
-    case 5: return static_cast<int>(launch<32, 5, ND>(a, proposal, s));
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // the widths each target is built for: d <= 512 (MAX_DIM in
+  // ops/fused_mh.py: a warp of five blocks a lane), the dense GaussianND
+  // d <= 240 (two blocks a lane), the 2-d targets d = 2
+  switch (target) {
+    case kGaussian2D:
+    case kRosenbrock2D:
+    case kDiffable2D:
+      if (d != 2) return static_cast<int>(cudaErrorInvalidValue);
+      if (target == kGaussian2D) return static_cast<int>(launch_ws<kGaussian2D>(a, proposal, s));
+      if (target == kRosenbrock2D) {
+        return static_cast<int>(launch_ws<kRosenbrock2D>(a, proposal, s));
+      }
+      return static_cast<int>(launch_ws<kDiffable2D>(a, proposal, s));
+    case kGaussianND:
+      // d <= 2: one block a step, the thread-per-chain walk
+      if (d <= 2) return static_cast<int>(launch_ws<kGaussianND>(a, proposal, s));
+      return static_cast<int>(launch_lanes<kGaussianND, 5>(a, proposal, s));
+    case kRosenbrockND: return static_cast<int>(launch_lanes<kRosenbrockND, 5>(a, proposal, s));
+    case kFunnel: return static_cast<int>(launch_lanes<kFunnel, 5>(a, proposal, s));
+    case kGaussianDense:
+      if (d > 240) return static_cast<int>(cudaErrorInvalidValue);
+      return static_cast<int>(launch_lanes<kGaussianDense, 2>(a, proposal, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

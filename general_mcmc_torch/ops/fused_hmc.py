@@ -10,9 +10,15 @@ the CPU.  The plain version is the ``"torch"`` backend's step loop of
 rounding.
 
 The Pallas kernel inlines any traced target.  A CUDA kernel cannot inline
-a Python callable, so this one takes the target of the main path,
-``GaussianND`` with a diagonal covariance (its mean and precision ride as
-``[d]`` rows), and a diagonal ``mass_inv``; anything else raises.
+a Python callable, so the kernel holds a device function for each of the
+repo's continuous targets: ``GaussianND`` with a diagonal covariance (the
+main path) or a dense one (``d <= MAX_DENSE_DIM``: the Cholesky factor in
+shared memory), ``DiffableGaussian2D``, ``Gaussian2D``, ``Rosenbrock2D``,
+``RosenbrockND`` and ``NealsFunnel``; ``HierarchicalLogisticNC`` runs in a
+kernel of its own on the tensor cores (:mod:`.fused_hmc_logistic`).  The
+target's constants ride as one float32 row.  ``mass_inv`` is a diagonal.
+Anything else raises: a Python callable, the discrete targets, the centred
+``HierarchicalLogistic``, a dense ``mass_inv``.
 
 The kernel gives each chain a group of lanes of a warp and each lane a few
 quads of dimensions (one Philox block draws a quad's four momenta).
@@ -28,13 +34,17 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from ..models.distributions import GaussianND
+from ..models.distributions import (DiffableGaussian2D, Gaussian2D, GaussianND, NealsFunnel,
+                                    Rosenbrock2D, RosenbrockND)
+from ..models.regression import HierarchicalLogisticNC
 from ..rng import stream_key
+from . import fused_hmc_logistic
 
 __all__ = ["fused_hmc_run", "fused_hmc_run_reference", "lane_map", "lane_maps", "launches",
-           "MAX_DIM", "MAX_QUADS_PER_LANE"]
+           "target_code", "target_params", "MAX_DIM", "MAX_DENSE_DIM", "MAX_QUADS_PER_LANE"]
 
 # Launches of the fused kernel in this process.
 launches = 0
@@ -44,6 +54,19 @@ launches = 0
 # in registers).
 MAX_QUADS_PER_LANE = 4
 MAX_DIM = 512  # 32 lanes x 4 quads x 4 dimensions
+# The dense GaussianND keeps L, its transpose and 1 / diag(L) in a block's
+# shared memory, rows padded to quads: (2 d + 1) (4 ceil(d / 4)) floats
+# within an H100's 232,448 bytes.
+MAX_DENSE_DIM = 168
+
+# The Target enum of csrc/lane_targets.cuh, which K1 and K3 share.
+(TARGET_GAUSSIAN_DIAG, TARGET_GAUSSIAN_DENSE, TARGET_DIFFABLE_2D, TARGET_GAUSSIAN_2D,
+ TARGET_ROSENBROCK_2D, TARGET_ROSENBROCK_ND, TARGET_FUNNEL) = range(7)
+
+TARGET_NAMES = ("GaussianND (diagonal or dense covariance), DiffableGaussian2D, Gaussian2D, "
+                "Rosenbrock2D, RosenbrockND, NealsFunnel")
+_TAKES = f"the fused HMC kernels take the targets {TARGET_NAMES} and HierarchicalLogisticNC"
+
 
 def lane_maps(d: int):
     """Every lane map ``(lanes per chain G, quads per lane)`` the kernel
@@ -77,25 +100,79 @@ def lane_map(d: int):
     return lane_maps(d)[0]
 
 
+def target_code(target, d: int, max_dense: int = MAX_DENSE_DIM, takes: str = _TAKES) -> int:
+    """Which device function evaluates ``target`` at width ``d`` (the
+    ``Target`` enum that ``csrc/fused_hmc.cu`` and ``csrc/fused_mh.cu``
+    share); raises, with ``takes`` as the message, for a target the kernels
+    do not take, and for a dense ``GaussianND`` wider than ``max_dense``."""
+    if isinstance(target, GaussianND):
+        if tuple(target.mean.shape) != (d,):
+            raise ValueError(f"target mean must be [{d}]")
+        if target.is_diagonal:
+            return TARGET_GAUSSIAN_DIAG
+        if d > max_dense:
+            raise ValueError(f"the fused kernel takes a dense-covariance GaussianND of "
+                             f"dim <= {max_dense}, got {d}")
+        return TARGET_GAUSSIAN_DENSE
+    two_d = {DiffableGaussian2D: TARGET_DIFFABLE_2D, Gaussian2D: TARGET_GAUSSIAN_2D,
+             Rosenbrock2D: TARGET_ROSENBROCK_2D}
+    if type(target) in two_d:
+        if d != 2:
+            raise ValueError(f"{type(target).__name__} takes states of width 2, got {d}")
+        return two_d[type(target)]
+    if isinstance(target, RosenbrockND):
+        return TARGET_ROSENBROCK_ND
+    if isinstance(target, NealsFunnel):
+        return TARGET_FUNNEL
+    name = getattr(target, "__name__", type(target).__name__)
+    raise ValueError(f"{takes}, not the target {name}")
+
+
+def target_params(target, code: int, **f32) -> torch.Tensor:
+    """The target's constants as one float32 row, in the order the kernel
+    reads them, each the float the plain version computes with on the card
+    (a division by a Python number there is a product with the float32
+    reciprocal)."""
+    if code == TARGET_GAUSSIAN_DIAG:
+        return torch.cat([target.mean.to(**f32), target.diag_prec.to(**f32)]).contiguous()
+    if code == TARGET_GAUSSIAN_DENSE:
+        return torch.cat([target.mean.to(**f32),
+                          target.chol.to(**f32).reshape(-1)]).contiguous()
+    if code == TARGET_DIFFABLE_2D:
+        ic = target.inv_cov.to(**f32)
+        return torch.stack([*target.mean.to(**f32), ic[0, 0], ic[0, 1] + ic[1, 0], ic[1, 1],
+                            target.norm_const.to(**f32)]).contiguous()
+    if code == TARGET_GAUSSIAN_2D:
+        return torch.cat([target.mean.to(**f32), target.form.to(**f32)]).contiguous()
+    if code == TARGET_ROSENBROCK_2D:
+        return torch.tensor([target.a, target.b], **f32)
+    if code == TARGET_FUNNEL:
+        one = np.float32(1.0)
+        return torch.tensor([one / np.float32(target.v_std),
+                             one / np.float32(target.v_std * target.v_std),
+                             0.5 * (target.dim - 1)], **f32)
+    return torch.zeros(1, **f32)  # RosenbrockND has no constants
+
+
 def _check_args(target, initial_positions, n_leapfrog, n_collect, n_discard, thin,
                 mass_inv, chain0=0):
-    if not isinstance(target, GaussianND) or not target.is_diagonal:
-        raise ValueError(
-            "the fused HMC kernel takes a GaussianND target with a diagonal "
-            f"covariance, not {type(target).__name__}"
-            + ("" if not isinstance(target, GaussianND) else " with a dense covariance")
-        )
+    """The target's code (or ``None`` for the logistic kernel's target)
+    after the checks the CPU and the card share."""
     if initial_positions.ndim != 2:
         raise ValueError("initial_positions must be [n_chains, dim]")
     d = initial_positions.shape[1]
-    if tuple(target.mean.shape) != (d,):
-        raise ValueError(f"target mean must be [{d}]")
+    if isinstance(target, HierarchicalLogisticNC):
+        fused_hmc_logistic.check_target(target, d)
+        code = None
+    else:
+        code = target_code(target, d)
     if mass_inv is not None and tuple(mass_inv.shape) != (d,):
         raise ValueError(f"the fused HMC kernel takes a diagonal mass_inv [{d}]")
     if n_leapfrog < 1 or thin < 1 or n_collect < 0 or n_discard < 0:
         raise ValueError("need n_leapfrog >= 1, thin >= 1, n_collect, n_discard >= 0")
     if not 0 <= chain0 < 2**32:
         raise ValueError(f"chain0 must be uint32, got {chain0}")
+    return code
 
 
 def fused_hmc_run_reference(target, initial_positions, step_size, n_leapfrog,
@@ -123,11 +200,13 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
     0 (row ``r`` draws as chain ``chain0 + r``).
 
     For ``initial_positions`` on the card this is one launch of
-    ``csrc/fused_hmc.cu``; on the CPU it is the plain version."""
+    ``csrc/fused_hmc.cu`` (``csrc/fused_hmc_logistic.cu`` for a
+    ``HierarchicalLogisticNC`` target); on the CPU it is the plain
+    version."""
     x0 = initial_positions
     if mass_inv is not None:
         mass_inv = torch.as_tensor(mass_inv, device=x0.device)
-    _check_args(target, x0, n_leapfrog, n_collect, n_discard, thin, mass_inv, chain0)
+    code = _check_args(target, x0, n_leapfrog, n_collect, n_discard, thin, mass_inv, chain0)
     if x0.device.type == "cpu":
         return fused_hmc_run_reference(target, x0, step_size, n_leapfrog, n_collect,
                                        n_discard, seed, thin, mass_inv, chain0)
@@ -135,44 +214,49 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
         raise ValueError(f"fused_hmc_run runs on cuda or cpu, not {x0.device}")
     if x0.dtype != torch.float32 or not x0.is_contiguous():
         raise ValueError("initial_positions must be contiguous float32")
-    n, d = x0.shape
-    if d > MAX_DIM:
-        raise ValueError(f"the fused HMC kernel takes dim <= {MAX_DIM}, got {d}")
     if (n_discard + n_collect * thin) >= 2**31:
         raise ValueError("too many steps for one launch")
+    n, d = x0.shape
     dev = x0.device
     f32 = dict(device=dev, dtype=torch.float32)
-    mean = target.mean.to(**f32).contiguous()
-    prec = target.diag_prec.to(**f32).contiguous()
     use_mass = mass_inv is not None and bool(torch.any(mass_inv != 1.0))
     inv_row = mass_inv.to(**f32).contiguous() if use_mass else torch.ones(d, **f32)
     scale_row = 1.0 / torch.sqrt(inv_row)
+    if code is None:
+        return fused_hmc_logistic.launch_logistic(target, x0, step_size, n_leapfrog, n_collect,
+                                                  n_discard, seed, thin, inv_row, scale_row,
+                                                  chain0)
+    if d > MAX_DIM:
+        raise ValueError(f"the fused HMC kernel takes dim <= {MAX_DIM}, got {d}")
+    params = target_params(target, code, **f32)
     out = torch.empty((n_collect, n, d), **f32)
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)
 
-    _launch(x0, mean, prec, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
-            seed, use_mass, lane_map(d), chain0)
+    _launch(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
+            seed, use_mass, lane_map(d), chain0, code)
     return out.transpose(0, 1)
 
 
-def _launch(x0, mean, prec, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
-            seed, use_mass, lanes, chain0=0):
-    """One launch of the kernel under the lane map ``lanes`` into the
-    steps-major store ``out`` (checked CUDA tensors)."""
+def _launch(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
+            seed, use_mass, lanes, chain0=0, code=TARGET_GAUSSIAN_DIAG):
+    """One launch of the kernel on the target ``code`` (its constants
+    ``params``) under the lane map ``lanes`` into the steps-major store
+    ``out`` (checked CUDA tensors)."""
     from .._build import check, load
 
     global launches
     n, d = x0.shape
     lib = load("fused_hmc")
     fn = lib.fused_hmc_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = fn(x0.data_ptr(), mean.data_ptr(), prec.data_ptr(), inv_row.data_ptr(),
-              scale_row.data_ptr(), out.data_ptr(), n, d, out.shape[0], n_discard, thin,
-              int(n_leapfrog), float(step_size), stream_key(seed), int(chain0), int(use_mass),
-              int(lanes[0]), int(lanes[1]), torch.cuda.current_stream(x0.device).cuda_stream)
-    check(lib, code, "fused_hmc_launch")
+    code_rc = fn(x0.data_ptr(), params.data_ptr(), inv_row.data_ptr(), scale_row.data_ptr(),
+                 out.data_ptr(), n, d, out.shape[0], n_discard, thin, int(n_leapfrog),
+                 float(step_size), stream_key(seed), int(chain0), int(use_mass), int(code),
+                 int(lanes[0]), int(lanes[1]),
+                 torch.cuda.current_stream(x0.device).cuda_stream)
+    check(lib, code_rc, "fused_hmc_launch")
     launches += 1

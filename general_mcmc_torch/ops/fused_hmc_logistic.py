@@ -1,0 +1,96 @@
+"""Whole-run batched HMC on the non-centred hierarchical logistic target in
+one kernel launch, the gradient's two products on the tensor cores.
+
+Port of ``general_mcmc_tpu/ops/pallas_hmc.py`` ``fused_hmc_run`` (the Pallas
+kernel ``_hmc_kernel``) where the traced target is
+:class:`..models.regression.HierarchicalLogisticNC`: the bench's stretch-line
+posterior under ``HMC(backend="pallas")``.  :func:`..ops.fused_hmc.fused_hmc_run`
+hands such a target here; :func:`launch_logistic` launches the hand-written
+CUDA kernel ``csrc/fused_hmc_logistic.cu`` (built on the tile code it shares
+with :mod:`.fused_logistic`, ``csrc/logistic_tile.cuh``), and on the CPU the
+plain version is :func:`..ops.fused_hmc.fused_hmc_run_reference`, the
+``"torch"`` backend's step loop over the target's ``unnorm_logp_grad``.
+
+Both read the same counter-generator draws at K1's addresses, but the
+kernel's products sum in another order than ``torch.matmul`` and carry the
+three-pass TF32 split's 2⁻²², so the two agree to a tolerance and not bit
+for bit; a chain whose accept decision lies within that rounding of its
+uniform takes another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..models.regression import HierarchicalLogisticNC
+from ..rng import stream_key
+from .fused_logistic import MAX_FEATURES, MAX_SHARED_BYTES
+from .fused_logistic import shared_bytes as _tile_bytes
+
+__all__ = ["check_target", "launch_logistic", "launches", "shared_bytes", "MAX_FEATURES",
+           "MAX_SHARED_BYTES"]
+
+# Launches of the fused kernel in this process.
+launches = 0
+
+
+def shared_bytes(n_obs: int, p: int, tiles: int = 1) -> int:
+    """Shared memory of a block of ``tiles`` chain tiles: the gradient chain's
+    (:func:`..ops.fused_logistic.shared_bytes`), each lane's opening z of its
+    own units (``p`` padded to 16, 32 or 48 floats for every 4 lanes of a
+    tile) and four floats of each of a tile's 32 rows.  The launch takes up
+    to three tiles a block where they fit; one must."""
+    p_pad = 16 * ((p + 15) // 16)
+    return _tile_bytes(n_obs, p, tiles) + 4 * tiles * ((p_pad // 4) * 128 + 32 * 4)
+
+
+def check_target(target, d: int) -> None:
+    """Raise unless the kernel takes ``target`` at width ``d``: ``p + 2``
+    coordinates, ``p <= MAX_FEATURES`` and ``X``, ``y`` within one block's
+    shared memory."""
+    if not isinstance(target, HierarchicalLogisticNC):
+        raise ValueError(f"the fused logistic HMC kernel takes a HierarchicalLogisticNC, "
+                         f"not {type(target).__name__}")
+    n_obs, p = target.X.shape
+    if d != p + 2:
+        raise ValueError(f"a HierarchicalLogisticNC of {p} features takes states of width "
+                         f"{p + 2}, got {d}")
+    if p > MAX_FEATURES:
+        raise ValueError(f"the fused logistic HMC kernel takes p <= {MAX_FEATURES}, got {p}")
+    if shared_bytes(n_obs, p) > MAX_SHARED_BYTES:
+        raise ValueError(f"X [{n_obs}, {p}] and y need {shared_bytes(n_obs, p)} bytes of "
+                         f"shared memory; the kernel has {MAX_SHARED_BYTES}")
+
+
+def launch_logistic(target, x0, step_size, n_leapfrog, n_collect, n_discard, seed, thin,
+                    inv_row, scale_row, chain0=0):
+    """One launch of ``csrc/fused_hmc_logistic.cu`` from the checked CUDA
+    positions ``x0 [n, p + 2]`` (``inv_row`` and ``scale_row`` the ``[p + 2]``
+    rows of M⁻¹ and √M): ``[n, n_collect, p + 2]``, a view of the
+    steps-major store, as :func:`..ops.fused_hmc.fused_hmc_run` returns."""
+    from .._build import check, load
+
+    global launches
+    n, d = x0.shape
+    check_target(target, d)
+    f32 = dict(device=x0.device, dtype=torch.float32)
+    X = target.X.to(**f32).contiguous()
+    y = target.y.to(**f32).contiguous()
+    n_obs, p = X.shape
+    out = torch.empty((n_collect, n, d), **f32)
+    if n_collect == 0 or n == 0:
+        return out.transpose(0, 1)
+    lib = load("fused_hmc_logistic")
+    fn = lib.fused_hmc_logistic_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x0.data_ptr(), X.data_ptr(), y.data_ptr(), inv_row.data_ptr(), scale_row.data_ptr(),
+            out.data_ptr(), n, p, n_obs, n_collect, n_discard, thin, int(n_leapfrog),
+            float(step_size), stream_key(seed), int(chain0),
+            torch.cuda.current_stream(x0.device).cuda_stream)
+    check(lib, rc, "fused_hmc_logistic_launch")
+    launches += 1
+    return out.transpose(0, 1)

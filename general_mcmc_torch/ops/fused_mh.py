@@ -11,12 +11,19 @@ follow the same trajectory.
 
 The Pallas kernel inlines any traced target, ``propose`` and ``logp``.  A
 CUDA kernel cannot inline a Python callable, so this one holds device
-functions for the targets ``Gaussian2D``, ``Rosenbrock2D`` and ``GaussianND``
-with a diagonal covariance, and for the proposals Gaussian random walk
+functions for the targets ``GaussianND`` with a diagonal covariance or a
+dense one (``d <= MAX_DENSE_DIM``: ``L`` in shared memory), ``Gaussian2D``,
+``DiffableGaussian2D``, ``Rosenbrock2D``, ``RosenbrockND`` and
+``NealsFunnel`` (the same device targets as the fused HMC kernel's,
+:func:`.fused_hmc.target_code`), and for the proposals Gaussian random walk
 (``RandomWalkProposal`` or ``IsotropicGaussian``) and pCN (``PCNProposal``);
-anything else raises.  The TPU kernel's transposed ``[dim, chains]`` state
-is a tiling decision of that machine and is not carried over: the store is
-steps-major ``[n_collect, n_chains, dim]``, as the fused HMC run's is.
+anything else raises, ``DiscreteWalkProposal`` and integer states included
+(the JAX package's discrete walk takes its XLA path too).  The dense target
+agrees with the plain version to a tolerance (its solve sums in another
+order than cuBLAS), the rest bit for bit.  The TPU kernel's transposed
+``[dim, chains]`` state is a tiling decision of that machine and is not
+carried over: the store is steps-major ``[n_collect, n_chains, dim]``, as
+the fused HMC run's is.
 
 The kernel computes the draws of a tile of steps ahead of the walk; it
 chooses its lane map, tile and design from the width (``csrc/fused_mh.cu``,
@@ -31,40 +38,27 @@ import ctypes
 
 import torch
 
-from ..models.distributions import Gaussian2D, GaussianND, IsotropicGaussian, Rosenbrock2D
+from ..models.distributions import IsotropicGaussian
 from ..rng import stream_key
 from ..samplers.metropolis_hastings import PCNProposal, RandomWalkProposal
+from .fused_hmc import TARGET_NAMES, target_code, target_params
 
-__all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "MAX_DIM"]
+__all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "MAX_DIM", "MAX_DENSE_DIM"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
 MAX_DIM = 512  # widest state the kernel is built for (csrc/fused_mh.cu)
+# The dense GaussianND keeps L^T and 1 / diag(L) in a block's shared
+# memory, rows padded to quads: (d + 1) (4 ceil(d / 4)) floats within an
+# H100's 232,448 bytes.
+MAX_DENSE_DIM = 240
 
-# The enums of csrc/fused_mh.cu.
-_TARGET_GAUSSIAN_ND, _TARGET_GAUSSIAN_2D, _TARGET_ROSENBROCK_2D = 0, 1, 2
+# The Proposal enum of csrc/fused_mh.cu.
 _PROPOSAL_RANDOM_WALK, _PROPOSAL_PCN = 0, 1
 
-_TAKES = ("the fused MH kernel takes the targets Gaussian2D, Rosenbrock2D and GaussianND "
-          "with a diagonal covariance, and the proposals RandomWalkProposal, "
-          "IsotropicGaussian and PCNProposal")
-
-
-def _target_code(target, d: int) -> int:
-    """Which device function evaluates ``target``; raises for any other."""
-    if isinstance(target, GaussianND):
-        if not target.is_diagonal:
-            raise ValueError(f"{_TAKES}, not a GaussianND with a dense covariance")
-        if tuple(target.mean.shape) != (d,):
-            raise ValueError(f"target mean must be [{d}]")
-        return _TARGET_GAUSSIAN_ND
-    if isinstance(target, (Gaussian2D, Rosenbrock2D)):
-        if d != 2:
-            raise ValueError(f"{type(target).__name__} takes states of width 2, got {d}")
-        return _TARGET_GAUSSIAN_2D if isinstance(target, Gaussian2D) else _TARGET_ROSENBROCK_2D
-    name = getattr(target, "__name__", type(target).__name__)
-    raise ValueError(f"{_TAKES}, not the target {name}")
+_TAKES = (f"the fused MH kernel takes the targets {TARGET_NAMES}, and the proposals "
+          "RandomWalkProposal, IsotropicGaussian and PCNProposal")
 
 
 def _proposal_code(proposal):
@@ -84,23 +78,13 @@ def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin,
         raise ValueError("initial_positions must be [n_chains, dim]")
     if not initial_positions.dtype.is_floating_point:
         raise ValueError("the fused MH kernel takes float states")
-    code = _target_code(target, initial_positions.shape[1])
+    code = target_code(target, initial_positions.shape[1], MAX_DENSE_DIM, _TAKES)
     p_code, consts = _proposal_code(proposal)
     if thin < 1 or n_collect < 0 or n_discard < 0:
         raise ValueError("need thin >= 1, n_collect, n_discard >= 0")
     if not 0 <= chain0 < 2**32:
         raise ValueError(f"chain0 must be uint32, got {chain0}")
     return code, p_code, consts
-
-
-def _target_params(target, code: int, **f32) -> torch.Tensor:
-    """The target's constants as one float32 row, in the order the kernel
-    reads them."""
-    if code == _TARGET_GAUSSIAN_ND:
-        return torch.cat([target.mean.to(**f32), target.diag_prec.to(**f32)]).contiguous()
-    if code == _TARGET_GAUSSIAN_2D:
-        return torch.cat([target.mean.to(**f32), target.form.to(**f32)]).contiguous()
-    return torch.tensor([target.a, target.b], **f32)
 
 
 def fused_mh_run_reference(target, initial_positions, proposal, n_collect, n_discard=0,
@@ -143,7 +127,7 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
     if (n_discard + n_collect * thin) > 2**31 - 64:
         raise ValueError("too many steps for one launch")
     f32 = dict(device=x0.device, dtype=torch.float32)
-    params = _target_params(target, code, **f32)
+    params = target_params(target, code, **f32)
     out = torch.empty((n_collect, n, d), **f32)
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)

@@ -70,8 +70,12 @@ class HMC(BatchSampler):
     step_size : leapfrog step size ε
     n_leapfrog : leapfrog steps per proposal L
     seed : integer seed; draws are addressed by its 31-bit key
-    backend : ``"torch"`` or ``"cuda"`` (the fused kernel; diagonal
-        ``GaussianND`` targets and diagonal ``mass_inv`` only)
+    backend : ``"torch"`` or ``"cuda"`` (the fused kernel: ``GaussianND``
+        with a diagonal or a dense covariance, ``DiffableGaussian2D``,
+        ``Gaussian2D``, ``Rosenbrock2D``, ``RosenbrockND``, ``NealsFunnel``
+        and ``HierarchicalLogisticNC``, each a device function of
+        :mod:`..ops.fused_hmc`; a diagonal ``mass_inv`` only; any other
+        target raises)
     mass_inv : optional ``[dim]`` diagonal or ``[dim, dim]`` dense M⁻¹:
         momenta ~ N(0, M), drifts M⁻¹p, kinetic energy ½pᵀM⁻¹p
     device : where to run; ``None`` means the card, and raises if there is

@@ -115,8 +115,11 @@ class MetropolisHastings(BatchSampler):
     proposal : object with ``propose(x, draws)`` and ``logp(from, to)``
     initial_states : ``[n_chains, dim]`` array or tensor, float or integer
     seed : integer seed; draws are addressed by its 31-bit key
-    backend : ``"torch"`` or ``"cuda"`` (the fused kernel: float states,
-        the targets and proposals listed in :mod:`..ops.fused_mh`)
+    backend : ``"torch"`` or ``"cuda"`` (the fused kernel: float states;
+        ``GaussianND`` with a diagonal or a dense covariance,
+        ``Gaussian2D``, ``DiffableGaussian2D``, ``Rosenbrock2D``,
+        ``RosenbrockND`` and ``NealsFunnel``; the random walk and pCN
+        proposals; see :mod:`..ops.fused_mh`)
     device : where to run; ``None`` means the card, and raises if there is
         none (pass ``device="cpu"`` to run on the CPU)
     """

@@ -109,10 +109,11 @@ def test_wrapper_refusals():
     run = fused_mh.fused_mh_run
     with pytest.raises(ValueError, match="not the target"):
         run(lambda v: -0.5 * (v * v).sum(-1), x, proposal, 4)
-    with pytest.raises(ValueError, match="not the target DiffableGaussian2D"):
-        run(to_target("DiffableGaussian2D", _MEAN, _COV), x, proposal, 4)
-    with pytest.raises(ValueError, match="dense covariance"):
-        run(to_target("GaussianND", _MEAN, _COV), x, proposal, 4)
+    with pytest.raises(ValueError, match="not the target Poisson"):
+        run(to_target("Poisson", 3.0), x, proposal, 4)
+    d = fused_mh.MAX_DENSE_DIM + 1
+    with pytest.raises(ValueError, match=f"dense-covariance GaussianND of dim <= {d - 1}"):
+        run(to_target("GaussianND", np.zeros(d), np.eye(d)), torch.zeros(4, d), proposal, 4)
     with pytest.raises(ValueError, match="mean must be"):
         run(to_target("GaussianND", np.zeros(3), np.ones(3)), x, proposal, 4)
     with pytest.raises(ValueError, match="width 2"):
@@ -129,8 +130,8 @@ def test_wrapper_refusals():
         run(target, torch.empty(4, 2, device="meta"), proposal, 4)
     # the sampler refuses on the CPU just as it would on the card
     with pytest.raises(ValueError, match="not the target"):
-        MetropolisHastings(to_target("DiffableGaussian2D", _MEAN, _COV), proposal, x,
-                           backend="cuda", device="cpu").run(2)
+        MetropolisHastings(to_target("Poisson", 3.0), proposal, x, backend="cuda",
+                           device="cpu").run(2)
     before = fused_mh.launches
     run(target, x, proposal, 3)
     assert fused_mh.launches == before  # the CPU runs the plain version: no launch

@@ -108,26 +108,37 @@ def test_dense_mass_on_cuda_backend_raises():
 
 
 def test_unsupported_target_on_cuda_raises_before_launch():
-    """The kernel takes a diagonal GaussianND only; the wrapper refuses any
-    other target before it touches a device (a meta tensor has no data)."""
-    from general_mcmc_torch.ops.fused_hmc import fused_hmc_run
+    """The kernels take the repo's continuous targets (a device function
+    each); the wrapper refuses any other target, and a width a kernel is not
+    built for, before it touches a device (a meta tensor has no data)."""
+    from general_mcmc_torch.ops.fused_hmc import MAX_DENSE_DIM, fused_hmc_run
 
     x_meta = torch.empty(8, 2, device="meta")
-    t2d = to_target("DiffableGaussian2D", np.zeros(2), np.eye(2) * 2.0)
-    with pytest.raises(ValueError, match="GaussianND target with a diagonal"):
-        fused_hmc_run(t2d, x_meta, 0.1, 3, 4)
-    dense = to_target("GaussianND", np.zeros(2), np.eye(2) * 2.0)
-    with pytest.raises(ValueError, match="dense covariance"):
-        fused_hmc_run(dense, x_meta, 0.1, 3, 4)
+    rng = np.random.default_rng(0)
+    X, y = rng.normal(size=(16, 3)), (rng.uniform(size=16) < 0.5).astype(float)
+    for target in (lambda v: -0.5 * (v * v).sum(-1), to_target("Poisson", 3.0),
+                   to_target("HierarchicalLogistic", X, y)):
+        with pytest.raises(ValueError, match="fused HMC kernels take the targets"):
+            fused_hmc_run(target, x_meta, 0.1, 3, 4)
+    d = MAX_DENSE_DIM + 1
+    dense = to_target("GaussianND", np.zeros(d), np.eye(d))
+    with pytest.raises(ValueError, match=f"dim <= {MAX_DENSE_DIM}"):
+        fused_hmc_run(dense, torch.empty(8, d, device="meta"), 0.1, 3, 4)
+    with pytest.raises(ValueError, match="takes states of width 2"):
+        fused_hmc_run(to_target("DiffableGaussian2D", np.zeros(2), np.eye(2)),
+                      torch.empty(8, 3, device="meta"), 0.1, 3, 4)
     with pytest.raises(ValueError, match="diagonal mass_inv"):
         fused_hmc_run(to_target("GaussianND", np.zeros(2), np.ones(2)), x_meta, 0.1, 3, 4,
                       mass_inv=torch.eye(2, device="meta"))
     # a supported target on a device that is neither cuda nor cpu raises too
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        fused_hmc_run(to_target("GaussianND", np.zeros(2), np.ones(2)), x_meta, 0.1, 3, 4)
-    # and the sampler refuses it on the CPU just as it would on the card
-    with pytest.raises(ValueError, match="GaussianND target"):
-        HMC(t2d, torch.zeros(8, 2), 0.1, 3, backend="cuda", device="cpu").run(2)
+    t2d = to_target("DiffableGaussian2D", np.zeros(2), np.eye(2) * 2.0)
+    for target in (t2d, to_target("GaussianND", np.zeros(2), np.eye(2) * 2.0)):
+        with pytest.raises(ValueError, match="runs on cuda or cpu"):
+            fused_hmc_run(target, x_meta, 0.1, 3, 4)
+    # and the sampler refuses on the CPU just as it would on the card
+    with pytest.raises(ValueError, match="fused HMC kernels take the targets"):
+        HMC(to_target("Poisson", 3.0), torch.zeros(8, 2), 0.1, 3, backend="cuda",
+            device="cpu").run(2)
 
 
 def test_unknown_backend_raises():

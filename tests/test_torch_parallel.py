@@ -290,8 +290,9 @@ def test_fused_backend_raises_on_a_block():
     and is ``run``'s result."""
     x0 = torch.zeros(4, 2)
     for runner in (lambda s: run_sharded(s, 2, 2, chain_mesh()), lambda s: s.run(2, 2)):
-        with pytest.raises(ValueError, match="fused HMC kernel takes a GaussianND"):
-            runner(HMC(tpr.gauss2(torch.float32), x0, 0.1, 3, backend="cuda", device="cpu"))
+        with pytest.raises(ValueError, match="fused HMC kernels take the targets"):
+            runner(HMC(lambda x: -0.5 * (x * x).sum(-1), x0, 0.1, 3, backend="cuda",
+                       device="cpu"))
     x0 = torch.from_numpy(np.random.default_rng(3).normal(size=(8, 2))).float()
     for name in tpr.FUSED_CASES:
         got = run_sharded(tpr.make_fused_sampler(name, x0), 6, 6, chain_mesh())
