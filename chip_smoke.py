@@ -169,6 +169,18 @@ Phases (each prints one line; any failure raises and exits non-zero):
     plain version after 1, 8 and 64 steps, timed beside its two
     ``torch.matmul`` a leapfrog).
 
+17. The tile HMC kernels, which share ``csrc/tile_hmc.cuh``: "dense-main"
+    runs K1 on the dense GaussianND through its own kernel,
+    ``csrc/fused_hmc_dense.cu`` (one launch; the gradient's two triangular
+    solves blocked with a tile's 16 chains as right-hand sides, the panel
+    products on the tensor cores in three TF32 passes), holds it to its
+    plain version at widths 2, 7, 33, 100 and 168 and from chain 3,000, and
+    times one ``torch.cholesky_solve`` of the residual a leapfrog (K1) and
+    one ``torch.linalg.solve_triangular`` a step (K3) as library yardsticks;
+    "K1-logistic" runs the logistic kernel on 16-chain tiles with the
+    gradient carried across steps; "K4-digests" holds K4's output to the
+    digests it had before its tile code was shared.
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -181,6 +193,7 @@ import contextlib
 import dataclasses
 import datetime
 import functools
+import hashlib
 import importlib.util
 import io
 import itertools
@@ -195,6 +208,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 import general_mcmc_torch as gmt
@@ -204,8 +218,9 @@ from general_mcmc_torch import parallel as gmt_parallel
 from general_mcmc_torch.io import native as io_native
 from general_mcmc_torch.models.distributions import rowsum
 from general_mcmc_torch.models.regression import bench_logistic_data
-from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_hmc_logistic,
-                                    fused_logistic, fused_mh, static_tree, tree)
+from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_hmc_dense,
+                                    fused_hmc_logistic, fused_logistic, fused_mh, static_tree,
+                                    tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
 from general_mcmc_torch.samplers.gibbs import GibbsDraws
 from general_mcmc_torch.utils.checkpoint import load_carry
@@ -377,6 +392,11 @@ DENSE_EPS, DENSE_L, DENSE_STEPS = 0.3, 10, (1000, 200)
 DENSE_WALK, DENSE_MH_STEPS = 0.1, (2000, 500)
 DENSE_TOL = {"K1": 0.05, "K3": 0.1}
 DENSE_EQ_STEPS = {"K1": 8, "K3": 64}
+# K1's dense tile kernel against its plain version at small widths (one
+# build each for 1, 5, 13 and 21 column blocks: odd widths and the widest),
+# DENSE_SMALL_CHAINS chains of 8 steps in the main run's metric; and a block
+# of rows from chain DENSE_CHAIN0 bit-equal to the launch from 0.
+DENSE_SMALL_DIMS, DENSE_SMALL_CHAINS, DENSE_CHAIN0 = (2, 7, 33, 168), 256, 3000
 # "K1-logistic": HMC(backend="cuda") on the stretch line's posterior in the
 # diagonal metric "chees-logistic" adapts, L 10, from 0.1 x init_with_seed,
 # run(1000, 200).  The step size: that phase's ε̄ (0.169134 on the card,
@@ -423,6 +443,7 @@ def union_us(intervals) -> float:
 
 def reset_counts() -> None:
     fused_hmc.launches = 0
+    fused_hmc_dense.launches = 0
     fused_hmc_logistic.launches = 0
     counter_rng.launches = 0
     fused_mh.launches = 0
@@ -548,9 +569,10 @@ def phase_environment():
     smi = nvidia_smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic",
-                  "fused_hmc_logistic"])
+    # one nvcc per source (the dense Gaussian's kernel one per width it is
+    # run at here), all started together
+    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic", "fused_hmc_logistic"]
+                 + [dense_build(d) for d in sorted(set(DENSE_SMALL_DIMS + (DIM,)))])
     build_s = time.perf_counter() - t0
     # the full register and spill report, beside the built libraries
     with open(_build.OUT_DIR / "ptxas.log", "w") as f:
@@ -568,6 +590,18 @@ def phase_environment():
         "fused_mh_ws_kernel<producer_warps,tile,target,proposal>",
         registers_and_spill_store_bytes=json.dumps(report.get("fused_mh", {})))
     return smi
+
+
+def dense_build(d: int) -> str:
+    """The build of ``csrc/fused_hmc_dense.cu`` that runs width ``d``."""
+    return _build.variant("fused_hmc_dense", GMT_DENSE_NB=-(-d // fused_hmc_dense.BLOCK))
+
+
+def build_report(key: str, kernel: str) -> dict:
+    """Registers and spill store bytes of a build's ``kernel<...>``
+    (``ptxas -v``)."""
+    regs, spill = ptxas_report(_build.compile_log.get(key, "")).get(kernel, (None, None))
+    return dict(registers=regs, spill_store_bytes=spill)
 
 
 def ptxas_report(log: str) -> dict:
@@ -1071,6 +1105,31 @@ def phase_k3_widths(dev):
     return dict(ms=times, bound_ms=bounds)
 
 
+# sha256 of K4's float32 output for k4_digests' inputs after 1, 8 and 64
+# steps at lr 1e-3 (tests/test_torch_cuda_targets.py's K4_DIGESTS): K4's
+# bits before logistic_tile.cuh was shared with the HMC kernel, which every
+# later change to that header keeps.
+K4_DIGESTS = {
+    1: "94e01007b42ffd7a72934ca924a7bd08ac09b698c8cfee1c4a104341ae51d35a",
+    8: "caba45faf608ac04439869bd50deae324beed28c3a2807cc650dfbbceec3f677",
+    64: "ae3409315708c68f7da20c4f06207cff085b93db6f4910f08ef0daac08efb507",
+}
+
+
+def k4_digests(dev):
+    """K4's output on numpy's seed-12 inputs (X [256, 48], y [256], theta0
+    [1000, 50]) equal to K4_DIGESTS."""
+    rng = np.random.default_rng(12)
+    X = torch.from_numpy(rng.normal(size=(256, 48)).astype(np.float32)).to(dev)
+    y = torch.from_numpy((rng.uniform(size=256) < 0.5).astype(np.float32)).to(dev)
+    theta0 = torch.from_numpy((0.1 * rng.normal(size=(1000, 50))).astype(np.float32)).to(dev)
+    for steps, want in K4_DIGESTS.items():
+        out = fused_logistic.fused_logistic_chain(theta0, X, y, steps, 1e-3)
+        got = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        check(got == want, f"K4's output after {steps} steps has its digest ({got})")
+    say("K4-digests", steps=sorted(K4_DIGESTS), equal=True)
+
+
 def phase_logistic(dev):
     """K4 at the probe's shape: agreement with the plain version after 1, 8,
     64 and 512 steps, then the 512-step chain timed."""
@@ -1099,6 +1158,7 @@ def phase_logistic(dev):
               f"< {LG_RTOL[steps]}")
         ragged[f"{n}x{p}x{n_obs}@{steps}"] = f"{err:.3e}"
     say("K4-ragged", rel_err=json.dumps(ragged))
+    k4_digests(dev)
 
     rel, abs_err = {}, 0.0
     for steps in (1, 8, 64):
@@ -1401,28 +1461,72 @@ def dense_moments(store, scales):
     return std_err, float(corr.mean())
 
 
+def dense_k1_checks(target, scales, dev):
+    """K1's dense tile kernel against its plain version at DENSE_SMALL_DIMS
+    (and the main width) over 8 steps, no chain differing; and a block of
+    rows from DENSE_CHAIN0 bit-equal to the launch from 0 at the main
+    width."""
+    errs = {}
+    for d in DENSE_SMALL_DIMS + (DIM,):
+        t, sc = (target, scales) if d == DIM else dense_target(d, dev)
+        x0 = gmt.init_with_seed(DENSE_SMALL_CHAINS, d, 3, device=dev)
+        args, kw = (t, x0, 0.1, 5, 8, 0), dict(seed=11, mass_inv=(sc**2).to(dev))
+        errs[d] = compare(fused_hmc.fused_hmc_run(*args, **kw),
+                          fused_hmc.fused_hmc_run_reference(*args, **kw),
+                          f"K1 dense at d = {d}, {DENSE_SMALL_CHAINS} chains")
+    x0 = gmt.init_with_seed(DENSE_CHAIN0 + 300, DIM, 1, device=dev)
+    full = fused_hmc.fused_hmc_run(target, x0, 0.1, 5, 6, 2, seed=9)
+    rows = slice(DENSE_CHAIN0, DENSE_CHAIN0 + 300)
+    block = fused_hmc.fused_hmc_run(target, x0[rows].contiguous(), 0.1, 5, 6, 2, seed=9,
+                                    chain0=DENSE_CHAIN0)
+    check(torch.equal(block, full[rows]),
+          f"K1 dense: rows from chain {DENSE_CHAIN0} equal the launch from 0 bit for bit")
+    return errs
+
+
+def dense_library_ms(target, dev, solve: str) -> float:
+    """One PyTorch call that computes a step's solve for the main path's
+    chains, on a [DIM, N_CHAINS] residual (float32): Σ⁻¹r by
+    ``torch.cholesky_solve`` (K1's gradient) or L⁻¹r by
+    ``torch.linalg.solve_triangular`` (K3's density), ms a call.  Timed
+    here only; the port never calls them."""
+    r = torch.randn((DIM, N_CHAINS), device=dev)
+    L = target.chol
+    if solve == "cholesky_solve":
+        return device_ms(lambda: torch.cholesky_solve(r, L), 20)
+    return device_ms(lambda: torch.linalg.solve_triangular(L, r, upper=False), 20)
+
+
 def phase_dense_main(dev):
-    """The dense GaussianND through K1 (``HMC``) and K3
-    (``MetropolisHastings``) at the main path's chains: the launches, the
-    moment gates, the kernels against their plain versions over a few steps
-    (no chain differing) and over the whole run (reported), timed."""
+    """The dense GaussianND through K1 (``HMC``: the tile kernel
+    ``csrc/fused_hmc_dense.cu``) and K3 (``MetropolisHastings``) at the main
+    path's chains: the launches, the moment gates, the kernels against their
+    plain versions over a few steps (no chain differing) and over the whole
+    run (reported), timed beside one library call a leapfrog or step; K1's
+    tile kernel also at small widths and from chain0."""
     target, scales = dense_target(DIM, dev)
     z0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
     mass_inv = (scales**2).to(dev)
     out = {}
     n_ops = target_ops("dense", DIM)
+    small_errs = dense_k1_checks(target, scales, dev)
     for kernel in ("K1", "K3"):
         # K3's chains start from the target (see DENSE_WALK's note)
         x0 = z0 if kernel == "K1" else (z0 @ target.chol.mT).contiguous()
         if kernel == "K1":
             sampler = lambda: gmt.HMC(target, x0, DENSE_EPS, DENSE_L, seed=SEED,
                                       mass_inv=mass_inv, backend="cuda")
-            steps, module = DENSE_STEPS, fused_hmc
+            steps, module = DENSE_STEPS, fused_hmc_dense
             plain = lambda c, dsc: fused_hmc.fused_hmc_run_reference(
                 target, x0, DENSE_EPS, DENSE_L, c, dsc, seed=SEED, mass_inv=mass_inv)
             run = lambda c, dsc: fused_hmc.fused_hmc_run(target, x0, DENSE_EPS, DENSE_L, c,
                                                          dsc, seed=SEED, mass_inv=mass_inv)
-            work = target_hmc_work(N_CHAINS, DIM, sum(steps), steps[0], DENSE_L, *n_ops)
+            # the solves, d (d + 1) multiply-adds a leapfrog, apart from the
+            # rest (the density's squares and the gradient's sign: 2 d each)
+            solve_flops = N_CHAINS * sum(steps) * DENSE_L * 2 * DIM * (DIM + 1)
+            work = target_hmc_work(N_CHAINS, DIM, sum(steps), steps[0], DENSE_L, 2 * DIM,
+                                   2 * DIM)
+            library = dense_library_ms(target, dev, "cholesky_solve") * sum(steps) * DENSE_L
         else:
             walk = gmt.RandomWalkProposal(DENSE_WALK)
             sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED,
@@ -1433,11 +1537,14 @@ def phase_dense_main(dev):
             run = lambda c, dsc: fused_mh.fused_mh_run(target, x0, walk, c, dsc, seed=SEED)
             work = fused_mh_work(N_CHAINS, DIM, sum(steps), steps[0], n_ops[1],
                                  MH_PROPOSAL_OPS)
+            library = dense_library_ms(target, dev, "solve_triangular") * sum(steps)
         reset_counts()
         samples = sampler().run(*steps)
         torch.cuda.synchronize()
         launches = module.launches
-        check(launches == 1, f"one {kernel} launch on the dense GaussianND ({launches})")
+        check(launches == 1 and fused_hmc.launches == 0,
+              f"one {kernel} launch on the dense GaussianND ({launches}; K1's lane kernel "
+              f"{fused_hmc.launches})")
         store = samples.transpose(0, 1)
         check(bool(torch.isfinite(store).all()), f"{kernel} dense samples are finite")
         accept = float((store[1:] != store[:-1]).any(dim=2).float().mean())
@@ -1466,7 +1573,29 @@ def phase_dense_main(dev):
                            std_err=round(std_err, 5), corr=round(corr, 5),
                            eq_steps=eq, eq_max_abs_err=eq_err, run_max_abs_err=run_err,
                            run_chains_differ=run_differ, ms=round(ms, 3),
-                           plain_ms=round(plain_ms, 1), bound_ms=round(b_ms, 4), bound_by=b_by)
+                           plain_ms=round(plain_ms, 1), library_ms=round(library, 3),
+                           bound_ms=round(b_ms, 4), bound_by=b_by)
+        if kernel == "K1":
+            # the least time: the lesser of the CUDA cores doing the solves
+            # in float32 and the tensor cores doing the three TF32 passes,
+            # each beside the rest on the CUDA cores
+            cuda_core_ms = bound(work[0], solve_flops + work[1] + work[2])[0]
+            tensor_ms = max(bound(work[0], 3 * solve_flops, TF32_OPS_PER_S)[0],
+                            bound(work[0], work[1] + work[2])[0])
+            # the layout of the run's launch, from the kernel's host code
+            layout = fused_hmc_dense.launch_layout(N_CHAINS, DIM)
+            out[kernel].update(
+                bound_ms=round(min(cuda_core_ms, tensor_ms), 4), bound_by="operations",
+                bound_cuda_core_ms=round(cuda_core_ms, 4),
+                bound_tensor_3xtf32_ms=round(tensor_ms, 4),
+                library_call="torch.cholesky_solve of the [100, 10240] residual x 12,000",
+                small_max_abs_err={str(d): e for d, e in small_errs.items()},
+                chain0_bit_equal=True,
+                shared_bytes=layout["shared_bytes"], tiles_a_block=layout["tiles_a_block"],
+                blocks=layout["blocks"],
+                **build_report(dense_build(DIM), f"fused_hmc_dense_kernel<{-(-DIM // 8)}>"))
+        else:
+            out[kernel]["library_call"] = "torch.linalg.solve_triangular a step x 2,500"
     say("dense-main", chains=N_CHAINS, dim=DIM, k1=f"eps {DENSE_EPS} L {DENSE_L} "
         f"{DENSE_STEPS[1]}+{DENSE_STEPS[0]}", k3=f"walk {DENSE_WALK} "
         f"{DENSE_MH_STEPS[1]}+{DENSE_MH_STEPS[0]}", max_dense_dim_k1=fused_hmc.MAX_DENSE_DIM,
@@ -1584,6 +1713,10 @@ def phase_k1_logistic(dev, chees: dict):
     flops = N_CHAINS * leapfrogs * 4 * LGC_OBS * p
     other = N_CHAINS * (leapfrogs * (8 * LGC_OBS + 8 * p) + n_steps * 20 * LGC_OBS)
     b_ms = max(bound(n_bytes, 3 * flops, TF32_OPS_PER_S)[0], bound(n_bytes, other)[0])
+    cuda_core_ms = bound(n_bytes, flops + other)[0]
+    # the layout of the run's launch, from the kernel's host code
+    layout = fused_hmc_logistic.launch_layout(N_CHAINS, LGC_OBS, p)
+    build = build_report("fused_hmc_logistic", "fused_hmc_logistic_kernel<6>")
     say("K1-logistic", chains=N_CHAINS, dim=LGC_DIM, n_obs=LGC_OBS, eps=eps,
         eps_bar=f"{chees['eps_bar']:.6f}", eps_bar_rounded=rounded,
         rounded_accept=f"{rounded_accept:.4f}",
@@ -1594,11 +1727,15 @@ def phase_k1_logistic(dev, chees: dict):
         kernel_ms=f"{ms:.3f}", wall_s=f"{wall:.5f}",
         grad_evals_per_s=f"{N_CHAINS * leapfrogs / wall:.4e}",
         min_ess_per_s=f"{min_ess / wall:.4e}", plain_ms=f"{plain_ms:.1f}",
-        bound_ms=f"{b_ms:.3f}", bound_by="operations", library_ms=f"{library_ms:.3f}",
-        tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}")
+        bound_ms=f"{b_ms:.3f}", bound_by="operations", bound_cuda_core_ms=f"{cuda_core_ms:.3f}",
+        library_ms=f"{library_ms:.3f}", tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}",
+        tiles_a_block=layout["tiles_a_block"], blocks=layout["blocks"],
+        sms=torch.cuda.get_device_properties(0).multi_processor_count, **build)
     return dict(launches=launches, rel_err=rel, chains_differ=differ, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, library_ms=library_ms, max_abs_err=abs_err, accept=accept,
-                eps=eps)
+                bound_ms=b_ms, bound_cuda_core_ms=cuda_core_ms, library_ms=library_ms,
+                max_abs_err=abs_err, accept=accept, eps=eps,
+                shared_bytes=layout["shared_bytes"], tiles_a_block=layout["tiles_a_block"],
+                blocks=layout["blocks"], **build)
 
 
 def chees_moments(samples):
@@ -2743,8 +2880,6 @@ def phase_io_main(store, tmp: str):
     with numpy, equal to the float64 of the float32 store exactly (the
     writer prints shortest round-trip floats); Arrow and Parquet round
     trips where pyarrow is present, else their ``ImportError``."""
-    import numpy as np
-
     big = store[:IO_OBS, :IO_CHAINS].transpose(0, 1)  # [chains, obs, dim]
     path = f"{tmp}/mala.csv"
     writes = io_native.writes
@@ -3840,15 +3975,31 @@ def main() -> int:
              split_us={k: round(v, 4) for k, v in split.items()},
              lane_map=maps["chosen"], lane_map_ms=maps["times"],
              # the other targets: each family's run timed beside its plain
-             # version ("K1-targets"), the dense GaussianND's main run
-             # ("dense-main"), the launches of their gate runs through HMC
-             targets=k1_targets["families"], dense=dense["K1"],
-             target_launches={"diffable2d": k1_targets["launches"],
-                              "dense": dense["K1"]["launches"]},
-             targets_max_abs_err=max(k1_targets["max_abs_err"],
-                                     dense["K1"]["eq_max_abs_err"]),
-             checked_in="K1-small, main, identity-mass, K1-maps, shard-cuda, K1-targets, "
-                        "dense-main"),
+             # version ("K1-targets"), the launches of the gate run through HMC
+             targets=k1_targets["families"],
+             target_launches={"diffable2d": k1_targets["launches"]},
+             targets_max_abs_err=k1_targets["max_abs_err"],
+             checked_in="K1-small, main, identity-mass, K1-maps, shard-cuda, K1-targets"),
+        # K1 on the dense GaussianND: its own tile kernel, the blocked solves'
+        # panels on the tensor cores; launches from "dense-main"'s run
+        # through HMC; max_abs_err over its checks against the plain version
+        # (8 steps at the main shape, small widths); library_ms one
+        # torch.cholesky_solve of the residual a leapfrog times the run's
+        # leapfrogs; registers and spills from ptxas -v; shared bytes, tiles a
+        # block and blocks of the run's launch from the kernel's host code
+        dict(name="fused_hmc_dense", route="cuda",
+             source="general_mcmc_torch/csrc/fused_hmc_dense.cu",
+             replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
+             launches=dense["K1"]["launches"],
+             max_abs_err=max(dense["K1"]["eq_max_abs_err"],
+                             *dense["K1"]["small_max_abs_err"].values()),
+             **{k: dense["K1"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms",
+                 "bound_tensor_3xtf32_ms", "library_ms", "library_call", "registers",
+                 "spill_store_bytes", "shared_bytes", "tiles_a_block", "blocks", "accept",
+                 "std_err",
+                 "corr", "eq_steps", "run_max_abs_err", "run_chains_differ")},
+             checked_in="dense-main"),
         # K2 is a device function: on the HMC and MH main paths it runs inside
         # each fused_hmc and fused_mh launch; on the ChEES and NUTS main paths
         # its fill kernel draws every step's momenta and uniforms or words (2
@@ -3944,11 +4095,14 @@ def main() -> int:
              bound_tensor_3xtf32_ms=logistic["bound_tensor_ms"],
              library_ms=logistic["library_ms"],
              checked_in="K4-ragged, K4"),
-        # K1 on the stretch line's posterior: its own kernel on K4's tile
-        # code; launches from "K1-logistic"'s run through HMC; max_abs_err
-        # over the chains whose accept decisions agree with the plain
-        # version's after 1, 8 and 64 steps; library_ms the two torch.matmul
-        # of a leapfrog alone times the run's leapfrogs
+        # K1 on the stretch line's posterior: its own tile kernel on K4's
+        # tile code; launches from "K1-logistic"'s run through HMC;
+        # max_abs_err over the chains whose accept decisions agree with the
+        # plain version's after 1, 8 and 64 steps; library_ms the two
+        # torch.matmul of a leapfrog alone times the run's leapfrogs; bound_ms
+        # the tensor cores' (three TF32 passes); registers and spills from
+        # ptxas -v; shared bytes, tiles a block and blocks of the run's launch
+        # from the kernel's host code
         dict(name="fused_hmc_logistic", route="cuda",
              source="general_mcmc_torch/csrc/fused_hmc_logistic.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
@@ -3957,7 +4111,13 @@ def main() -> int:
              chains_differ={str(k): v for k, v in k1_logistic["chains_differ"].items()},
              ms=k1_logistic["ms"], plain_ms=k1_logistic["plain_ms"],
              bound_ms=k1_logistic["bound_ms"], bound_by="operations",
+             bound_cuda_core_ms=k1_logistic["bound_cuda_core_ms"],
+             bound_tensor_3xtf32_ms=k1_logistic["bound_ms"],
              library_ms=k1_logistic["library_ms"], step_size=k1_logistic["eps"],
+             registers=k1_logistic["registers"],
+             spill_store_bytes=k1_logistic["spill_store_bytes"],
+             shared_bytes=k1_logistic["shared_bytes"],
+             tiles_a_block=k1_logistic["tiles_a_block"], blocks=k1_logistic["blocks"],
              checked_in="K1-logistic"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
-seconds) under ``general_mcmc_torch/_build/``.  The file name carries a
-hash of the sources, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing is built when the package is imported: the CPU tests
+seconds) under ``general_mcmc_torch/_build/``.  A source may be built in
+variants, one for each set of macros it is given (the dense Gaussian's
+kernel, one for each count of column blocks: each build unrolls its solves
+fully).  The file name carries a hash of the sources and the flags, so an
+edited source is rebuilt and a stale library is never loaded.
+Nothing is built when the package is imported: the CPU tests
 import every module, and this machine may have no ``nvcc``.  A failed build
 raises with the compiler's output; nothing falls back.
 """
@@ -19,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build", "check", "BuildError", "compile_log", "OUT_DIR"]
+__all__ = ["load", "build", "check", "variant", "BuildError", "compile_log", "OUT_DIR"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -31,19 +34,22 @@ _FLAGS = [
 # no contraction of a*b + c into one rounding: a kernel's elementwise
 # arithmetic then rounds as its plain PyTorch version's separate ops do
 _NO_FMA = ["-fmad=false"]
-# Flags a source chooses for itself, in place of _NO_FMA.  The logistic
-# kernels' two products sum in another order than the plain version's matrix
-# products whatever the rounding (and on the tensor cores), so they agree to
-# a tolerance either way and take the fused multiply-adds in their tile code
-# (the HMC kernel writes the arithmetic around it with intrinsics that are
-# never contracted).
+# Flags a source chooses for itself, in place of _NO_FMA.  The tile kernels'
+# products (the logistic target's two, the dense Gaussian's blocked solves)
+# sum in another order than the plain version's library calls whatever the
+# rounding (and on the tensor cores), so they agree to a tolerance either
+# way and take the fused multiply-adds in their tile code (the HMC kernels
+# write the arithmetic around it with intrinsics that are never contracted,
+# csrc/tile_hmc.cuh).
 _SOURCE_FLAGS: dict[str, list[str]] = {"fused_logistic": ["-fmad=true"],
-                                       "fused_hmc_logistic": ["-fmad=true"]}
+                                       "fused_hmc_logistic": ["-fmad=true"],
+                                       "fused_hmc_dense": ["-fmad=true"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-# name -> the compiler's output of the build done in this process (ptxas
-# register and spill report); empty for a library found already built.
+# build (a name or a variant) -> the compiler's output of the build done in
+# this process (ptxas register and spill report); absent for a library found
+# already built.
 compile_log: dict[str, str] = {}
 
 
@@ -59,11 +65,25 @@ def _nvcc() -> str:
                      "with the CUDA toolkit")
 
 
-def _flags(name: str) -> list[str]:
-    return _FLAGS + _SOURCE_FLAGS.get(name, _NO_FMA)
+def variant(name: str, **defines) -> str:
+    """The build of ``csrc/<name>.cu`` with the macros ``defines``, as
+    :func:`build` and :func:`load` name it: ``name[KEY=value]...``."""
+    return name + "".join(f"[{k}={v}]" for k, v in sorted(defines.items()))
 
 
-def _target(name: str) -> Path:
+def _parse(key: str):
+    """``(source name, ["KEY=value", ...])`` of a build's key."""
+    name, _, rest = key.partition("[")
+    return name, rest.rstrip("]").split("][") if rest else []
+
+
+def _flags(key: str) -> list[str]:
+    name, defines = _parse(key)
+    return _FLAGS + _SOURCE_FLAGS.get(name, _NO_FMA) + [f"-D{kv}" for kv in defines]
+
+
+def _target(key: str) -> Path:
+    name, defines = _parse(key)
     src = _CSRC / f"{name}.cu"
     if not src.exists():
         raise BuildError(f"no CUDA source {src}")
@@ -71,50 +91,54 @@ def _target(name: str) -> Path:
     for f in [src] + sorted(_CSRC.glob("*.cuh")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(_flags(name)).encode())
-    return OUT_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    h.update(" ".join(_flags(key)).encode())
+    tag = "".join("-" + kv.replace("=", "") for kv in defines)
+    return OUT_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 
 
-def build(names) -> dict[str, Path]:
-    """Compile every ``csrc/<name>.cu`` of ``names`` that is not yet built,
-    one ``nvcc`` process per source, all started together.  Returns the
-    library paths."""
-    targets = {n: _target(n) for n in names}
-    todo = {n: p for n, p in targets.items() if not p.exists()}
+def build(keys) -> dict[str, Path]:
+    """Compile every build of ``keys`` (a source's name, or a
+    :func:`variant`) that is not yet built, one ``nvcc`` process per build,
+    all started together.  Returns the library paths."""
+    targets = {k: _target(k) for k in keys}
+    todo = {k: p for k, p in targets.items() if not p.exists()}
     if not todo:
         return targets
     nvcc = _nvcc()
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for n, p in todo.items():
+    for k, p in todo.items():
         tmp = p.with_name(f"{p.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(n), "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        src = _CSRC / f"{_parse(k)[0]}.cu"
+        cmd = [nvcc, *_flags(k), "-I", str(_CSRC), "-o", str(tmp), str(src)]
+        procs[k] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                           stderr=subprocess.STDOUT, text=True))
     errors = []
-    for n, (tmp, proc) in procs.items():
+    for k, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        compile_log[n] = out
+        compile_log[k] = out
         if proc.returncode != 0:
-            errors.append(f"nvcc failed on csrc/{n}.cu (rc {proc.returncode}):\n{out}")
+            errors.append(f"nvcc failed on {k} (rc {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, todo[n])
+            os.replace(tmp, todo[k])
     if errors:
         raise BuildError("\n".join(errors))
     return targets
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, **defines) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with the macros
+    ``defines``, built first if needed."""
+    key = variant(name, **defines)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            path = build([name])[name]
+            path = build([key])[key]
             lib = ctypes.CDLL(str(path))
             lib.gmt_error_string.argtypes = [ctypes.c_int]
             lib.gmt_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
 
 

@@ -11,14 +11,15 @@
 // enum (Target, lane_targets.cuh), its constants given as one float32 row, and the
 // wrapper (ops/fused_hmc.py) refuses any other target:
 //   GaussianND, diagonal:   mean and precision rows, lp = -1/2 sum diff^2 prec;
-//   GaussianND, dense:      mean and the Cholesky factor L, lp = -1/2 |L^-1 diff|^2
-//                           and grad = -L^-T L^-1 diff by two triangular
-//                           solves against L in shared memory (no inverse);
 //   RosenbrockND, NealsFunnel: the neighbour and the last coordinate reach
 //                           the lanes that need them by shuffles;
 //   DiffableGaussian2D, Gaussian2D, Rosenbrock2D: d = 2, a lane a chain.
-// The HierarchicalLogisticNC target has a kernel of its own on the tensor
-// cores (fused_hmc_logistic.cu).  The leapfrog is the plain version's
+// These are the targets whose gradient is elementwise or near it.  The two
+// whose gradient is a matrix computation have tile kernels of their own on
+// the tensor cores, which share their HMC (tile_hmc.cuh): the dense
+// GaussianND's two triangular solves, blocked with a tile's chains as
+// right-hand sides (fused_hmc_dense.cu), and HierarchicalLogisticNC's two
+// products (fused_hmc_logistic.cu).  The leapfrog is the plain version's
 // (samplers/hmc.py): for a target whose port has an analytic gradient
 // (unnorm_logp_grad) n - 1 interior gradient-only kicks, the log density
 // only at the last position and the closing half-kick added; for the 2-d
@@ -74,12 +75,7 @@
 //  - Targets that couple coordinates (lane_targets.cuh): RosenbrockND's
 //    neighbours cross lanes by one shuffle a quad each way; NealsFunnel's
 //    v, the last coordinate, reaches the group by one shuffle and sum x^2
-//    by group_sum; the dense GaussianND's two triangular solves go by
-//    columns against L and L^T, both kept in shared memory (2 d^2 floats:
-//    d <= 168, MAX_DENSE_DIM in ops/fused_hmc.py), one shuffle a solved
-//    element.  A dense block is 512 threads, so that the copy of L serves
-//    16 warps.  The dense target agrees with the plain version (cuBLAS trsm)
-//    to a tolerance, not bit for bit.
+//    by group_sum.
 //
 // Agreement with the plain version: built with -fmad=false (and without
 // --use_fast_math), each elementwise operation rounds as the plain version's
@@ -110,13 +106,11 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kDenseThreads = 512;  // a block of the dense GaussianND (see Design)
 constexpr unsigned kFull = 0xffffffffu;
 
 using gmt_lanes::kDiffable2D;
 using gmt_lanes::kFunnel;
 using gmt_lanes::kGaussian2D;
-using gmt_lanes::kGaussianDense;
 using gmt_lanes::kGaussianDiag;
 using gmt_lanes::kRosenbrock2D;
 using gmt_lanes::kRosenbrockND;
@@ -124,30 +118,15 @@ using gmt_lanes::kRosenbrockND;
 // Targets whose port has an analytic gradient: the plain version's leapfrog
 // takes n - 1 gradient-only kicks and the value at the last position only.
 __host__ __device__ constexpr bool analytic_gradient(int tgt) {
-  return tgt == kGaussianDiag || tgt == kGaussianDense || tgt == kRosenbrockND ||
-         tgt == kFunnel;
+  return tgt == kGaussianDiag || tgt == kRosenbrockND || tgt == kFunnel;
 }
 __host__ __device__ constexpr bool two_d(int tgt) {
   return tgt == kDiffable2D || tgt == kGaussian2D || tgt == kRosenbrock2D;
 }
-__host__ __device__ constexpr int block_threads(int tgt) {
-  return tgt == kGaussianDense ? kDenseThreads : kThreads;
-}
-// blocks an SM: 128 registers a lane up to three quads, 168 at four; a
-// dense block holds its SM's registers
-__host__ __device__ constexpr int min_blocks(int qpl, int tgt) {
-  return tgt == kGaussianDense ? 1 : (qpl <= 3 ? 4 : 3);
-}
-// the quads a lane each target is built for: one at d = 2; the dense
-// target's widths (d <= 168) take at most three (ops/fused_hmc.py, lane_map)
-__host__ __device__ constexpr int max_qpl(int tgt) {
-  return two_d(tgt) ? 1 : (tgt == kGaussianDense ? 3 : 4);
-}
-
-// L, L^T and 1 / diag(L), each padded to rows of dense_pitch(d) floats
-__host__ __device__ constexpr size_t dense_shared_bytes(int d) {
-  return sizeof(float) * (2 * static_cast<size_t>(d) + 1) * gmt_lanes::dense_pitch(d);
-}
+// blocks an SM: 128 registers a lane up to three quads, 168 at four
+__host__ __device__ constexpr int min_blocks(int qpl) { return qpl <= 3 ? 4 : 3; }
+// the quads a lane each target is built for: one at d = 2
+__host__ __device__ constexpr int max_qpl(int tgt) { return two_d(tgt) ? 1 : 4; }
 
 // Sum over the G lanes of a group (G a power of two, the group aligned),
 // accumulated in double and rounded once to float (the plain version sums
@@ -166,19 +145,16 @@ template <int QPL, int TGT>
 struct Density {
   static constexpr int E = 4 * QPL;
   int d, G, sub;
-  float mu[E], pr[E];  // GaussianND: the mean (both forms), the precision (diagonal)
+  float mu[E], pr[E];  // GaussianND: the mean and the precision
   float k[6];          // the 2-d targets' constants; the funnel's
-  const float *l, *lt, *rdiag;  // dense: L, L^T and 1 / diag(L) in shared memory
-  int dp;
 
   __device__ __forceinline__ int coord(int i) const { return 4 * (sub + G * (i / 4)) + i % 4; }
 
-  // params: diagonal: mean[d], prec[d]; dense: mean[d] (L is in shared
-  // memory already); DiffableGaussian2D: m0, m1, ic00, ic01 + ic10, ic11,
-  // the normalising constant; Gaussian2D: m0, m1, a, b + c, d, 1 / det;
-  // Rosenbrock2D: a, b; funnel: 1 / v_std, 1 / v_std^2, (dim - 1) / 2.
-  __device__ __forceinline__ void init(const float* params, int d_, int G_, int sub_,
-                                       const float* shared) {
+  // params: GaussianND: mean[d], prec[d]; DiffableGaussian2D: m0, m1,
+  // ic00, ic01 + ic10, ic11, the normalising constant; Gaussian2D: m0, m1,
+  // a, b + c, d, 1 / det; Rosenbrock2D: a, b; funnel: 1 / v_std,
+  // 1 / v_std^2, (dim - 1) / 2.
+  __device__ __forceinline__ void init(const float* params, int d_, int G_, int sub_) {
     d = d_;
     G = G_;
     sub = sub_;
@@ -199,28 +175,9 @@ struct Density {
     for (int i = 0; i < E; ++i) {
       const int j = coord(i);
       const bool ok = j < d;
-      mu[i] = ((TGT == kGaussianDiag || TGT == kGaussianDense) && ok) ? params[j] : 0.0f;
+      mu[i] = (TGT == kGaussianDiag && ok) ? params[j] : 0.0f;
       pr[i] = (TGT == kGaussianDiag && ok) ? params[d + j] : 0.0f;
     }
-    dp = gmt_lanes::dense_pitch(d);
-    l = shared;
-    lt = shared + d * dp;
-    rdiag = lt + d * dp;
-  }
-
-  // The two triangular solves' shared-memory copy of L: rows of L, rows of
-  // L^T, then 1 / L_ii (all threads of the block, before any returns).
-  __device__ static void load_shared(const float* chol, int d, float* shared) {
-    const int p = gmt_lanes::dense_pitch(d);
-    for (int idx = threadIdx.x; idx < d * p; idx += blockDim.x) {
-      const int i = idx / p, j = idx % p;
-      shared[idx] = j < d ? chol[i * d + j] : 0.0f;           // L[i][j]
-      shared[d * p + idx] = j < d ? chol[j * d + i] : 0.0f;   // L^T[i][j] = L[j][i]
-    }
-    for (int i = threadIdx.x; i < p; i += blockDim.x) {
-      shared[2 * d * p + i] = i < d ? 1.0f / chol[i * d + i] : 0.0f;
-    }
-    __syncthreads();
   }
 
   // NealsFunnel: sum x^2 over the x block, and v, the last coordinate.
@@ -245,18 +202,6 @@ struct Density {
         const float diff = x[i] - mu[i];
         acc += diff * diff * pr[i];
       }
-      return -0.5f * group_sum(acc, G);
-    } else if constexpr (TGT == kGaussianDense) {
-      float r[E], y[E];
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        r[i] = x[i] - mu[i];
-        y[i] = 0.0f;
-      }
-      gmt_lanes::forward_solve<QPL>(lt, rdiag, dp, d, G, sub, r, y);
-      double acc = 0.0;
-#pragma unroll
-      for (int i = 0; i < E; ++i) acc += y[i] * y[i];
       return -0.5f * group_sum(acc, G);
     } else if constexpr (TGT == kDiffable2D) {
       // norm_const - 0.5 (ic00 d0 d0 + (ic01 + ic10) d0 d1 + ic11 d1 d1)
@@ -295,15 +240,6 @@ struct Density {
     if constexpr (TGT == kGaussianDiag) {
 #pragma unroll
       for (int i = 0; i < E; ++i) g[i] = -(x[i] - mu[i]) * pr[i];
-    } else if constexpr (TGT == kGaussianDense) {
-      float r[E], y[E];
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        r[i] = x[i] - mu[i];
-        y[i] = 0.0f;
-      }
-      gmt_lanes::forward_solve<QPL>(lt, rdiag, dp, d, G, sub, r, y);
-      dense_back(y, g);
     } else if constexpr (TGT == kDiffable2D) {
       // autograd of value(): the quadratic's three products, each (a * d) * d',
       // pass -0.5 d' a to d and (-0.5 d') * a' to a's own factor; the
@@ -364,39 +300,11 @@ struct Density {
     }
   }
 
-  // The back solve and the sign: g = -L^-T y.
-  __device__ __forceinline__ void dense_back(const float (&y)[E], float (&g)[E]) const {
-    float r[E];
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      r[i] = y[i];
-      g[i] = 0.0f;
-    }
-    gmt_lanes::back_solve<QPL>(l, rdiag, dp, d, G, sub, r, g);
-#pragma unroll
-    for (int i = 0; i < E; ++i) g[i] = -g[i];
-  }
-
   // The log density and the gradient at one position (the analytic form's
-  // last leapfrog): the dense target solves forward once for both.
+  // last leapfrog).
   __device__ __forceinline__ float value_grad(const float (&x)[E], float (&g)[E]) const {
-    if constexpr (TGT == kGaussianDense) {
-      float r[E], y[E];
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        r[i] = x[i] - mu[i];
-        y[i] = 0.0f;
-      }
-      gmt_lanes::forward_solve<QPL>(lt, rdiag, dp, d, G, sub, r, y);
-      double acc = 0.0;
-#pragma unroll
-      for (int i = 0; i < E; ++i) acc += y[i] * y[i];
-      dense_back(y, g);
-      return -0.5f * group_sum(acc, G);
-    } else {
-      grad(x, g);
-      return value(x);
-    }
+    grad(x, g);
+    return value(x);
   }
 };
 
@@ -412,14 +320,9 @@ struct Args {
 // (inv = M^-1 row, scale = sqrt(M) row); without it both are 1; TGT: the
 // target (Target above).
 template <int QPL, bool USE_MASS, int TGT>
-__global__ void __launch_bounds__(block_threads(TGT), min_blocks(QPL, TGT))
+__global__ void __launch_bounds__(kThreads, min_blocks(QPL))
     fused_hmc_kernel(const Args a) {
   constexpr int E = 4 * QPL;  // elements per lane
-  extern __shared__ float4 k1_shared[];
-  float* shared = reinterpret_cast<float*>(k1_shared);
-  if constexpr (TGT == kGaussianDense) {
-    Density<QPL, TGT>::load_shared(a.params + a.d, a.d, shared);
-  }
   const int n = a.n, d = a.d, G = a.G;
   const int lane = threadIdx.x & 31;
   const int cpw = 32 / G;  // chains per warp
@@ -439,7 +342,7 @@ __global__ void __launch_bounds__(block_threads(TGT), min_blocks(QPL, TGT))
   const int accept_lane = lane - sub + nq % G;
 
   Density<QPL, TGT> f;
-  f.init(a.params, d, G, sub, shared);
+  f.init(a.params, d, G, sub);
   float x[E], iv[E], sc[E];  // iv, sc: only with a mass
   bool ok[E];
 #pragma unroll
@@ -567,22 +470,12 @@ __global__ void __launch_bounds__(block_threads(TGT), min_blocks(QPL, TGT))
 
 template <int QPL, int TGT>
 cudaError_t launch_qpl(bool use_mass, const Args& a, cudaStream_t stream) {
-  constexpr int threads = block_threads(TGT);
   const int64_t warps = (static_cast<int64_t>(a.n) + 32 / a.G - 1) / (32 / a.G);
-  const dim3 grid(static_cast<unsigned int>((warps + threads / 32 - 1) / (threads / 32)));
-  size_t bytes = 0;
-  if (TGT == kGaussianDense) {
-    // above 48 KB a block's shared memory is granted only on request
-    bytes = dense_shared_bytes(a.d);
-    const cudaError_t err = cudaFuncSetAttribute(
-        use_mass ? fused_hmc_kernel<QPL, true, TGT> : fused_hmc_kernel<QPL, false, TGT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-  }
+  const dim3 grid(static_cast<unsigned int>((warps + kThreads / 32 - 1) / (kThreads / 32)));
   if (use_mass) {
-    fused_hmc_kernel<QPL, true, TGT><<<grid, threads, bytes, stream>>>(a);
+    fused_hmc_kernel<QPL, true, TGT><<<grid, kThreads, 0, stream>>>(a);
   } else {
-    fused_hmc_kernel<QPL, false, TGT><<<grid, threads, bytes, stream>>>(a);
+    fused_hmc_kernel<QPL, false, TGT><<<grid, kThreads, 0, stream>>>(a);
   }
   return cudaGetLastError();
 }
@@ -605,8 +498,8 @@ cudaError_t launch_target(bool use_mass, const Args& a, int qpl, cudaStream_t s)
 
 }  // namespace
 
-// target: the Target codes; params: its constants as one float32 row (see
-// Density::init; the dense GaussianND's row is mean[d] then L[d][d]);
+// target: the Target codes but the dense GaussianND's (fused_hmc_dense.cu);
+// params: its constants as one float32 row (see Density::init);
 // lanes_per_chain (a power of two up to 32) and quads_per_lane (1..4,
 // MAX_QUADS_PER_LANE in ops/fused_hmc.py) are the lane map; together they
 // must cover the width.
@@ -637,7 +530,6 @@ extern "C" int fused_hmc_launch(const void* x0, const void* params, const void* 
   }
   switch (target) {
     case kGaussianDiag: return static_cast<int>(launch_target<kGaussianDiag>(m, a, qpl, s));
-    case kGaussianDense: return static_cast<int>(launch_target<kGaussianDense>(m, a, qpl, s));
     case kDiffable2D: return static_cast<int>(launch_target<kDiffable2D>(m, a, qpl, s));
     case kGaussian2D: return static_cast<int>(launch_target<kGaussian2D>(m, a, qpl, s));
     case kRosenbrock2D: return static_cast<int>(launch_target<kRosenbrock2D>(m, a, qpl, s));

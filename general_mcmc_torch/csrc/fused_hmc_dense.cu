@@ -1,0 +1,611 @@
+// Fused whole-run batched HMC on the dense-covariance GaussianND for Hopper
+// (sm_90a): the two triangular solves of every gradient as blocked solves
+// with the chains of a tile as right-hand sides, their panel products on the
+// tensor cores.
+//
+// Replaces: general_mcmc_tpu/ops/pallas_hmc.py `_hmc_kernel` (launched by
+// `fused_hmc_run`) where the traced target is models/distributions.py's
+// GaussianND with a full covariance.  The same function as fused_hmc.cu and
+// the plain "torch" step (samplers/hmc.py): momentum sqrt(M) z, ke =
+// 1/2 sum m M^-1 m, the fused-kick leapfrog in the analytic-gradient form
+// (n - 1 gradient-only kicks, value and gradient at the last position, the
+// closing half-kick), log u < dlogp + ke0 - ke1, the select and the
+// steps-major [n_collect, n, d] store.  The target is the JAX package's
+// (distributions.py:174-199): with L the Cholesky factor of the covariance,
+// y = L^-1 (x - mu), lp = -1/2 |y|^2 and grad = -L^-T y, two triangular
+// solves and no inverse (an explicit inverse loses accuracy where L is
+// ill-conditioned), the forward solve shared by the value and the gradient
+// at the last position.
+//
+// What bounds it on the H100: operations.  The two solves are d (d + 1)
+// multiply-adds a chain and leapfrog, everything else O(d); at d = 100 and
+// 10,240 chains x 12,000 leapfrogs that is 2.48e12 flops: 37 ms on the CUDA
+// cores, 15 ms as three TF32 passes on the tensor cores.  The lane kernel
+// this replaces (a group of lanes a chain, a column of L a shuffle) ran the
+// solves on the CUDA cores at 24x that bound, issue-bound on the full square
+// of L and one dependent shuffle a coordinate.
+//
+// Design.  L is one matrix for every chain, so a tile of 16 chains solving
+// against it is a triangular solve with 16 right-hand sides, and all of it
+// but the diagonal blocks is a matrix product:
+//  - d is cut into column blocks of 8, padded (104 at d = 100; NB blocks,
+//    NB <= 21), the padding an identity block of L and zeros of x and mu.
+//  - Forward, right-looking: for K = 0 .. NB - 1, block K of the residual is
+//    solved against the diagonal block L_KK (below), and then every later
+//    block takes off its panel product, R_I -= Y_K L_IK^T, one mma.sync
+//    m16n8k8 in three TF32 passes each (logistic_tile.cuh's split_tf32 and
+//    mma_3x: float32 accuracy, the dropped lo x lo term 2^-22 of a product).
+//    Back, the same from the last block: W_K L_KK = Y_K - sum_{I>K} W_I L_IK,
+//    and grad = -W.  Each panel product is accumulated from zero and added
+//    to its block by a rounded float add: the tensor cores' own float32
+//    accumulation truncates, and carried through a whole solve that
+//    doubled the distance from the plain version (106 of 10,240 chains off
+//    its tolerance over 8 steps at d = 100, against none).
+//  - mma.sync, not wgmma: wgmma's 64-row M would make 64-chain tiles (160
+//    at 10,240 chains, two on some SMs), and its TF32 B operand is read
+//    K-major from shared memory only, so the back solve's transposed panels
+//    would need a second copy of L, which does not fit beside a tile at
+//    d = 168.
+//  - One warp holds a tile, its residual as 4 NB floats a lane in the mma
+//    accumulator layout with the columns permuted (tile_hmc.cuh), so a solved
+//    block is at once the A operand of the panel products: no data moves
+//    between lanes but in the diagonal blocks.  The right-looking order
+//    splits each solved block once and keeps the panel updates of different
+//    blocks independent, which gives the tensor pipe work to overlap.
+//  - Diagonal blocks: the four lanes of a row gather its 8 elements (16
+//    shuffles for the lane's two rows) and each substitutes serially on the
+//    CUDA cores, the diagonal applied as a product with its reciprocal: an
+//    8-deep dependency where the lane kernel's was d-deep.
+//  - L's strict lower blocks live in shared memory once a block, negated and
+//    pre-split into TF32 hi and lo in the block's prologue: NB (NB - 1) / 2
+//    blocks of 512 bytes, each lane's forward B fragment (hi and lo of two
+//    elements) one 16-byte word, in a swizzled order (slot()) that keeps both
+//    the forward 16-byte loads and the back solve's 8-byte loads of the
+//    transposed fragment free of bank conflicts, so both solves read one
+//    copy.  At d = 168 that is 210 blocks, 107,520 bytes (the triangle in hi
+//    and lo is 168 * 169 / 2 * 8 = 113,568; a padded square in hi and lo,
+//    225,792 bytes, would not leave room for a tile), plus the diagonal
+//    blocks and their transposes in float32 (NB * 512), mu and M^-1 by
+//    columns (NB * 64), and for each warp the tile's position, momentum and
+//    the opening position and gradient (4 * NB * 512): 205,632 bytes for
+//    two warps at NB = 21, 180,544 for five at NB = 13, within 232,448.
+//  - Only the residual and gradient stay in registers (4 NB floats); the
+//    position and momentum lie in shared memory in the fragment layout (one
+//    16-byte word a lane and unit), which the O(d) kicks and drifts read and
+//    write once a leapfrog.  The gradient is carried across steps
+//    (tile_hmc.cuh): the opening gradient is kept beside the opening
+//    position in the warp's shared memory, so a step costs n gradients.
+//  - A block holds ceil(tiles / SMs) tiles, one a warp, as shared memory
+//    allows (layout(), exported as fused_hmc_dense_layout): at 10,240
+//    chains 640 tiles, five a block, 80 chains on the busiest SM.  After
+//    the prologue a warp never waits for another.  Five warps an SM leave
+//    the solves' dependent chains (a diagonal block, the split, three
+//    dependent mma) mostly unhidden; tiles of 8 chains a warp
+//    (rows 8-15 of the mma unused: twice the warps) were slower on an H100
+//    (212 ms against 180 at "dense-main"'s shape), held to 168 registers and
+//    spilling.
+//  - The momenta: a step's Philox blocks are drawn once a tile, the lanes
+//    taking the (row, block) pairs in turn and writing all four normals into
+//    the momentum's fragment layout (tile_hmc.cuh, tile_normals); drawn by
+//    each lane for its own elements, every block was drawn four times, a
+//    third of the run's time.
+//  - Each count of blocks NB is its own build (GMT_DENSE_NB, a variant of
+//    _build.py built at the first launch at that width): the solves are
+//    unrolled over the blocks so that the residual stays in registers, and
+//    all 21 counts in one library took ptxas 133 s.
+//
+// Agreement with the plain version: the solves sum in another order than
+// torch.linalg.solve_triangular and carry the split's rounding, so the two
+// agree to a tolerance, and this source is built with fused multiply-adds on
+// (_SOURCE_FLAGS in _build.py) for the solves.  The HMC arithmetic around
+// them is tile_hmc.cuh's, in the plain version's order; the draws are its
+// bits.
+//
+// C interface, loaded with ctypes (general_mcmc_torch/_build.py); the entry
+// point returns the first CUDA error of its calls, or cudaErrorInvalidValue
+// for a width it was not built for.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "counter_rng.cuh"
+#include "logistic_tile.cuh"
+#include "tile_hmc.cuh"
+
+namespace {
+
+using gmt_logistic::mma_3x;
+using gmt_logistic::split_tf32;
+using gmt_tile::kFull;
+
+#ifndef GMT_DENSE_NB
+#error "build with -DGMT_DENSE_NB=<8-column blocks of the width>, 1..21 (ops/fused_hmc_dense.py)"
+#endif
+constexpr int kNB = GMT_DENSE_NB;  // 8-column blocks of this build's widths
+static_assert(kNB >= 1 && kNB <= 21, "d <= 168 (MAX_DENSE_DIM in ops/fused_hmc_dense.py)");
+constexpr int kMaxWarps = 8;  // tiles a block
+
+// Shared memory of a block of `warps` tiles at NB blocks, in bytes: the
+// off-diagonal fragments, the diagonal blocks and their transposes, the
+// column tables and each warp's four vectors (see Design).
+__host__ __device__ constexpr size_t shared_bytes(int nb, int warps) {
+  return static_cast<size_t>(nb) * (nb - 1) / 2 * 512 + static_cast<size_t>(nb) * 512 +
+         static_cast<size_t>(nb) * 64 + static_cast<size_t>(warps) * 4 * nb * 512;
+}
+
+// The 16-byte word of a block's fragments that lane l's forward B fragment
+// lies in: groups of 8 lanes rotated by 2 (l / 8).  A quarter warp's 16-byte
+// loads then cover the 8 bank groups, and the back solve's 8-byte loads
+// (lanes 8 t + (g / 2) and 8 t + 4 + (g / 2) for lane (g, t)) the 16 pairs.
+__host__ __device__ constexpr int slot(int l) { return (l & ~7) | ((l + 2 * (l >> 3)) & 7); }
+
+// Block I of a row tile's columns: output column n of an mma is column
+// pi(n) = n / 2 + 4 (n % 2) of the block (tile_hmc.cuh's fragment layout).
+__host__ __device__ constexpr int pi(int n) { return (n >> 1) + 4 * (n & 1); }
+
+// Index of the strict lower block (I, K), K < I.
+__host__ __device__ constexpr int tri(int i, int k) { return i * (i - 1) / 2 + k; }
+
+// v[o + t] of an array indexed at compile time (t = lane % 4).
+__device__ __forceinline__ float pick(const float (&v)[8], int o, int t) {
+  return t == 0 ? v[o] : t == 1 ? v[o + 1] : t == 2 ? v[o + 2] : v[o + 3];
+}
+
+// The block's shared-memory parts (see shared_bytes).
+struct DenseShared {
+  float4* lf;  // [NB (NB - 1) / 2][32]: -L_IK fragments, hi and lo
+  float* dg;   // [NB][64]: L_KK row-major, 1 / L_ii on the diagonal
+  float* dt;   // [NB][64]: its transpose
+  float2* mu;  // [NB][4]: mu at columns 8 J + t and 8 J + t + 4
+  float2* iv;  // M^-1 at the same columns
+  float4* warp0;  // [warps][4][NB][32]: x, m, opening x, opening gradient
+
+  __device__ DenseShared(float4* base, int nb) {
+    lf = base;
+    dg = reinterpret_cast<float*>(lf + nb * (nb - 1) / 2 * 32);
+    dt = dg + nb * 64;
+    mu = reinterpret_cast<float2*>(dt + nb * 64);
+    iv = mu + nb * 4;
+    warp0 = reinterpret_cast<float4*>(iv + nb * 4);
+  }
+
+  // L, mu and M^-1 into the block's parts (every thread; a block barrier
+  // after).
+  __device__ void stage(const float* chol, const float* mean, const float* inv, int d,
+                        int nb) const {
+    const int pairs = nb * nb * 32;
+    for (int idx = threadIdx.x; idx < pairs; idx += blockDim.x) {
+      const int i = idx / (nb * 32), k = (idx / 32) % nb, l = idx % 32;
+      if (k >= i) continue;
+      const int row = 8 * i + pi(l >> 2);
+      const int col = 8 * k + (l & 3);
+      const float v0 = (row < d && col < d) ? -chol[row * d + col] : 0.0f;
+      const float v1 = (row < d && col + 4 < d) ? -chol[row * d + col + 4] : 0.0f;
+      uint32_t h0, l0, h1, l1;
+      split_tf32(v0, h0, l0);
+      split_tf32(v1, h1, l1);
+      lf[tri(i, k) * 32 + slot(l)] =
+          make_float4(__uint_as_float(h0), __uint_as_float(l0), __uint_as_float(h1),
+                      __uint_as_float(l1));
+    }
+    for (int idx = threadIdx.x; idx < nb * 64; idx += blockDim.x) {
+      const int k = idx / 64, i = (idx / 8) % 8, j = idx % 8;
+      const int r = 8 * k + i, c = 8 * k + j;
+      float v = 0.0f;
+      if (j < i) {
+        v = r < d ? chol[r * d + c] : 0.0f;
+      } else if (j == i) {
+        v = r < d ? 1.0f / chol[r * d + r] : 1.0f;  // the padding: an identity block
+      }
+      dg[k * 64 + i * 8 + j] = v;
+      dt[k * 64 + j * 8 + i] = v;
+    }
+    for (int idx = threadIdx.x; idx < nb * 4; idx += blockDim.x) {
+      const int c0 = 8 * (idx / 4) + idx % 4, c1 = c0 + 4;
+      mu[idx] = make_float2(c0 < d ? mean[c0] : 0.0f, c1 < d ? mean[c1] : 0.0f);
+      iv[idx] = make_float2(c0 < d ? inv[c0] : 0.0f, c1 < d ? inv[c1] : 0.0f);
+    }
+    __syncthreads();
+  }
+};
+
+// One warp's tile of the dense GaussianND: tile_hmc.cuh's hooks.  V holds
+// the residual x - mu before grad() and the gradient after it; the solves
+// run in place on it.  A unit of a vector in shared memory is one 16-byte
+// word a lane.
+template <int NB>
+struct DenseTile {
+  static constexpr int R = 2;  // rows a lane holds: g and g + 8
+  const DenseShared& s;
+  const gmt_tile::Run& a;
+  const gmt_tile::TileRows& rows;
+  float4 *x, *m, *xo, *go;  // the warp's four vectors, unit 0, lane 0
+  int lane, t;
+  float V[NB][4];
+
+  __device__ DenseTile(const DenseShared& s_, const gmt_tile::Run& a_,
+                       const gmt_tile::TileRows& rows_, int warp)
+      : s(s_), a(a_), rows(rows_) {
+    lane = threadIdx.x & 31;
+    t = lane & 3;
+    x = s.warp0 + warp * 4 * NB * 32;
+    m = x + NB * 32;
+    xo = m + NB * 32;
+    go = xo + NB * 32;
+  }
+
+  __device__ __forceinline__ void get(const float4* base, int j, float (&v)[4]) const {
+    const float4 q = base[j * 32 + lane];
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+  __device__ __forceinline__ void put(float4* base, int j, const float (&v)[4]) const {
+    base[j * 32 + lane] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ __forceinline__ float2 col2(const float2* tab, int j) const { return tab[j * 4 + t]; }
+  static __device__ __forceinline__ float col(const float2& v, int c) {
+    return (c & 1) ? v.y : v.x;
+  }
+
+  // x0's rows into x, and the residual x - mu.
+  __device__ void init() {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < 2 * R; ++c) {
+        const int k = 8 * j + t + 4 * (c & 1);
+        if (k < a.d) v[c] = a.x0[rows.row(c >> 1) * a.d + k];
+      }
+      put(x, j, v);
+      residual(j, v);
+    }
+  }
+
+  __device__ __forceinline__ void residual(int j, const float (&v)[4]) {
+    const float2 mu = col2(s.mu, j);
+#pragma unroll
+    for (int c = 0; c < 2 * R; ++c) V[j][c] = __fsub_rn(v[c], col(mu, c));
+  }
+
+  // The lane's rows of block j, all 8 columns, from the quad's lanes.
+  __device__ __forceinline__ void gather(int j, float (&r)[R][8]) const {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int src = (lane & ~3) | q;
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        r[h][q] = __shfl_sync(kFull, V[j][2 * h], src);
+        r[h][q + 4] = __shfl_sync(kFull, V[j][2 * h + 1], src);
+      }
+    }
+  }
+
+  // The lane's elements of the solved rows back into block j.
+  __device__ __forceinline__ void keep(int j, const float (&y)[R][8]) {
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      V[j][2 * h] = pick(y[h], 0, t);
+      V[j][2 * h + 1] = pick(y[h], 4, t);
+    }
+  }
+
+  // Y_K = R_K L_KK^-T for the lane's rows: y_i = (r_i - sum_{j<i} L_ij y_j)
+  // / L_ii, row i of the diagonal block read as two 16-byte words.
+  __device__ __forceinline__ void diag_forward(int k) {
+    float r[R][8], y[R][8];
+    gather(k, r);
+    const float4* dg = reinterpret_cast<const float4*>(s.dg + k * 64);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 lo = dg[2 * i], hi = dg[2 * i + 1];
+      const float row[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        float acc = r[h][i];
+#pragma unroll
+        for (int j = 0; j < i; ++j) acc -= row[j] * y[h][j];
+        y[h][i] = acc * row[i];
+      }
+    }
+    keep(k, y);
+  }
+
+  // W_K = Y_K L_KK^-1 for the lane's rows, the last column first:
+  // w_j = (y_j - sum_{i>j} w_i L_ij) / L_jj, column j read from the
+  // transposed block.
+  __device__ __forceinline__ void diag_back(int k) {
+    float r[R][8], w[R][8];
+    gather(k, r);
+    const float4* dt = reinterpret_cast<const float4*>(s.dt + k * 64);
+#pragma unroll
+    for (int j = 7; j >= 0; --j) {
+      const float4 lo = dt[2 * j], hi = dt[2 * j + 1];
+      const float cl[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        float acc = r[h][j];
+#pragma unroll
+        for (int i = 7; i > j; --i) acc -= cl[i] * w[h][i];
+        w[h][j] = acc * cl[j];
+      }
+    }
+    keep(k, w);
+  }
+
+  // Block k, solved, as the A operand of the panel products, hi and lo.
+  __device__ __forceinline__ void operand(int k, uint4& hi, uint4& lo) const {
+    split_tf32(V[k][0], hi.x, lo.x);
+    split_tf32(V[k][2], hi.y, lo.y);
+    split_tf32(V[k][1], hi.z, lo.z);
+    split_tf32(V[k][3], hi.w, lo.w);
+  }
+
+  // A panel product (of -L) added to its block.
+  __device__ __forceinline__ void take(int j, const float (&p)[4]) {
+#pragma unroll
+    for (int c = 0; c < 2 * R; ++c) V[j][c] = __fadd_rn(V[j][c], p[c]);
+  }
+
+  __device__ void grad(bool value, float (&lp)[R]) {
+    // forward: Y = R L^-T, block by block, right-looking
+#pragma unroll
+    for (int k = 0; k < NB; ++k) {
+      diag_forward(k);
+      if (k + 1 < NB) {
+        uint4 ah, al;
+        operand(k, ah, al);
+#pragma unroll
+        for (int i = k + 1; i < NB; ++i) {
+          const float4 b = s.lf[tri(i, k) * 32 + slot(lane)];
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_3x(acc, ah, al, __float_as_uint(b.x), __float_as_uint(b.z), __float_as_uint(b.y),
+                 __float_as_uint(b.w));
+          take(i, acc);
+        }
+      }
+    }
+    if (value) {  // lp = -1/2 |y|^2, each square rounded, the sum in double
+      double ss[1][R] = {};
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2 * R; ++c) {
+          ss[0][c >> 1] += static_cast<double>(__fmul_rn(V[j][c], V[j][c]));
+        }
+      }
+      gmt_tile::row_sums<1, 1>(ss, nullptr, 0, 0, t, [] {});
+#pragma unroll
+      for (int h = 0; h < R; ++h) lp[h] = __fmul_rn(-0.5f, static_cast<float>(ss[0][h]));
+    }
+    // back: W = Y L^-1 from the last block; the panel B fragment is the
+    // forward one transposed, two 8-byte words of other lanes' slots
+    const float2* lf2 = reinterpret_cast<const float2*>(s.lf);
+    const int g = lane >> 2;
+    const int at0 = 2 * slot(8 * t + (g >> 1)) + (g & 1);
+    const int at1 = 2 * slot(8 * t + 4 + (g >> 1)) + (g & 1);
+#pragma unroll
+    for (int k = NB - 1; k >= 0; --k) {
+      diag_back(k);
+      if (k > 0) {
+        uint4 ah, al;
+        operand(k, ah, al);
+#pragma unroll
+        for (int j = 0; j < k; ++j) {
+          const float2 b0 = lf2[tri(k, j) * 64 + at0];
+          const float2 b1 = lf2[tri(k, j) * 64 + at1];
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_3x(acc, ah, al, __float_as_uint(b0.x), __float_as_uint(b1.x),
+                 __float_as_uint(b0.y), __float_as_uint(b1.y));
+          take(j, acc);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2 * R; ++c) V[j][c] = -V[j][c];
+    }
+  }
+
+  // The kinetic energy of the momenta in shared memory.
+  __device__ void energy(float (&ke)[R]) {
+    double e[1][R] = {};
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float v[4];
+      get(m, j, v);
+      const float2 iv = col2(s.iv, j);
+#pragma unroll
+      for (int c = 0; c < 2 * R; ++c) e[0][c >> 1] += gmt_tile::energy_term(v[c], col(iv, c));
+    }
+    gmt_tile::row_sums<1, 1>(e, nullptr, 0, 0, t, [] {});
+#pragma unroll
+    for (int h = 0; h < R; ++h) ke[h] = gmt_tile::half_sum(e[0][h]);
+  }
+
+  // The momenta sqrt(M) z, each Philox block once a tile, written to the
+  // fragment layout (zero past d), then their kinetic energy.
+  __device__ void draw(uint32_t step, float (&ke)[R]) {
+    float* mw = reinterpret_cast<float*>(m);
+    const int d = a.d;
+    const float* scale = a.scale;
+    gmt_tile::tile_normals(a.seed, rows, step, 2 * NB, lane, 32, [=](int r, int k, float z) {
+      // row r, column k: unit k / 8, lane 4 (r % 8) + k % 4, register 2 (r / 8) + (k % 8) / 4
+      const int at = ((k >> 3) * 32 + 4 * (r & 7) + (k & 3)) * 4 + 2 * (r >> 3) + ((k & 7) >> 2);
+      mw[at] = k < d ? __fmul_rn(__ldg(scale + k), z) : 0.0f;
+    });
+    __syncwarp();
+    energy(ke);
+  }
+
+  __device__ void kick(float c) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float v[4];
+      get(m, j, v);
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) v[e] = gmt_tile::kick(v[e], V[j][e], c);
+      put(m, j, v);
+    }
+  }
+
+  // x += (M^-1 m) eps, and the residual x - mu for the next gradient
+  __device__ void drift(float eps) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float mv[4], xv[4];
+      get(m, j, mv);
+      get(x, j, xv);
+      const float2 iv = col2(s.iv, j);
+#pragma unroll
+      for (int c = 0; c < 2 * R; ++c) xv[c] = gmt_tile::drift(xv[c], col(iv, c), mv[c], eps);
+      put(x, j, xv);
+      residual(j, xv);
+    }
+  }
+
+  __device__ void save() {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float v[4];
+      get(x, j, v);
+      put(xo, j, v);
+      put(go, j, V[j]);
+    }
+  }
+
+  __device__ void restore(const bool (&reject)[R]) {
+    bool any = false;
+#pragma unroll
+    for (int h = 0; h < R; ++h) any = any || reject[h];
+    if (!any) return;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float xb[4], gb[4], xv[4];
+      get(xo, j, xb);
+      get(go, j, gb);
+      get(x, j, xv);
+#pragma unroll
+      for (int c = 0; c < 2 * R; ++c) {
+        if (reject[c >> 1]) {
+          xv[c] = xb[c];
+          V[j][c] = gb[c];
+        }
+      }
+      put(x, j, xv);
+    }
+  }
+
+  __device__ void store(float* sample) const {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      float v[4];
+      get(x, j, v);
+      gmt_tile::store_unit(sample, rows, a.d, 0, 8 * j, t, v);
+    }
+  }
+};
+
+template <int NB>
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+    fused_hmc_dense_kernel(const gmt_tile::Run a, const float* mean, const float* chol) {
+  extern __shared__ float4 shared[];
+  const DenseShared s(shared, NB);
+  s.stage(chol, mean, a.inv, a.d, NB);
+  const int warp = threadIdx.x >> 5;
+  const int64_t tile = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (tile >= gmt_tile::launch_tiles(a.n, a.chain0)) return;  // whole warps: no barrier follows
+  const gmt_tile::TileRows rows(tile, a.n, a.chain0, (threadIdx.x & 31) >> 2);
+  DenseTile<NB> h(s, a, rows, warp);
+  h.init();
+  gmt_tile::run_tile(h, a, rows);
+}
+
+// A launch's layout: its tiles, tiles a block, blocks and dynamic shared
+// bytes a block.
+struct Layout {
+  int64_t tiles, per_block, blocks, bytes;
+};
+
+// The layout of a launch of `n` rows from `chain0` on the current device,
+// the one launch() uses: the tiles spread over the SMs, one block an SM, as
+// many tiles a block as its shared memory holds.
+template <int NB>
+cudaError_t layout(int n, unsigned int chain0, Layout* out) {
+  int device = 0, sms = 0, shared_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&shared_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = gmt_tile::launch_tiles(n, chain0);
+  int per_block = static_cast<int>((tiles + sms - 1) / sms);
+  per_block = per_block > kMaxWarps ? kMaxWarps : per_block;
+  while (per_block > 1 && shared_bytes(NB, per_block) > static_cast<size_t>(shared_max)) {
+    --per_block;
+  }
+  const size_t bytes = shared_bytes(NB, per_block);
+  if (bytes > static_cast<size_t>(shared_max)) return cudaErrorInvalidValue;
+  *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
+                static_cast<int64_t>(bytes)};
+  return cudaSuccess;
+}
+
+template <int NB>
+cudaError_t launch(const gmt_tile::Run& a, const float* mean, const float* chol,
+                   cudaStream_t stream) {
+  if ((a.d + 7) / 8 != NB) return cudaErrorInvalidValue;
+  Layout l;
+  cudaError_t err = layout<NB>(a.n, a.chain0, &l);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_hmc_dense_kernel<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(l.bytes));
+  if (err != cudaSuccess) return err;
+  fused_hmc_dense_kernel<NB><<<static_cast<unsigned int>(l.blocks),
+                               static_cast<unsigned int>(l.per_block * 32),
+                               static_cast<size_t>(l.bytes), stream>>>(a, mean, chol);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x0 [n, d], mean [d], chol [d, d] (the lower Cholesky factor of the
+// covariance), inv and scale [d] (M^-1 and sqrt(M)), out [n_collect, n, d],
+// all float32; built for 8 GMT_DENSE_NB - 7 <= d <= 8 GMT_DENSE_NB.
+extern "C" int fused_hmc_dense_launch(const void* x0, const void* mean, const void* chol,
+                                      const void* inv, const void* scale, void* out, int n,
+                                      int d, int n_collect, int n_discard, int thin,
+                                      int n_leapfrog, float step_size, unsigned int seed,
+                                      unsigned int chain0, void* stream) {
+  if (n < 1 || d < 1 || n_leapfrog < 1 || thin < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const gmt_tile::Run a{static_cast<const float*>(x0), static_cast<const float*>(inv),
+                        static_cast<const float*>(scale), static_cast<float*>(out),
+                        n, d, n_collect, n_discard, thin, n_leapfrog, step_size, seed, chain0};
+  return static_cast<int>(launch<kNB>(a, static_cast<const float*>(mean),
+                                      static_cast<const float*>(chol),
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+// The layout fused_hmc_dense_launch gives n rows of width d from chain0 on
+// the current device: out = {tiles, tiles a block, blocks, dynamic shared
+// bytes a block}.
+extern "C" int fused_hmc_dense_layout(int n, int d, unsigned int chain0, long long* out) {
+  if (n < 1 || (d + 7) / 8 != kNB) return static_cast<int>(cudaErrorInvalidValue);
+  Layout l;
+  const cudaError_t err = layout<kNB>(n, chain0, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = l.tiles;
+  out[1] = l.per_block;
+  out[2] = l.blocks;
+  out[3] = l.bytes;
+  return 0;
+}
+
+extern "C" const char* gmt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -20,30 +20,47 @@
 // What bounds it on the H100: operations.  A gradient is 4 n_obs p flops a
 // chain, computed as three TF32 passes on the tensor cores, and everything
 // else a step (draws, kicks, energies) is O(p) a chain; the state is read
-// once and every collected row written once.  The kernel recomputes the
-// gradient at the opening position of each step instead of carrying it (a
-// lane has no registers to spare for it): n + 1 gradients a step where the
-// algorithm needs n.
+// once and every collected row written once.
 //
-// Design: fused_logistic.cu's tile of 32 chains and four warps, from
-// logistic_tile.cuh (the split, the fragment loads, the two products, the
-// hand-over of g between the warps), aligned to the global chain index (a
-// chain's sums run in the same order whatever the launch's chain0).  K4's
-// tile takes all of a lane's 168 registers, so the HMC state around it is
-// kept small: each lane keeps its rows' mu, log tau, their momenta and log
-// densities and the z and momenta of its warp's own units in registers; the
-// opening z of the own units lies in shared memory (each lane its own
-// slots: no barrier), and the opening mu and log tau, log u and the opening
-// kinetic energy of each row once a tile (RowVals); one gradient call site
-// serves a step's n + 1 gradients.  The draws are K1's, at K1's
-// addresses: coordinate k of a chain is normal k of the paired layout under
-// (chain0 + row, step, k / 4, momentum tag), the accept uniform word 0 of
-// (chain0 + row, step, 0, accept tag) - what the plain "torch" step reads -
-// each lane computing the blocks of the coordinates it holds.  The row sums
-// (kinetic energies, sum z^2, the log-likelihood) are accumulated in double
-// over a lane's elements, the four lanes of a row by shuffles and the four
-// warps through the hand-over space, which is free between gradients; every
-// warp adds the four in one order, so all hold the same accept decision.
+// Design: the HMC is tile_hmc.cuh's, around the gradient of
+// logistic_tile.cuh (K4's: X as TF32 hi and lo in shared memory, both
+// products as mma.sync m16n8k8 in three passes, beta and the partial g
+// handed between a tile's warps in shared memory), in tiles of 16 chains
+// and two warps, each warp a half of the observations and the z of half the
+// feature tiles:
+//  - The gradient is carried across steps (tile_hmc.cuh): n gradients a
+//    step, not n + 1 as when each step recomputed the gradient at its
+//    opening position.  The registers for it come from the tile's size: a
+//    lane holds two rows, not four, and its warp's units of one row tile,
+//    so the gradient and the opening mu, log tau and their gradients fit
+//    beside the position and momentum; the opening z and its gradient lie
+//    in shared memory (each lane its own slots: no barrier).
+//  - 16-chain tiles fill the SMs (layout(), exported as
+//    fused_hmc_logistic_layout): 10,240 chains are 640 tiles, five a
+//    block, 80 chains on the busiest SM (an even spread is 77.6), where
+//    32-chain tiles were 320, three a block on 107 SMs and 96 chains on the
+//    busiest.  Two warps a tile (not four): a tile's PT units (6 at p = 48)
+//    deal evenly only to a number of warps that divides PT for every
+//    built PT (2, 4, 6).  Each B fragment of X then feeds one row tile, so
+//    the tile reads X from shared memory twice as often a flop: 12.3 KB a
+//    chain and gradient, ~50 ms of the SMs' shared-memory rate (128 bytes a
+//    clock) over the stretch line's run, beside the tensor cores' 36.6 ms
+//    at three passes.
+//  - X reaches shared memory by TMA, once a block: bulk copies
+//    (cp.async.bulk, completion on an mbarrier) of row chunks into the
+//    tiles' space, each chunk split into hi and lo by the block's threads
+//    before the next is copied (so X's size is bounded as before, by its
+//    hi and lo, not by a raw copy beside them).
+//  - mma.sync, not wgmma: wgmma's TF32 form reads B only K-major from shared
+//    memory, so the second product (K = observations) would need X^T beside
+//    X, each in hi and lo - 196,608 bytes at 256 x 48, no room for the
+//    tiles - and its 64-row M would make 64-chain tiles: 160 at 10,240
+//    chains, two on some SMs, 128 chains on the busiest.
+//  - The row sums (kinetic energies, sum z^2, the log-likelihood) are
+//    tile_hmc.cuh's, the two warps through three buffers in the tile's
+//    hand-over space, which is free between gradients: each use has its own
+//    buffer, so a warp that runs ahead never writes one the other still
+//    reads.
 //
 // Agreement with the plain version: the products sum in another order than
 // torch.matmul and carry the split's 2^-22, and the sigmoid is K4's (the
@@ -64,107 +81,82 @@
 
 #include "counter_rng.cuh"
 #include "logistic_tile.cuh"
+#include "tile_hmc.cuh"
 
 namespace {
 
 using namespace gmt_logistic;
 
-struct Args {
-  const float *x0, *X, *y, *inv, *scale;  // x0 [n, p + 2]; inv, scale: M^-1 and sqrt(M) rows
-  float* out;                             // [n_collect, n, p + 2]
-  int n, p, n_obs, n_pad, n_collect, n_discard, thin, n_leapfrog;
-  float eps;
-  uint32_t seed, chain0;
-};
+constexpr int kMT = 1;        // row tiles of 16 chains a tile
+constexpr int kNS = 2;        // warps a tile
+constexpr int kHmcTiles = 5;  // tiles a block: 10 warps, up to 204 registers a lane
 
 // Shared memory of a block, in 4-byte words: the tile data and parts of
-// logistic_tile.cuh, and for each tile the opening z of its lanes' own units
-// (2 PT floats a lane) and four values of each of its 32 rows (RowVals).
+// logistic_tile.cuh, for each tile the opening z and gradient of its lanes'
+// own units (2 PT floats a lane pair), and the mbarrier of the copies of X,
+// which are staged through the tiles' space.
+__host__ __device__ constexpr size_t tiles_words(int pt, int tiles) {
+  return static_cast<size_t>(tiles) * (tile_words(pt, kMT, kNS) + 2 * (pt / kNS) * 4 * 64);
+}
 __host__ __device__ constexpr size_t shared_words(int pt, int n_pad, int tiles) {
-  return data_words(pt, n_pad) +
-         static_cast<size_t>(tiles) * (tile_words(pt) + 2 * pt * 128 + 32 * 4);
+  return data_words(pt, n_pad) + tiles_words(pt, tiles) + 4;
 }
 
-// A row's values that only the step's close reads, kept once a tile in
-// shared memory instead of in every lane's registers: written by the row's
-// lane of warp 0 with t = 0 after the opening round of row sums, read after
-// the closing round (barriers between every write and read).
-struct RowVals {
-  float mu, lt, log_u, ke0;  // the opening mu and log tau, log u, the opening kinetic energy
-};
-
-// Row sums of a tile: each lane's NV values for its four rows (m, h), the
-// four lanes of a row by two shuffles, then the four warps through `buf`
-// (NV * 128 doubles), every warp adding the four in the same order.  One
-// barrier of the tile.
-template <int NV, int PT>
-__device__ __forceinline__ void row_sums(double (&v)[NV][2][2], double* buf,
-                                         const TileWarp<PT>& w) {
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      double& x = v[k][r >> 1][r & 1];
-      x += __shfl_xor_sync(kFull, x, 1);
-      x += __shfl_xor_sync(kFull, x, 2);
-      if (w.t == 0) buf[((w.part * NV + k) * 4 + r) * 8 + w.g] = x;
-    }
-  }
-  w.sync();
-  constexpr int kStride = NV * 4 * 8;  // one warp's values
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int at = (k * 4 + r) * 8 + w.g;
-      v[k][r >> 1][r & 1] =
-          ((buf[at] + buf[kStride + at]) + buf[2 * kStride + at]) + buf[3 * kStride + at];
-    }
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// The gradient at (mu, log tau, z): gz for the warp's own units, gmu and glt
-// for the lane's rows (the plain version's -z + tau g, -mu + sum g,
-// -log tau + tau sum z g); with `value` also the lane's partial
-// log-likelihood and sum z^2 of its rows, for row_sums.  Three barriers.
+// X [rows4, p] (rows4: n_obs rounded up to 4, zero rows after) into the
+// block's hi and lo of X and y into ys: chunks of `chunk` rows (a multiple of
+// 4, so that every copy is whole 16-byte words) copied by TMA into `stage`
+// by one thread, completing on `bar`, and split by all; a block barrier
+// after each.
 template <int PT>
-__device__ __forceinline__ void gradient(const TileWarp<PT>& w, int n_obs, bool value,
-                                         const float (&mu)[2][2], const float (&lt)[2][2],
-                                         const float (&tau)[2][2], const float (&z)[PT / 2][4],
-                                         float (&gmu)[2][2], float (&glt)[2][2],
-                                         float (&gz)[PT / 2][4], double (&ll)[2][2],
-                                         double (&zz)[2][2]) {
-  constexpr int U = 2 * PT;
-  constexpr int OWN = PT / 2;
-  w.write_beta(mu, tau, z);
-  float grad[2][PT][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    ll[r >> 1][r & 1] = 0.0;
-    zz[r >> 1][r & 1] = 0.0;
+__device__ void stage_x(const Shared<PT, kMT, kNS>& s, float* stage, uint64_t* bar,
+                        const float* X, const float* y, int n_obs, int p, int n_pad, int rows4,
+                        int chunk) {
+  constexpr int S = Shared<PT, kMT, kNS>::S;
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  w.partial_grad(grad, ll, n_obs, value);
-  float own[OWN][4];
-  float sums[8];
-  w.gather(grad, z, own, sums);
-#pragma unroll
-  for (int q = 0; q < U; ++q) {
-    if (q % kSplit == w.part) {
-      const int m = q / PT, i = q / kSplit;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        gz[i][c] = __fadd_rn(-z[i][c], __fmul_rn(tau[m][c >> 1], own[i][c]));
-        if (value) zz[m][c >> 1] += static_cast<double>(__fmul_rn(z[i][c], z[i][c]));
+  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) s.ys[i] = i < n_obs ? y[i] : 0.0f;
+  __syncthreads();
+  uint32_t phase = 0;
+  for (int r0 = 0; r0 < n_pad; r0 += chunk) {
+    const int copy = rows4 - r0 < chunk ? rows4 - r0 : chunk;  // rows of X in this chunk
+    if (copy > 0) {
+      if (threadIdx.x == 0) {
+        const uint32_t bytes = static_cast<uint32_t>(copy) * p * 4;
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+                     "r"(bytes)
+                     : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];" ::"r"(smem_addr(stage)),
+            "l"(X + static_cast<int64_t>(r0) * p), "r"(bytes), "r"(b)
+            : "memory");
       }
+      uint32_t done = 0;
+      while (!done) {
+        asm volatile(
+            "{ .reg .pred q; mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2; "
+            "selp.u32 %0, 1, 0, q; }"
+            : "=r"(done)
+            : "r"(b), "r"(phase)
+            : "memory");
+      }
+      phase ^= 1u;
     }
-  }
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      gmu[m][h] = __fadd_rn(-mu[m][h], sums[2 * (2 * m + h)]);
-      glt[m][h] = __fadd_rn(-lt[m][h], __fmul_rn(tau[m][h], sums[2 * (2 * m + h) + 1]));
+    const int rows = n_pad - r0 < chunk ? n_pad - r0 : chunk;
+    for (int idx = threadIdx.x; idx < rows * S; idx += blockDim.x) {
+      const int i = idx / S, j = idx % S;
+      const int at = (r0 + i) * S + j;
+      split_tf32((r0 + i < n_obs && j < p) ? stage[i * p + j] : 0.0f, s.xh[at], s.xl[at]);
     }
+    __syncthreads();
   }
 }
 
@@ -176,302 +168,282 @@ __device__ __forceinline__ float log_density(float mu, float lt, double zz, doub
   return __fadd_rn(__fsub_rn(__fsub_rn(a, b), c), static_cast<float>(ll));
 }
 
-// PT: 8-feature tiles (the padded feature count is PT * 8), even.  Padded
-// features have zero columns of X, a zero z, momentum and gradient, and are
-// never stored.  Tiles are aligned to the global chain index: a tile holds
-// the global chains 32 k .. 32 k + 31, so a chain sits at the same place in
-// its tile, and its sums run in the same order, whatever chain0 is (a block
-// of rows from chain0 > 0 is bit-equal to those rows of the launch from 0).
+// One tile of the logistic target: tile_hmc.cuh's hooks.  Each lane holds
+// its two rows' mu and log tau (all lanes of the tile alike) and the z of
+// its warp's own units (feature tiles j = part + 2 i), with their momenta
+// and gradients.
 template <int PT>
-__global__ void __launch_bounds__(kMaxTiles * kSplit * 32, 1)
-    fused_hmc_logistic_kernel(const Args a) {
-  using W = TileWarp<PT>;
-  constexpr int U = W::U;
-  constexpr int OWN = W::OWN;
-  const int tiles = blockDim.x / (32 * kSplit);
-  extern __shared__ float4 shared[];
-  const Shared<PT> s(shared, a.n_pad, tiles);
-  s.stage(a.X, a.y, a.n_obs, a.p, a.n_pad);
+struct LogisticTile {
+  using W = TileWarp<PT, kMT, kNS>;
+  static constexpr int OWN = W::OWN;
+  const W& w;
+  const gmt_tile::Run& a;
+  const gmt_tile::TileRows& rows;
+  int p, n_obs;
+  float iv_mu, iv_lt, sc_mu, sc_lt;
+  float* zo;   // this lane's slots of the opening z (unit i, register c at (4 i + c) * 64)
+  float* gzo;  // and of their gradient
+  double* red;  // the three row-sum buffers
+  float* drawn;  // the tile's momenta as drawn: [16][8 PT] of z, then [16][2] of mu, log tau
+  float mu[kMT][2], lt[kMT][2], tau[kMT][2], z[OWN][4];
+  float mmu[2], mlt[2], mz[OWN][4];
+  float gmu[2], glt[2], gz[OWN][4];
+  float mu_o[2], lt_o[2], gmu_o[2], glt_o[2];
 
-  const int tile = (threadIdx.x >> 5) / kSplit;  // the tile's warps leave together
-  // the tile's first row of the launch: rows before 0 (the lead of a launch
-  // that starts inside a tile) and from n on compute and store nothing
-  const int64_t first =
-      (static_cast<int64_t>(blockIdx.x) * tiles + tile) * 32 - static_cast<int64_t>(a.chain0 % 32u);
-  if (first >= a.n) return;  // whole tiles only; only the tile's own barriers follow
-  const W w(s, tile, a.n_pad);
-  const int part = w.part, g = w.g, t = w.t;
-  const int p = a.p, d = a.p + 2, n_obs = a.n_obs;
-  // the opening z of this lane's own units: slot (4 i + c) * 128 of its tile
-  float* xz = s.after + tile * (2 * PT * 128) + (threadIdx.x & 127);
-  RowVals* rows = reinterpret_cast<RowVals*>(s.after + tiles * (2 * PT * 128)) + tile * 32;
-  // row sums between gradients, in the tile's hand-over space: the
-  // kinetic energy at a step's start, then the closing round
-  double* red = reinterpret_cast<double*>(s.ex + tile * (U * 3 * 32));
-  double* red_open = red;
-  double* red_close = red + 128;
+  __device__ LogisticTile(const W& w_, const gmt_tile::Run& a_,
+                          const gmt_tile::TileRows& rows_, int n_obs_, float* open,
+                          double* red_, float* drawn_)
+      : w(w_), a(a_), rows(rows_), n_obs(n_obs_), red(red_), drawn(drawn_) {
+    p = a.d - 2;
+    iv_mu = a.inv[0];
+    iv_lt = a.inv[1];
+    sc_mu = a.scale[0];
+    sc_lt = a.scale[1];
+    zo = open;
+    gzo = open + OWN * 4 * 64;
+  }
 
-  // This lane's four rows: row tile m, half h is row first + 16 m + g + 8 h
-  // of the launch (clamped to a row the launch has, for the work of rows
-  // that store nothing), chain chain0 + that row for the draws
-  auto row_of = [&](int m, int h) {
-    const int64_t r = first + 16 * m + g + 8 * h;
-    return r < 0 ? int64_t{0} : (r < a.n ? r : a.n - 1);
-  };
-  auto live = [&](int m, int h) {
-    const int64_t r = first + 16 * m + g + 8 * h;
-    return r >= 0 && r < a.n;
-  };
-  float mu[2][2], lt[2][2], tau[2][2], z[OWN][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
+  __device__ __forceinline__ int feature(int i, int c) const {
+    return 8 * (w.part + kNS * i) + w.t + 4 * (c & 1);
+  }
+  __device__ __forceinline__ float inv_z(int f) const {
+    return f < p ? __ldg(a.inv + f + 2) : 0.0f;
+  }
+
+  __device__ void init() {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int64_t base = row_of(m, h) * d;
-      mu[m][h] = a.x0[base];
-      lt[m][h] = a.x0[base + 1];
-      tau[m][h] = expf(lt[m][h]);
+      const int64_t base = rows.row(h) * a.d;
+      mu[0][h] = a.x0[base];
+      lt[0][h] = a.x0[base + 1];
+      tau[0][h] = expf(lt[0][h]);
     }
-  }
 #pragma unroll
-  for (int q = 0; q < U; ++q) {
-    if (q % kSplit == part) {
-      const int m = q / PT, j = q % PT;
+    for (int i = 0; i < OWN; ++i) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int f = 8 * j + t + 4 * (c & 1);
-        z[q / kSplit][c] = f < p ? a.x0[row_of(m, c >> 1) * d + 2 + f] : 0.0f;
+        const int f = feature(i, c);
+        z[i][c] = f < p ? a.x0[rows.row(c >> 1) * a.d + 2 + f] : 0.0f;
       }
     }
   }
-  const float iv_mu = a.inv[0], iv_lt = a.inv[1];
-  const float sc_mu = a.scale[0], sc_lt = a.scale[1];
-  const float eps = a.eps;
-  const float half = 0.5f * eps;
 
-  float lp[2][2];  // the log density at the current position (from step 0's first gradient)
-  const int total = a.n_discard + a.n_collect * a.thin;
-  const int64_t sample = static_cast<int64_t>(a.n) * d;  // floats between stored samples
-  int64_t at = 0;                                        // this step's sample in the store
-  int until_store = a.thin;  // post-burn-in steps until the next stored sample
-  for (int step = 0; step < total; ++step) {
-    const uint32_t st = static_cast<uint32_t>(step);
-    // momenta: mu and log tau are normals 0 and 1 of block 0, z_f normal
-    // f + 2; and the accept draw
-    float mmu[2][2], mlt[2][2], mz[OWN][4], log_u[2][2];
+  // The gradient at (mu, log tau, z): the plain version's -z + tau g,
+  // -mu + sum g, -log tau + tau sum z g; with `value` the rows' log density.
+  __device__ void grad(bool value, float (&lp)[2]) {
+    w.write_beta(mu, tau, z);
+    float g[kMT][PT][4];
+    double ll[kMT][2] = {{0.0, 0.0}};
+    w.partial_grad(g, ll, n_obs, value);
+    float own[OWN][4];
+    float sums[4 * kMT];
+    w.gather(g, z, own, sums);
+    double v[2][2] = {{ll[0][0], ll[0][1]}, {0.0, 0.0}};  // the log-likelihood, sum z^2
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = r >> 1, h = r & 1;
-      const uint32_t key = a.chain0 + static_cast<uint32_t>(row_of(m, h));
-      const uint4 b = gmt::counter_bits(a.seed, key, st, 0u, gmt::kTagMomentum);
-      float n0, n1;
-      gmt::box_muller_pair(b.x, b.y, n0, n1);
-      mmu[m][h] = __fmul_rn(sc_mu, n0);
-      mlt[m][h] = __fmul_rn(sc_lt, n1);
-      log_u[m][h] =
-          logf(gmt::bits_to_uniform(gmt::counter_bits(a.seed, key, st, 0u, gmt::kTagAccept).x));
-    }
+    for (int i = 0; i < OWN; ++i) {
 #pragma unroll
-    for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
-        const int m = q / PT, j = q % PT, i = q / kSplit;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int f = 8 * j + t + 4 * (c & 1);
-          mz[i][c] = 0.0f;
-          if (f < p) {
-            const int k = f + 2;  // the coordinate
-            const uint32_t key = a.chain0 + static_cast<uint32_t>(row_of(m, c >> 1));
-            const uint4 b = gmt::counter_bits(a.seed, key, st, static_cast<uint32_t>(k >> 2),
-                                              gmt::kTagMomentum);
-            float zc, zs;
-            if (k & 2) {
-              gmt::box_muller_pair(b.z, b.w, zc, zs);
-            } else {
-              gmt::box_muller_pair(b.x, b.y, zc, zs);
-            }
-            mz[i][c] = __fmul_rn(__ldg(a.scale + k), (k & 1) ? zs : zc);
-          }
-        }
-      }
-    }
-
-    // the opening kinetic energy; the opening state and the row values
-    {
-      double v[1][2][2];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int m = r >> 1, h = r & 1;
-        v[0][m][h] = 0.0;
-        if (part == 0 && t == 0) {
-          v[0][m][h] = static_cast<double>(__fmul_rn(mmu[m][h], __fmul_rn(iv_mu, mmu[m][h]))) +
-                       static_cast<double>(__fmul_rn(mlt[m][h], __fmul_rn(iv_lt, mlt[m][h])));
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < U; ++q) {
-        if (q % kSplit == part) {
-          const int m = q / PT, j = q % PT, i = q / kSplit;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int f = 8 * j + t + 4 * (c & 1);
-            const float iv = f < p ? __ldg(a.inv + f + 2) : 0.0f;
-            v[0][m][c >> 1] += static_cast<double>(__fmul_rn(mz[i][c], __fmul_rn(iv, mz[i][c])));
-            xz[(4 * i + c) * 128] = z[i][c];
-          }
-        }
-      }
-      row_sums<1>(v, red_open, w);
-      if (part == 0 && t == 0) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int m = r >> 1, h = r & 1;
-          rows[16 * m + g + 8 * h] = RowVals{mu[m][h], lt[m][h], log_u[m][h],
-                                             __fmul_rn(0.5f, static_cast<float>(v[0][m][h]))};
-        }
-      }
-    }
-
-    // the leapfrog, one gradient a pass: pass -1 the gradient at the
-    // position (recomputed; at step 0 with the log density, the chain's
-    // first), then n drifts each after a kick (a half-kick first), the last
-    // gradient with the log density
-    float gmu[2][2], glt[2][2], gz[OWN][4];
-    double ll[2][2], zz[2][2];
-    for (int l = -1; l < a.n_leapfrog; ++l) {
-      if (l >= 0) {
-        const float kick = l == 0 ? half : eps;
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int m = r >> 1, h = r & 1;
-          mmu[m][h] = __fadd_rn(mmu[m][h], __fmul_rn(gmu[m][h], kick));
-          mlt[m][h] = __fadd_rn(mlt[m][h], __fmul_rn(glt[m][h], kick));
-          mu[m][h] = __fadd_rn(mu[m][h], __fmul_rn(__fmul_rn(iv_mu, mmu[m][h]), eps));
-          lt[m][h] = __fadd_rn(lt[m][h], __fmul_rn(__fmul_rn(iv_lt, mlt[m][h]), eps));
-          tau[m][h] = expf(lt[m][h]);
-        }
-#pragma unroll
-        for (int q = 0; q < U; ++q) {
-          if (q % kSplit == part) {
-            const int j = q % PT, i = q / kSplit;
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const int f = 8 * j + t + 4 * (c & 1);
-              const float iv = f < p ? __ldg(a.inv + f + 2) : 0.0f;
-              mz[i][c] = __fadd_rn(mz[i][c], __fmul_rn(gz[i][c], kick));
-              z[i][c] = __fadd_rn(z[i][c], __fmul_rn(__fmul_rn(iv, mz[i][c]), eps));
-            }
-          }
-        }
-      }
-      const bool first_value = step == 0 && l < 0;
-      gradient<PT>(w, n_obs, first_value || l + 1 == a.n_leapfrog, mu, lt, tau, z, gmu, glt, gz,
-                   ll, zz);
-      if (first_value) {
-        double v[2][2][2];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          v[0][r >> 1][r & 1] = ll[r >> 1][r & 1];
-          v[1][r >> 1][r & 1] = zz[r >> 1][r & 1];
-        }
-        row_sums<2>(v, red_close, w);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int m = r >> 1, h = r & 1;
-          lp[m][h] = log_density(mu[m][h], lt[m][h], v[1][m][h], v[0][m][h]);
-        }
-      }
-    }
-
-    // closing half-kick, then the log density, sum z^2 and the closing
-    // kinetic energy of each row in one round of row sums
-    double v[3][2][2];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = r >> 1, h = r & 1;
-      mmu[m][h] = __fadd_rn(mmu[m][h], __fmul_rn(gmu[m][h], half));
-      mlt[m][h] = __fadd_rn(mlt[m][h], __fmul_rn(glt[m][h], half));
-      v[0][m][h] = ll[m][h];
-      v[1][m][h] = zz[m][h];
-      v[2][m][h] = 0.0;
-      if (part == 0 && t == 0) {
-        v[2][m][h] = static_cast<double>(__fmul_rn(mmu[m][h], __fmul_rn(iv_mu, mmu[m][h]))) +
-                     static_cast<double>(__fmul_rn(mlt[m][h], __fmul_rn(iv_lt, mlt[m][h])));
+      for (int c = 0; c < 4; ++c) {
+        gz[i][c] = __fadd_rn(-z[i][c], __fmul_rn(tau[0][c >> 1], own[i][c]));
+        if (value) v[1][c >> 1] += static_cast<double>(__fmul_rn(z[i][c], z[i][c]));
       }
     }
 #pragma unroll
-    for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
-        const int m = q / PT, j = q % PT, i = q / kSplit;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int f = 8 * j + t + 4 * (c & 1);
-          const float iv = f < p ? __ldg(a.inv + f + 2) : 0.0f;
-          mz[i][c] = __fadd_rn(mz[i][c], __fmul_rn(gz[i][c], half));
-          v[2][m][c >> 1] += static_cast<double>(__fmul_rn(mz[i][c], __fmul_rn(iv, mz[i][c])));
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      gmu[h] = __fadd_rn(-mu[0][h], sums[2 * h]);
+      glt[h] = __fadd_rn(-lt[0][h], __fmul_rn(tau[0][h], sums[2 * h + 1]));
     }
-    row_sums<3>(v, red_close, w);
-
-    // accept or restore each row, every lane of the tile alike
-    bool accept[2][2];
+    if (value) {
+      gmt_tile::row_sums<2, kNS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = r >> 1, h = r & 1;
-      const RowVals o = rows[16 * m + g + 8 * h];
-      const float lp_new = log_density(mu[m][h], lt[m][h], v[1][m][h], v[0][m][h]);
-      const float ke1 = __fmul_rn(0.5f, static_cast<float>(v[2][m][h]));
-      const float log_accept = __fadd_rn(__fsub_rn(lp_new, lp[m][h]), __fsub_rn(o.ke0, ke1));
-      accept[m][h] = o.log_u < log_accept;  // NaN rejects
-      if (accept[m][h]) {
-        lp[m][h] = lp_new;
-      } else {
-        mu[m][h] = o.mu;
-        lt[m][h] = o.lt;
-        tau[m][h] = expf(lt[m][h]);
-      }
+      for (int h = 0; h < 2; ++h) lp[h] = log_density(mu[0][h], lt[0][h], v[1][h], v[0][h]);
     }
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
-        const int m = q / PT, i = q / kSplit;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (!accept[m][c >> 1]) z[i][c] = xz[(4 * i + c) * 128];
-        }
-      }
-    }
-
-    if (step < a.n_discard || --until_store > 0) continue;
-    until_store = a.thin;
-    float* dst = a.out + at;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int m = r >> 1, h = r & 1;
-      if (part == 0 && t == 0 && live(m, h)) {
-        const int64_t base = row_of(m, h) * d;
-        dst[base] = mu[m][h];
-        dst[base + 1] = lt[m][h];
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
-        const int m = q / PT, j = q % PT, i = q / kSplit;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int f = 8 * j + t + 4 * (c & 1);
-          if (live(m, c >> 1) && f < p) dst[row_of(m, c >> 1) * d + 2 + f] = z[i][c];
-        }
-      }
-    }
-    at += sample;
   }
+
+  // The row sums of the kinetic energy: mu's and log tau's terms once a
+  // row (lane t = 0 of warp 0), z's by their owners.
+  __device__ __forceinline__ void energy_sums(float (&ke)[2], double* buf) const {
+    double v[1][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      v[0][h] = 0.0;
+      if (w.part == 0 && w.t == 0) {
+        v[0][h] = gmt_tile::energy_term(mmu[h], iv_mu) + gmt_tile::energy_term(mlt[h], iv_lt);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[0][c >> 1] += gmt_tile::energy_term(mz[i][c], inv_z(feature(i, c)));
+      }
+    }
+    gmt_tile::row_sums<1, kNS>(v, buf, w.part, w.g, w.t, [&] { w.sync(); });
+    ke[0] = gmt_tile::half_sum(v[0][0]);
+    ke[1] = gmt_tile::half_sum(v[0][1]);
+  }
+
+  // mu and log tau are normals 0 and 1 of block 0, z_f normal f + 2: each
+  // Philox block once a tile, through `drawn`, then the tile's barrier
+  __device__ void draw(uint32_t step, float (&ke)[2]) {
+    float* out = drawn;
+    const float* scale = a.scale;
+    const int pp = p;
+    gmt_tile::tile_normals(a.seed, rows, step, (p + 5) / 4, threadIdx.x & 63, 64,
+                               [=](int r, int k, float z) {
+                                 if (k < 2) {
+                                   out[16 * 8 * PT + 2 * r + k] = __fmul_rn(__ldg(scale + k), z);
+                                 } else if (k - 2 < pp) {
+                                   out[r * 8 * PT + k - 2] = __fmul_rn(__ldg(scale + k), z);
+                                 }
+                               });
+    w.sync();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mmu[h] = drawn[16 * 8 * PT + 2 * (w.g + 8 * h)];
+      mlt[h] = drawn[16 * 8 * PT + 2 * (w.g + 8 * h) + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int f = feature(i, c);
+        mz[i][c] = f < p ? drawn[(w.g + 8 * (c >> 1)) * 8 * PT + f] : 0.0f;
+      }
+    }
+    energy_sums(ke, red + 96);
+  }
+
+  __device__ void energy(float (&ke)[2]) { energy_sums(ke, red + 64); }
+
+  __device__ void kick(float c) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mmu[h] = gmt_tile::kick(mmu[h], gmu[h], c);
+      mlt[h] = gmt_tile::kick(mlt[h], glt[h], c);
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mz[i][k] = gmt_tile::kick(mz[i][k], gz[i][k], c);
+    }
+  }
+
+  __device__ void drift(float eps) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mu[0][h] = gmt_tile::drift(mu[0][h], iv_mu, mmu[h], eps);
+      lt[0][h] = gmt_tile::drift(lt[0][h], iv_lt, mlt[h], eps);
+      tau[0][h] = expf(lt[0][h]);
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        z[i][c] = gmt_tile::drift(z[i][c], inv_z(feature(i, c)), mz[i][c], eps);
+      }
+    }
+  }
+
+  __device__ void save() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mu_o[h] = mu[0][h];
+      lt_o[h] = lt[0][h];
+      gmu_o[h] = gmu[h];
+      glt_o[h] = glt[h];
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        zo[(4 * i + c) * 64] = z[i][c];
+        gzo[(4 * i + c) * 64] = gz[i][c];
+      }
+    }
+  }
+
+  __device__ void restore(const bool (&reject)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (reject[h]) {
+        mu[0][h] = mu_o[h];
+        lt[0][h] = lt_o[h];
+        tau[0][h] = expf(lt[0][h]);
+        gmu[h] = gmu_o[h];
+        glt[h] = glt_o[h];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (reject[c >> 1]) {
+          z[i][c] = zo[(4 * i + c) * 64];
+          gz[i][c] = gzo[(4 * i + c) * 64];
+        }
+      }
+    }
+  }
+
+  __device__ void store(float* sample) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (w.part == 0 && w.t == 0 && rows.live(h)) {
+        const int64_t base = rows.row(h) * a.d;
+        sample[base] = mu[0][h];
+        sample[base + 1] = lt[0][h];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+      gmt_tile::store_unit(sample, rows, a.d, 2, 8 * (w.part + kNS * i), w.t, z[i]);
+    }
+  }
+};
+
+// PT: 8-feature tiles (the padded feature count is PT * 8), even.  Padded
+// features have zero columns of X, a zero z, momentum and gradient, and are
+// never stored.
+template <int PT>
+__global__ void __launch_bounds__(kHmcTiles * kNS * 32, 1)
+    fused_hmc_logistic_kernel(const gmt_tile::Run a, const float* X, const float* y, int n_obs,
+                              int n_pad, int rows4, int chunk) {
+  using W = TileWarp<PT, kMT, kNS>;
+  const int tiles = blockDim.x / (32 * kNS);
+  extern __shared__ float4 shared[];
+  const Shared<PT, kMT, kNS> s(shared, n_pad, tiles);
+  // s.after: the tiles' opening z and gradients, then the mbarrier
+  float* open_base = s.after;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(open_base + tiles * (2 * W::OWN * 4 * 64));
+  // X is staged through the tiles' space, free until the tiles start
+  stage_x<PT>(s, reinterpret_cast<float*>(s.bf), bar, X, y, n_obs, a.d - 2, n_pad, rows4, chunk);
+
+  const int tile = (threadIdx.x >> 5) / kNS;  // the tile's warps leave together
+  const int64_t global_tile = static_cast<int64_t>(blockIdx.x) * tiles + tile;
+  // whole tiles leave together: only the tile's own barriers follow
+  if (global_tile >= gmt_tile::launch_tiles(a.n, a.chain0)) return;
+  const W w(s, tile, n_pad);
+  const gmt_tile::TileRows rows(global_tile, a.n, a.chain0, w.g);
+  float* open = open_base + tile * (2 * W::OWN * 4 * 64) + (threadIdx.x & 63);
+  double* red = reinterpret_cast<double*>(s.ex + tile * (W::U * (kNS - 1) * 32));
+  // the momenta as drawn lie in the beta fragments' space, free between gradients
+  float* drawn = reinterpret_cast<float*>(s.bf + tile * (W::U * 2 * 32));
+  LogisticTile<PT> h(w, a, rows, n_obs, open, red, drawn);
+  h.init();
+  gmt_tile::run_tile(h, a, rows);
 }
 
+// A launch's layout: its tiles, tiles a block, blocks and dynamic shared
+// bytes a block.
+struct Layout {
+  int64_t tiles, per_block, blocks, bytes;
+};
+
+// The layout of a launch of `n` rows from `chain0` over `n_obs` observations
+// on the current device, the one launch() uses: the tiles spread over the
+// SMs, one block an SM, as many tiles a block as fit beside X.
 template <int PT>
-cudaError_t launch(const Args& a0, cudaStream_t stream) {
+cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
   int device = 0, sms = 0, shared_max = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -479,53 +451,92 @@ cudaError_t launch(const Args& a0, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&shared_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  Args a = a0;
-  a.n_pad = 16 * kSplit * ((a.n_obs + 16 * kSplit - 1) / (16 * kSplit));
-  // as fused_logistic.cu: one block an SM, as many tiles a block as spread
-  // the chains over the SMs and fit beside X; the tiles cover the launch's
-  // rows from the start of chain0's tile
-  const int64_t tiles = (static_cast<int64_t>(a.n) + a.chain0 % 32u + 31) / 32;
+  const int n_pad = 64 * ((n_obs + 63) / 64);  // 32 observations a pass of each of 2 warps
+  const int64_t tiles = gmt_tile::launch_tiles(n, chain0);
   int per_block = static_cast<int>((tiles + sms - 1) / sms);
-  per_block = per_block > kMaxTiles ? kMaxTiles : per_block;
-  while (per_block > 1 && sizeof(float) * shared_words(PT, a.n_pad, per_block) >
+  per_block = per_block > kHmcTiles ? kHmcTiles : per_block;
+  while (per_block > 1 && sizeof(float) * shared_words(PT, n_pad, per_block) >
                               static_cast<size_t>(shared_max)) {
     --per_block;
   }
-  const size_t bytes = sizeof(float) * shared_words(PT, a.n_pad, per_block);
+  const size_t bytes = sizeof(float) * shared_words(PT, n_pad, per_block);
   if (bytes > static_cast<size_t>(shared_max)) return cudaErrorInvalidValue;
-  // above 48 KB a block's shared memory is granted only on request
+  *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
+                static_cast<int64_t>(bytes)};
+  return cudaSuccess;
+}
+
+template <int PT>
+cudaError_t launch(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
+                   cudaStream_t stream) {
+  static_assert(PT % kNS == 0, "a tile's units deal evenly to its warps");
+  Layout l;
+  cudaError_t err = layout<PT>(a.n, a.chain0, n_obs, &l);
+  if (err != cudaSuccess) return err;
+  const int p = a.d - 2;
+  const int n_pad = 64 * ((n_obs + 63) / 64);
+  const int rows4 = 4 * ((n_obs + 3) / 4);
+  // the staging chunk: the rows of X that the tiles' space holds, a multiple of 4
+  const int chunk =
+      static_cast<int>(tiles_words(PT, static_cast<int>(l.per_block)) / p) / 4 * 4;
+  if (chunk < 4) return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(fused_hmc_logistic_kernel<PT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
+                             static_cast<int>(l.bytes));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned int>((tiles + per_block - 1) / per_block));
-  fused_hmc_logistic_kernel<PT><<<grid, per_block * kSplit * 32, bytes, stream>>>(a);
+  fused_hmc_logistic_kernel<PT><<<static_cast<unsigned int>(l.blocks),
+                                  static_cast<unsigned int>(l.per_block * kNS * 32),
+                                  static_cast<size_t>(l.bytes), stream>>>(
+      a, X, y, n_obs, n_pad, rows4, chunk);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x0 [n, p + 2], X [n_obs, p], y [n_obs], inv and scale [p + 2] (M^-1 and
-// sqrt(M)), out [n_collect, n, p + 2], all float32; built for p <= 48
-// (MAX_FEATURES in ops/fused_hmc_logistic.py).
+// x0 [n, p + 2], X [4 ceil(n_obs / 4), p] (zero rows past n_obs: whole
+// 16-byte words for the copies), y [n_obs], inv and scale [p + 2] (M^-1 and
+// sqrt(M)), out [n_collect, n, p + 2], all float32, X 16-byte aligned; built
+// for p <= 48 (MAX_FEATURES in ops/fused_hmc_logistic.py).
 extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const void* y,
                                          const void* inv, const void* scale, void* out, int n,
                                          int p, int n_obs, int n_collect, int n_discard,
                                          int thin, int n_leapfrog, float step_size,
                                          unsigned int seed, unsigned int chain0,
                                          void* stream) {
-  if (n < 1 || p < 1 || n_obs < 1 || n_leapfrog < 1 || thin < 1) {
+  if (n < 1 || p < 1 || n_obs < 1 || n_leapfrog < 1 || thin < 1 ||
+      reinterpret_cast<uintptr_t>(X) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{static_cast<const float*>(x0), static_cast<const float*>(X),
-               static_cast<const float*>(y),  static_cast<const float*>(inv),
-               static_cast<const float*>(scale), static_cast<float*>(out),
-               n, p, n_obs, 0, n_collect, n_discard, thin, n_leapfrog, step_size, seed, chain0};
+  const gmt_tile::Run a{static_cast<const float*>(x0), static_cast<const float*>(inv),
+                        static_cast<const float*>(scale), static_cast<float*>(out),
+                        n, p + 2, n_collect, n_discard, thin, n_leapfrog, step_size, seed,
+                        chain0};
+  const float* Xf = static_cast<const float*>(X);
+  const float* yf = static_cast<const float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p <= 16) return static_cast<int>(launch<2>(a, s));
-  if (p <= 32) return static_cast<int>(launch<4>(a, s));
-  if (p <= 48) return static_cast<int>(launch<6>(a, s));
+  if (p <= 16) return static_cast<int>(launch<2>(a, Xf, yf, n_obs, s));
+  if (p <= 32) return static_cast<int>(launch<4>(a, Xf, yf, n_obs, s));
+  if (p <= 48) return static_cast<int>(launch<6>(a, Xf, yf, n_obs, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The layout fused_hmc_logistic_launch gives n rows of p features and n_obs
+// observations from chain0 on the current device: out = {tiles, tiles a
+// block, blocks, dynamic shared bytes a block}.
+extern "C" int fused_hmc_logistic_layout(int n, int p, int n_obs, unsigned int chain0,
+                                         long long* out) {
+  if (n < 1 || p < 1 || n_obs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Layout l;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (p <= 16) err = layout<2>(n, chain0, n_obs, &l);
+  else if (p <= 32) err = layout<4>(n, chain0, n_obs, &l);
+  else if (p <= 48) err = layout<6>(n, chain0, n_obs, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = l.tiles;
+  out[1] = l.per_block;
+  out[2] = l.blocks;
+  out[3] = l.bytes;
+  return 0;
 }
 
 extern "C" const char* gmt_error_string(int code) {

@@ -11,11 +11,12 @@
 //    shuffle a quad (lane G - 1 reads lane 0's quad k + 1), and the
 //    gradient's v_{j-1} of a quad's first element from the previous lane
 //    the same way.
-//  - The dense GaussianND's triangular solves go by columns: each solved
-//    element reaches the group by one shuffle from its lane, and every lane
-//    takes its part of that column off its own elements, reading the column
-//    as float4s of a row of L^T (forward) or of L (back) from shared memory,
-//    rows dense_pitch(d) floats apart.  The diagonal is applied as a product
+//  - The dense GaussianND's forward solve (K3's, which needs only the log
+//    density: K1 runs that target in a tile kernel of its own,
+//    fused_hmc_dense.cu) goes by columns: each solved element reaches the
+//    group by one shuffle from its lane, and every lane takes its part of
+//    that column off its own elements, reading the column as float4s of a
+//    row of L^T from shared memory, rows dense_pitch(d) floats apart.  The diagonal is applied as a product
 //    with its reciprocal.  The sums run in column order, not in the plain
 //    version's library order (cuBLAS trsm), so this target agrees with the
 //    plain version to a tolerance, not bit for bit.
@@ -38,7 +39,7 @@ enum Target : int {
   kFunnel = 6,
 };
 
-// Floats a row of L or L^T in shared memory: d rounded up to quads, so that
+// Floats a row of L^T in shared memory: d rounded up to quads, so that
 // every row starts 16-byte aligned.
 __host__ __device__ constexpr int dense_pitch(int d) { return 4 * ((d + 3) / 4); }
 
@@ -71,41 +72,6 @@ __device__ __forceinline__ void forward_solve(const float* lt, const float* rdia
             r[4 * k2 + 1] = r[4 * k2 + 1] - c.y * yi;
             r[4 * k2 + 2] = r[4 * k2 + 2] - c.z * yi;
             r[4 * k2 + 3] = r[4 * k2 + 3] - c.w * yi;
-          }
-        }
-      }
-    }
-  }
-}
-
-// g = L^-T r, the last element first: g_i = r_i / L_ii, and every lane
-// takes L_ij g_i off its r_j (row i of L, zeros past the diagonal).  r is
-// consumed; g past d stays as given.
-template <int QPL>
-__device__ __forceinline__ void back_solve(const float* l, const float* rdiag, int dp, int d,
-                                           int G, int sub, float (&r)[4 * QPL],
-                                           float (&g)[4 * QPL]) {
-#pragma unroll
-  for (int k = QPL - 1; k >= 0; --k) {
-    for (int s = G - 1; s >= 0; --s) {
-      const int q = s + G * k;
-      if (4 * q >= d) continue;
-#pragma unroll
-      for (int e = 3; e >= 0; --e) {
-        const int i = 4 * q + e;
-        if (i >= d) continue;
-        const float gi = __shfl_sync(kFull, r[4 * k + e], s, G) * rdiag[i];
-        if (sub == s) g[4 * k + e] = gi;
-        const float4* row = reinterpret_cast<const float4*>(l + i * dp);
-#pragma unroll
-        for (int k2 = 0; k2 < QPL; ++k2) {
-          const int q2 = sub + G * k2;
-          if (4 * q2 < dp) {
-            const float4 c = row[q2];
-            r[4 * k2] = r[4 * k2] - c.x * gi;
-            r[4 * k2 + 1] = r[4 * k2 + 1] - c.y * gi;
-            r[4 * k2 + 2] = r[4 * k2 + 2] - c.z * gi;
-            r[4 * k2 + 3] = r[4 * k2 + 3] - c.w * gi;
           }
         }
       }

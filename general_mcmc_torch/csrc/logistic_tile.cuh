@@ -1,19 +1,21 @@
-// The non-centred hierarchical logistic target's gradient for a tile of 32
+// The non-centred hierarchical logistic target's gradient for a tile of
 // chains on the tensor cores: what the fused gradient-ascent chain
 // (fused_logistic.cu) and the fused HMC run on the same target
 // (fused_hmc_logistic.cu) share.  The design is fused_logistic.cu's (its
 // head note): X as TF32 hi and lo in shared memory, both products as
-// mma.sync m16n8k8 in three TF32 passes, four warps a tile each running a
-// quarter of the observations, beta handed between them as ready fragments
-// in shared memory and the partial g to the owner of each (row tile,
-// feature tile) unit.
+// mma.sync m16n8k8 in three TF32 passes, NS warps a tile each running a
+// share of the observations, beta handed between them as ready fragments in
+// shared memory and the partial g to the owner of each (row tile, feature
+// tile) unit.  A tile is MT row tiles of 16 chains: fused_logistic.cu's
+// 32 chains and four warps (the defaults), the HMC kernel's 16 chains and
+// two warps.
 //
-// Layout of a tile (kSplit warps, `part` 0..3): lane (g = lane / 4,
-// t = lane % 4) holds rows (chains) 16 m + g + 8 h, m, h in {0, 1}; unit
-// q = (m, j) (row tile m, feature tile j < PT) is owned by warp q % kSplit,
+// Layout of a tile (NS warps, `part` 0..NS - 1): lane (g = lane / 4,
+// t = lane % 4) holds rows (chains) 16 m + g + 8 h, m < MT, h in {0, 1};
+// unit q = (m, j) (row tile m, feature tile j < PT) is owned by warp q % NS,
 // and register c of a unit's quadruple is row h = c / 2 and feature
-// 8 j + t + 4 (c % 2).  A warp owns OWN = PT / 2 units, in the order
-// q = part + kSplit i.
+// 8 j + t + 4 (c % 2).  A warp owns OWN = MT PT / NS units, in the order
+// q = part + NS i.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -74,26 +76,26 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
 
 // Shared memory of the tile data, in 4-byte words: X as hi and lo and y
 // (once a block), and for each tile the beta fragments (hi and lo, 4 words a
-// lane a unit), the partial g in transit (3 senders a unit) and the four
-// warps' partial hyper sums (8 a lane).
+// lane a unit), the partial g in transit (NS - 1 senders a unit) and the
+// NS warps' partial hyper sums (4 MT a lane).
 __host__ __device__ constexpr size_t data_words(int pt, int n_pad) {
   return static_cast<size_t>(n_pad) * (2 * (pt * 8 + kRowPad) + 1);
 }
-__host__ __device__ constexpr size_t tile_words(int pt) {
-  return 2 * static_cast<size_t>(pt) * (2 + 3) * 128 + kSplit * 8 * 32;
+__host__ __device__ constexpr size_t tile_words(int pt, int mt = 2, int ns = kSplit) {
+  return static_cast<size_t>(mt) * pt * (2 + (ns - 1)) * 128 + ns * 4 * mt * 32;
 }
 
 // Where a block's shared memory puts each part (fused_logistic.cu's order).
-template <int PT>
+template <int PT, int MT = 2, int NS = kSplit>
 struct Shared {
   static constexpr int S = PT * 8 + kRowPad;  // row stride of X in shared memory
-  static constexpr int U = 2 * PT;            // units of a tile
+  static constexpr int U = MT * PT;           // units of a tile
   uint32_t* xh;  // [n_pad][S], TF32 hi of X
   uint32_t* xl;  // [n_pad][S], TF32 lo of X
   float* ys;     // [n_pad]
   uint4* bf;     // [tiles][U][hi, lo][32]
-  float4* ex;    // [tiles][U][3][32]
-  float* sm;     // [tiles][4][8][32]
+  float4* ex;    // [tiles][U][NS - 1][32]
+  float* sm;     // [tiles][NS][4 MT][32]
   float* after;  // the first word past these parts
 
   __device__ Shared(float4* base, int n_pad, int tiles) {
@@ -102,8 +104,8 @@ struct Shared {
     ys = reinterpret_cast<float*>(xl + n_pad * S);
     bf = reinterpret_cast<uint4*>(ys + n_pad);
     ex = reinterpret_cast<float4*>(bf + tiles * U * 2 * 32);
-    sm = reinterpret_cast<float*>(ex + tiles * U * 3 * 32);
-    after = sm + tiles * kSplit * 8 * 32;
+    sm = reinterpret_cast<float*>(ex + tiles * U * (NS - 1) * 32);
+    after = sm + tiles * NS * 4 * MT * 32;
   }
 
   // X (zero-padded to PT * 8 columns and n_pad rows) split into hi and lo,
@@ -119,14 +121,15 @@ struct Shared {
   }
 };
 
-// A warp's view of its tile's parts and of X: fragment offsets, its quarter
+// A warp's view of its tile's parts and of X: fragment offsets, its share
 // of the observations and the tile's barrier.
-template <int PT>
+template <int PT, int MT = 2, int NS = kSplit>
 struct TileWarp {
-  static constexpr int S = Shared<PT>::S;
-  static constexpr int U = Shared<PT>::U;
-  static constexpr int OWN = U / kSplit;  // units a warp owns: unit q belongs to warp q % 4
-  static_assert(U % kSplit == 0, "the units of a tile are dealt evenly to its warps");
+  static constexpr int S = Shared<PT, MT, NS>::S;
+  static constexpr int U = Shared<PT, MT, NS>::U;
+  static constexpr int OWN = U / NS;  // units a warp owns: unit q belongs to warp q % NS
+  static constexpr int UO = 4 / MT;   // 8-observation tiles a pass: 4 accumulator chains
+  static_assert(U % NS == 0, "the units of a tile are dealt evenly to its warps");
   const uint32_t* xh;
   const uint32_t* xl;
   const float* ys;
@@ -135,9 +138,9 @@ struct TileWarp {
   float* sm;
   int lane, part, g, t, bar, off1, off2, obs_from, obs_each;
 
-  __device__ TileWarp(const Shared<PT>& s, int tile, int n_pad) {
+  __device__ TileWarp(const Shared<PT, MT, NS>& s, int tile, int n_pad) {
     lane = threadIdx.x & 31;
-    part = (threadIdx.x >> 5) % kSplit;
+    part = (threadIdx.x >> 5) % NS;
     g = lane >> 2;
     t = lane & 3;
     bar = 1 + tile;
@@ -145,31 +148,31 @@ struct TileWarp {
     xl = s.xl;
     ys = s.ys;
     bf = s.bf + tile * (U * 2 * 32) + lane;
-    ex = s.ex + tile * (U * 3 * 32) + lane;
-    sm = s.sm + tile * (kSplit * 8 * 32) + lane;
+    ex = s.ex + tile * (U * (NS - 1) * 32) + lane;
+    sm = s.sm + tile * (NS * 4 * MT * 32) + lane;
     // fragment offsets into X: first product row g, column t (and t + 4);
     // second product rows 2 t and 2 t + 1, column pi(g)
     off1 = g * S + t;
     off2 = 2 * t * S + (g >> 1) + 4 * (g & 1);
-    obs_each = n_pad / kSplit;  // a multiple of 16
+    obs_each = n_pad / NS;  // a multiple of 8 UO
     obs_from = part * obs_each;
   }
 
-  __device__ __forceinline__ void sync() const { named_barrier(bar, kSplit * 32); }
+  __device__ __forceinline__ void sync() const { named_barrier(bar, NS * 32); }
 
   // (0) beta = mu + tau z of the own units as A fragments (a_i <- c_{0, 2, 1, 3}),
   // then the tile's barrier.
-  __device__ __forceinline__ void write_beta(const float (&mu)[2][2], const float (&tau)[2][2],
+  __device__ __forceinline__ void write_beta(const float (&mu)[MT][2], const float (&tau)[MT][2],
                                              const float (&z)[OWN][4]) const {
 #pragma unroll
     for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
+      if (q % NS == part) {
         const int m = q / PT;
         uint32_t hi[4], lo[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int c = ((i & 1) << 1) | (i >> 1);
-          split_tf32(mu[m][c >> 1] + tau[m][c >> 1] * z[q / kSplit][c], hi[i], lo[i]);
+          split_tf32(mu[m][c >> 1] + tau[m][c >> 1] * z[q / NS][c], hi[i], lo[i]);
         }
         bf[(q * 2) * 32] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
         bf[(q * 2 + 1) * 32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
@@ -178,54 +181,54 @@ struct TileWarp {
     sync();
   }
 
-  // (1) the partial g of this warp's quarter of the observations: per 16
-  // observations the logits of two 8-wide tiles (four independent
+  // (1) the partial g of this warp's share of the observations: per 8 UO
+  // observations the logits of UO 8-wide tiles (four independent
   // accumulator chains hide the latency of a dependent mma), r = y -
   // sigmoid, split, and g += r X.  With `ll_on`, also this warp's part of
   // the rows' Bernoulli log-likelihood, sum y l - softplus(l) over the real
   // observations (n_obs), added to ll in double.
-  __device__ __forceinline__ void partial_grad(float (&grad)[2][PT][4], double (&ll)[2][2],
+  __device__ __forceinline__ void partial_grad(float (&grad)[MT][PT][4], double (&ll)[MT][2],
                                                int n_obs, bool ll_on) const {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int j = 0; j < PT; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) grad[m][j][c] = 0.0f;
 
-    for (int i0 = obs_from; i0 < obs_from + obs_each; i0 += 16) {
-      // logits of two 8-observation tiles
-      float acc[2][2][4];
+    for (int i0 = obs_from; i0 < obs_from + obs_each; i0 += 8 * UO) {
+      // logits of UO 8-observation tiles
+      float acc[UO][MT][4];
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
+      for (int u = 0; u < UO; ++u)
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
+        for (int m = 0; m < MT; ++m)
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[u][m][c] = 0.0f;
 #pragma unroll
       for (int j = 0; j < PT; ++j) {
-        uint4 ah[2], al[2];
+        uint4 ah[MT], al[MT];
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
+        for (int m = 0; m < MT; ++m) {
           ah[m] = bf[((m * PT + j) * 2) * 32];
           al[m] = bf[((m * PT + j) * 2 + 1) * 32];
         }
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < UO; ++u) {
           const int at = (i0 + 8 * u) * S + off1 + 8 * j;
           const uint32_t b0h = xh[at], b1h = xh[at + 4];
           const uint32_t b0l = xl[at], b1l = xl[at + 4];
 #pragma unroll
-          for (int m = 0; m < 2; ++m) mma_3x(acc[u][m], ah[m], al[m], b0h, b1h, b0l, b1l);
+          for (int m = 0; m < MT; ++m) mma_3x(acc[u][m], ah[m], al[m], b0h, b1h, b0l, b1l);
         }
       }
-      // r = y - sigmoid(logit), then g += r X over the same 16 observations
+      // r = y - sigmoid(logit), then g += r X over the same observations
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
+      for (int u = 0; u < UO; ++u) {
         const float2 yv = *reinterpret_cast<const float2*>(ys + i0 + 8 * u + 2 * t);
         if (ll_on) {
 #pragma unroll
-          for (int m = 0; m < 2; ++m) {
+          for (int m = 0; m < MT; ++m) {
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
               const float l = acc[u][m][c];
@@ -238,9 +241,9 @@ struct TileWarp {
             }
           }
         }
-        uint4 rh[2], rl[2];  // r as A fragments: a_i <- c_{0, 2, 1, 3}
+        uint4 rh[MT], rl[MT];  // r as A fragments: a_i <- c_{0, 2, 1, 3}
 #pragma unroll
-        for (int m = 0; m < 2; ++m) {
+        for (int m = 0; m < MT; ++m) {
           split_tf32(yv.x - sigmoidf(acc[u][m][0]), rh[m].x, rl[m].x);
           split_tf32(yv.x - sigmoidf(acc[u][m][2]), rh[m].y, rl[m].y);
           split_tf32(yv.y - sigmoidf(acc[u][m][1]), rh[m].z, rl[m].z);
@@ -252,44 +255,52 @@ struct TileWarp {
           const uint32_t b0h = xh[at], b1h = xh[at + S];
           const uint32_t b0l = xl[at], b1l = xl[at + S];
 #pragma unroll
-          for (int m = 0; m < 2; ++m) mma_3x(grad[m][j], rh[m], rl[m], b0h, b1h, b0l, b1l);
+          for (int m = 0; m < MT; ++m) mma_3x(grad[m][j], rh[m], rl[m], b0h, b1h, b0l, b1l);
         }
       }
     }
   }
 
   // (2) hand the other warps' units to their owners (sender `part` is the
-  // owner's slot part below the owner, part - 1 above it) and add the three
+  // owner's slot part below the owner, part - 1 above it) and add the NS - 1
   // received to the own part, in one order; (3) the two hyper sums, sum g
   // and sum z g of rows (m, h) at [2 (2 m + h)] and [2 (2 m + h) + 1]: a
   // warp's own units, the four lanes of a row by two shuffles, then the
-  // four warps through shared memory, every warp adding the four in the same
+  // NS warps through shared memory, every warp adding them in the same
   // order, so all hold the same sums.  Two barriers of the tile.
-  __device__ __forceinline__ void gather(const float (&grad)[2][PT][4],
+  __device__ __forceinline__ void gather(const float (&grad)[MT][PT][4],
                                          const float (&z)[OWN][4], float (&own)[OWN][4],
-                                         float (&sums)[8]) const {
+                                         float (&sums)[4 * MT]) const {
 #pragma unroll
     for (int q = 0; q < U; ++q) {
-      const int owner = q % kSplit;
+      const int owner = q % NS;
       if (part != owner) {
         const int slot = part < owner ? part : part - 1;
         const float(&v)[4] = grad[q / PT][q % PT];
-        ex[(q * 3 + slot) * 32] = make_float4(v[0], v[1], v[2], v[3]);
+        ex[(q * (NS - 1) + slot) * 32] = make_float4(v[0], v[1], v[2], v[3]);
       }
     }
     sync();
 #pragma unroll
-    for (int k = 0; k < 8; ++k) sums[k] = 0.0f;
+    for (int k = 0; k < 4 * MT; ++k) sums[k] = 0.0f;
 #pragma unroll
     for (int q = 0; q < U; ++q) {
-      if (q % kSplit == part) {
-        const int m = q / PT, i = q / kSplit;
-        const float4 e0 = ex[(q * 3) * 32], e1 = ex[(q * 3 + 1) * 32], e2 = ex[(q * 3 + 2) * 32];
+      if (q % NS == part) {
+        const int m = q / PT, i = q / NS;
         const float(&v)[4] = grad[m][q % PT];
-        own[i][0] = ((v[0] + e0.x) + e1.x) + e2.x;
-        own[i][1] = ((v[1] + e0.y) + e1.y) + e2.y;
-        own[i][2] = ((v[2] + e0.z) + e1.z) + e2.z;
-        own[i][3] = ((v[3] + e0.w) + e1.w) + e2.w;
+        float4 o = make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+        for (int w = 0; w < NS - 1; ++w) {
+          const float4 e = ex[(q * (NS - 1) + w) * 32];
+          o.x = o.x + e.x;
+          o.y = o.y + e.y;
+          o.z = o.z + e.z;
+          o.w = o.w + e.w;
+        }
+        own[i][0] = o.x;
+        own[i][1] = o.y;
+        own[i][2] = o.z;
+        own[i][3] = o.w;
         // (3) this warp's share of the hyper sums
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -299,15 +310,18 @@ struct TileWarp {
       }
     }
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
+    for (int k = 0; k < 4 * MT; ++k) {
       sums[k] += __shfl_xor_sync(kFull, sums[k], 1);
       sums[k] += __shfl_xor_sync(kFull, sums[k], 2);
-      sm[(part * 8 + k) * 32] = sums[k];
+      sm[(part * 4 * MT + k) * 32] = sums[k];
     }
     sync();
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      sums[k] = ((sm[k * 32] + sm[(8 + k) * 32]) + sm[(16 + k) * 32]) + sm[(24 + k) * 32];
+    for (int k = 0; k < 4 * MT; ++k) {
+      float v = sm[k * 32];
+#pragma unroll
+      for (int w = 1; w < NS; ++w) v = v + sm[(w * 4 * MT + k) * 32];
+      sums[k] = v;
     }
   }
 };

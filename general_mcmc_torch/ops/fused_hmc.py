@@ -11,13 +11,16 @@ rounding.
 
 The Pallas kernel inlines any traced target.  A CUDA kernel cannot inline
 a Python callable, so the kernel holds a device function for each of the
-repo's continuous targets: ``GaussianND`` with a diagonal covariance (the
-main path) or a dense one (``d <= MAX_DENSE_DIM``: the Cholesky factor in
-shared memory), ``DiffableGaussian2D``, ``Gaussian2D``, ``Rosenbrock2D``,
-``RosenbrockND`` and ``NealsFunnel``; ``HierarchicalLogisticNC`` runs in a
-kernel of its own on the tensor cores (:mod:`.fused_hmc_logistic`).  The
-target's constants ride as one float32 row.  ``mass_inv`` is a diagonal.
-Anything else raises: a Python callable, the discrete targets, the centred
+repo's continuous targets whose gradient is elementwise or near it:
+``GaussianND`` with a diagonal covariance (the main path),
+``DiffableGaussian2D``, ``Gaussian2D``, ``Rosenbrock2D``, ``RosenbrockND``
+and ``NealsFunnel``, the target's constants as one float32 row.  The two
+targets whose gradient is a matrix computation run in tile kernels of their
+own on the tensor cores, which share their HMC (``csrc/tile_hmc.cuh``): a
+``GaussianND`` with a dense covariance (``d <= MAX_DENSE_DIM``,
+:mod:`.fused_hmc_dense`) and ``HierarchicalLogisticNC``
+(:mod:`.fused_hmc_logistic`).  ``mass_inv`` is a diagonal.  Anything else
+raises: a Python callable, the discrete targets, the centred
 ``HierarchicalLogistic``, a dense ``mass_inv``.
 
 The kernel gives each chain a group of lanes of a warp and each lane a few
@@ -41,10 +44,11 @@ from ..models.distributions import (DiffableGaussian2D, Gaussian2D, GaussianND, 
                                     Rosenbrock2D, RosenbrockND)
 from ..models.regression import HierarchicalLogisticNC
 from ..rng import stream_key
-from . import fused_hmc_logistic
+from . import fused_hmc_dense, fused_hmc_logistic
 
 __all__ = ["fused_hmc_run", "fused_hmc_run_reference", "lane_map", "lane_maps", "launches",
-           "target_code", "target_params", "MAX_DIM", "MAX_DENSE_DIM", "MAX_QUADS_PER_LANE"]
+           "target_code", "target_params", "tile_kernel", "MAX_DIM", "MAX_DENSE_DIM",
+           "MAX_QUADS_PER_LANE"]
 
 # Launches of the fused kernel in this process.
 launches = 0
@@ -54,10 +58,9 @@ launches = 0
 # in registers).
 MAX_QUADS_PER_LANE = 4
 MAX_DIM = 512  # 32 lanes x 4 quads x 4 dimensions
-# The dense GaussianND keeps L, its transpose and 1 / diag(L) in a block's
-# shared memory, rows padded to quads: (2 d + 1) (4 ceil(d / 4)) floats
-# within an H100's 232,448 bytes.
-MAX_DENSE_DIM = 168
+# The dense GaussianND's kernel keeps L's lower triangle in a block's shared
+# memory, in 8 x 8 blocks split into TF32 hi and lo (ops/fused_hmc_dense.py).
+MAX_DENSE_DIM = fused_hmc_dense.MAX_DENSE_DIM
 
 # The Target enum of csrc/lane_targets.cuh, which K1 and K3 share.
 (TARGET_GAUSSIAN_DIAG, TARGET_GAUSSIAN_DENSE, TARGET_DIFFABLE_2D, TARGET_GAUSSIAN_2D,
@@ -175,6 +178,18 @@ def _check_args(target, initial_positions, n_leapfrog, n_collect, n_discard, thi
     return code
 
 
+def tile_kernel(code):
+    """The launcher of the tile kernel that runs the target ``code`` (as
+    :func:`_check_args` returns it), or ``None`` for ``csrc/fused_hmc.cu``:
+    the dense ``GaussianND`` goes to :mod:`.fused_hmc_dense`, the
+    ``HierarchicalLogisticNC`` to :mod:`.fused_hmc_logistic`."""
+    if code is None:
+        return fused_hmc_logistic.launch_logistic
+    if code == TARGET_GAUSSIAN_DENSE:
+        return fused_hmc_dense.launch_dense
+    return None
+
+
 def fused_hmc_run_reference(target, initial_positions, step_size, n_leapfrog,
                             n_collect, n_discard=0, seed=0, thin=1, mass_inv=None,
                             chain0=0):
@@ -200,9 +215,9 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
     0 (row ``r`` draws as chain ``chain0 + r``).
 
     For ``initial_positions`` on the card this is one launch of
-    ``csrc/fused_hmc.cu`` (``csrc/fused_hmc_logistic.cu`` for a
-    ``HierarchicalLogisticNC`` target); on the CPU it is the plain
-    version."""
+    ``csrc/fused_hmc.cu`` (``csrc/fused_hmc_dense.cu`` for a dense
+    ``GaussianND``, ``csrc/fused_hmc_logistic.cu`` for a
+    ``HierarchicalLogisticNC``); on the CPU it is the plain version."""
     x0 = initial_positions
     if mass_inv is not None:
         mass_inv = torch.as_tensor(mass_inv, device=x0.device)
@@ -222,10 +237,10 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
     use_mass = mass_inv is not None and bool(torch.any(mass_inv != 1.0))
     inv_row = mass_inv.to(**f32).contiguous() if use_mass else torch.ones(d, **f32)
     scale_row = 1.0 / torch.sqrt(inv_row)
-    if code is None:
-        return fused_hmc_logistic.launch_logistic(target, x0, step_size, n_leapfrog, n_collect,
-                                                  n_discard, seed, thin, inv_row, scale_row,
-                                                  chain0)
+    tile = tile_kernel(code)
+    if tile is not None:
+        return tile(target, x0, step_size, n_leapfrog, n_collect, n_discard, seed, thin, inv_row,
+                    scale_row, chain0)
     if d > MAX_DIM:
         raise ValueError(f"the fused HMC kernel takes dim <= {MAX_DIM}, got {d}")
     params = target_params(target, code, **f32)

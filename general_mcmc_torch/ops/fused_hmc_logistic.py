@@ -6,10 +6,12 @@ kernel ``_hmc_kernel``) where the traced target is
 :class:`..models.regression.HierarchicalLogisticNC`: the bench's stretch-line
 posterior under ``HMC(backend="pallas")``.  :func:`..ops.fused_hmc.fused_hmc_run`
 hands such a target here; :func:`launch_logistic` launches the hand-written
-CUDA kernel ``csrc/fused_hmc_logistic.cu`` (built on the tile code it shares
-with :mod:`.fused_logistic`, ``csrc/logistic_tile.cuh``), and on the CPU the
-plain version is :func:`..ops.fused_hmc.fused_hmc_run_reference`, the
-``"torch"`` backend's step loop over the target's ``unnorm_logp_grad``.
+CUDA kernel ``csrc/fused_hmc_logistic.cu`` (the gradient from the tile code
+it shares with :mod:`.fused_logistic`, ``csrc/logistic_tile.cuh``, in tiles
+of 16 chains; the HMC from ``csrc/tile_hmc.cuh``, which the dense Gaussian's
+kernel shares), and on the CPU the plain version is
+:func:`..ops.fused_hmc.fused_hmc_run_reference`, the ``"torch"`` backend's
+step loop over the target's ``unnorm_logp_grad``.
 
 Both read the same counter-generator draws at K1's addresses, but the
 kernel's products sum in another order than ``torch.matmul`` and carry the
@@ -27,23 +29,46 @@ import torch
 from ..models.regression import HierarchicalLogisticNC
 from ..rng import stream_key
 from .fused_logistic import MAX_FEATURES, MAX_SHARED_BYTES
-from .fused_logistic import shared_bytes as _tile_bytes
 
-__all__ = ["check_target", "launch_logistic", "launches", "shared_bytes", "MAX_FEATURES",
-           "MAX_SHARED_BYTES"]
+__all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "shared_bytes",
+           "MAX_FEATURES", "MAX_SHARED_BYTES"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
 
-def shared_bytes(n_obs: int, p: int, tiles: int = 1) -> int:
-    """Shared memory of a block of ``tiles`` chain tiles: the gradient chain's
-    (:func:`..ops.fused_logistic.shared_bytes`), each lane's opening z of its
-    own units (``p`` padded to 16, 32 or 48 floats for every 4 lanes of a
-    tile) and four floats of each of a tile's 32 rows.  The launch takes up
-    to three tiles a block where they fit; one must."""
-    p_pad = 16 * ((p + 15) // 16)
-    return _tile_bytes(n_obs, p, tiles) + 4 * tiles * ((p_pad // 4) * 128 + 32 * 4)
+def shared_bytes(n_obs: int, p: int) -> int:
+    """Shared memory of a block of one tile of 16 chains and two warps, the
+    least a launch takes, which :func:`check_target` holds to
+    ``MAX_SHARED_BYTES`` on either device: X as TF32 hi and lo, rows ``8 PT
+    + 4`` floats apart (``PT`` the 8-feature tiles of ``p`` padded to 16, 32
+    or 48), and y, over ``n_obs`` padded to 64; the tile's beta fragments
+    (``256 PT`` words), partial g in transit (``128 PT``), hyper sums (256)
+    and its lanes' opening z and gradient (``256 PT``); the copies' mbarrier
+    (4).  The card tests hold it to the kernel's host code
+    (:func:`launch_layout`)."""
+    pt = 2 * ((p + 15) // 16)
+    n_pad = 64 * ((n_obs + 63) // 64)
+    data = n_pad * (2 * (8 * pt + 4) + 1)
+    return 4 * (data + 640 * pt + 256 + 4)
+
+
+def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
+    """How :func:`launch_logistic` launches ``n`` rows of ``p`` features and
+    ``n_obs`` observations from the global chain ``chain0`` on the current
+    CUDA device, from the kernel's own host code
+    (``fused_hmc_logistic_layout``, which its launch calls): the ``tiles`` of
+    16 chains, ``tiles_a_block``, ``blocks`` and the dynamic
+    ``shared_bytes`` of a block."""
+    from .._build import check, load
+
+    lib = load("fused_hmc_logistic")
+    fn = lib.fused_hmc_logistic_layout
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 4)()
+    check(lib, fn(n, p, n_obs, chain0, out), "fused_hmc_logistic_layout")
+    return dict(zip(("tiles", "tiles_a_block", "blocks", "shared_bytes"), out))
 
 
 def check_target(target, d: int) -> None:
@@ -76,9 +101,12 @@ def launch_logistic(target, x0, step_size, n_leapfrog, n_collect, n_discard, see
     n, d = x0.shape
     check_target(target, d)
     f32 = dict(device=x0.device, dtype=torch.float32)
-    X = target.X.to(**f32).contiguous()
+    n_obs, p = target.X.shape
+    # X's rows padded with zeros to a multiple of 4: the kernel copies it in
+    # whole 16-byte words
+    X = torch.zeros((-(-n_obs // 4) * 4, p), **f32)
+    X[:n_obs] = target.X
     y = target.y.to(**f32).contiguous()
-    n_obs, p = X.shape
     out = torch.empty((n_collect, n, d), **f32)
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)

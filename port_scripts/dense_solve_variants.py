@@ -1,19 +1,20 @@
-"""The dense GaussianND's triangular solves in the fused HMC and MH kernels,
+"""The dense GaussianND's forward triangular solve in the fused MH kernel (K3),
 two ways, timed on the card in turns: the shipped solve, one shuffle a row
 (``general_mcmc_torch/csrc/lane_targets.cuh``), and a variant that first
 solves each quad's 4 x 4 diagonal block on the lane that holds it, one
 dependent shuffle a quad.  Both do the same arithmetic in the same order, so
 their outputs must be equal bit for bit; the script checks that by digest.
+(K1 runs this target in a tile kernel of its own, ``csrc/fused_hmc_dense.cu``,
+which does not use these solves.)
 
-The variant is this script's own copy of the two solves, swapped into a
+The variant is this script's own copy of the solve, swapped into a
 copy of the package under ``build/`` (git ignores it).  Each variant runs in
 its own process (a build of its own), in the order shipped, variant,
-variant, shipped, at chip_smoke.py's "dense-main" shape: the 100-d
-``GaussianND(zeros(100), D R D)`` at 10,240 chains, K1 at ε 0.3, L 10,
-M⁻¹ = D², run(1000, 200); K3 the random walk 0.1, run(2000, 500) from
-draws of the target.  Each process prints one JSON line: the variant, the
-card, K1's and K3's median device ms of three runs (CUDA events) and the
-digests of their outputs.
+variant, shipped, at chip_smoke.py's "dense-main" shape for K3: the 100-d
+``GaussianND(zeros(100), D R D)`` at 10,240 chains, the random walk 0.1,
+run(2000, 500) from draws of the target.  Each process prints one JSON
+line: the variant, the card, K3's median device ms of three runs (CUDA
+events) and the digest of its output.
 
     python3 port_scripts/dense_solve_variants.py
 
@@ -32,7 +33,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# The variant's forward and back solves: each quad's diagonal block solved
+# The variant's forward solve: each quad's diagonal block solved
 # on its lane, its four elements then shuffled and taken off the other
 # lanes' elements column by column, as in the shipped solve.
 BLOCKED = r'''
@@ -81,49 +82,6 @@ __device__ __forceinline__ void forward_solve(const float* lt, const float* rdia
   }
 }
 
-template <int QPL>
-__device__ __forceinline__ void back_solve(const float* l, const float* rdiag, int dp, int d,
-                                           int G, int sub, float (&r)[4 * QPL],
-                                           float (&g)[4 * QPL]) {
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-  for (int k = QPL - 1; k >= 0; --k) {
-    for (int s = G - 1; s >= 0; --s) {
-      const int i0 = 4 * (s + G * k);
-      if (i0 >= d) continue;
-      const int n = d - i0 < 4 ? d - i0 : 4;
-      float4 w[4];
-#pragma unroll
-      for (int e = 1; e < 4; ++e) {
-        w[e] = e < n ? *reinterpret_cast<const float4*>(l + (i0 + e) * dp + i0) : zero;
-      }
-      float b[4];
-      b[3] = n > 3 ? r[4 * k + 3] * rdiag[i0 + 3] : 0.0f;
-      b[2] = n > 2 ? (r[4 * k + 2] - w[3].z * b[3]) * rdiag[i0 + 2] : 0.0f;
-      b[1] = n > 1 ? ((r[4 * k + 1] - w[3].y * b[3]) - w[2].y * b[2]) * rdiag[i0 + 1] : 0.0f;
-      b[0] = (((r[4 * k] - w[3].x * b[3]) - w[2].x * b[2]) - w[1].x * b[1]) * rdiag[i0];
-#pragma unroll
-      for (int e = 3; e >= 0; --e) {
-        if (e >= n) continue;
-        const float gi = __shfl_sync(kFull, b[e], s, G);
-        if (sub == s) g[4 * k + e] = gi;
-        const float4* row = reinterpret_cast<const float4*>(l + (i0 + e) * dp);
-#pragma unroll
-        for (int k2 = 0; k2 < QPL; ++k2) {
-          const int q2 = sub + G * k2;
-          if (4 * q2 < dp) {
-            const float4 v = row[q2];
-            r[4 * k2] = r[4 * k2] - v.x * gi;
-            r[4 * k2 + 1] = r[4 * k2 + 1] - v.y * gi;
-            r[4 * k2 + 2] = r[4 * k2 + 2] - v.z * gi;
-            r[4 * k2 + 3] = r[4 * k2 + 3] - v.w * gi;
-          }
-        }
-      }
-    }
-  }
-}
-
 '''
 
 
@@ -147,7 +105,7 @@ def measure(variant: str, root: str) -> None:
     import torch
 
     import general_mcmc_torch as gmt
-    from general_mcmc_torch.ops import fused_hmc, fused_mh
+    from general_mcmc_torch.ops import fused_mh
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -157,7 +115,6 @@ def measure(variant: str, root: str) -> None:
     cov = scales[:, None] * 0.5 ** (idx[:, None] - idx[None, :]).abs() * scales[None, :]
     target = gmt.GaussianND(torch.zeros(d), cov.float(), device=dev)
     z0 = gmt.init_with_seed(n, d, 0, device=dev)
-    mass_inv = (scales**2).float().to(dev)
 
     def device_ms(fn):
         times, out = [], None
@@ -171,14 +128,11 @@ def measure(variant: str, root: str) -> None:
             times.append(a.elapsed_time(b))
         return sorted(times)[1], hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
 
-    k1_ms, k1_digest = device_ms(lambda: fused_hmc.fused_hmc_run(
-        target, z0, 0.3, 10, 1000, 200, seed=0, mass_inv=mass_inv))
     x3 = (z0 @ target.chol.mT).contiguous()
     k3_ms, k3_digest = device_ms(lambda: fused_mh.fused_mh_run(
         target, x3, gmt.RandomWalkProposal(0.1), 2000, 500, seed=0))
     print(json.dumps({"variant": variant, "device": torch.cuda.get_device_name(0),
-                      "k1_ms": round(k1_ms, 3), "k3_ms": round(k3_ms, 3),
-                      "k1_digest": k1_digest, "k3_digest": k3_digest}), flush=True)
+                      "k3_ms": round(k3_ms, 3), "k3_digest": k3_digest}), flush=True)
 
 
 def main() -> int:
@@ -194,7 +148,7 @@ def main() -> int:
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         rec = json.loads(line)
-        digests.add((rec["k1_digest"], rec["k3_digest"]))
+        digests.add(rec["k3_digest"])
     if len(digests) != 1:
         print("the variants' outputs differ", file=sys.stderr)
         return 1

@@ -1,7 +1,8 @@
 """The fused kernels on the repo's other continuous targets, on the card:
-K1 (``csrc/fused_hmc.cu``) on the 2-d targets, RosenbrockND, NealsFunnel
-and the dense GaussianND, the logistic HMC kernel
-(``csrc/fused_hmc_logistic.cu``) and K3 (``csrc/fused_mh.cu``) on
+K1 (``csrc/fused_hmc.cu``) on the 2-d targets, RosenbrockND and NealsFunnel,
+its tile kernels on the dense GaussianND (``csrc/fused_hmc_dense.cu``) and
+on HierarchicalLogisticNC (``csrc/fused_hmc_logistic.cu``), and K3
+(``csrc/fused_mh.cu``) on
 DiffableGaussian2D, RosenbrockND, NealsFunnel and the dense GaussianND,
 each launched on a block of rows from chain ``c > 0`` equal, bit for bit, to
 rows ``[c, c + n)`` of the launch from chain 0 (what a rank of
@@ -76,7 +77,7 @@ def _targets(dev):
 @pytest.mark.parametrize("name", ["diffable2d", "gaussian2d", "rosenbrock2d", "rosenbrock_nd",
                                   "funnel", "dense", "logistic_nc"])
 def test_k1_chain0_rows_equal_the_launch_from_zero(card, name, chain0):
-    """K1 (the logistic HMC kernel for HierarchicalLogisticNC): a block of
+    """K1 (its tile kernels for the dense GaussianND and HierarchicalLogisticNC): a block of
     300 rows from ``chain0`` is the full launch's rows, bit for bit."""
     target, d, eps, n_leap, _ = _targets(card)[name]
     x0 = 0.3 * gmt.init_with_seed(4096, d, 1, device=card)

@@ -1,9 +1,12 @@
 """The repo's continuous targets that the fused kernels take, on both sides:
 the JAX package's target, the port's target kind and parameters, a small
-width, a step size and leapfrogs (tests/test_torch_fused_targets*.py)."""
+width, a step size and leapfrogs (tests/test_torch_fused_targets*.py); and
+plain models of the dense tile kernel's blocked solves and of the tile
+kernels' chain addressing (tests/test_torch_tile_hmc.py)."""
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 import general_mcmc_tpu as gmt
 from general_mcmc_tpu.models.regression import HierarchicalLogisticNC as JaxLogisticNC
@@ -55,3 +58,77 @@ def port_target(spec, dtype):
 
 
 LAYOUTS = [(10, 4, 1), (5, 3, 3), (6, 0, 2)]  # tests/test_torch_fused_hmc.py's cases
+
+
+BLOCK = 8  # columns of a block of csrc/fused_hmc_dense.cu's blocked solves
+TILE = 16  # chains of a tile of csrc/tile_hmc.cuh
+
+
+def tile_rows(tile, n, chain0):
+    """The launch rows of the 16 rows of ``tile``, ``None`` where the row is
+    padding (before row 0 or from ``n`` on), as csrc/tile_hmc.cuh's
+    ``TileRows`` addresses them: tile ``k`` holds the global chains ``16
+    (chain0 // 16 + k) …``, so a chain sits at row ``chain % 16`` of its
+    tile whatever ``chain0`` is."""
+    first = tile * TILE - chain0 % TILE
+    return [r if 0 <= r < n else None for r in range(first, first + TILE)]
+
+
+def launch_tiles(n, chain0):
+    """Tiles of a launch of ``n`` rows from ``chain0`` (csrc/tile_hmc.cuh's
+    ``launch_tiles``): from the start of chain0's tile to the end of the
+    last row's."""
+    return -(-(n + chain0 % TILE) // TILE)
+
+
+def _padded(chol):
+    d = chol.shape[-1]
+    p = BLOCK * -(-d // BLOCK)
+    out = torch.eye(p, dtype=chol.dtype, device=chol.device)
+    out[:d, :d] = chol
+    return out
+
+
+def blocked_forward(chol, r):
+    """``y = L⁻¹r`` for each row ``r`` of ``[n, d]``, in the dense tile
+    kernel's order: the columns padded to blocks of 8 (an identity block of
+    ``L``); for each block, its diagonal block by substitution, ``y_i = (r_i
+    − Σ_{j<i} L_ij y_j) · (1 / L_ii)``, then the panel product ``R_I −= Y_K
+    L_IKᵀ`` taken off every later block."""
+    d = r.shape[-1]
+    L = _padded(chol)
+    y = torch.zeros(r.shape[:-1] + (L.shape[0],), dtype=r.dtype, device=r.device)
+    y[..., :d] = r
+    rd = 1.0 / torch.diagonal(L)
+    for k in range(0, L.shape[0], BLOCK):
+        for i in range(k, k + BLOCK):
+            y[..., i] = (y[..., i] - y[..., k:i] @ L[i, k:i]) * rd[i]
+        s = slice(k, k + BLOCK)
+        y[..., k + BLOCK:] -= y[..., s] @ L[k + BLOCK:, s].mT
+    return y[..., :d]
+
+
+def blocked_back(chol, y):
+    """``w = L⁻ᵀy`` for each row, in the dense tile kernel's order: from the
+    last block, its diagonal block by substitution from its last column,
+    ``w_j = (y_j − Σ_{i>j} w_i L_ij) · (1 / L_jj)``, then ``Y_J −= W_K
+    L_KJ`` taken off every earlier block."""
+    d = y.shape[-1]
+    L = _padded(chol)
+    w = torch.zeros(y.shape[:-1] + (L.shape[0],), dtype=y.dtype, device=y.device)
+    w[..., :d] = y
+    rd = 1.0 / torch.diagonal(L)
+    for k in range(L.shape[0] - BLOCK, -1, -BLOCK):
+        for j in range(k + BLOCK - 1, k - 1, -1):
+            w[..., j] = (w[..., j] - w[..., j + 1:k + BLOCK] @ L[j + 1:k + BLOCK, j]) * rd[j]
+        s = slice(k, k + BLOCK)
+        w[..., :k] -= w[..., s] @ L[s, :k]
+    return w[..., :d]
+
+
+def blocked_value_and_grad(target, x):
+    """``(log density, gradient)`` of the port's dense ``GaussianND`` at ``x
+    [n, d]`` through :func:`blocked_forward` and :func:`blocked_back`, the
+    forward solve shared as in the kernel: ``−½|y|²`` and ``−L⁻ᵀy``."""
+    y = blocked_forward(target.chol, x - target.mean)
+    return -0.5 * (y * y).sum(-1), -blocked_back(target.chol, y)
