@@ -68,9 +68,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
     shape for a 30-step warmup with two window ends and their step-size
     re-searches and 8 collection steps, twice, once drawing from K2's fill
     kernel and once from the plain draws computed on the card and injected,
-    equal bit for bit; "nuts-main", the bench's NUTS leg at full size (100-d
-    Gaussian, 10,240 chains, diagonal metric, multinomial proposal, cap 4,
-    192 warmup and 3,072 collection steps through ``NUTS.run``, once): R-hat,
+    equal bit for bit; "nuts-main", the bench's NUTS leg through the
+    dynamic tree (100-d Gaussian, 10,240 chains, diagonal metric,
+    multinomial proposal, cap 4, 192 warmup and 1,024 collection steps
+    through ``NUTS.run``, once; "nuts-static" runs the leg's 3,072): R-hat,
     the moment audit, min-ESS/s, grad-evals/s, the mean tree depth and
     leapfrogs a step, divergences, the wall split, peak memory, the fill
     kernel's launches, the busy share of a 50-step collection window, and
@@ -181,6 +182,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
     gradient carried across steps; "K4-digests" holds K4's output to the
     digests it had before its tile code was shared.
 
+18. K3's dense tile kernel, ``csrc/fused_mh_dense.cu`` on
+    ``csrc/tile_mh.cuh`` (the forward solve of ``csrc/dense_tile.cuh``,
+    which K1's dense kernel shares, its panels in float32 on the CUDA cores
+    rounded as the lane solve it replaced; producer warps draw the normals
+    into a ring in shared memory): "dense-main" runs
+    ``MetropolisHastings(backend="cuda")`` on the dense GaussianND through
+    it (one launch, none of
+    ``csrc/fused_mh.cu``), holds it to its plain version over 64 steps at
+    the main shape and at widths 2, 7, 33, 168 and 240 with the random walk
+    and pCN, and from chain 3,000, and prints its layout (from
+    ``fused_mh_dense_layout``), registers and spills and its bounds.  The
+    "examples" phase runs auto_backend_nuts's ``main()`` cut to
+    ``n_collect=144, n_warmup=48``.
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -219,8 +234,8 @@ from general_mcmc_torch.io import native as io_native
 from general_mcmc_torch.models.distributions import rowsum
 from general_mcmc_torch.models.regression import bench_logistic_data
 from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_hmc_dense,
-                                    fused_hmc_logistic, fused_logistic, fused_mh, static_tree,
-                                    tree)
+                                    fused_hmc_logistic, fused_logistic, fused_mh, fused_mh_dense,
+                                    static_tree, tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
 from general_mcmc_torch.samplers.gibbs import GibbsDraws
 from general_mcmc_torch.utils.checkpoint import load_carry
@@ -314,8 +329,12 @@ NUTS_SHORT_WINDOWS = dict(start_buffer=10, end_buffer=5, initial_window=10)
 # The 2-d target's pooled mean within 0.1 and covariance within 0.3 (102,400
 # draws; tests/test_nuts.py allows 0.3 and 0.7 at 4,000)
 NUTS_MEAN_ATOL, NUTS_COV_ATOL = 0.1, 0.3
-# "nuts-main": the bench's NUTS leg (bench.py:103-118, 218-232)
+# "nuts-main": the bench's NUTS leg (bench.py:103-118, 218-232); "nuts-static"
+# runs it at full size as bench.py does, "nuts-main" (the dynamic tree, with
+# a read-back a doubling: host-bound) collects NUTS_MAIN_COLLECT steps under
+# the same gates
 NUTS_WARMUP, NUTS_COLLECT, NUTS_ACCEPT, NUTS_DEPTH = 192, 3072, 0.90, 4
+NUTS_MAIN_COLLECT = 1024
 # "nuts-static-small": the 2-d target and the funnel at the leg's cap, the
 # "auto" run of the headline target for 192 warmup and 64 collection steps
 NUTS_STATIC_AUTO_STEPS = (192, 64)
@@ -395,8 +414,12 @@ DENSE_EQ_STEPS = {"K1": 8, "K3": 64}
 # K1's dense tile kernel against its plain version at small widths (one
 # build each for 1, 5, 13 and 21 column blocks: odd widths and the widest),
 # DENSE_SMALL_CHAINS chains of 8 steps in the main run's metric; and a block
-# of rows from chain DENSE_CHAIN0 bit-equal to the launch from 0.
+# of rows from chain DENSE_CHAIN0 bit-equal to the launch from 0.  K3's
+# dense tile kernel the same at MH_DENSE_SMALL_DIMS (also 30 blocks, the
+# widest), DENSE_EQ_STEPS steps from draws of the target, with the random
+# walk and with pCN.
 DENSE_SMALL_DIMS, DENSE_SMALL_CHAINS, DENSE_CHAIN0 = (2, 7, 33, 168), 256, 3000
+MH_DENSE_SMALL_DIMS = (2, 7, 33, 168, 240)
 # "K1-logistic": HMC(backend="cuda") on the stretch line's posterior in the
 # diagonal metric "chees-logistic" adapts, L 10, from 0.1 x init_with_seed,
 # run(1000, 200).  The step size: that phase's ε̄ (0.169134 on the card,
@@ -426,7 +449,12 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+# The script's start: each phase line ends with the seconds since then.
+T0 = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    fields["t_s"] = f"{time.perf_counter() - T0:.1f}"
     body = " ".join(f"{k}={v}" for k, v in fields.items())
     print(f"[{phase}] {body}", flush=True)
 
@@ -447,6 +475,7 @@ def reset_counts() -> None:
     fused_hmc_logistic.launches = 0
     counter_rng.launches = 0
     fused_mh.launches = 0
+    fused_mh_dense.launches = 0
     fused_logistic.launches = 0
 
 
@@ -572,7 +601,9 @@ def phase_environment():
     # one nvcc per source (the dense Gaussian's kernel one per width it is
     # run at here), all started together
     _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic", "fused_hmc_logistic"]
-                 + [dense_build(d) for d in sorted(set(DENSE_SMALL_DIMS + (DIM,)))])
+                 + [dense_build(d) for d in sorted(set(DENSE_SMALL_DIMS + (DIM,)))]
+                 + [dense_build(d, "fused_mh_dense")
+                    for d in sorted(set(MH_DENSE_SMALL_DIMS + (DIM,)))])
     build_s = time.perf_counter() - t0
     # the full register and spill report, beside the built libraries
     with open(_build.OUT_DIR / "ptxas.log", "w") as f:
@@ -592,9 +623,10 @@ def phase_environment():
     return smi
 
 
-def dense_build(d: int) -> str:
-    """The build of ``csrc/fused_hmc_dense.cu`` that runs width ``d``."""
-    return _build.variant("fused_hmc_dense", GMT_DENSE_NB=-(-d // fused_hmc_dense.BLOCK))
+def dense_build(d: int, name: str = "fused_hmc_dense") -> str:
+    """The build of ``csrc/<name>.cu`` (a dense tile kernel, K1's or K3's)
+    that runs width ``d``."""
+    return _build.variant(name, GMT_DENSE_NB=-(-d // fused_hmc_dense.BLOCK))
 
 
 def build_report(key: str, kernel: str) -> dict:
@@ -1239,11 +1271,9 @@ def target_ops(family: str, d: int):
     """``(gradient, log density)`` operations a chain of a target family at
     width ``d``: the 2-d quadratic forms and Rosenbrock with autograd's
     backward pass; RosenbrockND's neighbour terms; the funnel's sum of
-    squares and its exp; the dense Gaussian's triangular solves, d(d + 1)/2
-    multiply-adds each (two for the gradient, one for the density)."""
+    squares and its exp (the dense Gaussian's: tile_bounds)."""
     return {"2d": (22, 10), "rosenbrock_nd": (10 * d, 5 * d),
-            "funnel": (4 * d + 15, 2 * d + 15),
-            "dense": (2 * d * (d + 1) + 2 * d, d * (d + 1) + 3 * d)}[family]
+            "funnel": (4 * d + 15, 2 * d + 15)}[family]
 
 
 def dense_target(d: int, dev):
@@ -1484,6 +1514,35 @@ def dense_k1_checks(target, scales, dev):
     return errs
 
 
+def dense_k3_checks(target, dev):
+    """K3's dense tile kernel against its plain version at
+    MH_DENSE_SMALL_DIMS over DENSE_EQ_STEPS["K3"] steps from draws of the
+    target, with the random walk and with pCN, no chain differing; and a
+    block of rows from DENSE_CHAIN0 bit-equal to the launch from 0 at the
+    main width, with both proposals."""
+    errs = {}
+    steps = DENSE_EQ_STEPS["K3"]
+    for d in MH_DENSE_SMALL_DIMS:
+        t, _ = dense_target(d, dev)
+        x0 = (gmt.init_with_seed(DENSE_SMALL_CHAINS, d, 3, device=dev) @ t.chol.mT).contiguous()
+        for proposal in (gmt.RandomWalkProposal(0.5 / math.sqrt(d)), gmt.PCNProposal(0.3)):
+            args = (t, x0, proposal, steps, 0)
+            what = f"K3 dense at d = {d}, {type(proposal).__name__}, {DENSE_SMALL_CHAINS} chains"
+            errs[f"{d}_{type(proposal).__name__}"] = compare(
+                fused_mh.fused_mh_run(*args, seed=11),
+                fused_mh.fused_mh_run_reference(*args, seed=11), what)
+    x0 = 0.3 * gmt.init_with_seed(DENSE_CHAIN0 + 300, DIM, 1, device=dev)
+    rows = slice(DENSE_CHAIN0, DENSE_CHAIN0 + 300)
+    for proposal in (gmt.RandomWalkProposal(DENSE_WALK), gmt.PCNProposal(0.3)):
+        full = fused_mh.fused_mh_run(target, x0, proposal, 6, 2, seed=9)
+        block = fused_mh.fused_mh_run(target, x0[rows].contiguous(), proposal, 6, 2, seed=9,
+                                      chain0=DENSE_CHAIN0)
+        check(torch.equal(block, full[rows]),
+              f"K3 dense {type(proposal).__name__}: rows from chain {DENSE_CHAIN0} equal the "
+              f"launch from 0 bit for bit")
+    return errs
+
+
 def dense_library_ms(target, dev, solve: str) -> float:
     """One PyTorch call that computes a step's solve for the main path's
     chains, on a [DIM, N_CHAINS] residual (float32): Σ⁻¹r by
@@ -1497,54 +1556,90 @@ def dense_library_ms(target, dev, solve: str) -> float:
     return device_ms(lambda: torch.linalg.solve_triangular(L, r, upper=False), 20)
 
 
+def tile_bounds(work, solve_flops: float) -> dict:
+    """The least times of a dense tile kernel's run: its triangular solves'
+    ``solve_flops`` on the CUDA cores in float32 beside the rest of ``work``
+    (bytes, float and integer operations), or on the tensor cores as three
+    TF32 passes (3 × the flops at the TF32 rate) beside the rest; the bound
+    the lesser, and what sets it."""
+    n_bytes, rest = work[0], work[1] + work[2]
+    figures = {"cuda_core": bound(n_bytes, solve_flops + rest),
+               "tensor_3xtf32": max(bound(n_bytes, 3 * solve_flops, TF32_OPS_PER_S),
+                                    bound(n_bytes, rest))}
+    b_ms, b_by = min(figures.values())
+    return dict(bound_ms=round(b_ms, 4), bound_by=b_by,
+                **{f"bound_{k}_ms": round(v[0], 4) for k, v in figures.items()})
+
+
+# The fields of a dense tile kernel's entry in the kernels line.
+DENSE_ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms",
+                  "bound_tensor_3xtf32_ms", "library_ms", "library_call", "registers",
+                  "spill_store_bytes", "shared_bytes", "tiles_a_block", "blocks", "accept",
+                  "std_err", "corr", "eq_steps", "run_max_abs_err", "run_chains_differ")
+
+
 def phase_dense_main(dev):
     """The dense GaussianND through K1 (``HMC``: the tile kernel
-    ``csrc/fused_hmc_dense.cu``) and K3 (``MetropolisHastings``) at the main
-    path's chains: the launches, the moment gates, the kernels against their
-    plain versions over a few steps (no chain differing) and over the whole
-    run (reported), timed beside one library call a leapfrog or step; K1's
-    tile kernel also at small widths and from chain0."""
+    ``csrc/fused_hmc_dense.cu``) and K3 (``MetropolisHastings``: the tile
+    kernel ``csrc/fused_mh_dense.cu``) at the main path's chains: the
+    launches, the moment gates, the kernels against their plain versions over
+    a few steps (no chain differing) and over the whole run (reported), timed
+    beside one library call a leapfrog or step; both tile kernels also at
+    small widths and from chain0, with their launch layouts, registers and
+    spills and both bounds (CUDA cores, tensor cores)."""
     target, scales = dense_target(DIM, dev)
     z0 = gmt.init_with_seed(N_CHAINS, DIM, SEED, device=dev)
     mass_inv = (scales**2).to(dev)
     out = {}
-    n_ops = target_ops("dense", DIM)
-    small_errs = dense_k1_checks(target, scales, dev)
+    small_errs = {"K1": dense_k1_checks(target, scales, dev), "K3": dense_k3_checks(target, dev)}
     for kernel in ("K1", "K3"):
         # K3's chains start from the target (see DENSE_WALK's note)
         x0 = z0 if kernel == "K1" else (z0 @ target.chol.mT).contiguous()
         if kernel == "K1":
             sampler = lambda: gmt.HMC(target, x0, DENSE_EPS, DENSE_L, seed=SEED,
                                       mass_inv=mass_inv, backend="cuda")
-            steps, module = DENSE_STEPS, fused_hmc_dense
+            steps, module, lane_module = DENSE_STEPS, fused_hmc_dense, fused_hmc
             plain = lambda c, dsc: fused_hmc.fused_hmc_run_reference(
                 target, x0, DENSE_EPS, DENSE_L, c, dsc, seed=SEED, mass_inv=mass_inv)
             run = lambda c, dsc: fused_hmc.fused_hmc_run(target, x0, DENSE_EPS, DENSE_L, c,
                                                          dsc, seed=SEED, mass_inv=mass_inv)
             # the solves, d (d + 1) multiply-adds a leapfrog, apart from the
-            # rest (the density's squares and the gradient's sign: 2 d each)
+            # rest (the density's squares and the gradient's sign: 2 d each);
+            # the kernel runs its panels in three TF32 passes
             solve_flops = N_CHAINS * sum(steps) * DENSE_L * 2 * DIM * (DIM + 1)
             work = target_hmc_work(N_CHAINS, DIM, sum(steps), steps[0], DENSE_L, 2 * DIM,
                                    2 * DIM)
+            bounds = tile_bounds(work, solve_flops)
             library = dense_library_ms(target, dev, "cholesky_solve") * sum(steps) * DENSE_L
+            library_call = "torch.cholesky_solve of the [100, 10240] residual x 12,000"
+            layout = fused_hmc_dense.launch_layout(N_CHAINS, DIM)
+            build = build_report(dense_build(DIM), f"fused_hmc_dense_kernel<{-(-DIM // 8)}>")
         else:
             walk = gmt.RandomWalkProposal(DENSE_WALK)
             sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED,
                                                      backend="cuda")
-            steps, module = DENSE_MH_STEPS, fused_mh
+            steps, module, lane_module = DENSE_MH_STEPS, fused_mh_dense, fused_mh
             plain = lambda c, dsc: fused_mh.fused_mh_run_reference(target, x0, walk, c, dsc,
                                                                    seed=SEED)
             run = lambda c, dsc: fused_mh.fused_mh_run(target, x0, walk, c, dsc, seed=SEED)
-            work = fused_mh_work(N_CHAINS, DIM, sum(steps), steps[0], n_ops[1],
-                                 MH_PROPOSAL_OPS)
+            # the forward solve, d (d + 1) flops a step, apart from the rest
+            # (the residual, the squares and their sum: 3 d); the kernel runs
+            # it in float32 on the CUDA cores
+            solve_flops = N_CHAINS * sum(steps) * DIM * (DIM + 1)
+            work = fused_mh_work(N_CHAINS, DIM, sum(steps), steps[0], 3 * DIM, MH_PROPOSAL_OPS)
+            bounds = tile_bounds(work, solve_flops)
             library = dense_library_ms(target, dev, "solve_triangular") * sum(steps)
+            library_call = "torch.linalg.solve_triangular a step x 2,500"
+            layout = fused_mh_dense.launch_layout(N_CHAINS, DIM)
+            # the random walk's instantiation
+            build = build_report(dense_build(DIM, "fused_mh_dense"), "fused_mh_dense_kernel<0>")
         reset_counts()
         samples = sampler().run(*steps)
         torch.cuda.synchronize()
         launches = module.launches
-        check(launches == 1 and fused_hmc.launches == 0,
-              f"one {kernel} launch on the dense GaussianND ({launches}; K1's lane kernel "
-              f"{fused_hmc.launches})")
+        check(launches == 1 and lane_module.launches == 0,
+              f"one {kernel} tile launch on the dense GaussianND ({launches}; {kernel}'s lane "
+              f"kernel {lane_module.launches})")
         store = samples.transpose(0, 1)
         check(bool(torch.isfinite(store).all()), f"{kernel} dense samples are finite")
         accept = float((store[1:] != store[:-1]).any(dim=2).float().mean())
@@ -1568,34 +1663,15 @@ def phase_dense_main(dev):
         del samples, store, want, close
         ms, _, o = timed(lambda: sampler().run(*steps), 3)
         del o
-        b_ms, b_by = bound(work[0], work[1] + work[2])
+        # the layout of the run's launch, from the kernel's host code
         out[kernel] = dict(launches=launches, accept=round(accept, 4),
                            std_err=round(std_err, 5), corr=round(corr, 5),
                            eq_steps=eq, eq_max_abs_err=eq_err, run_max_abs_err=run_err,
                            run_chains_differ=run_differ, ms=round(ms, 3),
                            plain_ms=round(plain_ms, 1), library_ms=round(library, 3),
-                           bound_ms=round(b_ms, 4), bound_by=b_by)
-        if kernel == "K1":
-            # the least time: the lesser of the CUDA cores doing the solves
-            # in float32 and the tensor cores doing the three TF32 passes,
-            # each beside the rest on the CUDA cores
-            cuda_core_ms = bound(work[0], solve_flops + work[1] + work[2])[0]
-            tensor_ms = max(bound(work[0], 3 * solve_flops, TF32_OPS_PER_S)[0],
-                            bound(work[0], work[1] + work[2])[0])
-            # the layout of the run's launch, from the kernel's host code
-            layout = fused_hmc_dense.launch_layout(N_CHAINS, DIM)
-            out[kernel].update(
-                bound_ms=round(min(cuda_core_ms, tensor_ms), 4), bound_by="operations",
-                bound_cuda_core_ms=round(cuda_core_ms, 4),
-                bound_tensor_3xtf32_ms=round(tensor_ms, 4),
-                library_call="torch.cholesky_solve of the [100, 10240] residual x 12,000",
-                small_max_abs_err={str(d): e for d, e in small_errs.items()},
-                chain0_bit_equal=True,
-                shared_bytes=layout["shared_bytes"], tiles_a_block=layout["tiles_a_block"],
-                blocks=layout["blocks"],
-                **build_report(dense_build(DIM), f"fused_hmc_dense_kernel<{-(-DIM // 8)}>"))
-        else:
-            out[kernel]["library_call"] = "torch.linalg.solve_triangular a step x 2,500"
+                           library_call=library_call, **bounds,
+                           small_max_abs_err=small_errs[kernel], chain0_bit_equal=True,
+                           **{k: v for k, v in layout.items() if k != "tiles"}, **build)
     say("dense-main", chains=N_CHAINS, dim=DIM, k1=f"eps {DENSE_EPS} L {DENSE_L} "
         f"{DENSE_STEPS[1]}+{DENSE_STEPS[0]}", k3=f"walk {DENSE_WALK} "
         f"{DENSE_MH_STEPS[1]}+{DENSE_MH_STEPS[0]}", max_dense_dim_k1=fused_hmc.MAX_DENSE_DIM,
@@ -2219,13 +2295,14 @@ def phase_nuts_leg(dev, backend: str):
     window under the profiler and the fill kernel at the path's shapes."""
     label = "nuts-static" if backend == "static" else "nuts-main"
     static = backend == "static"
+    n_collect = NUTS_COLLECT if static else NUTS_MAIN_COLLECT
     scales, sampler = nuts_headline(dev, backend=backend)
-    steps = NUTS_WARMUP + NUTS_COLLECT
+    steps = NUTS_WARMUP + n_collect
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     with DepthProbe(dev, "static_nuts_step" if static else "nuts_tree_step") as probe:
-        samples = sampler.run(NUTS_COLLECT, NUTS_WARMUP, time_phases=True)
+        samples = sampler.run(n_collect, NUTS_WARMUP, time_phases=True)
     torch.cuda.synchronize()
     fills = counter_rng.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2235,7 +2312,7 @@ def phase_nuts_leg(dev, backend: str):
     check(fills == nuts_fills(steps, ends),
           f"{label}: {fills} fill launches == 2 x {steps} + 1 + {ends}")
     check(probe.steps == steps, f"the depth probe saw {probe.steps} of {steps} steps")
-    check(tuple(samples.shape) == (N_CHAINS, NUTS_COLLECT, DIM), f"{label} sample shape")
+    check(tuple(samples.shape) == (N_CHAINS, n_collect, DIM), f"{label} sample shape")
     store = samples.transpose(0, 1)  # the steps-major store
     check(bool(torch.isfinite(store).all()), f"every {label} sample is finite")
     t0 = time.perf_counter()
@@ -2273,9 +2350,9 @@ def phase_nuts_leg(dev, backend: str):
     fill = {f"{k}_{N_CHAINS}x{DIM if k == 'normal_pair' else words}": v
             for k, v in fill.items()}
 
-    n_bytes, n_ops = nuts_work(N_CHAINS, DIM, leapfrogs // N_CHAINS, steps, NUTS_COLLECT)
+    n_bytes, n_ops = nuts_work(N_CHAINS, DIM, leapfrogs // N_CHAINS, steps, n_collect)
     b_ms, b_by = bound(n_bytes, n_ops)
-    say(label, chains=N_CHAINS, dim=DIM, steps=f"{NUTS_WARMUP}+{NUTS_COLLECT}",
+    say(label, chains=N_CHAINS, dim=DIM, steps=f"{NUTS_WARMUP}+{n_collect}",
         backend=backend, max_tree_depth=NUTS_DEPTH, accept_target=NUTS_ACCEPT,
         proposal="multinomial", eps_bar_median=f"{float(eps_bar.median()):.6f}",
         mass_inv_err=f"{mass_err:.5f}", window_ends=ends, divergences=divergences,
@@ -2290,7 +2367,7 @@ def phase_nuts_leg(dev, backend: str):
         fill_ms=json.dumps({k: round(v[0], 5) for k, v in fill.items()}),
         bound_ms=f"{b_ms:.3f}", bound_by=b_by, wall_over_bound=f"{wall * 1e3 / b_ms:.1f}")
     return dict(fill_launches=fills, wall=wall, fill=fill, busy=prof["busy"],
-                min_ess_per_s=min_ess / wall)
+                min_ess_per_s=min_ess / wall, ms_per_step=wall * 1e3 / steps)
 
 
 def phase_nuts_static_small(dev):
@@ -3738,16 +3815,25 @@ def minimal_nuts_cut(dev):
     return sample
 
 
+EXAMPLE_CUTS = {"minimal_nuts": minimal_nuts_cut}
+
+
 # Each program of examples_torch/ but sharded_nuts ("examples-sharded") with
 # the keyword sizes it runs at on the card (None: its own defaults; a dict:
-# the cut sizes of tests/test_examples.py, "cut": that file's own cut of a
-# program whose main() takes no sizes) and the gates of
-# tests/test_examples.py.  The dynamic-tree programs whose defaults take
-# minutes on the card (PR 11's chip run A, NVIDIA H100 80GB HBM3 at 700 W:
-# minimal_nuts 183.0 s, funnel_nuts 211.7 s; auto_backend_nuts 125.0 s,
-# which has no cut) run cut.  The programs run in EXAMPLE_GROUPS, one
+# cut sizes, tests/test_examples.py's where it has them; "cut": a cut in
+# EXAMPLE_CUTS of a program whose main() takes no sizes,
+# tests/test_examples.py's own where it has one) and the gates of
+# tests/test_examples.py.  The dynamic-tree
+# programs whose defaults take minutes on the card (NVIDIA H100 80GB HBM3
+# at 700 W: minimal_nuts 183.0 s, funnel_nuts 211.7 s; auto_backend_nuts
+# 125.0 s) run cut.  The programs run in EXAMPLE_GROUPS, one
 # process a group, the groups at once: the eager paths are host-bound, so
-# the groups share the card and take one host core each.
+# the groups share the card and take one host core each.  The groups are
+# balanced by a chip run on a slow host (the phase's wall is its slowest group's):
+# the three slowest programs (auto_backend_nuts, funnel_nuts,
+# regression_nc_track: 114.6, 77.6 and 77.1 s there, on a slow host) in
+# groups of their own, the next two beside the last two, the rest together
+# (102.5 s there).
 EXAMPLES = {
     "minimal_mh": (None, gate_finite),
     "minimal_hmc": (None, gate_finite),
@@ -3757,7 +3843,10 @@ EXAMPLES = {
     "rosenbrock3d_hmc": (None, lambda out, kw: gate_paths(out)),
     "static_window_nuts": (None, lambda out, kw: gate_std(out)),
     "multinomial_nuts": (None, gate_multinomial),
-    "auto_backend_nuts": (None, gate_auto),
+    # run(256, 128) cut to run(144, 48): its cap-10 dynamic tree was the
+    # slowest program of the phase (90.8 s on an H100 host, the phase's
+    # wall); gate_auto reads the 16 collected steps from 128 on.
+    "auto_backend_nuts": (dict(n_collect=144, n_warmup=48), gate_auto),
     "chees_hmc": (None, lambda out, kw: gate_std(out)),
     "funnel_nuts": (dict(n_chains=16, dim=6, n_collect=120, n_warmup=200), gate_funnel),
     "logistic_nuts": (None, gate_regression),
@@ -3769,10 +3858,10 @@ EXAMPLES = {
 }
 EXAMPLE_GROUPS = (
     ("auto_backend_nuts",),
-    ("funnel_nuts", "logistic_nuts", "chees_hmc", "static_window_nuts"),
-    ("regression_nc_track", "minimal_nuts", "custom_gradient_nuts", "two_wells_tempering",
-     "poisson_mh"),
-    ("mixture_gibbs", "rosenbrock3d_hmc", "multinomial_nuts", "gauss_mh", "rosenbrock_mh",
+    ("funnel_nuts", "logistic_nuts"),
+    ("regression_nc_track", "minimal_nuts"),
+    ("mixture_gibbs", "rosenbrock3d_hmc", "multinomial_nuts", "custom_gradient_nuts", "chees_hmc",
+     "static_window_nuts", "gauss_mh", "poisson_mh", "two_wells_tempering", "rosenbrock_mh",
      "minimal_mh", "minimal_hmc"),
 )
 
@@ -3794,7 +3883,7 @@ def child_examples(dev, payload):
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
-                result = (minimal_nuts_cut(dev) if kw == "cut"
+                result = (EXAMPLE_CUTS[name](dev) if kw == "cut"
                           else mod.main(device=dev, **(kw or {})))
             torch.cuda.synchronize()
         except BaseException:
@@ -3921,7 +4010,7 @@ def main() -> int:
     static = phase_nuts_leg(dev, "static")
     say("nuts-leg-compare",
         static_over_dynamic_min_ess_per_s=f"{static['min_ess_per_s'] / nuts['min_ess_per_s']:.4f}",
-        static_over_dynamic_wall=f"{static['wall'] / nuts['wall']:.4f}")
+        static_over_dynamic_ms_per_step=f"{static['ms_per_step'] / nuts['ms_per_step']:.4f}")
     nuts_resume = phase_nuts_resume(dev, tmp)
     mala_small = phase_mala_small(dev)
     mala = phase_mala_main(dev)
@@ -3993,12 +4082,25 @@ def main() -> int:
              launches=dense["K1"]["launches"],
              max_abs_err=max(dense["K1"]["eq_max_abs_err"],
                              *dense["K1"]["small_max_abs_err"].values()),
-             **{k: dense["K1"][k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms",
-                 "bound_tensor_3xtf32_ms", "library_ms", "library_call", "registers",
-                 "spill_store_bytes", "shared_bytes", "tiles_a_block", "blocks", "accept",
-                 "std_err",
-                 "corr", "eq_steps", "run_max_abs_err", "run_chains_differ")},
+             **{k: dense["K1"][k] for k in DENSE_ROW_KEYS},
+             checked_in="dense-main"),
+        # K3 on the dense GaussianND: its own tile kernel, the forward solve's
+        # panels in float32 on the CUDA cores, the draws made by producer
+        # warps; launches from "dense-main"'s run through MetropolisHastings;
+        # max_abs_err over its checks against the plain version (64 steps at
+        # the main shape, small widths with both proposals); library_ms one
+        # torch.linalg.solve_triangular of the residual a step times the
+        # run's steps; bound_ms the lesser of the CUDA-core and 3 x TF32
+        # figures; registers and spills from ptxas -v;
+        # shared bytes, L's bytes, tiles and producer warps a block and blocks
+        # of the run's launch from the kernel's host code
+        dict(name="fused_mh_dense", route="cuda",
+             source="general_mcmc_torch/csrc/fused_mh_dense.cu",
+             replaces="general_mcmc_tpu/ops/pallas_mh.py:61",
+             launches=dense["K3"]["launches"],
+             max_abs_err=max(dense["K3"]["eq_max_abs_err"],
+                             *dense["K3"]["small_max_abs_err"].values()),
+             **{k: dense["K3"][k] for k in DENSE_ROW_KEYS + ("l_bytes", "producer_warps")},
              checked_in="dense-main"),
         # K2 is a device function: on the HMC and MH main paths it runs inside
         # each fused_hmc and fused_mh launch; on the ChEES and NUTS main paths
@@ -4075,13 +4177,10 @@ def main() -> int:
              chains_kernel_only_ms={str(k): v for k, v in k3_chains["ms"].items()},
              widths_ms={str(k): v for k, v in k3_widths["ms"].items()},
              widths_bound_ms={str(k): v for k, v in k3_widths["bound_ms"].items()},
-             targets=k3_targets["families"], dense=dense["K3"],
-             target_launches={"diffable2d": k3_targets["launches"],
-                              "dense": dense["K3"]["launches"]},
-             targets_max_abs_err=max(k3_targets["max_abs_err"],
-                                     dense["K3"]["eq_max_abs_err"]),
-             checked_in="K3-small, mh-main, K3-chains, K3-widths, shard-cuda, K3-targets, "
-                        "dense-main"),
+             targets=k3_targets["families"],
+             target_launches={"diffable2d": k3_targets["launches"]},
+             targets_max_abs_err=k3_targets["max_abs_err"],
+             checked_in="K3-small, mh-main, K3-chains, K3-widths, shard-cuda, K3-targets"),
         # no single PyTorch call computes the chain: library_ms is the time of
         # its two torch.matmul a step, alone, times the steps
         dict(name="fused_logistic", route="cuda",

@@ -11,7 +11,7 @@ varied depths, the dynamic tree otherwise and always for caps > 6.
 from general_mcmc_torch import NUTS, init_with_seed
 
 
-def main(device=None):
+def main(n_collect=256, n_warmup=128, device=None):
     def logp(x):
         return -0.5 * (x * x).sum(dim=-1)
 
@@ -24,7 +24,7 @@ def main(device=None):
         target_accept_p=0.8, max_tree_depth=3, step_size=0.05,
         backend="auto", seed=0, device=device,
     )
-    sample_a = saturated.run(256, 128)
+    sample_a = saturated.run(n_collect, n_warmup)
     mean, std = saturated.depth_stats
     print(f"saturated cap-3 run:  backend_selected={saturated.backend_selected}"
           f"  (warmup depth mean {mean:.2f}, std {std:.2f})")
@@ -36,12 +36,12 @@ def main(device=None):
         logp, init_with_seed(128, 8, 1, device=device),
         target_accept_p=0.8, backend="auto", seed=1, device=device,
     )
-    sample_b = roomy.run(256, 128)
+    sample_b = roomy.run(n_collect, n_warmup)
     print(f"default cap-10 run:   backend_selected={roomy.backend_selected}")
 
     assert saturated.backend_selected == "static"
     assert roomy.backend_selected == "torch"
-    assert tuple(sample_a.shape) == tuple(sample_b.shape) == (128, 256, 8)
+    assert tuple(sample_a.shape) == tuple(sample_b.shape) == (128, n_collect, 8)
     return sample_a, sample_b
 
 

@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``general_mcmc_torch/_build/``.  A source may be built in
 variants, one for each set of macros it is given (the dense Gaussian's
-kernel, one for each count of column blocks: each build unrolls its solves
+kernels, one for each count of column blocks: each build unrolls its solves
 fully).  The file name carries a hash of the sources and the flags, so an
 edited source is rebuilt and a stale library is never loaded.
 Nothing is built when the package is imported: the CPU tests
@@ -38,12 +38,13 @@ _NO_FMA = ["-fmad=false"]
 # products (the logistic target's two, the dense Gaussian's blocked solves)
 # sum in another order than the plain version's library calls whatever the
 # rounding (and on the tensor cores), so they agree to a tolerance either
-# way and take the fused multiply-adds in their tile code (the HMC kernels
-# write the arithmetic around it with intrinsics that are never contracted,
-# csrc/tile_hmc.cuh).
+# way and take the fused multiply-adds in their tile code (the HMC and MH
+# kernels write the arithmetic around it with intrinsics that are never
+# contracted, csrc/tile_hmc.cuh, csrc/fused_mh_dense.cu).
 _SOURCE_FLAGS: dict[str, list[str]] = {"fused_logistic": ["-fmad=true"],
                                        "fused_hmc_logistic": ["-fmad=true"],
-                                       "fused_hmc_dense": ["-fmad=true"]}
+                                       "fused_hmc_dense": ["-fmad=true"],
+                                       "fused_mh_dense": ["-fmad=true"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -25,43 +25,27 @@
 // solves on the CUDA cores at 24x that bound, issue-bound on the full square
 // of L and one dependent shuffle a coordinate.
 //
-// Design.  L is one matrix for every chain, so a tile of 16 chains solving
-// against it is a triangular solve with 16 right-hand sides, and all of it
-// but the diagonal blocks is a matrix product:
-//  - d is cut into column blocks of 8, padded (104 at d = 100; NB blocks,
-//    NB <= 21), the padding an identity block of L and zeros of x and mu.
-//  - Forward, right-looking: for K = 0 .. NB - 1, block K of the residual is
-//    solved against the diagonal block L_KK (below), and then every later
-//    block takes off its panel product, R_I -= Y_K L_IK^T, one mma.sync
-//    m16n8k8 in three TF32 passes each (logistic_tile.cuh's split_tf32 and
-//    mma_3x: float32 accuracy, the dropped lo x lo term 2^-22 of a product).
-//    Back, the same from the last block: W_K L_KK = Y_K - sum_{I>K} W_I L_IK,
-//    and grad = -W.  Each panel product is accumulated from zero and added
-//    to its block by a rounded float add: the tensor cores' own float32
-//    accumulation truncates, and carried through a whole solve that
-//    doubled the distance from the plain version (106 of 10,240 chains off
-//    its tolerance over 8 steps at d = 100, against none).
+// Design.  The blocked forward solve, its storage of L and its fragment
+// layout are dense_tile.cuh's, which K3's dense kernel (fused_mh_dense.cu)
+// shares: for each column block of 8, a serial substitution in the diagonal
+// block on the CUDA cores, then one panel product on the tensor cores (three
+// TF32 passes, accumulated from zero, added by a rounded float add) for every
+// block below it.  The back solve is this kernel's own, the same from the
+// last block: W_K L_KK = Y_K - sum_{I>K} W_I L_IK, and grad = -W.
 //  - mma.sync, not wgmma: wgmma's 64-row M would make 64-chain tiles (160
 //    at 10,240 chains, two on some SMs), and its TF32 B operand is read
 //    K-major from shared memory only, so the back solve's transposed panels
 //    would need a second copy of L, which does not fit beside a tile at
 //    d = 168.
-//  - One warp holds a tile, its residual as 4 NB floats a lane in the mma
-//    accumulator layout with the columns permuted (tile_hmc.cuh), so a solved
-//    block is at once the A operand of the panel products: no data moves
-//    between lanes but in the diagonal blocks.  The right-looking order
-//    splits each solved block once and keeps the panel updates of different
-//    blocks independent, which gives the tensor pipe work to overlap.
-//  - Diagonal blocks: the four lanes of a row gather its 8 elements (16
-//    shuffles for the lane's two rows) and each substitutes serially on the
-//    CUDA cores, the diagonal applied as a product with its reciprocal: an
-//    8-deep dependency where the lane kernel's was d-deep.
-//  - L's strict lower blocks live in shared memory once a block, negated and
-//    pre-split into TF32 hi and lo in the block's prologue: NB (NB - 1) / 2
-//    blocks of 512 bytes, each lane's forward B fragment (hi and lo of two
-//    elements) one 16-byte word, in a swizzled order (slot()) that keeps both
-//    the forward 16-byte loads and the back solve's 8-byte loads of the
-//    transposed fragment free of bank conflicts, so both solves read one
+//  - One warp holds a tile, its residual in registers.  The right-looking
+//    order splits each solved block once and keeps the panel updates of
+//    different blocks independent, which gives the tensor pipe work to
+//    overlap.
+//  - L's strict lower blocks live in shared memory once a block in
+//    dense_tile.cuh's split storage (pre-split into TF32 hi and lo in the
+//    block's prologue, NB (NB - 1) / 2 blocks of 512 bytes), whose swizzled
+//    order serves the forward 16-byte loads and the back solve's 8-byte
+//    loads of the transposed fragment alike, so both solves read one
 //    copy.  At d = 168 that is 210 blocks, 107,520 bytes (the triangle in hi
 //    and lo is 168 * 169 / 2 * 8 = 113,568; a padded square in hi and lo,
 //    225,792 bytes, would not leave room for a tile), plus the diagonal
@@ -110,14 +94,13 @@
 #include <cstdint>
 
 #include "counter_rng.cuh"
-#include "logistic_tile.cuh"
+#include "dense_tile.cuh"
 #include "tile_hmc.cuh"
 
 namespace {
 
-using gmt_logistic::mma_3x;
-using gmt_logistic::split_tf32;
-using gmt_tile::kFull;
+using gmt_dense::slot;
+using gmt_dense::tri;
 
 #ifndef GMT_DENSE_NB
 #error "build with -DGMT_DENSE_NB=<8-column blocks of the width>, 1..21 (ops/fused_hmc_dense.py)"
@@ -127,29 +110,11 @@ static_assert(kNB >= 1 && kNB <= 21, "d <= 168 (MAX_DENSE_DIM in ops/fused_hmc_d
 constexpr int kMaxWarps = 8;  // tiles a block
 
 // Shared memory of a block of `warps` tiles at NB blocks, in bytes: the
-// off-diagonal fragments, the diagonal blocks and their transposes, the
-// column tables and each warp's four vectors (see Design).
+// off-diagonal fragments (split storage), the diagonal blocks and their
+// transposes, the column tables and each warp's four vectors (see Design).
 __host__ __device__ constexpr size_t shared_bytes(int nb, int warps) {
-  return static_cast<size_t>(nb) * (nb - 1) / 2 * 512 + static_cast<size_t>(nb) * 512 +
+  return gmt_dense::lower_bytes(nb, true) + static_cast<size_t>(nb) * 512 +
          static_cast<size_t>(nb) * 64 + static_cast<size_t>(warps) * 4 * nb * 512;
-}
-
-// The 16-byte word of a block's fragments that lane l's forward B fragment
-// lies in: groups of 8 lanes rotated by 2 (l / 8).  A quarter warp's 16-byte
-// loads then cover the 8 bank groups, and the back solve's 8-byte loads
-// (lanes 8 t + (g / 2) and 8 t + 4 + (g / 2) for lane (g, t)) the 16 pairs.
-__host__ __device__ constexpr int slot(int l) { return (l & ~7) | ((l + 2 * (l >> 3)) & 7); }
-
-// Block I of a row tile's columns: output column n of an mma is column
-// pi(n) = n / 2 + 4 (n % 2) of the block (tile_hmc.cuh's fragment layout).
-__host__ __device__ constexpr int pi(int n) { return (n >> 1) + 4 * (n & 1); }
-
-// Index of the strict lower block (I, K), K < I.
-__host__ __device__ constexpr int tri(int i, int k) { return i * (i - 1) / 2 + k; }
-
-// v[o + t] of an array indexed at compile time (t = lane % 4).
-__device__ __forceinline__ float pick(const float (&v)[8], int o, int t) {
-  return t == 0 ? v[o] : t == 1 ? v[o + 1] : t == 2 ? v[o + 2] : v[o + 3];
 }
 
 // The block's shared-memory parts (see shared_bytes).
@@ -174,61 +139,33 @@ struct DenseShared {
   // after).
   __device__ void stage(const float* chol, const float* mean, const float* inv, int d,
                         int nb) const {
-    const int pairs = nb * nb * 32;
-    for (int idx = threadIdx.x; idx < pairs; idx += blockDim.x) {
-      const int i = idx / (nb * 32), k = (idx / 32) % nb, l = idx % 32;
-      if (k >= i) continue;
-      const int row = 8 * i + pi(l >> 2);
-      const int col = 8 * k + (l & 3);
-      const float v0 = (row < d && col < d) ? -chol[row * d + col] : 0.0f;
-      const float v1 = (row < d && col + 4 < d) ? -chol[row * d + col + 4] : 0.0f;
-      uint32_t h0, l0, h1, l1;
-      split_tf32(v0, h0, l0);
-      split_tf32(v1, h1, l1);
-      lf[tri(i, k) * 32 + slot(l)] =
-          make_float4(__uint_as_float(h0), __uint_as_float(l0), __uint_as_float(h1),
-                      __uint_as_float(l1));
-    }
-    for (int idx = threadIdx.x; idx < nb * 64; idx += blockDim.x) {
-      const int k = idx / 64, i = (idx / 8) % 8, j = idx % 8;
-      const int r = 8 * k + i, c = 8 * k + j;
-      float v = 0.0f;
-      if (j < i) {
-        v = r < d ? chol[r * d + c] : 0.0f;
-      } else if (j == i) {
-        v = r < d ? 1.0f / chol[r * d + r] : 1.0f;  // the padding: an identity block
-      }
-      dg[k * 64 + i * 8 + j] = v;
-      dt[k * 64 + j * 8 + i] = v;
-    }
-    for (int idx = threadIdx.x; idx < nb * 4; idx += blockDim.x) {
-      const int c0 = 8 * (idx / 4) + idx % 4, c1 = c0 + 4;
-      mu[idx] = make_float2(c0 < d ? mean[c0] : 0.0f, c1 < d ? mean[c1] : 0.0f);
-      iv[idx] = make_float2(c0 < d ? inv[c0] : 0.0f, c1 < d ? inv[c1] : 0.0f);
-    }
+    gmt_dense::stage_lower(lf, chol, d, nb);
+    gmt_dense::stage_diag(dg, dt, chol, d, nb);
+    gmt_dense::stage_columns(mu, mean, d, nb);
+    gmt_dense::stage_columns(iv, inv, d, nb);
     __syncthreads();
   }
 };
 
-// One warp's tile of the dense GaussianND: tile_hmc.cuh's hooks.  V holds
-// the residual x - mu before grad() and the gradient after it; the solves
-// run in place on it.  A unit of a vector in shared memory is one 16-byte
-// word a lane.
+// One warp's tile of the dense GaussianND: tile_hmc.cuh's hooks.  V (the
+// residual of dense_tile.cuh's Solve) holds x - mu before grad() and the
+// gradient after it; the solves run in place on it.  A unit of a vector in
+// shared memory is one 16-byte word a lane.
 template <int NB>
-struct DenseTile {
-  static constexpr int R = 2;  // rows a lane holds: g and g + 8
+struct DenseTile : gmt_dense::Solve<NB> {
+  using Base = gmt_dense::Solve<NB>;
+  using Base::lane;
+  using Base::t;
+  using Base::V;
+  static constexpr int R = Base::R;
   const DenseShared& s;
   const gmt_tile::Run& a;
   const gmt_tile::TileRows& rows;
   float4 *x, *m, *xo, *go;  // the warp's four vectors, unit 0, lane 0
-  int lane, t;
-  float V[NB][4];
 
   __device__ DenseTile(const DenseShared& s_, const gmt_tile::Run& a_,
                        const gmt_tile::TileRows& rows_, int warp)
       : s(s_), a(a_), rows(rows_) {
-    lane = threadIdx.x & 31;
-    t = lane & 3;
     x = s.warp0 + warp * 4 * NB * 32;
     m = x + NB * 32;
     xo = m + NB * 32;
@@ -268,55 +205,12 @@ struct DenseTile {
     for (int c = 0; c < 2 * R; ++c) V[j][c] = __fsub_rn(v[c], col(mu, c));
   }
 
-  // The lane's rows of block j, all 8 columns, from the quad's lanes.
-  __device__ __forceinline__ void gather(int j, float (&r)[R][8]) const {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int src = (lane & ~3) | q;
-#pragma unroll
-      for (int h = 0; h < R; ++h) {
-        r[h][q] = __shfl_sync(kFull, V[j][2 * h], src);
-        r[h][q + 4] = __shfl_sync(kFull, V[j][2 * h + 1], src);
-      }
-    }
-  }
-
-  // The lane's elements of the solved rows back into block j.
-  __device__ __forceinline__ void keep(int j, const float (&y)[R][8]) {
-#pragma unroll
-    for (int h = 0; h < R; ++h) {
-      V[j][2 * h] = pick(y[h], 0, t);
-      V[j][2 * h + 1] = pick(y[h], 4, t);
-    }
-  }
-
-  // Y_K = R_K L_KK^-T for the lane's rows: y_i = (r_i - sum_{j<i} L_ij y_j)
-  // / L_ii, row i of the diagonal block read as two 16-byte words.
-  __device__ __forceinline__ void diag_forward(int k) {
-    float r[R][8], y[R][8];
-    gather(k, r);
-    const float4* dg = reinterpret_cast<const float4*>(s.dg + k * 64);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 lo = dg[2 * i], hi = dg[2 * i + 1];
-      const float row[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int h = 0; h < R; ++h) {
-        float acc = r[h][i];
-#pragma unroll
-        for (int j = 0; j < i; ++j) acc -= row[j] * y[h][j];
-        y[h][i] = acc * row[i];
-      }
-    }
-    keep(k, y);
-  }
-
   // W_K = Y_K L_KK^-1 for the lane's rows, the last column first:
   // w_j = (y_j - sum_{i>j} w_i L_ij) / L_jj, column j read from the
   // transposed block.
   __device__ __forceinline__ void diag_back(int k) {
     float r[R][8], w[R][8];
-    gather(k, r);
+    this->gather(k, r);
     const float4* dt = reinterpret_cast<const float4*>(s.dt + k * 64);
 #pragma unroll
     for (int j = 7; j >= 0; --j) {
@@ -330,54 +224,12 @@ struct DenseTile {
         w[h][j] = acc * cl[j];
       }
     }
-    keep(k, w);
-  }
-
-  // Block k, solved, as the A operand of the panel products, hi and lo.
-  __device__ __forceinline__ void operand(int k, uint4& hi, uint4& lo) const {
-    split_tf32(V[k][0], hi.x, lo.x);
-    split_tf32(V[k][2], hi.y, lo.y);
-    split_tf32(V[k][1], hi.z, lo.z);
-    split_tf32(V[k][3], hi.w, lo.w);
-  }
-
-  // A panel product (of -L) added to its block.
-  __device__ __forceinline__ void take(int j, const float (&p)[4]) {
-#pragma unroll
-    for (int c = 0; c < 2 * R; ++c) V[j][c] = __fadd_rn(V[j][c], p[c]);
+    this->keep(k, w);
   }
 
   __device__ void grad(bool value, float (&lp)[R]) {
-    // forward: Y = R L^-T, block by block, right-looking
-#pragma unroll
-    for (int k = 0; k < NB; ++k) {
-      diag_forward(k);
-      if (k + 1 < NB) {
-        uint4 ah, al;
-        operand(k, ah, al);
-#pragma unroll
-        for (int i = k + 1; i < NB; ++i) {
-          const float4 b = s.lf[tri(i, k) * 32 + slot(lane)];
-          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_3x(acc, ah, al, __float_as_uint(b.x), __float_as_uint(b.z), __float_as_uint(b.y),
-                 __float_as_uint(b.w));
-          take(i, acc);
-        }
-      }
-    }
-    if (value) {  // lp = -1/2 |y|^2, each square rounded, the sum in double
-      double ss[1][R] = {};
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2 * R; ++c) {
-          ss[0][c >> 1] += static_cast<double>(__fmul_rn(V[j][c], V[j][c]));
-        }
-      }
-      gmt_tile::row_sums<1, 1>(ss, nullptr, 0, 0, t, [] {});
-#pragma unroll
-      for (int h = 0; h < R; ++h) lp[h] = __fmul_rn(-0.5f, static_cast<float>(ss[0][h]));
-    }
+    this->forward(s.lf, s.dg);  // Y = R L^-T
+    if (value) this->half_norm(lp);
     // back: W = Y L^-1 from the last block; the panel B fragment is the
     // forward one transposed, two 8-byte words of other lanes' slots
     const float2* lf2 = reinterpret_cast<const float2*>(s.lf);
@@ -389,15 +241,13 @@ struct DenseTile {
       diag_back(k);
       if (k > 0) {
         uint4 ah, al;
-        operand(k, ah, al);
+        this->operand(k, ah, al);
 #pragma unroll
         for (int j = 0; j < k; ++j) {
           const float2 b0 = lf2[tri(k, j) * 64 + at0];
           const float2 b1 = lf2[tri(k, j) * 64 + at1];
-          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_3x(acc, ah, al, __float_as_uint(b0.x), __float_as_uint(b1.x),
-                 __float_as_uint(b0.y), __float_as_uint(b1.y));
-          take(j, acc);
+          this->panel(j, ah, al, __float_as_uint(b0.x), __float_as_uint(b1.x),
+                      __float_as_uint(b0.y), __float_as_uint(b1.y));
         }
       }
     }

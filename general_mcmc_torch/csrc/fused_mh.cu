@@ -10,14 +10,13 @@
 // proposal; CUDA cannot inline a Python callable, so the targets and
 // proposals are device functions selected by an enum, and the wrapper
 // (ops/fused_mh.py) refuses any other:
-//   targets   GaussianND with diagonal covariance (mean and precision rows)
-//             or a dense one (the Cholesky factor L: y = L^-1 (x - mean) by
-//             a forward solve against L^T in shared memory, d <= 240,
-//             MAX_DENSE_DIM in ops/fused_mh.py), Gaussian2D (the explicit
-//             quadratic form, times 1 / det), DiffableGaussian2D,
-//             Rosenbrock2D, RosenbrockND and NealsFunnel (the neighbour and
-//             the last coordinate reach the lanes that need them by
-//             shuffles, lane_targets.cuh);
+//   targets   GaussianND with diagonal covariance (mean and precision
+//             rows), Gaussian2D (the explicit quadratic form, times 1 / det),
+//             DiffableGaussian2D, Rosenbrock2D, RosenbrockND and NealsFunnel
+//             (the neighbour and the last coordinate reach the lanes that
+//             need them by shuffles, lane_targets.cuh); the dense GaussianND
+//             runs in a tile kernel of its own, fused_mh_dense.cu, in
+//             float32 on the CUDA cores;
 //   proposals Gaussian random walk y = x + s z (symmetric) and pCN
 //             y = rho x + beta z with log q(a->b) = -1/2 sum ((b - rho a)/beta)^2.
 // The initial log density is computed here, from the same device function.
@@ -69,16 +68,15 @@
 // (then QPL = the blocks / 32, rounded up, up to 5: d <= 512); at d <= 2,
 // G = 1 for the 2-d targets and the diagonal GaussianND (design (b)) and 2
 // for the targets that need a lane group at any width (RosenbrockND, the
-// funnel, the dense GaussianND).  Row sums are butterfly shuffles within the
+// funnel).  Row sums are butterfly shuffles within the
 // group, which leave the same bits on every lane.
 //
 // Agreement with the plain version: built with -fmad=false, every
 // elementwise operation rounds as the plain version's separate PyTorch ops
 // do, in the same order (a division by a Python number as the product with
 // its float reciprocal, as PyTorch divides on the card: the funnel's
-// 1 / v_std); the dense GaussianND's solve sums in column order, not in
-// cuBLAS's, and agrees to a tolerance; row sums are accumulated in double and rounded once
-// to float, as the plain version's are (see fused_hmc.cu).  The draws are
+// 1 / v_std); row sums are accumulated in double and rounded once to float,
+// as the plain version's are (see fused_hmc.cu).  The draws are
 // the words the plain version reads (ops/counter_rng.py, mh_draws), through
 // the straight forms of logf, sqrtf and sincosf, whose bits equal
 // torch.log's, torch.sqrt's, torch.cos's and torch.sin's on the card for
@@ -100,7 +98,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // The device targets: gmt_lanes::Target, the TARGET_* codes of ops/fused_hmc.py.
 constexpr int kGaussianND = gmt_lanes::kGaussianDiag;
-constexpr int kGaussianDense = gmt_lanes::kGaussianDense;
 constexpr int kDiffable2D = gmt_lanes::kDiffable2D;
 constexpr int kGaussian2D = gmt_lanes::kGaussian2D;
 constexpr int kRosenbrock2D = gmt_lanes::kRosenbrock2D;
@@ -110,7 +107,7 @@ enum Proposal : int { kRandomWalk = 0, kPCN = 1 };
 
 struct Args {
   const float* x0;
-  const float* params;  // GaussianND: mean[d], prec[d]; dense: mean[d], L[d][d];
+  const float* params;  // GaussianND: mean[d], prec[d];
                         // Gaussian2D: m0, m1, a, b + c, d, 1 / det;
                         // DiffableGaussian2D: m0, m1, ic00, ic01 + ic10, ic11,
                         // the normalising constant; Rosenbrock2D: a, b;
@@ -130,24 +127,6 @@ __device__ __forceinline__ float group_sum(double v) {
 #pragma unroll
   for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off, G);
   return static_cast<float>(v);
-}
-
-// The dense GaussianND's shared memory: the rows of L^T, dense_pitch(d)
-// floats apart, then 1 / L_ii padded to dense_pitch(d); loaded by every
-// thread of the block.
-__host__ __device__ constexpr size_t dense_shared_bytes(int d) {
-  return sizeof(float) * (static_cast<size_t>(d) + 1) * gmt_lanes::dense_pitch(d);
-}
-__device__ void load_dense(const float* chol, int d, float* shared) {
-  const int p = gmt_lanes::dense_pitch(d);
-  for (int idx = threadIdx.x; idx < d * p; idx += blockDim.x) {
-    const int i = idx / p, j = idx % p;
-    shared[idx] = j < d ? chol[j * d + i] : 0.0f;  // L^T[i][j] = L[j][i]
-  }
-  for (int i = threadIdx.x; i < p; i += blockDim.x) {
-    shared[d * p + i] = i < d ? 1.0f / chol[i * d + i] : 0.0f;
-  }
-  __syncthreads();
 }
 
 // pCN's log q(a -> b) up to its constant: -1/2 sum ((b - rho a) / beta)^2,
@@ -272,17 +251,12 @@ struct Chain {
   bool ok[E];
   float lp;
   int d, sub;
-  const float* lt;     // dense: rows of L^T and 1 / diag(L) in shared memory
-  const float* rdiag;
 
   __device__ __forceinline__ int coord(int i) const { return 4 * (sub + G * (i / 4)) + i % 4; }
 
-  __device__ __forceinline__ void init(const Args& a, uint32_t chain, int sub_,
-                                       const float* shared) {
+  __device__ __forceinline__ void init(const Args& a, uint32_t chain, int sub_) {
     d = a.d;
     sub = sub_;
-    lt = shared;
-    rdiag = shared + a.d * gmt_lanes::dense_pitch(a.d);
 #pragma unroll
     for (int i = 0; i < 6; ++i) k[i] = 0.0f;
     if (TGT == kGaussian2D || TGT == kDiffable2D) {
@@ -300,7 +274,7 @@ struct Chain {
       const int j = coord(i);
       ok[i] = j < a.d;
       x[i] = ok[i] ? a.x0[static_cast<int64_t>(chain) * a.d + j] : 0.0f;
-      mu[i] = ((TGT == kGaussianND || TGT == kGaussianDense) && ok[i]) ? a.params[j] : 0.0f;
+      mu[i] = (TGT == kGaussianND && ok[i]) ? a.params[j] : 0.0f;
       prec[i] = (TGT == kGaussianND && ok[i]) ? a.params[a.d + j] : 0.0f;
     }
     lp = log_density(x);
@@ -344,7 +318,7 @@ struct Chain {
         if (coord(i) < d - 1) acc += 100.0f * (w[i] * w[i]) + u * u;
       }
       return -group_sum<G>(acc);
-    } else if constexpr (TGT == kFunnel) {
+    } else {  // kFunnel
       // -(v / v_std)^2 / 2 + (-sum x^2 e^-v / 2 - (dim - 1) v / 2), v the
       // last coordinate, reaching the group from its lane
       double acc = 0.0;
@@ -359,18 +333,6 @@ struct Chain {
       const float lv = __shfl_sync(kFull, mine, ((d - 1) / 4) % G, G);
       const float t = lv * k[0];
       return -0.5f * (t * t) + ((-0.5f * sq) * expf(-lv) - k[2] * lv);
-    } else {  // kGaussianDense: -1/2 |L^-1 (v - mean)|^2
-      float r[E], yv[E];
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        r[i] = v[i] - mu[i];
-        yv[i] = 0.0f;
-      }
-      gmt_lanes::forward_solve<QPL>(lt, rdiag, gmt_lanes::dense_pitch(d), d, G, sub, r, yv);
-      double acc = 0.0;
-#pragma unroll
-      for (int i = 0; i < E; ++i) acc += yv[i] * yv[i];
-      return -0.5f * group_sum<G>(acc);
     }
   }
 
@@ -449,11 +411,8 @@ __global__ void __launch_bounds__(kThreads) fused_mh_kernel(const Args a) {
   const int lane = static_cast<int>(threadIdx.x & 31);
   const Layout lay{pairs / 2 + 1, (pairs & 1) != 0, lane - sub + (pairs / 2) % G};
 
-  extern __shared__ float4 k3_shared[];  // the dense GaussianND's L^T (load_dense)
-  float* shared = reinterpret_cast<float*>(k3_shared);
-  if constexpr (TGT == kGaussianDense) load_dense(a.params + a.d, a.d, shared);
   C c;
-  c.init(a, chain, sub, shared);
+  c.init(a, chain, sub);
   Store st(a, chain);
   float z[S][E], log_u[S];        // the tile being walked
   float z_next[S][E], lu_next[S];  // the next tile, drawn meanwhile
@@ -566,7 +525,7 @@ __global__ void __launch_bounds__(kWalkers + 32 * P) fused_mh_ws_kernel(const Ar
   const bool live = slot < a.n;
   const uint32_t chain = static_cast<uint32_t>(live ? slot : a.n - 1);
   Chain<1, 1, TGT, PROP> c;
-  c.init(a, chain, 0, nullptr);
+  c.init(a, chain, 0);
   Store st(a, chain);
   for (int i0 = 0; i0 < n_tiles; i0 += kSlots) {
 #pragma unroll
@@ -601,22 +560,13 @@ cudaError_t launch(const Args& a, int proposal, cudaStream_t stream) {
   const auto kernel = proposal == kPCN ? fused_mh_kernel<G, QPL, S, TGT, kPCN>
                                        : fused_mh_kernel<G, QPL, S, TGT, kRandomWalk>;
   if (proposal != kRandomWalk && proposal != kPCN) return cudaErrorInvalidValue;
-  size_t bytes = 0;
-  if (TGT == kGaussianDense) {
-    // above 48 KB a block's shared memory is granted only on request
-    bytes = dense_shared_bytes(a.d);
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, kThreads, bytes, stream>>>(a);
+  kernel<<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Design (a) at the width: G the power of two >= the Philox blocks a step
-// (at least 2), a whole warp and 1..QMAX (2 or 5) blocks a lane past 16
-// blocks.
-template <int TGT, int QMAX>
+// (at least 2), a whole warp and 1..5 blocks a lane past 16 blocks.
+template <int TGT>
 cudaError_t launch_lanes(const Args& a, int proposal, cudaStream_t s) {
   const int nb = (a.d + 1) / 2 / 2 + 1;  // Philox blocks a step
   if (nb <= 2) return launch<2, 1, TGT>(a, proposal, s);
@@ -626,11 +576,9 @@ cudaError_t launch_lanes(const Args& a, int proposal, cudaStream_t s) {
   const int qpl = (nb + 31) / 32;
   if (qpl == 1) return launch<32, 1, TGT>(a, proposal, s);
   if (qpl == 2) return launch<32, 2, TGT>(a, proposal, s);
-  if constexpr (QMAX >= 5) {
-    if (qpl == 3) return launch<32, 3, TGT>(a, proposal, s);
-    if (qpl == 4) return launch<32, 4, TGT>(a, proposal, s);
-    if (qpl == 5) return launch<32, 5, TGT>(a, proposal, s);
-  }
+  if (qpl == 3) return launch<32, 3, TGT>(a, proposal, s);
+  if (qpl == 4) return launch<32, 4, TGT>(a, proposal, s);
+  if (qpl == 5) return launch<32, 5, TGT>(a, proposal, s);
   return cudaErrorInvalidValue;
 }
 
@@ -662,8 +610,7 @@ extern "C" int fused_mh_launch(const void* x0, const void* params, void* out, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   // the widths each target is built for: d <= 512 (MAX_DIM in
-  // ops/fused_mh.py: a warp of five blocks a lane), the dense GaussianND
-  // d <= 240 (two blocks a lane), the 2-d targets d = 2
+  // ops/fused_mh.py: a warp of five blocks a lane), the 2-d targets d = 2
   switch (target) {
     case kGaussian2D:
     case kRosenbrock2D:
@@ -677,12 +624,9 @@ extern "C" int fused_mh_launch(const void* x0, const void* params, void* out, in
     case kGaussianND:
       // d <= 2: one block a step, the thread-per-chain walk
       if (d <= 2) return static_cast<int>(launch_ws<kGaussianND>(a, proposal, s));
-      return static_cast<int>(launch_lanes<kGaussianND, 5>(a, proposal, s));
-    case kRosenbrockND: return static_cast<int>(launch_lanes<kRosenbrockND, 5>(a, proposal, s));
-    case kFunnel: return static_cast<int>(launch_lanes<kFunnel, 5>(a, proposal, s));
-    case kGaussianDense:
-      if (d > 240) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch_lanes<kGaussianDense, 2>(a, proposal, s));
+      return static_cast<int>(launch_lanes<kGaussianND>(a, proposal, s));
+    case kRosenbrockND: return static_cast<int>(launch_lanes<kRosenbrockND>(a, proposal, s));
+    case kFunnel: return static_cast<int>(launch_lanes<kFunnel>(a, proposal, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,15 +11,10 @@
 //    shuffle a quad (lane G - 1 reads lane 0's quad k + 1), and the
 //    gradient's v_{j-1} of a quad's first element from the previous lane
 //    the same way.
-//  - The dense GaussianND's forward solve (K3's, which needs only the log
-//    density: K1 runs that target in a tile kernel of its own,
-//    fused_hmc_dense.cu) goes by columns: each solved element reaches the
-//    group by one shuffle from its lane, and every lane takes its part of
-//    that column off its own elements, reading the column as float4s of a
-//    row of L^T from shared memory, rows dense_pitch(d) floats apart.  The diagonal is applied as a product
-//    with its reciprocal.  The sums run in column order, not in the plain
-//    version's library order (cuBLAS trsm), so this target agrees with the
-//    plain version to a tolerance, not bit for bit.
+// The dense GaussianND couples every coordinate through L: both kernels run
+// it in tile kernels of their own on dense_tile.cuh's blocked solve
+// (fused_hmc_dense.cu, its panels on the tensor cores; fused_mh_dense.cu,
+// in float32 on the CUDA cores), and its code here only names it.
 #pragma once
 
 namespace gmt_lanes {
@@ -38,46 +33,6 @@ enum Target : int {
   kRosenbrockND = 5,
   kFunnel = 6,
 };
-
-// Floats a row of L^T in shared memory: d rounded up to quads, so that
-// every row starts 16-byte aligned.
-__host__ __device__ constexpr int dense_pitch(int d) { return 4 * ((d + 3) / 4); }
-
-// y = L^-1 r: y_i = r_i / L_ii reaches the group from the lane that holds
-// element i, and every lane takes L_ji y_i off its r_j, reading column i of
-// L as row i of L^T (zeros above the diagonal and past d).  r is consumed;
-// y past d stays as given.
-template <int QPL>
-__device__ __forceinline__ void forward_solve(const float* lt, const float* rdiag, int dp,
-                                              int d, int G, int sub, float (&r)[4 * QPL],
-                                              float (&y)[4 * QPL]) {
-#pragma unroll
-  for (int k = 0; k < QPL; ++k) {
-    for (int s = 0; s < G; ++s) {
-      const int q = s + G * k;
-      if (4 * q >= d) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * q + e;
-        if (i >= d) break;
-        const float yi = __shfl_sync(kFull, r[4 * k + e], s, G) * rdiag[i];
-        if (sub == s) y[4 * k + e] = yi;
-        const float4* col = reinterpret_cast<const float4*>(lt + i * dp);
-#pragma unroll
-        for (int k2 = 0; k2 < QPL; ++k2) {
-          const int q2 = sub + G * k2;
-          if (4 * q2 < dp) {
-            const float4 c = col[q2];
-            r[4 * k2] = r[4 * k2] - c.x * yi;
-            r[4 * k2 + 1] = r[4 * k2 + 1] - c.y * yi;
-            r[4 * k2 + 2] = r[4 * k2 + 2] - c.z * yi;
-            r[4 * k2 + 3] = r[4 * k2 + 3] - c.w * yi;
-          }
-        }
-      }
-    }
-  }
-}
 
 // RosenbrockND: v_j = x_{j+1} - x_j^2 at this lane's elements (past d - 1
 // not meaningful).

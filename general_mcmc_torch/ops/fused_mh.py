@@ -11,25 +11,28 @@ follow the same trajectory.
 
 The Pallas kernel inlines any traced target, ``propose`` and ``logp``.  A
 CUDA kernel cannot inline a Python callable, so this one holds device
-functions for the targets ``GaussianND`` with a diagonal covariance or a
-dense one (``d <= MAX_DENSE_DIM``: ``L`` in shared memory), ``Gaussian2D``,
-``DiffableGaussian2D``, ``Rosenbrock2D``, ``RosenbrockND`` and
-``NealsFunnel`` (the same device targets as the fused HMC kernel's,
+functions for the targets ``GaussianND`` with a diagonal covariance,
+``Gaussian2D``, ``DiffableGaussian2D``, ``Rosenbrock2D``, ``RosenbrockND``
+and ``NealsFunnel`` (the same device targets as the fused HMC kernel's,
 :func:`.fused_hmc.target_code`), and for the proposals Gaussian random walk
 (``RandomWalkProposal`` or ``IsotropicGaussian``) and pCN (``PCNProposal``);
 anything else raises, ``DiscreteWalkProposal`` and integer states included
-(the JAX package's discrete walk takes its XLA path too).  The dense target
-agrees with the plain version to a tolerance (its solve sums in another
-order than cuBLAS), the rest bit for bit.  The TPU kernel's transposed
+(the JAX package's discrete walk takes its XLA path too).  A ``GaussianND``
+with a dense covariance (``d <= MAX_DENSE_DIM``) runs in a tile kernel of
+its own, ``csrc/fused_mh_dense.cu`` (:mod:`.fused_mh_dense`: the forward
+solve blocked with a tile's chains as right-hand sides), with its own
+``launches``; it agrees with the plain version to a tolerance (its solve
+sums in another order than cuBLAS), the rest bit for bit.  The TPU kernel's transposed
 ``[dim, chains]`` state is a tiling decision of that machine and is not
 carried over: the store is steps-major ``[n_collect, n_chains, dim]``, as
 the fused HMC run's is.
 
 The kernel computes the draws of a tile of steps ahead of the walk; it
 chooses its lane map, tile and design from the width (``csrc/fused_mh.cu``,
-head note).  Row ``r`` draws as the global chain ``chain0 + r``, so a rank
-that holds chains ``chain0 …`` of a sharded run walks its rows of the
-unsharded run, in one launch.
+head note).  :func:`tile_kernel` says which kernel runs a target.  Row
+``r`` draws as the global chain ``chain0 + r``, so a rank that holds chains
+``chain0 …`` of a sharded run walks its rows of the unsharded run, in one
+launch.
 """
 
 from __future__ import annotations
@@ -41,20 +44,21 @@ import torch
 from ..models.distributions import IsotropicGaussian
 from ..rng import stream_key
 from ..samplers.metropolis_hastings import PCNProposal, RandomWalkProposal
-from .fused_hmc import TARGET_NAMES, target_code, target_params
+from . import fused_mh_dense
+from .fused_hmc import TARGET_GAUSSIAN_DENSE, TARGET_NAMES, target_code, target_params
 
-__all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "MAX_DIM", "MAX_DENSE_DIM"]
+__all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "tile_kernel", "MAX_DIM",
+           "MAX_DENSE_DIM"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
 MAX_DIM = 512  # widest state the kernel is built for (csrc/fused_mh.cu)
-# The dense GaussianND keeps L^T and 1 / diag(L) in a block's shared
-# memory, rows padded to quads: (d + 1) (4 ceil(d / 4)) floats within an
-# H100's 232,448 bytes.
-MAX_DENSE_DIM = 240
+# The dense GaussianND's tile kernel keeps L's lower triangle in a block's
+# shared memory in 8 x 8 blocks (ops/fused_mh_dense.py).
+MAX_DENSE_DIM = fused_mh_dense.MAX_DENSE_DIM
 
-# The Proposal enum of csrc/fused_mh.cu.
+# The Proposal enum of csrc/fused_mh.cu (and csrc/tile_mh.cuh).
 _PROPOSAL_RANDOM_WALK, _PROPOSAL_PCN = 0, 1
 
 _TAKES = (f"the fused MH kernel takes the targets {TARGET_NAMES}, and the proposals "
@@ -87,6 +91,13 @@ def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin,
     return code, p_code, consts
 
 
+def tile_kernel(code):
+    """The launcher of the tile kernel that runs the target ``code`` (as
+    :func:`_check_args` returns it), or ``None`` for ``csrc/fused_mh.cu``:
+    the dense ``GaussianND`` goes to :mod:`.fused_mh_dense`."""
+    return fused_mh_dense.launch_dense if code == TARGET_GAUSSIAN_DENSE else None
+
+
 def fused_mh_run_reference(target, initial_positions, proposal, n_collect, n_discard=0,
                            seed=0, thin=1, chain0=0):
     """Plain PyTorch version of :func:`fused_mh_run`: the ``"torch"``
@@ -110,7 +121,8 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
     row 0 (row ``r`` draws as chain ``chain0 + r``).
 
     For ``initial_positions`` on the card this is one launch of
-    ``csrc/fused_mh.cu`` (float32); on the CPU it is the plain version."""
+    ``csrc/fused_mh.cu`` (``csrc/fused_mh_dense.cu`` for a dense
+    ``GaussianND``), float32; on the CPU it is the plain version."""
     x0 = initial_positions
     code, p_code, consts = _check_args(target, x0, proposal, n_collect, n_discard, thin,
                                        chain0)
@@ -122,10 +134,13 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
     if x0.dtype != torch.float32 or not x0.is_contiguous():
         raise ValueError("initial_positions must be contiguous float32")
     n, d = x0.shape
-    if d > MAX_DIM:
-        raise ValueError(f"the fused MH kernel takes dim <= {MAX_DIM}, got {d}")
     if (n_discard + n_collect * thin) > 2**31 - 64:
         raise ValueError("too many steps for one launch")
+    tile = tile_kernel(code)
+    if tile is not None:
+        return tile(target, x0, p_code, consts, n_collect, n_discard, seed, thin, chain0)
+    if d > MAX_DIM:
+        raise ValueError(f"the fused MH kernel takes dim <= {MAX_DIM}, got {d}")
     f32 = dict(device=x0.device, dtype=torch.float32)
     params = target_params(target, code, **f32)
     out = torch.empty((n_collect, n, d), **f32)

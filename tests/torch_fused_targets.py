@@ -1,8 +1,10 @@
 """The repo's continuous targets that the fused kernels take, on both sides:
 the JAX package's target, the port's target kind and parameters, a small
 width, a step size and leapfrogs (tests/test_torch_fused_targets*.py); and
-plain models of the dense tile kernel's blocked solves and of the tile
-kernels' chain addressing (tests/test_torch_tile_hmc.py)."""
+plain models of the dense tile kernels' blocked solves (K1's and K3's,
+csrc/dense_tile.cuh), with the three TF32 passes of their panel products,
+and of the tile kernels' chain addressing (tests/test_torch_tile_hmc.py,
+tests/test_torch_tile_mh.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -89,23 +91,87 @@ def _padded(chol):
     return out
 
 
-def blocked_forward(chol, r):
+def tf32_split(v):
+    """``(hi, lo)`` of each value as the dense kernels split an operand for
+    the tensor cores (csrc/logistic_tile.cuh, ``split_tf32``): the value in
+    float32, ``hi`` its TF32 rounding (to nearest, ties away from zero: half
+    of the last kept place added to the bit pattern, the 13 dropped bits
+    cleared) and ``lo`` the TF32 rounding of the exact remainder; returned
+    in ``v``'s dtype."""
+    def round_tf32(f32):
+        bits = (f32.view(torch.int32).to(torch.int64) + 0x1000) & 0xFFFFE000
+        return torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32).view(torch.float32)
+
+    f32 = v.to(torch.float32)
+    hi = round_tf32(f32)
+    lo = round_tf32(f32 - hi)
+    return hi.to(v.dtype), lo.to(v.dtype)
+
+
+def panel_3xtf32(a, b):
+    """``a @ b`` as three TF32 passes (``mma_3x``): both operands split,
+    ``a_lo b_hi + a_hi b_lo + a_hi b_hi``, the ``lo × lo`` term dropped."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def blocked_forward(chol, r, panels="exact"):
     """``y = L⁻¹r`` for each row ``r`` of ``[n, d]``, in the dense tile
-    kernel's order: the columns padded to blocks of 8 (an identity block of
-    ``L``); for each block, its diagonal block by substitution, ``y_i = (r_i
-    − Σ_{j<i} L_ij y_j) · (1 / L_ii)``, then the panel product ``R_I −= Y_K
-    L_IKᵀ`` taken off every later block."""
+    kernels' order (csrc/dense_tile.cuh, ``Solve::forward``): the columns
+    padded to blocks of 8 (an identity block of ``L``); for each block, its
+    diagonal block by substitution, ``y_i = (r_i − Σ_{j<i} L_ij y_j) · (1 /
+    L_ii)``, then the panel product ``R_I −= Y_K L_IKᵀ`` taken off every
+    later block.  ``panels``: ``"exact"`` in ``r``'s dtype; ``"tf32"`` each
+    panel product in the kernels' three TF32 passes (:func:`panel_3xtf32`);
+    ``"rounded"`` the MH kernel's float32 mode, in float32, every product
+    and difference rounded, the diagonal block's terms ``j`` and a panel's
+    columns in ascending order."""
     d = r.shape[-1]
     L = _padded(chol)
+    if panels == "rounded":
+        L, r = L.float(), r.float()
     y = torch.zeros(r.shape[:-1] + (L.shape[0],), dtype=r.dtype, device=r.device)
     y[..., :d] = r
     rd = 1.0 / torch.diagonal(L)
     for k in range(0, L.shape[0], BLOCK):
         for i in range(k, k + BLOCK):
-            y[..., i] = (y[..., i] - y[..., k:i] @ L[i, k:i]) * rd[i]
+            if panels == "rounded":
+                acc = y[..., i].clone()
+                for j in range(k, i):
+                    acc = acc - L[i, j] * y[..., j]
+                y[..., i] = acc * rd[i]
+            else:
+                y[..., i] = (y[..., i] - y[..., k:i] @ L[i, k:i]) * rd[i]
         s = slice(k, k + BLOCK)
-        y[..., k + BLOCK:] -= y[..., s] @ L[k + BLOCK:, s].mT
+        if panels == "rounded":
+            for j in range(k, k + BLOCK):
+                y[..., k + BLOCK:] = y[..., k + BLOCK:] - L[k + BLOCK:, j] * y[..., j:j + 1]
+        else:
+            panel = panel_3xtf32 if panels == "tf32" else torch.matmul
+            y[..., k + BLOCK:] -= panel(y[..., s], L[k + BLOCK:, s].mT)
     return y[..., :d]
+
+
+def column_forward(chol, r):
+    """``y = L⁻¹r`` in float32 by columns, each product and difference
+    rounded: ``y_i = r_i · (1 / L_ii)``, then ``r_j −= L_ji y_i`` for every
+    ``j > i`` — the roundings of csrc/fused_mh.cu's lane solve, K3's dense
+    path until the tile kernel."""
+    L, y = chol.float(), r.float().clone()
+    rd = 1.0 / torch.diagonal(L)
+    for i in range(L.shape[0]):
+        y[..., i] = y[..., i] * rd[i]
+        y[..., i + 1:] = y[..., i + 1:] - L[i + 1:, i] * y[..., i:i + 1]
+    return y
+
+
+def blocked_log_density(target, x, panels="exact"):
+    """The dense ``GaussianND``'s log density at ``x [n, d]`` as the MH tile
+    kernel computes it (csrc/fused_mh_dense.cu): ``−½|y|²`` with ``y =
+    L⁻¹(x − μ)`` by :func:`blocked_forward`."""
+    y = blocked_forward(target.chol, x - target.mean, panels)
+    return -0.5 * (y * y).sum(-1)
 
 
 def blocked_back(chol, y):
