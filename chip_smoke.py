@@ -196,6 +196,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
     "examples" phase runs auto_backend_nuts's ``main()`` cut to
     ``n_collect=144, n_warmup=48``.
 
+19. The hierarchical logistic family through both fused kernels (after
+    "K1-logistic"): "K3-logistic" and "K3-logistic-centred"
+    (``MetropolisHastings(backend="cuda")`` on ``HierarchicalLogisticNC``
+    and on ``HierarchicalLogistic``, bench.py's data, 10,240 chains from
+    "chees-logistic"'s last draws: one launch of
+    ``csrc/fused_mh_logistic.cu`` on ``csrc/tile_mh.cuh``, its product on
+    the tensor cores; accept, R-hat and the posterior against
+    "chees-logistic"'s on a run thinned by KL_THIN; bit-equal to its plain
+    version on every chain whose accept history agrees, with the random
+    walk and pCN; its chains off the float64 plain version over seeds 0-3
+    against the float32 plain version's own; timed beside one
+    ``torch.matmul`` a step) and "K1-logistic-centred" (``HMC(backend=
+    "cuda")`` on the centred target, one launch of
+    ``csrc/fused_hmc_logistic.cu``: accept, R-hat, the posterior against
+    the mapped reference, the relative error over the agreeing chains after
+    1, 8 and 64 steps, the chains-off count, timed as "K1-logistic").
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -225,6 +242,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
@@ -235,7 +253,7 @@ from general_mcmc_torch.models.distributions import rowsum
 from general_mcmc_torch.models.regression import bench_logistic_data
 from general_mcmc_torch.ops import (counter_rng, fused_hmc, fused_hmc_dense,
                                     fused_hmc_logistic, fused_logistic, fused_mh, fused_mh_dense,
-                                    static_tree, tree)
+                                    fused_mh_logistic, static_tree, tree)
 from general_mcmc_torch.samplers import nuts as nuts_module
 from general_mcmc_torch.samplers.gibbs import GibbsDraws
 from general_mcmc_torch.utils.checkpoint import load_carry
@@ -317,13 +335,14 @@ LGC_ACCEPT, LGC_JITTER = 0.95, 1.0
 # NUTS.  "nuts-small": 1,024 chains; the 2-d target for 300 warmup and 100
 # collected steps at cap 6 (the Stan windows end at steps 100, 125, 175 and
 # 249, counted from 1),
-# the funnel for 150 steps at the fixed step size 1.2 and cap 6
-# (tests/test_nuts.py:255-265), the 4-d Rosenbrock for 100 + 100; the K2
+# the funnel for 40 steps at the fixed step size 1.2 and cap 6
+# (tests/test_nuts.py:255-265 runs 150; its gate, a divergence, needs
+# fewer), the 4-d Rosenbrock for 30 + 30 (a smoke run: finite draws); the K2
 # check at the headline's shape with the windows cut to a 30-step warmup
 # (window ends at step indices 19 and 23) and 8 collection steps.
 NUTS_SMALL_CHAINS = 1024
 NUTS_2D_STEPS, NUTS_2D_DEPTH = (300, 100), 6
-NUTS_FUNNEL_STEPS, NUTS_FUNNEL_EPS, NUTS_ROSEN_STEPS = 150, 1.2, (100, 100)
+NUTS_FUNNEL_STEPS, NUTS_FUNNEL_EPS, NUTS_ROSEN_STEPS = 40, 1.2, (30, 30)
 NUTS_K2_STEPS = (30, 8)
 NUTS_SHORT_WINDOWS = dict(start_buffer=10, end_buffer=5, initial_window=10)
 # The 2-d target's pooled mean within 0.1 and covariance within 0.3 (102,400
@@ -435,6 +454,40 @@ MH_DENSE_SMALL_DIMS = (2, 7, 33, 168, 240)
 LGH_L, LGH_STEPS, LGH_EQ_STEPS, LGH_RTOL = 10, (1000, 200), (1, 8, 64), 1e-5
 LGH_EPS, LGH_ROUNDED_STEPS = 0.2, (300, 100)
 LGH_MEAN_SD, LGH_SD_REL = 0.1, 0.1
+# "K3-logistic" and "K3-logistic-centred": MetropolisHastings(backend="cuda")
+# on the stretch line's posterior, each parameterisation, from
+# "chees-logistic"'s last draws (in the posterior), the random walk
+# 2.38/sqrt(50) x the least posterior sd rounded down to two figures:
+# run(2000, 500), one launch, its accept in KL_ACCEPT, timed.  The walk at
+# that scale mixes slowly along the wider coordinates, an integrated
+# autocorrelation time of thousands of steps: that run's split-R-hat is far
+# above 1.01 (the phase prints it, unthinned_max_rhat).  So the R-hat and
+# moment gates read a run thinned by KL_THIN (800,500 steps), which puts
+# 400,000 steps in each half-chain.  The kernel against its
+# plain version: bit-equal on every chain whose accept history agrees,
+# after KL_EQ_STEPS steps, the random walk at the full shape and pCN
+# (KL_PCN) at KL_PCN_CHAINS; and over KL_OFF_SEEDS at 64 steps, its chains
+# off the float64 plain version at most the float32 plain version's own
+# count + KL_OFF_SLACK (0.1% of the chains).  Moments: LGH_MEAN_SD and
+# LGH_SD_REL against "chees-logistic"'s (the centred target: its draws
+# mapped to (mu, log tau, beta)).
+KL_STEPS, KL_THIN, KL_ACCEPT = (2000, 500), 400, (0.1, 0.6)
+KL_EQ_STEPS, KL_PCN, KL_PCN_CHAINS = (1, 8, 64), 0.5, 1024
+KL_OFF_SEEDS, KL_OFF_STEPS, KL_OFF_SLACK = (0, 1, 2, 3), 64, 10
+# "K1-logistic-centred": HMC(backend="cuda") on the centred target in the
+# metric of "chees-logistic"'s mapped draws (their variance), L 10, from
+# 0.1 x init_with_seed, run(1000, 200), at LGHC_EPS, where the accept rate
+# lies in 0.6-0.95 (the phase's gate).  At ε 0.3 the leapfrog crosses the
+# funnel's neck near its stability limit in the first 64 steps, and the
+# float32 plain version itself drifts 1.5e-5 from its float64 run there
+# (the kernel 8.0e-5 from the float32 plain version, 5.4 times that drift;
+# the non-centred kernel 6.6 times it): the agreement rule (LGH_RTOL)
+# cannot tell rounding from a fault at that step.  At 0.25 the two drifts
+# are 6.3e-7 and 1.4e-6 (port_scripts/k1_centred_drift.py, on an H100).
+# beta held to the mapped reference at LGH_MEAN_SD and LGH_SD_REL; mu and
+# log tau at LGHC_HYPER (a fixed-ε HMC on the centred funnel
+# under-explores small tau, and the plain version shares that).
+LGHC_EPS, LGHC_HYPER = 0.25, (0.25, 0.25)
 
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
@@ -476,6 +529,7 @@ def reset_counts() -> None:
     counter_rng.launches = 0
     fused_mh.launches = 0
     fused_mh_dense.launches = 0
+    fused_mh_logistic.launches = 0
     fused_logistic.launches = 0
 
 
@@ -517,6 +571,21 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_matmul_ms(dev, shapes, count: int) -> float:
+    """The yardstick of a logistic kernel: the ``torch.matmul`` of ``shapes``
+    (pairs of operand shapes, float32, TF32 off) alone, 200 rounds between
+    two events, times ``count`` rounds; the port never calls them."""
+    ops = [(torch.randn(a, device=dev), torch.randn(b, device=dev)) for a, b in shapes]
+
+    def rounds():
+        for _ in range(200):
+            for a, b in ops:
+                torch.matmul(a, b)
+
+    ms, _, _ = timed(rounds, 3)
+    return ms / 200 * count
 
 
 def unfused_ms(float_ops: float, int_ops: float) -> float:
@@ -599,8 +668,10 @@ def phase_environment():
     print(smi, flush=True)
     t0 = time.perf_counter()
     # one nvcc per source (the dense Gaussian's kernel one per width it is
-    # run at here), all started together
-    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic", "fused_hmc_logistic"]
+    # run at here, K3's logistic kernel one for the stretch line's 48
+    # features), all started together
+    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic", "fused_hmc_logistic",
+                  logistic_mh_build(LG_FEATURES)]
                  + [dense_build(d) for d in sorted(set(DENSE_SMALL_DIMS + (DIM,)))]
                  + [dense_build(d, "fused_mh_dense")
                     for d in sorted(set(MH_DENSE_SMALL_DIMS + (DIM,)))])
@@ -627,6 +698,13 @@ def dense_build(d: int, name: str = "fused_hmc_dense") -> str:
     """The build of ``csrc/<name>.cu`` (a dense tile kernel, K1's or K3's)
     that runs width ``d``."""
     return _build.variant(name, GMT_DENSE_NB=-(-d // fused_hmc_dense.BLOCK))
+
+
+def logistic_mh_build(p: int) -> str:
+    """The build of ``csrc/fused_mh_logistic.cu`` (K3's logistic tile
+    kernel) that runs ``p`` features."""
+    return _build.variant("fused_mh_logistic",
+                          GMT_LOGISTIC_PT=fused_mh_logistic.feature_tiles(p))
 
 
 def build_report(key: str, kernel: str) -> dict:
@@ -1220,20 +1298,10 @@ def phase_logistic(dev):
 
     ms, wall, _ = timed(lambda: chain(LG_STEPS), 3)
     plain_ms, _, _ = timed(lambda: plain(LG_STEPS), 3)
-    # the yardstick: the two torch.matmul of one step at this shape, alone
-    # (float32, TF32 off), 200 pairs between two events, times the steps;
-    # the port's path on the card never calls them
-    beta = theta0[:, 2:].contiguous()
-    resid = torch.randn((LG_CHAINS, LG_OBS), device=dev)
-    Xt = X.T.contiguous()
-
-    def products():
-        for _ in range(200):
-            torch.matmul(beta, Xt)
-            torch.matmul(resid, X)
-
-    pair_ms, _, _ = timed(products, 3)
-    library_ms = pair_ms / 200 * LG_STEPS
+    # the yardstick: the two torch.matmul of one step at this shape, alone,
+    # times the steps
+    library_ms = library_matmul_ms(dev, [((LG_CHAINS, LG_FEATURES), (LG_FEATURES, LG_OBS)),
+                                         ((LG_CHAINS, LG_OBS), (LG_OBS, LG_FEATURES))], LG_STEPS)
     # the bound: the lesser of the CUDA cores doing the products in float32
     # and the tensor cores doing the three TF32 passes that float32 accuracy
     # costs, each with the other operations on the CUDA cores
@@ -1764,27 +1832,17 @@ def phase_k1_logistic(dev, chees: dict):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     del o
-    # the yardstick: the two torch.matmul of one leapfrog alone (float32,
-    # TF32 off), 200 pairs between two events, times the run's leapfrogs;
-    # the port's path on the card never calls them
+    # the yardstick: the two torch.matmul of one leapfrog alone, times the
+    # run's leapfrogs
     n_steps = sum(LGH_STEPS)
     leapfrogs = n_steps * LGH_L
-    beta = x0[:, 2:].contiguous()
-    resid = torch.randn((N_CHAINS, LGC_OBS), device=dev)
-    Xt = X.T.contiguous()
-
-    def products():
-        for _ in range(200):
-            torch.matmul(beta, Xt)
-            torch.matmul(resid, X)
-
-    pair_ms, _, _ = timed(products, 3)
-    library_ms = pair_ms / 200 * leapfrogs
+    p = X.shape[1]
+    library_ms = library_matmul_ms(dev, [((N_CHAINS, p), (p, LGC_OBS)),
+                                         ((N_CHAINS, LGC_OBS), (LGC_OBS, p))], leapfrogs)
     # the bound: the algorithm's gradients (L a step) in three TF32 passes on
     # the tensor cores, beside the other operations on the CUDA cores (K4's
     # per gradient, a softplus and its sum an observation at the last
     # position of a step); the state and X read once, the store written once
-    p = X.shape[1]
     n_bytes = 4 * (N_CHAINS * LGC_DIM * (1 + LGH_STEPS[0]) + LGC_OBS * p + LGC_OBS)
     flops = N_CHAINS * leapfrogs * 4 * LGC_OBS * p
     other = N_CHAINS * (leapfrogs * (8 * LGC_OBS + 8 * p) + n_steps * 20 * LGC_OBS)
@@ -1792,7 +1850,7 @@ def phase_k1_logistic(dev, chees: dict):
     cuda_core_ms = bound(n_bytes, flops + other)[0]
     # the layout of the run's launch, from the kernel's host code
     layout = fused_hmc_logistic.launch_layout(N_CHAINS, LGC_OBS, p)
-    build = build_report("fused_hmc_logistic", "fused_hmc_logistic_kernel<6>")
+    build = build_report("fused_hmc_logistic", "fused_hmc_logistic_kernel<6,0>")
     say("K1-logistic", chains=N_CHAINS, dim=LGC_DIM, n_obs=LGC_OBS, eps=eps,
         eps_bar=f"{chees['eps_bar']:.6f}", eps_bar_rounded=rounded,
         rounded_accept=f"{rounded_accept:.4f}",
@@ -1812,6 +1870,264 @@ def phase_k1_logistic(dev, chees: dict):
                 max_abs_err=abs_err, accept=accept, eps=eps,
                 shared_bytes=layout["shared_bytes"], tiles_a_block=layout["tiles_a_block"],
                 blocks=layout["blocks"], **build)
+
+
+def logistic_posterior(dev, chees: dict, centred: bool):
+    """The stretch line's posterior in one parameterisation: the target, the
+    chains' start (``chees-logistic``'s last draws, mapped to (mu, log tau,
+    beta) for the centred target) and the reference mean and sd."""
+    X, y, _ = bench_logistic_data(device=dev)
+    nc = gmt.HierarchicalLogisticNC(X, y)
+    last = chees["last"].to(dev)
+    if not centred:
+        return nc, last, chees["mean"].float(), chees["std"].float()
+    x0 = torch.cat([last[:, :2], nc.beta(last)], dim=1).contiguous()
+    return (gmt.HierarchicalLogistic(X, y), x0, chees["mapped_mean"].float(),
+            chees["mapped_std"].float())
+
+
+def posterior_deviations(mean, std, ref_mean, ref_std):
+    """Per coordinate |mean - ref| / ref sd and |sd / ref sd - 1|."""
+    return ((mean.cpu() - ref_mean).abs() / ref_std, (std.cpu() / ref_std - 1.0).abs())
+
+
+def chains_off(run, plain, plain64, x0):
+    """Over KL_OFF_SEEDS at KL_OFF_STEPS steps: the chains whose accept
+    histories differ from the float64 plain version's, the kernel's
+    (``run(seed)``) and the float32 plain version's (``plain(seed)``), a
+    count per seed each."""
+    kernel_off, plain_off = [], []
+    for seed in KL_OFF_SEEDS:
+        h64 = accept_history(plain64(seed), x0.double())
+        kernel_off.append(int((accept_history(run(seed), x0) != h64).any(dim=1).sum()))
+        plain_off.append(int((accept_history(plain(seed), x0) != h64).any(dim=1).sum()))
+    check(sum(kernel_off) <= sum(plain_off) + KL_OFF_SLACK,
+          f"chains off the float64 plain version over seeds {KL_OFF_SEEDS}: the kernel's "
+          f"{kernel_off} at most the float32 plain version's {plain_off} + {KL_OFF_SLACK}")
+    return kernel_off, plain_off
+
+
+def phase_k3_logistic(dev, chees: dict, centred: bool):
+    """``MetropolisHastings(backend="cuda")`` on the stretch line's posterior
+    (one launch of ``csrc/fused_mh_logistic.cu``, none of
+    ``csrc/fused_mh.cu``): accept; R-hat and the posterior against
+    "chees-logistic"'s on a thinned run (KL_THIN); the kernel against its
+    plain version, bit-equal on the chains whose accept histories agree
+    (the random walk, and pCN at KL_PCN_CHAINS), and its chains off the
+    float64 plain version against the float32 plain version's own; timed
+    beside the plain version, one ``torch.matmul`` a step and the bound."""
+    label = "K3-logistic-centred" if centred else "K3-logistic"
+    target, x0, ref_mean, ref_std = logistic_posterior(dev, chees, centred)
+    n, d = x0.shape
+    n_obs, p = target.X.shape
+    scale = two_figures_down(2.38 / math.sqrt(d) * float(ref_std.min()))
+    walk = gmt.RandomWalkProposal(scale)
+    sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED, backend="cuda")
+    reset_counts()
+    samples = sampler().run(*KL_STEPS)
+    torch.cuda.synchronize()
+    launches, lane_launches = fused_mh_logistic.launches, fused_mh.launches
+    check(launches == 1 and lane_launches == 0,
+          f"{label}: one logistic MH launch ({launches}; fused_mh.cu {lane_launches})")
+    store = samples.transpose(0, 1)
+    check(tuple(samples.shape) == (n, KL_STEPS[0], d) and bool(torch.isfinite(store).all()),
+          f"{label}: shape and finite")
+    accept = moved_share(samples)
+    check(KL_ACCEPT[0] < accept < KL_ACCEPT[1], f"{label}: accept {accept} within {KL_ACCEPT}")
+    unthinned_rhat = float(gmt.split_rhat_mean_ess(store, steps_major=True)[0].max())
+    del samples, store
+    # the gate run, thinned
+    gate = sampler().run(*KL_STEPS, thin=KL_THIN)
+    rhat, ess, mean, std = gmt.split_rhat_mean_ess(gate.transpose(0, 1), steps_major=True,
+                                                   return_moments=True)
+    del gate
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    mean_dev, sd_dev = posterior_deviations(mean, std, ref_mean, ref_std)
+    check(max_rhat < 1.01, f"{label}: max R-hat {max_rhat} < 1.01 (thin {KL_THIN})")
+    check(float(mean_dev.max()) < LGH_MEAN_SD and float(sd_dev.max()) < LGH_SD_REL,
+          f"{label}: means within {float(mean_dev.max())} < {LGH_MEAN_SD} sd of "
+          f"chees-logistic's, sds within {float(sd_dev.max())} < {LGH_SD_REL}")
+
+    # the kernel against its plain version: bit-equal where the accept
+    # histories agree
+    differ, equal_rows = {}, 0
+    pcn = gmt.PCNProposal(KL_PCN)
+    for name, prop, xs in (("walk", walk, x0), ("pcn", pcn, x0[:KL_PCN_CHAINS].contiguous())):
+        for steps in KL_EQ_STEPS:
+            got = fused_mh.fused_mh_run(target, xs, prop, steps, 0, seed=SEED)
+            want = fused_mh.fused_mh_run_reference(target, xs, prop, steps, 0, seed=SEED)
+            same = (accept_history(got, xs) == accept_history(want, xs)).all(dim=1)
+            check(torch.equal(got[same], want[same]),
+                  f"{label} {name}: the chains whose accept histories agree are bit-equal "
+                  f"after {steps} steps")
+            differ[f"{name}_{steps}"] = int((~same).sum())
+            equal_rows += int(same.sum())
+    target64 = target.to(dtype=torch.float64)
+    kernel_off, plain_off = chains_off(
+        lambda seed: fused_mh.fused_mh_run(target, x0, walk, KL_OFF_STEPS, 0, seed=seed),
+        lambda seed: fused_mh.fused_mh_run_reference(target, x0, walk, KL_OFF_STEPS, 0,
+                                                     seed=seed),
+        lambda seed: fused_mh.fused_mh_run_reference(target64, x0.double(), walk,
+                                                     KL_OFF_STEPS, 0, seed=seed), x0)
+
+    ms, wall, o = timed(lambda: sampler().run(*KL_STEPS), 3)
+    del o
+    t0 = time.perf_counter()
+    o = fused_mh.fused_mh_run_reference(target, x0, walk, *KL_STEPS, seed=SEED)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del o
+    n_steps = sum(KL_STEPS)
+    library_ms = library_matmul_ms(dev, [((n, p), (p, n_obs))], n_steps)
+    # the bound: the run's products (2 n_obs p flops a chain and step) in
+    # three TF32 passes on the tensor cores, beside ~20 operations an
+    # observation for the softplus and its sum on the CUDA cores; the state
+    # and X read once, the store written once
+    n_bytes = 4 * (n * d * (1 + KL_STEPS[0]) + n_obs * p + n_obs)
+    flops = n * n_steps * 2 * n_obs * p
+    other = n * n_steps * 20 * n_obs
+    b_ms = max(bound(n_bytes, 3 * flops, TF32_OPS_PER_S)[0], bound(n_bytes, other)[0])
+    cuda_core_ms = bound(n_bytes, flops + other)[0]
+    layout = fused_mh_logistic.launch_layout(n, n_obs, p)
+    # the softplus's error in float32 against float64 on the logits of the
+    # chains' start: the plain version's F.softplus, which calls the device
+    # functions the kernel calls (expf, log1pf) past the same threshold
+    beta64 = x0.double()[:, 2:] if centred else (
+        x0.double()[:, :1] + torch.exp(x0.double()[:, 1:2]) * x0.double()[:, 2:])
+    logits = beta64 @ target.X.double().T
+    sp_err = float((F.softplus(logits.float()).double() - F.softplus(logits)).abs().max())
+    del beta64, logits
+    # the random walk's instantiation
+    build = build_report(logistic_mh_build(p), f"fused_mh_logistic_kernel<0,{int(centred)}>")
+    say(label, chains=n, dim=d, n_obs=n_obs, walk=scale,
+        least_sd=f"{float(ref_std.min()):.6f}", steps=f"{KL_STEPS[1]}+{KL_STEPS[0]}",
+        launches=launches, accept=f"{accept:.4f}", unthinned_max_rhat=f"{unthinned_rhat:.5f}",
+        thin=KL_THIN, max_rhat=f"{max_rhat:.5f}",
+        min_ess=f"{min_ess:.1f}", mean_dev_sd=f"{float(mean_dev.max()):.4f}",
+        sd_dev=f"{float(sd_dev.max()):.4f}", chains_differ=json.dumps(differ),
+        equal_rows=equal_rows, off_f64_kernel=json.dumps(kernel_off),
+        off_f64_plain_f32=json.dumps(plain_off), kernel_ms=f"{ms:.3f}", wall_s=f"{wall:.5f}",
+        samples_per_s=f"{n * KL_STEPS[0] / wall:.4e}", plain_ms=f"{plain_ms:.1f}",
+        bound_ms=f"{b_ms:.3f}", bound_by="operations", bound_cuda_core_ms=f"{cuda_core_ms:.3f}",
+        library_ms=f"{library_ms:.3f}", tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}",
+        softplus_f32_max_abs_err=f"{sp_err:.3e}",
+        **{k: v for k, v in layout.items() if k != "tiles"}, **build)
+    return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_cuda_core_ms=cuda_core_ms, library_ms=library_ms, accept=accept,
+                max_rhat=max_rhat, walk=scale, chains_differ=differ, off_f64_kernel=kernel_off,
+                off_f64_plain_f32=plain_off, layout=layout, **build)
+
+
+def phase_k1_logistic_centred(dev, chees: dict):
+    """``HMC(backend="cuda")`` on the centred stretch-line posterior (one
+    launch of ``csrc/fused_hmc_logistic.cu``, none of ``csrc/fused_hmc.cu``)
+    in the metric of "chees-logistic"'s mapped draws: accept, R-hat, the
+    posterior against the mapped reference; the kernel against its plain
+    version after 1, 8 and 64 steps over the chains whose accept histories
+    agree, and its chains off the float64 plain version against the float32
+    plain version's own; timed as "K1-logistic"."""
+    target, _, ref_mean, ref_std = logistic_posterior(dev, chees, True)
+    n_obs, p = target.X.shape
+    mass_inv = (ref_std**2).to(dev)
+    x0 = (0.1 * gmt.init_with_seed(N_CHAINS, LGC_DIM, SEED, device=dev)).contiguous()
+    eps = LGHC_EPS
+    sampler = lambda: gmt.HMC(target, x0, eps, LGH_L, seed=SEED, mass_inv=mass_inv,
+                              backend="cuda")
+    reset_counts()
+    samples = sampler().run(*LGH_STEPS)
+    torch.cuda.synchronize()
+    launches, k1_launches = fused_hmc_logistic.launches, fused_hmc.launches
+    check(launches == 1 and k1_launches == 0,
+          f"one centred logistic HMC launch ({launches}; K1 {k1_launches})")
+    store = samples.transpose(0, 1)
+    check(tuple(samples.shape) == (N_CHAINS, LGH_STEPS[0], LGC_DIM)
+          and bool(torch.isfinite(store).all()), "centred logistic HMC: shape and finite")
+    accept = moved_share(samples)
+    rhat, ess, mean, std = gmt.split_rhat_mean_ess(store, steps_major=True, return_moments=True)
+    del samples, store
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    mean_dev, sd_dev = posterior_deviations(mean, std, ref_mean, ref_std)
+    check(0.6 < accept < 0.95, f"centred logistic HMC accept {accept} within 0.6-0.95")
+    check(max_rhat < 1.01, f"centred logistic HMC max R-hat {max_rhat} < 1.01")
+    beta_dev = (float(mean_dev[2:].max()), float(sd_dev[2:].max()))
+    hyper_dev = (float(mean_dev[:2].max()), float(sd_dev[:2].max()))
+    check(beta_dev[0] < LGH_MEAN_SD and beta_dev[1] < LGH_SD_REL,
+          f"centred logistic HMC: beta's means within {beta_dev[0]} < {LGH_MEAN_SD} sd, sds "
+          f"within {beta_dev[1]} < {LGH_SD_REL} of the mapped reference")
+    check(hyper_dev[0] < LGHC_HYPER[0] and hyper_dev[1] < LGHC_HYPER[1],
+          f"centred logistic HMC: mu's and log tau's means within {hyper_dev[0]} < "
+          f"{LGHC_HYPER[0]} sd, sds within {hyper_dev[1]} < {LGHC_HYPER[1]}")
+
+    # the kernel against its plain version, over the chains whose accept
+    # decisions agree; the plain version in float32 against float64
+    kw = dict(seed=SEED, mass_inv=mass_inv)
+    target64, x64, m64 = target.to(dtype=torch.float64), x0.double(), mass_inv.double()
+    rel, differ, rel64, abs_err = {}, {}, {}, 0.0
+    for steps in LGH_EQ_STEPS:
+        args = (target, x0, eps, LGH_L, steps, 0)
+        got = fused_hmc.fused_hmc_run(*args, **kw)
+        want = fused_hmc.fused_hmc_run_reference(*args, **kw)
+        same = (accept_history(got, x0) == accept_history(want, x0)).all(dim=1)
+        differ[steps] = int((~same).sum())
+        rel[steps] = float((got[same] - want[same]).abs().max() / want[same].abs().max())
+        abs_err = max(abs_err, float((got[same] - want[same]).abs().max()))
+        want64 = fused_hmc.fused_hmc_run_reference(target64, x64, eps, LGH_L, steps, 0,
+                                                   seed=SEED, mass_inv=m64)
+        same64 = (accept_history(want64, x64) == accept_history(want, x0)).all(dim=1)
+        rel64[steps] = float((want[same64].double() - want64[same64]).abs().max()
+                             / want64[same64].abs().max())
+        del got, want, want64
+    say("K1-logistic-centred-agreement", eps=eps,
+        **{f"rel_err_{k}": f"{v:.3e}" for k, v in rel.items()},
+        **{f"chains_differ_{k}": v for k, v in differ.items()},
+        **{f"plain_f32_vs_f64_rel_{k}": f"{v:.3e}" for k, v in rel64.items()})
+    for steps in LGH_EQ_STEPS:
+        check(rel[steps] < LGH_RTOL, f"centred logistic HMC after {steps} steps: relative "
+              f"error {rel[steps]} < {LGH_RTOL}")
+    kernel_off, plain_off = chains_off(
+        lambda seed: fused_hmc.fused_hmc_run(target, x0, eps, LGH_L, KL_OFF_STEPS, 0,
+                                             seed=seed, mass_inv=mass_inv),
+        lambda seed: fused_hmc.fused_hmc_run_reference(target, x0, eps, LGH_L, KL_OFF_STEPS,
+                                                       0, seed=seed, mass_inv=mass_inv),
+        lambda seed: fused_hmc.fused_hmc_run_reference(target64, x64, eps, LGH_L,
+                                                       KL_OFF_STEPS, 0, seed=seed,
+                                                       mass_inv=m64), x0)
+
+    ms, wall, o = timed(lambda: sampler().run(*LGH_STEPS), 3)
+    del o
+    t0 = time.perf_counter()
+    o = fused_hmc.fused_hmc_run_reference(target, x0, eps, LGH_L, *LGH_STEPS, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    del o
+    n_steps = sum(LGH_STEPS)
+    leapfrogs = n_steps * LGH_L
+    library_ms = library_matmul_ms(dev, [((N_CHAINS, p), (p, n_obs)),
+                                         ((N_CHAINS, n_obs), (n_obs, p))], leapfrogs)
+    # the bound: "K1-logistic"'s, the same shapes and work
+    n_bytes = 4 * (N_CHAINS * LGC_DIM * (1 + LGH_STEPS[0]) + n_obs * p + n_obs)
+    flops = N_CHAINS * leapfrogs * 4 * n_obs * p
+    other = N_CHAINS * (leapfrogs * (8 * n_obs + 8 * p) + n_steps * 20 * n_obs)
+    b_ms = max(bound(n_bytes, 3 * flops, TF32_OPS_PER_S)[0], bound(n_bytes, other)[0])
+    cuda_core_ms = bound(n_bytes, flops + other)[0]
+    build = build_report("fused_hmc_logistic", "fused_hmc_logistic_kernel<6,1>")
+    say("K1-logistic-centred", chains=N_CHAINS, dim=LGC_DIM, n_obs=n_obs, eps=eps, L=LGH_L,
+        steps=f"{LGH_STEPS[1]}+{LGH_STEPS[0]}", launches=launches, accept=f"{accept:.4f}",
+        max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}",
+        beta_mean_dev_sd=f"{beta_dev[0]:.4f}", beta_sd_dev=f"{beta_dev[1]:.4f}",
+        mu_mean_dev_sd=f"{float(mean_dev[0]):.4f}", mu_sd_dev=f"{float(sd_dev[0]):.4f}",
+        log_tau_mean_dev_sd=f"{float(mean_dev[1]):.4f}",
+        log_tau_sd_dev=f"{float(sd_dev[1]):.4f}",
+        off_f64_kernel=json.dumps(kernel_off), off_f64_plain_f32=json.dumps(plain_off),
+        kernel_ms=f"{ms:.3f}", wall_s=f"{wall:.5f}",
+        grad_evals_per_s=f"{N_CHAINS * leapfrogs / wall:.4e}",
+        min_ess_per_s=f"{min_ess / wall:.4e}", plain_ms=f"{plain_ms:.1f}",
+        bound_ms=f"{b_ms:.3f}", bound_by="operations", bound_cuda_core_ms=f"{cuda_core_ms:.3f}",
+        library_ms=f"{library_ms:.3f}", tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}", **build)
+    return dict(launches=launches, rel_err=rel, chains_differ=differ, max_abs_err=abs_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_cuda_core_ms=cuda_core_ms,
+                library_ms=library_ms, accept=accept, eps=eps, off_f64_kernel=kernel_off,
+                off_f64_plain_f32=plain_off, **build)
 
 
 def chees_moments(samples):
@@ -2107,9 +2423,21 @@ def phase_chees_logistic(dev):
         walls_s=json.dumps([round(w, 4) for w in walls]), init_s=f"{init_s:.4f}",
         warmup_s=f"{warm_s:.4f}", collection_with_stats_s=f"{coll_s:.4f}",
         min_ess_per_s=f"{min_ess / wall:.4e}", grad_evals_per_s=f"{leapfrogs / wall:.4e}")
+    # the centred coordinates' moments: the last run's draws mapped to
+    # (mu, log tau, beta), in float64, a block of chains at a time
+    s1 = torch.zeros(LGC_DIM, dtype=torch.float64, device=dev)
+    s2 = s1.clone()
+    for rows in torch.split(samples, 1024):
+        mapped = torch.cat([rows[..., :2], target.beta(rows)], dim=-1).double()
+        s1 += mapped.sum(dim=(0, 1))
+        s2 += (mapped * mapped).sum(dim=(0, 1))
+    count = samples.shape[0] * samples.shape[1]
+    mapped_mean = s1 / count
+    mapped_std = torch.sqrt(s2 / count - mapped_mean * mapped_mean)
     return dict(wall=wall, max_rhat=max_rhat, eps_bar=float(sampler.adapted_step_size),
                 mass_inv=sampler.adapted_mass_inv.float(), mean=torch.as_tensor(post_mean),
-                std=torch.as_tensor(post_std))
+                std=torch.as_tensor(post_std), last=samples[:, -1].contiguous(),
+                mapped_mean=mapped_mean.cpu(), mapped_std=mapped_std.cpu())
 
 
 def nuts_moments_check(samples, what: str):
@@ -3239,9 +3567,11 @@ SHARD_ADAPT_RTOL = 1e-3
 SHARD_PROBE_STEPS = 10
 SHARD_CHILD_TIMEOUT = 400
 # "shard-dim-odd": the headline target on a 1 x 4 mesh (blocks of 25 from
-# columns 0, 25, 50, 75), 1,024 chains in float64, "shard-dim"'s steps; its
-# NUTS has the diagonal metric with one window end in the 10 warmup steps
-SHARD_ODD_MESH = (1, 4)
+# columns 0, 25, 50, 75), 1,024 chains in float64; its NUTS has the diagonal
+# metric with one window end in the 10 warmup steps, then 4 collected, and
+# ChEES 10 + 8 (fewer than "shard-dim"'s: each step's all-reduces over four
+# gloo ranks set the phase's time)
+SHARD_ODD_MESH, SHARD_ODD_STEPS = (1, 4), {"nuts_diag": (4, 10), "chees": (8, 10)}
 SHARD_ODD_WINDOWS = dict(start_buffer=2, end_buffer=2, initial_window=6)
 
 
@@ -3643,12 +3973,12 @@ def phase_shard_dim_odd(dev, tmp: str):
     window end inside the warmup) and ChEES on the 100-d headline target
     on a 1 x 4 mesh, blocks of 25 from columns 0, 25, 50 and 75 (two odd
     starts, whose momentum normals are filled from the even word before),
-    1,024 chains in float64, the step counts of "shard-dim": every rank's
-    block within 1e-8 of the unsharded run."""
+    1,024 chains in float64, SHARD_ODD_STEPS: every rank's block within
+    1e-8 of the unsharded run."""
     scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM, dtype=torch.float64))
     x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, DIM, 5, dtype=torch.float64, device=dev)
-    steps = {"nuts_diag": SHARD_DIM_STEPS["nuts"], "chees": SHARD_DIM_STEPS["chees"]}
-    return dict(fills=dim_phase("shard-dim-odd", dev, tmp, x0, SHARD_ODD_MESH, steps, scales))
+    return dict(fills=dim_phase("shard-dim-odd", dev, tmp, x0, SHARD_ODD_MESH, SHARD_ODD_STEPS,
+                                scales))
 
 
 def child_shard_cuda(dev, payload):
@@ -4004,6 +4334,12 @@ def main() -> int:
     chees_lg = phase_chees_logistic(dev)
     k1_logistic = phase_k1_logistic(dev, chees_lg)
     torch.cuda.empty_cache()
+    k3_logistic = {"nc": phase_k3_logistic(dev, chees_lg, False)}
+    torch.cuda.empty_cache()
+    k3_logistic["centred"] = phase_k3_logistic(dev, chees_lg, True)
+    torch.cuda.empty_cache()
+    k1_centred = phase_k1_logistic_centred(dev, chees_lg)
+    torch.cuda.empty_cache()
     nuts_small = phase_nuts_small(dev)
     nuts = phase_nuts_leg(dev, "torch")
     static_small = phase_nuts_static_small(dev)
@@ -4205,7 +4541,8 @@ def main() -> int:
         dict(name="fused_hmc_logistic", route="cuda",
              source="general_mcmc_torch/csrc/fused_hmc_logistic.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
-             launches=k1_logistic["launches"], max_abs_err=k1_logistic["max_abs_err"],
+             launches=k1_logistic["launches"] + k1_centred["launches"],
+             max_abs_err=max(k1_logistic["max_abs_err"], k1_centred["max_abs_err"]),
              max_rel_err={str(k): v for k, v in k1_logistic["rel_err"].items()},
              chains_differ={str(k): v for k, v in k1_logistic["chains_differ"].items()},
              ms=k1_logistic["ms"], plain_ms=k1_logistic["plain_ms"],
@@ -4217,7 +4554,42 @@ def main() -> int:
              spill_store_bytes=k1_logistic["spill_store_bytes"],
              shared_bytes=k1_logistic["shared_bytes"],
              tiles_a_block=k1_logistic["tiles_a_block"], blocks=k1_logistic["blocks"],
-             checked_in="K1-logistic"),
+             # the centred HierarchicalLogistic ("K1-logistic-centred"): its
+             # launch, errors over the agreeing chains, chains off the float64
+             # plain version over seeds 0-3 beside the float32 plain
+             # version's own, times and bound (the same shapes)
+             centred={k: k1_centred[k] for k in (
+                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_cuda_core_ms",
+                 "library_ms", "accept", "eps", "off_f64_kernel", "off_f64_plain_f32",
+                 "registers", "spill_store_bytes")},
+             centred_max_rel_err={str(k): v for k, v in k1_centred["rel_err"].items()},
+             checked_in="K1-logistic, K1-logistic-centred"),
+        # K3 on the stretch line's posterior, both parameterisations: its own
+        # tile kernel on tile_mh.cuh and K4's tile code; launches from the two
+        # runs through MetropolisHastings (each counted from 0 around its
+        # run); max_abs_err over the chains whose accept histories agree
+        # with the plain version's (bit-equal); ms, plain_ms, bound and
+        # library_ms (one torch.matmul a step alone times the run's steps)
+        # the non-centred run's, the centred one's under "centred";
+        # registers and spills from ptxas -v (the random walk's
+        # instantiation), the layout from the kernel's host code
+        dict(name="fused_mh_logistic", route="cuda",
+             source="general_mcmc_torch/csrc/fused_mh_logistic.cu",
+             replaces="general_mcmc_tpu/ops/pallas_mh.py:61",
+             launches=k3_logistic["nc"]["launches"] + k3_logistic["centred"]["launches"],
+             max_abs_err=0.0, ms=k3_logistic["nc"]["ms"],
+             plain_ms=k3_logistic["nc"]["plain_ms"], bound_ms=k3_logistic["nc"]["bound_ms"],
+             bound_by="operations", bound_cuda_core_ms=k3_logistic["nc"]["bound_cuda_core_ms"],
+             library_ms=k3_logistic["nc"]["library_ms"],
+             **{k: k3_logistic["nc"][k] for k in (
+                 "accept", "max_rhat", "walk", "chains_differ", "off_f64_kernel",
+                 "off_f64_plain_f32", "registers", "spill_store_bytes")},
+             **{k: v for k, v in k3_logistic["nc"]["layout"].items() if k != "tiles"},
+             centred={k: k3_logistic["centred"][k] for k in (
+                 "launches", "ms", "plain_ms", "bound_ms", "library_ms", "accept", "max_rhat",
+                 "walk", "chains_differ", "off_f64_kernel", "off_f64_plain_f32", "registers",
+                 "spill_store_bytes")},
+             checked_in="K3-logistic, K3-logistic-centred"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

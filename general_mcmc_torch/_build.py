@@ -5,7 +5,7 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``general_mcmc_torch/_build/``.  A source may be built in
 variants, one for each set of macros it is given (the dense Gaussian's
 kernels, one for each count of column blocks: each build unrolls its solves
-fully).  The file name carries a hash of the sources and the flags, so an
+fully; K3's logistic kernel, one for each count of feature tiles).  The file name carries a hash of the sources and the flags, so an
 edited source is rebuilt and a stale library is never loaded.
 Nothing is built when the package is imported: the CPU tests
 import every module, and this machine may have no ``nvcc``.  A failed build
@@ -35,16 +35,17 @@ _FLAGS = [
 # arithmetic then rounds as its plain PyTorch version's separate ops do
 _NO_FMA = ["-fmad=false"]
 # Flags a source chooses for itself, in place of _NO_FMA.  The tile kernels'
-# products (the logistic target's two, the dense Gaussian's blocked solves)
+# products (the logistic targets' one or two, the dense Gaussian's blocked solves)
 # sum in another order than the plain version's library calls whatever the
 # rounding (and on the tensor cores), so they agree to a tolerance either
 # way and take the fused multiply-adds in their tile code (the HMC and MH
 # kernels write the arithmetic around it with intrinsics that are never
-# contracted, csrc/tile_hmc.cuh, csrc/fused_mh_dense.cu).
+# contracted, csrc/tile_hmc.cuh, csrc/tile_mh.cuh, csrc/fused_mh_logistic.cu).
 _SOURCE_FLAGS: dict[str, list[str]] = {"fused_logistic": ["-fmad=true"],
                                        "fused_hmc_logistic": ["-fmad=true"],
                                        "fused_hmc_dense": ["-fmad=true"],
-                                       "fused_mh_dense": ["-fmad=true"]}
+                                       "fused_mh_dense": ["-fmad=true"],
+                                       "fused_mh_logistic": ["-fmad=true"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

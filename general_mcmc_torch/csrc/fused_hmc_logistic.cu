@@ -1,21 +1,29 @@
-// Fused whole-run batched HMC on the non-centred hierarchical logistic
-// target for Hopper (sm_90a), the gradient's two matrix products on the
-// tensor cores.
+// Fused whole-run batched HMC on the hierarchical logistic targets for
+// Hopper (sm_90a), the gradient's two matrix products on the tensor cores.
 //
 // Replaces: general_mcmc_tpu/ops/pallas_hmc.py `_hmc_kernel` (launched by
-// `fused_hmc_run`) where the traced target is
-// models/regression.py's HierarchicalLogisticNC: HMC(backend="pallas") on
-// the bench's stretch-line posterior.  Same semantics as fused_hmc.cu: theta
-// = [mu, log tau, z_1..z_p], momentum scale * N(0, 1), ke = 1/2 sum m M^-1 m,
-// the fused-kick leapfrog in the analytic-gradient form of samplers/hmc.py
+// `fused_hmc_run`) where the traced target is models/regression.py's
+// HierarchicalLogisticNC (HMC(backend="pallas") on the bench's stretch-line
+// posterior) or the centred HierarchicalLogistic.  Same semantics as
+// fused_hmc.cu: momentum scale * N(0, 1), ke = 1/2 sum m M^-1 m, the
+// fused-kick leapfrog in the analytic-gradient form of samplers/hmc.py
 // (n - 1 gradient-only kicks, value and gradient at the last position, the
 // closing half-kick added), log u < dlogp + ke0 - ke1, the select, and the
 // steps-major [n_collect, n, p + 2] store.  The gradient is the target's
-// unnorm_logp_grad: beta = mu + tau z, g = (y - sigmoid(beta X^T)) X,
-// d mu = -mu + sum g, d log tau = -log tau + tau sum z g, d z = -z + tau g;
-// the log density -mu^2/2 - (log tau)^2/2 - sum z^2/2 +
-// sum (y l - softplus(l)), l = beta X^T.  Both products are in the TPU
-// kernel's body, so both are written out here; nothing calls a library.
+// unnorm_logp_grad, around g = (y - sigmoid(beta X^T)) X:
+//  - non-centred, theta = [mu, log tau, z_1..z_p]: beta = mu + tau z,
+//    d mu = -mu + sum g, d log tau = -log tau + tau sum z g,
+//    d z = -z + tau g; the log density -mu^2/2 - (log tau)^2/2 - sum z^2/2
+//    + sum (y l - softplus(l)), l = beta X^T;
+//  - centred, theta = [mu, log tau, beta_1..beta_p], with c = beta - mu and
+//    1 / tau^2 = exp(-2 log tau): d beta = g - c / tau^2,
+//    d mu = -mu + (sum c) / tau^2, d log tau = -log tau + (sum c^2) / tau^2
+//    - p; the log density -mu^2/2 - (log tau)^2/2 - sum ((beta - mu) /
+//    tau)^2 / 2 - p log tau + sum (y l - softplus(l)), l = beta X^T.  Its
+//    hyper sums are sums of the position, not of g (logistic_tile.cuh,
+//    gather's POSITION form).
+// Both products are in the TPU kernel's body, so both are written out here;
+// nothing calls a library.
 //
 // What bounds it on the H100: operations.  A gradient is 4 n_obs p flops a
 // chain, computed as three TF32 passes on the tensor cores, and everything
@@ -56,11 +64,11 @@
 //    X, each in hi and lo - 196,608 bytes at 256 x 48, no room for the
 //    tiles - and its 64-row M would make 64-chain tiles: 160 at 10,240
 //    chains, two on some SMs, 128 chains on the busiest.
-//  - The row sums (kinetic energies, sum z^2, the log-likelihood) are
-//    tile_hmc.cuh's, the two warps through three buffers in the tile's
-//    hand-over space, which is free between gradients: each use has its own
-//    buffer, so a warp that runs ahead never writes one the other still
-//    reads.
+//  - The row sums (kinetic energies, sum z^2 or sum ((beta - mu) / tau)^2,
+//    the log-likelihood) are tile_hmc.cuh's, the two warps through three
+//    buffers in the tile's hand-over space, which is free between
+//    gradients: each use has its own buffer, so a warp that runs ahead
+//    never writes one the other still reads.
 //
 // Agreement with the plain version: the products sum in another order than
 // torch.matmul and carry the split's 2^-22, and the sigmoid is K4's (the
@@ -102,77 +110,13 @@ __host__ __device__ constexpr size_t shared_words(int pt, int n_pad, int tiles) 
   return data_words(pt, n_pad) + tiles_words(pt, tiles) + 4;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// X [rows4, p] (rows4: n_obs rounded up to 4, zero rows after) into the
-// block's hi and lo of X and y into ys: chunks of `chunk` rows (a multiple of
-// 4, so that every copy is whole 16-byte words) copied by TMA into `stage`
-// by one thread, completing on `bar`, and split by all; a block barrier
-// after each.
-template <int PT>
-__device__ void stage_x(const Shared<PT, kMT, kNS>& s, float* stage, uint64_t* bar,
-                        const float* X, const float* y, int n_obs, int p, int n_pad, int rows4,
-                        int chunk) {
-  constexpr int S = Shared<PT, kMT, kNS>::S;
-  const uint32_t b = smem_addr(bar);
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) s.ys[i] = i < n_obs ? y[i] : 0.0f;
-  __syncthreads();
-  uint32_t phase = 0;
-  for (int r0 = 0; r0 < n_pad; r0 += chunk) {
-    const int copy = rows4 - r0 < chunk ? rows4 - r0 : chunk;  // rows of X in this chunk
-    if (copy > 0) {
-      if (threadIdx.x == 0) {
-        const uint32_t bytes = static_cast<uint32_t>(copy) * p * 4;
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
-                     "r"(bytes)
-                     : "memory");
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-            "[%3];" ::"r"(smem_addr(stage)),
-            "l"(X + static_cast<int64_t>(r0) * p), "r"(bytes), "r"(b)
-            : "memory");
-      }
-      uint32_t done = 0;
-      while (!done) {
-        asm volatile(
-            "{ .reg .pred q; mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2; "
-            "selp.u32 %0, 1, 0, q; }"
-            : "=r"(done)
-            : "r"(b), "r"(phase)
-            : "memory");
-      }
-      phase ^= 1u;
-    }
-    const int rows = n_pad - r0 < chunk ? n_pad - r0 : chunk;
-    for (int idx = threadIdx.x; idx < rows * S; idx += blockDim.x) {
-      const int i = idx / S, j = idx % S;
-      const int at = (r0 + i) * S + j;
-      split_tf32((r0 + i < n_obs && j < p) ? stage[i * p + j] : 0.0f, s.xh[at], s.xl[at]);
-    }
-    __syncthreads();
-  }
-}
-
-// -mu^2/2 - (log tau)^2/2 - sum z^2/2 + loglik, in the plain version's order.
-__device__ __forceinline__ float log_density(float mu, float lt, double zz, double ll) {
-  const float a = __fmul_rn(__fmul_rn(-0.5f, mu), mu);
-  const float b = __fmul_rn(__fmul_rn(0.5f, lt), lt);
-  const float c = __fmul_rn(0.5f, static_cast<float>(zz));
-  return __fadd_rn(__fsub_rn(__fsub_rn(a, b), c), static_cast<float>(ll));
-}
-
 // One tile of the logistic target: tile_hmc.cuh's hooks.  Each lane holds
 // its two rows' mu and log tau (all lanes of the tile alike) and the z of
 // its warp's own units (feature tiles j = part + 2 i), with their momenta
-// and gradients.
-template <int PT>
+// and gradients.  CENTRED: the centred target, whose coordinates past mu
+// and log tau are beta itself (kept in z), and whose tau is kept as
+// 1 / tau^2 = exp(-2 log tau), the plain version's inv_tau2.
+template <int PT, bool CENTRED>
 struct LogisticTile {
   using W = TileWarp<PT, kMT, kNS>;
   static constexpr int OWN = W::OWN;
@@ -185,7 +129,7 @@ struct LogisticTile {
   float* gzo;  // and of their gradient
   double* red;  // the three row-sum buffers
   float* drawn;  // the tile's momenta as drawn: [16][8 PT] of z, then [16][2] of mu, log tau
-  float mu[kMT][2], lt[kMT][2], tau[kMT][2], z[OWN][4];
+  float mu[kMT][2], lt[kMT][2], tau[kMT][2], z[OWN][4];  // tau: 1 / tau^2 if CENTRED
   float mmu[2], mlt[2], mz[OWN][4];
   float gmu[2], glt[2], gz[OWN][4];
   float mu_o[2], lt_o[2], gmu_o[2], glt_o[2];
@@ -209,6 +153,11 @@ struct LogisticTile {
   __device__ __forceinline__ float inv_z(int f) const {
     return f < p ? __ldg(a.inv + f + 2) : 0.0f;
   }
+  // tau (non-centred) or 1 / tau^2 (centred) of log tau
+  __device__ __forceinline__ float tau_of(float lt_) const {
+    if constexpr (CENTRED) return expf(__fmul_rn(-2.0f, lt_));
+    return expf(lt_);
+  }
 
   __device__ void init() {
 #pragma unroll
@@ -216,7 +165,7 @@ struct LogisticTile {
       const int64_t base = rows.row(h) * a.d;
       mu[0][h] = a.x0[base];
       lt[0][h] = a.x0[base + 1];
-      tau[0][h] = expf(lt[0][h]);
+      tau[0][h] = tau_of(lt[0][h]);
     }
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
@@ -228,9 +177,18 @@ struct LogisticTile {
     }
   }
 
-  // The gradient at (mu, log tau, z): the plain version's -z + tau g,
-  // -mu + sum g, -log tau + tau sum z g; with `value` the rows' log density.
+  // The gradient at the position, with `value` also the rows' log density;
+  // non-centred, at (mu, log tau, z): the plain version's -z + tau g,
+  // -mu + sum g, -log tau + tau sum z g.
   __device__ void grad(bool value, float (&lp)[2]) {
+    if constexpr (CENTRED) {
+      grad_centred(value, lp);
+    } else {
+      grad_nc(value, lp);
+    }
+  }
+
+  __device__ __forceinline__ void grad_nc(bool value, float (&lp)[2]) {
     w.write_beta(mu, tau, z);
     float g[kMT][PT][4];
     double ll[kMT][2] = {{0.0, 0.0}};
@@ -255,7 +213,59 @@ struct LogisticTile {
     if (value) {
       gmt_tile::row_sums<2, kNS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
 #pragma unroll
-      for (int h = 0; h < 2; ++h) lp[h] = log_density(mu[0][h], lt[0][h], v[1][h], v[0][h]);
+      for (int h = 0; h < 2; ++h) lp[h] = log_density_nc(mu[0][h], lt[0][h], v[1][h], v[0][h]);
+    }
+  }
+
+  // The centred target's gradient at (mu, log tau, beta), in the plain
+  // version's order (models/regression.py): with c = beta - mu and
+  // 1 / tau^2 = exp(-2 log tau), g - c / tau^2, -mu + (sum c) / tau^2 and
+  // (-log tau + (sum c^2) / tau^2) - p, the hyper sums sums of the position
+  // (gather's POSITION form); with `value` the rows' log density, its
+  // ((beta - mu) / tau)^2 a division by exp(log tau) as the plain version's.
+  __device__ __forceinline__ void grad_centred(bool value, float (&lp)[2]) {
+    w.write_beta(z);
+    float g[kMT][PT][4];
+    double ll[kMT][2] = {{0.0, 0.0}};
+    w.partial_grad(g, ll, n_obs, value);
+    float cen[OWN][4];  // beta - mu, zero past p
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        cen[i][c] = feature(i, c) < p ? __fsub_rn(z[i][c], mu[0][c >> 1]) : 0.0f;
+      }
+    }
+    float own[OWN][4];
+    float sums[4 * kMT];
+    w.template gather<true>(g, cen, own, sums);
+    double v[2][2] = {{ll[0][0], ll[0][1]}, {0.0, 0.0}};  // the log-likelihood, sum s^2
+    float e[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) e[h] = value ? expf(lt[0][h]) : 1.0f;
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        gz[i][c] = __fsub_rn(own[i][c], __fmul_rn(cen[i][c], tau[0][c >> 1]));
+        if (value) {
+          const float sc = __fdiv_rn(cen[i][c], e[c >> 1]);
+          v[1][c >> 1] += static_cast<double>(__fmul_rn(sc, sc));
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      gmu[h] = __fadd_rn(-mu[0][h], __fmul_rn(sums[2 * h], tau[0][h]));
+      glt[h] = __fsub_rn(__fadd_rn(-lt[0][h], __fmul_rn(sums[2 * h + 1], tau[0][h])),
+                         static_cast<float>(p));
+    }
+    if (value) {
+      gmt_tile::row_sums<2, kNS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lp[h] = log_density_centred(mu[0][h], lt[0][h], v[1][h], p, v[0][h]);
+      }
     }
   }
 
@@ -333,7 +343,7 @@ struct LogisticTile {
     for (int h = 0; h < 2; ++h) {
       mu[0][h] = gmt_tile::drift(mu[0][h], iv_mu, mmu[h], eps);
       lt[0][h] = gmt_tile::drift(lt[0][h], iv_lt, mlt[h], eps);
-      tau[0][h] = expf(lt[0][h]);
+      tau[0][h] = tau_of(lt[0][h]);
     }
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
@@ -368,7 +378,7 @@ struct LogisticTile {
       if (reject[h]) {
         mu[0][h] = mu_o[h];
         lt[0][h] = lt_o[h];
-        tau[0][h] = expf(lt[0][h]);
+        tau[0][h] = tau_of(lt[0][h]);
         gmu[h] = gmu_o[h];
         glt[h] = glt_o[h];
       }
@@ -403,8 +413,8 @@ struct LogisticTile {
 
 // PT: 8-feature tiles (the padded feature count is PT * 8), even.  Padded
 // features have zero columns of X, a zero z, momentum and gradient, and are
-// never stored.
-template <int PT>
+// never stored.  CENTRED: the centred target (HierarchicalLogistic).
+template <int PT, bool CENTRED>
 __global__ void __launch_bounds__(kHmcTiles * kNS * 32, 1)
     fused_hmc_logistic_kernel(const gmt_tile::Run a, const float* X, const float* y, int n_obs,
                               int n_pad, int rows4, int chunk) {
@@ -416,7 +426,8 @@ __global__ void __launch_bounds__(kHmcTiles * kNS * 32, 1)
   float* open_base = s.after;
   uint64_t* bar = reinterpret_cast<uint64_t*>(open_base + tiles * (2 * W::OWN * 4 * 64));
   // X is staged through the tiles' space, free until the tiles start
-  stage_x<PT>(s, reinterpret_cast<float*>(s.bf), bar, X, y, n_obs, a.d - 2, n_pad, rows4, chunk);
+  stage_x<Shared<PT, kMT, kNS>::S>(s.xh, s.xl, s.ys, reinterpret_cast<float*>(s.bf), bar, X, y,
+                                   n_obs, a.d - 2, n_pad, rows4, chunk);
 
   const int tile = (threadIdx.x >> 5) / kNS;  // the tile's warps leave together
   const int64_t global_tile = static_cast<int64_t>(blockIdx.x) * tiles + tile;
@@ -428,7 +439,7 @@ __global__ void __launch_bounds__(kHmcTiles * kNS * 32, 1)
   double* red = reinterpret_cast<double*>(s.ex + tile * (W::U * (kNS - 1) * 32));
   // the momenta as drawn lie in the beta fragments' space, free between gradients
   float* drawn = reinterpret_cast<float*>(s.bf + tile * (W::U * 2 * 32));
-  LogisticTile<PT> h(w, a, rows, n_obs, open, red, drawn);
+  LogisticTile<PT, CENTRED> h(w, a, rows, n_obs, open, red, drawn);
   h.init();
   gmt_tile::run_tile(h, a, rows);
 }
@@ -466,7 +477,7 @@ cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
   return cudaSuccess;
 }
 
-template <int PT>
+template <int PT, bool CENTRED>
 cudaError_t launch(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
                    cudaStream_t stream) {
   static_assert(PT % kNS == 0, "a tile's units deal evenly to its warps");
@@ -480,15 +491,22 @@ cudaError_t launch(const gmt_tile::Run& a, const float* X, const float* y, int n
   const int chunk =
       static_cast<int>(tiles_words(PT, static_cast<int>(l.per_block)) / p) / 4 * 4;
   if (chunk < 4) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fused_hmc_logistic_kernel<PT>,
+  err = cudaFuncSetAttribute(fused_hmc_logistic_kernel<PT, CENTRED>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(l.bytes));
   if (err != cudaSuccess) return err;
-  fused_hmc_logistic_kernel<PT><<<static_cast<unsigned int>(l.blocks),
-                                  static_cast<unsigned int>(l.per_block * kNS * 32),
-                                  static_cast<size_t>(l.bytes), stream>>>(
+  fused_hmc_logistic_kernel<PT, CENTRED><<<static_cast<unsigned int>(l.blocks),
+                                            static_cast<unsigned int>(l.per_block * kNS * 32),
+                                            static_cast<size_t>(l.bytes), stream>>>(
       a, X, y, n_obs, n_pad, rows4, chunk);
   return cudaGetLastError();
+}
+
+template <int PT>
+cudaError_t launch(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
+                   int centred, cudaStream_t stream) {
+  return centred ? launch<PT, true>(a, X, y, n_obs, stream)
+                 : launch<PT, false>(a, X, y, n_obs, stream);
 }
 
 }  // namespace
@@ -496,11 +514,12 @@ cudaError_t launch(const gmt_tile::Run& a, const float* X, const float* y, int n
 // x0 [n, p + 2], X [4 ceil(n_obs / 4), p] (zero rows past n_obs: whole
 // 16-byte words for the copies), y [n_obs], inv and scale [p + 2] (M^-1 and
 // sqrt(M)), out [n_collect, n, p + 2], all float32, X 16-byte aligned; built
-// for p <= 48 (MAX_FEATURES in ops/fused_hmc_logistic.py).
+// for p <= 48 (MAX_FEATURES in ops/fused_hmc_logistic.py); centred 1 for
+// HierarchicalLogistic, 0 for HierarchicalLogisticNC.
 extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const void* y,
                                          const void* inv, const void* scale, void* out, int n,
                                          int p, int n_obs, int n_collect, int n_discard,
-                                         int thin, int n_leapfrog, float step_size,
+                                         int thin, int n_leapfrog, int centred, float step_size,
                                          unsigned int seed, unsigned int chain0,
                                          void* stream) {
   if (n < 1 || p < 1 || n_obs < 1 || n_leapfrog < 1 || thin < 1 ||
@@ -514,9 +533,9 @@ extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const vo
   const float* Xf = static_cast<const float*>(X);
   const float* yf = static_cast<const float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p <= 16) return static_cast<int>(launch<2>(a, Xf, yf, n_obs, s));
-  if (p <= 32) return static_cast<int>(launch<4>(a, Xf, yf, n_obs, s));
-  if (p <= 48) return static_cast<int>(launch<6>(a, Xf, yf, n_obs, s));
+  if (p <= 16) return static_cast<int>(launch<2>(a, Xf, yf, n_obs, centred, s));
+  if (p <= 32) return static_cast<int>(launch<4>(a, Xf, yf, n_obs, centred, s));
+  if (p <= 48) return static_cast<int>(launch<6>(a, Xf, yf, n_obs, centred, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,0 +1,383 @@
+// Fused whole-run batched Metropolis-Hastings on the hierarchical logistic
+// targets for Hopper (sm_90a): every log density's product on the tensor
+// cores, and the draws made ahead by warps of their own.
+//
+// Replaces: general_mcmc_tpu/ops/pallas_mh.py `_mh_kernel` (launched by
+// `fused_mh_run`, the pl.pallas_call with grid (chain blocks, steps)) where
+// the traced target is models/regression.py's HierarchicalLogisticNC (the
+// bench's stretch-line posterior) or the centred HierarchicalLogistic.  The
+// same function as the plain "torch" step (samplers/metropolis_hastings.py):
+// per step the normals z, y = propose(x, z) (the Gaussian random walk, or
+// pCN with its log q terms), lp' the target's log density at y, the
+// accept, the select, and the steps-major [n_collect, n, p + 2] store of
+// every thin-th post-burn-in state.  The log density (the plain version's,
+// models/regression.py):
+//  - non-centred, theta = [mu, log tau, z_1..z_p]: beta = mu + tau z,
+//    -mu^2/2 - (log tau)^2/2 - sum z^2/2 + sum (y l - softplus(l));
+//  - centred, theta = [mu, log tau, beta_1..beta_p]: -mu^2/2 -
+//    (log tau)^2/2 - sum ((beta - mu) / exp(log tau))^2/2 - p log tau +
+//    sum (y l - softplus(l));
+// with l = beta X^T.  The product is in the TPU kernel's body, so it is
+// written out here; nothing calls a library.  The MH around the target, the
+// draws at K3's addresses and the tile's chain addressing are
+// tile_mh.cuh's; the forward pass (one product, the softplus sum) is
+// logistic_tile.cuh's, K4's and K1's tile code; this file is the target and
+// the launch.
+//
+// What bounds it on the H100: operations.  At the stretch line's shape
+// (10,240 chains, X [256, 48], 2,500 steps, 2,000 stored) a step is one
+// product of 2 n_obs p flops a chain, 6.3e11 flops over the run, 3.8 ms as
+// three TF32 passes at the tensor cores' 495 TFLOP/s (11.4 ms with the
+// rest on the CUDA cores), beside ~20 operations an observation for the
+// softplus and its sum on the CUDA cores (2.0 ms); the store is 4.1 GB
+// (1.2 ms at 3.35 TB/s).
+//
+// Design.
+//  - A tile of 16 chains, two solver warps (tile_mh.cuh, NW = 2), each the
+//    forward pass of half the observations, four 8-observation accumulator
+//    chains a pass; their row sums meet in shared memory behind a barrier
+//    of the tile (tile_hmc.cuh's row_sums, as K1-logistic's two warps add
+//    theirs).  Each warp holds the tile's beta as A fragments in registers
+//    (hi and lo), so no fragment is handed between warps.  X, as TF32 hi
+//    and lo, is read from shared memory once per B fragment and row tile:
+//    6.1 KB a chain and step at p = 48, n_obs = 256.  One warp a tile (five
+//    solver warps an SM) took 57.0 ms at the stretch line's shape, two 43.0
+//    with three producer warps and 38.9 with two (PERF.md): the softplus's
+//    libm calls, most of a step, are dependent chains, and the second warp
+//    hides their latency.
+//  - The position comes from tile_mh.cuh in units of 8 columns from
+//    column 0, and the features start at column 2 (after mu and log tau):
+//    feature tile k of a lane (features 8 k + t and 8 k + t + 4, the A
+//    fragment's columns) is columns 8 k + t + 2 and 8 k + t + 6, which lane
+//    t ^ 2 holds in its units k and k + 1.  load() takes each unit's
+//    elements from lane t ^ 2 by one shuffle each and keeps them in feature
+//    order; mu and log tau come from lanes t = 0 and 1 of the row.
+//  - X reaches shared memory by TMA once a block (logistic_tile.cuh's
+//    stage_x, as fused_hmc_logistic.cu stages it), through the ring's space,
+//    which is free until the tiles start.
+//  - Warp specialisation, the ring and the layout are tile_mh.cuh's and
+//    fused_mh_dense.cu's: up to kMaxTiles tiles (2 kMaxTiles solver warps)
+//    and kProducers = 2 producer warps a block, 12 warps, as many tiles a
+//    block as shared memory holds beside X (layout(), exported as
+//    fused_mh_logistic_layout).
+//  - Each feature-tile count PT (the features padded to 16, 32 or 48) is
+//    its own build (GMT_LOGISTIC_PT, a variant of _build.py built at the
+//    first launch at that width), with NB = PT + 1 units of the position:
+//    the loops over units and feature tiles unroll, so the position's
+//    features and beta's fragments stay in registers.
+//
+// Agreement with the plain version: the product sums in another order than
+// torch.matmul and carries the split's 2^-22, and the log-likelihood is
+// summed in double, so the log densities agree to a tolerance, and this
+// source is built with fused multiply-adds on (_SOURCE_FLAGS in _build.py)
+// for the tile code.  A position depends on the density only through the
+// accept decisions: the proposals, the select and the store are
+// tile_mh.cuh's, in the plain version's rounding, and the density's
+// assembly (beta, the squares, the sums of the prior) is written with
+// __fadd_rn/__fmul_rn/__fdiv_rn, never contracted, in its order.  So a
+// chain whose decisions agree with the plain version's is bit-equal to it.
+//
+// C interface, loaded with ctypes (general_mcmc_torch/_build.py); the entry
+// point returns the first CUDA error of its calls, or cudaErrorInvalidValue
+// for a feature count this build is not for, or a proposal it does not
+// take.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "logistic_tile.cuh"
+#include "tile_mh.cuh"
+
+namespace {
+
+using gmt_mh::kMaxTiles;
+using gmt_mh::kSlots;
+constexpr int kWarps = 2;  // solver warps a tile, each half the observations
+// Producer warps a block: 12 warps in all, three a scheduler, so that ptxas
+// may give a warp 168 registers (with 13, four on one scheduler, it caps
+// them at 128 and spills).
+constexpr int kProducers = 2;
+
+#ifndef GMT_LOGISTIC_PT
+#error "build with -DGMT_LOGISTIC_PT=<8-feature tiles: 2, 4 or 6> (ops/fused_mh_logistic.py)"
+#endif
+constexpr int kPT = GMT_LOGISTIC_PT;  // 8-feature tiles: features padded to 8 kPT
+static_assert(kPT == 2 || kPT == 4 || kPT == 6, "p <= 48 in 16, 32 or 48 padded features");
+constexpr int kNB = kPT + 1;  // units of the position: p + 2 <= 8 kPT + 2 columns
+constexpr int kS = kPT * 8 + gmt_logistic::kRowPad;  // row stride of X in shared memory
+constexpr int kObsPass = 32;  // observations a warp's pass: four 8-observation accumulator chains
+
+constexpr int kSumBytes = 2 * 2 * 8 * kWarps * 8;  // a tile's row sums in transit (doubles)
+
+// Observations padded to whole passes of the tile's warps.
+__host__ __device__ constexpr int obs_pad(int n_obs) {
+  return kWarps * kObsPass * ((n_obs + kWarps * kObsPass - 1) / (kWarps * kObsPass));
+}
+
+// Shared bytes of a block of `tiles` tiles: X's hi and lo and y
+// (logistic_tile.cuh's data_words), the tiles (tile_mh.cuh's Ring), the
+// mbarrier of X's copies (16 bytes, so that every part stays 16-byte
+// aligned) and the tiles' row sums in transit between their warps.
+__host__ __device__ constexpr size_t shared_bytes(int n_pad, int tiles) {
+  return 4 * gmt_logistic::data_words(kPT, n_pad) +
+         static_cast<size_t>(tiles) * (gmt_mh::tile_bytes(kNB) + kSumBytes) + 16;
+}
+
+// The logistic targets as tile_mh.cuh's target: the position's features in
+// the A fragments' layout, mu and log tau of the lane's two rows, and the
+// log density by the forward pass of logistic_tile.cuh, each of the tile's
+// kWarps warps over its share of the observations, their row sums added
+// through `sums_buf` (tile_hmc.cuh's row_sums) behind the tile's barrier.
+// CENTRED: the centred target, whose features are beta itself; else
+// beta = mu + tau z.
+template <bool CENTRED>
+struct LogisticTarget {
+  static constexpr int R = 2;  // rows a lane holds: g and g + 8
+  const uint32_t* xh;
+  const uint32_t* xl;
+  const float* ys;
+  double* sums_buf;  // the tile's row sums in transit
+  int p, n_obs, n_pad, lane, g, t, part, bar;
+  // feature 8 k + t + 4 (c % 2) of row c / 2: A fragment element c of tile k
+  float v[kPT][4];
+  float mu[R], lt[R];
+
+  __device__ LogisticTarget(const uint32_t* xh_, const uint32_t* xl_, const float* ys_,
+                            double* sums, int p_, int n_obs_, int n_pad_)
+      : xh(xh_), xl(xl_), ys(ys_), p(p_), n_obs(n_obs_), n_pad(n_pad_) {
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    const int tile = (threadIdx.x >> 5) / kWarps;
+    part = (threadIdx.x >> 5) % kWarps;
+    bar = 5 + tile;  // named barriers 1-4 are the ring's
+    sums_buf = sums + tile * (kSumBytes / 8);
+#pragma unroll
+    for (int k = 0; k < kPT; ++k)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[k][c] = 0.0f;
+    mu[0] = mu[1] = lt[0] = lt[1] = 0.0f;
+  }
+
+  // Unit j (columns 8 j + t and 8 j + t + 4 of rows g, g + 8) into feature
+  // order: lane t ^ 2's elements, its low column 8 j + (t ^ 2) and high
+  // column 8 j + (t ^ 2) + 4, are features 8 j + t and 8 j + t + 4 of tile j
+  // (t < 2), or features 8 (j - 1) + t + 4 and 8 j + t (t >= 2).
+  __device__ __forceinline__ void load(int j, const float (&u)[4]) {
+    float s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = __shfl_xor_sync(gmt_logistic::kFull, u[c], 2);
+    if (j == 0) {
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        mu[h] = __shfl_sync(gmt_logistic::kFull, u[2 * h], lane & ~3);
+        lt[h] = __shfl_sync(gmt_logistic::kFull, u[2 * h], (lane & ~3) | 1);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      if (t < 2) {
+        if (j < kPT) {
+          v[j][2 * h] = s[2 * h];
+          v[j][2 * h + 1] = s[2 * h + 1];
+        }
+      } else {
+        if (j >= 1 && j - 1 < kPT) v[j - 1][2 * h + 1] = s[2 * h];
+        if (j < kPT) v[j][2 * h] = s[2 * h + 1];
+      }
+    }
+  }
+
+  // The log density of the lane's two rows of the position loaded, the same
+  // on the four lanes of a row and on the tile's warps: the prior's squares
+  // by warp 0, the log-likelihood of its share of the observations by each,
+  // their sums added in one order by all.
+  __device__ __forceinline__ void density(float (&lp)[R]) {
+    float tau[R];
+#pragma unroll
+    for (int h = 0; h < R; ++h) tau[h] = expf(lt[h]);
+    // beta as A fragments (a_i <- c_{0, 2, 1, 3}), zero past p; and the
+    // prior's squares: z^2 (non-centred) or ((beta - mu) / tau)^2
+    uint4 ah[kPT], al[kPT];
+    double sums[2][R] = {{0.0, 0.0}, {0.0, 0.0}};  // the squares, the log-likelihood
+#pragma unroll
+    for (int k = 0; k < kPT; ++k) {
+      float b[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int h = c >> 1;
+        b[c] = 0.0f;
+        if (8 * k + t + 4 * (c & 1) < p) {  // beta; the squares on warp 0
+          if constexpr (CENTRED) {
+            b[c] = v[k][c];
+            const float sc = __fdiv_rn(__fsub_rn(v[k][c], mu[h]), tau[h]);
+            if (part == 0) sums[0][h] += static_cast<double>(__fmul_rn(sc, sc));
+          } else {
+            b[c] = __fadd_rn(mu[h], __fmul_rn(tau[h], v[k][c]));
+            if (part == 0) sums[0][h] += static_cast<double>(__fmul_rn(v[k][c], v[k][c]));
+          }
+        }
+      }
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        gmt_logistic::split_tf32(b[((i & 1) << 1) | (i >> 1)], hi[i], lo[i]);
+      }
+      ah[k] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      al[k] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    const int share = n_pad / kWarps, from = part * share;  // this warp's observations
+    gmt_logistic::forward_loglik<kPT>(ah, al, xh + from * kS, xl + from * kS, ys + from, g, t,
+                                      share, n_obs - from, sums[1]);
+    gmt_tile::row_sums<2, kWarps>(sums, sums_buf, part, g, t,
+                                  [&] { gmt_logistic::named_barrier(bar, kWarps * 32); });
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      if constexpr (CENTRED) {
+        lp[h] = gmt_logistic::log_density_centred(mu[h], lt[h], sums[0][h], p, sums[1][h]);
+      } else {
+        lp[h] = gmt_logistic::log_density_nc(mu[h], lt[h], sums[0][h], sums[1][h]);
+      }
+    }
+  }
+};
+
+template <int PROP, bool CENTRED>
+__global__ void __launch_bounds__((kWarps * kMaxTiles + kProducers) * 32, 1)
+    fused_mh_logistic_kernel(const gmt_mh::Run a, const float* X, const float* y, int n_obs,
+                             int n_pad, int rows4, int chunk, int per_block) {
+  extern __shared__ float4 shared[];
+  uint32_t* xh = reinterpret_cast<uint32_t*>(shared);
+  uint32_t* xl = xh + n_pad * kS;
+  float* ys = reinterpret_cast<float*>(xl + n_pad * kS);
+  // n_pad (2 kS + 1) words, n_pad a multiple of 32: the tiles start 16-byte aligned
+  float4* tiles = reinterpret_cast<float4*>(ys + n_pad);
+  const gmt_mh::Ring<kNB> ring(tiles, per_block);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring.lu + kSlots * per_block * gmt_mh::kRows);
+  double* sums = reinterpret_cast<double*>(bar + 2);
+  // X is staged through the tiles' space, free until the tiles start
+  gmt_logistic::stage_x<kS>(xh, xl, ys, reinterpret_cast<float*>(tiles), bar, X, y, n_obs,
+                            a.d - 2, n_pad, rows4, chunk);
+  ring.clear();
+  __syncthreads();
+  LogisticTarget<CENTRED> target(xh, xl, ys, sums, a.d - 2, n_obs, n_pad);
+  gmt_mh::run_block<kNB, PROP, LogisticTarget<CENTRED>, kWarps, kProducers>(
+      a, ring, target, static_cast<int64_t>(blockIdx.x) * per_block, per_block);
+}
+
+// A launch's layout: its tiles, tiles a block, blocks, dynamic shared bytes
+// a block and the producer warps a block.
+struct Layout {
+  int64_t tiles, per_block, blocks, bytes, producers;
+};
+
+// The layout of a launch of `n` rows from `chain0` over `n_obs`
+// observations on the current device, the one launch() uses: the tiles
+// spread over the SMs, one block an SM, as many tiles a block as fit beside
+// X.
+cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
+  int device = 0, sms = 0, shared_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&shared_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const int n_pad = obs_pad(n_obs);
+  const int64_t tiles = gmt_tile::launch_tiles(n, chain0);
+  int per_block = static_cast<int>((tiles + sms - 1) / sms);
+  per_block = per_block > kMaxTiles ? kMaxTiles : per_block;
+  while (per_block > 1 && shared_bytes(n_pad, per_block) > static_cast<size_t>(shared_max)) {
+    --per_block;
+  }
+  const size_t bytes = shared_bytes(n_pad, per_block);
+  if (bytes > static_cast<size_t>(shared_max)) return cudaErrorInvalidValue;
+  *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
+                static_cast<int64_t>(bytes), kProducers};
+  return cudaSuccess;
+}
+
+template <int PROP, bool CENTRED>
+cudaError_t launch_as(const gmt_mh::Run& a, const float* X, const float* y, int n_obs,
+                      const Layout& l, cudaStream_t stream) {
+  const int p = a.d - 2;
+  const int n_pad = obs_pad(n_obs);
+  const int rows4 = 4 * ((n_obs + 3) / 4);
+  // the staging chunk: the rows of X that the tiles' space holds, a multiple of 4
+  const int chunk =
+      static_cast<int>(l.per_block * gmt_mh::tile_bytes(kNB) / 4 / p) / 4 * 4;
+  if (chunk < 4) return cudaErrorInvalidValue;
+  const auto kernel = fused_mh_logistic_kernel<PROP, CENTRED>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(l.bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned int>(l.blocks),
+           static_cast<unsigned int>((kWarps * l.per_block + kProducers) * 32),
+           static_cast<size_t>(l.bytes), stream>>>(a, X, y, n_obs, n_pad, rows4, chunk,
+                                                   static_cast<int>(l.per_block));
+  return cudaGetLastError();
+}
+
+// The feature tiles of p features, padded to 16, 32 or 48.
+__host__ constexpr int feature_tiles(int p) { return 2 * ((p + 15) / 16); }
+
+cudaError_t launch(const gmt_mh::Run& a, const float* X, const float* y, int n_obs,
+                   int proposal, int centred, cudaStream_t stream) {
+  if (feature_tiles(a.d - 2) != kPT) return cudaErrorInvalidValue;
+  if (proposal != gmt_mh::kRandomWalk && proposal != gmt_mh::kPCN) return cudaErrorInvalidValue;
+  Layout l;
+  cudaError_t err = layout(a.n, a.chain0, n_obs, &l);
+  if (err != cudaSuccess) return err;
+  if (proposal == gmt_mh::kPCN) {
+    return centred ? launch_as<gmt_mh::kPCN, true>(a, X, y, n_obs, l, stream)
+                   : launch_as<gmt_mh::kPCN, false>(a, X, y, n_obs, l, stream);
+  }
+  return centred ? launch_as<gmt_mh::kRandomWalk, true>(a, X, y, n_obs, l, stream)
+                 : launch_as<gmt_mh::kRandomWalk, false>(a, X, y, n_obs, l, stream);
+}
+
+}  // namespace
+
+// x0 [n, p + 2], X [4 ceil(n_obs / 4), p] (zero rows past n_obs: whole
+// 16-byte words for the copies), y [n_obs], out [n_collect, n, p + 2], all
+// float32, X 16-byte aligned; proposal 0 the random walk (p0 its scale), 1
+// pCN (p0, p1, p2: rho, beta, 1 / beta); centred 1 for HierarchicalLogistic,
+// 0 for HierarchicalLogisticNC; built for 8 GMT_LOGISTIC_PT - 15 <= p <=
+// 8 GMT_LOGISTIC_PT.
+extern "C" int fused_mh_logistic_launch(const void* x0, const void* X, const void* y,
+                                        void* out, int n, int p, int n_obs, int n_collect,
+                                        int n_discard, int thin, int proposal, int centred,
+                                        float p0, float p1, float p2, unsigned int seed,
+                                        unsigned int chain0, void* stream) {
+  if (n < 1 || p < 1 || n_obs < 1 || thin < 1 || reinterpret_cast<uintptr_t>(X) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const gmt_mh::Run a{static_cast<const float*>(x0), static_cast<float*>(out), n, p + 2,
+                      n_collect, n_discard, thin, p0, p1, p2, seed, chain0};
+  return static_cast<int>(launch(a, static_cast<const float*>(X), static_cast<const float*>(y),
+                                 n_obs, proposal, centred, static_cast<cudaStream_t>(stream)));
+}
+
+// The layout fused_mh_logistic_launch gives n rows of p features and n_obs
+// observations from chain0 on the current device: out = {tiles, tiles a
+// block, blocks, dynamic shared bytes a block, producer warps a block}.
+extern "C" int fused_mh_logistic_layout(int n, int p, int n_obs, unsigned int chain0,
+                                        long long* out) {
+  if (n < 1 || p < 1 || n_obs < 1 || feature_tiles(p) != kPT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Layout l;
+  const cudaError_t err = layout(n, chain0, n_obs, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = l.tiles;
+  out[1] = l.per_block;
+  out[2] = l.blocks;
+  out[3] = l.bytes;
+  out[4] = l.producers;
+  return 0;
+}
+
+extern "C" const char* gmt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,7 +1,8 @@
-// The non-centred hierarchical logistic target's gradient for a tile of
-// chains on the tensor cores: what the fused gradient-ascent chain
-// (fused_logistic.cu) and the fused HMC run on the same target
-// (fused_hmc_logistic.cu) share.  The design is fused_logistic.cu's (its
+// The hierarchical logistic targets' gradient and log-likelihood for a tile
+// of chains on the tensor cores: what the fused gradient-ascent chain
+// (fused_logistic.cu), the fused HMC run (fused_hmc_logistic.cu, both
+// parameterisations) and the fused MH run (fused_mh_logistic.cu, the
+// forward pass alone) share.  The design is fused_logistic.cu's (its
 // head note): X as TF32 hi and lo in shared memory, both products as
 // mma.sync m16n8k8 in three TF32 passes, NS warps a tile each running a
 // share of the observations, beta handed between them as ready fragments in
@@ -31,6 +32,36 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float sigmoidf(float v) {
   return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+
+// One observation's term of the Bernoulli log-likelihood, y l - softplus(l),
+// softplus in F.softplus's form: l past its threshold 20 is its own softplus.
+__device__ __forceinline__ float loglik_term(float y, float l) {
+  const float sp = l > 20.0f ? l : log1pf(expf(l));
+  return __fsub_rn(__fmul_rn(y, l), sp);
+}
+
+// The non-centred log density, -mu^2/2 - (log tau)^2/2 - sum z^2/2 +
+// loglik, in the plain version's order (models/regression.py); zz and ll
+// the row sums in double, each rounded once to float.
+__device__ __forceinline__ float log_density_nc(float mu, float lt, double zz, double ll) {
+  const float a = __fmul_rn(__fmul_rn(-0.5f, mu), mu);
+  const float b = __fmul_rn(__fmul_rn(0.5f, lt), lt);
+  const float c = __fmul_rn(0.5f, static_cast<float>(zz));
+  return __fadd_rn(__fsub_rn(__fsub_rn(a, b), c), static_cast<float>(ll));
+}
+
+// The centred log density, ((-mu^2/2 - (log tau)^2/2) - sum s^2/2) - p log tau
+// + loglik with s = (beta - mu) / exp(log tau), in the plain version's order;
+// ss = sum s^2 and ll in double, each rounded once.
+__device__ __forceinline__ float log_density_centred(float mu, float lt, double ss, int p,
+                                                     double ll) {
+  const float a = __fmul_rn(__fmul_rn(-0.5f, mu), mu);
+  const float b = __fmul_rn(__fmul_rn(0.5f, lt), lt);
+  const float c = __fmul_rn(0.5f, static_cast<float>(ss));
+  const float prior =
+      __fsub_rn(__fsub_rn(__fsub_rn(a, b), c), __fmul_rn(static_cast<float>(p), lt));
+  return __fadd_rn(prior, static_cast<float>(ll));
 }
 
 // The TF32 rounding of a finite float, to nearest with ties away from zero
@@ -72,6 +103,107 @@ __device__ __forceinline__ void mma_3x(float (&d)[4], const uint4& a_hi, const u
 // Barrier `id` (1..15) for the `threads` threads that name it.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// X [rows4, p] (rows4: n_obs rounded up to 4, zero rows after) into the
+// block's hi and lo of X (rows S words apart, zero past p and n_obs up to
+// n_pad) and y into ys: chunks of `chunk` rows (a multiple of 4, so that
+// every copy is whole 16-byte words) copied by TMA into `stage` by one
+// thread, completing on the mbarrier `bar`, and split by all; a block
+// barrier after each.  `stage` is space the kernel uses only after this.
+template <int S>
+__device__ void stage_x(uint32_t* xh, uint32_t* xl, float* ys, float* stage, uint64_t* bar,
+                        const float* X, const float* y, int n_obs, int p, int n_pad, int rows4,
+                        int chunk) {
+  const uint32_t b = smem_addr(bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) ys[i] = i < n_obs ? y[i] : 0.0f;
+  __syncthreads();
+  uint32_t phase = 0;
+  for (int r0 = 0; r0 < n_pad; r0 += chunk) {
+    const int copy = rows4 - r0 < chunk ? rows4 - r0 : chunk;  // rows of X in this chunk
+    if (copy > 0) {
+      if (threadIdx.x == 0) {
+        const uint32_t bytes = static_cast<uint32_t>(copy) * p * 4;
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+                     "r"(bytes)
+                     : "memory");
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];" ::"r"(smem_addr(stage)),
+            "l"(X + static_cast<int64_t>(r0) * p), "r"(bytes), "r"(b)
+            : "memory");
+      }
+      uint32_t done = 0;
+      while (!done) {
+        asm volatile(
+            "{ .reg .pred q; mbarrier.try_wait.parity.shared::cta.b64 q, [%1], %2; "
+            "selp.u32 %0, 1, 0, q; }"
+            : "=r"(done)
+            : "r"(b), "r"(phase)
+            : "memory");
+      }
+      phase ^= 1u;
+    }
+    const int rows = n_pad - r0 < chunk ? n_pad - r0 : chunk;
+    for (int idx = threadIdx.x; idx < rows * S; idx += blockDim.x) {
+      const int i = idx / S, j = idx % S;
+      const int at = (r0 + i) * S + j;
+      split_tf32((r0 + i < n_obs && j < p) ? stage[i * p + j] : 0.0f, xh[at], xl[at]);
+    }
+    __syncthreads();
+  }
+}
+
+// The forward pass of one row tile of 16 chains whose beta a warp holds as
+// A fragments, hi and lo (a_i <- c_{0, 2, 1, 3}, one uint4 a feature tile
+// of 8): the logits l = beta X^T of the observations from 0 to n_pad (a
+// multiple of 8 UO), UO 8-observation tiles a pass (four independent
+// accumulator chains), each logit one product in three TF32 passes, and
+// the rows' Bernoulli log-likelihood, sum y l - softplus(l) over the real
+// observations (below n_obs), added to ll in double in partial_grad's
+// order.  No second product and no sigmoid: what MH's density needs.  X's
+// hi and lo rows lie S = 8 PT + kRowPad words apart.
+template <int PT, int UO = 4>
+__device__ __forceinline__ void forward_loglik(const uint4 (&ah)[PT], const uint4 (&al)[PT],
+                                               const uint32_t* xh, const uint32_t* xl,
+                                               const float* ys, int g, int t, int n_pad,
+                                               int n_obs, double (&ll)[2]) {
+  constexpr int S = PT * 8 + kRowPad;
+  const int off1 = g * S + t;
+  for (int i0 = 0; i0 < n_pad; i0 += 8 * UO) {
+    float acc[UO][4];
+#pragma unroll
+    for (int u = 0; u < UO; ++u)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[u][c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < PT; ++j) {
+#pragma unroll
+      for (int u = 0; u < UO; ++u) {
+        const int at = (i0 + 8 * u) * S + off1 + 8 * j;
+        mma_3x(acc[u], ah[j], al[j], xh[at], xh[at + 4], xl[at], xl[at + 4]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UO; ++u) {
+      const float2 yv = *reinterpret_cast<const float2*>(ys + i0 + 8 * u + 2 * t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (i0 + 8 * u + 2 * t + (c & 1) < n_obs) {
+          ll[c >> 1] += static_cast<double>(loglik_term((c & 1) ? yv.y : yv.x, acc[u][c]));
+        }
+      }
+    }
+  }
 }
 
 // Shared memory of the tile data, in 4-byte words: X as hi and lo and y
@@ -181,6 +313,24 @@ struct TileWarp {
     sync();
   }
 
+  // (0) the centred target's beta, the position itself, of the own units as
+  // A fragments, then the tile's barrier.
+  __device__ __forceinline__ void write_beta(const float (&beta)[OWN][4]) const {
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      if (q % NS == part) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(beta[q / NS][((i & 1) << 1) | (i >> 1)], hi[i], lo[i]);
+        }
+        bf[(q * 2) * 32] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        bf[(q * 2 + 1) * 32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+    }
+    sync();
+  }
+
   // (1) the partial g of this warp's share of the observations: per 8 UO
   // observations the logits of UO 8-wide tiles (four independent
   // accumulator chains hide the latency of a dependent mma), r = y -
@@ -233,10 +383,8 @@ struct TileWarp {
             for (int c = 0; c < 4; ++c) {
               const float l = acc[u][m][c];
               const float yc = (c & 1) ? yv.y : yv.x;
-              // F.softplus: l past its threshold 20 is its own softplus
-              const float sp = l > 20.0f ? l : log1pf(expf(l));
               if (i0 + 8 * u + 2 * t + (c & 1) < n_obs) {
-                ll[m][c >> 1] += static_cast<double>(__fsub_rn(__fmul_rn(yc, l), sp));
+                ll[m][c >> 1] += static_cast<double>(loglik_term(yc, l));
               }
             }
           }
@@ -264,10 +412,13 @@ struct TileWarp {
   // (2) hand the other warps' units to their owners (sender `part` is the
   // owner's slot part below the owner, part - 1 above it) and add the NS - 1
   // received to the own part, in one order; (3) the two hyper sums, sum g
-  // and sum z g of rows (m, h) at [2 (2 m + h)] and [2 (2 m + h) + 1]: a
-  // warp's own units, the four lanes of a row by two shuffles, then the
-  // NS warps through shared memory, every warp adding them in the same
-  // order, so all hold the same sums.  Two barriers of the tile.
+  // and sum z g of rows (m, h) at [2 (2 m + h)] and [2 (2 m + h) + 1]
+  // (with POSITION, the centred target's, sum z and sum z^2 of the own
+  // units' z, there beta - mu: sums of the position, not of g): a warp's
+  // own units, the four lanes of a row by two shuffles, then the NS warps
+  // through shared memory, every warp adding them in the same order, so all
+  // hold the same sums.  Two barriers of the tile.
+  template <bool POSITION = false>
   __device__ __forceinline__ void gather(const float (&grad)[MT][PT][4],
                                          const float (&z)[OWN][4], float (&own)[OWN][4],
                                          float (&sums)[4 * MT]) const {
@@ -304,8 +455,13 @@ struct TileWarp {
         // (3) this warp's share of the hyper sums
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          sums[2 * (2 * m + (c >> 1))] += own[i][c];
-          sums[2 * (2 * m + (c >> 1)) + 1] += z[i][c] * own[i][c];
+          if constexpr (POSITION) {
+            sums[2 * (2 * m + (c >> 1))] += z[i][c];
+            sums[2 * (2 * m + (c >> 1)) + 1] += z[i][c] * z[i][c];
+          } else {
+            sums[2 * (2 * m + (c >> 1))] += own[i][c];
+            sums[2 * (2 * m + (c >> 1)) + 1] += z[i][c] * own[i][c];
+          }
         }
       }
     }

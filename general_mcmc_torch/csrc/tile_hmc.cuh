@@ -6,7 +6,8 @@
 // target's gradient (the kernels' notes); what this file adds is O(d) a
 // chain and step, the draws kept so by drawing each Philox block once.
 // What fused_hmc_dense.cu (the dense GaussianND) and fused_hmc_logistic.cu
-// (HierarchicalLogisticNC) share, and nothing that depends on the target:
+// (HierarchicalLogisticNC and HierarchicalLogistic) share, and nothing that
+// depends on the target:
 //  - the tile's chain addressing, aligned to the global chain index: tile k
 //    of a launch holds the global chains 16 (chain0 / 16 + k) .. + 15, so a
 //    chain sits at the same row of its tile, and its sums run in the same

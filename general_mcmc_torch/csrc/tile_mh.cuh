@@ -1,10 +1,11 @@
 // The MH of the tile kernels: a tile of 16 chains (one m16 row tile of
-// mma.sync) a solver warp runs K3's whole batched Metropolis-Hastings
+// mma.sync) NW solver warps run K3's whole batched Metropolis-Hastings
 // around a log density that its target computes for the tile at once, and
 // producer warps draw the steps ahead.  With the kernels that include it, it replaces
 // general_mcmc_tpu/ops/pallas_mh.py `_mh_kernel` (:61) for the traced
 // targets whose log density is a matrix computation (fused_mh_dense.cu: the
-// dense GaussianND).  What bounds a run is its target's density (the
+// dense GaussianND; fused_mh_logistic.cu: the hierarchical logistic
+// targets).  What bounds a run is its target's density (the
 // kernels' notes); what this file adds is O(d) a chain and step.  What it
 // holds, and nothing that depends on the target:
 //  - K3's draws at K3's addresses: a step's draws are the chain's word
@@ -13,10 +14,12 @@
 //    word 2 ceil(d / 2) (counter_rng.cuh; ops/counter_rng.py, mh_draws),
 //    through the straight forms of logf, sqrtf and sincosf, which give
 //    their bits for every uniform; each Philox block drawn once a tile;
-//  - warp specialisation: a block is up to kMaxTiles solver warps, a tile
-//    each, and kProducers producer warps, which draw each step's normals and
-//    log u for all the block's tiles into a ring of two slots in shared
-//    memory, in the solvers' fragment layout, while the solvers walk the
+//  - warp specialisation: a block is up to kMaxTiles tiles of NW solver
+//    warps each (NW = 1 for the dense kernel, 2 for the logistic one, whose
+//    target splits its density between them), and NP producer warps (3 and
+//    2), which draw each step's normals and log u for all the block's tiles
+//    into a ring of two slots in shared memory, in the solvers' fragment
+//    layout, while the solvers walk the
 //    previous step (a slot is full at named barrier 1 + k: producers arrive,
 //    solvers sync; empty at barrier 3 + k: solvers arrive, producers sync).
 //    The draws do not depend on the state, and the producer warps fill the
@@ -38,11 +41,24 @@
 // lane holds 8 j + t and 8 j + t + 4; element c of a unit's quadruple is row
 // h = c / 2, column 8 j + t + 4 (c % 2).  Columns past d hold zeros.
 //
-// The target comes in as a hook object T (each kernel's own):
+// The NW solver warps of a tile walk it together, each proposing and
+// selecting the same values (the proposal kept in registers, so that no warp
+// overwrites the normals another still reads); warp 0 of the tile writes
+// the selected state and stores it.
+//
+// The target comes in as a hook object T (each kernel's own; with NW > 1
+// every warp of the tile calls it for the same position, and the target
+// shares out its work and gives all of them the same log density):
 //   void load(int j, const float (&v)[4]);  unit j of the position whose log
-//       density is asked for next;
+//       density is asked for next, units 0 .. NB - 1 in order, by the whole
+//       warp (a target may shuffle between its lanes here);
 //   void density(float (&lp)[2]);  the log density of the lane's two rows
 //       of the position loaded, the same on the four lanes of a row.
+// The units are the position's own columns from column 0.  A target whose
+// coordinates lie elsewhere in its own layout maps them in load(): the
+// logistic targets' features start at column 2, after mu and log tau, and
+// fused_mh_logistic.cu takes each lane's feature-order elements from lane
+// t ^ 2 by a shuffle.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,8 +73,8 @@ namespace gmt_mh {
 using gmt_tile::kRows;
 using gmt_tile::TileRows;
 
-constexpr int kMaxTiles = 5;   // solver warps a block
-constexpr int kProducers = 3;  // producer warps a block: 8 warps in all, so that
+constexpr int kMaxTiles = 5;   // tiles a block
+constexpr int kProducers = 3;  // producer warps a block (the default): 8 warps in all, so that
                                // ptxas may give a solver 255 registers
 constexpr int kSlots = 2;      // ring slots
 enum Proposal : int { kRandomWalk = 0, kPCN = 1 };
@@ -168,9 +184,10 @@ __device__ __forceinline__ void unpack(const float4& q, float (&v)[4]) {
   v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
 }
 
-// One solver warp's tile: its position in shared memory (x), its rows' log
-// densities and the MH step around the target T.
-template <int NB, int PROP, class T>
+// One solver warp's walk of its tile (one of the tile's NW): the tile's
+// position in shared memory (x), its rows' log densities and the MH step
+// around the target T.
+template <int NB, int PROP, class T, int NW = 1>
 struct Walker {
   static constexpr int R = 2;  // rows a lane holds: g and g + 8
   const Run& a;
@@ -211,10 +228,12 @@ struct Walker {
     return static_cast<double>(__fmul_rn(diff, diff));
   }
 
-  // One MH step from a slot's normals zy (overwritten by the proposal) and
-  // the rows' log u.
+  // One MH step from a slot's normals zy (overwritten by the proposal where
+  // one warp walks the tile; kept in registers where NW warps do) and the
+  // rows' log u.
   __device__ void step(float4* zy, const float* log_u) {
     double q[2][R] = {};  // pCN: log q(x -> y), log q(y -> x), before the -1/2
+    float yk[NW > 1 ? NB : 1][4];  // NW > 1: the proposal
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       float z[4], xv[4], y[4];
@@ -228,7 +247,12 @@ struct Walker {
           q[1][c >> 1] += q_term(y[c], xv[c]);
         }
       }
-      zy[j * 32 + lane] = f4(y);
+      if constexpr (NW == 1) {
+        zy[j * 32 + lane] = f4(y);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) yk[j][c] = y[c];
+      }
       target.load(j, y);
     }
     float lp_new[R];
@@ -252,11 +276,16 @@ struct Walker {
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       float y[4], xv[4];
-      unpack(zy[j * 32 + lane], y);
+      if constexpr (NW == 1) {
+        unpack(zy[j * 32 + lane], y);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[c] = yk[j][c];
+      }
       unpack(x[j * 32 + lane], xv);
 #pragma unroll
       for (int c = 0; c < 2 * R; ++c) xv[c] = accept[c >> 1] ? y[c] : xv[c];
-      x[j * 32 + lane] = f4(xv);
+      if ((threadIdx.x >> 5) % NW == 0) x[j * 32 + lane] = f4(xv);  // the tile's warp 0
     }
   }
 
@@ -294,15 +323,17 @@ __device__ __forceinline__ void slot_arrive(int k, int count) {
 }
 
 // The whole run of a block of `per_block` tiles from the launch's tile
-// `tile0` and kProducers producer warps (warps per_block .. on), after its
-// shared memory is staged: n_discard + n_collect * thin steps, every thin-th
-// post-burn-in state stored.  `target` is the solver warp's hook (unused by
-// the producers).
-template <int NB, int PROP, class T>
+// `tile0`, NW solver warps a tile (warps NW k .. NW k + NW - 1 tile k), and
+// NP producer warps (warps NW per_block .. on), after its shared memory is
+// staged: n_discard + n_collect * thin steps, every thin-th post-burn-in
+// state stored.  `target` is the solver warp's hook (unused by the
+// producers).
+template <int NB, int PROP, class T, int NW = 1, int NP = kProducers>
 __device__ void run_block(const Run& a, const Ring<NB>& ring, T& target, int64_t tile0,
                           int per_block) {
   constexpr int kFullBar = 1, kEmptyBar = 1 + kSlots;  // named barrier ids of slot 0
   const int warp = threadIdx.x >> 5;
+  const int tile = warp / NW, part = warp % NW;
   const int lane = threadIdx.x & 31;
   const int64_t left = gmt_tile::launch_tiles(a.n, a.chain0) - tile0;
   const int here = static_cast<int>(left < per_block ? left : per_block);  // tiles with rows
@@ -310,24 +341,24 @@ __device__ void run_block(const Run& a, const Ring<NB>& ring, T& target, int64_t
   const int total = a.n_discard + a.n_collect * a.thin;
   const int all = static_cast<int>(blockDim.x);
 
-  if (warp >= per_block) {
-    const int tid = static_cast<int>(threadIdx.x) - per_block * 32;
+  if (warp >= NW * per_block) {
+    const int tid = static_cast<int>(threadIdx.x) - NW * per_block * 32;
     for (int step0 = 0; step0 < total; step0 += kSlots) {
 #pragma unroll
       for (int k = 0; k < kSlots; ++k) {
         const int step = step0 + k;
         if (step >= total) break;
         if (step >= kSlots) slot_sync<kEmptyBar>(k, all);
-        produce(a, ring, tile0, here, k, static_cast<uint32_t>(step), dr, tid, kProducers * 32);
+        produce(a, ring, tile0, here, k, static_cast<uint32_t>(step), dr, tid, NP * 32);
         slot_arrive<kFullBar>(k, all);
       }
     }
     return;
   }
 
-  const bool active = warp < here;
-  const TileRows rows(tile0 + warp, a.n, a.chain0, lane >> 2);
-  Walker<NB, PROP, T> w(a, rows, target, ring.tile_x(warp));
+  const bool active = tile < here;
+  const TileRows rows(tile0 + tile, a.n, a.chain0, lane >> 2);
+  Walker<NB, PROP, T, NW> w(a, rows, target, ring.tile_x(tile));
   if (active) w.init();
   const int64_t sample = static_cast<int64_t>(a.n) * a.d;  // floats between stored samples
   float* dst = a.out;
@@ -339,12 +370,12 @@ __device__ void run_block(const Run& a, const Ring<NB>& ring, T& target, int64_t
       if (step >= total) break;
       __syncwarp();  // converged after the last step's stores
       slot_sync<kFullBar>(k, all);
-      if (active) w.step(ring.slot_z(k, warp), ring.slot_u(k, warp));
+      if (active) w.step(ring.slot_z(k, tile), ring.slot_u(k, tile));
       __syncwarp();  // the warp converged again after its rows' selects
       if (step + kSlots < total) slot_arrive<kEmptyBar>(k, all);
       if (step < a.n_discard || --until_store > 0) continue;
       until_store = a.thin;
-      if (active) w.store(dst);
+      if (active && part == 0) w.store(dst);
       dst += sample;
     }
   }

@@ -18,10 +18,10 @@ and ``NealsFunnel``, the target's constants as one float32 row.  The two
 targets whose gradient is a matrix computation run in tile kernels of their
 own on the tensor cores, which share their HMC (``csrc/tile_hmc.cuh``): a
 ``GaussianND`` with a dense covariance (``d <= MAX_DENSE_DIM``,
-:mod:`.fused_hmc_dense`) and ``HierarchicalLogisticNC``
+:mod:`.fused_hmc_dense`) and the hierarchical logistic targets,
+``HierarchicalLogisticNC`` and the centred ``HierarchicalLogistic``
 (:mod:`.fused_hmc_logistic`).  ``mass_inv`` is a diagonal.  Anything else
-raises: a Python callable, the discrete targets, the centred
-``HierarchicalLogistic``, a dense ``mass_inv``.
+raises: a Python callable, the discrete targets, a dense ``mass_inv``.
 
 The kernel gives each chain a group of lanes of a warp and each lane a few
 quads of dimensions (one Philox block draws a quad's four momenta).
@@ -42,7 +42,7 @@ import torch
 
 from ..models.distributions import (DiffableGaussian2D, Gaussian2D, GaussianND, NealsFunnel,
                                     Rosenbrock2D, RosenbrockND)
-from ..models.regression import HierarchicalLogisticNC
+from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
 from . import fused_hmc_dense, fused_hmc_logistic
 
@@ -68,7 +68,8 @@ MAX_DENSE_DIM = fused_hmc_dense.MAX_DENSE_DIM
 
 TARGET_NAMES = ("GaussianND (diagonal or dense covariance), DiffableGaussian2D, Gaussian2D, "
                 "Rosenbrock2D, RosenbrockND, NealsFunnel")
-_TAKES = f"the fused HMC kernels take the targets {TARGET_NAMES} and HierarchicalLogisticNC"
+_TAKES = (f"the fused HMC kernels take the targets {TARGET_NAMES}, HierarchicalLogisticNC and "
+          "HierarchicalLogistic")
 
 
 def lane_maps(d: int):
@@ -159,12 +160,12 @@ def target_params(target, code: int, **f32) -> torch.Tensor:
 
 def _check_args(target, initial_positions, n_leapfrog, n_collect, n_discard, thin,
                 mass_inv, chain0=0):
-    """The target's code (or ``None`` for the logistic kernel's target)
+    """The target's code (or ``None`` for the logistic kernel's targets)
     after the checks the CPU and the card share."""
     if initial_positions.ndim != 2:
         raise ValueError("initial_positions must be [n_chains, dim]")
     d = initial_positions.shape[1]
-    if isinstance(target, HierarchicalLogisticNC):
+    if isinstance(target, (HierarchicalLogistic, HierarchicalLogisticNC)):
         fused_hmc_logistic.check_target(target, d)
         code = None
     else:
@@ -182,7 +183,7 @@ def tile_kernel(code):
     """The launcher of the tile kernel that runs the target ``code`` (as
     :func:`_check_args` returns it), or ``None`` for ``csrc/fused_hmc.cu``:
     the dense ``GaussianND`` goes to :mod:`.fused_hmc_dense`, the
-    ``HierarchicalLogisticNC`` to :mod:`.fused_hmc_logistic`."""
+    hierarchical logistic targets to :mod:`.fused_hmc_logistic`."""
     if code is None:
         return fused_hmc_logistic.launch_logistic
     if code == TARGET_GAUSSIAN_DENSE:
@@ -217,7 +218,8 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
     For ``initial_positions`` on the card this is one launch of
     ``csrc/fused_hmc.cu`` (``csrc/fused_hmc_dense.cu`` for a dense
     ``GaussianND``, ``csrc/fused_hmc_logistic.cu`` for a
-    ``HierarchicalLogisticNC``); on the CPU it is the plain version."""
+    ``HierarchicalLogisticNC`` or ``HierarchicalLogistic``); on the CPU it
+    is the plain version."""
     x0 = initial_positions
     if mass_inv is not None:
         mass_inv = torch.as_tensor(mass_inv, device=x0.device)

@@ -1,10 +1,13 @@
-"""Whole-run batched HMC on the non-centred hierarchical logistic target in
-one kernel launch, the gradient's two products on the tensor cores.
+"""Whole-run batched HMC on the hierarchical logistic targets in one kernel
+launch, the gradient's two products on the tensor cores.
 
 Port of ``general_mcmc_tpu/ops/pallas_hmc.py`` ``fused_hmc_run`` (the Pallas
 kernel ``_hmc_kernel``) where the traced target is
-:class:`..models.regression.HierarchicalLogisticNC`: the bench's stretch-line
-posterior under ``HMC(backend="pallas")``.  :func:`..ops.fused_hmc.fused_hmc_run`
+:class:`..models.regression.HierarchicalLogisticNC` (the bench's
+stretch-line posterior under ``HMC(backend="pallas")``) or the centred
+:class:`..models.regression.HierarchicalLogistic`, whose gradient the kernel
+computes in its own order (the hyper sums of the position, not of g; one
+build holds both parameterisations).  :func:`..ops.fused_hmc.fused_hmc_run`
 hands such a target here; :func:`launch_logistic` launches the hand-written
 CUDA kernel ``csrc/fused_hmc_logistic.cu`` (the gradient from the tile code
 it shares with :mod:`.fused_logistic`, ``csrc/logistic_tile.cuh``, in tiles
@@ -26,7 +29,7 @@ import ctypes
 
 import torch
 
-from ..models.regression import HierarchicalLogisticNC
+from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
 from .fused_logistic import MAX_FEATURES, MAX_SHARED_BYTES
 
@@ -72,15 +75,16 @@ def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
 
 
 def check_target(target, d: int) -> None:
-    """Raise unless the kernel takes ``target`` at width ``d``: ``p + 2``
+    """Raise unless the kernel takes ``target`` at width ``d``: a
+    ``HierarchicalLogisticNC`` or ``HierarchicalLogistic`` of ``p + 2``
     coordinates, ``p <= MAX_FEATURES`` and ``X``, ``y`` within one block's
     shared memory."""
-    if not isinstance(target, HierarchicalLogisticNC):
-        raise ValueError(f"the fused logistic HMC kernel takes a HierarchicalLogisticNC, "
-                         f"not {type(target).__name__}")
+    if not isinstance(target, (HierarchicalLogistic, HierarchicalLogisticNC)):
+        raise ValueError("the fused logistic HMC kernel takes a HierarchicalLogisticNC or a "
+                         f"HierarchicalLogistic, not {type(target).__name__}")
     n_obs, p = target.X.shape
     if d != p + 2:
-        raise ValueError(f"a HierarchicalLogisticNC of {p} features takes states of width "
+        raise ValueError(f"a {type(target).__name__} of {p} features takes states of width "
                          f"{p + 2}, got {d}")
     if p > MAX_FEATURES:
         raise ValueError(f"the fused logistic HMC kernel takes p <= {MAX_FEATURES}, got {p}")
@@ -112,13 +116,13 @@ def launch_logistic(target, x0, step_size, n_leapfrog, n_collect, n_discard, see
         return out.transpose(0, 1)
     lib = load("fused_hmc_logistic")
     fn = lib.fused_hmc_logistic_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(x0.data_ptr(), X.data_ptr(), y.data_ptr(), inv_row.data_ptr(), scale_row.data_ptr(),
             out.data_ptr(), n, p, n_obs, n_collect, n_discard, thin, int(n_leapfrog),
-            float(step_size), stream_key(seed), int(chain0),
-            torch.cuda.current_stream(x0.device).cuda_stream)
+            int(isinstance(target, HierarchicalLogistic)), float(step_size), stream_key(seed),
+            int(chain0), torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, rc, "fused_hmc_logistic_launch")
     launches += 1
     return out.transpose(0, 1)

@@ -17,12 +17,18 @@ and ``NealsFunnel`` (the same device targets as the fused HMC kernel's,
 :func:`.fused_hmc.target_code`), and for the proposals Gaussian random walk
 (``RandomWalkProposal`` or ``IsotropicGaussian``) and pCN (``PCNProposal``);
 anything else raises, ``DiscreteWalkProposal`` and integer states included
-(the JAX package's discrete walk takes its XLA path too).  A ``GaussianND``
-with a dense covariance (``d <= MAX_DENSE_DIM``) runs in a tile kernel of
-its own, ``csrc/fused_mh_dense.cu`` (:mod:`.fused_mh_dense`: the forward
-solve blocked with a tile's chains as right-hand sides), with its own
-``launches``; it agrees with the plain version to a tolerance (its solve
-sums in another order than cuBLAS), the rest bit for bit.  The TPU kernel's transposed
+(the JAX package's discrete walk takes its XLA path too).  Two target
+families run in tile kernels of their own on ``csrc/tile_mh.cuh``, each
+with its own ``launches``: a ``GaussianND`` with a dense covariance (``d <=
+MAX_DENSE_DIM``) in ``csrc/fused_mh_dense.cu`` (:mod:`.fused_mh_dense`: the
+forward solve blocked with a tile's chains as right-hand sides), and the
+hierarchical logistic targets, ``HierarchicalLogisticNC`` and the centred
+``HierarchicalLogistic`` (``p <= fused_mh_logistic.MAX_FEATURES``), in
+``csrc/fused_mh_logistic.cu`` (:mod:`.fused_mh_logistic`: the log density's
+product on the tensor cores).  Their log densities agree with the plain
+version's to a tolerance (a solve or a product summed in another order than
+the library's), so a chain is bit-equal to the plain version's while its
+accept decisions agree; the rest bit for bit.  The TPU kernel's transposed
 ``[dim, chains]`` state is a tiling decision of that machine and is not
 carried over: the store is steps-major ``[n_collect, n_chains, dim]``, as
 the fused HMC run's is.
@@ -42,9 +48,10 @@ import ctypes
 import torch
 
 from ..models.distributions import IsotropicGaussian
+from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
 from ..samplers.metropolis_hastings import PCNProposal, RandomWalkProposal
-from . import fused_mh_dense
+from . import fused_mh_dense, fused_mh_logistic
 from .fused_hmc import TARGET_GAUSSIAN_DENSE, TARGET_NAMES, target_code, target_params
 
 __all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "tile_kernel", "MAX_DIM",
@@ -61,8 +68,9 @@ MAX_DENSE_DIM = fused_mh_dense.MAX_DENSE_DIM
 # The Proposal enum of csrc/fused_mh.cu (and csrc/tile_mh.cuh).
 _PROPOSAL_RANDOM_WALK, _PROPOSAL_PCN = 0, 1
 
-_TAKES = (f"the fused MH kernel takes the targets {TARGET_NAMES}, and the proposals "
-          "RandomWalkProposal, IsotropicGaussian and PCNProposal")
+_TAKES = (f"the fused MH kernel takes the targets {TARGET_NAMES}, HierarchicalLogisticNC "
+          "and HierarchicalLogistic, and the proposals RandomWalkProposal, IsotropicGaussian "
+          "and PCNProposal")
 
 
 def _proposal_code(proposal):
@@ -78,11 +86,19 @@ def _proposal_code(proposal):
 
 
 def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin, chain0=0):
+    """The target's code (``None`` for the logistic kernel's targets), the
+    proposal's and its constants, after the checks the CPU and the card
+    share."""
     if initial_positions.ndim != 2:
         raise ValueError("initial_positions must be [n_chains, dim]")
     if not initial_positions.dtype.is_floating_point:
         raise ValueError("the fused MH kernel takes float states")
-    code = target_code(target, initial_positions.shape[1], MAX_DENSE_DIM, _TAKES)
+    d = initial_positions.shape[1]
+    if isinstance(target, (HierarchicalLogistic, HierarchicalLogisticNC)):
+        fused_mh_logistic.check_target(target, d)
+        code = None
+    else:
+        code = target_code(target, d, MAX_DENSE_DIM, _TAKES)
     p_code, consts = _proposal_code(proposal)
     if thin < 1 or n_collect < 0 or n_discard < 0:
         raise ValueError("need thin >= 1, n_collect, n_discard >= 0")
@@ -94,8 +110,13 @@ def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin,
 def tile_kernel(code):
     """The launcher of the tile kernel that runs the target ``code`` (as
     :func:`_check_args` returns it), or ``None`` for ``csrc/fused_mh.cu``:
-    the dense ``GaussianND`` goes to :mod:`.fused_mh_dense`."""
-    return fused_mh_dense.launch_dense if code == TARGET_GAUSSIAN_DENSE else None
+    the dense ``GaussianND`` goes to :mod:`.fused_mh_dense`, the
+    hierarchical logistic targets to :mod:`.fused_mh_logistic`."""
+    if code is None:
+        return fused_mh_logistic.launch_logistic
+    if code == TARGET_GAUSSIAN_DENSE:
+        return fused_mh_dense.launch_dense
+    return None
 
 
 def fused_mh_run_reference(target, initial_positions, proposal, n_collect, n_discard=0,
@@ -122,7 +143,8 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
 
     For ``initial_positions`` on the card this is one launch of
     ``csrc/fused_mh.cu`` (``csrc/fused_mh_dense.cu`` for a dense
-    ``GaussianND``), float32; on the CPU it is the plain version."""
+    ``GaussianND``, ``csrc/fused_mh_logistic.cu`` for the hierarchical
+    logistic targets), float32; on the CPU it is the plain version."""
     x0 = initial_positions
     code, p_code, consts = _check_args(target, x0, proposal, n_collect, n_discard, thin,
                                        chain0)

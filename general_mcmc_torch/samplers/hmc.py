@@ -72,10 +72,11 @@ class HMC(BatchSampler):
     seed : integer seed; draws are addressed by its 31-bit key
     backend : ``"torch"`` or ``"cuda"`` (the fused kernel: ``GaussianND``
         with a diagonal or a dense covariance, ``DiffableGaussian2D``,
-        ``Gaussian2D``, ``Rosenbrock2D``, ``RosenbrockND``, ``NealsFunnel``
-        and ``HierarchicalLogisticNC``, each a device function of
-        :mod:`..ops.fused_hmc`; a diagonal ``mass_inv`` only; any other
-        target raises)
+        ``Gaussian2D``, ``Rosenbrock2D``, ``RosenbrockND``, ``NealsFunnel``,
+        and ``HierarchicalLogisticNC`` and the centred
+        ``HierarchicalLogistic`` (p <= 48), each a device function or tile
+        kernel of :mod:`..ops.fused_hmc`; a diagonal ``mass_inv`` only; any
+        other target raises)
     mass_inv : optional ``[dim]`` diagonal or ``[dim, dim]`` dense M⁻¹:
         momenta ~ N(0, M), drifts M⁻¹p, kinetic energy ½pᵀM⁻¹p
     device : where to run; ``None`` means the card, and raises if there is

@@ -127,13 +127,13 @@ def test_kernel_gradient_order_equals_autograd(name):
 
 
 def test_wrappers_refuse_what_no_kernel_takes():
-    """A Python callable, a discrete target and the centred logistic target
-    raise, as do a logistic target past MAX_FEATURES and a dense GaussianND
-    past MAX_DENSE_DIM, on the CPU as on the card."""
+    """A Python callable and the discrete targets raise, as do a logistic
+    target past MAX_FEATURES and a dense GaussianND past MAX_DENSE_DIM, on
+    the CPU as on the card."""
     x = torch.zeros(4, 2)
     X, y = logistic_data()
     for target in (lambda v: -0.5 * (v * v).sum(-1), to_target("Binomial", 5, 0.3),
-                   to_target("HierarchicalLogistic", X, y)):
+                   to_target("Poisson", 3.0)):
         with pytest.raises(ValueError, match="fused HMC kernels take the targets"):
             fused_hmc.fused_hmc_run(target, x, 0.1, 2, 3)
     p = fused_hmc_logistic.MAX_FEATURES + 1

@@ -1,8 +1,9 @@
 """The fused MH run (general_mcmc_torch/ops/fused_mh.py) on the repo's
-other continuous targets, plain version on the CPU: the layout, burn-in and
-thinning of the JAX package's ``fused_mh_run`` in interpret mode, the
-``"cuda"`` backend's run on the CPU equal to the ``"torch"`` backend's, and
-moments of the DiffableGaussian2D run beside JAX's.  The kernel itself is
+other continuous targets, the two hierarchical logistic ones included, plain
+version on the CPU: the layout, burn-in and thinning of the JAX package's
+``fused_mh_run`` in interpret mode, the ``"cuda"`` backend's run on the CPU
+equal to the ``"torch"`` backend's, and moments of the DiffableGaussian2D
+run beside JAX's.  The kernel itself is
 held against this plain version on the card by chip_smoke.py and
 tests/test_torch_cuda_targets.py."""
 
@@ -18,11 +19,8 @@ from general_mcmc_torch.convert import to_tensor
 from general_mcmc_torch.ops import fused_mh
 from torch_fused_targets import COV2, LAYOUTS, MEAN2, dense_cov, port_target, targets
 
-_MH_TARGETS = [k for k in targets() if k != "logistic_nc"]
-
-
 @pytest.mark.parametrize("n_collect,n_discard,thin", LAYOUTS)
-@pytest.mark.parametrize("name", _MH_TARGETS)
+@pytest.mark.parametrize("name", list(targets()))
 def test_layout_burn_in_and_thinning_match_jax(name, n_collect, n_discard, thin):
     """The port's fused MH run on the CPU has the JAX interpret-mode run's
     layout, sample k is the post-step state n_discard + (k + 1)·thin − 1 of

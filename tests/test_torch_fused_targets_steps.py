@@ -71,7 +71,7 @@ def _jax_mh_draws(seed, n, d, m):
 
 
 @pytest.mark.parametrize("proposal", ["walk", "pcn"])
-@pytest.mark.parametrize("name", [k for k in targets() if k != "logistic_nc"])
+@pytest.mark.parametrize("name", list(targets()))
 def test_mh_step_with_injected_draws_matches_jax(name, proposal):
     """Four MH steps of the port's ``"torch"`` step, which the fused MH
     kernel's plain version runs, equal the JAX package's with the same

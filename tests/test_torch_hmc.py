@@ -117,9 +117,12 @@ def test_unsupported_target_on_cuda_raises_before_launch():
     rng = np.random.default_rng(0)
     X, y = rng.normal(size=(16, 3)), (rng.uniform(size=16) < 0.5).astype(float)
     for target in (lambda v: -0.5 * (v * v).sum(-1), to_target("Poisson", 3.0),
-                   to_target("HierarchicalLogistic", X, y)):
+                   to_target("Binomial", 5, 0.3)):
         with pytest.raises(ValueError, match="fused HMC kernels take the targets"):
             fused_hmc_run(target, x_meta, 0.1, 3, 4)
+    # the centred logistic target is taken, at its own width only
+    with pytest.raises(ValueError, match="takes states of width 5"):
+        fused_hmc_run(to_target("HierarchicalLogistic", X, y), x_meta, 0.1, 3, 4)
     d = MAX_DENSE_DIM + 1
     dense = to_target("GaussianND", np.zeros(d), np.eye(d))
     with pytest.raises(ValueError, match=f"dim <= {MAX_DENSE_DIM}"):

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 import general_mcmc_tpu as gmt
+from general_mcmc_tpu.models.regression import HierarchicalLogistic as JaxLogistic
 from general_mcmc_tpu.models.regression import HierarchicalLogisticNC as JaxLogisticNC
 from general_mcmc_torch.convert import to_target
 
@@ -51,6 +52,8 @@ def targets():
                            ("GaussianND", np.zeros(4), cov4), 4, 0.2, 5),
         "logistic_nc": (JaxLogisticNC(jnp.asarray(X), jnp.asarray(y)),
                         ("HierarchicalLogisticNC", X, y), 8, 0.05, 5),
+        "logistic": (JaxLogistic(jnp.asarray(X), jnp.asarray(y)),
+                     ("HierarchicalLogistic", X, y), 8, 0.05, 5),
     }
 
 
