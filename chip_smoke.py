@@ -424,8 +424,14 @@ FUNNEL_CHAINS, FUNNEL_EPS, FUNNEL_L, FUNNEL_WALK = 1024, 0.1, 10, 0.3
 # starts the scale-10 coordinates cannot reach their spread whatever the
 # kernel; from the target the gates test that the kernel leaves it
 # invariant.  Gates: max|std/scale - 1| and the mean lag-1 correlation
-# corr(x_i, x_i+1) against 0.5, each within DENSE_TOL; the kernels against
-# their plain versions over DENSE_EQ_STEPS steps.
+# corr(x_i, x_i+1) against 0.5, each within DENSE_TOL; K1 against its plain
+# version over DENSE_EQ_STEPS steps, no chain differing; K3 by the logistic
+# kernels' rule: over KL_OFF_SEEDS at KL_OFF_STEPS (64) steps, its chains off
+# the float64 plain version at most the float32 plain version's own +
+# KL_OFF_SLACK (a rule of no chain off the float32 plain version at seed 0
+# passed there and failed at seeds 1, 3, 5, 6 and 7: each flip is a uniform
+# within float32 rounding of its threshold, which either float32 program may
+# take either way).
 DENSE_EPS, DENSE_L, DENSE_STEPS = 0.3, 10, (1000, 200)
 DENSE_WALK, DENSE_MH_STEPS = 0.1, (2000, 500)
 DENSE_TOL = {"K1": 0.05, "K3": 0.1}
@@ -488,6 +494,64 @@ KL_OFF_SEEDS, KL_OFF_STEPS, KL_OFF_SLACK = (0, 1, 2, 3), 64, 10
 # log tau at LGHC_HYPER (a fixed-ε HMC on the centred funnel
 # under-explores small tau, and the plain version shares that).
 LGHC_EPS, LGHC_HYPER = 0.25, (0.25, 0.25)
+
+# "logistic-german": German credit numeric's shape (Inference Gym's
+# GermanCreditNumericLogisticRegression, the ChEES paper's logistic target),
+# 1,000 observations x 24 features, on synthetic data of that shape from the
+# port's make_logistic_data at LGG_SEED (the real file is not in the
+# repository): X's hi and lo do not fit in a block's shared memory, so both
+# kernels stream it.  ChEES (plain PyTorch, "chees-logistic"'s settings) for
+# LGG_WARMUP + LGG_COLLECT steps gives the posterior, an adapted metric and
+# its step size (256 warmup steps left its R-hat at 1.039); HMC(backend=
+# "cuda") on both targets in that metric (the centred one in the mapped
+# draws' variance), L 10, run(1000, 200) from ChEES's last draws, at the
+# largest factor of ChEES's ε̄ among LGG_EPS_FACTORS whose accept over a
+# pilot run(LGG_PILOT) stays at least LGG_ACCEPT_FLOOR (ChEES adapts towards
+# 0.95, past the gate's window; near the leapfrog's stability edge, 2.5 ε̄
+# on the non-centred target, the trajectories amplify float32 rounding
+# past the agreement gate); MH on both targets from ChEES's last draws, the
+# random walk 2.38/sqrt(26) x the least posterior sd rounded down to two
+# figures, run(2000, 500) timed.  The references are the moments of
+# ChEES's last draws (10,240 posterior draws; its pooled collection carries
+# a few wide excursions in log tau that inflate the mapped betas' spread,
+# PERF.md §7: the phase prints where they lie, draws past LGG_FAR sds of
+# the last draws').  R-hat and moments come from thinned runs: HMC's from
+# run(1000, 200, thin=LGG_HMC_THIN) (unthinned, mu's autocorrelation at L 10
+# leaves R-hat at 1.018-1.036 on the non-centred target,
+# port_scripts/logistic_german_scan.py), MH's from run(2000, 500, thin=T) at
+# KG_GATE[target] = (chains, T) within 30 s of card time (the walk's
+# autocorrelation there runs to thousands of steps on the non-centred
+# target: R-hat - 1 falls as 1 / steps, 0.0147 thinned by 250, 0.0095
+# by 390 and 0.0092 by 400; a step takes ~30 µs at one or two tiles a block
+# (2,048 or 2,560 chains: 29.8 s thinned by 400, 29.7-30.2 s by 390 at
+# 2,560, and ~47 µs at five), so 2,048 chains thinned by 390, ~29 s).  The
+# gates are "K1-logistic"'s, "K3-logistic"'s and "K1-logistic-centred"'s.
+LGG_OBS, LGG_FEATURES, LGG_SEED = 1000, 24, 7
+LGG_WARMUP, LGG_COLLECT = 512, 512
+LGG_EPS_FACTORS = (1.0, 1.25, 1.5, 1.75, 2.0, 2.5, 3.0)
+LGG_PILOT, LGG_ACCEPT_FLOOR, LGG_HMC_THIN = (50, 50), 0.88, 4
+KG_GATE, KG_GATE_MS = {"nc": (2048, 390), "centred": (10_240, 60)}, 30_000
+LGG_FAR = 6.0
+# "logistic-wide": both kernels against their plain versions at LGW_CHAINS
+# chains and LGW_STEPS steps, at each (n_obs, p) of LGW_CASES (just past the
+# old limit; long; wide; wider; the widest taken; and the stretch line's
+# 256 x 48, resident), both targets, data from make_logistic_data at
+# LGW_SEED and positions at the posterior's scale (z or beta ~ N(0, 1/p),
+# log tau -1): K3 with the random walk LGW_WALK / sqrt(n_obs p), bit-equal
+# on the chains whose accept histories agree; K1 at ε LGW_EPS, L 5, in the
+# metric M⁻¹ = 1 / n_obs, from those positions after LGW_BURN steps of
+# its own (in the posterior: from the start's transient, whose gradients
+# are O(n_obs), 10,000 observations' float32 sums differ by more), within
+# LGH_RTOL there; and each kernel's chains off the float64 plain version by
+# the logistic family's rule (chains_off: a K3 position depends on the
+# density only through the accept decisions, so the bit check alone holds
+# for any density).  At 256 x 48 the resident
+# path's K3 store and K1 store of the non-centred target have the parent
+# commit's digests (RESIDENT_DIGESTS, sha256 of the float32 bytes).
+LGW_CASES = ((800, 24), (10_000, 24), (4096, 48), (1024, 100), (1024, 256), (256, 48))
+LGW_CHAINS, LGW_STEPS, LGW_SEED, LGW_WALK, LGW_EPS, LGW_BURN = 512, 64, 3, 0.5, 0.25, 200
+RESIDENT_DIGESTS = {"K3": "28b8572d7fd30bd4a98702555668bbf38db7abcf66ec4fa9585183a95a43103d",
+                    "K1": "039709d11d7e752e8b4bca04757b9767a91f338d39567b0f0cce996bcd71c06e"}
 
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
@@ -667,11 +731,12 @@ def phase_environment():
     smi = nvidia_smi_line()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    # one nvcc per source (the dense Gaussian's kernel one per width it is
-    # run at here, K3's logistic kernel one for the stretch line's 48
-    # features), all started together
-    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic", "fused_hmc_logistic",
-                  logistic_mh_build(LG_FEATURES)]
+    # one nvcc per source (the dense Gaussian's kernels one per width they
+    # are run at here, the logistic tile kernels one per count of feature
+    # tiles), all started together
+    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic"]
+                 + sorted({logistic_hmc_build(p) for p in LOGISTIC_WIDTHS})
+                 + sorted({logistic_mh_build(p) for p in LOGISTIC_WIDTHS})
                  + [dense_build(d) for d in sorted(set(DENSE_SMALL_DIMS + (DIM,)))]
                  + [dense_build(d, "fused_mh_dense")
                     for d in sorted(set(MH_DENSE_SMALL_DIMS + (DIM,)))])
@@ -705,6 +770,18 @@ def logistic_mh_build(p: int) -> str:
     kernel) that runs ``p`` features."""
     return _build.variant("fused_mh_logistic",
                           GMT_LOGISTIC_PT=fused_mh_logistic.feature_tiles(p))
+
+
+def logistic_hmc_build(p: int) -> str:
+    """The build of ``csrc/fused_hmc_logistic.cu`` (K1's logistic tile
+    kernel) that runs ``p`` features."""
+    return _build.variant("fused_hmc_logistic",
+                          GMT_LOGISTIC_PT=fused_hmc_logistic.feature_tiles(p))
+
+
+# The feature counts the logistic phases run: one build of each logistic
+# tile kernel for each count of feature tiles among them.
+LOGISTIC_WIDTHS = sorted({LG_FEATURES, LGG_FEATURES} | {p for _, p in LGW_CASES})
 
 
 def build_report(key: str, kernel: str) -> dict:
@@ -1719,7 +1796,27 @@ def phase_dense_main(dev):
         if kernel == "K1":
             check(0.6 < accept < 0.95, f"K1 dense accept {accept} within 0.6-0.95")
         eq = DENSE_EQ_STEPS[kernel]
-        eq_err = compare(run(eq, 0), plain(eq, 0), f"{kernel} dense over {eq} steps")
+        gate = {}
+        if kernel == "K1":
+            eq_err = compare(run(eq, 0), plain(eq, 0), f"{kernel} dense over {eq} steps")
+        else:
+            # K3: its chains off the float64 plain version over KL_OFF_SEEDS
+            # at KL_OFF_STEPS steps at most the float32 plain version's own
+            # + KL_OFF_SLACK (the logistic kernels' rule); the error over the
+            # chains whose accept histories agree
+            got, want = run(eq, 0), plain(eq, 0)
+            same = (accept_history(got, x0) == accept_history(want, x0)).all(dim=1)
+            eq_err = float((got[same] - want[same]).abs().max())
+            gate["eq_chains_differ"] = int((~same).sum())
+            del got, want
+            target64 = target.to(dtype=torch.float64)
+            gate["off_f64_kernel"], gate["off_f64_plain_f32"] = chains_off(
+                lambda seed: fused_mh.fused_mh_run(target, x0, walk, KL_OFF_STEPS, 0, seed=seed),
+                lambda seed: fused_mh.fused_mh_run_reference(target, x0, walk, KL_OFF_STEPS, 0,
+                                                             seed=seed),
+                lambda seed: fused_mh.fused_mh_run_reference(target64, x0.double(), walk,
+                                                             KL_OFF_STEPS, 0, seed=seed), x0)
+            del target64
         # the whole run's plain version, compared and timed
         t0 = time.perf_counter()
         want = plain(*steps)
@@ -1738,7 +1835,7 @@ def phase_dense_main(dev):
                            run_chains_differ=run_differ, ms=round(ms, 3),
                            plain_ms=round(plain_ms, 1), library_ms=round(library, 3),
                            library_call=library_call, **bounds,
-                           small_max_abs_err=small_errs[kernel], chain0_bit_equal=True,
+                           small_max_abs_err=small_errs[kernel], chain0_bit_equal=True, **gate,
                            **{k: v for k, v in layout.items() if k != "tiles"}, **build)
     say("dense-main", chains=N_CHAINS, dim=DIM, k1=f"eps {DENSE_EPS} L {DENSE_L} "
         f"{DENSE_STEPS[1]}+{DENSE_STEPS[0]}", k3=f"walk {DENSE_WALK} "
@@ -1850,7 +1947,7 @@ def phase_k1_logistic(dev, chees: dict):
     cuda_core_ms = bound(n_bytes, flops + other)[0]
     # the layout of the run's launch, from the kernel's host code
     layout = fused_hmc_logistic.launch_layout(N_CHAINS, LGC_OBS, p)
-    build = build_report("fused_hmc_logistic", "fused_hmc_logistic_kernel<6,0>")
+    build = build_report(logistic_hmc_build(p), "fused_hmc_logistic_kernel<6,0>")
     say("K1-logistic", chains=N_CHAINS, dim=LGC_DIM, n_obs=LGC_OBS, eps=eps,
         eps_bar=f"{chees['eps_bar']:.6f}", eps_bar_rounded=rounded,
         rounded_accept=f"{rounded_accept:.4f}",
@@ -1891,23 +1988,24 @@ def posterior_deviations(mean, std, ref_mean, ref_std):
     return ((mean.cpu() - ref_mean).abs() / ref_std, (std.cpu() / ref_std - 1.0).abs())
 
 
-def chains_off(run, plain, plain64, x0):
+def chains_off(run, plain, plain64, x0, what: str = ""):
     """Over KL_OFF_SEEDS at KL_OFF_STEPS steps: the chains whose accept
     histories differ from the float64 plain version's, the kernel's
     (``run(seed)``) and the float32 plain version's (``plain(seed)``), a
-    count per seed each."""
+    count per seed each; the kernel's at most the float32 plain version's +
+    KL_OFF_SLACK (``what`` names the check)."""
     kernel_off, plain_off = [], []
     for seed in KL_OFF_SEEDS:
         h64 = accept_history(plain64(seed), x0.double())
         kernel_off.append(int((accept_history(run(seed), x0) != h64).any(dim=1).sum()))
         plain_off.append(int((accept_history(plain(seed), x0) != h64).any(dim=1).sum()))
     check(sum(kernel_off) <= sum(plain_off) + KL_OFF_SLACK,
-          f"chains off the float64 plain version over seeds {KL_OFF_SEEDS}: the kernel's "
+          f"{what}chains off the float64 plain version over seeds {KL_OFF_SEEDS}: the kernel's "
           f"{kernel_off} at most the float32 plain version's {plain_off} + {KL_OFF_SLACK}")
     return kernel_off, plain_off
 
 
-def phase_k3_logistic(dev, chees: dict, centred: bool):
+def phase_k3_logistic(dev, chees: dict, centred: bool, library_ms=None):
     """``MetropolisHastings(backend="cuda")`` on the stretch line's posterior
     (one launch of ``csrc/fused_mh_logistic.cu``, none of
     ``csrc/fused_mh.cu``): accept; R-hat and the posterior against
@@ -1915,7 +2013,10 @@ def phase_k3_logistic(dev, chees: dict, centred: bool):
     plain version, bit-equal on the chains whose accept histories agree
     (the random walk, and pCN at KL_PCN_CHAINS), and its chains off the
     float64 plain version against the float32 plain version's own; timed
-    beside the plain version, one ``torch.matmul`` a step and the bound."""
+    beside the plain version, one ``torch.matmul`` a step and the bound.
+    The matmul's time (the forward product alone, not a call that computes
+    the MH step) is taken once, between two timings of the kernel, where
+    ``library_ms`` is None, and that one figure serves both targets."""
     label = "K3-logistic-centred" if centred else "K3-logistic"
     target, x0, ref_mean, ref_std = logistic_posterior(dev, chees, centred)
     n, d = x0.shape
@@ -1972,13 +2073,17 @@ def phase_k3_logistic(dev, chees: dict, centred: bool):
 
     ms, wall, o = timed(lambda: sampler().run(*KL_STEPS), 3)
     del o
+    n_steps = sum(KL_STEPS)
+    ms_after = None
+    if library_ms is None:
+        library_ms = library_matmul_ms(dev, [((n, p), (p, n_obs))], n_steps)
+        ms_after, _, o = timed(lambda: sampler().run(*KL_STEPS), 1)
+        del o
     t0 = time.perf_counter()
     o = fused_mh.fused_mh_run_reference(target, x0, walk, *KL_STEPS, seed=SEED)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     del o
-    n_steps = sum(KL_STEPS)
-    library_ms = library_matmul_ms(dev, [((n, p), (p, n_obs))], n_steps)
     # the bound: the run's products (2 n_obs p flops a chain and step) in
     # three TF32 passes on the tensor cores, beside ~20 operations an
     # observation for the softplus and its sum on the CUDA cores; the state
@@ -2009,8 +2114,8 @@ def phase_k3_logistic(dev, chees: dict, centred: bool):
         off_f64_plain_f32=json.dumps(plain_off), kernel_ms=f"{ms:.3f}", wall_s=f"{wall:.5f}",
         samples_per_s=f"{n * KL_STEPS[0] / wall:.4e}", plain_ms=f"{plain_ms:.1f}",
         bound_ms=f"{b_ms:.3f}", bound_by="operations", bound_cuda_core_ms=f"{cuda_core_ms:.3f}",
-        library_ms=f"{library_ms:.3f}", tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}",
-        softplus_f32_max_abs_err=f"{sp_err:.3e}",
+        library_ms=f"{library_ms:.3f}", kernel_ms_after_library=ms_after,
+        tflops=f"{flops / (ms * 1e-3) / 1e12:.3f}", softplus_f32_max_abs_err=f"{sp_err:.3e}",
         **{k: v for k, v in layout.items() if k != "tiles"}, **build)
     return dict(launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_cuda_core_ms=cuda_core_ms, library_ms=library_ms, accept=accept,
@@ -2110,7 +2215,7 @@ def phase_k1_logistic_centred(dev, chees: dict):
     other = N_CHAINS * (leapfrogs * (8 * n_obs + 8 * p) + n_steps * 20 * n_obs)
     b_ms = max(bound(n_bytes, 3 * flops, TF32_OPS_PER_S)[0], bound(n_bytes, other)[0])
     cuda_core_ms = bound(n_bytes, flops + other)[0]
-    build = build_report("fused_hmc_logistic", "fused_hmc_logistic_kernel<6,1>")
+    build = build_report(logistic_hmc_build(p), "fused_hmc_logistic_kernel<6,1>")
     say("K1-logistic-centred", chains=N_CHAINS, dim=LGC_DIM, n_obs=n_obs, eps=eps, L=LGH_L,
         steps=f"{LGH_STEPS[1]}+{LGH_STEPS[0]}", launches=launches, accept=f"{accept:.4f}",
         max_rhat=f"{max_rhat:.5f}", min_ess=f"{min_ess:.1f}",
@@ -2128,6 +2233,447 @@ def phase_k1_logistic_centred(dev, chees: dict):
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_cuda_core_ms=cuda_core_ms,
                 library_ms=library_ms, accept=accept, eps=eps, off_f64_kernel=kernel_off,
                 off_f64_plain_f32=plain_off, **build)
+
+
+def german_posterior(dev):
+    """German credit's shape (LGG_OBS x LGG_FEATURES, data at LGG_SEED) and
+    its posterior by ChEES on the non-centred target at the main path's
+    chains: the two targets, ChEES's ε̄ and metric (the centred target's the
+    mapped draws' variance), its last draws (mapped to (mu, log tau, beta)
+    for the centred target) and their mean and sd, each parameterisation's
+    reference; beside them, the largest ratio of the pooled collection's sd
+    to the last draws' (the in-run statistics', and the mapped draws'), and
+    where the excess lies: each quarter of the collection's mapped spread
+    against the last draws', the draws past LGG_FAR of the last draws' sds
+    in some mapped coordinate (their count, chains, steps and log density
+    against the median draw's), and the collection's divergences."""
+    X, y, _ = gmt.make_logistic_data(LGG_SEED, LGG_OBS, LGG_FEATURES, device=dev)
+    nc = gmt.HierarchicalLogisticNC(X, y)
+    d = LGG_FEATURES + 2
+    sampler = gmt.ChEESHMC(nc, gmt.init_with_seed(N_CHAINS, d, SEED, device=dev),
+                           target_accept_p=LGC_ACCEPT, jitter_amount=LGC_JITTER,
+                           static_collection=True, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    draws = sampler.run(LGG_COLLECT, LGG_WARMUP, with_stats=True)
+    torch.cuda.synchronize()
+    chees_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(draws).all()), "German credit's ChEES draws are finite")
+    rhat, _, _, pooled_std = gmt.combine_suffstats_host(*sampler._suffstats)
+    max_rhat = float(np.max(rhat))
+    check(max_rhat < 1.01, f"German credit's ChEES max R-hat {max_rhat} < 1.01")
+    last = draws[:, -1].contiguous()
+    mapped = torch.cat([last[:, :2], nc.beta(last)], dim=1).contiguous()
+    moments = lambda x: (x.double().mean(0).float().cpu(), x.double().std(0).float().cpu())
+    nc_ref, centred_ref = moments(last), moments(mapped)
+    ref_mean, ref_std = (r.to(dev).double() for r in centred_ref)
+    # the pooled collection's mapped spreads, by quarter of the collection,
+    # from the draws in float64, a block of chains at a time; the draws far
+    # from the last draws' moments, with their log densities
+    quarters = draws.shape[1] // 4
+    s1 = torch.zeros(4, d, dtype=torch.float64, device=dev)
+    s2 = s1.clone()
+    far_chains, far_steps, far_lp = [], [], []
+    for i, rows in enumerate(torch.split(draws, 1024)):
+        m = torch.cat([rows[..., :2], nc.beta(rows)], dim=-1).double()
+        q = m.reshape(m.shape[0], 4, quarters, d)
+        s1 += q.sum(dim=(0, 2))
+        s2 += (q * q).sum(dim=(0, 2))
+        far = (((m - ref_mean) / ref_std).abs().amax(dim=-1) > LGG_FAR).nonzero()
+        far_chains.append(far[:, 0] + 1024 * i)
+        far_steps.append(far[:, 1])
+        far_lp.append(nc.unnorm_logp(rows[far[:, 0], far[:, 1]]))
+    count = draws.shape[0] * quarters
+    quarter_std = torch.sqrt(s2 / count - (s1 / count) ** 2)
+    pooled_mapped_std = torch.sqrt(s2.sum(0) / (4 * count) - (s1.sum(0) / (4 * count)) ** 2)
+    median_lp = float(nc.unnorm_logp(last).median())
+    far_chains, far_steps, far_lp = (torch.cat(v).cpu() for v in (far_chains, far_steps, far_lp))
+    del draws
+    per_chain = sampler.divergences.cpu()
+    diverging = set(torch.nonzero(per_chain > 0).flatten().tolist())
+    far_set = set(far_chains.tolist())
+    chees = dict(eps_bar=float(sampler.adapted_step_size), chees_s=chees_s, max_rhat=max_rhat,
+                 pooled_over_last_sd=round(float((torch.as_tensor(pooled_std).float()
+                                                  / nc_ref[1]).max()), 4),
+                 pooled_over_last_mapped_sd=round(float((pooled_mapped_std.float().cpu()
+                                                         / centred_ref[1]).max()), 4),
+                 quarter_over_last_mapped_sd=[round(float(v), 4) for v in
+                                              (quarter_std / ref_std).amax(dim=1)],
+                 far_draws=int(far_chains.numel()), far_chains=len(far_set),
+                 far_steps=[int(far_steps.min()), int(far_steps.max())] if far_set else [],
+                 far_lp_below_median=(round(median_lp - float(far_lp.max()), 2),
+                                      round(median_lp - float(far_lp.min()), 2))
+                 if far_set else (), divergences=int(per_chain.sum()),
+                 chains_diverging=len(diverging), far_chains_diverging=len(far_set & diverging))
+    return chees, {
+        "nc": (nc, sampler.adapted_mass_inv.float(), last, *nc_ref),
+        "centred": (gmt.HierarchicalLogistic(X, y), (centred_ref[1]**2).to(dev), mapped,
+                    *centred_ref)}
+
+
+def x_bytes_read(layout: dict, densities: int) -> int:
+    """The bytes of X (its hi and lo and y) the blocks of a launch read over
+    a run of ``densities`` passes over the data (gradients or log
+    densities) a tile: the streamed path's split copy once a block and
+    pass, the resident path's X once a block."""
+    if layout["streamed"]:
+        return 4 * layout["blocks"] * densities * layout["scratch_words"]
+    return layout["blocks"] * layout["shared_bytes"]
+
+
+def spill_free(build: dict, what: str) -> None:
+    """A build this run compiled spills nothing (ptxas -v)."""
+    check(build["spill_store_bytes"] in (0, None),
+          f"{what}: no spill stores ({build['spill_store_bytes']} bytes)")
+
+
+def build_spills(key: str) -> dict:
+    """``{kernel: spill store bytes}`` of every kernel of a build this run
+    compiled that spills (ptxas -v): empty for a build that spills nothing
+    or was found built."""
+    return {k: b for k, (_, b) in ptxas_report(_build.compile_log.get(key, "")).items() if b}
+
+
+def german_k1(dev, kind: str, target, mass_inv, start, ref_mean, ref_std, eps_bar: float):
+    """HMC(backend="cuda") at German credit's shape on one target from
+    ``start`` (chains in the posterior): the step size by the pilot, the
+    run's gates, the kernel against its plain version
+    (1, 8 and 64 steps; chains off the float64 plain version over
+    KL_OFF_SEEDS), timed beside the two torch.matmul of a leapfrog and the
+    bound (the plain version's time at this shape:
+    port_scripts/logistic_stream_designs.py)."""
+    n_obs, p = target.X.shape
+    d = p + 2
+    centred = kind == "centred"
+    mass_inv = mass_inv.to(dev)
+    x0 = start.to(dev)
+    sampler = lambda e: gmt.HMC(target, x0, e, LGH_L, seed=SEED, mass_inv=mass_inv,
+                                backend="cuda")
+    pilot = {f: moved_share(sampler(f * eps_bar).run(*LGG_PILOT)) for f in LGG_EPS_FACTORS}
+    factor = max([f for f in LGG_EPS_FACTORS if pilot[f] >= LGG_ACCEPT_FLOOR],
+                 default=LGG_EPS_FACTORS[0])
+    eps = round(factor * eps_bar, 6)
+    reset_counts()
+    samples = sampler(eps).run(*LGH_STEPS)
+    torch.cuda.synchronize()
+    launches, lane = fused_hmc_logistic.launches, fused_hmc.launches
+    check(launches == 1 and lane == 0,
+          f"German {kind}: one logistic HMC launch ({launches}; K1 {lane})")
+    store = samples.transpose(0, 1)
+    check(tuple(samples.shape) == (N_CHAINS, LGH_STEPS[0], d)
+          and bool(torch.isfinite(store).all()), f"German {kind} HMC: shape and finite")
+    accept = moved_share(samples)
+    unthinned_rhat = float(gmt.split_rhat_mean_ess(store, steps_major=True)[0].max())
+    del samples, store
+    gate = sampler(eps).run(*LGH_STEPS, thin=LGG_HMC_THIN)
+    rhat, ess, mean, std = gmt.split_rhat_mean_ess(gate.transpose(0, 1), steps_major=True,
+                                                   return_moments=True)
+    del gate
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    mean_dev, sd_dev = posterior_deviations(mean, std, ref_mean, ref_std)
+    check(0.6 < accept < 0.95, f"German {kind} HMC accept {accept} within 0.6-0.95")
+    check(max_rhat < 1.01,
+          f"German {kind} HMC max R-hat {max_rhat} < 1.01 (thin {LGG_HMC_THIN})")
+    check(float(mean_dev.max()) < LGH_MEAN_SD and float(sd_dev.max()) < LGH_SD_REL,
+          f"German {kind} HMC: means within {float(mean_dev.max())} < {LGH_MEAN_SD} sd of "
+          f"ChEES's, sds within {float(sd_dev.max())} < {LGH_SD_REL}")
+    kw = dict(seed=SEED, mass_inv=mass_inv)
+    target64, x64, m64 = target.to(dtype=torch.float64), x0.double(), mass_inv.double()
+    rel, differ, abs_err = {}, {}, 0.0
+    for steps in LGH_EQ_STEPS:
+        got = fused_hmc.fused_hmc_run(target, x0, eps, LGH_L, steps, 0, **kw)
+        want = fused_hmc.fused_hmc_run_reference(target, x0, eps, LGH_L, steps, 0, **kw)
+        same = (accept_history(got, x0) == accept_history(want, x0)).all(dim=1)
+        differ[steps] = int((~same).sum())
+        rel[steps] = float((got[same] - want[same]).abs().max() / want[same].abs().max())
+        abs_err = max(abs_err, float((got[same] - want[same]).abs().max()))
+        del got
+        # for scale: the float32 plain version against float64
+        if steps == LGH_EQ_STEPS[-1]:
+            want64 = fused_hmc.fused_hmc_run_reference(target64, x64, eps, LGH_L, steps, 0,
+                                                       seed=SEED, mass_inv=m64)
+            same64 = (accept_history(want64, x64) == accept_history(want, x0)).all(dim=1)
+            rel64 = float((want[same64].double() - want64[same64]).abs().max()
+                          / want64[same64].abs().max())
+            del want64
+        del want
+        check(rel[steps] < LGH_RTOL, f"German {kind} HMC after {steps} steps: relative error "
+              f"{rel[steps]} < {LGH_RTOL} ({differ[steps]} chains differ)")
+    kernel_off, plain_off = chains_off(
+        lambda seed: fused_hmc.fused_hmc_run(target, x0, eps, LGH_L, KL_OFF_STEPS, 0,
+                                             seed=seed, mass_inv=mass_inv),
+        lambda seed: fused_hmc.fused_hmc_run_reference(target, x0, eps, LGH_L, KL_OFF_STEPS,
+                                                       0, seed=seed, mass_inv=mass_inv),
+        lambda seed: fused_hmc.fused_hmc_run_reference(target64, x64, eps, LGH_L,
+                                                       KL_OFF_STEPS, 0, seed=seed,
+                                                       mass_inv=m64), x0)
+    del target64
+    ms, wall, o = timed(lambda: sampler(eps).run(*LGH_STEPS), 1)
+    del o
+    n_steps = sum(LGH_STEPS)
+    leapfrogs = n_steps * LGH_L
+    library_ms = library_matmul_ms(dev, [((N_CHAINS, p), (p, n_obs)),
+                                         ((N_CHAINS, n_obs), (n_obs, p))], leapfrogs)
+    # the bound: the gradients' two products in three TF32 passes beside the
+    # rest on the CUDA cores, as "K1-logistic"'s; the state and X read once,
+    # the store written once
+    n_bytes = 4 * (N_CHAINS * d * (1 + LGH_STEPS[0]) + n_obs * p + n_obs)
+    flops = N_CHAINS * leapfrogs * 4 * n_obs * p
+    other = N_CHAINS * (leapfrogs * (8 * n_obs + 8 * p) + n_steps * 20 * n_obs)
+    bounds = tile_bounds((n_bytes, other, 0), flops)
+    layout = fused_hmc_logistic.launch_layout(N_CHAINS, n_obs, p)
+    build = build_report(logistic_hmc_build(p),
+                         f"fused_hmc_logistic_streamed_kernel<{int(centred)}>")
+    spill_free(build, f"German {kind} K1's build")
+    return dict(launches=launches, eps=eps, eps_factor=factor,
+                pilot_accept={str(f): round(a, 4) for f, a in pilot.items()},
+                accept=round(accept, 4), unthinned_max_rhat=round(unthinned_rhat, 5),
+                thin=LGG_HMC_THIN, max_rhat=round(max_rhat, 5), min_ess=round(min_ess, 1),
+                mean_dev_sd=round(float(mean_dev.max()), 4), sd_dev=round(float(sd_dev.max()), 4),
+                worst_coordinates=[int(mean_dev.argmax()), int(sd_dev.argmax())],
+                rel_err={str(k): float(f"{v:.3e}") for k, v in rel.items()},
+                plain_f32_vs_f64_rel=float(f"{rel64:.3e}"),
+                chains_differ={str(k): v for k, v in differ.items()}, max_abs_err=abs_err,
+                off_f64_kernel=kernel_off, off_f64_plain_f32=plain_off, ms=round(ms, 3),
+                wall_s=round(wall, 5), library_ms=round(library_ms, 3),
+                bound_ms=bounds["bound_tensor_3xtf32_ms"], bound_by="operations",
+                bound_cuda_core_ms=bounds["bound_cuda_core_ms"],
+                x_bytes_read=x_bytes_read(layout, n_steps * LGH_L + 1),
+                tflops=round(flops / (ms * 1e-3) / 1e12, 3),
+                **{k: v for k, v in layout.items() if k != "tiles"}, **build)
+
+
+def german_k3(dev, kind: str, target, x0, ref_mean, ref_std):
+    """MetropolisHastings(backend="cuda") at German credit's shape on one
+    target from its posterior: the run's launch and accept, R-hat and
+    moments from the gate run (KG_GATE), the kernel against its plain
+    version (bit-equal on the chains whose accept histories agree after 1,
+    8 and 64 steps, the random walk and pCN; chains off the float64 plain
+    version over KL_OFF_SEEDS), timed beside one torch.matmul a step and the
+    bound (the plain version's time: port_scripts/logistic_stream_designs.py)."""
+    n, d = x0.shape
+    n_obs, p = target.X.shape
+    centred = kind == "centred"
+    scale = two_figures_down(2.38 / math.sqrt(d) * float(ref_std.min()))
+    walk = gmt.RandomWalkProposal(scale)
+    sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED, backend="cuda")
+    reset_counts()
+    samples = sampler().run(*KL_STEPS)
+    torch.cuda.synchronize()
+    launches, lane = fused_mh_logistic.launches, fused_mh.launches
+    check(launches == 1 and lane == 0,
+          f"German {kind}: one logistic MH launch ({launches}; fused_mh.cu {lane})")
+    check(tuple(samples.shape) == (n, KL_STEPS[0], d) and bool(torch.isfinite(samples).all()),
+          f"German {kind} MH: shape and finite")
+    accept = moved_share(samples)
+    check(KL_ACCEPT[0] < accept < KL_ACCEPT[1],
+          f"German {kind} MH: accept {accept} within {KL_ACCEPT}")
+    _, unthinned_ess = gmt.split_rhat_mean_ess(samples.transpose(0, 1), steps_major=True)
+    unthinned_min_ess = float(unthinned_ess.min())
+    del samples
+    chains, thin = KG_GATE[kind]
+    few = x0[:chains].contiguous()
+    gate_ms, _, gate = timed(lambda: gmt.MetropolisHastings(
+        target, walk, few, seed=SEED, backend="cuda").run(*KL_STEPS, thin=thin), 1)
+    rhat, ess, mean, std = gmt.split_rhat_mean_ess(gate.transpose(0, 1), steps_major=True,
+                                                   return_moments=True)
+    del gate
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    mean_dev, sd_dev = posterior_deviations(mean, std, ref_mean, ref_std)
+    check(gate_ms < KG_GATE_MS,
+          f"German {kind} MH: the gate run's {gate_ms} card ms < {KG_GATE_MS}")
+    check(max_rhat < 1.01,
+          f"German {kind} MH: max R-hat {max_rhat} < 1.01 ({chains} chains, thin {thin})")
+    check(float(mean_dev.max()) < LGH_MEAN_SD and float(sd_dev.max()) < LGH_SD_REL,
+          f"German {kind} MH: means within {float(mean_dev.max())} < {LGH_MEAN_SD} sd of "
+          f"ChEES's, sds within {float(sd_dev.max())} < {LGH_SD_REL}")
+    differ = {}
+    pcn = gmt.PCNProposal(KL_PCN)
+    for name, prop, xs in (("walk", walk, x0), ("pcn", pcn, x0[:KL_PCN_CHAINS].contiguous())):
+        for steps in KL_EQ_STEPS:
+            got = fused_mh.fused_mh_run(target, xs, prop, steps, 0, seed=SEED)
+            want = fused_mh.fused_mh_run_reference(target, xs, prop, steps, 0, seed=SEED)
+            same = (accept_history(got, xs) == accept_history(want, xs)).all(dim=1)
+            check(torch.equal(got[same], want[same]),
+                  f"German {kind} MH {name}: the chains whose accept histories agree are "
+                  f"bit-equal after {steps} steps")
+            differ[f"{name}_{steps}"] = int((~same).sum())
+            del got, want
+    target64 = target.to(dtype=torch.float64)
+    kernel_off, plain_off = chains_off(
+        lambda seed: fused_mh.fused_mh_run(target, x0, walk, KL_OFF_STEPS, 0, seed=seed),
+        lambda seed: fused_mh.fused_mh_run_reference(target, x0, walk, KL_OFF_STEPS, 0,
+                                                     seed=seed),
+        lambda seed: fused_mh.fused_mh_run_reference(target64, x0.double(), walk,
+                                                     KL_OFF_STEPS, 0, seed=seed), x0)
+    del target64
+    ms, wall, o = timed(lambda: sampler().run(*KL_STEPS), 1)
+    del o
+    n_steps = sum(KL_STEPS)
+    library_ms = library_matmul_ms(dev, [((n, p), (p, n_obs))], n_steps)
+    # the bound: "K3-logistic"'s, one product a step in three TF32 passes
+    n_bytes = 4 * (n * d * (1 + KL_STEPS[0]) + n_obs * p + n_obs)
+    flops = n * n_steps * 2 * n_obs * p
+    other = n * n_steps * 20 * n_obs
+    bounds = tile_bounds((n_bytes, other, 0), flops)
+    layout = fused_mh_logistic.launch_layout(n, n_obs, p)
+    build = build_report(logistic_mh_build(p),
+                         f"fused_mh_logistic_streamed_kernel<0,{int(centred)}>")
+    spill_free(build, f"German {kind} K3's build")
+    return dict(launches=launches, walk=scale, accept=round(accept, 4),
+                unthinned_min_ess=round(unthinned_min_ess, 1), gate_chains=chains, thin=thin,
+                gate_ms=round(gate_ms, 1), max_rhat=round(max_rhat, 5),
+                min_ess=round(min_ess, 1), mean_dev_sd=round(float(mean_dev.max()), 4),
+                sd_dev=round(float(sd_dev.max()), 4),
+                worst_coordinates=[int(mean_dev.argmax()), int(sd_dev.argmax())],
+                chains_differ=differ, max_abs_err=0.0,
+                off_f64_kernel=kernel_off, off_f64_plain_f32=plain_off, ms=round(ms, 3),
+                wall_s=round(wall, 5), library_ms=round(library_ms, 3),
+                bound_ms=bounds["bound_tensor_3xtf32_ms"], bound_by="operations",
+                bound_cuda_core_ms=bounds["bound_cuda_core_ms"],
+                x_bytes_read=x_bytes_read(layout, n_steps + 1),
+                tflops=round(flops / (ms * 1e-3) / 1e12, 3),
+                **{k: v for k, v in layout.items() if k != "tiles"}, **build)
+
+
+def phase_logistic_german(dev):
+    """The logistic family at German credit's shape at full width (10,240
+    chains), X streamed: ChEES's posterior, then HMC(backend="cuda") and
+    MetropolisHastings(backend="cuda") on both targets, one launch each
+    (german_k1, german_k3)."""
+    chees, targets = german_posterior(dev)
+    out = {}
+    for kind, (target, mass_inv, last, mean, std) in targets.items():
+        out[f"K1_{kind}"] = german_k1(dev, kind, target, mass_inv, last, mean, std,
+                                      chees["eps_bar"])
+        torch.cuda.empty_cache()
+        out[f"K3_{kind}"] = german_k3(dev, kind, target, last, mean, std)
+        torch.cuda.empty_cache()
+    say("logistic-german", chains=N_CHAINS, n_obs=LGG_OBS, p=LGG_FEATURES,
+        data=f"make_logistic_data({LGG_SEED}, {LGG_OBS}, {LGG_FEATURES})",
+        chees=f"{LGG_WARMUP}+{LGG_COLLECT}", chees_s=f"{chees['chees_s']:.3f}",
+        chees_max_rhat=f"{chees['max_rhat']:.5f}", eps_bar=f"{chees['eps_bar']:.6f}",
+        chees_spread=json.dumps({k: v for k, v in chees.items()
+                                 if k not in ("eps_bar", "chees_s", "max_rhat")}),
+        results=json.dumps(out))
+    return out
+
+
+def resident_digests(dev):
+    """The resident path's stores at the stretch line's shape (256 x 48,
+    make_logistic_data at LGW_SEED, the non-centred target, LGW_CHAINS
+    chains, LGW_STEPS steps): K3 with the random walk and K1, each a sha256
+    of its float32 bytes.  Only calls an earlier tree also has, so that a
+    parent commit's package gives its own digests."""
+    X, y, _ = gmt.make_logistic_data(LGW_SEED, 256, 48, device=dev)
+    target = gmt.HierarchicalLogisticNC(X, y)
+    x0 = gmt.init_with_seed(LGW_CHAINS, 50, 2, device=dev) / math.sqrt(48)
+    x0[:, 1] -= 1.0
+    x0 = x0.contiguous()
+    walk = gmt.RandomWalkProposal(LGW_WALK / math.sqrt(256 * 48))
+    k3 = fused_mh.fused_mh_run(target, x0, walk, LGW_STEPS, 0, seed=SEED)
+    inv = torch.full((50,), 1.0 / 256, device=dev)
+    k1 = fused_hmc.fused_hmc_run(target, x0, LGW_EPS, 5, LGW_STEPS, 0, seed=SEED, mass_inv=inv)
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+            for name, t in (("K3", k3), ("K1", k1))}
+
+
+def phase_logistic_wide(dev):
+    """Both logistic kernels against their plain versions at each of
+    LGW_CASES, both targets: K3 bit-equal on the chains whose accept
+    histories agree, K1 within LGH_RTOL there; each kernel's chains off the
+    float64 plain version over KL_OFF_SEEDS at most the float32 plain
+    version's + KL_OFF_SLACK (chains_off: on the CPU a K3 density that
+    leaves out 32 observations puts 25-446 chains a seed off, the fewest at
+    10,000 x 24, where the float32 plain version puts 0-3,
+    port_scripts/logistic_wide_gate_power.py); each case's path and panel
+    from the kernels' host code, and the builds' registers and spills (none);
+    at 256 x 48 the resident path's digests equal the parent's."""
+    out = {}
+    for n_obs, p in LGW_CASES:
+        X, y, _ = gmt.make_logistic_data(LGW_SEED, n_obs, p, device=dev)
+        x0 = gmt.init_with_seed(LGW_CHAINS, p + 2, 2, device=dev) / math.sqrt(p)
+        x0[:, 1] -= 1.0
+        x0 = x0.contiguous()
+        walk = gmt.RandomWalkProposal(LGW_WALK / math.sqrt(n_obs * p))
+        inv = torch.full((p + 2,), 1.0 / n_obs, device=dev)
+        case = {}
+        targets = {"nc": gmt.HierarchicalLogisticNC(X, y),
+                   "centred": gmt.HierarchicalLogistic(X, y)}
+        starts = {kind: fused_hmc.fused_hmc_run(target, x0, LGW_EPS, 5, 1, LGW_BURN,
+                                                seed=SEED + 1, mass_inv=inv)[:, 0].contiguous()
+                  for kind, target in targets.items()}
+        reset_counts()
+        for kind, target in targets.items():
+            start = starts[kind]
+            got = fused_mh.fused_mh_run(target, x0, walk, LGW_STEPS, 0, seed=SEED)
+            want = fused_mh.fused_mh_run_reference(target, x0, walk, LGW_STEPS, 0, seed=SEED)
+            same = (accept_history(got, x0) == accept_history(want, x0)).all(dim=1)
+            check(torch.equal(got[same], want[same]),
+                  f"logistic-wide {n_obs} x {p} {kind} K3: the chains whose accept histories "
+                  f"agree are bit-equal")
+            k3_accept, k3_differ = moved_share(want), int((~same).sum())
+            target64 = target.to(dtype=torch.float64)
+            k3_off = chains_off(
+                lambda seed: fused_mh.fused_mh_run(target, x0, walk, KL_OFF_STEPS, 0, seed=seed),
+                lambda seed: fused_mh.fused_mh_run_reference(target, x0, walk, KL_OFF_STEPS, 0,
+                                                             seed=seed),
+                lambda seed: fused_mh.fused_mh_run_reference(target64, x0.double(), walk,
+                                                             KL_OFF_STEPS, 0, seed=seed),
+                x0, f"logistic-wide {n_obs} x {p} {kind} K3: ")
+            got = fused_hmc.fused_hmc_run(target, start, LGW_EPS, 5, LGW_STEPS, 0, seed=SEED,
+                                          mass_inv=inv)
+            want = fused_hmc.fused_hmc_run_reference(target, start, LGW_EPS, 5, LGW_STEPS, 0,
+                                                     seed=SEED, mass_inv=inv)
+            same = (accept_history(got, start) == accept_history(want, start)).all(dim=1)
+            rel = float((got[same] - want[same]).abs().max() / want[same].abs().max())
+            check(rel < LGH_RTOL and bool(torch.isfinite(got).all()),
+                  f"logistic-wide {n_obs} x {p} {kind} K1: relative error {rel} < {LGH_RTOL}")
+            k1_accept, k1_differ = moved_share(want), int((~same).sum())
+            del got, want
+            inv64 = inv.double()
+            k1_off = chains_off(
+                lambda seed: fused_hmc.fused_hmc_run(target, start, LGW_EPS, 5, KL_OFF_STEPS, 0,
+                                                     seed=seed, mass_inv=inv),
+                lambda seed: fused_hmc.fused_hmc_run_reference(
+                    target, start, LGW_EPS, 5, KL_OFF_STEPS, 0, seed=seed, mass_inv=inv),
+                lambda seed: fused_hmc.fused_hmc_run_reference(
+                    target64, start.double(), LGW_EPS, 5, KL_OFF_STEPS, 0, seed=seed,
+                    mass_inv=inv64), start, f"logistic-wide {n_obs} x {p} {kind} K1: ")
+            del target64
+            case[kind] = dict(k3_accept=round(k3_accept, 4), k3_differ=k3_differ,
+                              k3_off_f64=list(k3_off), k1_accept=round(k1_accept, 4),
+                              k1_differ=k1_differ, k1_rel_err=float(f"{rel:.3e}"),
+                              k1_off_f64=list(k1_off))
+        launches = {"K3": fused_mh_logistic.launches, "K1": fused_hmc_logistic.launches}
+        # a run and one a seed of chains_off, each target
+        each = 2 * (1 + len(KL_OFF_SEEDS))
+        check(launches == {"K3": each, "K1": each} and fused_mh.launches == fused_hmc.launches == 0,
+              f"logistic-wide {n_obs} x {p}: one launch of each logistic kernel a target "
+              f"({launches})")
+        for name, mod, build, kernels in (
+                ("K3", fused_mh_logistic, logistic_mh_build(p),
+                 ("fused_mh_logistic_streamed_kernel<0,0>", "fused_mh_logistic_kernel<0,0>")),
+                ("K1", fused_hmc_logistic, logistic_hmc_build(p),
+                 ("fused_hmc_logistic_streamed_kernel<0>",
+                  f"fused_hmc_logistic_kernel<{fused_hmc_logistic.feature_tiles(p)},0>"))):
+            lay = mod.launch_layout(LGW_CHAINS, n_obs, p)
+            report = build_report(build, kernels[0] if lay["streamed"] else kernels[1])
+            spills = build_spills(build)
+            check(not spills, f"logistic-wide {n_obs} x {p}: {build} spills nothing ({spills})")
+            case[name] = dict(launches=launches[name], streamed=lay["streamed"],
+                              panel_rows=lay["panel_rows"],
+                              panels=lay["panels"], tiles_a_block=lay["tiles_a_block"],
+                              shared_bytes=lay["shared_bytes"], **report)
+        out[f"{n_obs}x{p}"] = case
+    digests = resident_digests(dev)
+    for name, want in RESIDENT_DIGESTS.items():
+        check(digests[name] == want,
+              f"logistic-wide: the resident {name} store at 256 x 48 has the parent's digest "
+              f"({digests[name]})")
+    say("logistic-wide", chains=LGW_CHAINS, steps=LGW_STEPS, digests=json.dumps(digests),
+        results=json.dumps(out))
+    return dict(cases=out, digests=digests)
 
 
 def chees_moments(samples):
@@ -4336,9 +4882,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3_logistic = {"nc": phase_k3_logistic(dev, chees_lg, False)}
     torch.cuda.empty_cache()
-    k3_logistic["centred"] = phase_k3_logistic(dev, chees_lg, True)
+    k3_logistic["centred"] = phase_k3_logistic(dev, chees_lg, True,
+                                               library_ms=k3_logistic["nc"]["library_ms"])
     torch.cuda.empty_cache()
     k1_centred = phase_k1_logistic_centred(dev, chees_lg)
+    torch.cuda.empty_cache()
+    german = phase_logistic_german(dev)
+    torch.cuda.empty_cache()
+    wide = phase_logistic_wide(dev)
     torch.cuda.empty_cache()
     nuts_small = phase_nuts_small(dev)
     nuts = phase_nuts_leg(dev, "torch")
@@ -4541,7 +5092,8 @@ def main() -> int:
         dict(name="fused_hmc_logistic", route="cuda",
              source="general_mcmc_torch/csrc/fused_hmc_logistic.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
-             launches=k1_logistic["launches"] + k1_centred["launches"],
+             launches=(k1_logistic["launches"] + k1_centred["launches"]
+                       + german["K1_nc"]["launches"] + german["K1_centred"]["launches"]),
              max_abs_err=max(k1_logistic["max_abs_err"], k1_centred["max_abs_err"]),
              max_rel_err={str(k): v for k, v in k1_logistic["rel_err"].items()},
              chains_differ={str(k): v for k, v in k1_logistic["chains_differ"].items()},
@@ -4563,7 +5115,17 @@ def main() -> int:
                  "library_ms", "accept", "eps", "off_f64_kernel", "off_f64_plain_f32",
                  "registers", "spill_store_bytes")},
              centred_max_rel_err={str(k): v for k, v in k1_centred["rel_err"].items()},
-             checked_in="K1-logistic, K1-logistic-centred"),
+             # the streamed path at German credit's shape ("logistic-german":
+             # both targets' runs, gates, times, bounds, X's bytes read and
+             # layouts) and at "logistic-wide"'s cases (paths, panels,
+             # registers, spills, errors against the plain version)
+             german={k: german[f"K1_{k}"] for k in ("nc", "centred")},
+             wide={c: {"K1": v["K1"], **{k: {f: v[k][f] for f in (
+                 "k1_accept", "k1_differ", "k1_rel_err", "k1_off_f64")}
+                 for k in ("nc", "centred")}}
+                 for c, v in wide["cases"].items()},
+             resident_digest=wide["digests"]["K1"],
+             checked_in="K1-logistic, K1-logistic-centred, logistic-german, logistic-wide"),
         # K3 on the stretch line's posterior, both parameterisations: its own
         # tile kernel on tile_mh.cuh and K4's tile code; launches from the two
         # runs through MetropolisHastings (each counted from 0 around its
@@ -4576,7 +5138,8 @@ def main() -> int:
         dict(name="fused_mh_logistic", route="cuda",
              source="general_mcmc_torch/csrc/fused_mh_logistic.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61",
-             launches=k3_logistic["nc"]["launches"] + k3_logistic["centred"]["launches"],
+             launches=(k3_logistic["nc"]["launches"] + k3_logistic["centred"]["launches"]
+                       + german["K3_nc"]["launches"] + german["K3_centred"]["launches"]),
              max_abs_err=0.0, ms=k3_logistic["nc"]["ms"],
              plain_ms=k3_logistic["nc"]["plain_ms"], bound_ms=k3_logistic["nc"]["bound_ms"],
              bound_by="operations", bound_cuda_core_ms=k3_logistic["nc"]["bound_cuda_core_ms"],
@@ -4589,7 +5152,13 @@ def main() -> int:
                  "launches", "ms", "plain_ms", "bound_ms", "library_ms", "accept", "max_rhat",
                  "walk", "chains_differ", "off_f64_kernel", "off_f64_plain_f32", "registers",
                  "spill_store_bytes")},
-             checked_in="K3-logistic, K3-logistic-centred"),
+             german={k: german[f"K3_{k}"] for k in ("nc", "centred")},
+             wide={c: {"K3": v["K3"], **{k: {f: v[k][f] for f in ("k3_accept", "k3_differ",
+                                                                  "k3_off_f64")}
+                                         for k in ("nc", "centred")}}
+                   for c, v in wide["cases"].items()},
+             resident_digest=wide["digests"]["K3"],
+             checked_in="K3-logistic, K3-logistic-centred, logistic-german, logistic-wide"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

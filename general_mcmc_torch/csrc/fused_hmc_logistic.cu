@@ -28,9 +28,13 @@
 // What bounds it on the H100: operations.  A gradient is 4 n_obs p flops a
 // chain, computed as three TF32 passes on the tensor cores, and everything
 // else a step (draws, kicks, energies) is O(p) a chain; the state is read
-// once and every collected row written once.
+// once and every collected row written once.  On the streamed path X's hi
+// and lo cross L2 once a block and gradient: 474 GB over a run at German
+// credit's shape (10,240 chains, X [1000, 24], 12,000 leapfrogs), under
+// 1 TB/s of L2 reads beside a 71.5 ms operations bound.
 //
-// Design: the HMC is tile_hmc.cuh's, around the gradient of
+// Design (the resident path, X in shared memory; the streamed path below):
+// the HMC is tile_hmc.cuh's, around the gradient of
 // logistic_tile.cuh (K4's: X as TF32 hi and lo in shared memory, both
 // products as mma.sync m16n8k8 in three passes, beta and the partial g
 // handed between a tile's warps in shared memory), in tiles of 16 chains
@@ -70,6 +74,22 @@
 //    gradients: each use has its own buffer, so a warp that runs ahead
 //    never writes one the other still reads.
 //
+//
+// The streamed path (logistic_tile.cuh's head note), where X's hi and lo
+// and y do not fit beside one tile or p > 48: a block reads X in panels of
+// observations through a ring of shared-memory stages, filled by bulk
+// copies from a buffer split into hi and lo once a launch (split_panels).
+// The last of the block's warps to release a stage issues its refill: no
+// warp is spent on the copies (a producer warp would cost the solvers
+// registers and sit idle most of a panel).  A tile is 16 chains of NS warps
+// (2 up to 64 features, then ceil(PT / 4): 8 at 256), the feature tiles
+// dealt over the warps, so a warp's beta, z, momentum and gradient are at
+// most 4 feature tiles of registers whatever p; the gradient is
+// logistic_tile.cuh's PanelGrad (per panel: each warp's partial logits over
+// its feature tiles, their sum, r and the log-likelihood by 8-observation
+// tiles, then g += r X of each warp's feature tiles).  The HMC around it is
+// the resident path's: LogisticTile over either gradient engine.
+//
 // Agreement with the plain version: the products sum in another order than
 // torch.matmul and carry the split's 2^-22, and the sigmoid is K4's (the
 // reduced-accuracy __expf and __fdividef), so the two agree to a tolerance,
@@ -79,9 +99,10 @@
 // written with __fadd_rn/__fmul_rn, which are never contracted, in the plain
 // version's order; the draws are the plain version's bits.
 //
-// C interface, loaded with ctypes (general_mcmc_torch/_build.py); the entry
-// point returns the first CUDA error of its calls, or cudaErrorInvalidValue
-// for a feature count it was not built for.
+// C interface, loaded with ctypes (general_mcmc_torch/_build.py), one build
+// for each count of 8-feature tiles (GMT_LOGISTIC_PT, even, 2 to 32: p up to
+// 256); the entry point returns the first CUDA error of its calls, or
+// cudaErrorInvalidValue for a feature count the build is not for.
 
 #include <cuda_runtime.h>
 
@@ -91,18 +112,33 @@
 #include "logistic_tile.cuh"
 #include "tile_hmc.cuh"
 
+#ifndef GMT_LOGISTIC_PT
+#error "build with -DGMT_LOGISTIC_PT=<8-feature tiles: 2, 4, .., 32> (ops/fused_hmc_logistic.py)"
+#endif
+
 namespace {
 
 using namespace gmt_logistic;
 
-constexpr int kMT = 1;        // row tiles of 16 chains a tile
-constexpr int kNS = 2;        // warps a tile
-constexpr int kHmcTiles = 5;  // tiles a block: 10 warps, up to 204 registers a lane
+constexpr int kPT = GMT_LOGISTIC_PT;  // 8-feature tiles: features padded to 8 kPT
+static_assert(kPT % 2 == 0 && kPT >= 2 && kPT <= 32, "p <= 256, padded to a multiple of 16");
+constexpr bool kResident = kPT <= 6;  // the resident path takes p <= 48
+constexpr int kStages = 2;     // stages of the streamed path's ring
+constexpr int kMaxRows = 256;  // most observations a panel
+static_assert(kStages >= 2 && kStages <= kMaxStages, "2 to kMaxStages ring stages");
+static_assert(kMaxRows % 32 == 0 && kMaxRows >= 32, "panels of a multiple of 32 observations");
 
-// Shared memory of a block, in 4-byte words: the tile data and parts of
-// logistic_tile.cuh, for each tile the opening z and gradient of its lanes'
-// own units (2 PT floats a lane pair), and the mbarrier of the copies of X,
-// which are staged through the tiles' space.
+constexpr int kMT = 1;        // row tiles of 16 chains a tile
+constexpr int kNS = 2;        // warps a tile on the resident path
+constexpr int kHmcTiles = 5;  // tiles a block: 10 warps, up to 204 registers a lane
+// Warps a tile on the streamed path, and tiles a block (at most 10 warps).
+constexpr int kStreamNS = kPT <= 8 ? 2 : (kPT + 3) / 4;
+constexpr int kStreamTiles = 10 / kStreamNS > 0 ? 10 / kStreamNS : 1;
+
+// Shared memory of a block on the resident path, in 4-byte words: the tile
+// data and parts of logistic_tile.cuh, for each tile the opening z and
+// gradient of its lanes' own units (2 PT floats a lane pair), and the
+// mbarrier of the copies of X, which are staged through the tiles' space.
 __host__ __device__ constexpr size_t tiles_words(int pt, int tiles) {
   return static_cast<size_t>(tiles) * (tile_words(pt, kMT, kNS) + 2 * (pt / kNS) * 4 * 64);
 }
@@ -110,22 +146,86 @@ __host__ __device__ constexpr size_t shared_words(int pt, int n_pad, int tiles) 
   return data_words(pt, n_pad) + tiles_words(pt, tiles) + 4;
 }
 
-// One tile of the logistic target: tile_hmc.cuh's hooks.  Each lane holds
-// its two rows' mu and log tau (all lanes of the tile alike) and the z of
-// its warp's own units (feature tiles j = part + 2 i), with their momenta
-// and gradients.  CENTRED: the centred target, whose coordinates past mu
-// and log tau are beta itself (kept in z), and whose tau is kept as
-// 1 / tau^2 = exp(-2 log tau), the plain version's inv_tau2.
-template <int PT, bool CENTRED>
+// A streamed tile's shared memory in 4-byte words, at panels of `rows`
+// observations: the partial logits (or, between gradients, the momenta as
+// drawn: 16 x 8 PT floats of z and 32 of mu and log tau), r as fragments,
+// the opening z and gradient of the lanes' own units, the row-sum buffers
+// (64 NS doubles) and the hyper sums in transit (NS x 4 x 32 floats).
+__host__ __device__ constexpr size_t stream_tile_words(int rows) {
+  constexpr int own = (kPT + kStreamNS - 1) / kStreamNS;
+  const size_t partials = static_cast<size_t>(kStreamNS) * rows * 16;
+  const size_t drawn = 16 * 8 * kPT + 32;
+  return (partials > drawn ? partials : drawn) + static_cast<size_t>(rows) * 32 +
+         2 * own * 4 * kStreamNS * 32 + 128 * kStreamNS + 128 * kStreamNS;
+}
+// A streamed block's: the ring's stages, the tiles, the ring's mbarriers and
+// counts (16 words).
+__host__ __device__ constexpr size_t stream_words(int rows, int tiles) {
+  return kStages * panel_words(kPT, rows) + tiles * stream_tile_words(rows) + 16;
+}
+
+// The resident gradient (logistic_tile.cuh's TileWarp of two warps and one
+// row tile) behind the interface LogisticTile calls: beta's fragments
+// written, each warp's partial g over its half of the observations, and the
+// partials gathered to their owners with the hyper sums.
+template <int PT>
+struct ResidentGrad : TileWarp<PT, kMT, kNS> {
+  using Base = TileWarp<PT, kMT, kNS>;
+  static constexpr int NS = kNS;
+  static constexpr int OWN = Base::OWN;
+  int n_obs;
+
+  __device__ ResidentGrad(const Shared<PT, kMT, kNS>& s, int tile, int n_pad, int n_obs_)
+      : Base(s, tile, n_pad), n_obs(n_obs_) {}
+
+  __device__ __forceinline__ void nc(const float (&mu)[kMT][2], const float (&tau)[kMT][2],
+                                     const float (&z)[OWN][4], bool value, float (&own)[OWN][4],
+                                     float (&sums)[4 * kMT], double (&ll)[2]) const {
+    this->write_beta(mu, tau, z);
+    float g[kMT][PT][4];
+    double l[kMT][2] = {{0.0, 0.0}};
+    this->partial_grad(g, l, n_obs, value);
+    this->gather(g, z, own, sums);
+    ll[0] = l[0][0];
+    ll[1] = l[0][1];
+  }
+
+  // make_cen() fills cen (beta - mu) after the products, as the plain
+  // order of the resident kernel has it (fewer registers live across them)
+  template <class MakeCen>
+  __device__ __forceinline__ void centred(const float (&beta)[OWN][4], float (&cen)[OWN][4],
+                                          const MakeCen& make_cen, bool value,
+                                          float (&own)[OWN][4], float (&sums)[4 * kMT],
+                                          double (&ll)[2]) const {
+    this->write_beta(beta);
+    float g[kMT][PT][4];
+    double l[kMT][2] = {{0.0, 0.0}};
+    this->partial_grad(g, l, n_obs, value);
+    make_cen();
+    this->template gather<true>(g, cen, own, sums);
+    ll[0] = l[0][0];
+    ll[1] = l[0][1];
+  }
+};
+
+// One tile of the logistic target: tile_hmc.cuh's hooks, over the gradient
+// engine W (ResidentGrad or logistic_tile.cuh's PanelGrad) of W::NS warps.
+// Each lane holds its two rows' mu and log tau (all lanes of the tile
+// alike) and the z of its warp's own units (feature tiles j = part + NS i),
+// with their momenta and gradients.  CENTRED: the centred target, whose
+// coordinates past mu and log tau are beta itself (kept in z), and whose
+// tau is kept as 1 / tau^2 = exp(-2 log tau), the plain version's inv_tau2.
+template <int PT, bool CENTRED, class W>
 struct LogisticTile {
-  using W = TileWarp<PT, kMT, kNS>;
+  static constexpr int NS = W::NS;
   static constexpr int OWN = W::OWN;
-  const W& w;
+  static constexpr int LANES = NS * 32;  // the tile's threads
+  W& w;
   const gmt_tile::Run& a;
   const gmt_tile::TileRows& rows;
-  int p, n_obs;
+  int p;
   float iv_mu, iv_lt, sc_mu, sc_lt;
-  float* zo;   // this lane's slots of the opening z (unit i, register c at (4 i + c) * 64)
+  float* zo;   // this lane's slots of the opening z (unit i, register c at (4 i + c) * LANES)
   float* gzo;  // and of their gradient
   double* red;  // the three row-sum buffers
   float* drawn;  // the tile's momenta as drawn: [16][8 PT] of z, then [16][2] of mu, log tau
@@ -134,21 +234,20 @@ struct LogisticTile {
   float gmu[2], glt[2], gz[OWN][4];
   float mu_o[2], lt_o[2], gmu_o[2], glt_o[2];
 
-  __device__ LogisticTile(const W& w_, const gmt_tile::Run& a_,
-                          const gmt_tile::TileRows& rows_, int n_obs_, float* open,
-                          double* red_, float* drawn_)
-      : w(w_), a(a_), rows(rows_), n_obs(n_obs_), red(red_), drawn(drawn_) {
+  __device__ LogisticTile(W& w_, const gmt_tile::Run& a_, const gmt_tile::TileRows& rows_,
+                          float* open, double* red_, float* drawn_)
+      : w(w_), a(a_), rows(rows_), red(red_), drawn(drawn_) {
     p = a.d - 2;
     iv_mu = a.inv[0];
     iv_lt = a.inv[1];
     sc_mu = a.scale[0];
     sc_lt = a.scale[1];
     zo = open;
-    gzo = open + OWN * 4 * 64;
+    gzo = open + OWN * 4 * LANES;
   }
 
   __device__ __forceinline__ int feature(int i, int c) const {
-    return 8 * (w.part + kNS * i) + w.t + 4 * (c & 1);
+    return 8 * (w.part + NS * i) + w.t + 4 * (c & 1);
   }
   __device__ __forceinline__ float inv_z(int f) const {
     return f < p ? __ldg(a.inv + f + 2) : 0.0f;
@@ -189,14 +288,11 @@ struct LogisticTile {
   }
 
   __device__ __forceinline__ void grad_nc(bool value, float (&lp)[2]) {
-    w.write_beta(mu, tau, z);
-    float g[kMT][PT][4];
-    double ll[kMT][2] = {{0.0, 0.0}};
-    w.partial_grad(g, ll, n_obs, value);
     float own[OWN][4];
     float sums[4 * kMT];
-    w.gather(g, z, own, sums);
-    double v[2][2] = {{ll[0][0], ll[0][1]}, {0.0, 0.0}};  // the log-likelihood, sum z^2
+    double ll[2] = {0.0, 0.0};
+    w.nc(mu, tau, z, value, own, sums, ll);
+    double v[2][2] = {{ll[0], ll[1]}, {0.0, 0.0}};  // the log-likelihood, sum z^2
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
 #pragma unroll
@@ -211,7 +307,7 @@ struct LogisticTile {
       glt[h] = __fadd_rn(-lt[0][h], __fmul_rn(tau[0][h], sums[2 * h + 1]));
     }
     if (value) {
-      gmt_tile::row_sums<2, kNS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
+      gmt_tile::row_sums<2, NS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
 #pragma unroll
       for (int h = 0; h < 2; ++h) lp[h] = log_density_nc(mu[0][h], lt[0][h], v[1][h], v[0][h]);
     }
@@ -224,22 +320,20 @@ struct LogisticTile {
   // (gather's POSITION form); with `value` the rows' log density, its
   // ((beta - mu) / tau)^2 a division by exp(log tau) as the plain version's.
   __device__ __forceinline__ void grad_centred(bool value, float (&lp)[2]) {
-    w.write_beta(z);
-    float g[kMT][PT][4];
-    double ll[kMT][2] = {{0.0, 0.0}};
-    w.partial_grad(g, ll, n_obs, value);
     float cen[OWN][4];  // beta - mu, zero past p
-#pragma unroll
-    for (int i = 0; i < OWN; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        cen[i][c] = feature(i, c) < p ? __fsub_rn(z[i][c], mu[0][c >> 1]) : 0.0f;
-      }
-    }
     float own[OWN][4];
     float sums[4 * kMT];
-    w.template gather<true>(g, cen, own, sums);
-    double v[2][2] = {{ll[0][0], ll[0][1]}, {0.0, 0.0}};  // the log-likelihood, sum s^2
+    double ll[2] = {0.0, 0.0};
+    w.centred(z, cen, [&] {
+#pragma unroll
+      for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          cen[i][c] = feature(i, c) < p ? __fsub_rn(z[i][c], mu[0][c >> 1]) : 0.0f;
+        }
+      }
+    }, value, own, sums, ll);
+    double v[2][2] = {{ll[0], ll[1]}, {0.0, 0.0}};  // the log-likelihood, sum s^2
     float e[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) e[h] = value ? expf(lt[0][h]) : 1.0f;
@@ -261,7 +355,7 @@ struct LogisticTile {
                          static_cast<float>(p));
     }
     if (value) {
-      gmt_tile::row_sums<2, kNS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
+      gmt_tile::row_sums<2, NS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         lp[h] = log_density_centred(mu[0][h], lt[0][h], v[1][h], p, v[0][h]);
@@ -287,7 +381,7 @@ struct LogisticTile {
         v[0][c >> 1] += gmt_tile::energy_term(mz[i][c], inv_z(feature(i, c)));
       }
     }
-    gmt_tile::row_sums<1, kNS>(v, buf, w.part, w.g, w.t, [&] { w.sync(); });
+    gmt_tile::row_sums<1, NS>(v, buf, w.part, w.g, w.t, [&] { w.sync(); });
     ke[0] = gmt_tile::half_sum(v[0][0]);
     ke[1] = gmt_tile::half_sum(v[0][1]);
   }
@@ -298,7 +392,7 @@ struct LogisticTile {
     float* out = drawn;
     const float* scale = a.scale;
     const int pp = p;
-    gmt_tile::tile_normals(a.seed, rows, step, (p + 5) / 4, threadIdx.x & 63, 64,
+    gmt_tile::tile_normals(a.seed, rows, step, (p + 5) / 4, threadIdx.x % LANES, LANES,
                                [=](int r, int k, float z) {
                                  if (k < 2) {
                                    out[16 * 8 * PT + 2 * r + k] = __fmul_rn(__ldg(scale + k), z);
@@ -320,10 +414,10 @@ struct LogisticTile {
         mz[i][c] = f < p ? drawn[(w.g + 8 * (c >> 1)) * 8 * PT + f] : 0.0f;
       }
     }
-    energy_sums(ke, red + 96);
+    energy_sums(ke, red + 48 * NS);
   }
 
-  __device__ void energy(float (&ke)[2]) { energy_sums(ke, red + 64); }
+  __device__ void energy(float (&ke)[2]) { energy_sums(ke, red + 32 * NS); }
 
   __device__ void kick(float c) {
 #pragma unroll
@@ -366,8 +460,8 @@ struct LogisticTile {
     for (int i = 0; i < OWN; ++i) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        zo[(4 * i + c) * 64] = z[i][c];
-        gzo[(4 * i + c) * 64] = gz[i][c];
+        zo[(4 * i + c) * LANES] = z[i][c];
+        gzo[(4 * i + c) * LANES] = gz[i][c];
       }
     }
   }
@@ -388,8 +482,8 @@ struct LogisticTile {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (reject[c >> 1]) {
-          z[i][c] = zo[(4 * i + c) * 64];
-          gz[i][c] = gzo[(4 * i + c) * 64];
+          z[i][c] = zo[(4 * i + c) * LANES];
+          gz[i][c] = gzo[(4 * i + c) * LANES];
         }
       }
     }
@@ -406,19 +500,20 @@ struct LogisticTile {
     }
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
-      gmt_tile::store_unit(sample, rows, a.d, 2, 8 * (w.part + kNS * i), w.t, z[i]);
+      gmt_tile::store_unit(sample, rows, a.d, 2, 8 * (w.part + NS * i), w.t, z[i]);
     }
   }
 };
 
-// PT: 8-feature tiles (the padded feature count is PT * 8), even.  Padded
-// features have zero columns of X, a zero z, momentum and gradient, and are
-// never stored.  CENTRED: the centred target (HierarchicalLogistic).
+// The resident path.  PT: 8-feature tiles (the padded feature count is
+// PT * 8), even.  Padded features have zero columns of X, a zero z,
+// momentum and gradient, and are never stored.  CENTRED: the centred target
+// (HierarchicalLogistic).
 template <int PT, bool CENTRED>
 __global__ void __launch_bounds__(kHmcTiles * kNS * 32, 1)
     fused_hmc_logistic_kernel(const gmt_tile::Run a, const float* X, const float* y, int n_obs,
                               int n_pad, int rows4, int chunk) {
-  using W = TileWarp<PT, kMT, kNS>;
+  using W = ResidentGrad<PT>;
   const int tiles = blockDim.x / (32 * kNS);
   extern __shared__ float4 shared[];
   const Shared<PT, kMT, kNS> s(shared, n_pad, tiles);
@@ -433,27 +528,79 @@ __global__ void __launch_bounds__(kHmcTiles * kNS * 32, 1)
   const int64_t global_tile = static_cast<int64_t>(blockIdx.x) * tiles + tile;
   // whole tiles leave together: only the tile's own barriers follow
   if (global_tile >= gmt_tile::launch_tiles(a.n, a.chain0)) return;
-  const W w(s, tile, n_pad);
+  W w(s, tile, n_pad, n_obs);
   const gmt_tile::TileRows rows(global_tile, a.n, a.chain0, w.g);
   float* open = open_base + tile * (2 * W::OWN * 4 * 64) + (threadIdx.x & 63);
   double* red = reinterpret_cast<double*>(s.ex + tile * (W::U * (kNS - 1) * 32));
   // the momenta as drawn lie in the beta fragments' space, free between gradients
   float* drawn = reinterpret_cast<float*>(s.bf + tile * (W::U * 2 * 32));
-  LogisticTile<PT, CENTRED> h(w, a, rows, n_obs, open, red, drawn);
+  LogisticTile<PT, CENTRED, W> h(w, a, rows, open, red, drawn);
   h.init();
   gmt_tile::run_tile(h, a, rows);
 }
 
-// A launch's layout: its tiles, tiles a block, blocks and dynamic shared
-// bytes a block.
+// The streamed path: X from `panels` (split_panels' buffer, `count` panels
+// of `rows` observations) through a ring of kStages stages; `per_block`
+// tiles of kStreamNS warps a block.
+template <bool CENTRED>
+__global__ void __launch_bounds__(kStreamTiles * kStreamNS * 32, 1)
+    fused_hmc_logistic_streamed_kernel(const gmt_tile::Run a, const float* panels, int n_obs,
+                                       int rows, int count, int per_block) {
+  using W = PanelGrad<kPT, kStreamNS>;
+  constexpr int NS = kStreamNS;
+  extern __shared__ float4 shared[];
+  float* base = reinterpret_cast<float*>(shared);
+  const size_t words = panel_words(kPT, rows);
+  float* tiles_base = base + kStages * words;
+  const size_t tw = stream_tile_words(rows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles_base + per_block * tw);
+  unsigned* released = reinterpret_cast<unsigned*>(full + kMaxStages);
+
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t left = gmt_tile::launch_tiles(a.n, a.chain0) - tile0;
+  const int here = static_cast<int>(left < per_block ? left : per_block);  // tiles with rows
+  const int steps = a.n_discard + a.n_collect * a.thin;
+  const int64_t grads = steps > 0 ? static_cast<int64_t>(steps) * a.n_leapfrog + 1 : 0;
+  const PanelRing ring{panels, base, full, released, static_cast<int>(words), count, kStages,
+                       NS * here, grads * count};
+  if (threadIdx.x == 0) ring.start();
+  __syncthreads();
+
+  const int tile = (threadIdx.x >> 5) / NS;
+  if (tile >= here) return;  // the ring counts only the tiles with rows
+  float* own = tiles_base + tile * tw;
+  const size_t partials = static_cast<size_t>(NS) * rows * 16;
+  const size_t drawn_words = 16 * 8 * kPT + 32;
+  float* after_pl = own + (partials > drawn_words ? partials : drawn_words);
+  uint4* rf = reinterpret_cast<uint4*>(after_pl);
+  float* open = after_pl + static_cast<size_t>(rows) * 32;
+  double* red = reinterpret_cast<double*>(open + 2 * W::OWN * 4 * NS * 32);
+  float* sm = reinterpret_cast<float*>(red + 64 * NS);
+  W w(ring, reinterpret_cast<float4*>(own), rf, sm, tile, rows, n_obs);
+  const gmt_tile::TileRows trows(tile0 + tile, a.n, a.chain0, w.g);
+  LogisticTile<kPT, CENTRED, W> h(w, a, trows, open + threadIdx.x % (NS * 32), red, own);
+  h.init();
+  gmt_tile::run_tile(h, a, trows);
+}
+
+// A launch's layout: its tiles, tiles a block, blocks, dynamic shared bytes
+// a block, whether it streams X, and the streamed path's panel rows,
+// panels, ring stages and the words of its split buffer.
 struct Layout {
-  int64_t tiles, per_block, blocks, bytes;
+  int64_t tiles, per_block, blocks, bytes, streamed, rows, panels, stages, scratch;
 };
 
 // The layout of a launch of `n` rows from `chain0` over `n_obs` observations
 // on the current device, the one launch() uses: the tiles spread over the
-// SMs, one block an SM, as many tiles a block as fit beside X.
-template <int PT>
+// SMs, one block an SM.  Resident where p <= 48 and X's hi and lo and y fit
+// beside one tile, with as many tiles a block as fit; else streamed.  The
+// streamed panel depends on the data's shape alone, so that a chain's sums
+// run over the same panels in a launch of any size (a block of rows from
+// chain0 is bit-equal to those rows of the launch from 0): the most tiles a
+// block (at most kStreamTiles) that fit beside 32-observation panels, the
+// largest panel beside them (a multiple of 32, at most kMaxRows), evened out
+// over the panels it takes; a launch then takes up to that many tiles a
+// block.
 cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
   int device = 0, sms = 0, shared_max = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -462,68 +609,105 @@ cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&shared_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  const int n_pad = 64 * ((n_obs + 63) / 64);  // 32 observations a pass of each of 2 warps
+  const size_t limit = static_cast<size_t>(shared_max);
   const int64_t tiles = gmt_tile::launch_tiles(n, chain0);
-  int per_block = static_cast<int>((tiles + sms - 1) / sms);
-  per_block = per_block > kHmcTiles ? kHmcTiles : per_block;
-  while (per_block > 1 && sizeof(float) * shared_words(PT, n_pad, per_block) >
-                              static_cast<size_t>(shared_max)) {
-    --per_block;
+  const int64_t spread = (tiles + sms - 1) / sms;
+  const int n_pad = 64 * ((n_obs + 63) / 64);  // 32 observations a pass of each of 2 warps
+  if (kResident && sizeof(float) * shared_words(kPT, n_pad, 1) <= limit) {
+    int per_block = static_cast<int>(spread > kHmcTiles ? kHmcTiles : spread);
+    while (per_block > 1 && sizeof(float) * shared_words(kPT, n_pad, per_block) > limit) {
+      --per_block;
+    }
+    const size_t bytes = sizeof(float) * shared_words(kPT, n_pad, per_block);
+    *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
+                  static_cast<int64_t>(bytes), 0, 0, 0, 0, 0};
+    return cudaSuccess;
   }
-  const size_t bytes = sizeof(float) * shared_words(PT, n_pad, per_block);
-  if (bytes > static_cast<size_t>(shared_max)) return cudaErrorInvalidValue;
+  const auto fits = [&](int rows, int t) { return sizeof(float) * stream_words(rows, t) <= limit; };
+  int most = kStreamTiles;
+  while (most > 1 && !fits(32, most)) --most;
+  if (!fits(32, most)) return cudaErrorInvalidValue;
+  int rows = 32 * ((n_obs + 31) / 32) < kMaxRows ? 32 * ((n_obs + 31) / 32) : kMaxRows;
+  while (rows > 32 && !fits(rows, most)) rows -= 32;
+  const int count = (n_obs + rows - 1) / rows;
+  const int even = 32 * (((n_obs + count - 1) / count + 31) / 32);
+  const int per_block = static_cast<int>(spread < most ? spread : most);
   *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
-                static_cast<int64_t>(bytes)};
+                static_cast<int64_t>(sizeof(float) * stream_words(even, per_block)), 1, even,
+                count, kStages,
+                static_cast<int64_t>(count) * static_cast<int64_t>(panel_words(kPT, even))};
   return cudaSuccess;
 }
 
-template <int PT, bool CENTRED>
-cudaError_t launch(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
-                   cudaStream_t stream) {
-  static_assert(PT % kNS == 0, "a tile's units deal evenly to its warps");
-  Layout l;
-  cudaError_t err = layout<PT>(a.n, a.chain0, n_obs, &l);
-  if (err != cudaSuccess) return err;
-  const int p = a.d - 2;
-  const int n_pad = 64 * ((n_obs + 63) / 64);
-  const int rows4 = 4 * ((n_obs + 3) / 4);
-  // the staging chunk: the rows of X that the tiles' space holds, a multiple of 4
-  const int chunk =
-      static_cast<int>(tiles_words(PT, static_cast<int>(l.per_block)) / p) / 4 * 4;
-  if (chunk < 4) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(fused_hmc_logistic_kernel<PT, CENTRED>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(l.bytes));
-  if (err != cudaSuccess) return err;
-  fused_hmc_logistic_kernel<PT, CENTRED><<<static_cast<unsigned int>(l.blocks),
-                                            static_cast<unsigned int>(l.per_block * kNS * 32),
-                                            static_cast<size_t>(l.bytes), stream>>>(
-      a, X, y, n_obs, n_pad, rows4, chunk);
-  return cudaGetLastError();
+template <bool CENTRED>
+cudaError_t launch_resident(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
+                            const Layout& l, cudaStream_t stream) {
+  if constexpr (kResident) {
+    const int p = a.d - 2;
+    const int n_pad = 64 * ((n_obs + 63) / 64);
+    const int rows4 = 4 * ((n_obs + 3) / 4);
+    // the staging chunk: the rows of X that the tiles' space holds, a multiple of 4
+    const int chunk =
+        static_cast<int>(tiles_words(kPT, static_cast<int>(l.per_block)) / p) / 4 * 4;
+    if (chunk < 4) return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(fused_hmc_logistic_kernel<kPT, CENTRED>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(l.bytes));
+    if (err != cudaSuccess) return err;
+    fused_hmc_logistic_kernel<kPT, CENTRED><<<static_cast<unsigned int>(l.blocks),
+                                               static_cast<unsigned int>(l.per_block * kNS * 32),
+                                               static_cast<size_t>(l.bytes), stream>>>(
+        a, X, y, n_obs, n_pad, rows4, chunk);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
 }
 
-template <int PT>
-cudaError_t launch(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
-                   int centred, cudaStream_t stream) {
-  return centred ? launch<PT, true>(a, X, y, n_obs, stream)
-                 : launch<PT, false>(a, X, y, n_obs, stream);
+template <bool CENTRED>
+cudaError_t launch_streamed(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
+                            const Layout& l, float* scratch, int64_t scratch_words,
+                            cudaStream_t stream) {
+  if (scratch == nullptr || scratch_words < l.scratch ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  constexpr int S = kPT * 8 + kRowPad;
+  const int64_t cells = l.panels * l.rows * S;
+  const int grid = static_cast<int>((cells + 255) / 256 < 4096 ? (cells + 255) / 256 : 4096);
+  split_panels<S><<<grid, 256, 0, stream>>>(X, y, n_obs, a.d - 2, static_cast<int>(l.rows),
+                                            static_cast<int>(l.panels), scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const auto kernel = fused_hmc_logistic_streamed_kernel<CENTRED>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(l.bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned int>(l.blocks),
+           static_cast<unsigned int>(l.per_block * kStreamNS * 32), static_cast<size_t>(l.bytes),
+           stream>>>(a, scratch, n_obs, static_cast<int>(l.rows), static_cast<int>(l.panels),
+                     static_cast<int>(l.per_block));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x0 [n, p + 2], X [4 ceil(n_obs / 4), p] (zero rows past n_obs: whole
-// 16-byte words for the copies), y [n_obs], inv and scale [p + 2] (M^-1 and
-// sqrt(M)), out [n_collect, n, p + 2], all float32, X 16-byte aligned; built
-// for p <= 48 (MAX_FEATURES in ops/fused_hmc_logistic.py); centred 1 for
+// 16-byte words for the resident path's copies), y [n_obs], inv and scale
+// [p + 2] (M^-1 and sqrt(M)), out [n_collect, n, p + 2], all float32, X
+// 16-byte aligned; scratch (16-byte aligned, scratch_words floats) the
+// streamed path's split buffer, at least the layout's `scratch` words
+// (unused, and may be null, on the resident path); built for
+// 8 GMT_LOGISTIC_PT - 15 <= p <= 8 GMT_LOGISTIC_PT; centred 1 for
 // HierarchicalLogistic, 0 for HierarchicalLogisticNC.
 extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const void* y,
-                                         const void* inv, const void* scale, void* out, int n,
-                                         int p, int n_obs, int n_collect, int n_discard,
-                                         int thin, int n_leapfrog, int centred, float step_size,
+                                         const void* inv, const void* scale, void* out,
+                                         void* scratch, long long scratch_words, int n, int p,
+                                         int n_obs, int n_collect, int n_discard, int thin,
+                                         int n_leapfrog, int centred, float step_size,
                                          unsigned int seed, unsigned int chain0,
                                          void* stream) {
   if (n < 1 || p < 1 || n_obs < 1 || n_leapfrog < 1 || thin < 1 ||
-      reinterpret_cast<uintptr_t>(X) % 16 != 0) {
+      2 * ((p + 15) / 16) != kPT || reinterpret_cast<uintptr_t>(X) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const gmt_tile::Run a{static_cast<const float*>(x0), static_cast<const float*>(inv),
@@ -533,28 +717,36 @@ extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const vo
   const float* Xf = static_cast<const float*>(X);
   const float* yf = static_cast<const float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p <= 16) return static_cast<int>(launch<2>(a, Xf, yf, n_obs, centred, s));
-  if (p <= 32) return static_cast<int>(launch<4>(a, Xf, yf, n_obs, centred, s));
-  if (p <= 48) return static_cast<int>(launch<6>(a, Xf, yf, n_obs, centred, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  Layout l;
+  cudaError_t err = layout(n, chain0, n_obs, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (l.streamed) {
+    float* sc = static_cast<float*>(scratch);
+    err = centred ? launch_streamed<true>(a, Xf, yf, n_obs, l, sc, scratch_words, s)
+                  : launch_streamed<false>(a, Xf, yf, n_obs, l, sc, scratch_words, s);
+  } else {
+    err = centred ? launch_resident<true>(a, Xf, yf, n_obs, l, s)
+                  : launch_resident<false>(a, Xf, yf, n_obs, l, s);
+  }
+  return static_cast<int>(err);
 }
 
 // The layout fused_hmc_logistic_launch gives n rows of p features and n_obs
 // observations from chain0 on the current device: out = {tiles, tiles a
-// block, blocks, dynamic shared bytes a block}.
+// block, blocks, dynamic shared bytes a block, streamed (0 or 1), panel
+// rows, panels, ring stages, split buffer words} (the last four 0 on the
+// resident path).
 extern "C" int fused_hmc_logistic_layout(int n, int p, int n_obs, unsigned int chain0,
                                          long long* out) {
-  if (n < 1 || p < 1 || n_obs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || p < 1 || n_obs < 1 || 2 * ((p + 15) / 16) != kPT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Layout l;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (p <= 16) err = layout<2>(n, chain0, n_obs, &l);
-  else if (p <= 32) err = layout<4>(n, chain0, n_obs, &l);
-  else if (p <= 48) err = layout<6>(n, chain0, n_obs, &l);
+  const cudaError_t err = layout(n, chain0, n_obs, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = l.tiles;
-  out[1] = l.per_block;
-  out[2] = l.blocks;
-  out[3] = l.bytes;
+  const int64_t v[9] = {l.tiles, l.per_block, l.blocks, l.bytes, l.streamed,
+                        l.rows, l.panels, l.stages, l.scratch};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -30,7 +30,10 @@
 // three TF32 passes at the tensor cores' 495 TFLOP/s (11.4 ms with the
 // rest on the CUDA cores), beside ~20 operations an observation for the
 // softplus and its sum on the CUDA cores (2.0 ms); the store is 4.1 GB
-// (1.2 ms at 3.35 TB/s).
+// (1.2 ms at 3.35 TB/s).  On the streamed path X's hi and lo cross L2 once
+// a block and step: 95.7 GB over a run at German credit's shape (10,240
+// chains, X [1000, 24], 2,500 steps), under 1 TB/s of L2 reads beside a
+// 7.6 ms operations bound; the operations still bound it.
 //
 // Design.
 //  - A tile of 16 chains, two solver warps (tile_mh.cuh, NW = 2), each the
@@ -60,11 +63,26 @@
 //    and kProducers = 2 producer warps a block, 12 warps, as many tiles a
 //    block as shared memory holds beside X (layout(), exported as
 //    fused_mh_logistic_layout).
-//  - Each feature-tile count PT (the features padded to 16, 32 or 48) is
-//    its own build (GMT_LOGISTIC_PT, a variant of _build.py built at the
-//    first launch at that width), with NB = PT + 1 units of the position:
-//    the loops over units and feature tiles unroll, so the position's
-//    features and beta's fragments stay in registers.
+//  - Each feature-tile count PT (the features padded to a multiple of 16,
+//    up to 256) is its own build (GMT_LOGISTIC_PT, a variant of _build.py
+//    built at the first launch at that width), with NB = PT + 1 units of
+//    the position: on the resident path (PT <= 6) the loops over units and
+//    feature tiles unroll, so the position's features and beta's fragments
+//    stay in registers.
+//  - The streamed path (logistic_tile.cuh's head note), where X's hi and lo
+//    and y do not fit beside one tile or p > 48: X is split into hi and lo
+//    once a launch (split_panels) and read through a ring of shared-memory
+//    stages in panels of observations, the stages filled by bulk copies
+//    (TMA) that the last of the block's solver warps to release a stage
+//    issues (no warp waits to refill one; the producer warps stay the
+//    draws'); every tile of the block reads the same panel, so X crosses L2
+//    once a block and step.  Its target (StreamTarget) keeps beta in shared
+//    memory as A fragments, one copy a tile, each warp writing half the
+//    feature tiles as load() completes them, and its forward pass is
+//    logistic_tile.cuh's panel_loglik, each warp half of each panel's
+//    observations; the walker makes the proposal again at the select
+//    (tile_mh.cuh's REMAKE) instead of keeping NB units of it in registers.
+//    So a lane's registers do not grow with p.
 //
 // Agreement with the plain version: the product sums in another order than
 // torch.matmul and carries the split's 2^-22, and the log-likelihood is
@@ -100,11 +118,21 @@ constexpr int kWarps = 2;  // solver warps a tile, each half the observations
 constexpr int kProducers = 2;
 
 #ifndef GMT_LOGISTIC_PT
-#error "build with -DGMT_LOGISTIC_PT=<8-feature tiles: 2, 4 or 6> (ops/fused_mh_logistic.py)"
+#error "build with -DGMT_LOGISTIC_PT=<8-feature tiles: 2, 4, .., 32> (ops/fused_mh_logistic.py)"
 #endif
 constexpr int kPT = GMT_LOGISTIC_PT;  // 8-feature tiles: features padded to 8 kPT
-static_assert(kPT == 2 || kPT == 4 || kPT == 6, "p <= 48 in 16, 32 or 48 padded features");
+static_assert(kPT % 2 == 0 && kPT >= 2 && kPT <= 32, "p <= 256, padded to a multiple of 16");
+constexpr bool kResident = kPT <= 6;  // the resident path takes p <= 48
+constexpr int kStages = 2;     // stages of the streamed path's ring
+constexpr int kMaxRows = 256;  // most observations a panel
+static_assert(kStages >= 2 && kStages <= gmt_logistic::kMaxStages, "2 to kMaxStages stages");
+static_assert(kMaxRows % 32 == 0 && kMaxRows >= 32, "panels of a multiple of 32 observations");
 constexpr int kNB = kPT + 1;  // units of the position: p + 2 <= 8 kPT + 2 columns
+// Tiles a block on the streamed path: kMaxTiles up to 64 features; past that
+// a tile's beta fragments and ring share leave room for at most 4 tiles (1 at
+// 256 features), and fewer warps leave the wide builds their registers (12
+// warps cap them at 168, where the 256-feature pCN build spilled).
+constexpr int kStreamTiles = kPT <= 8 ? kMaxTiles : (kPT <= 16 ? 4 : 2);
 constexpr int kS = kPT * 8 + gmt_logistic::kRowPad;  // row stride of X in shared memory
 constexpr int kObsPass = 32;  // observations a warp's pass: four 8-observation accumulator chains
 
@@ -122,6 +150,15 @@ __host__ __device__ constexpr int obs_pad(int n_obs) {
 __host__ __device__ constexpr size_t shared_bytes(int n_pad, int tiles) {
   return 4 * gmt_logistic::data_words(kPT, n_pad) +
          static_cast<size_t>(tiles) * (gmt_mh::tile_bytes(kNB) + kSumBytes) + 16;
+}
+
+// A streamed block's shared bytes at panels of `rows` observations: the
+// ring's stages, the tiles (tile_mh.cuh's Ring), each tile's beta as A
+// fragments (hi and lo, 1 KB a feature tile) and row sums in transit, and
+// the ring's mbarriers and counts (64 bytes).
+__host__ __device__ constexpr size_t stream_bytes(int rows, int tiles) {
+  return 4 * kStages * gmt_logistic::panel_words(kPT, rows) +
+         static_cast<size_t>(tiles) * (gmt_mh::tile_bytes(kNB) + kPT * 1024 + kSumBytes) + 64;
 }
 
 // The logistic targets as tile_mh.cuh's target: the position's features in
@@ -243,6 +280,129 @@ struct LogisticTarget {
   }
 };
 
+// The streamed path's target: the position's features go straight from
+// load() into beta's A fragments in shared memory (one copy a tile: feature
+// tile k by warp k % kWarps, as the lane completes it), the prior's squares
+// summed on the way (warp 0); density() runs the forward pass over the
+// ring's panels, each warp half of each panel's observations, and adds the
+// row sums through `sums_buf` behind the tile's barrier.  Every warp of
+// every tile with rows reads every panel of the ring's sequence: the
+// position's log density at the start, then one a step.
+template <bool CENTRED>
+struct StreamTarget {
+  static constexpr int R = 2;  // rows a lane holds: g and g + 8
+  const gmt_logistic::PanelRing& ring;
+  uint4* bf;         // the tile's beta: feature tile k's hi at (2 k) * 32, lo at (2 k + 1) * 32
+  double* sums_buf;  // the tile's row sums in transit
+  int p, n_obs, rows, lane, g, t, part, bar;
+  int64_t q = 0;     // the next panel of the ring's sequence
+  float mu[R], lt[R], tau[R];
+  float pend[R];     // t >= 2: element 2 h of the feature tile the next unit completes
+  double sq[R];      // the prior's squares (warp 0)
+
+  __device__ StreamTarget(const gmt_logistic::PanelRing& ring_, uint4* bf_all, double* sums,
+                          int p_, int n_obs_, int rows_)
+      : ring(ring_), p(p_), n_obs(n_obs_), rows(rows_) {
+    lane = threadIdx.x & 31;
+    g = lane >> 2;
+    t = lane & 3;
+    const int tile = (threadIdx.x >> 5) / kWarps;
+    part = (threadIdx.x >> 5) % kWarps;
+    bar = 5 + tile;  // named barriers 1-4 are the ring's of draws
+    bf = bf_all + tile * (kPT * 2 * 32) + lane;
+    sums_buf = sums + tile * (kSumBytes / 8);
+    for (int h = 0; h < R; ++h) {
+      mu[h] = lt[h] = tau[h] = pend[h] = 0.0f;
+      sq[h] = 0.0;
+    }
+  }
+
+  // Feature tile k's elements e (c = 2 h + (feature - 8 k - t) / 4) as beta,
+  // the squares summed (warp 0, in feature-tile order as the resident
+  // target sums them), and, if this warp writes tile k, its fragments.
+  __device__ __forceinline__ void put(int k, const float (&e)[4]) {
+    float b[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int h = c >> 1;
+      b[c] = 0.0f;
+      if (8 * k + t + 4 * (c & 1) < p) {
+        if constexpr (CENTRED) {
+          b[c] = e[c];
+          const float sc = __fdiv_rn(__fsub_rn(e[c], mu[h]), tau[h]);
+          if (part == 0) sq[h] += static_cast<double>(__fmul_rn(sc, sc));
+        } else {
+          b[c] = __fadd_rn(mu[h], __fmul_rn(tau[h], e[c]));
+          if (part == 0) sq[h] += static_cast<double>(__fmul_rn(e[c], e[c]));
+        }
+      }
+    }
+    if (k % kWarps == part) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        gmt_logistic::split_tf32(b[((i & 1) << 1) | (i >> 1)], hi[i], lo[i]);
+      }
+      bf[(2 * k) * 32] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      bf[(2 * k + 1) * 32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+  }
+
+  // Unit j (columns 8 j + t and 8 j + t + 4 of rows g, g + 8): lane t ^ 2's
+  // elements, as LogisticTarget::load takes them; a lane t < 2 completes
+  // feature tile j with them, a lane t >= 2 feature tile j - 1.
+  __device__ __forceinline__ void load(int j, const float (&u)[4]) {
+    float s[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[c] = __shfl_xor_sync(gmt_logistic::kFull, u[c], 2);
+    if (j == 0) {
+#pragma unroll
+      for (int h = 0; h < R; ++h) {
+        mu[h] = __shfl_sync(gmt_logistic::kFull, u[2 * h], lane & ~3);
+        lt[h] = __shfl_sync(gmt_logistic::kFull, u[2 * h], (lane & ~3) | 1);
+        tau[h] = expf(lt[h]);
+        sq[h] = 0.0;
+      }
+    }
+    if (t < 2) {
+      if (j < kPT) put(j, s);
+    } else {
+      const float e[4] = {pend[0], s[0], pend[1], s[2]};
+      pend[0] = s[1];
+      pend[1] = s[3];
+      if (j >= 1 && j - 1 < kPT) put(j - 1, e);
+    }
+  }
+
+  // The log density of the lane's two rows of the position loaded, the same
+  // on the four lanes of a row and on the tile's warps.
+  __device__ __forceinline__ void density(float (&lp)[R]) {
+    gmt_logistic::named_barrier(bar, kWarps * 32);  // beta's fragments of both warps
+    constexpr int S = kS;
+    const int half = rows / kWarps, from = part * half;  // this warp's share of a panel
+    double sums[2][R] = {{sq[0], sq[1]}, {0.0, 0.0}};    // the squares, the log-likelihood
+    for (int k = 0; k < ring.panels; ++k, ++q) {
+      const uint32_t* xh = reinterpret_cast<const uint32_t*>(ring.wait(q));
+      const uint32_t* xl = xh + rows * S;
+      const float* ys = reinterpret_cast<const float*>(xl + rows * S);
+      gmt_logistic::panel_loglik<kPT>(bf - lane, xh + from * S, xl + from * S, ys + from, lane,
+                                      half, n_obs - (k * rows + from), sums[1]);
+      ring.release(q);
+    }
+    gmt_tile::row_sums<2, kWarps>(sums, sums_buf, part, g, t,
+                                  [&] { gmt_logistic::named_barrier(bar, kWarps * 32); });
+#pragma unroll
+    for (int h = 0; h < R; ++h) {
+      if constexpr (CENTRED) {
+        lp[h] = gmt_logistic::log_density_centred(mu[h], lt[h], sums[0][h], p, sums[1][h]);
+      } else {
+        lp[h] = gmt_logistic::log_density_nc(mu[h], lt[h], sums[0][h], sums[1][h]);
+      }
+    }
+  }
+};
+
+// The resident path: X staged once a block.
 template <int PROP, bool CENTRED>
 __global__ void __launch_bounds__((kWarps * kMaxTiles + kProducers) * 32, 1)
     fused_mh_logistic_kernel(const gmt_mh::Run a, const float* X, const float* y, int n_obs,
@@ -266,16 +426,55 @@ __global__ void __launch_bounds__((kWarps * kMaxTiles + kProducers) * 32, 1)
       a, ring, target, static_cast<int64_t>(blockIdx.x) * per_block, per_block);
 }
 
+// The streamed path: X from `panels` (split_panels' buffer, `count` panels
+// of `rows` observations) through a ring of kStages stages.
+template <int PROP, bool CENTRED>
+__global__ void __launch_bounds__((kWarps * kStreamTiles + kProducers) * 32, 1)
+    fused_mh_logistic_streamed_kernel(const gmt_mh::Run a, const float* panels, int n_obs,
+                                      int rows, int count, int per_block) {
+  extern __shared__ float4 shared[];
+  float* base = reinterpret_cast<float*>(shared);
+  const size_t words = gmt_logistic::panel_words(kPT, rows);
+  float4* tiles = reinterpret_cast<float4*>(base + kStages * words);
+  const gmt_mh::Ring<kNB> ring(tiles, per_block);
+  uint4* bf = reinterpret_cast<uint4*>(ring.lu + kSlots * per_block * gmt_mh::kRows);
+  double* sums = reinterpret_cast<double*>(bf + per_block * kPT * 2 * 32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sums + per_block * (kSumBytes / 8));
+  unsigned* released = reinterpret_cast<unsigned*>(full + gmt_logistic::kMaxStages);
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t left = gmt_tile::launch_tiles(a.n, a.chain0) - tile0;
+  const int here = static_cast<int>(left < per_block ? left : per_block);  // tiles with rows
+  // every solver warp of a tile with rows reads the panels once for the
+  // start's log density and once a step
+  const int64_t densities = 1 + a.n_discard + static_cast<int64_t>(a.n_collect) * a.thin;
+  const gmt_logistic::PanelRing xring{panels, base, full, released, static_cast<int>(words),
+                                      count, kStages, kWarps * here, densities * count};
+  if (threadIdx.x == 0) xring.start();
+  ring.clear();
+  __syncthreads();
+  StreamTarget<CENTRED> target(xring, bf, sums, a.d - 2, n_obs, rows);
+  gmt_mh::run_block<kNB, PROP, StreamTarget<CENTRED>, kWarps, kProducers, true>(
+      a, ring, target, tile0, per_block);
+}
+
 // A launch's layout: its tiles, tiles a block, blocks, dynamic shared bytes
-// a block and the producer warps a block.
+// a block, the producer warps a block, whether it streams X, and the
+// streamed path's panel rows, panels, ring stages and the words of its
+// split buffer.
 struct Layout {
-  int64_t tiles, per_block, blocks, bytes, producers;
+  int64_t tiles, per_block, blocks, bytes, producers, streamed, rows, panels, stages, scratch;
 };
 
 // The layout of a launch of `n` rows from `chain0` over `n_obs`
 // observations on the current device, the one launch() uses: the tiles
-// spread over the SMs, one block an SM, as many tiles a block as fit beside
-// X.
+// spread over the SMs, one block an SM.  Resident where p <= 48 and X's hi
+// and lo and y fit beside one tile, with as many tiles a block as fit;
+// else streamed, the panel from the data's shape alone (the most tiles a
+// block, at most kStreamTiles, that fit beside 32-observation panels, the
+// largest panel beside them, a multiple of 32 and at most kMaxRows, evened
+// out over the panels it takes), so that a chain's sums run over the same
+// panels in a launch of any size (chain0); a launch then takes up to that
+// many tiles a block.
 cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
   int device = 0, sms = 0, shared_max = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -284,69 +483,117 @@ cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&shared_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
+  const size_t limit = static_cast<size_t>(shared_max);
   const int n_pad = obs_pad(n_obs);
   const int64_t tiles = gmt_tile::launch_tiles(n, chain0);
-  int per_block = static_cast<int>((tiles + sms - 1) / sms);
-  per_block = per_block > kMaxTiles ? kMaxTiles : per_block;
-  while (per_block > 1 && shared_bytes(n_pad, per_block) > static_cast<size_t>(shared_max)) {
-    --per_block;
+  const int64_t spread = (tiles + sms - 1) / sms;
+  int per_block = static_cast<int>(spread > kMaxTiles ? kMaxTiles : spread);
+  if (kResident && shared_bytes(n_pad, 1) <= limit) {
+    while (per_block > 1 && shared_bytes(n_pad, per_block) > limit) --per_block;
+    *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
+                  static_cast<int64_t>(shared_bytes(n_pad, per_block)), kProducers,
+                  0, 0, 0, 0, 0};
+    return cudaSuccess;
   }
-  const size_t bytes = shared_bytes(n_pad, per_block);
-  if (bytes > static_cast<size_t>(shared_max)) return cudaErrorInvalidValue;
+  const auto fits = [&](int rows, int t) { return stream_bytes(rows, t) <= limit; };
+  int most = kStreamTiles;
+  while (most > 1 && !fits(32, most)) --most;
+  if (!fits(32, most)) return cudaErrorInvalidValue;
+  int rows = 32 * ((n_obs + 31) / 32) < kMaxRows ? 32 * ((n_obs + 31) / 32) : kMaxRows;
+  while (rows > 32 && !fits(rows, most)) rows -= 32;
+  const int count = (n_obs + rows - 1) / rows;
+  const int even = 32 * (((n_obs + count - 1) / count + 31) / 32);
+  per_block = per_block < most ? per_block : most;
   *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
-                static_cast<int64_t>(bytes), kProducers};
+                static_cast<int64_t>(stream_bytes(even, per_block)), kProducers, 1, even, count,
+                kStages,
+                static_cast<int64_t>(count) *
+                    static_cast<int64_t>(gmt_logistic::panel_words(kPT, even))};
   return cudaSuccess;
 }
 
 template <int PROP, bool CENTRED>
 cudaError_t launch_as(const gmt_mh::Run& a, const float* X, const float* y, int n_obs,
-                      const Layout& l, cudaStream_t stream) {
-  const int p = a.d - 2;
-  const int n_pad = obs_pad(n_obs);
-  const int rows4 = 4 * ((n_obs + 3) / 4);
-  // the staging chunk: the rows of X that the tiles' space holds, a multiple of 4
-  const int chunk =
-      static_cast<int>(l.per_block * gmt_mh::tile_bytes(kNB) / 4 / p) / 4 * 4;
-  if (chunk < 4) return cudaErrorInvalidValue;
-  const auto kernel = fused_mh_logistic_kernel<PROP, CENTRED>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(l.bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned int>(l.blocks),
-           static_cast<unsigned int>((kWarps * l.per_block + kProducers) * 32),
-           static_cast<size_t>(l.bytes), stream>>>(a, X, y, n_obs, n_pad, rows4, chunk,
-                                                   static_cast<int>(l.per_block));
-  return cudaGetLastError();
+                      const Layout& l, float* scratch, int64_t scratch_words,
+                      cudaStream_t stream) {
+  if (l.streamed) {
+    if (scratch == nullptr || scratch_words < l.scratch ||
+        reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+      return cudaErrorInvalidValue;
+    }
+    const int64_t cells = l.panels * l.rows * kS;
+    const int grid = static_cast<int>((cells + 255) / 256 < 4096 ? (cells + 255) / 256 : 4096);
+    gmt_logistic::split_panels<kS><<<grid, 256, 0, stream>>>(
+        X, y, n_obs, a.d - 2, static_cast<int>(l.rows), static_cast<int>(l.panels), scratch);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const auto kernel = fused_mh_logistic_streamed_kernel<PROP, CENTRED>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(l.bytes));
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(l.blocks),
+             static_cast<unsigned int>((kWarps * l.per_block + kProducers) * 32),
+             static_cast<size_t>(l.bytes), stream>>>(a, scratch, n_obs, static_cast<int>(l.rows),
+                                                     static_cast<int>(l.panels),
+                                                     static_cast<int>(l.per_block));
+    return cudaGetLastError();
+  }
+  if constexpr (kResident) {
+    const int p = a.d - 2;
+    const int n_pad = obs_pad(n_obs);
+    const int rows4 = 4 * ((n_obs + 3) / 4);
+    // the staging chunk: the rows of X that the tiles' space holds, a multiple of 4
+    const int chunk =
+        static_cast<int>(l.per_block * gmt_mh::tile_bytes(kNB) / 4 / p) / 4 * 4;
+    if (chunk < 4) return cudaErrorInvalidValue;
+    const auto kernel = fused_mh_logistic_kernel<PROP, CENTRED>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(l.bytes));
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(l.blocks),
+             static_cast<unsigned int>((kWarps * l.per_block + kProducers) * 32),
+             static_cast<size_t>(l.bytes), stream>>>(a, X, y, n_obs, n_pad, rows4, chunk,
+                                                     static_cast<int>(l.per_block));
+    return cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
 }
 
-// The feature tiles of p features, padded to 16, 32 or 48.
+// The feature tiles of p features, padded to a multiple of 16.
 __host__ constexpr int feature_tiles(int p) { return 2 * ((p + 15) / 16); }
 
 cudaError_t launch(const gmt_mh::Run& a, const float* X, const float* y, int n_obs,
-                   int proposal, int centred, cudaStream_t stream) {
+                   int proposal, int centred, float* scratch, int64_t scratch_words,
+                   cudaStream_t stream) {
   if (feature_tiles(a.d - 2) != kPT) return cudaErrorInvalidValue;
   if (proposal != gmt_mh::kRandomWalk && proposal != gmt_mh::kPCN) return cudaErrorInvalidValue;
   Layout l;
   cudaError_t err = layout(a.n, a.chain0, n_obs, &l);
   if (err != cudaSuccess) return err;
+  const int64_t sw = scratch_words;
   if (proposal == gmt_mh::kPCN) {
-    return centred ? launch_as<gmt_mh::kPCN, true>(a, X, y, n_obs, l, stream)
-                   : launch_as<gmt_mh::kPCN, false>(a, X, y, n_obs, l, stream);
+    return centred ? launch_as<gmt_mh::kPCN, true>(a, X, y, n_obs, l, scratch, sw, stream)
+                   : launch_as<gmt_mh::kPCN, false>(a, X, y, n_obs, l, scratch, sw, stream);
   }
-  return centred ? launch_as<gmt_mh::kRandomWalk, true>(a, X, y, n_obs, l, stream)
-                 : launch_as<gmt_mh::kRandomWalk, false>(a, X, y, n_obs, l, stream);
+  return centred ? launch_as<gmt_mh::kRandomWalk, true>(a, X, y, n_obs, l, scratch, sw, stream)
+                 : launch_as<gmt_mh::kRandomWalk, false>(a, X, y, n_obs, l, scratch, sw, stream);
 }
 
 }  // namespace
 
 // x0 [n, p + 2], X [4 ceil(n_obs / 4), p] (zero rows past n_obs: whole
-// 16-byte words for the copies), y [n_obs], out [n_collect, n, p + 2], all
-// float32, X 16-byte aligned; proposal 0 the random walk (p0 its scale), 1
-// pCN (p0, p1, p2: rho, beta, 1 / beta); centred 1 for HierarchicalLogistic,
-// 0 for HierarchicalLogisticNC; built for 8 GMT_LOGISTIC_PT - 15 <= p <=
+// 16-byte words for the resident path's copies), y [n_obs], out
+// [n_collect, n, p + 2], all float32, X 16-byte aligned; scratch (16-byte
+// aligned, scratch_words floats) the streamed path's split buffer, at least
+// the layout's `scratch` words (unused, and may be null, on the resident
+// path); proposal 0 the random walk (p0 its scale), 1 pCN (p0, p1, p2: rho,
+// beta, 1 / beta); centred 1 for HierarchicalLogistic, 0 for
+// HierarchicalLogisticNC; built for 8 GMT_LOGISTIC_PT - 15 <= p <=
 // 8 GMT_LOGISTIC_PT.
 extern "C" int fused_mh_logistic_launch(const void* x0, const void* X, const void* y,
-                                        void* out, int n, int p, int n_obs, int n_collect,
+                                        void* out, void* scratch, long long scratch_words,
+                                        int n, int p, int n_obs, int n_collect,
                                         int n_discard, int thin, int proposal, int centred,
                                         float p0, float p1, float p2, unsigned int seed,
                                         unsigned int chain0, void* stream) {
@@ -356,12 +603,15 @@ extern "C" int fused_mh_logistic_launch(const void* x0, const void* X, const voi
   const gmt_mh::Run a{static_cast<const float*>(x0), static_cast<float*>(out), n, p + 2,
                       n_collect, n_discard, thin, p0, p1, p2, seed, chain0};
   return static_cast<int>(launch(a, static_cast<const float*>(X), static_cast<const float*>(y),
-                                 n_obs, proposal, centred, static_cast<cudaStream_t>(stream)));
+                                 n_obs, proposal, centred, static_cast<float*>(scratch),
+                                 scratch_words, static_cast<cudaStream_t>(stream)));
 }
 
 // The layout fused_mh_logistic_launch gives n rows of p features and n_obs
 // observations from chain0 on the current device: out = {tiles, tiles a
-// block, blocks, dynamic shared bytes a block, producer warps a block}.
+// block, blocks, dynamic shared bytes a block, producer warps a block,
+// streamed (0 or 1), panel rows, panels, ring stages, split buffer words}
+// (the last four 0 on the resident path).
 extern "C" int fused_mh_logistic_layout(int n, int p, int n_obs, unsigned int chain0,
                                         long long* out) {
   if (n < 1 || p < 1 || n_obs < 1 || feature_tiles(p) != kPT) {
@@ -370,11 +620,9 @@ extern "C" int fused_mh_logistic_layout(int n, int p, int n_obs, unsigned int ch
   Layout l;
   const cudaError_t err = layout(n, chain0, n_obs, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = l.tiles;
-  out[1] = l.per_block;
-  out[2] = l.blocks;
-  out[3] = l.bytes;
-  out[4] = l.producers;
+  const int64_t v[10] = {l.tiles, l.per_block, l.blocks,  l.bytes,  l.producers,
+                         l.streamed, l.rows,    l.panels, l.stages, l.scratch};
+  for (int i = 0; i < 10; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -11,6 +11,20 @@
 // 32 chains and four warps (the defaults), the HMC kernel's 16 chains and
 // two warps.
 //
+// X resident or streamed.  Where X's hi and lo and y fit in one block's
+// shared memory beside a tile (and p <= 48), a block stages them once
+// (stage_x, Shared) and every tile reads them from there.  Past that, the
+// kernels stream X through a ring of shared-memory stages in panels of
+// observations (PanelRing, below): X is split into TF32 hi and lo once a
+// launch into a device buffer laid out as the stages are (split_panels), so
+// a stage is filled by one bulk copy (TMA) and no panel is split again; the
+// block's tiles all read the same panel, so X crosses L2 once a block and
+// gradient (K1) or step (K3), not once a tile.  The forward pass over a
+// panel (panel_loglik, K3) and the gradient over a panel (PanelGrad, K1)
+// keep beta and g in shared memory or spread over the tile's warps, so
+// their registers do not grow with p (up to 256 features, 32 feature
+// tiles).
+//
 // Layout of a tile (NS warps, `part` 0..NS - 1): lane (g = lane / 4,
 // t = lane % 4) holds rows (chains) 16 m + g + 8 h, m < MT, h in {0, 1};
 // unit q = (m, j) (row tile m, feature tile j < PT) is owned by warp q % NS,
@@ -479,6 +493,396 @@ struct TileWarp {
       for (int w = 1; w < NS; ++w) v = v + sm[(w * 4 * MT + k) * 32];
       sums[k] = v;
     }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The streamed path.
+
+constexpr int kMaxStages = 4;  // ring stages a block may have
+
+// Words of one panel of `rows` observations at PT feature tiles, as the
+// device buffer and a ring stage hold it: X's hi [rows][S], X's lo
+// [rows][S], y [rows], S = 8 PT + kRowPad.
+__host__ __device__ constexpr size_t panel_words(int pt, int rows) {
+  return static_cast<size_t>(rows) * (2 * (pt * 8 + kRowPad) + 1);
+}
+
+// X [n_obs, p] and y split into `panels` panels of `rows` observations each
+// (zero past n_obs and p): the buffer the streamed kernels copy their ring's
+// stages from, written once a launch.
+template <int S>
+__global__ void split_panels(const float* X, const float* y, int n_obs, int p, int rows,
+                             int panels, float* out) {
+  const int64_t words = static_cast<int64_t>(rows) * (2 * S + 1);
+  const int64_t cells = static_cast<int64_t>(panels) * rows * S;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < cells;
+       i += stride) {
+    const int64_t obs = i / S;
+    const int j = static_cast<int>(i % S);
+    const int64_t k = obs / rows;
+    const int r = static_cast<int>(obs % rows);
+    uint32_t hi, lo;
+    split_tf32((obs < n_obs && j < p) ? X[obs * p + j] : 0.0f, hi, lo);
+    float* panel = out + k * words;
+    panel[r * S + j] = __uint_as_float(hi);
+    panel[static_cast<int64_t>(rows) * S + r * S + j] = __uint_as_float(lo);
+    if (j == 0) panel[2 * static_cast<int64_t>(rows) * S + r] = obs < n_obs ? y[obs] : 0.0f;
+  }
+}
+
+// The ring of shared-memory stages through which a block reads the panels
+// of X in order, panel q of the block's sequence being panel q % panels of
+// the buffer in stage q % stages.  Every consumer warp (the block's solver
+// warps of tiles with rows) reads every panel of the sequence in order:
+// wait(q), its reads, release(q).  A stage completes on its mbarrier when
+// its bulk copy lands; the last consumer warp to release a stage issues its
+// next panel's copy (a count of releases a stage, in shared memory), so no
+// warp waits for a slot to refill it and no warp is spent on the copies.
+// A warp waits only for panels that every warp has let through to the
+// ring, so the ring cannot deadlock: the warp furthest behind never waits
+// for anything but a copy in flight.
+struct PanelRing {
+  const float* src;     // the split panels in device memory
+  float* stage;         // [stages][words] in shared memory
+  uint64_t* full;       // [kMaxStages] mbarriers
+  unsigned* released;   // [kMaxStages] releases of the stage's current panel
+  int words, panels, stages, consumers;
+  int64_t total;        // panels of the block's sequence
+
+  __device__ float* at(int s) const { return stage + static_cast<size_t>(s) * words; }
+
+  // One thread: panel q's copy into its stage, completing on its mbarrier.
+  __device__ void issue(int64_t q) const {
+    const int s = static_cast<int>(q % stages);
+    const uint32_t b = smem_addr(full + s);
+    const uint32_t bytes = static_cast<uint32_t>(words) * 4;
+    const float* from = src + (q % panels) * static_cast<int64_t>(words);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+        "[%3];" ::"r"(smem_addr(at(s))),
+        "l"(from), "r"(bytes), "r"(b)
+        : "memory");
+  }
+
+  // One thread, before a block barrier: the mbarriers, the counts and the
+  // first stages' copies.
+  __device__ void start() const {
+    for (int s = 0; s < stages; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(full + s)), "r"(1)
+                   : "memory");
+      released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int64_t q = 0; q < stages && q < total; ++q) issue(q);
+  }
+
+  // The whole warp: panel q, once it has landed.
+  __device__ const float* wait(int64_t q) const {
+    const int s = static_cast<int>(q % stages);
+    const uint32_t b = smem_addr(full + s);
+    const uint32_t parity = static_cast<uint32_t>((q / stages) & 1);
+    uint32_t done = 0;
+    while (!done) {
+      asm volatile(
+          "{ .reg .pred w; mbarrier.try_wait.parity.shared::cta.b64 w, [%1], %2; "
+          "selp.u32 %0, 1, 0, w; }"
+          : "=r"(done)
+          : "r"(b), "r"(parity)
+          : "memory");
+    }
+    return at(s);
+  }
+
+  // The whole warp, after its last read of panel q: the last of the
+  // consumers to release the stage issues the copy of panel q + stages.
+  __device__ void release(int64_t q) const {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) {
+      const int s = static_cast<int>(q % stages);
+      __threadfence_block();
+      if (atomicAdd(released + s, 1u) == static_cast<unsigned>(consumers - 1)) {
+        atomicExch(released + s, 0u);
+        if (q + stages < total) issue(q + stages);
+      }
+    }
+    __syncwarp();
+  }
+};
+
+// One pass of K3's streamed forward pass: UO 8-observation tiles from i0
+// (UO independent accumulator chains), each logit one product in three
+// TF32 passes over beta's fragments in shared memory, and the rows'
+// Bernoulli log-likelihood over the observations below `valid`, added to
+// ll in double.
+template <int PT, int UO>
+__device__ __forceinline__ void loglik_pass(const uint4* bf, const uint32_t* xh,
+                                            const uint32_t* xl, const float* ys, int lane,
+                                            int i0, int valid, double (&ll)[2]) {
+  constexpr int S = PT * 8 + kRowPad;
+  const int g = lane >> 2, t = lane & 3;
+  const int off1 = g * S + t;
+  float acc[UO][4];
+#pragma unroll
+  for (int u = 0; u < UO; ++u)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[u][c] = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < PT; ++j) {
+    const uint4 ah = bf[(2 * j) * 32 + lane];
+    const uint4 al = bf[(2 * j + 1) * 32 + lane];
+#pragma unroll
+    for (int u = 0; u < UO; ++u) {
+      const int at = (i0 + 8 * u) * S + off1 + 8 * j;
+      mma_3x(acc[u], ah, al, xh[at], xh[at + 4], xl[at], xl[at + 4]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < UO; ++u) {
+    const float2 yv = *reinterpret_cast<const float2*>(ys + i0 + 8 * u + 2 * t);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (i0 + 8 * u + 2 * t + (c & 1) < valid) {
+        ll[c >> 1] += static_cast<double>(loglik_term((c & 1) ? yv.y : yv.x, acc[u][c]));
+      }
+    }
+  }
+}
+
+// K3's forward pass over `rows` observations of a panel (a multiple of 16)
+// for one row tile of 16 chains whose beta lies in shared memory as A
+// fragments, hi and lo (bf: feature tile j's hi at (2 j) * 32 + lane, lo at
+// (2 j + 1) * 32 + lane): passes of 32 observations (four
+// accumulator chains, as the resident pass has, which hide more of the
+// softplus's latency than two), the last pass 16 where `rows` leaves 16.
+// X's rows lie S = 8 PT + kRowPad words apart.
+template <int PT>
+__device__ __forceinline__ void panel_loglik(const uint4* bf, const uint32_t* xh,
+                                             const uint32_t* xl, const float* ys, int lane,
+                                             int rows, int valid, double (&ll)[2]) {
+  constexpr int UO = 4;  // 8-observation tiles a pass
+  int i0 = 0;
+  for (; i0 + 8 * UO <= rows; i0 += 8 * UO) {
+    loglik_pass<PT, UO>(bf, xh, xl, ys, lane, i0, valid, ll);
+  }
+  if (i0 < rows) loglik_pass<PT, 2>(bf, xh, xl, ys, lane, i0, valid, ll);
+}
+
+// K1's gradient on the streamed path, for a tile of 16 chains and NS warps,
+// the feature tiles dealt over the warps (warp `part` owns tiles part + NS i,
+// i < OWN; OWN NS >= PT, the tiles past PT empty): beta and the gradient of
+// a warp's own units stay in its registers, 4 OWN floats a lane each, so
+// neither grows with p.  Per panel of the ring, three phases and two
+// barriers of the tile:
+//  (1) each warp the partial logits of all the panel's observations over its
+//      own feature tiles, into shared memory;
+//  (2) the logits, the warps' partials added in one order, of 8-observation
+//      tiles u = part, part + NS, ..: r = y - sigmoid(l) (K4's fast
+//      form, sigmoidf) into shared memory
+//      as A fragments (hi and lo), and with `value` the rows' Bernoulli
+//      log-likelihood of the real observations, in double;
+//  (3) each warp the panel's r X for its own feature tiles, from zero, then
+//      it releases the panel and adds the panel's part to g in double (a
+//      float32 accumulator chain over thousands of observations would
+//      round far more than the plain version's product), rounded once at
+//      the end.
+// The partials and r each have one buffer: (1) of the next panel follows
+// the barrier before (3) of this one, and (2) of the next the barrier after
+// the next (1).  Between gradients the partials' space is free (the
+// kernel keeps the momenta as drawn there).
+template <int PT, int NS_>
+struct PanelGrad {
+  static constexpr int NS = NS_;
+  static constexpr int OWN = (PT + NS - 1) / NS;
+  static constexpr int S = PT * 8 + kRowPad;
+  const PanelRing& ring;
+  float4* pl;   // [NS][rows / 8][32] partial logits
+  uint4* rf;    // [rows / 8][hi, lo][32] r as A fragments
+  float* sm;    // [NS][4][32] the hyper sums in transit
+  int lane, part, g, t, bar, rows, n_obs;
+  int64_t q = 0;  // the next panel of the ring's sequence
+
+  __device__ PanelGrad(const PanelRing& ring_, float4* pl_, uint4* rf_, float* sm_, int tile,
+                       int rows_, int n_obs_)
+      : ring(ring_), pl(pl_), rf(rf_), sm(sm_), rows(rows_), n_obs(n_obs_) {
+    lane = threadIdx.x & 31;
+    part = (threadIdx.x >> 5) % NS;
+    g = lane >> 2;
+    t = lane & 3;
+    bar = 1 + tile;
+  }
+
+  __device__ __forceinline__ void sync() const { named_barrier(bar, NS * 32); }
+  __device__ __forceinline__ bool owns(int i) const { return part + NS * i < PT; }
+
+  // The gradient of the log-likelihood in beta, gl, of the own units, from
+  // beta of the own units; with `value` also the lane's part of its rows'
+  // log-likelihood, added to ll.
+  __device__ void loglik_grad(const float (&beta)[OWN][4], float (&gl)[OWN][4], double (&ll)[2],
+                              bool value) {
+    uint4 ah[OWN], al[OWN];  // a_i <- c_{0, 2, 1, 3}
+    double gd[OWN][4];       // g over the panels so far
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) split_tf32(beta[i][((k & 1) << 1) | (k >> 1)], hi[k], lo[k]);
+      ah[i] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      al[i] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gd[i][c] = 0.0;
+    }
+    const int nt = rows / 8;
+    const int off1 = g * S + t;
+    const int off2 = 2 * t * S + (g >> 1) + 4 * (g & 1);
+    for (int k = 0; k < ring.panels; ++k, ++q) {
+      const uint32_t* xh = reinterpret_cast<const uint32_t*>(ring.wait(q));
+      const uint32_t* xl = xh + rows * S;
+      const float* ys = reinterpret_cast<const float*>(xl + rows * S);
+      // (1) the partial logits over the own feature tiles
+      for (int u = 0; u < nt; ++u) {
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < OWN; ++i) {
+          if (owns(i)) {
+            const int at = 8 * u * S + off1 + 8 * (part + NS * i);
+            mma_3x(acc, ah[i], al[i], xh[at], xh[at + 4], xl[at], xl[at + 4]);
+          }
+        }
+        pl[(part * nt + u) * 32 + lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      }
+      sync();
+      // (2) the logits, r and the log-likelihood of this warp's 8-observation tiles
+      for (int u = part; u < nt; u += NS) {
+        float4 l = pl[u * 32 + lane];
+#pragma unroll
+        for (int w = 1; w < NS; ++w) {
+          const float4 e = pl[(w * nt + u) * 32 + lane];
+          l.x = l.x + e.x;
+          l.y = l.y + e.y;
+          l.z = l.z + e.z;
+          l.w = l.w + e.w;
+        }
+        const float2 yv = *reinterpret_cast<const float2*>(ys + 8 * u + 2 * t);
+        if (value) {
+          const int obs = k * rows + 8 * u + 2 * t;
+          if (obs < n_obs) {
+            ll[0] += static_cast<double>(loglik_term(yv.x, l.x));
+            ll[1] += static_cast<double>(loglik_term(yv.x, l.z));
+          }
+          if (obs + 1 < n_obs) {
+            ll[0] += static_cast<double>(loglik_term(yv.y, l.y));
+            ll[1] += static_cast<double>(loglik_term(yv.y, l.w));
+          }
+        }
+        uint4 rh, rl;  // r as A fragments: a_i <- c_{0, 2, 1, 3}
+        split_tf32(yv.x - sigmoidf(l.x), rh.x, rl.x);
+        split_tf32(yv.x - sigmoidf(l.z), rh.y, rl.y);
+        split_tf32(yv.y - sigmoidf(l.y), rh.z, rl.z);
+        split_tf32(yv.y - sigmoidf(l.w), rh.w, rl.w);
+        rf[(2 * u) * 32 + lane] = rh;
+        rf[(2 * u + 1) * 32 + lane] = rl;
+      }
+      sync();
+      // (3) the panel's r X, own feature tiles
+#pragma unroll
+      for (int i = 0; i < OWN; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gl[i][c] = 0.0f;
+      for (int u = 0; u < nt; ++u) {
+        const uint4 rh = rf[(2 * u) * 32 + lane];
+        const uint4 rl = rf[(2 * u + 1) * 32 + lane];
+#pragma unroll
+        for (int i = 0; i < OWN; ++i) {
+          if (owns(i)) {
+            const int at = 8 * u * S + off2 + 8 * (part + NS * i);
+            mma_3x(gl[i], rh, rl, xh[at], xh[at + S], xl[at], xl[at + S]);
+          }
+        }
+      }
+      ring.release(q);
+#pragma unroll
+      for (int i = 0; i < OWN; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) gd[i][c] += static_cast<double>(gl[i][c]);
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gl[i][c] = static_cast<float>(gd[i][c]);
+  }
+
+  // The two hyper sums of rows (0, h) at [2 h] and [2 h + 1]: sum g and
+  // sum z g, or with POSITION (the centred target) sum z and sum z^2 of the
+  // own units' z (there beta - mu, zero past p); a warp's own units, the
+  // four lanes of a row by two shuffles, then the NS warps through shared
+  // memory, every warp adding them in one order.  One barrier of the tile.
+  template <bool POSITION>
+  __device__ void hyper_sums(const float (&gl)[OWN][4], const float (&z)[OWN][4],
+                             float (&sums)[4]) const {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) sums[k] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if constexpr (POSITION) {
+          sums[2 * (c >> 1)] += z[i][c];
+          sums[2 * (c >> 1) + 1] += z[i][c] * z[i][c];
+        } else {
+          sums[2 * (c >> 1)] += gl[i][c];
+          sums[2 * (c >> 1) + 1] += z[i][c] * gl[i][c];
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sums[k] += __shfl_xor_sync(kFull, sums[k], 1);
+      sums[k] += __shfl_xor_sync(kFull, sums[k], 2);
+      sm[(part * 4 + k) * 32 + lane] = sums[k];
+    }
+    sync();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float v = sm[k * 32 + lane];
+#pragma unroll
+      for (int w = 1; w < NS; ++w) v = v + sm[(w * 4 + k) * 32 + lane];
+      sums[k] = v;
+    }
+  }
+
+  // The non-centred target's parts of the gradient: beta = mu + tau z of
+  // the own units; own = g of the own units, the hyper sums of g, and with
+  // `value` the lane's part of its rows' log-likelihood.
+  __device__ void nc(const float (&mu)[1][2], const float (&tau)[1][2],
+                     const float (&z)[OWN][4], bool value, float (&own)[OWN][4],
+                     float (&sums)[4], double (&ll)[2]) {
+    float beta[OWN][4];
+#pragma unroll
+    for (int i = 0; i < OWN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) beta[i][c] = mu[0][c >> 1] + tau[0][c >> 1] * z[i][c];
+    loglik_grad(beta, own, ll, value);
+    // the hyper sums' barrier also keeps the partials' space, which the
+    // kernel reuses between gradients, from being written before every
+    // warp has read it
+    hyper_sums<false>(own, z, sums);
+  }
+
+  // The centred target's: beta is the position; the hyper sums those of
+  // cen = beta - mu (zero past p), which make_cen() fills after the
+  // products.
+  template <class MakeCen>
+  __device__ void centred(const float (&beta)[OWN][4], float (&cen)[OWN][4],
+                          const MakeCen& make_cen, bool value, float (&own)[OWN][4],
+                          float (&sums)[4], double (&ll)[2]) {
+    loglik_grad(beta, own, ll, value);
+    make_cen();
+    hyper_sums<true>(own, cen, sums);
   }
 };
 

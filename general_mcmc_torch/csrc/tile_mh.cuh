@@ -43,8 +43,10 @@
 //
 // The NW solver warps of a tile walk it together, each proposing and
 // selecting the same values (the proposal kept in registers, so that no warp
-// overwrites the normals another still reads); warp 0 of the tile writes
-// the selected state and stores it.
+// overwrites the normals another still reads; or, with REMAKE, made again
+// from the state and the normals at the select, where a wide tile has no
+// registers for it); warp 0 of the tile writes the selected state and
+// stores it.
 //
 // The target comes in as a hook object T (each kernel's own; with NW > 1
 // every warp of the tile calls it for the same position, and the target
@@ -186,8 +188,10 @@ __device__ __forceinline__ void unpack(const float4& q, float (&v)[4]) {
 
 // One solver warp's walk of its tile (one of the tile's NW): the tile's
 // position in shared memory (x), its rows' log densities and the MH step
-// around the target T.
-template <int NB, int PROP, class T, int NW = 1>
+// around the target T.  REMAKE (NW > 1): the proposal is not kept but made
+// again at the select, by warp 0 alone, from the same state and normals,
+// so the same bits.
+template <int NB, int PROP, class T, int NW = 1, bool REMAKE = false>
 struct Walker {
   static constexpr int R = 2;  // rows a lane holds: g and g + 8
   const Run& a;
@@ -229,11 +233,11 @@ struct Walker {
   }
 
   // One MH step from a slot's normals zy (overwritten by the proposal where
-  // one warp walks the tile; kept in registers where NW warps do) and the
-  // rows' log u.
+  // one warp walks the tile; kept in registers where NW warps do, unless
+  // REMAKE) and the rows' log u.
   __device__ void step(float4* zy, const float* log_u) {
     double q[2][R] = {};  // pCN: log q(x -> y), log q(y -> x), before the -1/2
-    float yk[NW > 1 ? NB : 1][4];  // NW > 1: the proposal
+    float yk[NW > 1 && !REMAKE ? NB : 1][4];  // NW > 1: the proposal
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       float z[4], xv[4], y[4];
@@ -249,7 +253,7 @@ struct Walker {
       }
       if constexpr (NW == 1) {
         zy[j * 32 + lane] = f4(y);
-      } else {
+      } else if constexpr (!REMAKE) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) yk[j][c] = y[c];
       }
@@ -273,16 +277,24 @@ struct Walker {
       if (accept[h]) lp[h] = lp_new[h];
     }
     if (!accept[0] && !accept[1]) return;
+    if constexpr (REMAKE) {
+      if ((threadIdx.x >> 5) % NW != 0) return;  // warp 0 of the tile selects
+    }
 #pragma unroll
     for (int j = 0; j < NB; ++j) {
       float y[4], xv[4];
+      unpack(x[j * 32 + lane], xv);
       if constexpr (NW == 1) {
         unpack(zy[j * 32 + lane], y);
+      } else if constexpr (REMAKE) {
+        float z[4];
+        unpack(zy[j * 32 + lane], z);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[c] = move(xv[c], z[c]);
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c) y[c] = yk[j][c];
       }
-      unpack(x[j * 32 + lane], xv);
 #pragma unroll
       for (int c = 0; c < 2 * R; ++c) xv[c] = accept[c >> 1] ? y[c] : xv[c];
       if ((threadIdx.x >> 5) % NW == 0) x[j * 32 + lane] = f4(xv);  // the tile's warp 0
@@ -327,8 +339,8 @@ __device__ __forceinline__ void slot_arrive(int k, int count) {
 // NP producer warps (warps NW per_block .. on), after its shared memory is
 // staged: n_discard + n_collect * thin steps, every thin-th post-burn-in
 // state stored.  `target` is the solver warp's hook (unused by the
-// producers).
-template <int NB, int PROP, class T, int NW = 1, int NP = kProducers>
+// producers).  REMAKE: Walker's.
+template <int NB, int PROP, class T, int NW = 1, int NP = kProducers, bool REMAKE = false>
 __device__ void run_block(const Run& a, const Ring<NB>& ring, T& target, int64_t tile0,
                           int per_block) {
   constexpr int kFullBar = 1, kEmptyBar = 1 + kSlots;  // named barrier ids of slot 0
@@ -358,7 +370,7 @@ __device__ void run_block(const Run& a, const Ring<NB>& ring, T& target, int64_t
 
   const bool active = tile < here;
   const TileRows rows(tile0 + tile, a.n, a.chain0, lane >> 2);
-  Walker<NB, PROP, T, NW> w(a, rows, target, ring.tile_x(tile));
+  Walker<NB, PROP, T, NW, REMAKE> w(a, rows, target, ring.tile_x(tile));
   if (active) w.init();
   const int64_t sample = static_cast<int64_t>(a.n) * a.d;  // floats between stored samples
   float* dst = a.out;

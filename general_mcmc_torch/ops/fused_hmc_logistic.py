@@ -16,6 +16,14 @@ kernel shares), and on the CPU the plain version is
 :func:`..ops.fused_hmc.fused_hmc_run_reference`, the ``"torch"`` backend's
 step loop over the target's ``unnorm_logp_grad``.
 
+X stays in one block's shared memory where it fits beside a tile and
+``p <= 48`` (the resident path); past that the kernel streams it through a
+ring of shared-memory stages in panels of observations (the streamed path),
+so the kernel takes any number of observations and up to
+``MAX_FEATURES`` = 256 features.  The kernel's host code chooses the path
+and the panel, and :func:`launch_layout` reports them; both paths are
+kernels, and a launch that fails raises.
+
 Both read the same counter-generator draws at K1's addresses, but the
 kernel's products sum in another order than ``torch.matmul`` and carry the
 three-pass TF32 split's 2⁻²², so the two agree to a tolerance and not bit
@@ -31,29 +39,36 @@ import torch
 
 from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
-from .fused_logistic import MAX_FEATURES, MAX_SHARED_BYTES
 
-__all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "shared_bytes",
-           "MAX_FEATURES", "MAX_SHARED_BYTES"]
+__all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "feature_tiles",
+           "MAX_FEATURES", "MAX_RESIDENT_FEATURES"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
+# What csrc/fused_hmc_logistic.cu is built for: up to 256 features (32
+# feature tiles, one build each); X resident in shared memory up to 48.
+MAX_FEATURES = 256
+MAX_RESIDENT_FEATURES = 48
 
-def shared_bytes(n_obs: int, p: int) -> int:
-    """Shared memory of a block of one tile of 16 chains and two warps, the
-    least a launch takes, which :func:`check_target` holds to
-    ``MAX_SHARED_BYTES`` on either device: X as TF32 hi and lo, rows ``8 PT
-    + 4`` floats apart (``PT`` the 8-feature tiles of ``p`` padded to 16, 32
-    or 48), and y, over ``n_obs`` padded to 64; the tile's beta fragments
-    (``256 PT`` words), partial g in transit (``128 PT``), hyper sums (256)
-    and its lanes' opening z and gradient (``256 PT``); the copies' mbarrier
-    (4).  The card tests hold it to the kernel's host code
-    (:func:`launch_layout`)."""
-    pt = 2 * ((p + 15) // 16)
-    n_pad = 64 * ((n_obs + 63) // 64)
-    data = n_pad * (2 * (8 * pt + 4) + 1)
-    return 4 * (data + 640 * pt + 256 + 4)
+_LAYOUT = ("tiles", "tiles_a_block", "blocks", "shared_bytes", "streamed", "panel_rows",
+           "panels", "stages", "scratch_words")
+# The most observations a panel (kMaxRows of both kernels) and the floats
+# between rows of X (kRowPad of csrc/logistic_tile.cuh): the bounds of the
+# index over the kernels' split copy of X.
+_MAX_PANEL_ROWS, _ROW_PAD = 256, 4
+
+
+def feature_tiles(p: int) -> int:
+    """The kernel's 8-feature tiles for ``p`` features, padded to a multiple
+    of 16: one build of ``csrc/fused_hmc_logistic.cu`` each."""
+    return 2 * ((p + 15) // 16)
+
+
+def _library(p: int):
+    from .._build import load
+
+    return load("fused_hmc_logistic", GMT_LOGISTIC_PT=feature_tiles(p))
 
 
 def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
@@ -61,24 +76,26 @@ def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
     ``n_obs`` observations from the global chain ``chain0`` on the current
     CUDA device, from the kernel's own host code
     (``fused_hmc_logistic_layout``, which its launch calls): the ``tiles`` of
-    16 chains, ``tiles_a_block``, ``blocks`` and the dynamic
-    ``shared_bytes`` of a block."""
-    from .._build import check, load
+    16 chains, ``tiles_a_block``, ``blocks``, the dynamic ``shared_bytes`` of
+    a block, whether it is ``streamed``, and the streamed path's
+    ``panel_rows``, ``panels``, ring ``stages`` and ``scratch_words`` (its
+    split copy of X and y)."""
+    from .._build import check
 
-    lib = load("fused_hmc_logistic")
+    lib = _library(p)
     fn = lib.fused_hmc_logistic_layout
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * len(_LAYOUT))()
     check(lib, fn(n, p, n_obs, chain0, out), "fused_hmc_logistic_layout")
-    return dict(zip(("tiles", "tiles_a_block", "blocks", "shared_bytes"), out))
+    return dict(zip(_LAYOUT, out))
 
 
 def check_target(target, d: int) -> None:
     """Raise unless the kernel takes ``target`` at width ``d``: a
     ``HierarchicalLogisticNC`` or ``HierarchicalLogistic`` of ``p + 2``
-    coordinates, ``p <= MAX_FEATURES`` and ``X``, ``y`` within one block's
-    shared memory."""
+    coordinates, ``p <= MAX_FEATURES``, and an ``int`` index over its
+    observations' split copy."""
     if not isinstance(target, (HierarchicalLogistic, HierarchicalLogisticNC)):
         raise ValueError("the fused logistic HMC kernel takes a HierarchicalLogisticNC or a "
                          f"HierarchicalLogistic, not {type(target).__name__}")
@@ -88,9 +105,28 @@ def check_target(target, d: int) -> None:
                          f"{p + 2}, got {d}")
     if p > MAX_FEATURES:
         raise ValueError(f"the fused logistic HMC kernel takes p <= {MAX_FEATURES}, got {p}")
-    if shared_bytes(n_obs, p) > MAX_SHARED_BYTES:
-        raise ValueError(f"X [{n_obs}, {p}] and y need {shared_bytes(n_obs, p)} bytes of "
-                         f"shared memory; the kernel has {MAX_SHARED_BYTES}")
+    check_observations(n_obs, p)
+
+
+def check_observations(n_obs: int, p: int) -> None:
+    """Raise unless the observations, padded to whole panels, index by an
+    ``int``."""
+    if (n_obs + _MAX_PANEL_ROWS) * (8 * feature_tiles(p) + _ROW_PAD) >= 2**31:
+        raise ValueError(f"X [{n_obs}, {p}] is past an int index of the kernels' copy of it")
+
+
+def split_inputs(target, x0, layout: dict):
+    """X's rows padded with zeros to a multiple of 4 (the resident path
+    copies it in whole 16-byte words), y, and the streamed path's split
+    buffer (``layout["scratch_words"]`` floats, which the launch fills), on
+    ``x0``'s device."""
+    f32 = dict(device=x0.device, dtype=torch.float32)
+    n_obs, p = target.X.shape
+    X = torch.zeros((-(-n_obs // 4) * 4, p), **f32)
+    X[:n_obs] = target.X
+    y = target.y.to(**f32).contiguous()
+    scratch = torch.empty(max(int(layout["scratch_words"]), 4), **f32)
+    return X, y, scratch
 
 
 def launch_logistic(target, x0, step_size, n_leapfrog, n_collect, n_discard, seed, thin,
@@ -99,30 +135,26 @@ def launch_logistic(target, x0, step_size, n_leapfrog, n_collect, n_discard, see
     positions ``x0 [n, p + 2]`` (``inv_row`` and ``scale_row`` the ``[p + 2]``
     rows of M⁻¹ and √M): ``[n, n_collect, p + 2]``, a view of the
     steps-major store, as :func:`..ops.fused_hmc.fused_hmc_run` returns."""
-    from .._build import check, load
+    from .._build import check
 
     global launches
     n, d = x0.shape
     check_target(target, d)
-    f32 = dict(device=x0.device, dtype=torch.float32)
     n_obs, p = target.X.shape
-    # X's rows padded with zeros to a multiple of 4: the kernel copies it in
-    # whole 16-byte words
-    X = torch.zeros((-(-n_obs // 4) * 4, p), **f32)
-    X[:n_obs] = target.X
-    y = target.y.to(**f32).contiguous()
-    out = torch.empty((n_collect, n, d), **f32)
+    out = torch.empty((n_collect, n, d), device=x0.device, dtype=torch.float32)
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)
-    lib = load("fused_hmc_logistic")
+    X, y, scratch = split_inputs(target, x0, launch_layout(n, n_obs, p, chain0))
+    lib = _library(p)
     fn = lib.fused_hmc_logistic_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(x0.data_ptr(), X.data_ptr(), y.data_ptr(), inv_row.data_ptr(), scale_row.data_ptr(),
-            out.data_ptr(), n, p, n_obs, n_collect, n_discard, thin, int(n_leapfrog),
-            int(isinstance(target, HierarchicalLogistic)), float(step_size), stream_key(seed),
-            int(chain0), torch.cuda.current_stream(x0.device).cuda_stream)
+            out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, p, n_obs, n_collect,
+            n_discard, thin, int(n_leapfrog), int(isinstance(target, HierarchicalLogistic)),
+            float(step_size), stream_key(seed), int(chain0),
+            torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, rc, "fused_hmc_logistic_launch")
     launches += 1
     return out.transpose(0, 1)

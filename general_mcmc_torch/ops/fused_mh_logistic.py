@@ -15,6 +15,13 @@ warp over half the observations), and on the CPU the
 plain version is :func:`..ops.fused_mh.fused_mh_run_reference`, the
 ``"torch"`` step over the target's ``unnorm_logp``.
 
+X stays in one block's shared memory where it fits beside a tile and
+``p <= 48`` (the resident path); past that the kernel streams it through a
+ring of shared-memory stages in panels of observations (the streamed path),
+so it takes any number of observations and up to ``MAX_FEATURES`` = 256
+features.  The kernel's host code chooses the path and the panel, and
+:func:`launch_layout` reports them.
+
 Both read the same counter-generator draws at K3's addresses and round the
 proposals and the select alike, but the kernel's product sums in another
 order than ``torch.matmul`` and carries the three-pass TF32 split's 2⁻²², so
@@ -31,43 +38,17 @@ import torch
 
 from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
-from .fused_logistic import MAX_FEATURES, MAX_SHARED_BYTES
+from .fused_hmc_logistic import (MAX_FEATURES, MAX_RESIDENT_FEATURES, check_observations,
+                                 feature_tiles, split_inputs)
 
-__all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "shared_bytes",
-           "feature_tiles", "MAX_FEATURES", "MAX_SHARED_BYTES"]
+__all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "feature_tiles",
+           "MAX_FEATURES", "MAX_RESIDENT_FEATURES"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
-_LAYOUT = ("tiles", "tiles_a_block", "blocks", "shared_bytes", "producer_warps")
-_OBS_PASS = 64  # observations a pass of a tile's two solver warps (csrc/fused_mh_logistic.cu)
-_ROW_PAD = 4    # floats between rows of X in shared memory (csrc/logistic_tile.cuh)
-_SLOTS, _ROWS = 2, 16  # the ring's slots and a tile's chains (csrc/tile_mh.cuh)
-_SUM_BYTES = 512  # a tile's row sums in transit between its two warps
-
-
-def feature_tiles(p: int) -> int:
-    """The kernel's 8-feature tiles for ``p`` features, padded to 16, 32 or
-    48: one build of ``csrc/fused_mh_logistic.cu`` each."""
-    return 2 * ((p + 15) // 16)
-
-
-def shared_bytes(n_obs: int, p: int) -> int:
-    """Shared memory of a block of one tile of 16 chains, the least a launch
-    takes, which :func:`check_target` holds to ``MAX_SHARED_BYTES`` on
-    either device: X as TF32 hi and lo, rows ``8 PT + 4`` floats apart
-    (``PT`` :func:`feature_tiles`), and y, over ``n_obs`` padded to 64; the
-    tile's position and its share of the two-slot ring of draws (``NB =
-    PT + 1`` units of 512 bytes, and 64 bytes of log u a slot) and its row
-    sums in transit between its two warps (512); the copies' mbarrier (16
-    bytes).  The card tests hold it to the kernel's host code
-    (:func:`launch_layout`)."""
-    pt = feature_tiles(p)
-    nb = pt + 1
-    n_pad = _OBS_PASS * -(-n_obs // _OBS_PASS)
-    data = n_pad * (2 * (8 * pt + _ROW_PAD) + 1)
-    tile = nb * 512 + _SLOTS * (nb * 512 + _ROWS * 4) + _SUM_BYTES
-    return 4 * data + tile + 16
+_LAYOUT = ("tiles", "tiles_a_block", "blocks", "shared_bytes", "producer_warps", "streamed",
+           "panel_rows", "panels", "stages", "scratch_words")
 
 
 def _library(p: int):
@@ -82,7 +63,9 @@ def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
     CUDA device, from the kernel's own host code
     (``fused_mh_logistic_layout``, which its launch calls): the ``tiles`` of
     16 chains, ``tiles_a_block``, ``blocks``, the dynamic ``shared_bytes`` of
-    a block and its ``producer_warps``."""
+    a block, its ``producer_warps``, whether it is ``streamed``, and the
+    streamed path's ``panel_rows``, ``panels``, ring ``stages`` and
+    ``scratch_words`` (its split copy of X and y)."""
     from .._build import check
 
     lib = _library(p)
@@ -97,8 +80,8 @@ def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
 def check_target(target, d: int) -> None:
     """Raise unless the kernel takes ``target`` at width ``d``: a
     ``HierarchicalLogisticNC`` or ``HierarchicalLogistic`` of ``p + 2``
-    coordinates, ``p <= MAX_FEATURES`` and ``X``, ``y`` within one block's
-    shared memory."""
+    coordinates, ``p <= MAX_FEATURES``, and an ``int`` index over its
+    observations' split copy."""
     if not isinstance(target, (HierarchicalLogistic, HierarchicalLogisticNC)):
         raise ValueError("the fused logistic MH kernel takes a HierarchicalLogisticNC or a "
                          f"HierarchicalLogistic, not {type(target).__name__}")
@@ -108,9 +91,7 @@ def check_target(target, d: int) -> None:
                          f"{p + 2}, got {d}")
     if p > MAX_FEATURES:
         raise ValueError(f"the fused logistic MH kernel takes p <= {MAX_FEATURES}, got {p}")
-    if shared_bytes(n_obs, p) > MAX_SHARED_BYTES:
-        raise ValueError(f"X [{n_obs}, {p}] and y need {shared_bytes(n_obs, p)} bytes of "
-                         f"shared memory; the kernel has {MAX_SHARED_BYTES}")
+    check_observations(n_obs, p)
 
 
 def launch_logistic(target, x0, p_code, consts, n_collect, n_discard, seed, thin, chain0=0):
@@ -124,25 +105,20 @@ def launch_logistic(target, x0, p_code, consts, n_collect, n_discard, seed, thin
     global launches
     n, d = x0.shape
     check_target(target, d)
-    f32 = dict(device=x0.device, dtype=torch.float32)
     n_obs, p = target.X.shape
-    # X's rows padded with zeros to a multiple of 4: the kernel copies it in
-    # whole 16-byte words
-    X = torch.zeros((-(-n_obs // 4) * 4, p), **f32)
-    X[:n_obs] = target.X
-    y = target.y.to(**f32).contiguous()
-    out = torch.empty((n_collect, n, d), **f32)
+    out = torch.empty((n_collect, n, d), device=x0.device, dtype=torch.float32)
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)
+    X, y, scratch = split_inputs(target, x0, launch_layout(n, n_obs, p, chain0))
     lib = _library(p)
     fn = lib.fused_mh_logistic_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float] * 3 + [
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 8 + [
+        ctypes.c_float] * 3 + [ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(x0.data_ptr(), X.data_ptr(), y.data_ptr(), out.data_ptr(), n, p, n_obs, n_collect,
-            n_discard, thin, int(p_code), int(isinstance(target, HierarchicalLogistic)),
-            *consts, stream_key(seed), int(chain0),
-            torch.cuda.current_stream(x0.device).cuda_stream)
+    rc = fn(x0.data_ptr(), X.data_ptr(), y.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), n, p, n_obs, n_collect, n_discard, thin, int(p_code),
+            int(isinstance(target, HierarchicalLogistic)), *consts, stream_key(seed),
+            int(chain0), torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, rc, "fused_mh_logistic_launch")
     launches += 1
     return out.transpose(0, 1)

@@ -74,7 +74,8 @@ class HMC(BatchSampler):
         with a diagonal or a dense covariance, ``DiffableGaussian2D``,
         ``Gaussian2D``, ``Rosenbrock2D``, ``RosenbrockND``, ``NealsFunnel``,
         and ``HierarchicalLogisticNC`` and the centred
-        ``HierarchicalLogistic`` (p <= 48), each a device function or tile
+        ``HierarchicalLogistic`` (p <= 256, any number of observations:
+        X resident in shared memory or streamed), each a device function or tile
         kernel of :mod:`..ops.fused_hmc`; a diagonal ``mass_inv`` only; any
         other target raises)
     mass_inv : optional ``[dim]`` diagonal or ``[dim, dim]`` dense M⁻¹:

@@ -119,8 +119,9 @@ class MetropolisHastings(BatchSampler):
         ``GaussianND`` with a diagonal or a dense covariance,
         ``Gaussian2D``, ``DiffableGaussian2D``, ``Rosenbrock2D``,
         ``RosenbrockND``, ``NealsFunnel``, and ``HierarchicalLogisticNC``
-        and ``HierarchicalLogistic`` (p <= 48, in a tile kernel of their
-        own); the random walk and pCN proposals; see :mod:`..ops.fused_mh`)
+        and ``HierarchicalLogistic`` (p <= 256, any number of observations,
+        in a tile kernel of their own); the random walk and pCN proposals;
+        see :mod:`..ops.fused_mh`)
     device : where to run; ``None`` means the card, and raises if there is
         none (pass ``device="cpu"`` to run on the CPU)
     """

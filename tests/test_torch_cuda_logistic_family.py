@@ -33,6 +33,7 @@ import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
 from general_mcmc_torch.models.regression import bench_logistic_data
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_logistic, fused_mh, fused_mh_logistic
+from torch_logistic_layout import check_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -167,22 +168,19 @@ def test_launch_spreads_tiles_over_the_sms(card, n, chain0):
         assert (lay["tiles_a_block"], lay["blocks"]) == (5, 128)
 
 
-@pytest.mark.parametrize("n_obs,p", [(256, 48), (16, 6), (100, 16), (37, 13), (21, 33),
-                                     (500, 48)])
-def test_refusal_rule_is_the_launchers(card, n_obs, p):
-    """``fused_mh_logistic.shared_bytes``, by which the wrapper refuses an X
-    too large on either device, is the shared memory of the kernel's
-    one-tile launch; past the limit the host code refuses too; and a build
-    refuses a feature count it was not built for."""
-    assert fused_mh_logistic.launch_layout(16, n_obs, p)["shared_bytes"] == \
-        fused_mh_logistic.shared_bytes(n_obs, p)
-    big = 2000
-    assert fused_mh_logistic.shared_bytes(big, p) > fused_mh_logistic.MAX_SHARED_BYTES
-    with pytest.raises(RuntimeError, match="fused_mh_logistic_layout"):
-        fused_mh_logistic.launch_layout(16, big, p)
+@pytest.mark.parametrize("n_obs,p,streamed", [(256, 48, 0), (16, 6, 0), (100, 16, 0),
+                                              (37, 13, 0), (21, 33, 0), (500, 48, 0),
+                                              (2000, 48, 1), (1000, 24, 1), (300, 256, 1)])
+def test_refusal_rule_is_the_launchers(card, n_obs, p, streamed):
+    """The kernel's host code gives a one-tile launch the path the shape
+    takes, resident where X fits beside a tile and p <= 48, else streamed
+    in panels that cover the observations, within a block's shared memory
+    (``check_layout``); and a build refuses a feature count it was not
+    built for."""
+    check_layout(fused_mh_logistic.launch_layout(16, n_obs, p), n_obs, p, streamed)
     other = 6 if fused_mh_logistic.feature_tiles(p) != 6 else 2
     lib = _build.load("fused_mh_logistic", GMT_LOGISTIC_PT=other)
-    out = (ctypes.c_longlong * 5)()
+    out = (ctypes.c_longlong * 10)()
     fn = lib.fused_mh_logistic_layout
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p]
     with pytest.raises(RuntimeError, match="CUDA error"):

@@ -16,14 +16,17 @@ no JAX::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_tile_hmc.py
 """
 
+import ctypes
 import math
 
 import pytest
 import torch
 
 import general_mcmc_torch as gmt
+from general_mcmc_torch import _build
 from general_mcmc_torch.models.regression import bench_logistic_data
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_dense, fused_hmc_logistic
+from torch_logistic_layout import check_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -124,14 +127,20 @@ def test_launch_spreads_tiles_over_the_sms(card, n, chain0):
         assert layouts["dense168"]["tiles_a_block"] == 2
 
 
-@pytest.mark.parametrize("n_obs,p", [(256, 48), (37, 13), (50, 20), (21, 33), (500, 48)])
-def test_logistic_refusal_rule_is_the_launchers(card, n_obs, p):
-    """``fused_hmc_logistic.shared_bytes``, by which the wrapper refuses an X
-    too large on either device, is the shared memory of the kernel's
-    one-tile launch; past the limit the host code refuses too."""
-    assert fused_hmc_logistic.launch_layout(16, n_obs, p)["shared_bytes"] == \
-        fused_hmc_logistic.shared_bytes(n_obs, p)
-    big = 2000
-    assert fused_hmc_logistic.shared_bytes(big, p) > fused_hmc_logistic.MAX_SHARED_BYTES
-    with pytest.raises(RuntimeError, match="fused_hmc_logistic_layout"):
-        fused_hmc_logistic.launch_layout(16, big, p)
+@pytest.mark.parametrize("n_obs,p,streamed", [(256, 48, 0), (37, 13, 0), (50, 20, 0), (21, 33, 0),
+                                              (500, 48, 0), (2000, 48, 1), (1000, 24, 1),
+                                              (600, 100, 1)])
+def test_logistic_refusal_rule_is_the_launchers(card, n_obs, p, streamed):
+    """The kernel's host code gives a one-tile launch the path the shape
+    takes, resident where X fits beside a tile and p <= 48, else streamed
+    in panels that cover the observations, within a block's shared memory
+    (``check_layout``); and a build refuses a feature count it was not
+    built for."""
+    check_layout(fused_hmc_logistic.launch_layout(16, n_obs, p), n_obs, p, streamed)
+    other = 6 if fused_hmc_logistic.feature_tiles(p) != 6 else 2
+    lib = _build.load("fused_hmc_logistic", GMT_LOGISTIC_PT=other)
+    out = (ctypes.c_longlong * 9)()
+    fn = lib.fused_hmc_logistic_layout
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_uint, ctypes.c_void_p]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(lib, fn(16, p, n_obs, 0, out), "fused_hmc_logistic_layout")

@@ -128,8 +128,8 @@ def test_kernel_gradient_order_equals_autograd(name):
 
 def test_wrappers_refuse_what_no_kernel_takes():
     """A Python callable and the discrete targets raise, as do a logistic
-    target past MAX_FEATURES and a dense GaussianND past MAX_DENSE_DIM, on
-    the CPU as on the card."""
+    target past MAX_FEATURES (256) and a dense GaussianND past
+    MAX_DENSE_DIM, on the CPU as on the card."""
     x = torch.zeros(4, 2)
     X, y = logistic_data()
     for target in (lambda v: -0.5 * (v * v).sum(-1), to_target("Binomial", 5, 0.3),
@@ -143,9 +143,10 @@ def test_wrappers_refuse_what_no_kernel_takes():
     with pytest.raises(ValueError, match="takes states of width 8"):
         fused_hmc.fused_hmc_run(to_target("HierarchicalLogisticNC", X, y), torch.zeros(4, 5),
                                 0.1, 2, 3)
-    big = to_target("HierarchicalLogisticNC", *logistic_data(2000, 48))
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        fused_hmc.fused_hmc_run(big, torch.zeros(4, 50), 0.1, 2, 3)
+    # X past a block's shared memory runs (streamed on the card; its plain
+    # version here)
+    big = to_target("HierarchicalLogisticNC", *logistic_data(2000, 48), dtype=torch.float32)
+    assert fused_hmc.fused_hmc_run(big, torch.zeros(4, 50), 0.1, 2, 3).shape == (4, 3, 50)
     d = fused_hmc.MAX_DENSE_DIM + 1
     dense = to_target("GaussianND", np.zeros(d), dense_cov(d))
     with pytest.raises(ValueError, match=f"dim <= {d - 1}"):
