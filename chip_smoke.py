@@ -213,6 +213,23 @@ Phases (each prints one line; any failure raises and exits non-zero):
     the mapped reference, the relative error over the agreeing chains after
     1, 8 and 64 steps, the chains-off count, timed as "K1-logistic").
 
+20. K1 and K3 past 512 dimensions, on the wide map
+    (``csrc/fused_hmc_wide.cu``, ``csrc/fused_mh_wide.cu``: one chain a
+    cluster of blocks, what crosses threads through distributed shared
+    memory), after "K3-targets": "wide-equal" (both kernels against their
+    plain versions bit for bit at 513, 1,000, 4,096 and 10,000 dimensions,
+    64 chains of 16 steps, every lane target, K1 with and without a
+    diagonal M⁻¹, K3 with the random walk and pCN, and from chain 37),
+    "K1-wide" (``HMC(backend="cuda")`` on the headline's Gaussian at 1,000
+    and 4,096 dimensions, 10,240 chains: accept, R-hat, the moment audit,
+    the plain version bit for bit, timed), "hmc-stress" (the reference's
+    10,000-d RosenbrockND stress run, 6 chains x 200 steps x 50 leapfrogs,
+    equal to ``backend="torch"`` bit for bit, timed) and "K3-wide"
+    (``MetropolisHastings(backend="cuda")`` with the random walk 2.38/√d on
+    the same Gaussian at 1,000 and 4,096, 16,384 chains from draws of the
+    target: the pooled moments, the accept, the plain version bit for bit,
+    timed).
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -553,6 +570,44 @@ LGW_CHAINS, LGW_STEPS, LGW_SEED, LGW_WALK, LGW_EPS, LGW_BURN = 512, 64, 3, 0.5, 
 RESIDENT_DIGESTS = {"K3": "28b8572d7fd30bd4a98702555668bbf38db7abcf66ec4fa9585183a95a43103d",
                     "K1": "039709d11d7e752e8b4bca04757b9767a91f338d39567b0f0cce996bcd71c06e"}
 
+# The wide map (csrc/fused_hmc_wide.cu, csrc/fused_mh_wide.cu: one chain a
+# cluster of blocks past a warp's 512 dimensions).  "wide-equal": both
+# kernels against their plain versions bit for bit at WIDE_EQ_WIDTHS,
+# WIDE_EQ_CHAINS chains of WIDE_EQ_STEPS steps (K1 at L WIDE_EQ_L, with and
+# without a diagonal M⁻¹; K3 with the random walk and pCN) on every lane
+# target, and from chain WIDE_CHAIN0 (the cases of
+# tests/test_torch_cuda_wide.py, wide_case).  "K1-wide": HMC(backend="cuda")
+# on GaussianND(zeros(d), exp(linspace(0, log 10, d))) in the metric M⁻¹ =
+# scales², L 10, from init_with_seed(N_CHAINS, d, SEED), K1_WIDE_RUNS[d] =
+# (ε, n_collect, n_discard, thin); the ε of my CPU runs of the plain
+# version at 256 chains (d = 1,000: 0.2 accepted 0.865; d = 4,096: 0.11
+# accepted 0.931, 0.115 0.851, while 0.158, the main path's 0.4 scaled by
+# (100 / d)^(1/4), left the chains at their start, where the energy error's
+# first-order term does not cancel); the accept over an unthinned
+# run(WIDE_ACCEPT_STEPS, n_discard); the plain version over the whole run at
+# d = 1,000 and over K1_WIDE_PLAIN_STEPS at 4,096, bit for bit.  "hmc-stress":
+# the reference's stress case (tests/test_benchmarks.py:107-113), RosenbrockND
+# at STRESS_DIM from 0.1 x init_with_seed(STRESS_CHAINS, STRESS_DIM,
+# STRESS_SEED), ε STRESS_EPS, L STRESS_L, run(STRESS_STEPS, 0), equal to
+# backend="torch" bit for bit.  "K3-wide": MetropolisHastings(backend="cuda")
+# with the random walk 2.38/sqrt(d) on the same Gaussian, K3_WIDE_CHAINS
+# chains from exact draws of the target (scales x init_with_seed's
+# normals), K3_WIDE_RUN = (n_collect, n_discard, thin): the walk moves a
+# scale-10 coordinate ~0.075·sqrt(1,000 x 0.3) ≈ 1.3 in the run, so its
+# split-R-hat over 20 thinned draws cannot reach 1.01 whatever the kernel
+# (the phase prints it); the gates are the pooled mean and sd against the
+# target's (WIDE_MOMENT_TOL of each scale) and the accept over an unthinned
+# run(WIDE_ACCEPT_STEPS, n_discard) in K3_WIDE_ACCEPT.
+WIDE_EQ_WIDTHS, WIDE_EQ_CHAINS, WIDE_EQ_STEPS, WIDE_EQ_L = (513, 1000, 4096, 10_000), 64, 16, 5
+WIDE_CHAIN0 = 37
+K1_WIDE_RUNS = {1000: (0.2, 100, 200, 10), 4096: (0.11, 20, 200, 50)}
+K1_WIDE_PLAIN_STEPS = (2, 20, 50)  # n_collect, n_discard, thin: 120 steps
+WIDE_ACCEPT_STEPS = 10
+STRESS_CHAINS, STRESS_DIM, STRESS_SEED = 6, 10_000, 3
+STRESS_EPS, STRESS_L, STRESS_STEPS = 1e-4, 50, 200
+K3_WIDE_CHAINS, K3_WIDE_RUN, K3_WIDE_ACCEPT = 16_384, (20, 500, 25), (0.2, 0.8)
+WIDE_MOMENT_TOL = 0.05
+
 # K1 against its plain version.  Both round every elementwise operation the
 # same way (the kernel is built with -fmad=false) and accumulate row sums in
 # double, so they differ by the float32 ulps of the libm functions at most;
@@ -588,6 +643,8 @@ def union_us(intervals) -> float:
 
 def reset_counts() -> None:
     fused_hmc.launches = 0
+    fused_hmc.wide_launches = 0
+    fused_mh.wide_launches = 0
     fused_hmc_dense.launches = 0
     fused_hmc_logistic.launches = 0
     counter_rng.launches = 0
@@ -734,7 +791,8 @@ def phase_environment():
     # one nvcc per source (the dense Gaussian's kernels one per width they
     # are run at here, the logistic tile kernels one per count of feature
     # tiles), all started together
-    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic"]
+    _build.build(["counter_rng", "fused_hmc", "fused_mh", "fused_logistic", "fused_hmc_wide",
+                  "fused_mh_wide"]
                  + sorted({logistic_hmc_build(p) for p in LOGISTIC_WIDTHS})
                  + sorted({logistic_mh_build(p) for p in LOGISTIC_WIDTHS})
                  + [dense_build(d) for d in sorted(set(DENSE_SMALL_DIMS + (DIM,)))]
@@ -1615,6 +1673,264 @@ def phase_k3_targets(dev):
         diffable2d=f"{MH_CHAINS}x{MH_DISCARD}+{MH_COLLECT}", mean_err=f"{mean_err:.5f}",
         cov_err=f"{cov_err:.5f}", max_rhat=f"{max_rhat:.5f}")
     return dict(max_abs_err=max(errs), families=fam, launches=launches)
+
+
+def wide_case(name: str, d: int, dev, mass: bool = False):
+    """A lane target at width ``d`` for "wide-equal" (the cases of
+    tests/test_torch_cuda_wide.py): the target, WIDE_EQ_CHAINS starting
+    positions seeded by the width, HMC's ε and M⁻¹, MH's walk scale and
+    pCN's beta, each scaled so that some proposals are taken and some not."""
+    rng = np.random.default_rng(d)
+    f32 = dict(dtype=torch.float32, device=dev)
+    mass_inv = None
+    if name == "gaussian":
+        scales = np.exp(0.3 * rng.normal(size=d))
+        target = gmt.GaussianND(torch.as_tensor(rng.normal(size=d)),
+                                torch.as_tensor(scales), device=dev)
+        x0 = rng.normal(size=(WIDE_EQ_CHAINS, d)) * scales
+        eps = 3 * d**-0.25 * (1.0 if mass else scales.min())
+        walk, beta = 2.38 / np.sqrt(d) * scales.min(), 0.05
+        mass_inv = torch.as_tensor(scales**2, **f32)
+    elif name == "rosenbrock":
+        target = gmt.RosenbrockND()
+        x0 = 0.1 * rng.normal(size=(WIDE_EQ_CHAINS, d))
+        eps, walk, beta = 0.01, 0.02 / np.sqrt(d), 0.005
+    else:
+        target = gmt.NealsFunnel(d, 3.0)
+        x0 = 0.5 * rng.normal(size=(WIDE_EQ_CHAINS, d))
+        eps, walk, beta = 0.15 * d**-0.25, 0.5 / np.sqrt(d), 0.05
+    return target, torch.as_tensor(x0, **f32), float(eps), float(walk), beta, mass_inv
+
+
+def phase_wide_equal(dev):
+    """Both wide kernels against their plain versions, bit for bit, at
+    WIDE_EQ_WIDTHS on every lane target (K1 with and without a diagonal
+    M⁻¹, K3 with the random walk and pCN), and from chain WIDE_CHAIN0: rows
+    of the launch from 0."""
+    errs, cases = {"K1": 0.0, "K3": 0.0}, 0
+    for d in WIDE_EQ_WIDTHS:
+        for name in ("gaussian", "rosenbrock", "funnel"):
+            for mass in ((False, True) if name == "gaussian" else (False,)):
+                target, x0, eps, _, _, mass_inv = wide_case(name, d, dev, mass)
+                args = (target, x0, eps, WIDE_EQ_L, WIDE_EQ_STEPS, 2)
+                kw = dict(seed=3, mass_inv=mass_inv if mass else None)
+                got = fused_hmc.fused_hmc_run(*args, **kw)
+                want = fused_hmc.fused_hmc_run_reference(*args, **kw)
+                what = f"K1 wide {name} d={d} mass={mass}"
+                check(tuple(got.shape) == (WIDE_EQ_CHAINS, WIDE_EQ_STEPS, d)
+                      and bool(torch.isfinite(got).all()), f"{what}: shape, finite")
+                errs["K1"] = max(errs["K1"], float((got - want).abs().max()))
+                check(torch.equal(got, want), f"{what}: equal to the plain version bit for "
+                      f"bit ({int((got != want).any(2).any(1).sum())} chains differ)")
+                cases += 1
+            target, x0, _, walk, beta, _ = wide_case(name, d, dev)
+            for proposal in (gmt.RandomWalkProposal(walk), gmt.PCNProposal(beta)):
+                args = (target, x0, proposal, WIDE_EQ_STEPS, 4)
+                got = fused_mh.fused_mh_run(*args, seed=5, thin=2)
+                want = fused_mh.fused_mh_run_reference(*args, seed=5, thin=2)
+                what = f"K3 wide {name} {type(proposal).__name__} d={d}"
+                check(bool(torch.isfinite(got).all()), f"{what}: finite")
+                errs["K3"] = max(errs["K3"], float((got - want).abs().max()))
+                check(torch.equal(got, want), f"{what}: equal to the plain version bit for "
+                      f"bit ({int((got != want).any(2).any(1).sum())} chains differ)")
+                cases += 1
+        # a launch from chain WIDE_CHAIN0 is rows WIDE_CHAIN0... of the launch from 0
+        target, x0, eps, walk, _, _ = wide_case("rosenbrock", d, dev)
+        rows = slice(WIDE_CHAIN0, WIDE_EQ_CHAINS)
+        block = x0[rows].contiguous()
+        for run, args in ((fused_hmc.fused_hmc_run, (eps, WIDE_EQ_L, 8, 1)),
+                          (fused_mh.fused_mh_run, (gmt.RandomWalkProposal(walk), 8, 1))):
+            full = run(target, x0, *args, seed=4)
+            part = run(target, block, *args, seed=4, chain0=WIDE_CHAIN0)
+            check(torch.equal(part, full[rows]), f"{run.__name__} wide d={d} from chain "
+                  f"{WIDE_CHAIN0}: rows of the launch from 0")
+    maps = {d: {"K1": fused_hmc.wide_map(d), "K3": fused_mh.wide_map(d)} for d in WIDE_EQ_WIDTHS}
+    say("wide-equal", widths=list(WIDE_EQ_WIDTHS), chains=WIDE_EQ_CHAINS, steps=WIDE_EQ_STEPS,
+        cases=cases, bit_equal=True, chain0=WIDE_CHAIN0, max_abs_err=json.dumps(errs),
+        maps=json.dumps(maps))
+    return dict(max_abs_err=errs, cases=cases, maps=maps)
+
+
+def wide_gaussian(d: int, dev):
+    """GaussianND(zeros(d), exp(linspace(0, log 10, d))), the headline's
+    form at width d, and its scales."""
+    scales = torch.exp(torch.linspace(0.0, math.log(10.0), d))
+    return gmt.GaussianND(torch.zeros(d), scales, device=dev), scales
+
+
+def wide_bounds(work, n_chains: int, wide) -> dict:
+    """The bound of ``work`` over the whole card, and over the SMs the
+    launch can occupy: ``n_chains`` clusters of ``wide[0]`` blocks, each
+    block on an SM of its own at most."""
+    b_ms, b_by = bound(work[0], work[1] + work[2])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    used = min(sms, n_chains * wide[0])
+    return dict(bound_ms=round(b_ms, 5), bound_by=b_by, bound_sms_ms=round(b_ms * sms / used, 5),
+                sms=used)
+
+
+def phase_k1_wide(dev):
+    """K1-wide: HMC(backend="cuda") on the headline's Gaussian at widths
+    1,000 and 4,096 (K1_WIDE_RUNS): one launch of the wide kernel each,
+    accept, R-hat and the moment audit, timed; the plain version over the
+    same inputs, bit for bit."""
+    rows = {}
+    for d, (eps, n_collect, n_discard, thin) in K1_WIDE_RUNS.items():
+        target, scales = wide_gaussian(d, dev)
+        x0 = gmt.init_with_seed(N_CHAINS, d, SEED, device=dev)
+        mass_inv = (scales**2).to(dev)
+        sampler = lambda: gmt.HMC(target, x0, eps, N_LEAPFROG, seed=SEED, mass_inv=mass_inv,
+                                  backend="cuda")
+        reset_counts()
+        samples = sampler().run(n_collect, n_discard, thin=thin)
+        torch.cuda.synchronize()
+        launches = fused_hmc.wide_launches
+        check(launches == 1 and fused_hmc.launches == 0,
+              f"K1-wide d={d}: one launch of the wide kernel ({launches})")
+        store = samples.transpose(0, 1)
+        check(tuple(samples.shape) == (N_CHAINS, n_collect, d)
+              and bool(torch.isfinite(store).all()), f"K1-wide d={d}: shape, finite")
+        rhat, _, _, std = gmt.split_rhat_mean_ess(store, steps_major=True, return_moments=True)
+        max_rhat = float(rhat.max())
+        audit = float((std.cpu() / scales - 1.0).abs().max())
+        del rhat, std
+        short = sampler().run(WIDE_ACCEPT_STEPS, n_discard)
+        accept = float((short[:, 1:] != short[:, :-1]).any(dim=2).float().mean())
+        del short
+        check(0.6 < accept < 0.95, f"K1-wide d={d}: accept {accept} within 0.6-0.95")
+        check(max_rhat < 1.01, f"K1-wide d={d}: max R-hat {max_rhat} < 1.01")
+        check(audit < 0.05, f"K1-wide d={d}: moment audit {audit} < 0.05")
+        # the plain version: the whole run at 1,000, a shorter one at 4,096
+        plain_args = (n_collect, n_discard, thin) if d == 1000 else K1_WIDE_PLAIN_STEPS
+        got = samples if d == 1000 else sampler().run(*plain_args[:2], thin=plain_args[2])
+        del samples, store
+        t0 = time.perf_counter()
+        want = fused_hmc.fused_hmc_run_reference(target, x0, eps, N_LEAPFROG, plain_args[0],
+                                                 plain_args[1], seed=SEED, thin=plain_args[2],
+                                                 mass_inv=mass_inv)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"K1-wide d={d}: the kernel equals its plain version "
+              f"bit for bit ({int((got != want).any(2).any(1).sum())} chains differ)")
+        del got, want
+        ms, wall, out = timed(lambda: sampler().run(n_collect, n_discard, thin=thin), 3)
+        del out
+        n_steps = n_discard + n_collect * thin
+        wide = fused_hmc.wide_map(d)
+        rows[d] = dict(ms=round(ms, 4), wall_s=round(wall, 5), launches=launches,
+                       plain_ms=round(plain_ms, 2),
+                       plain_steps=plain_args[1] + plain_args[0] * plain_args[2],
+                       max_abs_err=err, accept=round(accept, 4), max_rhat=round(max_rhat, 5),
+                       audit=round(audit, 5), eps=eps, map=wide, steps=n_steps,
+                       shape=f"{N_CHAINS}x{d}, {n_discard}+{n_collect}x{thin} steps",
+                       **wide_bounds(fused_hmc_work(N_CHAINS, d, n_steps, n_collect,
+                                                    N_LEAPFROG), N_CHAINS, wide))
+        torch.cuda.empty_cache()
+    say("K1-wide", **{str(d): json.dumps(r) for d, r in rows.items()})
+    return dict(rows=rows, launches=sum(r["launches"] for r in rows.values()),
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()))
+
+
+def phase_hmc_stress(dev):
+    """The reference's HMC stress case on the wide kernel: RosenbrockND at
+    10,000 dimensions, 6 chains, 200 steps of 50 leapfrogs through
+    HMC(backend="cuda"): one launch, the shape, finite, equal to
+    backend="torch" bit for bit; timed."""
+    target = gmt.RosenbrockND()
+    x0 = 0.1 * gmt.init_with_seed(STRESS_CHAINS, STRESS_DIM, STRESS_SEED, device=dev)
+    sampler = lambda backend: gmt.HMC(target, x0, STRESS_EPS, STRESS_L, backend=backend)
+    reset_counts()
+    samples = sampler("cuda").run(STRESS_STEPS, 0)
+    torch.cuda.synchronize()
+    launches = fused_hmc.wide_launches
+    check(launches == 1 and fused_hmc.launches == 0,
+          f"hmc-stress: one launch of the wide kernel ({launches})")
+    check(tuple(samples.shape) == (STRESS_CHAINS, STRESS_STEPS, STRESS_DIM)
+          and bool(torch.isfinite(samples).all()), "hmc-stress: shape, finite")
+    t0 = time.perf_counter()
+    plain = sampler("torch").run(STRESS_STEPS, 0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(samples, plain), "hmc-stress: backend='cuda' equals backend='torch' bit "
+          f"for bit ({int((samples != plain).any(2).any(1).sum())} chains differ)")
+    accept = float((samples[:, 1:] != samples[:, :-1]).any(dim=2).float().mean())
+    del plain
+    ms, wall, _ = timed(lambda: sampler("cuda").run(STRESS_STEPS, 0), 3)
+    wide = fused_hmc.wide_map(STRESS_DIM)
+    work = target_hmc_work(STRESS_CHAINS, STRESS_DIM, STRESS_STEPS, STRESS_STEPS, STRESS_L,
+                           *target_ops("rosenbrock_nd", STRESS_DIM))
+    row = dict(ms=round(ms, 4), wall_s=round(wall, 5), launches=launches,
+               plain_ms=round(plain_ms, 2), plain_steps=STRESS_STEPS, max_abs_err=0.0,
+               accept=round(accept, 4), map=wide,
+               shape=f"{STRESS_CHAINS}x{STRESS_DIM}, {STRESS_STEPS} steps x {STRESS_L}",
+               **wide_bounds(work, STRESS_CHAINS, wide))
+    say("hmc-stress", bit_equal_torch_backend=True, **{k: v for k, v in row.items()})
+    return row
+
+
+def phase_k3_wide(dev):
+    """K3-wide: MetropolisHastings(backend="cuda") with the random walk
+    2.38/sqrt(d) on the headline's Gaussian at widths 1,000 and 4,096
+    (K3_WIDE_CHAINS chains from draws of the target, K3_WIDE_RUN): one
+    launch of the wide kernel each, the pooled moments and the accept, the
+    R-hat printed; the plain version over the same run, bit for bit; timed."""
+    rows = {}
+    n_collect, n_discard, thin = K3_WIDE_RUN
+    for d in (1000, 4096):
+        target, scales = wide_gaussian(d, dev)
+        x0 = (gmt.init_with_seed(K3_WIDE_CHAINS, d, SEED, device=dev) * scales.to(dev))
+        walk = gmt.RandomWalkProposal(2.38 / math.sqrt(d))
+        sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED, backend="cuda")
+        reset_counts()
+        samples = sampler().run(n_collect, n_discard, thin=thin)
+        torch.cuda.synchronize()
+        launches = fused_mh.wide_launches
+        check(launches == 1 and fused_mh.launches == 0,
+              f"K3-wide d={d}: one launch of the wide kernel ({launches})")
+        store = samples.transpose(0, 1)
+        check(tuple(samples.shape) == (K3_WIDE_CHAINS, n_collect, d)
+              and bool(torch.isfinite(store).all()), f"K3-wide d={d}: shape, finite")
+        rhat, _, mean, std = gmt.split_rhat_mean_ess(store, steps_major=True,
+                                                     return_moments=True)
+        max_rhat = float(rhat.max())
+        mean_err = float((mean.cpu() / scales).abs().max())
+        sd_err = float((std.cpu() / scales - 1.0).abs().max())
+        del rhat, mean, std
+        short = sampler().run(WIDE_ACCEPT_STEPS, n_discard)
+        accept = float((short[:, 1:] != short[:, :-1]).any(dim=2).float().mean())
+        del short
+        check(mean_err < WIDE_MOMENT_TOL and sd_err < WIDE_MOMENT_TOL,
+              f"K3-wide d={d}: pooled |mean|/scale {mean_err} and |sd/scale - 1| {sd_err} "
+              f"< {WIDE_MOMENT_TOL}")
+        check(K3_WIDE_ACCEPT[0] < accept < K3_WIDE_ACCEPT[1],
+              f"K3-wide d={d}: accept {accept} within {K3_WIDE_ACCEPT}")
+        t0 = time.perf_counter()
+        want = fused_mh.fused_mh_run_reference(target, x0, walk, n_collect, n_discard,
+                                               seed=SEED, thin=thin)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((samples - want).abs().max())
+        check(torch.equal(samples, want), f"K3-wide d={d}: the kernel equals its plain version "
+              f"bit for bit ({int((samples != want).any(2).any(1).sum())} chains differ)")
+        del samples, store, want
+        ms, wall, out = timed(lambda: sampler().run(n_collect, n_discard, thin=thin), 3)
+        del out
+        n_steps = n_discard + n_collect * thin
+        wide = fused_mh.wide_map(d)
+        # the GaussianND as in "K3-widths": 4 a coordinate and the scale
+        work = fused_mh_work(K3_WIDE_CHAINS, d, n_steps, n_collect, 4 * d + 1, MH_PROPOSAL_OPS)
+        rows[d] = dict(ms=round(ms, 4), wall_s=round(wall, 5), launches=launches,
+                       plain_ms=round(plain_ms, 2), plain_steps=n_steps, max_abs_err=err,
+                       accept=round(accept, 4), max_rhat=round(max_rhat, 5),
+                       mean_err=round(mean_err, 5), sd_err=round(sd_err, 5), map=wide,
+                       steps=n_steps,
+                       shape=f"{K3_WIDE_CHAINS}x{d}, {n_discard}+{n_collect}x{thin} steps",
+                       **wide_bounds(work, K3_WIDE_CHAINS, wide))
+        torch.cuda.empty_cache()
+    say("K3-wide", **{str(d): json.dumps(r) for d, r in rows.items()})
+    return dict(rows=rows, launches=sum(r["launches"] for r in rows.values()),
+                max_abs_err=max(r["max_abs_err"] for r in rows.values()))
 
 
 def dense_moments(store, scales):
@@ -4863,6 +5179,11 @@ def main() -> int:
     k3_widths = phase_k3_widths(dev)
     k1_targets = phase_k1_targets(dev)
     k3_targets = phase_k3_targets(dev)
+    wide_eq = phase_wide_equal(dev)
+    k1_wide = phase_k1_wide(dev)
+    stress = phase_hmc_stress(dev)
+    k3_wide = phase_k3_wide(dev)
+    torch.cuda.empty_cache()
     dense = phase_dense_main(dev)
     torch.cuda.empty_cache()
     logistic = phase_logistic(dev)
@@ -5068,6 +5389,41 @@ def main() -> int:
              target_launches={"diffable2d": k3_targets["launches"]},
              targets_max_abs_err=k3_targets["max_abs_err"],
              checked_in="K3-small, mh-main, K3-chains, K3-widths, shard-cuda, K3-targets"),
+        # K1 and K3 on the wide map (d > 512): launches from "K1-wide"'s two
+        # runs and "hmc-stress"'s through HMC, "K3-wide"'s two through
+        # MetropolisHastings, each counted from 0 around its run;
+        # max_abs_err over "wide-equal" and the full runs against the plain
+        # versions (bit for bit); ms, plain_ms and the bound the d = 1,000
+        # run's, each case's under "cases" (bound_sms_ms: the bound over
+        # the SMs the launch can occupy, a block of a chain's cluster an SM
+        # at most); registers and spills of every build from ptxas -v
+        dict(name="fused_hmc_wide", route="cuda",
+             source="general_mcmc_torch/csrc/fused_hmc_wide.cu",
+             replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
+             launches=k1_wide["launches"] + stress["launches"],
+             max_abs_err=max(wide_eq["max_abs_err"]["K1"], k1_wide["max_abs_err"]),
+             **{k: k1_wide["rows"][1000][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "bound_sms_ms")},
+             library_ms=None,
+             cases={**{f"gaussian_{d}": r for d, r in k1_wide["rows"].items()},
+                    f"rosenbrock_{STRESS_DIM}": stress},
+             maps={d: m["K1"] for d, m in wide_eq["maps"].items()},
+             registers_and_spill_store_bytes=ptxas_report(
+                 _build.compile_log.get("fused_hmc_wide", "")),
+             checked_in="wide-equal, K1-wide, hmc-stress"),
+        dict(name="fused_mh_wide", route="cuda",
+             source="general_mcmc_torch/csrc/fused_mh_wide.cu",
+             replaces="general_mcmc_tpu/ops/pallas_mh.py:61",
+             launches=k3_wide["launches"],
+             max_abs_err=max(wide_eq["max_abs_err"]["K3"], k3_wide["max_abs_err"]),
+             **{k: k3_wide["rows"][1000][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "bound_sms_ms")},
+             library_ms=None,
+             cases={f"gaussian_{d}": r for d, r in k3_wide["rows"].items()},
+             maps={d: m["K3"] for d, m in wide_eq["maps"].items()},
+             registers_and_spill_store_bytes=ptxas_report(
+                 _build.compile_log.get("fused_mh_wide", "")),
+             checked_in="wide-equal, K3-wide"),
         # no single PyTorch call computes the chain: library_ms is the time of
         # its two torch.matmul a step, alone, times the steps
         dict(name="fused_logistic", route="cuda",

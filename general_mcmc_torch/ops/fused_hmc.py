@@ -29,10 +29,15 @@ The kernel gives each chain a group of lanes of a warp and each lane a few
 quads of dimensions (one Philox block draws a quad's four momenta).
 :func:`lane_map` picks the group size and the quads per lane for a width;
 the draws are addressed by (chain, step, quad), so the map changes which
-lane computes a number and never the number.  The chain of that address is
-the global one, ``chain0`` plus the row of the launch: a rank that holds
-chains ``chain0 …`` of a sharded run draws its rows of the unsharded run's
-draws, in one launch.
+lane computes a number and never the number.  Past a warp's 512
+dimensions (``MAX_LANE_DIM``) the wrapper launches
+``csrc/fused_hmc_wide.cu`` instead: the wide map of :func:`wide_map`, one
+chain a cluster of blocks whose threads hold its quads and cross them
+through shared memory, up to ``MAX_WIDE_DIM``; its launches are counted in
+``wide_launches``.  The chain of the draws' address is the global one,
+``chain0`` plus the row of the launch: a rank that holds chains ``chain0
+…`` of a sharded run draws its rows of the unsharded run's draws, in one
+launch.
 """
 
 from __future__ import annotations
@@ -49,17 +54,23 @@ from ..rng import stream_key
 from . import fused_hmc_dense, fused_hmc_logistic
 
 __all__ = ["fused_hmc_run", "fused_hmc_run_reference", "lane_map", "lane_maps", "launches",
-           "target_code", "target_params", "tile_kernel", "MAX_DIM", "MAX_DENSE_DIM",
-           "MAX_QUADS_PER_LANE"]
+           "wide_launches", "wide_map", "target_code", "target_params", "tile_kernel",
+           "MAX_LANE_DIM", "MAX_WIDE_DIM", "MAX_DENSE_DIM", "MAX_QUADS_PER_LANE"]
 
-# Launches of the fused kernel in this process.
+# Launches of the fused kernel (csrc/fused_hmc.cu) and of its wide map
+# (csrc/fused_hmc_wide.cu) in this process.
 launches = 0
+wide_launches = 0
 
 # What csrc/fused_hmc.cu is built for: a power-of-two group of up to 32 lanes
 # a chain and 1..4 quads of dimensions a lane (a lane keeps seven floats an element
 # in registers).
 MAX_QUADS_PER_LANE = 4
-MAX_DIM = 512  # 32 lanes x 4 quads x 4 dimensions
+MAX_LANE_DIM = 512  # 32 lanes x 4 quads x 4 dimensions
+# What csrc/fused_hmc_wide.cu is built for (csrc/wide_lanes.cuh): a cluster
+# of up to 8 blocks of up to 16 warps a chain, up to 2 quads a thread.
+WIDE_MAX_CLUSTER, WIDE_MAX_WARPS, WIDE_MAX_QUADS = 8, 16, 2
+MAX_WIDE_DIM = 4 * 32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_MAX_QUADS  # 32,768
 # The dense GaussianND's kernel keeps L's lower triangle in a block's shared
 # memory, in 8 x 8 blocks split into TF32 hi and lo (ops/fused_hmc_dense.py).
 MAX_DENSE_DIM = fused_hmc_dense.MAX_DENSE_DIM
@@ -104,6 +115,34 @@ def lane_map(d: int):
     :func:`lane_maps`.  At ``d = 100`` (25 quads) that is 16 lanes of 2
     quads, two chains a warp."""
     return lane_maps(d)[0]
+
+
+def wide_cover(units: int):
+    """The wide map ``(blocks a cluster C, warps a block W, units a thread)``
+    that gives ``units`` (quads, or Philox blocks) each a thread slot: 2
+    units a thread, the fewest blocks of at most 16 warps, their warps
+    spread evenly; ``None`` past 8 blocks.  On an NVIDIA H100 80GB HBM3 at
+    700 W (port_scripts/wide_maps.py, every map at chip_smoke.py's wide
+    runs) 2 units a thread was the fastest or within 3% of it wherever
+    10,240 or more chains fill the card (K3 at d = 4,096: 325.7 ms against
+    488.0 for the fewest slots, 3 blocks of 11 warps at 1 unit); 1 unit a
+    thread is built too, for that script."""
+    c = -(-units // (32 * WIDE_MAX_WARPS * WIDE_MAX_QUADS))
+    if c > WIDE_MAX_CLUSTER:
+        return None
+    return c, -(-units // (32 * WIDE_MAX_QUADS * c)), WIDE_MAX_QUADS
+
+
+def wide_map(d: int):
+    """The wide map csrc/fused_hmc_wide.cu runs width ``d`` on (``d >
+    MAX_LANE_DIM``): ``(blocks a cluster, warps a block, quads a thread)``
+    covering the ``ceil(d / 4)`` quads, one chain a cluster.  Raises past
+    ``MAX_WIDE_DIM``, with the width.  At ``d = 1,000`` (250 quads) one block
+    of 4 warps; at 10,000 (2,500 quads) a cluster of 3 blocks of 14 warps."""
+    m = wide_cover((d + 3) // 4)
+    if m is None:
+        raise ValueError(f"the fused HMC kernel takes dim <= {MAX_WIDE_DIM}, got {d}")
+    return m
 
 
 def target_code(target, d: int, max_dense: int = MAX_DENSE_DIM, takes: str = _TAKES) -> int:
@@ -245,15 +284,18 @@ def fused_hmc_run(target, initial_positions, step_size, n_leapfrog, n_collect,
     if tile is not None:
         return tile(target, x0, step_size, n_leapfrog, n_collect, n_discard, seed, thin, inv_row,
                     scale_row, chain0)
-    if d > MAX_DIM:
-        raise ValueError(f"the fused HMC kernel takes dim <= {MAX_DIM}, got {d}")
+    wide = wide_map(d) if d > MAX_LANE_DIM else None
     params = target_params(target, code, **f32)
     out = torch.empty((n_collect, n, d), **f32)
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)
 
-    _launch(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
-            seed, use_mass, lane_map(d), chain0, code)
+    if wide is not None:
+        _launch_wide(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfrog,
+                     step_size, seed, use_mass, wide, chain0, code)
+    else:
+        _launch(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
+                seed, use_mass, lane_map(d), chain0, code)
     return out.transpose(0, 1)
 
 
@@ -279,3 +321,25 @@ def _launch(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfrog, st
                  torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, code_rc, "fused_hmc_launch")
     launches += 1
+
+
+def _launch_wide(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfrog, step_size,
+                 seed, use_mass, wide, chain0=0, code=TARGET_GAUSSIAN_DIAG):
+    """One launch of csrc/fused_hmc_wide.cu on the target ``code`` under the
+    wide map ``wide`` (:func:`wide_map`) into the steps-major store ``out``
+    (checked CUDA tensors)."""
+    from .._build import check, load
+
+    global wide_launches
+    n, d = x0.shape
+    lib = load("fused_hmc_wide")
+    fn = lib.fused_hmc_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_uint, ctypes.c_uint] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(x0.data_ptr(), params.data_ptr(), inv_row.data_ptr(), scale_row.data_ptr(),
+            out.data_ptr(), n, d, out.shape[0], n_discard, thin, int(n_leapfrog),
+            float(step_size), stream_key(seed), int(chain0), int(use_mass), int(code),
+            *(int(v) for v in wide), torch.cuda.current_stream(x0.device).cuda_stream)
+    check(lib, rc, "fused_hmc_wide_launch")
+    wide_launches += 1

@@ -36,10 +36,13 @@ the fused HMC run's is.
 
 The kernel computes the draws of a tile of steps ahead of the walk; it
 chooses its lane map, tile and design from the width (``csrc/fused_mh.cu``,
-head note).  :func:`tile_kernel` says which kernel runs a target.  Row
-``r`` draws as the global chain ``chain0 + r``, so a rank that holds chains
-``chain0 …`` of a sharded run walks its rows of the unsharded run, in one
-launch.
+head note).  Past a warp's 512 dimensions (``MAX_LANE_DIM``) the wrapper
+launches ``csrc/fused_mh_wide.cu`` instead, on the wide map of
+:func:`wide_map` (one chain a cluster of blocks, up to ``MAX_WIDE_DIM``),
+counted in ``wide_launches``.  :func:`tile_kernel` says which kernel runs
+a target.  Row ``r`` draws as the global chain ``chain0 + r``, so a rank
+that holds chains ``chain0 …`` of a sharded run walks its rows of the
+unsharded run, in one launch.
 """
 
 from __future__ import annotations
@@ -53,15 +56,21 @@ from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
 from ..samplers.metropolis_hastings import PCNProposal, RandomWalkProposal
 from . import fused_mh_dense, fused_mh_logistic
-from .fused_hmc import TARGET_GAUSSIAN_DENSE, TARGET_NAMES, target_code, target_params
+from .fused_hmc import (TARGET_GAUSSIAN_DENSE, TARGET_NAMES, WIDE_MAX_CLUSTER, WIDE_MAX_QUADS,
+                        WIDE_MAX_WARPS, target_code, target_params, wide_cover)
 
-__all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "tile_kernel", "MAX_DIM",
-           "MAX_DENSE_DIM"]
+__all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "wide_launches", "wide_map",
+           "tile_kernel", "MAX_LANE_DIM", "MAX_WIDE_DIM", "MAX_DENSE_DIM"]
 
-# Launches of the fused kernel in this process.
+# Launches of the fused kernel (csrc/fused_mh.cu) and of its wide map
+# (csrc/fused_mh_wide.cu) in this process.
 launches = 0
+wide_launches = 0
 
-MAX_DIM = 512  # widest state the kernel is built for (csrc/fused_mh.cu)
+MAX_LANE_DIM = 512  # widest state of a warp's lane maps (csrc/fused_mh.cu)
+# csrc/fused_mh_wide.cu: a thread slot for each of a step's ceil(d / 2) // 2
+# + 1 Philox blocks in a cluster of up to 8 blocks of 16 warps, 2 a thread
+MAX_WIDE_DIM = 4 * (32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_MAX_QUADS - 1) + 2  # 32,766
 # The dense GaussianND's tile kernel keeps L's lower triangle in a block's
 # shared memory in 8 x 8 blocks (ops/fused_mh_dense.py).
 MAX_DENSE_DIM = fused_mh_dense.MAX_DENSE_DIM
@@ -106,6 +115,19 @@ def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin,
     if not 0 <= chain0 < 2**32:
         raise ValueError(f"chain0 must be uint32, got {chain0}")
     return code, p_code, consts
+
+
+def wide_map(d: int):
+    """The wide map csrc/fused_mh_wide.cu runs width ``d`` on (``d >
+    MAX_LANE_DIM``): ``(blocks a cluster, warps a block, Philox blocks a
+    thread)`` covering a step's ``ceil(d / 2) // 2 + 1`` Philox blocks (the
+    last holds the accept uniform), one chain a cluster
+    (:func:`.fused_hmc.wide_cover`).  Raises past ``MAX_WIDE_DIM``, with the
+    width."""
+    m = wide_cover((d + 1) // 2 // 2 + 1)
+    if m is None:
+        raise ValueError(f"the fused MH kernel takes dim <= {MAX_WIDE_DIM}, got {d}")
+    return m
 
 
 def tile_kernel(code):
@@ -162,17 +184,20 @@ def fused_mh_run(target, initial_positions, proposal, n_collect, n_discard=0, se
     tile = tile_kernel(code)
     if tile is not None:
         return tile(target, x0, p_code, consts, n_collect, n_discard, seed, thin, chain0)
-    if d > MAX_DIM:
-        raise ValueError(f"the fused MH kernel takes dim <= {MAX_DIM}, got {d}")
+    wide = wide_map(d) if d > MAX_LANE_DIM else None
     f32 = dict(device=x0.device, dtype=torch.float32)
     params = target_params(target, code, **f32)
     out = torch.empty((n_collect, n, d), **f32)
     if n_collect == 0 or n == 0:
         return out.transpose(0, 1)
 
-    global launches
-    _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed, chain0)
-    launches += 1
+    global launches, wide_launches
+    if wide is not None:
+        _launch_wide(x0, params, out, code, p_code, consts, n_discard, thin, seed, wide, chain0)
+        wide_launches += 1
+    else:
+        _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed, chain0)
+        launches += 1
     return out.transpose(0, 1)
 
 
@@ -192,3 +217,21 @@ def _launch(x0, params, out, code, p_code, consts, n_discard, thin, seed, chain0
             thin, code, p_code, *consts, stream_key(seed), int(chain0),
             torch.cuda.current_stream(x0.device).cuda_stream)
     check(lib, rc, "fused_mh_launch")
+
+
+def _launch_wide(x0, params, out, code, p_code, consts, n_discard, thin, seed, wide, chain0=0):
+    """One launch of csrc/fused_mh_wide.cu under the wide map ``wide``
+    (:func:`wide_map`) into the steps-major ``out``; no checks and no count,
+    as :func:`_launch`."""
+    from .._build import check, load
+
+    lib = load("fused_mh_wide")
+    fn = lib.fused_mh_wide_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
+        ctypes.c_uint, ctypes.c_uint] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n_collect, n, d = out.shape
+    rc = fn(x0.data_ptr(), params.data_ptr(), out.data_ptr(), n, d, n_collect, n_discard,
+            thin, code, p_code, *consts, stream_key(seed), int(chain0),
+            *(int(v) for v in wide), torch.cuda.current_stream(x0.device).cuda_stream)
+    check(lib, rc, "fused_mh_wide_launch")

@@ -96,10 +96,11 @@ def test_torch_backend_equals_plain_fused_run(mass):
     torch.testing.assert_close(other, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("d", [2, 7, 8, 33, 100])
+@pytest.mark.parametrize("d", [2, 7, 8, 33, 100, 700])
 def test_widths_torch_backend_equals_plain_fused_run(d):
-    """Even and odd widths, widths that fill their lane map (8) and widths
-    that leave lane slots idle (33, 100): the ``"torch"`` backend, the
+    """Even and odd widths, widths that fill their lane map (8), widths
+    that leave lane slots idle (33, 100) and one past a warp's lane maps,
+    on the wide map (700): the ``"torch"`` backend, the
     plain fused run and the wrapper on the CPU give the same numbers, and
     the momenta are the paired layout's."""
     rng = np.random.default_rng(d)
@@ -126,8 +127,9 @@ def test_widths_torch_backend_equals_plain_fused_run(d):
 def test_lane_map_covers_every_width():
     """The kernel's lane map (lanes per chain, quads per lane): every map
     offered for a width covers it within what the kernel is built for, the
-    group is a power of two, and the first is the one launched."""
-    for d in range(1, fused_hmc.MAX_DIM + 1):
+    group is a power of two, and the first is the one launched.  Past a
+    warp's 512 dimensions the wrapper launches the wide map instead."""
+    for d in range(1, fused_hmc.MAX_LANE_DIM + 1):
         maps = fused_hmc.lane_maps(d)
         assert maps and fused_hmc.lane_map(d) == maps[0]
         for lanes, quads in maps:
@@ -144,7 +146,8 @@ def test_lane_map_covers_every_width():
     assert fused_hmc.lane_maps(33) == [(4, 3), (8, 2), (16, 1)]  # 12 lane slots, not 16
     # the widths of chip_smoke.py's small cases take every quads-per-lane build
     assert {fused_hmc.lane_map(d)[1] for d in (2, 7, 8, 33, 70, 100, 512)} == {1, 2, 3, 4}
-    assert fused_hmc.lane_maps(fused_hmc.MAX_DIM + 1) == []
+    assert fused_hmc.lane_maps(fused_hmc.MAX_LANE_DIM + 1) == []
+    assert fused_hmc.wide_map(fused_hmc.MAX_LANE_DIM + 1) == (1, 3, 2)  # 129 quads: 3 warps
 
 
 def test_chain_result_independent_of_batch():
