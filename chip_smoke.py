@@ -349,20 +349,20 @@ CHEES_WINDOW = 50  # collection steps under the profiler
 LGC_DIM, LGC_OBS, LGC_WARMUP, LGC_COLLECT = 50, 256, 256, 1024
 LGC_ACCEPT, LGC_JITTER = 0.95, 1.0
 
-# NUTS.  "nuts-small": 1,024 chains; the 2-d target for 300 warmup and 100
-# collected steps at cap 6 (the Stan windows end at steps 100, 125, 175 and
-# 249, counted from 1),
-# the funnel for 40 steps at the fixed step size 1.2 and cap 6
+# NUTS.  "nuts-small": 1,024 chains; the 2-d target for 200 warmup and 50
+# collected steps at cap 6 (the Stan windows end at steps 100, 125 and 149,
+# counted from 1),
+# the funnel for 20 steps at the fixed step size 1.2 and cap 6
 # (tests/test_nuts.py:255-265 runs 150; its gate, a divergence, needs
-# fewer), the 4-d Rosenbrock for 30 + 30 (a smoke run: finite draws); the K2
+# fewer), the 4-d Rosenbrock for 15 + 15 (a smoke run: finite draws); the K2
 # check at the headline's shape with the windows cut to a 30-step warmup
 # (window ends at step indices 19 and 23) and 8 collection steps.
 NUTS_SMALL_CHAINS = 1024
-NUTS_2D_STEPS, NUTS_2D_DEPTH = (300, 100), 6
-NUTS_FUNNEL_STEPS, NUTS_FUNNEL_EPS, NUTS_ROSEN_STEPS = 40, 1.2, (30, 30)
+NUTS_2D_STEPS, NUTS_2D_DEPTH = (200, 50), 6
+NUTS_FUNNEL_STEPS, NUTS_FUNNEL_EPS, NUTS_ROSEN_STEPS = 20, 1.2, (15, 15)
 NUTS_K2_STEPS = (30, 8)
 NUTS_SHORT_WINDOWS = dict(start_buffer=10, end_buffer=5, initial_window=10)
-# The 2-d target's pooled mean within 0.1 and covariance within 0.3 (102,400
+# The 2-d target's pooled mean within 0.1 and covariance within 0.3 (51,200
 # draws; tests/test_nuts.py allows 0.3 and 0.7 at 4,000)
 NUTS_MEAN_ATOL, NUTS_COV_ATOL = 0.1, 0.3
 # "nuts-main": the bench's NUTS leg (bench.py:103-118, 218-232); "nuts-static"
@@ -575,8 +575,8 @@ RESIDENT_DIGESTS = {"K3": "28b8572d7fd30bd4a98702555668bbf38db7abcf66ec4fa958518
 # kernels against their plain versions bit for bit at WIDE_EQ_WIDTHS,
 # WIDE_EQ_CHAINS chains of WIDE_EQ_STEPS steps (K1 at L WIDE_EQ_L, with and
 # without a diagonal M⁻¹; K3 with the random walk and pCN) on every lane
-# target, and from chain WIDE_CHAIN0 (the cases of
-# tests/test_torch_cuda_wide.py, wide_case).  "K1-wide": HMC(backend="cuda")
+# target, and from chain WIDE_CHAIN0 (the cases of tests/torch_wide_cases.py,
+# which tests/test_torch_cuda_wide.py runs too).  "K1-wide": HMC(backend="cuda")
 # on GaussianND(zeros(d), exp(linspace(0, log 10, d))) in the metric M⁻¹ =
 # scales², L 10, from init_with_seed(N_CHAINS, d, SEED), K1_WIDE_RUNS[d] =
 # (ε, n_collect, n_discard, thin); the ε of my CPU runs of the plain
@@ -1675,43 +1675,24 @@ def phase_k3_targets(dev):
     return dict(max_abs_err=max(errs), families=fam, launches=launches)
 
 
-def wide_case(name: str, d: int, dev, mass: bool = False):
-    """A lane target at width ``d`` for "wide-equal" (the cases of
-    tests/test_torch_cuda_wide.py): the target, WIDE_EQ_CHAINS starting
-    positions seeded by the width, HMC's ε and M⁻¹, MH's walk scale and
-    pCN's beta, each scaled so that some proposals are taken and some not."""
-    rng = np.random.default_rng(d)
-    f32 = dict(dtype=torch.float32, device=dev)
-    mass_inv = None
-    if name == "gaussian":
-        scales = np.exp(0.3 * rng.normal(size=d))
-        target = gmt.GaussianND(torch.as_tensor(rng.normal(size=d)),
-                                torch.as_tensor(scales), device=dev)
-        x0 = rng.normal(size=(WIDE_EQ_CHAINS, d)) * scales
-        eps = 3 * d**-0.25 * (1.0 if mass else scales.min())
-        walk, beta = 2.38 / np.sqrt(d) * scales.min(), 0.05
-        mass_inv = torch.as_tensor(scales**2, **f32)
-    elif name == "rosenbrock":
-        target = gmt.RosenbrockND()
-        x0 = 0.1 * rng.normal(size=(WIDE_EQ_CHAINS, d))
-        eps, walk, beta = 0.01, 0.02 / np.sqrt(d), 0.005
-    else:
-        target = gmt.NealsFunnel(d, 3.0)
-        x0 = 0.5 * rng.normal(size=(WIDE_EQ_CHAINS, d))
-        eps, walk, beta = 0.15 * d**-0.25, 0.5 / np.sqrt(d), 0.05
-    return target, torch.as_tensor(x0, **f32), float(eps), float(walk), beta, mass_inv
-
-
 def phase_wide_equal(dev):
     """Both wide kernels against their plain versions, bit for bit, at
     WIDE_EQ_WIDTHS on every lane target (K1 with and without a diagonal
     M⁻¹, K3 with the random walk and pCN), and from chain WIDE_CHAIN0: rows
-    of the launch from 0."""
+    of the launch from 0.  The cases are tests/torch_wide_cases.py's, which
+    tests/test_torch_cuda_wide.py holds the kernels to as well."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_wide_cases.py")
+    spec = importlib.util.spec_from_file_location("torch_wide_cases", path)
+    cases_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases_mod)
+    wide_case = functools.partial(cases_mod.wide_case, chains=WIDE_EQ_CHAINS)
+
     errs, cases = {"K1": 0.0, "K3": 0.0}, 0
     for d in WIDE_EQ_WIDTHS:
         for name in ("gaussian", "rosenbrock", "funnel"):
             for mass in ((False, True) if name == "gaussian" else (False,)):
-                target, x0, eps, _, _, mass_inv = wide_case(name, d, dev, mass)
+                target, x0, eps, _, _, mass_inv = wide_case(name, d, dev, mass=mass)
                 args = (target, x0, eps, WIDE_EQ_L, WIDE_EQ_STEPS, 2)
                 kw = dict(seed=3, mass_inv=mass_inv if mass else None)
                 got = fused_hmc.fused_hmc_run(*args, **kw)

@@ -148,7 +148,7 @@ struct Density {
   float mu[E], pr[E];  // GaussianND: the mean and the precision
   float k[6];          // the 2-d targets' constants; the funnel's
 
-  __device__ __forceinline__ int coord(int i) const { return 4 * (sub + G * (i / 4)) + i % 4; }
+  __device__ __forceinline__ int coord(int i) const { return gmt_lanes::elem_coord(i, sub, G); }
 
   // params: GaussianND: mean[d], prec[d]; DiffableGaussian2D: m0, m1,
   // ic00, ic01 + ic10, ic11, the normalising constant; Gaussian2D: m0, m1,
@@ -182,27 +182,14 @@ struct Density {
 
   // NealsFunnel: sum x^2 over the x block, and v, the last coordinate.
   __device__ __forceinline__ void funnel_parts(const float (&x)[E], float& sq, float& v) const {
-    double acc = 0.0;
-    float mine = 0.0f;
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const int j = coord(i);
-      if (j < d - 1) acc += x[i] * x[i];
-      if (j == d - 1) mine = x[i];
-    }
-    sq = group_sum(acc, G);
+    float mine;
+    sq = group_sum(gmt_lanes::funnel_part<E>(x, sub, G, d, mine), G);
     v = __shfl_sync(kFull, mine, ((d - 1) / 4) % G, G);
   }
 
   __device__ __forceinline__ float value(const float (&x)[E]) const {
     if constexpr (TGT == kGaussianDiag) {
-      double acc = 0.0;
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const float diff = x[i] - mu[i];
-        acc += diff * diff * pr[i];
-      }
-      return -0.5f * group_sum(acc, G);
+      return -0.5f * group_sum(gmt_lanes::gauss_part<E>(x, mu, pr), G);
     } else if constexpr (TGT == kDiffable2D) {
       // norm_const - 0.5 (ic00 d0 d0 + (ic01 + ic10) d0 d1 + ic11 d1 d1)
       const float d0 = x[0] - k[0], d1 = x[1] - k[1];
@@ -219,27 +206,17 @@ struct Density {
     } else if constexpr (TGT == kRosenbrockND) {
       float v[E];
       gmt_lanes::rosen_v<QPL>(x, v, G, sub);
-      double acc = 0.0;
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const float u = 1.0f - x[i];
-        if (coord(i) < d - 1) acc += 100.0f * (v[i] * v[i]) + u * u;
-      }
-      return -group_sum(acc, G);
+      return -group_sum(gmt_lanes::rosen_part<E>(x, v, sub, G, d), G);
     } else {  // kFunnel
       float sq, v;
       funnel_parts(x, sq, v);
-      const float w = expf(-v);
-      const float t = v * k[0];
-      const float lp_v = -0.5f * (t * t);
-      return lp_v + ((-0.5f * sq) * w - k[2] * v);
+      return gmt_lanes::funnel_value(sq, v, k[0], k[2]);
     }
   }
 
   __device__ __forceinline__ void grad(const float (&x)[E], float (&g)[E]) const {
     if constexpr (TGT == kGaussianDiag) {
-#pragma unroll
-      for (int i = 0; i < E; ++i) g[i] = -(x[i] - mu[i]) * pr[i];
+      gmt_lanes::gauss_grad<E>(x, mu, pr, g);
     } else if constexpr (TGT == kDiffable2D) {
       // autograd of value(): the quadratic's three products, each (a * d) * d',
       // pass -0.5 d' a to d and (-0.5 d') * a' to a's own factor; the
@@ -276,27 +253,15 @@ struct Density {
 #pragma unroll
       for (int i = 2; i < E; ++i) g[i] = 0.0f;
     } else if constexpr (TGT == kRosenbrockND) {
-      // 400 x_j v_j + 2 (1 - x_j) for j < d - 1, then -200 v_{j-1} for j >= 1
       float v[E];
       gmt_lanes::rosen_v<QPL>(x, v, G, sub);
       float prev[E];
       gmt_lanes::rosen_prev<QPL>(v, prev, G, sub);
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const int j = coord(i);
-        const float base = j < d - 1 ? 400.0f * x[i] * v[i] + (1.0f - x[i]) * 2.0f : 0.0f;
-        g[i] = (j >= 1 && j < d) ? base - 200.0f * prev[i] : base;
-      }
-    } else {  // kFunnel: -x e^-v, and -v / v_std^2 + sum x^2 e^-v / 2 - (dim - 1) / 2
+      gmt_lanes::rosen_grad<E>(x, v, prev, sub, G, d, g);
+    } else {  // kFunnel
       float sq, v;
       funnel_parts(x, sq, v);
-      const float w = expf(-v);
-      const float g_v = ((-v) * k[1] + (0.5f * sq) * w) - k[2];
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const int j = coord(i);
-        g[i] = j < d - 1 ? (-x[i]) * w : (j == d - 1 ? g_v : 0.0f);
-      }
+      gmt_lanes::funnel_grad<E>(x, sq, v, k[1], k[2], sub, G, d, g);
     }
   }
 

@@ -55,6 +55,8 @@ using gmt_lanes::kFunnel;
 using gmt_lanes::kGaussianDiag;
 using gmt_lanes::kRosenbrockND;
 using gmt_wide::Cluster;
+using gmt_wide::kE;
+using gmt_wide::kQPL;
 
 struct Args {
   const float *x0, *params, *inv, *scale;
@@ -70,12 +72,10 @@ struct Args {
 // sum `extra` and the broadcast of log u (put by the thread u_put, read
 // from u_from) ride along with it (the GaussianND then takes an exchange
 // for them alone), and on return `extra` and `log_u` hold their totals.
-template <int QPL, int TGT, bool VALUE, bool WITH>
-__device__ __forceinline__ float grad_at(Cluster& cl, const gmt_wide::Target<QPL, TGT>& f,
-                                         const float (&p)[4 * QPL], float (&g)[4 * QPL],
-                                         double& part, double& extra, float& log_u,
-                                         bool u_put, int u_from) {
-  constexpr int E = 4 * QPL;
+template <int TGT, bool VALUE, bool WITH>
+__device__ __forceinline__ float grad_at(Cluster& cl, const gmt_wide::Target<TGT>& f,
+                                         const float (&p)[kE], float (&g)[kE], double& part,
+                                         double& extra, float& log_u, bool u_put, int u_from) {
   float lp = 0.0f;
   part = 0.0;
   if constexpr (TGT == kGaussianDiag) {
@@ -99,7 +99,7 @@ __device__ __forceinline__ float grad_at(Cluster& cl, const gmt_wide::Target<QPL
       if (u_put) cl.put_bcast(0, log_u);
     }
     cl.sync();
-    float v[E], prev[E];
+    float v[kE], prev[kE];
     f.rosen_parts(cl, p, v, prev);
     if constexpr (WITH) {
       cl.get_sums<1>(s);
@@ -143,14 +143,13 @@ __device__ __forceinline__ void sum_two(Cluster& cl, double& a, double& b) {
   b = s[1];
 }
 
-// QPL: quads a thread (2 as the wrapper maps; 1 for
-// port_scripts/wide_maps.py); USE_MASS: the diagonal-metric path
-// (inv = M^-1 row, scale = sqrt(M) row); TGT: GaussianND (diagonal),
-// RosenbrockND or NealsFunnel.  One cluster a chain.
-template <int QPL, bool USE_MASS, int TGT>
+// USE_MASS: the diagonal-metric path (inv = M^-1 row, scale = sqrt(M)
+// row); TGT: GaussianND (diagonal), RosenbrockND or NealsFunnel.  One
+// cluster a chain.
+template <bool USE_MASS, int TGT>
 __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1)
     fused_hmc_wide_kernel(const Args a) {
-  constexpr int E = 4 * QPL;
+  constexpr int E = kE;
   __shared__ gmt_wide::Buffers buf;
   Cluster cl;
   cl.init(&buf);
@@ -160,11 +159,11 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1)
   const int nq = (d + 3) >> 2;
   // the accept block: the thread of the first idle quad slot draws it in
   // place of a momentum block, else thread 0 besides its quads
-  const bool accept_in_slot = nq < cl.T * QPL;
+  const bool accept_in_slot = nq < cl.T * kQPL;
   const int u_from = accept_in_slot ? nq % cl.T : 0;
   const bool u_put = cl.gt == u_from;
 
-  gmt_wide::Target<QPL, TGT> f;
+  gmt_wide::Target<TGT> f;
   f.init(a.params, d, cl);
   float x[E], iv[E], sc[E];
   bool ok[E];
@@ -182,7 +181,7 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1)
   {
     float g[E], no_u = 0.0f;
     double part, none = 0.0;
-    lp = grad_at<QPL, TGT, true, false>(cl, f, x, g, part, none, no_u, false, 0);
+    lp = grad_at<TGT, true, false>(cl, f, x, g, part, none, no_u, false, 0);
     if constexpr (TGT != kFunnel) {
       double zero = 0.0;
       sum_two(cl, part, zero);
@@ -200,7 +199,7 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1)
     float m[E], p[E], g[E];
     float log_u = 0.0f;
 #pragma unroll
-    for (int kq = 0; kq < QPL; ++kq) {
+    for (int kq = 0; kq < kQPL; ++kq) {
       const int q = cl.gt + cl.T * kq;
       if (q < nq || (accept_in_slot && q == nq)) {
         const bool draws_accept = q == nq;
@@ -232,7 +231,7 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1)
     // the step's first exchange: ke0 and log u beside the gradient at x,
     // recomputed from x
     double part;
-    grad_at<QPL, TGT, false, true>(cl, f, x, g, part, acc, log_u, u_put, u_from);
+    grad_at<TGT, false, true>(cl, f, x, g, part, acc, log_u, u_put, u_from);
     const float ke0 = 0.5f * static_cast<float>(acc);
 #pragma unroll
     for (int i = 0; i < E; ++i) {
@@ -246,13 +245,13 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1)
     for (int l = 0; l < a.n_leapfrog - 1; ++l) {
 #pragma unroll
       for (int i = 0; i < E; ++i) p[i] = p[i] + (USE_MASS ? iv[i] * m[i] : m[i]) * eps;
-      grad_at<QPL, TGT, false, false>(cl, f, p, g, part, none, no_u, false, 0);
+      grad_at<TGT, false, false>(cl, f, p, g, part, none, no_u, false, 0);
 #pragma unroll
       for (int i = 0; i < E; ++i) m[i] = m[i] + g[i] * eps;
     }
 #pragma unroll
     for (int i = 0; i < E; ++i) p[i] = p[i] + (USE_MASS ? iv[i] * m[i] : m[i]) * eps;
-    float lp_new = grad_at<QPL, TGT, true, false>(cl, f, p, g, part, none, no_u, false, 0);
+    float lp_new = grad_at<TGT, true, false>(cl, f, p, g, part, none, no_u, false, 0);
     double ke = 0.0;
 #pragma unroll
     for (int i = 0; i < E; ++i) {
@@ -275,43 +274,36 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1)
 
     if (t < a.n_discard || --until_store > 0) continue;
     until_store = a.thin;
-    gmt_wide::store_row<QPL>(dst, x, cl.gt, cl.T, d);
+    gmt_wide::store_row(dst, x, cl.gt, cl.T, d);
     dst += row;
   }
   cl.sync();  // no block leaves while another may read its buffers
 }
 
-template <int QPL, int TGT>
-cudaError_t launch_qpl(bool use_mass, const Args& a, int C, int W, cudaStream_t s) {
-  if (use_mass) {
-    return gmt_wide::launch_clusters(fused_hmc_wide_kernel<QPL, true, TGT>, a, a.n, C, W, s);
-  }
-  return gmt_wide::launch_clusters(fused_hmc_wide_kernel<QPL, false, TGT>, a, a.n, C, W, s);
-}
-
 template <int TGT>
-cudaError_t launch_target(bool use_mass, const Args& a, int C, int W, int qpl,
-                          cudaStream_t s) {
-  if (qpl == 1) return launch_qpl<1, TGT>(use_mass, a, C, W, s);
-  return launch_qpl<2, TGT>(use_mass, a, C, W, s);
+cudaError_t launch_target(bool use_mass, const Args& a, int C, int W, cudaStream_t s) {
+  if (use_mass) {
+    return gmt_wide::launch_clusters(fused_hmc_wide_kernel<true, TGT>, a, a.n, C, W, s);
+  }
+  return gmt_wide::launch_clusters(fused_hmc_wide_kernel<false, TGT>, a, a.n, C, W, s);
 }
 
 }  // namespace
 
 // target: GaussianND (diagonal), RosenbrockND or NealsFunnel (the Target
 // codes of lane_targets.cuh); params: its constants as one float32 row;
-// cluster_blocks C (1..8), warps W (1..16) a block and quads_per_lane (1..2)
-// are the wide map (ops/fused_hmc.py, wide_map): 4 * 32 W C quads_per_lane
-// must cover the width.
+// cluster_blocks C (1..8) and warps W (1..16) a block are the wide map
+// (ops/fused_hmc.py, wide_map): the 32 W C threads' kQPL quads each must
+// cover the width.
 extern "C" int fused_hmc_wide_launch(const void* x0, const void* params, const void* inv,
                                      const void* scale, void* out, int n, int d,
                                      int n_collect, int n_discard, int thin, int n_leapfrog,
                                      float step_size, unsigned int seed, unsigned int chain0,
                                      int use_mass, int target, int cluster_blocks, int warps,
-                                     int quads_per_lane, void* stream) {
-  const int C = cluster_blocks, W = warps, qpl = quads_per_lane;
-  if (n < 1 || d < 1 || n_leapfrog < 1 || !gmt_wide::map_ok(C, W, qpl) ||
-      4 * 32 * W * C * qpl < d) {
+                                     void* stream) {
+  const int C = cluster_blocks, W = warps;
+  if (n < 1 || d < 1 || n_leapfrog < 1 || !gmt_wide::map_ok(C, W) ||
+      4 * 32 * W * C * gmt_wide::kQPL < d) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{static_cast<const float*>(x0),  static_cast<const float*>(params),
@@ -325,10 +317,10 @@ extern "C" int fused_hmc_wide_launch(const void* x0, const void* params, const v
   const bool m = use_mass != 0;
   switch (target) {
     case kGaussianDiag:
-      return static_cast<int>(launch_target<kGaussianDiag>(m, a, C, W, qpl, s));
+      return static_cast<int>(launch_target<kGaussianDiag>(m, a, C, W, s));
     case kRosenbrockND:
-      return static_cast<int>(launch_target<kRosenbrockND>(m, a, C, W, qpl, s));
-    case kFunnel: return static_cast<int>(launch_target<kFunnel>(m, a, C, W, qpl, s));
+      return static_cast<int>(launch_target<kRosenbrockND>(m, a, C, W, s));
+    case kFunnel: return static_cast<int>(launch_target<kFunnel>(m, a, C, W, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

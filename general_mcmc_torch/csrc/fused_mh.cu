@@ -252,7 +252,7 @@ struct Chain {
   float lp;
   int d, sub;
 
-  __device__ __forceinline__ int coord(int i) const { return 4 * (sub + G * (i / 4)) + i % 4; }
+  __device__ __forceinline__ int coord(int i) const { return gmt_lanes::elem_coord(i, sub, G); }
 
   __device__ __forceinline__ void init(const Args& a, uint32_t chain, int sub_) {
     d = a.d;
@@ -285,13 +285,7 @@ struct Chain {
   // group.
   __device__ __forceinline__ float log_density(const float (&v)[E]) const {
     if constexpr (TGT == kGaussianND) {
-      double acc = 0.0;
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const float diff = v[i] - mu[i];
-        acc += diff * diff * prec[i];
-      }
-      return -0.5f * group_sum<G>(acc);
+      return -0.5f * group_sum<G>(gmt_lanes::gauss_part<E>(v, mu, prec));
     } else if constexpr (TGT == kGaussian2D) {
       const float d0 = v[0] - k[0];
       const float d1 = v[1] - k[1];
@@ -311,28 +305,12 @@ struct Chain {
       // -sum_{j < d - 1} (100 (x_{j+1} - x_j^2)^2 + (1 - x_j)^2)
       float w[E];
       gmt_lanes::rosen_v<QPL>(v, w, G, sub);
-      double acc = 0.0;
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const float u = 1.0f - v[i];
-        if (coord(i) < d - 1) acc += 100.0f * (w[i] * w[i]) + u * u;
-      }
-      return -group_sum<G>(acc);
-    } else {  // kFunnel
-      // -(v / v_std)^2 / 2 + (-sum x^2 e^-v / 2 - (dim - 1) v / 2), v the
-      // last coordinate, reaching the group from its lane
-      double acc = 0.0;
-      float mine = 0.0f;
-#pragma unroll
-      for (int i = 0; i < E; ++i) {
-        const int j = coord(i);
-        if (j < d - 1) acc += v[i] * v[i];
-        if (j == d - 1) mine = v[i];
-      }
-      const float sq = group_sum<G>(acc);
+      return -group_sum<G>(gmt_lanes::rosen_part<E>(v, w, sub, G, d));
+    } else {  // kFunnel: v the last coordinate, reaching the group from its lane
+      float mine;
+      const float sq = group_sum<G>(gmt_lanes::funnel_part<E>(v, sub, G, d, mine));
       const float lv = __shfl_sync(kFull, mine, ((d - 1) / 4) % G, G);
-      const float t = lv * k[0];
-      return -0.5f * (t * t) + ((-0.5f * sq) * expf(-lv) - k[2] * lv);
+      return gmt_lanes::funnel_value(sq, lv, k[0], k[2]);
     }
   }
 

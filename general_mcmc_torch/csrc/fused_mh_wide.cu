@@ -50,6 +50,8 @@ using gmt_lanes::kFunnel;
 using gmt_lanes::kGaussianDiag;
 using gmt_lanes::kRosenbrockND;
 using gmt_wide::Cluster;
+using gmt_wide::kE;
+using gmt_wide::kQPL;
 enum Proposal : int { kRandomWalk = 0, kPCN = 1 };
 
 struct Args {
@@ -63,13 +65,11 @@ struct Args {
 
 // One step's draws for this thread: the normals of its elements (zero past
 // d) and, on the thread of the last block, log u.
-template <int QPL>
 __device__ __forceinline__ void draw_step(uint32_t seed, uint32_t chain, uint32_t t,
                                           const Cluster& cl, int nb, bool u_in_word2,
-                                          const bool (&ok)[4 * QPL], float (&z)[4 * QPL],
-                                          float& log_u) {
+                                          const bool (&ok)[kE], float (&z)[kE], float& log_u) {
 #pragma unroll
-  for (int k = 0; k < QPL; ++k) {
+  for (int k = 0; k < kQPL; ++k) {
     const int q = cl.gt + cl.T * k;
     if (q < nb) {
       const uint4 r = gmt::counter_bits(seed, chain, t, static_cast<uint32_t>(q),
@@ -90,13 +90,13 @@ __device__ __forceinline__ void draw_step(uint32_t seed, uint32_t chain, uint32_
 // (two for RosenbrockND).  With PCN, pCN's log q(x -> v) and log q(v -> x)
 // ride along (-1/2 sum ((b - rho a) / beta)^2, the division as the product
 // with 1 / beta), and with U the broadcast of log u from u_from.
-template <int QPL, int TGT, bool PCN, bool U>
-__device__ __forceinline__ float log_density(Cluster& cl, const gmt_wide::Target<QPL, TGT>& f,
-                                             const float (&v)[4 * QPL],
-                                             const float (&x)[4 * QPL], float rho,
-                                             float inv_beta, float& q_fwd, float& q_bwd,
-                                             float& log_u, bool u_put, int u_from) {
-  constexpr int E = 4 * QPL;
+template <int TGT, bool PCN, bool U>
+__device__ __forceinline__ float log_density(Cluster& cl, const gmt_wide::Target<TGT>& f,
+                                             const float (&v)[kE], const float (&x)[kE],
+                                             float rho, float inv_beta, float& q_fwd,
+                                             float& q_bwd, float& log_u, bool u_put,
+                                             int u_from) {
+  constexpr int E = kE;
   constexpr int K = PCN ? 3 : 1;
   double s[K];
   float mine = 0.0f;
@@ -142,13 +142,12 @@ __device__ __forceinline__ float log_density(Cluster& cl, const gmt_wide::Target
   return f.funnel_value(static_cast<float>(s[0]), lv);
 }
 
-// QPL: Philox blocks (four dimensions) a thread, 2 as the wrapper maps (1
-// for port_scripts/wide_maps.py); TGT: GaussianND
-// (diagonal), RosenbrockND or NealsFunnel; PROP: the proposal.  One cluster
-// a chain.
-template <int QPL, int TGT, int PROP>
+// TGT: GaussianND (diagonal), RosenbrockND or NealsFunnel; PROP: the
+// proposal.  kQPL Philox blocks (four dimensions) a thread, one cluster a
+// chain.
+template <int TGT, int PROP>
 __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1) fused_mh_wide_kernel(const Args a) {
-  constexpr int E = 4 * QPL;
+  constexpr int E = kE;
   constexpr bool PCN = PROP == kPCN;
   __shared__ gmt_wide::Buffers buf;
   Cluster cl;
@@ -162,7 +161,7 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1) fused_mh_wide_kernel
   const int u_from = (nb - 1) % cl.T;
   const bool u_put = cl.gt == u_from;
 
-  gmt_wide::Target<QPL, TGT> f;
+  gmt_wide::Target<TGT> f;
   f.init(a.params, d, cl);
   float x[E], y[E];
   bool ok[E];
@@ -173,23 +172,23 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1) fused_mh_wide_kernel
     x[i] = ok[i] ? a.x0[static_cast<int64_t>(chain) * d + j] : 0.0f;
   }
   float q_fwd = 0.0f, q_bwd = 0.0f, log_u = 0.0f;
-  float lp = log_density<QPL, TGT, false, false>(cl, f, x, x, 0.0f, 0.0f, q_fwd, q_bwd, log_u,
-                                                 false, 0);
+  float lp = log_density<TGT, false, false>(cl, f, x, x, 0.0f, 0.0f, q_fwd, q_bwd, log_u,
+                                            false, 0);
 
   const int total = a.n_discard + a.n_collect * a.thin;
   const int64_t row = static_cast<int64_t>(a.n) * d;
   float* dst = a.out + static_cast<int64_t>(chain) * d;  // this chain's row of the next sample
   int until_store = a.thin;  // post-burn-in steps until the next stored sample
   float z[E], z_next[E], lu_next = 0.0f;
-  draw_step<QPL>(a.seed, key_chain, 0u, cl, nb, u_in_word2, ok, z, log_u);
+  draw_step(a.seed, key_chain, 0u, cl, nb, u_in_word2, ok, z, log_u);
   for (int t = 0; t < total; ++t) {
     // step t + 1's draws, independent of step t's walk that follows
-    draw_step<QPL>(a.seed, key_chain, static_cast<uint32_t>(t) + 1u, cl, nb, u_in_word2, ok,
-                   z_next, lu_next);
+    draw_step(a.seed, key_chain, static_cast<uint32_t>(t) + 1u, cl, nb, u_in_word2, ok, z_next,
+              lu_next);
 #pragma unroll
     for (int i = 0; i < E; ++i) y[i] = PCN ? a.p0 * x[i] + a.p1 * z[i] : x[i] + a.p0 * z[i];
-    const float lp_new = log_density<QPL, TGT, PCN, true>(cl, f, y, x, a.p0, a.p2, q_fwd,
-                                                          q_bwd, log_u, u_put, u_from);
+    const float lp_new = log_density<TGT, PCN, true>(cl, f, y, x, a.p0, a.p2, q_fwd, q_bwd,
+                                                     log_u, u_put, u_from);
     const float log_accept = PCN ? (lp_new + q_bwd) - (lp + q_fwd) : lp_new - lp;
     if (log_u < log_accept) {  // NaN rejects
       lp = lp_new;
@@ -202,43 +201,36 @@ __global__ void __launch_bounds__(gmt_wide::kMaxThreads, 1) fused_mh_wide_kernel
 
     if (t < a.n_discard || --until_store > 0) continue;
     until_store = a.thin;
-    gmt_wide::store_row<QPL>(dst, x, cl.gt, cl.T, d);
+    gmt_wide::store_row(dst, x, cl.gt, cl.T, d);
     dst += row;
   }
   cl.sync();  // no block leaves while another may read its buffers
 }
 
-template <int QPL, int TGT>
-cudaError_t launch_qpl(const Args& a, int proposal, int C, int W, cudaStream_t s) {
-  if (proposal == kPCN) {
-    return gmt_wide::launch_clusters(fused_mh_wide_kernel<QPL, TGT, kPCN>, a, a.n, C, W, s);
-  }
-  return gmt_wide::launch_clusters(fused_mh_wide_kernel<QPL, TGT, kRandomWalk>, a, a.n, C, W,
-                                   s);
-}
-
 template <int TGT>
-cudaError_t launch_target(const Args& a, int proposal, int C, int W, int qpl, cudaStream_t s) {
-  if (qpl == 1) return launch_qpl<1, TGT>(a, proposal, C, W, s);
-  return launch_qpl<2, TGT>(a, proposal, C, W, s);
+cudaError_t launch_target(const Args& a, int proposal, int C, int W, cudaStream_t s) {
+  if (proposal == kPCN) {
+    return gmt_wide::launch_clusters(fused_mh_wide_kernel<TGT, kPCN>, a, a.n, C, W, s);
+  }
+  return gmt_wide::launch_clusters(fused_mh_wide_kernel<TGT, kRandomWalk>, a, a.n, C, W, s);
 }
 
 }  // namespace
 
 // target: GaussianND (diagonal), RosenbrockND or NealsFunnel (the Target
 // codes of lane_targets.cuh); proposal: 0 the random walk (p0 its scale),
-// 1 pCN (p0 rho, p1 beta, p2 1 / beta); cluster_blocks C (1..8), warps W
-// (1..16) a block and quads_per_lane (1..2) are the wide map (ops/
-// fused_hmc.py, wide_map): 32 W C quads_per_lane must cover the step's
-// Philox blocks, ceil(d / 2) / 2 + 1.
+// 1 pCN (p0 rho, p1 beta, p2 1 / beta); cluster_blocks C (1..8) and warps
+// W (1..16) a block are the wide map (ops/fused_mh.py, wide_map): the
+// 32 W C threads' kQPL blocks each must cover the step's Philox blocks,
+// ceil(d / 2) / 2 + 1.
 extern "C" int fused_mh_wide_launch(const void* x0, const void* params, void* out, int n,
                                     int d, int n_collect, int n_discard, int thin, int target,
                                     int proposal, float p0, float p1, float p2,
                                     unsigned int seed, unsigned int chain0, int cluster_blocks,
-                                    int warps, int quads_per_lane, void* stream) {
-  const int C = cluster_blocks, W = warps, qpl = quads_per_lane;
+                                    int warps, void* stream) {
+  const int C = cluster_blocks, W = warps;
   const int nb = (d + 1) / 2 / 2 + 1;
-  if (n < 1 || d < 1 || !gmt_wide::map_ok(C, W, qpl) || 32 * W * C * qpl < nb ||
+  if (n < 1 || d < 1 || !gmt_wide::map_ok(C, W) || 32 * W * C * gmt_wide::kQPL < nb ||
       (proposal != kRandomWalk && proposal != kPCN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -248,10 +240,10 @@ extern "C" int fused_mh_wide_launch(const void* x0, const void* params, void* ou
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (target) {
     case kGaussianDiag:
-      return static_cast<int>(launch_target<kGaussianDiag>(a, proposal, C, W, qpl, s));
+      return static_cast<int>(launch_target<kGaussianDiag>(a, proposal, C, W, s));
     case kRosenbrockND:
-      return static_cast<int>(launch_target<kRosenbrockND>(a, proposal, C, W, qpl, s));
-    case kFunnel: return static_cast<int>(launch_target<kFunnel>(a, proposal, C, W, qpl, s));
+      return static_cast<int>(launch_target<kRosenbrockND>(a, proposal, C, W, s));
+    case kFunnel: return static_cast<int>(launch_target<kFunnel>(a, proposal, C, W, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

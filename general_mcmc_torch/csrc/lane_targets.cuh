@@ -11,6 +11,14 @@
 //    shuffle a quad (lane G - 1 reads lane 0's quad k + 1), and the
 //    gradient's v_{j-1} of a quad's first element from the previous lane
 //    the same way.
+//  - The wide map (wide_lanes.cuh) spreads a chain over the threads of a
+//    cluster of blocks and crosses them through shared memory; its element
+//    i of thread gt is coordinate 4 (gt + T (i / 4)) + i % 4, T the chain's
+//    threads.
+// The per-element arithmetic of the diagonal GaussianND, RosenbrockND and
+// NealsFunnel is written once, below, for both layouts (s the lane in its
+// group or the thread in its chain, S the group's lanes or the chain's
+// threads), so that the warp maps and the wide map round alike.
 // The dense GaussianND couples every coordinate through L: both kernels run
 // it in tile kernels of their own on dense_tile.cuh's blocked solve
 // (fused_hmc_dense.cu, its panels on the tensor cores; fused_mh_dense.cu,
@@ -72,6 +80,100 @@ __device__ __forceinline__ void rosen_prev(const float (&v)[4 * QPL], float (&pr
       const int k = i / 4;
       prev[i] = sub == 0 ? (k > 0 ? t[(k + QPL - 1) % QPL] : 0.0f) : t[k];
     }
+  }
+}
+
+// Element i's coordinate: 4 (s + S (i / 4)) + i % 4.
+__device__ __forceinline__ int elem_coord(int i, int s, int S) {
+  return 4 * (s + S * (i / 4)) + i % 4;
+}
+
+// GaussianND (diagonal): sum (x - mu)^2 prec at these elements (zeros past
+// d add nothing).
+template <int E>
+__device__ __forceinline__ double gauss_part(const float (&x)[E], const float (&mu)[E],
+                                             const float (&pr)[E]) {
+  double acc = 0.0;
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const float diff = x[i] - mu[i];
+    acc += diff * diff * pr[i];
+  }
+  return acc;
+}
+
+template <int E>
+__device__ __forceinline__ void gauss_grad(const float (&x)[E], const float (&mu)[E],
+                                           const float (&pr)[E], float (&g)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; ++i) g[i] = -(x[i] - mu[i]) * pr[i];
+}
+
+// RosenbrockND: sum_{j < d - 1} 100 v_j^2 + (1 - x_j)^2 at these elements.
+template <int E>
+__device__ __forceinline__ double rosen_part(const float (&x)[E], const float (&v)[E], int s,
+                                             int S, int d) {
+  double acc = 0.0;
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const float u = 1.0f - x[i];
+    if (elem_coord(i, s, S) < d - 1) acc += 100.0f * (v[i] * v[i]) + u * u;
+  }
+  return acc;
+}
+
+// 400 x_j v_j + 2 (1 - x_j) for j < d - 1, then -200 v_{j-1} for j >= 1
+template <int E>
+__device__ __forceinline__ void rosen_grad(const float (&x)[E], const float (&v)[E],
+                                           const float (&prev)[E], int s, int S, int d,
+                                           float (&g)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int j = elem_coord(i, s, S);
+    const float base = j < d - 1 ? 400.0f * x[i] * v[i] + (1.0f - x[i]) * 2.0f : 0.0f;
+    g[i] = (j >= 1 && j < d) ? base - 200.0f * prev[i] : base;
+  }
+}
+
+// NealsFunnel: sum_{j < d - 1} x_j^2 at these elements, and x_{d-1} where
+// it is one of them (0 elsewhere).
+template <int E>
+__device__ __forceinline__ double funnel_part(const float (&x)[E], int s, int S, int d,
+                                              float& mine) {
+  double acc = 0.0;
+  mine = 0.0f;
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int j = elem_coord(i, s, S);
+    if (j < d - 1) acc += x[i] * x[i];
+    if (j == d - 1) mine = x[i];
+  }
+  return acc;
+}
+
+// NealsFunnel's log density from sum x^2 and v: -(v / v_std)^2 / 2 +
+// (-sum x^2 e^-v / 2 - (dim - 1) v / 2); inv_std 1 / v_std, half_rest
+// (dim - 1) / 2.
+__device__ __forceinline__ float funnel_value(float sq, float v, float inv_std,
+                                              float half_rest) {
+  const float w = expf(-v);
+  const float t = v * inv_std;
+  const float lp_v = -0.5f * (t * t);
+  return lp_v + ((-0.5f * sq) * w - half_rest * v);
+}
+
+// -x e^-v, and -v / v_std^2 + sum x^2 e^-v / 2 - (dim - 1) / 2; inv_var
+// 1 / v_std^2.
+template <int E>
+__device__ __forceinline__ void funnel_grad(const float (&x)[E], float sq, float v,
+                                            float inv_var, float half_rest, int s, int S,
+                                            int d, float (&g)[E]) {
+  const float w = expf(-v);
+  const float g_v = ((-v) * inv_var + (0.5f * sq) * w) - half_rest;
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int j = elem_coord(i, s, S);
+    g[i] = j < d - 1 ? (-x[i]) * w : (j == d - 1 ? g_v : 0.0f);
   }
 }
 

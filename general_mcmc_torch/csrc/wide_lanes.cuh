@@ -4,12 +4,12 @@
 //
 // Layout.  Thread gt = tid + 32 W rank of the chain's cluster (rank its
 // block's rank in the cluster, tid its thread in the block) holds the quads
-// gt + T k, k < QPL, T = 32 W C the chain's threads: element i of the
+// gt + T k, k < kQPL = 2, T = 32 W C the chain's threads: element i of the
 // thread is coordinate 4 (gt + T (i / 4)) + i % 4.  Elements past the width
 // hold zeros.  A quad is a Philox block (K1: four momenta; K3: four normals,
 // the last block the accept uniform's), addressed by (global chain, step,
 // quad, tag) as in the warp's maps, so the map changes which thread computes
-// a number and never the number.  C, W and QPL are chosen by the wrappers
+// a number and never the number.  C and W are chosen by the wrappers
 // (ops/fused_hmc.py, wide_map); C = 1 is one block a chain.
 //
 // What crosses threads goes through shared memory, and across the blocks of
@@ -49,15 +49,16 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxWarps = 16;                 // warps a block
 constexpr int kMaxThreads = 32 * kMaxWarps;   // 512: at most 128 registers a thread
 constexpr int kMaxCluster = 8;                // blocks a cluster (the portable size)
-constexpr int kMaxQPL = 2;                    // quads a thread
+constexpr int kQPL = 2;                       // quads a thread
+constexpr int kE = 4 * kQPL;                  // elements a thread
 constexpr int kSums = 3;                      // row sums an exchange carries
 
 // A block's exchange buffers, both parities.
 struct Buffers {
   double sums[2][kMaxWarps][kSums];
   float bcast[2][2];                       // [0] log u, [1] the funnel's v
-  float first[2][kMaxQPL][kMaxThreads];    // each quad's first element
-  float last[2][kMaxQPL][kMaxThreads];     // each quad's last element
+  float first[2][kQPL][kMaxThreads];       // each quad's first element
+  float last[2][kQPL][kMaxThreads];        // each quad's last element
 };
 
 // One thread's place in its chain's cluster and its side of the exchanges.
@@ -141,11 +142,11 @@ struct Cluster {
 
   // After the sync: the first element of the quad after this thread's
   // quad k (0 past the last quad).
-  __device__ __forceinline__ float next_first(int k, int qpl) const {
+  __device__ __forceinline__ float next_first(int k) const {
     if (tid + 1 < B) return buf->first[par][k][tid + 1];
     const int r = rank + 1 == C ? 0 : rank + 1;
     const int kk = rank + 1 == C ? k + 1 : k;
-    return kk < qpl ? at(r)->first[par][kk][0] : 0.0f;
+    return kk < kQPL ? at(r)->first[par][kk][0] : 0.0f;
   }
 
   // After the sync: the last element of the quad before this thread's quad
@@ -158,22 +159,20 @@ struct Cluster {
   }
 };
 
-// The lane targets on the wide map: constants, partial row sums and
-// gradients at this thread's elements, in the operations and order of the
-// warp maps' (fused_hmc.cu's Density, fused_mh.cu's Chain), which the plain
-// version rounds alike.  What couples coordinates reaches the thread by an
-// exchange: RosenbrockND's neighbours (put_edges, then rosen_parts after
-// the sync), NealsFunnel's sum x^2 (a row sum) and v (a broadcast from
-// v_from, the thread holding coordinate d - 1).
-template <int QPL, int TGT>
+// The lane targets on the wide map: constants, and the exchanges that
+// bring what couples coordinates to the thread; the arithmetic at the
+// thread's elements is lane_targets.cuh's, which the warp maps share.
+// RosenbrockND's neighbours go by put_edges, then rosen_parts after the
+// sync; NealsFunnel's sum x^2 is a row sum and v a broadcast from v_from,
+// the thread holding coordinate d - 1.
+template <int TGT>
 struct Target {
-  static constexpr int E = 4 * QPL;
   int d, gt, T;
-  float mu[E], pr[E];  // GaussianND: the mean and the precision (zeros past d)
-  float k[3];          // NealsFunnel: 1 / v_std, 1 / v_std^2, (dim - 1) / 2
+  float mu[kE], pr[kE];  // GaussianND: the mean and the precision (zeros past d)
+  float k[3];            // NealsFunnel: 1 / v_std, 1 / v_std^2, (dim - 1) / 2
   int v_from;
 
-  __device__ __forceinline__ int coord(int i) const { return 4 * (gt + T * (i / 4)) + i % 4; }
+  __device__ __forceinline__ int coord(int i) const { return gmt_lanes::elem_coord(i, gt, T); }
 
   // params: the row of ops/fused_hmc.py target_params (GaussianND: mean[d],
   // prec[d]; NealsFunnel: 1 / v_std, 1 / v_std^2, (dim - 1) / 2).
@@ -185,7 +184,7 @@ struct Target {
 #pragma unroll
     for (int i = 0; i < 3; ++i) k[i] = TGT == gmt_lanes::kFunnel ? params[i] : 0.0f;
 #pragma unroll
-    for (int i = 0; i < E; ++i) {
+    for (int i = 0; i < kE; ++i) {
       const int j = coord(i);
       const bool ok = TGT == gmt_lanes::kGaussianDiag && j < d;
       mu[i] = ok ? params[j] : 0.0f;
@@ -194,20 +193,20 @@ struct Target {
   }
 
   // RosenbrockND, before an exchange's sync: the edges of x's quads.
-  __device__ __forceinline__ void put_edges(Cluster& cl, const float (&x)[E]) const {
+  __device__ __forceinline__ void put_edges(Cluster& cl, const float (&x)[kE]) const {
 #pragma unroll
-    for (int q = 0; q < QPL; ++q) cl.put_edges(q, x[4 * q], x[4 * q + 3]);
+    for (int q = 0; q < kQPL; ++q) cl.put_edges(q, x[4 * q], x[4 * q + 3]);
   }
 
   // RosenbrockND, after the sync: v_j = x_{j+1} - x_j^2 and v_{j-1} at
   // this thread's elements (v_{j-1} of a quad's first element computed
   // here from the previous quad's last, the same operations that thread
   // does).
-  __device__ __forceinline__ void rosen_parts(const Cluster& cl, const float (&x)[E],
-                                              float (&v)[E], float (&prev)[E]) const {
+  __device__ __forceinline__ void rosen_parts(const Cluster& cl, const float (&x)[kE],
+                                              float (&v)[kE], float (&prev)[kE]) const {
 #pragma unroll
-    for (int q = 0; q < QPL; ++q) {
-      const float nf = cl.next_first(q, QPL);
+    for (int q = 0; q < kQPL; ++q) {
+      const float nf = cl.next_first(q);
       const float pl = cl.prev_last(q);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -221,86 +220,43 @@ struct Target {
     }
   }
 
-  // GaussianND: sum (x - mu)^2 prec at this thread's elements.
-  __device__ __forceinline__ double gauss_part(const float (&x)[E]) const {
-    double acc = 0.0;
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const float diff = x[i] - mu[i];
-      acc += diff * diff * pr[i];
-    }
-    return acc;
+  __device__ __forceinline__ double gauss_part(const float (&x)[kE]) const {
+    return gmt_lanes::gauss_part<kE>(x, mu, pr);
   }
 
-  // RosenbrockND: sum_{j < d - 1} 100 v_j^2 + (1 - x_j)^2 here.
-  __device__ __forceinline__ double rosen_part(const float (&x)[E], const float (&v)[E]) const {
-    double acc = 0.0;
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const float u = 1.0f - x[i];
-      if (coord(i) < d - 1) acc += 100.0f * (v[i] * v[i]) + u * u;
-    }
-    return acc;
+  __device__ __forceinline__ double rosen_part(const float (&x)[kE], const float (&v)[kE]) const {
+    return gmt_lanes::rosen_part<kE>(x, v, gt, T, d);
   }
 
-  // NealsFunnel: sum_{j < d - 1} x_j^2 here, and x_{d-1} where it is held
-  // (0 elsewhere).
-  __device__ __forceinline__ double funnel_part(const float (&x)[E], float& mine) const {
-    double acc = 0.0;
-    mine = 0.0f;
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const int j = coord(i);
-      if (j < d - 1) acc += x[i] * x[i];
-      if (j == d - 1) mine = x[i];
-    }
-    return acc;
+  __device__ __forceinline__ double funnel_part(const float (&x)[kE], float& mine) const {
+    return gmt_lanes::funnel_part<kE>(x, gt, T, d, mine);
   }
 
-  // NealsFunnel's log density from the row sum and v.
   __device__ __forceinline__ float funnel_value(float sq, float v) const {
-    const float w = expf(-v);
-    const float t = v * k[0];
-    const float lp_v = -0.5f * (t * t);
-    return lp_v + ((-0.5f * sq) * w - k[2] * v);
+    return gmt_lanes::funnel_value(sq, v, k[0], k[2]);
   }
 
-  __device__ __forceinline__ void gauss_grad(const float (&x)[E], float (&g)[E]) const {
-#pragma unroll
-    for (int i = 0; i < E; ++i) g[i] = -(x[i] - mu[i]) * pr[i];
+  __device__ __forceinline__ void gauss_grad(const float (&x)[kE], float (&g)[kE]) const {
+    gmt_lanes::gauss_grad<kE>(x, mu, pr, g);
   }
 
-  // 400 x_j v_j + 2 (1 - x_j) for j < d - 1, then -200 v_{j-1} for j >= 1
-  __device__ __forceinline__ void rosen_grad(const float (&x)[E], const float (&v)[E],
-                                             const float (&prev)[E], float (&g)[E]) const {
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const int j = coord(i);
-      const float base = j < d - 1 ? 400.0f * x[i] * v[i] + (1.0f - x[i]) * 2.0f : 0.0f;
-      g[i] = (j >= 1 && j < d) ? base - 200.0f * prev[i] : base;
-    }
+  __device__ __forceinline__ void rosen_grad(const float (&x)[kE], const float (&v)[kE],
+                                             const float (&prev)[kE], float (&g)[kE]) const {
+    gmt_lanes::rosen_grad<kE>(x, v, prev, gt, T, d, g);
   }
 
-  // -x e^-v, and -v / v_std^2 + sum x^2 e^-v / 2 - (dim - 1) / 2
-  __device__ __forceinline__ void funnel_grad(const float (&x)[E], float sq, float v,
-                                              float (&g)[E]) const {
-    const float w = expf(-v);
-    const float g_v = ((-v) * k[1] + (0.5f * sq) * w) - k[2];
-#pragma unroll
-    for (int i = 0; i < E; ++i) {
-      const int j = coord(i);
-      g[i] = j < d - 1 ? (-x[i]) * w : (j == d - 1 ? g_v : 0.0f);
-    }
+  __device__ __forceinline__ void funnel_grad(const float (&x)[kE], float sq, float v,
+                                              float (&g)[kE]) const {
+    gmt_lanes::funnel_grad<kE>(x, sq, v, k[1], k[2], gt, T, d, g);
   }
 };
 
 // A sample row's stores: this thread's elements of a collected state at
 // dst (the chain's row), a float4 a quad where rows are 16-byte aligned.
-template <int QPL>
-__device__ __forceinline__ void store_row(float* dst, const float (&x)[4 * QPL], int gt, int T,
+__device__ __forceinline__ void store_row(float* dst, const float (&x)[kE], int gt, int T,
                                           int d) {
 #pragma unroll
-  for (int q = 0; q < QPL; ++q) {
+  for (int q = 0; q < kQPL; ++q) {
     const int j = 4 * (gt + T * q);
     if ((d & 3) == 0) {
       if (j < d) {
@@ -337,8 +293,8 @@ cudaError_t launch_clusters(Kernel kernel, const Args& a, int n, int C, int W,
 }
 
 // The map's limits, checked by both entry points.
-inline bool map_ok(int C, int W, int qpl) {
-  return C >= 1 && C <= kMaxCluster && W >= 1 && W <= kMaxWarps && qpl >= 1 && qpl <= kMaxQPL;
+inline bool map_ok(int C, int W) {
+  return C >= 1 && C <= kMaxCluster && W >= 1 && W <= kMaxWarps;
 }
 
 }  // namespace gmt_wide

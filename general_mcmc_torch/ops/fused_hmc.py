@@ -68,9 +68,9 @@ wide_launches = 0
 MAX_QUADS_PER_LANE = 4
 MAX_LANE_DIM = 512  # 32 lanes x 4 quads x 4 dimensions
 # What csrc/fused_hmc_wide.cu is built for (csrc/wide_lanes.cuh): a cluster
-# of up to 8 blocks of up to 16 warps a chain, up to 2 quads a thread.
-WIDE_MAX_CLUSTER, WIDE_MAX_WARPS, WIDE_MAX_QUADS = 8, 16, 2
-MAX_WIDE_DIM = 4 * 32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_MAX_QUADS  # 32,768
+# of up to 8 blocks of up to 16 warps a chain, 2 quads a thread (kQPL).
+WIDE_MAX_CLUSTER, WIDE_MAX_WARPS, WIDE_QUADS = 8, 16, 2
+MAX_WIDE_DIM = 4 * 32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_QUADS  # 32,768
 # The dense GaussianND's kernel keeps L's lower triangle in a block's shared
 # memory, in 8 x 8 blocks split into TF32 hi and lo (ops/fused_hmc_dense.py).
 MAX_DENSE_DIM = fused_hmc_dense.MAX_DENSE_DIM
@@ -118,25 +118,27 @@ def lane_map(d: int):
 
 
 def wide_cover(units: int):
-    """The wide map ``(blocks a cluster C, warps a block W, units a thread)``
-    that gives ``units`` (quads, or Philox blocks) each a thread slot: 2
-    units a thread, the fewest blocks of at most 16 warps, their warps
-    spread evenly; ``None`` past 8 blocks.  On an NVIDIA H100 80GB HBM3 at
-    700 W (port_scripts/wide_maps.py, every map at chip_smoke.py's wide
-    runs) 2 units a thread was the fastest or within 3% of it wherever
-    10,240 or more chains fill the card (K3 at d = 4,096: 325.7 ms against
-    488.0 for the fewest slots, 3 blocks of 11 warps at 1 unit); 1 unit a
-    thread is built too, for that script."""
-    c = -(-units // (32 * WIDE_MAX_WARPS * WIDE_MAX_QUADS))
+    """The wide map ``(blocks a cluster C, warps a block W)`` that gives
+    ``units`` (quads, or Philox blocks) each a slot of ``WIDE_QUADS`` units
+    a thread: the fewest blocks of at most 16 warps, their warps spread
+    evenly; ``None`` past 8 blocks.  The choice reads the width alone.  On
+    an NVIDIA H100 80GB HBM3 at 700 W (port_scripts/wide_maps.py, every map
+    at chip_smoke.py's wide runs) it was the fastest map or within 3% of it
+    wherever 10,240 or more chains fill the card (K3 at d = 4,096: 325.8 ms
+    against 488.3 for the fewest slots, 3 blocks of 11 warps at 1 unit a
+    thread).  With few chains more blocks win: the reference's stress case
+    (6 chains, d = 10,000) runs about 17% slower on its 3 x 14 (10.81 ms)
+    than on the best maps measured, 6 to 8 blocks (9.21-9.35 ms)."""
+    c = -(-units // (32 * WIDE_MAX_WARPS * WIDE_QUADS))
     if c > WIDE_MAX_CLUSTER:
         return None
-    return c, -(-units // (32 * WIDE_MAX_QUADS * c)), WIDE_MAX_QUADS
+    return c, -(-units // (32 * WIDE_QUADS * c))
 
 
 def wide_map(d: int):
     """The wide map csrc/fused_hmc_wide.cu runs width ``d`` on (``d >
-    MAX_LANE_DIM``): ``(blocks a cluster, warps a block, quads a thread)``
-    covering the ``ceil(d / 4)`` quads, one chain a cluster.  Raises past
+    MAX_LANE_DIM``): ``(blocks a cluster, warps a block)`` covering the
+    ``ceil(d / 4)`` quads, ``WIDE_QUADS`` a thread, one chain a cluster.  Raises past
     ``MAX_WIDE_DIM``, with the width.  At ``d = 1,000`` (250 quads) one block
     of 4 warps; at 10,000 (2,500 quads) a cluster of 3 blocks of 14 warps."""
     m = wide_cover((d + 3) // 4)
@@ -335,7 +337,7 @@ def _launch_wide(x0, params, inv_row, scale_row, out, n_discard, thin, n_leapfro
     lib = load("fused_hmc_wide")
     fn = lib.fused_hmc_wide_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_uint, ctypes.c_uint] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_uint, ctypes.c_uint] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     rc = fn(x0.data_ptr(), params.data_ptr(), inv_row.data_ptr(), scale_row.data_ptr(),
             out.data_ptr(), n, d, out.shape[0], n_discard, thin, int(n_leapfrog),

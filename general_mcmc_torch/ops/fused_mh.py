@@ -56,8 +56,8 @@ from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
 from ..samplers.metropolis_hastings import PCNProposal, RandomWalkProposal
 from . import fused_mh_dense, fused_mh_logistic
-from .fused_hmc import (TARGET_GAUSSIAN_DENSE, TARGET_NAMES, WIDE_MAX_CLUSTER, WIDE_MAX_QUADS,
-                        WIDE_MAX_WARPS, target_code, target_params, wide_cover)
+from .fused_hmc import (TARGET_GAUSSIAN_DENSE, TARGET_NAMES, WIDE_MAX_CLUSTER, WIDE_MAX_WARPS,
+                        WIDE_QUADS, target_code, target_params, wide_cover)
 
 __all__ = ["fused_mh_run", "fused_mh_run_reference", "launches", "wide_launches", "wide_map",
            "tile_kernel", "MAX_LANE_DIM", "MAX_WIDE_DIM", "MAX_DENSE_DIM"]
@@ -70,7 +70,7 @@ wide_launches = 0
 MAX_LANE_DIM = 512  # widest state of a warp's lane maps (csrc/fused_mh.cu)
 # csrc/fused_mh_wide.cu: a thread slot for each of a step's ceil(d / 2) // 2
 # + 1 Philox blocks in a cluster of up to 8 blocks of 16 warps, 2 a thread
-MAX_WIDE_DIM = 4 * (32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_MAX_QUADS - 1) + 2  # 32,766
+MAX_WIDE_DIM = 4 * (32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_QUADS - 1) + 2  # 32,766
 # The dense GaussianND's tile kernel keeps L's lower triangle in a block's
 # shared memory in 8 x 8 blocks (ops/fused_mh_dense.py).
 MAX_DENSE_DIM = fused_mh_dense.MAX_DENSE_DIM
@@ -119,9 +119,9 @@ def _check_args(target, initial_positions, proposal, n_collect, n_discard, thin,
 
 def wide_map(d: int):
     """The wide map csrc/fused_mh_wide.cu runs width ``d`` on (``d >
-    MAX_LANE_DIM``): ``(blocks a cluster, warps a block, Philox blocks a
-    thread)`` covering a step's ``ceil(d / 2) // 2 + 1`` Philox blocks (the
-    last holds the accept uniform), one chain a cluster
+    MAX_LANE_DIM``): ``(blocks a cluster, warps a block)`` covering a step's
+    ``ceil(d / 2) // 2 + 1`` Philox blocks (the last holds the accept
+    uniform), ``WIDE_QUADS`` a thread, one chain a cluster
     (:func:`.fused_hmc.wide_cover`).  Raises past ``MAX_WIDE_DIM``, with the
     width."""
     m = wide_cover((d + 1) // 2 // 2 + 1)
@@ -228,7 +228,7 @@ def _launch_wide(x0, params, out, code, p_code, consts, n_discard, thin, seed, w
     lib = load("fused_mh_wide")
     fn = lib.fused_mh_wide_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3 + [
-        ctypes.c_uint, ctypes.c_uint] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        ctypes.c_uint, ctypes.c_uint] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n_collect, n, d = out.shape
     rc = fn(x0.data_ptr(), params.data_ptr(), out.data_ptr(), n, d, n_collect, n_discard,

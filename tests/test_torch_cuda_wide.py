@@ -14,9 +14,9 @@ runs on a machine with a card and no JAX::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_wide.py
 """
 
-import numpy as np
 import pytest
 import torch
+from torch_wide_cases import wide_case as _wide_case
 
 from general_mcmc_torch import HMC, MetropolisHastings, PCNProposal, RandomWalkProposal
 from general_mcmc_torch.convert import to_target
@@ -37,31 +37,8 @@ def card():
 
 
 def wide_case(name: str, d: int, dev, mass: bool = False):
-    """A lane target at width ``d``, its starting positions (``CHAINS``
-    rows, seeded by the width), HMC's step size and M⁻¹, MH's walk scale
-    and pCN's beta, each scaled so that some proposals are taken and some
-    not."""
-    rng = np.random.default_rng(d)
-    f32 = dict(dtype=torch.float32)
-    if name == "gaussian":
-        scales = np.exp(0.3 * rng.normal(size=d))
-        target = to_target("GaussianND", rng.normal(size=d), scales, **f32)
-        x0 = rng.normal(size=(CHAINS, d)) * scales
-        eps = 3 * d**-0.25 * (1.0 if mass else scales.min())
-        walk, beta = 2.38 / np.sqrt(d) * scales.min(), 0.05
-        mass_inv = torch.as_tensor(scales**2, **f32).to(dev)
-    elif name == "rosenbrock":
-        target = to_target("RosenbrockND")
-        x0 = 0.1 * rng.normal(size=(CHAINS, d))
-        eps, walk, beta, mass_inv = 0.01, 0.02 / np.sqrt(d), 0.005, None
-    else:
-        target = to_target("NealsFunnel", d, 3.0)
-        x0 = 0.5 * rng.normal(size=(CHAINS, d))
-        eps, walk, beta, mass_inv = 0.15 * d**-0.25, 0.5 / np.sqrt(d), 0.05, None
-    x0 = torch.as_tensor(x0, **f32).to(dev)
-    if hasattr(target, "to"):
-        target = target.to(device=dev)
-    return target, x0, float(eps), float(walk), beta, mass_inv
+    """The shared case (tests/torch_wide_cases.py) at ``CHAINS`` chains."""
+    return _wide_case(name, d, dev, CHAINS, mass)
 
 
 def moved(samples) -> float:

@@ -147,7 +147,7 @@ def test_lane_map_covers_every_width():
     # the widths of chip_smoke.py's small cases take every quads-per-lane build
     assert {fused_hmc.lane_map(d)[1] for d in (2, 7, 8, 33, 70, 100, 512)} == {1, 2, 3, 4}
     assert fused_hmc.lane_maps(fused_hmc.MAX_LANE_DIM + 1) == []
-    assert fused_hmc.wide_map(fused_hmc.MAX_LANE_DIM + 1) == (1, 3, 2)  # 129 quads: 3 warps
+    assert fused_hmc.wide_map(fused_hmc.MAX_LANE_DIM + 1) == (1, 3)  # 129 quads: 3 warps
 
 
 def test_chain_result_independent_of_batch():

@@ -180,29 +180,30 @@ _WIDTHS = sorted(set(range(513, 20_001, 487)) | {513, 514, 515, 1000, 1023, 1024
 def test_wide_map_covers_every_width():
     """Both wrappers' wide maps from the first wide width to 20,000 (odd
     and even, each side of a block's and a cluster's capacity): the
-    cluster, its warps and the quads a thread within what the kernels are
-    built for; the map covers K1's quads and K3's Philox blocks (one more
+    cluster and its warps within what the kernels are built for; at
+    ``WIDE_QUADS`` units a thread the map covers K1's quads and K3's Philox blocks (one more
     than the quads where the accept uniform opens a block of its own); and
     no block of the cluster is left without a unit."""
     for d in _WIDTHS:
         for mod, units in ((fused_hmc, (d + 3) // 4), (fused_mh, (d + 1) // 2 // 2 + 1)):
-            c, w, per = mod.wide_map(d)
+            c, w = mod.wide_map(d)
             assert 1 <= c <= fused_hmc.WIDE_MAX_CLUSTER and 1 <= w <= fused_hmc.WIDE_MAX_WARPS
-            assert 1 <= per <= fused_hmc.WIDE_MAX_QUADS
+            per = fused_hmc.WIDE_QUADS
             slots = 32 * w * c
-            assert slots * per >= units, (d, c, w, per)
+            assert slots * per >= units, (d, c, w)
             assert 32 * w * (c - 1) * per < units  # the last block holds some unit
-    assert fused_hmc.wide_map(1000) == (1, 4, 2) and fused_hmc.wide_map(10_000) == (3, 14, 2)
-    assert fused_mh.wide_map(4096) == (2, 9, 2)  # 1,025 blocks: one past a block's 1,024
+    assert fused_hmc.wide_map(1000) == (1, 4) and fused_hmc.wide_map(10_000) == (3, 14)
+    assert fused_mh.wide_map(4096) == (2, 9)  # 1,025 blocks: one past a block's 1,024
 
 
 def _thread_draws(wide, units, chains, seed, step, tag):
     """The normals the threads of the wide map ``wide`` compute at a step:
-    thread gt holds the Philox blocks gt + T k, k < its units a thread (T
-    the chain's threads), those below ``units``; block q gives normals
+    thread gt holds the Philox blocks gt + T k, k < ``WIDE_QUADS`` (T the
+    chain's threads), those below ``units``; block q gives normals
     4q .. 4q + 3 from its two Box–Muller pairs.  Returns them by
     coordinate, and the words of block ``units - 1``."""
-    c, w, per = wide
+    c, w = wide
+    per = fused_hmc.WIDE_QUADS
     t_all = 32 * w * c
     z = torch.zeros(len(chains), 4 * t_all * per)
     last = None
