@@ -56,7 +56,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
    10,240 chains, 192 warmup and 3,072 static steps through
    ``ChEESHMC.run``): R-hat, the moment audit, the fill kernel's launches,
    min-ESS/s, the wall split, peak memory, the device's busy share of a
-   50-step collection window from ``torch.profiler``, and the fill kernel
+   10-step collection window from ``torch.profiler``, and the fill kernel
    timed at its ChEES shapes; "chees-logistic", the bench stretch line
    (non-centred hierarchical logistic on bench.py's data, 10,240 chains,
    256 + 1,024 steps with the in-run statistics): R-hat, min-ESS/s and the
@@ -74,7 +74,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
     through ``NUTS.run``, once; "nuts-static" runs the leg's 3,072): R-hat,
     the moment audit, min-ESS/s, grad-evals/s, the mean tree depth and
     leapfrogs a step, divergences, the wall split, peak memory, the fill
-    kernel's launches, the busy share of a 50-step collection window, and
+    kernel's launches, the busy share of a 10-step collection window, and
     the fill kernel timed at NUTS's shapes;
 11. NUTS through the static window ("nuts-static-small", 1,024 chains): the
     2-d autograd target with the diagonal metric and the slice proposal and
@@ -100,7 +100,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
     ticks, wall and the tracker's device operations a step; "rank-main",
     the rank-normalized R-hat and bulk and tail ESS of that store on the
     card, checked against the classic ESS and against the CPU in float64 on
-    a 256-chain slice; "nuts-resume", the NUTS leg's sampler with
+    a 64-chain slice; "nuts-resume", the NUTS leg's sampler with
     ``backend="auto"`` checkpointed and resumed, equal to its uninterrupted
     run bit for bit, through the static tree both times;
 13. MALA, Gibbs and replica exchange, every draw a launch of K2's fill
@@ -109,7 +109,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
     for bit; the moments of tests/test_mala.py; the constant and copy
     conditionals; the swap acceptance of each rung pair); "mala-main" (the
     100-d unit Gaussian at 10,240 chains, 1,000 + 2,000 steps: R-hat, the
-    moments, the accept rate, min-ESS/s, a 50-step window), "io-main" (a
+    moments, the accept rate, min-ESS/s, a 10-step window), "io-main" (a
     1,024 × 100 × 100 slice of its store to CSV through the native writer,
     a smaller one read back exactly, Arrow and Parquet or their
     ``ImportError`` without pyarrow), "gibbs-main" (the 64-d chain graph at
@@ -255,7 +255,9 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -344,7 +346,13 @@ CHEES_MEAN_ATOL, CHEES_COV_ATOL, CHEES_STD_RTOL = 0.3, 0.6, 0.15
 # "chees-main": the bench headline (bench.py:182-217, :77-102).
 CHEES_WARMUP, CHEES_COLLECT = 192, 3072
 CHEES_ACCEPT, CHEES_JITTER, CHEES_L = 0.98, 0.5, 10
-CHEES_WINDOW = 50  # collection steps under the profiler
+# "progress-main": the collections it takes in turns with and without the
+# stream tracker (a third of the headline's: the ratio is per step)
+PROGRESS_TURN_STEPS = 1024
+# Collection steps under the profiler.  Its post-processing takes about
+# 0.5 s a 1,000 device operations on an H100 host, so the window is short:
+# ten steps of the NUTS leg are ~11,000.
+CHEES_WINDOW = 10
 # "chees-logistic": the bench stretch line (bench.py:737-760).
 LGC_DIM, LGC_OBS, LGC_WARMUP, LGC_COLLECT = 50, 256, 256, 1024
 LGC_ACCEPT, LGC_JITTER = 0.95, 1.0
@@ -387,7 +395,7 @@ NUTS_RESUME_COLLECT = 256
 # "rank-main": the card's rank diagnostics on RANK_SLICE_CHAINS chains against
 # the same function on the CPU in float64, and the rank bulk ESS against the
 # classic min ESS of the same store
-RANK_SLICE_CHAINS, RANK_RTOL, RANK_ESS_RATIO = 256, 1e-4, (0.8, 1.25)
+RANK_SLICE_CHAINS, RANK_RTOL, RANK_ESS_RATIO = 64, 1e-4, (0.8, 1.25)
 
 # MALA, Gibbs and replica exchange.  The small phases ("mala-small",
 # "gibbs-small", "tempering-small") run 256 chains; the main ones the
@@ -623,12 +631,16 @@ def check(cond: bool, what: str) -> None:
 
 # The script's start: each phase line ends with the seconds since then.
 T0 = time.perf_counter()
+# One line at a time: the phases of child processes report from threads.
+SAY_LOCK = threading.Lock()
 
 
 def say(phase: str, **fields) -> None:
     fields["t_s"] = f"{time.perf_counter() - T0:.1f}"
     body = " ".join(f"{k}={v}" for k, v in fields.items())
-    print(f"[{phase}] {body}", flush=True)
+    with SAY_LOCK:
+        sys.stdout.write(f"[{phase}] {body}\n")
+        sys.stdout.flush()
 
 
 def union_us(intervals) -> float:
@@ -3146,7 +3158,7 @@ def phase_chees_main(dev):
     """The bench headline at full size through ``ChEESHMC.run``; then three
     warm runs of ``run`` timed as bench.py times them (init + warmup +
     collection, synchronised, median), split by the phase ends ``run``
-    records; a 50-step collection window under the profiler; the fill kernel
+    records; a 10-step collection window under the profiler; the fill kernel
     at its ChEES shapes."""
     scales, sampler = headline_sampler(dev)
     steps = CHEES_WARMUP + CHEES_COLLECT
@@ -3193,7 +3205,7 @@ def phase_chees_main(dev):
     wall, (init_s, warm_s, coll_s) = walls[order[1]], parts[order[1]]
     adapted = sampler._final_carry
 
-    # a 50-step collection window under the profiler, beside its CUDA-event
+    # a 10-step collection window under the profiler, beside its CUDA-event
     # time and host wall unprofiled
     window = lambda: sampler._run_static(adapted, CHEES_WINDOW, steps)
     window()
@@ -3462,7 +3474,7 @@ def phase_nuts_leg(dev, backend: str):
     """The bench's NUTS leg at full size through ``NUTS.run`` with
     ``backend`` ("nuts-main": ``"torch"``, the dynamic tree; "nuts-static":
     ``"static"``, as ``bench.py`` runs it), once, timed by the phase ends
-    ``run`` records, with the tree depths counted; then a 50-step collection
+    ``run`` records, with the tree depths counted; then a 10-step collection
     window under the profiler and the fill kernel at the path's shapes."""
     label = "nuts-static" if backend == "static" else "nuts-main"
     static = backend == "static"
@@ -3506,7 +3518,7 @@ def phase_nuts_leg(dev, backend: str):
     del samples, store
     adapted = sampler._final_carry
 
-    # a 50-step collection window under the profiler, beside its CUDA-event
+    # a 10-step collection window under the profiler, beside its CUDA-event
     # time and host wall unprofiled
     window_fn = lambda: gmt.run_kernel(sampler._step_fn, adapted, CHEES_WINDOW, 0,
                                        step_offset=steps)
@@ -3798,11 +3810,11 @@ def phase_progress_main(dev, store, chees: dict):
     an in-memory stream.  The samples equal "chees-main"'s bit for bit.
     Prints the hook count (3 warmup ticks, 48 collection ticks), the final
     streamed max R-hat and p_accept, the wall beside chees-main's, and the
-    device operations a step and busy share of a 50-step collection window
+    device operations a step and busy share of a 10-step collection window
     with the stream tracker (:func:`..core.run_kernel_progress_stream`), to
     set beside "chees-main-window"'s: the difference is the tracker's; and
-    the whole collection from the adapted carry through ``run_kernel`` and
-    through the stream runner, in turns."""
+    PROGRESS_TURN_STEPS of collection from the adapted carry through
+    ``run_kernel`` and through the stream runner, in turns."""
     from general_mcmc_torch.samplers import base as base_module
 
     steps = CHEES_WARMUP + CHEES_COLLECT
@@ -3840,14 +3852,14 @@ def phase_progress_main(dev, store, chees: dict):
     del samples
     adapted = sampler._final_carry
     static_fn = sampler._static_fn(adapted)
-    # the whole collection from the adapted carry without and with the
-    # stream tracker, in turns (plain, stream, stream, plain), one store at
-    # a time beside chees-main's
+    # PROGRESS_TURN_STEPS of collection from the adapted carry without and
+    # with the stream tracker, in turns (plain, stream, stream, plain), one
+    # store at a time beside chees-main's
     collect = {
-        "plain": lambda: gmt.run_kernel(static_fn, adapted, CHEES_COLLECT, 0,
+        "plain": lambda: gmt.run_kernel(static_fn, adapted, PROGRESS_TURN_STEPS, 0,
                                         step_offset=CHEES_WARMUP).samples,
         "stream": lambda: gmt.run_kernel_progress_stream(
-            static_fn, adapted, CHEES_COLLECT, 0, lambda *tick: None).samples,
+            static_fn, adapted, PROGRESS_TURN_STEPS, 0, lambda *tick: None).samples,
     }
     turns = {"plain": [], "stream": []}
     for kind in ("plain", "stream", "stream", "plain"):
@@ -3864,7 +3876,8 @@ def phase_progress_main(dev, store, chees: dict):
     prof = profile_window(window, CHEES_WINDOW, "progress-main-window")
     tracker_ops = (None if prof["ops_per_step"] is None or chees["ops_per_step"] is None
                    else prof["ops_per_step"] - chees["ops_per_step"])
-    # the window's one tick (its remainder at step 50) is its only read-back
+    # the window's one tick (its remainder at its last step) is its only
+    # read-back
     check(prof["read_backs"] in (None, 1), f"progress-main window: {prof['read_backs']} "
           "read-backs, the tick's only")
     say("progress-main", chains=N_CHAINS, dim=DIM, steps=f"{CHEES_WARMUP}+{CHEES_COLLECT}",
@@ -3875,6 +3888,7 @@ def phase_progress_main(dev, store, chees: dict):
         runstats_s=f"{stats_s:.4f}", wall_less_runstats_s=f"{wall - stats_s:.4f}",
         chees_main_wall_s=f"{chees['wall']:.4f}",
         wall_over_chees_main=f"{(wall - stats_s) / chees['wall']:.4f}",
+        turn_steps=PROGRESS_TURN_STEPS,
         collection_plain_s=json.dumps([round(t, 4) for t in turns["plain"]]),
         collection_stream_s=json.dumps([round(t, 4) for t in turns["stream"]]),
         collection_stream_over_plain=f"{stream_over_plain:.4f}",
@@ -3890,7 +3904,7 @@ def phase_rank_main(dev, store, classic_min_ess: float):
     the card, parameters a block at a time sized from the free memory):
     max rank-normalized R-hat < 1.01, every ESS finite, the least bulk ESS
     within 0.8–1.25 times the classic least ESS of the same store (on this
-    Gaussian both estimate the same thing); on a 256-chain slice the card's
+    Gaussian both estimate the same thing); on a 64-chain slice the card's
     result equals the same function on the CPU in float64 within rtol
     1e-4.  Prints the seconds, the added peak memory and the minima."""
     torch.cuda.synchronize()
@@ -4088,7 +4102,7 @@ def phase_mala_main(dev):
     Gaussian from ``init_with_seed(10240, 100, 0)``, ε 0.6, ``run(2000,
     1000)`` (an 8.2 GB store): R-hat, the moments, the accept rate, min-ESS/s
     and grad-evals/s against the run's wall, its fill launches (one a
-    step), and the device operations a step and busy share of a 50-step
+    step), and the device operations a step and busy share of a 10-step
     window; the fill kernel timed at MALA's shape.  Returns the store for
     "io-main"."""
     coll, warm = MALA_STEPS
@@ -4250,7 +4264,7 @@ def phase_gibbs_main(dev):
     """The 64-d chain graph (tests/test_gibbs.py:111-130) at 10,240 chains,
     ``run(500, 100)`` (a 1.3 GB store): the middle coordinate's variance
     within 0.05 of 4/3, corr(x₃₀, x₃₁) within 0.03 of 0.5, max R-hat < 1.01;
-    the wall, the fill launches (two a step) and a 50-step window; the fill
+    the wall, the fill launches (two a step) and a 10-step window; the fill
     kernel timed at Gibbs's shapes."""
     coll, warm = GIBBS_STEPS
     steps = coll + warm
@@ -4352,7 +4366,7 @@ def phase_tempering_main(dev):
     cold chain's left well mean within 0.05 of −4 and std within 0.05 of
     0.5; the control, ``MetropolisHastings(two_wells,
     IsotropicGaussian(0.5))`` at the same size, keeps the right well's mass
-    below 0.05.  The wall, the fill launches (two a step) and a 50-step
+    below 0.05.  The wall, the fill launches (two a step) and a 10-step
     window; the fill kernel timed at replica exchange's shapes."""
     coll, warm = TEMPER_STEPS
     steps = coll + warm
@@ -4416,6 +4430,10 @@ SHARD_CHILD_TIMEOUT = 400
 # gloo ranks set the phase's time)
 SHARD_ODD_MESH, SHARD_ODD_STEPS = (1, 4), {"nuts_diag": (4, 10), "chees": (8, 10)}
 SHARD_ODD_WINDOWS = dict(start_buffer=2, end_buffer=2, initial_window=6)
+# The trees of the dim phases' NUTS stop at 6 doublings (63 leapfrogs, each
+# a round of all-reduces over the gloo ranks): at the default 10 the
+# unadapted steps of "shard-dim-odd" took ~3 s each
+SHARD_DIM_TREE_DEPTH = 6
 
 
 def store_digest(store) -> torch.Tensor:
@@ -4433,6 +4451,23 @@ def store_digest(store) -> torch.Tensor:
     return torch.cat(out).cpu()
 
 
+# Ports handed to groups of children so far: phases that run at once
+# never share one.
+PORTS_TAKEN: set = set()
+PORTS_LOCK = threading.Lock()
+
+
+def free_port() -> int:
+    with PORTS_LOCK:
+        while True:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            if port not in PORTS_TAKEN:
+                PORTS_TAKEN.add(port)
+                return port
+
+
 def spawn_children(program: str, world: int, backend: str, payload: dict, tmp: str):
     """Run ``program`` on ``world`` child ranks of this script (``backend``
     ``"gloo"``, ``"nccl"`` at one rank, or ``"none"``: processes that join
@@ -4441,9 +4476,7 @@ def spawn_children(program: str, world: int, backend: str, payload: dict, tmp: s
     its output; every child is ended."""
     workdir = tempfile.mkdtemp(prefix=f"{program}_", dir=tmp)
     torch.save(payload, os.path.join(workdir, "payload.pt"))
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = free_port()
     env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo"}
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child", program,
@@ -4621,10 +4654,12 @@ def shard_dim_sampler(name: str, x0, scales=None):
         scales = torch.linspace(1.0, 3.0, SHARD_DIM_D, dtype=torch.float64)
     target = gmt.GaussianND(torch.zeros_like(scales), scales, device=x0.device)
     if name == "nuts":
-        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch")
+        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch",
+                        max_tree_depth=SHARD_DIM_TREE_DEPTH)
     if name == "nuts_diag":
         cfg = gmt.NUTSMassMatrixConfig("diagonal", **SHARD_ODD_WINDOWS)
-        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch", mass_config=cfg)
+        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch", mass_config=cfg,
+                        max_tree_depth=SHARD_DIM_TREE_DEPTH)
     return gmt.ChEESHMC(target, x0, seed=11)
 
 
@@ -4715,7 +4750,9 @@ def phase_shard_small(dev, tmp: str):
     plain version's block and timed; then two ranks at 1,024 chains run
     HMC, MH, MALA, replica exchange, Gibbs and NUTS (both trees) through
     ``run_sharded``, each rank's rows bit-equal to the unsharded run's;
-    ``init_positions_on_mesh`` the same global array on 1 and 2 ranks."""
+    ``init_positions_on_mesh`` the same global array on 1 and 2 ranks.  The
+    fill is checked and timed here; returns the function that runs the
+    ranks and checks them (it only waits on child processes)."""
     half, cols = N_CHAINS // 2, DIM // 2
     errs = {}
     for kind, tag in (("normal_pair", counter_rng.TAG_MOMENTUM),
@@ -4741,37 +4778,42 @@ def phase_shard_small(dev, tmp: str):
 
     alone = gmt_parallel.init_positions_on_mesh(SHARD_SMALL_CHAINS, DIM, 7,
                                                 gmt_parallel.chain_mesh(), device=dev).cpu()
-    outs, seconds = spawn_children("shard-small", SHARD_RANKS, "gloo", {}, tmp)
-    glued = torch.cat([o["init"] for o in outs])
-    check(torch.equal(glued, alone), "shard-small: init_positions_on_mesh on 2 ranks equals "
-          "1 rank's")
-    steps = sum(SHARD_SMALL_STEPS)
-    per_step = {"hmc": 2, "mh": 1, "mala": 1, "tempering": 2, "gibbs": 2, "nuts_torch": 2,
-                "nuts_static": 2}
-    for r, o in enumerate(outs):
-        differ = [k for k, v in o["equal"].items() if not v]
-        check(not differ, f"shard-small rank {r}: rows differ from the unsharded run's for "
-              f"{differ}")
-        for name, f in o["fills"].items():
-            want = per_step[name] * steps + (1 if name.startswith("nuts") else 0)
-            check(f == want, f"shard-small rank {r} {name}: {f} fill launches, not {want}")
-    say("shard-small", ranks=SHARD_RANKS, chains=SHARD_SMALL_CHAINS,
-        steps="{1}+{0}".format(*SHARD_SMALL_STEPS), samplers=",".join(SHARD_SMALL_CASES),
-        rows_bit_equal=True, init_equal=True,
-        fill_launches=json.dumps([o["fills"] for o in outs]),
-        offset_fill=f"{half}x{cols} from ({half},{cols})", offset_bit_equal=True,
-        offset_fill_ms=f"{offset_ms:.5f}", unshifted_fill_ms=f"{times[(0, 0)]:.5f}",
-        offset_bound_ms=f"{b_ms:.6f}", phase_s=f"{seconds:.2f}")
-    return dict(fills=[sum(o["fills"].values()) for o in outs], offset_ms=offset_ms,
-                unshifted_ms=times[(0, 0)], bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=max(errs.values()))
+
+    def ranks():
+        outs, seconds = spawn_children("shard-small", SHARD_RANKS, "gloo", {}, tmp)
+        glued = torch.cat([o["init"] for o in outs])
+        check(torch.equal(glued, alone), "shard-small: init_positions_on_mesh on 2 ranks "
+              "equals 1 rank's")
+        steps = sum(SHARD_SMALL_STEPS)
+        per_step = {"hmc": 2, "mh": 1, "mala": 1, "tempering": 2, "gibbs": 2, "nuts_torch": 2,
+                    "nuts_static": 2}
+        for r, o in enumerate(outs):
+            differ = [k for k, v in o["equal"].items() if not v]
+            check(not differ, f"shard-small rank {r}: rows differ from the unsharded run's "
+                  f"for {differ}")
+            for name, f in o["fills"].items():
+                want = per_step[name] * steps + (1 if name.startswith("nuts") else 0)
+                check(f == want, f"shard-small rank {r} {name}: {f} fill launches, not {want}")
+        say("shard-small", ranks=SHARD_RANKS, chains=SHARD_SMALL_CHAINS,
+            steps="{1}+{0}".format(*SHARD_SMALL_STEPS), samplers=",".join(SHARD_SMALL_CASES),
+            rows_bit_equal=True, init_equal=True,
+            fill_launches=json.dumps([o["fills"] for o in outs]),
+            offset_fill=f"{half}x{cols} from ({half},{cols})", offset_bit_equal=True,
+            offset_fill_ms=f"{offset_ms:.5f}", unshifted_fill_ms=f"{times[(0, 0)]:.5f}",
+            offset_bound_ms=f"{b_ms:.6f}", phase_s=f"{seconds:.2f}")
+        return dict(fills=[sum(o["fills"].values()) for o in outs], offset_ms=offset_ms,
+                    unshifted_ms=times[(0, 0)], bound_ms=b_ms, bound_by=b_by,
+                    max_abs_err=max(errs.values()))
+    return ranks
 
 
 def dim_phase(label: str, dev, tmp: str, x0, mesh, steps: dict, scales=None):
     """NUTS and ChEES (``steps``: sampler name -> (collected, warmup)) with
     ``shard_dim`` on ``mesh`` in child ranks, each rank's block within
     ``SHARD_DIM_ATOL`` of the unsharded run, its divergences equal; one line
-    for ``label``.  Returns each rank's fill launches."""
+    for ``label``.  The unsharded runs are made here; returns the function
+    that runs the ranks, checks them and returns each rank's fill launches
+    (it only waits on child processes, so it may run in another thread)."""
     payload = {"x0": x0.cpu(), "mesh": mesh, "steps": steps, "scales": scales}
     walls = {}
     reset_counts()
@@ -4784,22 +4826,26 @@ def dim_phase(label: str, dev, tmp: str, x0, mesh, steps: dict, scales=None):
         walls[name] = time.perf_counter() - t0
         payload[name + "_div"] = s.divergences.cpu()
     check(counter_rng.launches > 0, f"{label}: the unsharded runs launched the fill kernel")
-    outs, seconds = spawn_children(label, mesh[0] * mesh[1], "gloo", payload, tmp)
-    for r, o in enumerate(outs):
-        for name in steps:
-            check(o[name]["err"] < SHARD_DIM_ATOL and o[name]["div_equal"],
-                  f"{label} rank {r} {name}: max |d| {o[name]['err']} < {SHARD_DIM_ATOL}, "
-                  f"divergences equal {o[name]['div_equal']}")
-            check(o[name]["fills"] > 0, f"{label} rank {r} {name}: no fill launch")
-    say(label, mesh="x".join(map(str, mesh)), chains=x0.shape[0], dim=x0.shape[1],
-        dtype="float64", col_starts=json.dumps(sorted({o["block"][2] for o in outs})),
-        steps=json.dumps({k: f"{v[1]}+{v[0]}" for k, v in steps.items()}),
-        max_abs_err=json.dumps({k: max(o[k]["err"] for o in outs) for k in steps}),
-        sharded_wall_s=json.dumps({k: [round(o[k]["wall"], 3) for o in outs] for k in steps}),
-        unsharded_wall_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
-        fill_launches=json.dumps({k: [o[k]["fills"] for o in outs] for k in steps}),
-        phase_s=f"{seconds:.2f}")
-    return [sum(o[k]["fills"] for k in steps) for o in outs]
+
+    def ranks():
+        outs, seconds = spawn_children(label, mesh[0] * mesh[1], "gloo", payload, tmp)
+        for r, o in enumerate(outs):
+            for name in steps:
+                check(o[name]["err"] < SHARD_DIM_ATOL and o[name]["div_equal"],
+                      f"{label} rank {r} {name}: max |d| {o[name]['err']} < "
+                      f"{SHARD_DIM_ATOL}, divergences equal {o[name]['div_equal']}")
+                check(o[name]["fills"] > 0, f"{label} rank {r} {name}: no fill launch")
+        say(label, mesh="x".join(map(str, mesh)), chains=x0.shape[0], dim=x0.shape[1],
+            dtype="float64", col_starts=json.dumps(sorted({o["block"][2] for o in outs})),
+            steps=json.dumps({k: f"{v[1]}+{v[0]}" for k, v in steps.items()}),
+            max_abs_err=json.dumps({k: max(o[k]["err"] for o in outs) for k in steps}),
+            sharded_wall_s=json.dumps({k: [round(o[k]["wall"], 3) for o in outs]
+                                       for k in steps}),
+            unsharded_wall_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
+            fill_launches=json.dumps({k: [o[k]["fills"] for o in outs] for k in steps}),
+            phase_s=f"{seconds:.2f}")
+        return dict(fills=[sum(o[k]["fills"] for k in steps) for o in outs])
+    return ranks
 
 
 def phase_shard_dim(dev, tmp: str):
@@ -4808,7 +4854,7 @@ def phase_shard_dim(dev, tmp: str):
     in float64: every rank's block within 1e-8 of the unsharded run."""
     x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, SHARD_DIM_D, 5, dtype=torch.float64,
                             device=dev)
-    return dict(fills=dim_phase("shard-dim", dev, tmp, x0, SHARD_DIM_MESH, SHARD_DIM_STEPS))
+    return dim_phase("shard-dim", dev, tmp, x0, SHARD_DIM_MESH, SHARD_DIM_STEPS)
 
 
 def phase_shard_dim_odd(dev, tmp: str):
@@ -4820,8 +4866,7 @@ def phase_shard_dim_odd(dev, tmp: str):
     1e-8 of the unsharded run."""
     scales = torch.exp(torch.linspace(0.0, math.log(10.0), DIM, dtype=torch.float64))
     x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, DIM, 5, dtype=torch.float64, device=dev)
-    return dict(fills=dim_phase("shard-dim-odd", dev, tmp, x0, SHARD_ODD_MESH, SHARD_ODD_STEPS,
-                                scales))
+    return dim_phase("shard-dim-odd", dev, tmp, x0, SHARD_ODD_MESH, SHARD_ODD_STEPS, scales)
 
 
 def child_shard_cuda(dev, payload):
@@ -4999,14 +5044,12 @@ EXAMPLE_CUTS = {"minimal_nuts": minimal_nuts_cut}
 # tests/test_examples.py.  The dynamic-tree
 # programs whose defaults take minutes on the card (NVIDIA H100 80GB HBM3
 # at 700 W: minimal_nuts 183.0 s, funnel_nuts 211.7 s; auto_backend_nuts
-# 125.0 s) run cut.  The programs run in EXAMPLE_GROUPS, one
-# process a group, the groups at once: the eager paths are host-bound, so
-# the groups share the card and take one host core each.  The groups are
-# balanced by a chip run on a slow host (the phase's wall is its slowest group's):
-# the three slowest programs (auto_backend_nuts, funnel_nuts,
-# regression_nc_track: 114.6, 77.6 and 77.1 s there, on a slow host) in
-# groups of their own, the next two beside the last two, the rest together
-# (102.5 s there).
+# 125.0 s; regression_nc_track 86.4 s with the shard phases beside it) run
+# cut.  The programs run in EXAMPLE_GROUPS, one process a group, the groups
+# at once: the eager paths are host-bound, so the groups share the card and
+# take one host core each.  The groups are balanced by a chip run with the
+# shard phases beside them (the phase's wall is its slowest group's):
+# funnel_nuts (83.6-102.3 s) alone, the other groups below it.
 EXAMPLES = {
     "minimal_mh": (None, gate_finite),
     "minimal_hmc": (None, gate_finite),
@@ -5023,19 +5066,20 @@ EXAMPLES = {
     "chees_hmc": (None, lambda out, kw: gate_std(out)),
     "funnel_nuts": (dict(n_chains=16, dim=6, n_collect=120, n_warmup=200), gate_funnel),
     "logistic_nuts": (None, gate_regression),
-    "regression_nc_track": (None, gate_track),
+    "regression_nc_track": (dict(n_obs=120, n_features=4, n_chains=32, n_collect=150,
+                                 n_warmup=150), gate_track),
     "two_wells_tempering": (None, gate_wells),
     "poisson_mh": (None, lambda out, kw: gate_paths(out)),
     "mixture_gibbs": (None, lambda out, kw: gate_paths(out)),
     "custom_gradient_nuts": (None, gate_custom),
 }
 EXAMPLE_GROUPS = (
-    ("auto_backend_nuts",),
-    ("funnel_nuts", "logistic_nuts"),
-    ("regression_nc_track", "minimal_nuts"),
-    ("mixture_gibbs", "rosenbrock3d_hmc", "multinomial_nuts", "custom_gradient_nuts", "chees_hmc",
-     "static_window_nuts", "gauss_mh", "poisson_mh", "two_wells_tempering", "rosenbrock_mh",
-     "minimal_mh", "minimal_hmc"),
+    ("funnel_nuts",),
+    ("regression_nc_track", "auto_backend_nuts", "minimal_nuts"),
+    ("logistic_nuts", "multinomial_nuts", "custom_gradient_nuts", "chees_hmc",
+     "static_window_nuts"),
+    ("mixture_gibbs", "rosenbrock3d_hmc", "gauss_mh", "poisson_mh", "two_wells_tempering",
+     "rosenbrock_mh", "minimal_mh", "minimal_hmc"),
 )
 
 
@@ -5211,14 +5255,23 @@ def main() -> int:
     temper_small = phase_tempering_small(dev)
     temper = phase_tempering_main(dev)
     torch.cuda.empty_cache()
-    shard_small = phase_shard_small(dev, tmp)
-    shard = phase_shard_main(chees, tmp)
-    shard_one = phase_shard_one(chees, tmp)
-    shard_dim = phase_shard_dim(dev, tmp)
-    shard_cuda = phase_shard_cuda(tmp)
-    shard_odd = phase_shard_dim_odd(dev, tmp)
-    examples = phase_examples(tmp)
-    examples_sharded = phase_examples_sharded(tmp)
+    # shard-small's fill, timed with the card to itself, and the unsharded
+    # runs of shard-dim and shard-dim-odd: this process's last work on the
+    # card.  Then the phases of child processes, three threads of them at
+    # once beside this one's three ranked phases in turn (their walls are
+    # taken with the others running; the dim phases' gloo rounds slow down
+    # as the host's cores run short, so no more run at once)
+    small_ranks = phase_shard_small(dev, tmp)
+    dim_ranks = phase_shard_dim(dev, tmp)
+    odd_ranks = phase_shard_dim_odd(dev, tmp)
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(job) for job in (
+            lambda: phase_examples(tmp),
+            lambda: (phase_shard_main(chees, tmp), phase_shard_cuda(tmp)),
+            lambda: (phase_examples_sharded(tmp), phase_shard_one(chees, tmp)))]
+        shard_small, shard_dim, shard_odd = small_ranks(), dim_ranks(), odd_ranks()
+        examples, (shard, shard_cuda), (examples_sharded, shard_one) = (
+            job.result() for job in jobs)
     shutil.rmtree(tmp)
     shard_fills = {"shard-main": shard["fills"], "shard-one": [shard_one["fills"]],
                    "shard-small": shard_small["fills"], "shard-dim": shard_dim["fills"],
