@@ -343,19 +343,24 @@ CHEES_2D_STEPS, CHEES_10D_STEPS, CHEES_K2_STEPS = (48, 24), (64, 32), (8, 8)
 # and covariance within 0.6 (:52-58); the 10-d target's std/scale within
 # 0.15 (:238-250), its mean within 0.3.
 CHEES_MEAN_ATOL, CHEES_COV_ATOL, CHEES_STD_RTOL = 0.3, 0.6, 0.15
-# "chees-main": the bench headline (bench.py:182-217, :77-102).
+# "chees-main": the bench headline (bench.py:182-217, :77-102), timed over
+# CHEES_WARM_RUNS warm runs after the gated one (the gates read the first
+# run; the script's time limit leaves room for one).
 CHEES_WARMUP, CHEES_COLLECT = 192, 3072
 CHEES_ACCEPT, CHEES_JITTER, CHEES_L = 0.98, 0.5, 10
+CHEES_WARM_RUNS = 1
 # "progress-main": the collections it takes in turns with and without the
-# stream tracker (a third of the headline's: the ratio is per step)
-PROGRESS_TURN_STEPS = 1024
+# stream tracker (a sixth of the headline's: the ratio is per step)
+PROGRESS_TURN_STEPS = 512
 # Collection steps under the profiler.  Its post-processing takes about
 # 0.5 s a 1,000 device operations on an H100 host, so the window is short:
 # ten steps of the NUTS leg are ~11,000.
 CHEES_WINDOW = 10
-# "chees-logistic": the bench stretch line (bench.py:737-760).
+# "chees-logistic": the bench stretch line (bench.py:737-760), LGC_RUNS
+# runs (bench.py takes the lesser of two; the script's time limit leaves
+# room for one).
 LGC_DIM, LGC_OBS, LGC_WARMUP, LGC_COLLECT = 50, 256, 256, 1024
-LGC_ACCEPT, LGC_JITTER = 0.95, 1.0
+LGC_ACCEPT, LGC_JITTER, LGC_RUNS = 0.95, 1.0, 1
 
 # NUTS.  "nuts-small": 1,024 chains; the 2-d target for 200 warmup and 50
 # collected steps at cap 6 (the Stan windows end at steps 100, 125 and 149,
@@ -378,7 +383,7 @@ NUTS_MEAN_ATOL, NUTS_COV_ATOL = 0.1, 0.3
 # a read-back a doubling: host-bound) collects NUTS_MAIN_COLLECT steps under
 # the same gates
 NUTS_WARMUP, NUTS_COLLECT, NUTS_ACCEPT, NUTS_DEPTH = 192, 3072, 0.90, 4
-NUTS_MAIN_COLLECT = 1024
+NUTS_MAIN_COLLECT = 512
 # "nuts-static-small": the 2-d target and the funnel at the leg's cap, the
 # "auto" run of the headline target for 192 warmup and 64 collection steps
 NUTS_STATIC_AUTO_STEPS = (192, 64)
@@ -461,6 +466,11 @@ DENSE_EPS, DENSE_L, DENSE_STEPS = 0.3, 10, (1000, 200)
 DENSE_WALK, DENSE_MH_STEPS = 0.1, (2000, 500)
 DENSE_TOL = {"K1": 0.05, "K3": 0.1}
 DENSE_EQ_STEPS = {"K1": 8, "K3": 64}
+# The steps (n_collect, n_discard) over which "dense-main" compares and
+# times each kernel's plain version beside the kernel's run of the same
+# steps: K3's whole run; K1's first tenth (its whole run's plain version
+# takes ~17 s of the script on an H100).
+DENSE_PLAIN_STEPS = {"K1": (100, 20), "K3": DENSE_MH_STEPS}
 # K1's dense tile kernel against its plain version at small widths (one
 # build each for 1, 5, 13 and 21 column blocks: odd widths and the widest),
 # DENSE_SMALL_CHAINS chains of 8 steps in the main run's metric; and a block
@@ -553,30 +563,117 @@ LGHC_EPS, LGHC_HYPER = 0.25, (0.25, 0.25)
 # gates are "K1-logistic"'s, "K3-logistic"'s and "K1-logistic-centred"'s.
 LGG_OBS, LGG_FEATURES, LGG_SEED = 1000, 24, 7
 LGG_WARMUP, LGG_COLLECT = 512, 512
-LGG_EPS_FACTORS = (1.0, 1.25, 1.5, 1.75, 2.0, 2.5, 3.0)
+LGG_EPS_FACTORS = (3.0, 2.5, 2.0, 1.75, 1.5, 1.25, 1.0)
 LGG_PILOT, LGG_ACCEPT_FLOOR, LGG_HMC_THIN = (50, 50), 0.88, 4
 KG_GATE, KG_GATE_MS = {"nc": (2048, 390), "centred": (10_240, 60)}, 30_000
 LGG_FAR = 6.0
+# "logistic-colon": the colon-cancer data's shape (Alon et al. 1999: 62
+# tissues x 2,000 genes, the usual example of the sparse-logistic
+# literature, Piironen & Vehtari 2017), on synthetic data of that shape from
+# the port's make_logistic_data at COL_SEED (the real file is not in the
+# repository and is not fetched): theta is 2,002-d, past one block's 256
+# features, so both kernels take the cluster path (8 blocks a tile, X kept
+# in shared memory).  With p >> n the data separate, the likelihood hardly
+# moves log tau off its prior, and z's curvature along each observation's
+# row of X grows as tau^2 ||x||^2: a funnel in the data's directions, and mu
+# on a ridge with the z's.  ChEES (plain PyTorch, "chees-logistic"'s
+# settings) at the main path's chains for COL_WARMUP + COL_COLLECT steps
+# gives the reference (its last draws) and the metric; on this posterior
+# it does not converge in the phase's time (R-hat 1.52 in mu on an H100),
+# so its R-hat is printed, not gated.  A few of its chains sit at log tau
+# 9-14: a transient of the start, not posterior mass.  From the prior's
+# start (log-likelihood ~ -1,400) a trajectory can land at a large tau with
+# every margin positive and be accepted, and there z's curvature, tau^2 x
+# 2,000, is past any step size, so no HMC moves them again; log tau 14 has
+# prior density e^-98 against a likelihood of at most 1.  K1 at ChEES's ε̄
+# and trajectory length from ChEES's own start does the same (log tau up
+# to 18.5, R-hat 2.77), and from 0.1 x that start it leaves no chain past
+# log tau 3.5 and matches the reference below (R-hat 1.0086, means within
+# 0.039 sd, sds within 2.7%; port_scripts/logistic_colon_probe.py on an
+# H100).  The reference is ChEES's last draws whose log tau lies within
+# COL_BULK_SDS robust sds (1.4826 MAD) of their median, the phase printing
+# how many it passes over.  HMC(backend="cuda") on both targets in that
+# metric (the centred one in the reference's mapped variance), L 10, from
+# ChEES's last draws, at the largest factor of ChEES's ε̄ among the
+# target's COL_EPS_FACTORS whose accept over a pilot run(COL_PILOT) stays
+# at least LGG_ACCEPT_FLOOR, run COL_HMC = (n_collect, n_discard, thin),
+# its store under ~10 GB, its accept read from it; the non-centred target's
+# R-hat and moments from a gate run of the first COL_GATE_CHAINS chains of
+# the reference at ε̄ and ChEES's trajectory length (COL_GATE_L leapfrogs),
+# run COL_GATE_RUN: mu's autocorrelation along its ridge runs to thousands
+# of L-10 steps (the timed run's R-hat is printed), and 256 chains are one
+# wave of 16 clusters on the card.  MH on both targets from ChEES's last
+# draws, the random walk 2.38/sqrt(2,002) x the least posterior sd rounded
+# down to two figures, run COL_MH, its accept over an unthinned
+# COL_MH_ACCEPT_STEPS steps.  Gates: the non-centred HMC's accept in
+# COL_HMC_ACCEPT, its gate run's R-hat < 1.01 and its means within
+# LGH_MEAN_SD sd and sds within LGH_SD_REL of the reference's, coordinate
+# by coordinate in the sampled parameterisation (mu, log tau, z = (beta -
+# mu) / tau), as "logistic-german"'s; beta's mapped spread is printed, not
+# gated: its fourth moment is tau's lognormal tail, ~90 x its variance
+# squared, so a coordinate's sd from 10,240 draws carries ~5% of noise,
+# and the largest of 2,000 such errors passes 10% for an exact sampler.
+# The centred HMC's and both MH runs' accept in the bands below, stated
+# before their first run, their R-hat and moments printed: a random walk
+# in 2,002 dimensions moves a coordinate of the posterior's widest scale
+# ~sqrt(steps x accept) x its step, far less than that scale within the
+# phase's time, and a fixed-ε HMC on the centred funnel under-explores
+# small tau (as "K1-logistic-centred"), so neither can reach R-hat < 1.01
+# here.  Each kernel against its plain version by the family's rules,
+# from the reference's chains for K1: K3 bit-equal on the agreeing chains
+# after KL_EQ_STEPS; K1 at COL_EQ_FACTOR x ε̄ within LGH_RTOL after 1 and 8
+# steps, and at the run's ε after 64 steps within twice the float32 plain
+# version's own drift from its float64 run (there the trajectories near
+# the funnel's neck amplify rounding past LGH_RTOL in any float32
+# program: 5.5e-3 for the non-centred target at 2 ε̄ on an H100; at ε̄ / 2
+# the 64-step errors are printed beside that drift); and each kernel's
+# chains off the float64 plain version by the family's rule (chains_off,
+# KL_OFF_SEEDS at KL_OFF_STEPS; K1 at ε̄ / 2).  The diagnostics of the runs
+# from ChEES's last draws (R-hat, printed moments) read the chains that
+# start in the reference.
+COL_OBS, COL_FEATURES, COL_SEED = 62, 2000, 11
+COL_WARMUP, COL_COLLECT, COL_BULK_SDS = 192, 16, 5.0
+COL_EPS_FACTORS = {"nc": (2.0, 1.5, 1.0), "centred": (1.0, 0.5, 0.25, 0.125)}
+COL_PILOT, COL_HMC, COL_EQ_FACTOR = (20, 20), (100, 50, 1), 0.5
+COL_GATE_CHAINS, COL_GATE_L, COL_GATE_RUN = 256, 200, (100, 100, 10)
+COL_MH, COL_MH_ACCEPT_STEPS = (50, 200, 10), 32
+COL_HMC_ACCEPT = {"nc": (0.6, 0.95), "centred": (0.5, 0.99)}
+COL_MH_ACCEPT = (0.1, 0.9)
 # "logistic-wide": both kernels against their plain versions at LGW_CHAINS
 # chains and LGW_STEPS steps, at each (n_obs, p) of LGW_CASES (just past the
-# old limit; long; wide; wider; the widest taken; and the stretch line's
-# 256 x 48, resident), both targets, data from make_logistic_data at
-# LGW_SEED and positions at the posterior's scale (z or beta ~ N(0, 1/p),
+# old limit; long; wide; wider; the widest one block takes; the stretch
+# line's 256 x 48, resident; and on the cluster path just past one block's
+# 256 features, two blocks a tile; 520 features streamed, three blocks; the
+# most features taken, MAX_FEATURES, eight blocks, X kept), both targets,
+# data from make_logistic_data at LGW_SEED and positions at the
+# posterior's scale (z or beta ~ N(0, 1/p),
 # log tau -1): K3 with the random walk LGW_WALK / sqrt(n_obs p), bit-equal
-# on the chains whose accept histories agree; K1 at ε LGW_EPS, L 5, in the
-# metric M⁻¹ = 1 / n_obs, from those positions after LGW_BURN steps of
+# on the chains whose accept histories agree; K1, L 5, in the metric M⁻¹ =
+# 1 / max(n_obs, p) (1 / n_obs but at 62 x 2,048, where log tau's
+# curvature, which grows with p, leaves 1 / n_obs no accepted step), at ε
+# LGW_EPS up to 256 features, and on the cluster path's cases at the
+# largest of LGW_EPS / 2^k (k < LGW_HALVINGS) whose accept over a pilot of
+# LGW_PILOT steps from the positions is at least LGW_PILOT_ACCEPT (at
+# LGW_EPS the centred funnel's neck at 62 x 2,048 and 4,096 x 520's
+# non-centred target accept nothing, and at an accept of a half the
+# trajectories amplify float32 rounding past LGH_RTOL: 1.7e-5 at 4,096 x
+# 520 on an H100), from those positions after LGW_BURN steps of
 # its own (in the posterior: from the start's transient, whose gradients
 # are O(n_obs), 10,000 observations' float32 sums differ by more), within
 # LGH_RTOL there; and each kernel's chains off the float64 plain version by
 # the logistic family's rule (chains_off: a K3 position depends on the
 # density only through the accept decisions, so the bit check alone holds
-# for any density).  At 256 x 48 the resident
-# path's K3 store and K1 store of the non-centred target have the parent
-# commit's digests (RESIDENT_DIGESTS, sha256 of the float32 bytes).
-LGW_CASES = ((800, 24), (10_000, 24), (4096, 48), (1024, 100), (1024, 256), (256, 48))
+# for any density).  At 256 x 48 the resident path's K3 store and K1 store
+# of the non-centred target, and at 1,024 x 256 the streamed path's, have
+# the parent commit's digests (PATH_DIGESTS, sha256 of the float32 bytes).
+LGW_CASES = ((800, 24), (10_000, 24), (4096, 48), (1024, 100), (1024, 256), (256, 48),
+             (1024, 264), (4096, 520), (62, fused_hmc_logistic.MAX_FEATURES))
 LGW_CHAINS, LGW_STEPS, LGW_SEED, LGW_WALK, LGW_EPS, LGW_BURN = 512, 64, 3, 0.5, 0.25, 200
-RESIDENT_DIGESTS = {"K3": "28b8572d7fd30bd4a98702555668bbf38db7abcf66ec4fa9585183a95a43103d",
-                    "K1": "039709d11d7e752e8b4bca04757b9767a91f338d39567b0f0cce996bcd71c06e"}
+LGW_HALVINGS, LGW_PILOT, LGW_PILOT_ACCEPT = 8, 20, 0.9
+PATH_DIGESTS = {"K3": "28b8572d7fd30bd4a98702555668bbf38db7abcf66ec4fa9585183a95a43103d",
+                "K1": "039709d11d7e752e8b4bca04757b9767a91f338d39567b0f0cce996bcd71c06e",
+                "K3_streamed": "9d65c9616ac71d088f8e771aa7db49e892e462887a8f850feb19ee7cb0f76569",
+                "K1_streamed": "9145d44bdc4edcb29e71bd67c9b7a8e4a9c9cbc7b164d27077cd9ca95f3cc2f5"}
 
 # The wide map (csrc/fused_hmc_wide.cu, csrc/fused_mh_wide.cu: one chain a
 # cluster of blocks past a warp's 512 dimensions).  "wide-equal": both
@@ -838,20 +935,19 @@ def dense_build(d: int, name: str = "fused_hmc_dense") -> str:
 def logistic_mh_build(p: int) -> str:
     """The build of ``csrc/fused_mh_logistic.cu`` (K3's logistic tile
     kernel) that runs ``p`` features."""
-    return _build.variant("fused_mh_logistic",
-                          GMT_LOGISTIC_PT=fused_mh_logistic.feature_tiles(p))
+    return _build.variant("fused_mh_logistic", **fused_hmc_logistic.build_defines(p))
 
 
 def logistic_hmc_build(p: int) -> str:
     """The build of ``csrc/fused_hmc_logistic.cu`` (K1's logistic tile
     kernel) that runs ``p`` features."""
-    return _build.variant("fused_hmc_logistic",
-                          GMT_LOGISTIC_PT=fused_hmc_logistic.feature_tiles(p))
+    return _build.variant("fused_hmc_logistic", **fused_hmc_logistic.build_defines(p))
 
 
 # The feature counts the logistic phases run: one build of each logistic
-# tile kernel for each count of feature tiles among them.
-LOGISTIC_WIDTHS = sorted({LG_FEATURES, LGG_FEATURES} | {p for _, p in LGW_CASES})
+# tile kernel for each count of feature tiles a block among them (past 256
+# features the one cluster build).
+LOGISTIC_WIDTHS = sorted({LG_FEATURES, LGG_FEATURES, COL_FEATURES} | {p for _, p in LGW_CASES})
 
 
 def build_report(key: str, kernel: str) -> dict:
@@ -1687,18 +1783,32 @@ def phase_k3_targets(dev):
     return dict(max_abs_err=max(errs), families=fam, launches=launches)
 
 
+@functools.cache
+def tests_module(name: str):
+    """The module ``tests/<name>.py``: the cases and rules this script
+    shares with the card tests."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def largest_step(accept_at, steps, floor: float):
+    """tests/torch_logistic_layout.py's pilot rule: the first of ``steps``
+    (largest first) whose pilot accept is at least ``floor``, else the
+    last; and the accepts read."""
+    return tests_module("torch_logistic_layout").largest_step(accept_at, steps, floor)
+
+
 def phase_wide_equal(dev):
     """Both wide kernels against their plain versions, bit for bit, at
     WIDE_EQ_WIDTHS on every lane target (K1 with and without a diagonal
     M⁻¹, K3 with the random walk and pCN), and from chain WIDE_CHAIN0: rows
     of the launch from 0.  The cases are tests/torch_wide_cases.py's, which
     tests/test_torch_cuda_wide.py holds the kernels to as well."""
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_wide_cases.py")
-    spec = importlib.util.spec_from_file_location("torch_wide_cases", path)
-    cases_mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cases_mod)
-    wide_case = functools.partial(cases_mod.wide_case, chains=WIDE_EQ_CHAINS)
+    wide_case = functools.partial(tests_module("torch_wide_cases").wide_case,
+                                  chains=WIDE_EQ_CHAINS)
 
     errs, cases = {"K1": 0.0, "K3": 0.0}, 0
     for d in WIDE_EQ_WIDTHS:
@@ -2029,7 +2139,8 @@ def tile_bounds(work, solve_flops: float) -> dict:
 DENSE_ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms",
                   "bound_tensor_3xtf32_ms", "library_ms", "library_call", "registers",
                   "spill_store_bytes", "shared_bytes", "tiles_a_block", "blocks", "accept",
-                  "std_err", "corr", "eq_steps", "run_max_abs_err", "run_chains_differ")
+                  "std_err", "corr", "eq_steps", "run_max_abs_err", "run_chains_differ",
+                  "plain_steps")
 
 
 def phase_dense_main(dev):
@@ -2037,7 +2148,7 @@ def phase_dense_main(dev):
     ``csrc/fused_hmc_dense.cu``) and K3 (``MetropolisHastings``: the tile
     kernel ``csrc/fused_mh_dense.cu``) at the main path's chains: the
     launches, the moment gates, the kernels against their plain versions over
-    a few steps (no chain differing) and over the whole run (reported), timed
+    a few steps (no chain differing) and over DENSE_PLAIN_STEPS (reported), timed
     beside one library call a leapfrog or step; both tile kernels also at
     small widths and from chain0, with their launch layouts, registers and
     spills and both bounds (CUDA cores, tensor cores)."""
@@ -2126,9 +2237,15 @@ def phase_dense_main(dev):
                 lambda seed: fused_mh.fused_mh_run_reference(target64, x0.double(), walk,
                                                              KL_OFF_STEPS, 0, seed=seed), x0)
             del target64
-        # the whole run's plain version, compared and timed
+        # the plain version over DENSE_PLAIN_STEPS, compared with the
+        # kernel's run of those steps, and timed
+        plain_steps = DENSE_PLAIN_STEPS[kernel]
+        if plain_steps != steps:
+            del samples, store
+            samples = run(*plain_steps)
+            store = None
         t0 = time.perf_counter()
-        want = plain(*steps)
+        want = plain(*plain_steps)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         close = torch.isclose(samples, want, rtol=K1_RTOL, atol=K1_ATOL)
@@ -2142,7 +2259,9 @@ def phase_dense_main(dev):
                            std_err=round(std_err, 5), corr=round(corr, 5),
                            eq_steps=eq, eq_max_abs_err=eq_err, run_max_abs_err=run_err,
                            run_chains_differ=run_differ, ms=round(ms, 3),
-                           plain_ms=round(plain_ms, 1), library_ms=round(library, 3),
+                           plain_ms=round(plain_ms, 1),
+                           plain_steps=f"{plain_steps[1]}+{plain_steps[0]}",
+                           library_ms=round(library, 3),
                            library_call=library_call, **bounds,
                            small_max_abs_err=small_errs[kernel], chain0_bit_equal=True, **gate,
                            **{k: v for k, v in layout.items() if k != "tiles"}, **build)
@@ -2298,20 +2417,27 @@ def posterior_deviations(mean, std, ref_mean, ref_std):
 
 
 def chains_off(run, plain, plain64, x0, what: str = ""):
-    """Over KL_OFF_SEEDS at KL_OFF_STEPS steps: the chains whose accept
-    histories differ from the float64 plain version's, the kernel's
+    """Over KL_OFF_SEEDS at the runs' steps (KL_OFF_STEPS): the chains whose
+    accept histories differ from the float64 plain version's, the kernel's
     (``run(seed)``) and the float32 plain version's (``plain(seed)``), a
-    count per seed each; the kernel's at most the float32 plain version's +
-    KL_OFF_SLACK (``what`` names the check)."""
+    count per seed each; off_rule over them."""
     kernel_off, plain_off = [], []
     for seed in KL_OFF_SEEDS:
         h64 = accept_history(plain64(seed), x0.double())
         kernel_off.append(int((accept_history(run(seed), x0) != h64).any(dim=1).sum()))
         plain_off.append(int((accept_history(plain(seed), x0) != h64).any(dim=1).sum()))
-    check(sum(kernel_off) <= sum(plain_off) + KL_OFF_SLACK,
-          f"{what}chains off the float64 plain version over seeds {KL_OFF_SEEDS}: the kernel's "
-          f"{kernel_off} at most the float32 plain version's {plain_off} + {KL_OFF_SLACK}")
+    off_rule(kernel_off, plain_off, what)
     return kernel_off, plain_off
+
+
+def off_rule(kernel_off, plain_off, what: str) -> None:
+    """The logistic family's float64 rule: over KL_OFF_SEEDS, the kernel's
+    chains off the float64 plain version at most the float32 plain
+    version's + KL_OFF_SLACK (``what`` names the check)."""
+    check(sum(kernel_off) <= sum(plain_off) + KL_OFF_SLACK,
+          f"{what}chains off the float64 plain version over seeds {KL_OFF_SEEDS}: the "
+          f"kernel's {kernel_off} at most the float32 plain version's {plain_off} + "
+          f"{KL_OFF_SLACK}")
 
 
 def phase_k3_logistic(dev, chees: dict, centred: bool, library_ms=None):
@@ -2657,9 +2783,8 @@ def german_k1(dev, kind: str, target, mass_inv, start, ref_mean, ref_std, eps_ba
     x0 = start.to(dev)
     sampler = lambda e: gmt.HMC(target, x0, e, LGH_L, seed=SEED, mass_inv=mass_inv,
                                 backend="cuda")
-    pilot = {f: moved_share(sampler(f * eps_bar).run(*LGG_PILOT)) for f in LGG_EPS_FACTORS}
-    factor = max([f for f in LGG_EPS_FACTORS if pilot[f] >= LGG_ACCEPT_FLOOR],
-                 default=LGG_EPS_FACTORS[0])
+    factor, pilot = largest_step(lambda f: moved_share(sampler(f * eps_bar).run(*LGG_PILOT)),
+                                 LGG_EPS_FACTORS, LGG_ACCEPT_FLOOR)
     eps = round(factor * eps_bar, 6)
     reset_counts()
     samples = sampler(eps).run(*LGH_STEPS)
@@ -2867,24 +2992,368 @@ def phase_logistic_german(dev):
     return out
 
 
-def resident_digests(dev):
-    """The resident path's stores at the stretch line's shape (256 x 48,
-    make_logistic_data at LGW_SEED, the non-centred target, LGW_CHAINS
-    chains, LGW_STEPS steps): K3 with the random walk and K1, each a sha256
-    of its float32 bytes.  Only calls an earlier tree also has, so that a
-    parent commit's package gives its own digests."""
-    X, y, _ = gmt.make_logistic_data(LGW_SEED, 256, 48, device=dev)
-    target = gmt.HierarchicalLogisticNC(X, y)
-    x0 = gmt.init_with_seed(LGW_CHAINS, 50, 2, device=dev) / math.sqrt(48)
-    x0[:, 1] -= 1.0
-    x0 = x0.contiguous()
-    walk = gmt.RandomWalkProposal(LGW_WALK / math.sqrt(256 * 48))
-    k3 = fused_mh.fused_mh_run(target, x0, walk, LGW_STEPS, 0, seed=SEED)
-    inv = torch.full((50,), 1.0 / 256, device=dev)
-    k1 = fused_hmc.fused_hmc_run(target, x0, LGW_EPS, 5, LGW_STEPS, 0, seed=SEED, mass_inv=inv)
+def colon_posterior(dev):
+    """The colon-cancer shape (COL_OBS x COL_FEATURES, data at COL_SEED) and
+    its posterior by ChEES on the non-centred target at the main path's
+    chains: the two targets, ChEES's ε̄ and metric (the centred target's the
+    reference's mapped variance), its last draws (mapped to (mu, log tau,
+    beta) for the centred target), the reference (the last draws whose log
+    tau lies within COL_BULK_SDS robust sds of their median) and its moments
+    in each parameterisation, and ChEES's in-run R-hat and where its last
+    draws' log tau lies."""
+    X, y, _ = gmt.make_logistic_data(COL_SEED, COL_OBS, COL_FEATURES, device=dev)
+    nc = gmt.HierarchicalLogisticNC(X, y)
+    d = COL_FEATURES + 2
+    sampler = gmt.ChEESHMC(nc, gmt.init_with_seed(N_CHAINS, d, SEED, device=dev),
+                           target_accept_p=LGC_ACCEPT, jitter_amount=LGC_JITTER,
+                           static_collection=True, seed=SEED, device=dev)
+    t0 = time.perf_counter()
+    draws = sampler.run(COL_COLLECT, COL_WARMUP, with_stats=True)
     torch.cuda.synchronize()
-    return {name: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
-            for name, t in (("K3", k3), ("K1", k1))}
+    chees_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(draws).all()), "the colon shape's ChEES draws are finite")
+    rhat = np.asarray(gmt.combine_suffstats_host(*sampler._suffstats)[0])
+    last = draws[:, -1].contiguous()
+    del draws
+    mapped = torch.cat([last[:, :2], nc.beta(last)], dim=1).contiguous()
+    lt = last[:, 1]
+    med = lt.median()
+    bulk = (lt - med).abs() < COL_BULK_SDS * 1.4826 * (lt - med).abs().median()
+    moments = lambda x: (x.double().mean(0).float().cpu(), x.double().std(0).float().cpu())
+    nc_ref, centred_ref = moments(last[bulk]), moments(mapped[bulk])
+    chees = dict(eps_bar=float(sampler.adapted_step_size), L=sampler._static_L,
+                 chees_s=round(chees_s, 3), max_rhat=round(float(rhat.max()), 5),
+                 rhat_mu_log_tau=[round(float(v), 5) for v in rhat[:2]],
+                 max_rhat_z=round(float(rhat[2:].max()), 5),
+                 divergences=int(sampler.divergences.sum()),
+                 last_log_tau=[round(float(v), 3) for v in (lt.min(), med, lt.max())],
+                 chains_past_the_bulk=int((~bulk).sum()),
+                 mapped_sd_max=round(float(centred_ref[1].max()), 1))
+    return chees, {
+        "nc": (nc, sampler.adapted_mass_inv.float(), last, *nc_ref),
+        "centred": (gmt.HierarchicalLogistic(X, y), (centred_ref[1]**2).to(dev), mapped,
+                    *centred_ref)}, centred_ref, bulk
+
+
+def mapped_moments(target, samples):
+    """Pooled mean and sd of a ``[n, collect, d]`` sample mapped to (mu, log
+    tau, beta), in float64, a block of chains at a time."""
+    d = samples.shape[-1]
+    s1 = torch.zeros(d, dtype=torch.float64, device=samples.device)
+    s2 = s1.clone()
+    for rows in torch.split(samples, 1024):
+        if isinstance(target, gmt.HierarchicalLogisticNC):
+            rows = torch.cat([rows[..., :2], target.beta(rows)], dim=-1)
+        rows = rows.double()
+        s1 += rows.sum(dim=(0, 1))
+        s2 += (rows * rows).sum(dim=(0, 1))
+    count = samples.shape[0] * samples.shape[1]
+    mean = s1 / count
+    return mean.cpu(), torch.sqrt(s2 / count - mean * mean).cpu()
+
+
+def cluster_x_bytes(layout: dict, densities: int) -> int:
+    """The bytes of X (its hi and lo and y) the blocks of a cluster launch
+    read over a run of ``densities`` passes over the data: each cluster its
+    split copy once a pass, or once where the panel is kept (one stage)."""
+    passes = 1 if layout["stages"] == 1 else densities
+    return 4 * layout["tiles"] * passes * layout["scratch_words"]
+
+
+def colon_k1(dev, kind, target, mass_inv, start, ref_mean, ref_std, beta_ref, eps_bar, bulk):
+    """HMC(backend="cuda") at the colon shape on one target from ``start``
+    (ChEES's last draws): ε by the pilot (German credit's rule over the
+    target's COL_EPS_FACTORS), the run COL_HMC (one launch) and its accept;
+    the non-centred target's gate run
+    (COL_GATE_*, from the first of ``start``'s chains in the reference,
+    ``bulk``): R-hat and moments against ChEES's; beta's mapped moments
+    printed; the kernel against its plain version from the reference's
+    chains (``bulk``) at COL_EQ_FACTOR x ε̄ (k1_drift of the runs at the
+    first of KL_OFF_SEEDS, gated after 1 and 8 steps, printed after 64; the
+    float64 rule over KL_OFF_SEEDS at KL_OFF_STEPS) and at the run's ε
+    (after 64 steps), the 64-step runs timed beside each other, the bound
+    and the two torch.matmul of a leapfrog."""
+    n_obs, p = target.X.shape
+    d = p + 2
+    n, (n_collect, n_discard, thin) = start.shape[0], COL_HMC
+    mass_inv, x0 = mass_inv.to(dev), start.to(dev)
+    sampler = lambda e, x=x0, L=LGH_L: gmt.HMC(target, x, e, L, seed=SEED, mass_inv=mass_inv,
+                                               backend="cuda")
+    factor, pilot = largest_step(lambda f: moved_share(sampler(f * eps_bar).run(*COL_PILOT)),
+                                 COL_EPS_FACTORS[kind], LGG_ACCEPT_FLOOR)
+    eps = round(factor * eps_bar, 6)
+    reset_counts()
+    ms, wall, samples = timed(lambda: sampler(eps).run(n_collect, n_discard, thin=thin), 1)
+    accept = moved_share(samples)
+    launches, lane = fused_hmc_logistic.launches, fused_hmc.launches
+    check(launches == 1 and lane == 0,
+          f"colon {kind}: one logistic HMC launch ({launches}; K1 {lane})")
+    check(tuple(samples.shape) == (n, n_collect, d) and bool(torch.isfinite(samples).all()),
+          f"colon {kind} HMC: shape and finite")
+    lo, hi = COL_HMC_ACCEPT[kind]
+    check(lo < accept < hi, f"colon {kind} HMC accept {accept} within {lo}-{hi}")
+    rhat = gmt.split_rhat_mean_ess(samples[bulk.to(dev)].transpose(0, 1), steps_major=True)[0]
+    run_rhat = float(rhat.max())
+    del samples
+    gate = {}
+    if kind == "nc":
+        g_collect, g_discard, g_thin = COL_GATE_RUN
+        g_x = x0[bulk.to(dev)][:COL_GATE_CHAINS].contiguous()
+        g_ms, _, g = timed(lambda: sampler(round(eps_bar, 6), g_x, COL_GATE_L).run(
+            g_collect, g_discard, thin=g_thin), 1)
+        rhat, ess, mean, std = gmt.split_rhat_mean_ess(g.transpose(0, 1), steps_major=True,
+                                                       return_moments=True)
+        mean_dev, sd_dev = posterior_deviations(mean, std, ref_mean, ref_std)
+        b_mean, b_std = mapped_moments(target, g)
+        del g
+        max_rhat = float(rhat.max())
+        check(max_rhat < 1.01, f"colon {kind} HMC gate run: max R-hat {max_rhat} < 1.01")
+        check(float(mean_dev.max()) < LGH_MEAN_SD and float(sd_dev.max()) < LGH_SD_REL,
+              f"colon {kind} HMC gate run: means within {float(mean_dev.max())} < "
+              f"{LGH_MEAN_SD} sd of ChEES's, sds within {float(sd_dev.max())} < {LGH_SD_REL}")
+        b_mean_dev, b_sd_dev = posterior_deviations(b_mean[2:], b_std[2:], beta_ref[0][2:],
+                                                    beta_ref[1][2:])
+        gate = dict(gate_chains=COL_GATE_CHAINS, gate_L=COL_GATE_L,
+                    gate_run=f"{g_discard}+{g_collect}x{g_thin}", gate_ms=round(g_ms, 1),
+                    max_rhat=round(max_rhat, 5), worst_rhat_coordinate=int(rhat.argmax()),
+                    min_ess=round(float(ess.min()), 1),
+                    mean_dev_sd=round(float(mean_dev.max()), 4),
+                    sd_dev=round(float(sd_dev.max()), 4),
+                    worst_coordinates=[int(mean_dev.argmax()), int(sd_dev.argmax())],
+                    beta_mean_dev_sd=round(float(b_mean_dev.max()), 4),
+                    beta_sd_dev=round(float(b_sd_dev.max()), 4))
+    # the kernel against its plain version, from the reference's chains
+    xb = x0[bulk.to(dev)].contiguous()
+    target64, x64, m64 = target.to(dtype=torch.float64), xb.double(), mass_inv.double()
+
+    def three(e, seed):
+        """The kernel's, the float32 plain version's (both timed) and the
+        float64 plain version's KL_OFF_STEPS-step runs from ``xb`` at ε
+        ``e``."""
+        run = lambda fn, t, x, m: fn(t, x, e, LGH_L, KL_OFF_STEPS, 0, seed=seed, mass_inv=m)
+        k_ms, _, got = timed(lambda: run(fused_hmc.fused_hmc_run, target, xb, mass_inv), 1)
+        p_ms, _, want = timed(
+            lambda: run(fused_hmc.fused_hmc_run_reference, target, xb, mass_inv), 1)
+        return got, want, run(fused_hmc.fused_hmc_run_reference, target64, x64, m64), k_ms, p_ms
+
+    eq_eps = round(COL_EQ_FACTOR * eps_bar, 6)
+    kernel_off, plain_off = [], []
+    for seed in KL_OFF_SEEDS:
+        got, want, want64, k_ms, p_ms = three(eq_eps, seed)
+        h64 = accept_history(want64, x64)
+        kernel_off.append(int((accept_history(got, xb) != h64).any(dim=1).sum()))
+        plain_off.append(int((accept_history(want, xb) != h64).any(dim=1).sum()))
+        if seed == KL_OFF_SEEDS[0]:
+            eq = k1_drift(got, want, want64, xb)
+            timing = (k_ms, p_ms)
+        del got, want, want64
+    off_rule(kernel_off, plain_off, f"colon {kind} K1: ")
+    for steps in LGH_EQ_STEPS[:-1]:
+        check(eq["rel"][steps] < LGH_RTOL,
+              f"colon {kind} HMC after {steps} steps: relative error {eq['rel'][steps]} < "
+              f"{LGH_RTOL} ({eq['differ'][steps]} chains differ)")
+    # at the run's ε after 64 steps the float32 plain version itself drifts
+    # from float64 past LGH_RTOL: the kernel within twice that drift
+    shipped = k1_drift(*three(eps, SEED)[:3], xb)
+    steps = LGH_EQ_STEPS[-1]
+    rel, rel64 = shipped["rel"][steps], shipped["rel64"][steps]
+    check(rel < max(LGH_RTOL, 2 * rel64),
+          f"colon {kind} HMC at the run's ε {eps} after {steps} steps: relative error {rel} "
+          f"within twice the float32 plain version's own drift from float64, {rel64} "
+          f"({shipped['differ'][steps]} chains differ)")
+    del target64, x64, xb
+    n_steps = n_discard + n_collect * thin
+    leapfrogs = n_steps * LGH_L
+    library_ms = library_matmul_ms(dev, [((n, p), (p, n_obs)), ((n, n_obs), (n_obs, p))],
+                                   leapfrogs)
+    # the bound: the gradients' two products in three TF32 passes beside the
+    # rest on the CUDA cores; the state and X read once, the store written once
+    n_bytes = 4 * (n * d * (1 + n_collect) + n_obs * p + n_obs)
+    flops = n * leapfrogs * 4 * n_obs * p
+    other = n * (leapfrogs * (8 * n_obs + 8 * p) + n_steps * 20 * n_obs)
+    bounds = tile_bounds((n_bytes, other, 0), flops)
+    layout = fused_hmc_logistic.launch_layout(n, n_obs, p)
+    build = build_report(logistic_hmc_build(p),
+                         f"fused_hmc_logistic_cluster_kernel<{int(kind == 'centred')}>")
+    spill_free(build, f"colon {kind} K1's build")
+    return dict(launches=launches, eps=eps, eps_factor=factor,
+                pilot_accept={str(f): round(a, 4) for f, a in pilot.items()},
+                accept=round(accept, 4), run=f"{n_discard}+{n_collect}x{thin}",
+                run_max_rhat=round(run_rhat, 5), **gate, eq_eps=eq_eps,
+                rel_err={k: float(f"{v:.3e}") for k, v in eq["rel"].items()},
+                plain_f32_vs_f64_rel={k: float(f"{v:.3e}") for k, v in eq["rel64"].items()},
+                chains_differ=eq["differ"], max_abs_err=eq["abs_err"],
+                at_run_eps=dict(rel_err=float(f"{rel:.3e}"),
+                                plain_f32_vs_f64_rel=float(f"{rel64:.3e}"),
+                                chains_differ=shipped["differ"][steps]),
+                off_f64_kernel=kernel_off, off_f64_plain_f32=plain_off, ms=round(ms, 3),
+                wall_s=round(wall, 5), ms_64=round(timing[0], 3),
+                plain_ms_64=round(timing[1], 3),
+                library_ms=round(library_ms, 3), bound_ms=bounds["bound_tensor_3xtf32_ms"],
+                bound_by="operations", bound_cuda_core_ms=bounds["bound_cuda_core_ms"],
+                tflops=round(flops / (ms * 1e-3) / 1e12, 3),
+                x_bytes_read=cluster_x_bytes(layout, leapfrogs + 1),
+                **{k: v for k, v in layout.items() if k != "tiles"}, **build)
+
+
+def k1_drift(got, want, want64, x0) -> dict:
+    """K1's runs from ``x0`` (the kernel's, the float32 and float64 plain
+    versions'): after each of LGH_EQ_STEPS steps the chains whose accept
+    histories differ between the kernel and the float32 plain version and,
+    over the rest, the relative error max|Δ| / max|θ| and max|Δ|; and the
+    float32 plain version's relative error from float64 over the chains
+    whose histories agree with it (``rel64``)."""
+    hk, hp, h64 = accept_history(got, x0), accept_history(want, x0), accept_history(want64, x0)
+    out = dict(rel={}, differ={}, rel64={}, abs_err=0.0)
+    for steps in LGH_EQ_STEPS:
+        same = (hk[:, :steps] == hp[:, :steps]).all(dim=1)
+        delta = (got[same, :steps] - want[same, :steps]).abs().max()
+        out["rel"][steps] = float(delta / want[same, :steps].abs().max())
+        out["differ"][steps] = int((~same).sum())
+        out["abs_err"] = max(out["abs_err"], float(delta))
+        same = (hp[:, :steps] == h64[:, :steps]).all(dim=1)
+        delta = (want[same, :steps].double() - want64[same, :steps]).abs().max()
+        out["rel64"][steps] = float(delta / want64[same, :steps].abs().max())
+    return out
+
+
+def colon_k3(dev, kind, target, x0, ref_mean, ref_std, bulk):
+    """MetropolisHastings(backend="cuda") at the colon shape on one target
+    from ChEES's last draws: the random walk 2.38/sqrt(d) x the least
+    posterior sd rounded down to two figures; the thinned run COL_MH (one
+    launch), the accept of an unthinned COL_MH_ACCEPT_STEPS-step run within
+    COL_MH_ACCEPT, R-hat and moments of the chains that start in the
+    reference (``bulk``) printed; the kernel against its plain
+    version (bit-equal on the chains whose accept histories agree after 1,
+    8, 64 steps, the random walk and pCN; chains_off), the 64-step runs
+    timed beside each other,
+    the bound and one torch.matmul a step."""
+    n, d = x0.shape
+    n_obs, p = target.X.shape
+    n_collect, n_discard, thin = COL_MH
+    scale = two_figures_down(2.38 / math.sqrt(d) * float(ref_std.min()))
+    walk = gmt.RandomWalkProposal(scale)
+    sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED, backend="cuda")
+    reset_counts()
+    ms, wall, samples = timed(lambda: sampler().run(n_collect, n_discard, thin=thin), 1)
+    launches, lane = fused_mh_logistic.launches, fused_mh.launches
+    check(launches == 1 and lane == 0,
+          f"colon {kind}: one logistic MH launch ({launches}; fused_mh.cu {lane})")
+    check(tuple(samples.shape) == (n, n_collect, d) and bool(torch.isfinite(samples).all()),
+          f"colon {kind} MH: shape and finite")
+    rhat, ess, mean, std = gmt.split_rhat_mean_ess(samples[bulk.to(dev)].transpose(0, 1),
+                                                   steps_major=True, return_moments=True)
+    del samples
+    max_rhat, min_ess = float(rhat.max()), float(ess.min())
+    mean_dev, sd_dev = posterior_deviations(mean, std, ref_mean, ref_std)
+    accept = moved_share(sampler().run(COL_MH_ACCEPT_STEPS, 0))
+    check(COL_MH_ACCEPT[0] < accept < COL_MH_ACCEPT[1],
+          f"colon {kind} MH: accept {accept} within {COL_MH_ACCEPT}")
+    differ = {}
+    pcn = gmt.PCNProposal(KL_PCN)
+    for name, prop, xs in (("walk", walk, x0), ("pcn", pcn, x0[:KL_PCN_CHAINS].contiguous())):
+        for steps in KL_EQ_STEPS:
+            k_ms, _, got = timed(lambda: fused_mh.fused_mh_run(target, xs, prop, steps, 0,
+                                                               seed=SEED), 1)
+            p_ms, _, want = timed(lambda: fused_mh.fused_mh_run_reference(
+                target, xs, prop, steps, 0, seed=SEED), 1)
+            same = (accept_history(got, xs) == accept_history(want, xs)).all(dim=1)
+            check(torch.equal(got[same], want[same]),
+                  f"colon {kind} MH {name}: the chains whose accept histories agree are "
+                  f"bit-equal after {steps} steps")
+            differ[f"{name}_{steps}"] = int((~same).sum())
+            if name == "walk":
+                timing = (k_ms, p_ms)
+            del got, want
+    target64 = target.to(dtype=torch.float64)
+    kernel_off, plain_off = chains_off(
+        lambda seed: fused_mh.fused_mh_run(target, x0, walk, KL_OFF_STEPS, 0, seed=seed),
+        lambda seed: fused_mh.fused_mh_run_reference(target, x0, walk, KL_OFF_STEPS, 0,
+                                                     seed=seed),
+        lambda seed: fused_mh.fused_mh_run_reference(target64, x0.double(), walk,
+                                                     KL_OFF_STEPS, 0, seed=seed), x0,
+        f"colon {kind} K3: ")
+    del target64
+    n_steps = n_discard + n_collect * thin
+    library_ms = library_matmul_ms(dev, [((n, p), (p, n_obs))], n_steps)
+    # the bound: one product a step in three TF32 passes beside the softplus
+    n_bytes = 4 * (n * d * (1 + n_collect) + n_obs * p + n_obs)
+    flops = n * n_steps * 2 * n_obs * p
+    other = n * n_steps * 20 * n_obs
+    bounds = tile_bounds((n_bytes, other, 0), flops)
+    layout = fused_mh_logistic.launch_layout(n, n_obs, p)
+    build = build_report(logistic_mh_build(p),
+                         f"fused_mh_logistic_cluster_kernel<0,{int(kind == 'centred')}>")
+    spill_free(build, f"colon {kind} K3's build")
+    return dict(launches=launches, walk=scale, accept=round(accept, 4),
+                run=f"{n_discard}+{n_collect}x{thin}", max_rhat=round(max_rhat, 5),
+                min_ess=round(min_ess, 1), mean_dev_sd=round(float(mean_dev.max()), 4),
+                sd_dev=round(float(sd_dev.max()), 4), chains_differ=differ, max_abs_err=0.0,
+                off_f64_kernel=kernel_off, off_f64_plain_f32=plain_off, ms=round(ms, 3),
+                wall_s=round(wall, 5), ms_64=round(timing[0], 3),
+                plain_ms_64=round(timing[1], 3), library_ms=round(library_ms, 3),
+                bound_ms=bounds["bound_tensor_3xtf32_ms"], bound_by="operations",
+                bound_cuda_core_ms=bounds["bound_cuda_core_ms"],
+                tflops=round(flops / (ms * 1e-3) / 1e12, 3),
+                x_bytes_read=cluster_x_bytes(layout, n_steps + 1),
+                **{k: v for k, v in layout.items() if k != "tiles"}, **build)
+
+
+def phase_logistic_colon(dev):
+    """The logistic family at the colon-cancer shape at full width (10,240
+    chains of 2,002 coordinates), the cluster path: ChEES's posterior, then
+    HMC(backend="cuda") and MetropolisHastings(backend="cuda") on both
+    targets, one launch each (colon_k1, colon_k3)."""
+    chees, targets, beta_ref, bulk = colon_posterior(dev)
+    out = {}
+    for kind, (target, mass_inv, last, mean, std) in targets.items():
+        out[f"K1_{kind}"] = colon_k1(dev, kind, target, mass_inv, last, mean, std, beta_ref,
+                                     chees["eps_bar"], bulk)
+        torch.cuda.empty_cache()
+        out[f"K3_{kind}"] = colon_k3(dev, kind, target, last, mean, std, bulk)
+        torch.cuda.empty_cache()
+    say("logistic-colon", chains=N_CHAINS, n_obs=COL_OBS, p=COL_FEATURES,
+        data=f"make_logistic_data({COL_SEED}, {COL_OBS}, {COL_FEATURES})",
+        chees=f"{COL_WARMUP}+{COL_COLLECT}", chees_info=json.dumps(chees),
+        results=json.dumps(out))
+    return out
+
+
+def path_digests(dev):
+    """The resident path's stores at the stretch line's shape (256 x 48) and
+    the streamed path's at 1,024 x 256 (make_logistic_data at LGW_SEED, the
+    non-centred target, LGW_CHAINS chains, LGW_STEPS steps): K3 with the
+    random walk and K1, each a sha256 of its float32 bytes.  Only calls an
+    earlier tree also has, so that a parent commit's package gives its own
+    digests."""
+    out = {}
+    for (n_obs, p), tag in (((256, 48), ""), ((1024, 256), "_streamed")):
+        X, y, _ = gmt.make_logistic_data(LGW_SEED, n_obs, p, device=dev)
+        target = gmt.HierarchicalLogisticNC(X, y)
+        x0 = gmt.init_with_seed(LGW_CHAINS, p + 2, 2, device=dev) / math.sqrt(p)
+        x0[:, 1] -= 1.0
+        x0 = x0.contiguous()
+        walk = gmt.RandomWalkProposal(LGW_WALK / math.sqrt(n_obs * p))
+        k3 = fused_mh.fused_mh_run(target, x0, walk, LGW_STEPS, 0, seed=SEED)
+        inv = torch.full((p + 2,), 1.0 / n_obs, device=dev)
+        k1 = fused_hmc.fused_hmc_run(target, x0, LGW_EPS, 5, LGW_STEPS, 0, seed=SEED,
+                                     mass_inv=inv)
+        torch.cuda.synchronize()
+        out.update({name + tag: hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+                    for name, t in (("K3", k3), ("K1", k1))})
+    return out
+
+
+def wide_eps(target, x0, inv) -> float:
+    """"logistic-wide"'s K1 step size: LGW_EPS up to 256 features; past them
+    the largest of LGW_EPS / 2^k, k < LGW_HALVINGS, whose accept over
+    LGW_PILOT steps (L 5, the metric ``inv``) from ``x0`` is at least
+    LGW_PILOT_ACCEPT."""
+    if target.X.shape[1] <= fused_hmc_logistic.MAX_BLOCK_FEATURES:
+        return LGW_EPS
+    return largest_step(lambda eps: moved_share(fused_hmc.fused_hmc_run(
+        target, x0, eps, 5, LGW_PILOT, 0, seed=SEED + 2, mass_inv=inv)),
+        [LGW_EPS / 2**k for k in range(LGW_HALVINGS)], LGW_PILOT_ACCEPT)[0]
 
 
 def phase_logistic_wide(dev):
@@ -2897,7 +3366,9 @@ def phase_logistic_wide(dev):
     10,000 x 24, where the float32 plain version puts 0-3,
     port_scripts/logistic_wide_gate_power.py); each case's path and panel
     from the kernels' host code, and the builds' registers and spills (none);
-    at 256 x 48 the resident path's digests equal the parent's."""
+    at 256 x 48 the resident path's digests and at 1,024 x 256 the streamed
+    path's equal the parent's; past 256 features the cluster path's layout
+    (blocks a cluster, features a block)."""
     out = {}
     for n_obs, p in LGW_CASES:
         X, y, _ = gmt.make_logistic_data(LGW_SEED, n_obs, p, device=dev)
@@ -2905,11 +3376,12 @@ def phase_logistic_wide(dev):
         x0[:, 1] -= 1.0
         x0 = x0.contiguous()
         walk = gmt.RandomWalkProposal(LGW_WALK / math.sqrt(n_obs * p))
-        inv = torch.full((p + 2,), 1.0 / n_obs, device=dev)
+        inv = torch.full((p + 2,), 1.0 / max(n_obs, p), device=dev)
         case = {}
         targets = {"nc": gmt.HierarchicalLogisticNC(X, y),
                    "centred": gmt.HierarchicalLogistic(X, y)}
-        starts = {kind: fused_hmc.fused_hmc_run(target, x0, LGW_EPS, 5, 1, LGW_BURN,
+        eps = {kind: wide_eps(target, x0, inv) for kind, target in targets.items()}
+        starts = {kind: fused_hmc.fused_hmc_run(target, x0, eps[kind], 5, 1, LGW_BURN,
                                                 seed=SEED + 1, mass_inv=inv)[:, 0].contiguous()
                   for kind, target in targets.items()}
         reset_counts()
@@ -2930,9 +3402,9 @@ def phase_logistic_wide(dev):
                 lambda seed: fused_mh.fused_mh_run_reference(target64, x0.double(), walk,
                                                              KL_OFF_STEPS, 0, seed=seed),
                 x0, f"logistic-wide {n_obs} x {p} {kind} K3: ")
-            got = fused_hmc.fused_hmc_run(target, start, LGW_EPS, 5, LGW_STEPS, 0, seed=SEED,
+            got = fused_hmc.fused_hmc_run(target, start, eps[kind], 5, LGW_STEPS, 0, seed=SEED,
                                           mass_inv=inv)
-            want = fused_hmc.fused_hmc_run_reference(target, start, LGW_EPS, 5, LGW_STEPS, 0,
+            want = fused_hmc.fused_hmc_run_reference(target, start, eps[kind], 5, LGW_STEPS, 0,
                                                      seed=SEED, mass_inv=inv)
             same = (accept_history(got, start) == accept_history(want, start)).all(dim=1)
             rel = float((got[same] - want[same]).abs().max() / want[same].abs().max())
@@ -2942,15 +3414,15 @@ def phase_logistic_wide(dev):
             del got, want
             inv64 = inv.double()
             k1_off = chains_off(
-                lambda seed: fused_hmc.fused_hmc_run(target, start, LGW_EPS, 5, KL_OFF_STEPS, 0,
+                lambda seed: fused_hmc.fused_hmc_run(target, start, eps[kind], 5, KL_OFF_STEPS, 0,
                                                      seed=seed, mass_inv=inv),
                 lambda seed: fused_hmc.fused_hmc_run_reference(
-                    target, start, LGW_EPS, 5, KL_OFF_STEPS, 0, seed=seed, mass_inv=inv),
+                    target, start, eps[kind], 5, KL_OFF_STEPS, 0, seed=seed, mass_inv=inv),
                 lambda seed: fused_hmc.fused_hmc_run_reference(
-                    target64, start.double(), LGW_EPS, 5, KL_OFF_STEPS, 0, seed=seed,
+                    target64, start.double(), eps[kind], 5, KL_OFF_STEPS, 0, seed=seed,
                     mass_inv=inv64), start, f"logistic-wide {n_obs} x {p} {kind} K1: ")
             del target64
-            case[kind] = dict(k3_accept=round(k3_accept, 4), k3_differ=k3_differ,
+            case[kind] = dict(k3_accept=round(k3_accept, 4), k3_differ=k3_differ, k1_eps=eps[kind],
                               k3_off_f64=list(k3_off), k1_accept=round(k1_accept, 4),
                               k1_differ=k1_differ, k1_rel_err=float(f"{rel:.3e}"),
                               k1_off_f64=list(k1_off))
@@ -2962,24 +3434,29 @@ def phase_logistic_wide(dev):
               f"({launches})")
         for name, mod, build, kernels in (
                 ("K3", fused_mh_logistic, logistic_mh_build(p),
-                 ("fused_mh_logistic_streamed_kernel<0,0>", "fused_mh_logistic_kernel<0,0>")),
+                 ("fused_mh_logistic_streamed_kernel<0,0>", "fused_mh_logistic_kernel<0,0>",
+                  "fused_mh_logistic_cluster_kernel<0,0>")),
                 ("K1", fused_hmc_logistic, logistic_hmc_build(p),
                  ("fused_hmc_logistic_streamed_kernel<0>",
-                  f"fused_hmc_logistic_kernel<{fused_hmc_logistic.feature_tiles(p)},0>"))):
+                  f"fused_hmc_logistic_kernel<{fused_hmc_logistic.feature_tiles(p)},0>",
+                  "fused_hmc_logistic_cluster_kernel<0>"))):
             lay = mod.launch_layout(LGW_CHAINS, n_obs, p)
-            report = build_report(build, kernels[0] if lay["streamed"] else kernels[1])
+            kernel = (kernels[2] if p > fused_hmc_logistic.MAX_BLOCK_FEATURES
+                      else kernels[0] if lay["streamed"] else kernels[1])
+            report = build_report(build, kernel)
             spills = build_spills(build)
             check(not spills, f"logistic-wide {n_obs} x {p}: {build} spills nothing ({spills})")
             case[name] = dict(launches=launches[name], streamed=lay["streamed"],
-                              panel_rows=lay["panel_rows"],
-                              panels=lay["panels"], tiles_a_block=lay["tiles_a_block"],
+                              panel_rows=lay["panel_rows"], panels=lay["panels"],
+                              stages=lay["stages"], tiles_a_block=lay["tiles_a_block"],
+                              cluster_blocks=lay["cluster_blocks"],
+                              features_a_block=lay["features_a_block"],
                               shared_bytes=lay["shared_bytes"], **report)
         out[f"{n_obs}x{p}"] = case
-    digests = resident_digests(dev)
-    for name, want in RESIDENT_DIGESTS.items():
+    digests = path_digests(dev)
+    for name, want in PATH_DIGESTS.items():
         check(digests[name] == want,
-              f"logistic-wide: the resident {name} store at 256 x 48 has the parent's digest "
-              f"({digests[name]})")
+              f"logistic-wide: the {name} store has the parent's digest ({digests[name]})")
     say("logistic-wide", chains=LGW_CHAINS, steps=LGW_STEPS, digests=json.dumps(digests),
         results=json.dumps(out))
     return dict(cases=out, digests=digests)
@@ -3155,11 +3632,11 @@ def chees_work(n: int, d: int, leapfrogs: int, steps: int, n_collect: int):
 
 
 def phase_chees_main(dev):
-    """The bench headline at full size through ``ChEESHMC.run``; then three
-    warm runs of ``run`` timed as bench.py times them (init + warmup +
-    collection, synchronised, median), split by the phase ends ``run``
-    records; a 10-step collection window under the profiler; the fill kernel
-    at its ChEES shapes."""
+    """The bench headline at full size through ``ChEESHMC.run``; then
+    CHEES_WARM_RUNS warm runs of ``run`` timed as bench.py times them (init
+    + warmup + collection, synchronised, median), split by the phase ends
+    ``run`` records; a 10-step collection window under the profiler; the
+    fill kernel at its ChEES shapes."""
     scales, sampler = headline_sampler(dev)
     steps = CHEES_WARMUP + CHEES_COLLECT
     torch.cuda.synchronize()
@@ -3195,14 +3672,15 @@ def phase_chees_main(dev):
 
     # warm runs through ChEESHMC.run, split by the phase ends it records
     walls, parts = [], []
-    for _ in range(3):
+    for _ in range(CHEES_WARM_RUNS):
         warm = sampler.run(CHEES_COLLECT, CHEES_WARMUP, time_phases=True)
         phases = sampler.phase_seconds
         walls.append(sum(phases.values()))
         parts.append((phases["init"], phases["warmup"], phases["collection"]))
         del warm
-    order = sorted(range(3), key=walls.__getitem__)
-    wall, (init_s, warm_s, coll_s) = walls[order[1]], parts[order[1]]
+    order = sorted(range(CHEES_WARM_RUNS), key=walls.__getitem__)
+    mid = order[CHEES_WARM_RUNS // 2]
+    wall, (init_s, warm_s, coll_s) = walls[mid], parts[mid]
     adapted = sampler._final_carry
 
     # a 10-step collection window under the profiler, beside its CUDA-event
@@ -3238,8 +3716,8 @@ def phase_chees_logistic(dev):
     ``make_logistic_data(PRNGKey(1), 256, 48)``, which the port ships as
     ``general_mcmc_torch/data/bench_logistic_k1.npz``): 10,240 chains, 256
     adaptive warmup steps, 1,024 static steps with a derived L and the
-    in-run statistics (``run(with_stats=True)``), two runs, the wall the
-    lesser (bench.py:780-808), split by the phase ends ``run`` records; the
+    in-run statistics (``run(with_stats=True)``), LGC_RUNS runs, the wall
+    the least (bench.py:780-808), split by the phase ends ``run`` records; the
     post-warmup divergences, how many chains had one and the most in one
     chain."""
     X, y, _ = bench_logistic_data(device=dev)
@@ -3248,14 +3726,14 @@ def phase_chees_logistic(dev):
                            target_accept_p=LGC_ACCEPT, jitter_amount=LGC_JITTER,
                            static_collection=True, seed=SEED)
     walls, parts = [], []
-    for _ in range(2):
+    for _ in range(LGC_RUNS):
         samples = None
         samples = sampler.run(LGC_COLLECT, LGC_WARMUP, with_stats=True, time_phases=True)
         stats = sampler._suffstats
         phases = sampler.phase_seconds
         walls.append(sum(phases.values()))
         parts.append((phases["init"], phases["warmup"], phases["collection"]))
-    best = min(range(2), key=walls.__getitem__)
+    best = min(range(LGC_RUNS), key=walls.__getitem__)
     wall, (init_s, warm_s, coll_s) = walls[best], parts[best]
     check(bool(torch.isfinite(samples).all()), "every logistic ChEES sample is finite")
     rhat, ess, post_mean, post_std = gmt.combine_suffstats_host(*stats)
@@ -5235,6 +5713,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     german = phase_logistic_german(dev)
     torch.cuda.empty_cache()
+    colon = phase_logistic_colon(dev)
+    torch.cuda.empty_cache()
     wide = phase_logistic_wide(dev)
     torch.cuda.empty_cache()
     nuts_small = phase_nuts_small(dev)
@@ -5483,7 +5963,8 @@ def main() -> int:
              source="general_mcmc_torch/csrc/fused_hmc_logistic.cu",
              replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
              launches=(k1_logistic["launches"] + k1_centred["launches"]
-                       + german["K1_nc"]["launches"] + german["K1_centred"]["launches"]),
+                       + german["K1_nc"]["launches"] + german["K1_centred"]["launches"]
+                       + colon["K1_nc"]["launches"] + colon["K1_centred"]["launches"]),
              max_abs_err=max(k1_logistic["max_abs_err"], k1_centred["max_abs_err"]),
              max_rel_err={str(k): v for k, v in k1_logistic["rel_err"].items()},
              chains_differ={str(k): v for k, v in k1_logistic["chains_differ"].items()},
@@ -5510,12 +5991,17 @@ def main() -> int:
              # layouts) and at "logistic-wide"'s cases (paths, panels,
              # registers, spills, errors against the plain version)
              german={k: german[f"K1_{k}"] for k in ("nc", "centred")},
+             # the cluster path at the colon shape ("logistic-colon": both
+             # targets' runs, gates, times beside the plain version's over 64
+             # steps, bounds, X's bytes read, layouts)
+             colon={k: colon[f"K1_{k}"] for k in ("nc", "centred")},
              wide={c: {"K1": v["K1"], **{k: {f: v[k][f] for f in (
                  "k1_accept", "k1_differ", "k1_rel_err", "k1_off_f64")}
                  for k in ("nc", "centred")}}
                  for c, v in wide["cases"].items()},
-             resident_digest=wide["digests"]["K1"],
-             checked_in="K1-logistic, K1-logistic-centred, logistic-german, logistic-wide"),
+             path_digests={k: v for k, v in wide["digests"].items() if k.startswith("K1")},
+             checked_in="K1-logistic, K1-logistic-centred, logistic-german, logistic-colon, "
+                        "logistic-wide"),
         # K3 on the stretch line's posterior, both parameterisations: its own
         # tile kernel on tile_mh.cuh and K4's tile code; launches from the two
         # runs through MetropolisHastings (each counted from 0 around its
@@ -5529,7 +6015,8 @@ def main() -> int:
              source="general_mcmc_torch/csrc/fused_mh_logistic.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61",
              launches=(k3_logistic["nc"]["launches"] + k3_logistic["centred"]["launches"]
-                       + german["K3_nc"]["launches"] + german["K3_centred"]["launches"]),
+                       + german["K3_nc"]["launches"] + german["K3_centred"]["launches"]
+                       + colon["K3_nc"]["launches"] + colon["K3_centred"]["launches"]),
              max_abs_err=0.0, ms=k3_logistic["nc"]["ms"],
              plain_ms=k3_logistic["nc"]["plain_ms"], bound_ms=k3_logistic["nc"]["bound_ms"],
              bound_by="operations", bound_cuda_core_ms=k3_logistic["nc"]["bound_cuda_core_ms"],
@@ -5543,12 +6030,14 @@ def main() -> int:
                  "walk", "chains_differ", "off_f64_kernel", "off_f64_plain_f32", "registers",
                  "spill_store_bytes")},
              german={k: german[f"K3_{k}"] for k in ("nc", "centred")},
+             colon={k: colon[f"K3_{k}"] for k in ("nc", "centred")},
              wide={c: {"K3": v["K3"], **{k: {f: v[k][f] for f in ("k3_accept", "k3_differ",
                                                                   "k3_off_f64")}
                                          for k in ("nc", "centred")}}
                    for c, v in wide["cases"].items()},
-             resident_digest=wide["digests"]["K3"],
-             checked_in="K3-logistic, K3-logistic-centred, logistic-german, logistic-wide"),
+             path_digests={k: v for k, v in wide["digests"].items() if k.startswith("K3")},
+             checked_in="K3-logistic, K3-logistic-centred, logistic-german, logistic-colon, "
+                        "logistic-wide"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,10 @@ library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``general_mcmc_torch/_build/``.  A source may be built in
 variants, one for each set of macros it is given (the dense Gaussian's
 kernels, one for each count of column blocks: each build unrolls its solves
-fully; K3's logistic kernel, one for each count of feature tiles).  The file name carries a hash of the sources and the flags, so an
+fully; the logistic tile kernels, one for each count of feature tiles a
+block, ``GMT_LOGISTIC_PT``, and past 256 features one cluster build,
+``GMT_LOGISTIC_CLUSTER``, of 32 tiles a block whose cluster size is a launch
+argument).  The file name carries a hash of the sources and the flags, so an
 edited source is rebuilt and a stale library is never loaded.
 Nothing is built when the package is imported: the CPU tests
 import every module, and this machine may have no ``nvcc``.  A failed build

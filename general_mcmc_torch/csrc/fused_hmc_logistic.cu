@@ -90,6 +90,29 @@
 // tiles, then g += r X of each warp's feature tiles).  The HMC around it is
 // the resident path's: LogisticTile over either gradient engine.
 //
+// The cluster path (logistic_tile.cuh's head note), p > 256, a build of
+// its own (GMT_LOGISTIC_CLUSTER, 32 feature tiles a block): a streamed
+// tile's 8 warps cannot hold more than 32 feature tiles (236 registers a
+// lane at 256 features, one block an SM), so a tile of 16 chains is held by
+// a cluster of C <= 8 blocks (C a launch argument, the fewest that hold the
+// feature tiles), block `rank` the feature tiles from rank `tiles` on, its
+// slice of z, the momenta, the gradient and the opening copies, and its
+// columns of X (split_panels' slice, through its own ring, or copied once
+// and kept where the observations fit one stage: 62 x 2,000 at 8 blocks is
+// 133 KB of X a block).  The gradient is PanelGrad's over the cluster: each
+// block's partial logits of a panel, summed over its warps, are added over
+// the cluster's blocks in rank order through distributed shared memory
+// (one cluster barrier a panel), so every block computes the same r and
+// log-likelihood, and g += r X stays with each block's features; the hyper
+// sums and the row sums (kinetic energies, the log density's sums) cross
+// the cluster the same way, so every block takes the same accept decision.
+// mu and log tau are held by every block alike; the lead block (rank 0)
+// adds their energy terms, counts the log-likelihood and stores them.  A
+// block draws the Philox blocks of mu's, log tau's and its features'
+// momenta, so the draws stay at K1's addresses.  Slow and simple: one tile
+// a cluster, one block an SM (255 registers a lane), about 16 tiles of the
+// card's 132 SMs at once; PERF.md has its time beside its bound.
+//
 // Agreement with the plain version: the products sum in another order than
 // torch.matmul and carry the split's 2^-22, and the sigmoid is K4's (the
 // reduced-accuracy __expf and __fdividef), so the two agree to a tolerance,
@@ -101,8 +124,10 @@
 //
 // C interface, loaded with ctypes (general_mcmc_torch/_build.py), one build
 // for each count of 8-feature tiles (GMT_LOGISTIC_PT, even, 2 to 32: p up to
-// 256); the entry point returns the first CUDA error of its calls, or
-// cudaErrorInvalidValue for a feature count the build is not for.
+// 256), and past 256 features the cluster build (GMT_LOGISTIC_CLUSTER with
+// GMT_LOGISTIC_PT 32: up to 2,048); the entry point returns the first CUDA
+// error of its calls, or cudaErrorInvalidValue for a feature count the build
+// is not for.
 
 #include <cuda_runtime.h>
 
@@ -122,6 +147,12 @@ using namespace gmt_logistic;
 
 constexpr int kPT = GMT_LOGISTIC_PT;  // 8-feature tiles: features padded to 8 kPT
 static_assert(kPT % 2 == 0 && kPT >= 2 && kPT <= 32, "p <= 256, padded to a multiple of 16");
+#ifdef GMT_LOGISTIC_CLUSTER
+constexpr bool kCluster = true;  // the cluster path's build: up to kPT tiles a block
+#else
+constexpr bool kCluster = false;
+#endif
+static_assert(!kCluster || kPT == kClusterPT, "the cluster build holds kClusterPT tiles a block");
 constexpr bool kResident = kPT <= 6;  // the resident path takes p <= 48
 constexpr int kStages = 2;     // stages of the streamed path's ring
 constexpr int kMaxRows = 256;  // most observations a panel
@@ -134,6 +165,7 @@ constexpr int kHmcTiles = 5;  // tiles a block: 10 warps, up to 204 registers a 
 // Warps a tile on the streamed path, and tiles a block (at most 10 warps).
 constexpr int kStreamNS = kPT <= 8 ? 2 : (kPT + 3) / 4;
 constexpr int kStreamTiles = 10 / kStreamNS > 0 ? 10 / kStreamNS : 1;
+static_assert(!kCluster || kStreamNS == kClusterNS, "a cluster block is a streamed tile's warps");
 
 // Shared memory of a block on the resident path, in 4-byte words: the tile
 // data and parts of logistic_tile.cuh, for each tile the opening z and
@@ -158,6 +190,30 @@ __host__ __device__ constexpr size_t stream_tile_words(int rows) {
   return (partials > drawn ? partials : drawn) + static_cast<size_t>(rows) * 32 +
          2 * own * 4 * kStreamNS * 32 + 128 * kStreamNS + 128 * kStreamNS;
 }
+// A streamed tile's parts of shared memory, from `own` (stream_tile_words):
+// the partial logits, or between gradients the momenta as drawn (`own`
+// itself), r as fragments, the opening z and gradient (each lane's slots
+// from `open`), the row-sum buffers and the hyper sums in transit; `after`
+// the first word past them.
+struct StreamTileParts {
+  uint4* rf;
+  float* open;
+  double* red;
+  float* sm;
+  float* after;
+  __device__ StreamTileParts(float* own, int rows) {
+    constexpr int NS = kStreamNS, own_units = (kPT + NS - 1) / NS;
+    const size_t partials = static_cast<size_t>(NS) * rows * 16;
+    const size_t drawn = 16 * 8 * kPT + 32;
+    float* after_pl = own + (partials > drawn ? partials : drawn);
+    rf = reinterpret_cast<uint4*>(after_pl);
+    open = after_pl + static_cast<size_t>(rows) * 32;
+    red = reinterpret_cast<double*>(open + 2 * own_units * 4 * NS * 32);
+    sm = reinterpret_cast<float*>(red + 64 * NS);
+    after = sm + NS * 4 * 32;
+  }
+};
+
 // A streamed block's: the ring's stages, the tiles, the ring's mbarriers and
 // counts (16 words).
 __host__ __device__ constexpr size_t stream_words(int rows, int tiles) {
@@ -177,6 +233,15 @@ struct ResidentGrad : TileWarp<PT, kMT, kNS> {
 
   __device__ ResidentGrad(const Shared<PT, kMT, kNS>& s, int tile, int n_pad, int n_obs_)
       : Base(s, tile, n_pad), n_obs(n_obs_) {}
+
+  // the block holds every feature (PanelGrad's hooks of the cluster path)
+  __device__ __forceinline__ int f0() const { return 0; }
+  __device__ __forceinline__ int fb() const { return 8 * PT; }
+  __device__ __forceinline__ bool lead() const { return true; }
+  template <int NV>
+  __device__ __forceinline__ void row_sums(double (&v)[NV][2], double* red) const {
+    gmt_tile::row_sums<NV, NS>(v, red, this->part, this->g, this->t, [&] { this->sync(); });
+  }
 
   __device__ __forceinline__ void nc(const float (&mu)[kMT][2], const float (&tau)[kMT][2],
                                      const float (&z)[OWN][4], bool value, float (&own)[OWN][4],
@@ -215,6 +280,11 @@ struct ResidentGrad : TileWarp<PT, kMT, kNS> {
 // with their momenta and gradients.  CENTRED: the centred target, whose
 // coordinates past mu and log tau are beta itself (kept in z), and whose
 // tau is kept as 1 / tau^2 = exp(-2 log tau), the plain version's inv_tau2.
+// On the cluster path the tile is a block's share of a cluster's tile: its
+// features are the block's (w.fb() from w.f0()), mu and log tau are held by
+// every block alike, and the lead block alone adds their terms to the row
+// sums and stores them; the row sums and the hyper sums are the cluster's
+// (W::row_sums, W::nc, W::centred).
 template <int PT, bool CENTRED, class W>
 struct LogisticTile {
   static constexpr int NS = W::NS;
@@ -246,11 +316,15 @@ struct LogisticTile {
     gzo = open + OWN * 4 * LANES;
   }
 
+  // the block's feature of the lane's unit i, element c (the target's
+  // feature w.f0() + f)
   __device__ __forceinline__ int feature(int i, int c) const {
     return 8 * (w.part + NS * i) + w.t + 4 * (c & 1);
   }
+  // whether the block's feature f is a feature of the target's in the block's share
+  __device__ __forceinline__ bool real(int f) const { return f < w.fb() && w.f0() + f < p; }
   __device__ __forceinline__ float inv_z(int f) const {
-    return f < p ? __ldg(a.inv + f + 2) : 0.0f;
+    return real(f) ? __ldg(a.inv + w.f0() + f + 2) : 0.0f;
   }
   // tau (non-centred) or 1 / tau^2 (centred) of log tau
   __device__ __forceinline__ float tau_of(float lt_) const {
@@ -271,7 +345,7 @@ struct LogisticTile {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int f = feature(i, c);
-        z[i][c] = f < p ? a.x0[rows.row(c >> 1) * a.d + 2 + f] : 0.0f;
+        z[i][c] = real(f) ? a.x0[rows.row(c >> 1) * a.d + 2 + w.f0() + f] : 0.0f;
       }
     }
   }
@@ -307,7 +381,7 @@ struct LogisticTile {
       glt[h] = __fadd_rn(-lt[0][h], __fmul_rn(tau[0][h], sums[2 * h + 1]));
     }
     if (value) {
-      gmt_tile::row_sums<2, NS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
+      w.template row_sums<2>(v, red);
 #pragma unroll
       for (int h = 0; h < 2; ++h) lp[h] = log_density_nc(mu[0][h], lt[0][h], v[1][h], v[0][h]);
     }
@@ -329,7 +403,7 @@ struct LogisticTile {
       for (int i = 0; i < OWN; ++i) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          cen[i][c] = feature(i, c) < p ? __fsub_rn(z[i][c], mu[0][c >> 1]) : 0.0f;
+          cen[i][c] = real(feature(i, c)) ? __fsub_rn(z[i][c], mu[0][c >> 1]) : 0.0f;
         }
       }
     }, value, own, sums, ll);
@@ -355,7 +429,7 @@ struct LogisticTile {
                          static_cast<float>(p));
     }
     if (value) {
-      gmt_tile::row_sums<2, NS>(v, red, w.part, w.g, w.t, [&] { w.sync(); });
+      w.template row_sums<2>(v, red);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         lp[h] = log_density_centred(mu[0][h], lt[0][h], v[1][h], p, v[0][h]);
@@ -364,13 +438,13 @@ struct LogisticTile {
   }
 
   // The row sums of the kinetic energy: mu's and log tau's terms once a
-  // row (lane t = 0 of warp 0), z's by their owners.
+  // row (lane t = 0 of warp 0 of the lead block), z's by their owners.
   __device__ __forceinline__ void energy_sums(float (&ke)[2], double* buf) const {
     double v[1][2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       v[0][h] = 0.0;
-      if (w.part == 0 && w.t == 0) {
+      if (w.lead() && w.part == 0 && w.t == 0) {
         v[0][h] = gmt_tile::energy_term(mmu[h], iv_mu) + gmt_tile::energy_term(mlt[h], iv_lt);
       }
     }
@@ -381,25 +455,31 @@ struct LogisticTile {
         v[0][c >> 1] += gmt_tile::energy_term(mz[i][c], inv_z(feature(i, c)));
       }
     }
-    gmt_tile::row_sums<1, NS>(v, buf, w.part, w.g, w.t, [&] { w.sync(); });
+    w.template row_sums<1>(v, buf);
     ke[0] = gmt_tile::half_sum(v[0][0]);
     ke[1] = gmt_tile::half_sum(v[0][1]);
   }
 
   // mu and log tau are normals 0 and 1 of block 0, z_f normal f + 2: each
-  // Philox block once a tile, through `drawn`, then the tile's barrier
+  // Philox block of mu's, log tau's and the block's features once a tile,
+  // through `drawn`, then the tile's barrier
   __device__ void draw(uint32_t step, float (&ke)[2]) {
     float* out = drawn;
     const float* scale = a.scale;
-    const int pp = p;
-    gmt_tile::tile_normals(a.seed, rows, step, (p + 5) / 4, threadIdx.x % LANES, LANES,
-                               [=](int r, int k, float z) {
-                                 if (k < 2) {
-                                   out[16 * 8 * PT + 2 * r + k] = __fmul_rn(__ldg(scale + k), z);
-                                 } else if (k - 2 < pp) {
-                                   out[r * 8 * PT + k - 2] = __fmul_rn(__ldg(scale + k), z);
-                                 }
-                               });
+    const int pp = p, f0 = w.f0(), fb = w.fb();
+    const auto sink = [=](int r, int k, float z) {
+      const int f = k - 2 - f0;
+      if (k < 2) {
+        out[16 * 8 * PT + 2 * r + k] = __fmul_rn(__ldg(scale + k), z);
+      } else if (f >= 0 && f < fb && k - 2 < pp) {
+        out[r * 8 * PT + f] = __fmul_rn(__ldg(scale + k), z);
+      }
+    };
+    const int first = (f0 + 2) / 4;                         // the block's first group
+    const int end = (f0 + (fb < p - f0 ? fb : p - f0) + 5) / 4;  // and one past its last
+    const int tid = threadIdx.x % LANES;
+    if (first > 0) gmt_tile::tile_normals(a.seed, rows, step, 0, 1, tid, LANES, sink);
+    gmt_tile::tile_normals(a.seed, rows, step, first, end, tid, LANES, sink);
     w.sync();
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -411,7 +491,7 @@ struct LogisticTile {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int f = feature(i, c);
-        mz[i][c] = f < p ? drawn[(w.g + 8 * (c >> 1)) * 8 * PT + f] : 0.0f;
+        mz[i][c] = real(f) ? drawn[(w.g + 8 * (c >> 1)) * 8 * PT + f] : 0.0f;
       }
     }
     energy_sums(ke, red + 48 * NS);
@@ -492,7 +572,7 @@ struct LogisticTile {
   __device__ void store(float* sample) const {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      if (w.part == 0 && w.t == 0 && rows.live(h)) {
+      if (w.lead() && w.part == 0 && w.t == 0 && rows.live(h)) {
         const int64_t base = rows.row(h) * a.d;
         sample[base] = mu[0][h];
         sample[base + 1] = lt[0][h];
@@ -500,7 +580,13 @@ struct LogisticTile {
     }
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
-      gmt_tile::store_unit(sample, rows, a.d, 2, 8 * (w.part + NS * i), w.t, z[i]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int f = feature(i, c);
+        if (rows.live(c >> 1) && real(f)) {
+          sample[rows.row(c >> 1) * a.d + 2 + w.f0() + f] = z[i][c];
+        }
+      }
     }
   }
 };
@@ -569,25 +655,72 @@ __global__ void __launch_bounds__(kStreamTiles * kStreamNS * 32, 1)
   const int tile = (threadIdx.x >> 5) / NS;
   if (tile >= here) return;  // the ring counts only the tiles with rows
   float* own = tiles_base + tile * tw;
-  const size_t partials = static_cast<size_t>(NS) * rows * 16;
-  const size_t drawn_words = 16 * 8 * kPT + 32;
-  float* after_pl = own + (partials > drawn_words ? partials : drawn_words);
-  uint4* rf = reinterpret_cast<uint4*>(after_pl);
-  float* open = after_pl + static_cast<size_t>(rows) * 32;
-  double* red = reinterpret_cast<double*>(open + 2 * W::OWN * 4 * NS * 32);
-  float* sm = reinterpret_cast<float*>(red + 64 * NS);
-  W w(ring, reinterpret_cast<float4*>(own), rf, sm, tile, rows, n_obs);
+  const StreamTileParts t(own, rows);
+  W w(ring, reinterpret_cast<float4*>(own), t.rf, t.sm, tile, rows, n_obs);
   const gmt_tile::TileRows trows(tile0 + tile, a.n, a.chain0, w.g);
-  LogisticTile<kPT, CENTRED, W> h(w, a, trows, open + threadIdx.x % (NS * 32), red, own);
+  LogisticTile<kPT, CENTRED, W> h(w, a, trows, t.open + threadIdx.x % (NS * 32), t.red, own);
   h.init();
   gmt_tile::run_tile(h, a, trows);
 }
 
+// The cluster path (logistic_tile.cuh's head note), p > 256: a tile of 16
+// chains a cluster of C blocks of kClusterNS warps, block `rank` the
+// feature tiles from rank `tiles` on (`tiles` a block, the last block what
+// is left) and its slice of X's panels (split_panels' slice `rank`, S =
+// 8 tiles + kRowPad words a row), through `stages` ring stages (1: all the
+// observations in one panel, copied once and kept).  The tile is the
+// streamed path's (PanelGrad over the cluster's exchanges, LogisticTile),
+// so a warp's registers are the streamed path's at 32 feature tiles.
+// Its shared memory in 4-byte words: the stages, the streamed path's tile
+// (stream_tile_words, this build's kPT being kClusterPT), the exchange
+// buffers, the ring's mbarriers and counts.
+__host__ __device__ constexpr size_t cluster_words(int rows, int stages, int S) {
+  return static_cast<size_t>(stages) * rows * (2 * S + 1) + stream_tile_words(rows) +
+         Cluster::words(rows) + 16;
+}
+
+template <bool CENTRED>
+__global__ void __launch_bounds__(kClusterNS * 32, 1)
+    fused_hmc_logistic_cluster_kernel(const gmt_tile::Run a, const float* panels, int n_obs,
+                                      int rows, int count, int stages, int tiles) {
+  using W = PanelGrad<kClusterPT, kClusterNS, true>;
+  constexpr int NS = kClusterNS;
+  extern __shared__ float4 shared[];
+  float* base = reinterpret_cast<float*>(shared);
+  const int S = 8 * tiles + kRowPad;
+  const size_t words = static_cast<size_t>(rows) * (2 * S + 1);
+  float* own = base + stages * words;
+  const StreamTileParts t(own, rows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(t.after + Cluster::words(rows));
+  unsigned* released = reinterpret_cast<unsigned*>(full + kMaxStages);
+  Cluster cl;
+  cl.init(t.after, rows);
+  const int64_t tile = blockIdx.x / cl.C;  // the cluster's tile of the launch
+  const int steps = a.n_discard + a.n_collect * a.thin;
+  const int64_t grads = steps > 0 ? static_cast<int64_t>(steps) * a.n_leapfrog + 1 : 0;
+  const bool keep = stages == 1;
+  const PanelRing ring{panels + static_cast<int64_t>(cl.rank) * count * words, base, full,
+                       released, static_cast<int>(words), count, stages, NS,
+                       keep ? (grads > 0 ? 1 : 0) : grads * count, keep};
+  if (threadIdx.x == 0) ring.start();
+  __syncthreads();
+  W w(ring, reinterpret_cast<float4*>(own), t.rf, t.sm, 0, rows, n_obs, &cl, tiles,
+      cl.rank * 8 * tiles);
+  const gmt_tile::TileRows trows(tile, a.n, a.chain0, w.g);
+  LogisticTile<kClusterPT, CENTRED, W> h(w, a, trows, t.open + threadIdx.x % (NS * 32), t.red,
+                                         own);
+  h.init();
+  gmt_tile::run_tile(h, a, trows);
+  cl.sync();  // no block leaves while another may still read its shared memory
+}
+
 // A launch's layout: its tiles, tiles a block, blocks, dynamic shared bytes
-// a block, whether it streams X, and the streamed path's panel rows,
-// panels, ring stages and the words of its split buffer.
+// a block, whether it streams X, the streamed path's panel rows, panels,
+// ring stages and the words of its split buffer, and the blocks of a
+// tile's cluster and the features a block holds.
 struct Layout {
-  int64_t tiles, per_block, blocks, bytes, streamed, rows, panels, stages, scratch;
+  int64_t tiles, per_block, blocks, bytes, streamed, rows, panels, stages, scratch, cluster,
+      features;
 };
 
 // The layout of a launch of `n` rows from `chain0` over `n_obs` observations
@@ -620,7 +753,7 @@ cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
     }
     const size_t bytes = sizeof(float) * shared_words(kPT, n_pad, per_block);
     *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
-                  static_cast<int64_t>(bytes), 0, 0, 0, 0, 0};
+                  static_cast<int64_t>(bytes), 0, 0, 0, 0, 0, 1, 8 * kPT};
     return cudaSuccess;
   }
   const auto fits = [&](int rows, int t) { return sizeof(float) * stream_words(rows, t) <= limit; };
@@ -635,14 +768,44 @@ cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
   *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
                 static_cast<int64_t>(sizeof(float) * stream_words(even, per_block)), 1, even,
                 count, kStages,
-                static_cast<int64_t>(count) * static_cast<int64_t>(panel_words(kPT, even))};
+                static_cast<int64_t>(count) * static_cast<int64_t>(panel_words(kPT, even)), 1,
+                8 * kPT};
+  return cudaSuccess;
+}
+
+// The cluster path's layout of a launch of `n` rows of `p` features from
+// `chain0` over `n_obs` observations on the current device: a cluster a
+// tile (ClusterShape), the panels from the data's shape alone
+// (cluster_panels), so that a chain's sums run over the same panels in a
+// launch of any size.
+cudaError_t cluster_layout(int n, unsigned int chain0, int n_obs, int p, Layout* out) {
+  const ClusterShape cs(p);
+  if (cs.C < 1) return cudaErrorInvalidValue;
+  int device = 0, shared_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&shared_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const int S = cs.stride();
+  const auto fits = [&](int rows, int stages) {
+    return sizeof(float) * cluster_words(rows, stages, S) <= static_cast<size_t>(shared_max);
+  };
+  int rows = 0, panels = 0, stages = 0;
+  if (!cluster_panels(n_obs, fits, rows, panels, stages)) return cudaErrorInvalidValue;
+  const int64_t tiles = gmt_tile::launch_tiles(n, chain0);
+  *out = Layout{tiles, 1, tiles * cs.C,
+                static_cast<int64_t>(sizeof(float) * cluster_words(rows, stages, S)), 1, rows,
+                panels, stages,
+                static_cast<int64_t>(cs.C) * panels *
+                    static_cast<int64_t>(panel_words(cs.tiles, rows)),
+                cs.C, 8 * cs.tiles};
   return cudaSuccess;
 }
 
 template <bool CENTRED>
 cudaError_t launch_resident(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
                             const Layout& l, cudaStream_t stream) {
-  if constexpr (kResident) {
+  if constexpr (kResident && !kCluster) {
     const int p = a.d - 2;
     const int n_pad = 64 * ((n_obs + 63) / 64);
     const int rows4 = 4 * ((n_obs + 3) / 4);
@@ -663,6 +826,8 @@ cudaError_t launch_resident(const gmt_tile::Run& a, const float* X, const float*
   return cudaErrorInvalidValue;
 }
 
+// The streamed path's launch, or (kCluster) the cluster path's: the split
+// copy of X's panels (one slice a block of a cluster), then the kernel.
 template <bool CENTRED>
 cudaError_t launch_streamed(const gmt_tile::Run& a, const float* X, const float* y, int n_obs,
                             const Layout& l, float* scratch, int64_t scratch_words,
@@ -671,22 +836,42 @@ cudaError_t launch_streamed(const gmt_tile::Run& a, const float* X, const float*
       reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
-  constexpr int S = kPT * 8 + kRowPad;
-  const int64_t cells = l.panels * l.rows * S;
-  const int grid = static_cast<int>((cells + 255) / 256 < 4096 ? (cells + 255) / 256 : 4096);
-  split_panels<S><<<grid, 256, 0, stream>>>(X, y, n_obs, a.d - 2, static_cast<int>(l.rows),
-                                            static_cast<int>(l.panels), scratch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const auto kernel = fused_hmc_logistic_streamed_kernel<CENTRED>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(l.bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<static_cast<unsigned int>(l.blocks),
-           static_cast<unsigned int>(l.per_block * kStreamNS * 32), static_cast<size_t>(l.bytes),
-           stream>>>(a, scratch, n_obs, static_cast<int>(l.rows), static_cast<int>(l.panels),
-                     static_cast<int>(l.per_block));
-  return cudaGetLastError();
+  const int rows = static_cast<int>(l.rows), panels = static_cast<int>(l.panels);
+  if constexpr (kCluster) {
+    const ClusterShape cs(a.d - 2);
+    cudaError_t err =
+        launch_split(X, y, n_obs, a.d - 2, rows, panels, cs.stride(), cs.C, scratch, stream);
+    if (err != cudaSuccess) return err;
+    return launch_cluster(fused_hmc_logistic_cluster_kernel<CENTRED>, l.tiles, cs.C,
+                          kClusterNS * 32, static_cast<size_t>(l.bytes), stream, a,
+                          static_cast<const float*>(scratch), n_obs, rows, panels,
+                          static_cast<int>(l.stages), cs.tiles);
+  } else {
+    cudaError_t err =
+        launch_split(X, y, n_obs, a.d - 2, rows, panels, kPT * 8 + kRowPad, 1, scratch, stream);
+    if (err != cudaSuccess) return err;
+    const auto kernel = fused_hmc_logistic_streamed_kernel<CENTRED>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(l.bytes));
+    if (err != cudaSuccess) return err;
+    kernel<<<static_cast<unsigned int>(l.blocks),
+             static_cast<unsigned int>(l.per_block * kStreamNS * 32),
+             static_cast<size_t>(l.bytes), stream>>>(a, scratch, n_obs, rows, panels,
+                                                     static_cast<int>(l.per_block));
+    return cudaGetLastError();
+  }
+}
+
+// Whether this build takes p features: the feature tiles it was built for,
+// or (the cluster build) past them, up to kMaxCluster blocks.
+bool takes(int p) {
+  if (kCluster) return p > 8 * kPT && ClusterShape(p).C > 0;
+  return 2 * ((p + 15) / 16) == kPT;
+}
+
+// This build's layout of a launch (layout or cluster_layout).
+cudaError_t any_layout(int n, unsigned int chain0, int n_obs, int p, Layout* out) {
+  return kCluster ? cluster_layout(n, chain0, n_obs, p, out) : layout(n, chain0, n_obs, out);
 }
 
 }  // namespace
@@ -697,8 +882,10 @@ cudaError_t launch_streamed(const gmt_tile::Run& a, const float* X, const float*
 // 16-byte aligned; scratch (16-byte aligned, scratch_words floats) the
 // streamed path's split buffer, at least the layout's `scratch` words
 // (unused, and may be null, on the resident path); built for
-// 8 GMT_LOGISTIC_PT - 15 <= p <= 8 GMT_LOGISTIC_PT; centred 1 for
-// HierarchicalLogistic, 0 for HierarchicalLogisticNC.
+// 8 GMT_LOGISTIC_PT - 15 <= p <= 8 GMT_LOGISTIC_PT, or with
+// GMT_LOGISTIC_CLUSTER for 8 GMT_LOGISTIC_PT < p <= 8 kMaxCluster
+// GMT_LOGISTIC_PT; centred 1 for HierarchicalLogistic, 0 for
+// HierarchicalLogisticNC.
 extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const void* y,
                                          const void* inv, const void* scale, void* out,
                                          void* scratch, long long scratch_words, int n, int p,
@@ -706,8 +893,8 @@ extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const vo
                                          int n_leapfrog, int centred, float step_size,
                                          unsigned int seed, unsigned int chain0,
                                          void* stream) {
-  if (n < 1 || p < 1 || n_obs < 1 || n_leapfrog < 1 || thin < 1 ||
-      2 * ((p + 15) / 16) != kPT || reinterpret_cast<uintptr_t>(X) % 16 != 0) {
+  if (n < 1 || p < 1 || n_obs < 1 || n_leapfrog < 1 || thin < 1 || !takes(p) ||
+      reinterpret_cast<uintptr_t>(X) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const gmt_tile::Run a{static_cast<const float*>(x0), static_cast<const float*>(inv),
@@ -718,7 +905,7 @@ extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const vo
   const float* yf = static_cast<const float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Layout l;
-  cudaError_t err = layout(n, chain0, n_obs, &l);
+  cudaError_t err = any_layout(n, chain0, n_obs, p, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (l.streamed) {
     float* sc = static_cast<float*>(scratch);
@@ -734,19 +921,18 @@ extern "C" int fused_hmc_logistic_launch(const void* x0, const void* X, const vo
 // The layout fused_hmc_logistic_launch gives n rows of p features and n_obs
 // observations from chain0 on the current device: out = {tiles, tiles a
 // block, blocks, dynamic shared bytes a block, streamed (0 or 1), panel
-// rows, panels, ring stages, split buffer words} (the last four 0 on the
-// resident path).
+// rows, panels, ring stages, split buffer words, blocks a cluster,
+// features a block} (panel rows to split buffer words 0 on the resident
+// path).
 extern "C" int fused_hmc_logistic_layout(int n, int p, int n_obs, unsigned int chain0,
                                          long long* out) {
-  if (n < 1 || p < 1 || n_obs < 1 || 2 * ((p + 15) / 16) != kPT) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n < 1 || p < 1 || n_obs < 1 || !takes(p)) return static_cast<int>(cudaErrorInvalidValue);
   Layout l;
-  const cudaError_t err = layout(n, chain0, n_obs, &l);
+  const cudaError_t err = any_layout(n, chain0, n_obs, p, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t v[9] = {l.tiles, l.per_block, l.blocks, l.bytes, l.streamed,
-                        l.rows, l.panels, l.stages, l.scratch};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
+  const int64_t v[11] = {l.tiles,  l.per_block, l.blocks, l.bytes,   l.streamed, l.rows,
+                         l.panels, l.stages,    l.scratch, l.cluster, l.features};
+  for (int i = 0; i < 11; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -84,6 +84,16 @@
 //    (tile_mh.cuh's REMAKE) instead of keeping NB units of it in registers.
 //    So a lane's registers do not grow with p.
 //
+//  - The cluster path (logistic_tile.cuh's head note), p > 256, a build of
+//    its own (GMT_LOGISTIC_CLUSTER, 32 feature tiles a block): a tile of 16
+//    chains is a cluster of C <= 8 blocks of 8 warps, no producer warps
+//    (ClusterWalk, below): each block holds its share of the position's
+//    features in registers, draws its Philox blocks, proposes, and runs the
+//    forward pass over its columns of X (PanelGrad<..., true>'s, without
+//    the second product); the partial logits, the prior's squares, the
+//    log-likelihood and pCN's q sums are added over the cluster in rank
+//    order, so every block takes the same decision.
+//
 // Agreement with the plain version: the product sums in another order than
 // torch.matmul and carries the split's 2^-22, and the log-likelihood is
 // summed in double, so the log densities agree to a tolerance, and this
@@ -122,6 +132,13 @@ constexpr int kProducers = 2;
 #endif
 constexpr int kPT = GMT_LOGISTIC_PT;  // 8-feature tiles: features padded to 8 kPT
 static_assert(kPT % 2 == 0 && kPT >= 2 && kPT <= 32, "p <= 256, padded to a multiple of 16");
+#ifdef GMT_LOGISTIC_CLUSTER
+constexpr bool kCluster = true;  // the cluster path's build: up to kPT tiles a block
+#else
+constexpr bool kCluster = false;
+#endif
+static_assert(!kCluster || kPT == gmt_logistic::kClusterPT,
+              "the cluster build holds kClusterPT tiles a block");
 constexpr bool kResident = kPT <= 6;  // the resident path takes p <= 48
 constexpr int kStages = 2;     // stages of the streamed path's ring
 constexpr int kMaxRows = 256;  // most observations a panel
@@ -402,6 +419,303 @@ struct StreamTarget {
   }
 };
 
+// The cluster path (logistic_tile.cuh's head note), p > 256: a tile of 16
+// chains a cluster of C blocks of kClusterNS warps, no producer warps.
+// Each warp holds the position's features of its feature tiles (part + NS
+// i) of the block's share in registers, in the A fragments' layout, and
+// mu and log tau of its lane's two rows (every block alike).  A step:
+//  - the block's threads draw, each Philox block once, the normals of mu,
+//    log tau and the block's features and the accept uniform at K3's
+//    addresses (tile_mh.cuh: normals 2k and 2k + 1 both branches of words
+//    2k and 2k + 1, the uniform word 2 ceil(d / 2)) into `zd`, then the
+//    block's barrier;
+//  - every lane proposes its elements (the plain version's rounding), with
+//    pCN's log q terms;
+//  - the log density of the proposal: beta (mu + tau z, or the position),
+//    the prior's squares, the forward pass over the block's features and
+//    the cluster's logits (PanelGrad<..., true>::loglik_grad<false>), and
+//    the squares, the log-likelihood and the q sums as row sums of the
+//    cluster (one exchange), so every block takes the same decision;
+//  - the select; the lead block stores mu and log tau, every block its
+//    features.
+template <int PROP, bool CENTRED>
+struct ClusterWalk {
+  using W = gmt_logistic::PanelGrad<gmt_logistic::kClusterPT, gmt_logistic::kClusterNS, true>;
+  static constexpr int NS = W::NS, OWN = W::OWN, PT = gmt_logistic::kClusterPT;
+  static constexpr int kDrawWords = 16 * 8 * PT + 32 + 16;  // zd's floats
+  W& w;
+  const gmt_mh::Run& a;
+  const gmt_tile::TileRows& rows;
+  float* zf;  // [16][8 PT] the step's normals of the block's features
+  float* zh;  // [16][2] of mu and log tau
+  float* lu;  // [16] log u
+  double* red;  // the row sums in transit (64 NS doubles)
+  int p;
+  float mu[2], lt[2], x[OWN][4], lp[2];
+
+  __device__ ClusterWalk(W& w_, const gmt_mh::Run& a_, const gmt_tile::TileRows& rows_,
+                         float* zd, double* red_)
+      : w(w_), a(a_), rows(rows_), red(red_) {
+    zf = zd;
+    zh = zd + 16 * 8 * PT;
+    lu = zh + 32;
+    p = a.d - 2;
+  }
+
+  __device__ __forceinline__ int feature(int i, int c) const {
+    return 8 * (w.part + NS * i) + w.t + 4 * (c & 1);
+  }
+  __device__ __forceinline__ bool real(int f) const { return f < w.fb() && w.f0() + f < p; }
+
+  // Philox blocks lo .. hi - 1 of the tile's rows into zd: normals of mu,
+  // log tau and the block's features, and log u.
+  __device__ void draw_blocks(uint32_t step, int lo, int hi) {
+    const int pairs = (a.d + 1) / 2, f0 = w.f0(), fb = w.fb();
+    for (int idx = threadIdx.x; idx < 16 * (hi - lo); idx += NS * 32) {
+      const int r = idx % 16, blk = lo + idx / 16;
+      const uint4 b = gmt::counter_bits(a.seed, rows.key_at(r), step, static_cast<uint32_t>(blk),
+                                        gmt::kTagProposal);
+      const uint32_t word[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int k = 4 * blk + e;  // the word, and the normal of its pair's cosine branch
+        if (k < 2 * pairs) {
+          float z[2], unused;
+          gmt::box_muller_pair_straight(word[e], word[e + 1], z[0], z[1], unused);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int f = k + j - 2 - f0;
+            if (k + j < 2) {
+              zh[2 * r + k + j] = z[j];
+            } else if (f >= 0 && f < fb && k + j < a.d) {
+              zf[r * 8 * PT + f] = z[j];
+            }
+          }
+        } else if (k == 2 * pairs) {
+          lu[r] = gmt::log_straight(gmt::bits_to_uniform(word[e]));
+        }
+      }
+    }
+  }
+
+  // The step's draws, each Philox block once: mu's and log tau's, the
+  // block's features', the accept uniform's; then the block's barrier.
+  __device__ void draw(uint32_t step) {
+    const int f0 = w.f0(), fb = w.fb();
+    const int first = (f0 + 2) / 4, end = (f0 + (fb < p - f0 ? fb : p - f0) + 5) / 4;
+    const int ublk = (a.d + 1) / 2 / 2;  // the accept uniform's block
+    if (first > 0) draw_blocks(step, 0, 1);
+    draw_blocks(step, first, end);
+    if (ublk < first || ublk >= end) draw_blocks(step, ublk, ublk + 1);
+    w.sync();
+  }
+
+  // The log density of the lane's two rows at (m, l, v), the same on every
+  // lane of a row and every block of the cluster; q: pCN's two q sums of
+  // the lane's elements, which cross the cluster with the density's sums.
+  __device__ void density(const float (&m)[2], const float (&l)[2], const float (&v)[OWN][4],
+                          double (&q)[2][2], float (&out)[2]) {
+    float tau[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) tau[h] = expf(l[h]);
+    float beta[OWN][4], unused[OWN][4];
+    double sums[4][2] = {};  // the prior's squares, the log-likelihood, q(x -> y), q(y -> x)
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int h = c >> 1;
+        beta[i][c] = 0.0f;
+        if (real(feature(i, c))) {
+          if constexpr (CENTRED) {
+            beta[i][c] = v[i][c];
+            const float sc = __fdiv_rn(__fsub_rn(v[i][c], m[h]), tau[h]);
+            sums[0][h] += static_cast<double>(__fmul_rn(sc, sc));
+          } else {
+            beta[i][c] = __fadd_rn(m[h], __fmul_rn(tau[h], v[i][c]));
+            sums[0][h] += static_cast<double>(__fmul_rn(v[i][c], v[i][c]));
+          }
+        }
+      }
+    }
+    w.template loglik_grad<false>(beta, unused, sums[1], true);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sums[2][h] = q[0][h];
+      sums[3][h] = q[1][h];
+    }
+    w.template row_sums<4>(sums, red);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      q[0][h] = sums[2][h];
+      q[1][h] = sums[3][h];
+      if constexpr (CENTRED) {
+        out[h] = gmt_logistic::log_density_centred(m[h], l[h], sums[0][h], p, sums[1][h]);
+      } else {
+        out[h] = gmt_logistic::log_density_nc(m[h], l[h], sums[0][h], sums[1][h]);
+      }
+    }
+  }
+
+  __device__ void init() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int64_t base = rows.row(h) * a.d;
+      mu[h] = a.x0[base];
+      lt[h] = a.x0[base + 1];
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int f = feature(i, c);
+        x[i][c] = real(f) ? a.x0[rows.row(c >> 1) * a.d + 2 + w.f0() + f] : 0.0f;
+      }
+    }
+    double q[2][2] = {};
+    density(mu, lt, x, q, lp);
+  }
+
+  // One MH step (the plain version's, tile_mh.cuh's Walker::step).
+  __device__ void step(uint32_t st) {
+    draw(st);
+    const bool once = w.lead() && w.part == 0 && w.t == 0;  // mu's and log tau's q terms
+    float ym[2], yl[2], y[OWN][4], log_u[2];
+    double q[2][2] = {};  // pCN: log q(x -> y), log q(y -> x), before the -1/2
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = w.g + 8 * h;
+      ym[h] = gmt_mh::propose<PROP>(a, mu[h], zh[2 * r]);
+      yl[h] = gmt_mh::propose<PROP>(a, lt[h], zh[2 * r + 1]);
+      log_u[h] = lu[r];
+      if constexpr (PROP == gmt_mh::kPCN) {
+        if (once) {
+          q[0][h] += gmt_mh::q_term(a, mu[h], ym[h]) + gmt_mh::q_term(a, lt[h], yl[h]);
+          q[1][h] += gmt_mh::q_term(a, ym[h], mu[h]) + gmt_mh::q_term(a, yl[h], lt[h]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int f = feature(i, c);
+        y[i][c] = 0.0f;
+        if (real(f)) {
+          y[i][c] = gmt_mh::propose<PROP>(a, x[i][c], zf[(w.g + 8 * (c >> 1)) * 8 * PT + f]);
+          if constexpr (PROP == gmt_mh::kPCN) {
+            q[0][c >> 1] += gmt_mh::q_term(a, x[i][c], y[i][c]);
+            q[1][c >> 1] += gmt_mh::q_term(a, y[i][c], x[i][c]);
+          }
+        }
+      }
+    }
+    float lp_new[2];
+    density(ym, yl, y, q, lp_new);
+    bool accept[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      accept[h] = log_u[h] < gmt_mh::log_accept<PROP>(lp_new[h], lp[h], q[0][h],
+                                                      q[1][h]);  // NaN rejects
+      if (accept[h]) {
+        lp[h] = lp_new[h];
+        mu[h] = ym[h];
+        lt[h] = yl[h];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[i][c] = accept[c >> 1] ? y[i][c] : x[i][c];
+  }
+
+  __device__ void store(float* sample) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (w.lead() && w.part == 0 && w.t == 0 && rows.live(h)) {
+        const int64_t base = rows.row(h) * a.d;
+        sample[base] = mu[h];
+        sample[base + 1] = lt[h];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < OWN; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int f = feature(i, c);
+        if (rows.live(c >> 1) && real(f)) {
+          sample[rows.row(c >> 1) * a.d + 2 + w.f0() + f] = x[i][c];
+        }
+      }
+    }
+  }
+
+  // The whole run: n_discard + n_collect * thin steps, every thin-th
+  // post-burn-in state stored.
+  __device__ void run() {
+    init();
+    const int total = a.n_discard + a.n_collect * a.thin;
+    const int64_t sample = static_cast<int64_t>(a.n) * a.d;
+    float* dst = a.out;
+    int until_store = a.thin;
+    for (int s = 0; s < total; ++s) {
+      step(static_cast<uint32_t>(s));
+      if (s < a.n_discard || --until_store > 0) continue;
+      until_store = a.thin;
+      store(dst);
+      dst += sample;
+    }
+  }
+};
+
+// A cluster block's shared bytes at panels of `rows` observations through
+// `stages` stages of S-word rows: the stages, the partial logits, the
+// step's draws, the row sums in transit (64 NS doubles), the exchange
+// buffers, the ring's mbarriers and counts (64 bytes).
+__host__ __device__ constexpr size_t cluster_bytes(int rows, int stages, int S) {
+  constexpr int NS = gmt_logistic::kClusterNS;
+  return 4 * (static_cast<size_t>(stages) * rows * (2 * S + 1) +
+              static_cast<size_t>(NS) * rows * 16 +
+              ClusterWalk<gmt_mh::kRandomWalk, false>::kDrawWords + 128 * NS +
+              gmt_logistic::Cluster::words(rows)) +
+         64;
+}
+
+template <int PROP, bool CENTRED>
+__global__ void __launch_bounds__(gmt_logistic::kClusterNS * 32, 1)
+    fused_mh_logistic_cluster_kernel(const gmt_mh::Run a, const float* panels, int n_obs,
+                                     int rows, int count, int stages, int tiles) {
+  using Walk = ClusterWalk<PROP, CENTRED>;
+  constexpr int NS = gmt_logistic::kClusterNS;
+  extern __shared__ float4 shared[];
+  float* base = reinterpret_cast<float*>(shared);
+  const int S = 8 * tiles + gmt_logistic::kRowPad;
+  const size_t words = static_cast<size_t>(rows) * (2 * S + 1);
+  float* pl = base + stages * words;
+  float* zd = pl + static_cast<size_t>(NS) * rows * 16;
+  double* red = reinterpret_cast<double*>(zd + Walk::kDrawWords);
+  float* xbuf = reinterpret_cast<float*>(red + 64 * NS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(xbuf + gmt_logistic::Cluster::words(rows));
+  unsigned* released = reinterpret_cast<unsigned*>(full + gmt_logistic::kMaxStages);
+  gmt_logistic::Cluster cl;
+  cl.init(xbuf, rows);
+  const int64_t tile = blockIdx.x / cl.C;  // the cluster's tile of the launch
+  // the start's log density, then one a step
+  const int64_t densities = 1 + a.n_discard + static_cast<int64_t>(a.n_collect) * a.thin;
+  const bool keep = stages == 1;
+  const gmt_logistic::PanelRing ring{panels + static_cast<int64_t>(cl.rank) * count * words,
+                                     base, full, released, static_cast<int>(words), count,
+                                     stages, NS, keep ? 1 : densities * count, keep};
+  if (threadIdx.x == 0) ring.start();
+  __syncthreads();
+  typename Walk::W w(ring, reinterpret_cast<float4*>(pl), nullptr, nullptr, 0, rows, n_obs, &cl,
+                     tiles, cl.rank * 8 * tiles);
+  const gmt_tile::TileRows trows(tile, a.n, a.chain0, w.g);
+  Walk walk(w, a, trows, zd, red);
+  walk.run();
+  cl.sync();  // no block leaves while another may still read its shared memory
+}
+
 // The resident path: X staged once a block.
 template <int PROP, bool CENTRED>
 __global__ void __launch_bounds__((kWarps * kMaxTiles + kProducers) * 32, 1)
@@ -462,7 +776,8 @@ __global__ void __launch_bounds__((kWarps * kStreamTiles + kProducers) * 32, 1)
 // streamed path's panel rows, panels, ring stages and the words of its
 // split buffer.
 struct Layout {
-  int64_t tiles, per_block, blocks, bytes, producers, streamed, rows, panels, stages, scratch;
+  int64_t tiles, per_block, blocks, bytes, producers, streamed, rows, panels, stages, scratch,
+      cluster, features;
 };
 
 // The layout of a launch of `n` rows from `chain0` over `n_obs`
@@ -492,7 +807,7 @@ cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
     while (per_block > 1 && shared_bytes(n_pad, per_block) > limit) --per_block;
     *out = Layout{tiles, per_block, (tiles + per_block - 1) / per_block,
                   static_cast<int64_t>(shared_bytes(n_pad, per_block)), kProducers,
-                  0, 0, 0, 0, 0};
+                  0, 0, 0, 0, 0, 1, 8 * kPT};
     return cudaSuccess;
   }
   const auto fits = [&](int rows, int t) { return stream_bytes(rows, t) <= limit; };
@@ -508,7 +823,35 @@ cudaError_t layout(int n, unsigned int chain0, int n_obs, Layout* out) {
                 static_cast<int64_t>(stream_bytes(even, per_block)), kProducers, 1, even, count,
                 kStages,
                 static_cast<int64_t>(count) *
-                    static_cast<int64_t>(gmt_logistic::panel_words(kPT, even))};
+                    static_cast<int64_t>(gmt_logistic::panel_words(kPT, even)),
+                1, 8 * kPT};
+  return cudaSuccess;
+}
+
+// The cluster path's layout (fused_hmc_logistic.cu's cluster_layout): a
+// cluster a tile, no producer warps, the panels from the data's shape.
+cudaError_t cluster_layout(int n, unsigned int chain0, int n_obs, int p, Layout* out) {
+  const gmt_logistic::ClusterShape cs(p);
+  if (cs.C < 1) return cudaErrorInvalidValue;
+  int device = 0, shared_max = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&shared_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  const int S = cs.stride();
+  const auto fits = [&](int rows, int stages) {
+    return cluster_bytes(rows, stages, S) <= static_cast<size_t>(shared_max);
+  };
+  int rows = 0, panels = 0, stages = 0;
+  if (!gmt_logistic::cluster_panels(n_obs, fits, rows, panels, stages)) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t tiles = gmt_tile::launch_tiles(n, chain0);
+  *out = Layout{tiles, 1, tiles * cs.C, static_cast<int64_t>(cluster_bytes(rows, stages, S)), 0,
+                1, rows, panels, stages,
+                static_cast<int64_t>(cs.C) * panels *
+                    static_cast<int64_t>(gmt_logistic::panel_words(cs.tiles, rows)),
+                cs.C, 8 * cs.tiles};
   return cudaSuccess;
 }
 
@@ -516,16 +859,29 @@ template <int PROP, bool CENTRED>
 cudaError_t launch_as(const gmt_mh::Run& a, const float* X, const float* y, int n_obs,
                       const Layout& l, float* scratch, int64_t scratch_words,
                       cudaStream_t stream) {
-  if (l.streamed) {
+  if constexpr (kCluster) {
     if (scratch == nullptr || scratch_words < l.scratch ||
         reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
       return cudaErrorInvalidValue;
     }
-    const int64_t cells = l.panels * l.rows * kS;
-    const int grid = static_cast<int>((cells + 255) / 256 < 4096 ? (cells + 255) / 256 : 4096);
-    gmt_logistic::split_panels<kS><<<grid, 256, 0, stream>>>(
-        X, y, n_obs, a.d - 2, static_cast<int>(l.rows), static_cast<int>(l.panels), scratch);
-    cudaError_t err = cudaGetLastError();
+    const gmt_logistic::ClusterShape cs(a.d - 2);
+    const int rows = static_cast<int>(l.rows), panels = static_cast<int>(l.panels);
+    const cudaError_t err = gmt_logistic::launch_split(X, y, n_obs, a.d - 2, rows, panels,
+                                                       cs.stride(), cs.C, scratch, stream);
+    if (err != cudaSuccess) return err;
+    return gmt_logistic::launch_cluster(fused_mh_logistic_cluster_kernel<PROP, CENTRED>,
+                                        l.tiles, cs.C, gmt_logistic::kClusterNS * 32,
+                                        static_cast<size_t>(l.bytes), stream, a,
+                                        static_cast<const float*>(scratch), n_obs, rows, panels,
+                                        static_cast<int>(l.stages), cs.tiles);
+  } else if (l.streamed) {
+    if (scratch == nullptr || scratch_words < l.scratch ||
+        reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+      return cudaErrorInvalidValue;
+    }
+    cudaError_t err = gmt_logistic::launch_split(X, y, n_obs, a.d - 2, static_cast<int>(l.rows),
+                                                 static_cast<int>(l.panels), kS, 1, scratch,
+                                                 stream);
     if (err != cudaSuccess) return err;
     const auto kernel = fused_mh_logistic_streamed_kernel<PROP, CENTRED>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -560,16 +916,26 @@ cudaError_t launch_as(const gmt_mh::Run& a, const float* X, const float* y, int 
   }
 }
 
-// The feature tiles of p features, padded to a multiple of 16.
-__host__ constexpr int feature_tiles(int p) { return 2 * ((p + 15) / 16); }
+// Whether this build takes p features: the feature tiles it was built for
+// (p padded to a multiple of 16), or (the cluster build) past them, up to
+// kMaxCluster blocks.
+bool takes(int p) {
+  if (kCluster) return p > 8 * kPT && gmt_logistic::ClusterShape(p).C > 0;
+  return 2 * ((p + 15) / 16) == kPT;
+}
+
+// This build's layout of a launch (layout or cluster_layout).
+cudaError_t any_layout(int n, unsigned int chain0, int n_obs, int p, Layout* out) {
+  return kCluster ? cluster_layout(n, chain0, n_obs, p, out) : layout(n, chain0, n_obs, out);
+}
 
 cudaError_t launch(const gmt_mh::Run& a, const float* X, const float* y, int n_obs,
                    int proposal, int centred, float* scratch, int64_t scratch_words,
                    cudaStream_t stream) {
-  if (feature_tiles(a.d - 2) != kPT) return cudaErrorInvalidValue;
+  if (!takes(a.d - 2)) return cudaErrorInvalidValue;
   if (proposal != gmt_mh::kRandomWalk && proposal != gmt_mh::kPCN) return cudaErrorInvalidValue;
   Layout l;
-  cudaError_t err = layout(a.n, a.chain0, n_obs, &l);
+  cudaError_t err = any_layout(a.n, a.chain0, n_obs, a.d - 2, &l);
   if (err != cudaSuccess) return err;
   const int64_t sw = scratch_words;
   if (proposal == gmt_mh::kPCN) {
@@ -590,7 +956,8 @@ cudaError_t launch(const gmt_mh::Run& a, const float* X, const float* y, int n_o
 // path); proposal 0 the random walk (p0 its scale), 1 pCN (p0, p1, p2: rho,
 // beta, 1 / beta); centred 1 for HierarchicalLogistic, 0 for
 // HierarchicalLogisticNC; built for 8 GMT_LOGISTIC_PT - 15 <= p <=
-// 8 GMT_LOGISTIC_PT.
+// 8 GMT_LOGISTIC_PT, or with GMT_LOGISTIC_CLUSTER for 8 GMT_LOGISTIC_PT < p
+// <= 8 kMaxCluster GMT_LOGISTIC_PT.
 extern "C" int fused_mh_logistic_launch(const void* x0, const void* X, const void* y,
                                         void* out, void* scratch, long long scratch_words,
                                         int n, int p, int n_obs, int n_collect,
@@ -610,19 +977,18 @@ extern "C" int fused_mh_logistic_launch(const void* x0, const void* X, const voi
 // The layout fused_mh_logistic_launch gives n rows of p features and n_obs
 // observations from chain0 on the current device: out = {tiles, tiles a
 // block, blocks, dynamic shared bytes a block, producer warps a block,
-// streamed (0 or 1), panel rows, panels, ring stages, split buffer words}
-// (the last four 0 on the resident path).
+// streamed (0 or 1), panel rows, panels, ring stages, split buffer words,
+// blocks a cluster, features a block} (panel rows to split buffer words 0
+// on the resident path).
 extern "C" int fused_mh_logistic_layout(int n, int p, int n_obs, unsigned int chain0,
                                         long long* out) {
-  if (n < 1 || p < 1 || n_obs < 1 || feature_tiles(p) != kPT) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n < 1 || p < 1 || n_obs < 1 || !takes(p)) return static_cast<int>(cudaErrorInvalidValue);
   Layout l;
-  const cudaError_t err = layout(n, chain0, n_obs, &l);
+  const cudaError_t err = any_layout(n, chain0, n_obs, p, &l);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t v[10] = {l.tiles, l.per_block, l.blocks,  l.bytes,  l.producers,
-                         l.streamed, l.rows,    l.panels, l.stages, l.scratch};
-  for (int i = 0; i < 10; ++i) out[i] = v[i];
+  const int64_t v[12] = {l.tiles,  l.per_block, l.blocks, l.bytes,   l.producers, l.streamed,
+                         l.rows,   l.panels,    l.stages, l.scratch, l.cluster,   l.features};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 

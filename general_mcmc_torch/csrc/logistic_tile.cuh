@@ -25,6 +25,19 @@
 // their registers do not grow with p (up to 256 features, 32 feature
 // tiles).
 //
+// Past 256 features, a cluster (the cluster path, below): a tile of 16
+// chains is held by a cluster of C <= 8 blocks, block `rank` holding a
+// contiguous share of the feature tiles (its slice of beta or z, momentum,
+// gradient and opening copies) and its own columns of X, split into hi and
+// lo per slice (split_panels' `slices`) and read through its own ring, or
+// kept in one stage where the observations fit (PanelRing's `keep`).  Each
+// block's partial logits of a panel are summed over the cluster through
+// distributed shared memory, in rank order, so every block holds the same
+// logits, r and log-likelihood; g += r X stays with each block's features.
+// The hyper sums and the row sums (kinetic energies, the prior's squares)
+// cross the cluster the same way, so every block takes the same accept
+// decision.
+//
 // Layout of a tile (NS warps, `part` 0..NS - 1): lane (g = lane / 4,
 // t = lane % 4) holds rows (chains) 16 m + g + 8 h, m < MT, h in {0, 1};
 // unit q = (m, j) (row tile m, feature tile j < PT) is owned by warp q % NS,
@@ -33,11 +46,16 @@
 // q = part + NS i.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tile_hmc.cuh"
+
 namespace gmt_logistic {
+
+namespace cg = cooperative_groups;
 
 constexpr int kSplit = 4;     // warps that share a tile of 32 chains
 constexpr int kMaxTiles = 3;  // tiles a block: 12 warps of at most 168 registers a lane
@@ -508,28 +526,44 @@ __host__ __device__ constexpr size_t panel_words(int pt, int rows) {
   return static_cast<size_t>(rows) * (2 * (pt * 8 + kRowPad) + 1);
 }
 
-// X [n_obs, p] and y split into `panels` panels of `rows` observations each
-// (zero past n_obs and p): the buffer the streamed kernels copy their ring's
-// stages from, written once a launch.
-template <int S>
+// X [n_obs, p] and y split into `slices` slices of S - kRowPad features
+// (slice r: features from r (S - kRowPad); one slice but on the cluster
+// path), each into `panels` panels of `rows` observations (zero past n_obs,
+// p and the slice), slice r's panels from out + r panels words: the buffer
+// the streamed kernels copy their rings' stages from, written once a launch.
 __global__ void split_panels(const float* X, const float* y, int n_obs, int p, int rows,
-                             int panels, float* out) {
+                             int panels, int S, int slices, float* out) {
   const int64_t words = static_cast<int64_t>(rows) * (2 * S + 1);
-  const int64_t cells = static_cast<int64_t>(panels) * rows * S;
+  const int64_t span = static_cast<int64_t>(panels) * rows;  // observations a slice
+  const int64_t cells = slices * span * S;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int width = S - kRowPad;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < cells;
        i += stride) {
-    const int64_t obs = i / S;
+    const int64_t at = i / S;
     const int j = static_cast<int>(i % S);
+    const int64_t obs = at % span;
+    const int64_t slice = at / span;
+    const int64_t f = slice * width + j;
     const int64_t k = obs / rows;
     const int r = static_cast<int>(obs % rows);
     uint32_t hi, lo;
-    split_tf32((obs < n_obs && j < p) ? X[obs * p + j] : 0.0f, hi, lo);
-    float* panel = out + k * words;
+    split_tf32((obs < n_obs && j < width && f < p) ? X[obs * p + f] : 0.0f, hi, lo);
+    float* panel = out + (slice * panels + k) * words;
     panel[r * S + j] = __uint_as_float(hi);
     panel[static_cast<int64_t>(rows) * S + r * S + j] = __uint_as_float(lo);
     if (j == 0) panel[2 * static_cast<int64_t>(rows) * S + r] = obs < n_obs ? y[obs] : 0.0f;
   }
+}
+
+// split_panels' launch on `stream`: at most 4,096 blocks of 256 threads.
+inline cudaError_t launch_split(const float* X, const float* y, int n_obs, int p, int rows,
+                                int panels, int S, int slices, float* out,
+                                cudaStream_t stream) {
+  const int64_t cells = static_cast<int64_t>(slices) * panels * rows * S;
+  const int grid = static_cast<int>((cells + 255) / 256 < 4096 ? (cells + 255) / 256 : 4096);
+  split_panels<<<grid, 256, 0, stream>>>(X, y, n_obs, p, rows, panels, S, slices, out);
+  return cudaGetLastError();
 }
 
 // The ring of shared-memory stages through which a block reads the panels
@@ -542,7 +576,9 @@ __global__ void split_panels(const float* X, const float* y, int n_obs, int p, i
 // warp waits for a slot to refill it and no warp is spent on the copies.
 // A warp waits only for panels that every warp has let through to the
 // ring, so the ring cannot deadlock: the warp furthest behind never waits
-// for anything but a copy in flight.
+// for anything but a copy in flight.  With `keep` (one panel, one stage,
+// total 1) the panel is copied once and kept: every wait is the first
+// copy's, and a release refills nothing.
 struct PanelRing {
   const float* src;     // the split panels in device memory
   float* stage;         // [stages][words] in shared memory
@@ -550,6 +586,7 @@ struct PanelRing {
   unsigned* released;   // [kMaxStages] releases of the stage's current panel
   int words, panels, stages, consumers;
   int64_t total;        // panels of the block's sequence
+  bool keep;
 
   __device__ float* at(int s) const { return stage + static_cast<size_t>(s) * words; }
 
@@ -583,6 +620,7 @@ struct PanelRing {
 
   // The whole warp: panel q, once it has landed.
   __device__ const float* wait(int64_t q) const {
+    if (keep) q = 0;
     const int s = static_cast<int>(q % stages);
     const uint32_t b = smem_addr(full + s);
     const uint32_t parity = static_cast<uint32_t>((q / stages) & 1);
@@ -601,6 +639,7 @@ struct PanelRing {
   // The whole warp, after its last read of panel q: the last of the
   // consumers to release the stage issues the copy of panel q + stages.
   __device__ void release(int64_t q) const {
+    if (keep) return;
     __syncwarp();
     if ((threadIdx.x & 31) == 0) {
       const int s = static_cast<int>(q % stages);
@@ -672,6 +711,135 @@ __device__ __forceinline__ void panel_loglik(const uint4* bf, const uint32_t* xh
   if (i0 < rows) loglik_pass<PT, 2>(bf, xh, xl, ys, lane, i0, valid, ll);
 }
 
+// ---------------------------------------------------------------------------
+// The cluster path.
+
+constexpr int kClusterPT = 32;  // most feature tiles a block: 8 warps of 4
+constexpr int kClusterNS = 8;   // warps a block (the tile's warps)
+constexpr int kMaxCluster = 8;  // blocks a cluster (the portable size)
+constexpr int kClusterNV = 4;   // row sums an exchange carries at most
+constexpr int kClusterRows = 256;  // most observations a panel
+
+// How the cluster path splits p features: C blocks of `tiles` 8-feature
+// tiles each (the last holding what is left), C the fewest of at most
+// kClusterPT tiles; C 0 past kMaxCluster blocks.
+struct ClusterShape {
+  int C, tiles;
+  __host__ __device__ explicit ClusterShape(int p) {
+    const int pt = 2 * ((p + 15) / 16);
+    C = (pt + kClusterPT - 1) / kClusterPT;
+    tiles = C > 0 ? (pt + C - 1) / C : 0;
+    if (C > kMaxCluster) C = 0;
+  }
+  // the row stride of a block's slice of X in shared memory
+  __host__ __device__ int stride() const { return 8 * tiles + kRowPad; }
+};
+
+// A block's side of its cluster's exchanges: its rank, its buffers (read
+// by every block of the cluster through distributed shared memory) and
+// their parity.  An exchange writes this block's buffers of one parity,
+// synchronises the cluster (barrier.cluster orders the writes before it
+// for every read after it), and reads every block's, in rank order, so
+// every block sums the same numbers in the same order; the next exchange
+// writes the other parity, so a buffer is written again only after the
+// sync that follows every read of it (wide_lanes.cuh's exchanges).
+struct Cluster {
+  float4* logits;  // [2][rows / 8][32] the block's partial logits of a panel
+  float* hyper;    // [2][4][32] the block's hyper sums
+  double* sums;    // [2][kClusterNV][2][8] the block's row sums
+  int C, rank, nt, par;
+
+  __device__ void init(float* base, int rows) {
+    cg::cluster_group cl = cg::this_cluster();
+    C = static_cast<int>(cl.num_blocks());
+    rank = static_cast<int>(cl.block_rank());
+    nt = rows / 8;
+    par = 0;
+    logits = reinterpret_cast<float4*>(base);
+    hyper = base + 2 * rows * 16;
+    sums = reinterpret_cast<double*>(hyper + 2 * 4 * 32);
+  }
+  // Words of the buffers at panels of `rows` observations.
+  __host__ __device__ static constexpr size_t words(int rows) {
+    return static_cast<size_t>(2) * rows * 16 + 2 * 4 * 32 + 2 * (2 * kClusterNV * 2 * 8);
+  }
+  // Block r's copy of this block's buffer p.
+  template <class T>
+  __device__ __forceinline__ const T* from(T* p, int r) const {
+    if (r == rank) return p;
+    return cg::this_cluster().map_shared_rank(p, static_cast<unsigned int>(r));
+  }
+  __device__ __forceinline__ void sync() const { cg::this_cluster().sync(); }
+  __device__ __forceinline__ void flip() { par ^= 1; }
+
+  // After the sync: the cluster's logits of 8-observation tile u of the
+  // panel (the lane's float4), the blocks' partials added in rank order.
+  __device__ __forceinline__ float4 logit(int u, int lane) const {
+    const int at = (par * nt + u) * 32 + lane;
+    float4 l = from(logits, 0)[at];
+    for (int r = 1; r < C; ++r) {
+      const float4 e = from(logits, r)[at];
+      l.x = l.x + e.x;
+      l.y = l.y + e.y;
+      l.z = l.z + e.z;
+      l.w = l.w + e.w;
+    }
+    return l;
+  }
+};
+
+// A cluster launch of `kernel`: `tiles` clusters of C blocks of `threads`
+// threads, `bytes` of dynamic shared memory a block.  Fails where no
+// cluster of that size fits the card (cudaOccupancyMaxActiveClusters).
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int64_t tiles, int C, int threads, size_t bytes,
+                           cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned int>(tiles * C));
+  cfg.blockDim = dim3(static_cast<unsigned int>(threads));
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned int>(C);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The cluster path's panels at `n_obs` observations, from the data's shape
+// alone (chain0 keeps a chain's sums): all of them in one stage, kept,
+// where they fit (fits(rows, stages)) in at most kClusterRows, else two
+// stages of the largest panel that fits (a multiple of 32, at most
+// kClusterRows), evened out over the panels it takes.  False where not
+// even 32 rows fit.
+template <class Fits>
+__host__ bool cluster_panels(int n_obs, const Fits& fits, int& rows, int& panels, int& stages) {
+  const int all = 32 * ((n_obs + 31) / 32);
+  if (all <= kClusterRows && fits(all, 1)) {
+    rows = all;
+    panels = stages = 1;
+    return true;
+  }
+  stages = 2;
+  rows = all < kClusterRows ? all : kClusterRows;
+  while (rows > 32 && !fits(rows, stages)) rows -= 32;
+  if (!fits(rows, stages)) return false;
+  panels = (n_obs + rows - 1) / rows;
+  rows = 32 * (((n_obs + panels - 1) / panels + 31) / 32);
+  return true;
+}
+
 // K1's gradient on the streamed path, for a tile of 16 chains and NS warps,
 // the feature tiles dealt over the warps (warp `part` owns tiles part + NS i,
 // i < OWN; OWN NS >= PT, the tiles past PT empty): beta and the gradient of
@@ -694,21 +862,33 @@ __device__ __forceinline__ void panel_loglik(const uint4* bf, const uint32_t* xh
 // the barrier before (3) of this one, and (2) of the next the barrier after
 // the next (1).  Between gradients the partials' space is free (the
 // kernel keeps the momenta as drawn there).
-template <int PT, int NS_>
+//
+// CLUSTER: the tile is the block's share of a cluster's tile (the cluster
+// path): its `tiles` feature tiles from feature f0, its slice of X S words a
+// row.  (2) adds the warps' partials into the block's exchange buffer, the
+// cluster syncs, and every block adds the blocks' partials in rank order;
+// only the lead block (rank 0) counts the log-likelihood, every block's
+// being the same.  The hyper sums and the row sums cross the cluster the
+// same way after the tile's own sums.  K3 takes the forward pass alone
+// (loglik_grad<false>: (1) and (2), no r).
+template <int PT, int NS_, bool CLUSTER = false>
 struct PanelGrad {
   static constexpr int NS = NS_;
   static constexpr int OWN = (PT + NS - 1) / NS;
-  static constexpr int S = PT * 8 + kRowPad;
   const PanelRing& ring;
   float4* pl;   // [NS][rows / 8][32] partial logits
   uint4* rf;    // [rows / 8][hi, lo][32] r as A fragments
   float* sm;    // [NS][4][32] the hyper sums in transit
+  Cluster* cl;  // CLUSTER: the exchanges
   int lane, part, g, t, bar, rows, n_obs;
+  int ct, cf0;  // CLUSTER: the block's feature tiles and first feature
   int64_t q = 0;  // the next panel of the ring's sequence
 
   __device__ PanelGrad(const PanelRing& ring_, float4* pl_, uint4* rf_, float* sm_, int tile,
-                       int rows_, int n_obs_)
-      : ring(ring_), pl(pl_), rf(rf_), sm(sm_), rows(rows_), n_obs(n_obs_) {
+                       int rows_, int n_obs_, Cluster* cl_ = nullptr, int tiles_ = PT,
+                       int f0_ = 0)
+      : ring(ring_), pl(pl_), rf(rf_), sm(sm_), cl(cl_), rows(rows_), n_obs(n_obs_),
+        ct(tiles_), cf0(f0_) {
     lane = threadIdx.x & 31;
     part = (threadIdx.x >> 5) % NS;
     g = lane >> 2;
@@ -716,16 +896,34 @@ struct PanelGrad {
     bar = 1 + tile;
   }
 
+  // the block's feature tiles, first feature and row stride of X
+  __device__ __forceinline__ int tiles() const {
+    if constexpr (CLUSTER) return ct;
+    return PT;
+  }
+  __device__ __forceinline__ int f0() const {
+    if constexpr (CLUSTER) return cf0;
+    return 0;
+  }
+  __device__ __forceinline__ int fb() const { return 8 * tiles(); }
+  __device__ __forceinline__ int stride() const { return 8 * tiles() + kRowPad; }
+  // whether this block counts the terms a row has once (mu's, log tau's)
+  __device__ __forceinline__ bool lead() const {
+    if constexpr (CLUSTER) return cl->rank == 0;
+    return true;
+  }
+
   __device__ __forceinline__ void sync() const { named_barrier(bar, NS * 32); }
-  __device__ __forceinline__ bool owns(int i) const { return part + NS * i < PT; }
+  __device__ __forceinline__ bool owns(int i) const { return part + NS * i < tiles(); }
 
   // The gradient of the log-likelihood in beta, gl, of the own units, from
   // beta of the own units; with `value` also the lane's part of its rows'
-  // log-likelihood, added to ll.
+  // log-likelihood, added to ll.  GRAD false: the log-likelihood alone.
+  template <bool GRAD = true>
   __device__ void loglik_grad(const float (&beta)[OWN][4], float (&gl)[OWN][4], double (&ll)[2],
                               bool value) {
     uint4 ah[OWN], al[OWN];  // a_i <- c_{0, 2, 1, 3}
-    double gd[OWN][4];       // g over the panels so far
+    double gd[GRAD ? OWN : 1][4];  // g over the panels so far
 #pragma unroll
     for (int i = 0; i < OWN; ++i) {
       uint32_t hi[4], lo[4];
@@ -733,12 +931,16 @@ struct PanelGrad {
       for (int k = 0; k < 4; ++k) split_tf32(beta[i][((k & 1) << 1) | (k >> 1)], hi[k], lo[k]);
       ah[i] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
       al[i] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      if constexpr (GRAD) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) gd[i][c] = 0.0;
+        for (int c = 0; c < 4; ++c) gd[i][c] = 0.0;
+      }
     }
     const int nt = rows / 8;
+    const int S = stride();
     const int off1 = g * S + t;
     const int off2 = 2 * t * S + (g >> 1) + 4 * (g & 1);
+    const bool count = value && lead();
     for (int k = 0; k < ring.panels; ++k, ++q) {
       const uint32_t* xh = reinterpret_cast<const uint32_t*>(ring.wait(q));
       const uint32_t* xl = xh + rows * S;
@@ -756,8 +958,8 @@ struct PanelGrad {
         pl[(part * nt + u) * 32 + lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
       }
       sync();
-      // (2) the logits, r and the log-likelihood of this warp's 8-observation tiles
-      for (int u = part; u < nt; u += NS) {
+      // the warps' partials of an 8-observation tile, added in one order
+      const auto block_logit = [&](int u) {
         float4 l = pl[u * 32 + lane];
 #pragma unroll
         for (int w = 1; w < NS; ++w) {
@@ -767,8 +969,24 @@ struct PanelGrad {
           l.z = l.z + e.z;
           l.w = l.w + e.w;
         }
+        return l;
+      };
+      if constexpr (CLUSTER) {
+        for (int u = part; u < nt; u += NS) {
+          cl->logits[(cl->par * nt + u) * 32 + lane] = block_logit(u);
+        }
+        cl->sync();
+      }
+      // (2) the logits, r and the log-likelihood of this warp's 8-observation tiles
+      for (int u = part; u < nt; u += NS) {
+        float4 l;
+        if constexpr (CLUSTER) {
+          l = cl->logit(u, lane);
+        } else {
+          l = block_logit(u);
+        }
         const float2 yv = *reinterpret_cast<const float2*>(ys + 8 * u + 2 * t);
-        if (value) {
+        if (count) {
           const int obs = k * rows + 8 * u + 2 * t;
           if (obs < n_obs) {
             ll[0] += static_cast<double>(loglik_term(yv.x, l.x));
@@ -779,51 +997,61 @@ struct PanelGrad {
             ll[1] += static_cast<double>(loglik_term(yv.y, l.w));
           }
         }
-        uint4 rh, rl;  // r as A fragments: a_i <- c_{0, 2, 1, 3}
-        split_tf32(yv.x - sigmoidf(l.x), rh.x, rl.x);
-        split_tf32(yv.x - sigmoidf(l.z), rh.y, rl.y);
-        split_tf32(yv.y - sigmoidf(l.y), rh.z, rl.z);
-        split_tf32(yv.y - sigmoidf(l.w), rh.w, rl.w);
-        rf[(2 * u) * 32 + lane] = rh;
-        rf[(2 * u + 1) * 32 + lane] = rl;
+        if constexpr (GRAD) {
+          uint4 rh, rl;  // r as A fragments: a_i <- c_{0, 2, 1, 3}
+          split_tf32(yv.x - sigmoidf(l.x), rh.x, rl.x);
+          split_tf32(yv.x - sigmoidf(l.z), rh.y, rl.y);
+          split_tf32(yv.y - sigmoidf(l.y), rh.z, rl.z);
+          split_tf32(yv.y - sigmoidf(l.w), rh.w, rl.w);
+          rf[(2 * u) * 32 + lane] = rh;
+          rf[(2 * u + 1) * 32 + lane] = rl;
+        }
       }
-      sync();
-      // (3) the panel's r X, own feature tiles
+      if constexpr (CLUSTER) cl->flip();
+      if constexpr (GRAD) {
+        sync();
+        // (3) the panel's r X, own feature tiles
 #pragma unroll
-      for (int i = 0; i < OWN; ++i)
+        for (int i = 0; i < OWN; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) gl[i][c] = 0.0f;
-      for (int u = 0; u < nt; ++u) {
-        const uint4 rh = rf[(2 * u) * 32 + lane];
-        const uint4 rl = rf[(2 * u + 1) * 32 + lane];
+          for (int c = 0; c < 4; ++c) gl[i][c] = 0.0f;
+        for (int u = 0; u < nt; ++u) {
+          const uint4 rh = rf[(2 * u) * 32 + lane];
+          const uint4 rl = rf[(2 * u + 1) * 32 + lane];
 #pragma unroll
-        for (int i = 0; i < OWN; ++i) {
-          if (owns(i)) {
-            const int at = 8 * u * S + off2 + 8 * (part + NS * i);
-            mma_3x(gl[i], rh, rl, xh[at], xh[at + S], xl[at], xl[at + S]);
+          for (int i = 0; i < OWN; ++i) {
+            if (owns(i)) {
+              const int at = 8 * u * S + off2 + 8 * (part + NS * i);
+              mma_3x(gl[i], rh, rl, xh[at], xh[at + S], xl[at], xl[at + S]);
+            }
           }
         }
       }
       ring.release(q);
+      if constexpr (GRAD) {
+#pragma unroll
+        for (int i = 0; i < OWN; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) gd[i][c] += static_cast<double>(gl[i][c]);
+      }
+    }
+    if constexpr (GRAD) {
 #pragma unroll
       for (int i = 0; i < OWN; ++i)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) gd[i][c] += static_cast<double>(gl[i][c]);
+        for (int c = 0; c < 4; ++c) gl[i][c] = static_cast<float>(gd[i][c]);
     }
-#pragma unroll
-    for (int i = 0; i < OWN; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) gl[i][c] = static_cast<float>(gd[i][c]);
   }
 
   // The two hyper sums of rows (0, h) at [2 h] and [2 h + 1]: sum g and
   // sum z g, or with POSITION (the centred target) sum z and sum z^2 of the
   // own units' z (there beta - mu, zero past p); a warp's own units, the
   // four lanes of a row by two shuffles, then the NS warps through shared
-  // memory, every warp adding them in one order.  One barrier of the tile.
+  // memory, every warp adding them in one order.  One barrier of the tile
+  // (and, CLUSTER, the blocks' sums in rank order: one cluster sync).
   template <bool POSITION>
   __device__ void hyper_sums(const float (&gl)[OWN][4], const float (&z)[OWN][4],
-                             float (&sums)[4]) const {
+                             float (&sums)[4]) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) sums[k] = 0.0f;
 #pragma unroll
@@ -852,6 +1080,49 @@ struct PanelGrad {
 #pragma unroll
       for (int w = 1; w < NS; ++w) v = v + sm[(w * 4 + k) * 32 + lane];
       sums[k] = v;
+    }
+    if constexpr (CLUSTER) {
+      float* mine = cl->hyper + cl->par * 4 * 32 + lane;
+      if (part == 0) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) mine[k * 32] = sums[k];
+      }
+      cl->sync();
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float v = cl->from(mine, 0)[k * 32];
+        for (int r = 1; r < cl->C; ++r) v = v + cl->from(mine, r)[k * 32];
+        sums[k] = v;
+      }
+      cl->flip();
+    }
+  }
+
+  // Row sums of the tile (tile_hmc.cuh's row_sums through `red`), and,
+  // CLUSTER, of the cluster: the blocks' sums added in rank order.
+  template <int NV>
+  __device__ void row_sums(double (&v)[NV][2], double* red) {
+    static_assert(NV <= kClusterNV, "at most kClusterNV row sums an exchange");
+    gmt_tile::row_sums<NV, NS>(v, red, part, g, t, [&] { sync(); });
+    if constexpr (CLUSTER) {
+      double* mine = cl->sums + cl->par * (kClusterNV * 2 * 8) + g;
+      if (part == 0 && t == 0) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mine[(k * 2 + h) * 8] = v[k][h];
+      }
+      cl->sync();
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          double s = cl->from(mine, 0)[(k * 2 + h) * 8];
+          for (int r = 1; r < cl->C; ++r) s += cl->from(mine, r)[(k * 2 + h) * 8];
+          v[k][h] = s;
+        }
+      }
+      cl->flip();
     }
   }
 

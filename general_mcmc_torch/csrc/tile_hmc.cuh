@@ -109,18 +109,18 @@ struct TileRows {
   __device__ __forceinline__ uint32_t key(int h) const { return key_at(g + 8 * h); }
 };
 
-// The momentum normals of groups 0 .. groups - 1 (coordinates 0 ..
-// 4 groups - 1) of the tile's rows at a step: each Philox block once, by
+// The momentum normals of groups first .. groups - 1 (coordinates 4 first
+// .. 4 groups - 1) of the tile's rows at a step: each Philox block once, by
 // the `nthreads` threads of the tile from `tid`, its four normals (Box-
 // Muller of words 0, 1 and of words 2, 3, the cosine branch first) handed
 // to sink(tile row, coordinate, normal).  The caller synchronises the tile
 // before reading what the sink wrote.
 template <class Sink>
 __device__ __forceinline__ void tile_normals(uint32_t seed, const TileRows& rows, uint32_t step,
-                                             int groups, int tid, int nthreads,
+                                             int first, int groups, int tid, int nthreads,
                                              const Sink& sink) {
-  for (int idx = tid; idx < kRows * groups; idx += nthreads) {
-    const int r = idx % kRows, grp = idx / kRows;
+  for (int idx = tid; idx < kRows * (groups - first); idx += nthreads) {
+    const int r = idx % kRows, grp = first + idx / kRows;
     const uint4 b = gmt::counter_bits(seed, rows.key_at(r), step, static_cast<uint32_t>(grp),
                                       gmt::kTagMomentum);
     float z0, z1, z2, z3;
@@ -131,6 +131,14 @@ __device__ __forceinline__ void tile_normals(uint32_t seed, const TileRows& rows
     sink(r, 4 * grp + 2, z2);
     sink(r, 4 * grp + 3, z3);
   }
+}
+
+// Groups 0 .. groups - 1.
+template <class Sink>
+__device__ __forceinline__ void tile_normals(uint32_t seed, const TileRows& rows, uint32_t step,
+                                             int groups, int tid, int nthreads,
+                                             const Sink& sink) {
+  tile_normals(seed, rows, step, 0, groups, tid, nthreads, sink);
 }
 
 // log u of a chain's accept draw at a step.

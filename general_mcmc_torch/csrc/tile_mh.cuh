@@ -179,6 +179,29 @@ __device__ void produce(const Run& a, const Ring<NB>& ring, int64_t tile0, int c
   }
 }
 
+// The proposal from x and the normal z, as the plain version's propose.
+template <int PROP>
+__device__ __forceinline__ float propose(const Run& a, float xv, float z) {
+  if constexpr (PROP == kRandomWalk) return __fadd_rn(xv, __fmul_rn(a.p0, z));
+  return __fadd_rn(__fmul_rn(a.p0, xv), __fmul_rn(a.p1, z));
+}
+// One element's term of pCN's log q(from -> to) sum: ((to - rho from) / beta)^2.
+__device__ __forceinline__ double q_term(const Run& a, float from, float to) {
+  const float diff = __fmul_rn(__fsub_rn(to, __fmul_rn(a.p0, from)), a.p2);
+  return static_cast<double>(__fmul_rn(diff, diff));
+}
+// The log accept ratio of a row: lp' - lp, or with pCN (lp' + q(y -> x)) -
+// (lp + q(x -> y)) from the q sums before their -1/2, rounded once to float.
+template <int PROP>
+__device__ __forceinline__ float log_accept(float lp_new, float lp, double q_fwd, double q_bwd) {
+  if constexpr (PROP == kPCN) {
+    const float f = __fmul_rn(-0.5f, static_cast<float>(q_fwd));
+    const float b = __fmul_rn(-0.5f, static_cast<float>(q_bwd));
+    return __fsub_rn(__fadd_rn(lp_new, b), __fadd_rn(lp, f));
+  }
+  return __fsub_rn(lp_new, lp);
+}
+
 __device__ __forceinline__ float4 f4(const float (&v)[4]) {
   return make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -221,15 +244,8 @@ struct Walker {
     target.density(lp);
   }
 
-  // The proposal from x and the normal z, as the plain version's propose.
   __device__ __forceinline__ float move(float xv, float z) const {
-    if constexpr (PROP == kRandomWalk) return __fadd_rn(xv, __fmul_rn(a.p0, z));
-    return __fadd_rn(__fmul_rn(a.p0, xv), __fmul_rn(a.p1, z));
-  }
-  // One element's term of pCN's log q(from -> to) sum: ((to - rho from) / beta)^2.
-  __device__ __forceinline__ double q_term(float from, float to) const {
-    const float diff = __fmul_rn(__fsub_rn(to, __fmul_rn(a.p0, from)), a.p2);
-    return static_cast<double>(__fmul_rn(diff, diff));
+    return propose<PROP>(a, xv, z);
   }
 
   // One MH step from a slot's normals zy (overwritten by the proposal where
@@ -247,8 +263,8 @@ struct Walker {
       for (int c = 0; c < 2 * R; ++c) {
         y[c] = move(xv[c], z[c]);
         if constexpr (PROP == kPCN) {
-          q[0][c >> 1] += q_term(xv[c], y[c]);
-          q[1][c >> 1] += q_term(y[c], xv[c]);
+          q[0][c >> 1] += q_term(a, xv[c], y[c]);
+          q[1][c >> 1] += q_term(a, y[c], xv[c]);
         }
       }
       if constexpr (NW == 1) {
@@ -265,15 +281,8 @@ struct Walker {
     bool accept[R];
 #pragma unroll
     for (int h = 0; h < R; ++h) {
-      float log_accept;
-      if constexpr (PROP == kPCN) {
-        const float q_fwd = __fmul_rn(-0.5f, static_cast<float>(q[0][h]));
-        const float q_bwd = __fmul_rn(-0.5f, static_cast<float>(q[1][h]));
-        log_accept = __fsub_rn(__fadd_rn(lp_new[h], q_bwd), __fadd_rn(lp[h], q_fwd));
-      } else {
-        log_accept = __fsub_rn(lp_new[h], lp[h]);
-      }
-      accept[h] = log_u[(lane >> 2) + 8 * h] < log_accept;  // NaN rejects
+      accept[h] = log_u[(lane >> 2) + 8 * h] <
+                  log_accept<PROP>(lp_new[h], lp[h], q[0][h], q[1][h]);  // NaN rejects
       if (accept[h]) lp[h] = lp_new[h];
     }
     if (!accept[0] && !accept[1]) return;

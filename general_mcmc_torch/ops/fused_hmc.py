@@ -20,9 +20,10 @@ own on the tensor cores, which share their HMC (``csrc/tile_hmc.cuh``): a
 ``GaussianND`` with a dense covariance (``d <= MAX_DENSE_DIM``,
 :mod:`.fused_hmc_dense`) and the hierarchical logistic targets,
 ``HierarchicalLogisticNC`` and the centred ``HierarchicalLogistic``
-(``p <= fused_hmc_logistic.MAX_FEATURES`` = 256, any number of
+(``p <= fused_hmc_logistic.MAX_FEATURES`` = 2,048, any number of
 observations: :mod:`.fused_hmc_logistic`, X resident in shared memory or
-streamed through it in panels).  ``mass_inv`` is a diagonal.  Anything else
+streamed through it in panels, past 256 features a tile's features split
+over a cluster of blocks).  ``mass_inv`` is a diagonal.  Anything else
 raises: a Python callable, the discrete targets, a dense ``mass_inv``.
 
 The kernel gives each chain a group of lanes of a warp and each lane a few

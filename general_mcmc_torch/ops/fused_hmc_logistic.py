@@ -19,10 +19,15 @@ step loop over the target's ``unnorm_logp_grad``.
 X stays in one block's shared memory where it fits beside a tile and
 ``p <= 48`` (the resident path); past that the kernel streams it through a
 ring of shared-memory stages in panels of observations (the streamed path),
-so the kernel takes any number of observations and up to
-``MAX_FEATURES`` = 256 features.  The kernel's host code chooses the path
-and the panel, and :func:`launch_layout` reports them; both paths are
-kernels, and a launch that fails raises.
+so the kernel takes any number of observations.  A block holds up to
+``MAX_BLOCK_FEATURES`` = 256 features; past that a tile of 16 chains is
+held by a cluster of up to ``MAX_CLUSTER`` = 8 blocks, each a share of the
+features and its columns of X, their partial logits and sums added across
+the cluster through distributed shared memory (the cluster path, one build
+of 32 feature tiles a block whatever the width), up to ``MAX_FEATURES`` =
+2,048 features.  The kernel's host code chooses the path, the cluster and
+the panel, and :func:`launch_layout` reports them; every path is a kernel,
+and a launch that fails raises.
 
 Both read the same counter-generator draws at K1's addresses, but the
 kernel's products sum in another order than ``torch.matmul`` and carry the
@@ -41,18 +46,23 @@ from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
 
 __all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "feature_tiles",
-           "MAX_FEATURES", "MAX_RESIDENT_FEATURES"]
+           "build_defines", "MAX_FEATURES", "MAX_BLOCK_FEATURES", "MAX_CLUSTER",
+           "MAX_RESIDENT_FEATURES"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
-# What csrc/fused_hmc_logistic.cu is built for: up to 256 features (32
-# feature tiles, one build each); X resident in shared memory up to 48.
-MAX_FEATURES = 256
+# What csrc/fused_hmc_logistic.cu is built for: up to 256 features a block
+# (32 feature tiles, one build for each count of them), on clusters of up
+# to 8 blocks past that (one build), so up to 2,048 features; X resident in
+# shared memory up to 48.
+MAX_BLOCK_FEATURES = 256
+MAX_CLUSTER = 8
+MAX_FEATURES = MAX_CLUSTER * MAX_BLOCK_FEATURES
 MAX_RESIDENT_FEATURES = 48
 
 _LAYOUT = ("tiles", "tiles_a_block", "blocks", "shared_bytes", "streamed", "panel_rows",
-           "panels", "stages", "scratch_words")
+           "panels", "stages", "scratch_words", "cluster_blocks", "features_a_block")
 # The most observations a panel (kMaxRows of both kernels) and the floats
 # between rows of X (kRowPad of csrc/logistic_tile.cuh): the bounds of the
 # index over the kernels' split copy of X.
@@ -61,14 +71,25 @@ _MAX_PANEL_ROWS, _ROW_PAD = 256, 4
 
 def feature_tiles(p: int) -> int:
     """The kernel's 8-feature tiles for ``p`` features, padded to a multiple
-    of 16: one build of ``csrc/fused_hmc_logistic.cu`` each."""
+    of 16: up to 256 features one build of ``csrc/fused_hmc_logistic.cu``
+    each."""
     return 2 * ((p + 15) // 16)
+
+
+def build_defines(p: int) -> dict:
+    """The macros of the build of either logistic tile kernel that runs
+    ``p`` features: its feature tiles a block, and past
+    ``MAX_BLOCK_FEATURES`` the cluster path's build (``GMT_LOGISTIC_CLUSTER``,
+    32 tiles a block, the cluster's size a launch argument)."""
+    if p > MAX_BLOCK_FEATURES:
+        return dict(GMT_LOGISTIC_PT=feature_tiles(MAX_BLOCK_FEATURES), GMT_LOGISTIC_CLUSTER=1)
+    return dict(GMT_LOGISTIC_PT=feature_tiles(p))
 
 
 def _library(p: int):
     from .._build import load
 
-    return load("fused_hmc_logistic", GMT_LOGISTIC_PT=feature_tiles(p))
+    return load("fused_hmc_logistic", **build_defines(p))
 
 
 def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
@@ -77,9 +98,12 @@ def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
     CUDA device, from the kernel's own host code
     (``fused_hmc_logistic_layout``, which its launch calls): the ``tiles`` of
     16 chains, ``tiles_a_block``, ``blocks``, the dynamic ``shared_bytes`` of
-    a block, whether it is ``streamed``, and the streamed path's
-    ``panel_rows``, ``panels``, ring ``stages`` and ``scratch_words`` (its
-    split copy of X and y)."""
+    a block, whether it is ``streamed``, the streamed path's
+    ``panel_rows``, ``panels``, ring ``stages`` (1 on the cluster path: the
+    observations in one panel, copied once and kept) and ``scratch_words``
+    (its split copy of X and y), the ``cluster_blocks`` that hold a tile (1
+    but on the cluster path, where a tile is a cluster and ``blocks`` is
+    tiles × cluster_blocks) and the ``features_a_block``."""
     from .._build import check
 
     lib = _library(p)

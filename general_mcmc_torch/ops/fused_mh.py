@@ -23,11 +23,12 @@ with its own ``launches``: a ``GaussianND`` with a dense covariance (``d <=
 MAX_DENSE_DIM``) in ``csrc/fused_mh_dense.cu`` (:mod:`.fused_mh_dense`: the
 forward solve blocked with a tile's chains as right-hand sides), and the
 hierarchical logistic targets, ``HierarchicalLogisticNC`` and the centred
-``HierarchicalLogistic`` (``p <= fused_mh_logistic.MAX_FEATURES`` = 256,
-any number of observations), in ``csrc/fused_mh_logistic.cu``
+``HierarchicalLogistic`` (``p <= fused_mh_logistic.MAX_FEATURES`` =
+2,048, any number of observations), in ``csrc/fused_mh_logistic.cu``
 (:mod:`.fused_mh_logistic`: the log density's product on the tensor cores,
-X resident in shared memory or streamed through it in panels).  Their log densities agree with the plain
-version's to a tolerance (a solve or a product summed in another order than
+X resident in shared memory or streamed through it in panels, past 256
+features a tile's features split over a cluster of blocks).  Their log
+densities agree with the plain version's to a tolerance (a solve or a product summed in another order than
 the library's), so a chain is bit-equal to the plain version's while its
 accept decisions agree; the rest bit for bit.  The TPU kernel's transposed
 ``[dim, chains]`` state is a tiling decision of that machine and is not

@@ -18,9 +18,12 @@ plain version is :func:`..ops.fused_mh.fused_mh_run_reference`, the
 X stays in one block's shared memory where it fits beside a tile and
 ``p <= 48`` (the resident path); past that the kernel streams it through a
 ring of shared-memory stages in panels of observations (the streamed path),
-so it takes any number of observations and up to ``MAX_FEATURES`` = 256
-features.  The kernel's host code chooses the path and the panel, and
-:func:`launch_layout` reports them.
+so it takes any number of observations.  Past 256 features a tile of 16
+chains is a cluster of up to 8 blocks, each a share of the features, their
+partial logits and the density's sums added across the cluster (the
+cluster path, :mod:`.fused_hmc_logistic`'s), up to ``MAX_FEATURES`` =
+2,048 features.  The kernel's host code chooses the path, the cluster and
+the panel, and :func:`launch_layout` reports them.
 
 Both read the same counter-generator draws at K3's addresses and round the
 proposals and the select alike, but the kernel's product sums in another
@@ -38,8 +41,8 @@ import torch
 
 from ..models.regression import HierarchicalLogistic, HierarchicalLogisticNC
 from ..rng import stream_key
-from .fused_hmc_logistic import (MAX_FEATURES, MAX_RESIDENT_FEATURES, check_observations,
-                                 feature_tiles, split_inputs)
+from .fused_hmc_logistic import (MAX_FEATURES, MAX_RESIDENT_FEATURES, build_defines,
+                                 check_observations, feature_tiles, split_inputs)
 
 __all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "feature_tiles",
            "MAX_FEATURES", "MAX_RESIDENT_FEATURES"]
@@ -48,13 +51,14 @@ __all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "feat
 launches = 0
 
 _LAYOUT = ("tiles", "tiles_a_block", "blocks", "shared_bytes", "producer_warps", "streamed",
-           "panel_rows", "panels", "stages", "scratch_words")
+           "panel_rows", "panels", "stages", "scratch_words", "cluster_blocks",
+           "features_a_block")
 
 
 def _library(p: int):
     from .._build import load
 
-    return load("fused_mh_logistic", GMT_LOGISTIC_PT=feature_tiles(p))
+    return load("fused_mh_logistic", **build_defines(p))
 
 
 def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
@@ -63,9 +67,11 @@ def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
     CUDA device, from the kernel's own host code
     (``fused_mh_logistic_layout``, which its launch calls): the ``tiles`` of
     16 chains, ``tiles_a_block``, ``blocks``, the dynamic ``shared_bytes`` of
-    a block, its ``producer_warps``, whether it is ``streamed``, and the
-    streamed path's ``panel_rows``, ``panels``, ring ``stages`` and
-    ``scratch_words`` (its split copy of X and y)."""
+    a block, its ``producer_warps`` (none on the cluster path), whether it
+    is ``streamed``, the streamed path's ``panel_rows``, ``panels``, ring
+    ``stages`` and ``scratch_words`` (its split copy of X and y), and the
+    ``cluster_blocks`` and ``features_a_block``, as
+    :func:`.fused_hmc_logistic.launch_layout` reports them."""
     from .._build import check
 
     lib = _library(p)

@@ -1,0 +1,43 @@
+"""The logistic tile kernels' store digests on the paths up to 256 features,
+for the package under a given root: chip_smoke.py's ``path_digests`` (the
+resident path at 256 x 48 and the streamed path at 1,024 x 256, K3 with the
+random walk and K1, the non-centred target, 512 chains x 64 steps), run
+against a parent tree to give "logistic-wide"'s ``PATH_DIGESTS``.
+
+    git archive <parent> | tar -x -C build/parent
+    python3 port_scripts/logistic_path_digests.py build/parent
+    python3 port_scripts/logistic_path_digests.py .
+
+Run from the repo root on a machine with one CUDA card and ``nvcc``; the
+package is imported from the root given, chip_smoke.py's function from
+this tree.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import sys
+
+sys.path.insert(0, os.path.abspath(sys.argv[1]))
+
+import torch  # noqa: E402
+
+import general_mcmc_torch  # noqa: E402
+
+HERE = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
+
+
+def main() -> None:
+    if not os.path.abspath(general_mcmc_torch.__file__).startswith(os.path.abspath(sys.argv[1])):
+        raise SystemExit(f"general_mcmc_torch came from {general_mcmc_torch.__file__}")
+    spec = importlib.util.spec_from_file_location("chip_smoke_here", HERE)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = chip_smoke  # its dataclasses look their module up
+    spec.loader.exec_module(chip_smoke)
+    print(general_mcmc_torch.__file__)
+    print(chip_smoke.path_digests(torch.device("cuda", 0)))
+
+
+if __name__ == "__main__":
+    main()

@@ -176,14 +176,15 @@ def test_moments_beside_jax_interpret(name):
 @pytest.mark.parametrize("name", ["logistic", "logistic_nc"])
 def test_refusals_on_meta_tensors(name):
     """Both wrappers refuse, before anything touches a device: more than
-    MAX_FEATURES features, a width other than p + 2.  X past a block's
-    shared memory is taken (streamed), and so is the widest p."""
+    MAX_FEATURES features (2,048: the cluster path's), a width other than
+    p + 2.  X past a block's shared memory is taken (streamed), and so is
+    the widest p."""
     kind = KINDS[name]
     mh = lambda t, x: fused_mh.fused_mh_run(t, x, RandomWalkProposal(0.1), 2)
     hmc = lambda t, x: fused_hmc.fused_hmc_run(t, x, 0.1, 2, 2)
     meta = lambda n, d: torch.empty(n, d, device="meta")
     p = fused_mh_logistic.MAX_FEATURES
-    assert p == fused_hmc_logistic.MAX_FEATURES == 256
+    assert p == fused_hmc_logistic.MAX_FEATURES == 2048
     wide = to_target(kind, *logistic_data(40, p + 1))
     big = to_target(kind, *logistic_data(2000, 48))
     ok = to_target(kind, *logistic_data(256, p))

@@ -15,8 +15,9 @@ panels of observations.
 - 32-chain moments beside JAX's ``fused_mh_run`` and ``fused_hmc_run`` in
   interpret mode at 1,000 x 24: tests/test_torch_fused_mh.py's envelopes,
   and envelopes scaled to the chains' own spread.
-- The refusals on meta tensors: past 256 features and past an ``int``
-  index over the kernels' split copy of X, each naming its limit.
+- The refusals on meta tensors: past ``MAX_FEATURES`` (2,048) features and
+  past an ``int`` index over the kernels' split copy of X, each naming its
+  limit.
 
 The kernels are held against these plain versions on the card by
 tests/test_torch_cuda_logistic_wide.py and chip_smoke.py
@@ -153,20 +154,22 @@ def test_moments_beside_jax_interpret(name, sampler):
 
 @pytest.mark.parametrize("name", ["logistic", "logistic_nc"])
 def test_refusal_past_256_features_on_meta_tensors(name):
-    """Both wrappers refuse more than 256 features, naming the limit, before
-    anything touches a device; at 256 features and at 10,000 observations
+    """Both wrappers refuse more than ``MAX_FEATURES`` features (2,048: 256
+    a block over a cluster of 8 blocks; the test keeps the name it had when
+    the limit was 256), naming the limit, before anything touches a
+    device; at 2,048 features, past the old 256 and at 10,000 observations
     they take the target, and refuse only the device that is neither cuda
     nor cpu."""
     kind = KINDS[name]
     mh = lambda t, x: fused_mh.fused_mh_run(t, x, RandomWalkProposal(0.1), 2)
     hmc = lambda t, x: fused_hmc.fused_hmc_run(t, x, 0.1, 2, 2)
     meta = lambda n, d: torch.empty(n, d, device="meta")
-    assert fused_mh_logistic.MAX_FEATURES == fused_hmc_logistic.MAX_FEATURES == 256
-    wide = to_target(kind, *logistic_data(40, 257))
+    assert fused_mh_logistic.MAX_FEATURES == fused_hmc_logistic.MAX_FEATURES == 2048
+    wide = to_target(kind, *logistic_data(40, 2049))
     for run in (mh, hmc):
-        with pytest.raises(ValueError, match="p <= 256"):
-            run(wide, meta(8, 259))
-        for shape in ((40, 256), (10_000, 24)):
+        with pytest.raises(ValueError, match="p <= 2048"):
+            run(wide, meta(8, 2051))
+        for shape in ((40, 2048), (40, 257), (10_000, 24)):
             ok = to_target(kind, *logistic_data(*shape))
             with pytest.raises(ValueError, match="runs on cuda or cpu"):
                 run(ok, meta(8, shape[1] + 2))

@@ -128,7 +128,7 @@ def test_kernel_gradient_order_equals_autograd(name):
 
 def test_wrappers_refuse_what_no_kernel_takes():
     """A Python callable and the discrete targets raise, as do a logistic
-    target past MAX_FEATURES (256) and a dense GaussianND past
+    target past MAX_FEATURES (2,048) and a dense GaussianND past
     MAX_DENSE_DIM, on the CPU as on the card."""
     x = torch.zeros(4, 2)
     X, y = logistic_data()

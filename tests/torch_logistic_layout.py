@@ -1,7 +1,9 @@
 """What the card tests hold the logistic tile kernels' host layout to
 (``launch_layout`` of ``ops/fused_hmc_logistic.py`` and
 ``ops/fused_mh_logistic.py``, read from each kernel's own host code): the
-path a shape takes and the streamed path's panels.  No JAX."""
+path a shape takes and the streamed path's panels; and the pilot rule that
+picks K1's step size for a check, shared with chip_smoke.py's logistic
+phases.  No JAX."""
 
 from general_mcmc_torch.ops import fused_hmc_logistic
 from general_mcmc_torch.ops.fused_logistic import MAX_SHARED_BYTES
@@ -30,3 +32,15 @@ def check_layout(lay: dict, n_obs: int, p: int, streamed: int) -> None:
         assert lay["panel_rows"] == lay["panels"] == lay["stages"] == 0, lay
         assert lay["scratch_words"] == 0, lay
         assert lay["shared_bytes"] >= 4 * n_obs * (2 * 8 * pt + 1), lay
+
+
+def largest_step(accept_at, steps, floor: float):
+    """The first of ``steps`` (largest first) whose pilot accept,
+    ``accept_at(step)``, is at least ``floor``, else the last; and the
+    accepts read, by step."""
+    read = {}
+    for step in steps:
+        read[step] = accept_at(step)
+        if read[step] >= floor:
+            break
+    return step, read
