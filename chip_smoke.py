@@ -230,6 +230,20 @@ Phases (each prints one line; any failure raises and exits non-zero):
     target: the pooled moments, the accept, the plain version bit for bit,
     timed).
 
+21. The dense GaussianND past one block's shared memory (after
+    "dense-main"): "dense-wide" runs ``HMC(backend="cuda")`` and
+    ``MetropolisHastings(backend="cuda")`` on the NUTS paper's 250-d MVN
+    (a Wishart precision, Hoffman & Gelman 2014 §4.1) at 10,240 chains
+    from exact draws of it, each one launch of the streamed path of
+    ``csrc/fused_hmc_dense.cu`` / ``csrc/fused_mh_dense.cu`` (L from an
+    L2-resident buffer through a ring of shared-memory stages, the solves
+    left-looking): the pooled sds and correlations against the target's,
+    K1's accept, both kernels against their plain versions by the float64
+    rule, timed beside the plain versions and one library solve a leapfrog
+    or step; both kernels against their plain versions at 169-1,024
+    dimensions (1,024 timed), from chain 3,000, and forced onto the
+    streamed path below its widths, bit-equal to the resident path.
+
 Before the last line it prints the card's name and power limit and one JSON
 object with every kernel's launches, error, times and bound; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits with
@@ -394,9 +408,9 @@ NUTS_STATIC_AUTO_STEPS = (192, 64)
 # checkpointed after RT_SPLIT of them.  "resume-main": the ChEES
 # headline checkpointed half way through its collection.  "nuts-resume": the
 # NUTS leg's sampler with backend="auto", NUTS_RESUME_COLLECT collected steps
-# (a twelfth of nuts-static's), checkpointed half way.
+# (a twenty-fourth of nuts-static's), checkpointed half way.
 RT_CHAINS, RT_WARMUP, RT_COLLECT, RT_SPLIT = 256, 32, 24, 9
-NUTS_RESUME_COLLECT = 256
+NUTS_RESUME_COLLECT = 128
 # "rank-main": the card's rank diagnostics on RANK_SLICE_CHAINS chains against
 # the same function on the CPU in float64, and the rank bulk ESS against the
 # classic min ESS of the same store
@@ -468,9 +482,9 @@ DENSE_TOL = {"K1": 0.05, "K3": 0.1}
 DENSE_EQ_STEPS = {"K1": 8, "K3": 64}
 # The steps (n_collect, n_discard) over which "dense-main" compares and
 # times each kernel's plain version beside the kernel's run of the same
-# steps: K3's whole run; K1's first tenth (its whole run's plain version
-# takes ~17 s of the script on an H100).
-DENSE_PLAIN_STEPS = {"K1": (100, 20), "K3": DENSE_MH_STEPS}
+# steps: each run's first tenth (K1's whole run's plain version takes ~17 s
+# of the script on an H100).
+DENSE_PLAIN_STEPS = {"K1": (100, 20), "K3": (200, 50)}
 # K1's dense tile kernel against its plain version at small widths (one
 # build each for 1, 5, 13 and 21 column blocks: odd widths and the widest),
 # DENSE_SMALL_CHAINS chains of 8 steps in the main run's metric; and a block
@@ -480,6 +494,57 @@ DENSE_PLAIN_STEPS = {"K1": (100, 20), "K3": DENSE_MH_STEPS}
 # walk and with pCN.
 DENSE_SMALL_DIMS, DENSE_SMALL_CHAINS, DENSE_CHAIN0 = (2, 7, 33, 168), 256, 3000
 MH_DENSE_SMALL_DIMS = (2, 7, 33, 168, 240)
+# "dense-wide": the dense GaussianND past one block's shared memory (K1's
+# streamed path past 168 dimensions, K3's past 240).  The 250-d MVN of the
+# NUTS paper (Hoffman & Gelman 2014, §4.1; wishart_mvn: precision G Gᵀ from
+# np.random.default_rng(0), inverted and factored in float64, condition
+# number 1.8e6, sds 0.48-8.2) at 10,240 chains from exact draws of the
+# target (L times init_with_seed's normals), so that the moment gates test
+# that each kernel leaves it invariant.  K1 at M⁻¹ = diag(Σ), ε 0.006, L 10:
+# the stiffest preconditioned direction allows ε < 0.014; the plain
+# version on the CPU (port_scripts/dense_mvn_pilot.py: 128 chains, 8 steps)
+# accepted 0.84 at ε 0.006, 0.60 at 0.009 and 0.28 at 0.012.  K3 the random
+# walk 0.01 (2.38 / sqrt(tr Σ⁻¹) = 0.0095, the isotropic walk's scale for
+# this precision; the pilot's accept 0.21).  Gates: one launch of the
+# streamed path and none of the lane kernel or the resident one; finite;
+# max|std/sd - 1| and the largest |pooled correlation - Σ's correlation|
+# within DENSE_TOL (10,240 exact draws alone are 0.014 and 0.031 off in the
+# pilot); K1's accept in 0.6-0.95; both
+# kernels by the float64 rule over KL_OFF_SEEDS at WIDE_DENSE_EQ_STEPS (K1
+# 8 steps, K3 64), their chains whose accept histories agree with the
+# float32 plain version's within K1's tolerance (K1) or bit-equal (K3): on
+# this covariance the float32 plain version itself leaves chains off the
+# float64 one within 8 steps (each a decision within float32 rounding of
+# its threshold), so "no chain differing" cannot hold whatever the kernel.
+# Both kernels against their plain versions at WIDE_DENSE_SMALL_DIMS (the
+# D R D form, WIDE_DENSE_SMALL_CHAINS chains; K1 8 steps, no chain
+# differing; K3 64 steps with the random walk and pCN, bit-equal on the
+# agreeing chains, by the float64 rule), the widest timed; rows from
+# DENSE_CHAIN0 bit-equal to the launch from 0 at 250; at d <= 168 (K1) and
+# <= 240 (K3) the streamed path forced on equals the resident one bit for
+# bit.
+WIDE_DENSE_DIM = 250
+WIDE_DENSE_EPS, WIDE_DENSE_L, WIDE_DENSE_STEPS = 0.006, 10, (100, 20)
+WIDE_DENSE_WALK, WIDE_DENSE_MH_STEPS = 0.01, (500, 100)
+WIDE_DENSE_EQ_STEPS = {"K1": 8, "K3": 64}
+# The steps over which each plain version is timed beside the kernel's run
+# of the same steps: K3's whole run, K1's first tenth (its whole run's plain
+# version takes ~8.5 s of the script on an H100).
+WIDE_DENSE_PLAIN_STEPS = {"K1": (10, 2), "K3": WIDE_DENSE_MH_STEPS}
+# Both kernels at every width, K3's streamed path launched itself below 241.
+WIDE_DENSE_SMALL_DIMS, WIDE_DENSE_SMALL_CHAINS = (169, 176, 241, 250, 512, 1000, 1024), 256
+WIDE_DENSE_FORCED_DIMS = {"K1": (100, 168), "K3": (100, 240)}
+# The resident paths' stores (dense_path_digests) against the parent
+# commit's (DENSE_PATH_DIGESTS, sha256 of the float32 bytes; run
+# port_scripts/dense_path_digests.py on both trees).
+DENSE_DIGEST_DIMS, DENSE_DIGEST_CHAINS = {"K1": (100, 168), "K3": (100, 240)}, 512
+DENSE_PATH_DIGESTS = {
+    "K1_100": "5f5cb0838d844bc8b9cbffccefeea4cbf7b84b86e754bc52b34838eb0b47a16e",
+    "K1_168": "8f985ae9483eee38ac63b67489459c48d3fe388dde2ecce069c801d6b2e11b41",
+    "K3_100_RandomWalkProposal": "931eb1ff31ec279d4ba997ab4782c803548dc07ff9ef96b86948505d5df15b30",
+    "K3_100_PCNProposal": "f5a874e30a01616723afd8b793a0ad4537e2611d10ac9cd1a5b246452dc5dc50",
+    "K3_240_RandomWalkProposal": "da66da1c8731da2fd5027ab7758c3e2bfe93378ad6ed67fabcdc4bca491c2901",
+    "K3_240_PCNProposal": "f24f33d38ad7888563bc9c8dac09b95d675e29dc2fe19af7dd91e270d21f74bd"}
 # "K1-logistic": HMC(backend="cuda") on the stretch line's posterior in the
 # diagonal metric "chees-logistic" adapts, L 10, from 0.1 x init_with_seed,
 # run(1000, 200).  The step size: that phase's ε̄ (0.169134 on the card,
@@ -759,6 +824,8 @@ def reset_counts() -> None:
     counter_rng.launches = 0
     fused_mh.launches = 0
     fused_mh_dense.launches = 0
+    fused_hmc_dense.streamed_launches = 0
+    fused_mh_dense.streamed_launches = 0
     fused_mh_logistic.launches = 0
     fused_logistic.launches = 0
 
@@ -906,7 +973,9 @@ def phase_environment():
                  + sorted({logistic_mh_build(p) for p in LOGISTIC_WIDTHS})
                  + [dense_build(d) for d in sorted(set(DENSE_SMALL_DIMS + (DIM,)))]
                  + [dense_build(d, "fused_mh_dense")
-                    for d in sorted(set(MH_DENSE_SMALL_DIMS + (DIM,)))])
+                    for d in sorted(set(MH_DENSE_SMALL_DIMS + (DIM,)))]
+                 + [dense_build(WIDE_DENSE_DIM, name)
+                    for name in ("fused_hmc_dense", "fused_mh_dense")])
     build_s = time.perf_counter() - t0
     # the full register and spill report, beside the built libraries
     with open(_build.OUT_DIR / "ptxas.log", "w") as f:
@@ -926,10 +995,11 @@ def phase_environment():
     return smi
 
 
-def dense_build(d: int, name: str = "fused_hmc_dense") -> str:
+def dense_build(d: int, name: str = "fused_hmc_dense", stream=None) -> str:
     """The build of ``csrc/<name>.cu`` (a dense tile kernel, K1's or K3's)
-    that runs width ``d``."""
-    return _build.variant(name, GMT_DENSE_NB=-(-d // fused_hmc_dense.BLOCK))
+    that runs width ``d`` (``stream``: the path, by default the wrapper's)."""
+    module = fused_hmc_dense if name == "fused_hmc_dense" else fused_mh_dense
+    return _build.variant(name, **module.build_defines(d, stream))
 
 
 def logistic_mh_build(p: int) -> str:
@@ -2143,6 +2213,15 @@ DENSE_ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms"
                   "plain_steps")
 
 
+# The fields of a streamed dense kernel's entry in the kernels line.
+WIDE_DENSE_ROW_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_cuda_core_ms",
+                       "bound_tensor_3xtf32_ms", "library_ms", "library_call", "registers",
+                       "spill_store_bytes", "shared_bytes", "tiles_a_block", "blocks", "stages",
+                       "panels", "l_bytes", "l_bytes_read", "accept", "std_err", "corr_err",
+                       "eq_steps", "eq_chains_differ", "off_f64_kernel", "off_f64_plain_f32",
+                       "plain_steps", "small_timing")
+
+
 def phase_dense_main(dev):
     """The dense GaussianND through K1 (``HMC``: the tile kernel
     ``csrc/fused_hmc_dense.cu``) and K3 (``MetropolisHastings``: the tile
@@ -2269,6 +2348,294 @@ def phase_dense_main(dev):
         f"{DENSE_STEPS[1]}+{DENSE_STEPS[0]}", k3=f"walk {DENSE_WALK} "
         f"{DENSE_MH_STEPS[1]}+{DENSE_MH_STEPS[0]}", max_dense_dim_k1=fused_hmc.MAX_DENSE_DIM,
         max_dense_dim_k3=fused_mh.MAX_DENSE_DIM, results=json.dumps(out))
+    return out
+
+
+def dense_path_digests(dev):
+    """The dense tile kernels' stores on the resident path (the D R D form,
+    DENSE_DIGEST_CHAINS chains of DENSE_EQ_STEPS["K3"] steps from chain 0):
+    K1 at each width of DENSE_DIGEST_DIMS["K1"] (ε 0.1, L 5, M⁻¹ the scales'
+    squares), K3 at each of DENSE_DIGEST_DIMS["K3"] with the random walk
+    0.5 / sqrt(d) and pCN 0.3 from draws of the target, each a sha256 of its
+    float32 bytes.  Only calls an earlier tree also has, so that a parent
+    commit's package gives its own digests."""
+    out, steps = {}, DENSE_EQ_STEPS["K3"]
+    for d in DENSE_DIGEST_DIMS["K1"]:
+        t, sc = dense_target(d, dev)
+        x0 = gmt.init_with_seed(DENSE_DIGEST_CHAINS, d, 3, device=dev)
+        k1 = fused_hmc.fused_hmc_run(t, x0, 0.1, 5, steps, 0, seed=SEED, mass_inv=(sc**2).to(dev))
+        out[f"K1_{d}"] = hashlib.sha256(k1.cpu().numpy().tobytes()).hexdigest()
+    for d in DENSE_DIGEST_DIMS["K3"]:
+        t, _ = dense_target(d, dev)
+        x0 = (gmt.init_with_seed(DENSE_DIGEST_CHAINS, d, 3, device=dev) @ t.chol.mT).contiguous()
+        for prop in (gmt.RandomWalkProposal(0.5 / math.sqrt(d)), gmt.PCNProposal(0.3)):
+            k3 = fused_mh.fused_mh_run(t, x0, prop, steps, 0, seed=SEED)
+            out[f"K3_{d}_{type(prop).__name__}"] = hashlib.sha256(
+                k3.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def wishart_mvn(d: int, dev):
+    """The NUTS paper's d-dimensional MVN (Hoffman & Gelman 2014, §4.1): the
+    precision G Gᵀ, G d × d standard normals from np.random.default_rng(0),
+    inverted in float64; the target in float32 from the float64 Cholesky
+    factor (a float32 factor would lose the small directions), the float64
+    target, and the covariance's sds and correlation (float64)."""
+    G = np.random.default_rng(0).standard_normal((d, d))
+    cov = np.linalg.inv(G @ G.T)
+    cov = torch.from_numpy(0.5 * (cov + cov.T))
+    target64 = gmt.GaussianND(torch.zeros(d, dtype=torch.float64), cov, dtype=torch.float64,
+                              device=dev)
+    sd = torch.sqrt(torch.diagonal(cov))
+    return target64.to(dtype=torch.float32), target64, sd, cov / (sd[:, None] * sd[None, :])
+
+
+def pooled_moments(store):
+    """Per-coordinate sds and the correlation matrix of a steps-major store,
+    pooled over steps and chains, in float64, a million rows at a time."""
+    flat = store.reshape(-1, store.shape[-1])
+    s1 = torch.zeros(flat.shape[1], dtype=torch.float64, device=flat.device)
+    s2 = torch.zeros((flat.shape[1],) * 2, dtype=torch.float64, device=flat.device)
+    for rows in torch.split(flat, 1 << 20):
+        r = rows.double()
+        s1 += r.sum(0)
+        s2 += r.mT @ r
+    n = flat.shape[0]
+    cov = s2 / n - torch.outer(s1 / n, s1 / n)
+    sd = torch.sqrt(torch.diagonal(cov))
+    return sd, cov / (sd[:, None] * sd[None, :])
+
+
+def dense_wide_small(dev):
+    """Both dense tile kernels' streamed paths against their plain versions
+    at WIDE_DENSE_SMALL_DIMS (the D R D form, WIDE_DENSE_SMALL_CHAINS
+    chains): K1 over 8 steps, no chain differing; K3 over 64 steps from
+    draws of the target with the random walk and pCN (below 241 dimensions
+    its streamed path launched itself), bit-equal on the chains whose
+    accept histories agree and by the float64 rule; the widest width timed
+    beside its plain version and one library call a leapfrog or step; the
+    streamed path forced on at WIDE_DENSE_FORCED_DIMS bit-equal to the
+    resident one; rows from DENSE_CHAIN0 bit-equal to the launch from 0."""
+    n = WIDE_DENSE_SMALL_CHAINS
+    errs, differ, off, timing = {}, {}, {}, {}
+    for d in WIDE_DENSE_SMALL_DIMS:
+        t, sc = dense_target(d, dev)
+        x0 = gmt.init_with_seed(n, d, 3, device=dev)
+        args, kw = (t, x0, 0.1, 5, 8, 0), dict(seed=11, mass_inv=(sc**2).to(dev))
+        run = lambda: fused_hmc.fused_hmc_run(*args, **kw)
+        plain = lambda: fused_hmc.fused_hmc_run_reference(*args, **kw)
+        errs[f"K1_{d}"] = compare(run(), plain(), f"K1 dense at d = {d}, {n} chains")
+        xt = (gmt.init_with_seed(n, d, 3, device=dev) @ t.chol.mT).contiguous()
+        steps = WIDE_DENSE_EQ_STEPS["K3"]
+        for prop in (gmt.RandomWalkProposal(0.5 / math.sqrt(d)), gmt.PCNProposal(0.3)):
+            key = f"K3_{d}_{type(prop).__name__}"
+            # below 241 the wrapper takes K3's resident path: the streamed
+            # path is launched itself there
+            mh = (fused_mh.fused_mh_run if fused_mh_dense.streamed(d) else
+                  lambda t_, x_, p_, c, dsc, seed: fused_mh_dense.launch_dense(
+                      t_, x_, *fused_mh._proposal_code(p_), c, dsc, seed, 1, stream=True))
+            got = mh(t, xt, prop, steps, 0, seed=11)
+            want = fused_mh.fused_mh_run_reference(t, xt, prop, steps, 0, seed=11)
+            same = (accept_history(got, xt) == accept_history(want, xt)).all(dim=1)
+            check(torch.equal(got[same], want[same]),
+                  f"{key}: bit-equal to the plain version on the agreeing chains")
+            differ[key] = int((~same).sum())
+            errs[key] = float((got[same] - want[same]).abs().max())
+            t64 = t.to(dtype=torch.float64)
+            off[key] = chains_off(
+                lambda seed: mh(t, xt, prop, steps, 0, seed=seed),
+                lambda seed: fused_mh.fused_mh_run_reference(t, xt, prop, steps, 0, seed=seed),
+                lambda seed: fused_mh.fused_mh_run_reference(t64, xt.double(), prop, steps, 0,
+                                                             seed=seed), xt, f"{key}: ")
+        if d == max(WIDE_DENSE_SMALL_DIMS):
+            r = torch.randn((d, n), device=dev)
+            ms, _, _ = timed(run, 3)
+            t0 = time.perf_counter()
+            plain()
+            torch.cuda.synchronize()
+            work = target_hmc_work(n, d, 8, 8, 5, 2 * d, 2 * d)
+            timing["K1"] = dict(shape=f"{n}x{d}, 8 steps x 5", ms=round(ms, 4),
+                                plain_ms=round((time.perf_counter() - t0) * 1e3, 1),
+                                library_ms=round(device_ms(lambda: torch.cholesky_solve(
+                                    r, t.chol), 20) * 8 * 5, 4),
+                                **tile_bounds(work, n * 8 * 5 * 2 * d * (d + 1)))
+            walk = gmt.RandomWalkProposal(0.5 / math.sqrt(d))
+            ms, _, _ = timed(lambda: fused_mh.fused_mh_run(t, xt, walk, steps, 0, seed=11), 3)
+            t0 = time.perf_counter()
+            fused_mh.fused_mh_run_reference(t, xt, walk, steps, 0, seed=11)
+            torch.cuda.synchronize()
+            work = fused_mh_work(n, d, steps, steps, 3 * d, MH_PROPOSAL_OPS)
+            timing["K3"] = dict(shape=f"{n}x{d}, {steps} steps", ms=round(ms, 4),
+                                plain_ms=round((time.perf_counter() - t0) * 1e3, 1),
+                                library_ms=round(device_ms(lambda: torch.linalg.solve_triangular(
+                                    t.chol, r, upper=False), 20) * steps, 4),
+                                **tile_bounds(work, n * steps * d * (d + 1)))
+    # the streamed path forced on below its width against the resident path
+    forced = {}
+    for d in WIDE_DENSE_FORCED_DIMS["K1"]:
+        t, sc = dense_target(d, dev)
+        x0 = gmt.init_with_seed(n, d, 3, device=dev)
+        inv = (sc**2).to(dev).contiguous()
+        a = [fused_hmc_dense.launch_dense(t, x0, 0.1, 5, 8, 2, 11, 1, inv, 1.0 / torch.sqrt(inv),
+                                          stream=s) for s in (True, False)]
+        check(torch.equal(*a), f"K1's streamed path at d = {d} equals the resident path")
+        forced[f"K1_{d}"] = True
+    for d in WIDE_DENSE_FORCED_DIMS["K3"]:
+        t, _ = dense_target(d, dev)
+        xt = (gmt.init_with_seed(n, d, 3, device=dev) @ t.chol.mT).contiguous()
+        for prop in (gmt.RandomWalkProposal(0.5 / math.sqrt(d)), gmt.PCNProposal(0.3)):
+            p_code, consts = fused_mh._proposal_code(prop)
+            a = [fused_mh_dense.launch_dense(t, xt, p_code, consts, 20, 5, 11, 2, stream=s)
+                 for s in (True, False)]
+            check(torch.equal(*a), f"K3's streamed path at d = {d} ({type(prop).__name__}) "
+                  f"equals the resident path")
+        forced[f"K3_{d}"] = True
+    # rows from DENSE_CHAIN0 against the launch from 0
+    t, _ = dense_target(WIDE_DENSE_DIM, dev)
+    x0 = 0.3 * gmt.init_with_seed(DENSE_CHAIN0 + 300, WIDE_DENSE_DIM, 1, device=dev)
+    rows = slice(DENSE_CHAIN0, DENSE_CHAIN0 + 300)
+    full = fused_hmc.fused_hmc_run(t, x0, 0.1, 5, 6, 2, seed=9)
+    block = fused_hmc.fused_hmc_run(t, x0[rows].contiguous(), 0.1, 5, 6, 2, seed=9,
+                                    chain0=DENSE_CHAIN0)
+    check(torch.equal(block, full[rows]), f"K1 streamed: rows from chain {DENSE_CHAIN0} equal "
+          f"the launch from 0 bit for bit")
+    for prop in (gmt.RandomWalkProposal(0.03), gmt.PCNProposal(0.3)):
+        full = fused_mh.fused_mh_run(t, x0, prop, 6, 2, seed=9)
+        block = fused_mh.fused_mh_run(t, x0[rows].contiguous(), prop, 6, 2, seed=9,
+                                      chain0=DENSE_CHAIN0)
+        check(torch.equal(block, full[rows]), f"K3 streamed {type(prop).__name__}: rows from "
+              f"chain {DENSE_CHAIN0} equal the launch from 0 bit for bit")
+    digests = dense_path_digests(dev)
+    for name, want in DENSE_PATH_DIGESTS.items():
+        check(digests[name] == want, f"{name}: the resident path's store keeps the parent "
+              f"commit's digest ({digests[name]} against {want})")
+    return dict(errs=errs, differ=differ, off=off, timing=timing, forced=forced,
+                digests_equal=bool(DENSE_PATH_DIGESTS) and all(
+                    digests[k] == v for k, v in DENSE_PATH_DIGESTS.items()))
+
+
+def phase_dense_wide(dev):
+    """The dense GaussianND past one block's shared memory: K1 (``HMC``) and
+    K3 (``MetropolisHastings``) on the 250-d MVN at the main path's chains
+    through the streamed path of their tile kernels (see WIDE_DENSE_DIM's
+    note), each one launch, its moments, its agreement with its plain
+    version, timed beside the plain version and one library call a leapfrog
+    or step, with its layout, registers and spills, L's bytes and both
+    bounds; and dense_wide_small's checks."""
+    small = dense_wide_small(dev)
+    d = WIDE_DENSE_DIM
+    target, target64, sd, corr_ref = wishart_mvn(d, dev)
+    x0 = (gmt.init_with_seed(N_CHAINS, d, SEED, device=dev).double()
+          @ target64.chol.mT).float().contiguous()
+    mass_inv = (sd**2).float().to(dev)
+    out = {}
+    for kernel in ("K1", "K3"):
+        eq = WIDE_DENSE_EQ_STEPS[kernel]
+        if kernel == "K1":
+            sampler = lambda: gmt.HMC(target, x0, WIDE_DENSE_EPS, WIDE_DENSE_L, seed=SEED,
+                                      mass_inv=mass_inv, backend="cuda")
+            steps, module, lane_module = WIDE_DENSE_STEPS, fused_hmc_dense, fused_hmc
+            run = lambda c, dsc, seed=SEED, t=target, x=x0, m=mass_inv: fused_hmc.fused_hmc_run(
+                t, x, WIDE_DENSE_EPS, WIDE_DENSE_L, c, dsc, seed=seed, mass_inv=m)
+            plain = lambda c, dsc, seed=SEED, t=target, x=x0, m=mass_inv: (
+                fused_hmc.fused_hmc_run_reference(t, x, WIDE_DENSE_EPS, WIDE_DENSE_L, c, dsc,
+                                                  seed=seed, mass_inv=m))
+            leapfrogs = sum(steps) * WIDE_DENSE_L
+            solve_flops = N_CHAINS * leapfrogs * 2 * d * (d + 1)
+            work = target_hmc_work(N_CHAINS, d, sum(steps), steps[0], WIDE_DENSE_L, 2 * d, 2 * d)
+            r = torch.randn((d, N_CHAINS), device=dev)
+            library = device_ms(lambda: torch.cholesky_solve(r, target.chol), 20) * leapfrogs
+            library_call = (f"torch.cholesky_solve of the [{d}, {N_CHAINS}] residual x "
+                            f"{leapfrogs:,}")
+            passes = leapfrogs + 1
+            build = build_report(dense_build(d), "fused_hmc_dense_wide_kernel")
+        else:
+            walk = gmt.RandomWalkProposal(WIDE_DENSE_WALK)
+            sampler = lambda: gmt.MetropolisHastings(target, walk, x0, seed=SEED,
+                                                     backend="cuda")
+            steps, module, lane_module = WIDE_DENSE_MH_STEPS, fused_mh_dense, fused_mh
+            run = lambda c, dsc, seed=SEED, t=target, x=x0: fused_mh.fused_mh_run(
+                t, x, walk, c, dsc, seed=seed)
+            plain = lambda c, dsc, seed=SEED, t=target, x=x0: fused_mh.fused_mh_run_reference(
+                t, x, walk, c, dsc, seed=seed)
+            solve_flops = N_CHAINS * sum(steps) * d * (d + 1)
+            work = fused_mh_work(N_CHAINS, d, sum(steps), steps[0], 3 * d, MH_PROPOSAL_OPS)
+            r = torch.randn((d, N_CHAINS), device=dev)
+            library = device_ms(lambda: torch.linalg.solve_triangular(target.chol, r, upper=False),
+                                20) * sum(steps)
+            library_call = (f"torch.linalg.solve_triangular of the [{d}, {N_CHAINS}] residual "
+                            f"x {sum(steps):,}")
+            passes = sum(steps) + 1
+            build = build_report(dense_build(d, "fused_mh_dense"), "fused_mh_dense_wide_kernel<0>")
+        layout = module.launch_layout(N_CHAINS, d)
+        reset_counts()
+        samples = sampler().run(*steps)
+        torch.cuda.synchronize()
+        launches = module.streamed_launches
+        check(launches == 1 and module.launches == 0 and lane_module.launches == 0,
+              f"one {kernel} launch of the streamed dense path ({launches}; resident "
+              f"{module.launches}, {kernel}'s lane kernel {lane_module.launches})")
+        store = samples.transpose(0, 1)
+        check(tuple(samples.shape) == (N_CHAINS, steps[0], d)
+              and bool(torch.isfinite(store).all()), f"{kernel} MVN samples: shape and finite")
+        accept = float((store[1:] != store[:-1]).any(dim=2).float().mean())
+        got_sd, got_corr = pooled_moments(store)
+        std_err = float((got_sd.cpu() / sd - 1.0).abs().max())
+        corr_err = float((got_corr.cpu() - corr_ref).abs().max())
+        tol = DENSE_TOL[kernel]
+        check(std_err < tol and corr_err < tol,
+              f"{kernel} MVN: max|std/sd - 1| {std_err} and max|corr - Σ's| {corr_err} < {tol}")
+        if kernel == "K1":
+            check(0.6 < accept < 0.95, f"K1 MVN accept {accept} within 0.6-0.95")
+        del samples, store
+        # against the plain version over eq steps: the chains whose accept
+        # histories agree (K1 within its tolerance, K3 bit-equal), and the
+        # float64 rule over KL_OFF_SEEDS
+        got, want = run(eq, 0), plain(eq, 0)
+        same = (accept_history(got, x0) == accept_history(want, x0)).all(dim=1)
+        if kernel == "K1":
+            eq_err = compare(got[same], want[same], f"K1 MVN over {eq} steps, agreeing chains")
+        else:
+            check(torch.equal(got[same], want[same]),
+                  f"K3 MVN over {eq} steps: bit-equal on the agreeing chains")
+            eq_err = 0.0
+        eq_differ = int((~same).sum())
+        del got, want
+        kw = {"m": mass_inv.double()} if kernel == "K1" else {}
+        off_kernel, off_plain = chains_off(
+            lambda seed: run(eq, 0, seed), lambda seed: plain(eq, 0, seed),
+            lambda seed: plain(eq, 0, seed, target64, x0.double(), **kw), x0, f"{kernel} MVN: ")
+        # timed: the run (median of 3), its plain version once over
+        # WIDE_DENSE_PLAIN_STEPS
+        ms, _, o = timed(lambda: sampler().run(*steps), 3)
+        del o
+        plain_steps = WIDE_DENSE_PLAIN_STEPS[kernel]
+        t0 = time.perf_counter()
+        o = plain(*plain_steps)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        del o
+        out[kernel] = dict(launches=launches, accept=round(accept, 4), std_err=round(std_err, 5),
+                           corr_err=round(corr_err, 5), eq_steps=eq, eq_max_abs_err=eq_err,
+                           eq_chains_differ=eq_differ, off_f64_kernel=off_kernel,
+                           off_f64_plain_f32=off_plain, ms=round(ms, 3),
+                           plain_ms=round(plain_ms, 1),
+                           plain_steps=f"{plain_steps[1]}+{plain_steps[0]}",
+                           library_ms=round(library, 3),
+                           library_call=library_call, **tile_bounds(work, solve_flops),
+                           l_bytes_read=layout["blocks"] * passes * layout["l_bytes"],
+                           small_max_abs_err={k: v for k, v in small["errs"].items()
+                                              if k.startswith(kernel)},
+                           small_timing=small["timing"][kernel],
+                           chain0_bit_equal=True,
+                           **{k: v for k, v in layout.items() if k != "tiles"}, **build)
+    say("dense-wide", chains=N_CHAINS, dim=d, k1=f"eps {WIDE_DENSE_EPS} L {WIDE_DENSE_L} "
+        f"{WIDE_DENSE_STEPS[1]}+{WIDE_DENSE_STEPS[0]}", k3=f"walk {WIDE_DENSE_WALK} "
+        f"{WIDE_DENSE_MH_STEPS[1]}+{WIDE_DENSE_MH_STEPS[0]}",
+        max_dense_dim=fused_hmc.MAX_DENSE_DIM, small_k3_differ=json.dumps(small["differ"]),
+        small_k3_off=json.dumps(small["off"]), forced_equal=json.dumps(small["forced"]),
+        resident_digests_equal_parent=small["digests_equal"],
+        results=json.dumps(out))
     return out
 
 
@@ -4419,11 +4786,11 @@ def phase_rank_main(dev, store, classic_min_ess: float):
 
 def phase_nuts_resume(dev, tmp: str):
     """The NUTS leg's sampler at full width (10,240 × 100, cap 4, diagonal
-    metric, multinomial proposal) with ``backend="auto"``: ``run(256,
-    192)`` against ``run(128, 192)`` + ``save_checkpoint`` + ``resume(128)``
+    metric, multinomial proposal) with ``backend="auto"``: ``run(128,
+    192)`` against ``run(64, 192)`` + ``save_checkpoint`` + ``resume(64)``
     on the same sampler (as tests/test_nuts_auto.py does), bit for bit,
-    ``"static"`` selected by both runs.  256 collected steps, a twelfth of
-    "nuts-static"'s, keep the phase to about half a minute."""
+    ``"static"`` selected by both runs.  128 collected steps, a
+    twenty-fourth of "nuts-static"'s, keep the phase to about 15 s."""
     path = f"{tmp}/nuts_auto.npz"
     half = NUTS_RESUME_COLLECT // 2
     t_phase = time.perf_counter()
@@ -4442,7 +4809,8 @@ def phase_nuts_resume(dev, tmp: str):
     fills = counter_rng.launches
     check(whole == split == "static", f"nuts-resume: auto selected {whole!r} and {split!r}")
     check(torch.equal(torch.cat([first, rest], dim=1), want),
-          "nuts-resume: run(128) + checkpoint + resume(128) equals run(256)")
+          f"nuts-resume: run({half}) + checkpoint + resume({half}) equals "
+          f"run({NUTS_RESUME_COLLECT})")
     os.remove(path)
     say("nuts-resume", chains=N_CHAINS, dim=DIM, steps=f"{NUTS_WARMUP}+{half}+{half}",
         backend="auto", backend_selected=whole, bit_equal=True,
@@ -5689,6 +6057,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     dense = phase_dense_main(dev)
     torch.cuda.empty_cache()
+    dense_wide = phase_dense_wide(dev)
+    torch.cuda.empty_cache()
     logistic = phase_logistic(dev)
     chees_small = phase_chees_small(dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -5824,6 +6194,34 @@ def main() -> int:
                              *dense["K3"]["small_max_abs_err"].values()),
              **{k: dense["K3"][k] for k in DENSE_ROW_KEYS + ("l_bytes", "producer_warps")},
              checked_in="dense-main"),
+        # K1 and K3 on the dense GaussianND past one block's shared memory
+        # (168 and 240 dimensions): the streamed path of the same sources, one
+        # build whatever the width; launches from "dense-wide"'s runs on the
+        # 250-d MVN through HMC and MetropolisHastings; max_abs_err over the
+        # chains whose accept histories agree with the plain version's (the
+        # MVN over 8 or 64 steps, the small widths), eq_chains_differ and the
+        # float64 rule's counts beside it; library_ms one torch.cholesky_solve
+        # (K1) a leapfrog or one torch.linalg.solve_triangular (K3) a step of
+        # the residual times the run's; l_bytes L's stream a pass and
+        # l_bytes_read over the run (blocks x passes); small_timing the
+        # widest small width (1,024 at 256 chains) with its own bounds and
+        # library figure
+        dict(name="fused_hmc_dense_streamed", route="cuda",
+             source="general_mcmc_torch/csrc/fused_hmc_dense.cu",
+             replaces="general_mcmc_tpu/ops/pallas_hmc.py:116",
+             launches=dense_wide["K1"]["launches"],
+             max_abs_err=max(dense_wide["K1"]["eq_max_abs_err"],
+                             *dense_wide["K1"]["small_max_abs_err"].values()),
+             **{k: dense_wide["K1"][k] for k in WIDE_DENSE_ROW_KEYS},
+             checked_in="dense-wide"),
+        dict(name="fused_mh_dense_streamed", route="cuda",
+             source="general_mcmc_torch/csrc/fused_mh_dense.cu",
+             replaces="general_mcmc_tpu/ops/pallas_mh.py:61",
+             launches=dense_wide["K3"]["launches"],
+             max_abs_err=max(dense_wide["K3"]["eq_max_abs_err"],
+                             *dense_wide["K3"]["small_max_abs_err"].values()),
+             **{k: dense_wide["K3"][k] for k in WIDE_DENSE_ROW_KEYS},
+             checked_in="dense-wide"),
         # K2 is a device function: on the HMC and MH main paths it runs inside
         # each fused_hmc and fused_mh launch; on the ChEES and NUTS main paths
         # its fill kernel draws every step's momenta and uniforms or words (2

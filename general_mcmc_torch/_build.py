@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) under ``general_mcmc_torch/_build/``.  A source may be built in
 variants, one for each set of macros it is given (the dense Gaussian's
-kernels, one for each count of column blocks: each build unrolls its solves
-fully; the logistic tile kernels, one for each count of feature tiles a
+kernels, one for each count of column blocks up to 168 dimensions (HMC) and
+240 (MH): each build unrolls its solves fully; past them one streamed build,
+``GMT_DENSE_WIDE``, whose count of blocks is a launch argument; the logistic
+tile kernels, one for each count of feature tiles a
 block, ``GMT_LOGISTIC_PT``, and past 256 features one cluster build,
 ``GMT_LOGISTIC_CLUSTER``, of 32 tiles a block whose cluster size is a launch
 argument).  The file name carries a hash of the sources and the flags, so an

@@ -77,6 +77,21 @@
 //    _build.py built at the first launch at that width): the solves are
 //    unrolled over the blocks so that the residual stays in registers, and
 //    all 21 counts in one library took ptxas 133 s.
+//  - Past 168 dimensions (to 1,024) L's split storage does not fit beside a
+//    tile (253,952 bytes at d = 250), and the wrapper launches the streamed
+//    path, this source built with GMT_DENSE_WIDE (one build, NB a launch
+//    argument; the second half of this file): L streams from an
+//    L2-resident buffer (forward and back fragments, pre-split, written by
+//    dense_tile.cuh's stream_lower once a launch) through a ring of 8 KB
+//    shared-memory stages that every tile of the block reads in turn, so L2
+//    serves one copy of L a block and gradient (270 KB at d = 250); both
+//    solves are left-looking, each element taking the resident path's
+//    products in the same order (forced below 169 dimensions it gives its
+//    chains bit for bit); a tile's residual and gradient lie in shared
+//    memory (NB * 512 bytes: 64 KB at d = 1,024, past any register file),
+//    its position, momentum, opening position and gradient in a scratch
+//    buffer in global memory that the wrapper allocates (4 NB * 512 bytes a
+//    tile, read once a kick, drift or step, L2-resident in large part).
 //
 // Agreement with the plain version: the solves sum in another order than
 // torch.linalg.solve_triangular and carry the split's rounding, so the two
@@ -97,6 +112,7 @@
 #include "dense_tile.cuh"
 #include "tile_hmc.cuh"
 
+#ifndef GMT_DENSE_WIDE
 namespace {
 
 using gmt_dense::slot;
@@ -205,25 +221,12 @@ struct DenseTile : gmt_dense::Solve<NB> {
     for (int c = 0; c < 2 * R; ++c) V[j][c] = __fsub_rn(v[c], col(mu, c));
   }
 
-  // W_K = Y_K L_KK^-1 for the lane's rows, the last column first:
-  // w_j = (y_j - sum_{i>j} w_i L_ij) / L_jj, column j read from the
-  // transposed block.
+  // W_K = Y_K L_KK^-1 for the lane's rows (dense_tile.cuh's
+  // diag_solve_back), from the transposed block.
   __device__ __forceinline__ void diag_back(int k) {
     float r[R][8], w[R][8];
     this->gather(k, r);
-    const float4* dt = reinterpret_cast<const float4*>(s.dt + k * 64);
-#pragma unroll
-    for (int j = 7; j >= 0; --j) {
-      const float4 lo = dt[2 * j], hi = dt[2 * j + 1];
-      const float cl[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int h = 0; h < R; ++h) {
-        float acc = r[h][j];
-#pragma unroll
-        for (int i = 7; i > j; --i) acc -= cl[i] * w[h][i];
-        w[h][j] = acc * cl[j];
-      }
-    }
+    gmt_dense::diag_solve_back(s.dt + k * 64, r, w);
     this->keep(k, w);
   }
 
@@ -455,6 +458,293 @@ extern "C" int fused_hmc_dense_layout(int n, int d, unsigned int chain0, long lo
   out[3] = l.bytes;
   return 0;
 }
+
+#else  // GMT_DENSE_WIDE: the streamed path (dense_tile.cuh), d > 168
+
+namespace {
+
+using gmt_dense::kStreamPanelWords;
+
+constexpr int kMaxWideWarps = 8;  // tiles a block, one warp each
+
+// A tile's global state, words: its position, momentum, opening position
+// and opening gradient, [4][NB][32] 16-byte words in the fragment layout.
+__host__ __device__ constexpr int64_t wide_state_words(int nb) {
+  return static_cast<int64_t>(nb) * 512;
+}
+
+// One warp's tile of the dense GaussianND on the streamed path:
+// tile_hmc.cuh's hooks, as DenseTile's but with NB a launch argument.  The
+// residual (x - mu before grad(), the gradient after it) is WideSolve's, in
+// shared memory; the tile's four vectors lie in global memory, one 16-byte
+// word a lane and unit (42 MB at 10,240 chains and d = 250, L2-resident in
+// large part), read and written once a kick, drift or step.
+struct WideTile {
+  gmt_dense::WideSolve s;
+  gmt_dense::Cursor cur;
+  const gmt_tile::Run& a;
+  const gmt_tile::TileRows& rows;
+  const float2 *mu, *iv;  // [NB][4]: mu and M^-1 at columns 8 J + t and 8 J + t + 4
+  float4 *x, *m, *xo, *go;
+
+  __device__ WideTile(float4* V, int nb, const gmt_logistic::PanelRing& ring,
+                      const gmt_tile::Run& a_, const gmt_tile::TileRows& rows_,
+                      const float2* mu_, const float2* iv_, float4* state)
+      : s(reinterpret_cast<float*>(V), nb), cur(ring, true), a(a_), rows(rows_), mu(mu_),
+        iv(iv_) {
+    x = state;
+    m = x + nb * 32;
+    xo = m + nb * 32;
+    go = xo + nb * 32;
+  }
+
+  __device__ __forceinline__ void get(const float4* base, int j, float (&v)[4]) const {
+    const float4 q = base[j * 32 + s.lane];
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+  __device__ __forceinline__ void put(float4* base, int j, const float (&v)[4]) const {
+    base[j * 32 + s.lane] = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ __forceinline__ float2 col2(const float2* tab, int j) const {
+    return tab[j * 4 + s.t];
+  }
+  static __device__ __forceinline__ float col(const float2& v, int c) {
+    return (c & 1) ? v.y : v.x;
+  }
+
+  __device__ __forceinline__ void residual(int j, const float (&v)[4]) {
+    const float2 u = col2(mu, j);
+    s.word(j) = make_float4(__fsub_rn(v[0], u.x), __fsub_rn(v[1], u.y), __fsub_rn(v[2], u.x),
+                            __fsub_rn(v[3], u.y));
+  }
+
+  // x0's rows into x, and the residual x - mu.
+  __device__ void init() {
+    for (int j = 0; j < s.nb; ++j) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = 8 * j + s.t + 4 * (c & 1);
+        if (k < a.d) v[c] = a.x0[rows.row(c >> 1) * a.d + k];
+      }
+      put(x, j, v);
+      residual(j, v);
+    }
+  }
+
+  // The forward and back solves, one pass of the stream: y = L^-1 (x - mu),
+  // with `value` lp = -1/2 |y|^2, and grad = -L^-T y in place.
+  __device__ void grad(bool value, float (&lp)[2]) {
+    cur.begin();
+    s.forward_split(cur);
+    if (value) s.half_norm<true>(lp);
+    s.back_split(cur);
+    cur.end();
+    for (int j = 0; j < s.nb; ++j) {
+      const float4 w = s.word(j);
+      s.word(j) = make_float4(-w.x, -w.y, -w.z, -w.w);
+    }
+  }
+
+  __device__ void energy(float (&ke)[2]) {
+    double e[1][2] = {};
+    for (int j = 0; j < s.nb; ++j) {
+      float v[4];
+      get(m, j, v);
+      const float2 u = col2(iv, j);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) e[0][c >> 1] += gmt_tile::energy_term(v[c], col(u, c));
+    }
+    gmt_tile::row_sums<1, 1>(e, nullptr, 0, 0, s.t, [] {});
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ke[h] = gmt_tile::half_sum(e[0][h]);
+  }
+
+  // The momenta sqrt(M) z, each Philox block once a tile, written to the
+  // fragment layout (zero past d), then their kinetic energy.
+  __device__ void draw(uint32_t step, float (&ke)[2]) {
+    float* mw = reinterpret_cast<float*>(m);
+    const int d = a.d;
+    const float* scale = a.scale;
+    gmt_tile::tile_normals(a.seed, rows, step, 2 * s.nb, s.lane, 32, [=](int r, int k, float z) {
+      // row r, column k: unit k / 8, lane 4 (r % 8) + k % 4, register 2 (r / 8) + (k % 8) / 4
+      const int at = ((k >> 3) * 32 + 4 * (r & 7) + (k & 3)) * 4 + 2 * (r >> 3) + ((k & 7) >> 2);
+      mw[at] = k < d ? __fmul_rn(__ldg(scale + k), z) : 0.0f;
+    });
+    __syncwarp();
+    energy(ke);
+  }
+
+  __device__ void kick(float c) {
+    for (int j = 0; j < s.nb; ++j) {
+      float v[4];
+      get(m, j, v);
+      const float4 g = s.word(j);
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = gmt_tile::kick(v[e], gv[e], c);
+      put(m, j, v);
+    }
+  }
+
+  // x += (M^-1 m) eps, and the residual x - mu for the next gradient
+  __device__ void drift(float eps) {
+    for (int j = 0; j < s.nb; ++j) {
+      float mv[4], xv[4];
+      get(m, j, mv);
+      get(x, j, xv);
+      const float2 u = col2(iv, j);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xv[c] = gmt_tile::drift(xv[c], col(u, c), mv[c], eps);
+      put(x, j, xv);
+      residual(j, xv);
+    }
+  }
+
+  __device__ void save() {
+    for (int j = 0; j < s.nb; ++j) {
+      xo[j * 32 + s.lane] = x[j * 32 + s.lane];
+      go[j * 32 + s.lane] = s.word(j);
+    }
+  }
+
+  __device__ void restore(const bool (&reject)[2]) {
+    if (!reject[0] && !reject[1]) return;
+    for (int j = 0; j < s.nb; ++j) {
+      float xb[4], gb[4], xv[4];
+      get(xo, j, xb);
+      get(go, j, gb);
+      get(x, j, xv);
+      const float4 g = s.word(j);
+      float gv[4] = {g.x, g.y, g.z, g.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (reject[c >> 1]) {
+          xv[c] = xb[c];
+          gv[c] = gb[c];
+        }
+      }
+      put(x, j, xv);
+      s.word(j) = make_float4(gv[0], gv[1], gv[2], gv[3]);
+    }
+  }
+
+  __device__ void store(float* sample) const {
+    for (int j = 0; j < s.nb; ++j) {
+      float v[4];
+      get(x, j, v);
+      gmt_tile::store_unit(sample, rows, a.d, 0, 8 * j, s.t, v);
+    }
+  }
+};
+
+// The streamed path's kernel: a block of `per_block` tiles, one warp each,
+// the ring of `stages` stages over the stream's `panels` panels a pass (a
+// pass a gradient).  Shared memory: the stages, the ring's mbarriers and
+// counts, mu and M^-1 by columns, each tile's residual (NB * 512 bytes).
+__global__ void __launch_bounds__(kMaxWideWarps * 32, 1)
+    fused_hmc_dense_wide_kernel(const gmt_tile::Run a, const float* mean, const float* stream,
+                                float4* state, int nb, int per_block, int stages, int panels) {
+  extern __shared__ float4 shared[];
+  float* base = reinterpret_cast<float*>(shared);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + stages * kStreamPanelWords);
+  unsigned* released = reinterpret_cast<unsigned*>(full + gmt_logistic::kMaxStages);
+  float2* mu = reinterpret_cast<float2*>(reinterpret_cast<char*>(full) + 64);
+  float2* iv = mu + nb * 4;
+  float4* tiles_base = reinterpret_cast<float4*>(iv + nb * 4);
+
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t left = gmt_tile::launch_tiles(a.n, a.chain0) - tile0;
+  const int here = static_cast<int>(left < per_block ? left : per_block);  // tiles with rows
+  const int64_t steps = a.n_discard + static_cast<int64_t>(a.n_collect) * a.thin;
+  const int64_t grads = steps > 0 ? steps * a.n_leapfrog + 1 : 0;
+  const gmt_logistic::PanelRing ring{stream, base, full, released, kStreamPanelWords, panels,
+                                     stages, here, grads * panels};
+  if (threadIdx.x == 0) ring.start();
+  gmt_dense::stage_columns(mu, mean, a.d, nb);
+  gmt_dense::stage_columns(iv, a.inv, a.d, nb);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  if (warp >= here) return;  // the ring counts only the tiles with rows
+  const gmt_tile::TileRows rows(tile0 + warp, a.n, a.chain0, (threadIdx.x & 31) >> 2);
+  WideTile h(tiles_base + warp * nb * 32, nb, ring, a, rows, mu, iv,
+             state + (tile0 + warp) * (wide_state_words(nb) / 4));
+  h.init();
+  gmt_tile::run_tile(h, a, rows);
+}
+
+cudaError_t layout(int n, unsigned int chain0, int d, gmt_dense::StreamLayout* out) {
+  const int nb = (d + 7) / 8;
+  return gmt_dense::stream_layout(n, chain0, nb, true, kMaxWideWarps,
+                                  static_cast<size_t>(nb) * 64, static_cast<size_t>(nb) * 512,
+                                  wide_state_words(nb), out);
+}
+
+cudaError_t launch(const gmt_tile::Run& a, const float* mean, const float* chol, float* scratch,
+                   cudaStream_t stream) {
+  const int nb = (a.d + 7) / 8;
+  gmt_dense::StreamLayout l;
+  cudaError_t err = layout(a.n, a.chain0, a.d, &l);
+  if (err != cudaSuccess) return err;
+  err = gmt_dense::launch_stream_lower(chol, a.d, nb, true, scratch, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(fused_hmc_dense_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(l.bytes));
+  if (err != cudaSuccess) return err;
+  float4* state = reinterpret_cast<float4*>(scratch + l.panels * kStreamPanelWords);
+  fused_hmc_dense_wide_kernel<<<static_cast<unsigned int>(l.blocks),
+                                static_cast<unsigned int>(l.per_block * 32),
+                                static_cast<size_t>(l.bytes), stream>>>(
+      a, mean, scratch, state, nb, static_cast<int>(l.per_block), static_cast<int>(l.stages),
+      static_cast<int>(l.panels));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The streamed path: as fused_hmc_dense_launch, any 1 <= d the layout fits,
+// with `scratch` a device buffer of the layout's scratch words (the stream
+// of L, then each tile's four vectors).
+extern "C" int fused_hmc_dense_wide_launch(const void* x0, const void* mean, const void* chol,
+                                           const void* inv, const void* scale, void* scratch,
+                                           void* out, int n, int d, int n_collect, int n_discard,
+                                           int thin, int n_leapfrog, float step_size,
+                                           unsigned int seed, unsigned int chain0,
+                                           void* stream) {
+  if (n < 1 || d < 1 || n_leapfrog < 1 || thin < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const gmt_tile::Run a{static_cast<const float*>(x0), static_cast<const float*>(inv),
+                        static_cast<const float*>(scale), static_cast<float*>(out),
+                        n, d, n_collect, n_discard, thin, n_leapfrog, step_size, seed, chain0};
+  return static_cast<int>(launch(a, static_cast<const float*>(mean),
+                                 static_cast<const float*>(chol), static_cast<float*>(scratch),
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// The layout fused_hmc_dense_wide_launch gives n rows of width d from chain0
+// on the current device: out = {tiles, tiles a block, blocks, dynamic
+// shared bytes a block, bytes of L's stream a pass, ring stages, panels a
+// pass, scratch words}.
+extern "C" int fused_hmc_dense_wide_layout(int n, int d, unsigned int chain0, long long* out) {
+  if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  gmt_dense::StreamLayout l;
+  const cudaError_t err = layout(n, chain0, d, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = l.tiles;
+  out[1] = l.per_block;
+  out[2] = l.blocks;
+  out[3] = l.bytes;
+  out[4] = l.panels * kStreamPanelWords * 4;
+  out[5] = l.stages;
+  out[6] = l.panels;
+  out[7] = l.scratch_words;
+  return 0;
+}
+
+#endif  // GMT_DENSE_WIDE
 
 extern "C" const char* gmt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

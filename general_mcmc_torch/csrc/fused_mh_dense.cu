@@ -67,6 +67,20 @@
 //  - Each count of blocks NB is its own build (GMT_DENSE_NB, a variant of
 //    _build.py built at the first launch at that width): the solve is
 //    unrolled over the blocks so that the residual stays in registers.
+//  - Past 240 dimensions (to 1,024) L does not fit beside a tile, and the
+//    wrapper launches the streamed path, this source built with
+//    GMT_DENSE_WIDE (one build, NB a launch argument; the second half of
+//    this file): L streams from an L2-resident buffer through a ring of
+//    8 KB shared-memory stages that every tile of the block reads in turn
+//    (dense_tile.cuh's head note on the streamed path), so L2 serves one
+//    copy of L a block and step; the solve is left-looking, the residual
+//    of a tile in shared memory (NB * 512 bytes), its position and the
+//    step's normals in a scratch buffer in global memory (L2-resident at
+//    d = 250: 10 MB at 10,240 chains), and each warp draws its own tile's
+//    steps (no producer warps: their ring slots would hold NB * 512 bytes a
+//    tile).  Its panels round as the resident path's, element by element,
+//    so forced below 241 dimensions it gives the resident kernel's chains
+//    bit for bit (chip_smoke.py, "dense-wide").
 //
 // Agreement with the plain version: the solve sums in another order than
 // torch.linalg.solve_triangular, so the two agree to a tolerance, and this
@@ -85,6 +99,7 @@
 #include "dense_tile.cuh"
 #include "tile_mh.cuh"
 
+#ifndef GMT_DENSE_WIDE
 namespace {
 
 using gmt_mh::kMaxTiles;
@@ -248,6 +263,256 @@ extern "C" int fused_mh_dense_layout(int n, int d, unsigned int chain0, long lon
   out[5] = l.producers;
   return 0;
 }
+
+#else  // GMT_DENSE_WIDE: the streamed path (dense_tile.cuh), d > 240
+
+namespace {
+
+using gmt_dense::kStreamPanelWords;
+
+constexpr int kMaxWideTiles = 8;  // tiles a block, one warp each
+
+// A tile's shared bytes: its residual in the rows storage and its rows' log
+// u; and its global state, words: its position and the step's normals (then
+// its proposal), [2][NB][32] 16-byte words in the fragment layout.
+__host__ __device__ constexpr size_t wide_tile_bytes(int nb) {
+  return static_cast<size_t>(nb) * 512 + 64;
+}
+__host__ __device__ constexpr int64_t wide_state_words(int nb) {
+  return static_cast<int64_t>(nb) * 256;
+}
+
+// One warp's walk of its tile on the streamed path: tile_mh.cuh's Walker
+// with NW = 1, drawing its own steps (a producer's ring slot would hold a
+// step's normals, NB * 512 bytes a tile, which shared memory does not hold
+// beside the residual at d = 1,024; the draws are O(d) against the solve's
+// O(d^2)), the position and the normals in global memory (L2: 12.8 MB at
+// 10,240 chains and d = 250), the residual in shared memory, L from the
+// ring.
+template <int PROP>
+struct WideWalker {
+  const gmt_mh::Run& a;
+  const gmt_tile::TileRows& rows;
+  gmt_dense::WideSolve s;
+  gmt_dense::Cursor cur;
+  const float2* mu;  // [NB][4]: mu at columns 8 J + t and 8 J + t + 4
+  float4 *x, *zy;    // the tile's position and normals, [NB][32]
+  float* lu;         // [16]: the rows' log u
+  float lp[2];
+
+  __device__ WideWalker(const gmt_mh::Run& a_, const gmt_tile::TileRows& rows_, float* V,
+                        int nb, const gmt_logistic::PanelRing& ring, const float2* mu_,
+                        float4* state, float* lu_)
+      : a(a_), rows(rows_), s(V, nb), cur(ring, false), mu(mu_), x(state),
+        zy(state + nb * 32), lu(lu_) {}
+
+  // V[j] = v - mu (element c is column 8 j + t + 4 (c % 2)).
+  __device__ __forceinline__ void load(int j, const float (&v)[4]) {
+    const float2 m = mu[j * 4 + s.t];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s.elem(j, c) = __fsub_rn(v[c], (c & 1) ? m.y : m.x);
+  }
+
+  // -1/2 |L^-1 (v - mu)|^2 of the lane's two rows, a pass of the stream.
+  __device__ void density(float (&out)[2]) {
+    __syncwarp();  // every lane's residual in place
+    cur.begin();
+    s.forward_rows(cur);
+    cur.end();
+    s.half_norm<false>(out);
+  }
+
+  // x0's rows into x (zero past d), the normals zeroed (their columns past
+  // d stay zero), and the log density.
+  __device__ void init() {
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int j = 0; j < s.nb; ++j) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = 8 * j + s.t + 4 * (c & 1);
+        if (k < a.d) v[c] = a.x0[rows.row(c >> 1) * a.d + k];
+      }
+      x[j * 32 + s.lane] = gmt_mh::f4(v);
+      zy[j * 32 + s.lane] = zero;
+      load(j, v);
+    }
+    density(lp);
+  }
+
+  // One MH step: the tile's draws of `step` (each row's Philox blocks once,
+  // the warp's lanes in turn), the proposal over the normals, its log
+  // density, the accept and the select, in Walker::step's arithmetic.
+  __device__ void step(uint32_t st, const gmt_mh::Draws& dr) {
+    __syncwarp();  // the last step's reads of the normals and log u done
+    for (int idx = s.lane; idx < gmt_tile::kRows * dr.blocks; idx += 32) {
+      gmt_mh::draw_block(a, rows, reinterpret_cast<float*>(zy), lu, idx % gmt_tile::kRows,
+                         idx / gmt_tile::kRows, st, dr);
+    }
+    __syncwarp();
+    double q[2][2] = {};  // pCN: log q(x -> y), log q(y -> x), before the -1/2
+    for (int j = 0; j < s.nb; ++j) {
+      float z[4], xv[4], y[4];
+      gmt_mh::unpack(zy[j * 32 + s.lane], z);
+      gmt_mh::unpack(x[j * 32 + s.lane], xv);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        y[c] = gmt_mh::propose<PROP>(a, xv[c], z[c]);
+        if constexpr (PROP == gmt_mh::kPCN) {
+          q[0][c >> 1] += gmt_mh::q_term(a, xv[c], y[c]);
+          q[1][c >> 1] += gmt_mh::q_term(a, y[c], xv[c]);
+        }
+      }
+      zy[j * 32 + s.lane] = gmt_mh::f4(y);
+      load(j, y);
+    }
+    float lp_new[2];
+    density(lp_new);
+    if constexpr (PROP == gmt_mh::kPCN) gmt_tile::row_sums<2, 1>(q, nullptr, 0, 0, s.t, [] {});
+    bool accept[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      accept[h] = lu[s.g + 8 * h] <
+                  gmt_mh::log_accept<PROP>(lp_new[h], lp[h], q[0][h], q[1][h]);  // NaN rejects
+      if (accept[h]) lp[h] = lp_new[h];
+    }
+    if (!accept[0] && !accept[1]) return;
+    for (int j = 0; j < s.nb; ++j) {
+      float y[4], xv[4];
+      gmt_mh::unpack(x[j * 32 + s.lane], xv);
+      gmt_mh::unpack(zy[j * 32 + s.lane], y);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xv[c] = accept[c >> 1] ? y[c] : xv[c];
+      x[j * 32 + s.lane] = gmt_mh::f4(xv);
+    }
+  }
+
+  __device__ void store(float* sample) const {
+    for (int j = 0; j < s.nb; ++j) {
+      float v[4];
+      gmt_mh::unpack(x[j * 32 + s.lane], v);
+      gmt_tile::store_unit(sample, rows, a.d, 0, 8 * j, s.t, v);
+    }
+  }
+};
+
+// The streamed path's kernel: a block of `per_block` tiles, one warp each,
+// the ring of `stages` stages over the stream's `panels` panels a pass (a
+// pass a log density: one at x0, one a step).  Shared memory: the stages,
+// the ring's mbarriers and counts, mu by columns, each tile's residual and
+// log u (wide_tile_bytes).
+template <int PROP>
+__global__ void __launch_bounds__(kMaxWideTiles * 32, 1)
+    fused_mh_dense_wide_kernel(const gmt_mh::Run a, const float* mean, const float* stream,
+                               float4* state, int nb, int per_block, int stages, int panels) {
+  extern __shared__ float4 shared[];
+  float* base = reinterpret_cast<float*>(shared);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + stages * kStreamPanelWords);
+  unsigned* released = reinterpret_cast<unsigned*>(full + gmt_logistic::kMaxStages);
+  float2* mu = reinterpret_cast<float2*>(reinterpret_cast<char*>(full) + 64);
+  char* tiles_base = reinterpret_cast<char*>(mu + nb * 4);
+
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * per_block;
+  const int64_t left = gmt_tile::launch_tiles(a.n, a.chain0) - tile0;
+  const int here = static_cast<int>(left < per_block ? left : per_block);  // tiles with rows
+  const int64_t steps = a.n_discard + static_cast<int64_t>(a.n_collect) * a.thin;
+  const gmt_logistic::PanelRing ring{stream, base, full, released, kStreamPanelWords, panels,
+                                     stages, here, (steps + 1) * panels};
+  if (threadIdx.x == 0) ring.start();
+  gmt_dense::stage_columns(mu, mean, a.d, nb);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  if (warp >= here) return;  // the ring counts only the tiles with rows
+  char* own = tiles_base + warp * wide_tile_bytes(nb);
+  const gmt_tile::TileRows rows(tile0 + warp, a.n, a.chain0, (threadIdx.x & 31) >> 2);
+  WideWalker<PROP> w(a, rows, reinterpret_cast<float*>(own), nb, ring, mu,
+                     state + (tile0 + warp) * (wide_state_words(nb) / 4),
+                     reinterpret_cast<float*>(own + static_cast<size_t>(nb) * 512));
+  w.init();
+  const gmt_mh::Draws dr(a.d);
+  const int64_t sample = static_cast<int64_t>(a.n) * a.d;  // floats between stored samples
+  float* dst = a.out;
+  int until_store = a.thin;  // post-burn-in steps until the next stored sample
+  for (int64_t step = 0; step < steps; ++step) {
+    w.step(static_cast<uint32_t>(step), dr);
+    if (step < a.n_discard || --until_store > 0) continue;
+    until_store = a.thin;
+    w.store(dst);
+    dst += sample;
+  }
+}
+
+cudaError_t layout(int n, unsigned int chain0, int d, gmt_dense::StreamLayout* out) {
+  const int nb = (d + 7) / 8;
+  return gmt_dense::stream_layout(n, chain0, nb, false, kMaxWideTiles,
+                                  static_cast<size_t>(nb) * 32, wide_tile_bytes(nb),
+                                  wide_state_words(nb), out);
+}
+
+cudaError_t launch(const gmt_mh::Run& a, const float* mean, const float* chol, float* scratch,
+                   int proposal, cudaStream_t stream) {
+  if (proposal != gmt_mh::kRandomWalk && proposal != gmt_mh::kPCN) return cudaErrorInvalidValue;
+  const int nb = (a.d + 7) / 8;
+  gmt_dense::StreamLayout l;
+  cudaError_t err = layout(a.n, a.chain0, a.d, &l);
+  if (err != cudaSuccess) return err;
+  err = gmt_dense::launch_stream_lower(chol, a.d, nb, false, scratch, stream);
+  if (err != cudaSuccess) return err;
+  const auto kernel = proposal == gmt_mh::kPCN ? fused_mh_dense_wide_kernel<gmt_mh::kPCN>
+                                               : fused_mh_dense_wide_kernel<gmt_mh::kRandomWalk>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(l.bytes));
+  if (err != cudaSuccess) return err;
+  float4* state = reinterpret_cast<float4*>(scratch + l.panels * kStreamPanelWords);
+  kernel<<<static_cast<unsigned int>(l.blocks), static_cast<unsigned int>(l.per_block * 32),
+           static_cast<size_t>(l.bytes), stream>>>(a, mean, scratch, state, nb,
+                                                   static_cast<int>(l.per_block),
+                                                   static_cast<int>(l.stages),
+                                                   static_cast<int>(l.panels));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The streamed path: as fused_mh_dense_launch, any 1 <= d the layout fits,
+// with `scratch` a device buffer of the layout's scratch words (the stream
+// of L, then each tile's position and normals).
+extern "C" int fused_mh_dense_wide_launch(const void* x0, const void* mean, const void* chol,
+                                          void* scratch, void* out, int n, int d, int n_collect,
+                                          int n_discard, int thin, int proposal, float p0,
+                                          float p1, float p2, unsigned int seed,
+                                          unsigned int chain0, void* stream) {
+  if (n < 1 || d < 1 || thin < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const gmt_mh::Run a{static_cast<const float*>(x0), static_cast<float*>(out), n, d, n_collect,
+                      n_discard, thin, p0, p1, p2, seed, chain0};
+  return static_cast<int>(launch(a, static_cast<const float*>(mean),
+                                 static_cast<const float*>(chol), static_cast<float*>(scratch),
+                                 proposal, static_cast<cudaStream_t>(stream)));
+}
+
+// The layout fused_mh_dense_wide_launch gives n rows of width d from chain0
+// on the current device: out = {tiles, tiles a block, blocks, dynamic
+// shared bytes a block, bytes of L's stream a pass, producer warps (none),
+// ring stages, panels a pass, scratch words}.
+extern "C" int fused_mh_dense_wide_layout(int n, int d, unsigned int chain0, long long* out) {
+  if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
+  gmt_dense::StreamLayout l;
+  const cudaError_t err = layout(n, chain0, d, &l);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = l.tiles;
+  out[1] = l.per_block;
+  out[2] = l.blocks;
+  out[3] = l.bytes;
+  out[4] = l.panels * kStreamPanelWords * 4;
+  out[5] = 0;
+  out[6] = l.stages;
+  out[7] = l.panels;
+  out[8] = l.scratch_words;
+  return 0;
+}
+
+#endif  // GMT_DENSE_WIDE
 
 extern "C" const char* gmt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -142,6 +142,33 @@ __device__ __forceinline__ void put_normal(float* z, int r, int k, int d, float 
   if (k < d) z[((k >> 3) * 32 + 4 * (r & 7) + (k & 3)) * 4 + 2 * (r >> 3) + ((k & 7) >> 2)] = v;
 }
 
+// Philox block q of tile row r's draws at `step`: its normals into the
+// fragment layout z (below d only) and, from the last block, log u into
+// u[r].
+__device__ __forceinline__ void draw_block(const Run& a, const TileRows& rows, float* z, float* u,
+                                           int r, int q, uint32_t step, const Draws& dr) {
+  const uint4 b = gmt::counter_bits(a.seed, rows.key_at(r), step, static_cast<uint32_t>(q),
+                                    gmt::kTagProposal);
+  const bool last = q == dr.blocks - 1;
+  float log_u = 0.0f, unused;
+  if (!last || dr.u_in_word2) {
+    float z0, z1;
+    gmt::box_muller_pair_straight(b.x, b.y, z0, z1, unused);
+    put_normal(z, r, 4 * q, a.d, z0);
+    put_normal(z, r, 4 * q + 1, a.d, z1);
+    if (!last) {
+      gmt::box_muller_pair_straight(b.z, b.w, z0, z1, unused);
+      put_normal(z, r, 4 * q + 2, a.d, z0);
+      put_normal(z, r, 4 * q + 3, a.d, z1);
+    } else {
+      log_u = gmt::log_straight(gmt::bits_to_uniform(b.z));
+    }
+  } else {
+    log_u = gmt::log_straight(gmt::bits_to_uniform(b.x));
+  }
+  if (last) u[r] = log_u;
+}
+
 // The draws of step `step` into slot k for the block's first `count` tiles
 // (the block's first tile being the launch's tile0): each (tile, row,
 // Philox block) once, by `nthreads` threads from `tid`.
@@ -155,27 +182,8 @@ __device__ void produce(const Run& a, const Ring<NB>& ring, int64_t tile0, int c
     const int q = (idx % per_tile) / kRows;
     const int r = idx % kRows;
     const TileRows rows(tile0 + tile, a.n, a.chain0, 0);
-    const uint4 b = gmt::counter_bits(a.seed, rows.key_at(r), step, static_cast<uint32_t>(q),
-                                      gmt::kTagProposal);
-    float* z = reinterpret_cast<float*>(ring.slot_z(k, tile));
-    const bool last = q == dr.blocks - 1;
-    float log_u = 0.0f, unused;
-    if (!last || dr.u_in_word2) {
-      float z0, z1;
-      gmt::box_muller_pair_straight(b.x, b.y, z0, z1, unused);
-      put_normal(z, r, 4 * q, a.d, z0);
-      put_normal(z, r, 4 * q + 1, a.d, z1);
-      if (!last) {
-        gmt::box_muller_pair_straight(b.z, b.w, z0, z1, unused);
-        put_normal(z, r, 4 * q + 2, a.d, z0);
-        put_normal(z, r, 4 * q + 3, a.d, z1);
-      } else {
-        log_u = gmt::log_straight(gmt::bits_to_uniform(b.z));
-      }
-    } else {
-      log_u = gmt::log_straight(gmt::bits_to_uniform(b.x));
-    }
-    if (last) ring.slot_u(k, tile)[r] = log_u;
+    draw_block(a, rows, reinterpret_cast<float*>(ring.slot_z(k, tile)), ring.slot_u(k, tile), r,
+               q, step, dr);
   }
 }
 

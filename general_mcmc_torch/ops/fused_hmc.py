@@ -17,8 +17,10 @@ repo's continuous targets whose gradient is elementwise or near it:
 and ``NealsFunnel``, the target's constants as one float32 row.  The two
 targets whose gradient is a matrix computation run in tile kernels of their
 own on the tensor cores, which share their HMC (``csrc/tile_hmc.cuh``): a
-``GaussianND`` with a dense covariance (``d <= MAX_DENSE_DIM``,
-:mod:`.fused_hmc_dense`) and the hierarchical logistic targets,
+``GaussianND`` with a dense covariance (``d <= MAX_DENSE_DIM`` = 1,024,
+:mod:`.fused_hmc_dense`: L in a block's shared memory up to 168
+dimensions, past them streamed through it from L2) and the hierarchical
+logistic targets,
 ``HierarchicalLogisticNC`` and the centred ``HierarchicalLogistic``
 (``p <= fused_hmc_logistic.MAX_FEATURES`` = 2,048, any number of
 observations: :mod:`.fused_hmc_logistic`, X resident in shared memory or
@@ -73,7 +75,9 @@ MAX_LANE_DIM = 512  # 32 lanes x 4 quads x 4 dimensions
 WIDE_MAX_CLUSTER, WIDE_MAX_WARPS, WIDE_QUADS = 8, 16, 2
 MAX_WIDE_DIM = 4 * 32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_QUADS  # 32,768
 # The dense GaussianND's kernel keeps L's lower triangle in a block's shared
-# memory, in 8 x 8 blocks split into TF32 hi and lo (ops/fused_hmc_dense.py).
+# memory, in 8 x 8 blocks split into TF32 hi and lo, up to 168 dimensions,
+# and past them streams it through a ring of shared-memory stages
+# (ops/fused_hmc_dense.py).
 MAX_DENSE_DIM = fused_hmc_dense.MAX_DENSE_DIM
 
 # The Target enum of csrc/lane_targets.cuh, which K1 and K3 share.

@@ -20,8 +20,10 @@ anything else raises, ``DiscreteWalkProposal`` and integer states included
 (the JAX package's discrete walk takes its XLA path too).  Two target
 families run in tile kernels of their own on ``csrc/tile_mh.cuh``, each
 with its own ``launches``: a ``GaussianND`` with a dense covariance (``d <=
-MAX_DENSE_DIM``) in ``csrc/fused_mh_dense.cu`` (:mod:`.fused_mh_dense`: the
-forward solve blocked with a tile's chains as right-hand sides), and the
+MAX_DENSE_DIM`` = 1,024) in ``csrc/fused_mh_dense.cu`` (:mod:`.fused_mh_dense`:
+the forward solve blocked with a tile's chains as right-hand sides, L in a
+block's shared memory up to 240 dimensions, past them streamed through it
+from L2, counted in its ``streamed_launches``), and the
 hierarchical logistic targets, ``HierarchicalLogisticNC`` and the centred
 ``HierarchicalLogistic`` (``p <= fused_mh_logistic.MAX_FEATURES`` =
 2,048, any number of observations), in ``csrc/fused_mh_logistic.cu``
@@ -73,7 +75,8 @@ MAX_LANE_DIM = 512  # widest state of a warp's lane maps (csrc/fused_mh.cu)
 # + 1 Philox blocks in a cluster of up to 8 blocks of 16 warps, 2 a thread
 MAX_WIDE_DIM = 4 * (32 * WIDE_MAX_WARPS * WIDE_MAX_CLUSTER * WIDE_QUADS - 1) + 2  # 32,766
 # The dense GaussianND's tile kernel keeps L's lower triangle in a block's
-# shared memory in 8 x 8 blocks (ops/fused_mh_dense.py).
+# shared memory in 8 x 8 blocks up to 240 dimensions, and past them streams
+# it through a ring of shared-memory stages (ops/fused_mh_dense.py).
 MAX_DENSE_DIM = fused_mh_dense.MAX_DENSE_DIM
 
 # The Proposal enum of csrc/fused_mh.cu (and csrc/tile_mh.cuh).

@@ -36,6 +36,7 @@ from general_mcmc_torch import (
     init_with_seed,
     split_rhat_mean_ess,
 )
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 _MEAN, _COV = [0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]
 

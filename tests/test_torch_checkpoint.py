@@ -17,6 +17,7 @@ import general_mcmc_torch as gmt
 from general_mcmc_torch.samplers.metropolis_hastings import DiscreteWalkProposal
 from general_mcmc_torch.utils import checkpoint
 from general_mcmc_torch.utils.checkpoint import load_carry, save_carry
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 MEAN, COV = [0.0, 1.0], [[4.0, 2.0], [2.0, 3.0]]
 

@@ -23,6 +23,7 @@ from general_mcmc_tpu.samplers.chees import halton_base2 as jax_halton
 from general_mcmc_torch import ChEESHMC, combine_suffstats_host, halton_base2, split_rhat_mean_ess
 from general_mcmc_torch.convert import to_chees_carry, to_target, to_tensor
 from general_mcmc_torch.ops import counter_rng
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-10  # one step, float64, the JAX arithmetic order: rounding only
 SEQ_RTOL = 1e-9  # a sequence of steps

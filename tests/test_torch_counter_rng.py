@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from general_mcmc_torch.ops import counter_rng as cr
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 _MASK = 0xFFFFFFFF
 

@@ -1,8 +1,11 @@
 """The tile HMC kernels on the card: ``csrc/fused_hmc_dense.cu`` (the dense
-GaussianND) and ``csrc/fused_hmc_logistic.cu`` (HierarchicalLogisticNC),
-which share ``csrc/tile_hmc.cuh``, each against its plain version (the
-``"torch"`` step) at small widths, odd ones too, and a block of rows launched
-from ``chain0`` bit-equal to those rows of the launch from chain 0.
+GaussianND, L resident in shared memory up to 168 dimensions and streamed
+through it past them, to 1,024) and ``csrc/fused_hmc_logistic.cu``
+(HierarchicalLogisticNC), which share ``csrc/tile_hmc.cuh``, each against its
+plain version (the ``"torch"`` step) at small widths, odd ones too, and a
+block of rows launched from ``chain0`` bit-equal to those rows of the launch
+from chain 0; the streamed path forced on below 169 dimensions bit-equal to
+the resident one.
 
 The kernels sum their products in another order than the plain version's
 library calls, so they agree to a tolerance: the dense kernel to K1's rtol
@@ -53,16 +56,18 @@ def accept_history(samples, x0):
 
 
 @pytest.mark.parametrize("mass", [False, True])
-@pytest.mark.parametrize("d", [2, 3, 7, 8, 13, 33, 100, 168])
+@pytest.mark.parametrize("d", [2, 3, 7, 8, 13, 33, 100, 168, 169, 176, 250, 512, 1000, 1024])
 def test_dense_kernel_matches_its_plain_version(card, d, mass):
     target, scales = dense(d, card)
     x0 = gmt.init_with_seed(300, d, 3, device=card)
     mass_inv = scales**2 if mass else None
-    before = fused_hmc_dense.launches
+    before = (fused_hmc_dense.launches, fused_hmc_dense.streamed_launches)
     got = fused_hmc.fused_hmc_run(target, x0, 0.1, 5, 8, 0, seed=11, mass_inv=mass_inv)
     want = fused_hmc.fused_hmc_run_reference(target, x0, 0.1, 5, 8, 0, seed=11,
                                              mass_inv=mass_inv)
-    assert fused_hmc_dense.launches == before + 1
+    streamed = int(d > fused_hmc_dense.MAX_RESIDENT_DIM)
+    assert (fused_hmc_dense.launches, fused_hmc_dense.streamed_launches) == (
+        before[0] + 1 - streamed, before[1] + streamed)
     assert got.shape == (300, 8, d) and bool(torch.isfinite(got).all())
     close = torch.isclose(got, want, rtol=1e-4, atol=1e-5)
     assert bool(close.all()), f"{int((~close).reshape(300, -1).any(1).sum())} chains differ"
@@ -84,8 +89,21 @@ def test_logistic_kernel_matches_its_plain_version(card, p, n_obs, n):
     assert rel < 1e-5
 
 
+@pytest.mark.parametrize("d", [100, 168])
+def test_streamed_path_equals_the_resident_one(card, d):
+    """Forced on below its widths, the streamed path (left-looking solves, L
+    from the ring) gives the resident path's chains bit for bit: each
+    element takes the same products in the same order."""
+    target, scales = dense(d, card)
+    x0 = gmt.init_with_seed(700, d, 3, device=card)
+    inv = (scales**2).contiguous()
+    runs = [fused_hmc_dense.launch_dense(target, x0, 0.1, 5, 8, 2, 11, 1, inv,
+                                         1.0 / torch.sqrt(inv), stream=s) for s in (True, False)]
+    assert torch.equal(*runs)
+
+
 @pytest.mark.parametrize("chain0", [5, 16, 3000])
-@pytest.mark.parametrize("name", ["dense33", "dense100", "logistic"])
+@pytest.mark.parametrize("name", ["dense33", "dense100", "dense250", "logistic"])
 def test_chain0_rows_equal_the_launch_from_zero(card, name, chain0):
     """A block of 300 rows launched from ``chain0`` is the full launch's rows,
     bit for bit: tiles are aligned to the global chain."""
@@ -116,13 +134,20 @@ def test_launch_spreads_tiles_over_the_sms(card, n, chain0):
     X, _, _ = bench_logistic_data(device=card)
     layouts = {"dense100": fused_hmc_dense.launch_layout(n, 100, chain0),
                "dense168": fused_hmc_dense.launch_layout(n, 168, chain0),
+               "dense250": fused_hmc_dense.launch_layout(n, 250, chain0),
+               "dense1024": fused_hmc_dense.launch_layout(n, 1024, chain0),
                "logistic": fused_hmc_logistic.launch_layout(n, *X.shape, chain0)}
     for name, lay in layouts.items():
         assert lay["tiles"] == tiles, name
         assert lay["blocks"] == -(-tiles // lay["tiles_a_block"]), name
         assert lay["tiles_a_block"] <= -(-tiles // sms), name
+    for name in ("dense250", "dense1024"):  # the stream of L: both solves, 8 KB panels
+        nb = -(-int(name[5:]) // 8)
+        lay = layouts[name]
+        assert lay["streamed"] == 1 and 2 <= lay["stages"] <= 4, name
+        assert lay["panels"] == -(-nb * (nb + 1) // 16) and lay["l_bytes"] == lay["panels"] * 8192
     if n == 10_240 and sms == 132:
-        for name in ("dense100", "logistic"):
+        for name in ("dense100", "dense250", "logistic"):
             assert (layouts[name]["tiles_a_block"], layouts[name]["blocks"]) == (5, 128), name
         assert layouts["dense168"]["tiles_a_block"] == 2
 

@@ -11,6 +11,7 @@ import torch
 import general_mcmc_tpu as gmt
 from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.models.distributions import as_value_and_grad
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-12  # float64, same formulas: rounding only
 

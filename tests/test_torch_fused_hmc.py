@@ -18,6 +18,7 @@ from general_mcmc_tpu.ops.pallas_hmc import fused_hmc_run as jax_fused_hmc_run
 from general_mcmc_torch import HMC
 from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.ops import fused_hmc
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 _MEAN = np.array([0.0, 1.0, -1.0, 2.0])
 _SCALES = np.array([1.0, 2.0, 0.5, 1.5])

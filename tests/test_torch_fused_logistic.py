@@ -17,6 +17,7 @@ import torch
 from general_mcmc_tpu.models.regression import make_logistic_data as jax_make_logistic_data
 from general_mcmc_torch.convert import to_tensor
 from general_mcmc_torch.ops import fused_logistic
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -33,6 +33,7 @@ from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_logistic, fused_mh, fused_mh_logistic
 from test_torch_fused_logistic_wide import JAX_TARGETS, KINDS, SD_LOG, Z_MAX, beta_of
 from torch_fused_targets import logistic_data
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 COLON = (62, 2000)  # the colon-cancer data's shape (Alon et al. 1999): tissues, genes
 SHAPES = [COLON, (300, 520)]

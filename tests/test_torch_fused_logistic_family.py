@@ -35,6 +35,7 @@ from general_mcmc_torch import HMC, MetropolisHastings, PCNProposal, RandomWalkP
 from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_logistic, fused_mh, fused_mh_logistic
 from torch_fused_targets import logistic_data, targets
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 KINDS = {"logistic": "HierarchicalLogistic", "logistic_nc": "HierarchicalLogisticNC"}
 JAX_TARGETS = {"logistic": JaxLogistic, "logistic_nc": JaxLogisticNC}

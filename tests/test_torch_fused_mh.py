@@ -22,6 +22,7 @@ from general_mcmc_torch import (
 )
 from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.ops import fused_mh
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 _MEAN = np.array([0.0, 1.0])
 _COV = np.array([[4.0, 2.0], [2.0, 3.0]])

@@ -26,6 +26,7 @@ from general_mcmc_torch.models.distributions import as_value_and_grad
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_logistic
 from torch_fused_targets import (LAYOUTS, MEAN2, COV2, RTOL, dense_cov, logistic_data,
                                  port_target, targets)
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 @pytest.mark.parametrize("n_collect,n_discard,thin", LAYOUTS)
 @pytest.mark.parametrize("name", list(targets()))

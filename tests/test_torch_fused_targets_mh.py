@@ -18,6 +18,7 @@ from general_mcmc_torch import MetropolisHastings, RandomWalkProposal
 from general_mcmc_torch.convert import to_tensor
 from general_mcmc_torch.ops import fused_mh
 from torch_fused_targets import COV2, LAYOUTS, MEAN2, dense_cov, port_target, targets
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 @pytest.mark.parametrize("n_collect,n_discard,thin", LAYOUTS)
 @pytest.mark.parametrize("name", list(targets()))

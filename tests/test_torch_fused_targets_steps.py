@@ -16,6 +16,7 @@ from general_mcmc_tpu.samplers import metropolis_hastings as jmh
 from general_mcmc_torch import HMC, MetropolisHastings, PCNProposal, RandomWalkProposal
 from general_mcmc_torch.convert import to_tensor
 from torch_fused_targets import RTOL, port_target, targets
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 
 def _jax_draws(seed, n, d, m):

@@ -26,6 +26,7 @@ from general_mcmc_tpu.samplers import metropolis_hastings as jmh
 from general_mcmc_torch import HMC, MetropolisHastings
 from general_mcmc_torch.convert import to_proposal, to_target, to_tensor
 from general_mcmc_torch.ops import counter_rng, fused_hmc, fused_mh
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-10  # float64, the same formulas and the same draws: rounding only
 

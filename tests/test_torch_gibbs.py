@@ -19,6 +19,7 @@ from general_mcmc_torch import GibbsSampler, init_det
 from general_mcmc_torch.convert import to_gibbs_carry, to_tensor
 from general_mcmc_torch.ops import counter_rng as cr
 from general_mcmc_torch.samplers.gibbs import CoordinateDraws, GibbsDraws
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-12  # float64, the same formulas and draws: rounding only
 

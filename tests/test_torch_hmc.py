@@ -13,6 +13,7 @@ from general_mcmc_tpu.samplers.hmc import leapfrog as jax_leapfrog
 from general_mcmc_torch import HMC, leapfrog
 from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.models.distributions import as_grad_fn, as_value_and_grad
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-10  # float64, same arithmetic order: rounding only
 

@@ -14,6 +14,7 @@ from general_mcmc_tpu import io as jio
 from general_mcmc_torch import _build
 from general_mcmc_torch import io as pio
 from general_mcmc_torch.io import native
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 
 @pytest.fixture

@@ -22,6 +22,7 @@ from general_mcmc_torch import (
 from general_mcmc_torch.convert import to_mala_carry, to_target, to_tensor
 from general_mcmc_torch.diagnostics.stats import split_rhat_mean_ess
 from general_mcmc_torch.ops import counter_rng as cr
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-12  # float64, JAX's order of arithmetic and the same draws: rounding only
 

@@ -23,6 +23,7 @@ from general_mcmc_torch import (
     init_det,
 )
 from general_mcmc_torch.convert import to_proposal, to_target, to_tensor
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-12  # float64, same formulas and the same draws: rounding only
 

@@ -26,6 +26,7 @@ from general_mcmc_torch import (
 )
 from general_mcmc_torch.convert import to_nuts_carry, to_target, to_tensor
 from general_mcmc_torch.ops import counter_rng, tree
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-10  # the initial carry: the ε search, rounding only
 SEQ_RTOL, SEQ_ATOL = 1e-9, 1e-11  # a step from JAX's state, windows included
@@ -34,16 +35,6 @@ _MEAN, _COV = np.array([0.0, 1.0]), np.array([[4.0, 2.0], [2.0, 3.0]])
 # Stan windows cut to a 30-step warmup: collect at steps 11-24, window ends
 # at step indices 19 and 23
 _SHORT_WINDOWS = dict(start_buffer=10, end_buffer=5, initial_window=10)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These batches are a few dozen chains wide: one intra-op thread runs
-    them faster than a pool does (the number is restored after)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # -- the JAX draws, replayed -----------------------------------------------------------

@@ -18,16 +18,7 @@ from general_mcmc_torch import NUTS, NealsFunnel, NUTSMassMatrixConfig, init_det
 from general_mcmc_torch.convert import to_nuts_carry, to_target, to_tensor
 from general_mcmc_torch.ops import static_tree, tree
 from test_torch_nuts import _COV, _MEAN, _SHORT_WINDOWS, SEQ_ATOL, SEQ_RTOL, _assert_carry
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """A few dozen chains: one intra-op thread runs them faster than a pool
-    does (the number is restored after)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 
 def _std_normal(x):

@@ -20,6 +20,7 @@ import torch
 
 from general_mcmc_torch.diagnostics import stats as pst
 from general_mcmc_tpu.diagnostics import stats as jst
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-8
 # float32 samples: two sort, FFT and sum implementations in float32

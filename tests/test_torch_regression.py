@@ -12,6 +12,7 @@ import torch
 from general_mcmc_tpu.models import regression as jreg
 from general_mcmc_torch import HierarchicalLogisticNC, make_logistic_data
 from general_mcmc_torch.convert import to_target, to_tensor
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 # float64: the same formulas, but the two likelihood products sum 6 and 40
 # terms in each library's own order

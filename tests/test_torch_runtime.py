@@ -25,6 +25,7 @@ from general_mcmc_torch.utils.progress import ProgressRenderer
 from general_mcmc_tpu import core as jcore
 from general_mcmc_tpu.diagnostics import stats as jst
 from general_mcmc_tpu.utils.progress import ProgressRenderer as JaxRenderer
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 RTOL = 1e-10  # float64 trackers: sums in another order only

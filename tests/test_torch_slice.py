@@ -20,6 +20,7 @@ import general_mcmc_tpu as gmt
 from general_mcmc_tpu.diagnostics.stats import split_rhat_mean_ess as jax_split_rhat
 from general_mcmc_torch import HMC, init_with_seed, split_rhat_mean_ess
 from general_mcmc_torch.convert import to_target, to_tensor
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,18 +21,9 @@ from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.models.distributions import as_value_and_grad
 from general_mcmc_torch.ops import counter_rng, static_tree, tree
 from test_static_tree import oracle_static_step
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL, ATOL = 1e-10, 1e-12  # a transition in float64: rounding through its leapfrogs
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These batches are a few dozen chains wide: one intra-op thread runs
-    them faster than a pool does (the number is restored after)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("depth", range(1, 7))

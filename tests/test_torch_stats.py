@@ -14,6 +14,7 @@ import torch
 
 from general_mcmc_tpu.diagnostics import stats as jst
 from general_mcmc_torch.diagnostics import stats as pst
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-10  # float64: the FFTs and sums differ in order only
 # float32 samples: two FFT libraries and sum orders, ~1e-7 relative per

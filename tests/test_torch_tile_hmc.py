@@ -21,6 +21,7 @@ from general_mcmc_torch.convert import to_target
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_dense, fused_hmc_logistic
 from torch_fused_targets import (TILE, blocked_back, blocked_forward, blocked_value_and_grad,
                                  dense_cov, launch_tiles, logistic_data, tile_rows)
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-12  # float64, the same algebra in another order of summation
 
@@ -78,7 +79,9 @@ def test_blocked_value_and_grad_match_jax(d, cov):
 def test_each_target_goes_to_its_kernel():
     """A dense GaussianND goes to the dense tile kernel, HierarchicalLogisticNC
     to the logistic one, the other targets to csrc/fused_hmc.cu; a dense
-    target wider than MAX_DENSE_DIM raises, in both wrappers."""
+    target past MAX_RESIDENT_DIM (168) goes to the dense kernel's streamed
+    build, and one wider than MAX_DENSE_DIM (1,024) raises, in both
+    wrappers."""
     x = torch.zeros(4, 5)
     dense = to_target("GaussianND", np.zeros(5), dense_cov(5), dtype=torch.float32)
     diag = to_target("GaussianND", np.zeros(5), np.ones(5), dtype=torch.float32)
@@ -89,12 +92,18 @@ def test_each_target_goes_to_its_kernel():
     nc = to_target("HierarchicalLogisticNC", X, y)
     code = fused_hmc._check_args(nc, torch.zeros(4, X.shape[1] + 2), 3, 2, 0, 1, None)
     assert fused_hmc.tile_kernel(code) is fused_hmc_logistic.launch_logistic
-    assert fused_hmc.MAX_DENSE_DIM == fused_hmc_dense.MAX_DENSE_DIM == 168
+    assert fused_hmc_dense.MAX_RESIDENT_DIM == 168
+    assert fused_hmc.MAX_DENSE_DIM == fused_hmc_dense.MAX_DENSE_DIM == 1024
+    d = fused_hmc_dense.MAX_RESIDENT_DIM + 1
+    past = to_target("GaussianND", np.zeros(d), dense_cov(d))
+    code = fused_hmc._check_args(past, torch.zeros(4, d), 3, 2, 0, 1, None)
+    assert fused_hmc.tile_kernel(code) is fused_hmc_dense.launch_dense
+    assert fused_hmc_dense.build_defines(d) == {"GMT_DENSE_WIDE": 1}
     d = fused_hmc_dense.MAX_DENSE_DIM + 1
     wide = to_target("GaussianND", np.zeros(d), dense_cov(d))
-    with pytest.raises(ValueError, match="dim <= 168"):
+    with pytest.raises(ValueError, match="dim <= 1024, got 1025"):
         fused_hmc._check_args(wide, torch.zeros(4, d), 3, 2, 0, 1, None)
-    with pytest.raises(ValueError, match="dim <= 168"):
+    with pytest.raises(ValueError, match="dim <= 1024, got 1025"):
         fused_hmc_dense.check_target(wide, d)
     with pytest.raises(ValueError, match="full covariance"):
         fused_hmc_dense.check_target(diag, 5)

@@ -23,6 +23,7 @@ from general_mcmc_torch import MetropolisHastings, PCNProposal, RandomWalkPropos
 from general_mcmc_torch.convert import to_target
 from general_mcmc_torch.ops import fused_mh, fused_mh_dense
 from torch_fused_targets import blocked_forward, blocked_log_density, column_forward, dense_cov
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 TOL = 1e-10  # float64, the same algebra in another order of summation
 WIDTHS = (2, 7, 33, 100, 168, 240)  # every width K3's dense kernel takes, odd ones too
@@ -115,15 +116,25 @@ def test_each_target_goes_to_its_kernel():
 
 
 def test_width_limit_is_240_in_both_modules():
-    assert fused_mh.MAX_DENSE_DIM == fused_mh_dense.MAX_DENSE_DIM == 240
-    d = 241
-    wide = to_target("GaussianND", np.zeros(d), dense_cov(d), dtype=torch.float32)
+    """240 is the resident path's limit: past it the dense target goes to
+    the streamed build, and past MAX_DENSE_DIM (1,024) both modules raise
+    with the width."""
+    assert fused_mh_dense.MAX_RESIDENT_DIM == 240
+    assert fused_mh.MAX_DENSE_DIM == fused_mh_dense.MAX_DENSE_DIM == 1024
+    assert fused_mh_dense.build_defines(240) == {"GMT_DENSE_NB": 30}
     walk = RandomWalkProposal(0.1)
-    with pytest.raises(ValueError, match="dim <= 240"):
+    d = 241
+    past = to_target("GaussianND", np.zeros(d), dense_cov(d), dtype=torch.float32)
+    code, _, _ = fused_mh._check_args(past, torch.zeros(2, d), walk, 1, 0, 1)
+    assert fused_mh.tile_kernel(code) is fused_mh_dense.launch_dense
+    assert fused_mh_dense.build_defines(d) == {"GMT_DENSE_WIDE": 1}
+    d = 1025
+    wide = to_target("GaussianND", np.zeros(d), dense_cov(d), dtype=torch.float32)
+    with pytest.raises(ValueError, match="dim <= 1024, got 1025"):
         fused_mh._check_args(wide, torch.zeros(2, d), walk, 1, 0, 1)
-    with pytest.raises(ValueError, match="dim <= 240"):
+    with pytest.raises(ValueError, match="dim <= 1024, got 1025"):
         fused_mh.fused_mh_run(wide, torch.zeros(2, d), walk, 1)
-    with pytest.raises(ValueError, match="dim <= 240"):
+    with pytest.raises(ValueError, match="dim <= 1024, got 1025"):
         fused_mh_dense.check_target(wide, d)
     with pytest.raises(ValueError, match="full covariance"):
         fused_mh_dense.check_target(to_target("GaussianND", np.zeros(3), np.ones(3)), 3)

@@ -16,6 +16,7 @@ from general_mcmc_tpu.ops import tree as jtree
 from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.models.distributions import as_value_and_grad
 from general_mcmc_torch.ops import tree
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-12  # float64, same arithmetic: rounding only
 TREE_RTOL, TREE_ATOL = 1e-10, 1e-12  # a tree step: rounding through its leapfrogs

@@ -26,6 +26,18 @@ def dense_cov(d):
     return scales[:, None] * 0.5 ** np.abs(idx[:, None] - idx[None, :]) * scales[None, :]
 
 
+def wishart_cov(d, seed=0):
+    """The NUTS paper's multivariate normal (Hoffman & Gelman 2014, §4.1):
+    the covariance whose precision is ``G Gᵀ``, ``G`` a ``d × d`` matrix of
+    standard normals from ``np.random.default_rng(seed)`` (a Wishart draw of
+    identity scale and ``d`` degrees of freedom), inverted in float64 and
+    made symmetric.  At d = 250, seed 0: condition number 1.8e6, standard
+    deviations 0.48 to 8.2."""
+    G = np.random.default_rng(seed).standard_normal((d, d))
+    cov = np.linalg.inv(G @ G.T)
+    return 0.5 * (cov + cov.T)
+
+
 def logistic_data(n_obs=32, p=6, seed=4):
     rng = np.random.default_rng(seed)
     X = rng.normal(size=(n_obs, p))
@@ -119,17 +131,21 @@ def panel_3xtf32(a, b):
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
-def blocked_forward(chol, r, panels="exact"):
+def blocked_forward(chol, r, panels="exact", order="right"):
     """``y = L⁻¹r`` for each row ``r`` of ``[n, d]``, in the dense tile
-    kernels' order (csrc/dense_tile.cuh, ``Solve::forward``): the columns
-    padded to blocks of 8 (an identity block of ``L``); for each block, its
-    diagonal block by substitution, ``y_i = (r_i − Σ_{j<i} L_ij y_j) · (1 /
-    L_ii)``, then the panel product ``R_I −= Y_K L_IKᵀ`` taken off every
-    later block.  ``panels``: ``"exact"`` in ``r``'s dtype; ``"tf32"`` each
-    panel product in the kernels' three TF32 passes (:func:`panel_3xtf32`);
-    ``"rounded"`` the MH kernel's float32 mode, in float32, every product
-    and difference rounded, the diagonal block's terms ``j`` and a panel's
-    columns in ascending order."""
+    kernels' order (csrc/dense_tile.cuh): the columns padded to blocks of 8
+    (an identity block of ``L``); for each block, its diagonal block by
+    substitution, ``y_i = (r_i − Σ_{j<i} L_ij y_j) · (1 / L_ii)``, and the
+    panel products ``R_I −= Y_K L_IKᵀ``, either right-looking (``Solve::
+    forward``: after block K is solved, taken off every later block) or
+    left-looking (``WideSolve``, the streamed path: before block K is solved,
+    the products of every solved block J < K taken off it, J in order); each
+    element receives the same products in the same order either way.
+    ``panels``: ``"exact"`` in ``r``'s dtype; ``"tf32"`` each panel product
+    in the kernels' three TF32 passes (:func:`panel_3xtf32`); ``"rounded"``
+    the MH kernel's float32 mode, in float32, every product and difference
+    rounded, the diagonal block's terms ``j`` and a panel's columns in
+    ascending order."""
     d = r.shape[-1]
     L = _padded(chol)
     if panels == "rounded":
@@ -137,7 +153,20 @@ def blocked_forward(chol, r, panels="exact"):
     y = torch.zeros(r.shape[:-1] + (L.shape[0],), dtype=r.dtype, device=r.device)
     y[..., :d] = r
     rd = 1.0 / torch.diagonal(L)
+    panel = panel_3xtf32 if panels == "tf32" else torch.matmul
+
+    def take(rows, cols):  # y[rows] -= the products of the solved columns `cols`
+        if panels == "rounded":
+            for j in range(cols.start, cols.stop):
+                y[..., rows] = y[..., rows] - L[rows, j] * y[..., j:j + 1]
+        else:
+            y[..., rows] -= panel(y[..., cols], L[rows, cols].mT)
+
     for k in range(0, L.shape[0], BLOCK):
+        s = slice(k, k + BLOCK)
+        if order == "left":
+            for j in range(0, k, BLOCK):
+                take(s, slice(j, j + BLOCK))
         for i in range(k, k + BLOCK):
             if panels == "rounded":
                 acc = y[..., i].clone()
@@ -146,13 +175,8 @@ def blocked_forward(chol, r, panels="exact"):
                 y[..., i] = acc * rd[i]
             else:
                 y[..., i] = (y[..., i] - y[..., k:i] @ L[i, k:i]) * rd[i]
-        s = slice(k, k + BLOCK)
-        if panels == "rounded":
-            for j in range(k, k + BLOCK):
-                y[..., k + BLOCK:] = y[..., k + BLOCK:] - L[k + BLOCK:, j] * y[..., j:j + 1]
-        else:
-            panel = panel_3xtf32 if panels == "tf32" else torch.matmul
-            y[..., k + BLOCK:] -= panel(y[..., s], L[k + BLOCK:, s].mT)
+        if order == "right":
+            take(slice(k + BLOCK, L.shape[0]), s)
     return y[..., :d]
 
 
@@ -177,27 +201,37 @@ def blocked_log_density(target, x, panels="exact"):
     return -0.5 * (y * y).sum(-1)
 
 
-def blocked_back(chol, y):
-    """``w = L⁻ᵀy`` for each row, in the dense tile kernel's order: from the
+def blocked_back(chol, y, order="right"):
+    """``w = L⁻ᵀy`` for each row, in the dense tile kernels' order: from the
     last block, its diagonal block by substitution from its last column,
-    ``w_j = (y_j − Σ_{i>j} w_i L_ij) · (1 / L_jj)``, then ``Y_J −= W_K
-    L_KJ`` taken off every earlier block."""
+    ``w_j = (y_j − Σ_{i>j} w_i L_ij) · (1 / L_jj)``, and the products ``Y_J
+    −= W_K L_KJ``, right-looking (K1's resident kernel: after block K is
+    solved, taken off every earlier block) or left-looking (the streamed
+    path: before block K is solved, the products of every solved block I >
+    K taken off it, I from the last)."""
     d = y.shape[-1]
     L = _padded(chol)
-    w = torch.zeros(y.shape[:-1] + (L.shape[0],), dtype=y.dtype, device=y.device)
+    n = L.shape[0]
+    w = torch.zeros(y.shape[:-1] + (n,), dtype=y.dtype, device=y.device)
     w[..., :d] = y
     rd = 1.0 / torch.diagonal(L)
-    for k in range(L.shape[0] - BLOCK, -1, -BLOCK):
+    for k in range(n - BLOCK, -1, -BLOCK):
+        s = slice(k, k + BLOCK)
+        if order == "left":
+            for i in range(n - BLOCK, k, -BLOCK):
+                si = slice(i, i + BLOCK)
+                w[..., s] -= w[..., si] @ L[si, s]
         for j in range(k + BLOCK - 1, k - 1, -1):
             w[..., j] = (w[..., j] - w[..., j + 1:k + BLOCK] @ L[j + 1:k + BLOCK, j]) * rd[j]
-        s = slice(k, k + BLOCK)
-        w[..., :k] -= w[..., s] @ L[s, :k]
+        if order == "right":
+            w[..., :k] -= w[..., s] @ L[s, :k]
     return w[..., :d]
 
 
-def blocked_value_and_grad(target, x):
+def blocked_value_and_grad(target, x, order="right"):
     """``(log density, gradient)`` of the port's dense ``GaussianND`` at ``x
-    [n, d]`` through :func:`blocked_forward` and :func:`blocked_back`, the
-    forward solve shared as in the kernel: ``−½|y|²`` and ``−L⁻ᵀy``."""
-    y = blocked_forward(target.chol, x - target.mean)
-    return -0.5 * (y * y).sum(-1), -blocked_back(target.chol, y)
+    [n, d]`` through :func:`blocked_forward` and :func:`blocked_back` in
+    ``order``, the forward solve shared as in the kernel: ``−½|y|²`` and
+    ``−L⁻ᵀy``."""
+    y = blocked_forward(target.chol, x - target.mean, order=order)
+    return -0.5 * (y * y).sum(-1), -blocked_back(target.chol, y, order)

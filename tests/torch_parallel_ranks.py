@@ -95,7 +95,10 @@ def dim_target():
 
 
 def make_dim_sampler(name: str, inits):
-    """The 2 x 2 dim cases of ``tests/test_sharding.py`` on the port."""
+    """The 2 x 2 dim cases of ``tests/test_sharding.py`` on the port, the
+    adapting NUTS's trees at depth 5 at most: every leapfrog of a
+    dim-sharded tree is an all-reduce across the ranks, and the deeper trees
+    of its early warmup had been most of the rank programs' time."""
     t = dim_target()
     if name == "nuts":
         return gmt.NUTS(t, inits, 0.8, seed=11, backend="torch", device="cpu")
@@ -106,7 +109,7 @@ def make_dim_sampler(name: str, inits):
         cfg = gmt.NUTSMassMatrixConfig(adaptation="diagonal", start_buffer=5, end_buffer=5,
                                        initial_window=10)
         return gmt.NUTS(t, inits, 0.8, seed=11, backend="torch", mass_config=cfg,
-                        device="cpu")
+                        max_tree_depth=5, device="cpu")
     if name == "chees":
         return gmt.ChEESHMC(t, inits, seed=11, device="cpu")
     raise ValueError(name)
@@ -128,12 +131,13 @@ def odd_target():
 
 
 def make_odd_sampler(name: str, inits):
-    """NUTS (dynamic tree, diagonal metric) and ChEES on the 12-d target."""
+    """NUTS (dynamic tree, diagonal metric, depth 5 at most as
+    make_dim_sampler's) and ChEES on the 12-d target."""
     if name == "nuts_adapt":
         cfg = gmt.NUTSMassMatrixConfig(adaptation="diagonal", start_buffer=5, end_buffer=5,
                                        initial_window=10)
         return gmt.NUTS(odd_target(), inits, 0.8, seed=13, backend="torch", mass_config=cfg,
-                        device="cpu")
+                        max_tree_depth=5, device="cpu")
     if name == "chees":
         return gmt.ChEESHMC(odd_target(), inits, seed=13, device="cpu")
     raise ValueError(name)
