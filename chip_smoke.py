@@ -132,9 +132,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
     ε̄ and T against chees-main's, each rank's fill launches, wall split and
     the all-reduces of a warmup step with their host time), "shard-one" (the
     headline on a one-rank NCCL mesh, its store bit-equal to chees-main's
-    by digest) and "shard-dim" (NUTS and ChEES on a 2 x 2 mesh of four
-    ranks with ``shard_dim``, 1,024 chains of a 64-d diagonal Gaussian in
-    float64, within 1e-8 of the unsharded runs).
+    by digest) and "shard-dim" (every sampler, HMC also with a dense
+    ``mass_inv``, MH with the walk and pCN, NUTS's static tree and dense
+    metric, on a 2 x 2 mesh of four ranks with ``shard_dim``, 1,024 chains
+    of a 64-d diagonal Gaussian in float64, HMC and NUTS on a dense one and
+    MH on ``RosenbrockND``, within 1e-8 of the unsharded runs with their
+    accept patterns and divergences equal; first every block draw against
+    the whole row's fill, bit for bit).
 
 15. The examples and the last repairs: "shard-cuda" (``HMC(backend=
     "cuda")`` at "main"'s shape and ``MetropolisHastings(backend="cuda")``
@@ -143,7 +147,12 @@ Phases (each prints one line; any failure raises and exits non-zero):
     same rows of the unsharded launch), "shard-dim-odd" (NUTS with the
     diagonal metric and ChEES on the 100-d headline target on a 1 x 4 mesh,
     blocks of 25 from columns 0, 25, 50 and 75, 1,024 chains in float64,
-    within 1e-8 of the unsharded runs), "examples" (every program of
+    within 1e-8 of the unsharded runs), "shard-dim-logistic" (the stretch
+    line's posterior on a 1 x 2 mesh, blocks of 25 columns: ChEES and HMC
+    on both parameterisations at 1,024 chains in float64 within 1e-8 of
+    the unsharded runs, then ChEES at 10,240 chains in float32, ε̄ and T
+    bit-equal on both ranks, its wall a step and its all-reduces a
+    gradient and share of the wall), "examples" (every program of
     ``examples_torch/`` but the sharded one, its ``main()`` on the card one
     by one with the gates of ``tests/test_examples.py``, its wall and fill
     launches) and "examples-sharded" (``examples_torch/sharded_nuts.py`` as
@@ -5260,7 +5269,16 @@ SHARD_RANKS = 2
 SHARD_SMALL_CHAINS, SHARD_SMALL_STEPS = 1024, (20, 10)
 SHARD_SMALL_CASES = ("hmc", "mh", "mala", "tempering", "gibbs", "nuts_torch", "nuts_static")
 SHARD_DIM_MESH, SHARD_DIM_D = (2, 2), 64
-SHARD_DIM_STEPS = {"nuts": (10, 10), "chees": (20, 20)}
+# every sampler of the port on the 64-d diagonal Gaussian (HMC also with a
+# dense mass_inv, MH with the walk and pCN, NUTS's static tree at cap 4 and
+# the dense metric with one window end in its warmup), HMC and NUTS on a
+# 64-d dense GaussianND and MH on RosenbrockND, 10 + 10 steps at most
+SHARD_DIM_STEPS = {"nuts": (10, 10), "chees": (20, 20), "hmc": (10, 10),
+                   "hmc_dense_mass": (10, 10), "mh_walk": (10, 10), "mh_pcn": (10, 10),
+                   "mala": (10, 10), "tempering": (10, 10), "gibbs": (10, 10),
+                   "nuts_static": (10, 10), "nuts_dense_metric": (4, 10),
+                   "hmc_dense": (10, 10), "nuts_dense": (6, 6), "mh_rosenbrock": (10, 10)}
+SHARD_DIM_STATIC_CAP = 4
 # float64, sums over four column or chain blocks in another order: rounding
 SHARD_DIM_ATOL = 1e-8
 # "shard-main" against "chees-main": the adapted ε̄ and T in float32 from
@@ -5276,10 +5294,21 @@ SHARD_CHILD_TIMEOUT = 400
 # gloo ranks set the phase's time)
 SHARD_ODD_MESH, SHARD_ODD_STEPS = (1, 4), {"nuts_diag": (4, 10), "chees": (8, 10)}
 SHARD_ODD_WINDOWS = dict(start_buffer=2, end_buffer=2, initial_window=6)
-# The trees of the dim phases' NUTS stop at 6 doublings (63 leapfrogs, each
+# The trees of the dim phases' NUTS stop at 4 doublings (15 leapfrogs, each
 # a round of all-reduces over the gloo ranks): at the default 10 the
-# unadapted steps of "shard-dim-odd" took ~3 s each
-SHARD_DIM_TREE_DEPTH = 6
+# unadapted steps of "shard-dim-odd" took ~3 s each, and at 6 its NUTS run
+# ~31 s
+SHARD_DIM_TREE_DEPTH = 4
+# "shard-dim-logistic": the stretch line's posterior (bench_logistic_data(),
+# 256 x 48, θ 50-d) on a 1 x 2 mesh, blocks of 25 columns with μ and log τ in
+# the first: (a) 1,024 chains in float64, ChEES and HMC on both
+# parameterisations through run_sharded, each block within SHARD_DIM_ATOL
+# of the unsharded run; (b) the stretch line's 10,240 chains in float32,
+# ChEES at accept 0.95 and jitter 1.0, SHARD_LG_STRETCH_STEPS (warmup,
+# collected)
+SHARD_LG_MESH = (1, 2)
+SHARD_LG_STEPS = {"chees_lg": (10, 10), "hmc_lg_nc": (10, 10), "hmc_lg_centred": (10, 10)}
+SHARD_LG_STRETCH_STEPS = (8, 8)
 
 
 def store_digest(store) -> torch.Tensor:
@@ -5492,21 +5521,76 @@ def child_shard_small(dev, payload):
     return dict(rows=(lo, hi), equal=equal, fills=fills, init=init.cpu())
 
 
+def shard_dense_cov(d: int) -> torch.Tensor:
+    """A ``[d, d]`` float64 covariance for the dim phases' dense Gaussian:
+    ``A Aᵀ / d + diag(linspace(1, 3, d)²)``, ``A`` standard normal from
+    seed 3."""
+    a = torch.randn(d, d, generator=torch.Generator().manual_seed(3), dtype=torch.float64)
+    return a @ a.T / d + torch.diag(torch.linspace(1.0, 3.0, d, dtype=torch.float64) ** 2)
+
+
 def shard_dim_sampler(name: str, x0, scales=None):
-    """NUTS (the dynamic tree; "nuts_diag": with the diagonal metric and
-    short windows) or ChEES on the diagonal Gaussian of standard deviations
-    ``scales`` (default: "shard-dim"'s ``linspace(1, 3, 64)``), float64."""
+    """A dim phase's sampler ``name`` on ``x0``, float64: NUTS (the dynamic
+    tree; "nuts_diag": the diagonal metric with short windows;
+    "nuts_dense_metric": the dense one; "nuts_static": the static tree),
+    ChEES, HMC (also with a dense ``mass_inv``), MH (walk, pCN), MALA,
+    replica exchange on 4 rungs and Gibbs on the diagonal Gaussian of
+    standard deviations ``scales`` (default: "shard-dim"'s ``linspace(1, 3,
+    64)``); HMC and NUTS on the dense Gaussian of ``shard_dense_cov``
+    ("_dense"), MH on ``RosenbrockND`` from ``1 + x0/20``; ChEES and HMC on
+    the stretch line's posterior ("_lg": ``bench_logistic_data()``, both
+    parameterisations, from ``x0/4``)."""
+    dev = x0.device
     if scales is None:
         scales = torch.linspace(1.0, 3.0, SHARD_DIM_D, dtype=torch.float64)
-    target = gmt.GaussianND(torch.zeros_like(scales), scales, device=x0.device)
-    if name == "nuts":
-        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch",
-                        max_tree_depth=SHARD_DIM_TREE_DEPTH)
-    if name == "nuts_diag":
-        cfg = gmt.NUTSMassMatrixConfig("diagonal", **SHARD_ODD_WINDOWS)
-        return gmt.NUTS(target, x0, 0.8, seed=11, backend="torch", mass_config=cfg,
-                        max_tree_depth=SHARD_DIM_TREE_DEPTH)
+    target = gmt.GaussianND(torch.zeros_like(scales), scales, device=dev)
+    d = x0.shape[1]
+    nuts = dict(seed=11, backend="torch", max_tree_depth=SHARD_DIM_TREE_DEPTH)
+    if name.endswith("_dense"):
+        target = gmt.GaussianND(torch.zeros(d, dtype=torch.float64), shard_dense_cov(d),
+                                device=dev)
+    if "_lg" in name:
+        X, y, _ = bench_logistic_data(device=dev)
+        cls = gmt.HierarchicalLogistic if name.endswith("centred") else \
+            gmt.HierarchicalLogisticNC
+        target, x0 = cls(X.double(), y.double()), x0 * 0.25
+    if name in ("nuts", "nuts_dense"):
+        return gmt.NUTS(target, x0, 0.8, **nuts)
+    if name in ("nuts_diag", "nuts_dense_metric"):
+        cfg = gmt.NUTSMassMatrixConfig("diagonal" if name == "nuts_diag" else "dense",
+                                       **SHARD_ODD_WINDOWS)
+        return gmt.NUTS(target, x0, 0.8, mass_config=cfg, **nuts)
+    if name == "nuts_static":
+        return gmt.NUTS(target, x0, 0.8, seed=11, backend="static",
+                        max_tree_depth=SHARD_DIM_STATIC_CAP)
+    if name in ("hmc", "hmc_dense"):
+        return gmt.HMC(target, x0, 0.25, 8, seed=11)
+    if name == "hmc_dense_mass":
+        mass_inv = torch.diag(scales**2) + 0.05
+        return gmt.HMC(target, x0, 0.5, 8, mass_inv=mass_inv.to(dev), seed=11)
+    if name.startswith("hmc_lg"):
+        return gmt.HMC(target, x0, 0.02 if name.endswith("centred") else 0.05, 8, seed=11)
+    if name == "mh_walk":
+        return gmt.MetropolisHastings(target, gmt.RandomWalkProposal(0.4), x0, seed=11)
+    if name == "mh_pcn":
+        return gmt.MetropolisHastings(target, gmt.PCNProposal(0.3), x0, seed=11)
+    if name == "mh_rosenbrock":
+        return gmt.MetropolisHastings(gmt.RosenbrockND(), gmt.RandomWalkProposal(0.01),
+                                      1.0 + x0 / 20, seed=11)
+    if name == "mala":
+        return gmt.MALA(target, x0, 0.4, seed=11)
+    if name == "tempering":
+        return gmt.ReplicaExchange(target, x0, gmt.geometric_temperatures(4, 8.0, device=dev),
+                                   scale=0.6, seed=11)
+    if name == "gibbs":
+        return gmt.GibbsSampler(chain_graph, x0, seed=11)
     return gmt.ChEESHMC(target, x0, seed=11)
+
+
+def moved(x) -> torch.Tensor:
+    """``[n, steps − 1]``: whether each step changed any of ``x``'s
+    columns (a block's accept pattern)."""
+    return (x[:, 1:] != x[:, :-1]).any(dim=-1)
 
 
 def child_shard_dim(dev, payload):
@@ -5527,10 +5611,12 @@ def child_shard_dim(dev, payload):
         got = gmt_parallel.run_sharded(s, *steps, mesh, shard_dim=True)
         torch.cuda.synchronize()
         want = payload[name][r0:r1, :, c0:c1].to(dev)
+        div = payload.get(name + "_div")
         out[name] = dict(err=float((got - want).abs().max()), wall=time.perf_counter() - t0,
                          fills=counter_rng.launches,
-                         div_equal=bool(torch.equal(s.divergences.cpu(),
-                                                    payload[name + "_div"][r0:r1])))
+                         moved_equal=bool(torch.equal(moved(got), moved(want))),
+                         div_equal=div is None or bool(torch.equal(s.divergences.cpu(),
+                                                                   div[r0:r1])))
     return out
 
 
@@ -5653,13 +5739,15 @@ def phase_shard_small(dev, tmp: str):
     return ranks
 
 
-def dim_phase(label: str, dev, tmp: str, x0, mesh, steps: dict, scales=None):
-    """NUTS and ChEES (``steps``: sampler name -> (collected, warmup)) with
-    ``shard_dim`` on ``mesh`` in child ranks, each rank's block within
-    ``SHARD_DIM_ATOL`` of the unsharded run, its divergences equal; one line
-    for ``label``.  The unsharded runs are made here; returns the function
-    that runs the ranks, checks them and returns each rank's fill launches
-    (it only waits on child processes, so it may run in another thread)."""
+def dim_phase(label: str, dev, tmp: str, x0, mesh, steps: dict, scales=None, extra=None):
+    """The samplers of ``steps`` (name -> (collected, warmup);
+    ``shard_dim_sampler``) with ``shard_dim`` on ``mesh`` in child ranks,
+    each rank's block within ``SHARD_DIM_ATOL`` of the unsharded run, its
+    accept pattern (the steps that moved it) and divergences equal; one
+    line for ``label``, with the fields ``extra(outs)`` returns.  The
+    unsharded runs are made here; returns the function that runs the ranks,
+    checks them and returns each rank's fill launches (it only waits on
+    child processes, so it may run in another thread)."""
     payload = {"x0": x0.cpu(), "mesh": mesh, "steps": steps, "scales": scales}
     walls = {}
     reset_counts()
@@ -5670,17 +5758,21 @@ def dim_phase(label: str, dev, tmp: str, x0, mesh, steps: dict, scales=None):
         payload[name] = s.run(*st).cpu()
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
-        payload[name + "_div"] = s.divergences.cpu()
+        if getattr(s, "divergences", None) is not None:
+            payload[name + "_div"] = s.divergences.cpu()
     check(counter_rng.launches > 0, f"{label}: the unsharded runs launched the fill kernel")
 
     def ranks():
         outs, seconds = spawn_children(label, mesh[0] * mesh[1], "gloo", payload, tmp)
         for r, o in enumerate(outs):
             for name in steps:
-                check(o[name]["err"] < SHARD_DIM_ATOL and o[name]["div_equal"],
+                check(o[name]["err"] < SHARD_DIM_ATOL and o[name]["div_equal"]
+                      and o[name]["moved_equal"],
                       f"{label} rank {r} {name}: max |d| {o[name]['err']} < "
-                      f"{SHARD_DIM_ATOL}, divergences equal {o[name]['div_equal']}")
+                      f"{SHARD_DIM_ATOL}, divergences equal {o[name]['div_equal']}, accept "
+                      f"pattern equal {o[name]['moved_equal']}")
                 check(o[name]["fills"] > 0, f"{label} rank {r} {name}: no fill launch")
+        fields = extra(outs) if extra is not None else {}
         say(label, mesh="x".join(map(str, mesh)), chains=x0.shape[0], dim=x0.shape[1],
             dtype="float64", col_starts=json.dumps(sorted({o["block"][2] for o in outs})),
             steps=json.dumps({k: f"{v[1]}+{v[0]}" for k, v in steps.items()}),
@@ -5689,18 +5781,162 @@ def dim_phase(label: str, dev, tmp: str, x0, mesh, steps: dict, scales=None):
                                        for k in steps}),
             unsharded_wall_s=json.dumps({k: round(v, 3) for k, v in walls.items()}),
             fill_launches=json.dumps({k: [o[k]["fills"] for o in outs] for k in steps}),
-            phase_s=f"{seconds:.2f}")
-        return dict(fills=[sum(o[k]["fills"] for k in steps) for o in outs])
+            **fields, phase_s=f"{seconds:.2f}")
+        return dict(fills=[sum(o[k]["fills"] for k in steps) + o.get("extra_fills", 0)
+                           for o in outs])
     return ranks
 
 
+# The block draws "shard-dim" holds to the unsharded fills' columns: (name,
+# draw function of (device, n, d, chain0, word0, d_total), each output's
+# axis of coordinates or None for a per-chain draw), every one K2's fill
+# launches
+BLOCK_DRAWS = (
+    ("walk", lambda dev, n, d, c0, w0, dt: counter_rng.walk_draws(
+        SEED, n, 3, d, counter_rng.TAG_PROPOSAL, dev, c0, w0, dt), (1, None)),
+    ("mala", lambda dev, n, d, c0, w0, dt: counter_rng.walk_draws(
+        SEED, n, 3, d, counter_rng.TAG_MALA, dev, c0, w0, dt), (1, None)),
+    ("sign", lambda dev, n, d, c0, w0, dt: counter_rng.sign_walk_draws(
+        SEED, n, 3, d, dev, c0, w0, dt), (1, None)),
+    ("tempering", lambda dev, n, d, c0, w0, dt: counter_rng.tempering_draws(
+        SEED, n, 3, 4, d, dev, c0, w0, dt), (2, None, None)),
+    ("gibbs", lambda dev, n, d, c0, w0, dt: tuple(
+        v.reshape(n, d, counter_rng.GIBBS_DRAWS)
+        for v in counter_rng.gibbs_draws(SEED, n, 3, d, dev, c0, w0)), (1, 1)),
+    ("step", lambda dev, n, d, c0, w0, dt: counter_rng.step_draws(SEED, n, 3, d, dev, c0, w0),
+     (1, None)),
+)
+
+
+def block_draw_gate(dev) -> dict:
+    """Each block draw of ``BLOCK_DRAWS`` on the card against the same
+    fill of the whole row, its columns, bit for bit: the 2 x 2 blocks of
+    "shard-dim" (64 coordinates) and the 1 x 4 blocks of "shard-dim-odd"
+    (100, from columns 25 and 75: odd starts), 512 chains from chain 512.
+    Returns the number of blocks checked and the fill launches."""
+    n = c0 = SHARD_SMALL_CHAINS // 2
+    blocks = [(SHARD_DIM_D, 0, 32), (SHARD_DIM_D, 32, 32), (DIM, 25, 25), (DIM, 75, 25)]
+    reset_counts()
+    for name, draw, axes in BLOCK_DRAWS:
+        for d_total, w0, d in blocks:
+            whole = draw(dev, n, d_total, c0, 0, d_total)
+            block = draw(dev, n, d, c0, w0, d_total)
+            for a, b, axis in zip(whole, block, axes):
+                if axis is not None:
+                    a = a.narrow(axis, w0, d)
+                check(a.shape == b.shape and torch.equal(a, b),
+                      f"shard-dim block draw {name} of {d} columns from {w0} of {d_total}: "
+                      "the whole row's fill's columns, bit for bit")
+    torch.cuda.synchronize()
+    return dict(blocks=len(blocks) * len(BLOCK_DRAWS), fills=counter_rng.launches)
+
+
 def phase_shard_dim(dev, tmp: str):
-    """"shard-dim": NUTS (the dynamic tree) and ChEES on a 2 x 2 mesh of
-    four ranks with ``shard_dim``, 1,024 chains of a 64-d diagonal Gaussian
-    in float64: every rank's block within 1e-8 of the unsharded run."""
+    """"shard-dim": every sampler of ``SHARD_DIM_STEPS`` on a 2 x 2 mesh of
+    four ranks with ``shard_dim``, 1,024 chains of the 64-d diagonal
+    Gaussian (and the dense one and ``RosenbrockND``) in float64: every
+    rank's block within 1e-8 of the unsharded run, its accept pattern and
+    divergences equal; first the block draws (``block_draw_gate``)."""
+    gate = block_draw_gate(dev)
     x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, SHARD_DIM_D, 5, dtype=torch.float64,
                             device=dev)
-    return dim_phase("shard-dim", dev, tmp, x0, SHARD_DIM_MESH, SHARD_DIM_STEPS)
+    return dim_phase("shard-dim", dev, tmp, x0, SHARD_DIM_MESH, SHARD_DIM_STEPS,
+                     extra=lambda outs: dict(block_draws_bit_equal=gate["blocks"],
+                                             block_draw_fills=gate["fills"]))
+
+
+def child_shard_dim_logistic(dev, payload):
+    """"shard-dim-logistic"'s rank: (a) as ``child_shard_dim``; (b) the
+    stretch line's ChEES at 10,240 chains in float32 on this rank's block
+    of columns, its all-reduces counted and timed on the host, those made
+    inside a gradient evaluation apart."""
+    out = child_shard_dim(dev, payload)
+    X, y, _ = bench_logistic_data(device=dev)
+    sampler = gmt.ChEESHMC(gmt.HierarchicalLogisticNC(X, y),
+                           gmt.init_with_seed(N_CHAINS, LGC_DIM, SEED, device=dev),
+                           target_accept_p=LGC_ACCEPT, jitter_amount=LGC_JITTER,
+                           static_collection=True, seed=SEED)
+    gmt_parallel.runner.shard_sampler(sampler, gmt_parallel.make_mesh(*SHARD_LG_MESH),
+                                      shard_dim=True)
+    real = torch.distributed.all_reduce
+    tally = dict(reduces=0, reduce_s=0.0, grads=0, grad_reduces=0)
+    inside = [False]
+
+    def counted(*args, **kwargs):
+        t = time.perf_counter()
+        r = real(*args, **kwargs)
+        tally["reduce_s"] += time.perf_counter() - t
+        tally["reduces"] += 1
+        tally["grad_reduces"] += inside[0]
+        return r
+
+    def gradient(fn):
+        def call(x):
+            tally["grads"] += 1
+            inside[0] = True
+            try:
+                return fn(x)
+            finally:
+                inside[0] = False
+        return call
+
+    sampler._vgrad, sampler._ggrad = gradient(sampler._vgrad), gradient(sampler._ggrad)
+    warm, coll = SHARD_LG_STRETCH_STEPS
+    reset_counts()
+    torch.distributed.all_reduce = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = sampler.run(coll, warm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.distributed.all_reduce = real
+    out["stretch"] = dict(wall=wall, finite=bool(torch.isfinite(samples).all()),
+                          shape=tuple(samples.shape), fills=counter_rng.launches,
+                          eps_bar=float(sampler.adapted_step_size),
+                          T=float(sampler.adapted_trajectory_length), L=sampler._static_L,
+                          leapfrogs=int(sampler.leapfrog_count.sum()), **tally)
+    out["extra_fills"] = counter_rng.launches
+    return out
+
+
+def stretch_fields(outs) -> dict:
+    """"shard-dim-logistic" (b)'s gates (ε̄ and T bit-equal on both ranks,
+    every draw finite) and its line's fields."""
+    st = [o["stretch"] for o in outs]
+    for k in ("eps_bar", "T", "L"):
+        check(len({x[k] for x in st}) == 1, f"shard-dim-logistic stretch: {k} "
+              f"{[x[k] for x in st]} bit-equal on every rank")
+    check(all(x["finite"] for x in st), "shard-dim-logistic stretch: every draw finite")
+    steps = sum(SHARD_LG_STRETCH_STEPS)
+    x = st[0]
+    return dict(stretch_chains=N_CHAINS, stretch_steps="{0}+{1}".format(*SHARD_LG_STRETCH_STEPS),
+                stretch_dtype="float32", stretch_eps_bar=f"{x['eps_bar']:.6f}",
+                stretch_T=f"{x['T']:.6f}", stretch_L=x["L"],
+                stretch_wall_s=json.dumps([round(v["wall"], 4) for v in st]),
+                stretch_ms_per_step=json.dumps([round(v["wall"] * 1e3 / steps, 3) for v in st]),
+                stretch_grad_evals=json.dumps([v["grads"] for v in st]),
+                stretch_all_reduces=json.dumps([v["reduces"] for v in st]),
+                stretch_all_reduces_a_gradient=json.dumps(
+                    [round(v["grad_reduces"] / max(v["grads"], 1), 3) for v in st]),
+                stretch_all_reduces_a_step=json.dumps(
+                    [round(v["reduces"] / steps, 2) for v in st]),
+                stretch_all_reduce_s=json.dumps([round(v["reduce_s"], 4) for v in st]),
+                stretch_all_reduce_share=json.dumps(
+                    [round(v["reduce_s"] / v["wall"], 4) for v in st]),
+                stretch_fill_launches=json.dumps([v["fills"] for v in st]))
+
+
+def phase_shard_dim_logistic(dev, tmp: str):
+    """"shard-dim-logistic": the stretch line's posterior on a 1 x 2 mesh
+    (blocks of 25 columns, μ and log τ in the first): (a) ChEES and HMC on
+    both parameterisations at 1,024 chains in float64, every rank's block
+    within 1e-8 of the unsharded run; (b) ChEES at the stretch line's
+    10,240 chains in float32 (``child_shard_dim_logistic``)."""
+    x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, LGC_DIM, 5, dtype=torch.float64, device=dev)
+    return dim_phase("shard-dim-logistic", dev, tmp, x0, SHARD_LG_MESH, SHARD_LG_STEPS,
+                     extra=stretch_fields)
 
 
 def phase_shard_dim_odd(dev, tmp: str):
@@ -6023,6 +6259,7 @@ def phase_examples_sharded(tmp: str):
 
 CHILD_PROGRAMS = {"shard-main": child_shard_main, "shard-one": child_shard_one,
                   "shard-small": child_shard_small, "shard-dim": child_shard_dim,
+                  "shard-dim-logistic": child_shard_dim_logistic,
                   "shard-dim-odd": child_shard_dim, "shard-cuda": child_shard_cuda,
                   "examples": child_examples, "examples-sharded": child_examples_sharded}
 
@@ -6106,26 +6343,29 @@ def main() -> int:
     temper = phase_tempering_main(dev)
     torch.cuda.empty_cache()
     # shard-small's fill, timed with the card to itself, and the unsharded
-    # runs of shard-dim and shard-dim-odd: this process's last work on the
-    # card.  Then the phases of child processes, three threads of them at
-    # once beside this one's three ranked phases in turn (their walls are
-    # taken with the others running; the dim phases' gloo rounds slow down
-    # as the host's cores run short, so no more run at once)
+    # runs of the dim phases: this process's last work on the card.  Then
+    # the phases of child processes, three threads of them at once beside
+    # this one's three ranked phases in turn (their walls are taken with the
+    # others running; the dim phases' gloo rounds slow down as the host's
+    # cores run short, so no more run at once); the threads' phases are
+    # dealt so that each ends near the others (~140 s each on an H100 host)
     small_ranks = phase_shard_small(dev, tmp)
     dim_ranks = phase_shard_dim(dev, tmp)
     odd_ranks = phase_shard_dim_odd(dev, tmp)
+    lg_ranks = phase_shard_dim_logistic(dev, tmp)
     with ThreadPoolExecutor(3) as pool:
         jobs = [pool.submit(job) for job in (
             lambda: phase_examples(tmp),
-            lambda: (phase_shard_main(chees, tmp), phase_shard_cuda(tmp)),
-            lambda: (phase_examples_sharded(tmp), phase_shard_one(chees, tmp)))]
+            lambda: (phase_shard_main(chees, tmp), lg_ranks()),
+            lambda: (phase_examples_sharded(tmp), phase_shard_one(chees, tmp),
+                     phase_shard_cuda(tmp)))]
         shard_small, shard_dim, shard_odd = small_ranks(), dim_ranks(), odd_ranks()
-        examples, (shard, shard_cuda), (examples_sharded, shard_one) = (
+        examples, (shard, shard_lg), (examples_sharded, shard_one, shard_cuda) = (
             job.result() for job in jobs)
     shutil.rmtree(tmp)
     shard_fills = {"shard-main": shard["fills"], "shard-one": [shard_one["fills"]],
                    "shard-small": shard_small["fills"], "shard-dim": shard_dim["fills"],
-                   "shard-dim-odd": shard_odd["fills"]}
+                   "shard-dim-odd": shard_odd["fills"], "shard-dim-logistic": shard_lg["fills"]}
     example_fills = {**examples["fills"], "sharded_nuts": examples_sharded["fills"]}
     new_fills = {"mala-main": mala["fill_launches"], "gibbs-main": gibbs["fill_launches"],
                  "gibbs-mixture": mixture["fill_launches"],
@@ -6285,6 +6525,7 @@ def main() -> int:
                         "progress-main, nuts-resume, mala-small, mala-main, gibbs-small, "
                         "gibbs-main, gibbs-mixture, tempering-small, tempering-main, "
                         "shard-small, shard-main, shard-one, shard-dim, shard-dim-odd, "
+                        "shard-dim-logistic, "
                         "examples, examples-sharded"),
         dict(name="fused_mh", route="cuda", source="general_mcmc_torch/csrc/fused_mh.cu",
              replaces="general_mcmc_tpu/ops/pallas_mh.py:61",

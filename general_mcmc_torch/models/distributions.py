@@ -9,6 +9,17 @@ differentiate.  The port's targets take a batch instead:
 ``unnorm_logp_grad(x: [n, dim]) -> [n, dim]``.  A bare callable target must
 follow the same batch convention; its gradient comes from autograd.
 
+On a parameter axis split over ranks (``parallel.run_sharded(...,
+shard_dim=True)``) a sampler holds a block of columns of every row, and its
+target is the block :func:`column_block` gives: the target's own
+``columns(lo, hi, group)`` where its log density is a sum over coordinates
+(the diagonal :class:`GaussianND`, :class:`IsotropicGaussian`, the
+hierarchical logistic targets of :mod:`.regression`), which adds the column
+blocks' partial sums over the dim group; else a :class:`GatheredBlock`,
+which gathers the rows over the group and evaluates the whole target: every
+rank then holds a whole row.  Either block's ``unnorm_logp`` is the whole
+log density on every rank and its gradient the block's columns.
+
 Each target keeps its parameters as tensors and computes in the dtype and
 on the device of the states it is given (``to`` moves it once, so that a
 sampler does not convert the parameters at every call).  Row sums are
@@ -26,11 +37,12 @@ import math
 
 import torch
 
-from ..parallel.collectives import all_sum
+from ..parallel.collectives import all_sum, gather_cols
 
 __all__ = ["GaussianND", "DiffableGaussian2D", "Gaussian2D", "IsotropicGaussian",
            "Rosenbrock2D", "RosenbrockND", "NealsFunnel", "Poisson", "Binomial",
-           "Categorical", "as_logp_fn", "as_grad_fn", "as_value_and_grad", "rowsum"]
+           "Categorical", "GatheredBlock", "column_block", "as_logp_fn", "as_grad_fn",
+           "as_value_and_grad", "rowsum"]
 
 
 def rowsum(v: torch.Tensor, group=None) -> torch.Tensor:
@@ -59,9 +71,14 @@ def as_grad_fn(target):
 
 
 def as_value_and_grad(target):
-    """``x [n, dim] -> (logp [n], grad [n, dim])``: the analytic gradient
-    where the target has one, else autograd of the summed log density (the
-    counterpart of ``jax.vmap(jax.value_and_grad(logp))``)."""
+    """``x [n, dim] -> (logp [n], grad [n, dim])``: the target's own
+    ``value_and_grad`` where it has one (a column block that shares its
+    collectives between the two), else the analytic gradient where it has
+    one, else autograd of the summed log density (the counterpart of
+    ``jax.vmap(jax.value_and_grad(logp))``)."""
+    both = getattr(target, "value_and_grad", None)
+    if callable(both):
+        return both
     logp = as_logp_fn(target)
     grad = as_grad_fn(target)
     if grad is not None:
@@ -77,6 +94,52 @@ def as_value_and_grad(target):
     return value_and_grad
 
 
+class GatheredBlock:
+    """Columns ``lo … hi − 1`` of a target whose log density couples its
+    coordinates (or of a user's callable), on a parameter axis split over
+    the ranks of ``group``: each call gathers the rows' whole ``[n,
+    d_total]`` states over the group (:func:`..parallel.collectives.
+    gather_cols`, exact), so that every rank of the group holds a whole row
+    and evaluates the whole target on it, as XLA gathers an operand it
+    cannot partition.  ``unnorm_logp`` is the whole log density on every
+    rank; the gradient (the target's analytic one, else autograd on the
+    gathered row) is kept to the block's columns."""
+
+    def __init__(self, target, lo: int, hi: int, group, d_total: int):
+        self.target = target
+        self.lo, self.hi, self.dim_group, self.d_total = lo, hi, group, d_total
+        self._logp = as_logp_fn(target)
+        self._grad = as_grad_fn(target)
+        self._vgrad = as_value_and_grad(target)
+        if self._grad is None:
+            self.unnorm_logp_grad = None  # no analytic gradient: samplers take value_and_grad
+
+    def whole(self, x):
+        """The rows' whole states from this rank's block ``x``."""
+        return gather_cols(x, self.dim_group, self.lo, self.d_total)
+
+    def unnorm_logp(self, x):
+        return self._logp(self.whole(x))
+
+    def unnorm_logp_grad(self, x):
+        return self._grad(self.whole(x))[..., self.lo:self.hi]
+
+    def value_and_grad(self, x):
+        lp, g = self._vgrad(self.whole(x))
+        return lp, g[..., self.lo:self.hi]
+
+    __call__ = unnorm_logp
+
+
+def column_block(target, lo: int, hi: int, group, d_total: int):
+    """The target of a sampler that holds columns ``lo … hi − 1`` of
+    ``d_total`` on a dim group: the target's own ``columns(lo, hi, group)``
+    where it has one, else a :class:`GatheredBlock`."""
+    if hasattr(target, "columns"):
+        return target.columns(lo, hi, group)
+    return GatheredBlock(target, lo, hi, group, d_total)
+
+
 def _tensor(x, dtype=None, device=None):
     t = torch.as_tensor(x, device=device)
     if dtype is not None:
@@ -90,8 +153,9 @@ class GaussianND:
     """N-dimensional Gaussian, the benchmark target.  ``cov`` is either a
     1-D vector of standard deviations (diagonal form) or a full covariance
     matrix (Cholesky form: ``diffᵀΣ⁻¹diff = ‖L⁻¹diff‖²``, no explicit
-    inverse).  :meth:`columns` gives the diagonal form's block of
-    coordinates for a parameter axis split over ranks."""
+    inverse).  :meth:`columns` gives its block of coordinates for a
+    parameter axis split over ranks: the diagonal form's own, the dense
+    form's a :class:`GatheredBlock`, which holds a whole row a rank."""
 
     dim_group = None  # the ranks whose column blocks the log density adds
 
@@ -118,15 +182,14 @@ class GaussianND:
         out.dim_group = self.dim_group
         return out
 
-    def columns(self, lo: int, hi: int, group) -> "GaussianND":
-        """The density of coordinates ``lo … hi − 1`` of a diagonal Gaussian
-        whose log density sums over ``group``'s column blocks: each rank of
-        the dim group holds one block, and the log density of a state is
-        the whole one on every rank.  The dense form couples every
-        coordinate and has no column block."""
+    def columns(self, lo: int, hi: int, group):
+        """The density of coordinates ``lo … hi − 1`` on the ranks of
+        ``group``: for the diagonal form a ``GaussianND`` of the block whose
+        log density sums over the group's column blocks (the log density of
+        a state is the whole one on every rank); the dense form couples
+        every coordinate, and its block is a :class:`GatheredBlock`."""
         if self.diag_prec is None:
-            raise NotImplementedError("a dense-covariance GaussianND has no column block: "
-                                      "the dim axis is ported for the diagonal form")
+            return GatheredBlock(self, lo, hi, group, self.chol.shape[-1])
         out = object.__new__(GaussianND)
         out.mean, out.cov, out.diag_prec = (v[..., lo:hi].clone() for v in
                                             (self.mean, self.cov, self.diag_prec))
@@ -155,7 +218,9 @@ class GaussianND:
 class DiffableGaussian2D:
     """2-D Gaussian with precomputed inverse covariance and normalizing
     constant; returns the *normalized* log density, as the JAX target does.
-    It has no analytic gradient: samplers use autograd."""
+    It has no analytic gradient: samplers use autograd.  Its coordinates
+    are coupled: on a dim axis each rank holds a whole row
+    (:class:`GatheredBlock`)."""
 
     def __init__(self, mean, cov, dtype=None, device=None):
         self.mean = _tensor(mean, dtype, device)
@@ -192,7 +257,8 @@ class Gaussian2D:
     The form is multiplied by ``1/det``, computed once, rather than divided
     by ``det`` (the JAX target divides): a division sits on the fused MH
     kernel's step-to-step dependency and a product is a few clocks.  The two
-    differ by the rounding of ``1/det``, an ulp or so."""
+    differ by the rounding of ``1/det``, an ulp or so.  On a dim axis each
+    rank holds a whole row (:class:`GatheredBlock`)."""
 
     def __init__(self, mean, cov, dtype=None, device=None):
         self.mean = _tensor(mean, dtype, device)
@@ -231,12 +297,22 @@ class IsotropicGaussian:
     Proposal role: ``propose(x, z) = x + z·std`` for standard-normal ``z``
     (a symmetric random walk), and ``logp(from, to)`` the normalized
     transition density with the constant ``d/2·ln(2πσ²)``.  Target role:
-    ``unnorm_logp(x) = −½‖x‖²/σ²``."""
+    ``unnorm_logp(x) = −½‖x‖²/σ²``.  :meth:`columns` gives a block of
+    coordinates whose sums add over a dim group, in both roles."""
 
     symmetric = True
+    dim_group = None  # the ranks whose column blocks the sums add
 
     def __init__(self, std: float):
         self.std = float(std)
+
+    def columns(self, lo: int, hi: int, group) -> "IsotropicGaussian":
+        """Coordinates ``lo … hi − 1`` on the ranks of ``group``: the
+        proposal moves its block, and both densities are the whole ones on
+        every rank."""
+        out = IsotropicGaussian(self.std)
+        out.dim_group = group
+        return out
 
     def propose(self, current, z):
         return current + z * self.std
@@ -244,17 +320,21 @@ class IsotropicGaussian:
     def logp(self, from_, to):
         diff = to - from_
         var = self.std * self.std
-        return (-0.5 * rowsum(diff * diff) * (1.0 / var)
-                - 0.5 * diff.shape[-1] * math.log(2.0 * math.pi * var))
+        d = diff.shape[-1]
+        if self.dim_group is not None:  # the coordinates of every block
+            d = all_sum(diff.new_full(diff.shape[:-1], float(d)), self.dim_group)
+        return (-0.5 * rowsum(diff * diff, self.dim_group) * (1.0 / var)
+                - 0.5 * d * math.log(2.0 * math.pi * var))
 
     def unnorm_logp(self, x):
-        return -0.5 * rowsum(x * x) * (1.0 / (self.std * self.std))
+        return -0.5 * rowsum(x * x, self.dim_group) * (1.0 / (self.std * self.std))
 
     __call__ = unnorm_logp
 
 
 class Rosenbrock2D:
-    """2-D Rosenbrock density ``−((a − x)² + b·(y − x²)²)``."""
+    """2-D Rosenbrock density ``−((a − x)² + b·(y − x²)²)``.  On a dim axis
+    each rank holds a whole row (:class:`GatheredBlock`)."""
 
     def __init__(self, a: float, b: float):
         self.a = float(a)
@@ -272,7 +352,8 @@ class Rosenbrock2D:
 class RosenbrockND:
     """N-dimensional Rosenbrock density
     ``−Σᵢ (100·(xᵢ₊₁ − xᵢ²)² + (1 − xᵢ)²)`` (arXiv:1903.09556), with its
-    analytic gradient."""
+    analytic gradient.  Its terms couple neighbours: on a dim axis each rank
+    holds a whole row (:class:`GatheredBlock`)."""
 
     def unnorm_logp(self, pos):
         low, high = pos[..., :-1], pos[..., 1:]
@@ -297,7 +378,8 @@ class NealsFunnel:
     """Neal's funnel: ``v ~ N(0, v_std²)`` and ``xᵢ | v ~ N(0, eᵛ)``, state
     ``[x₁ … x_{dim−1}, v]``; the stress target for the divergence counters.
     ``dim`` enters only the normalising term of the ``x`` block, as in the
-    JAX target."""
+    JAX target.  Every ``xᵢ`` depends on ``v``: on a dim axis each rank
+    holds a whole row (:class:`GatheredBlock`)."""
 
     def __init__(self, dim: int = 10, v_std: float = 3.0):
         self.dim = int(dim)
@@ -319,6 +401,11 @@ class NealsFunnel:
         return torch.cat([-x * w[..., None], g_v[..., None]], dim=-1)
 
     __call__ = unnorm_logp
+
+
+# The discrete targets below hold length-1 states; on a dim axis a user's
+# target over wider integer states is a GatheredBlock, which gathers them
+# exactly.
 
 
 def _count(state):

@@ -8,6 +8,13 @@ XLA's in the JAX package; :mod:`..ops.fused_logistic` holds the kernel that
 fuses across them.  Their sums run in the library's order, so these targets
 agree with a kernel to a tolerance and not bit for bit, and the small sums
 beside them are plain ``torch.sum``.
+
+On a parameter axis split over ranks each target's ``columns(lo, hi,
+group)`` is a block of θ (:class:`_LogisticColumns`) that splits the
+likelihood by columns of X: the block holds X's columns for its ``z`` (or
+β) coordinates, and per evaluation one ``all_sum`` over the dim group
+hands every rank μ, log τ and the summed partial products, and one more
+the partial sums behind ``∂μ`` and ``∂log τ``.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import resolve_device
+from ..parallel.collectives import all_sum
 
 __all__ = ["HierarchicalLogistic", "HierarchicalLogisticNC", "make_logistic_data",
            "bench_logistic_data"]
@@ -86,6 +94,11 @@ class _LogisticData:
     def __call__(self, theta):
         return self.unnorm_logp(theta)
 
+    def columns(self, lo: int, hi: int, group) -> "_LogisticColumns":
+        """Coordinates ``lo … hi − 1`` of θ on the ranks of ``group``
+        (:class:`_LogisticColumns`)."""
+        return _LogisticColumns(self, lo, hi, group)
+
 
 class HierarchicalLogistic(_LogisticData):
     """Hierarchical Bayesian logistic regression, centred.
@@ -140,3 +153,110 @@ class HierarchicalLogisticNC(_LogisticData):
         g_log_tau = -log_tau + tau * torch.sum(z * g_lik, dim=-1, keepdim=True)
         g_z = -z + tau * g_lik
         return torch.cat([g_mu, g_log_tau, g_z], dim=1)
+
+
+class _LogisticColumns:
+    """Coordinates ``lo … hi − 1`` of θ = ``[μ, log τ, w₁ … w_p]`` of a
+    hierarchical logistic target (``w`` is ``z`` for the non-centred one, β
+    for the centred one) on the ranks of a dim group, which split the
+    likelihood by columns of X.  The block holds X's columns for its
+    ``w`` coordinates, and each rank whichever of μ and log τ its columns
+    cover (one rank may hold both, or each its own).  An evaluation:
+
+    1. one ``all_sum`` of an ``[n, 3 + n_obs]`` buffer hands every rank μ,
+       log τ, the block's ``Σ w²`` (the non-centred prior) and its partial
+       products ``w_blk X_blkᵀ``, the zeros elsewhere;
+    2. every rank forms the logits, ``μ·(X 1)ᵀ + τ·(z Xᵀ)`` (non-centred,
+       the row sums of the whole X kept on every rank) or ``β Xᵀ``
+       (centred), and the likelihood;
+    3. one more ``all_sum`` adds the partial sums that need μ and τ: those
+       behind ``∂μ`` and ``∂log τ`` and, for the centred prior,
+       ``Σ((β − μ)/τ)²``.
+
+    ``unnorm_logp`` is the whole log density on every rank (one collective
+    non-centred, two centred), ``unnorm_logp_grad`` and ``value_and_grad``
+    the block's columns (two).  The sums run in another order than the
+    whole target's, so a block agrees with it to rounding."""
+
+    def __init__(self, target: _LogisticData, lo: int, hi: int, group):
+        self.centred = isinstance(target, HierarchicalLogistic)
+        self.lo, self.hi, self.dim_group = lo, hi, group
+        self.p = target.X.shape[1]
+        w0 = max(lo, 2)  # the block's first feature coordinate
+        self.w_at = w0 - lo  # its column in the block
+        self.X = target.X[:, w0 - 2:max(hi, 2) - 2].contiguous()
+        self.y = target.y
+        self.x_rowsum = target.X.sum(dim=1)  # X 1, every feature's
+        self.hyper_at = [(k, k - lo) for k in (0, 1) if lo <= k < hi]
+
+    def _shared(self, theta):
+        """``(μ, log τ, Σ w², w Xᵀ)`` of every row, the same on every rank."""
+        w = theta[:, self.w_at:]
+        buf = theta.new_zeros((theta.shape[0], 3 + self.X.shape[0]))
+        for k, col in self.hyper_at:
+            buf[:, k] = theta[:, col]
+        buf[:, 2] = torch.sum(w * w, dim=-1)
+        buf[:, 3:] = w @ self.X.mT
+        all_sum(buf, self.dim_group)
+        return buf[:, 0], buf[:, 1], buf[:, 2], buf[:, 3:]
+
+    def _logits(self, mu, log_tau, wx):
+        if self.centred:
+            return wx
+        return mu[:, None] * self.x_rowsum + torch.exp(log_tau)[:, None] * wx
+
+    def _loglik(self, logits):
+        return torch.sum(self.y * logits - F.softplus(logits), dim=-1)
+
+    def _evaluate(self, theta, value: bool, grad: bool):
+        mu, log_tau, ww, wx = self._shared(theta)
+        logits = self._logits(mu, log_tau, wx)
+        w = theta[:, self.w_at:]
+        parts = []
+        if self.centred:
+            inv_tau2 = torch.exp(-2.0 * log_tau)[:, None]
+            centered = w - mu[:, None]
+            if value:
+                scaled = centered / torch.exp(log_tau)[:, None]
+                parts.append(torch.sum(scaled**2, dim=-1))
+            if grad:
+                parts += [torch.sum(centered * centered, dim=-1), torch.sum(centered, dim=-1)]
+        if grad:
+            tau = torch.exp(log_tau)[:, None]
+            g_lik = (self.y - torch.sigmoid(logits)) @ self.X  # the block's ∂loglik/∂β
+            if not self.centred:
+                parts += [torch.sum(g_lik, dim=-1), torch.sum(w * g_lik, dim=-1)]
+        sums = all_sum(torch.stack(parts, dim=1), self.dim_group) if parts else None
+        lp = g = None
+        if value:
+            lp = -0.5 * mu * mu - 0.5 * log_tau * log_tau
+            if self.centred:
+                lp = lp - 0.5 * sums[:, 0] - self.p * log_tau
+            else:
+                lp = lp - 0.5 * ww
+            lp = lp + self._loglik(logits)
+        if grad:
+            mu_c, log_tau_c = mu[:, None], log_tau[:, None]
+            s = sums[:, int(value and self.centred):]
+            if self.centred:
+                g_w = g_lik - centered * inv_tau2
+                g_mu = -mu_c + s[:, 1:2] * inv_tau2
+                g_log_tau = -log_tau_c + s[:, 0:1] * inv_tau2 - self.p
+            else:
+                g_w = -w + tau * g_lik
+                g_mu = -mu_c + s[:, 0:1]
+                g_log_tau = -log_tau_c + tau * s[:, 1:2]
+            hyper = {0: g_mu, 1: g_log_tau}
+            g = torch.cat([hyper[k] for k, _ in self.hyper_at] + [g_w], dim=1)
+        return lp, g
+
+    def unnorm_logp(self, theta):
+        return self._evaluate(theta, True, False)[0]
+
+    def unnorm_logp_grad(self, theta):
+        return self._evaluate(theta, False, True)[1]
+
+    def value_and_grad(self, theta):
+        return self._evaluate(theta, True, True)
+
+    __call__ = unnorm_logp

@@ -92,7 +92,24 @@ more and its leading column dropped (:func:`counter_rng_fill` and its plain
 version), as :func:`_words` drops the words before ``word0`` in its first
 block.  The per-chain uniforms and tree words are the chain's own, the same
 on every rank of a dim group.  With both offsets 0 every stream is the one
-it always was.
+it always was.  A block of columns ``col0 … col0 + k − 1`` of a row of
+``d_total`` coordinates draws:
+
+- HMC, ChEES and NUTS: its momentum normals from word ``col0``
+  (``word0`` of :func:`step_draws`, :func:`nuts_draws`,
+  :func:`static_draws`);
+- MH's walk and pCN, and MALA (the ``"mh"`` layout): its normals as pairs
+  from word ``col0``, and the whole row's accept uniform from word
+  ``2·⌈d_total/2⌉``, two fills (:func:`walk_draws` with ``word0`` and
+  ``d_total``);
+- the sign walk: its ``k`` raw words from word ``col0`` and the whole
+  row's uniform word ``d_total``, two fills (:func:`sign_walk_draws`);
+- replica exchange: rung ``t``'s normals from word ``t·d_total + col0``,
+  one fill a rung (:func:`tempering_draws` with ``word0`` and
+  ``d_total``);
+- Gibbs: coordinate ``i``'s four normals and four uniforms from word
+  ``4·col0`` (:func:`gibbs_draws` with ``col0``); the sampler's gathered
+  sweep draws whole rows on every rank.
 
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``,
 but for ``TAG_STATIC`` and the tags after it, which have no constant there:
@@ -310,55 +327,85 @@ def step_draws(seed: int, n_chains: int, step: int, dim: int, device=None, chain
     return z, u[:, 0]
 
 
+def _is_block(dim: int, word0: int, d_total) -> bool:
+    """Whether ``dim`` columns from ``word0`` are a block of a wider row of
+    ``d_total`` coordinates (``None``: the row is the block)."""
+    return word0 != 0 or (d_total is not None and d_total != dim)
+
+
 def walk_draws(seed: int, n_chains: int, step: int, dim: int, tag: int = TAG_PROPOSAL,
-               device=None, chain0: int = 0):
+               device=None, chain0: int = 0, word0: int = 0, d_total: int | None = None):
     """One step's draws of :func:`mh_draws` for chains ``chain0 … chain0 +
     n_chains − 1``: ``z [n_chains, dim]`` normals and ``u [n_chains]``
     uniforms, float32, from one fill launch of kind ``"mh"`` on a CUDA device
     (the plain version on the CPU).  MH's normal proposals draw under
-    ``TAG_PROPOSAL``, MALA under ``TAG_MALA``."""
+    ``TAG_PROPOSAL``, MALA under ``TAG_MALA``.  A block of columns from
+    ``word0`` of a row of ``d_total`` coordinates draws its normals from
+    word ``word0`` and the row's uniform from word ``2·⌈d_total/2⌉``: two
+    fills, the unsharded draws' columns bit for bit."""
+    if _is_block(dim, word0, d_total):
+        z = counter_rng_fill(n_chains, dim, seed, step, tag, "normal_pair", device, chain0,
+                             word0)
+        u = counter_rng_fill(n_chains, 1, seed, step, tag, "uniform", device, chain0,
+                             2 * ((d_total + 1) // 2))
+        return z, u[:, 0]
     w = counter_rng_fill(n_chains, dim + 1, seed, step, tag, "mh", device, chain0)
     return w[:, :dim], w[:, dim]
 
 
 def sign_walk_draws(seed: int, n_chains: int, step: int, dim: int, device=None,
-                    chain0: int = 0):
+                    chain0: int = 0, word0: int = 0, d_total: int | None = None):
     """One step's draws of :func:`sign_draws` for chains ``chain0 … chain0 +
     n_chains − 1``: ``up [n_chains, dim]`` coin flips (bool) and ``u
     [n_chains]`` float32 uniforms, from one fill launch of ``dim + 1`` raw
     words under ``TAG_SIGN`` on a CUDA device (the plain version on the
-    CPU)."""
+    CPU).  A block of columns from ``word0`` of a row of ``d_total``
+    coordinates fills its words from ``word0`` and the row's uniform word
+    ``d_total``: two fills."""
+    if _is_block(dim, word0, d_total):
+        w = counter_rng_fill(n_chains, dim, seed, step, TAG_SIGN, "bits", device, chain0, word0)
+        w_u = counter_rng_fill(n_chains, 1, seed, step, TAG_SIGN, "bits", device, chain0,
+                               d_total)
+        return w < 0, words_to_uniform(w_u[:, 0])
     w = counter_rng_fill(n_chains, dim + 1, seed, step, TAG_SIGN, "bits", device, chain0)
     return w[:, :dim] < 0, words_to_uniform(w[:, dim])  # int32 < 0: the top bit
 
 
 def tempering_draws(seed: int, n_chains: int, step: int, n_temps: int, dim: int,
-                    device=None, chain0: int = 0):
+                    device=None, chain0: int = 0, word0: int = 0,
+                    d_total: int | None = None):
     """One replica-exchange step's draws for chains ``chain0 … chain0 +
     n_chains − 1`` over ``n_temps`` rungs (layout in the module docstring):
     ``z [n_chains, n_temps, dim]`` proposal normals, ``u_acc [n_chains,
     n_temps]`` accept uniforms and ``u_swap [n_chains, n_temps − 1]`` swap
     uniforms, float32.  On a CUDA device two fill launches, on the CPU the
-    plain version."""
-    z = counter_rng_fill(n_chains, n_temps * dim, seed, step, TAG_TEMPER_NORMAL,
-                         "normal_pair", device, chain0)
+    plain version.  A block of columns from ``word0`` of a row of
+    ``d_total`` coordinates fills rung ``t``'s normals from word ``t·d_total
+    + word0``: one fill a rung, then the uniforms'."""
+    if _is_block(dim, word0, d_total):
+        z = torch.stack([counter_rng_fill(n_chains, dim, seed, step, TAG_TEMPER_NORMAL,
+                                          "normal_pair", device, chain0, t * d_total + word0)
+                         for t in range(n_temps)], dim=1)
+    else:
+        z = counter_rng_fill(n_chains, n_temps * dim, seed, step, TAG_TEMPER_NORMAL,
+                             "normal_pair", device, chain0).reshape(n_chains, n_temps, dim)
     u = counter_rng_fill(n_chains, 2 * n_temps - 1, seed, step, TAG_TEMPER_UNIFORM,
                          "uniform", device, chain0)
-    return z.reshape(n_chains, n_temps, dim), u[:, :n_temps], u[:, n_temps:]
+    return z, u[:, :n_temps], u[:, n_temps:]
 
 
 def gibbs_draws(seed: int, n_chains: int, step: int, dim: int, device=None,
-                chain0: int = 0):
-    """One Gibbs sweep's draws for chains ``chain0 … chain0 + n_chains − 1``:
-    ``normals`` and ``uniforms``, each ``[n_chains, GIBBS_DRAWS·dim]``
-    float32, columns ``4i … 4i + 3`` coordinate ``i``'s (layout in the module
-    docstring).  On a CUDA device two fill launches, on the CPU the plain
-    version."""
-    cols = GIBBS_DRAWS * dim
+                chain0: int = 0, col0: int = 0):
+    """One Gibbs sweep's draws for chains ``chain0 … chain0 + n_chains − 1``
+    and coordinates ``col0 … col0 + dim − 1``: ``normals`` and ``uniforms``,
+    each ``[n_chains, GIBBS_DRAWS·dim]`` float32, columns ``4i … 4i + 3``
+    coordinate ``col0 + i``'s (layout in the module docstring).  On a CUDA
+    device two fill launches, on the CPU the plain version."""
+    cols, word0 = GIBBS_DRAWS * dim, GIBBS_DRAWS * col0
     normals = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_NORMAL, "normal_pair",
-                               device, chain0)
+                               device, chain0, word0)
     uniforms = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_UNIFORM, "uniform",
-                                device, chain0)
+                                device, chain0, word0)
     return normals, uniforms
 
 

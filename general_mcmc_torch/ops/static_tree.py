@@ -37,6 +37,11 @@ initial state at ``o``.  One transition at cap ``J``:
 5. the proposal taken from the stacks by index and one ``vg_fn`` at the
    end.  ``leapfrogs`` is ``T − 1`` for every chain: the work done.
 
+The parameter axis may be split over ranks, as for the dynamic tree:
+every sum over it (the joints, the Gram's entries) adds the column blocks
+over ``group`` before any test reads it (the Gram's entries are sanitised
+after the sum), so every rank takes the same decisions.
+
 Draws are passed in (:class:`StaticDraws`), one set a step, as
 :class:`..ops.tree.TreeDraws` for the dynamic tree; the JAX function splits
 five keys a chain instead.
@@ -72,6 +77,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..parallel.collectives import dim_sum
 from . import counter_rng
 from .tree import DELTA_MAX, MassMatrix, inv_mass_mul, leapfrog_chain, sample_momentum
 
@@ -178,7 +184,7 @@ def _first_in_travel(mask: torch.Tensor, backward, window: torch.Tensor) -> torc
 
 def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_depth: int,
                      draws: StaticDraws, *, dense: bool = False,
-                     multinomial: bool = False) -> StaticStepResult:
+                     multinomial: bool = False, group=None) -> StaticStepResult:
     """One static-window NUTS transition for every chain.
 
     The JAX function's arguments less ``keys``, the metric as the port's
@@ -189,7 +195,8 @@ def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_
     ``max_depth`` is the doubling cap ``J``, ``1 ≤ J ≤ 8`` (the window
     holds ``2^J`` leaves); ``multinomial`` takes Stan's multinomial proposal
     in place of the slice sampler (the slice's Exp(1) is read in both
-    modes)."""
+    modes); ``group`` is the dim group of a parameter axis split over
+    ranks (module docstring)."""
     if max_depth < 1:
         raise ValueError("static backend requires max_depth >= 1")
     if max_depth > 8:
@@ -205,7 +212,7 @@ def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_
     mom0, offset = draws.mom0.to(dtype), draws.offset.to(torch.int64)
 
     vel0 = inv_mass_mul(mass, mom0, dense)
-    joint0 = lp - 0.5 * torch.sum(mom0 * vel0, dim=-1)
+    joint0 = lp - 0.5 * dim_sum(mom0 * vel0, group)
     logu = joint0 - draws.expo.to(dtype)
 
     # -- integration: T - 1 leapfrogs, two frontiers ------------------------
@@ -234,7 +241,7 @@ def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_
     pos_all = torch.stack(pos_l + [pos], dim=1)  # [B, T, d]
     vel_all = torch.stack(vel_l + [vel0], dim=1)
     joint_all = (torch.stack(lp_l + [lp], dim=1)  # [B, T]
-                 - 0.5 * torch.sum(torch.stack(mom_l + [mom0], dim=1) * vel_all, dim=-1))
+                 - 0.5 * dim_sum(torch.stack(mom_l + [mom0], dim=1) * vel_all, group))
 
     # -- slot -> window permutation -----------------------------------------
     Wv = torch.arange(T, device=dev)[None, :]  # [1, T]
@@ -254,9 +261,9 @@ def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_
     def sanitized(x):
         return torch.where(torch.isfinite(x), x, 0.0)
 
-    diag = sanitized(torch.gather(torch.sum(vel_all * pos_all, dim=-1), 1, perm))  # [B, T]
-    x_ab = sanitized(torch.sum(rows(vel_all, s_a) * rows(pos_all, s_b), dim=-1))
-    x_ba = sanitized(torch.sum(rows(vel_all, s_b) * rows(pos_all, s_a), dim=-1))
+    diag = sanitized(torch.gather(dim_sum(vel_all * pos_all, group), 1, perm))  # [B, T]
+    x_ab = sanitized(dim_sum(rows(vel_all, s_a) * rows(pos_all, s_b), group))
+    x_ba = sanitized(dim_sum(rows(vel_all, s_b) * rows(pos_all, s_a), group))
     turned = (x_ab - diag[:, a_idx] < 0.0) | (diag[:, b_idx] - x_ba < 0.0)  # [B, T - 1]
     tb_lvl, start = {}, 0  # level k: [B, T >> k], node m the leaves [2^k·m, 2^k·(m + 1))
     for k in range(1, J + 1):

@@ -37,7 +37,10 @@ dots, the finiteness of a gradient) adds the column blocks with one
 ``all_reduce``; the target's log density reduces through its own group.
 The sums are then the same on every rank of the group, so every rank takes
 the same branch of the host loops and no collective is left waiting.  With
-no group the sums are the plain local ones.
+no group the sums are the plain local ones.  A dense metric couples the
+coordinates: on a dim group it stays whole on every rank, and ``dense`` is
+then a :class:`DenseCols`, under which a product with the metric gathers
+the block's vector over the group and keeps the block's columns.
 
 Draws are passed in (:class:`TreeDraws`), one set a step, as
 ``ChEESHMC._propose`` takes them: the momentum normals, the slice's Exp(1),
@@ -54,12 +57,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..parallel.collectives import all_finite, dim_sum
+from ..parallel.collectives import all_finite, dim_sum, gather_cols
 from .counter_rng import tree_words
 
 __all__ = [
     "DELTA_MAX",
     "MassMatrix",
+    "DenseCols",
     "identity_mass",
     "inv_mass_mul",
     "kinetic_energy",
@@ -86,6 +90,19 @@ class MassMatrix(NamedTuple):
     scale: torch.Tensor
 
 
+class DenseCols(NamedTuple):
+    """The ``dense`` flag of a dense metric on a parameter axis split over
+    a dim group (truthy, as ``True``): the metric is the whole ``[.., d_total,
+    d_total]`` on every rank, the vectors this rank's columns ``lo … hi −
+    1``.  A product gathers the rows (exact) and keeps the block's
+    columns."""
+
+    lo: int
+    hi: int
+    d_total: int
+    group: object
+
+
 def identity_mass(dim: int, dtype=torch.float32, device=None, dense: bool = False,
                   n_chains: int | None = None) -> MassMatrix:
     """The identity metric: one ``[dim]`` row of ones shared by every chain
@@ -100,15 +117,19 @@ def identity_mass(dim: int, dtype=torch.float32, device=None, dense: bool = Fals
     return MassMatrix(inv=one, scale=one)
 
 
-def _matvec(a: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """``a @ p`` a chain: ``a [n, d, d]`` or ``[d, d]``, ``p [n, d]``."""
+def _matvec(a: torch.Tensor, p: torch.Tensor, dense) -> torch.Tensor:
+    """``a @ p`` a chain: ``a [n, d, d]`` or ``[d, d]``, ``p [n, d]``; under
+    :class:`DenseCols` of ``p``'s gathered rows, the block's columns."""
+    if isinstance(dense, DenseCols):
+        whole = gather_cols(p, dense.group, dense.lo, dense.d_total)
+        return torch.matmul(a, whole.unsqueeze(-1)).squeeze(-1)[..., dense.lo:dense.hi]
     return torch.matmul(a, p.unsqueeze(-1)).squeeze(-1)
 
 
 def inv_mass_mul(mass: MassMatrix, p: torch.Tensor, dense: bool = False) -> torch.Tensor:
     """v = M⁻¹ p for every chain of ``p [n, dim]``."""
     if dense:
-        return _matvec(mass.inv, p)
+        return _matvec(mass.inv, p, dense)
     return mass.inv * p
 
 
@@ -126,7 +147,7 @@ def sample_momentum(z: torch.Tensor, mass: MassMatrix, dense: bool = False) -> t
     """p = scale · z for given standard normals ``z [n, dim]`` (the JAX
     function draws ``z`` itself from a key)."""
     if dense:
-        return _matvec(mass.scale, z)
+        return _matvec(mass.scale, z, dense)
     return mass.scale * z
 
 

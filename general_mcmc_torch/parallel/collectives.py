@@ -34,6 +34,7 @@ __all__ = [
     "chain_mean",
     "chain_var",
     "gather_rows",
+    "gather_cols",
     "median",
     "chain_median",
     "pooled_rhat_sharded",
@@ -87,6 +88,18 @@ def gather_rows(x: torch.Tensor, group, row0: int, n_total: int) -> torch.Tensor
         return x
     buf = x.new_zeros((n_total,) + tuple(x.shape[1:]))
     buf[row0:row0 + x.shape[0]] = x
+    return all_sum(buf, group)
+
+
+def gather_cols(x: torch.Tensor, group, col0: int, d_total: int) -> torch.Tensor:
+    """The rows' whole ``[..., d_total]`` state on every rank of a dim
+    group, this rank's ``x`` at columns ``col0 … col0 + x.shape[-1] − 1``:
+    the sum of zero buffers with each rank's columns written in, exact for
+    float and integer states.  With no group, ``x`` itself."""
+    if group is None:
+        return x
+    buf = x.new_zeros(tuple(x.shape[:-1]) + (d_total,))
+    buf[..., col0:col0 + x.shape[-1]] = x
     return all_sum(buf, group)
 
 

@@ -20,7 +20,11 @@ its first global chain and coordinate, its local and total chain and
 coordinate counts, and its chains and dim groups.  ``n_chains`` is then the
 local count, every draw is addressed from the block's first global chain
 (and, on the dim axis, coordinate), and every reduction across chains or
-coordinates goes through the shard's groups.
+coordinates goes through the shard's groups.  On the dim axis the target is
+:func:`..models.distributions.column_block`'s block (its own column block,
+or one that gathers whole rows), and whatever else couples coordinates (a
+dense metric, a Gibbs sweep) gathers the rows too (:meth:`_gather_cols`).
+A fused kernel holds whole rows, so ``backend="cuda"`` has no dim axis.
 
 The JAX carry holds each chain's key, so a JAX checkpoint continues its
 own stream whatever seed the resuming sampler holds.  The port's carry
@@ -45,6 +49,8 @@ from ..core import (
     run_kernel_progress_stream,
 )
 from ..diagnostics.stats import MultiChainTracker, RunStats
+from ..models.distributions import column_block
+from ..parallel.collectives import gather_cols
 from ..parallel.mesh import Shard
 from ..rng import as_seed, chain_ids, stream_key
 from ..utils.progress import ProgressRenderer
@@ -205,18 +211,32 @@ class BatchSampler:
             return self.shard.d_total
         return getattr(self, self._init_name).shape[-1]
 
+    def _gather_cols(self, x):
+        """The rows' whole states from this block's columns ``x`` (itself
+        unsharded)."""
+        return gather_cols(x, self._dim_group, self._word0, self._dim_total)
+
     def _check_dim_axis(self) -> None:
-        """Raise unless this sampler, its target, metric and backend can
-        split the parameter axis over ranks."""
-        raise NotImplementedError(
-            f"{type(self).__name__} has no dim axis in the port yet: shard_dim=True is "
-            "ported for NUTS (dynamic tree, identity or diagonal metric) and ChEES on the "
-            "diagonal GaussianND")
+        """Raise unless this sampler can split the parameter axis over
+        ranks: every ``"torch"`` step can; a fused kernel holds whole rows
+        (JAX's ``run_sharded`` never reaches its Pallas kernel either: it
+        drives the XLA step)."""
+        if getattr(self, "backend", None) == "cuda":
+            raise NotImplementedError(
+                f"{type(self).__name__}(backend='cuda') has no dim axis: a fused kernel "
+                "holds whole rows; run shard_dim=True with backend='torch'")
 
     def _take_columns(self, shard) -> None:
-        """Restrict the target and the parameter-axis state to the shard's
-        coordinates (samplers with a dim axis)."""
-        raise NotImplementedError
+        """Restrict the target to the shard's coordinates
+        (:func:`..models.distributions.column_block`) and rebind what the
+        sampler derives from it (:meth:`_bind_target`); a sampler with
+        other parameter-axis state slices it too."""
+        self.target = column_block(self.target, shard.col0, shard.col0 + shard.d_local,
+                                   shard.dim_group, shard.d_total)
+        self._bind_target()
+
+    def _bind_target(self) -> None:
+        """Derive the sampler's density functions from ``self.target``."""
 
     def _bind_shard(self, shard, slice_rows: bool, shard_dim: bool = False) -> None:
         """Make this sampler the block ``shard`` of itself
@@ -231,7 +251,8 @@ class BatchSampler:
             return
         if shard_dim:
             self._check_dim_axis()
-            self._take_columns(shard)
+            if shard.d_local != shard.d_total:
+                self._take_columns(shard)
         x = getattr(self, self._init_name)
         if slice_rows:
             x = x[shard.chain0:shard.chain0 + shard.n_local]

@@ -34,7 +34,8 @@ Differences from the JAX sampler, none of them in the maths:
 Split over ranks (``parallel.run_sharded``), every cross-chain reduction
 of the warmup, the median of the ε searches, the acceptance-weighted
 criterion, the dual-averaging statistic and the metric's variance, goes
-through the shard's chains group, and on the dim axis every sum over the
+through the shard's chains group, and on the dim axis (any target: its
+block of :func:`..models.distributions.column_block`) every sum over the
 parameter axis (the kinetic energies, the finiteness test, ``a_gap``,
 ``da_dt``) through its dim group (:mod:`..parallel.collectives`).  The
 leapfrog count ``⌈t/ε⌉`` and the static ``L`` are read from reduced values,
@@ -139,11 +140,14 @@ class ChEESHMC(BatchSampler):
         if static_leapfrog is not None and int(static_leapfrog) < 1:
             raise ValueError("static_leapfrog must be >= 1")
         self.static_leapfrog = None if static_leapfrog is None else int(static_leapfrog)
+        self._bind_target()
+        self._n_discard = 0
+
+    def _bind_target(self) -> None:
         self._vgrad = as_value_and_grad(self.target)
         # interior leapfrogs need only ∇logp: a target with an analytic
         # gradient skips the log density there
         self._ggrad = as_grad_fn(self.target)
-        self._n_discard = 0
 
     # -- draws ------------------------------------------------------------------
     def _full(self, value, dtype) -> torch.Tensor:
@@ -472,17 +476,8 @@ class ChEESHMC(BatchSampler):
         axes.update(pos=Axes(0, 1), grad=Axes(0, 1), mass_inv=Axes(None, 0))
         return axes
 
-    def _check_dim_axis(self) -> None:
-        if not hasattr(self.target, "columns"):
-            raise NotImplementedError(
-                f"ChEES's dim axis needs a target with a column block (the diagonal "
-                f"GaussianND); {type(self.target).__name__} has none")
-
     def _take_columns(self, shard) -> None:
-        self.target = self.target.columns(shard.col0, shard.col0 + shard.d_local,
-                                          shard.dim_group)
-        self._vgrad = as_value_and_grad(self.target)
-        self._ggrad = as_grad_fn(self.target)
+        super()._take_columns(shard)
         self.dim = shard.d_local
 
     # -- extras -----------------------------------------------------------------

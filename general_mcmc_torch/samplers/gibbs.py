@@ -21,6 +21,12 @@ The JAX package's ``static_sweep=False`` scans a traced coordinate index
 to keep its compiled program small.  An eager sweep has no program to keep
 small, so both modes run the same Python loop over ``i`` and give the same
 chains; the argument is kept for the JAX API.
+
+On a dim axis (``parallel.run_sharded(..., shard_dim=True)``) the sweep is
+gathered: coordinate ``i`` sees the updates of ``0 … i − 1`` wherever they
+are held, so every rank of the dim group gathers its rows' whole states,
+runs the whole sweep with the unsharded row's draws, and keeps its
+columns.
 """
 
 from __future__ import annotations
@@ -98,6 +104,9 @@ class GibbsSampler(BatchSampler):
         self.dim = self.initial_states.shape[1]
         self.static_sweep = bool(static_sweep)
 
+    def _take_columns(self, shard) -> None:
+        """Nothing to restrict: the sweep runs on the gathered rows."""
+
     def _init_carry(self):
         return (self.initial_states,)
 
@@ -108,7 +117,7 @@ class GibbsSampler(BatchSampler):
         generator's draws when given (see :class:`GibbsDraws`), so that a
         test can feed both this port and the JAX package the same
         numbers."""
-        x = carry[0]
+        x = self._gather_cols(carry[0])
         if draws is None:
             normals, uniforms = counter_rng.gibbs_draws(self._key, self.n_chains, m, self.dim,
                                                         x.device, chain0=self._chain0)
@@ -118,6 +127,8 @@ class GibbsSampler(BatchSampler):
         x = x.clone()
         for i in range(self.dim):
             x[:, i] = self.conditional(draws.coordinate(i), i, x)
+        if self.shard is not None:  # this rank's columns of the swept rows
+            x = x[:, self._word0:self._word0 + self.shard.d_local]
         return (x,)
 
     def _positions(self, carry):

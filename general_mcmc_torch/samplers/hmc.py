@@ -14,6 +14,13 @@ Port of ``general_mcmc_tpu/samplers/hmc.py``.  Two backends:
 
 ``chain``, ``track``, ``resume`` and ``run_progress`` run the ``"torch"``
 step whatever the backend, as the JAX package's run its XLA step.
+
+On a dim axis (``parallel.run_sharded(..., shard_dim=True)``, the
+``"torch"`` step) a rank holds a block of columns: its momentum normals are
+words ``col0 …`` of each chain's pairs, the kinetic energies sum over the
+dim group, a diagonal ``mass_inv`` is sliced to the block, and a dense one
+keeps the block's rows of M⁻¹ and of the momentum factor, which act on the
+gathered momentum and normals.
 """
 
 from __future__ import annotations
@@ -96,8 +103,7 @@ class HMC(BatchSampler):
         dtype, dim = x0.dtype, x0.shape[1]
         self.target = target.to(device=self.device, dtype=dtype) if hasattr(target, "to") \
             else target
-        self._vgrad = as_value_and_grad(self.target)
-        self._ggrad = as_grad_fn(self.target)
+        self._bind_target()
         self.step_size = step_size
         self.n_leapfrog = int(n_leapfrog)
         if mass_inv is None:
@@ -142,6 +148,19 @@ class HMC(BatchSampler):
             )
         return super().run(n_collect, n_discard, thin=thin)
 
+    def _bind_target(self) -> None:
+        self._vgrad = as_value_and_grad(self.target)
+        self._ggrad = as_grad_fn(self.target)
+
+    def _take_columns(self, shard) -> None:
+        """The target's block, and the metric's: the block's entries of a
+        diagonal ``mass_inv``, or its rows of a dense one and of its
+        momentum factor."""
+        super()._take_columns(shard)
+        lo, hi = shard.col0, shard.col0 + shard.d_local
+        self.mass_inv = self.mass_inv[lo:hi].clone()
+        self.mass_scale = self.mass_scale[lo:hi].clone()
+
     def _init_carry(self):
         x0 = self.initial_positions
         lp0, grad0 = self._vgrad(x0)
@@ -149,7 +168,7 @@ class HMC(BatchSampler):
 
     def _inv_mul(self, p):
         if self.dense_mass:
-            return p @ self.mass_inv.mT
+            return self._gather_cols(p) @ self.mass_inv.mT
         return self.mass_inv * p
 
     def _step(self, carry, m, z=None, u=None):
@@ -161,21 +180,23 @@ class HMC(BatchSampler):
         dtype = x.dtype
         if z is None or u is None:
             z_drawn, u_drawn = counter_rng.step_draws(self._key, self.n_chains, m, x.shape[1],
-                                                      x.device, chain0=self._chain0)
+                                                      x.device, chain0=self._chain0,
+                                                      word0=self._word0)
             z = z_drawn if z is None else z
             u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device).to(dtype)
         u = torch.as_tensor(u, device=x.device).to(dtype)
         if self.dense_mass:
-            momentum = z @ self.mass_scale.mT
+            momentum = self._gather_cols(z) @ self.mass_scale.mT
         else:
             momentum = self.mass_scale * z
-        ke_current = 0.5 * rowsum(momentum * self._inv_mul(momentum))
+        dg = self._dim_group
+        ke_current = 0.5 * rowsum(momentum * self._inv_mul(momentum), dg)
         pos_new, mom_new, lp_new, grad_new = leapfrog(
             self._vgrad, x, momentum, grad, self.step_size, self.n_leapfrog,
             inv_mul=self._inv_mul, grad_fn=self._ggrad,
         )
-        ke_proposed = 0.5 * rowsum(mom_new * self._inv_mul(mom_new))
+        ke_proposed = 0.5 * rowsum(mom_new * self._inv_mul(mom_new), dg)
         log_accept = (lp_new - lp) + (ke_current - ke_proposed)
         accept = torch.log(u) < log_accept
         x = torch.where(accept[:, None], pos_new, x)

@@ -16,6 +16,12 @@ grad)`` and a step's draws come from the counter generator at (seed, chain,
 step) under ``TAG_MALA``: the ``dim`` proposal normals and the accept
 uniform of one word sequence, one launch of its fill kernel a step on the
 card (:func:`..ops.counter_rng.walk_draws`).
+
+On a dim axis (``parallel.run_sharded(..., shard_dim=True)``) a rank holds
+a block of columns: its proposal normals are the unsharded row's columns
+and its accept uniform the row's own (``walk_draws`` with ``word0`` and
+``d_total``), the target is its block, and the transition densities sum
+over the dim group.
 """
 
 from __future__ import annotations
@@ -53,12 +59,15 @@ class MALA(BatchSampler):
         self.initial_positions = x0
         self.target = target.to(device=self.device, dtype=x0.dtype) if hasattr(target, "to") \
             else target
-        self._vgrad = as_value_and_grad(self.target)
+        self._bind_target()
         self.step_size = float(step_size)
         # ε, ε²/2 and ε² rounded in the states' dtype, as the JAX step has them
         eps = torch.tensor(self.step_size, dtype=x0.dtype)
         self._eps, self._half_eps2, self._eps2 = (
             float(v) for v in (eps, 0.5 * eps * eps, eps * eps))
+
+    def _bind_target(self) -> None:
+        self._vgrad = as_value_and_grad(self.target)
 
     def _init_carry(self):
         x0 = self.initial_positions
@@ -75,7 +84,8 @@ class MALA(BatchSampler):
         if z is None or u is None:
             z_drawn, u_drawn = counter_rng.walk_draws(self._key, self.n_chains, m, x.shape[1],
                                                       counter_rng.TAG_MALA, x.device,
-                                                      chain0=self._chain0)
+                                                      chain0=self._chain0, word0=self._word0,
+                                                      d_total=self._dim_total)
             z = z_drawn if z is None else z
             u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device).to(dtype)
@@ -91,8 +101,8 @@ class MALA(BatchSampler):
         back_mean = proposed + half_eps2 * grad_prop
         fwd = proposed - drift
         bwd = x - back_mean
-        log_q_fwd = -0.5 * rowsum(fwd * fwd) / eps2
-        log_q_bwd = -0.5 * rowsum(bwd * bwd) / eps2
+        log_q_fwd = -0.5 * rowsum(fwd * fwd, self._dim_group) / eps2
+        log_q_bwd = -0.5 * rowsum(bwd * bwd, self._dim_group) / eps2
 
         log_accept = (lp_prop + log_q_bwd) - (lp + log_q_fwd)
         accept = torch.log(u) < log_accept  # false for NaN: a reject

@@ -22,6 +22,16 @@ takes either with one launch of the generator's fill kernel.  Two backends:
 ``chain``, ``track``, ``resume`` and ``run_progress`` run the ``"torch"``
 step whatever the backend, as the JAX package's run its XLA step.
 
+On a dim axis (``parallel.run_sharded(..., shard_dim=True)``, the
+``"torch"`` step) a rank holds a block of columns: the proposal is its
+block (``columns(lo, hi, group)`` of the built-in proposals, which move
+each coordinate alone and sum ``logp`` over the dim group; any other
+proposal a :class:`GatheredProposal`), the target the block of
+:func:`..models.distributions.column_block`, and the draws the unsharded
+row's columns with the row's own accept uniform
+(:func:`..ops.counter_rng.walk_draws`, :func:`..ops.counter_rng.
+sign_walk_draws` with ``word0`` and ``d_total``).
+
 The accept rule is the log-space Hastings rule
 ``log u < (lp' + q(y→x)) − (lp + q(x→y))``; a proposal that declares itself
 ``symmetric`` skips the two ``q`` terms, which cancel.  Whenever the
@@ -30,6 +40,7 @@ comparison is false the proposal is rejected, NaN and ``−inf`` included.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 
@@ -37,6 +48,7 @@ import torch
 
 from ..models.distributions import as_logp_fn, rowsum
 from ..ops import counter_rng
+from ..parallel.collectives import gather_cols
 from ..parallel.mesh import Axes
 from .base import BatchSampler
 
@@ -45,7 +57,15 @@ __all__ = [
     "RandomWalkProposal",
     "DiscreteWalkProposal",
     "PCNProposal",
+    "GatheredProposal",
 ]
+
+
+def _with_group(proposal, group):
+    """A copy of a built-in proposal whose ``logp`` sums over ``group``."""
+    out = copy.copy(proposal)
+    object.__setattr__(out, "dim_group", group)  # the dataclasses are frozen
+    return out
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -55,13 +75,17 @@ class RandomWalkProposal:
     scale: float = 1.0
     symmetric = True
     draws = "normal"
+    dim_group = None  # the ranks whose column blocks logp sums over
+
+    def columns(self, lo: int, hi: int, group) -> "RandomWalkProposal":
+        return _with_group(self, group)
 
     def propose(self, current, z):
         return current + self.scale * z
 
     def logp(self, from_, to):
         diff = (to - from_) * (1.0 / self.scale)
-        return -0.5 * rowsum(diff * diff)  # symmetric: constant omitted
+        return -0.5 * rowsum(diff * diff, self.dim_group)  # symmetric: constant omitted
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -74,6 +98,10 @@ class PCNProposal:
     beta: float = 0.5
     symmetric = False
     draws = "normal"
+    dim_group = None  # the ranks whose column blocks logp sums over
+
+    def columns(self, lo: int, hi: int, group) -> "PCNProposal":
+        return _with_group(self, group)
 
     @property
     def rho(self) -> float:
@@ -84,7 +112,7 @@ class PCNProposal:
 
     def logp(self, from_, to):
         diff = (to - self.rho * from_) * (1.0 / self.beta)
-        return -0.5 * rowsum(diff * diff)
+        return -0.5 * rowsum(diff * diff, self.dim_group)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -97,12 +125,39 @@ class DiscreteWalkProposal:
     symmetric = True
     draws = "sign"
 
+    def columns(self, lo: int, hi: int, group) -> "DiscreteWalkProposal":
+        return self  # each coordinate moves alone, and logp is constant
+
     def propose(self, current, up):
         up = torch.as_tensor(up, device=current.device).to(torch.bool)
         return torch.where(up, current + self.step, current - self.step)
 
     def logp(self, from_, to):
         return torch.zeros(from_.shape[:-1], dtype=torch.float32, device=from_.device)
+
+
+class GatheredProposal:
+    """Columns ``lo … hi − 1`` of a proposal with no column block, on the
+    ranks of a dim group: ``propose`` and ``logp`` act on the rows' whole
+    states and draws, gathered over the group (exact; coin flips as
+    integers), and ``propose`` keeps the block's columns."""
+
+    def __init__(self, proposal, lo: int, hi: int, group, d_total: int):
+        self.proposal = proposal
+        self.lo, self.hi, self.dim_group, self.d_total = lo, hi, group, d_total
+        self.symmetric = getattr(proposal, "symmetric", False)
+        self.draws = getattr(proposal, "draws", "normal")
+
+    def _whole(self, x):
+        if x.dtype == torch.bool:
+            return self._whole(x.to(torch.int32)).to(torch.bool)
+        return gather_cols(x, self.dim_group, self.lo, self.d_total)
+
+    def propose(self, current, z):
+        return self.proposal.propose(self._whole(current), self._whole(z))[:, self.lo:self.hi]
+
+    def logp(self, from_, to):
+        return self.proposal.logp(self._whole(from_), self._whole(to))
 
 
 class MetropolisHastings(BatchSampler):
@@ -151,9 +206,23 @@ class MetropolisHastings(BatchSampler):
         dtype = x0.dtype if x0.dtype.is_floating_point else None
         self.target = target.to(device=self.device, dtype=dtype) if hasattr(target, "to") \
             else target
-        self._logp = as_logp_fn(self.target)
+        self._bind_target()
         self.proposal = proposal
         self.backend = backend
+
+    def _bind_target(self) -> None:
+        self._logp = as_logp_fn(self.target)
+
+    def _take_columns(self, shard) -> None:
+        """The target's block and the proposal's: its ``columns`` where it
+        has them, else a :class:`GatheredProposal`."""
+        super()._take_columns(shard)
+        lo, hi = shard.col0, shard.col0 + shard.d_local
+        if hasattr(self.proposal, "columns"):
+            self.proposal = self.proposal.columns(lo, hi, shard.dim_group)
+        else:
+            self.proposal = GatheredProposal(self.proposal, lo, hi, shard.dim_group,
+                                             shard.d_total)
 
     def run(self, n_collect: int, n_discard: int = 0, thin: int = 1):
         """:meth:`.base.BatchSampler.run`; with ``backend="cuda"`` the whole
@@ -192,7 +261,8 @@ class MetropolisHastings(BatchSampler):
         if z is None or u is None:
             draw = counter_rng.sign_walk_draws if signs else counter_rng.walk_draws
             z_drawn, u_drawn = draw(self._key, self.n_chains, m, x.shape[1], device=x.device,
-                                    chain0=self._chain0)
+                                    chain0=self._chain0, word0=self._word0,
+                                    d_total=self._dim_total)
             z = z_drawn if z is None else z
             u = u_drawn if u is None else u
         z = torch.as_tensor(z, device=x.device)

@@ -55,10 +55,14 @@ reduction: every chain adapts its own ε and metric, so a block of chains
 runs alone, and the host loops of the dynamic tree stay rank-local.  Under
 a shard, or in a world of more than one rank, ``"auto"`` resolves to
 ``"torch"`` without measuring, as JAX's does (nuts.py:736).  On the dim
-axis (the dynamic tree with the identity or diagonal metric, on a target
-with a column block) every sum over the parameter axis goes through the
-shard's dim group (:mod:`..ops.tree`), and the momenta of the block's
-columns are words ``col0 …`` of each chain's pairs.
+axis (either tree, any metric, any target: the target is its block of
+:func:`..models.distributions.column_block`) every sum over the parameter
+axis goes through the shard's dim group (:mod:`..ops.tree`,
+:mod:`..ops.static_tree`), and the momenta of the block's columns are
+words ``col0 …`` of each chain's pairs.  A dense metric stays whole on
+every rank of the dim group: its Welford sums take the gathered rows, so
+its Cholesky factor is the same on every rank, and its products act on the
+gathered vectors (:class:`..ops.tree.DenseCols`).
 
 The runtime of :mod:`.base` (``chain``, ``track``, ``save_checkpoint``,
 ``resume``, ``run_progress``) works as for every sampler.  ``chain`` and
@@ -83,6 +87,7 @@ from ..models.distributions import as_value_and_grad
 from ..ops import counter_rng
 from ..ops.static_tree import StaticDraws, static_nuts_step
 from ..ops.tree import (
+    DenseCols,
     MassMatrix,
     TreeDraws,
     find_reasonable_epsilon,
@@ -257,8 +262,11 @@ class NUTS(BatchSampler):
         self.proposal = proposal
         self._multinomial = proposal == "multinomial"
         self.ckpt_dtype = ckpt_dtype
-        self._vgrad = as_value_and_grad(self.target)
+        self._bind_target()
         self._sched = _Sched(0, np.zeros(0, bool), np.zeros(0, bool))
+
+    def _bind_target(self) -> None:
+        self._vgrad = as_value_and_grad(self.target)
 
     # -- per-run preparation ----------------------------------------------------
     def _prepare_run(self, n_collect: int, n_discard: int) -> None:
@@ -304,7 +312,8 @@ class NUTS(BatchSampler):
         dev = self.device
         lp0, grad0 = self._vgrad(x0)
         lp0, grad0 = lp0.to(dtype), grad0.to(dtype)
-        mass = identity_mass(d, dtype, dev, dense=self._dense, n_chains=n)
+        d_metric = self._dim_total if self._dense else d  # a dense metric stays whole
+        mass = identity_mass(d_metric, dtype, dev, dense=self._dense, n_chains=n)
         if self.step_size is not None:
             eps0 = torch.full((n,), self.step_size, dtype=dtype, device=dev)
         else:
@@ -320,7 +329,8 @@ class NUTS(BatchSampler):
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
         welford = Welford(count=torch.zeros(n, dtype=torch.int32, device=dev),
                           mean=zeros(n, d), m2_diag=zeros(n, d),
-                          m2_dense=zeros(n, d, d) if self._dense else zeros(n, 0, 0))
+                          m2_dense=zeros(n, d_metric, d_metric) if self._dense
+                          else zeros(n, 0, 0))
         carry = dict(
             pos=x0,
             lp=lp0,
@@ -387,8 +397,9 @@ class NUTS(BatchSampler):
             if draws is None:
                 draws = self._static_draws(m, depth, carry["mass"], dtype)
             tree = static_nuts_step(pos, carry["lp"], carry["grad"], carry["eps"],
-                                    carry["mass"], self._vgrad, depth, draws, dense=self._dense,
-                                    multinomial=self._multinomial)
+                                    carry["mass"], self._vgrad, depth, draws,
+                                    dense=self._dense, multinomial=self._multinomial,
+                                    group=self._dim_group)
         else:
             if draws is None:
                 draws = self._draws(m, depth, dtype)
@@ -437,14 +448,16 @@ class NUTS(BatchSampler):
 
     def _welford_update(self, w: Welford, x) -> Welford:
         """Batched Welford update of every chain (RunningCov::update,
-        generic_nuts.rs:109-131)."""
+        generic_nuts.rs:109-131); a dense metric's sums take the gathered
+        rows of a dim axis."""
         cnt = w.count + 1
         delta = x - w.mean
         mean = w.mean + delta / cnt.to(x.dtype)[:, None]
         delta2 = x - mean
         m2_dense = w.m2_dense
         if self._dense:
-            m2_dense = m2_dense + delta[:, :, None] * delta2[:, None, :]
+            d_all, d2_all = self._gather_cols(torch.stack([delta, delta2])).unbind(0)
+            m2_dense = m2_dense + d_all[:, :, None] * d2_all[:, None, :]
         return Welford(cnt, mean, w.m2_diag + delta * delta2, m2_dense)
 
     def _dense_metric(self, cov, jitter: float):
@@ -483,6 +496,7 @@ class NUTS(BatchSampler):
         pos = carry["pos"]
         dtype, dev = pos.dtype, pos.device
         n, d = pos.shape
+        d_metric = w.m2_dense.shape[-1]  # a dense metric is whole on a dim axis
         reg = cfg.regularize
         jitter = max(cfg.jitter, 1e-10)
         have = w.count >= 5  # update gate (generic_nuts.rs:952-954)
@@ -492,7 +506,7 @@ class NUTS(BatchSampler):
             raw = w.m2_dense / denom[:, None, None]
             diag = torch.clamp((1.0 - reg) * torch.diagonal(raw, dim1=1, dim2=2) + reg,
                                min=jitter)
-            eye = torch.eye(d, dtype=dtype, device=dev)
+            eye = torch.eye(d_metric, dtype=dtype, device=dev)
             cov = (1.0 - reg) * raw * (1.0 - eye) + torch.diag_embed(diag)
             found, inv, scale = self._dense_metric(cov, jitter)
             updated = have & found
@@ -546,25 +560,12 @@ class NUTS(BatchSampler):
                                     m2_dense=Axes(0)))
         return axes
 
-    def _check_dim_axis(self) -> None:
-        missing = []
-        if self.backend == "static":
-            missing.append("the static tree (backend='static')")
-        if self._dense:
-            missing.append("the dense metric")
-        if not hasattr(self.target, "columns"):
-            missing.append(f"a column block of {type(self.target).__name__} (the diagonal "
-                           "GaussianND has one)")
-        if missing:
-            raise NotImplementedError("NUTS's dim axis is ported for the dynamic tree with "
-                                      "the identity or diagonal metric; not yet for "
-                                      + ", ".join(missing))
-
     def _take_columns(self, shard) -> None:
-        self.target = self.target.columns(shard.col0, shard.col0 + shard.d_local,
-                                          shard.dim_group)
-        self._vgrad = as_value_and_grad(self.target)
+        super()._take_columns(shard)
         self.dim = shard.d_local
+        if self._dense:  # the tree functions' dense flag for a whole metric on a block
+            self._dense = DenseCols(shard.col0, shard.col0 + shard.d_local, shard.d_total,
+                                    shard.dim_group)
 
     # -- backend="auto" -----------------------------------------------------------
     @staticmethod

@@ -24,6 +24,14 @@ at every step, swap round or not, as the JAX step draws them.
 ``run`` returns the cold (β = 1) replica's states as ``[n_chains,
 n_collect, dim]``, so diagnostics, export, checkpoints and progress
 compose unchanged.
+
+On a dim axis (``parallel.run_sharded(..., shard_dim=True)``) a rank holds
+a block of the coordinates ``d`` of every rung, not a block of the rungs:
+its target is its block, and rung ``t``'s normals are the unsharded row's
+columns (``tempering_draws`` with ``word0`` and ``d_total``).  JAX's
+``_leaf_spec`` happens to put axis 1 of the ``[n, T, d]`` carry, the
+rungs, on its ``dim`` axis; the results are the unsharded ones either way,
+and the port splits what the axis names.
 """
 
 from __future__ import annotations
@@ -92,12 +100,15 @@ class ReplicaExchange(BatchSampler):
         self.betas = 1.0 / self.temperatures
         self.target = target.to(device=self.device, dtype=x0.dtype) if hasattr(target, "to") \
             else target
-        self._logp = as_logp_fn(self.target)
+        self._bind_target()
         self.scale = float(scale)
         self.swap_every = int(swap_every)
         # the rung's proposal scale, scale·sqrt(1/β), and the pairs' β_i − β_{i+1}
         self._step_scale = (self.scale * torch.sqrt(1.0 / self.betas))[:, None]
         self._dbeta = self.betas[:-1] - self.betas[1:]
+
+    def _bind_target(self) -> None:
+        self._logp = as_logp_fn(self.target)
 
     @property
     def n_temps(self) -> int:
@@ -121,7 +132,8 @@ class ReplicaExchange(BatchSampler):
         dtype = x.dtype
         if z is None or u_acc is None or u_swap is None:
             drawn = counter_rng.tempering_draws(self._key, n, m, t, d, x.device,
-                                                chain0=self._chain0)
+                                                chain0=self._chain0, word0=self._word0,
+                                                d_total=self._dim_total)
             z, u_acc, u_swap = (given if given is not None else draw
                                 for given, draw in zip((z, u_acc, u_swap), drawn))
         z, u_acc, u_swap = (torch.as_tensor(v, device=x.device).to(dtype)

@@ -289,8 +289,16 @@ def program_example_sharded(rank: int, world: int, inp: dict, out_dir: Path) -> 
     return {"sample": mod.main(**EXAMPLE_SHARDED_ARGS, device="cpu").numpy()}
 
 
+def program_dim_axis(rank: int, world: int, inp: dict, out_dir: Path) -> dict:
+    """Every scenario of tests/test_torch_dim_axis.py on this rank
+    (``tests/torch_dim_axis_ranks.py``)."""
+    import torch_dim_axis_ranks
+
+    return torch_dim_axis_ranks.program(rank, world, inp, out_dir)
+
+
 PROGRAMS = {"parallel": program_parallel, "distributed": program_distributed,
-            "example_sharded": program_example_sharded}
+            "example_sharded": program_example_sharded, "dim_axis": program_dim_axis}
 
 
 # -- harness ---------------------------------------------------------------------
