@@ -149,7 +149,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
     blocks of 25 from columns 0, 25, 50 and 75, 1,024 chains in float64,
     within 1e-8 of the unsharded runs), "shard-dim-logistic" (the stretch
     line's posterior on a 1 x 2 mesh, blocks of 25 columns: ChEES and HMC
-    on both parameterisations at 1,024 chains in float64 within 1e-8 of
+    on both parameterisations at 256 chains in float64 within 1e-8 of
     the unsharded runs, then ChEES at 10,240 chains in float32, ε̄ and T
     bit-equal on both ranks, its wall a step and its all-reduces a
     gradient and share of the wall), "examples" (every program of
@@ -5272,12 +5272,15 @@ SHARD_DIM_MESH, SHARD_DIM_D = (2, 2), 64
 # every sampler of the port on the 64-d diagonal Gaussian (HMC also with a
 # dense mass_inv, MH with the walk and pCN, NUTS's static tree at cap 4 and
 # the dense metric with one window end in its warmup), HMC and NUTS on a
-# 64-d dense GaussianND and MH on RosenbrockND, 10 + 10 steps at most
-SHARD_DIM_STEPS = {"nuts": (10, 10), "chees": (20, 20), "hmc": (10, 10),
-                   "hmc_dense_mass": (10, 10), "mh_walk": (10, 10), "mh_pcn": (10, 10),
-                   "mala": (10, 10), "tempering": (10, 10), "gibbs": (10, 10),
-                   "nuts_static": (10, 10), "nuts_dense_metric": (4, 10),
-                   "hmc_dense": (10, 10), "nuts_dense": (6, 6), "mh_rosenbrock": (10, 10)}
+# 64-d dense GaussianND and MH on RosenbrockND: 5 + 5 steps for the samplers
+# tests/test_torch_dim_axis.py holds on the CPU as well (each step a round
+# of all-reduces over four gloo ranks sharing the host), NUTS and ChEES as
+# before them
+SHARD_DIM_STEPS = {"nuts": (10, 10), "chees": (20, 20), "hmc": (5, 5),
+                   "hmc_dense_mass": (5, 5), "mh_walk": (5, 5), "mh_pcn": (5, 5),
+                   "mala": (5, 5), "tempering": (5, 5), "gibbs": (5, 5),
+                   "nuts_static": (5, 5), "nuts_dense_metric": (2, 10),
+                   "hmc_dense": (5, 5), "nuts_dense": (4, 4), "mh_rosenbrock": (5, 5)}
 SHARD_DIM_STATIC_CAP = 4
 # float64, sums over four column or chain blocks in another order: rounding
 SHARD_DIM_ATOL = 1e-8
@@ -5294,20 +5297,21 @@ SHARD_CHILD_TIMEOUT = 400
 # gloo ranks set the phase's time)
 SHARD_ODD_MESH, SHARD_ODD_STEPS = (1, 4), {"nuts_diag": (4, 10), "chees": (8, 10)}
 SHARD_ODD_WINDOWS = dict(start_buffer=2, end_buffer=2, initial_window=6)
-# The trees of the dim phases' NUTS stop at 4 doublings (15 leapfrogs, each
+# The trees of the dim phases' NUTS stop at 3 doublings (7 leapfrogs, each
 # a round of all-reduces over the gloo ranks): at the default 10 the
-# unadapted steps of "shard-dim-odd" took ~3 s each, and at 6 its NUTS run
-# ~31 s
-SHARD_DIM_TREE_DEPTH = 4
+# unadapted steps of "shard-dim-odd" took ~3 s each, at 6 its NUTS run ~31 s
+# and at 4 ~9-12 s
+SHARD_DIM_TREE_DEPTH = 3
 # "shard-dim-logistic": the stretch line's posterior (bench_logistic_data(),
 # 256 x 48, θ 50-d) on a 1 x 2 mesh, blocks of 25 columns with μ and log τ in
-# the first: (a) 1,024 chains in float64, ChEES and HMC on both
+# the first: (a) SHARD_LG_CHAINS chains in float64, ChEES and HMC on both
 # parameterisations through run_sharded, each block within SHARD_DIM_ATOL
-# of the unsharded run; (b) the stretch line's 10,240 chains in float32,
-# ChEES at accept 0.95 and jitter 1.0, SHARD_LG_STRETCH_STEPS (warmup,
-# collected)
-SHARD_LG_MESH = (1, 2)
-SHARD_LG_STEPS = {"chees_lg": (10, 10), "hmc_lg_nc": (10, 10), "hmc_lg_centred": (10, 10)}
+# of the unsharded run (an equality needs no more chains or steps: the
+# float32 run (b) is the one at the stretch line's width); (b) the stretch
+# line's 10,240 chains in float32, ChEES at accept 0.95 and jitter 1.0,
+# SHARD_LG_STRETCH_STEPS (warmup, collected)
+SHARD_LG_MESH, SHARD_LG_CHAINS = (1, 2), 256
+SHARD_LG_STEPS = {"chees_lg": (6, 6), "hmc_lg_nc": (5, 5), "hmc_lg_centred": (5, 5)}
 SHARD_LG_STRETCH_STEPS = (8, 8)
 
 
@@ -5800,9 +5804,6 @@ BLOCK_DRAWS = (
         SEED, n, 3, d, dev, c0, w0, dt), (1, None)),
     ("tempering", lambda dev, n, d, c0, w0, dt: counter_rng.tempering_draws(
         SEED, n, 3, 4, d, dev, c0, w0, dt), (2, None, None)),
-    ("gibbs", lambda dev, n, d, c0, w0, dt: tuple(
-        v.reshape(n, d, counter_rng.GIBBS_DRAWS)
-        for v in counter_rng.gibbs_draws(SEED, n, 3, d, dev, c0, w0)), (1, 1)),
     ("step", lambda dev, n, d, c0, w0, dt: counter_rng.step_draws(SEED, n, 3, d, dev, c0, w0),
      (1, None)),
 )
@@ -5863,6 +5864,9 @@ def child_shard_dim_logistic(dev, payload):
     inside = [False]
 
     def counted(*args, **kwargs):
+        # gloo waits for the device work queued before the collective at its
+        # copy to the host: that work is the gradient's, not the collective's
+        torch.cuda.synchronize()
         t = time.perf_counter()
         r = real(*args, **kwargs)
         tally["reduce_s"] += time.perf_counter() - t
@@ -5931,10 +5935,10 @@ def stretch_fields(outs) -> dict:
 def phase_shard_dim_logistic(dev, tmp: str):
     """"shard-dim-logistic": the stretch line's posterior on a 1 x 2 mesh
     (blocks of 25 columns, μ and log τ in the first): (a) ChEES and HMC on
-    both parameterisations at 1,024 chains in float64, every rank's block
+    both parameterisations at 256 chains in float64, every rank's block
     within 1e-8 of the unsharded run; (b) ChEES at the stretch line's
     10,240 chains in float32 (``child_shard_dim_logistic``)."""
-    x0 = gmt.init_with_seed(SHARD_SMALL_CHAINS, LGC_DIM, 5, dtype=torch.float64, device=dev)
+    x0 = gmt.init_with_seed(SHARD_LG_CHAINS, LGC_DIM, 5, dtype=torch.float64, device=dev)
     return dim_phase("shard-dim-logistic", dev, tmp, x0, SHARD_LG_MESH, SHARD_LG_STEPS,
                      extra=stretch_fields)
 

@@ -12,10 +12,10 @@ follow the same batch convention; its gradient comes from autograd.
 On a parameter axis split over ranks (``parallel.run_sharded(...,
 shard_dim=True)``) a sampler holds a block of columns of every row, and its
 target is the block :func:`column_block` gives: the target's own
-``columns(lo, hi, group)`` where its log density is a sum over coordinates
-(the diagonal :class:`GaussianND`, :class:`IsotropicGaussian`, the
-hierarchical logistic targets of :mod:`.regression`), which adds the column
-blocks' partial sums over the dim group; else a :class:`GatheredBlock`,
+``columns(lo, hi, group, d_total)`` where its log density is a sum over
+coordinates (the diagonal :class:`GaussianND`, :class:`IsotropicGaussian`,
+the hierarchical logistic targets of :mod:`.regression`), which adds the
+column blocks' partial sums over the dim group; else a :class:`GatheredBlock`,
 which gathers the rows over the group and evaluates the whole target: every
 rank then holds a whole row.  Either block's ``unnorm_logp`` is the whole
 log density on every rank and its gradient the block's columns.
@@ -37,7 +37,7 @@ import math
 
 import torch
 
-from ..parallel.collectives import all_sum, gather_cols
+from ..parallel.collectives import all_sum, col_gather
 
 __all__ = ["GaussianND", "DiffableGaussian2D", "Gaussian2D", "IsotropicGaussian",
            "Rosenbrock2D", "RosenbrockND", "NealsFunnel", "Poisson", "Binomial",
@@ -107,16 +107,13 @@ class GatheredBlock:
 
     def __init__(self, target, lo: int, hi: int, group, d_total: int):
         self.target = target
-        self.lo, self.hi, self.dim_group, self.d_total = lo, hi, group, d_total
+        self.lo, self.hi = lo, hi
+        self.whole = col_gather(group, lo, d_total)  # the rows' whole states
         self._logp = as_logp_fn(target)
         self._grad = as_grad_fn(target)
         self._vgrad = as_value_and_grad(target)
         if self._grad is None:
             self.unnorm_logp_grad = None  # no analytic gradient: samplers take value_and_grad
-
-    def whole(self, x):
-        """The rows' whole states from this rank's block ``x``."""
-        return gather_cols(x, self.dim_group, self.lo, self.d_total)
 
     def unnorm_logp(self, x):
         return self._logp(self.whole(x))
@@ -133,10 +130,10 @@ class GatheredBlock:
 
 def column_block(target, lo: int, hi: int, group, d_total: int):
     """The target of a sampler that holds columns ``lo … hi − 1`` of
-    ``d_total`` on a dim group: the target's own ``columns(lo, hi, group)``
-    where it has one, else a :class:`GatheredBlock`."""
+    ``d_total`` on a dim group: the target's own ``columns(lo, hi, group,
+    d_total)`` where it has one, else a :class:`GatheredBlock`."""
     if hasattr(target, "columns"):
-        return target.columns(lo, hi, group)
+        return target.columns(lo, hi, group, d_total)
     return GatheredBlock(target, lo, hi, group, d_total)
 
 
@@ -182,14 +179,15 @@ class GaussianND:
         out.dim_group = self.dim_group
         return out
 
-    def columns(self, lo: int, hi: int, group):
-        """The density of coordinates ``lo … hi − 1`` on the ranks of
-        ``group``: for the diagonal form a ``GaussianND`` of the block whose
-        log density sums over the group's column blocks (the log density of
-        a state is the whole one on every rank); the dense form couples
-        every coordinate, and its block is a :class:`GatheredBlock`."""
+    def columns(self, lo: int, hi: int, group, d_total: int):
+        """The density of coordinates ``lo … hi − 1`` of ``d_total`` on the
+        ranks of ``group``: for the diagonal form a ``GaussianND`` of the
+        block whose log density sums over the group's column blocks (the log
+        density of a state is the whole one on every rank); the dense form
+        couples every coordinate, and its block is a
+        :class:`GatheredBlock`."""
         if self.diag_prec is None:
-            return GatheredBlock(self, lo, hi, group, self.chol.shape[-1])
+            return GatheredBlock(self, lo, hi, group, d_total)
         out = object.__new__(GaussianND)
         out.mean, out.cov, out.diag_prec = (v[..., lo:hi].clone() for v in
                                             (self.mean, self.cov, self.diag_prec))
@@ -302,16 +300,17 @@ class IsotropicGaussian:
 
     symmetric = True
     dim_group = None  # the ranks whose column blocks the sums add
+    d_total = None  # the row's coordinates on a dim group
 
     def __init__(self, std: float):
         self.std = float(std)
 
-    def columns(self, lo: int, hi: int, group) -> "IsotropicGaussian":
-        """Coordinates ``lo … hi − 1`` on the ranks of ``group``: the
-        proposal moves its block, and both densities are the whole ones on
-        every rank."""
+    def columns(self, lo: int, hi: int, group, d_total: int) -> "IsotropicGaussian":
+        """Coordinates ``lo … hi − 1`` of ``d_total`` on the ranks of
+        ``group``: the proposal moves its block, and both densities are the
+        whole ones on every rank."""
         out = IsotropicGaussian(self.std)
-        out.dim_group = group
+        out.dim_group, out.d_total = group, d_total
         return out
 
     def propose(self, current, z):
@@ -320,9 +319,7 @@ class IsotropicGaussian:
     def logp(self, from_, to):
         diff = to - from_
         var = self.std * self.std
-        d = diff.shape[-1]
-        if self.dim_group is not None:  # the coordinates of every block
-            d = all_sum(diff.new_full(diff.shape[:-1], float(d)), self.dim_group)
+        d = diff.shape[-1] if self.d_total is None else self.d_total
         return (-0.5 * rowsum(diff * diff, self.dim_group) * (1.0 / var)
                 - 0.5 * d * math.log(2.0 * math.pi * var))
 

@@ -10,8 +10,8 @@ agree with a kernel to a tolerance and not bit for bit, and the small sums
 beside them are plain ``torch.sum``.
 
 On a parameter axis split over ranks each target's ``columns(lo, hi,
-group)`` is a block of θ (:class:`_LogisticColumns`) that splits the
-likelihood by columns of X: the block holds X's columns for its ``z`` (or
+group, d_total)`` is a block of θ (:class:`_LogisticColumns`) that splits
+the likelihood by columns of X: the block holds X's columns for its ``z`` (or
 β) coordinates, and per evaluation one ``all_sum`` over the dim group
 hands every rank μ, log τ and the summed partial products, and one more
 the partial sums behind ``∂μ`` and ``∂log τ``.
@@ -94,9 +94,9 @@ class _LogisticData:
     def __call__(self, theta):
         return self.unnorm_logp(theta)
 
-    def columns(self, lo: int, hi: int, group) -> "_LogisticColumns":
-        """Coordinates ``lo … hi − 1`` of θ on the ranks of ``group``
-        (:class:`_LogisticColumns`)."""
+    def columns(self, lo: int, hi: int, group, d_total: int) -> "_LogisticColumns":
+        """Coordinates ``lo … hi − 1`` of θ (``d_total = p + 2`` of them) on
+        the ranks of ``group`` (:class:`_LogisticColumns`)."""
         return _LogisticColumns(self, lo, hi, group)
 
 

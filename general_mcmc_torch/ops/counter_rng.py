@@ -106,10 +106,10 @@ it always was.  A block of columns ``col0 … col0 + k − 1`` of a row of
   row's uniform word ``d_total``, two fills (:func:`sign_walk_draws`);
 - replica exchange: rung ``t``'s normals from word ``t·d_total + col0``,
   one fill a rung (:func:`tempering_draws` with ``word0`` and
-  ``d_total``);
-- Gibbs: coordinate ``i``'s four normals and four uniforms from word
-  ``4·col0`` (:func:`gibbs_draws` with ``col0``); the sampler's gathered
-  sweep draws whole rows on every rank.
+  ``d_total``).
+
+Gibbs has no block draws: its sweep is gathered, and every rank of the dim
+group draws whole rows (:func:`gibbs_draws`).
 
 The tags are the same numbers as ``kTag*`` in ``csrc/counter_rng.cuh``,
 but for ``TAG_STATIC`` and the tags after it, which have no constant there:
@@ -395,17 +395,17 @@ def tempering_draws(seed: int, n_chains: int, step: int, n_temps: int, dim: int,
 
 
 def gibbs_draws(seed: int, n_chains: int, step: int, dim: int, device=None,
-                chain0: int = 0, col0: int = 0):
-    """One Gibbs sweep's draws for chains ``chain0 … chain0 + n_chains − 1``
-    and coordinates ``col0 … col0 + dim − 1``: ``normals`` and ``uniforms``,
-    each ``[n_chains, GIBBS_DRAWS·dim]`` float32, columns ``4i … 4i + 3``
-    coordinate ``col0 + i``'s (layout in the module docstring).  On a CUDA
-    device two fill launches, on the CPU the plain version."""
-    cols, word0 = GIBBS_DRAWS * dim, GIBBS_DRAWS * col0
+                chain0: int = 0):
+    """One Gibbs sweep's draws for chains ``chain0 … chain0 + n_chains − 1``:
+    ``normals`` and ``uniforms``, each ``[n_chains, GIBBS_DRAWS·dim]``
+    float32, columns ``4i … 4i + 3`` coordinate ``i``'s (layout in the module
+    docstring).  On a CUDA device two fill launches, on the CPU the plain
+    version."""
+    cols = GIBBS_DRAWS * dim
     normals = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_NORMAL, "normal_pair",
-                               device, chain0, word0)
+                               device, chain0)
     uniforms = counter_rng_fill(n_chains, cols, seed, step, TAG_GIBBS_UNIFORM, "uniform",
-                                device, chain0, word0)
+                                device, chain0)
     return normals, uniforms
 
 

@@ -99,7 +99,7 @@ class StaticDraws(NamedTuple):
 
     @classmethod
     def from_words(cls, z: torch.Tensor, w: torch.Tensor, depth: int, mass: MassMatrix,
-                   dense: bool = False) -> "StaticDraws":
+                   dense: bool = False, gather=None) -> "StaticDraws":
         """The draws from normals ``z [n, d]`` and the ``2 + 2·depth`` words
         ``w`` a chain of :func:`..ops.counter_rng.static_draws`: word 0's
         uniform ``u₀`` gives ``expo = −log(u₀)``, finite at every word since
@@ -110,7 +110,7 @@ class StaticDraws(NamedTuple):
         in ``z``'s dtype."""
         u = counter_rng.words_to_uniform(w).to(z.dtype)
         offset = (w[:, 1].to(torch.int64) & 0xFFFFFFFF) >> (32 - depth)
-        return cls(mom0=sample_momentum(z, mass, dense), expo=-torch.log(u[:, 0]),
+        return cls(mom0=sample_momentum(z, mass, dense, gather), expo=-torch.log(u[:, 0]),
                    offset=offset, u_sel=u[:, 2:2 + depth], u_swap=u[:, 2 + depth:])
 
 
@@ -184,7 +184,7 @@ def _first_in_travel(mask: torch.Tensor, backward, window: torch.Tensor) -> torc
 
 def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_depth: int,
                      draws: StaticDraws, *, dense: bool = False,
-                     multinomial: bool = False, group=None) -> StaticStepResult:
+                     multinomial: bool = False, group=None, gather=None) -> StaticStepResult:
     """One static-window NUTS transition for every chain.
 
     The JAX function's arguments less ``keys``, the metric as the port's
@@ -196,7 +196,8 @@ def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_
     holds ``2^J`` leaves); ``multinomial`` takes Stan's multinomial proposal
     in place of the slice sampler (the slice's Exp(1) is read in both
     modes); ``group`` is the dim group of a parameter axis split over
-    ranks (module docstring)."""
+    ranks and ``gather`` its gather of a block's rows for a dense metric
+    (module docstring)."""
     if max_depth < 1:
         raise ValueError("static backend requires max_depth >= 1")
     if max_depth > 8:
@@ -211,7 +212,7 @@ def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_
     dtype, dev = pos.dtype, pos.device
     mom0, offset = draws.mom0.to(dtype), draws.offset.to(torch.int64)
 
-    vel0 = inv_mass_mul(mass, mom0, dense)
+    vel0 = inv_mass_mul(mass, mom0, dense, gather)
     joint0 = lp - 0.5 * dim_sum(mom0 * vel0, group)
     logu = joint0 - draws.expo.to(dtype)
 
@@ -232,10 +233,10 @@ def static_nuts_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_
             turn = off_col == i
             p, m, g = (torch.where(turn, a, b) for a, b in ((pos, p), (mom0, m), (grad, g)))
         p, m, lp1, g = leapfrog_chain(vg_fn, p, m, g, torch.where(i < offset, neg_eps, eps),
-                                      mass, dense)
+                                      mass, dense, gather)
         pos_l.append(p)
         mom_l.append(m)
-        vel_l.append(inv_mass_mul(mass, m, dense))
+        vel_l.append(inv_mass_mul(mass, m, dense, gather))
         lp_l.append(lp1)
     # slot T - 1 holds the initial leaf
     pos_all = torch.stack(pos_l + [pos], dim=1)  # [B, T, d]

@@ -38,9 +38,9 @@ dots, the finiteness of a gradient) adds the column blocks with one
 The sums are then the same on every rank of the group, so every rank takes
 the same branch of the host loops and no collective is left waiting.  With
 no group the sums are the plain local ones.  A dense metric couples the
-coordinates: on a dim group it stays whole on every rank, and ``dense`` is
-then a :class:`DenseCols`, under which a product with the metric gathers
-the block's vector over the group and keeps the block's columns.
+coordinates: on a dim group each rank holds its rows of it (``[n, k,
+dim_total]``), and a product with it first gathers the block's vector over
+the group with ``gather`` (:func:`..parallel.collectives.col_gather`).
 
 Draws are passed in (:class:`TreeDraws`), one set a step, as
 ``ChEESHMC._propose`` takes them: the momentum normals, the slice's Exp(1),
@@ -57,13 +57,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..parallel.collectives import all_finite, dim_sum, gather_cols
+from ..parallel.collectives import all_finite, dim_sum
 from .counter_rng import tree_words
 
 __all__ = [
     "DELTA_MAX",
     "MassMatrix",
-    "DenseCols",
     "identity_mass",
     "inv_mass_mul",
     "kinetic_energy",
@@ -90,19 +89,6 @@ class MassMatrix(NamedTuple):
     scale: torch.Tensor
 
 
-class DenseCols(NamedTuple):
-    """The ``dense`` flag of a dense metric on a parameter axis split over
-    a dim group (truthy, as ``True``): the metric is the whole ``[.., d_total,
-    d_total]`` on every rank, the vectors this rank's columns ``lo … hi −
-    1``.  A product gathers the rows (exact) and keeps the block's
-    columns."""
-
-    lo: int
-    hi: int
-    d_total: int
-    group: object
-
-
 def identity_mass(dim: int, dtype=torch.float32, device=None, dense: bool = False,
                   n_chains: int | None = None) -> MassMatrix:
     """The identity metric: one ``[dim]`` row of ones shared by every chain
@@ -117,19 +103,20 @@ def identity_mass(dim: int, dtype=torch.float32, device=None, dense: bool = Fals
     return MassMatrix(inv=one, scale=one)
 
 
-def _matvec(a: torch.Tensor, p: torch.Tensor, dense) -> torch.Tensor:
-    """``a @ p`` a chain: ``a [n, d, d]`` or ``[d, d]``, ``p [n, d]``; under
-    :class:`DenseCols` of ``p``'s gathered rows, the block's columns."""
-    if isinstance(dense, DenseCols):
-        whole = gather_cols(p, dense.group, dense.lo, dense.d_total)
-        return torch.matmul(a, whole.unsqueeze(-1)).squeeze(-1)[..., dense.lo:dense.hi]
+def _matvec(a: torch.Tensor, p: torch.Tensor, gather=None) -> torch.Tensor:
+    """``a @ p`` a chain: ``a [n, d, d]`` or ``[d, d]``, ``p [n, d]``; on a
+    dim group ``a`` holds the block's rows and ``gather`` gives ``p``'s
+    whole rows."""
+    if gather is not None:
+        p = gather(p)
     return torch.matmul(a, p.unsqueeze(-1)).squeeze(-1)
 
 
-def inv_mass_mul(mass: MassMatrix, p: torch.Tensor, dense: bool = False) -> torch.Tensor:
+def inv_mass_mul(mass: MassMatrix, p: torch.Tensor, dense: bool = False,
+                 gather=None) -> torch.Tensor:
     """v = M⁻¹ p for every chain of ``p [n, dim]``."""
     if dense:
-        return _matvec(mass.inv, p, dense)
+        return _matvec(mass.inv, p, gather)
     return mass.inv * p
 
 
@@ -138,21 +125,22 @@ def _dot(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def kinetic_energy(mass: MassMatrix, p: torch.Tensor, dense: bool = False,
-                   group=None) -> torch.Tensor:
+                   group=None, gather=None) -> torch.Tensor:
     """½ pᵀ M⁻¹ p, ``[n]``."""
-    return 0.5 * _dot(p, inv_mass_mul(mass, p, dense), group)
+    return 0.5 * _dot(p, inv_mass_mul(mass, p, dense, gather), group)
 
 
-def sample_momentum(z: torch.Tensor, mass: MassMatrix, dense: bool = False) -> torch.Tensor:
+def sample_momentum(z: torch.Tensor, mass: MassMatrix, dense: bool = False,
+                    gather=None) -> torch.Tensor:
     """p = scale · z for given standard normals ``z [n, dim]`` (the JAX
     function draws ``z`` itself from a key)."""
     if dense:
-        return _matvec(mass.scale, z, dense)
+        return _matvec(mass.scale, z, gather)
     return mass.scale * z
 
 
 def leapfrog_chain(vg_fn: Callable, pos, mom, grad, eps, mass: MassMatrix,
-                   dense: bool = False):
+                   dense: bool = False, gather=None):
     """One leapfrog step for every chain: half-kick, mass-weighted drift,
     re-grad, half-kick.  ``vg_fn(x [n, dim]) -> (logp [n], grad [n, dim])``;
     ``eps`` is a scalar or one step size a chain (``[n]``) and carries the
@@ -162,7 +150,7 @@ def leapfrog_chain(vg_fn: Callable, pos, mom, grad, eps, mass: MassMatrix,
         eps = eps[:, None]
     half = eps * 0.5
     mom = mom + grad * half
-    pos = pos + inv_mass_mul(mass, mom, dense) * eps
+    pos = pos + inv_mass_mul(mass, mom, dense, gather) * eps
     logp, grad = vg_fn(pos)
     # the positions' dtype, as the JAX function pins it
     logp = logp.to(pos.dtype)
@@ -176,7 +164,7 @@ def _finite(lp: torch.Tensor, grad: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
-                            dense: bool = False, group=None) -> torch.Tensor:
+                            dense: bool = False, group=None, gather=None) -> torch.Tensor:
     """Heuristic initial step size of every chain, ``[n]``
     (find_reasonable_epsilon_with_mass, generic_nuts.rs:1025-1102): halve ε
     until the first leapfrog is finite, then double or halve it until the
@@ -195,7 +183,7 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
     ulogp, grad = vg_fn(position)
 
     def try_eps(eps):
-        return leapfrog_chain(vg_fn, position, mom, grad, eps, mass, dense)
+        return leapfrog_chain(vg_fn, position, mom, grad, eps, mass, dense, gather)
 
     # Phase 1: shrink until finite (generic_nuts.rs:1057-1070).
     _, mom_p, lp_p, grad_p = try_eps(one)
@@ -217,8 +205,8 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
         grad_p = torch.where(active[:, None], g_n, grad_p)
 
     eps = 0.5 * k  # epsilon = half * k * 1.0 (generic_nuts.rs:1072)
-    ke0 = kinetic_energy(mass, mom, dense, group)
-    log_accept = lp_p - ulogp - (kinetic_energy(mass, mom_p, dense, group) - ke0)
+    ke0 = kinetic_energy(mass, mom, dense, group, gather)
+    log_accept = lp_p - ulogp - (kinetic_energy(mass, mom_p, dense, group, gather) - ke0)
     a = torch.where(log_accept > ln_half, 1.0, -1.0).to(dtype)
 
     # Phase 2: geometric search until crossing ln(1/2)
@@ -230,7 +218,7 @@ def find_reasonable_epsilon(vg_fn: Callable, position, mom, mass: MassMatrix,
             break
         eps = torch.where(active, eps * step, eps)
         _, m_n, lp_n, _ = try_eps(eps)
-        la = lp_n - ulogp - (kinetic_energy(mass, m_n, dense, group) - ke0)
+        la = lp_n - ulogp - (kinetic_energy(mass, m_n, dense, group, gather) - ke0)
         log_accept = torch.where(active, la, log_accept)
     return eps
 
@@ -302,7 +290,7 @@ def _joint(lp, mom, vel, group=None):
 def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMatrix,
                   vg_fn: Callable, max_depth: int, u_leaf, dense: bool = False,
                   collect_edges: bool = False, ckpt_dtype=None, multinomial: bool = False,
-                  active=None, group=None) -> SubtreeResult:
+                  active=None, group=None, gather=None) -> SubtreeResult:
     """Build one subtree of ``2^depth`` leapfrog leaves for every chain in
     direction ``v [n]`` (±1) from the endpoints ``(pos, mom, grad)``;
     ``u_leaf [n, 2^depth]`` holds leaf ``i``'s uniform in column ``i``.
@@ -355,8 +343,8 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
             break
         live = s  # chains still building this subtree
         # --- leaf A (even): leapfrog, proposal accounting, stack store ----
-        pA, mA, lpA, gA = leapfrog_chain(vg_fn, p_c, m_c, g_c, eps_v, mass, dense)
-        velA = inv_mass_mul(mass, mA, dense)
+        pA, mA, lpA, gA = leapfrog_chain(vg_fn, p_c, m_c, g_c, eps_v, mass, dense, gather)
+        velA = inv_mass_mul(mass, mA, dense, gather)
         jointA = _joint(lpA, mA, velA, group)
         okA = div_lim < jointA
         uA = u_leaf[:, i]
@@ -394,8 +382,8 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
 
         # --- leaf B (odd): leapfrog, accounting, U-turn check -------------
         do_b = live & okA
-        pB, mB, lpB, gB = leapfrog_chain(vg_fn, pA, mA, gA, eps_v, mass, dense)
-        velB = inv_mass_mul(mass, mB, dense)
+        pB, mB, lpB, gB = leapfrog_chain(vg_fn, pA, mA, gA, eps_v, mass, dense, gather)
+        velB = inv_mass_mul(mass, mB, dense, gather)
         jointB = _joint(lpB, mB, velB, group)
         okB = div_lim < jointB
         uB = u_leaf[:, i + 1]
@@ -449,12 +437,12 @@ def build_subtree(pos, mom, grad, v, depth: int, eps, logu, joint0, mass: MassMa
     )
 
 
-def _stop_criterion(pos_m, pos_p, mom_m, mom_p, mass, dense, group=None):
+def _stop_criterion(pos_m, pos_p, mom_m, mom_p, mass, dense, group=None, gather=None):
     """Global U-turn check (stop_criterion_with_mass,
     generic_nuts.rs:1357-1378)."""
     diff = pos_p - pos_m
-    ok_m = _dot(diff, inv_mass_mul(mass, mom_m, dense), group) >= 0.0
-    ok_p = _dot(diff, inv_mass_mul(mass, mom_p, dense), group) >= 0.0
+    ok_m = _dot(diff, inv_mass_mul(mass, mom_m, dense, gather), group) >= 0.0
+    ok_p = _dot(diff, inv_mass_mul(mass, mom_p, dense, gather), group) >= 0.0
     return ok_m & ok_p
 
 
@@ -476,7 +464,7 @@ def _sel(mask, a, b):
 
 def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_depth: int,
                    draws: TreeDraws, dense: bool = False, ckpt_dtype=None,
-                   multinomial: bool = False, group=None) -> TreeStepResult:
+                   multinomial: bool = False, group=None, gather=None) -> TreeStepResult:
     """One NUTS transition for every chain (GenericNUTSChain::step,
     generic_nuts.rs:755-880): momentum from ``draws.z``, the slice variable
     ``joint₀ − draws.e``, then doublings in random directions until a U-turn
@@ -489,11 +477,12 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
     uniforms and no leaf uniform.  At the end the proposal's ``(lp, grad)``
     is evaluated once more, outside ``leapfrogs`` (the JAX function does the
     same instead of carrying them through the loops).  ``group`` is the dim
-    group of a parameter axis split over ranks (module docstring)."""
+    group of a parameter axis split over ranks and ``gather`` its gather of
+    a block's rows for a dense metric (module docstring)."""
     dtype, dev = pos.dtype, pos.device
     n = pos.shape[0]
-    mom0 = sample_momentum(draws.z, mass, dense)
-    joint0 = lp - kinetic_energy(mass, mom0, dense, group)
+    mom0 = sample_momentum(draws.z, mass, dense, gather)
+    joint0 = lp - kinetic_energy(mass, mom0, dense, group, gather)
     logu = joint0 - draws.e
     if max_depth == 0:
         zeros = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -503,7 +492,7 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
                               diverged=torch.zeros(n, dtype=torch.bool, device=dev),
                               leapfrogs=zeros)
     c = _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draws,
-                        multinomial, group)
+                        multinomial, group, gather)
     for j in range(1, max_depth):
         active = c["s"]
         if not bool(active.any()):
@@ -514,7 +503,7 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
         sub = build_subtree(*start, v, j, eps, logu, joint0, mass, vg_fn, max_depth,
                             draws.u_leaf[:, (1 << j) - 1:(1 << (j + 1)) - 1], dense=dense,
                             ckpt_dtype=ckpt_dtype, multinomial=multinomial, active=active,
-                            group=group)
+                            group=group, gather=gather)
         to_m, to_p = active & backward, active & ~backward
         for a, end in (("pos", sub.end_pos), ("mom", sub.end_mom), ("grad", sub.end_grad)):
             c[a + "_m"] = _sel(to_m, end, c[a + "_m"])
@@ -530,7 +519,7 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
             c["n"] = torch.where(active, c["n"] + sub.n, c["n"])
         c["prop_pos"] = _sel(take, sub.prop_pos, c["prop_pos"])
         c["s"] = active & sub.s & _stop_criterion(c["pos_m"], c["pos_p"], c["mom_m"],
-                                                  c["mom_p"], mass, dense, group)
+                                                  c["mom_p"], mass, dense, group, gather)
         c["diverged"] = c["diverged"] | (active & sub.diverged)
         c["alpha"] = torch.where(active, sub.alpha, c["alpha"])
         c["n_alpha"] = torch.where(active, sub.n_alpha, c["n_alpha"])
@@ -543,7 +532,7 @@ def nuts_tree_step(pos, lp, grad, eps, mass: MassMatrix, vg_fn: Callable, max_de
 
 
 def _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draws,
-                    multinomial, group=None):
+                    multinomial, group=None, gather=None):
     """The ``j = 0`` doubling as straight-line code: one leapfrog, no
     checkpoint stack, no leaf B; it reads doubling 0's direction and swap
     uniforms (``_first_doubling`` of the JAX package)."""
@@ -551,8 +540,8 @@ def _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draw
     n = pos.shape[0]
     backward = draws.u_dir[:, 0] < 0.5
     eps_v = eps * torch.where(backward, -1.0, 1.0).to(dtype)
-    pA, mA, lpA, gA = leapfrog_chain(vg_fn, pos, mom0, grad, eps_v, mass, dense)
-    jointA = _joint(lpA, mA, inv_mass_mul(mass, mA, dense), group)
+    pA, mA, lpA, gA = leapfrog_chain(vg_fn, pos, mom0, grad, eps_v, mass, dense, gather)
+    jointA = _joint(lpA, mA, inv_mass_mul(mass, mA, dense, gather), group)
     okA = ((joint0 if multinomial else logu) - DELTA_MAX) < jointA
     alphaA = torch.clamp(torch.exp(jointA - joint0), max=1.0)
     c = {}
@@ -571,7 +560,7 @@ def _first_doubling(pos, mom0, grad, eps, logu, joint0, mass, dense, vg_fn, draw
         c["n"] = 1 + validA
     c["prop_pos"] = _sel(take, pA, pos)
     c["s"] = okA & _stop_criterion(c["pos_m"], c["pos_p"], c["mom_m"], c["mom_p"],
-                                   mass, dense, group)
+                                   mass, dense, group, gather)
     c["diverged"] = ~okA
     c["alpha"] = alphaA
     ones = torch.ones(n, dtype=torch.int64, device=pos.device)

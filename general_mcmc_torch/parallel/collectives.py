@@ -24,6 +24,8 @@ one bit for bit.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.distributed as dist
 
@@ -35,6 +37,7 @@ __all__ = [
     "chain_var",
     "gather_rows",
     "gather_cols",
+    "col_gather",
     "median",
     "chain_median",
     "pooled_rhat_sharded",
@@ -101,6 +104,14 @@ def gather_cols(x: torch.Tensor, group, col0: int, d_total: int) -> torch.Tensor
     buf = x.new_zeros(tuple(x.shape[:-1]) + (d_total,))
     buf[..., col0:col0 + x.shape[-1]] = x
     return all_sum(buf, group)
+
+
+def col_gather(group, col0: int, d_total: int):
+    """:func:`gather_cols` bound to a block of columns from ``col0`` of
+    ``d_total`` on the dim group ``group``: ``x ->`` the rows' whole states.
+    Every holder of a block (a sampler, a gathered target or proposal, a
+    dense metric's product) gathers through it."""
+    return functools.partial(gather_cols, group=group, col0=col0, d_total=d_total)
 
 
 def median(x: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,7 @@ local count, every draw is addressed from the block's first global chain
 coordinates goes through the shard's groups.  On the dim axis the target is
 :func:`..models.distributions.column_block`'s block (its own column block,
 or one that gathers whole rows), and whatever else couples coordinates (a
-dense metric, a Gibbs sweep) gathers the rows too (:meth:`_gather_cols`).
+dense metric, a Gibbs sweep) gathers the rows too (:attr:`_gather`).
 A fused kernel holds whole rows, so ``backend="cuda"`` has no dim axis.
 
 The JAX carry holds each chain's key, so a JAX checkpoint continues its
@@ -50,7 +50,7 @@ from ..core import (
 )
 from ..diagnostics.stats import MultiChainTracker, RunStats
 from ..models.distributions import column_block
-from ..parallel.collectives import gather_cols
+from ..parallel.collectives import col_gather
 from ..parallel.mesh import Shard
 from ..rng import as_seed, chain_ids, stream_key
 from ..utils.progress import ProgressRenderer
@@ -211,10 +211,12 @@ class BatchSampler:
             return self.shard.d_total
         return getattr(self, self._init_name).shape[-1]
 
-    def _gather_cols(self, x):
-        """The rows' whole states from this block's columns ``x`` (itself
+    @property
+    def _gather(self):
+        """``x ->`` the rows' whole states from this block's columns ``x``
+        (:func:`..parallel.collectives.col_gather`; ``x`` itself
         unsharded)."""
-        return gather_cols(x, self._dim_group, self._word0, self._dim_total)
+        return col_gather(self._dim_group, self._word0, self._dim_total)
 
     def _check_dim_axis(self) -> None:
         """Raise unless this sampler can split the parameter axis over

@@ -117,7 +117,7 @@ class GibbsSampler(BatchSampler):
         generator's draws when given (see :class:`GibbsDraws`), so that a
         test can feed both this port and the JAX package the same
         numbers."""
-        x = self._gather_cols(carry[0])
+        x = self._gather(carry[0])
         if draws is None:
             normals, uniforms = counter_rng.gibbs_draws(self._key, self.n_chains, m, self.dim,
                                                         x.device, chain0=self._chain0)

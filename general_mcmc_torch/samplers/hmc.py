@@ -168,7 +168,7 @@ class HMC(BatchSampler):
 
     def _inv_mul(self, p):
         if self.dense_mass:
-            return self._gather_cols(p) @ self.mass_inv.mT
+            return self._gather(p) @ self.mass_inv.mT
         return self.mass_inv * p
 
     def _step(self, carry, m, z=None, u=None):
@@ -187,7 +187,7 @@ class HMC(BatchSampler):
         z = torch.as_tensor(z, device=x.device).to(dtype)
         u = torch.as_tensor(u, device=x.device).to(dtype)
         if self.dense_mass:
-            momentum = self._gather_cols(z) @ self.mass_scale.mT
+            momentum = self._gather(z) @ self.mass_scale.mT
         else:
             momentum = self.mass_scale * z
         dg = self._dim_group

@@ -24,9 +24,9 @@ step whatever the backend, as the JAX package's run its XLA step.
 
 On a dim axis (``parallel.run_sharded(..., shard_dim=True)``, the
 ``"torch"`` step) a rank holds a block of columns: the proposal is its
-block (``columns(lo, hi, group)`` of the built-in proposals, which move
-each coordinate alone and sum ``logp`` over the dim group; any other
-proposal a :class:`GatheredProposal`), the target the block of
+block (``columns(lo, hi, group, d_total)`` of the built-in proposals,
+which move each coordinate alone and sum ``logp`` over the dim group; any
+other proposal a :class:`GatheredProposal`), the target the block of
 :func:`..models.distributions.column_block`, and the draws the unsharded
 row's columns with the row's own accept uniform
 (:func:`..ops.counter_rng.walk_draws`, :func:`..ops.counter_rng.
@@ -48,7 +48,7 @@ import torch
 
 from ..models.distributions import as_logp_fn, rowsum
 from ..ops import counter_rng
-from ..parallel.collectives import gather_cols
+from ..parallel.collectives import col_gather
 from ..parallel.mesh import Axes
 from .base import BatchSampler
 
@@ -77,7 +77,7 @@ class RandomWalkProposal:
     draws = "normal"
     dim_group = None  # the ranks whose column blocks logp sums over
 
-    def columns(self, lo: int, hi: int, group) -> "RandomWalkProposal":
+    def columns(self, lo: int, hi: int, group, d_total: int) -> "RandomWalkProposal":
         return _with_group(self, group)
 
     def propose(self, current, z):
@@ -100,7 +100,7 @@ class PCNProposal:
     draws = "normal"
     dim_group = None  # the ranks whose column blocks logp sums over
 
-    def columns(self, lo: int, hi: int, group) -> "PCNProposal":
+    def columns(self, lo: int, hi: int, group, d_total: int) -> "PCNProposal":
         return _with_group(self, group)
 
     @property
@@ -125,7 +125,7 @@ class DiscreteWalkProposal:
     symmetric = True
     draws = "sign"
 
-    def columns(self, lo: int, hi: int, group) -> "DiscreteWalkProposal":
+    def columns(self, lo: int, hi: int, group, d_total: int) -> "DiscreteWalkProposal":
         return self  # each coordinate moves alone, and logp is constant
 
     def propose(self, current, up):
@@ -144,14 +144,15 @@ class GatheredProposal:
 
     def __init__(self, proposal, lo: int, hi: int, group, d_total: int):
         self.proposal = proposal
-        self.lo, self.hi, self.dim_group, self.d_total = lo, hi, group, d_total
+        self.lo, self.hi = lo, hi
+        self._gather = col_gather(group, lo, d_total)
         self.symmetric = getattr(proposal, "symmetric", False)
         self.draws = getattr(proposal, "draws", "normal")
 
     def _whole(self, x):
         if x.dtype == torch.bool:
             return self._whole(x.to(torch.int32)).to(torch.bool)
-        return gather_cols(x, self.dim_group, self.lo, self.d_total)
+        return self._gather(x)
 
     def propose(self, current, z):
         return self.proposal.propose(self._whole(current), self._whole(z))[:, self.lo:self.hi]
@@ -219,7 +220,7 @@ class MetropolisHastings(BatchSampler):
         super()._take_columns(shard)
         lo, hi = shard.col0, shard.col0 + shard.d_local
         if hasattr(self.proposal, "columns"):
-            self.proposal = self.proposal.columns(lo, hi, shard.dim_group)
+            self.proposal = self.proposal.columns(lo, hi, shard.dim_group, shard.d_total)
         else:
             self.proposal = GatheredProposal(self.proposal, lo, hi, shard.dim_group,
                                              shard.d_total)

@@ -59,10 +59,12 @@ axis (either tree, any metric, any target: the target is its block of
 :func:`..models.distributions.column_block`) every sum over the parameter
 axis goes through the shard's dim group (:mod:`..ops.tree`,
 :mod:`..ops.static_tree`), and the momenta of the block's columns are
-words ``col0 …`` of each chain's pairs.  A dense metric stays whole on
-every rank of the dim group: its Welford sums take the gathered rows, so
-its Cholesky factor is the same on every rank, and its products act on the
-gathered vectors (:class:`..ops.tree.DenseCols`).
+words ``col0 …`` of each chain's pairs.  A dense metric couples the
+coordinates: its Welford sums take the gathered rows, so its Cholesky
+factor is the same on every rank of the dim group, and each rank keeps its
+block's rows of the metric (``[n, k, d_total]``, split with the
+coordinates as a diagonal one is), whose products take the gathered
+vectors (the sampler's ``_gather``).
 
 The runtime of :mod:`.base` (``chain``, ``track``, ``save_checkpoint``,
 ``resume``, ``run_progress``) works as for every sampler.  ``chain`` and
@@ -87,7 +89,6 @@ from ..models.distributions import as_value_and_grad
 from ..ops import counter_rng
 from ..ops.static_tree import StaticDraws, static_nuts_step
 from ..ops.tree import (
-    DenseCols,
     MassMatrix,
     TreeDraws,
     find_reasonable_epsilon,
@@ -313,7 +314,8 @@ class NUTS(BatchSampler):
         lp0, grad0 = self._vgrad(x0)
         lp0, grad0 = lp0.to(dtype), grad0.to(dtype)
         d_metric = self._dim_total if self._dense else d  # a dense metric stays whole
-        mass = identity_mass(d_metric, dtype, dev, dense=self._dense, n_chains=n)
+        mass = self._metric_rows(identity_mass(d_metric, dtype, dev, dense=self._dense,
+                                               n_chains=n))
         if self.step_size is not None:
             eps0 = torch.full((n,), self.step_size, dtype=dtype, device=dev)
         else:
@@ -323,9 +325,9 @@ class NUTS(BatchSampler):
                                                      "normal_pair", dev, self._chain0,
                                                      self._word0)
             mom = sample_momentum(torch.as_tensor(z_eps, device=dev).to(dtype), mass,
-                                  self._dense)
+                                  self._dense, self._gather)
             eps0 = find_reasonable_epsilon(self._vgrad, x0, mom, mass, self._dense,
-                                           self._dim_group)
+                                           self._dim_group, self._gather)
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
         welford = Welford(count=torch.zeros(n, dtype=torch.int32, device=dev),
                           mean=zeros(n, d), m2_diag=zeros(n, d),
@@ -372,7 +374,7 @@ class NUTS(BatchSampler):
         metric ``mass``, in the positions' dtype."""
         z, w = counter_rng.static_draws(self._key, self.n_chains, m, self.dim, depth,
                                         self.device, self._chain0, self._word0)
-        return StaticDraws.from_words(z.to(dtype), w, depth, mass, self._dense)
+        return StaticDraws.from_words(z.to(dtype), w, depth, mass, self._dense, self._gather)
 
     # -- transition -------------------------------------------------------------
     def _step(self, carry, m: int, draws: TreeDraws | StaticDraws | None = None,
@@ -399,14 +401,14 @@ class NUTS(BatchSampler):
             tree = static_nuts_step(pos, carry["lp"], carry["grad"], carry["eps"],
                                     carry["mass"], self._vgrad, depth, draws,
                                     dense=self._dense, multinomial=self._multinomial,
-                                    group=self._dim_group)
+                                    group=self._dim_group, gather=self._gather)
         else:
             if draws is None:
                 draws = self._draws(m, depth, dtype)
             tree = nuts_tree_step(pos, carry["lp"], carry["grad"], carry["eps"], carry["mass"],
                                   self._vgrad, depth, draws, dense=self._dense,
                                   ckpt_dtype=self.ckpt_dtype, multinomial=self._multinomial,
-                                  group=self._dim_group)
+                                  group=self._dim_group, gather=self._gather)
 
         # dual averaging (generic_nuts.rs:882-895)
         m1 = torch.full((), m + 1, dtype=dtype, device=self.device)
@@ -456,7 +458,7 @@ class NUTS(BatchSampler):
         delta2 = x - mean
         m2_dense = w.m2_dense
         if self._dense:
-            d_all, d2_all = self._gather_cols(torch.stack([delta, delta2])).unbind(0)
+            d_all, d2_all = self._gather(torch.stack([delta, delta2])).unbind(0)
             m2_dense = m2_dense + d_all[:, :, None] * d2_all[:, None, :]
         return Welford(cnt, mean, w.m2_diag + delta * delta2, m2_dense)
 
@@ -486,6 +488,14 @@ class NUTS(BatchSampler):
                 break
         return found, inv, scale
 
+    def _metric_rows(self, mass: MassMatrix) -> MassMatrix:
+        """This block's rows of a whole dense metric ``[n, d_total,
+        d_total]`` (the whole metric unsharded); a diagonal one as it is."""
+        if not self._dense:
+            return mass
+        lo, hi = self._word0, self._word0 + self.dim
+        return MassMatrix(inv=mass.inv[:, lo:hi], scale=mass.scale[:, lo:hi])
+
     def _window_update(self, carry, m: int, z_window=None):
         """End of a window: the metric from the Welford state, the ε
         re-search under it, the dual-averaging and accumulator reset
@@ -496,7 +506,7 @@ class NUTS(BatchSampler):
         pos = carry["pos"]
         dtype, dev = pos.dtype, pos.device
         n, d = pos.shape
-        d_metric = w.m2_dense.shape[-1]  # a dense metric is whole on a dim axis
+        d_metric = w.m2_dense.shape[-1]  # a dense metric's sums are whole on a dim axis
         reg = cfg.regularize
         jitter = max(cfg.jitter, 1e-10)
         have = w.count >= 5  # update gate (generic_nuts.rs:952-954)
@@ -509,6 +519,7 @@ class NUTS(BatchSampler):
             eye = torch.eye(d_metric, dtype=dtype, device=dev)
             cov = (1.0 - reg) * raw * (1.0 - eye) + torch.diag_embed(diag)
             found, inv, scale = self._dense_metric(cov, jitter)
+            inv, scale = self._metric_rows(MassMatrix(inv, scale))
             updated = have & found
             use = updated[:, None, None]
         else:
@@ -526,9 +537,9 @@ class NUTS(BatchSampler):
                                                     "normal_pair", dev, self._chain0,
                                                     self._word0)
         mom = sample_momentum(torch.as_tensor(z_window, device=dev).to(dtype), mass,
-                              self._dense)
+                              self._dense, self._gather)
         eps_new = find_reasonable_epsilon(self._vgrad, pos, mom, mass, self._dense,
-                                          self._dim_group)
+                                          self._dim_group, self._gather)
         zero = torch.zeros((), dtype=dtype, device=dev)
         out = dict(carry)
         out.update(
@@ -551,9 +562,10 @@ class NUTS(BatchSampler):
         return carry["pos"]
 
     def _carry_axes(self, carry):
-        # a diagonal metric or Welford row per chain splits with the
-        # coordinates; a dense one ([n, d, d]) only with the chains
-        row = Axes(0, None if self._dense else 1)
+        # a metric splits with the coordinates (a diagonal one's columns, a
+        # dense one's rows), a dense Welford sum ([n, d, d]) only with the
+        # chains
+        row = Axes(0, 1)
         axes = {k: Axes(0) for k in carry}
         axes.update(pos=Axes(0, 1), grad=Axes(0, 1), mass=MassMatrix(inv=row, scale=row),
                     welford=Welford(count=Axes(0), mean=Axes(0, 1), m2_diag=Axes(0, 1),
@@ -563,9 +575,6 @@ class NUTS(BatchSampler):
     def _take_columns(self, shard) -> None:
         super()._take_columns(shard)
         self.dim = shard.d_local
-        if self._dense:  # the tree functions' dense flag for a whole metric on a block
-            self._dense = DenseCols(shard.col0, shard.col0 + shard.d_local, shard.d_total,
-                                    shard.dim_group)
 
     # -- backend="auto" -----------------------------------------------------------
     @staticmethod

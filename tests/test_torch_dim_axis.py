@@ -271,10 +271,10 @@ def _whole_and_block(kind: str, lo: int, hi: int):
         z, ua, us = k.tempering_draws(SEED, N, STEP, 4, D_TOTAL, **cr)
         return (z[:, :, lo:hi], ua, us), k.tempering_draws(SEED, N, STEP, 4, d, word0=lo,
                                                            d_total=D_TOTAL, **cr)
-    if kind == "gibbs":
-        g = k.GIBBS_DRAWS
-        return (tuple(v[:, g * lo:g * hi] for v in k.gibbs_draws(SEED, N, STEP, D_TOTAL, **cr)),
-                k.gibbs_draws(SEED, N, STEP, d, col0=lo, **cr))
+    if kind == "eps_search":  # NUTS's and ChEES's initial step-size search
+        fill = lambda width, w0: k.counter_rng_fill(N, width, SEED, 0, k.TAG_EPS_SEARCH,
+                                                    "normal_pair", "cpu", CHAIN0, w0)
+        return (fill(D_TOTAL, 0)[:, lo:hi],), (fill(d, lo),)
     if kind == "nuts":
         z, u = k.nuts_draws(SEED, N, STEP, D_TOTAL, 3, **cr)
         return (z[:, lo:hi], u), k.nuts_draws(SEED, N, STEP, d, 3, word0=lo, **cr)
@@ -284,8 +284,8 @@ def _whole_and_block(kind: str, lo: int, hi: int):
     raise ValueError(kind)
 
 
-@pytest.mark.parametrize("kind", ["step", "walk", "mala", "sign", "tempering", "gibbs",
-                                  "nuts", "static"])
+@pytest.mark.parametrize("kind", ["step", "walk", "mala", "sign", "tempering",
+                                  "eps_search", "nuts", "static"])
 def test_block_draws_bit_equal(kind):
     """Every block of columns ``lo … hi − 1`` of an 11-coordinate row, at
     even and odd starts and widths, draws the unsharded draws' columns and

@@ -231,7 +231,8 @@ def program(rank: int, world: int, inp: dict, out_dir: Path) -> dict:
             theta = scale * torch.from_numpy(inp[f"lg_{shape}_theta"][r0:r1, c0:c1])
             for kind in ("nc", "centred"):
                 block = logistic_target(kind, inp[f"lg_{shape}_X"],
-                                        inp[f"lg_{shape}_y"]).columns(c0, c1, mesh.dim_group)
+                                        inp[f"lg_{shape}_y"]).columns(c0, c1, mesh.dim_group,
+                                                                      p + 2)
                 key = f"lg_{shape}_{scale}_{kind}"
                 out[f"{key}_logp"] = block.unnorm_logp(theta).numpy()
                 out[f"{key}_grad"] = block.unnorm_logp_grad(theta).numpy()
