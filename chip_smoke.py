@@ -740,10 +740,15 @@ COL_MH_ACCEPT = (0.1, 0.9)
 # for any density).  At 256 x 48 the resident path's K3 store and K1 store
 # of the non-centred target, and at 1,024 x 256 the streamed path's, have
 # the parent commit's digests (PATH_DIGESTS, sha256 of the float32 bytes).
+# At LGW_FULL (1,024 x 256) K3 also runs at the main path's N_CHAINS chains
+# for LGW_FULL_STEPS (burn-in, collected) on both targets, timed (median of
+# 3 after a warm run) beside one torch.matmul a step alone and the 3 x TF32
+# bound: PERF.md's rows of that shape.
 LGW_CASES = ((800, 24), (10_000, 24), (4096, 48), (1024, 100), (1024, 256), (256, 48),
              (1024, 264), (4096, 520), (62, fused_hmc_logistic.MAX_FEATURES))
 LGW_CHAINS, LGW_STEPS, LGW_SEED, LGW_WALK, LGW_EPS, LGW_BURN = 512, 64, 3, 0.5, 0.25, 200
 LGW_HALVINGS, LGW_PILOT, LGW_PILOT_ACCEPT = 8, 20, 0.9
+LGW_FULL, LGW_FULL_STEPS = (1024, 256), (50, 200)
 PATH_DIGESTS = {"K3": "28b8572d7fd30bd4a98702555668bbf38db7abcf66ec4fa9585183a95a43103d",
                 "K1": "039709d11d7e752e8b4bca04757b9767a91f338d39567b0f0cce996bcd71c06e",
                 "K3_streamed": "9d65c9616ac71d088f8e771aa7db49e892e462887a8f850feb19ee7cb0f76569",
@@ -3122,10 +3127,10 @@ def german_posterior(dev):
 
 
 def x_bytes_read(layout: dict, densities: int) -> int:
-    """The bytes of X (its hi and lo and y) the blocks of a launch read over
-    a run of ``densities`` passes over the data (gradients or log
-    densities) a tile: the streamed path's split copy once a block and
-    pass, the resident path's X once a block."""
+    """The bytes of X (its hi and lo, or K3's float32 copy, and y) the
+    blocks of a launch read over a run of ``densities`` passes over the data
+    (gradients or log densities) a tile: the streamed path's copy once a
+    block and pass, the resident path's X once a block."""
     if layout["streamed"]:
         return 4 * layout["blocks"] * densities * layout["scratch_words"]
     return layout["blocks"] * layout["shared_bytes"]
@@ -3429,11 +3434,12 @@ def mapped_moments(target, samples):
 
 
 def cluster_x_bytes(layout: dict, densities: int) -> int:
-    """The bytes of X (its hi and lo and y) the blocks of a cluster launch
-    read over a run of ``densities`` passes over the data: each cluster its
-    split copy once a pass, or once where the panel is kept (one stage)."""
+    """The bytes of X (and y) the blocks of a cluster launch read over a run
+    of ``densities`` passes over the data: each cluster its copy once a
+    pass, or once where the panel is kept (one stage)."""
     passes = 1 if layout["stages"] == 1 else densities
-    return 4 * layout["tiles"] * passes * layout["scratch_words"]
+    clusters = layout["blocks"] // layout["cluster_blocks"]
+    return 4 * clusters * passes * layout["scratch_words"]
 
 
 def colon_k1(dev, kind, target, mass_inv, start, ref_mean, ref_std, beta_ref, eps_bar, bulk):
@@ -3732,6 +3738,39 @@ def wide_eps(target, x0, inv) -> float:
         [LGW_EPS / 2**k for k in range(LGW_HALVINGS)], LGW_PILOT_ACCEPT)[0]
 
 
+def wide_full_k3(dev, targets, n_obs: int, p: int) -> dict:
+    """K3 at the full shape of PERF.md's rows of ``(n_obs, p)``: N_CHAINS
+    chains from "logistic-wide"'s positions' law, LGW_FULL_STEPS (burn-in,
+    collected) with its walk, each target timed (median of 3 after a warm
+    run), finite and of the store's shape; one torch.matmul a step alone
+    times the steps; the bound: one product a step in three TF32 passes
+    beside the softplus, the positions and the store."""
+    x0 = gmt.init_with_seed(N_CHAINS, p + 2, 2, device=dev) / math.sqrt(p)
+    x0[:, 1] -= 1.0
+    x0 = x0.contiguous()
+    walk = gmt.RandomWalkProposal(LGW_WALK / math.sqrt(n_obs * p))
+    n_discard, n_collect = LGW_FULL_STEPS
+    n_steps = n_discard + n_collect
+    library_ms = library_matmul_ms(dev, [((N_CHAINS, p), (p, n_obs))], n_steps)
+    n_bytes = 4 * (N_CHAINS * (p + 2) * (1 + n_collect) + n_obs * p + n_obs)
+    flops = N_CHAINS * n_steps * 2 * n_obs * p
+    bounds = tile_bounds((n_bytes, N_CHAINS * n_steps * 20 * n_obs, 0), flops)
+    out = {}
+    for kind, target in targets.items():
+        run = lambda: fused_mh.fused_mh_run(target, x0, walk, n_collect, n_discard, seed=SEED)
+        run()  # the warm run
+        ms, _, samples = timed(run, 3)
+        check(tuple(samples.shape) == (N_CHAINS, n_collect, p + 2)
+              and bool(torch.isfinite(samples).all()),
+              f"logistic-wide {n_obs} x {p} {kind} K3 at {N_CHAINS} chains: shape and finite")
+        del samples
+        out[kind] = dict(ms=round(ms, 3), library_ms=round(library_ms, 3),
+                         bound_ms=bounds["bound_tensor_3xtf32_ms"], bound_by="operations",
+                         chains=N_CHAINS, steps=n_steps)
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_logistic_wide(dev):
     """Both logistic kernels against their plain versions at each of
     LGW_CASES, both targets: K3 bit-equal on the chains whose accept
@@ -3744,7 +3783,8 @@ def phase_logistic_wide(dev):
     from the kernels' host code, and the builds' registers and spills (none);
     at 256 x 48 the resident path's digests and at 1,024 x 256 the streamed
     path's equal the parent's; past 256 features the cluster path's layout
-    (blocks a cluster, features a block)."""
+    (blocks a cluster, features a block); at LGW_FULL K3 at the main path's
+    chains, timed (wide_full_k3)."""
     out = {}
     for n_obs, p in LGW_CASES:
         X, y, _ = gmt.make_logistic_data(LGW_SEED, n_obs, p, device=dev)
@@ -3808,17 +3848,18 @@ def phase_logistic_wide(dev):
         check(launches == {"K3": each, "K1": each} and fused_mh.launches == fused_hmc.launches == 0,
               f"logistic-wide {n_obs} x {p}: one launch of each logistic kernel a target "
               f"({launches})")
-        for name, mod, build, kernels in (
+        # each kernel's streamed, resident and cluster (K3: row-tile) kernels,
+        # and the features past which it runs the last
+        for name, mod, build, kernels, wide in (
                 ("K3", fused_mh_logistic, logistic_mh_build(p),
                  ("fused_mh_logistic_streamed_kernel<0,0>", "fused_mh_logistic_kernel<0,0>",
-                  "fused_mh_logistic_cluster_kernel<0,0>")),
+                  "fused_mh_logistic_cluster_kernel<0,0>"), fused_mh_logistic.ROW_TILE_FEATURES),
                 ("K1", fused_hmc_logistic, logistic_hmc_build(p),
                  ("fused_hmc_logistic_streamed_kernel<0>",
                   f"fused_hmc_logistic_kernel<{fused_hmc_logistic.feature_tiles(p)},0>",
-                  "fused_hmc_logistic_cluster_kernel<0>"))):
+                  "fused_hmc_logistic_cluster_kernel<0>"), fused_hmc_logistic.MAX_BLOCK_FEATURES)):
             lay = mod.launch_layout(LGW_CHAINS, n_obs, p)
-            kernel = (kernels[2] if p > fused_hmc_logistic.MAX_BLOCK_FEATURES
-                      else kernels[0] if lay["streamed"] else kernels[1])
+            kernel = kernels[2] if p > wide else kernels[0] if lay["streamed"] else kernels[1]
             report = build_report(build, kernel)
             spills = build_spills(build)
             check(not spills, f"logistic-wide {n_obs} x {p}: {build} spills nothing ({spills})")
@@ -3828,6 +3869,8 @@ def phase_logistic_wide(dev):
                               cluster_blocks=lay["cluster_blocks"],
                               features_a_block=lay["features_a_block"],
                               shared_bytes=lay["shared_bytes"], **report)
+        if (n_obs, p) == LGW_FULL:
+            case["K3"]["full"] = wide_full_k3(dev, targets, n_obs, p)
         out[f"{n_obs}x{p}"] = case
     digests = path_digests(dev)
     for name, want in PATH_DIGESTS.items():

@@ -15,6 +15,15 @@ the likelihood by columns of X: the block holds X's columns for its ``z`` (or
 β) coordinates, and per evaluation one ``all_sum`` over the dim group
 hands every rank μ, log τ and the summed partial products, and one more
 the partial sums behind ``∂μ`` and ``∂log τ``.
+
+The softplus of the Bernoulli log-likelihood (:func:`softplus`) depends on
+the dtype.  In float64 it is exact, ``torch.logaddexp(l, 0)``, as JAX's
+``jax.nn.softplus`` is, so the float64 densities equal the reference's at
+every logit.  In float32 it is ``F.softplus``'s form, linear past its
+threshold of 20: the fused kernels' log-likelihood term (``loglik_term`` of
+``csrc/logistic_tile.cuh``) mirrors that form, and their plain versions'
+bit gates read it (in float32 the two forms round alike past 20; in float64
+the linear form is ~1.9e-9 an observation low just past it).
 """
 
 from __future__ import annotations
@@ -29,13 +38,23 @@ from ..core import resolve_device
 from ..parallel.collectives import all_sum
 
 __all__ = ["HierarchicalLogistic", "HierarchicalLogisticNC", "make_logistic_data",
-           "bench_logistic_data"]
+           "bench_logistic_data", "softplus"]
 
 # The stretch line's data: the JAX package's
 # make_logistic_data(jax.random.PRNGKey(1), 256, 48), as bench.py draws it,
 # saved once as float32 (tests/test_torch_regression.py regenerates it with
 # JAX and checks the file bit for bit).
 BENCH_LOGISTIC_FILE = Path(__file__).resolve().parent.parent / "data" / "bench_logistic_k1.npz"
+
+
+def softplus(logits):
+    """log(1 + e^l): exact in float64 (``torch.logaddexp(l, 0)``, JAX's
+    ``jax.nn.softplus``), ``F.softplus``'s form in any other dtype (the
+    module's docstring says why)."""
+    if logits.dtype == torch.float64:
+        return torch.logaddexp(logits, torch.zeros((), dtype=logits.dtype,
+                                                   device=logits.device))
+    return F.softplus(logits)
 
 
 def make_logistic_data(seed: int, n_obs: int, n_features: int, device=None,
@@ -85,7 +104,7 @@ class _LogisticData:
     def _loglik(self, beta):
         logits = beta @ self.X.mT  # [n, n_obs]
         # Bernoulli log-likelihood, numerically stable form
-        return torch.sum(self.y * logits - F.softplus(logits), dim=-1)
+        return torch.sum(self.y * logits - softplus(logits), dim=-1)
 
     def _lik_grad(self, beta):
         """∂loglik/∂β = (y − σ(β Xᵀ)) X, ``[n, p]``."""
@@ -206,7 +225,7 @@ class _LogisticColumns:
         return mu[:, None] * self.x_rowsum + torch.exp(log_tau)[:, None] * wx
 
     def _loglik(self, logits):
-        return torch.sum(self.y * logits - F.softplus(logits), dim=-1)
+        return torch.sum(self.y * logits - softplus(logits), dim=-1)
 
     def _evaluate(self, theta, value: bool, grad: bool):
         mu, log_tau, ww, wx = self._shared(theta)

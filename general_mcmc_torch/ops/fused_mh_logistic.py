@@ -8,22 +8,23 @@ stretch-line posterior) or the centred
 :class:`..models.regression.HierarchicalLogistic`.
 :func:`..ops.fused_mh.fused_mh_run` hands such a target here;
 :func:`launch_logistic` launches the hand-written CUDA kernel
-``csrc/fused_mh_logistic.cu`` (the MH of ``csrc/tile_mh.cuh`` on 16-chain
-tiles of two warps, the log density's product ``β Xᵀ`` and softplus sum the
-forward pass of ``csrc/logistic_tile.cuh``, K4's and K1's tile code, each
-warp over half the observations), and on the CPU the
-plain version is :func:`..ops.fused_mh.fused_mh_run_reference`, the
+``csrc/fused_mh_logistic.cu`` (the log density's product ``β Xᵀ`` on the
+tensor cores in three TF32 passes, and its softplus sum), and on the CPU
+the plain version is :func:`..ops.fused_mh.fused_mh_run_reference`, the
 ``"torch"`` step over the target's ``unnorm_logp``.
 
 X stays in one block's shared memory where it fits beside a tile and
-``p <= 48`` (the resident path); past that the kernel streams it through a
-ring of shared-memory stages in panels of observations (the streamed path),
-so it takes any number of observations.  Past 256 features a tile of 16
-chains is a cluster of up to 8 blocks, each a share of the features, their
-partial logits and the density's sums added across the cluster (the
-cluster path, :mod:`.fused_hmc_logistic`'s), up to ``MAX_FEATURES`` =
-2,048 features.  The kernel's host code chooses the path, the cluster and
-the panel, and :func:`launch_layout` reports them.
+``p <= 48`` (the resident path: the MH of ``csrc/tile_mh.cuh`` on 16-chain
+tiles of two warps and producer warps that draw ahead).  Past that the
+kernel streams it through a ring of shared-memory stages in panels of
+observations, so it takes any number of observations: up to 128 features
+on the resident path's tiles; past 128 on clusters of blocks that hold
+several 16-chain row tiles each, one block a cluster (five row tiles) up to
+256 features, past them up to 8 blocks (four row tiles), each a share of
+the features, their partial logits and the density's sums added across the
+cluster in one exchange (the cluster path), up to ``MAX_FEATURES`` = 2,048
+features.  The kernel's host code chooses the path, the cluster and the
+panel, and :func:`launch_layout` reports them.
 
 Both read the same counter-generator draws at K3's addresses and round the
 proposals and the select alike, but the kernel's product sums in another
@@ -45,14 +46,19 @@ from .fused_hmc_logistic import (MAX_FEATURES, MAX_RESIDENT_FEATURES, build_defi
                                  check_observations, feature_tiles, split_inputs)
 
 __all__ = ["check_target", "launch_layout", "launch_logistic", "launches", "feature_tiles",
-           "MAX_FEATURES", "MAX_RESIDENT_FEATURES"]
+           "MAX_FEATURES", "MAX_RESIDENT_FEATURES", "ROW_TILE_FEATURES"]
 
 # Launches of the fused kernel in this process.
 launches = 0
 
+# Past this many features the streamed path runs the kernel's row-tile
+# design (csrc/fused_mh_logistic.cu's kTiles: more than 16 feature tiles),
+# as the cluster path does; up to it, the tiles beside producer warps.
+ROW_TILE_FEATURES = 128
+
 _LAYOUT = ("tiles", "tiles_a_block", "blocks", "shared_bytes", "producer_warps", "streamed",
            "panel_rows", "panels", "stages", "scratch_words", "cluster_blocks",
-           "features_a_block")
+           "features_a_block", "in_flight")
 
 
 def _library(p: int):
@@ -66,12 +72,14 @@ def launch_layout(n: int, n_obs: int, p: int, chain0: int = 0) -> dict:
     ``n_obs`` observations from the global chain ``chain0`` on the current
     CUDA device, from the kernel's own host code
     (``fused_mh_logistic_layout``, which its launch calls): the ``tiles`` of
-    16 chains, ``tiles_a_block``, ``blocks``, the dynamic ``shared_bytes`` of
-    a block, its ``producer_warps`` (none on the cluster path), whether it
-    is ``streamed``, the streamed path's ``panel_rows``, ``panels``, ring
-    ``stages`` and ``scratch_words`` (its split copy of X and y), and the
-    ``cluster_blocks`` and ``features_a_block``, as
-    :func:`.fused_hmc_logistic.launch_layout` reports them."""
+    16 chains, ``tiles_a_block`` (a cluster's on the streamed and cluster
+    paths), ``blocks``, the dynamic ``shared_bytes`` of a block, its
+    ``producer_warps`` (the resident path's), whether it is ``streamed``
+    (every path but the resident one), the ``panel_rows``, ``panels``, ring
+    ``stages`` and ``scratch_words`` (the kernel's float32 copy of X and y
+    in panels), the ``cluster_blocks`` and ``features_a_block``, and
+    ``in_flight``, the blocks (resident) or clusters the card holds at once
+    (CUDA's occupancy calculator)."""
     from .._build import check
 
     lib = _library(p)

@@ -33,7 +33,7 @@ import general_mcmc_torch as gmt
 from general_mcmc_torch import _build
 from general_mcmc_torch.models.regression import bench_logistic_data
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_logistic, fused_mh, fused_mh_logistic
-from torch_logistic_layout import check_layout
+from torch_logistic_layout import check_k3_layout
 
 pytestmark = pytest.mark.cuda
 
@@ -175,9 +175,9 @@ def test_refusal_rule_is_the_launchers(card, n_obs, p, streamed):
     """The kernel's host code gives a one-tile launch the path the shape
     takes, resident where X fits beside a tile and p <= 48, else streamed
     in panels that cover the observations, within a block's shared memory
-    (``check_layout``); and a build refuses a feature count it was not
+    (``check_k3_layout``); and a build refuses a feature count it was not
     built for."""
-    check_layout(fused_mh_logistic.launch_layout(16, n_obs, p), n_obs, p, streamed)
+    check_k3_layout(fused_mh_logistic.launch_layout(16, n_obs, p), n_obs, p, streamed)
     other = 6 if fused_mh_logistic.feature_tiles(p) != 6 else 2
     lib = _build.load("fused_mh_logistic", GMT_LOGISTIC_PT=other)
     out = (ctypes.c_longlong * 10)()

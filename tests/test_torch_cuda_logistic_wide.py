@@ -29,7 +29,7 @@ import torch
 import general_mcmc_torch as gmt
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_logistic, fused_mh, fused_mh_logistic
 from general_mcmc_torch.ops.fused_logistic import MAX_SHARED_BYTES
-from torch_logistic_layout import check_layout, largest_step
+from torch_logistic_layout import check_k3_layout, check_layout, k3_row_tiles, largest_step
 
 pytestmark = pytest.mark.cuda
 
@@ -155,15 +155,26 @@ def test_streamed_chain0_rows_equal_the_launch_from_zero(card, kind, chain0):
 def test_layout_at_the_main_paths_chains(card, n_obs, p):
     """At 10,240 chains each kernel's host code streams every shape but the
     stretch line's 256 x 48, in panels that cover the observations, within
-    a block's shared memory (``check_layout``); the tiles spread over the
-    SMs."""
+    a block's shared memory (``check_layout``, K3's ``check_k3_layout``).
+    K1's tiles, and K3's up to 128 features, spread over the SMs; past 128
+    features K3 holds five row tiles a block, 128 blocks, all of them in
+    flight at once."""
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    for mod in (fused_hmc_logistic, fused_mh_logistic):
-        lay = mod.launch_layout(10_240, n_obs, p)
-        check_layout(lay, n_obs, p, int((n_obs, p) != (256, 48)))
-        assert lay["tiles"] == 640
-        assert lay["blocks"] == -(-640 // lay["tiles_a_block"])
+    streamed = int((n_obs, p) != (256, 48))
+    lay = fused_hmc_logistic.launch_layout(10_240, n_obs, p)
+    check_layout(lay, n_obs, p, streamed)
+    assert lay["tiles"] == 640
+    assert lay["blocks"] == -(-640 // lay["tiles_a_block"])
+    assert lay["tiles_a_block"] <= -(-640 // sms)
+    lay = fused_mh_logistic.launch_layout(10_240, n_obs, p)
+    check_k3_layout(lay, n_obs, p, streamed)
+    assert lay["tiles"] == 640
+    assert lay["blocks"] == -(-640 // lay["tiles_a_block"])
+    if p <= 128:
         assert lay["tiles_a_block"] <= -(-640 // sms)
+    else:
+        assert (lay["tiles_a_block"], lay["blocks"]) == (5, 128), lay
+        assert lay["in_flight"] >= min(lay["blocks"], sms), lay
 
 
 @pytest.mark.parametrize("name", ["walk", "pcn"])
@@ -262,22 +273,30 @@ def test_cluster_chain0_rows_equal_the_launch_from_zero(card, kind):
 
 @pytest.mark.parametrize("n_obs,p", [(62, 2000), (1024, 264), (4096, 520), (62, 2048)])
 def test_cluster_layout_at_the_main_paths_chains(card, n_obs, p):
-    """At 10,240 chains each kernel's host code puts a tile of 16 chains on
-    a cluster of the fewest blocks of at most 256 features each (8 at 2,000
-    and 2,048 features), 640 clusters, the observations in panels that
-    cover them, kept in one stage where they fit (the colon shape's 62),
-    within a block's shared memory; the split copy one slice of X's panels
-    a block of the cluster."""
-    for mod in (fused_hmc_logistic, fused_mh_logistic):
-        lay = mod.launch_layout(10_240, n_obs, p)
-        clusters = -(-p // 256)
-        per_block = 8 * -(-(2 * -(-p // 16)) // clusters)
-        assert lay["cluster_blocks"] == clusters and lay["features_a_block"] == per_block, lay
-        assert lay["tiles"] == 640 and lay["tiles_a_block"] == 1, lay
-        assert lay["blocks"] == 640 * clusters and lay["streamed"] == 1, lay
-        rows, panels = lay["panel_rows"], lay["panels"]
-        assert rows % 32 == 0 and (panels - 1) * rows < n_obs <= panels * rows, lay
-        assert lay["stages"] == (1 if panels == 1 else 2), lay
-        assert lay["scratch_words"] == clusters * panels * rows * (2 * (per_block + 4) + 1), lay
-        assert lay["shared_bytes"] <= MAX_SHARED_BYTES, lay
+    """At 10,240 chains each kernel's host code puts its tiles on clusters
+    of the fewest blocks of at most 256 features each (8 at 2,000 and 2,048
+    features), the observations in panels that cover them, kept in one
+    stage where they fit (the colon shape's 62), within a block's shared
+    memory, its copy of X one slice of the panels a block of the cluster.
+    K1: a tile of 16 chains a cluster, 640 clusters, X split into hi and lo.
+    K3 (``check_k3_layout``): four row tiles a cluster, 160 clusters, X in
+    float32, and no more clusters in flight than the SMs hold."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    clusters = -(-p // 256)
+    per_block = 8 * -(-(2 * -(-p // 16)) // clusters)
+    lay = fused_hmc_logistic.launch_layout(10_240, n_obs, p)
+    assert lay["cluster_blocks"] == clusters and lay["features_a_block"] == per_block, lay
+    assert lay["tiles"] == 640 and lay["tiles_a_block"] == 1, lay
+    assert lay["blocks"] == 640 * clusters and lay["streamed"] == 1, lay
+    rows, panels = lay["panel_rows"], lay["panels"]
+    assert rows % 32 == 0 and (panels - 1) * rows < n_obs <= panels * rows, lay
+    assert lay["stages"] == (1 if panels == 1 else 2), lay
+    assert lay["scratch_words"] == clusters * panels * rows * (2 * (per_block + 4) + 1), lay
+    assert lay["shared_bytes"] <= MAX_SHARED_BYTES, lay
     assert fused_hmc_logistic.launch_layout(10_240, 62, 2000)["stages"] == 1
+    lay = fused_mh_logistic.launch_layout(10_240, n_obs, p)
+    check_k3_layout(lay, n_obs, p, 1)
+    assert lay["tiles"] == 640 and lay["tiles_a_block"] == k3_row_tiles(p) == 4, lay
+    assert lay["blocks"] == 160 * clusters, lay
+    assert 1 <= lay["in_flight"] <= sms // clusters, lay
+    assert fused_mh_logistic.launch_layout(10_240, 62, 2000)["stages"] == 1

@@ -17,6 +17,8 @@ sampler on every target, on four gloo ranks on the CPU.
 - ChEES's dim-sharded ``_step`` on ``HierarchicalLogisticNC`` against
   JAX's ``ChEESHMC._step`` with JAX's draws injected.
 - Every block draw against the unsharded draw's columns, bit for bit.
+- A dim-sharded run's ``save_checkpoint`` resumed on a fresh sampler bound
+  to the same block against the unsharded run's resume, bit for bit.
 
 One module-scoped fixture spawns the four ranks once
 (``tests/torch_parallel_ranks.py``, program ``"dim_axis"`` of
@@ -122,6 +124,29 @@ def _moved(x: np.ndarray) -> np.ndarray:
     """``[n, steps − 1]``: whether each step changed any of ``x``'s
     columns."""
     return (x[:, 1:] != x[:, :-1]).any(axis=-1)
+
+
+@pytest.mark.parametrize("mesh", list(tdr.MESHES))
+@pytest.mark.parametrize("name", tdr.CHECKPOINT_CASES)
+def test_dim_sharded_checkpoint_resumes_as_unsharded(ranks, name, mesh, tmp_path):
+    """``run_sharded(..., shard_dim=True)``, ``save_checkpoint`` on every
+    rank, then ``resume`` on a fresh sampler bound to the same block: each
+    rank's ``[rows, columns]`` block is the unsharded run's resume's, bit for
+    bit (a column-block target and a gathered one; their positions depend
+    on the sharded sums only through the accept decisions)."""
+    starts = {k[len("start_"):]: v for k, v in ranks["inputs"].items()
+              if k.startswith("start_")}
+    s = tdr.make_case(name, starts)
+    s.run(*tdr.STEPS[name])
+    path = str(tmp_path / "unsharded.npz")
+    s.save_checkpoint(path)
+    want = tdr.make_case(name, starts).resume(path, tdr.RESUME_STEPS).numpy()
+    assert want.shape == (tdr.N_CHAINS, tdr.RESUME_STEPS, tdr.DIM)
+    assert (want[:, 1:] != want[:, :-1]).any()
+    for r, o, rows, cols in _blocks(ranks, mesh):
+        got = o[f"{mesh}_{name}_resume"]
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want[rows, :, cols], err_msg=f"rank {r}")
 
 
 @pytest.mark.parametrize("mesh", list(tdr.MESHES))

@@ -8,6 +8,11 @@ features split over a cluster of blocks) is held to on the card.
   versions' density and gradient) equal ``jax.value_and_grad`` of the JAX
   targets in float64 at the colon-cancer shape (62 x 2,000), at 300 x 520
   and at the most features the kernels take (``MAX_FEATURES``).
+- The model of the order of sums of K3's streamed path past 128 features
+  and its cluster path (``torch_fused_targets.cluster_density``: a row
+  tile's two warps, each block's feature tiles, the blocks in rank order,
+  the panels) equals JAX's ``unnorm_logp`` in float64, at one to eight
+  blocks a cluster.
 - ``MetropolisHastings(backend="cuda")`` and ``HMC(backend="cuda")`` on the
   CPU equal the ``"torch"`` backend bit for bit at 62 x 2,000 and 300 x 520.
 - 32-chain moments beside JAX's ``fused_mh_run`` and ``fused_hmc_run`` in
@@ -32,7 +37,7 @@ from general_mcmc_torch import HMC, MetropolisHastings, PCNProposal, RandomWalkP
 from general_mcmc_torch.convert import to_target, to_tensor
 from general_mcmc_torch.ops import fused_hmc, fused_hmc_logistic, fused_mh, fused_mh_logistic
 from test_torch_fused_logistic_wide import JAX_TARGETS, KINDS, SD_LOG, Z_MAX, beta_of
-from torch_fused_targets import logistic_data
+from torch_fused_targets import cluster_density, logistic_data
 from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 COLON = (62, 2000)  # the colon-cancer data's shape (Alon et al. 1999): tissues, genes
@@ -69,6 +74,26 @@ def test_cluster_assembly_equals_jax_value_and_grad(name, n_obs, p):
                                rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(target.unnorm_logp_grad(th).numpy(), np.asarray(grad),
                                rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("n_obs,p,panel_rows", [(62, 520, 64), (300, 264, 64), (300, 264, 32),
+                                                (62, 2000, 64), (1000, 136, 64), (300, 256, 32)])
+@pytest.mark.parametrize("name", ["logistic", "logistic_nc"])
+def test_cluster_order_of_sums_equals_jax(name, n_obs, p, panel_rows):
+    """In float64 the model of K3's streamed and cluster paths' order of
+    sums (``cluster_density``: a row tile's two warps, each block's feature
+    tiles, the blocks in rank order, the panels) equals JAX's
+    ``unnorm_logp`` to 1e-12 relative, at one block (129 to 256 features)
+    and at two, three and eight blocks a cluster."""
+    X, y = logistic_data(n_obs, p, seed=p + 1)
+    jt = JAX_TARGETS[name](jnp.asarray(X), jnp.asarray(y))
+    theta = cluster_theta(p, n_obs + 2 * p)
+    theta[:4, 2:] *= 8.0  # logits past softplus's threshold of 20 in a few rows
+    want = np.asarray(jax.vmap(jt.unnorm_logp)(jnp.asarray(theta)))
+    got = cluster_density(X, y, to_tensor(theta), centred=name == "logistic",
+                          panel_rows=panel_rows)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=0)
 
 
 @pytest.mark.parametrize("n_obs,p", SHAPES)

@@ -91,3 +91,58 @@ def test_bench_logistic_data_is_jax_make_logistic_data():
     X, y, _ = got
     target = HierarchicalLogisticNC(X, y)
     assert target.dim == 50 and set(np.unique(y.numpy())) == {0.0, 1.0}
+
+
+# Rows of beta (mu 0, log tau 0, so beta = z for the non-centred target)
+# whose logits over _PAST_X reach 20.1, 25, 40 and 45.1: past F.softplus's
+# threshold of 20, where its linear form leaves the exact softplus.
+_PAST_X = np.array([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0], [0.5, -0.25]])
+_PAST_Y = np.array([1.0, 0.0, 1.0, 0.0])
+_PAST_BETA = np.array([[20.1, 25.0], [40.0, -20.5], [-30.0, 22.0], [0.3, -0.7]])
+
+
+@pytest.mark.parametrize("kind", ["HierarchicalLogistic", "HierarchicalLogisticNC"])
+def test_float64_softplus_is_exact_past_twenty(kind):
+    """The float64 density equals JAX's (``jax.nn.softplus``, exact) at
+    logits past 20, within 1e-12 relative; the linear form of F.softplus
+    would leave it ~2e-9 an observation low there."""
+    jt = getattr(jreg, kind)(jnp.asarray(_PAST_X), jnp.asarray(_PAST_Y))
+    pt = to_target(kind, _PAST_X, _PAST_Y)
+    theta = np.concatenate([np.zeros((len(_PAST_BETA), 2)), _PAST_BETA], axis=1)
+    t = to_tensor(theta)
+    assert t.dtype == torch.float64
+    logits = torch.as_tensor(_PAST_BETA) @ pt.X.mT
+    assert float(logits.max()) > 40.0 and int((logits > 20.0).sum()) >= 5
+    want = np.asarray(jax.vmap(jt.unnorm_logp)(jnp.asarray(theta)))
+    got = pt.unnorm_logp(t).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    linear = (pt.unnorm_logp(t) - torch.sum(
+        torch.nn.functional.softplus(logits) - torch.logaddexp(logits, torch.zeros(())),
+        dim=-1)).numpy()
+    assert np.abs(linear - want).max() > 1e-9
+
+
+@pytest.mark.parametrize("kind", ["HierarchicalLogistic", "HierarchicalLogisticNC"])
+def test_float32_softplus_keeps_the_linear_form(kind):
+    """In float32 the density is F.softplus's form bit for bit, the
+    target's own expression with ``torch.nn.functional.softplus`` written
+    out (the fused kernels' loglik_term mirrors it and their plain versions'
+    bit gates read it)."""
+    pt = to_target(kind, _PAST_X.astype(np.float32), _PAST_Y.astype(np.float32))
+    theta = torch.cat([torch.zeros(len(_PAST_BETA), 2), torch.as_tensor(
+        _PAST_BETA, dtype=torch.float32)], dim=1)
+    theta[:, 0], theta[:, 1] = 0.25, 0.5
+    mu, log_tau, w = theta[:, 0], theta[:, 1], theta[:, 2:]
+    if kind == "HierarchicalLogisticNC":
+        beta = pt.beta(theta)
+        lp = -0.5 * mu * mu - 0.5 * log_tau * log_tau - 0.5 * torch.sum(w * w, dim=-1)
+    else:
+        beta = w
+        scaled = (beta - mu[:, None]) / torch.exp(log_tau)[:, None]
+        lp = -0.5 * mu * mu - 0.5 * log_tau * log_tau
+        lp = lp - 0.5 * torch.sum(scaled**2, dim=-1) - beta.shape[1] * log_tau
+    logits = beta @ pt.X.mT
+    assert int((logits > 20.0).sum()) >= 5
+    want = lp + torch.sum(pt.y * logits - torch.nn.functional.softplus(logits), dim=-1)
+    assert pt.X.dtype == torch.float32
+    assert torch.equal(pt.unnorm_logp(theta), want)

@@ -177,6 +177,13 @@ STEPS = {name: (6, 6) for name in CASES}
 STEPS.update(nuts_dense_metric=(3, 14), nuts_static_dense_metric=(3, 14))
 
 
+# save_checkpoint after a dim-sharded run, then resume on a fresh sampler
+# bound to the same block: the diagonal GaussianND (a true column block)
+# and a user's callable (a GatheredBlock), RESUME_STEPS more states
+CHECKPOINT_CASES = ("mh_walk", "hmc_callable")
+RESUME_STEPS = 5
+
+
 def counts(sampler) -> dict:
     """The discrete outcomes a run keeps besides its states: NUTS's and
     ChEES's divergence and leapfrog counts."""
@@ -222,6 +229,13 @@ def program(rank: int, world: int, inp: dict, out_dir: Path) -> dict:
                                                      shard_dim=True).numpy()
             for k, v in counts(s).items():
                 out[f"{mesh_name}_{name}_{k}"] = v
+        for name in CHECKPOINT_CASES:
+            s = make_case(name, starts)
+            run_sharded(s, *STEPS[name], mesh, shard_dim=True)
+            path = str(out_dir / f"ckpt_{mesh_name}_{name}_{rank}.npz")
+            s.save_checkpoint(path)
+            fresh = shard_sampler(make_case(name, starts), mesh, shard_dim=True)
+            out[f"{mesh_name}_{name}_resume"] = fresh.resume(path, RESUME_STEPS).numpy()
 
     for shape, (p, mesh_name, n_obs) in LOGISTIC_SHAPES.items():
         mesh = meshes[mesh_name]

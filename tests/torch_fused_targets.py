@@ -3,8 +3,10 @@ the JAX package's target, the port's target kind and parameters, a small
 width, a step size and leapfrogs (tests/test_torch_fused_targets*.py); and
 plain models of the dense tile kernels' blocked solves (K1's and K3's,
 csrc/dense_tile.cuh), with the three TF32 passes of their panel products,
-and of the tile kernels' chain addressing (tests/test_torch_tile_hmc.py,
-tests/test_torch_tile_mh.py)."""
+of the tile kernels' chain addressing (tests/test_torch_tile_hmc.py,
+tests/test_torch_tile_mh.py), and of the order of sums of K3's logistic
+kernel on its wide streamed and cluster paths (``cluster_density``,
+tests/test_torch_fused_logistic_cluster.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -235,3 +237,87 @@ def blocked_value_and_grad(target, x, order="right"):
     ``−L⁻ᵀy``."""
     y = blocked_forward(target.chol, x - target.mean, order=order)
     return -0.5 * (y * y).sum(-1), -blocked_back(target.chol, y, order)
+
+
+def _quad(s):
+    """A row's sum over the four lanes of its quad (the last axis), as two
+    xor shuffles leave it in every lane: (s0 + s1) + (s2 + s3)."""
+    return (s[..., 0] + s[..., 1]) + (s[..., 2] + s[..., 3])
+
+
+def cluster_density(X, y, theta, centred, panel_rows=64):
+    """The log density of each row of ``theta [n, p + 2]`` in the order of
+    sums of K3's streamed and cluster paths (csrc/fused_mh_logistic.cu, head
+    note), in ``theta``'s dtype (no TF32 split: a model of the order, not of
+    the rounding).  The cluster: ``2 ceil(p / 16)`` feature tiles over the
+    fewest blocks of at most 32 (one up to 256 features), block ``r`` the
+    tiles from ``r tiles``; two warps a row tile, warp ``h`` the tiles of
+    half ``h`` of its block (the first ``ceil(tiles / 2)``, then the rest)
+    and half ``h`` of each panel's 8-observation tiles.
+
+    - The prior's squares: a lane (``t``) over its own units in order, the
+      unit's two elements of the row (features ``8 j + t``, ``8 j + t +
+      4``) in order; the quad; warp 0 then warp 1; the blocks in rank
+      order.
+    - A logit: each block's feature tiles in order, then the blocks in
+      rank order.
+    - The log-likelihood (the exact softplus in float64): a lane over the
+      panels of ``panel_rows`` observations, its warp's 8-observation tiles
+      and its two observations ``8 u + 2 t``, ``8 u + 2 t + 1`` in order;
+      the quad; warp 0 then warp 1.
+
+    Returns ``[n]``: ``(((-mu^2/2 - (log tau)^2/2) - squares/2) [- p log
+    tau]) + loglik`` in the kernels' ``log_density_nc`` /
+    ``log_density_centred`` order."""
+    X = torch.as_tensor(X, dtype=theta.dtype)
+    y = torch.as_tensor(y, dtype=theta.dtype)
+    n, d = theta.shape
+    n_obs, p = X.shape
+    pt = 2 * -(-p // 16)
+    blocks = -(-pt // 32)
+    tiles = -(-pt // blocks)
+    halves = [(0, -(-tiles // 2)), (-(-tiles // 2), tiles)]
+    width = 8 * tiles * blocks
+    mu, lt, w = theta[:, 0], theta[:, 1], theta[:, 2:]
+    tau = torch.exp(lt)
+    beta = w if centred else mu[:, None] + tau[:, None] * w
+    sq = ((w - mu[:, None]) / tau[:, None]) ** 2 if centred else w * w
+    pad = lambda v: torch.cat([v, v.new_zeros(n, width - p)], dim=1)
+    # [n, blocks, tiles, 2 (feature 8 j + t + 4 e), 4 (t)]
+    sq = pad(sq).reshape(n, blocks, tiles, 2, 4)
+    bt = pad(beta).reshape(n, blocks, tiles, 8)
+    Xt = torch.cat([X, X.new_zeros(n_obs, width - p)], dim=1).reshape(n_obs, blocks, tiles, 8)
+    squares = None
+    for r in range(blocks):
+        block = None
+        for j0, j1 in halves:
+            lane = theta.new_zeros(n, 4)
+            for j in range(j0, j1):
+                for e in range(2):
+                    lane = lane + sq[:, r, j, e]
+            block = _quad(lane) if block is None else block + _quad(lane)
+        squares = block if squares is None else squares + block
+    logits = None
+    for r in range(blocks):
+        acc = theta.new_zeros(n, n_obs)
+        for j in range(tiles):
+            acc = acc + bt[:, r, j] @ Xt[:, r, j].T
+        logits = acc if logits is None else logits + acc
+    terms = y * logits - torch.logaddexp(logits, torch.zeros((), dtype=logits.dtype))
+    panels = -(-n_obs // panel_rows)
+    nu = panel_rows // 16
+    loglik = None
+    for h in range(2):
+        lane = theta.new_zeros(n, 4)
+        for k in range(panels):
+            for v in range(nu):
+                for e in range(2):
+                    obs = k * panel_rows + 8 * (h * nu + v) + 2 * torch.arange(4) + e
+                    live = obs < n_obs
+                    part = terms[:, obs.clamp(max=n_obs - 1)] * live.to(terms.dtype)
+                    lane = lane + part
+        loglik = _quad(lane) if loglik is None else loglik + _quad(lane)
+    prior = ((-0.5 * mu) * mu - (0.5 * lt) * lt) - 0.5 * squares
+    if centred:
+        prior = prior - p * lt
+    return prior + loglik
